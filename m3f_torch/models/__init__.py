@@ -1,0 +1,1 @@
+"""models of the port (see the package docstring)."""

@@ -1,0 +1,109 @@
+"""M3F: late-fusion audio-visual valence-arousal model (eval forward).
+
+Counterpart of ``m3f/pytorch_tpu/models/m3f.py`` with ``train=False``:
+
+    video [B, W, L, S, S, 3] uint8 → R(2+1)D → per-frame features
+    wav   [B, W, samples]          → log-mel → AudioCNN → per-frame features
+    nearest upsample to L frames per window → concat (visual ‖ audio)
+    → BiGRU over the W·L frame sequence → Dense (fp32) → tanh
+    → [B, W, L, 2] (per_frame) or [B, W, 2]
+
+Dropout is train-only and comes with the training slice.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+from torch import nn
+
+from m3f_torch.config import ModelConfig
+from m3f_torch.models.audio import AudioCNN
+from m3f_torch.models.gru import BiGRU
+from m3f_torch.models.r2plus1d import R2Plus1D
+from m3f_torch.nn import Dense, compute_dtype, resolve_device
+from m3f_torch.ops.melspec import log_mel_spectrogram
+
+
+def upsample_nearest(x: torch.Tensor, length: int) -> torch.Tensor:
+    """[B, T', C] → [B, length, C] with idx[l] = ⌊l·T'/length⌋."""
+    tp = x.shape[1]
+    if tp == length:
+        return x
+    idx = (torch.arange(length, device=x.device) * tp) // length
+    return x.index_select(1, idx)
+
+
+class M3F(nn.Module):
+    def __init__(self, cfg: ModelConfig, device="cuda",
+                 generator: Optional[torch.Generator] = None):
+        """Random fan-in init from ``generator`` (default: seed 0), on
+        ``device``; a CUDA device without a GPU raises."""
+        super().__init__()
+        dev = resolve_device(device)
+        gen = generator if generator is not None \
+            else torch.Generator().manual_seed(0)
+        self.cfg = cfg
+        self.dtype = compute_dtype(cfg.compute_dtype)
+        self.audio = AudioCNN(cfg.audio, gen) if cfg.use_audio else None
+        self.visual = R2Plus1D(cfg.visual, gen) if cfg.use_video else None
+        self.gru = BiGRU(cfg.fused_dim, cfg.gru.hidden_size, gen,
+                         cfg.gru.num_layers, backend=cfg.gru.backend,
+                         bidirectional=cfg.gru.bidirectional)
+        head_in = (2 if cfg.gru.bidirectional else 1) * cfg.gru.hidden_size
+        self.head = Dense(head_in, cfg.num_outputs, gen)
+        self.to(dev)
+        self.eval()
+
+    @torch.no_grad()
+    def forward(self, video: Optional[torch.Tensor] = None,
+                mel: Optional[torch.Tensor] = None,
+                wav: Optional[torch.Tensor] = None,
+                hop=None) -> torch.Tensor:
+        """Eval forward. ``wav`` [B, W, samples] goes through the log-mel
+        frontend (``hop``: per-video mel hop with a max-hop-sized buffer);
+        ``mel`` [B, W, F, n_mels] skips it."""
+        cfg = self.cfg
+        if self.audio is not None and mel is None and wav is not None:
+            mel = log_mel_spectrogram(
+                wav, cfg.mel, out_dtype=self.dtype, hop=hop,
+                n_frames_out=(cfg.audio.mel_frames_per_window
+                              if hop is not None else None))
+        per_frame = cfg.per_frame
+        if per_frame:
+            L = video.shape[2] if video is not None else cfg.frames_per_window
+        feats = []
+        if self.visual is not None:
+            if video is None:
+                raise ValueError("model configured with use_video=True needs video")
+            b, w = video.shape[:2]
+            flat = video.reshape((b * w,) + video.shape[2:])
+            if flat.dtype == torch.uint8:
+                flat = flat.to(self.dtype) / 255.0
+            else:
+                flat = flat.to(self.dtype)
+            vfeat = self.visual(flat, per_frame=per_frame)
+            if per_frame:
+                feats.append(upsample_nearest(vfeat, L).reshape(b, w * L, -1))
+            else:
+                feats.append(vfeat.reshape(b, w, -1))
+        if self.audio is not None:
+            if mel is None:
+                raise ValueError("model configured with use_audio=True needs "
+                                 "wav or mel")
+            b, w = mel.shape[:2]
+            flat = mel.reshape((b * w,) + mel.shape[2:]).to(self.dtype)
+            afeat = self.audio(flat, per_frame=per_frame)
+            if per_frame:
+                feats.append(upsample_nearest(afeat, L).reshape(b, w * L, -1))
+            else:
+                feats.append(afeat.reshape(b, w, -1))
+        fused = torch.cat(feats, dim=-1)
+        seq = self.gru(fused)
+        out = self.head(seq.float())
+        if cfg.head_activation == "tanh":
+            out = torch.tanh(out)
+        if per_frame:
+            out = out.reshape(out.shape[0], -1, L, out.shape[-1])
+        return out

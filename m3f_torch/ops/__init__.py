@@ -1,0 +1,1 @@
+"""ops of the port (see the package docstring)."""

@@ -1,0 +1,1 @@
+"""train of the port (see the package docstring)."""

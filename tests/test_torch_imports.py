@@ -1,0 +1,73 @@
+"""Import and device hygiene of the port: ``m3f_torch`` and every submodule
+import without JAX or the JAX package, entry points refuse a missing GPU
+instead of falling back to the CPU, and ``chip_smoke.py`` fails (printing no
+result) without a GPU or without the package beside it."""
+
+import os
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+REPO = Path(__file__).resolve().parents[1]
+
+_IMPORT_ALL = """
+import importlib, pkgutil, sys
+import m3f_torch
+names = [m.name for m in pkgutil.walk_packages(m3f_torch.__path__, "m3f_torch.")]
+for n in names:
+    importlib.import_module(n)
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith(("jax.", "jaxlib"))
+             or m == "m3f" or m.startswith("m3f."))
+print(len(names), bad)
+"""
+
+
+@pytest.fixture(autouse=True)
+def _one_thread():
+    torch.set_num_threads(1)
+
+
+def _env():
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(REPO)
+    return env
+
+
+def test_port_imports_no_jax_and_nothing_of_the_jax_package():
+    out = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=REPO,
+                         env=_env(), capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    count, bad = out.stdout.strip().split(" ", 1)
+    assert int(count) >= 15          # every module of the slice was imported
+    assert bad == "[]"
+
+
+def test_entry_points_need_a_gpu_unless_asked_for_the_cpu():
+    from m3f_torch.infer import Predictor
+    from m3f_torch.models.m3f import M3F
+    from m3f_torch.config import ModelConfig
+    if torch.cuda.is_available():
+        assert Predictor().model.head.kernel.is_cuda
+    else:
+        with pytest.raises(RuntimeError, match="cuda"):
+            Predictor()
+        with pytest.raises(RuntimeError, match="cuda"):
+            M3F(ModelConfig())
+
+
+def test_chip_smoke_fails_without_gpu_or_package(tmp_path):
+    alone = tmp_path / "alone"
+    alone.mkdir()
+    shutil.copy(REPO / "chip_smoke.py", alone / "chip_smoke.py")
+    for cwd in [alone] + ([] if torch.cuda.is_available() else [REPO]):
+        out = subprocess.run([sys.executable, "chip_smoke.py"], cwd=cwd,
+                             env={k: v for k, v in os.environ.items()
+                                  if k != "PYTHONPATH"},
+                             capture_output=True, text=True, timeout=120)
+        assert out.returncode != 0
+        assert '"ok"' not in out.stdout
