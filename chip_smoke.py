@@ -14,6 +14,13 @@ H100 (``python3 chip_smoke.py``). It
    the same check is shown to refuse a zeroed, channel-shifted or
    partial-tile-short s1; then checks each kernel at a few shapes off the
    main path's tiling (masked edges);
+   The four backward kernels of the conv units (data and filter gradient,
+   spatial and temporal) are held the same way at the fusion train step's
+   shapes: dx per element (one bf16 ulp, carried through inv), dw per
+   element (1e-5 of sum |x^|*|ge|), dinv / dshift per channel; each check
+   is shown to refuse a zeroed dinv, a dw one channel off and a dx with a
+   row tile left out; they are timed beside their plain versions and
+   cuDNN's backward (``torch.nn.grad.conv3d_input`` / ``conv3d_weight``);
 3. serves a synthetic 1024-frame video through ``Predictor(preset=
    "longseq_eval")`` at full width with seeded random weights: a 30 fps
    request, a 25 fps request (per-video mel hop) and a chunked one
@@ -21,7 +28,15 @@ H100 (``python3 chip_smoke.py``). It
    just before and read just after; every kernel must have launched;
 4. runs the same weights of a narrow model through the port on the CPU
    (plain versions) and on the card (kernels) and compares the predictions;
-5. prints the ``kernels`` line, the card line and, last,
+5. trains the full-width ``fusion`` preset (R(2+1)D-18, batch 8 x 4
+   windows x 16 frames of 112x112, seeded random weights, synthetic data)
+   through ``Trainer.fit``: 2 warm steps, then 10 timed steps with the
+   counters set to 0 just before; each kernel must have launched exactly
+   its per-step count times 10, loss and grad norm must be finite and the
+   params must move (s/step, clips/s, peak memory); then 3 steps of a
+   narrow model on the CPU and on the card, from the same weights and
+   batches, compared;
+6. prints the ``kernels`` line, the card line and, last,
    ``{"ok": true, "device": {...}}``.
 
 Any failed check exits non-zero. Without a GPU, or without the package next
@@ -47,9 +62,31 @@ CONV_Y_ABS = 1e-5        # ... plus a floor, relative to max|y|, near zero
 CONV_S_REL = 1e-5        # channel sums, per channel: fp32 summation order,
 #                          relative to sum|y| and to s2 (see sum_limits)
 CONV_BM = 128            # the conv kernel's row tile (BM in conv_bn.cu)
+#                          bf16 dx per element: one ulp (the fp32 summation
+#                          order of dx^); with the prologue, that ulp of dx^
+#                          carried through the scale by |inv| plus two ulps
+#                          of dx for the two roundings of dxa*inv (half an ulp
+#                          each, a whole one above a power of two) ...
+BWD_DX_ABS = 1e-5        # ... plus a floor, relative to max|dx|, near zero
+BWD_DW_REL = 1e-5        # fp32 dw per element: 1e-5 of sum|x^|*|ge| (fp32
+#                          summation order over up to 1.6 M pixels) ...
+BWD_DW_ABS = 1e-6        # ... plus a floor, relative to max of that sum
+BWD_S_REL = 1e-5         # dinv/dshift per channel: the dx^ differences held
+#                          above, carried (sum|x|*|dxa - dxa_ref|), plus 1e-5
+#                          of sum|x*dxa_ref| for the fp32 summation order
 PATH_ATOL = 3e-2         # whole-path bf16 preds (tanh outputs), card vs CPU
 PATH_MEAN_ATOL = 5e-3
 CHUNK_ATOL = 3e-2        # fused vs chunked eval of one video on the card
+TRAIN_LOSS_ATOL = 1e-2   # narrow training (a two-stage R(2+1)D, 3 SGD
+#                          steps), card vs CPU, per-step loss; at this size
+#                          the CPU's own bf16 vs fp32 run moves the losses
+#                          by <= 3.6e-3 (measured on the CPU before the
+#                          card run), and the phase reports that gap beside
+TRAIN_PARAM_REL = 0.5    # ... and |params_card - params_cpu| (L2) within
+#                          half the L2 norm of the CPU run's param move
+#                          (bf16 vs fp32 on the CPU: 0.23): a random-init
+#                          net training on batch statistics amplifies
+#                          one-ulp differences of its bf16 convs
 
 PEAK_BF16 = 989e12       # H100 SXM dense bf16 tensor rate, FLOP/s
 PEAK_FP32 = 67e12        # H100 SXM fp32 rate outside the tensor cores
@@ -276,6 +313,227 @@ def check_conv(torch, F, conv_bn):
     return [out["spatial"], out["temporal"]]
 
 
+def _train_units(clips):
+    """(kind, x shape, w shape, affine, copies per train step) of the fused
+    units of the full-width fusion train step over ``clips`` = B*W clips:
+    per fused block conv1's spatial unit (no prologue) and temporal unit,
+    conv2's spatial and temporal units (all three with the BN prologue)."""
+    units = []
+    for c, t, s, n in ((64, 16, 56, 2), (128, 8, 28, 1), (256, 4, 14, 1),
+                       (512, 2, 7, 1)):
+        mid = (27 * c * c) // (9 * c + 3 * c)
+        units += [("spatial", (clips, t, s, s, c), (3, 3, c, mid), False, n),
+                  ("spatial", (clips, t, s, s, c), (3, 3, c, mid), True, n),
+                  ("temporal", (clips, t, s, s, mid), (3, mid, c), True, 2 * n)]
+    return units
+
+
+def ulp_bf16(torch, v):
+    """One bf16 ulp at |v| (the spacing of bf16 values around it)."""
+    a = v.float().abs().clamp_min(2.0 ** -126)
+    return torch.exp2(torch.floor(torch.log2(a)) - 7)
+
+
+def _abs_filter(torch, conv_bn, xh, ge, kind):
+    """sum over pixels of |x^| * |ge| per filter element, fp32 (the scale
+    of the filter gradient's summation error)."""
+    ci, co = xh.shape[-1], ge.shape[-1]
+    ksize = (1, 3, 3) if kind == "spatial" else (3, 1, 1)
+    pad = (0, 1, 1) if kind == "spatial" else (1, 0, 0)
+    dk = torch.nn.grad.conv3d_weight(
+        xh.abs().float().permute(0, 4, 1, 2, 3), (co, ci) + ksize,
+        ge.abs().float().permute(0, 4, 1, 2, 3), padding=pad)
+    if kind == "spatial":
+        return dk[:, :, 0].permute(2, 3, 1, 0)
+    return dk[:, :, :, 0, 0].permute(2, 1, 0)
+
+
+def bwd_within(torch, got, ref, lim):
+    """Every check of one backward unit: dx per element, dw per element,
+    dinv / dshift per channel (``lim`` from bwd_limits)."""
+    dx, dw, dinv, dshift = got
+    ok = bool(((dx.float() - ref[0].float()).abs() <= lim["dx"]).all())
+    ok = ok and bool(((dw - ref[1]).abs() <= lim["dw"]).all())
+    if dinv is not None:
+        ok = ok and bool(((dinv - ref[2]).abs() <= lim["dinv"]).all())
+        ok = ok and bool(((dshift - ref[3]).abs() <= lim["dshift"]).all())
+    return ok
+
+
+def bwd_limits(torch, conv_bn, x, inv, shift, y, gy, gs1, gs2, ref, dxa,
+               dxa_ref, kind):
+    """Per-element and per-channel limits of one backward unit (see the
+    BWD_* tolerances). ``dxa`` / ``dxa_ref`` are the masked dx^ of the
+    kernel and the plain version (the data gradient before the scale by
+    inv; equal to dx without the prologue)."""
+    dx0 = ref[0].float()
+    lim = {"dx": ulp_bf16(torch, dx0) + BWD_DX_ABS * dx0.abs().max()}
+    if inv is not None:
+        lim["dx"] = lim["dx"] + ulp_bf16(torch, dx0) \
+            + inv.to(x.dtype).float().abs() * ulp_bf16(torch, dxa_ref)
+    xh = conv_bn._prologue(x, inv, shift)
+    ge = conv_bn._gy_eff(gy, y, gs1, gs2)
+    dwa = _abs_filter(torch, conv_bn, xh, ge, kind)
+    lim["dw"] = BWD_DW_REL * dwa + BWD_DW_ABS * dwa.max()
+    if inv is not None:
+        dims = tuple(range(x.dim() - 1))
+        xf, da, dr = x.float(), dxa.float(), dxa_ref.float()
+        lim["dinv"] = (xf.abs() * (da - dr).abs()).sum(dims) \
+            + BWD_S_REL * (xf * dr).abs().sum(dims) + 1e-6
+        lim["dshift"] = (da - dr).abs().sum(dims) + BWD_S_REL * dr.abs().sum(dims) \
+            + 1e-6
+    return lim
+
+
+def check_bwd_unit(torch, conv_bn, what, x, w, inv, shift, gy, gs1, gs2,
+                   kind):
+    """One backward unit: kernel (data + filter) vs the plain version, held
+    per element (dx, dw) and per channel (dinv, dshift); then shows that the
+    same checks refuse a zeroed dinv, a dw one output channel off and a dx
+    whose last row tile (the partial one where there is one) is left out.
+    Returns the kernel's outputs, the reference and the worst error of each."""
+    y, _, _ = conv_bn.conv_unit_fwd(x, w, inv, shift, kind=kind)
+    dx, dinv, dshift = conv_bn.conv_unit_bwd_data(
+        x, w, inv, shift, y, gy, gs1, gs2, kind=kind)
+    dw = conv_bn.conv_unit_bwd_filter(x, inv, shift, y, gy, gs1, gs2, kind=kind)
+    ref = conv_bn.conv_unit_bwd_reference(x, w, inv, shift, y, gy, gs1, gs2,
+                                          kind=kind)
+    if inv is not None:
+        # the masked dx^ before the scale by inv, recovered from the mask
+        mask = (x * inv.to(x.dtype) + shift.to(x.dtype)) > 0
+        dxa_ref = conv_bn.conv_unit_bwd_data_reference(
+            x, w, None, None, y, gy, gs1, gs2, kind=kind)[0] * mask
+        dxa = conv_bn.conv_unit_bwd_data(x, w, None, None, y, gy, gs1, gs2,
+                                         kind=kind)[0] * mask
+    else:
+        dxa, dxa_ref = dx, ref[0]
+    lim = bwd_limits(torch, conv_bn, x, inv, shift, y, gy, gs1, gs2, ref, dxa,
+                     dxa_ref, kind)
+    got = (dx, dw, dinv, dshift)
+    errs = {"dx": (dx.float() - ref[0].float()).abs().max().item(),
+            "dw": (dw - ref[1]).abs().max().item()}
+    if dinv is not None:
+        errs["dinv_over_limit"] = ((dinv - ref[2]).abs() / lim["dinv"]).max().item()
+        errs["dshift_over_limit"] = ((dshift - ref[3]).abs() / lim["dshift"]).max().item()
+    errs["dw_over_limit"] = ((dw - ref[1]).abs() / lim["dw"]).max().item()
+    errs["dx_over_limit"] = ((dx.float() - ref[0].float()).abs()
+                             / lim["dx"]).max().item()
+    require(bwd_within(torch, got, ref, lim), f"{what}: backward off: {errs}")
+    wrong = {"dw_one_channel_off": (dx, dw.roll(1, dims=-1), dinv, dshift)}
+    if dinv is not None:
+        wrong["dinv_zero"] = (dx, dw, dinv * 0, dshift)
+    rows = math.prod(dx.shape[:-1]) % CONV_BM or CONV_BM
+    cut = dx.clone().reshape(-1, dx.shape[-1])
+    cut[-rows:] = 0
+    wrong["dx_last_tile_left_out"] = (cut.reshape(dx.shape), dw, dinv, dshift)
+    passed = [k for k, v in wrong.items() if bwd_within(torch, v, ref, lim)]
+    require(not passed, f"{what}: the backward checks would pass: {passed}")
+    return y, errs
+
+
+def check_bwd(torch, conv_bn, clips=32):
+    """The four backward kernels at the fusion train step's shapes: each
+    held against its plain version, timed beside the plain version and
+    cuDNN's backward (torch.nn.grad.conv3d_input / conv3d_weight, bf16)."""
+    g = torch.Generator(device="cuda").manual_seed(6)
+    out = {}
+    for kind, xs, ws, affine, copies in _train_units(clips):
+        x = torch.randn(*xs, device="cuda", generator=g).to(torch.bfloat16)
+        k = math.prod(ws[:-1])
+        w = ((torch.rand(*ws, device="cuda", generator=g) * 2 - 1)
+             / math.sqrt(k)).to(torch.bfloat16)
+        a = (None, None)
+        if affine:
+            a = (torch.rand(xs[-1], device="cuda", generator=g) + 0.5,
+                 torch.randn(xs[-1], device="cuda", generator=g) * 0.1)
+        co = ws[-1]
+        gy = (torch.randn(*xs[:-1], co, device="cuda", generator=g) * 1e-2
+              ).to(torch.bfloat16)
+        gs1 = torch.randn(co, device="cuda", generator=g) * 1e-5
+        gs2 = torch.randn(co, device="cuda", generator=g) * 1e-6
+        what = f"conv unit bwd {kind} {xs} affine={affine}"
+        y, errs = check_bwd_unit(torch, conv_bn, what, x, w, *a, gy, gs1, gs2,
+                                 kind)
+        xh = conv_bn._prologue(x, *a)
+        ge = conv_bn._gy_eff(gy, y, gs1, gs2)
+        kern, pad = conv_bn._torch_kernel(w, kind)
+        kern = kern.contiguous(memory_format=torch.channels_last_3d)
+        xn, gn = xh.permute(0, 4, 1, 2, 3), ge.permute(0, 4, 1, 2, 3)
+        xshape = (xs[0], xs[-1]) + tuple(xs[1:4])
+        times = {
+            "data": (timed(torch, lambda: conv_bn.conv_unit_bwd_data(
+                        x, w, *a, y, gy, gs1, gs2, kind=kind)),
+                     timed(torch, lambda: conv_bn.conv_unit_bwd_data_reference(
+                         x, w, *a, y, gy, gs1, gs2, kind=kind)),
+                     timed(torch, lambda: torch.nn.grad.conv3d_input(
+                         xshape, kern, gn, padding=pad))),
+            "filter": (timed(torch, lambda: conv_bn.conv_unit_bwd_filter(
+                          x, *a, y, gy, gs1, gs2, kind=kind)),
+                       timed(torch, lambda: conv_bn.conv_unit_bwd_filter_reference(
+                           x, *a, y, gy, gs1, gs2, kind=kind)),
+                       timed(torch, lambda: torch.nn.grad.conv3d_weight(
+                           xn, kern.shape, gn, padding=pad)))}
+        m, n_co, n_ci = math.prod(xs[:-1]), co, xs[-1]
+        flops = 2 * m * k * n_co
+        vec = 2 * n_co * 4 + (2 * n_ci * 4 if affine else 0)
+        nbytes = {"data": 2 * m * n_co * 2 + w.numel() * 2 + m * n_ci * 2
+                  + (m * n_ci * 2 if affine else 0) + vec + (2 * n_ci * 4 if affine else 0),
+                  "filter": m * n_ci * 2 + 2 * m * n_co * 2 + vec
+                  + w.numel() * 4}
+        for part in ("data", "filter"):
+            ms, plain, lib = times[part]
+            emit({"phase": f"kernel_conv_bwd_{part}", "kind": kind, "x": list(xs),
+                  "w": list(ws), "affine": affine, "per_step": copies,
+                  "errors": errs, "ms": ms, "plain_ms": plain,
+                  "library_ms": lib, "tflops": flops / ms / 1e9})
+            name = f"conv_{kind}_bwd_{part}"
+            acc = out.setdefault(name, {"name": name, "max_abs_err": 0.0,
+                                        "ms": 0.0, "plain_ms": 0.0,
+                                        "library_ms": 0.0, "_ops": 0.0,
+                                        "_bytes": 0.0})
+            e = errs["dx"] if part == "data" else errs["dw"]
+            acc["max_abs_err"] = max(acc["max_abs_err"], e)
+            for key, v in (("ms", ms), ("plain_ms", plain), ("library_ms", lib),
+                           ("_ops", flops / PEAK_BF16 * 1e3),
+                           ("_bytes", nbytes[part] / HBM * 1e3)):
+                acc[key] += copies * v
+        del x, y, gy, xh, ge, xn, gn
+        torch.cuda.empty_cache()
+    for acc in out.values():
+        t_ops, t_bytes = acc.pop("_ops"), acc.pop("_bytes")
+        acc["bound_ms"] = max(t_ops, t_bytes)
+        acc["bound_by"] = "operations" if t_ops >= t_bytes else "bytes"
+    return [out[k] for k in BWD_KERNELS]
+
+
+BWD_KERNELS = ("conv_spatial_bwd_data", "conv_spatial_bwd_filter",
+               "conv_temporal_bwd_data", "conv_temporal_bwd_filter")
+
+
+def check_bwd_edges(torch, conv_bn):
+    """The backward kernels at shapes off the tiling: a partial row tile,
+    masked output channels, images smaller than a tile, with and without
+    the prologue."""
+    g = torch.Generator(device="cuda").manual_seed(7)
+    errs = {}
+    for kind, xs, ws in (("spatial", (3, 5, 7, 9, 24), (3, 3, 24, 40)),
+                         ("temporal", (2, 7, 5, 3, 40), (3, 40, 24))):
+        for affine in (False, True):
+            x = torch.randn(*xs, device="cuda", generator=g).to(torch.bfloat16)
+            w = (torch.randn(*ws, device="cuda", generator=g) * 0.1).to(torch.bfloat16)
+            a = (torch.rand(xs[-1], device="cuda", generator=g) + 0.5,
+                 torch.randn(xs[-1], device="cuda", generator=g) * 0.1) \
+                if affine else (None, None)
+            co = ws[-1]
+            gy = torch.randn(*xs[:-1], co, device="cuda", generator=g).to(torch.bfloat16)
+            gs1 = torch.randn(co, device="cuda", generator=g) * 0.1
+            gs2 = torch.randn(co, device="cuda", generator=g) * 0.01
+            _, errs[f"{kind}_affine={affine}"] = check_bwd_unit(
+                torch, conv_bn, f"conv unit bwd {kind} at edge shape {xs} "
+                f"affine={affine}", x, w, *a, gy, gs1, gs2, kind)
+    emit({"phase": "kernel_bwd_edge_shapes", "errors": errs})
+
+
 def check_edges(torch, melspec, gru, conv_bn, cfg):
     """Shapes off the main path's tiling, for the kernels' masked edges:
     conv tiles with a partial row tile and masked output channels, a GRU
@@ -320,6 +578,9 @@ def synthetic_video(np, n, fps, seed):
     return frames, wav
 
 
+FORWARD_KERNELS = ("melspec", "gru", "conv_spatial", "conv_temporal")
+
+
 def serve(torch, np, cuda_lib, p, frames, wav, fps=None):
     cuda_lib.reset_launches()
     torch.cuda.synchronize()
@@ -331,9 +592,118 @@ def serve(torch, np, cuda_lib, p, frames, wav, fps=None):
     require(pred.shape == (len(frames), 2), f"pred shape {pred.shape}")
     require(bool(np.isfinite(pred).all()), "non-finite predictions")
     require(bool((np.abs(pred) <= 1.0).all()), "predictions outside [-1, 1]")
-    missing = [k for k, v in counts.items() if v == 0]
+    missing = [k for k in FORWARD_KERNELS if counts[k] == 0]
     require(not missing, f"kernels not launched on the main path: {missing}")
     return pred, counts, dt
+
+
+def synthetic_stream(np, cfg, SyntheticAVDataset, WindowSequencer,
+                     example_stream, seed):
+    """The train stream over the seeded synthetic set (its data is made
+    before the timed steps)."""
+    ds = SyntheticAVDataset(cfg.data, cfg.model.mel, seed=seed)
+    seq = WindowSequencer(cfg.window, cfg.model.mel, fps=cfg.data.fps,
+                          mel_frames=cfg.model.audio.mel_frames_per_window)
+    for vid in ds.video_ids():
+        ds.load_video(vid)
+    return lambda skip: example_stream(ds, seq, cfg.train.batch_size,
+                                       seed=seed, skip_batches=skip)
+
+
+def train_fusion(torch, np, cuda_lib, config, Trainer, data):
+    """The full-width fusion preset trains on the card through Trainer.fit:
+    2 warm steps, then 10 timed steps whose launches must be exactly the
+    kernels' per-step counts times 10."""
+    cfg = config.apply_overrides(config.fusion(), {"train.log_every": 1})
+    tr = Trainer(cfg)
+    stream = synthetic_stream(np, cfg, *data, seed=0)
+    tr.fit(stream, num_steps=2, log=lambda s: None)             # warm
+    before = {n: p.detach().clone() for n, p in tr.model.named_parameters()}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    steps = 10
+    cuda_lib.reset_launches()
+    t0 = time.perf_counter()
+    _, hist = tr.fit(stream, num_steps=steps, log=lambda s: None)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = dict(cuda_lib.launches)
+    per_step = {"melspec": 1, "gru": cfg.model.gru.num_layers,
+                "conv_spatial": 10, "conv_temporal": 10,
+                "conv_spatial_bwd_data": 10, "conv_spatial_bwd_filter": 10,
+                "conv_temporal_bwd_data": 10, "conv_temporal_bwd_filter": 10}
+    want = {k: v * steps for k, v in per_step.items()}
+    require(counts == want, f"train launches {counts}, expected {want}")
+    loss, gnorm = hist["loss"], hist["grad_norm"]
+    require(len(loss) == steps and all(math.isfinite(v) for v in loss + gnorm),
+            f"train loss {loss}, grad norm {gnorm}")
+    moved = max((p.detach() - before[n]).abs().max().item()
+                for n, p in tr.model.named_parameters())
+    require(moved > 0, "the params did not move")
+    clips = cfg.train.batch_size * cfg.window.windows_per_clip
+    emit({"phase": "train_fusion", "batch": cfg.train.batch_size,
+          "windows": cfg.window.windows_per_clip, "steps": steps,
+          "launches": counts, "s": dt, "s_per_step": dt / steps,
+          "clips_per_s": clips * steps / dt,
+          "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+          "loss": loss, "grad_norm": gnorm, "max_param_move": moved})
+    return counts
+
+
+def train_parity(torch, np, cuda_lib, config, Trainer, data):
+    """One narrow model (a two-stage R(2+1)D whose stage-1 blocks run every
+    fused unit, plus a strided block), the same weights and batches: 3 SGD
+    steps with the plain versions on the CPU and with the kernels on the
+    card; the CPU's own fp32 run is reported beside them."""
+    overrides = {"model.visual.block_channels": [32, 64],
+                 "model.visual.blocks_per_stage": [2, 1],
+                 "model.visual.stem_channels": 32,
+                 "model.visual.feature_dim": 64,
+                 "model.audio.channels": [8, 16, 32, 64],
+                 "model.audio.feature_dim": 64,
+                 "model.gru.hidden_size": 64,
+                 "window.windows_per_clip": 2, "train.batch_size": 2,
+                 "train.log_every": 1, "train.optim.optimizer": "sgd",
+                 "train.optim.learning_rate": 1e-2, "data.image_size": 32,
+                 "data.synthetic_num_videos": 2,
+                 "data.synthetic_video_frames": 64}
+    runs = {}
+    for run, dev, dtype in (("cpu", "cpu", "bfloat16"),
+                            ("cpu_fp32", "cpu", "float32"),
+                            ("card", "cuda", "bfloat16")):
+        cfg = config.apply_overrides(config.fusion(), {
+            **overrides, "model.compute_dtype": dtype})
+        tr = Trainer(cfg, device=dev)
+        if run != "cpu":
+            tr.model.load_state_dict(runs["cpu"][2])
+        init = {k: v.clone() for k, v in tr.model.state_dict().items()}
+        w0 = torch.cat([p.detach().cpu().flatten() for p in tr.model.parameters()])
+        cuda_lib.reset_launches()
+        _, hist = tr.fit(synthetic_stream(np, cfg, *data, seed=1), num_steps=3,
+                         log=lambda s: None)
+        if dev == "cuda":
+            missing = [k for k, v in cuda_lib.launches.items() if v == 0]
+            require(not missing, f"narrow card training skipped {missing}")
+        w = torch.cat([p.detach().cpu().flatten() for p in tr.model.parameters()])
+        runs[run] = (hist["loss"], w, init, w0)
+    loss, w, _, w0 = runs["cpu"]
+    move = (w - w0).norm().item()
+
+    def gap(run):
+        other = runs[run]
+        return (max(abs(a - b) for a, b in zip(loss, other[0])),
+                (other[1] - w).norm().item() / move)
+    dloss, drel = gap("card")
+    ref_loss, ref_rel = gap("cpu_fp32")
+    result = {"phase": "train_parity_cpu_vs_card", "steps": 3,
+              "loss_cpu": loss, "loss_card": runs["card"][0],
+              "max_abs_loss_diff": dloss, "tol_loss": TRAIN_LOSS_ATOL,
+              "param_diff_over_move": drel, "tol_param": TRAIN_PARAM_REL,
+              "cpu_bf16_vs_fp32": {"max_abs_loss_diff": ref_loss,
+                                   "param_diff_over_move": ref_rel}}
+    require(dloss <= TRAIN_LOSS_ATOL and drel <= TRAIN_PARAM_REL,
+            f"narrow training card vs CPU: {result}")
+    emit(result)
 
 
 def main():
@@ -347,9 +717,13 @@ def main():
     repo = os.path.dirname(os.path.abspath(__file__))
     sys.path.insert(0, repo)
     try:
+        from m3f_torch import config
         from m3f_torch.ops import conv_bn, cuda_lib, gru, melspec
         from m3f_torch.config import MelConfig
+        from m3f_torch.data.synthetic import SyntheticAVDataset
+        from m3f_torch.data.windowing import WindowSequencer, example_stream
         from m3f_torch.infer import Predictor
+        from m3f_torch.train.loop import Trainer
     except ImportError as e:
         print(f"chip_smoke: the m3f_torch package is not next to this file "
               f"({e})", file=sys.stderr)
@@ -372,6 +746,8 @@ def main():
     kernels = [check_mel(torch, melspec, MelConfig()), check_gru(torch, gru)]
     kernels += check_conv(torch, F, conv_bn)
     check_edges(torch, melspec, gru, conv_bn, MelConfig())
+    kernels += check_bwd(torch, conv_bn)
+    check_bwd_edges(torch, conv_bn)
     torch.cuda.empty_cache()
 
     # 3. the serving path at full width
@@ -380,8 +756,9 @@ def main():
     torch.cuda.reset_peak_memory_stats()
     p.predict_video(frames=frames, waveform=wav)          # warm run
     pred30, counts30, dt = serve(torch, np, cuda_lib, p, frames, wav)
-    want = {"melspec": 1, "gru": p.cfg.model.gru.num_layers,
-            "conv_spatial": 10, "conv_temporal": 10}
+    want = {k: 0 for k in cuda_lib.launches}
+    want.update({"melspec": 1, "gru": p.cfg.model.gru.num_layers,
+                 "conv_spatial": 10, "conv_temporal": 10})
     require(counts30 == want, f"launches {counts30}, expected {want}")
     emit({"phase": "serve_30fps", "frames": 1024, "launches": counts30,
           "s": dt, "frames_per_s": 1024 / dt,
@@ -423,7 +800,7 @@ def main():
         a = p_cpu.predict_video(frames=f, waveform=w, fps=fps)["pred"]
         cuda_lib.reset_launches()
         b = p_gpu.predict_video(frames=f, waveform=w, fps=fps)["pred"]
-        require(all(cuda_lib.launches.values()),
+        require(all(cuda_lib.launches[k] for k in FORWARD_KERNELS),
                 f"narrow card run skipped a kernel: {cuda_lib.launches}")
         d = np.abs(a - b)
         require(d.max() <= PATH_ATOL and d.mean() <= PATH_MEAN_ATOL,
@@ -433,23 +810,37 @@ def main():
     emit({"phase": "path_parity_cpu_vs_card", "frames": [96, 80],
           "results": results, "tol_max": PATH_ATOL, "tol_mean": PATH_MEAN_ATOL})
 
-    # 5. the kernels line, the card line, the result line
-    replaces = {"melspec": "m3f/pytorch_tpu/ops/pallas/melspec_pallas.py:88",
-                "gru": "m3f/pytorch_tpu/ops/pallas/gru_pallas.py:61",
-                "conv_unit_spatial": "m3f/pytorch_tpu/ops/pallas/conv_bn.py:172",
-                "conv_unit_temporal": "m3f/pytorch_tpu/ops/pallas/conv_bn.py:217"}
+    # 5. the training path at full width, and card vs CPU training
+    data = (SyntheticAVDataset, WindowSequencer, example_stream)
+    counts_train = train_fusion(torch, np, cuda_lib, config, Trainer, data)
+    torch.cuda.empty_cache()
+    train_parity(torch, np, cuda_lib, config, Trainer, data)
+
+    # 6. the kernels line, the card line, the result line
+    pallas = "m3f/pytorch_tpu/ops/pallas/"
+    replaces = {"melspec": pallas + "melspec_pallas.py:88",
+                "gru": pallas + "gru_pallas.py:61",
+                "conv_unit_spatial": pallas + "conv_bn.py:172",
+                "conv_unit_temporal": pallas + "conv_bn.py:217",
+                "conv_spatial_bwd_data": pallas + "conv_bn.py:537",
+                "conv_spatial_bwd_filter": pallas + "conv_bn.py:554",
+                "conv_temporal_bwd_data": pallas + "conv_bn.py:612",
+                "conv_temporal_bwd_filter": pallas + "conv_bn.py:625"}
     counter = {"melspec": "melspec", "gru": "gru",
                "conv_unit_spatial": "conv_spatial",
                "conv_unit_temporal": "conv_temporal"}
-    source = {"melspec": "m3f_torch/csrc/melspec.cu", "gru": "m3f_torch/csrc/gru.cu",
-              "conv_unit_spatial": "m3f_torch/csrc/conv_bn.cu",
-              "conv_unit_temporal": "m3f_torch/csrc/conv_bn.cu"}
+    source = {"melspec": "m3f_torch/csrc/melspec.cu", "gru": "m3f_torch/csrc/gru.cu"}
     line = []
     for k in kernels:
         name = k["name"]
-        line.append({"name": name, "route": "cuda", "source": source[name],
+        # forward kernels: their launches serving one video; backward
+        # kernels: theirs over the 10 timed train steps
+        launches = counts30[counter[name]] if name in counter \
+            else counts_train[name]
+        line.append({"name": name, "route": "cuda",
+                     "source": source.get(name, "m3f_torch/csrc/conv_bn.cu"),
                      "replaces": replaces[name],
-                     "launches": counts30[counter[name]],
+                     "launches": launches,
                      "max_abs_err": k["max_abs_err"], "ms": k["ms"],
                      "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
                      "bound_by": k["bound_by"], "library_ms": k["library_ms"]})

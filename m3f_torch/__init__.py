@@ -11,8 +11,9 @@ each module has a counterpart there, and imports nothing from it.
   into ``build/kernels/`` and bound with ``ctypes`` (``ops/cuda_lib.py``).
 - Every kernel wrapper runs its plain PyTorch version only for tensors on
   the CPU (the tests); for a CUDA tensor it launches the kernel or raises.
-- Entry points (``infer.predictor.Predictor``, ``models.m3f.M3F``) default
-  to ``device="cuda"`` and raise when no GPU is present.
+- Entry points (``infer.predictor.Predictor``, ``train.loop.Trainer``,
+  ``models.m3f.M3F``) default to ``device="cuda"`` and raise when no GPU is
+  present.
 """
 
 __version__ = "0.1.0"

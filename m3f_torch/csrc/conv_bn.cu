@@ -1,39 +1,69 @@
-// Fused conv + BatchNorm forward units of the R(2+1)D blocks.
+// Fused conv + BatchNorm units of the R(2+1)D blocks: forward, and the
+// backward's data and filter gradients.
 //
-// Replaces: m3f/pytorch_tpu/ops/pallas/conv_bn.py _spatial_fwd (kernel body
-//           _spatial_fwd_kernel) and _temporal_fwd (_temporal_fwd_kernel),
-//           the forward of conv_unit / conv_unit_fwd.
+// Replaces: m3f/pytorch_tpu/ops/pallas/conv_bn.py
+//   forward   _spatial_fwd (kernel _spatial_fwd_kernel) and _temporal_fwd
+//             (_temporal_fwd_kernel), the forward of conv_unit;
+//   backward  _spatial_bwd: data (_spatial_bwd_data_kernel, pallas_call at
+//             :537) and filter (_spatial_bwd_filter_kernel, :554);
+//             _temporal_bwd: data (_temporal_bwd_data_kernel, :612) and
+//             filter (_temporal_bwd_filter_kernel, :625).
 //
+// Forward unit:
 //   prologue:  x^ = relu(bf16(bf16(x * inv) + shift))   (previous BN + ReLU,
 //                                                       optional)
 //   conv:      y  = bf16(x^ (*) W)   (1,3,3) or (3,1,1), stride 1, pad 1,
 //                                    fp32 accumulation
 //   epilogue:  s1 = sum y, s2 = sum y^2 per output channel, fp32, over the
 //              ROUNDED y
+// Backward, with the cotangents (gy, gs1, gs2) folded into
+//   ge = bf16(gy + bf16(gs1 + 2 * f32(y) * gs2))
+//   data:      dx^ = bf16(ge (*) flip(W)^T); with the prologue
+//              dxa = (bf16(bf16(x * inv) + shift) > 0) ? dx^ : 0,
+//              dx = bf16(dxa * bf16(inv)), dinv = sum x * dxa,
+//              dshift = sum dxa (fp32, per input channel)
+//   filter:    dW[tap*Ci + ci, co] = sum over pixels of
+//              x^[p + off(tap), ci] * ge[p, co], fp32
 //
-// Bound on an H100: operations. As an implicit GEMM it is M = B*T*H*W
-// output pixels, N = C_out, K = 9*C_in (spatial) or 3*C_in (temporal); at
-// the main path's stage-1 spatial unit (M = 6.4 M, K = 576, N = 144) that is
-// 1.07 TFLOP against ~2.7 GB of input and output, far above the ~295
-// FLOP/byte at which the bf16 tensor cores (989 TFLOP/s) and not memory
-// (3.35 TB/s) set the floor.
+// Bound on an H100: operations. As implicit GEMMs over the M = B*T*H*W
+// pixels, with K = 9*C (spatial) or 3*C (temporal) taps x channels, the
+// forward and the data gradient are [M, K] x [K, N] products and the filter
+// gradient is a [K, M] x [M, N] product; at the main path's stage-1 spatial
+// unit (M = 1.6 M pixels per train step, K = 576, N = 144) each is 0.27
+// TFLOP against ~1 GB of input and output, far above the ~295 FLOP/byte at
+// which the bf16 tensor cores (989 TFLOP/s) and not memory (3.35 TB/s) set
+// the floor.
 //
-// Design (a simple, correct tensor-core kernel; wgmma / TMA come later):
-// - A 128 x BN output tile per block, 4 warps in 2 x 2, each warp 64 x BN/2
-//   with mma.sync m16n8k16 bf16 -> fp32 and ldmatrix fragment loads.
-// - K runs in chunks of 32 over the flattened (tap, c_in) axis. Each thread
-//   gathers its A rows as 16-byte vectors straight from the NDHWC activation
-//   at the tap's offset; a tap that falls outside the image (or clip) is the
-//   conv's zero padding, written as zeros AFTER the prologue. The prologue
-//   rounds like the reference: product to bf16, then sum to bf16, then ReLU.
-// - Chunks go global -> registers -> shared memory, double-buffered: the
-//   next chunk's loads are in flight while the tensor cores work on this one.
-// - Epilogue: y is rounded to bf16 and stored; the rounded values feed the
-//   per-channel sums. The TPU grid is sequential and carries the sums across
-//   steps; CUDA blocks run in parallel, so each block loops over a few row
-//   tiles, reduces its sums in a fixed order (warp shuffles, then shared
-//   memory) and writes one partial row; a second small kernel sums the
-//   partial rows per channel in a fixed order. No atomics: deterministic.
+// Design (simple, correct tensor-core kernels; wgmma / TMA come later):
+// - Forward and data gradient share one kernel (MODE 0 / 1): a 128 x BN
+//   output tile per block, 4 warps in 2 x 2, each warp 64 x BN/2 with
+//   mma.sync m16n8k16 bf16 -> fp32 and ldmatrix fragment loads. K runs in
+//   chunks of 32 over the flattened (tap, channel) axis; each thread gathers
+//   its A rows as 16-byte vectors straight from the NDHWC tensor at the
+//   tap's offset. A tap outside the image (or clip) is the conv's zero
+//   padding, written as zeros AFTER the prologue (forward) or after ge is
+//   formed (data gradient, which gathers gy and y and forms ge with its two
+//   roundings in the gather). The data gradient's B operand is the flipped,
+//   transposed filter, so the same gather reads ge at the forward's offsets.
+// - Chunks go global -> registers -> shared memory, double-buffered.
+// - Forward epilogue: y is rounded and stored; the rounded values feed the
+//   per-channel sums. Data-gradient epilogue: the ReLU mask recomputes the
+//   forward prologue's two roundings from x (or ReLU edges flip), and the
+//   dinv / dshift sums ride the same per-channel machinery. The TPU grid is
+//   sequential and carries sums across steps; CUDA blocks run in parallel,
+//   so each block loops over a few row tiles, reduces its sums in a fixed
+//   order (warp shuffles, then shared memory) into one partial row, and a
+//   second kernel sums the rows per channel in a fixed order. No atomics.
+// - Filter gradient: the output [K, N] is small and the reduction over
+//   pixels very long (1.6 M at stage 1), so parallelism comes from splitting
+//   the pixel axis into slices: grid (K tiles, N tiles, slices), each block
+//   reducing its slice in 32-pixel chunks into a 128 x BN fp32 tile. Both
+//   operands are staged pixel-major in shared memory ([pixel][k] and
+//   [pixel][n], as they lie in memory) and fed to the tensor cores with
+//   ldmatrix.trans. Each slice writes its own fp32 partial; a last kernel
+//   sums the slices in a fixed order. The caller bounds the partial buffer
+//   (at stage 4, K*N is 4608 x 1152 = 21 MB in fp32, and M only 3,136, so
+//   it takes one or two slices).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -42,10 +72,12 @@
 namespace {
 
 typedef __nv_bfloat16 bf16;
+typedef __nv_bfloat162 bf162;
 
-constexpr int BM = 128;          // output pixels per tile
-constexpr int BK = 32;           // K per chunk
+constexpr int BM = 128;          // output pixels (or filter rows) per tile
+constexpr int BK = 32;           // K (or pixels, filter gradient) per chunk
 constexpr int LDS = BK + 8;      // shared row stride (bf16): 80 B, conflict-free
+constexpr int LDX = BM + 8;      // filter gradient: [pixel][k] row stride
 constexpr int THREADS = 128;
 
 __device__ __forceinline__ float rnd(float v) {
@@ -57,9 +89,9 @@ __device__ __forceinline__ uint4 prologue(uint4 v, const bf16* inv,
                                           const bf16* shift) {
   const uint4 iv = *reinterpret_cast<const uint4*>(inv);
   const uint4 sv = *reinterpret_cast<const uint4*>(shift);
-  __nv_bfloat162* p = reinterpret_cast<__nv_bfloat162*>(&v);
-  const __nv_bfloat162* pi = reinterpret_cast<const __nv_bfloat162*>(&iv);
-  const __nv_bfloat162* ps = reinterpret_cast<const __nv_bfloat162*>(&sv);
+  bf162* p = reinterpret_cast<bf162*>(&v);
+  const bf162* pi = reinterpret_cast<const bf162*>(&iv);
+  const bf162* ps = reinterpret_cast<const bf162*>(&sv);
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const float2 x = __bfloat1622float2(p[i]);
@@ -70,6 +102,24 @@ __device__ __forceinline__ uint4 prologue(uint4 v, const bf16* inv,
     p[i] = __floats2bfloat162_rn(y0, y1);
   }
   return v;
+}
+
+// ge = bf16(gy + bf16(gs1 + (2 * y) * gs2)) on 8 bf16 lanes; g1 / g2 are
+// fp32 in shared memory. Explicit roundings: no fused multiply-add.
+__device__ __forceinline__ uint4 gy_eff8(uint4 g, uint4 yv, const float* g1,
+                                         const float* g2) {
+  bf162* pg = reinterpret_cast<bf162*>(&g);
+  const bf162* py = reinterpret_cast<const bf162*>(&yv);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 gf = __bfloat1622float2(pg[i]);
+    const float2 yf = __bfloat1622float2(py[i]);
+    const float a0 = __fadd_rn(g1[2 * i], __fmul_rn(2.f * yf.x, g2[2 * i]));
+    const float a1 = __fadd_rn(g1[2 * i + 1], __fmul_rn(2.f * yf.y, g2[2 * i + 1]));
+    pg[i] = __floats2bfloat162_rn(__fadd_rn(gf.x, rnd(a0)),
+                                  __fadd_rn(gf.y, rnd(a1)));
+  }
+  return g;
 }
 
 __device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
@@ -84,6 +134,19 @@ __device__ __forceinline__ void ldsm_x2(uint32_t (&r)[2], const bf16* p) {
                : "=r"(r[0]), "=r"(r[1]) : "r"(a));
 }
 
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const bf16* p) {
+  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(p));
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(a));
+}
+
+__device__ __forceinline__ void ldsm_x2_t(uint32_t (&r)[2], const bf16* p) {
+  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(p));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0,%1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1]) : "r"(a));
+}
+
 __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
                                          const uint32_t (&b)[2]) {
   asm volatile(
@@ -93,26 +156,52 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
+// Operands of the forward (MODE 0) and data-gradient (MODE 1) kernel. The
+// gathered tensor has Kc channels ("K side"); the output has N ("N side").
+struct UnitArgs {
+  const bf16* a;       // gathered: x (forward) or gy (data gradient) [M, Kc]
+  const bf16* a2;      // data gradient: forward output y [M, Kc]
+  const float* ka;     // K side per channel: inv (forward) or gs1 [Kc]
+  const float* kb;     // K side per channel: shift (forward) or gs2 [Kc]
+  const bf16* wk;      // B operand [N, taps*Kc], k = tap*Kc + c
+  const bf16* xe;      // data gradient with the prologue: forward x [M, N]
+  const float* na;     // data gradient with the prologue: inv [N]
+  const float* nb;     // data gradient with the prologue: shift [N]
+  bf16* out;           // y or dx [M, N]
+  float* part1;        // per-block partial sums [rows][N]
+  float* part2;
+  int64_t M;
+  int Kc, N, T, H, W, tiles_m, tiles_per_block;
+};
+
 // KIND 0: (1,3,3) spatial conv over each (b, t) image [H, W].
 // KIND 1: (3,1,1) temporal conv over T for each pixel of [H*W].
-template <int BN, bool AFFINE, int KIND>
+// MODE 0: forward; AFFINE = the BN prologue. MODE 1: data gradient; AFFINE =
+// the forward had the prologue (mask, inv and the dinv / dshift sums).
+template <int BN, bool AFFINE, int KIND, int MODE>
 __global__ void __launch_bounds__(THREADS)
-conv_unit_kernel(const bf16* __restrict__ x, const bf16* __restrict__ wk,
-                 const float* __restrict__ inv, const float* __restrict__ shift,
-                 bf16* __restrict__ y, float* __restrict__ part1,
-                 float* __restrict__ part2, int64_t M, int Ci, int Co, int T,
-                 int H, int W, int tiles_m, int tiles_per_block) {
+conv_unit_kernel(const UnitArgs args) {
   constexpr int NT = BN / 16;                  // n8 tiles per warp
   constexpr int B_VECS = BN * BK / 8;          // 16-byte vectors per B chunk
   constexpr int B_IT = (B_VECS + THREADS - 1) / THREADS;
+  constexpr bool SUMS = MODE == 0 || AFFINE;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* As = reinterpret_cast<bf16*>(smem_raw);          // [2][BM][LDS]
   bf16* Bs = As + 2 * BM * LDS;                           // [2][BN][LDS]
   float* red1 = reinterpret_cast<float*>(Bs + 2 * BN * LDS);  // [2][BN]
   float* red2 = red1 + 2 * BN;                            // [2][BN]
-  bf16* sInv = reinterpret_cast<bf16*>(red2 + 2 * BN);    // [Ci]
-  bf16* sShift = sInv + Ci;                               // [Ci]
+  // MODE 0: bf16 inv / shift [Kc]. MODE 1: fp32 gs1 / gs2 [Kc], then bf16
+  // inv / shift [N].
+  float* sG1 = red2 + 2 * BN;
+  float* sG2 = sG1 + args.Kc;
+  bf16* sInv = MODE == 0 ? reinterpret_cast<bf16*>(sG1)
+                         : reinterpret_cast<bf16*>(sG2 + args.Kc);
+  bf16* sShift = sInv + (MODE == 0 ? args.Kc : args.N);
 
+  const bf16* __restrict__ x = args.a;
+  const int Ci = args.Kc, Co = args.N;
+  const int64_t M = args.M;
+  const int T = args.T, H = args.H, W = args.W;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int warp_m = warp & 1, warp_n = warp >> 1;
   const int n0 = blockIdx.y * BN;
@@ -121,10 +210,23 @@ conv_unit_kernel(const bf16* __restrict__ x, const bf16* __restrict__ wk,
   const int nchunks = (K + BK - 1) / BK;
   const int64_t P = (int64_t)H * W;
 
-  if (AFFINE) {
+  if (MODE == 0) {
+    if (AFFINE) {
+      for (int c = tid; c < Ci; c += THREADS) {
+        sInv[c] = __float2bfloat16(args.ka[c]);
+        sShift[c] = __float2bfloat16(args.kb[c]);
+      }
+    }
+  } else {
     for (int c = tid; c < Ci; c += THREADS) {
-      sInv[c] = __float2bfloat16(inv[c]);
-      sShift[c] = __float2bfloat16(shift[c]);
+      sG1[c] = args.ka[c];
+      sG2[c] = args.kb[c];
+    }
+    if (AFFINE) {
+      for (int c = tid; c < Co; c += THREADS) {
+        sInv[c] = __float2bfloat16(args.na[c]);
+        sShift[c] = __float2bfloat16(args.nb[c]);
+      }
     }
   }
   __syncthreads();
@@ -135,8 +237,9 @@ conv_unit_kernel(const bf16* __restrict__ x, const bf16* __restrict__ wk,
     st1[nt][0] = st1[nt][1] = st2[nt][0] = st2[nt][1] = 0.f;
 
   const int kv = tid & 3;                      // this thread's 8-wide K slot
-  const int tile_end = min(tiles_m, (int)(blockIdx.x + 1) * tiles_per_block);
-  for (int tile = blockIdx.x * tiles_per_block; tile < tile_end; ++tile) {
+  const int tile_end = min(args.tiles_m,
+                           (int)(blockIdx.x + 1) * args.tiles_per_block);
+  for (int tile = blockIdx.x * args.tiles_per_block; tile < tile_end; ++tile) {
     const int64_t m_base = (int64_t)tile * BM;
     int64_t rm[4];
     int ra_[4], rb_[4];
@@ -187,7 +290,13 @@ conv_unit_kernel(const bf16* __restrict__ x, const bf16* __restrict__ wk,
           }
           if (ok) {
             v = __ldg(reinterpret_cast<const uint4*>(x + src * Ci + ci));
-            if (AFFINE) v = prologue(v, sInv + ci, sShift + ci);
+            if (MODE == 0) {
+              if (AFFINE) v = prologue(v, sInv + ci, sShift + ci);
+            } else {
+              const uint4 yv =
+                  __ldg(reinterpret_cast<const uint4*>(args.a2 + src * Ci + ci));
+              v = gy_eff8(v, yv, sG1 + ci, sG2 + ci);
+            }
           }
         }
         regA[i] = v;
@@ -199,7 +308,7 @@ conv_unit_kernel(const bf16* __restrict__ x, const bf16* __restrict__ wk,
         if (v < B_VECS) {
           const int n = v >> 2, kb = chunk * BK + (v & 3) * 8;
           if (n0 + n < Co && kb < K)
-            r = __ldg(reinterpret_cast<const uint4*>(wk + (int64_t)(n0 + n) * K + kb));
+            r = __ldg(reinterpret_cast<const uint4*>(args.wk + (int64_t)(n0 + n) * K + kb));
         }
         regB[j] = r;
       }
@@ -246,7 +355,9 @@ conv_unit_kernel(const bf16* __restrict__ x, const bf16* __restrict__ wk,
       __syncthreads();
     }
 
-    // epilogue: round, store, and accumulate the sums of the rounded values
+    // epilogue. MODE 0: round, store, and accumulate the sums of the rounded
+    // values. MODE 1: round dx^, then (prologue) mask, scale by inv, store,
+    // and accumulate dinv = sum x * dxa, dshift = sum dxa.
     const int g = lane >> 2, tg = lane & 3;
 #pragma unroll
     for (int mt = 0; mt < 4; ++mt)
@@ -258,18 +369,39 @@ conv_unit_kernel(const bf16* __restrict__ x, const bf16* __restrict__ wk,
         for (int nt = 0; nt < NT; ++nt) {
           const int n = n0 + warp_n * (BN / 2) + nt * 8 + tg * 2;
           if (n >= Co) continue;
-          const __nv_bfloat162 p = __floats2bfloat162_rn(acc[mt][nt][half * 2],
-                                                         acc[mt][nt][half * 2 + 1]);
-          *reinterpret_cast<__nv_bfloat162*>(y + m * Co + n) = p;
-          const float2 f = __bfloat1622float2(p);
-          st1[nt][0] += f.x;
-          st1[nt][1] += f.y;
-          st2[nt][0] += f.x * f.x;
-          st2[nt][1] += f.y * f.y;
+          const bf162 p = __floats2bfloat162_rn(acc[mt][nt][half * 2],
+                                                acc[mt][nt][half * 2 + 1]);
+          bf162* dst = reinterpret_cast<bf162*>(args.out + m * Co + n);
+          if (MODE == 0) {
+            *dst = p;
+            const float2 f = __bfloat1622float2(p);
+            st1[nt][0] += f.x;
+            st1[nt][1] += f.y;
+            st2[nt][0] += f.x * f.x;
+            st2[nt][1] += f.y * f.y;
+          } else if (AFFINE) {
+            const float2 xf = __bfloat1622float2(
+                *reinterpret_cast<const bf162*>(args.xe + m * Co + n));
+            const float i0 = __bfloat162float(sInv[n]);
+            const float i1 = __bfloat162float(sInv[n + 1]);
+            const float xa0 = rnd(rnd(xf.x * i0) + __bfloat162float(sShift[n]));
+            const float xa1 = rnd(rnd(xf.y * i1) + __bfloat162float(sShift[n + 1]));
+            const float2 d = __bfloat1622float2(p);
+            const float dxa0 = xa0 > 0.f ? d.x : 0.f;
+            const float dxa1 = xa1 > 0.f ? d.y : 0.f;
+            *dst = __floats2bfloat162_rn(__fmul_rn(dxa0, i0), __fmul_rn(dxa1, i1));
+            st1[nt][0] += xf.x * dxa0;
+            st1[nt][1] += xf.y * dxa1;
+            st2[nt][0] += dxa0;
+            st2[nt][1] += dxa1;
+          } else {
+            *dst = p;
+          }
         }
       }
   }
 
+  if (!SUMS) return;
   // block-level sums in a fixed order: lanes sharing a column, then warps
   const int g = lane >> 2, tg = lane & 3;
 #pragma unroll
@@ -291,8 +423,8 @@ conv_unit_kernel(const bf16* __restrict__ x, const bf16* __restrict__ wk,
   __syncthreads();
   for (int col = tid; col < BN; col += THREADS) {
     if (n0 + col < Co) {
-      part1[(int64_t)blockIdx.x * Co + n0 + col] = red1[col] + red1[BN + col];
-      part2[(int64_t)blockIdx.x * Co + n0 + col] = red2[col] + red2[BN + col];
+      args.part1[(int64_t)blockIdx.x * Co + n0 + col] = red1[col] + red1[BN + col];
+      args.part2[(int64_t)blockIdx.x * Co + n0 + col] = red2[col] + red2[BN + col];
     }
   }
 }
@@ -325,39 +457,287 @@ colsum_kernel(const float* __restrict__ part1, const float* __restrict__ part2,
   }
 }
 
-template <int BN, bool AFFINE, int KIND>
-int launch(const void* x, const void* wk, const void* inv, const void* shift,
-           void* y, float* part1, float* part2, int64_t M, int Ci, int Co,
-           int T, int H, int W, int tiles_m, int tiles_per_block,
-           cudaStream_t stream) {
-  const size_t smem = 2 * (BM + BN) * LDS * sizeof(bf16) +
-                      4 * BN * sizeof(float) + 2 * Ci * sizeof(bf16);
-  auto kern = conv_unit_kernel<BN, AFFINE, KIND>;
+template <int BN, bool AFFINE, int KIND, int MODE>
+int launch_unit(const UnitArgs& args, cudaStream_t stream) {
+  size_t smem = 2 * (BM + BN) * LDS * sizeof(bf16) + 4 * BN * sizeof(float);
+  smem += MODE == 0 ? 2 * args.Kc * sizeof(bf16)
+                    : 2 * args.Kc * sizeof(float) + 2 * args.N * sizeof(bf16);
+  auto kern = conv_unit_kernel<BN, AFFINE, KIND, MODE>;
   cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
-  dim3 grid((tiles_m + tiles_per_block - 1) / tiles_per_block,
-            (Co + BN - 1) / BN);
-  kern<<<grid, THREADS, smem, stream>>>(
-      (const bf16*)x, (const bf16*)wk, (const float*)inv, (const float*)shift,
-      (bf16*)y, part1, part2, M, Ci, Co, T, H, W, tiles_m, tiles_per_block);
+  dim3 grid((args.tiles_m + args.tiles_per_block - 1) / args.tiles_per_block,
+            (args.N + BN - 1) / BN);
+  kern<<<grid, THREADS, smem, stream>>>(args);
+  return (int)cudaGetLastError();
+}
+
+template <int BN, int MODE>
+int dispatch_unit(int kind, int affine, const UnitArgs& a, cudaStream_t s) {
+  if (kind == 0)
+    return affine ? launch_unit<BN, true, 0, MODE>(a, s)
+                  : launch_unit<BN, false, 0, MODE>(a, s);
+  return affine ? launch_unit<BN, true, 1, MODE>(a, s)
+                : launch_unit<BN, false, 1, MODE>(a, s);
+}
+
+template <int MODE>
+int run_unit(int kind, int affine, int bn, UnitArgs& a, float* s1, float* s2,
+             cudaStream_t s) {
+  if (a.M == 0 || a.N == 0) return 0;
+  if ((kind != 0 && kind != 1) || a.Kc % 8 != 0 || a.N % 8 != 0 ||
+      a.tiles_per_block < 1)
+    return (int)cudaErrorInvalidValue;
+  a.tiles_m = (int)((a.M + BM - 1) / BM);
+  const int R = (a.tiles_m + a.tiles_per_block - 1) / a.tiles_per_block;
+  int e;
+  if (bn == 48)
+    e = dispatch_unit<48, MODE>(kind, affine, a, s);
+  else if (bn == 64)
+    e = dispatch_unit<64, MODE>(kind, affine, a, s);
+  else if (bn == 96)
+    e = dispatch_unit<96, MODE>(kind, affine, a, s);
+  else
+    return (int)cudaErrorInvalidValue;
+  if (e != 0) return e;
+  if (MODE == 1 && !affine) return 0;
+  colsum_kernel<<<(a.N + 31) / 32, dim3(32, 32), 0, s>>>(a.part1, a.part2, R,
+                                                          a.N, s1, s2);
+  return (int)cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// Filter gradient
+// ---------------------------------------------------------------------------
+
+struct FilterArgs {
+  const bf16* x;       // forward input [M, Ci]
+  const bf16* gy;      // [M, Co]
+  const bf16* y;       // forward output [M, Co]
+  const float* inv;    // [Ci] or null (no prologue)
+  const float* shift;
+  const float* gs1;    // [Co]
+  const float* gs2;
+  float* out;          // [slices][K][Co] fp32 partials, or dW [K][Co]
+  int64_t M;
+  int Ci, Co, T, H, W;
+  int chunks_per_slice;   // 32-pixel chunks per slice
+};
+
+template <int BN, bool AFFINE, int KIND>
+__global__ void __launch_bounds__(THREADS)
+filter_grad_kernel(const FilterArgs args) {
+  constexpr int NT = BN / 16;
+  constexpr int LDG = BN + 8;
+  constexpr int G_VECS = BN / 8;               // 16-byte vectors per pixel row
+  constexpr int G_IT = (G_VECS + 3) / 4;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* Xs = reinterpret_cast<bf16*>(smem_raw);           // [2][BK][LDX]
+  bf16* Gs = Xs + 2 * BK * LDX;                           // [2][BK][LDG]
+  float* sG1 = reinterpret_cast<float*>(Gs + 2 * BK * LDG);  // [Co]
+  float* sG2 = sG1 + args.Co;
+  bf16* sInv = reinterpret_cast<bf16*>(sG2 + args.Co);    // [Ci]
+  bf16* sShift = sInv + args.Ci;
+
+  const int Ci = args.Ci, Co = args.Co;
+  const int64_t M = args.M;
+  const int T = args.T, H = args.H, W = args.W;
+  const int64_t P = (int64_t)H * W;
+  const int taps = KIND == 0 ? 9 : 3;
+  const int K = taps * Ci;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int warp_m = warp & 1, warp_n = warp >> 1;
+  const int r0 = blockIdx.x * BM, n0 = blockIdx.y * BN;
+
+  for (int c = tid; c < Co; c += THREADS) {
+    sG1[c] = args.gs1[c];
+    sG2[c] = args.gs2[c];
+  }
+  if (AFFINE) {
+    for (int c = tid; c < Ci; c += THREADS) {
+      sInv[c] = __float2bfloat16(args.inv[c]);
+      sShift[c] = __float2bfloat16(args.shift[c]);
+    }
+  }
+  __syncthreads();
+
+  const int64_t nchunks = (M + BK - 1) / BK;
+  const int64_t c_begin = (int64_t)blockIdx.z * args.chunks_per_slice;
+  const int64_t c_end = nchunks < c_begin + args.chunks_per_slice
+                              ? nchunks : c_begin + args.chunks_per_slice;
+
+  // this thread's pixel row of a chunk, its four 8-wide K slots (tap and
+  // channel fixed for the whole run) and its G_IT 8-wide ge slots
+  const int pp = tid >> 2;
+  int ktap[4], kch[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int r = r0 + 8 * ((tid & 3) + 4 * i);
+    ktap[i] = r < K ? r / Ci : -1;
+    kch[i] = r < K ? r - (r / Ci) * Ci : 0;
+  }
+
+  float acc[4][NT][4];
+#pragma unroll
+  for (int a = 0; a < 4; ++a)
+#pragma unroll
+    for (int b = 0; b < NT; ++b)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) acc[a][b][c] = 0.f;
+
+  uint4 regX[4], regG[G_IT];
+  auto load = [&](int64_t chunk) {
+    const int64_t p = chunk * BK + pp;
+    const bool live = p < M;
+    int ha = 0, wb = 0;
+    if (live) {
+      if (KIND == 0) {
+        wb = (int)(p % W);
+        ha = (int)((p / W) % H);
+      } else {
+        ha = (int)((p / P) % T);
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      uint4 v = make_uint4(0, 0, 0, 0);
+      if (live && ktap[i] >= 0) {
+        int64_t src;
+        bool ok;
+        if (KIND == 0) {
+          const int dh = ktap[i] / 3 - 1, dw = ktap[i] % 3 - 1;
+          ok = (unsigned)(ha + dh) < (unsigned)H && (unsigned)(wb + dw) < (unsigned)W;
+          src = p + (int64_t)dh * W + dw;
+        } else {
+          const int dt = ktap[i] - 1;
+          ok = (unsigned)(ha + dt) < (unsigned)T;
+          src = p + dt * P;
+        }
+        if (ok) {
+          v = __ldg(reinterpret_cast<const uint4*>(args.x + src * Ci + kch[i]));
+          if (AFFINE) v = prologue(v, sInv + kch[i], sShift + kch[i]);
+        }
+      }
+      regX[i] = v;
+    }
+#pragma unroll
+    for (int j = 0; j < G_IT; ++j) {
+      const int vi = (tid & 3) + 4 * j;
+      const int n = n0 + 8 * vi;
+      uint4 v = make_uint4(0, 0, 0, 0);
+      if (live && vi < G_VECS && n < Co) {
+        const uint4 gv = __ldg(reinterpret_cast<const uint4*>(args.gy + p * Co + n));
+        const uint4 yv = __ldg(reinterpret_cast<const uint4*>(args.y + p * Co + n));
+        v = gy_eff8(gv, yv, sG1 + n, sG2 + n);
+      }
+      regG[j] = v;
+    }
+  };
+  auto store = [&](int buf) {
+    bf16* xs = Xs + buf * BK * LDX + pp * LDX;
+    bf16* gs = Gs + buf * BK * LDG + pp * LDG;
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      *reinterpret_cast<uint4*>(xs + 8 * ((tid & 3) + 4 * i)) = regX[i];
+#pragma unroll
+    for (int j = 0; j < G_IT; ++j) {
+      const int vi = (tid & 3) + 4 * j;
+      if (vi < G_VECS) *reinterpret_cast<uint4*>(gs + 8 * vi) = regG[j];
+    }
+  };
+
+  // ldmatrix.trans lanes: A (rows r, k = pixels) from [pixel][r]; B (k =
+  // pixels, cols n) from [pixel][n]
+  const int sub = lane >> 3;
+  const int a_krow = (lane & 7) + (sub >> 1) * 8, a_moff = (sub & 1) * 8;
+  const int b_krow = (lane & 7) + ((lane >> 3) & 1) * 8;
+
+  if (c_begin < c_end) {
+    load(c_begin);
+    store(0);
+  }
+  __syncthreads();
+  for (int64_t chunk = c_begin; chunk < c_end; ++chunk) {
+    const int buf = (int)((chunk - c_begin) & 1);
+    if (chunk + 1 < c_end) load(chunk + 1);
+    const bf16* xs = Xs + buf * BK * LDX;
+    const bf16* gs = Gs + buf * BK * LDG;
+#pragma unroll
+    for (int ks = 0; ks < BK / 16; ++ks) {
+      uint32_t af[4][4], bfr[NT][2];
+#pragma unroll
+      for (int mt = 0; mt < 4; ++mt)
+        ldsm_x4_t(af[mt], xs + (ks * 16 + a_krow) * LDX + warp_m * 64 + mt * 16 + a_moff);
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+        ldsm_x2_t(bfr[nt], gs + (ks * 16 + b_krow) * LDG + warp_n * (BN / 2) + nt * 8);
+#pragma unroll
+      for (int mt = 0; mt < 4; ++mt)
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt) mma_bf16(acc[mt][nt], af[mt], bfr[nt]);
+    }
+    if (chunk + 1 < c_end) store(buf ^ 1);
+    __syncthreads();
+  }
+
+  float* out = args.out + (int64_t)blockIdx.z * K * Co;
+  const int g = lane >> 2, tg = lane & 3;
+#pragma unroll
+  for (int mt = 0; mt < 4; ++mt)
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int r = r0 + warp_m * 64 + mt * 16 + g + half * 8;
+      if (r >= K) continue;
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+        const int n = n0 + warp_n * (BN / 2) + nt * 8 + tg * 2;
+        if (n >= Co) continue;
+        *reinterpret_cast<float2*>(out + (int64_t)r * Co + n) =
+            make_float2(acc[mt][nt][half * 2], acc[mt][nt][half * 2 + 1]);
+      }
+    }
+}
+
+// out[i] = sum over s of part[s, i], in a fixed order (n a multiple of 4)
+__global__ void __launch_bounds__(256)
+slice_sum_kernel(const float4* __restrict__ part, int S, int64_t n4,
+                 float4* __restrict__ out) {
+  for (int64_t i = blockIdx.x * (int64_t)blockDim.x + threadIdx.x; i < n4;
+       i += (int64_t)gridDim.x * blockDim.x) {
+    float4 a = part[i];
+    for (int s = 1; s < S; ++s) {
+      const float4 b = part[(int64_t)s * n4 + i];
+      a.x += b.x;
+      a.y += b.y;
+      a.z += b.z;
+      a.w += b.w;
+    }
+    out[i] = a;
+  }
+}
+
+template <int BN, bool AFFINE, int KIND>
+int launch_filter(const FilterArgs& args, int slices, cudaStream_t stream) {
+  const size_t smem = 2 * BK * LDX * sizeof(bf16) + 2 * BK * (BN + 8) * sizeof(bf16) +
+                      2 * args.Co * sizeof(float) + 2 * args.Ci * sizeof(bf16);
+  auto kern = filter_grad_kernel<BN, AFFINE, KIND>;
+  cudaError_t e = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  const int K = (KIND == 0 ? 9 : 3) * args.Ci;
+  dim3 grid((K + BM - 1) / BM, (args.Co + BN - 1) / BN, slices);
+  kern<<<grid, THREADS, smem, stream>>>(args);
   return (int)cudaGetLastError();
 }
 
 template <int BN>
-int dispatch(int kind, int affine, const void* x, const void* wk,
-             const void* inv, const void* shift, void* y, float* part1,
-             float* part2, int64_t M, int Ci, int Co, int T, int H, int W,
-             int tiles_m, int tpb, cudaStream_t s) {
+int dispatch_filter(int kind, int affine, const FilterArgs& a, int slices,
+                    cudaStream_t s) {
   if (kind == 0)
-    return affine ? launch<BN, true, 0>(x, wk, inv, shift, y, part1, part2, M,
-                                        Ci, Co, T, H, W, tiles_m, tpb, s)
-                  : launch<BN, false, 0>(x, wk, inv, shift, y, part1, part2, M,
-                                         Ci, Co, T, H, W, tiles_m, tpb, s);
-  return affine ? launch<BN, true, 1>(x, wk, inv, shift, y, part1, part2, M,
-                                      Ci, Co, T, H, W, tiles_m, tpb, s)
-                : launch<BN, false, 1>(x, wk, inv, shift, y, part1, part2, M,
-                                       Ci, Co, T, H, W, tiles_m, tpb, s);
+    return affine ? launch_filter<BN, true, 0>(a, slices, s)
+                  : launch_filter<BN, false, 0>(a, slices, s);
+  return affine ? launch_filter<BN, true, 1>(a, slices, s)
+                : launch_filter<BN, false, 1>(a, slices, s);
 }
 
 }  // namespace
@@ -371,31 +751,121 @@ extern "C" int m3f_conv_unit_fwd(const void* x, const void* wk, const void* inv,
                                  void* part, int kind, int B, int T, int H,
                                  int W, int Ci, int Co, int bn,
                                  int tiles_per_block, void* stream) {
-  const int64_t M = (int64_t)B * T * H * W;
-  if (M == 0 || Co == 0) return 0;
-  if ((kind != 0 && kind != 1) || Ci % 8 != 0 || Co % 8 != 0 ||
-      tiles_per_block < 1)
-    return (int)cudaErrorInvalidValue;
-  const int tiles_m = (int)((M + BM - 1) / BM);
-  const int R = (tiles_m + tiles_per_block - 1) / tiles_per_block;
-  float* part1 = (float*)part;
-  float* part2 = part1 + (int64_t)R * Co;
+  UnitArgs a{};
+  a.a = (const bf16*)x;
+  a.ka = (const float*)inv;
+  a.kb = (const float*)shift;
+  a.wk = (const bf16*)wk;
+  a.out = (bf16*)y;
+  a.M = (int64_t)B * T * H * W;
+  a.Kc = Ci;
+  a.N = Co;
+  a.T = T;
+  a.H = H;
+  a.W = W;
+  a.tiles_per_block = tiles_per_block;
+  const int tiles_m = (int)((a.M + BM - 1) / BM);
+  const int R = tiles_per_block > 0 ? (tiles_m + tiles_per_block - 1) / tiles_per_block : 0;
+  a.part1 = (float*)part;
+  a.part2 = a.part1 + (int64_t)R * Co;
+  return run_unit<0>(kind, inv != nullptr, bn, a, (float*)s1, (float*)s2,
+                     (cudaStream_t)stream);
+}
+
+// Data gradient of the unit. gy, y [B, T, H, W, Co] bf16; gs1/gs2 [Co] fp32;
+// wd [Ci, taps*Co] bf16, the flipped transposed filter: wd[ci, tap*Co + co]
+// = W[mirror(tap), ci, co]; with the prologue x [B, T, H, W, Ci] bf16 and
+// inv/shift [Ci] fp32 (else all three null); dx [B, T, H, W, Ci] bf16;
+// dinv/dshift [Ci] fp32 (with the prologue); part: scratch of
+// 2 * ceil(ceil(M/128) / tiles_per_block) * Ci floats (with the prologue).
+extern "C" int m3f_conv_unit_bwd_data(const void* gy, const void* y,
+                                      const void* gs1, const void* gs2,
+                                      const void* wd, const void* x,
+                                      const void* inv, const void* shift,
+                                      void* dx, void* dinv, void* dshift,
+                                      void* part, int kind, int B, int T,
+                                      int H, int W, int Ci, int Co, int bn,
+                                      int tiles_per_block, void* stream) {
   const int affine = inv != nullptr;
+  if (affine && (x == nullptr || shift == nullptr || dinv == nullptr ||
+                 dshift == nullptr || part == nullptr))
+    return (int)cudaErrorInvalidValue;
+  UnitArgs a{};
+  a.a = (const bf16*)gy;
+  a.a2 = (const bf16*)y;
+  a.ka = (const float*)gs1;
+  a.kb = (const float*)gs2;
+  a.wk = (const bf16*)wd;
+  a.xe = (const bf16*)x;
+  a.na = (const float*)inv;
+  a.nb = (const float*)shift;
+  a.out = (bf16*)dx;
+  a.M = (int64_t)B * T * H * W;
+  a.Kc = Co;
+  a.N = Ci;
+  a.T = T;
+  a.H = H;
+  a.W = W;
+  a.tiles_per_block = tiles_per_block;
+  const int tiles_m = (int)((a.M + BM - 1) / BM);
+  const int R = tiles_per_block > 0 ? (tiles_m + tiles_per_block - 1) / tiles_per_block : 0;
+  a.part1 = (float*)part;
+  a.part2 = affine ? a.part1 + (int64_t)R * Ci : nullptr;
+  return run_unit<1>(kind, affine, bn, a, (float*)dinv, (float*)dshift,
+                     (cudaStream_t)stream);
+}
+
+// Filter gradient of the unit. x [B, T, H, W, Ci], gy and y [B, T, H, W, Co]
+// bf16; inv/shift [Ci] fp32 or null; gs1/gs2 [Co] fp32; dw [taps*Ci, Co]
+// fp32 with row tap*Ci + ci; part: scratch of slices * taps*Ci * Co floats
+// (unused, may be null, when slices == 1).
+extern "C" int m3f_conv_unit_bwd_filter(const void* x, const void* gy,
+                                        const void* y, const void* gs1,
+                                        const void* gs2, const void* inv,
+                                        const void* shift, void* dw,
+                                        void* part, int kind, int B, int T,
+                                        int H, int W, int Ci, int Co, int bn,
+                                        int slices, void* stream) {
+  const int64_t M = (int64_t)B * T * H * W;
+  const int K = (kind == 0 ? 9 : 3) * Ci;
+  if ((kind != 0 && kind != 1) || Ci % 8 != 0 || Co % 8 != 0 || slices < 1 ||
+      (slices > 1 && part == nullptr))
+    return (int)cudaErrorInvalidValue;
+  if (K == 0 || Co == 0) return 0;
   cudaStream_t s = (cudaStream_t)stream;
+  if (M == 0) return (int)cudaMemsetAsync(dw, 0, (size_t)K * Co * sizeof(float), s);
+  FilterArgs a{};
+  a.x = (const bf16*)x;
+  a.gy = (const bf16*)gy;
+  a.y = (const bf16*)y;
+  a.inv = (const float*)inv;
+  a.shift = (const float*)shift;
+  a.gs1 = (const float*)gs1;
+  a.gs2 = (const float*)gs2;
+  a.out = slices > 1 ? (float*)part : (float*)dw;
+  a.M = M;
+  a.Ci = Ci;
+  a.Co = Co;
+  a.T = T;
+  a.H = H;
+  a.W = W;
+  const int64_t nchunks = (M + BK - 1) / BK;
+  a.chunks_per_slice = (int)((nchunks + slices - 1) / slices);
+  const int affine = inv != nullptr;
   int e;
   if (bn == 48)
-    e = dispatch<48>(kind, affine, x, wk, inv, shift, y, part1, part2, M, Ci,
-                     Co, T, H, W, tiles_m, tiles_per_block, s);
+    e = dispatch_filter<48>(kind, affine, a, slices, s);
   else if (bn == 64)
-    e = dispatch<64>(kind, affine, x, wk, inv, shift, y, part1, part2, M, Ci,
-                     Co, T, H, W, tiles_m, tiles_per_block, s);
+    e = dispatch_filter<64>(kind, affine, a, slices, s);
   else if (bn == 96)
-    e = dispatch<96>(kind, affine, x, wk, inv, shift, y, part1, part2, M, Ci,
-                     Co, T, H, W, tiles_m, tiles_per_block, s);
+    e = dispatch_filter<96>(kind, affine, a, slices, s);
   else
     return (int)cudaErrorInvalidValue;
-  if (e != 0) return e;
-  colsum_kernel<<<(Co + 31) / 32, dim3(32, 32), 0, s>>>(
-      part1, part2, R, Co, (float*)s1, (float*)s2);
+  if (e != 0 || slices == 1) return e;
+  const int64_t n4 = (int64_t)K * Co / 4;
+  const int64_t want = (n4 + 255) / 256;
+  const int blocks = (int)(want < 4096 ? want : 4096);
+  slice_sum_kernel<<<blocks, 256, 0, s>>>((const float4*)part, slices, n4,
+                                          (float4*)dw);
   return (int)cudaGetLastError();
 }

@@ -28,7 +28,10 @@
 // rounded to W's dtype for the product). The backward direction reads the
 // input at the reversed time index and writes its output in time order, so
 // nothing is flipped in memory; the output is [B, T, D, H], i.e. the
-// directions' concatenation.
+// directions' concatenation. For training, the kernel also writes the fp32
+// carry h of every step ([B, T, D, H], optional): the backward recurrence
+// (BPTT, in PyTorch ops) needs the carry the forward kept, and recomputing it
+// from the rounded output would differ.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -58,7 +61,7 @@ template <typename XT, typename WT>
 __global__ void __launch_bounds__(JT * KS)
 gru_kernel(const XT* __restrict__ xp, const WT* __restrict__ whh,
            const float* __restrict__ bhh, XT* __restrict__ out,
-           int B, int T, int H, int D) {
+           float* __restrict__ hs, int B, int T, int H, int D) {
   extern __shared__ float smem[];
   float* h = smem;                 // [BT][H] fp32 state
   float* hw = h + BT * H;          // [BT][H] state rounded to W's dtype
@@ -124,7 +127,9 @@ gru_kernel(const XT* __restrict__ xp, const WT* __restrict__ whh,
           const float n = tanhf(to_f(x[2 * H + j]) + r * hp_n);
           const float hnew = (1.f - z) * n + z * h[b * H + j];
           hn[b * H + j] = hnew;
-          out[(((int64_t)(b0 + b) * T + t) * D + d) * H + j] = from_f<XT>(hnew);
+          const int64_t o = (((int64_t)(b0 + b) * T + t) * D + d) * H + j;
+          out[o] = from_f<XT>(hnew);
+          if (hs != nullptr) hs[o] = hnew;
         }
       }
       __syncthreads();
@@ -139,8 +144,8 @@ gru_kernel(const XT* __restrict__ xp, const WT* __restrict__ whh,
 }
 
 template <typename XT, typename WT>
-int launch(const void* xp, const void* whh, const void* bhh, void* out, int B,
-           int T, int H, int D, cudaStream_t stream) {
+int launch(const void* xp, const void* whh, const void* bhh, void* out,
+           float* hs, int B, int T, int H, int D, cudaStream_t stream) {
   const size_t smem = sizeof(float) * (3 * BT * H + 3 * BT * JT);
   cudaError_t e = cudaFuncSetAttribute(
       gru_kernel<XT, WT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -148,24 +153,26 @@ int launch(const void* xp, const void* whh, const void* bhh, void* out, int B,
   if (e != cudaSuccess) return (int)e;
   dim3 grid(D, (B + BT - 1) / BT), block(JT, KS);
   gru_kernel<XT, WT><<<grid, block, smem, stream>>>(
-      (const XT*)xp, (const WT*)whh, (const float*)bhh, (XT*)out, B, T, H, D);
+      (const XT*)xp, (const WT*)whh, (const float*)bhh, (XT*)out, hs, B, T, H,
+      D);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // xp [B, T, D, 3H] (x@W_ih + b_ih), whh [D, H, 3H], bhh [D, 3H] fp32,
-// out [B, T, D, H]; direction 1 of D = 2 runs in reverse time.
+// out [B, T, D, H]; hs [B, T, D, H] fp32 carries or null; direction 1 of
+// D = 2 runs in reverse time.
 extern "C" int m3f_gru_fwd(const void* xp, const void* whh, const void* bhh,
-                           void* out, int B, int T, int H, int D,
+                           void* out, void* hs, int B, int T, int H, int D,
                            int x_bf16, int w_bf16, void* stream) {
   if (B <= 0 || T <= 0) return 0;
   if (D < 1 || D > 2 || H <= 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   if (x_bf16 && w_bf16)
-    return launch<__nv_bfloat16, __nv_bfloat16>(xp, whh, bhh, out, B, T, H, D, s);
+    return launch<__nv_bfloat16, __nv_bfloat16>(xp, whh, bhh, out, (float*)hs, B, T, H, D, s);
   if (x_bf16)
-    return launch<__nv_bfloat16, float>(xp, whh, bhh, out, B, T, H, D, s);
+    return launch<__nv_bfloat16, float>(xp, whh, bhh, out, (float*)hs, B, T, H, D, s);
   if (w_bf16) return (int)cudaErrorInvalidValue;  // W_hh is x's dtype or fp32
-  return launch<float, float>(xp, whh, bhh, out, B, T, H, D, s);
+  return launch<float, float>(xp, whh, bhh, out, (float*)hs, B, T, H, D, s);
 }

@@ -154,7 +154,8 @@ class Predictor:
         default. Returns {"pred": [N, 2] float32 in [-1, 1]}.
         """
         self._check_smooth(smooth_window)
-        out = self.trainer.evaluate_video(self._video_dict(frames, waveform, fps))
+        out = self.trainer.evaluate_video(
+            None, self._video_dict(frames, waveform, fps))
         return {"pred": postprocess(out["pred"], smooth_window=smooth_window)}
 
     def predict_many(self, videos: Iterable[Tuple[str, Dict[str, np.ndarray]]],

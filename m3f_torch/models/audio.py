@@ -29,11 +29,13 @@ class AudioCNN(nn.Module):
         self.bn = nn.ModuleList(bns)
         self.head = Dense(in_c, cfg.feature_dim, gen)
 
-    def forward(self, mel: torch.Tensor, per_frame: bool = False) -> torch.Tensor:
+    def forward(self, mel: torch.Tensor, per_frame: bool = False,
+                train: bool = False) -> torch.Tensor:
         """mel [B, mel_frames, n_mels] → [B, feature_dim], or with
-        ``per_frame`` [B, F', feature_dim] (only the mel axis pooled)."""
+        ``per_frame`` [B, F', feature_dim] (only the mel axis pooled).
+        ``train``: BatchNorm on the batch's statistics."""
         x = mel[..., None]                       # NHWC, C = 1
         for conv, bn in zip(self.conv, self.bn):
-            x = relu(bn(conv(x)))
+            x = relu(bn(conv(x), train))
         feat = x.mean(dim=2) if per_frame else global_avg_pool(x)
         return self.head(feat)

@@ -4,7 +4,8 @@ Counterpart of ``m3f/pytorch_tpu/models/gru.py``. Per layer, the input
 projection ``x @ W_ih + b_ih`` of all time steps is one matmul over both
 directions' concatenated weights (left to cuBLAS, as the reference leaves it
 to XLA); the recurrence is ``ops.gru.gru_scan``: one CUDA kernel launch per
-layer for both directions on the card, the plain loop on the CPU.
+layer for both directions on the card, the plain loop on the CPU; under
+autograd its gradient is backpropagation through time (``ops.gru``).
 
 ``backend`` keeps the reference's two numerics: ``"xla"`` (default) runs the
 recurrent product with ``W_hh`` in the compute dtype, ``"pallas"`` with fp32
@@ -66,7 +67,7 @@ class BiGRU(nn.Module):
             xp = (h @ w_ih + b_ih).reshape(b, t, d, 3 * self.hidden)
             w_dtype = torch.float32 \
                 if self.backend == "pallas" and self.bidirectional else dtype
-            w_hh = torch.stack([c.w_hh for c in cells]).to(w_dtype)
+            w_hh = torch.stack([c.w_hh for c in cells])
             b_hh = torch.stack([c.b_hh for c in cells]).float()
-            h = gru_scan(xp, w_hh, b_hh).reshape(b, t, d * self.hidden)
+            h = gru_scan(xp, w_hh, b_hh, w_dtype).reshape(b, t, d * self.hidden)
         return h

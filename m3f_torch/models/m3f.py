@@ -1,6 +1,6 @@
-"""M3F: late-fusion audio-visual valence-arousal model (eval forward).
+"""M3F: late-fusion audio-visual valence-arousal model.
 
-Counterpart of ``m3f/pytorch_tpu/models/m3f.py`` with ``train=False``:
+Counterpart of ``m3f/pytorch_tpu/models/m3f.py``:
 
     video [B, W, L, S, S, 3] uint8 → R(2+1)D → per-frame features
     wav   [B, W, samples]          → log-mel → AudioCNN → per-frame features
@@ -8,7 +8,12 @@ Counterpart of ``m3f/pytorch_tpu/models/m3f.py`` with ``train=False``:
     → BiGRU over the W·L frame sequence → Dense (fp32) → tanh
     → [B, W, L, 2] (per_frame) or [B, W, 2]
 
-Dropout is train-only and comes with the training slice.
+``forward`` is the eval forward (``apply(..., train=False)``, under
+``torch.no_grad``); ``forward_train`` the differentiable train forward
+(``train=True``): BatchNorm on batch statistics, its running buffers updated
+in place. Dropout (``model.dropout > 0``) is not ported yet: its random
+stream cannot match the reference's, and it comes with augmentation
+(ROADMAP, "dropout, augment and init_from").
 """
 
 from __future__ import annotations
@@ -64,6 +69,20 @@ class M3F(nn.Module):
         """Eval forward. ``wav`` [B, W, samples] goes through the log-mel
         frontend (``hop``: per-video mel hop with a max-hop-sized buffer);
         ``mel`` [B, W, F, n_mels] skips it."""
+        return self._run(video, mel, wav, hop, train=False)
+
+    def forward_train(self, video: Optional[torch.Tensor] = None,
+                      mel: Optional[torch.Tensor] = None,
+                      wav: Optional[torch.Tensor] = None,
+                      hop=None) -> torch.Tensor:
+        """Differentiable train forward (inputs as ``forward``)."""
+        if self.cfg.dropout > 0.0:
+            raise NotImplementedError(
+                f"model.dropout={self.cfg.dropout} is not ported yet (ROADMAP: "
+                "dropout, augment and init_from); set model.dropout=0")
+        return self._run(video, mel, wav, hop, train=True)
+
+    def _run(self, video, mel, wav, hop, train: bool) -> torch.Tensor:
         cfg = self.cfg
         if self.audio is not None and mel is None and wav is not None:
             mel = log_mel_spectrogram(
@@ -83,7 +102,7 @@ class M3F(nn.Module):
                 flat = flat.to(self.dtype) / 255.0
             else:
                 flat = flat.to(self.dtype)
-            vfeat = self.visual(flat, per_frame=per_frame)
+            vfeat = self.visual(flat, per_frame=per_frame, train=train)
             if per_frame:
                 feats.append(upsample_nearest(vfeat, L).reshape(b, w * L, -1))
             else:
@@ -94,7 +113,7 @@ class M3F(nn.Module):
                                  "wav or mel")
             b, w = mel.shape[:2]
             flat = mel.reshape((b * w,) + mel.shape[2:]).to(self.dtype)
-            afeat = self.audio(flat, per_frame=per_frame)
+            afeat = self.audio(flat, per_frame=per_frame, train=train)
             if per_frame:
                 feats.append(upsample_nearest(afeat, L).reshape(b, w * L, -1))
             else:

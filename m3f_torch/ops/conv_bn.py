@@ -1,9 +1,10 @@
-"""Fused conv + BatchNorm forward unit: the plain PyTorch version and the
-CUDA kernel.
+"""Fused conv + BatchNorm unit: the plain PyTorch versions and the CUDA
+kernels, forward and backward.
 
-Counterpart of the forward half of ``m3f/pytorch_tpu/ops/pallas/conv_bn.py``
-(``conv_unit_fwd``, ``conv_unit_reference``); the kernels are
-``csrc/conv_bn.cu``. One unit is
+Counterpart of ``m3f/pytorch_tpu/ops/pallas/conv_bn.py`` (``conv_unit``,
+``conv_unit_fwd``, ``conv_unit_reference``, ``_spatial_bwd``,
+``_temporal_bwd``, ``_xla_bwd``); the kernels are ``csrc/conv_bn.cu``. One
+unit is
 
     prologue:  x̂ = relu(x·inv + shift)   (previous BN + ReLU in the compute
                                           dtype; identity without inv/shift)
@@ -13,7 +14,15 @@ Counterpart of the forward half of ``m3f/pytorch_tpu/ops/pallas/conv_bn.py``
 
 x is [B, T, H, W, C_in] for both kinds; w is the reference's layout,
 [3, 3, C_in, C_out] (spatial) or [3, C_in, C_out] (temporal), cast to x's
-dtype. The backward half comes with training.
+dtype.
+
+The backward folds the cotangents (gy, gs1, gs2) into
+``ge = gy + bf16(gs1 + 2·f32(y)·gs2)`` and computes, as the reference's
+Pallas backward does, ``dx`` in x's dtype (through the ReLU mask and inv
+when the unit has the prologue, with fp32 ``dinv = Σ x·dxa`` and
+``dshift = Σ dxa``) and ``dw`` in fp32 straight from the accumulator.
+``conv_unit`` is the differentiable unit (a ``torch.autograd.Function``):
+both halves are kernels on the card and plain versions on the CPU.
 """
 
 from __future__ import annotations
@@ -57,6 +66,10 @@ def conv_unit_reference(x: torch.Tensor, w: torch.Tensor,
     return y, yf.sum(axes), (yf * yf).sum(axes)
 
 
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
 def _tile_n(co: int) -> int:
     """Output-channel tile of the kernel: the widest of 64, 96, 48 that
     divides C_out (no masked columns at the model's widths), else 64."""
@@ -96,11 +109,8 @@ def conv_unit_fwd(x: torch.Tensor, w: torch.Tensor,
         shift = shift.float().contiguous()
     m = b * t * h * wd
     bn = _tile_n(co)
-    tiles_m = -(-m // _BM)
-    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
-    tpb = max(1, min(_TILES_PER_BLOCK_MAX,
-                     tiles_m * (-(-co // bn)) // (4 * sms)))
-    rows = -(-tiles_m // tpb)
+    tpb = _rows_per_block(m, co, bn, x.device)
+    rows = _cdiv(_cdiv(m, _BM), tpb)
     y = torch.empty(b, t, h, wd, co, dtype=x.dtype, device=x.device)
     s1 = torch.empty(co, dtype=torch.float32, device=x.device)
     s2 = torch.empty(co, dtype=torch.float32, device=x.device)
@@ -116,3 +126,236 @@ def conv_unit_fwd(x: torch.Tensor, w: torch.Tensor,
     cuda_lib.check(err, f"conv_unit_fwd {kind} kernel")
     cuda_lib.launches["conv_" + kind] += 1
     return y, s1, s2
+
+
+# ---------------------------------------------------------------------------
+# Backward
+# ---------------------------------------------------------------------------
+
+def _gy_eff(gy: torch.Tensor, y: torch.Tensor, gs1: torch.Tensor,
+            gs2: torch.Tensor) -> torch.Tensor:
+    """gy + bf16(gs1 + 2·f32(y)·gs2): the sums' cotangents folded into the
+    output's, in gy's dtype (two roundings, as the reference)."""
+    add = gs1.float() + 2.0 * y.float() * gs2.float()
+    return gy + add.to(gy.dtype)
+
+
+def _prologue(x: torch.Tensor, inv: Optional[torch.Tensor],
+              shift: Optional[torch.Tensor]) -> torch.Tensor:
+    if inv is None:
+        return x
+    return torch.clamp_min(x * inv.to(x.dtype) + shift.to(x.dtype), 0)
+
+
+def _ncdhw(t: torch.Tensor) -> torch.Tensor:
+    return t.permute(0, 4, 1, 2, 3)
+
+
+def conv_unit_bwd_data_reference(x, w, inv, shift, y, gy, gs1, gs2, *,
+                                 kind: str):
+    """Plain data gradient → (dx, dinv, dshift); dinv, dshift are None
+    without the prologue. The transposed conv runs in fp32 on the rounded
+    values and dx̂ is rounded to x's dtype once, as the Pallas kernel's
+    fp32 accumulator is (the reference's hybrid path rounds in its conv)."""
+    dtype = x.dtype
+    ge = _gy_eff(gy, y, gs1, gs2).float()
+    kernel, pad = _torch_kernel(w.to(dtype).float(), kind)
+    # the conv's data gradient is the conv of ge with the flipped, transposed
+    # filter at the same padding
+    flip = kernel.flip(2, 3, 4).transpose(0, 1)
+    dxh = F.conv3d(_ncdhw(ge), flip, padding=pad).permute(0, 2, 3, 4, 1)
+    dxh = dxh.to(dtype)
+    if inv is None:
+        return dxh, None, None
+    xa = x * inv.to(dtype) + shift.to(dtype)
+    dxa = torch.where(xa > 0, dxh, torch.zeros_like(dxh))
+    axes = tuple(range(x.dim() - 1))
+    return (dxa * inv.to(dtype), (x.float() * dxa.float()).sum(axes),
+            dxa.float().sum(axes))
+
+
+def conv_unit_bwd_filter_reference(x, inv, shift, y, gy, gs1, gs2, *,
+                                   kind: str) -> torch.Tensor:
+    """Plain filter gradient → fp32 dw in the reference layout, from the
+    rounded x̂ and ge, accumulated in fp32 (no rounding to the compute
+    dtype)."""
+    xh = _prologue(x, inv, shift).float()
+    ge = _gy_eff(gy, y, gs1, gs2).float()
+    ci, co = x.shape[-1], gy.shape[-1]
+    ksize, pad = ((1, 3, 3), (0, 1, 1)) if kind == "spatial" \
+        else ((3, 1, 1), (1, 0, 0))
+    dk = torch.nn.grad.conv3d_weight(_ncdhw(xh), (co, ci) + ksize, _ncdhw(ge),
+                                     padding=pad)          # [Co, Ci, kt, kh, kw]
+    if kind == "spatial":
+        return dk[:, :, 0].permute(2, 3, 1, 0).contiguous()
+    return dk[:, :, :, 0, 0].permute(2, 1, 0).contiguous()
+
+
+def conv_unit_bwd_reference(x, w, inv, shift, y, gy, gs1, gs2, *, kind: str):
+    """Plain backward of the unit → (dx, dw fp32, dinv, dshift)."""
+    dx, dinv, dshift = conv_unit_bwd_data_reference(
+        x, w, inv, shift, y, gy, gs1, gs2, kind=kind)
+    dw = conv_unit_bwd_filter_reference(x, inv, shift, y, gy, gs1, gs2,
+                                        kind=kind)
+    return dx, dw, dinv, dshift
+
+
+def _check_unit(name, x, ci, co, kind, *tensors):
+    cuda_lib.require_cuda(name, x, *[t for t in tensors if t is not None])
+    if kind not in ("spatial", "temporal") or x.dtype != torch.bfloat16 \
+            or x.dim() != 5 or ci % 8 or co % 8:
+        raise ValueError(
+            f"{name} kernel takes bf16 [B,T,H,W,C] tensors with C_in, C_out "
+            f"multiples of 8; got kind={kind!r} x {tuple(x.shape)} {x.dtype}, "
+            f"C_out {co}")
+
+
+def _rows_per_block(m: int, n: int, bn: int, dev: torch.device) -> int:
+    """Row tiles per block of the forward / data-gradient kernel: enough
+    blocks for ~4 waves of the card, at most _TILES_PER_BLOCK_MAX."""
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    tiles_m = -(-m // _BM)
+    return max(1, min(_TILES_PER_BLOCK_MAX, tiles_m * (-(-n // bn)) // (4 * sms)))
+
+
+def conv_unit_bwd_data(x, w, inv, shift, y, gy, gs1, gs2, *, kind: str):
+    """Data gradient of the unit → (dx, dinv, dshift): the plain version on
+    the CPU, one kernel launch (plus a fixed-order sum of its per-block
+    dinv/dshift rows) on the card."""
+    if x.device.type == "cpu":
+        return conv_unit_bwd_data_reference(x, w, inv, shift, y, gy, gs1, gs2,
+                                            kind=kind)
+    b, t, h, wdt, ci = x.shape
+    co = gy.shape[-1]
+    _check_unit("conv_unit_bwd_data", x, ci, co, kind, w, inv, shift, y, gy,
+                gs1, gs2)
+    want_w = (3, 3, ci, co) if kind == "spatial" else (3, ci, co)
+    if tuple(w.shape) != want_w or tuple(y.shape) != tuple(gy.shape) \
+            or tuple(gy.shape[:-1]) != (b, t, h, wdt) \
+            or y.dtype != x.dtype or gy.dtype != x.dtype:
+        raise ValueError(f"conv_unit_bwd_data: w {tuple(w.shape)} (want "
+                         f"{want_w}), y {tuple(y.shape)} {y.dtype}, gy "
+                         f"{tuple(gy.shape)} {gy.dtype}")
+    taps = 9 if kind == "spatial" else 3
+    # [Ci, taps·Co] with flipped taps: wf[ci, tap·Co + co] = W[mirror(tap), ci, co]
+    flip = (0, 1) if kind == "spatial" else (0,)
+    wf = w.to(torch.bfloat16).flip(flip).movedim(-2, 0).reshape(ci, taps * co) \
+        .contiguous()
+    x, y, gy = x.contiguous(), y.contiguous(), gy.contiguous()
+    gs1, gs2 = gs1.float().contiguous(), gs2.float().contiguous()
+    affine = inv is not None
+    if affine:
+        inv, shift = inv.float().contiguous(), shift.float().contiguous()
+    m = b * t * h * wdt
+    bn = _tile_n(ci)
+    tpb = _rows_per_block(m, ci, bn, x.device)
+    rows = _cdiv(_cdiv(m, _BM), tpb)
+    dx = torch.empty_like(x)
+    dinv = dshift = part = None
+    if affine:
+        dinv = torch.empty(ci, dtype=torch.float32, device=x.device)
+        dshift = torch.empty(ci, dtype=torch.float32, device=x.device)
+        part = torch.empty(2 * rows * ci, dtype=torch.float32, device=x.device)
+    ptr = lambda v: None if v is None else v.data_ptr()
+    with torch.cuda.device(x.device):
+        err = cuda_lib.library("conv_bn").m3f_conv_unit_bwd_data(
+            gy.data_ptr(), y.data_ptr(), gs1.data_ptr(), gs2.data_ptr(),
+            wf.data_ptr(), x.data_ptr() if affine else None, ptr(inv),
+            ptr(shift), dx.data_ptr(), ptr(dinv), ptr(dshift), ptr(part),
+            0 if kind == "spatial" else 1, b, t, h, wdt, ci, co, bn, tpb,
+            cuda_lib.stream_ptr(x))
+    cuda_lib.check(err, f"conv_unit_bwd_data {kind} kernel")
+    cuda_lib.launches[f"conv_{kind}_bwd_data"] += 1
+    return dx, dinv, dshift
+
+
+# fp32 partial-slice buffer of the filter gradient, at most this many bytes
+_FILTER_PART_BYTES = 64 << 20
+_FILTER_CHUNK = 32        # pixels per reduction chunk (BK in conv_bn.cu)
+
+
+def filter_slices(m: int, k: int, co: int, bn: int, sms: int) -> int:
+    """Pixel-axis slices of the filter-gradient kernel: enough blocks for ~4
+    waves of ``sms`` multiprocessors over the (K, C_out) output tiles, at
+    least one 32-pixel chunk each, and a partial buffer of at most
+    _FILTER_PART_BYTES."""
+    tiles = -(-k // _BM) * -(-co // bn)
+    chunks = -(-m // _FILTER_CHUNK)
+    s = max(1, min(chunks, -(-4 * sms // tiles)))
+    return max(1, min(s, _FILTER_PART_BYTES // (4 * k * co)))
+
+
+def conv_unit_bwd_filter(x, inv, shift, y, gy, gs1, gs2, *, kind: str
+                         ) -> torch.Tensor:
+    """Filter gradient of the unit → fp32 dw in the reference layout: the
+    plain version on the CPU, one kernel launch (plus a fixed-order sum of
+    its pixel-slice partials when there is more than one) on the card."""
+    if x.device.type == "cpu":
+        return conv_unit_bwd_filter_reference(x, inv, shift, y, gy, gs1, gs2,
+                                              kind=kind)
+    b, t, h, wdt, ci = x.shape
+    co = gy.shape[-1]
+    _check_unit("conv_unit_bwd_filter", x, ci, co, kind, inv, shift, y, gy,
+                gs1, gs2)
+    if tuple(y.shape) != tuple(gy.shape) or tuple(gy.shape[:-1]) != (b, t, h, wdt) \
+            or y.dtype != x.dtype or gy.dtype != x.dtype:
+        raise ValueError(f"conv_unit_bwd_filter: y {tuple(y.shape)} {y.dtype}, "
+                         f"gy {tuple(gy.shape)} {gy.dtype}, x {tuple(x.shape)}")
+    x, y, gy = x.contiguous(), y.contiguous(), gy.contiguous()
+    gs1, gs2 = gs1.float().contiguous(), gs2.float().contiguous()
+    if inv is not None:
+        inv, shift = inv.float().contiguous(), shift.float().contiguous()
+    taps = 9 if kind == "spatial" else 3
+    m, k = b * t * h * wdt, taps * ci
+    bn = _tile_n(co)
+    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+    slices = filter_slices(m, k, co, bn, sms)
+    dw = torch.empty(k, co, dtype=torch.float32, device=x.device)
+    part = torch.empty(slices * k * co, dtype=torch.float32, device=x.device) \
+        if slices > 1 else None
+    ptr = lambda v: None if v is None else v.data_ptr()
+    with torch.cuda.device(x.device):
+        err = cuda_lib.library("conv_bn").m3f_conv_unit_bwd_filter(
+            x.data_ptr(), gy.data_ptr(), y.data_ptr(), gs1.data_ptr(),
+            gs2.data_ptr(), ptr(inv), ptr(shift), dw.data_ptr(), ptr(part),
+            0 if kind == "spatial" else 1, b, t, h, wdt, ci, co, bn, slices,
+            cuda_lib.stream_ptr(x))
+    cuda_lib.check(err, f"conv_unit_bwd_filter {kind} kernel")
+    cuda_lib.launches[f"conv_{kind}_bwd_filter"] += 1
+    return dw.reshape((3, 3, ci, co) if kind == "spatial" else (3, ci, co))
+
+
+class _ConvUnit(torch.autograd.Function):
+    """The differentiable unit; saves (x, w_c, inv, shift, y) as the
+    reference's custom VJP does (``_conv_unit_affine_fwd``)."""
+
+    @staticmethod
+    def forward(ctx, x, w, inv, shift, kind):
+        w_c = w.to(x.dtype)
+        y, s1, s2 = conv_unit_fwd(x, w_c, inv, shift, kind=kind)
+        ctx.save_for_backward(x, w_c, inv, shift, y)
+        ctx.kind = kind
+        return y, s1, s2
+
+    @staticmethod
+    def backward(ctx, gy, gs1, gs2):
+        x, w_c, inv, shift, y = ctx.saved_tensors
+        dx, dinv, dshift = conv_unit_bwd_data(x, w_c, inv, shift, y, gy, gs1,
+                                              gs2, kind=ctx.kind)
+        dw = conv_unit_bwd_filter(x, inv, shift, y, gy, gs1, gs2,
+                                  kind=ctx.kind)
+        return dx, dw, dinv, dshift, None
+
+
+def conv_unit(x: torch.Tensor, w: torch.Tensor,
+              inv: Optional[torch.Tensor] = None,
+              shift: Optional[torch.Tensor] = None, *, kind: str
+              ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Differentiable fused unit → (y, s1, s2). ``w`` is the fp32 parameter
+    view (cast to x's dtype inside, so dw comes back fp32); ``inv``/``shift``
+    are the previous BatchNorm's fp32 affine, or None. Without autograd
+    (eval, ``torch.no_grad``) this is ``conv_unit_fwd`` exactly."""
+    tensors = (x, w) + ((inv, shift) if inv is not None else ())
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        return _ConvUnit.apply(x, w, inv, shift, kind)
+    return conv_unit_fwd(x, w.to(x.dtype), inv, shift, kind=kind)

@@ -33,7 +33,11 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 SOURCES = ("melspec", "gru", "conv_bn")
 
 launches: Dict[str, int] = {"melspec": 0, "gru": 0,
-                            "conv_spatial": 0, "conv_temporal": 0}
+                            "conv_spatial": 0, "conv_temporal": 0,
+                            "conv_spatial_bwd_data": 0,
+                            "conv_spatial_bwd_filter": 0,
+                            "conv_temporal_bwd_data": 0,
+                            "conv_temporal_bwd_filter": 0}
 
 _loaded: Dict[str, ctypes.CDLL] = {}
 
@@ -44,9 +48,13 @@ Fl = ctypes.c_float
 SIGNATURES = {
     "melspec": {"m3f_log_mel": [P, I, I, I, P, I, I, I, I, P, P, P, I, I,
                                 I, Fl, P, I, P]},
-    "gru": {"m3f_gru_fwd": [P, P, P, P, I, I, I, I, I, I, P]},
+    "gru": {"m3f_gru_fwd": [P, P, P, P, P, I, I, I, I, I, I, P]},
     "conv_bn": {"m3f_conv_unit_fwd": [P, P, P, P, P, P, P, P, I, I, I, I, I,
-                                      I, I, I, I, P]},
+                                      I, I, I, I, P],
+                "m3f_conv_unit_bwd_data": [P, P, P, P, P, P, P, P, P, P, P, P,
+                                           I, I, I, I, I, I, I, I, I, P],
+                "m3f_conv_unit_bwd_filter": [P, P, P, P, P, P, P, P, P, I, I,
+                                             I, I, I, I, I, I, I, P]},
 }
 
 

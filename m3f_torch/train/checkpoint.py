@@ -1,9 +1,22 @@
-"""Carry weights trained by the JAX package into the port (load side).
+"""Checkpoints: atomic, preemption-aware, and readable by the JAX package.
 
-Counterpart of the load half of ``m3f/pytorch_tpu/train/checkpoint.py``.
-A JAX checkpoint is one ``.npz`` of pytree leaves keyed by their
-``/``-joined tree path; this module reads it with numpy alone and returns
-the port's ``state_dict``:
+Counterpart of ``m3f/pytorch_tpu/train/checkpoint.py``. A checkpoint is one
+``.npz`` of leaves keyed by their ``/``-joined tree path plus a JSON
+``__meta__`` entry. The port writes the reference's TrainState layout for
+the model, so the JAX package's ``load_model_checkpoint`` serves a
+port-trained checkpoint: ``.params/…``, ``.bn_state/…``, ``.ema/…`` (EMA on),
+``.step`` and ``.lr_mult`` (plateau schedule), each leaf in the reference's
+layout (``to_jax_params``). The optimizer state is the port's own
+(``train/optim.py``) under ``.opt_state/…``, tagged in the meta; a JAX-written
+optimizer state cannot be resumed and is refused, never replaced by fresh
+moments. ``Checkpointer`` writes atomically (mkstemp + ``os.replace``),
+keeps the last K, writes asynchronously (a snapshot on the device, fetched
+and written on a thread), resumes from the newest usable file (a corrupt one
+falls back to an older one; a config-hash mismatch aborts), keeps the best
+by eval CCC and saves on SIGTERM.
+
+The load side reads a JAX checkpoint with numpy alone and returns the port's
+``state_dict``:
 
 - module names mirror the reference's param tree, so a path
   ``visual/blocks/0/conv1/spatial/kernel`` is the key
@@ -17,10 +30,25 @@ the port's ``state_dict``:
 
 from __future__ import annotations
 
-from typing import Any, Dict, Tuple
+import atexit
+import json
+import os
+import re
+import shutil
+import signal
+import tempfile
+import threading
+import weakref
+from dataclasses import dataclass, field
+from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
+
+from m3f_torch.config import ExperimentConfig
+
+# meta tag of the port's optimizer-state layout (train/optim.py)
+OPT_LAYOUT = "m3f_torch/1"
 
 
 def _flatten(tree: Any, prefix: str = "") -> Dict[str, np.ndarray]:
@@ -96,3 +124,320 @@ def load_model_checkpoint(path: str) -> Tuple[Dict[str, torch.Tensor], int]:
         raise ValueError(f"checkpoint {path} holds no model leaves under "
                          f"{prefixes}")
     return _convert(flat), step
+
+
+def to_jax_params(tensors: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:
+    """The inverse of ``_convert``: the port's names → ``/``-joined reference
+    paths, conv ``weight`` [O, I, *k] → ``kernel`` [*k, I, O], every other
+    leaf as is (fp32 numpy)."""
+    out: Dict[str, np.ndarray] = {}
+    for name, t in tensors.items():
+        v = t.detach().cpu().numpy() if isinstance(t, torch.Tensor) else np.asarray(t)
+        parts = name.split(".")
+        if parts[-1] == "weight" and v.ndim >= 4:
+            nd = v.ndim
+            v = v.transpose(tuple(range(2, nd)) + (1, 0))
+            parts[-1] = "kernel"
+        out["/".join(parts)] = np.ascontiguousarray(v, dtype=np.float32)
+    return out
+
+
+def save_pytree(leaves: Dict[str, np.ndarray], path: str,
+                meta: Optional[dict] = None) -> None:
+    """Atomically write ``/``-keyed leaves (and ``meta`` as ``__meta__``) to
+    ``path`` (.npz): a temporary file in the same directory, then
+    ``os.replace``."""
+    leaves = dict(leaves)
+    if meta:
+        leaves["__meta__"] = np.frombuffer(json.dumps(meta).encode(),
+                                           dtype=np.uint8)
+    d = os.path.dirname(path) or "."
+    os.makedirs(d, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(dir=d, suffix=".tmp")
+    try:
+        with os.fdopen(fd, "wb") as f:
+            np.savez(f, **leaves)
+        os.replace(tmp, path)
+    finally:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+
+
+def load_meta(path: str) -> dict:
+    with np.load(path) as z:
+        if "__meta__" in z.files:
+            return json.loads(bytes(z["__meta__"]).decode())
+    return {}
+
+
+def _flatten_opt(tree: Any, prefix: str = ".opt_state") -> Dict[str, Any]:
+    """The optimizer state's nested dicts → {".opt_state/a/b": leaf}."""
+    if isinstance(tree, dict):
+        out: Dict[str, Any] = {}
+        for k, v in tree.items():
+            out.update(_flatten_opt(v, f"{prefix}/{k}"))
+        return out
+    return {prefix: tree}
+
+
+def _snapshot(state, clone: bool) -> Dict[str, Any]:
+    """The state's leaves by checkpoint key, still in the port's layout and
+    on their device (copies when ``clone``); converted by ``_to_arrays``."""
+    cp = (lambda t: t.detach().clone()) if clone else (lambda t: t.detach())
+    snap: Dict[str, Any] = {"params": {n: cp(t) for n, t in state.params.items()},
+                            "bn_state": {n: cp(t) for n, t in state.bn_state.items()},
+                            "ema": None if state.ema is None else
+                            {n: cp(t) for n, t in state.ema.items()},
+                            "step": int(state.step), "lr_mult": state.lr_mult}
+    snap["opt"] = {k: cp(v) if isinstance(v, torch.Tensor) else v
+                   for k, v in _flatten_opt(state.opt_state).items()}
+    return snap
+
+
+def _to_arrays(snap: Dict[str, Any]) -> Dict[str, np.ndarray]:
+    out: Dict[str, np.ndarray] = {}
+    for group in ("params", "bn_state", "ema"):
+        if snap[group] is not None:
+            for k, v in to_jax_params(snap[group]).items():
+                out[f".{group}/{k}"] = v
+    for k, v in snap["opt"].items():
+        out[k] = v.cpu().numpy() if isinstance(v, torch.Tensor) \
+            else np.asarray(v, np.int32)
+    out[".step"] = np.asarray(snap["step"], np.int32)
+    if snap["lr_mult"] is not None:
+        out[".lr_mult"] = np.asarray(snap["lr_mult"], np.float32)
+    return out
+
+
+def _restore(state, data: Dict[str, np.ndarray], path: str) -> None:
+    """Copy a checkpoint's leaves into ``state`` in place (same device and
+    tensors); raise on any missing or extra leaf."""
+    want = set(_to_arrays(_snapshot(state, clone=False)))
+    have = set(data)
+    if want != have:
+        raise ValueError(f"checkpoint {path} does not fit the state: missing="
+                         f"{sorted(want - have)[:5]} extra={sorted(have - want)[:5]}")
+    for group in ("params", "bn_state", "ema"):
+        tensors = getattr(state, group)
+        if tensors is None:
+            continue
+        conv = _convert({k[len(group) + 2:]: v for k, v in data.items()
+                         if k.startswith(f".{group}/")})
+        for n, t in tensors.items():
+            t.data.copy_(conv[n].reshape(t.shape))
+
+    def fill(tree, prefix):
+        for k, v in tree.items():
+            key = f"{prefix}/{k}"
+            if isinstance(v, dict):
+                fill(v, key)
+            elif isinstance(v, torch.Tensor):
+                v.copy_(torch.from_numpy(data[key]).reshape(v.shape))
+            else:
+                tree[k] = int(data[key])
+    fill(state.opt_state, ".opt_state")
+    state.step = int(data[".step"])
+    if state.lr_mult is not None:
+        state.lr_mult = float(data[".lr_mult"])
+
+
+_LIVE_CHECKPOINTERS: "weakref.WeakSet[Checkpointer]" = weakref.WeakSet()
+_ATEXIT_INSTALLED = False
+
+
+def _drain_all_checkpointers():
+    """At exit: join every live checkpointer's writer (failures printed, so
+    the remaining ones still drain)."""
+    for ck in list(_LIVE_CHECKPOINTERS):
+        try:
+            ck.wait()
+        except Exception as e:     # noqa: BLE001 — exit path, keep draining
+            print(f"checkpoint write failed during exit drain: {e}")
+
+
+@dataclass(eq=False)
+class Checkpointer:
+    directory: str
+    keep: int = 3
+    cfg: Optional[ExperimentConfig] = None
+    _sigterm_state: Any = field(default=None, repr=False)
+
+    def __post_init__(self):
+        global _ATEXIT_INSTALLED
+        os.makedirs(self.directory, exist_ok=True)
+        self._writer: Optional[threading.Thread] = None
+        self._writer_error: Optional[tuple] = None     # (path, exception)
+        _LIVE_CHECKPOINTERS.add(self)
+        if not _ATEXIT_INSTALLED:
+            atexit.register(_drain_all_checkpointers)
+            _ATEXIT_INSTALLED = True
+
+    # -- naming -------------------------------------------------------------
+
+    def _path(self, step: int) -> str:
+        return os.path.join(self.directory, f"ckpt_{step:08d}.npz")
+
+    def all_steps(self):
+        steps = []
+        for f in os.listdir(self.directory):
+            m = re.fullmatch(r"ckpt_(\d+)\.npz", f)
+            if m:
+                steps.append(int(m.group(1)))
+        return sorted(steps)
+
+    def latest_path(self) -> Optional[str]:
+        steps = self.all_steps()
+        return self._path(steps[-1]) if steps else None
+
+    def best_path(self) -> str:
+        return os.path.join(self.directory, "best.npz")
+
+    # -- save ---------------------------------------------------------------
+
+    def _meta(self, step: int) -> dict:
+        meta = {"step": step, "opt_layout": OPT_LAYOUT}
+        if self.cfg is not None:
+            meta["config_hash"] = self.cfg.config_hash()
+            meta["config"] = self.cfg.to_dict()
+        return meta
+
+    def save(self, state) -> str:
+        """Write ``state`` now (after any write in flight) and prune."""
+        self.wait()
+        path = self._path(int(state.step))
+        save_pytree(_to_arrays(_snapshot(state, clone=False)), path,
+                    self._meta(int(state.step)))
+        self._prune()
+        return path
+
+    def save_async(self, state) -> str:
+        """Snapshot ``state`` on its device now (the next steps update it in
+        place), then fetch, write and prune on a background thread; one
+        write in flight at a time."""
+        self.wait()
+        path = self._path(int(state.step))
+        self._start_writer(_snapshot(state, clone=True), path,
+                           self._meta(int(state.step)), prune=True)
+        return path
+
+    def save_best(self, state, metric: float) -> str:
+        """best.npz, written like ``save_async``."""
+        self.wait()
+        meta = {"step": int(state.step), "metric": float(metric),
+                "opt_layout": OPT_LAYOUT}
+        if self.cfg is not None:
+            meta["config_hash"] = self.cfg.config_hash()
+        self._start_writer(_snapshot(state, clone=True), self.best_path(), meta)
+        return self.best_path()
+
+    def _start_writer(self, snap, path: str, meta: dict,
+                      prune: bool = False) -> None:
+        """Background fetch and write; a failure is re-raised by the next
+        ``wait()``."""
+        def _write():
+            try:
+                save_pytree(_to_arrays(snap), path, meta)
+                snap.clear()                      # free the device snapshot
+                if prune:
+                    self._prune()
+            except BaseException as e:  # noqa: BLE001 — re-raised in wait()
+                self._writer_error = (path, e)
+
+        self._writer = threading.Thread(target=_write, daemon=True)
+        self._writer.start()
+
+    def wait(self) -> None:
+        """Block until the write in flight has finished; raise if it
+        failed."""
+        w = self._writer
+        if w is not None and w.is_alive():
+            w.join()
+        self._writer = None
+        err, self._writer_error = self._writer_error, None
+        if err is not None:
+            path, exc = err
+            raise RuntimeError(
+                f"async checkpoint write of {path} failed: {exc}") from exc
+
+    def _prune(self) -> None:
+        for s in self.all_steps()[:-self.keep]:
+            try:
+                os.unlink(self._path(s))
+            except FileNotFoundError:
+                pass
+
+    # -- restore ------------------------------------------------------------
+
+    def seed_from(self, path: str) -> None:
+        """Copy a full-state checkpoint into this directory under its own
+        step, so ``maybe_restore`` resumes from it; ignored (with a notice)
+        when the directory already holds checkpoints."""
+        if self.all_steps():
+            print(f"resume-from {path} ignored: {self.directory} already has "
+                  "checkpoints (auto-resume from the newest takes precedence)")
+            return
+        with np.load(path) as z:
+            keys = {"step", ".step"} & set(z.files)
+            if not keys:
+                raise ValueError(
+                    f"{path} is not a full TrainState checkpoint (no step "
+                    "leaf) — model-only weights load into Trainer.model")
+            step = int(np.asarray(z[next(iter(keys))]))
+        dst = self._path(step)
+        tmp = dst + ".tmp"
+        shutil.copyfile(path, tmp)
+        os.replace(tmp, dst)
+        print(f"seeded {self.directory} from {path} (step {step})")
+
+    def maybe_restore(self, state, trainer=None):
+        """Resume ``state`` in place from the newest usable checkpoint and
+        return it (as is when there is none). A corrupt or partial file
+        falls back to an older one; a config-hash mismatch and a
+        JAX-written optimizer state raise instead."""
+        del trainer       # the state is restored onto its own devices
+        for step in reversed(self.all_steps()):
+            p = self._path(step)
+            try:
+                meta = load_meta(p)
+            except Exception as e:     # noqa: BLE001 — corrupt file: try older
+                print(f"checkpoint {p} unusable ({e}); trying older")
+                continue
+            if (self.cfg is not None and meta.get("config_hash") not in
+                    (None, self.cfg.config_hash())):
+                raise RuntimeError(
+                    f"checkpoint {p} was written by a different config "
+                    f"(hash {meta.get('config_hash')} != "
+                    f"{self.cfg.config_hash()}). Refusing to resume silently "
+                    "— point checkpoint_dir at a fresh directory or restore "
+                    "the original config.")
+            if meta.get("opt_layout") != OPT_LAYOUT:
+                raise NotImplementedError(
+                    f"checkpoint {p} holds an optimizer state the port cannot "
+                    f"resume (layout {meta.get('opt_layout')!r}, not "
+                    f"{OPT_LAYOUT!r}: written by the JAX package?). Resuming "
+                    "a JAX optimizer state is not ported; load its weights "
+                    "into Trainer.model and start a fresh run directory")
+            try:
+                with np.load(p) as z:
+                    data = {k: z[k] for k in z.files if k != "__meta__"}
+                _restore(state, data, p)
+            except Exception as e:     # noqa: BLE001 — corrupt file: try older
+                print(f"checkpoint {p} unusable ({e}); trying older")
+                continue
+            return state
+        return state
+
+    # -- preemption -----------------------------------------------------------
+
+    def install_preemption_handler(self, get_state) -> None:
+        """Save ``get_state()`` on SIGTERM, then exit with 143; a failing
+        save is reported and never masks the exit."""
+        def handler(signum, frame):
+            try:
+                st = get_state()
+                if st is not None:
+                    self.save(st)
+            except Exception as e:     # noqa: BLE001 — the exit must happen
+                print(f"preemption save failed ({e}); exiting without it")
+            raise SystemExit(143)
+        signal.signal(signal.SIGTERM, handler)

@@ -1,48 +1,127 @@
-"""Whole-video sliding-window evaluation (the eval side of the Trainer).
+"""Training and whole-video evaluation.
 
-Counterpart of the eval half of ``m3f/pytorch_tpu/train/loop.py``
-(``eval_buckets``, ``_windowed_forward``, the fused whole-video eval and the
-chunked eval). A video's overlapping windows are gathered on the device from
-start indices, grouped into W-window sequences, run through the model, and
-overlap-averaged onto the frame timeline. The padding is the reference's, so
-each window reads the same frames and wav samples:
+Counterpart of ``m3f/pytorch_tpu/train/loop.py``:
 
-- frames padded to ``ceil(n/256)·256 + L``, windows to a multiple of
-  ``W·8`` by repeating the last start (masked out of the stitch);
-- wav padded or cut to the bucketed length, sample offsets
-  ``round(start/fps·sr)``, and the per-video hop from ``hop_plan``;
-- videos with more than ``window.eval_max_windows`` windows go in chunks of
-  that many windows whose partial sums accumulate on the host.
+- **Train side:** ``TrainState`` (params, BN state, optimizer state, step,
+  EMA shadow, plateau ``lr_mult``), ``BestTracker``, ``make_optimizer``
+  (``train/optim.py``), the train step (masked CCC loss, backward, optimizer
+  update, ``grad_norm`` and ``batch_ccc`` metrics, the EMA with its ramp and
+  its ``accumulate_steps`` rule, ``lr_mult`` post-scaling), ``evaluate`` in
+  both CCC conventions and ``fit`` (factory-stream exact resume, log / eval
+  / checkpoint cadence, early stop, plateau decays). The state's params and
+  BN state are the model's own tensors, updated in place by the optimizer
+  and by BatchNorm's running-statistics update, as PyTorch trains.
+- **Eval side:** a video's overlapping windows are gathered on the device
+  from start indices, grouped into W-window sequences, run through the
+  model, and overlap-averaged onto the frame timeline. The padding is the
+  reference's, so each window reads the same frames and wav samples:
 
-The training side (train step, optimizer, CCC, checkpoints written) comes
-with the training slice; EMA weights are chosen at load
-(``train.checkpoint.load_model_checkpoint`` prefers them).
+  - frames padded to ``ceil(n/256)·256 + L``, windows to a multiple of
+    ``W·8`` by repeating the last start (masked out of the stitch);
+  - wav padded or cut to the bucketed length, sample offsets
+    ``round(start/fps·sr)``, and the per-video hop from ``hop_plan``;
+  - videos with more than ``window.eval_max_windows`` windows go in chunks
+    of that many windows whose partial sums accumulate on the host.
+
+Not ported yet, and refused rather than ignored: ``model.dropout > 0``,
+``data.augment`` and ``model.init_from`` (ROADMAP: dropout, augment and
+init_from); ``train.profile_dir``, ``train.debug_nans`` and a
+``metric_writer`` (ROADMAP: CLI and tooling).
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+import dataclasses
+import time
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from m3f_torch.config import ExperimentConfig
-from m3f_torch.infer.submission import smooth_predictions
 from m3f_torch.models.m3f import M3F
 from m3f_torch.nn import resolve_device
+from m3f_torch.ops.ccc import (ccc, ccc_from_stats, ccc_loss,
+                               ccc_sufficient_stats, make_loss)
 from m3f_torch.ops.stitch import (coverage_matrix, smooth_moving_average,
                                   stitch_framewise, stitch_framewise_sums,
                                   window_starts)
+from m3f_torch.train.optim import global_norm, make_optimizer
 
 # window-count granularity of a dispatch, in W-window sequences: the
 # reference's 8·n_data/gcd(8, n_data) with one data device
 _SEQ_BUCKET = 8
 
+Tensors = Dict[str, torch.Tensor]
+
+
+@dataclasses.dataclass
+class TrainState:
+    """The reference's TrainState. ``params`` / ``bn_state`` map the model's
+    parameter / buffer names to the model's own tensors; ``ema`` is a
+    separate fp32 copy of the params (``train.ema_decay > 0``) or None;
+    ``lr_mult`` the plateau multiplier (``optim.schedule == "plateau"``) or
+    None."""
+    params: Tensors
+    bn_state: Tensors
+    opt_state: dict
+    step: int
+    ema: Optional[Tensors] = None
+    lr_mult: Optional[float] = None
+
+
+class BestTracker:
+    """Best-metric and patience tracking: ``update(metric)`` →
+    ``(is_best, should_stop)``; higher is better; ``patience=0`` never
+    stops."""
+
+    def __init__(self, patience: int = 0, min_delta: float = 0.0):
+        self.patience = patience
+        self.min_delta = min_delta
+        self.best = -float("inf")
+        self.best_step = -1
+        self.bad_evals = 0
+
+    def update(self, metric: float, step: int = -1) -> Tuple[bool, bool]:
+        if metric > self.best + self.min_delta:
+            self.best = metric
+            self.best_step = step
+            self.bad_evals = 0
+            return True, False
+        self.bad_evals += 1
+        return False, self.patience > 0 and self.bad_evals >= self.patience
+
+
+def _host_ccc(pred: np.ndarray, target: np.ndarray, valid: np.ndarray,
+              eps: float = 1e-8) -> np.ndarray:
+    """Per-dim masked CCC in numpy fp64 (two-pass moments)."""
+    m = valid.astype(np.float64)[:, None]
+    p = pred.astype(np.float64)
+    t = target.astype(np.float64)
+    cnt = np.maximum(m.sum(axis=0), 1e-12)
+    mu_p = (p * m).sum(axis=0) / cnt
+    mu_t = (t * m).sum(axis=0) / cnt
+    dp = (p - mu_p) * m
+    dt = (t - mu_t) * m
+    cov = (dp * dt).sum(axis=0) / cnt
+    var_p = (dp * dp).sum(axis=0) / cnt
+    var_t = (dt * dt).sum(axis=0) / cnt
+    return 2.0 * cov / (var_p + var_t + (mu_p - mu_t) ** 2 + eps)
+
 
 class Trainer:
-    """Eval-only trainer: owns the model and evaluates whole videos."""
+    """Owns the model (seeded from ``train.seed``), trains it and evaluates
+    whole videos. ``device="cuda"`` (default) raises without a GPU; the
+    tests pass ``device="cpu"`` to run the plain versions."""
 
     def __init__(self, cfg: ExperimentConfig, device="cuda"):
+        d = cfg.train.ema_decay
+        if not 0.0 <= d < 1.0:
+            raise ValueError(f"train.ema_decay must be in [0, 1), got {d}")
+        if cfg.train.eval_ccc_convention not in ("per_video", "pooled"):
+            raise ValueError(
+                "train.eval_ccc_convention must be 'per_video' or 'pooled', "
+                f"got {cfg.train.eval_ccc_convention!r}")
         if cfg.model.per_frame \
                 and cfg.model.frames_per_window != cfg.window.window_frames:
             raise ValueError(
@@ -53,6 +132,105 @@ class Trainer:
         self.device = resolve_device(device)
         self.model = M3F(cfg.model, device=self.device,
                          generator=torch.Generator().manual_seed(cfg.train.seed))
+        self.tx = make_optimizer(cfg.train.optim, cfg.train.num_steps)
+        self.loss_fn = make_loss(cfg.train.loss, cfg.train.mse_weight,
+                                 cfg.train.ccc_stats)
+        self._last_state: Optional[TrainState] = None   # SIGTERM save
+
+    # -- state --------------------------------------------------------------
+
+    def init_state(self) -> TrainState:
+        """A state over the model's current weights (the seeded init, or
+        what the caller loaded into ``self.model``): fresh optimizer state,
+        step 0, the EMA shadow a copy of the params."""
+        if self.cfg.model.init_from:
+            raise NotImplementedError(
+                "model.init_from is not ported yet (ROADMAP: dropout, augment "
+                "and init_from); load the weights into Trainer.model instead")
+        params = dict(self.model.named_parameters())
+        ema = ({n: p.detach().clone() for n, p in params.items()}
+               if self.cfg.train.ema_decay > 0 else None)
+        lr_mult = 1.0 if self.cfg.train.optim.schedule == "plateau" else None
+        return TrainState(params, dict(self.model.named_buffers()),
+                          self.tx.init({n: p.detach() for n, p in params.items()}),
+                          0, ema, lr_mult)
+
+    def eval_state(self, state: TrainState) -> TrainState:
+        """The state whose params are the EMA shadow when EMA is on."""
+        if state.ema is not None:
+            return dataclasses.replace(state, params=state.ema)
+        return state
+
+    # -- steps --------------------------------------------------------------
+
+    def _to_device(self, arr) -> torch.Tensor:
+        return torch.from_numpy(np.ascontiguousarray(arr)).to(self.device)
+
+    def _loss_fn(self, batch: Dict[str, torch.Tensor]):
+        preds = self.model.forward_train(video=batch.get("video"),
+                                         wav=batch.get("wav"),
+                                         mel=batch.get("mel"),
+                                         hop=batch.get("hop"))
+        return self.loss_fn(preds, batch["labels"], batch["mask"]), preds
+
+    def train_step(self, state: TrainState,
+                   batch: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+        """One optimizer step on ``batch`` (host numpy or tensors: labels,
+        mask, and video / wav / mel / hop as the model needs), in place on
+        ``state``. Returns the metrics as 0-d device tensors (reading them
+        waits for the step)."""
+        if self.cfg.data.augment:
+            raise NotImplementedError(
+                "data.augment is not ported yet (ROADMAP: dropout, augment "
+                "and init_from)")
+        tcfg = self.cfg.train
+        batch = {k: v if isinstance(v, torch.Tensor) else self._to_device(v)
+                 for k, v in batch.items()}
+        names = list(state.params)
+        loss, preds = self._loss_fn(batch)
+        grads = torch.autograd.grad(loss, [state.params[n] for n in names],
+                                    allow_unused=True)
+        grads = {n: torch.zeros_like(state.params[n]) if g is None else g
+                 for n, g in zip(names, grads)}
+        with torch.no_grad():
+            params = {n: p.detach() for n, p in state.params.items()}
+            updates, state.opt_state = self.tx.update(grads, state.opt_state,
+                                                      params)
+            if state.lr_mult is not None:
+                mult = torch.tensor(state.lr_mult, dtype=torch.float32)
+                updates = {n: u * mult.to(u.device) for n, u in updates.items()}
+            for n, p in params.items():
+                p.add_(updates[n])
+            metrics = {
+                "loss": loss.detach(),
+                "grad_norm": global_norm(grads.values()),
+                "batch_ccc": 1.0 - ccc_loss(
+                    preds, batch["labels"], batch["mask"],
+                    one_pass=tcfg.ccc_stats == "one_pass"),
+            }
+            if state.ema is not None:
+                self._update_ema(state, params)
+        state.step += 1
+        self._last_state = state
+        return metrics
+
+    def _update_ema(self, state: TrainState, params: Tensors) -> None:
+        """shadow ← shadow·d + params·(1−d), with the ramp
+        d = min(d, (1+t)/(10+t)) over applied updates t; under gradient
+        accumulation only on the steps that applied an update."""
+        tcfg = self.cfg.train
+        k = max(tcfg.optim.accumulate_steps, 1)
+        if k > 1 and state.opt_state["mini_step"] != 0:
+            return
+        d = torch.tensor(tcfg.ema_decay, dtype=torch.float32)
+        if tcfg.ema_ramp:
+            t = torch.tensor(float(state.step // k), dtype=torch.float32)
+            d = torch.minimum(d, (1.0 + t) / (10.0 + t))
+        for n, e in state.ema.items():
+            dd = d.to(e.device)
+            e.copy_(e * dd + params[n] * (1.0 - dd))
+
+    # -- whole-video eval ---------------------------------------------------
 
     def _win_bucket(self) -> int:
         return self.cfg.window.windows_per_clip * _SEQ_BUCKET
@@ -73,9 +251,11 @@ class Trainer:
     def _windowed_forward(self, starts: np.ndarray, sample_starts: np.ndarray,
                           frames: Optional[torch.Tensor],
                           wav: Optional[torch.Tensor], spw: int,
-                          hop: Optional[int]) -> torch.Tensor:
+                          hop: Optional[int],
+                          weights: Optional[Tensors] = None) -> torch.Tensor:
         """Gather each window's frames / samples on the device, group them
-        into W-window sequences and run the model → [Nw/W, W, L, 2]."""
+        into W-window sequences and run the model (with ``weights`` in place
+        of its own parameters when given) → [Nw/W, W, L, 2]."""
         L = self.cfg.window.window_frames
         W = self.cfg.window.windows_per_clip
         n_win = len(starts)
@@ -90,7 +270,11 @@ class Trainer:
             sidx = torch.as_tensor(sample_starts, device=dev).long()[:, None] \
                 + torch.arange(spw, device=dev)[None, :]
             feed["wav"] = wav[sidx].reshape(n_win // W, W, spw)
-        return self.model(video=feed.get("video"), wav=feed.get("wav"), hop=hop)
+        feed["hop"] = hop
+        if weights is None:
+            return self.model(**feed)
+        return torch.func.functional_call(self.model, weights, (), feed,
+                                          strict=False)
 
     def _plan(self, video: Dict[str, np.ndarray]):
         mcfg = self.cfg.model
@@ -105,23 +289,36 @@ class Trainer:
             need = -(-need // sr) * sr + spw
         return need
 
-    def _to_device(self, arr: np.ndarray) -> torch.Tensor:
-        return torch.from_numpy(np.ascontiguousarray(arr)).to(self.device)
-
     @torch.no_grad()
-    def evaluate_video(self, video: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
-        """Sliding-window eval of one video (``labels`` gives the frame
-        count; ``frames``, ``waveform``, ``fps`` as the model needs) →
-        {"pred": [n, 2] stitched, smoothed (``window.eval_smooth``) and
-        clipped}."""
+    def evaluate_video(self, state: Optional[TrainState],
+                       video: Dict[str, np.ndarray]) -> Dict[str, Any]:
+        """Sliding-window eval of one video (``labels`` and ``valid`` give
+        the frame count and the scored frames; ``frames``, ``waveform``,
+        ``fps`` as the model needs) with the weights of ``eval_state(state)``
+        (the model's own when ``state`` is None) → {"pred": [n, 2] stitched,
+        smoothed (``window.eval_smooth``) and clipped, "ccc_v", "ccc_a",
+        "stats": the pooled-CCC sufficient statistics}."""
         wcfg = self.cfg.window
+        weights = None
+        if state is not None and state.ema is not None:
+            weights = self.eval_state(state).params
         n = len(video["labels"])
+        labels = np.asarray(video["labels"], np.float32)
+        valid = np.asarray(video["valid"], bool)
         starts = window_starts(n, wcfg.window_frames, wcfg.eval_stride)
         if wcfg.eval_max_windows and len(starts) > wcfg.eval_max_windows:
-            return {"pred": self._evaluate_chunked(video, starts)}
-        return {"pred": self._evaluate_fused(video, starts)}
+            pred = self._evaluate_chunked(video, starts, weights)
+            per_dim = _host_ccc(pred, labels, valid)
+        else:
+            pred, per_dim = self._evaluate_fused(video, starts, weights)
+        return {"pred": pred,
+                "ccc_v": float(per_dim[0]), "ccc_a": float(per_dim[1]),
+                "stats": ccc_sufficient_stats(pred, labels, valid)}
 
-    def _evaluate_fused(self, video, starts: np.ndarray) -> np.ndarray:
+    def _evaluate_fused(self, video, starts: np.ndarray,
+                        weights: Optional[Tensors] = None):
+        """→ (pred [n, 2], per-dim CCC over the padded timeline in fp32 on
+        the device, as the reference's fused eval)."""
         wcfg, mcfg = self.cfg.window, self.cfg.model
         L = wcfg.window_frames
         sr = mcfg.mel.sample_rate
@@ -143,7 +340,7 @@ class Trainer:
                 np.pad(w, (0, max(0, need - len(w))))[:need].astype(np.float32))
         sample_starts = np.round(starts_p / fps * sr).astype(np.int32)
         preds = self._windowed_forward(starts_p, sample_starts, frames, wav,
-                                       spw, hop)
+                                       spw, hop, weights)
         st = self._to_device(starts_p)
         win_valid = torch.arange(n_win_pad, device=self.device) < n_win
         if mcfg.per_frame:
@@ -161,9 +358,17 @@ class Trainer:
             stitched = smooth_moving_average(
                 torch.where((fidx < n)[:, None], stitched, last[None, :]),
                 wcfg.eval_smooth)
-        return torch.clamp(stitched, -1.0, 1.0)[:n].cpu().numpy()
+        stitched = torch.clamp(stitched, -1.0, 1.0)
+        labels = np.full((n_frames_pad, 2), -5.0, np.float32)
+        labels[:n] = video["labels"]
+        valid = np.zeros(n_frames_pad, bool)
+        valid[:n] = video["valid"]
+        per_dim = ccc(stitched, self._to_device(labels),
+                      mask=self._to_device(valid)[:, None], axis=(0,))
+        return stitched[:n].cpu().numpy(), per_dim.cpu().numpy()
 
-    def _evaluate_chunked(self, video, starts: np.ndarray) -> np.ndarray:
+    def _evaluate_chunked(self, video, starts: np.ndarray,
+                          weights: Optional[Tensors] = None) -> np.ndarray:
         """Bounded window chunks with fixed geometry; partial stitch sums
         accumulate on the host (summation is associative where per-chunk
         averages are not)."""
@@ -198,7 +403,8 @@ class Trainer:
                     np.pad(seg, (0, need_wav - len(seg))).astype(np.float32))
             sstarts = (np.round(sub_p / fps * sr) - w0).astype(np.int32)
             local = (sub_p - f0).astype(np.int32)
-            preds = self._windowed_forward(local, sstarts, fr, wv, spw, hop)
+            preds = self._windowed_forward(local, sstarts, fr, wv, spw, hop,
+                                           weights)
             valid = torch.arange(M, device=self.device) < len(sub)
             st = self._to_device(local)
             if mcfg.per_frame:
@@ -211,5 +417,144 @@ class Trainer:
             den[f0:f0 + local_nf] += pd.cpu().numpy()
         stitched = num[:n] / np.maximum(den[:n, None], 1.0)
         if wcfg.eval_smooth > 1:
+            # imported here: m3f_torch.infer imports this module
+            from m3f_torch.infer.submission import smooth_predictions
             stitched = smooth_predictions(stitched, wcfg.eval_smooth)
         return np.clip(stitched, -1.0, 1.0)
+
+    def evaluate(self, state: Optional[TrainState], dataset, max_videos: int = 0,
+                 per_video_fn=None) -> Dict[str, float]:
+        """Split-level CCC in both conventions: ``ccc_v/ccc_a/ccc_mean``
+        (mean of per-video CCCs) and ``pooled_ccc_*`` (one CCC over all
+        videos' valid frames, from fp64 sufficient statistics);
+        ``ccc_select`` is the one ``train.eval_ccc_convention`` picks.
+        ``dataset`` has ``video_ids()`` and ``load_video(id)``."""
+        ids = dataset.video_ids()
+        if max_videos:
+            ids = ids[:max_videos]
+        if not ids:
+            raise ValueError(
+                "evaluate(): the validation split has no videos — check "
+                "data.root / annotation layout (empty Validation_Set?)")
+        return self._aggregate_eval(
+            ((vid, self.evaluate_video(state, dataset.load_video(vid)))
+             for vid in ids), per_video_fn)
+
+    def _aggregate_eval(self, results, per_video_fn=None) -> Dict[str, float]:
+        """(video_id, evaluate_video result) pairs → the metric dict."""
+        vs, as_ = [], []
+        pooled = np.zeros((2, 6), np.float64)
+        for vid, r in results:
+            if per_video_fn is not None:
+                per_video_fn(vid, r)
+            vs.append(r["ccc_v"])
+            as_.append(r["ccc_a"])
+            pooled += r["stats"]
+        pc = ccc_from_stats(pooled)
+        out = {"ccc_v": float(np.mean(vs)), "ccc_a": float(np.mean(as_)),
+               "ccc_mean": float((np.mean(vs) + np.mean(as_)) / 2),
+               "pooled_ccc_v": float(pc[0]), "pooled_ccc_a": float(pc[1]),
+               "pooled_ccc_mean": float(pc.mean())}
+        out["ccc_select"] = (out["pooled_ccc_mean"]
+                             if self.cfg.train.eval_ccc_convention == "pooled"
+                             else out["ccc_mean"])
+        return out
+
+    # -- fit ------------------------------------------------------------------
+
+    def fit(self, train_stream, val_dataset=None,
+            num_steps: Optional[int] = None,
+            log: Callable[[str], None] = print,
+            checkpointer=None, metric_writer=None) -> Tuple[TrainState, Dict]:
+        """Train for ``num_steps`` (default ``train.num_steps``) optimizer
+        steps. ``train_stream`` is a batch iterator or a callable
+        ``factory(skip_batches) -> iterator``, called after the checkpoint
+        restore with the restored step, so a resumed run consumes exactly
+        the batches an uninterrupted one would. Logs, evaluates (with
+        early stop and plateau decays) and checkpoints at the configured
+        cadences. Returns (state, history): ``loss`` and ``grad_norm`` at
+        each log step, ``eval`` results at each eval."""
+        tcfg = self.cfg.train
+        for name, value, item in (
+                ("metric_writer", metric_writer is not None, "CLI and tooling"),
+                ("train.profile_dir", bool(tcfg.profile_dir), "CLI and tooling"),
+                ("train.debug_nans", tcfg.debug_nans, "CLI and tooling")):
+            if value:
+                raise NotImplementedError(
+                    f"{name} is not ported yet (ROADMAP: {item})")
+        num_steps = num_steps or tcfg.num_steps
+        state = self.init_state()
+        if checkpointer is not None:
+            state = checkpointer.maybe_restore(state, self)
+        history: Dict[str, List] = {"loss": [], "grad_norm": []}
+        best = BestTracker(tcfg.early_stop_patience, tcfg.min_delta)
+        ocfg = tcfg.optim
+        # torch ReduceLROnPlateau semantics: decay on the (patience+1)-th
+        # consecutive bad eval; the multiplier itself lives in the state
+        plateau = (BestTracker(ocfg.plateau_patience + 1, tcfg.min_delta)
+                   if ocfg.schedule == "plateau" else None)
+        t0, seen = time.time(), 0
+        use_a, use_v = self.cfg.model.use_audio, self.cfg.model.use_video
+        start_step = state.step
+        owns_stream = (callable(train_stream)
+                       and not hasattr(train_stream, "__next__"))
+        if owns_stream:
+            train_stream = train_stream(start_step)
+        for i in range(start_step, num_steps):
+            host_batch = next(train_stream)
+            feed = {"labels": host_batch["labels"], "mask": host_batch["mask"]}
+            if use_v:
+                feed["video"] = host_batch["video"]
+            if use_a:
+                feed["wav"] = host_batch["wav"]
+                if "hop" in host_batch:
+                    feed["hop"] = host_batch["hop"]
+            metrics = self.train_step(state, feed)
+            seen += host_batch["labels"].shape[0] * host_batch["labels"].shape[1]
+            if (tcfg.log_every > 0 and (i + 1) % tcfg.log_every == 0) \
+                    or i + 1 == num_steps:
+                loss = float(metrics["loss"])
+                dt = time.time() - t0
+                history["loss"].append(loss)
+                history["grad_norm"].append(float(metrics["grad_norm"]))
+                log(f"step {i+1}/{num_steps} loss={loss:.4f} "
+                    f"batch_ccc={float(metrics['batch_ccc']):.4f} "
+                    f"clips/s={seen / dt:.1f}")
+                t0, seen = time.time(), 0
+            if (val_dataset is not None and tcfg.eval_every > 0
+                    and (i + 1) % tcfg.eval_every == 0):
+                ev = self.evaluate(state, val_dataset)
+                log(f"  eval @{i+1}: ccc_v={ev['ccc_v']:.4f} "
+                    f"ccc_a={ev['ccc_a']:.4f} "
+                    f"pooled_v={ev['pooled_ccc_v']:.4f} "
+                    f"pooled_a={ev['pooled_ccc_a']:.4f}")
+                history.setdefault("eval", []).append(ev)
+                if plateau is not None:
+                    _, hit = plateau.update(ev["ccc_select"], i + 1)
+                    if hit:
+                        cur = float(state.lr_mult)
+                        new = max(cur * ocfg.plateau_factor,
+                                  ocfg.plateau_min_scale)
+                        if new < cur:
+                            state.lr_mult = float(np.float32(new))
+                            log(f"  plateau @{i+1}: no "
+                                f"{tcfg.eval_ccc_convention} CCC improvement "
+                                f"for {plateau.bad_evals} evals — lr x "
+                                f"{ocfg.plateau_factor:g} (mult {new:.2e})")
+                        plateau.bad_evals = 0
+                is_best, should_stop = best.update(ev["ccc_select"], i + 1)
+                if is_best and checkpointer is not None:
+                    checkpointer.save_best(state, ev["ccc_select"])
+                if should_stop:
+                    log(f"early stop @{i+1}: no ccc_mean improvement for "
+                        f"{best.bad_evals} evals (best {best.best:.4f} "
+                        f"@step {best.best_step})")
+                    break
+            if (checkpointer is not None and tcfg.checkpoint_every > 0
+                    and (i + 1) % tcfg.checkpoint_every == 0):
+                checkpointer.save_async(state)
+        if owns_stream and hasattr(train_stream, "close"):
+            train_stream.close()
+        if checkpointer is not None:
+            checkpointer.wait()
+        return state, history

@@ -106,14 +106,19 @@ def test_bigru_matches_jax(kw, dtype, backend, monkeypatch):
     ("pallas", False, torch.bfloat16)])
 def test_bigru_passes_w_hh_in_the_backends_dtype(backend, bidirectional, want,
                                                   monkeypatch):
-    """gru.backend picks the recurrent weights' dtype (the reference's XLA
+    """gru.backend picks the recurrent product's dtype (the reference's XLA
     scan: compute dtype; its Pallas kernel: fp32; unidirectional: the XLA
-    scan whatever the backend)."""
+    scan whatever the backend). BiGRU passes the fp32 weights with that
+    dtype, so their gradient accumulates in fp32."""
     import m3f_torch.models.gru as mg
     seen = []
     real = mg.gru_scan
-    monkeypatch.setattr(mg, "gru_scan",
-                        lambda xp, w, b: seen.append(w.dtype) or real(xp, w, b))
+
+    def spy(xp, w, b, w_dtype):
+        assert w.dtype == torch.float32
+        seen.append(w_dtype)
+        return real(xp, w, b, w_dtype)
+    monkeypatch.setattr(mg, "gru_scan", spy)
     port = BiGRU(8, 8, torch.Generator().manual_seed(0), backend=backend,
                  bidirectional=bidirectional)
     with torch.no_grad():

@@ -43,21 +43,26 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
                          env=_env(), capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     count, bad = out.stdout.strip().split(" ", 1)
-    assert int(count) >= 15          # every module of the slice was imported
+    assert int(count) >= 21          # every module of both slices was imported
     assert bad == "[]"
 
 
 def test_entry_points_need_a_gpu_unless_asked_for_the_cpu():
     from m3f_torch.infer import Predictor
     from m3f_torch.models.m3f import M3F
-    from m3f_torch.config import ModelConfig
+    from m3f_torch.config import ModelConfig, fusion
+    from m3f_torch.train.loop import Trainer
     if torch.cuda.is_available():
         assert Predictor().model.head.kernel.is_cuda
+        assert Trainer(fusion()).model.head.kernel.is_cuda
     else:
         with pytest.raises(RuntimeError, match="cuda"):
             Predictor()
         with pytest.raises(RuntimeError, match="cuda"):
             M3F(ModelConfig())
+        with pytest.raises(RuntimeError, match="cuda"):
+            Trainer(fusion())
+    assert not Trainer(fusion(), device="cpu").model.head.kernel.is_cuda
 
 
 def test_chip_smoke_fails_without_gpu_or_package(tmp_path):
