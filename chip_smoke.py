@@ -20,7 +20,18 @@ H100 (``python3 chip_smoke.py``). It
    element (1e-5 of sum |x^|*|ge|), dinv / dshift per channel; each check
    is shown to refuse a zeroed dinv, a dw one channel off and a dx with a
    row tile left out; they are timed beside their plain versions and
-   cuDNN's backward (``torch.nn.grad.conv3d_input`` / ``conv3d_weight``);
+   cuDNN's backward (``torch.nn.grad.conv3d_input`` / ``conv3d_weight``).
+   The four kernels of the packed-layout conv probe (packed_conv with bf16
+   and fp32 y, ablate_slabs, ablate_matmul, packed_conv_chunked) are held
+   against their plain versions at the probe's full shape (COUT 144, timed
+   beside the plain versions, ``F.conv2d`` and ``torch.matmul``; and COUT
+   128) and at two shapes off the tiling, each check shown to refuse a y
+   with its tail columns zeroed and a y without the x-edge masks (for the
+   product ablation, a y with its last image left out); then the probe
+   runs every phase at full shape (``probe_packed_conv.run``) with the
+   counters set to 0 just before and read just after, each of its four
+   kernels launched, packed_conv and packed_conv_chunked within 2e-2 of
+   ``reference_conv`` (COUT 144 and 128);
 3. serves a synthetic 1024-frame video through ``Predictor(preset=
    "longseq_eval")`` at full width with seeded random weights: a 30 fps
    request, a 25 fps request (per-video mel hop) and a chunked one
@@ -74,6 +85,14 @@ BWD_DW_ABS = 1e-6        # ... plus a floor, relative to max of that sum
 BWD_S_REL = 1e-5         # dinv/dshift per channel: the dx^ differences held
 #                          above, carried (sum|x|*|dxa - dxa_ref|), plus 1e-5
 #                          of sum|x*dxa_ref| for the fp32 summation order
+PROBE_F32_REL = 1e-5     # packed conv fp32 y per element: 1e-5 of |W_cm|@|P|
+#                          (fp32 summation order over K = 576) ...
+PROBE_ABS = 1e-6         # ... plus a floor; bf16 y (conv, chunked, product
+#                          ablation): one bf16 ulp of the fp32 value on top;
+#                          the slab ablation bit for bit (a copy, a x0 / x1)
+PROBE_REF_REL = 2e-2     # packed conv vs reference_conv, max|dy| / max|y| over
+#                          the first HW positions (probe_packed_conv.py:333)
+PROBE_ITERS = 10         # timed calls per phase of the probe's own run
 PATH_ATOL = 3e-2         # whole-path bf16 preds (tanh outputs), card vs CPU
 PATH_MEAN_ATOL = 5e-3
 CHUNK_ATOL = 3e-2        # fused vs chunked eval of one video on the card
@@ -534,6 +553,183 @@ def check_bwd_edges(torch, conv_bn):
     emit({"phase": "kernel_bwd_edge_shapes", "errors": errs})
 
 
+PROBE_KERNELS = ("packed_conv", "ablate_slabs", "ablate_matmul",
+                 "packed_conv_chunked")
+
+
+def _probe_inputs(torch, shape, seed):
+    """x_cm random at every position (the margins and the tail too: the
+    kernels read them as given), w_cm / sqrt(K), p_const; bf16 on the card."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    bf = torch.bfloat16
+    x = torch.randn(shape.BT, shape.CIN, shape.HWM, device="cuda", generator=g).to(bf)
+    w = (torch.randn(shape.COUT, shape.K, device="cuda", generator=g)
+         / math.sqrt(shape.K)).to(bf)
+    p = torch.randn(shape.K, shape.HWP, device="cuda", generator=g).to(bf)
+    return x, w, p
+
+
+def _unmasked_im2col(torch, pc, x_cm, shape):
+    """im2col without the x-edge masks (the negative control's P)."""
+    return torch.cat([x_cm[:, :, shape.MARGIN + dy * shape.W + dx:][:, :, :shape.HWP]
+                      for dy, dx in pc.TAPS], dim=1)
+
+
+def probe_within(torch, got, want, lim):
+    """Per element within ``lim``; bit for bit when ``lim`` is None."""
+    if lim is None:
+        return torch.equal(got.view(torch.int16), want.view(torch.int16))
+    return bool(((got.float() - want.float()).abs() <= lim).all())
+
+
+def check_probe_shape(torch, F, pc, shape, seed, timing):
+    """The four probe kernels at ``shape`` against their plain versions on
+    the same inputs: packed_conv with fp32 and bf16 y, packed_conv_chunked,
+    ablate_slabs, ablate_matmul; each check is shown to refuse a y whose
+    tail columns are zeroed and a y without the x-edge masks (the product
+    ablation has no masks: a y whose last image is left out). With
+    ``timing``, each kernel is timed beside its plain version and the
+    library call. Returns {kernel: result}."""
+    x, w, p = _probe_inputs(torch, shape, seed)
+    y32 = pc.packed_conv_reference(x, w, shape, out_f32=True)
+    lim32 = PROBE_F32_REL * torch.matmul(w.float().abs(),
+                                         pc.im2col(x, shape).float().abs()) + PROBE_ABS
+    lim16 = ulp_bf16(torch, y32) + lim32
+    pu = _unmasked_im2col(torch, pc, x, shape)
+    yu32 = torch.matmul(w.float(), pu.float())
+    mm32 = torch.matmul(w.float(), p.float())
+    lim_mm = ulp_bf16(torch, mm32) + PROBE_F32_REL * torch.matmul(
+        w.float().abs(), p.float().abs()) + PROBE_ABS
+    bf = torch.bfloat16
+    # name: (kernel, plain version, limit, y without the masks or None)
+    cases = {
+        "packed_conv_f32": (lambda: pc.packed_conv(x, w, shape, out_f32=True),
+                            lambda: pc.packed_conv_reference(x, w, shape, True),
+                            lim32, yu32),
+        "packed_conv": (lambda: pc.packed_conv(x, w, shape),
+                        lambda: pc.packed_conv_reference(x, w, shape),
+                        lim16, yu32.to(bf)),
+        "packed_conv_chunked": (lambda: pc.packed_conv_chunked(x, w, shape),
+                                lambda: pc.packed_conv_reference(x, w, shape),
+                                lim16, yu32.to(bf)),
+        "ablate_slabs": (lambda: pc.ablate_slabs(x, w, shape),
+                         lambda: pc.ablate_slabs_reference(x, w, shape),
+                         None, pu[:, :shape.COUT].contiguous()),
+        "ablate_matmul": (lambda: pc.ablate_matmul(p, w, shape),
+                          lambda: pc.ablate_matmul_reference(p, w, shape),
+                          lim_mm, None)}
+    del pu
+    out = {}
+    for name, (kern, plain, lim, unmasked) in cases.items():
+        got, want = kern(), plain()
+        what = f"{name} at {shape}"
+        err = (got.float() - want.float()).abs().max().item()
+        require(probe_within(torch, got, want, lim), f"{what}: max |dy| {err}")
+        tail = got.clone()
+        tail[:, :, shape.HW:] = 0
+        wrong = {"tail_zeroed": tail}
+        if unmasked is not None:
+            wrong["no_x_edge_mask"] = unmasked
+        else:
+            last = got.clone()
+            last[-1] = 0
+            wrong["last_image_left_out"] = last
+        passed = [k for k, v in wrong.items() if probe_within(torch, v, want, lim)]
+        require(shape.HWP > shape.HW and not passed,
+                f"{what}: the check would pass a wrong y: {passed}")
+        res = {"max_abs_err": err,
+               "err_over_limit": 0.0 if lim is None else
+               ((got.float() - want.float()).abs() / lim).max().item()}
+        if timing:
+            res["ms"] = timed(torch, kern)
+            res["plain_ms"] = timed(torch, plain)
+        out[name] = res
+        del got, want, tail, wrong
+    if timing:
+        hw = shape.MARGIN, shape.MARGIN + shape.HW
+        x_nd = x[:, :, hw[0]:hw[1]].reshape(shape.BT, shape.CIN, shape.H, shape.W) \
+            .contiguous(memory_format=torch.channels_last)
+        w_nd = w.reshape(shape.COUT, 3, 3, shape.CIN).permute(0, 3, 1, 2) \
+            .contiguous(memory_format=torch.channels_last)
+        conv = timed(torch, lambda: F.conv2d(x_nd, w_nd, padding=1))
+        p_bt = p.expand(shape.BT, -1, -1)
+        # no single call gives the fp32 y or the slab copy
+        lib = {"packed_conv_f32": None, "packed_conv": conv,
+               "packed_conv_chunked": conv, "ablate_slabs": None,
+               "ablate_matmul": timed(torch, lambda: torch.matmul(w, p_bt))}
+        flops = 2 * shape.BT * shape.HWP * shape.K * shape.COUT
+        x_b, w_b, p_b = x.numel() * 2, w.numel() * 2, p.numel() * 2
+        y_b = shape.BT * shape.COUT * shape.HWP * 2
+        # each input read once, y written once; the slab ablation reads only
+        # x (w is not needed for its y)
+        work = {"packed_conv_f32": (x_b + w_b + 2 * y_b, flops),
+                "packed_conv": (x_b + w_b + y_b, flops),
+                "packed_conv_chunked": (x_b + w_b + y_b, flops),
+                "ablate_slabs": (x_b + y_b, 0),
+                "ablate_matmul": (p_b + w_b + y_b, flops)}
+        for name, res in out.items():
+            res["bound_ms"], res["bound_by"] = bound(*work[name], PEAK_BF16)
+            res["library_ms"] = lib[name]
+            res["tflops"] = flops / res["ms"] / 1e9
+    del x, w, p, y32, lim32, lim16, yu32, mm32, lim_mm
+    torch.cuda.empty_cache()
+    return out
+
+
+def check_probe(torch, F, cuda_lib, pc, probe):
+    """The probe slice: the four kernels held against their plain versions
+    at the full shape (COUT 144, timed; COUT 128) and at two shapes off the
+    tiling; then the probe itself (``probe.run``, every phase, at the full
+    shape) with the counters set to 0 just before and read just after, and
+    its check at COUT 128. Returns the kernels' entries and the launches."""
+    full = check_probe_shape(torch, F, pc, pc.ProbeShape(), 8, timing=True)
+    for name, res in full.items():
+        emit({"phase": "kernel_probe", "kernel": name, "cout": 144, **res})
+    errs = {name: r["max_abs_err"] for name, r in full.items()}
+    for cout_shape, seed in ((pc.ProbeShape(COUT=128), 9),
+                             # a lane tail of 112, COUT one and a half m16
+                             # tiles, W not a multiple of 8, four chunks
+                             (pc.ProbeShape(B=2, T=3, H=20, W=20, CIN=16,
+                                            COUT=24, CHUNK=128), 10),
+                             # two channel blocks (COUT > 144), CIN 24 (taps
+                             # straddle the K chunks), two tiles per chunk
+                             (pc.ProbeShape(B=1, T=2, H=12, W=12, CIN=24,
+                                            COUT=152, CHUNK=256), 11)):
+        res = check_probe_shape(torch, F, pc, cout_shape, seed, timing=False)
+        emit({"phase": "kernel_probe_shape", "shape": str(cout_shape),
+              "errors": res})
+        for name, r in res.items():
+            errs[name] = max(errs[name], r["max_abs_err"])
+    cuda_lib.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run = probe.run(pc.ProbeShape(), probe.PHASES, iters=PROBE_ITERS)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = dict(cuda_lib.launches)
+    want_zero = {k: v for k, v in counts.items() if k not in PROBE_KERNELS and v}
+    missing = [k for k in PROBE_KERNELS if counts[k] == 0]
+    require(not missing and not want_zero,
+            f"probe launches {counts}: missing {missing}, stray {want_zero}")
+    check128 = probe.check(probe.make_inputs(pc.ProbeShape(COUT=128), "cuda")[0],
+                           pc.ProbeShape(COUT=128))
+    ref = {"cout144": run["check"], "cout128": check128}
+    require(all(v < PROBE_REF_REL for c in ref.values() for v in c.values()),
+            f"packed conv vs reference_conv: {ref}, limit {PROBE_REF_REL}")
+    emit({"phase": "probe_packed_conv", "iters": PROBE_ITERS, "s": dt,
+          "launches": {k: counts[k] for k in PROBE_KERNELS},
+          "rel_err_vs_reference_conv": ref, "tol": PROBE_REF_REL,
+          "rows": [{"name": n, "ms": t * 1e3, "tflops": fl / t / 1e12}
+                   for n, t, fl in run["rows"]]})
+    entries = []
+    for name in PROBE_KERNELS:
+        r = full[name]
+        entries.append({"name": name, "max_abs_err": errs[name], "ms": r["ms"],
+                        "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                        "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
+    return entries, counts
+
+
 def check_edges(torch, melspec, gru, conv_bn, cfg):
     """Shapes off the main path's tiling, for the kernels' masked edges:
     conv tiles with a partial row tile and masked output channels, a GRU
@@ -632,7 +828,7 @@ def train_fusion(torch, np, cuda_lib, config, Trainer, data):
                 "conv_spatial": 10, "conv_temporal": 10,
                 "conv_spatial_bwd_data": 10, "conv_spatial_bwd_filter": 10,
                 "conv_temporal_bwd_data": 10, "conv_temporal_bwd_filter": 10}
-    want = {k: v * steps for k, v in per_step.items()}
+    want = {k: per_step.get(k, 0) * steps for k in cuda_lib.launches}
     require(counts == want, f"train launches {counts}, expected {want}")
     loss, gnorm = hist["loss"], hist["grad_norm"]
     require(len(loss) == steps and all(math.isfinite(v) for v in loss + gnorm),
@@ -682,7 +878,8 @@ def train_parity(torch, np, cuda_lib, config, Trainer, data):
         _, hist = tr.fit(synthetic_stream(np, cfg, *data, seed=1), num_steps=3,
                          log=lambda s: None)
         if dev == "cuda":
-            missing = [k for k, v in cuda_lib.launches.items() if v == 0]
+            missing = [k for k in FORWARD_KERNELS + BWD_KERNELS
+                       if cuda_lib.launches[k] == 0]
             require(not missing, f"narrow card training skipped {missing}")
         w = torch.cat([p.detach().cpu().flatten() for p in tr.model.parameters()])
         runs[run] = (hist["loss"], w, init, w0)
@@ -719,6 +916,8 @@ def main():
     try:
         from m3f_torch import config
         from m3f_torch.ops import conv_bn, cuda_lib, gru, melspec
+        from m3f_torch.ops import packed_conv as pc
+        from m3f_torch.scripts import probe_packed_conv as probe
         from m3f_torch.config import MelConfig
         from m3f_torch.data.synthetic import SyntheticAVDataset
         from m3f_torch.data.windowing import WindowSequencer, example_stream
@@ -749,6 +948,11 @@ def main():
     kernels += check_bwd(torch, conv_bn)
     check_bwd_edges(torch, conv_bn)
     torch.cuda.empty_cache()
+
+    # 2b. the probe slice: its kernels against their plain versions, then
+    # the probe itself at full shape (its own launch counts)
+    probe_kernels, counts_probe = check_probe(torch, F, cuda_lib, pc, probe)
+    kernels += probe_kernels
 
     # 3. the serving path at full width
     p = Predictor(preset="longseq_eval")
@@ -825,18 +1029,28 @@ def main():
                 "conv_spatial_bwd_data": pallas + "conv_bn.py:537",
                 "conv_spatial_bwd_filter": pallas + "conv_bn.py:554",
                 "conv_temporal_bwd_data": pallas + "conv_bn.py:612",
-                "conv_temporal_bwd_filter": pallas + "conv_bn.py:625"}
+                "conv_temporal_bwd_filter": pallas + "conv_bn.py:625",
+                "packed_conv": "scripts/probe_packed_conv.py:85",
+                "ablate_slabs": "scripts/probe_packed_conv.py:139",
+                "ablate_matmul": "scripts/probe_packed_conv.py:157",
+                "packed_conv_chunked": "scripts/probe_packed_conv.py:207"}
     counter = {"melspec": "melspec", "gru": "gru",
                "conv_unit_spatial": "conv_spatial",
                "conv_unit_temporal": "conv_temporal"}
-    source = {"melspec": "m3f_torch/csrc/melspec.cu", "gru": "m3f_torch/csrc/gru.cu"}
+    source = {"melspec": "m3f_torch/csrc/melspec.cu", "gru": "m3f_torch/csrc/gru.cu",
+              **{k: "m3f_torch/csrc/packed_conv.cu" for k in PROBE_KERNELS}}
     line = []
     for k in kernels:
         name = k["name"]
         # forward kernels: their launches serving one video; backward
-        # kernels: theirs over the 10 timed train steps
-        launches = counts30[counter[name]] if name in counter \
-            else counts_train[name]
+        # kernels: theirs over the 10 timed train steps; probe kernels:
+        # theirs in one probe run
+        if name in counter:
+            launches = counts30[counter[name]]
+        elif name in PROBE_KERNELS:
+            launches = counts_probe[name]
+        else:
+            launches = counts_train[name]
         line.append({"name": name, "route": "cuda",
                      "source": source.get(name, "m3f_torch/csrc/conv_bn.cu"),
                      "replaces": replaces[name],

@@ -30,14 +30,16 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-lineinfo")
-SOURCES = ("melspec", "gru", "conv_bn")
+SOURCES = ("melspec", "gru", "conv_bn", "packed_conv")
 
 launches: Dict[str, int] = {"melspec": 0, "gru": 0,
                             "conv_spatial": 0, "conv_temporal": 0,
                             "conv_spatial_bwd_data": 0,
                             "conv_spatial_bwd_filter": 0,
                             "conv_temporal_bwd_data": 0,
-                            "conv_temporal_bwd_filter": 0}
+                            "conv_temporal_bwd_filter": 0,
+                            "packed_conv": 0, "ablate_slabs": 0,
+                            "ablate_matmul": 0, "packed_conv_chunked": 0}
 
 _loaded: Dict[str, ctypes.CDLL] = {}
 
@@ -55,6 +57,7 @@ SIGNATURES = {
                                            I, I, I, I, I, I, I, I, I, P],
                 "m3f_conv_unit_bwd_filter": [P, P, P, P, P, P, P, P, P, I, I,
                                              I, I, I, I, I, I, I, P]},
+    "packed_conv": {"m3f_packed_conv": [P, P, P, I, I, I, I, I, I, I, I, P]},
 }
 
 
