@@ -18,9 +18,13 @@ H100 (``python3 chip_smoke.py``). It
    spatial and temporal) are held the same way at the fusion train step's
    shapes: dx per element (one bf16 ulp, carried through inv), dw per
    element (1e-5 of sum |x^|*|ge|), dinv / dshift per channel; each check
-   is shown to refuse a zeroed dinv, a dw one channel off and a dx with a
-   row tile left out; they are timed beside their plain versions and
-   cuDNN's backward (``torch.nn.grad.conv3d_input`` / ``conv3d_weight``).
+   is shown to refuse a zeroed dinv, a dw one channel off, a dw with taps
+   0 and 2 swapped, a dx with a row tile left out and (temporal) a dw
+   without its last slice's partial; the temporal filter gradient must
+   repeat its dw bit for bit; they are timed beside their plain versions
+   and cuDNN's backward (``torch.nn.grad.conv3d_input`` / ``conv3d_weight``)
+   and checked again at shapes off the tiling (short clips, partial
+   strips, masked channels);
    The four kernels of the packed-layout conv probe (packed_conv with bf16
    and fp32 y, ablate_slabs, ablate_matmul, packed_conv_chunked) are held
    against their plain versions at the probe's full shape (COUT 144, timed
@@ -404,12 +408,36 @@ def bwd_limits(torch, conv_bn, x, inv, shift, y, gy, gs1, gs2, ref, dxa,
     return lim
 
 
+def last_slice_left_out(torch, conv_bn, x, inv, shift, y, gy, gs1, gs2, dw):
+    """The temporal filter gradient ``dw`` without the share of the kernel's
+    last slice: the clips x strips of ``temporal_filter_plan(...).units_of(
+    slices - 1)``, computed by the plain version on ge masked to them."""
+    b, t, h, w, ci = x.shape
+    co = gy.shape[-1]
+    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+    plan = conv_bn.temporal_filter_plan(b, t, h, w, ci, co, sms)
+    strips = -(-h * w // plan.strip)
+    mask = torch.zeros(b, h * w, device=x.device)
+    for u in plan.units_of(plan.slices - 1):
+        p0 = (u % strips) * plan.strip
+        mask[u // strips, p0:p0 + plan.strip] = 1
+    ge = conv_bn._gy_eff(gy, y, gs1, gs2).float() * mask.reshape(b, 1, h, w, 1)
+    xh = conv_bn._prologue(x, inv, shift).float()
+    share = torch.nn.grad.conv3d_weight(
+        xh.permute(0, 4, 1, 2, 3), (co, ci, 3, 1, 1), ge.permute(0, 4, 1, 2, 3),
+        padding=(1, 0, 0))
+    return dw - share[:, :, :, 0, 0].permute(2, 1, 0)
+
+
 def check_bwd_unit(torch, conv_bn, what, x, w, inv, shift, gy, gs1, gs2,
                    kind):
     """One backward unit: kernel (data + filter) vs the plain version, held
     per element (dx, dw) and per channel (dinv, dshift); then shows that the
-    same checks refuse a zeroed dinv, a dw one output channel off and a dx
-    whose last row tile (the partial one where there is one) is left out.
+    same checks refuse a zeroed dinv, a dw one output channel off, a dw with
+    taps 0 and 2 swapped (where the reference's differ), a dx whose last row
+    tile (the partial one where there is one) is left out and, for the
+    temporal kind, a dw without its last slice's partial; the temporal
+    filter gradient must give the same dw bit for bit on a second call.
     Returns the kernel's outputs, the reference and the worst error of each."""
     y, _, _ = conv_bn.conv_unit_fwd(x, w, inv, shift, kind=kind)
     dx, dinv, dshift = conv_bn.conv_unit_bwd_data(
@@ -439,6 +467,14 @@ def check_bwd_unit(torch, conv_bn, what, x, w, inv, shift, gy, gs1, gs2,
                              / lim["dx"]).max().item()
     require(bwd_within(torch, got, ref, lim), f"{what}: backward off: {errs}")
     wrong = {"dw_one_channel_off": (dx, dw.roll(1, dims=-1), dinv, dshift)}
+    if bool(((ref[1].flip(0) - ref[1]).abs() > lim["dw"]).any()):
+        wrong["dw_taps_0_2_swapped"] = (dx, dw.flip(0), dinv, dshift)
+    if kind == "temporal":
+        again = conv_bn.conv_unit_bwd_filter(x, inv, shift, y, gy, gs1, gs2,
+                                             kind=kind)
+        require(torch.equal(again, dw), f"{what}: a second call gave another dw")
+        wrong["dw_last_slice_left_out"] = (dx, last_slice_left_out(
+            torch, conv_bn, x, inv, shift, y, gy, gs1, gs2, dw), dinv, dshift)
     if dinv is not None:
         wrong["dinv_zero"] = (dx, dw, dinv * 0, dshift)
     rows = math.prod(dx.shape[:-1]) % CONV_BM or CONV_BM
@@ -504,7 +540,8 @@ def check_bwd(torch, conv_bn, clips=32):
             emit({"phase": f"kernel_conv_bwd_{part}", "kind": kind, "x": list(xs),
                   "w": list(ws), "affine": affine, "per_step": copies,
                   "errors": errs, "ms": ms, "plain_ms": plain,
-                  "library_ms": lib, "tflops": flops / ms / 1e9})
+                  "library_ms": lib, "tflops": flops / ms / 1e9,
+                  "bound_ms": bound(nbytes[part], flops, PEAK_BF16)[0]})
             name = f"conv_{kind}_bwd_{part}"
             acc = out.setdefault(name, {"name": name, "max_abs_err": 0.0,
                                         "ms": 0.0, "plain_ms": 0.0,
@@ -529,14 +566,28 @@ BWD_KERNELS = ("conv_spatial_bwd_data", "conv_spatial_bwd_filter",
                "conv_temporal_bwd_data", "conv_temporal_bwd_filter")
 
 
+# Temporal shapes for the frame walk's tiling (64-position strips, channel
+# blocks of 48 / 64, 64 output channels): clips of 1, 2 and 3 frames (a walk
+# that leaks across clips fails them), C_in 40 and 152 (not a multiple of
+# the channel block), C_out 24 and 40, an H*W of 100 (a partial strip), and
+# a whole tensor (40 positions) smaller than one strip.
+BWD_EDGE_SHAPES = (("spatial", (3, 5, 7, 9, 24), (3, 3, 24, 40)),
+                   ("temporal", (2, 7, 5, 3, 40), (3, 40, 24)),
+                   ("temporal", (3, 1, 6, 5, 24), (3, 24, 16)),
+                   ("temporal", (2, 2, 9, 9, 48), (3, 48, 40)),
+                   ("temporal", (4, 3, 5, 7, 64), (3, 64, 24)),
+                   ("temporal", (2, 4, 6, 6, 40), (3, 40, 24)),
+                   ("temporal", (2, 3, 10, 10, 152), (3, 152, 40)),
+                   ("temporal", (1, 2, 4, 5, 16), (3, 16, 8)))
+
+
 def check_bwd_edges(torch, conv_bn):
-    """The backward kernels at shapes off the tiling: a partial row tile,
-    masked output channels, images smaller than a tile, with and without
-    the prologue."""
+    """The backward kernels at shapes off the tiling (BWD_EDGE_SHAPES): a
+    partial row tile, masked channels, images smaller than a tile, short
+    clips, partial strips, with and without the prologue."""
     g = torch.Generator(device="cuda").manual_seed(7)
     errs = {}
-    for kind, xs, ws in (("spatial", (3, 5, 7, 9, 24), (3, 3, 24, 40)),
-                         ("temporal", (2, 7, 5, 3, 40), (3, 40, 24))):
+    for kind, xs, ws in BWD_EDGE_SHAPES:
         for affine in (False, True):
             x = torch.randn(*xs, device="cuda", generator=g).to(torch.bfloat16)
             w = (torch.randn(*ws, device="cuda", generator=g) * 0.1).to(torch.bfloat16)
@@ -547,7 +598,7 @@ def check_bwd_edges(torch, conv_bn):
             gy = torch.randn(*xs[:-1], co, device="cuda", generator=g).to(torch.bfloat16)
             gs1 = torch.randn(co, device="cuda", generator=g) * 0.1
             gs2 = torch.randn(co, device="cuda", generator=g) * 0.01
-            _, errs[f"{kind}_affine={affine}"] = check_bwd_unit(
+            _, errs[f"{kind}_{'x'.join(map(str, xs))}_affine={affine}"] = check_bwd_unit(
                 torch, conv_bn, f"conv unit bwd {kind} at edge shape {xs} "
                 f"affine={affine}", x, w, *a, gy, gs1, gs2, kind)
     emit({"phase": "kernel_bwd_edge_shapes", "errors": errs})

@@ -25,14 +25,17 @@
 //   filter:    dW[tap*Ci + ci, co] = sum over pixels of
 //              x^[p + off(tap), ci] * ge[p, co], fp32
 //
-// Bound on an H100: operations. As implicit GEMMs over the M = B*T*H*W
-// pixels, with K = 9*C (spatial) or 3*C (temporal) taps x channels, the
-// forward and the data gradient are [M, K] x [K, N] products and the filter
-// gradient is a [K, M] x [M, N] product; at the main path's stage-1 spatial
-// unit (M = 1.6 M pixels per train step, K = 576, N = 144) each is 0.27
-// TFLOP against ~1 GB of input and output, far above the ~295 FLOP/byte at
-// which the bf16 tensor cores (989 TFLOP/s) and not memory (3.35 TB/s) set
-// the floor.
+// Bound on an H100: operations for the spatial units, bytes for the
+// temporal ones. As implicit GEMMs over the M = B*T*H*W pixels, with K =
+// 9*C (spatial) or 3*C (temporal) taps x channels, the forward and the data
+// gradient are [M, K] x [K, N] products and the filter gradient is a
+// [K, M] x [M, N] product. At the main path's stage-1 spatial unit (M = 1.6
+// M pixels per train step, K = 576, N = 144) each is 0.27 TFLOP against ~1
+// GB of input and output, above the ~295 FLOP/byte at which the bf16 tensor
+// cores (989 TFLOP/s) and not memory (3.35 TB/s) set the floor. The
+// temporal unit has a third of the taps: its filter gradient at stage 1
+// (Ci 144 -> Co 64) does 102 FLOP per byte it must read, so memory sets its
+// floor (see temporal_filter_kernel).
 //
 // Design (simple, correct tensor-core kernels; wgmma / TMA come later):
 // - Forward and data gradient share one kernel (MODE 0 / 1): a 128 x BN
@@ -54,7 +57,9 @@
 //   so each block loops over a few row tiles, reduces its sums in a fixed
 //   order (warp shuffles, then shared memory) into one partial row, and a
 //   second kernel sums the rows per channel in a fixed order. No atomics.
-// - Filter gradient: the output [K, N] is small and the reduction over
+// - Spatial filter gradient (filter_grad_kernel, instantiated for KIND 0
+//   only; the temporal one is temporal_filter_kernel, below): the output
+//   [K, N] is small and the reduction over
 //   pixels very long (1.6 M at stage 1), so parallelism comes from splitting
 //   the pixel axis into slices: grid (K tiles, N tiles, slices), each block
 //   reducing its slice in 32-pixel chunks into a 128 x BN fp32 tile. Both
@@ -716,6 +721,398 @@ slice_sum_kernel(const float4* __restrict__ part, int S, int64_t n4,
   }
 }
 
+// ---------------------------------------------------------------------------
+// Temporal filter gradient: the frame walk
+// ---------------------------------------------------------------------------
+//
+// Replaces _temporal_bwd_filter_kernel (m3f/pytorch_tpu/ops/pallas/conv_bn.py,
+// pallas_call at :625), which takes a strip of one clip over all T frames,
+// builds the x^ im2col [T*p, 3*Ci] once and does one product with ge for all
+// three taps.
+//
+// Bound on an H100: bytes. dW[dt, ci, co] = sum_{b,t,p} x^[b, t+dt-1, p, ci] *
+// ge[b, t, p, co] does 2*3*Ci*Co FLOP per pixel on (Ci + 2*Co) * 2 bytes of
+// input: at the train step's stage 1 (x [32,16,56,56,144] -> Co 64) 88.8
+// GFLOP on 873 MB, 102 FLOP/byte, under the ~295 at which the bf16 tensor
+// cores and not the memory set the floor. So the design moves each byte once
+// and keeps the loads in flight; mma.sync is fast enough for the math.
+//
+// - Frame walk. A work unit is one clip b and one strip of TF_S positions of
+//   the H*W plane, walked over t = 0..T-1. Shared memory holds a ring of x
+//   frame tiles [TF_S, CB] (frames t-1, t, t+1, and TF_AHEAD more in flight)
+//   and of gy / y frame tiles [TF_S, 64] (frame t and TF_AHEAD in flight).
+//   Each x tile is turned into x^ in place once after it lands (the BN
+//   prologue, two roundings), each gy tile into ge (from y, gs1, gs2, two
+//   roundings); both then serve all three taps. Tap dt adds x^[t+dt-1]^T ge[t]
+//   only where that frame lies in the clip: the padding along T is a skipped
+//   tap, and the walk never mixes two clips (they lie back to back). A
+//   block's units follow one another in one stream of frames, so the ring
+//   stays full across unit boundaries.
+// - Channel block. A block owns a [3*CB, 64] output tile (every tap of CB =
+//   48 or 64 input channels; 2*CB/16 warps, each one m16 channel tile x 32
+//   output channels for all three taps, 48 fp32 accumulators a thread). x is
+//   read once per output-channel tile; gy and y once per channel block. The
+//   channel block is fastest in the grid, so the blocks of one unit run
+//   together and find gy and y in the 50 MB L2. The whole Ci as one block
+//   (CB 144 at stage 1, 18 warps, one block per SM) reads gy and y once but
+//   was slower on the card: one block per SM cannot overlap one block's
+//   forming with another's products.
+// - The ring is filled by cp.async (16-byte copies, zero-filled past the
+//   strip, the channels or the output channels), two frames ahead; with two
+//   blocks per SM that keeps about 90 KB a SM in flight. Each thread forms
+//   x^ and ge on exactly the vectors it copied (always the same 8 channels,
+//   whose inv / shift / gs1 / gs2 sit in its registers), on the bf16x2 unit,
+//   so one __syncthreads per frame step publishes the formed tiles and frees
+//   the slots of the step before.
+// - Tensor cores: ldmatrix.trans + mma.sync m16n8k16 bf16 -> fp32, TF_S/16
+//   k-steps per tap and frame step; the B (ge) fragments serve three taps.
+// - Parallelism: grid (channel blocks x output-channel tiles, slices); a
+//   slice is a contiguous range of units and writes one fp32 partial, summed
+//   in a fixed order by slice_sum_kernel. No atomics: bit-identical dw.
+//
+// Measured on an NVIDIA H100 80GB HBM3 at 700.00 W (chip_smoke.py, train
+// step shapes, 32 clips): 0.73 / 0.42 / 0.22 / 0.19 ms per launch at stages
+// 1-4, 4.6 ms per train step, against 3.09 / 1.33 / 0.54 / 0.27 (16.6 per
+// step) for the per-K-tile kernel it replaced and 2.6 per step for cuDNN's
+// conv3d_weight on x^ and ge already formed. What holds it back
+// (m3f_torch/scripts/temporal_filter_sweep.py): at stage 1 the ring
+// streaming x, gy and y alone takes 0.49 ms, about 1.8 TB/s, where a device
+// copy of x runs at 2.8 TB/s; forming and products do not hide under it
+// (0.65 ms in all). PERF.md has the numbers.
+
+constexpr int TF_S = 64;       // positions of H*W per strip
+constexpr int TF_AHEAD = 2;    // frames in flight beyond the one being formed
+constexpr int TF_XS = TF_AHEAD + 3;   // x ring: t-1, t, t+1, in flight
+constexpr int TF_GS = TF_AHEAD + 1;   // gy / y ring: t, in flight
+constexpr int TF_CO = 64;      // output channels per block
+// Measurement knob, for temporal_filter_sweep.py only (dw is then wrong):
+// 1 leaves out forming x^ and ge, 2 the products, 3 both.
+#ifndef TF_ABLATE
+#define TF_ABLATE 0
+#endif
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
+                                           bool pred) {
+  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
+  const int n = pred ? 16 : 0;
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(s), "l"(gmem), "r"(n) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
+// prologue() on the bf16x2 unit: each op rounds its exact result once to
+// bf16, which is what the explicit fp32 op and rounding give for bf16
+// operands (their product is exact in fp32, and so is any sum whose
+// rounding could differ). The _rn forms keep the compiler from contracting
+// the product and the sum into one fma, which would round once.
+__device__ __forceinline__ uint4 prologue_x2(uint4 v, const bf162 (&inv)[4],
+                                             const bf162 (&shift)[4]) {
+  bf162* p = reinterpret_cast<bf162*>(&v);
+  const bf162 zero = __float2bfloat162_rn(0.f);
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    p[i] = __hmax2(__hadd2_rn(__hmul2_rn(p[i], inv[i]), shift[i]), zero);
+  return v;
+}
+
+// gy_eff8() with gs1 / gs2 in registers and the outer bf16 sum on the bf16x2
+// unit (one rounding of an exact bf16 + bf16 sum, as above)
+__device__ __forceinline__ uint4 gy_eff8_x2(uint4 g, uint4 yv,
+                                            const float (&g1)[8],
+                                            const float (&g2)[8]) {
+  bf162* pg = reinterpret_cast<bf162*>(&g);
+  const bf162* py = reinterpret_cast<const bf162*>(&yv);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 yf = __bfloat1622float2(py[i]);
+    const float a0 = __fadd_rn(g1[2 * i], __fmul_rn(2.f * yf.x, g2[2 * i]));
+    const float a1 = __fadd_rn(g1[2 * i + 1], __fmul_rn(2.f * yf.y, g2[2 * i + 1]));
+    pg[i] = __hadd2_rn(pg[i], __floats2bfloat162_rn(a0, a1));
+  }
+  return g;
+}
+
+struct TemporalFilterArgs {
+  const bf16* x;       // [B, T, H*W, Ci]
+  const bf16* gy;      // [B, T, H*W, Co]
+  const bf16* y;
+  const float* inv;    // [Ci] or null
+  const float* shift;
+  const float* gs1;    // [Co]
+  const float* gs2;
+  float* out;          // [slices][3*Ci][Co] partials, or dW
+  int T, HW, Ci, Co;
+  int strips;          // ceil(HW / TF_S)
+  int units;           // B * strips
+  int units_per_slice;
+  int ci_blocks;
+};
+
+template <int MT, bool AFFINE>
+__global__ void __launch_bounds__(64 * MT, 2)
+temporal_filter_kernel(const TemporalFilterArgs a) {
+  constexpr int NTH = 64 * MT;                 // 2*MT warps
+  constexpr int CB = 16 * MT;                  // input channels per block
+  constexpr int LDX = CB + 8;                  // row strides (bf16): 16-byte
+  constexpr int LDG = TF_CO + 8;               // multiples, ldmatrix conflict-free
+  constexpr int XV = CB / 8, GV = TF_CO / 8;   // 16-byte vectors per row
+  constexpr int X_IT = (TF_S * XV + NTH - 1) / NTH;
+  constexpr int G_IT = (TF_S * GV + NTH - 1) / NTH;
+  constexpr int XS = TF_XS, GS = TF_GS;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* Xs = reinterpret_cast<bf16*>(smem_raw);           // [XS][TF_S][LDX]
+  bf16* Gs = Xs + XS * TF_S * LDX;                        // [GS][TF_S][LDG]
+  bf16* Ys = Gs + GS * TF_S * LDG;                        // [GS][TF_S][LDG]
+
+  const int T = a.T, HW = a.HW, Ci = a.Ci, Co = a.Co;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int warp_m = warp % MT, warp_n = warp / MT;
+  const int c0 = (blockIdx.x % a.ci_blocks) * CB;
+  const int n0 = (blockIdx.x / a.ci_blocks) * TF_CO;
+
+  // NTH is a multiple of XV and of GV, so each thread copies and forms the
+  // same 8 channels of every x row (xv) and of every gy / y row (gv): their
+  // inv / shift and gs1 / gs2 live in registers.
+  const int xv = (tid % XV) * 8, gv = (tid % GV) * 8;
+  bf162 inv2[4], shift2[4];
+  float g1[8], g2[8];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int c = c0 + xv + 2 * i;
+    const bool ok = AFFINE && c < Ci;
+    inv2[i] = __floats2bfloat162_rn(ok ? a.inv[c] : 0.f, ok ? a.inv[c + 1] : 0.f);
+    shift2[i] = __floats2bfloat162_rn(ok ? a.shift[c] : 0.f,
+                                      ok ? a.shift[c + 1] : 0.f);
+  }
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const bool ok = n0 + gv + i < Co;
+    g1[i] = ok ? a.gs1[n0 + gv + i] : 0.f;
+    g2[i] = ok ? a.gs2[n0 + gv + i] : 0.f;
+  }
+
+  const int u0 = blockIdx.y * a.units_per_slice;
+  const int u1 = min(a.units, u0 + a.units_per_slice);
+  const int nq = u1 > u0 ? (u1 - u0) * T : 0;    // frames of the walk
+
+  // A cursor on the walk: frame q (frame t of unit u), its first pixel and
+  // its rows inside the strip. Four cursors (copy x, copy gy / y, form x^,
+  // form ge) step one frame at a time; only a step into the next unit divides.
+  struct Cursor {
+    int q, t, u, rows;
+    int64_t base;
+  };
+  auto seek_unit = [&](Cursor& w) {
+    const int b = w.u / a.strips, p0 = (w.u - b * a.strips) * TF_S;
+    w.base = (int64_t)b * T * HW + p0;
+    w.rows = min(TF_S, HW - p0);
+  };
+  auto step = [&](Cursor& w) {
+    ++w.q;
+    if (++w.t < T) {
+      w.base += HW;
+    } else {
+      w.t = 0;
+      ++w.u;
+      seek_unit(w);
+    }
+  };
+  Cursor wx{0, 0, u0, 0, 0};
+  seek_unit(wx);
+  Cursor wg = wx, fx = wx, fg = wx;
+
+  auto copy_x = [&](const Cursor& w) {
+    if (w.q >= nq) return;
+    const int64_t base = w.base;
+    const int rows = w.rows;
+    bf16* dst = Xs + (w.q % XS) * TF_S * LDX;
+#pragma unroll
+    for (int i = 0; i < X_IT; ++i) {
+      const int c = tid + i * NTH;
+      if (c >= TF_S * XV) break;
+      const int r = c / XV;
+      const bool ok = r < rows && c0 + xv < Ci;
+      cp_async16(dst + r * LDX + xv, ok ? a.x + (base + r) * Ci + c0 + xv : a.x,
+                 ok);
+    }
+  };
+  auto copy_g = [&](const Cursor& w) {
+    if (w.q >= nq) return;
+    const int64_t base = w.base;
+    const int rows = w.rows;
+    const int off = (w.q % GS) * TF_S * LDG;
+#pragma unroll
+    for (int i = 0; i < G_IT; ++i) {
+      const int c = tid + i * NTH;
+      if (c >= TF_S * GV) break;
+      const int r = c / GV;
+      const bool ok = r < rows && n0 + gv < Co;
+      const int64_t src = ok ? (base + r) * Co + n0 + gv : 0;
+      cp_async16(Gs + off + r * LDG + gv, a.gy + src, ok);
+      cp_async16(Ys + off + r * LDG + gv, a.y + src, ok);
+    }
+  };
+  // x^ = prologue(x) in place, on this thread's own vectors of frame q
+  auto form_x = [&](const Cursor& w) {
+    if (!AFFINE || w.q >= nq) return;
+    const int rows = w.rows;
+    bf16* xs = Xs + (w.q % XS) * TF_S * LDX;
+#pragma unroll
+    for (int i = 0; i < X_IT; ++i) {
+      const int c = tid + i * NTH;
+      if (c >= TF_S * XV) break;
+      const int r = c / XV;
+      if (r < rows && c0 + xv < Ci) {
+        uint4* p = reinterpret_cast<uint4*>(xs + r * LDX + xv);
+        *p = prologue_x2(*p, inv2, shift2);
+      }
+    }
+  };
+  // ge = gy + bf16(gs1 + 2*y*gs2) in place of gy, on this thread's vectors
+  auto form_g = [&](const Cursor& w) {
+    const int rows = w.rows;
+    const int off = (w.q % GS) * TF_S * LDG;
+#pragma unroll
+    for (int i = 0; i < G_IT; ++i) {
+      const int c = tid + i * NTH;
+      if (c >= TF_S * GV) break;
+      const int r = c / GV;
+      if (r < rows && n0 + gv < Co) {
+        uint4* p = reinterpret_cast<uint4*>(Gs + off + r * LDG + gv);
+        *p = gy_eff8_x2(*p, *reinterpret_cast<const uint4*>(Ys + off + r * LDG + gv),
+                        g1, g2);
+      }
+    }
+  };
+
+  float acc[3][4][4];
+#pragma unroll
+  for (int i = 0; i < 3; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int k = 0; k < 4; ++k) acc[i][j][k] = 0.f;
+
+  // ldmatrix.trans lanes: A (channels m, pixels k) from [pixel][channel];
+  // B (pixels k, output channels n, two n8 tiles) from [pixel][n]
+  const int sub = lane >> 3;
+  const int a_krow = (lane & 7) + (sub >> 1) * 8, a_moff = (sub & 1) * 8;
+  const int b_krow = (lane & 7) + (sub & 1) * 8, b_noff = (sub >> 1) * 8;
+  const bool warp_live = c0 + warp_m * 16 < Ci;
+
+  // the stream's first groups: {x0, x1, g0}, then {x(k+1), g(k)}
+  copy_x(wx);
+  step(wx);
+  copy_x(wx);
+  step(wx);
+  copy_g(wg);
+  step(wg);
+  cp_async_commit();
+#pragma unroll
+  for (int k = 1; k < TF_AHEAD; ++k) {
+    copy_x(wx);
+    step(wx);
+    copy_g(wg);
+    step(wg);
+    cp_async_commit();
+  }
+  for (int j = 0; j < nq; ++j) {
+    cp_async_wait<TF_AHEAD - 1>();   // this thread's x(j+1) and g(j) landed
+    if (j == 0) {
+      if (!(TF_ABLATE & 1)) form_x(fx);
+      step(fx);
+    }
+    if (!(TF_ABLATE & 1)) form_x(fx);    // x^(j+1)
+    step(fx);
+    const int t = fg.t;              // frame of step j inside its clip
+    if (!(TF_ABLATE & 1)) form_g(fg);    // ge(j)
+    step(fg);
+    __syncthreads();                 // formed tiles visible; step j-1 done
+    copy_x(wx);                      // x(j+AHEAD+1), into the slot of x(j-2)
+    step(wx);
+    copy_g(wg);                      // g(j+AHEAD), into the slot of g(j-1)
+    step(wg);
+    cp_async_commit();
+    if (!(TF_ABLATE & 2) && warp_live) {
+      const bf16* gs = Gs + (j % GS) * TF_S * LDG + warp_n * 32 + b_noff;
+      const bf16* xt[3] = {Xs + ((j + XS - 1) % XS) * TF_S * LDX,
+                           Xs + (j % XS) * TF_S * LDX,
+                           Xs + ((j + 1) % XS) * TF_S * LDX};
+      const bool tap_on[3] = {t > 0, true, t + 1 < T};
+#pragma unroll
+      for (int ks = 0; ks < TF_S / 16; ++ks) {
+        uint32_t bfr[4][2];
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          uint32_t r4[4];
+          ldsm_x4_t(r4, gs + (ks * 16 + b_krow) * LDG + h * 16);
+          bfr[2 * h][0] = r4[0];
+          bfr[2 * h][1] = r4[1];
+          bfr[2 * h + 1][0] = r4[2];
+          bfr[2 * h + 1][1] = r4[3];
+        }
+#pragma unroll
+        for (int tap = 0; tap < 3; ++tap) {
+          if (!tap_on[tap]) continue;
+          uint32_t af[4];
+          ldsm_x4_t(af, xt[tap] + (ks * 16 + a_krow) * LDX + warp_m * 16 + a_moff);
+#pragma unroll
+          for (int nt = 0; nt < 4; ++nt) mma_bf16(acc[tap][nt], af, bfr[nt]);
+        }
+      }
+    }
+  }
+  cp_async_wait<0>();
+
+  float* out = a.out + (int64_t)blockIdx.y * 3 * Ci * Co;
+  const int g = lane >> 2, tg = lane & 3;
+#pragma unroll
+  for (int tap = 0; tap < 3; ++tap)
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int ci = c0 + warp_m * 16 + g + half * 8;
+      if (ci >= Ci) continue;
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt) {
+        const int n = n0 + warp_n * 32 + nt * 8 + tg * 2;
+        if (n >= Co) continue;
+        *reinterpret_cast<float2*>(out + ((int64_t)tap * Ci + ci) * Co + n) =
+            make_float2(acc[tap][nt][half * 2], acc[tap][nt][half * 2 + 1]);
+      }
+    }
+}
+
+template <int MT, bool AFFINE>
+int launch_temporal_filter(const TemporalFilterArgs& args, int slices,
+                           cudaStream_t stream) {
+  constexpr int CB = 16 * MT;
+  const size_t smem =
+      ((size_t)TF_XS * TF_S * (CB + 8) + 2 * (size_t)TF_GS * TF_S * (TF_CO + 8)) *
+      sizeof(bf16);
+  auto kern = temporal_filter_kernel<MT, AFFINE>;
+  cudaError_t e = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  const int co_tiles = (args.Co + TF_CO - 1) / TF_CO;
+  kern<<<dim3(args.ci_blocks * co_tiles, slices), 64 * MT, smem, stream>>>(args);
+  return (int)cudaGetLastError();
+}
+
+template <int MT>
+int dispatch_temporal_filter(int affine, const TemporalFilterArgs& a,
+                             int slices, cudaStream_t s) {
+  return affine ? launch_temporal_filter<MT, true>(a, slices, s)
+                : launch_temporal_filter<MT, false>(a, slices, s);
+}
+
 template <int BN, bool AFFINE, int KIND>
 int launch_filter(const FilterArgs& args, int slices, cudaStream_t stream) {
   const size_t smem = 2 * BK * LDX * sizeof(bf16) + 2 * BK * (BN + 8) * sizeof(bf16) +
@@ -730,14 +1127,12 @@ int launch_filter(const FilterArgs& args, int slices, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
+// spatial only: the temporal filter gradient is temporal_filter_kernel
 template <int BN>
-int dispatch_filter(int kind, int affine, const FilterArgs& a, int slices,
+int dispatch_filter(int affine, const FilterArgs& a, int slices,
                     cudaStream_t s) {
-  if (kind == 0)
-    return affine ? launch_filter<BN, true, 0>(a, slices, s)
-                  : launch_filter<BN, false, 0>(a, slices, s);
-  return affine ? launch_filter<BN, true, 1>(a, slices, s)
-                : launch_filter<BN, false, 1>(a, slices, s);
+  return affine ? launch_filter<BN, true, 0>(a, slices, s)
+                : launch_filter<BN, false, 0>(a, slices, s);
 }
 
 }  // namespace
@@ -818,14 +1213,20 @@ extern "C" int m3f_conv_unit_bwd_data(const void* gy, const void* y,
 // Filter gradient of the unit. x [B, T, H, W, Ci], gy and y [B, T, H, W, Co]
 // bf16; inv/shift [Ci] fp32 or null; gs1/gs2 [Co] fp32; dw [taps*Ci, Co]
 // fp32 with row tap*Ci + ci; part: scratch of slices * taps*Ci * Co floats
-// (unused, may be null, when slices == 1).
+// (unused, may be null, when slices == 1). Spatial (kind 0): bn is the
+// output-channel tile (48, 64, 96) and the pixel axis is cut into `slices`;
+// ci_blk and strip are unused. Temporal (kind 1): bn is 64, ci_blk the
+// channel block (48 or 64), strip the positions per strip (TF_S), and the
+// B * ceil(H*W / strip) units are cut into `slices` contiguous ranges of
+// ceil(units / slices).
 extern "C" int m3f_conv_unit_bwd_filter(const void* x, const void* gy,
                                         const void* y, const void* gs1,
                                         const void* gs2, const void* inv,
                                         const void* shift, void* dw,
                                         void* part, int kind, int B, int T,
                                         int H, int W, int Ci, int Co, int bn,
-                                        int slices, void* stream) {
+                                        int slices, int ci_blk, int strip,
+                                        void* stream) {
   const int64_t M = (int64_t)B * T * H * W;
   const int K = (kind == 0 ? 9 : 3) * Ci;
   if ((kind != 0 && kind != 1) || Ci % 8 != 0 || Co % 8 != 0 || slices < 1 ||
@@ -834,33 +1235,60 @@ extern "C" int m3f_conv_unit_bwd_filter(const void* x, const void* gy,
   if (K == 0 || Co == 0) return 0;
   cudaStream_t s = (cudaStream_t)stream;
   if (M == 0) return (int)cudaMemsetAsync(dw, 0, (size_t)K * Co * sizeof(float), s);
-  FilterArgs a{};
-  a.x = (const bf16*)x;
-  a.gy = (const bf16*)gy;
-  a.y = (const bf16*)y;
-  a.inv = (const float*)inv;
-  a.shift = (const float*)shift;
-  a.gs1 = (const float*)gs1;
-  a.gs2 = (const float*)gs2;
-  a.out = slices > 1 ? (float*)part : (float*)dw;
-  a.M = M;
-  a.Ci = Ci;
-  a.Co = Co;
-  a.T = T;
-  a.H = H;
-  a.W = W;
-  const int64_t nchunks = (M + BK - 1) / BK;
-  a.chunks_per_slice = (int)((nchunks + slices - 1) / slices);
   const int affine = inv != nullptr;
   int e;
-  if (bn == 48)
-    e = dispatch_filter<48>(kind, affine, a, slices, s);
-  else if (bn == 64)
-    e = dispatch_filter<64>(kind, affine, a, slices, s);
-  else if (bn == 96)
-    e = dispatch_filter<96>(kind, affine, a, slices, s);
-  else
-    return (int)cudaErrorInvalidValue;
+  if (kind == 1) {
+    if (bn != TF_CO || strip != TF_S) return (int)cudaErrorInvalidValue;
+    TemporalFilterArgs t{};
+    t.x = (const bf16*)x;
+    t.gy = (const bf16*)gy;
+    t.y = (const bf16*)y;
+    t.inv = (const float*)inv;
+    t.shift = (const float*)shift;
+    t.gs1 = (const float*)gs1;
+    t.gs2 = (const float*)gs2;
+    t.out = slices > 1 ? (float*)part : (float*)dw;
+    t.T = T;
+    t.HW = H * W;
+    t.Ci = Ci;
+    t.Co = Co;
+    t.strips = (t.HW + TF_S - 1) / TF_S;
+    t.units = B * t.strips;
+    t.units_per_slice = (t.units + slices - 1) / slices;
+    t.ci_blocks = (Ci + ci_blk - 1) / ci_blk;
+    if (ci_blk == 48)
+      e = dispatch_temporal_filter<3>(affine, t, slices, s);
+    else if (ci_blk == 64)
+      e = dispatch_temporal_filter<4>(affine, t, slices, s);
+    else
+      return (int)cudaErrorInvalidValue;
+  } else {
+    FilterArgs a{};
+    a.x = (const bf16*)x;
+    a.gy = (const bf16*)gy;
+    a.y = (const bf16*)y;
+    a.inv = (const float*)inv;
+    a.shift = (const float*)shift;
+    a.gs1 = (const float*)gs1;
+    a.gs2 = (const float*)gs2;
+    a.out = slices > 1 ? (float*)part : (float*)dw;
+    a.M = M;
+    a.Ci = Ci;
+    a.Co = Co;
+    a.T = T;
+    a.H = H;
+    a.W = W;
+    const int64_t nchunks = (M + BK - 1) / BK;
+    a.chunks_per_slice = (int)((nchunks + slices - 1) / slices);
+    if (bn == 48)
+      e = dispatch_filter<48>(affine, a, slices, s);
+    else if (bn == 64)
+      e = dispatch_filter<64>(affine, a, slices, s);
+    else if (bn == 96)
+      e = dispatch_filter<96>(affine, a, slices, s);
+    else
+      return (int)cudaErrorInvalidValue;
+  }
   if (e != 0 || slices == 1) return e;
   const int64_t n4 = (int64_t)K * Co / 4;
   const int64_t want = (n4 + 255) / 256;

@@ -27,7 +27,7 @@ both halves are kernels on the card and plain versions on the CPU.
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -275,14 +275,62 @@ _FILTER_CHUNK = 32        # pixels per reduction chunk (BK in conv_bn.cu)
 
 
 def filter_slices(m: int, k: int, co: int, bn: int, sms: int) -> int:
-    """Pixel-axis slices of the filter-gradient kernel: enough blocks for ~4
-    waves of ``sms`` multiprocessors over the (K, C_out) output tiles, at
-    least one 32-pixel chunk each, and a partial buffer of at most
-    _FILTER_PART_BYTES."""
+    """Pixel-axis slices of the spatial filter-gradient kernel: enough
+    blocks for ~4 waves of ``sms`` multiprocessors over the (K, C_out)
+    output tiles, at least one 32-pixel chunk each, and a partial buffer of
+    at most _FILTER_PART_BYTES."""
     tiles = -(-k // _BM) * -(-co // bn)
     chunks = -(-m // _FILTER_CHUNK)
     s = max(1, min(chunks, -(-4 * sms // tiles)))
     return max(1, min(s, _FILTER_PART_BYTES // (4 * k * co)))
+
+
+_TEMPORAL_STRIP = 64       # positions of H·W per strip (TF_S in conv_bn.cu)
+_TEMPORAL_CO_TILE = 64     # output channels per block (TF_CO)
+_TEMPORAL_CI_BLOCKS = (64, 48)   # channel blocks, preferred first on a tie
+
+
+class TemporalFilterPlan(NamedTuple):
+    """How the temporal filter-gradient kernel cuts its work: units of one
+    clip × one strip of ``strip`` positions, walked over T; blocks of
+    ``ci_blk`` input × ``co_tile`` output channels; ``slices`` contiguous
+    ranges of ``units_per_slice`` units, one fp32 partial each
+    (``part_bytes``, 0 when one slice writes dw itself)."""
+    strip: int
+    ci_blk: int
+    co_tile: int
+    units: int
+    units_per_slice: int
+    slices: int
+    part_bytes: int
+
+    def units_of(self, s: int) -> range:
+        """The units of slice ``s`` (unit u is clip u // strips, strip
+        u % strips), as the kernel takes them."""
+        return range(s * self.units_per_slice,
+                     min(self.units, (s + 1) * self.units_per_slice))
+
+
+def temporal_filter_plan(b: int, t: int, h: int, w: int, ci: int, co: int,
+                         sms: int) -> TemporalFilterPlan:
+    """The temporal filter gradient's tiling on a card of ``sms``
+    multiprocessors: the channel block that pads C_in least, then enough
+    slices for ~4 waves of blocks, at most one per unit, with a partial
+    buffer of at most _FILTER_PART_BYTES."""
+    strip = _TEMPORAL_STRIP
+    units = b * _cdiv(h * w, strip)
+    ci_blk = min(_TEMPORAL_CI_BLOCKS, key=lambda cb: _cdiv(ci, cb) * cb)
+    tiles = _cdiv(ci, ci_blk) * _cdiv(co, _TEMPORAL_CO_TILE)
+    out_bytes = 4 * 3 * ci * co
+    s = max(1, min(units, _cdiv(4 * sms, tiles),
+                   _FILTER_PART_BYTES // out_bytes))
+    per = _cdiv(units, s)
+    slices = _cdiv(units, per)
+    # the kernel cuts the units by ceil(units / slices), which gives no
+    # empty slice for these slices
+    per = _cdiv(units, slices)
+    return TemporalFilterPlan(strip, ci_blk, _TEMPORAL_CO_TILE, units, per,
+                              slices, slices * out_bytes if slices > 1 else 0)
 
 
 def conv_unit_bwd_filter(x, inv, shift, y, gy, gs1, gs2, *, kind: str
@@ -307,9 +355,14 @@ def conv_unit_bwd_filter(x, inv, shift, y, gy, gs1, gs2, *, kind: str
         inv, shift = inv.float().contiguous(), shift.float().contiguous()
     taps = 9 if kind == "spatial" else 3
     m, k = b * t * h * wdt, taps * ci
-    bn = _tile_n(co)
     sms = torch.cuda.get_device_properties(x.device).multi_processor_count
-    slices = filter_slices(m, k, co, bn, sms)
+    if kind == "spatial":
+        bn, ci_blk, strip = _tile_n(co), 0, 0
+        slices = filter_slices(m, k, co, bn, sms)
+    else:
+        plan = temporal_filter_plan(b, t, h, wdt, ci, co, sms)
+        bn, ci_blk, strip, slices = plan.co_tile, plan.ci_blk, plan.strip, \
+            plan.slices
     dw = torch.empty(k, co, dtype=torch.float32, device=x.device)
     part = torch.empty(slices * k * co, dtype=torch.float32, device=x.device) \
         if slices > 1 else None
@@ -319,7 +372,7 @@ def conv_unit_bwd_filter(x, inv, shift, y, gy, gs1, gs2, *, kind: str
             x.data_ptr(), gy.data_ptr(), y.data_ptr(), gs1.data_ptr(),
             gs2.data_ptr(), ptr(inv), ptr(shift), dw.data_ptr(), ptr(part),
             0 if kind == "spatial" else 1, b, t, h, wdt, ci, co, bn, slices,
-            cuda_lib.stream_ptr(x))
+            ci_blk, strip, cuda_lib.stream_ptr(x))
     cuda_lib.check(err, f"conv_unit_bwd_filter {kind} kernel")
     cuda_lib.launches[f"conv_{kind}_bwd_filter"] += 1
     return dw.reshape((3, 3, ci, co) if kind == "spatial" else (3, ci, co))

@@ -56,7 +56,7 @@ SIGNATURES = {
                 "m3f_conv_unit_bwd_data": [P, P, P, P, P, P, P, P, P, P, P, P,
                                            I, I, I, I, I, I, I, I, I, P],
                 "m3f_conv_unit_bwd_filter": [P, P, P, P, P, P, P, P, P, I, I,
-                                             I, I, I, I, I, I, I, P]},
+                                             I, I, I, I, I, I, I, I, I, P]},
     "packed_conv": {"m3f_packed_conv": [P, P, P, I, I, I, I, I, I, I, I, P]},
 }
 
