@@ -19,12 +19,14 @@ H100 (``python3 chip_smoke.py``). It
    shapes: dx per element (one bf16 ulp, carried through inv), dw per
    element (1e-5 of sum |x^|*|ge|), dinv / dshift per channel; each check
    is shown to refuse a zeroed dinv, a dw one channel off, a dw with taps
-   0 and 2 swapped, a dx with a row tile left out and (temporal) a dw
-   without its last slice's partial; the temporal filter gradient must
-   repeat its dw bit for bit; they are timed beside their plain versions
+   0 and 2 swapped (along dt or dh, and along dw), a dx with a row tile
+   left out and a dw without its last slice's partial; both filter
+   gradients must repeat their dw bit for bit; they are timed beside their
+   plain versions
    and cuDNN's backward (``torch.nn.grad.conv3d_input`` / ``conv3d_weight``)
    and checked again at shapes off the tiling (short clips, partial
-   strips, masked channels);
+   strips, masked channels, images of one row, one column or one pixel,
+   k-steps that span rows and images);
    The four kernels of the packed-layout conv probe (packed_conv with bf16
    and fp32 y, ablate_slabs, ablate_matmul, packed_conv_chunked) are held
    against their plain versions at the probe's full shape (COUT 144, timed
@@ -45,10 +47,11 @@ H100 (``python3 chip_smoke.py``). It
    (plain versions) and on the card (kernels) and compares the predictions;
 5. trains the full-width ``fusion`` preset (R(2+1)D-18, batch 8 x 4
    windows x 16 frames of 112x112, seeded random weights, synthetic data)
-   through ``Trainer.fit``: 2 warm steps, then 10 timed steps with the
-   counters set to 0 just before; each kernel must have launched exactly
-   its per-step count times 10, loss and grad norm must be finite and the
-   params must move (s/step, clips/s, peak memory); then 3 steps of a
+   through ``Trainer.fit``: 2 warm steps, then a second fit of 10 steps
+   (from the seed again) with the counters set to 0 just before; each
+   kernel must have launched exactly its per-step count times 10, loss and
+   grad norm must be finite and the params must move (s/step between the
+   ends of the first and last step, clips/s, peak memory); then 3 steps of a
    narrow model on the CPU and on the card, from the same weights and
    batches, compared;
 6. prints the ``kernels`` line, the card line and, last,
@@ -408,25 +411,34 @@ def bwd_limits(torch, conv_bn, x, inv, shift, y, gy, gs1, gs2, ref, dxa,
     return lim
 
 
-def last_slice_left_out(torch, conv_bn, x, inv, shift, y, gy, gs1, gs2, dw):
-    """The temporal filter gradient ``dw`` without the share of the kernel's
-    last slice: the clips x strips of ``temporal_filter_plan(...).units_of(
-    slices - 1)``, computed by the plain version on ge masked to them."""
+def last_slice_left_out(torch, conv_bn, x, inv, shift, y, gy, gs1, gs2, dw,
+                        kind):
+    """The filter gradient ``dw`` without the share of the kernel's last
+    slice, computed by the plain version on ge masked to that slice's units:
+    the (b, t) images of ``spatial_filter_plan(...).units_of(slices - 1)``,
+    or the clips x strips of ``temporal_filter_plan(...)``'s."""
     b, t, h, w, ci = x.shape
     co = gy.shape[-1]
     sms = torch.cuda.get_device_properties(x.device).multi_processor_count
-    plan = conv_bn.temporal_filter_plan(b, t, h, w, ci, co, sms)
-    strips = -(-h * w // plan.strip)
-    mask = torch.zeros(b, h * w, device=x.device)
-    for u in plan.units_of(plan.slices - 1):
-        p0 = (u % strips) * plan.strip
-        mask[u // strips, p0:p0 + plan.strip] = 1
-    ge = conv_bn._gy_eff(gy, y, gs1, gs2).float() * mask.reshape(b, 1, h, w, 1)
-    xh = conv_bn._prologue(x, inv, shift).float()
-    share = torch.nn.grad.conv3d_weight(
-        xh.permute(0, 4, 1, 2, 3), (co, ci, 3, 1, 1), ge.permute(0, 4, 1, 2, 3),
-        padding=(1, 0, 0))
-    return dw - share[:, :, :, 0, 0].permute(2, 1, 0)
+    if kind == "spatial":
+        plan = conv_bn.spatial_filter_plan(b, t, h, w, ci, co, sms)
+        mask = torch.zeros(b * t, device=x.device)
+        last = plan.units_of(plan.slices - 1)
+        mask[last.start:last.stop] = 1
+        mask = mask.reshape(b, t, 1, 1, 1)
+    else:
+        plan = conv_bn.temporal_filter_plan(b, t, h, w, ci, co, sms)
+        strips = -(-h * w // plan.strip)
+        mask = torch.zeros(b, h * w, device=x.device)
+        for u in plan.units_of(plan.slices - 1):
+            p0 = (u % strips) * plan.strip
+            mask[u // strips, p0:p0 + plan.strip] = 1
+        mask = mask.reshape(b, 1, h, w, 1)
+    ge = (conv_bn._gy_eff(gy, y, gs1, gs2).float() * mask).to(gy.dtype)
+    zero = torch.zeros(co, device=x.device)
+    share = conv_bn.conv_unit_bwd_filter_reference(
+        x, inv, shift, torch.zeros_like(y), ge, zero, zero, kind=kind)
+    return dw - share
 
 
 def check_bwd_unit(torch, conv_bn, what, x, w, inv, shift, gy, gs1, gs2,
@@ -434,10 +446,11 @@ def check_bwd_unit(torch, conv_bn, what, x, w, inv, shift, gy, gs1, gs2,
     """One backward unit: kernel (data + filter) vs the plain version, held
     per element (dx, dw) and per channel (dinv, dshift); then shows that the
     same checks refuse a zeroed dinv, a dw one output channel off, a dw with
-    taps 0 and 2 swapped (where the reference's differ), a dx whose last row
-    tile (the partial one where there is one) is left out and, for the
-    temporal kind, a dw without its last slice's partial; the temporal
-    filter gradient must give the same dw bit for bit on a second call.
+    taps 0 and 2 swapped (along dt or dh and, for the spatial kind, along dw;
+    where the reference's differ), a dx whose last row tile (the partial one
+    where there is one) is left out and a dw without its last slice's
+    partial; the filter gradient must give the same dw bit for bit on a
+    second call.
     Returns the kernel's outputs, the reference and the worst error of each."""
     y, _, _ = conv_bn.conv_unit_fwd(x, w, inv, shift, kind=kind)
     dx, dinv, dshift = conv_bn.conv_unit_bwd_data(
@@ -469,12 +482,14 @@ def check_bwd_unit(torch, conv_bn, what, x, w, inv, shift, gy, gs1, gs2,
     wrong = {"dw_one_channel_off": (dx, dw.roll(1, dims=-1), dinv, dshift)}
     if bool(((ref[1].flip(0) - ref[1]).abs() > lim["dw"]).any()):
         wrong["dw_taps_0_2_swapped"] = (dx, dw.flip(0), dinv, dshift)
-    if kind == "temporal":
-        again = conv_bn.conv_unit_bwd_filter(x, inv, shift, y, gy, gs1, gs2,
-                                             kind=kind)
-        require(torch.equal(again, dw), f"{what}: a second call gave another dw")
-        wrong["dw_last_slice_left_out"] = (dx, last_slice_left_out(
-            torch, conv_bn, x, inv, shift, y, gy, gs1, gs2, dw), dinv, dshift)
+    if kind == "spatial" \
+            and bool(((ref[1].flip(1) - ref[1]).abs() > lim["dw"]).any()):
+        wrong["dw_taps_0_2_swapped_along_w"] = (dx, dw.flip(1), dinv, dshift)
+    again = conv_bn.conv_unit_bwd_filter(x, inv, shift, y, gy, gs1, gs2,
+                                         kind=kind)
+    require(torch.equal(again, dw), f"{what}: a second call gave another dw")
+    wrong["dw_last_slice_left_out"] = (dx, last_slice_left_out(
+        torch, conv_bn, x, inv, shift, y, gy, gs1, gs2, dw, kind), dinv, dshift)
     if dinv is not None:
         wrong["dinv_zero"] = (dx, dw, dinv * 0, dshift)
     rows = math.prod(dx.shape[:-1]) % CONV_BM or CONV_BM
@@ -566,12 +581,27 @@ BWD_KERNELS = ("conv_spatial_bwd_data", "conv_spatial_bwd_filter",
                "conv_temporal_bwd_data", "conv_temporal_bwd_filter")
 
 
-# Temporal shapes for the frame walk's tiling (64-position strips, channel
+# Spatial shapes for the row walk's tiling (steps of 112 pixels, k-steps of
+# 16, channel tiles of 64 x 48 and 32 x 48): W = 9 and 7 (k-steps that span
+# rows and images: a walk that leaks across images fails them), H = 1, W =
+# 1, 1x1 images, C_in 40 and 152 (not a multiple of the channel block),
+# C_out 24 and 40, a single image, a whole tensor (12 pixels) smaller than
+# one k-step, 600 images of 15 pixels (two images per slice), and images of
+# 70 x 11 (seven steps a slice, whose 72 rows wrap the ring of 45). Temporal
+# shapes for the frame walk's tiling (64-position strips, channel
 # blocks of 48 / 64, 64 output channels): clips of 1, 2 and 3 frames (a walk
 # that leaks across clips fails them), C_in 40 and 152 (not a multiple of
 # the channel block), C_out 24 and 40, an H*W of 100 (a partial strip), and
 # a whole tensor (40 positions) smaller than one strip.
 BWD_EDGE_SHAPES = (("spatial", (3, 5, 7, 9, 24), (3, 3, 24, 40)),
+                   ("spatial", (2, 3, 1, 11, 40), (3, 3, 40, 24)),
+                   ("spatial", (2, 2, 6, 1, 24), (3, 3, 24, 16)),
+                   ("spatial", (3, 4, 1, 1, 16), (3, 3, 16, 8)),
+                   ("spatial", (2, 3, 5, 7, 152), (3, 3, 152, 40)),
+                   ("spatial", (1, 1, 9, 13, 48), (3, 3, 48, 40)),
+                   ("spatial", (1, 2, 2, 3, 16), (3, 3, 16, 24)),
+                   ("spatial", (3, 200, 3, 5, 16), (3, 3, 16, 8)),
+                   ("spatial", (1, 2, 70, 11, 24), (3, 3, 24, 40)),
                    ("temporal", (2, 7, 5, 3, 40), (3, 40, 24)),
                    ("temporal", (3, 1, 6, 5, 24), (3, 24, 16)),
                    ("temporal", (2, 2, 9, 9, 48), (3, 48, 40)),
@@ -584,16 +614,18 @@ BWD_EDGE_SHAPES = (("spatial", (3, 5, 7, 9, 24), (3, 3, 24, 40)),
 def check_bwd_edges(torch, conv_bn):
     """The backward kernels at shapes off the tiling (BWD_EDGE_SHAPES): a
     partial row tile, masked channels, images smaller than a tile, short
-    clips, partial strips, with and without the prologue."""
+    clips, partial strips, with and without the prologue. The prologue's
+    shift lies away from zero (|shift| >= 0.2, either sign), so a border
+    formed as relu(shift) instead of zero fails."""
     g = torch.Generator(device="cuda").manual_seed(7)
     errs = {}
     for kind, xs, ws in BWD_EDGE_SHAPES:
         for affine in (False, True):
             x = torch.randn(*xs, device="cuda", generator=g).to(torch.bfloat16)
             w = (torch.randn(*ws, device="cuda", generator=g) * 0.1).to(torch.bfloat16)
+            sh = torch.randn(xs[-1], device="cuda", generator=g) * 0.1
             a = (torch.rand(xs[-1], device="cuda", generator=g) + 0.5,
-                 torch.randn(xs[-1], device="cuda", generator=g) * 0.1) \
-                if affine else (None, None)
+                 sh + 0.2 * torch.sign(sh)) if affine else (None, None)
             co = ws[-1]
             gy = torch.randn(*xs[:-1], co, device="cuda", generator=g).to(torch.bfloat16)
             gs1 = torch.randn(co, device="cuda", generator=g) * 0.1
@@ -859,8 +891,12 @@ def synthetic_stream(np, cfg, SyntheticAVDataset, WindowSequencer,
 
 def train_fusion(torch, np, cuda_lib, config, Trainer, data):
     """The full-width fusion preset trains on the card through Trainer.fit:
-    2 warm steps, then 10 timed steps whose launches must be exactly the
-    kernels' per-step counts times 10."""
+    2 warm steps, then a second fit of 10 steps whose launches must be
+    exactly the kernels' per-step counts times 10. Every fit starts over
+    from the seed; the step time is taken between the ends of its first and
+    last step (each logged after a synchronising read of the loss), so the
+    re-initialisation is reported beside it (``s``, the whole fit) and not
+    in it."""
     cfg = config.apply_overrides(config.fusion(), {"train.log_every": 1})
     tr = Trainer(cfg)
     stream = synthetic_stream(np, cfg, *data, seed=0)
@@ -870,10 +906,13 @@ def train_fusion(torch, np, cuda_lib, config, Trainer, data):
     torch.cuda.reset_peak_memory_stats()
     steps = 10
     cuda_lib.reset_launches()
+    ends = []
     t0 = time.perf_counter()
-    _, hist = tr.fit(stream, num_steps=steps, log=lambda s: None)
+    _, hist = tr.fit(stream, num_steps=steps,
+                     log=lambda s: ends.append(time.perf_counter()))
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
+    step_s = (ends[-1] - ends[0]) / (steps - 1)
     counts = dict(cuda_lib.launches)
     per_step = {"melspec": 1, "gru": cfg.model.gru.num_layers,
                 "conv_spatial": 10, "conv_temporal": 10,
@@ -890,8 +929,8 @@ def train_fusion(torch, np, cuda_lib, config, Trainer, data):
     clips = cfg.train.batch_size * cfg.window.windows_per_clip
     emit({"phase": "train_fusion", "batch": cfg.train.batch_size,
           "windows": cfg.window.windows_per_clip, "steps": steps,
-          "launches": counts, "s": dt, "s_per_step": dt / steps,
-          "clips_per_s": clips * steps / dt,
+          "launches": counts, "s": dt, "s_per_step": step_s,
+          "clips_per_s": clips / step_s,
           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
           "loss": loss, "grad_norm": gnorm, "max_param_move": moved})
     return counts
@@ -927,7 +966,7 @@ def train_parity(torch, np, cuda_lib, config, Trainer, data):
         w0 = torch.cat([p.detach().cpu().flatten() for p in tr.model.parameters()])
         cuda_lib.reset_launches()
         _, hist = tr.fit(synthetic_stream(np, cfg, *data, seed=1), num_steps=3,
-                         log=lambda s: None)
+                         log=lambda s: None, keep_weights=run != "cpu")
         if dev == "cuda":
             missing = [k for k in FORWARD_KERNELS + BWD_KERNELS
                        if cuda_lib.launches[k] == 0]

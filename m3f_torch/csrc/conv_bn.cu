@@ -25,17 +25,19 @@
 //   filter:    dW[tap*Ci + ci, co] = sum over pixels of
 //              x^[p + off(tap), ci] * ge[p, co], fp32
 //
-// Bound on an H100: operations for the spatial units, bytes for the
-// temporal ones. As implicit GEMMs over the M = B*T*H*W pixels, with K =
+// Bound on an H100: as implicit GEMMs over the M = B*T*H*W pixels, with K =
 // 9*C (spatial) or 3*C (temporal) taps x channels, the forward and the data
 // gradient are [M, K] x [K, N] products and the filter gradient is a
 // [K, M] x [M, N] product. At the main path's stage-1 spatial unit (M = 1.6
-// M pixels per train step, K = 576, N = 144) each is 0.27 TFLOP against ~1
-// GB of input and output, above the ~295 FLOP/byte at which the bf16 tensor
-// cores (989 TFLOP/s) and not memory (3.35 TB/s) set the floor. The
-// temporal unit has a third of the taps: its filter gradient at stage 1
-// (Ci 144 -> Co 64) does 102 FLOP per byte it must read, so memory sets its
-// floor (see temporal_filter_kernel).
+// M pixels per train step, K = 576, N = 144) each is 0.27 TFLOP. The forward
+// and the data gradient move ~0.7 GB there (x and y, or gy, y and dx: about
+// 400 FLOP/byte), above the ~295 FLOP/byte at which the bf16 tensor cores
+// (989 TFLOP/s) and not memory (3.35 TB/s) set the floor: operations. The
+// filter gradients read x, gy and y: the spatial one does 236 FLOP per byte
+// at stage 1, so memory sets its floor there and operations at stages 2-4
+// (see spatial_filter_kernel); the temporal one has a third of the taps,
+// 102 FLOP per byte at stage 1 (Ci 144 -> Co 64), memory (see
+// temporal_filter_kernel).
 //
 // Design (simple, correct tensor-core kernels; wgmma / TMA come later):
 // - Forward and data gradient share one kernel (MODE 0 / 1): a 128 x BN
@@ -57,18 +59,8 @@
 //   so each block loops over a few row tiles, reduces its sums in a fixed
 //   order (warp shuffles, then shared memory) into one partial row, and a
 //   second kernel sums the rows per channel in a fixed order. No atomics.
-// - Spatial filter gradient (filter_grad_kernel, instantiated for KIND 0
-//   only; the temporal one is temporal_filter_kernel, below): the output
-//   [K, N] is small and the reduction over
-//   pixels very long (1.6 M at stage 1), so parallelism comes from splitting
-//   the pixel axis into slices: grid (K tiles, N tiles, slices), each block
-//   reducing its slice in 32-pixel chunks into a 128 x BN fp32 tile. Both
-//   operands are staged pixel-major in shared memory ([pixel][k] and
-//   [pixel][n], as they lie in memory) and fed to the tensor cores with
-//   ldmatrix.trans. Each slice writes its own fp32 partial; a last kernel
-//   sums the slices in a fixed order. The caller bounds the partial buffer
-//   (at stage 4, K*N is 4608 x 1152 = 21 MB in fp32, and M only 3,136, so
-//   it takes one or two slices).
+// - The filter gradients are spatial_filter_kernel (a row walk) and
+//   temporal_filter_kernel (a frame walk), each described above its code.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -79,10 +71,9 @@ namespace {
 typedef __nv_bfloat16 bf16;
 typedef __nv_bfloat162 bf162;
 
-constexpr int BM = 128;          // output pixels (or filter rows) per tile
-constexpr int BK = 32;           // K (or pixels, filter gradient) per chunk
+constexpr int BM = 128;          // output pixels per tile
+constexpr int BK = 32;           // K per chunk
 constexpr int LDS = BK + 8;      // shared row stride (bf16): 80 B, conflict-free
-constexpr int LDX = BM + 8;      // filter gradient: [pixel][k] row stride
 constexpr int THREADS = 128;
 
 __device__ __forceinline__ float rnd(float v) {
@@ -515,194 +506,6 @@ int run_unit(int kind, int affine, int bn, UnitArgs& a, float* s1, float* s2,
 // Filter gradient
 // ---------------------------------------------------------------------------
 
-struct FilterArgs {
-  const bf16* x;       // forward input [M, Ci]
-  const bf16* gy;      // [M, Co]
-  const bf16* y;       // forward output [M, Co]
-  const float* inv;    // [Ci] or null (no prologue)
-  const float* shift;
-  const float* gs1;    // [Co]
-  const float* gs2;
-  float* out;          // [slices][K][Co] fp32 partials, or dW [K][Co]
-  int64_t M;
-  int Ci, Co, T, H, W;
-  int chunks_per_slice;   // 32-pixel chunks per slice
-};
-
-template <int BN, bool AFFINE, int KIND>
-__global__ void __launch_bounds__(THREADS)
-filter_grad_kernel(const FilterArgs args) {
-  constexpr int NT = BN / 16;
-  constexpr int LDG = BN + 8;
-  constexpr int G_VECS = BN / 8;               // 16-byte vectors per pixel row
-  constexpr int G_IT = (G_VECS + 3) / 4;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* Xs = reinterpret_cast<bf16*>(smem_raw);           // [2][BK][LDX]
-  bf16* Gs = Xs + 2 * BK * LDX;                           // [2][BK][LDG]
-  float* sG1 = reinterpret_cast<float*>(Gs + 2 * BK * LDG);  // [Co]
-  float* sG2 = sG1 + args.Co;
-  bf16* sInv = reinterpret_cast<bf16*>(sG2 + args.Co);    // [Ci]
-  bf16* sShift = sInv + args.Ci;
-
-  const int Ci = args.Ci, Co = args.Co;
-  const int64_t M = args.M;
-  const int T = args.T, H = args.H, W = args.W;
-  const int64_t P = (int64_t)H * W;
-  const int taps = KIND == 0 ? 9 : 3;
-  const int K = taps * Ci;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int warp_m = warp & 1, warp_n = warp >> 1;
-  const int r0 = blockIdx.x * BM, n0 = blockIdx.y * BN;
-
-  for (int c = tid; c < Co; c += THREADS) {
-    sG1[c] = args.gs1[c];
-    sG2[c] = args.gs2[c];
-  }
-  if (AFFINE) {
-    for (int c = tid; c < Ci; c += THREADS) {
-      sInv[c] = __float2bfloat16(args.inv[c]);
-      sShift[c] = __float2bfloat16(args.shift[c]);
-    }
-  }
-  __syncthreads();
-
-  const int64_t nchunks = (M + BK - 1) / BK;
-  const int64_t c_begin = (int64_t)blockIdx.z * args.chunks_per_slice;
-  const int64_t c_end = nchunks < c_begin + args.chunks_per_slice
-                              ? nchunks : c_begin + args.chunks_per_slice;
-
-  // this thread's pixel row of a chunk, its four 8-wide K slots (tap and
-  // channel fixed for the whole run) and its G_IT 8-wide ge slots
-  const int pp = tid >> 2;
-  int ktap[4], kch[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = r0 + 8 * ((tid & 3) + 4 * i);
-    ktap[i] = r < K ? r / Ci : -1;
-    kch[i] = r < K ? r - (r / Ci) * Ci : 0;
-  }
-
-  float acc[4][NT][4];
-#pragma unroll
-  for (int a = 0; a < 4; ++a)
-#pragma unroll
-    for (int b = 0; b < NT; ++b)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) acc[a][b][c] = 0.f;
-
-  uint4 regX[4], regG[G_IT];
-  auto load = [&](int64_t chunk) {
-    const int64_t p = chunk * BK + pp;
-    const bool live = p < M;
-    int ha = 0, wb = 0;
-    if (live) {
-      if (KIND == 0) {
-        wb = (int)(p % W);
-        ha = (int)((p / W) % H);
-      } else {
-        ha = (int)((p / P) % T);
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      uint4 v = make_uint4(0, 0, 0, 0);
-      if (live && ktap[i] >= 0) {
-        int64_t src;
-        bool ok;
-        if (KIND == 0) {
-          const int dh = ktap[i] / 3 - 1, dw = ktap[i] % 3 - 1;
-          ok = (unsigned)(ha + dh) < (unsigned)H && (unsigned)(wb + dw) < (unsigned)W;
-          src = p + (int64_t)dh * W + dw;
-        } else {
-          const int dt = ktap[i] - 1;
-          ok = (unsigned)(ha + dt) < (unsigned)T;
-          src = p + dt * P;
-        }
-        if (ok) {
-          v = __ldg(reinterpret_cast<const uint4*>(args.x + src * Ci + kch[i]));
-          if (AFFINE) v = prologue(v, sInv + kch[i], sShift + kch[i]);
-        }
-      }
-      regX[i] = v;
-    }
-#pragma unroll
-    for (int j = 0; j < G_IT; ++j) {
-      const int vi = (tid & 3) + 4 * j;
-      const int n = n0 + 8 * vi;
-      uint4 v = make_uint4(0, 0, 0, 0);
-      if (live && vi < G_VECS && n < Co) {
-        const uint4 gv = __ldg(reinterpret_cast<const uint4*>(args.gy + p * Co + n));
-        const uint4 yv = __ldg(reinterpret_cast<const uint4*>(args.y + p * Co + n));
-        v = gy_eff8(gv, yv, sG1 + n, sG2 + n);
-      }
-      regG[j] = v;
-    }
-  };
-  auto store = [&](int buf) {
-    bf16* xs = Xs + buf * BK * LDX + pp * LDX;
-    bf16* gs = Gs + buf * BK * LDG + pp * LDG;
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-      *reinterpret_cast<uint4*>(xs + 8 * ((tid & 3) + 4 * i)) = regX[i];
-#pragma unroll
-    for (int j = 0; j < G_IT; ++j) {
-      const int vi = (tid & 3) + 4 * j;
-      if (vi < G_VECS) *reinterpret_cast<uint4*>(gs + 8 * vi) = regG[j];
-    }
-  };
-
-  // ldmatrix.trans lanes: A (rows r, k = pixels) from [pixel][r]; B (k =
-  // pixels, cols n) from [pixel][n]
-  const int sub = lane >> 3;
-  const int a_krow = (lane & 7) + (sub >> 1) * 8, a_moff = (sub & 1) * 8;
-  const int b_krow = (lane & 7) + ((lane >> 3) & 1) * 8;
-
-  if (c_begin < c_end) {
-    load(c_begin);
-    store(0);
-  }
-  __syncthreads();
-  for (int64_t chunk = c_begin; chunk < c_end; ++chunk) {
-    const int buf = (int)((chunk - c_begin) & 1);
-    if (chunk + 1 < c_end) load(chunk + 1);
-    const bf16* xs = Xs + buf * BK * LDX;
-    const bf16* gs = Gs + buf * BK * LDG;
-#pragma unroll
-    for (int ks = 0; ks < BK / 16; ++ks) {
-      uint32_t af[4][4], bfr[NT][2];
-#pragma unroll
-      for (int mt = 0; mt < 4; ++mt)
-        ldsm_x4_t(af[mt], xs + (ks * 16 + a_krow) * LDX + warp_m * 64 + mt * 16 + a_moff);
-#pragma unroll
-      for (int nt = 0; nt < NT; ++nt)
-        ldsm_x2_t(bfr[nt], gs + (ks * 16 + b_krow) * LDG + warp_n * (BN / 2) + nt * 8);
-#pragma unroll
-      for (int mt = 0; mt < 4; ++mt)
-#pragma unroll
-        for (int nt = 0; nt < NT; ++nt) mma_bf16(acc[mt][nt], af[mt], bfr[nt]);
-    }
-    if (chunk + 1 < c_end) store(buf ^ 1);
-    __syncthreads();
-  }
-
-  float* out = args.out + (int64_t)blockIdx.z * K * Co;
-  const int g = lane >> 2, tg = lane & 3;
-#pragma unroll
-  for (int mt = 0; mt < 4; ++mt)
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int r = r0 + warp_m * 64 + mt * 16 + g + half * 8;
-      if (r >= K) continue;
-#pragma unroll
-      for (int nt = 0; nt < NT; ++nt) {
-        const int n = n0 + warp_n * (BN / 2) + nt * 8 + tg * 2;
-        if (n >= Co) continue;
-        *reinterpret_cast<float2*>(out + (int64_t)r * Co + n) =
-            make_float2(acc[mt][nt][half * 2], acc[mt][nt][half * 2 + 1]);
-      }
-    }
-}
-
 // out[i] = sum over s of part[s, i], in a fixed order (n a multiple of 4)
 __global__ void __launch_bounds__(256)
 slice_sum_kernel(const float4* __restrict__ part, int S, int64_t n4,
@@ -775,7 +578,7 @@ slice_sum_kernel(const float4* __restrict__ part, int S, int64_t n4,
 // 1-4, 4.6 ms per train step, against 3.09 / 1.33 / 0.54 / 0.27 (16.6 per
 // step) for the per-K-tile kernel it replaced and 2.6 per step for cuDNN's
 // conv3d_weight on x^ and ge already formed. What holds it back
-// (m3f_torch/scripts/temporal_filter_sweep.py): at stage 1 the ring
+// (m3f_torch/scripts/filter_sweep.py --kind temporal): at stage 1 the ring
 // streaming x, gy and y alone takes 0.49 ms, about 1.8 TB/s, where a device
 // copy of x runs at 2.8 TB/s; forming and products do not hide under it
 // (0.65 ms in all). PERF.md has the numbers.
@@ -785,7 +588,7 @@ constexpr int TF_AHEAD = 2;    // frames in flight beyond the one being formed
 constexpr int TF_XS = TF_AHEAD + 3;   // x ring: t-1, t, t+1, in flight
 constexpr int TF_GS = TF_AHEAD + 1;   // gy / y ring: t, in flight
 constexpr int TF_CO = 64;      // output channels per block
-// Measurement knob, for temporal_filter_sweep.py only (dw is then wrong):
+// Measurement knob, for filter_sweep.py only (dw is then wrong):
 // 1 leaves out forming x^ and ge, 2 the products, 3 both.
 #ifndef TF_ABLATE
 #define TF_ABLATE 0
@@ -1113,26 +916,464 @@ int dispatch_temporal_filter(int affine, const TemporalFilterArgs& a,
                 : launch_temporal_filter<MT, false>(a, slices, s);
 }
 
-template <int BN, bool AFFINE, int KIND>
-int launch_filter(const FilterArgs& args, int slices, cudaStream_t stream) {
-  const size_t smem = 2 * BK * LDX * sizeof(bf16) + 2 * BK * (BN + 8) * sizeof(bf16) +
-                      2 * args.Co * sizeof(float) + 2 * args.Ci * sizeof(bf16);
-  auto kern = filter_grad_kernel<BN, AFFINE, KIND>;
+// ---------------------------------------------------------------------------
+// Spatial filter gradient: the row walk
+// ---------------------------------------------------------------------------
+//
+// Replaces _spatial_bwd_filter_kernel (m3f/pytorch_tpu/ops/pallas/conv_bn.py,
+// pallas_call at :554), which takes one whole (b, t) image per sequential
+// grid step, pads it in VMEM, builds a strip's x^ im2col [sh*W, 9*Ci] and
+// does one product per strip, carrying dW across grid steps.
+//
+// dW[(dh*3+dw)*Ci + ci, co] = sum_{b,t,h,w} x^[b,t,h+dh-1,w+dw-1,ci] *
+// ge[b,t,h,w,co] does 2*9*Ci*Co FLOP per pixel on (Ci + 2*Co) * 2 bytes of
+// input. Bound on an H100 at the train step's shapes (32 clips): stage 1 (x
+// [32,16,56,56,64] -> Co 144) 0.266 TFLOP on 1.13 GB, 236 FLOP/byte: bytes,
+// 0.337 ms; stages 2-4 (Ci 128 / 256 / 512) 471 / 930 / 1740 FLOP/byte:
+// operations, 0.135 / 0.067 / 0.034 ms. The whole [9*Ci, Co] fp32 result
+// (332 KB at stage 1) fits no block, blocks run in parallel, and an im2col
+// is written nowhere. So the design stages each byte once per block for all
+// nine taps, and keeps the repeats between blocks in the L2.
+//
+// - Row walk. A slice's images lie back to back in memory; the kernel walks
+//   them as one dense stream of output pixels in steps of S (a multiple of
+//   16: k-steps may span image rows and images, only a slice's last step is
+//   partly masked) and one stream of x rows. Shared memory holds a ring of
+//   XR x rows [W+2, CB] and a ring of gy / y tiles [S, CO_T]. The x stream
+//   has one all-zero row before every image and after the last, so a tap row
+//   above or below the image is that zero row (shared by two neighbouring
+//   images), never the neighbour's row; columns 0 and W+1 of every ring row
+//   are zero from the start and never written: the conv's padding, zero
+//   AFTER the prologue. Each x row is copied once, turned into x^ in place
+//   once (the BN prologue, two roundings; image rows, columns 1..W only) and
+//   serves all three dh and all three dw; each gy tile is turned into ge in
+//   place once (from y, gs1, gs2, two roundings) and serves all nine taps.
+// - A tap is an address offset. With x^ pixel-major in shared memory, each
+//   lane of ldmatrix.trans gives its own pixel's row address: a table per
+//   step (written by the threads that start the copies) holds, per output
+//   pixel and dh, the ring offset of x^[h+dh-1][w-1]; dw adds one pixel.
+// - Channel block. A block owns a [9*CB, CO_T] output tile as its transpose:
+//   ge is the A operand (output channels are m), x^ the B operand (input
+//   channels are n). Each of the NW warps takes 8 input channels and all
+//   MT m16 tiles of the CO_T output channels for all nine taps (36*MT fp32
+//   accumulators a thread: 108 at CO_T 48). The ge fragments are loaded once
+//   per k-step and serve nine taps; a tap's x^ fragment serves MT products.
+//   Per k-step a warp loads 7.5 ldmatrix.x4 worth of shared memory for 27
+//   products; with x^ as the A operand of m16 x n24 warp tiles (the first
+//   trial) it was 10.5. x is read once per output-channel tile, gy and y
+//   once per channel block; the tiles of one slice are neighbours in the
+//   grid, run together and find the repeats in the 50 MB L2 (at stage 1
+//   with 64 x 48: 3 x 128 + 3 x 192 = 960 B a pixel from the L2 for the 704
+//   B that come from memory).
+// - One block of 8 warps a SM. The accumulators and fragments need ~220
+//   registers a thread; compiled for two blocks a SM (128 registers) the
+//   kernel spills and was 1.6-2.7x slower in trials. So the overlap has to
+//   come from inside the block: the rings are filled by cp.async (16-byte
+//   copies, zero-filled for the zero rows and past the slice; padded
+//   channels are never written) three steps ahead, and step j is multiplied
+//   in the same barrier phase in which step j+1 is formed (no barrier
+//   between a warp's products and its forming). Each thread forms x^ and ge
+//   on exactly the vectors it copied, on the bf16x2 unit (_rn forms: no
+//   fused multiply-add), with its channels' inv / shift / gs1 / gs2 read
+//   from shared memory when it forms, so one __syncthreads per step
+//   publishes the formed tiles and frees the slots of the step before.
+//   Every position of the walk (copy, form, table) is a cursor that moves
+//   on by additions: the divisions are made once, before the loop.
+// - Tensor cores: ldmatrix.trans + mma.sync m16n8k16 bf16 -> fp32.
+// - Parallelism: grid (channel blocks x output-channel tiles, slices); a
+//   slice is a contiguous range of whole images and writes one fp32
+//   partial, summed in a fixed order by slice_sum_kernel. No atomics:
+//   bit-identical dw.
+//
+// Measured on an NVIDIA H100 80GB HBM3 at 700.00 W (m3f_torch/scripts/
+// filter_sweep.py --kind spatial, train step shapes, 32 clips): 1.46 / 0.79
+// / 0.47 / 0.34 ms per launch at stages 1-4, 175 / 164 / 136 / 93 TFLOP/s;
+// per train step (chip_smoke.py) 8.3 ms against 36.8 for the per-K-tile
+// kernel it replaced and 11.8 for cuDNN's conv3d_weight on x^ and ge
+// already formed. What holds it back, from the sweep's ablation builds at
+// stage 1: the products alone take 0.87 ms (mma.sync at ~300 TFLOP/s, the
+// same with 8 or 16 warps), the forming alone 0.69, the copies alone 0.57,
+// the walk alone (cursors, tables, barriers, partials) 0.34, and they add
+// up more than they overlap. PERF.md has the numbers and the trials.
+
+constexpr int SF_AHEAD = 3;            // steps copied beyond the one multiplied
+constexpr int SF_GS = SF_AHEAD + 1;    // gy / y / table ring
+constexpr int SF_SMEM_MAX = 232448;    // 227 KB, a block's most on sm_90
+// Measurement knob, for filter_sweep.py only (dw is then wrong): 1 leaves
+// out forming x^ and ge, 2 the products, 4 the copies (the rings stay zero);
+// their sums leave out several.
+#ifndef SF_ABLATE
+#define SF_ABLATE 0
+#endif
+
+struct SpatialFilterArgs {
+  const bf16* x;       // [images, H, W, Ci]
+  const bf16* gy;      // [images, H, W, Co]
+  const bf16* y;
+  const float* inv;    // [Ci] or null
+  const float* shift;
+  const float* gs1;    // [Co]
+  const float* gs2;
+  float* out;          // [slices][9*Ci][Co] partials, or dW
+  int H, W, Ci, Co;
+  int images;          // B * T
+  int images_per_slice;
+  int ci_blocks;
+  int S;               // output pixels per step, a multiple of 16
+  int XR;              // rows of the x ring (spatial_ring_rows)
+};
+
+// Rows the x ring must hold: the rows under SF_AHEAD + 1 steps of S pixels
+// at the worst alignment (dr more real rows, di zero rows between images)
+// plus the halo row above and below. ops/conv_bn.py computes the same.
+int spatial_ring_rows(int H, int W, int S) {
+  const int span = (SF_AHEAD + 1) * S;
+  const int dr = (span + W - 2) / W;
+  const int di = (dr + H - 1) / H;
+  return dr + di + 3;
+}
+
+template <int NW, int MT>
+size_t spatial_filter_smem(int W, int S, int XR) {
+  constexpr int CB = 8 * NW, CO_T = 16 * MT;
+  return ((size_t)XR * (W + 2) * (CB + 8) + 2 * (size_t)SF_GS * S * (CO_T + 8)) *
+             sizeof(bf16) +
+         (size_t)SF_GS * 3 * S * sizeof(int) + 2 * CO_T * sizeof(float) +
+         2 * CB * sizeof(bf16);
+}
+
+template <int NW, int MT, bool AFFINE, int MINB>
+__global__ void __launch_bounds__(32 * NW, MINB)
+spatial_filter_kernel(const SpatialFilterArgs a) {
+  constexpr int NTH = 32 * NW;
+  constexpr int CB = 8 * NW;                   // input channels per block
+  constexpr int CO_T = 16 * MT;                // output channels per block
+  constexpr int LDX = CB + 8;                  // row strides (bf16): odd multiples
+  constexpr int LDG = CO_T + 8;                // of 16 B, ldmatrix conflict-free
+  constexpr int XV = CB / 8, GV = CO_T / 8;    // 16-byte vectors per pixel
+  constexpr int XP = NTH / XV, GP = NTH / GV;  // pixels per pass of the block
+  const int H = a.H, W = a.W, Ci = a.Ci, Co = a.Co, S = a.S, XR = a.XR;
+  const int HW = H * W, WP = W + 2;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* Xs = reinterpret_cast<bf16*>(smem_raw);           // [XR][WP][LDX]
+  bf16* Gs = Xs + (size_t)XR * WP * LDX;                  // [GS][S][LDG]
+  bf16* Ys = Gs + SF_GS * S * LDG;                        // [GS][S][LDG]
+  int* Tab = reinterpret_cast<int*>(Ys + SF_GS * S * LDG);  // [GS][3][S]
+  float* sG1 = reinterpret_cast<float*>(Tab + SF_GS * 3 * S);  // [CO_T]
+  float* sG2 = sG1 + CO_T;
+  bf16* sInv = reinterpret_cast<bf16*>(sG2 + CO_T);       // [CB]
+  bf16* sShift = sInv + CB;
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int c0 = (blockIdx.x % a.ci_blocks) * CB;
+  const int n0 = (blockIdx.x / a.ci_blocks) * CO_T;
+  const int i0 = blockIdx.y * a.images_per_slice;
+  const int i1 = min(a.images, i0 + a.images_per_slice);
+  const int Q = i1 > i0 ? (i1 - i0) * HW : 0;     // output pixels of the slice
+  const int nq = (Q + S - 1) / S;                 // steps of the walk
+  const int64_t P0 = (int64_t)i0 * HW;            // the slice's first pixel
+
+  // Everything zero once: the padding columns and padded channels stay so.
+  {
+    uint4* z = reinterpret_cast<uint4*>(smem_raw);
+    const int n16 = (int)((reinterpret_cast<unsigned char*>(Tab) - smem_raw) / 16);
+    for (int i = tid; i < n16; i += NTH) z[i] = make_uint4(0, 0, 0, 0);
+  }
+  for (int c = tid; c < CO_T; c += NTH) {
+    const bool ok = n0 + c < Co;
+    sG1[c] = ok ? a.gs1[n0 + c] : 0.f;
+    sG2[c] = ok ? a.gs2[n0 + c] : 0.f;
+  }
+  for (int c = tid; c < CB; c += NTH) {
+    const bool ok = AFFINE && c0 + c < Ci;
+    sInv[c] = __float2bfloat16(ok ? a.inv[c0 + c] : 0.f);
+    sShift[c] = __float2bfloat16(ok ? a.shift[c0 + c] : 0.f);
+  }
+  __syncthreads();
+
+  // The first XP*XV (GP*GV) threads copy and form x (gy / y): each always the
+  // same 8 channels, pixel xpix (gpix) of every pass.
+  const int xpix = tid / XV, xv = (tid % XV) * 8;
+  const int gpix = tid / GV, gv = (tid % GV) * 8;
+  const bool x_on = tid < XP * XV && c0 + xv < Ci;
+  const bool g_on = tid < GP * GV && n0 + gv < Co;
+
+  // Cursors. The divisions are made here, once: in the step loop every
+  // position moves on by additions.
+  const int x_aw = XP % W, x_av = XP / W;      // XP pixels on: columns, rows
+  const int s_aw = S % W, s_av = S / W;        // S pixels on
+  const int last_row = (i1 - i0) * (H + 1);    // the zero row after the last image
+
+  // A position in the stream of x rows, which a thread takes XP pixels at a
+  // time: column w of row vr (ring slot vr % XR); hrow is 0 on the zero row
+  // before an image and 1..H on the image's rows; rr counts the image rows
+  // above. Two cursors a thread: the next vector to copy, the next to form.
+  struct XCursor {
+    int w, vr, slot, hrow, rr;
+  };
+  auto x_advance = [&](XCursor& c) {
+    c.w += x_aw;
+    int dv = x_av;
+    if (c.w >= W) {
+      c.w -= W;
+      ++dv;
+    }
+    for (; dv > 0; --dv) {
+      if (c.hrow) ++c.rr;
+      c.hrow = c.hrow == H ? 0 : c.hrow + 1;
+      c.slot = c.slot + 1 == XR ? 0 : c.slot + 1;
+      ++c.vr;
+    }
+  };
+  XCursor cx;
+  cx.vr = xpix / W;
+  cx.w = xpix - cx.vr * W;
+  cx.slot = cx.vr % XR;
+  cx.hrow = cx.vr % (H + 1);
+  cx.rr = cx.vr - (cx.vr + H) / (H + 1);
+  XCursor fx = cx;
+
+  // An output pixel of the slice, taken S pixels at a time: column w, row h
+  // of its image, stream row vr (one zero row before every image), ring slot.
+  struct PCursor {
+    int w, h, vr, slot;
+  };
+  auto p_seek = [&](int q) {
+    PCursor c;
+    const int rho = q / W, img = rho / H;
+    c.w = q - rho * W;
+    c.h = rho - img * H;
+    c.vr = rho + img + 1;
+    c.slot = c.vr % XR;
+    return c;
+  };
+  auto p_advance = [&](PCursor& c) {
+    c.w += s_aw;
+    int dr = s_av;
+    if (c.w >= W) {
+      c.w -= W;
+      ++dr;
+    }
+    for (; dr > 0; --dr) {
+      int d = 1;
+      if (++c.h == H) {     // over the zero row into the next image
+        c.h = 0;
+        d = 2;
+      }
+      c.vr += d;
+      c.slot += d;
+      if (c.slot >= XR) c.slot -= XR;
+    }
+  };
+  PCursor tp = p_seek(min(tid, S - 1));   // this thread's pixel of the table
+  PCursor ce = p_seek(S - 1), fe = ce;    // the last pixel of the step copied / formed
+  // the last x row a step needs: the row below its last pixel
+  auto need = [&](int j, PCursor& e) {
+    if ((j + 1) * S >= Q) return last_row;
+    const int upto = e.vr + 1;
+    p_advance(e);
+    return upto;
+  };
+
+  // group j of the copies: the x rows step j adds, its gy / y tile, its table
+  auto copy_step = [&](int j) {
+    if (j >= nq) return;
+    const int upto = need(j, ce);
+    if (x_on) {
+      while (cx.vr <= upto) {
+        const bool real = cx.hrow != 0;
+        const bf16* src = real
+            ? a.x + (P0 + (int64_t)cx.rr * W + cx.w) * Ci + c0 + xv : a.x;
+        if (!(SF_ABLATE & 4))
+          cp_async16(Xs + ((size_t)cx.slot * WP + 1 + cx.w) * LDX + xv, src, real);
+        x_advance(cx);
+      }
+    }
+    const int q0 = j * S, slot = j % SF_GS;
+    if (g_on) {
+      const int off = slot * S * LDG + gv;
+      for (int p = gpix; p < S; p += GP) {
+        const bool ok = q0 + p < Q;
+        const int64_t src = ok ? (P0 + q0 + p) * Co + n0 + gv : 0;
+        if (SF_ABLATE & 4) continue;
+        cp_async16(Gs + off + p * LDG, a.gy + src, ok);
+        cp_async16(Ys + off + p * LDG, a.y + src, ok);
+      }
+    }
+    // ring offset (in pixels) of x^[h+dh-1][w-1] for each output pixel
+    if (tid < S) {
+      int* t = Tab + slot * 3 * S + tid;
+      if (q0 + tid < Q) {
+        const int up = tp.slot == 0 ? XR - 1 : tp.slot - 1;
+        const int down = tp.slot + 1 == XR ? 0 : tp.slot + 1;
+        t[0] = up * WP + tp.w;
+        t[S] = tp.slot * WP + tp.w;
+        t[2 * S] = down * WP + tp.w;
+      } else {
+        t[0] = t[S] = t[2 * S] = 0;      // ge is zero there; any finite x^
+      }
+      p_advance(tp);
+    }
+  };
+  // x^ = prologue(x) in place on the image rows step j added, ge in place of
+  // gy: on this thread's own vectors
+  auto form_step = [&](int j) {
+    if (AFFINE && x_on) {
+      const int upto = need(j, fe);
+      bf162 inv2[4], shift2[4];
+      *reinterpret_cast<uint4*>(inv2) = *reinterpret_cast<const uint4*>(sInv + xv);
+      *reinterpret_cast<uint4*>(shift2) = *reinterpret_cast<const uint4*>(sShift + xv);
+      while (fx.vr <= upto) {
+        if (fx.hrow) {
+          uint4* p = reinterpret_cast<uint4*>(
+              Xs + ((size_t)fx.slot * WP + 1 + fx.w) * LDX + xv);
+          *p = prologue_x2(*p, inv2, shift2);
+        }
+        x_advance(fx);
+      }
+    }
+    if (g_on) {
+      float g1[8], g2[8];
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        g1[i] = sG1[gv + i];
+        g2[i] = sG2[gv + i];
+      }
+      const int off = (j % SF_GS) * S * LDG + gv;
+      const int npx = min(S, Q - j * S);
+      for (int p = gpix; p < npx; p += GP) {
+        uint4* g = reinterpret_cast<uint4*>(Gs + off + p * LDG);
+        *g = gy_eff8_x2(*g, *reinterpret_cast<const uint4*>(Ys + off + p * LDG),
+                        g1, g2);
+      }
+    }
+  };
+
+  float acc[9][MT][4];
+#pragma unroll
+  for (int i = 0; i < 9; ++i)
+#pragma unroll
+    for (int j = 0; j < MT; ++j)
+#pragma unroll
+      for (int k = 0; k < 4; ++k) acc[i][j][k] = 0.f;
+
+  // The product is dW^T: A = ge (output channels m, pixels k) from
+  // [pixel][co], all MT m16 tiles in every warp; B = x^ (pixels k, this
+  // warp's 8 input channels n) from [pixel][ci], one n8 tile per tap. Both
+  // by ldmatrix.trans; a B x4 takes two taps (lanes 16-31 one pixel on).
+  const int sub = lane >> 3;
+  const int a_krow = (lane & 7) + (sub >> 1) * 8, a_moff = (sub & 1) * 8;
+  const int b_krow = lane & 15, b_tap = lane >> 4;
+  const bool warp_live = c0 + warp * 8 < Ci;
+
+  // The products of step j. A k-step loads all its fragments first (the
+  // asm statements keep their order), then does its 27 products back to
+  // back, under which the scheduler's other warp loads its own.
+  auto multiply_step = [&](int j) {
+    if ((SF_ABLATE & 2) || !warp_live) return;
+    const int slot = j % SF_GS;
+    const int* tab = Tab + slot * 3 * S + b_krow;
+    const bf16* gs = Gs + slot * S * LDG + a_krow * LDG + a_moff;
+    const bf16* xs = Xs + warp * 8 + b_tap * LDX;
+    const int nks = (min(S, Q - j * S) + 15) / 16;
+    for (int ks = 0; ks < nks; ++ks) {
+      uint32_t afr[MT][4], b01[3][4], b2[3][2];
+#pragma unroll
+      for (int dh = 0; dh < 3; ++dh) {
+        const bf16* xp = xs + (size_t)tab[dh * S + ks * 16] * LDX;
+        ldsm_x4_t(b01[dh], xp);                  // dw 0 ([0..1]), dw 1 ([2..3])
+        ldsm_x2_t(b2[dh], xp + (2 - b_tap) * LDX);   // dw 2, from every lane
+      }
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+        ldsm_x4_t(afr[mt], gs + ks * 16 * LDG + mt * 16);
+#pragma unroll
+      for (int dh = 0; dh < 3; ++dh) {
+        const uint32_t b0[2] = {b01[dh][0], b01[dh][1]};
+        const uint32_t b1[2] = {b01[dh][2], b01[dh][3]};
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) {
+          mma_bf16(acc[dh * 3][mt], afr[mt], b0);
+          mma_bf16(acc[dh * 3 + 1][mt], afr[mt], b1);
+          mma_bf16(acc[dh * 3 + 2][mt], afr[mt], b2[dh]);
+        }
+      }
+    }
+  };
+
+  // Step j is multiplied in the barrier phase in which step j+1 is formed
+  // and steps j+2 .. j+AHEAD land: a warp that is done multiplying forms
+  // beside the products of the others.
+#pragma unroll
+  for (int k = 0; k < SF_AHEAD; ++k) {
+    copy_step(k);
+    cp_async_commit();
+  }
+  cp_async_wait<SF_AHEAD - 1>();     // this thread's copies of step 0 landed
+  if (!(SF_ABLATE & 1)) form_step(0);
+  for (int j = 0; j < nq; ++j) {
+    cp_async_wait<SF_AHEAD - 2>();   // ... of step j+1 landed
+    __syncthreads();                 // step j's formed tiles visible; j-1 done
+    copy_step(j + SF_AHEAD);         // into the slots steps < j have left
+    cp_async_commit();
+    multiply_step(j);
+    if (!(SF_ABLATE & 1) && j + 1 < nq) form_step(j + 1);
+  }
+  cp_async_wait<0>();
+
+  // acc[tap][mt] holds dW^T: rows co = mt*16 + g (+8), columns this warp's
+  // ci = 2*tg (+1)
+  float* out = a.out + (int64_t)blockIdx.y * 9 * Ci * Co;
+  const int g = lane >> 2, tg = lane & 3;
+#pragma unroll
+  for (int tap = 0; tap < 9; ++tap)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int ci = c0 + warp * 8 + tg * 2 + e;
+      if (ci >= Ci) continue;
+      float* row = out + ((int64_t)tap * Ci + ci) * Co + n0;
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const int n = mt * 16 + g + half * 8;
+          if (n0 + n < Co) row[n] = acc[tap][mt][half * 2 + e];
+        }
+    }
+}
+
+template <int NW, int MT, bool AFFINE, int MINB>
+int launch_spatial_filter(const SpatialFilterArgs& args, int slices,
+                          cudaStream_t stream) {
+  const size_t smem = spatial_filter_smem<NW, MT>(args.W, args.S, args.XR);
+  if (smem > (size_t)SF_SMEM_MAX || args.S > 32 * NW)
+    return (int)cudaErrorInvalidValue;
+  auto kern = spatial_filter_kernel<NW, MT, AFFINE, MINB>;
   cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
-  const int K = (KIND == 0 ? 9 : 3) * args.Ci;
-  dim3 grid((K + BM - 1) / BM, (args.Co + BN - 1) / BN, slices);
-  kern<<<grid, THREADS, smem, stream>>>(args);
+  const int co_tiles = (args.Co + 16 * MT - 1) / (16 * MT);
+  kern<<<dim3(args.ci_blocks * co_tiles, slices), 32 * NW, smem, stream>>>(args);
   return (int)cudaGetLastError();
 }
 
-// spatial only: the temporal filter gradient is temporal_filter_kernel
-template <int BN>
-int dispatch_filter(int affine, const FilterArgs& a, int slices,
-                    cudaStream_t s) {
-  return affine ? launch_filter<BN, true, 0>(a, slices, s)
-                : launch_filter<BN, false, 0>(a, slices, s);
+template <int NW, int MT, int MINB>
+int spatial_filter_either(int affine, const SpatialFilterArgs& a, int slices,
+                          cudaStream_t s) {
+  return affine ? launch_spatial_filter<NW, MT, true, MINB>(a, slices, s)
+                : launch_spatial_filter<NW, MT, false, MINB>(a, slices, s);
+}
+
+// (channel block, output-channel tile) -> NW warps of 8 input channels x MT
+// m16 output-channel tiles, and the resident blocks per SM compiled for
+int dispatch_spatial_filter(int ci_blk, int co_tile, int affine,
+                            const SpatialFilterArgs& a, int slices,
+                            cudaStream_t s) {
+  if (ci_blk == 64 && co_tile == 48)
+    return spatial_filter_either<8, 3, 1>(affine, a, slices, s);
+  if (ci_blk == 32 && co_tile == 48)
+    return spatial_filter_either<4, 3, 2>(affine, a, slices, s);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -1213,12 +1454,14 @@ extern "C" int m3f_conv_unit_bwd_data(const void* gy, const void* y,
 // Filter gradient of the unit. x [B, T, H, W, Ci], gy and y [B, T, H, W, Co]
 // bf16; inv/shift [Ci] fp32 or null; gs1/gs2 [Co] fp32; dw [taps*Ci, Co]
 // fp32 with row tap*Ci + ci; part: scratch of slices * taps*Ci * Co floats
-// (unused, may be null, when slices == 1). Spatial (kind 0): bn is the
-// output-channel tile (48, 64, 96) and the pixel axis is cut into `slices`;
-// ci_blk and strip are unused. Temporal (kind 1): bn is 64, ci_blk the
-// channel block (48 or 64), strip the positions per strip (TF_S), and the
-// B * ceil(H*W / strip) units are cut into `slices` contiguous ranges of
-// ceil(units / slices).
+// (unused, may be null, when slices == 1). Spatial (kind 0): ci_blk x bn is
+// the block's tile of input x output channels (64 x 48 or 32 x 48), strip
+// the output pixels per step of the row walk (a multiple of 16, at most the
+// block's 4 * ci_blk threads, whose rings fit a block's shared memory), and the B * T images are cut into `slices`
+// contiguous ranges of ceil(images / slices). Temporal (kind 1): bn is 64,
+// ci_blk the channel block (48 or 64), strip the positions per strip (TF_S),
+// and the B * ceil(H*W / strip) units are cut into `slices` contiguous
+// ranges of ceil(units / slices).
 extern "C" int m3f_conv_unit_bwd_filter(const void* x, const void* gy,
                                         const void* y, const void* gs1,
                                         const void* gs2, const void* inv,
@@ -1263,7 +1506,11 @@ extern "C" int m3f_conv_unit_bwd_filter(const void* x, const void* gy,
     else
       return (int)cudaErrorInvalidValue;
   } else {
-    FilterArgs a{};
+    const int images = B * T;
+    const int per = (images + slices - 1) / slices;
+    if (strip < 16 || strip % 16 != 0 || (int64_t)per * H * W >= (1 << 30))
+      return (int)cudaErrorInvalidValue;
+    SpatialFilterArgs a{};
     a.x = (const bf16*)x;
     a.gy = (const bf16*)gy;
     a.y = (const bf16*)y;
@@ -1272,22 +1519,16 @@ extern "C" int m3f_conv_unit_bwd_filter(const void* x, const void* gy,
     a.gs1 = (const float*)gs1;
     a.gs2 = (const float*)gs2;
     a.out = slices > 1 ? (float*)part : (float*)dw;
-    a.M = M;
-    a.Ci = Ci;
-    a.Co = Co;
-    a.T = T;
     a.H = H;
     a.W = W;
-    const int64_t nchunks = (M + BK - 1) / BK;
-    a.chunks_per_slice = (int)((nchunks + slices - 1) / slices);
-    if (bn == 48)
-      e = dispatch_filter<48>(affine, a, slices, s);
-    else if (bn == 64)
-      e = dispatch_filter<64>(affine, a, slices, s);
-    else if (bn == 96)
-      e = dispatch_filter<96>(affine, a, slices, s);
-    else
-      return (int)cudaErrorInvalidValue;
+    a.Ci = Ci;
+    a.Co = Co;
+    a.images = images;
+    a.images_per_slice = per;
+    a.ci_blocks = (Ci + ci_blk - 1) / ci_blk;
+    a.S = strip;
+    a.XR = spatial_ring_rows(H, W, strip);
+    e = dispatch_spatial_filter(ci_blk, bn, affine, a, slices, s);
   }
   if (e != 0 || slices == 1) return e;
   const int64_t n4 = (int64_t)K * Co / 4;

@@ -271,18 +271,6 @@ def conv_unit_bwd_data(x, w, inv, shift, y, gy, gs1, gs2, *, kind: str):
 
 # fp32 partial-slice buffer of the filter gradient, at most this many bytes
 _FILTER_PART_BYTES = 64 << 20
-_FILTER_CHUNK = 32        # pixels per reduction chunk (BK in conv_bn.cu)
-
-
-def filter_slices(m: int, k: int, co: int, bn: int, sms: int) -> int:
-    """Pixel-axis slices of the spatial filter-gradient kernel: enough
-    blocks for ~4 waves of ``sms`` multiprocessors over the (K, C_out)
-    output tiles, at least one 32-pixel chunk each, and a partial buffer of
-    at most _FILTER_PART_BYTES."""
-    tiles = -(-k // _BM) * -(-co // bn)
-    chunks = -(-m // _FILTER_CHUNK)
-    s = max(1, min(chunks, -(-4 * sms // tiles)))
-    return max(1, min(s, _FILTER_PART_BYTES // (4 * k * co)))
 
 
 _TEMPORAL_STRIP = 64       # positions of H·W per strip (TF_S in conv_bn.cu)
@@ -333,11 +321,96 @@ def temporal_filter_plan(b: int, t: int, h: int, w: int, ci: int, co: int,
                               slices, slices * out_bytes if slices > 1 else 0)
 
 
+# The spatial filter gradient's row walk (spatial_filter_kernel in conv_bn.cu):
+# a block of ci_blk / 8 warps, each 8 input channels x the tile's output
+# channels x nine taps
+_SPATIAL_TILES = ((64, 48), (32, 48))   # (channel block, output-channel tile)
+_SPATIAL_STEPS = (112, 64, 48, 32, 16)  # output pixels per step, preferred first
+_SPATIAL_AHEAD = 3         # steps copied ahead of the products (SF_AHEAD)
+_SMEM_BLOCK_MAX = 227 << 10             # a block's shared memory on sm_90
+
+
+def spatial_ring_rows(h: int, w: int, step: int) -> int:
+    """Rows of the kernel's x ring: the image rows under _SPATIAL_AHEAD + 1
+    steps of ``step`` pixels at the worst alignment, the zero rows between
+    the images they touch, and the halo row above and below."""
+    span = (_SPATIAL_AHEAD + 1) * step
+    dr = (span + w - 2) // w
+    return dr + _cdiv(dr, h) + 3
+
+
+def _spatial_smem(w: int, ci_blk: int, co_tile: int, step: int,
+                  rows: int) -> int:
+    stages = _SPATIAL_AHEAD + 1
+    return (2 * (rows * (w + 2) * (ci_blk + 8)
+                 + 2 * stages * step * (co_tile + 8))
+            + 4 * stages * 3 * step + 8 * co_tile + 4 * ci_blk)
+
+
+class SpatialFilterPlan(NamedTuple):
+    """How the spatial filter-gradient kernel cuts its work: units of one
+    (b, t) image, walked as one stream of output pixels in steps of ``step``
+    over a ring of ``ring_rows`` x rows; blocks of ``ci_blk`` input x
+    ``co_tile`` output channels for all nine taps (``acc_regs`` fp32
+    accumulators a thread, ``threads`` threads, ``smem_bytes`` of shared
+    memory: one block a multiprocessor at the train shapes); ``slices``
+    contiguous ranges of ``units_per_slice`` images, one fp32 partial each (``part_bytes``, 0 when one slice writes dw itself)."""
+    step: int
+    ring_rows: int
+    ci_blk: int
+    co_tile: int
+    units: int
+    units_per_slice: int
+    slices: int
+    part_bytes: int
+    smem_bytes: int
+    threads: int
+    acc_regs: int
+
+    def units_of(self, s: int) -> range:
+        """The images (b * T + t) of slice ``s``, as the kernel takes them."""
+        return range(s * self.units_per_slice,
+                     min(self.units, (s + 1) * self.units_per_slice))
+
+
+def spatial_filter_plan(b: int, t: int, h: int, w: int, ci: int, co: int,
+                        sms: int) -> SpatialFilterPlan:
+    """The spatial filter gradient's tiling on a card of ``sms``
+    multiprocessors: the channel tile that pads C_in x C_out least, the
+    longest step whose rings fit a block's shared memory, then enough
+    slices for ~4 waves of blocks, at most one per image, with a partial
+    buffer of at most _FILTER_PART_BYTES."""
+    ci_blk, co_tile = min(
+        _SPATIAL_TILES,
+        key=lambda cbt: _cdiv(ci, cbt[0]) * cbt[0] * _cdiv(co, cbt[1]) * cbt[1])
+    threads = 4 * ci_blk
+    for step in _SPATIAL_STEPS:
+        rows = spatial_ring_rows(h, w, step)
+        smem = _spatial_smem(w, ci_blk, co_tile, step, rows)
+        if smem <= _SMEM_BLOCK_MAX and step <= threads:
+            break
+    else:
+        raise ValueError(
+            f"conv_unit_bwd_filter spatial kernel: an image row of {w} pixels "
+            f"does not fit the x ring in a block's shared memory ({smem} B)")
+    units = b * t
+    tiles = _cdiv(ci, ci_blk) * _cdiv(co, co_tile)
+    out_bytes = 4 * 9 * ci * co
+    s = max(1, min(units, _cdiv(4 * sms, tiles),
+                   _FILTER_PART_BYTES // out_bytes))
+    # the kernel cuts the images by ceil(units / slices): no slice is empty
+    slices = _cdiv(units, _cdiv(units, s))
+    per = _cdiv(units, slices)
+    return SpatialFilterPlan(step, rows, ci_blk, co_tile, units, per, slices,
+                             slices * out_bytes if slices > 1 else 0, smem,
+                             threads, 9 * (co_tile // 16) * 4)
+
+
 def conv_unit_bwd_filter(x, inv, shift, y, gy, gs1, gs2, *, kind: str
                          ) -> torch.Tensor:
     """Filter gradient of the unit → fp32 dw in the reference layout: the
     plain version on the CPU, one kernel launch (plus a fixed-order sum of
-    its pixel-slice partials when there is more than one) on the card."""
+    its slices' partials when there is more than one) on the card."""
     if x.device.type == "cpu":
         return conv_unit_bwd_filter_reference(x, inv, shift, y, gy, gs1, gs2,
                                               kind=kind)
@@ -354,15 +427,15 @@ def conv_unit_bwd_filter(x, inv, shift, y, gy, gs1, gs2, *, kind: str
     if inv is not None:
         inv, shift = inv.float().contiguous(), shift.float().contiguous()
     taps = 9 if kind == "spatial" else 3
-    m, k = b * t * h * wdt, taps * ci
+    k = taps * ci
     sms = torch.cuda.get_device_properties(x.device).multi_processor_count
     if kind == "spatial":
-        bn, ci_blk, strip = _tile_n(co), 0, 0
-        slices = filter_slices(m, k, co, bn, sms)
+        plan = spatial_filter_plan(b, t, h, wdt, ci, co, sms)
+        strip = plan.step
     else:
         plan = temporal_filter_plan(b, t, h, wdt, ci, co, sms)
-        bn, ci_blk, strip, slices = plan.co_tile, plan.ci_blk, plan.strip, \
-            plan.slices
+        strip = plan.strip
+    bn, ci_blk, slices = plan.co_tile, plan.ci_blk, plan.slices
     dw = torch.empty(k, co, dtype=torch.float32, device=x.device)
     part = torch.empty(slices * k * co, dtype=torch.float32, device=x.device) \
         if slices > 1 else None

@@ -1,0 +1,267 @@
+"""Where the filter-gradient kernels' time goes, on the card.
+
+Times ``conv_unit_bwd_filter`` (``--kind spatial``, the row walk, or
+``--kind temporal``, the frame walk) at the four units of that kind in the
+full-width ``fusion`` train step (32 clips, BN prologue on), beside:
+
+- the same kernel at each tiling it can take: the temporal kernel's channel
+  blocks (48, 64); the spatial kernel's channel tiles (64 x 48, 32 x 48)
+  and its steps (48 .. 128 output pixels, where the rings fit shared
+  memory);
+- ablations of ``csrc/conv_bn.cu`` built with ``-DSF_ABLATE`` /
+  ``-DTF_ABLATE``: without forming x̂ and ge (1), without the products (2),
+  without both, which leaves the cp.async rings streaming x, gy and y (3),
+  and for the spatial kernel without the copies (4: the rings stay zero),
+  with the products alone (5), the forming alone (6) and the walk alone
+  (7: cursors, tables, barriers, the partials and their sum) — their dw
+  is wrong, they are timed only;
+- cuDNN's weight gradient (``torch.nn.grad.conv3d_weight``) on x̂ and ge
+  already formed, and a device copy of x (the card's memory rate on this
+  tensor).
+
+Run on a machine with an NVIDIA GPU, from the repository root:
+
+    python -m m3f_torch.scripts.filter_sweep --kind spatial [--reps 20]
+    python -m m3f_torch.scripts.filter_sweep --kind spatial --check
+
+It prints the ``nvidia-smi`` card line, then one JSON line per shape with
+the median ms of ``--reps`` calls between CUDA events. ``--check`` instead
+prints what ``ptxas`` says of the kernel (registers, spills, shared memory)
+and holds the kernel once against the plain version at each shape and at a
+few small ones. Nothing runs at import.
+"""
+
+from __future__ import annotations
+
+import argparse
+import ctypes
+import json
+import statistics
+import subprocess
+from typing import Callable, Dict, Optional
+
+import torch
+
+from m3f_torch.nn import resolve_device
+from m3f_torch.ops import conv_bn, cuda_lib
+
+# (x shape, C_out) of the fusion train step's units, 32 clips
+SHAPES = {
+    "spatial": (((32, 16, 56, 56, 64), 144), ((32, 8, 28, 28, 128), 288),
+                ((32, 4, 14, 14, 256), 576), ((32, 2, 7, 7, 512), 1152)),
+    "temporal": (((32, 16, 56, 56, 144), 64), ((32, 8, 28, 28, 288), 128),
+                 ((32, 4, 14, 14, 576), 256), ((32, 2, 7, 7, 1152), 512))}
+SMALL = {"spatial": (((3, 5, 7, 9, 24), 40), ((2, 3, 5, 7, 152), 40),
+                     ((3, 4, 1, 1, 16), 8)),
+         "temporal": (((2, 3, 10, 10, 152), 40),)}
+KNOB = {"spatial": "SF_ABLATE", "temporal": "TF_ABLATE"}
+ABLATIONS = {"no_forming": 1, "no_products": 2, "streaming_only": 3}
+# spatial only: without the copies (the rings stay zero), alone and with one
+# of the other two left out
+NO_COPIES = {"no_copies": 4, "products_only": 5, "forming_only": 6,
+             "walk_only": 7}
+SPATIAL_STEPS = (48, 64, 80, 96, 112, 128)
+TAPS = {"spatial": 9, "temporal": 3}
+HBM = 3.35e12            # H100 SXM memory rate, B/s
+PEAK_BF16 = 989e12       # H100 SXM dense bf16 tensor rate, FLOP/s
+
+
+def build_variants(defines: Dict[str, str]) -> Dict[str, Callable]:
+    """``m3f_conv_unit_bwd_filter`` of conv_bn.cu built with each ``-D``
+    (one nvcc per build, all at once, under build/kernels/ablate/)."""
+    out = cuda_lib.BUILD_DIR / "ablate"
+    out.mkdir(parents=True, exist_ok=True)
+    src = str(cuda_lib.CSRC / "conv_bn.cu")
+    procs = {name: subprocess.Popen(
+        [cuda_lib._nvcc(), *cuda_lib.NVCC_FLAGS, *f"-D{d}".split(), "-o",
+         str(out / f"libconv_bn_{name}.so"), src],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+        for name, d in defines.items()}
+    fns = {}
+    for name, proc in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode:
+            raise RuntimeError(f"nvcc failed for {name}:\n{log.decode()}")
+        fn = ctypes.CDLL(str(out / f"libconv_bn_{name}.so")
+                         ).m3f_conv_unit_bwd_filter
+        fn.argtypes = cuda_lib.SIGNATURES["conv_bn"]["m3f_conv_unit_bwd_filter"]
+        fn.restype = ctypes.c_int
+        fns[name] = fn
+    return fns
+
+
+def resources(kind: str) -> None:
+    """Print what ptxas says of the kind's filter-gradient kernel."""
+    log = subprocess.run(
+        [cuda_lib._nvcc(), *cuda_lib.NVCC_FLAGS, "-Xptxas", "-v", "-o",
+         "/dev/null", str(cuda_lib.CSRC / "conv_bn.cu")],
+        capture_output=True, text=True)
+    if log.returncode:
+        raise RuntimeError(f"nvcc failed:\n{log.stdout}{log.stderr}")
+    lines = log.stderr.splitlines()
+    for i, line in enumerate(lines):
+        if "Compiling entry function" in line and f"{kind}_filter_kernel" in line:
+            name = line.split("'")[1]
+            print(json.dumps({"kernel": name[name.index(kind) - 2:][:60],
+                              "ptxas": [l.strip() for l in lines[i + 1:i + 4]]}),
+                  flush=True)
+
+
+def timed(fn: Callable, reps: int) -> float:
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return statistics.median(times)
+
+
+def launch(fn, kind: str, x, inv, shift, y, gy, gs1, gs2,
+           ci_blk: Optional[int] = None, co_tile: Optional[int] = None,
+           step: Optional[int] = None) -> Optional[torch.Tensor]:
+    """One call of a build's C entry point with the planner's tiling, or
+    with ``ci_blk`` / ``co_tile`` / ``step`` in its place (what
+    ``conv_unit_bwd_filter`` does, minus its checks). None when the entry
+    point refuses the tiling (the rings do not fit shared memory)."""
+    b, t, h, w, ci = x.shape
+    co = gy.shape[-1]
+    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+    if kind == "spatial":
+        plan = conv_bn.spatial_filter_plan(b, t, h, w, ci, co, sms)
+        strip = step or plan.step
+    else:
+        plan = conv_bn.temporal_filter_plan(b, t, h, w, ci, co, sms)
+        strip = plan.strip
+    k = TAPS[kind] * ci
+    dw = torch.empty(k, co, dtype=torch.float32, device=x.device)
+    part = torch.empty(plan.slices * k * co, dtype=torch.float32,
+                       device=x.device) if plan.slices > 1 else None
+    err = fn(x.data_ptr(), gy.data_ptr(), y.data_ptr(), gs1.data_ptr(),
+             gs2.data_ptr(), inv.data_ptr(), shift.data_ptr(), dw.data_ptr(),
+             None if part is None else part.data_ptr(),
+             0 if kind == "spatial" else 1, b, t, h, w, ci, co,
+             co_tile or plan.co_tile, plan.slices, ci_blk or plan.ci_blk,
+             strip, cuda_lib.stream_ptr(x))
+    if err == 1 and kind == "spatial" and (step or co_tile):
+        return None                      # cudaErrorInvalidValue: no such tiling
+    cuda_lib.check(err, f"{kind} filter sweep")
+    return dw
+
+
+def inputs(xs, co, dev, g):
+    ci = xs[-1]
+    x = torch.randn(*xs, device=dev, generator=g).to(torch.bfloat16)
+    inv = torch.rand(ci, device=dev, generator=g) + 0.5
+    shift = torch.randn(ci, device=dev, generator=g) * 0.1
+    y = torch.randn(*xs[:-1], co, device=dev, generator=g).to(torch.bfloat16)
+    gy = (torch.randn(*xs[:-1], co, device=dev, generator=g) * 1e-2
+          ).to(torch.bfloat16)
+    gs1 = torch.randn(co, device=dev, generator=g) * 1e-5
+    gs2 = torch.randn(co, device=dev, generator=g) * 1e-6
+    return x, inv, shift, y, gy, gs1, gs2
+
+
+def check(kind: str) -> None:
+    """ptxas' resource lines, then the kernel once against the plain version
+    at each train shape and a few small ones: max |dw - ref| over the
+    largest |ref|, and whether a second call repeats dw bit for bit."""
+    dev = resolve_device("cuda")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False      # the plain version in fp32
+    resources(kind)
+    cuda_lib.build(["conv_bn"])
+    g = torch.Generator(device=dev).manual_seed(12)
+    for xs, co in SMALL[kind] + SHAPES[kind]:
+        args = inputs(xs, co, dev, g)
+        dw = conv_bn.conv_unit_bwd_filter(*args, kind=kind)
+        again = conv_bn.conv_unit_bwd_filter(*args, kind=kind)
+        torch.cuda.synchronize()
+        ref = conv_bn.conv_unit_bwd_filter_reference(*args, kind=kind)
+        print(json.dumps({
+            "x": list(xs), "co": co,
+            "max_err_over_max_ref": ((dw - ref).abs().max() / ref.abs().max()).item(),
+            "repeats": torch.equal(dw, again)}), flush=True)
+        del args, dw, again, ref
+        torch.cuda.empty_cache()
+
+
+def sweep(kind: str, reps: int) -> None:
+    dev = resolve_device("cuda")
+    cuda_lib.build(["conv_bn"])
+    main = cuda_lib.library("conv_bn").m3f_conv_unit_bwd_filter
+    defines = {name: f"{KNOB[kind]}={k}" for name, k in ABLATIONS.items()}
+    if kind == "spatial":
+        defines.update({name: f"SF_ABLATE={k}" for name, k in NO_COPIES.items()})
+    built = build_variants(defines)
+    g = torch.Generator(device=dev).manual_seed(12)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    plan_of = conv_bn.spatial_filter_plan if kind == "spatial" \
+        else conv_bn.temporal_filter_plan
+    ksize, pad = ((1, 3, 3), (0, 1, 1)) if kind == "spatial" \
+        else ((3, 1, 1), (1, 0, 0))
+    for xs, co in SHAPES[kind]:
+        ci = xs[-1]
+        args = inputs(xs, co, dev, g)
+        x, inv, shift, y, gy, gs1, gs2 = args
+        plan = plan_of(*xs, co, sms)
+        row = {"kind": kind, "x": list(xs), "co": co, "plan": plan._asdict(),
+               "ms": timed(lambda: conv_bn.conv_unit_bwd_filter(
+                   *args, kind=kind), reps)}
+
+        def variant(key, fn, **tiling):
+            if launch(fn, kind, *args, **tiling) is not None:
+                row[key] = timed(lambda: launch(fn, kind, *args, **tiling), reps)
+        if kind == "temporal":
+            for cb in (48, 64):
+                variant(f"ci_blk_{cb}_ms", main, ci_blk=cb)
+        else:
+            for cb, ct in conv_bn._SPATIAL_TILES:
+                variant(f"tile_{cb}x{ct}_ms", main, ci_blk=cb, co_tile=ct)
+            for step in SPATIAL_STEPS:
+                variant(f"step_{step}_ms", main, step=step)
+        for name, fn in built.items():
+            variant(f"{name}_ms", fn)
+        xn = conv_bn._prologue(x, inv, shift).permute(0, 4, 1, 2, 3)
+        gn = conv_bn._gy_eff(gy, y, gs1, gs2).permute(0, 4, 1, 2, 3)
+        row["cudnn_ms"] = timed(lambda: torch.nn.grad.conv3d_weight(
+            xn, (co, ci) + ksize, gn, padding=pad), reps)
+        buf = torch.empty_like(x)
+        row["copy_x_ms"] = timed(lambda: buf.copy_(x), reps)
+        m = x.numel() // ci
+        flops = 2 * m * TAPS[kind] * ci * co
+        nbytes = m * ci * 2 + 2 * m * co * 2 + 2 * ci * 4 + 2 * co * 4 \
+            + TAPS[kind] * ci * co * 4
+        row["bound_ms"] = max(nbytes / HBM, flops / PEAK_BF16) * 1e3
+        row["bound_by"] = "bytes" if nbytes / HBM >= flops / PEAK_BF16 \
+            else "operations"
+        row["tflops"] = flops / row["ms"] / 1e9
+        row["input_TBps"] = nbytes / row["ms"] / 1e9
+        print(json.dumps(row), flush=True)
+        del x, y, gy, xn, gn, buf, args
+        torch.cuda.empty_cache()
+
+
+def main(argv=None) -> None:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--kind", choices=("spatial", "temporal"), default="spatial")
+    ap.add_argument("--reps", type=int, default=20)
+    ap.add_argument("--check", action="store_true",
+                    help="ptxas' resource lines and one comparison per shape")
+    opts = ap.parse_args(argv)
+    print(subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip(), flush=True)
+    if opts.check:
+        check(opts.kind)
+    else:
+        sweep(opts.kind, opts.reps)
+
+
+if __name__ == "__main__":
+    main()

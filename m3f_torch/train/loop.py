@@ -139,14 +139,26 @@ class Trainer:
 
     # -- state --------------------------------------------------------------
 
-    def init_state(self) -> TrainState:
-        """A state over the model's current weights (the seeded init, or
-        what the caller loaded into ``self.model``): fresh optimizer state,
-        step 0, the EMA shadow a copy of the params."""
+    def init_state(self, seed: Optional[int] = None, *,
+                   keep_weights: bool = False) -> TrainState:
+        """A fresh state: step 0, fresh optimizer state, the EMA shadow a
+        copy of the params. By default the model's parameters and buffers
+        are re-initialized from ``train.seed`` (or ``seed``), as a new
+        ``Trainer(cfg)``'s are, in place: the tensors keep their identity,
+        so whatever was built on ``Trainer.model`` stays valid.
+        ``keep_weights=True`` starts from what the caller loaded into
+        ``self.model`` instead (the port's stand-in for ``model.init_from``
+        until that is ported)."""
         if self.cfg.model.init_from:
             raise NotImplementedError(
                 "model.init_from is not ported yet (ROADMAP: dropout, augment "
-                "and init_from); load the weights into Trainer.model instead")
+                "and init_from); load the weights into Trainer.model and pass "
+                "keep_weights=True to init_state / fit instead")
+        if not keep_weights:
+            seed = self.cfg.train.seed if seed is None else seed
+            fresh = M3F(self.cfg.model, device="cpu",
+                        generator=torch.Generator().manual_seed(seed))
+            self.model.load_state_dict(fresh.state_dict())
         params = dict(self.model.named_parameters())
         ema = ({n: p.detach().clone() for n, p in params.items()}
                if self.cfg.train.ema_decay > 0 else None)
@@ -465,9 +477,13 @@ class Trainer:
     def fit(self, train_stream, val_dataset=None,
             num_steps: Optional[int] = None,
             log: Callable[[str], None] = print,
-            checkpointer=None, metric_writer=None) -> Tuple[TrainState, Dict]:
+            checkpointer=None, metric_writer=None, *,
+            keep_weights: bool = False) -> Tuple[TrainState, Dict]:
         """Train for ``num_steps`` (default ``train.num_steps``) optimizer
-        steps. ``train_stream`` is a batch iterator or a callable
+        steps, from the seeded init (every call starts over from
+        ``train.seed``) or, with ``keep_weights=True``, from the weights the
+        caller loaded into ``Trainer.model``; a checkpoint restore wins over
+        both. ``train_stream`` is a batch iterator or a callable
         ``factory(skip_batches) -> iterator``, called after the checkpoint
         restore with the restored step, so a resumed run consumes exactly
         the batches an uninterrupted one would. Logs, evaluates (with
@@ -483,7 +499,7 @@ class Trainer:
                 raise NotImplementedError(
                     f"{name} is not ported yet (ROADMAP: {item})")
         num_steps = num_steps or tcfg.num_steps
-        state = self.init_state()
+        state = self.init_state(keep_weights=keep_weights)
         if checkpointer is not None:
             state = checkpointer.maybe_restore(state, self)
         history: Dict[str, List] = {"loss": [], "grad_norm": []}

@@ -27,6 +27,22 @@ CASES = [
     ("spatial", (2, 3, 8, 8, 16), (3, 3, 16, 24)),
     ("temporal", (2, 6, 8, 8, 24), (3, 24, 16)),
 ]
+# the spatial shapes off the filter-gradient kernel's tiling that
+# chip_smoke.py holds the kernel at against the plain version (H = 1, W = 1,
+# 1x1 images, W = 7 and 9, C_in 40 and 152, C_out 24 and 40, one image, fewer
+# pixels than one k-step, many tiny images per slice, images of several
+# steps)
+SPATIAL_EDGE_CASES = [
+    ("spatial", (3, 5, 7, 9, 24), (3, 3, 24, 40)),
+    ("spatial", (2, 3, 1, 11, 40), (3, 3, 40, 24)),
+    ("spatial", (2, 2, 6, 1, 24), (3, 3, 24, 16)),
+    ("spatial", (3, 4, 1, 1, 16), (3, 3, 16, 8)),
+    ("spatial", (2, 3, 5, 7, 152), (3, 3, 152, 40)),
+    ("spatial", (1, 1, 9, 13, 48), (3, 3, 48, 40)),
+    ("spatial", (1, 2, 2, 3, 16), (3, 3, 16, 24)),
+    ("spatial", (3, 200, 3, 5, 16), (3, 3, 16, 8)),
+    ("spatial", (1, 2, 70, 11, 24), (3, 3, 24, 40)),
+]
 F32_TOL = 2e-4
 
 
@@ -71,6 +87,11 @@ BWD_CASES = [
     for dtype in ("float32", "bfloat16")
     for affine in (True, False)
     for kind, xs, ws in CASES
+] + [
+    pytest.param(kind, xs, ws, affine, "bfloat16",
+                 id=f"edge-{'x'.join(map(str, xs))}-{'affine' if affine else 'plain'}")
+    for affine in (True, False)
+    for kind, xs, ws in SPATIAL_EDGE_CASES
 ]
 
 
@@ -177,18 +198,3 @@ def test_conv_unit_without_autograd_is_the_forward():
                                  shift, kind="spatial")
     for g, r in zip(got, want):
         assert torch.equal(g, r)
-
-
-@pytest.mark.parametrize("m,k,co,bn", [(1_605_632, 576, 144, 48),
-                                       (3_136, 4608, 1152, 96),
-                                       (200, 72, 24, 48)])
-def test_filter_slices_fill_the_card_and_bound_the_partials(m, k, co, bn):
-    """The filter gradient splits the pixel axis so ~4 waves of 132 SMs are
-    busy, keeps every slice at least one 32-pixel chunk, and bounds the fp32
-    partial buffer."""
-    s = conv_bn.filter_slices(m, k, co, bn, 132)
-    tiles = -(-k // 128) * -(-co // bn)
-    assert 1 <= s <= -(-m // 32)
-    assert s * k * co * 4 <= max(conv_bn._FILTER_PART_BYTES, k * co * 4)
-    assert s == 1 or tiles * s >= 4 * 132 or s * k * co * 4 > \
-        conv_bn._FILTER_PART_BYTES // 2 or s == -(-m // 32)

@@ -15,6 +15,9 @@ and numpy inputs from seeds, at narrow widths in fp32:
   port's own gradients by up to 5% of a leaf's largest element at these
   widths (measured), so the steps after the first are held in L2 against
   the size of the move (1/4);
+- a second ``fit`` on one ``Trainer`` starts over from ``train.seed``, as
+  the reference's does (same history and params, bit for bit); with
+  ``keep_weights=True`` it goes on from the weights in ``Trainer.model``;
 - whole-video eval and ``evaluate`` (both CCC conventions) vs the
   reference's;
 - the guards: what is not ported raises ``NotImplementedError``.
@@ -168,11 +171,11 @@ def fitted():
     first = next(_streams(jcfg, tcfg)[1])
     probe = Trainer(tcfg, device="cpu")
     _load(probe.model, p0, s0)
-    metrics = probe.train_step(probe.init_state(), first)
+    metrics = probe.train_step(probe.init_state(keep_weights=True), first)
     jstep = jt.make_train_step()
     with jax.default_matmul_precision("highest"):
         _, jmetrics = jstep(jt.init_state(), next(_streams(jcfg, tcfg)[0]))
-    tstate, thist = pt.fit(ts, log=lambda s: None)
+    tstate, thist = pt.fit(ts, log=lambda s: None, keep_weights=True)
     return dict(jt=jt, jstate=jstate, jhist=jhist, pt=pt, tstate=tstate,
                 thist=thist, p0=from_jax_params(jax.device_get(p0), {}),
                 metrics=metrics, jmetrics=jmetrics, jds=jds, tds=tds)
@@ -208,6 +211,83 @@ def test_fit_params_bn_state_and_ema(fitted):
     for n, b in ts.bn_state.items():
         np.testing.assert_allclose(b.numpy(), bn[n].numpy(), rtol=1e-2,
                                    atol=1e-3, err_msg=n)
+
+
+def _fit_params(state):
+    return {n: p.detach().clone() for n, p in state.params.items()}
+
+
+def test_second_fit_starts_from_the_seed_as_the_reference_does(fitted):
+    """Two fits on one port Trainer: the same loss history, params, BN
+    state and EMA, bit for bit, equal to a fresh Trainer's; and the second
+    matches the reference's second fit on one Trainer, which starts from
+    the same weights (the reference's seeded init, loaded once more), at
+    the tolerances the first fit is held to."""
+    jcfg, tcfg = _cfg(jc, ema_decay=0.9), _cfg(tc, ema_decay=0.9)
+    tr = Trainer(tcfg, device="cpu")
+    held = dict(tr.model.named_parameters())
+    runs = []
+    for _ in range(2):
+        state, hist = tr.fit(_streams(jcfg, tcfg)[1], log=lambda s: None)
+        runs.append((hist, _fit_params(state),
+                     {n: b.clone() for n, b in state.bn_state.items()},
+                     {n: e.clone() for n, e in state.ema.items()}))
+        assert all(state.params[n] is p for n, p in held.items())
+    fresh = Trainer(tcfg, device="cpu")
+    fstate, fhist = fresh.fit(_streams(jcfg, tcfg)[1], log=lambda s: None)
+    runs.append((fhist, _fit_params(fstate), dict(fstate.bn_state),
+                 dict(fstate.ema)))
+    for hist, params, bn, ema in runs[1:]:
+        assert hist == runs[0][0]
+        for got, want in ((params, runs[0][1]), (bn, runs[0][2]),
+                          (ema, runs[0][3])):
+            assert got.keys() == want.keys()
+            for n in want:
+                assert torch.equal(got[n], want[n]), n
+    # the reference's second fit on one Trainer, against the port's second
+    # fit from the reference's init
+    jt, pt = fitted["jt"], Trainer(tcfg, device="cpu")
+    with jax.default_matmul_precision("highest"):
+        jstate, jhist = jt.fit(_streams(jcfg, tcfg)[0], log=lambda s: None)
+    assert jhist["loss"] == fitted["jhist"]["loss"]
+    p0, s0 = jt.model.init(jax.random.PRNGKey(0))
+    pt.fit(_streams(jcfg, tcfg)[1], num_steps=1, log=lambda s: None)
+    _load(pt.model, p0, s0)
+    tstate, thist = pt.fit(_streams(jcfg, tcfg)[1], log=lambda s: None,
+                           keep_weights=True)
+    np.testing.assert_allclose(thist["loss"][0], jhist["loss"][0], rtol=TIGHT)
+    np.testing.assert_allclose(thist["loss"][1:], jhist["loss"][1:], atol=1e-2)
+    want = from_jax_params(jax.device_get(jstate.params), {})
+    diff = torch.cat([(tstate.params[n].detach() - want[n]).flatten()
+                      for n in want])
+    move = torch.cat([(want[n] - fitted["p0"][n]).flatten() for n in want])
+    assert diff.norm() <= 0.25 * move.norm()
+
+
+def test_fit_with_keep_weights_goes_on_from_the_loaded_weights():
+    tcfg = _cfg(tc)
+    tr = Trainer(tcfg, device="cpu")
+    state, first = tr.fit(_one_batch(tcfg), num_steps=2, log=lambda s: None)
+    after = _fit_params(state)
+    bn = {n: b.clone() for n, b in state.bn_state.items()}
+    kept = tr.init_state(keep_weights=True)
+    assert kept.step == 0
+    for n, p in after.items():
+        assert torch.equal(kept.params[n], p), n
+    for n, b in bn.items():
+        assert torch.equal(kept.bn_state[n], b), n
+    _, second = tr.fit(_one_batch(tcfg), num_steps=2, log=lambda s: None,
+                       keep_weights=True)
+    assert second["loss"] != first["loss"]
+    _, third = tr.fit(_one_batch(tcfg), num_steps=2, log=lambda s: None)
+    assert third == first
+    # another seed gives another init, the default the configured one
+    a = _fit_params(tr.init_state(seed=5))
+    b = _fit_params(tr.init_state())
+    assert any(not torch.equal(a[n], b[n]) for n in a)
+    fresh = dict(Trainer(tcfg, device="cpu").model.named_parameters())
+    for n, p in b.items():
+        assert torch.equal(p, fresh[n]), n
 
 
 def test_evaluate_matches_the_reference(fitted):
