@@ -20,9 +20,10 @@ H100 (``python3 chip_smoke.py``). It
    element (1e-5 of sum |x^|*|ge|), dinv / dshift per channel; each check
    is shown to refuse a zeroed dinv, a dw one channel off, a dw with taps
    0 and 2 swapped (along dt or dh, and along dw), a dx with a row tile
-   left out and a dw without its last slice's partial; both filter
-   gradients must repeat their dw bit for bit; they are timed beside their
-   plain versions
+   (temporal: the frame walk's last unit) left out, a temporal dx from the
+   filter with taps 0 and 2 swapped and a dw without its last slice's
+   partial; every gradient must repeat its dx, dinv, dshift and dw bit for
+   bit; they are timed beside their plain versions
    and cuDNN's backward (``torch.nn.grad.conv3d_input`` / ``conv3d_weight``)
    and checked again at shapes off the tiling (short clips, partial
    strips, masked channels, images of one row, one column or one pixel,
@@ -448,9 +449,11 @@ def check_bwd_unit(torch, conv_bn, what, x, w, inv, shift, gy, gs1, gs2,
     same checks refuse a zeroed dinv, a dw one output channel off, a dw with
     taps 0 and 2 swapped (along dt or dh and, for the spatial kind, along dw;
     where the reference's differ), a dx whose last row tile (the partial one
-    where there is one) is left out and a dw without its last slice's
-    partial; the filter gradient must give the same dw bit for bit on a
-    second call.
+    where there is one; for the temporal kind the frame walk's last unit) is
+    left out, for the temporal kind a dx from the filter with taps 0 and 2
+    swapped along dt, and a dw without its last slice's partial; both
+    gradients must give the same bits (dx, dinv, dshift, dw) on a second
+    call.
     Returns the kernel's outputs, the reference and the worst error of each."""
     y, _, _ = conv_bn.conv_unit_fwd(x, w, inv, shift, kind=kind)
     dx, dinv, dshift = conv_bn.conv_unit_bwd_data(
@@ -492,10 +495,29 @@ def check_bwd_unit(torch, conv_bn, what, x, w, inv, shift, gy, gs1, gs2,
         torch, conv_bn, x, inv, shift, y, gy, gs1, gs2, dw, kind), dinv, dshift)
     if dinv is not None:
         wrong["dinv_zero"] = (dx, dw, dinv * 0, dshift)
-    rows = math.prod(dx.shape[:-1]) % CONV_BM or CONV_BM
-    cut = dx.clone().reshape(-1, dx.shape[-1])
-    cut[-rows:] = 0
+    if kind == "spatial":
+        rows = math.prod(dx.shape[:-1]) % CONV_BM or CONV_BM
+        cut = dx.clone().reshape(-1, dx.shape[-1])
+        cut[-rows:] = 0
+    else:
+        # the frame walk's last unit: the last clip's last strip, every frame
+        b, t, h, wd, ci = x.shape
+        sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+        strip = conv_bn.temporal_data_plan(b, t, h, wd, ci, gy.shape[-1],
+                                           sms).strip
+        cut = dx.clone().reshape(b, t, h * wd, ci)
+        cut[-1, :, (h * wd - 1) // strip * strip:] = 0
     wrong["dx_last_tile_left_out"] = (cut.reshape(dx.shape), dw, dinv, dshift)
+    if kind == "temporal":
+        swapped = conv_bn.conv_unit_bwd_data_reference(
+            x, w.flip(0), inv, shift, y, gy, gs1, gs2, kind=kind)[0]
+        if bool(((swapped.float() - ref[0].float()).abs() > lim["dx"]).any()):
+            wrong["dx_taps_0_2_swapped"] = (swapped, dw, dinv, dshift)
+    dx2, dinv2, dshift2 = conv_bn.conv_unit_bwd_data(
+        x, w, inv, shift, y, gy, gs1, gs2, kind=kind)
+    require(torch.equal(dx2, dx) and (dinv is None or (
+        torch.equal(dinv2, dinv) and torch.equal(dshift2, dshift))),
+        f"{what}: a second call gave another dx, dinv or dshift")
     passed = [k for k, v in wrong.items() if bwd_within(torch, v, ref, lim)]
     require(not passed, f"{what}: the backward checks would pass: {passed}")
     return y, errs
@@ -588,11 +610,22 @@ BWD_KERNELS = ("conv_spatial_bwd_data", "conv_spatial_bwd_filter",
 # C_out 24 and 40, a single image, a whole tensor (12 pixels) smaller than
 # one k-step, 600 images of 15 pixels (two images per slice), and images of
 # 70 x 11 (seven steps a slice, whose 72 rows wrap the ring of 45). Temporal
-# shapes for the frame walk's tiling (64-position strips, channel
-# blocks of 48 / 64, 64 output channels): clips of 1, 2 and 3 frames (a walk
-# that leaks across clips fails them), C_in 40 and 152 (not a multiple of
-# the channel block), C_out 24 and 40, an H*W of 100 (a partial strip), and
-# a whole tensor (40 positions) smaller than one strip.
+# shapes for the two frame walks' tilings (the filter gradient's 64-position
+# strips, channel blocks of 48 / 64, 64 output channels; the data gradient's
+# strips of 64 / 32 / 16 positions x 144 input channels, its filter resident
+# or streamed): clips of 1, 2 and 3 frames (a walk that leaks across clips
+# fails them), C_in 40 and 152 (not a multiple of the channel block; 152 is
+# two N tiles of the data gradient, the second 8 wide), C_out 24 and 40
+# (padded to the k16 step), an H*W of 100 (a partial strip), and a whole
+# tensor (40 positions) smaller than one strip: all with the data gradient's
+# filter resident beside 64-position tiles, two frames ahead. Then, by the
+# data gradient's planner: C_out 96, T = 3, 72 positions
+# (resident, 64 positions, one frame ahead; C_in 8); C_out 104, T = 1, C_in
+# 160 (resident, 32 positions, two frames ahead, two N tiles); C_out 144,
+# C_in 296, 35 positions (resident, 32 positions, one frame ahead, three N
+# tiles, a partial strip); C_out 160, T = 4 (streamed, 32 positions, three
+# chunks a tap, the last 32 wide); C_out 344, T = 2, 9 positions (streamed,
+# 16 positions, six chunks a tap, the last 24 wide and padded to 32).
 BWD_EDGE_SHAPES = (("spatial", (3, 5, 7, 9, 24), (3, 3, 24, 40)),
                    ("spatial", (2, 3, 1, 11, 40), (3, 3, 40, 24)),
                    ("spatial", (2, 2, 6, 1, 24), (3, 3, 24, 16)),
@@ -608,7 +641,12 @@ BWD_EDGE_SHAPES = (("spatial", (3, 5, 7, 9, 24), (3, 3, 24, 40)),
                    ("temporal", (4, 3, 5, 7, 64), (3, 64, 24)),
                    ("temporal", (2, 4, 6, 6, 40), (3, 40, 24)),
                    ("temporal", (2, 3, 10, 10, 152), (3, 152, 40)),
-                   ("temporal", (1, 2, 4, 5, 16), (3, 16, 8)))
+                   ("temporal", (1, 2, 4, 5, 16), (3, 16, 8)),
+                   ("temporal", (1, 3, 9, 8, 8), (3, 8, 96)),
+                   ("temporal", (3, 1, 6, 5, 160), (3, 160, 104)),
+                   ("temporal", (2, 3, 7, 5, 296), (3, 296, 144)),
+                   ("temporal", (2, 4, 5, 5, 40), (3, 40, 160)),
+                   ("temporal", (2, 2, 3, 3, 24), (3, 24, 344)))
 
 
 def check_bwd_edges(torch, conv_bn):

@@ -40,16 +40,17 @@
 // temporal_filter_kernel).
 //
 // Design (simple, correct tensor-core kernels; wgmma / TMA come later):
-// - Forward and data gradient share one kernel (MODE 0 / 1): a 128 x BN
-//   output tile per block, 4 warps in 2 x 2, each warp 64 x BN/2 with
-//   mma.sync m16n8k16 bf16 -> fp32 and ldmatrix fragment loads. K runs in
-//   chunks of 32 over the flattened (tap, channel) axis; each thread gathers
-//   its A rows as 16-byte vectors straight from the NDHWC tensor at the
-//   tap's offset. A tap outside the image (or clip) is the conv's zero
-//   padding, written as zeros AFTER the prologue (forward) or after ge is
-//   formed (data gradient, which gathers gy and y and forms ge with its two
-//   roundings in the gather). The data gradient's B operand is the flipped,
-//   transposed filter, so the same gather reads ge at the forward's offsets.
+// - Both forward units and the spatial data gradient share one kernel
+//   (conv_unit_kernel, MODE 0 / 1): a 128 x BN output tile per block, 4 warps
+//   in 2 x 2, each warp 64 x BN/2 with mma.sync m16n8k16 bf16 -> fp32 and
+//   ldmatrix fragment loads. K runs in chunks of 32 over the flattened (tap,
+//   channel) axis; each thread gathers its A rows as 16-byte vectors straight
+//   from the NDHWC tensor at the tap's offset. A tap outside the image (or
+//   clip) is the conv's zero padding, written as zeros AFTER the prologue
+//   (forward) or after ge is formed (data gradient, which gathers gy and y
+//   and forms ge with its two roundings in the gather). The data gradient's B
+//   operand is the flipped, transposed filter, so the same gather reads ge at
+//   the forward's offsets.
 // - Chunks go global -> registers -> shared memory, double-buffered.
 // - Forward epilogue: y is rounded and stored; the rounded values feed the
 //   per-channel sums. Data-gradient epilogue: the ReLU mask recomputes the
@@ -59,8 +60,11 @@
 //   so each block loops over a few row tiles, reduces its sums in a fixed
 //   order (warp shuffles, then shared memory) into one partial row, and a
 //   second kernel sums the rows per channel in a fixed order. No atomics.
-// - The filter gradients are spatial_filter_kernel (a row walk) and
-//   temporal_filter_kernel (a frame walk), each described above its code.
+// - The temporal data gradient is a kernel of its own, temporal_data_kernel
+//   (a frame walk that forms each ge tile once for all three taps and all of
+//   a block's input channels); the filter gradients are spatial_filter_kernel
+//   (a row walk) and temporal_filter_kernel (a frame walk). Each is described
+//   above its code.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -172,8 +176,9 @@ struct UnitArgs {
 
 // KIND 0: (1,3,3) spatial conv over each (b, t) image [H, W].
 // KIND 1: (3,1,1) temporal conv over T for each pixel of [H*W].
-// MODE 0: forward; AFFINE = the BN prologue. MODE 1: data gradient; AFFINE =
-// the forward had the prologue (mask, inv and the dinv / dshift sums).
+// MODE 0: forward; AFFINE = the BN prologue. MODE 1: data gradient (built for
+// KIND 0 only); AFFINE = the forward had the prologue (mask, inv and the
+// dinv / dshift sums).
 template <int BN, bool AFFINE, int KIND, int MODE>
 __global__ void __launch_bounds__(THREADS)
 conv_unit_kernel(const UnitArgs args) {
@@ -468,21 +473,25 @@ int launch_unit(const UnitArgs& args, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
+// The temporal data gradient (KIND 1, MODE 1) is temporal_data_kernel: that
+// pair is refused by run_unit and never built.
 template <int BN, int MODE>
 int dispatch_unit(int kind, int affine, const UnitArgs& a, cudaStream_t s) {
   if (kind == 0)
     return affine ? launch_unit<BN, true, 0, MODE>(a, s)
                   : launch_unit<BN, false, 0, MODE>(a, s);
-  return affine ? launch_unit<BN, true, 1, MODE>(a, s)
-                : launch_unit<BN, false, 1, MODE>(a, s);
+  if constexpr (MODE == 0)
+    return affine ? launch_unit<BN, true, 1, 0>(a, s)
+                  : launch_unit<BN, false, 1, 0>(a, s);
+  return (int)cudaErrorInvalidValue;
 }
 
 template <int MODE>
 int run_unit(int kind, int affine, int bn, UnitArgs& a, float* s1, float* s2,
              cudaStream_t s) {
   if (a.M == 0 || a.N == 0) return 0;
-  if ((kind != 0 && kind != 1) || a.Kc % 8 != 0 || a.N % 8 != 0 ||
-      a.tiles_per_block < 1)
+  if ((kind != 0 && kind != 1) || (MODE == 1 && kind == 1) || a.Kc % 8 != 0 ||
+      a.N % 8 != 0 || a.tiles_per_block < 1)
     return (int)cudaErrorInvalidValue;
   a.tiles_m = (int)((a.M + BM - 1) / BM);
   const int R = (a.tiles_m + a.tiles_per_block - 1) / a.tiles_per_block;
@@ -1376,6 +1385,580 @@ int dispatch_spatial_filter(int ci_blk, int co_tile, int affine,
   return (int)cudaErrorInvalidValue;
 }
 
+// ---------------------------------------------------------------------------
+// Temporal data gradient: the frame walk
+// ---------------------------------------------------------------------------
+//
+// Replaces _temporal_bwd_data_kernel (m3f/pytorch_tpu/ops/pallas/conv_bn.py,
+// pallas_call at :612), which takes a strip of one clip over all T frames,
+// builds the ge im2col [T*p, 3*Co] once in VMEM and does one product with
+// the reversed filter [3*Co, Ci], then the ReLU mask, the scale by inv and
+// the dinv / dshift sums carried across the sequential grid.
+//
+// dx^[b,t,p,ci] = bf16(sum_dt sum_co ge[b,t+dt,p,co] * W[1-dt,ci,co]) does
+// 2*3*Co*Ci FLOP per pixel on (2*Co + 2*Ci) * 2 bytes (gy, y, x in, dx out).
+// Bound on an H100 at the train step's shapes (32 clips): stage 1 (gy
+// [32,16,56,56,64] -> dx 144) 88.8 GFLOP on 1.34 GB, 66 FLOP/byte: bytes,
+// 0.40 ms; stage 2 (128 -> 288) bytes, 0.10 ms; stage 3 (256 -> 576) bytes,
+// 0.025 ms; stage 4 (512 -> 1152) operations, 0.011 ms. Stage 1 is four
+// fifths of the step's bound. So the design moves each byte of stage 1 once,
+// forms ge once per element there, keeps the copies in flight under the
+// products, and lets dx leave in whole 16-byte vectors.
+//
+// - Frame walk. A work unit is one clip b and one strip of S positions of
+//   the H*W plane (S = 64, 32 or 16), walked over t = 0..T-1; a block's
+//   units follow one another as one stream of frames. Shared memory holds a
+//   ring of gy frame tiles [S, Co] (frames t-1, t, t+1 and `ahead` more in
+//   flight), one of y tiles (only until ge is formed) and one of x tiles
+//   [S, NB] (frame t-1 waiting to leave as dx, t, and `ahead` in flight).
+//   Each gy tile is turned into ge in place once after it lands (from y,
+//   gs1, gs2, two roundings) and then serves the three output frames that
+//   use it. A tap whose frame lies outside the clip is skipped: no zero
+//   tile, and the walk never mixes two clips.
+// - All of C_in in one block where it fits: the block's accumulator is
+//   [S, NB] with NB = 144 (the model's stage-1 C_in), so ge is formed once
+//   per element at stage 1 and ceil(Ci / 144) times at the wider stages
+//   (the N tile is fastest in the grid: the blocks of one unit run together
+//   and find gy and y in the L2).
+// - The flipped filter [NB, 3*Co] stays in shared memory for the whole walk
+//   where it fits beside the rings (stage 1: 58 KB beside tiles of 64
+//   positions; stage 2: 113 KB beside tiles of 32). Where it does not
+//   (stages 3-4: 0.9 and 3.5 MB in all) it streams from the L2 in chunks of
+//   one tap x 64 output channels through a three-slot cp.async ring, one
+//   barrier a chunk.
+// - The rings are filled by cp.async (16-byte copies, zero-filled past the
+//   strip and past the channels). Each thread forms ge on exactly the
+//   vectors it copied, so its own wait_group suffices before forming, and
+//   one __syncthreads per frame step publishes ge(t+1) and x(t) and frees
+//   the slots of the step before.
+// - Tensor cores: ldmatrix + mma.sync m16n8k16 bf16 -> fp32; a warp owns
+//   one m16 row tile x NT n8 tiles; K = Co per tap.
+// - Epilogue. The accumulator is rounded to dx^; the ReLU mask recomputes
+//   the forward prologue's two roundings from the x tile on the bf16x2 unit
+//   (_rn forms: no fused multiply-add), dx = dxa * inv is written over the x
+//   tile in shared memory, and leaves one step later in 16-byte stores along
+//   the channel axis, under the next step's products. dinv / dshift: per-
+//   thread fp32 sums over the whole walk, then warp shuffles and shared
+//   memory in a fixed order into one partial row per block, then
+//   colsum_kernel. No atomics: two calls give the same bits.
+// - Parallelism: grid = ranges of units x N tiles, one block a SM. Every
+//   warp copies, forms, multiplies and masks in turn, so inside one block
+//   the phases add up. Two blocks of 32 positions a SM (6 warps capped at
+//   168 registers, or 4 warps) overlap them and measured the same as one
+//   block of 64 positions x 8 warps (0.76-0.81 against 0.75-0.81 ms at
+//   stage 1), so the planner keeps the one rule (ops/conv_bn.py
+//   temporal_data_plan); the others stay behind -DTD_TRIALS for the sweep.
+// - Registers: a thread keeps for the whole walk its gs1 / gs2 (it forms
+//   the same 8 channels of every row where the threads are a multiple of
+//   the vectors per row), inv / shift of its accumulator columns and the
+//   offsets of its x / dx vectors: 241 registers at 64 x 8, no spill.
+//
+// Measured on an NVIDIA H100 80GB HBM3 at 700.00 W (m3f_torch/scripts/
+// filter_sweep.py --kind temporal_data, train step shapes, 32 clips, the C
+// entry, two calls): 0.79 / 0.44-0.50 / 0.37-0.40 / 0.30 ms per launch at
+// stages 1-4, against 2.51 / 1.57 / 0.54 / 0.32 for the per-tap gather it
+// replaced and 1.67-1.76 / 0.53-0.55 / 0.19-0.21 / 0.10-0.12 for cuDNN's
+// conv3d_input on ge already formed; per train step (chip_smoke.py) 5.9 ms
+// against 14.9 and 8.2-8.7. What holds it back, from the sweep's ablation
+// builds: at stage 1 the rings alone stream in 0.38 ms (the bound is 0.40
+// with dx), and the products (0.20 ms of the whole), the epilogue (0.15),
+// starting the copies (0.12) and forming (0.05) add to it instead of hiding
+// under it; at stages 3-4 the filter, streamed from the L2 once per frame
+// and 32 or 16 positions, is most of the time (0.27 of 0.40, 0.22 of 0.30
+// ms with nothing else running): more positions per filter pass is what
+// they need. PERF.md has the numbers.
+
+constexpr int TD_KC = 64;      // output channels per streamed filter chunk
+constexpr int TD_WST = 3;      // slots of the streamed filter's ring
+constexpr int TD_LDC = TD_KC + 8;
+// Measurement knob, for filter_sweep.py only (dx is then wrong): 1 leaves
+// out forming ge, 2 the products, 4 the copies of gy, y and x (the rings
+// keep what they held), 8 the epilogue (mask, scale, sums, dx stores);
+// their sums leave out several.
+#ifndef TD_ABLATE
+#define TD_ABLATE 0
+#endif
+
+struct TemporalDataArgs {
+  const bf16* gy;      // [B, T, H*W, Co]
+  const bf16* y;
+  const float* gs1;    // [Co]
+  const float* gs2;
+  const bf16* w;       // the filter [3, Ci, Co]; tap dt of the walk (frame
+                       // t + dt - 1) multiplies W[2 - dt]
+  const bf16* x;       // [B, T, H*W, Ci] or null
+  const float* inv;    // [Ci] or null
+  const float* shift;
+  bf16* dx;            // [B, T, H*W, Ci]
+  float* part1;        // [ranges][Ci] partial dinv, dshift
+  float* part2;
+  int T, HW, Ci, Co;
+  int Cop;             // Co rounded up to the k16 step
+  int strips;          // ceil(HW / S)
+  int units;           // B * strips
+  int units_per_block;
+  int n_tiles;         // ceil(Ci / NB)
+  int ahead;           // frames in flight beyond the one being formed
+};
+
+// WM x WN warps, each one m16 row tile x NT n8 tiles: S = 16*WM positions,
+// NB = 8*NT*WN input channels. RES: the filter is resident. PER_SM: blocks
+// that must fit a multiprocessor's registers together.
+template <int WM, int WN, int NT, bool RES, bool AFFINE, int PER_SM>
+__global__ void __launch_bounds__(32 * WM * WN, PER_SM)
+temporal_data_kernel(const TemporalDataArgs a) {
+  constexpr int NTH = 32 * WM * WN;
+  constexpr int S = 16 * WM;
+  constexpr int NB = 8 * NT * WN;
+  constexpr int LDX = NB + 8;                  // row strides (bf16): 16-byte
+  constexpr int XV = NB / 8;                   // multiples, ldmatrix conflict-free
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+
+  const int T = a.T, HW = a.HW, Ci = a.Ci, Co = a.Co, Cop = a.Cop;
+  const int LDG = Cop + 8, LDW = 3 * Cop + 8, GV = Cop / 8;
+  const int AH = RES ? a.ahead : 1;
+  const int GS = AH + 3, YS = AH + 1, XS = AH + 2;
+  bf16* Ws = reinterpret_cast<bf16*>(smem_raw);  // [NB][LDW] or [TD_WST][NB][TD_LDC]
+  bf16* Gs = Ws + (RES ? NB * LDW : TD_WST * NB * TD_LDC);   // [GS][S][LDG]
+  bf16* Ys = Gs + GS * S * LDG;                               // [YS][S][LDG]
+  bf16* Xs = Ys + YS * S * LDG;                               // [XS][S][LDX]
+  float* sG1 = reinterpret_cast<float*>(Xs + XS * S * LDX);   // [Cop]
+  float* sG2 = sG1 + Cop;
+  bf162* sInv = reinterpret_cast<bf162*>(sG2 + Cop);          // [NB / 2]
+  bf162* sShift = sInv + NB / 2;
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int wm = warp % WM, wn = warp / WM;
+  const int n0 = ((int)blockIdx.x % a.n_tiles) * NB;
+  const int range = (int)blockIdx.x / a.n_tiles;
+  const int u0 = range * a.units_per_block;
+  const int u1 = min(a.units, u0 + a.units_per_block);
+  const int nq = u1 > u0 ? (u1 - u0) * T : 0;    // frames of the walk
+
+  for (int c = tid; c < Cop; c += NTH) {
+    sG1[c] = c < Co ? a.gs1[c] : 0.f;
+    sG2[c] = c < Co ? a.gs2[c] : 0.f;
+  }
+  for (int c = tid; c < NB / 2; c += NTH) {
+    const int n = n0 + 2 * c;
+    const bool ok = AFFINE && n < Ci;
+    sInv[c] = __floats2bfloat162_rn(ok ? a.inv[n] : 0.f, ok ? a.inv[n + 1] : 0.f);
+    sShift[c] = __floats2bfloat162_rn(ok ? a.shift[n] : 0.f,
+                                      ok ? a.shift[n + 1] : 0.f);
+  }
+
+  if (RES) {
+    // the block's filter tile, flipped along dt: [n][tap*Cop + co] =
+    // W[2 - tap, n0 + n, co], zero past Ci and Co
+    const int WV = 3 * GV;
+    for (int c = tid; c < NB * WV; c += NTH) {
+      const int n = c / WV, v = c - n * WV;
+      const int tap = v / GV, k8 = (v - tap * GV) * 8;
+      const bool ok = n0 + n < Ci && k8 < Co;
+      cp_async16(Ws + n * LDW + tap * Cop + k8,
+                 ok ? a.w + ((int64_t)(2 - tap) * Ci + n0 + n) * Co + k8 : a.w, ok);
+    }
+    cp_async_commit();
+  }
+
+  // A cursor on the walk: frame q (frame t of unit u), its first pixel and
+  // its rows inside the strip; only a step into the next unit divides.
+  struct Cursor {
+    int q, t, u, rows;
+    int64_t base;
+  };
+  auto seek_unit = [&](Cursor& w) {
+    const int b = w.u / a.strips, p0 = (w.u - b * a.strips) * S;
+    w.base = (int64_t)b * T * HW + p0;
+    w.rows = min(S, HW - p0);
+  };
+  auto step = [&](Cursor& w) {
+    ++w.q;
+    if (++w.t < T) {
+      w.base += HW;
+    } else {
+      w.t = 0;
+      ++w.u;
+      seek_unit(w);
+    }
+  };
+
+  // A thread's vectors of a gy / y tile: c = tid + i*NTH -> row c / GV,
+  // vector c % GV, stepped by additions.
+  const int g_r0 = tid / GV, g_v0 = tid - g_r0 * GV;
+  const int g_dr = NTH / GV, g_dv = NTH - g_dr * GV;
+  const int g_vecs = S * GV;
+
+  auto copy_g = [&](const Cursor& w) {           // gy and y of frame w.q
+    if ((TD_ABLATE & 4) || w.q >= nq) return;
+    bf16* gd = Gs + (w.q % GS) * S * LDG;
+    bf16* yd = Ys + (w.q % YS) * S * LDG;
+    const int64_t frame = w.base * Co;
+    int r = g_r0, v = g_v0;
+    for (int c = tid; c < g_vecs; c += NTH) {
+      const bool ok = r < w.rows && v * 8 < Co;
+      const int64_t src = ok ? frame + (r * Co + v * 8) : 0;
+      cp_async16(gd + r * LDG + v * 8, a.gy + src, ok);
+      cp_async16(yd + r * LDG + v * 8, a.y + src, ok);
+      r += g_dr;
+      v += g_dv;
+      if (v >= GV) {
+        v -= GV;
+        ++r;
+      }
+    }
+  };
+  // gs1 / gs2 of a vector's 8 channels. Where the threads are a multiple of
+  // the vectors per row (every train shape) a thread keeps one column for
+  // the whole walk and loads them once.
+  float g1[8], g2[8];
+  auto load_gs = [&](int v) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      *reinterpret_cast<float4*>(g1 + 4 * h) =
+          *reinterpret_cast<const float4*>(sG1 + v * 8 + 4 * h);
+      *reinterpret_cast<float4*>(g2 + 4 * h) =
+          *reinterpret_cast<const float4*>(sG2 + v * 8 + 4 * h);
+    }
+  };
+  // ge = gy + bf16(gs1 + 2*y*gs2) in place of gy, on this thread's vectors
+  auto form_g = [&](const Cursor& w) {
+    if ((TD_ABLATE & 1) || w.q >= nq) return;
+    bf16* gd = Gs + (w.q % GS) * S * LDG;
+    const bf16* yd = Ys + (w.q % YS) * S * LDG;
+    int r = g_r0, v = g_v0;
+    for (int c = tid; c < g_vecs; c += NTH) {
+      if (r < w.rows && v * 8 < Co) {
+        uint4* p = reinterpret_cast<uint4*>(gd + r * LDG + v * 8);
+        if (g_dv != 0) load_gs(v);
+        *p = gy_eff8_x2(*p, *reinterpret_cast<const uint4*>(yd + r * LDG + v * 8),
+                        g1, g2);
+      }
+      r += g_dr;
+      v += g_dv;
+      if (v >= GV) {
+        v -= GV;
+        ++r;
+      }
+    }
+  };
+  // A thread's vectors of an x / dx tile: c = tid + i*NTH -> row c / XV,
+  // channels (c % XV) * 8; the offsets are the same for every frame. A
+  // vector past C_in has row S: never inside the strip.
+  constexpr int X_IT = (S * XV + NTH - 1) / NTH;
+  int x_row[X_IT], x_smem[X_IT], x_gmem[X_IT];
+#pragma unroll
+  for (int i = 0; i < X_IT; ++i) {
+    const int c = tid + i * NTH, r = c / XV, v = (c - r * XV) * 8;
+    x_row[i] = n0 + v < Ci ? r : S;
+    x_smem[i] = r * LDX + v;
+    x_gmem[i] = r * Ci + v;
+  }
+  auto copy_x = [&](const Cursor& w) {
+    if (!AFFINE || (TD_ABLATE & 4) || w.q >= nq) return;
+    bf16* xd = Xs + (w.q % XS) * S * LDX;
+    const bf16* frame = a.x + w.base * Ci + n0;
+#pragma unroll
+    for (int i = 0; i < X_IT; ++i) {
+      if (tid + i * NTH >= S * XV) break;
+      const bool ok = x_row[i] < w.rows;
+      cp_async16(xd + x_smem[i], ok ? frame + x_gmem[i] : a.x, ok);
+    }
+  };
+  // dx of frame w.q leaves its x slot: 16-byte stores along the channels
+  auto store_dx = [&](const Cursor& w) {
+    if (TD_ABLATE & 8) return;
+    const bf16* xs = Xs + (w.q % XS) * S * LDX;
+    bf16* frame = a.dx + w.base * Ci + n0;
+#pragma unroll
+    for (int i = 0; i < X_IT; ++i) {
+      if (tid + i * NTH >= S * XV) break;
+      if (x_row[i] < w.rows)
+        *reinterpret_cast<uint4*>(frame + x_gmem[i]) =
+            *reinterpret_cast<const uint4*>(xs + x_smem[i]);
+    }
+  };
+
+  // The streamed filter's chunks, in the order the walk multiplies them:
+  // per frame its taps inside the clip, per tap ceil(Cop / TD_KC) chunks.
+  struct Chunk {
+    int i, q, t, tap, kc;
+  };
+  const int kch = (Cop + TD_KC - 1) / TD_KC;
+  auto next_chunk = [&](Chunk& w) {
+    ++w.i;
+    if (++w.kc < kch) return;
+    w.kc = 0;
+    ++w.tap;
+    if (w.tap == 2 && w.t + 1 >= T) w.tap = 3;
+    if (w.tap >= 3) {
+      ++w.q;
+      w.t = w.t + 1 < T ? w.t + 1 : 0;
+      w.tap = w.t > 0 ? 0 : 1;
+    }
+  };
+  auto copy_w = [&](const Chunk& w) {
+    if (w.q >= nq) return;
+    bf16* wd = Ws + (w.i % TD_WST) * NB * TD_LDC;
+    for (int c = tid; c < NB * (TD_KC / 8); c += NTH) {
+      const int n = c / (TD_KC / 8), v = (c % (TD_KC / 8)) * 8;
+      const int k8 = w.kc * TD_KC + v;
+      const bool ok = n0 + n < Ci && k8 < Co;
+      cp_async16(wd + n * TD_LDC + v,
+                 ok ? a.w + ((int64_t)(2 - w.tap) * Ci + n0 + n) * Co + k8 : a.w,
+                 ok);
+    }
+  };
+
+  Cursor cg{0, 0, u0, 0, 0};
+  seek_unit(cg);
+  Cursor cx = cg, fg = cg, cur = cg, prev = cg;
+  Chunk pw{0, 0, 0, 1, 0}, cw = pw;
+
+  // the stream's first groups: {g0, g1, x0}, then {g(k+1), x(k)}
+  copy_g(cg);
+  step(cg);
+  for (int k = 0; k < AH; ++k) {
+    copy_g(cg);
+    step(cg);
+    copy_x(cx);
+    step(cx);
+    cp_async_commit();
+  }
+  if (!RES) {
+    for (int k = 0; k < TD_WST - 1; ++k) {
+      copy_w(pw);
+      next_chunk(pw);
+      cp_async_commit();
+    }
+  }
+  __syncthreads();                   // gs1 / gs2 / inv / shift visible
+  load_gs(g_v0);
+
+  float acc[NT][4];
+  float st1[NT][2], st2[NT][2];
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt)
+    st1[nt][0] = st1[nt][1] = st2[nt][0] = st2[nt][1] = 0.f;
+
+  // ldmatrix lanes: A (positions m, channels k) from [position][co]; B
+  // (channels k, input channels n; two n8 tiles a x4) from [n][k]
+  const int a_off = (wm * 16 + (lane & 15)) * LDG + (lane >> 4) * 8;
+  const int b_row = wn * NT * 8 + (lane & 7) + ((lane >> 4) & 1) * 8;
+  const int b_koff = ((lane >> 3) & 1) * 8;
+  const int b_row_last = wn * NT * 8 + (NT - 1) * 8 + (lane & 7);
+  auto products = [&](const bf16* as, const bf16* bs, int ldb, int ksteps) {
+#pragma unroll 4
+    for (int ks = 0; ks < ksteps; ++ks) {
+      uint32_t af[4];
+      ldsm_x4(af, as + a_off + ks * 16);
+#pragma unroll
+      for (int p = 0; p < NT / 2; ++p) {
+        uint32_t r4[4];
+        ldsm_x4(r4, bs + (b_row + p * 16) * ldb + b_koff + ks * 16);
+        const uint32_t lo[2] = {r4[0], r4[1]}, hi[2] = {r4[2], r4[3]};
+        mma_bf16(acc[2 * p], af, lo);
+        mma_bf16(acc[2 * p + 1], af, hi);
+      }
+      if (NT & 1) {
+        uint32_t r2[2];
+        ldsm_x2(r2, bs + b_row_last * ldb + b_koff + ks * 16);
+        mma_bf16(acc[NT - 1], af, r2);
+      }
+    }
+  };
+
+  const int g = lane >> 2, tg = lane & 3;
+  // inv / shift of this thread's accumulator columns
+  bf162 inv2[NT], shift2[NT];
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt) {
+    inv2[nt] = sInv[(wn * NT * 8 + nt * 8 + tg * 2) >> 1];
+    shift2[nt] = sShift[(wn * NT * 8 + nt * 8 + tg * 2) >> 1];
+  }
+  const bf162 zero2 = __float2bfloat162_rn(0.f);
+  for (int j = 0; j < nq; ++j) {
+    // this thread's gy / y (j+1) and x(j) landed
+    if (RES && AH == 2)
+      cp_async_wait<1>();
+    else
+      cp_async_wait<0>();
+    if (j == 0) {
+      form_g(fg);
+      step(fg);
+    }
+    form_g(fg);                      // ge(j+1)
+    step(fg);
+    __syncthreads();                 // ge(j+1), x(j) visible; step j-1 done
+    copy_g(cg);                      // gy / y (j+1+AH), into the slot of ge(j-2)
+    step(cg);
+    copy_x(cx);                      // x(j+AH), into the slot of dx(j-2)
+    step(cx);
+    if (RES) cp_async_commit();      // streamed: rides the next chunk's group
+    if (j > 0) store_dx(prev);       // dx(j-1)
+
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int k = 0; k < 4; ++k) acc[nt][k] = 0.f;
+    const int t = cur.t;
+    const int tap_lo = t > 0 ? 0 : 1, tap_hi = t + 1 < T ? 3 : 2;
+    for (int tap = tap_lo; tap < tap_hi; ++tap) {
+      const bf16* gs = Gs + ((j + tap - 1 + GS) % GS) * S * LDG;
+      if (RES) {
+        if (!(TD_ABLATE & 2)) products(gs, Ws + tap * Cop, LDW, Cop / 16);
+      } else {
+        for (int kc = 0; kc < kch; ++kc) {
+          cp_async_wait<1>();        // this thread's part of chunk cw landed
+          __syncthreads();           // all of it; the chunk before is done
+          copy_w(pw);                // two chunks ahead, into that one's slot
+          next_chunk(pw);
+          cp_async_commit();
+          if (!(TD_ABLATE & 2))
+            products(gs + kc * TD_KC, Ws + (cw.i % TD_WST) * NB * TD_LDC, TD_LDC,
+                     min(TD_KC, Cop - kc * TD_KC) / 16);
+          next_chunk(cw);
+        }
+      }
+    }
+
+    // epilogue: dx^ = bf16(acc); with the prologue the mask from x, dx =
+    // dxa * inv over the x tile, and the sums over the rows of the strip
+    if (!(TD_ABLATE & 8)) {
+      bf16* xs = Xs + (j % XS) * S * LDX;
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int row = wm * 16 + g + half * 8;
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt) {
+          const int col = wn * NT * 8 + nt * 8 + tg * 2;
+          const bf162 d = __floats2bfloat162_rn(acc[nt][half * 2],
+                                                acc[nt][half * 2 + 1]);
+          bf162* px = reinterpret_cast<bf162*>(xs + row * LDX + col);
+          if (AFFINE) {
+            // rows past the strip hold x = 0 and dx^ = 0 (their ge rows are
+            // zero-filled and never formed): they add nothing to the sums
+            const bf162 xv = *px;
+            const uint32_t on = __hgt2_mask(
+                __hadd2_rn(__hmul2_rn(xv, inv2[nt]), shift2[nt]), zero2);
+            const uint32_t kept = *reinterpret_cast<const uint32_t*>(&d) & on;
+            const bf162 dxa = *reinterpret_cast<const bf162*>(&kept);
+            *px = __hmul2_rn(dxa, inv2[nt]);
+            const float2 xf = __bfloat1622float2(xv);
+            const float2 df = __bfloat1622float2(dxa);
+            st1[nt][0] += xf.x * df.x;
+            st1[nt][1] += xf.y * df.y;
+            st2[nt][0] += df.x;
+            st2[nt][1] += df.y;
+          } else {
+            *px = d;
+          }
+        }
+      }
+    }
+    if ((TD_ABLATE & 8) && T < 0) {    // never true: keeps the products alive
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+        Xs[nt * NTH + tid] = __float2bfloat16(acc[nt][0] + acc[nt][1] +
+                                              acc[nt][2] + acc[nt][3]);
+    }
+    prev = cur;
+    step(cur);
+  }
+  cp_async_wait<0>();
+  __syncthreads();                   // dx(nq-1) staged
+  if (nq > 0) store_dx(prev);
+
+  if (!AFFINE) return;
+  // block-level sums in a fixed order: lanes sharing a column, then warps
+  float* red1 = reinterpret_cast<float*>(Gs);    // [WM][NB], the ring is free
+  float* red2 = red1 + WM * NB;
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      float v1 = st1[nt][e], v2 = st2[nt][e];
+#pragma unroll
+      for (int off = 4; off < 32; off <<= 1) {
+        v1 += __shfl_xor_sync(0xffffffffu, v1, off);
+        v2 += __shfl_xor_sync(0xffffffffu, v2, off);
+      }
+      if (g == 0) {
+        const int col = wn * NT * 8 + nt * 8 + tg * 2 + e;
+        red1[wm * NB + col] = v1;
+        red2[wm * NB + col] = v2;
+      }
+    }
+  __syncthreads();
+  for (int col = tid; col < NB; col += NTH) {
+    if (n0 + col >= Ci) continue;
+    float v1 = 0.f, v2 = 0.f;
+    for (int m = 0; m < WM; ++m) {
+      v1 += red1[m * NB + col];
+      v2 += red2[m * NB + col];
+    }
+    a.part1[(int64_t)range * Ci + n0 + col] = v1;
+    a.part2[(int64_t)range * Ci + n0 + col] = v2;
+  }
+}
+
+// A block's shared memory; ops/conv_bn.py (_temporal_data_smem) computes
+// the same.
+size_t temporal_data_smem(int S, int NB, int Cop, bool res, int ahead) {
+  const size_t ldg = Cop + 8;
+  const size_t w = res ? (size_t)NB * (3 * Cop + 8) : (size_t)TD_WST * NB * TD_LDC;
+  const size_t rings = (size_t)(2 * ahead + 4) * S * ldg +
+                       (size_t)(ahead + 2) * S * (NB + 8);
+  return 2 * (w + rings) + 8 * (size_t)Cop + 4 * (size_t)NB;
+}
+
+template <int WM, int WN, int NT, bool RES, bool AFFINE, int PER_SM>
+int launch_temporal_data(const TemporalDataArgs& a, cudaStream_t stream) {
+  constexpr int NB = 8 * NT * WN;
+  const size_t smem =
+      temporal_data_smem(16 * WM, NB, a.Cop, RES, RES ? a.ahead : 1);
+  if (smem > (size_t)SF_SMEM_MAX) return (int)cudaErrorInvalidValue;
+  auto kern = temporal_data_kernel<WM, WN, NT, RES, AFFINE, PER_SM>;
+  cudaError_t e = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  const int ranges = (a.units + a.units_per_block - 1) / a.units_per_block;
+  kern<<<ranges * a.n_tiles, 32 * WM * WN, smem, stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
+template <int WM, int WN, int NT, bool RES, int PER_SM = 1>
+int temporal_data_either(int affine, const TemporalDataArgs& a, cudaStream_t s) {
+  return affine ? launch_temporal_data<WM, WN, NT, RES, true, PER_SM>(a, s)
+                : launch_temporal_data<WM, WN, NT, RES, false, PER_SM>(a, s);
+}
+
+// (strip, warps, filter resident) -> the warp layout; every layout's N tile
+// is 144. These are the layouts temporal_data_plan (ops/conv_bn.py) can ask
+// for: whole-Co frame tiles of 64 positions fit beside a resident filter up
+// to Co 96, of 32 up to 144; streamed, 32 positions fit up to Co 336 and 16
+// up to 752.
+int dispatch_temporal_data(int strip, int warps, int resident, int affine,
+                           const TemporalDataArgs& a, cudaStream_t s) {
+  if (strip == 64 && warps == 8 && resident)
+    return temporal_data_either<4, 2, 9, true>(affine, a, s);
+#ifdef TD_TRIALS
+  // layouts tried by filter_sweep.py and not kept
+  if (strip == 32 && warps == 6 && resident && a.ahead == 1)   // two a SM
+    return temporal_data_either<2, 3, 6, true, 2>(affine, a, s);
+  if (strip == 64 && warps == 12 && resident)
+    return temporal_data_either<4, 3, 6, true>(affine, a, s);
+  if (strip == 32 && warps == 4 && resident)
+    return temporal_data_either<2, 2, 9, true>(affine, a, s);
+#endif
+  if (strip == 32 && warps == 6)
+    return resident ? temporal_data_either<2, 3, 6, true>(affine, a, s)
+                    : temporal_data_either<2, 3, 6, false>(affine, a, s);
+  if (strip == 16 && warps == 6 && !resident)
+    return temporal_data_either<1, 6, 3, false>(affine, a, s);
+  return (int)cudaErrorInvalidValue;
+}
+
 }  // namespace
 
 // x [B, T, H, W, Ci] bf16; wk [Co, taps*Ci] bf16 with k = tap*Ci + ci
@@ -1409,11 +1992,20 @@ extern "C" int m3f_conv_unit_fwd(const void* x, const void* wk, const void* inv,
 }
 
 // Data gradient of the unit. gy, y [B, T, H, W, Co] bf16; gs1/gs2 [Co] fp32;
-// wd [Ci, taps*Co] bf16, the flipped transposed filter: wd[ci, tap*Co + co]
-// = W[mirror(tap), ci, co]; with the prologue x [B, T, H, W, Ci] bf16 and
-// inv/shift [Ci] fp32 (else all three null); dx [B, T, H, W, Ci] bf16;
-// dinv/dshift [Ci] fp32 (with the prologue); part: scratch of
-// 2 * ceil(ceil(M/128) / tiles_per_block) * Ci floats (with the prologue).
+// with the prologue x [B, T, H, W, Ci] bf16 and inv/shift [Ci] fp32 (else
+// all three null); dx [B, T, H, W, Ci] bf16; dinv/dshift [Ci] fp32 (with the
+// prologue). Spatial (kind 0): wd [Ci, 9*Co] bf16 is the flipped transposed
+// filter, wd[ci, tap*Co + co] = W[mirror(tap), ci, co]; bn is the output
+// tile's channels, tiles_per_block its row tiles per block, part a scratch
+// of 2 * ceil(ceil(M/128) / tiles_per_block) * Ci floats (with the
+// prologue); strip, warps, resident and ahead are not read. Temporal (kind
+// 1, temporal_data_kernel): wd is the filter itself, [3, Ci, Co] bf16 (the
+// kernel flips the taps as it loads); bn is 144, strip the positions of H*W
+// per unit (64, 32 or 16) with its warps (8, 6, 6), tiles_per_block the
+// units per block, resident whether the block's filter tile stays in shared
+// memory (else it streams), ahead the frames in flight (1 or 2; 1 when
+// streamed), part a scratch of 2 * ceil(units / tiles_per_block) * Ci
+// floats (with the prologue).
 extern "C" int m3f_conv_unit_bwd_data(const void* gy, const void* y,
                                       const void* gs1, const void* gs2,
                                       const void* wd, const void* x,
@@ -1421,11 +2013,49 @@ extern "C" int m3f_conv_unit_bwd_data(const void* gy, const void* y,
                                       void* dx, void* dinv, void* dshift,
                                       void* part, int kind, int B, int T,
                                       int H, int W, int Ci, int Co, int bn,
-                                      int tiles_per_block, void* stream) {
+                                      int tiles_per_block, int strip,
+                                      int warps, int resident, int ahead,
+                                      void* stream) {
   const int affine = inv != nullptr;
   if (affine && (x == nullptr || shift == nullptr || dinv == nullptr ||
                  dshift == nullptr || part == nullptr))
     return (int)cudaErrorInvalidValue;
+  const int64_t M = (int64_t)B * T * H * W;
+  if (kind == 1) {
+    if (M == 0 || Ci == 0) return 0;
+    if (Ci % 8 != 0 || Co % 8 != 0 || Co == 0 || bn != 144 ||
+        tiles_per_block < 1 || ahead < 1 || ahead > 2 || (!resident && ahead != 1))
+      return (int)cudaErrorInvalidValue;
+    cudaStream_t s = (cudaStream_t)stream;
+    TemporalDataArgs t{};
+    t.gy = (const bf16*)gy;
+    t.y = (const bf16*)y;
+    t.gs1 = (const float*)gs1;
+    t.gs2 = (const float*)gs2;
+    t.w = (const bf16*)wd;
+    t.x = (const bf16*)x;
+    t.inv = (const float*)inv;
+    t.shift = (const float*)shift;
+    t.dx = (bf16*)dx;
+    t.T = T;
+    t.HW = H * W;
+    t.Ci = Ci;
+    t.Co = Co;
+    t.Cop = (Co + 15) / 16 * 16;
+    t.strips = (t.HW + strip - 1) / strip;
+    t.units = B * t.strips;
+    t.units_per_block = tiles_per_block;
+    t.n_tiles = (Ci + bn - 1) / bn;
+    t.ahead = ahead;
+    const int ranges = (t.units + tiles_per_block - 1) / tiles_per_block;
+    t.part1 = (float*)part;
+    t.part2 = affine ? t.part1 + (int64_t)ranges * Ci : nullptr;
+    const int e = dispatch_temporal_data(strip, warps, resident, affine, t, s);
+    if (e != 0 || !affine) return e;
+    colsum_kernel<<<(Ci + 31) / 32, dim3(32, 32), 0, s>>>(
+        t.part1, t.part2, ranges, Ci, (float*)dinv, (float*)dshift);
+    return (int)cudaGetLastError();
+  }
   UnitArgs a{};
   a.a = (const bf16*)gy;
   a.a2 = (const bf16*)y;
@@ -1436,7 +2066,7 @@ extern "C" int m3f_conv_unit_bwd_data(const void* gy, const void* y,
   a.na = (const float*)inv;
   a.nb = (const float*)shift;
   a.out = (bf16*)dx;
-  a.M = (int64_t)B * T * H * W;
+  a.M = M;
   a.Kc = Co;
   a.N = Ci;
   a.T = T;

@@ -14,6 +14,7 @@ deep in the model. Streaming sessions and the HTTP server come later.
 
 from __future__ import annotations
 
+import contextlib
 from typing import Dict, Iterable, Iterator, Optional, Tuple
 
 import numpy as np
@@ -81,27 +82,47 @@ class Predictor:
     def model(self):
         return self.trainer.model
 
-    def _load(self, checkpoint: str) -> int:
-        """Load ``checkpoint`` into the model; every key and shape is checked
-        first, so a mismatching file leaves the old weights serving."""
+    def _prepare(self, checkpoint: str):
+        """Read ``checkpoint``, check every key and shape against the model
+        and upload the tensors to its device, WITHOUT touching the model:
+        the expensive part of a reload, safe while the old weights serve.
+        Returns (state dict on the device, step)."""
         sd, step = load_model_checkpoint(checkpoint)
-        have = {k: tuple(v.shape) for k, v in self.model.state_dict().items()}
+        have = self.model.state_dict()
+        want = {k: tuple(v.shape) for k, v in have.items()}
         got = {k: tuple(v.shape) for k, v in sd.items()}
-        if have != got:
-            missing = sorted(have.keys() - got.keys())[:5]
-            extra = sorted(got.keys() - have.keys())[:5]
-            shape = sorted(k for k in have.keys() & got.keys()
-                           if have[k] != got[k])[:5]
+        if want != got:
+            missing = sorted(want.keys() - got.keys())[:5]
+            extra = sorted(got.keys() - want.keys())[:5]
+            shape = sorted(k for k in want.keys() & got.keys()
+                           if want[k] != got[k])[:5]
             raise ValueError(f"checkpoint {checkpoint} does not fit the model: "
                              f"missing={missing} extra={extra} shape={shape}")
+        return {k: v.to(device=have[k].device, dtype=have[k].dtype)
+                for k, v in sd.items()}, step
+
+    def _load(self, checkpoint: str) -> int:
+        """Load ``checkpoint`` into the model; a mismatching file raises
+        before anything is swapped, so the old weights keep serving."""
+        sd, step = self._prepare(checkpoint)
         self.model.load_state_dict(sd)
         self.checkpoint_path = checkpoint
         return step
 
-    def reload(self, checkpoint: str) -> dict:
-        """Swap in the weights of ``checkpoint`` (same architecture)."""
-        step = self._load(checkpoint)
-        self.reload_count += 1
+    def reload(self, checkpoint: str, lock=None) -> dict:
+        """Swap in the weights of ``checkpoint`` (same architecture).
+
+        The read, the checks and the upload run first, with serving
+        untouched; only the swap into the module (a copy on the device)
+        takes ``lock`` (any context manager; a server passes the lock its
+        forwards hold, and must not hold it itself around this call). On a
+        missing file or a mismatch the old weights keep serving. Returns
+        {"checkpoint", "step", "reloads"} for the operator."""
+        sd, step = self._prepare(checkpoint)
+        with lock if lock is not None else contextlib.nullcontext():
+            self.model.load_state_dict(sd)
+            self.checkpoint_path = checkpoint
+            self.reload_count += 1
         return {"checkpoint": checkpoint, "step": step,
                 "reloads": self.reload_count}
 

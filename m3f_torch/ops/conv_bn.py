@@ -211,17 +211,97 @@ def _check_unit(name, x, ci, co, kind, *tensors):
 
 
 def _rows_per_block(m: int, n: int, bn: int, dev: torch.device) -> int:
-    """Row tiles per block of the forward / data-gradient kernel: enough
+    """Row tiles per block of the forward / spatial data-gradient kernel: enough
     blocks for ~4 waves of the card, at most _TILES_PER_BLOCK_MAX."""
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     tiles_m = -(-m // _BM)
     return max(1, min(_TILES_PER_BLOCK_MAX, tiles_m * (-(-n // bn)) // (4 * sms)))
 
 
+_SMEM_BLOCK_MAX = 227 << 10             # a block's shared memory on sm_90
+
+# The temporal data gradient's frame walk (temporal_data_kernel in
+# conv_bn.cu): a block of `warps` warps takes `strip` positions x _TD_N_TILE
+# input channels per frame
+_TD_N_TILE = 144           # input channels per block (every layout's NB)
+_TD_LAYOUTS = {64: 8, 32: 6, 16: 6}      # strip -> warps
+_TD_K_CHUNK = 64           # output channels per streamed filter chunk (TD_KC)
+_TD_W_STAGES = 3           # slots of the streamed filter's ring (TD_WST)
+# (strip, filter resident), preferred first: the widest strip that keeps the
+# filter in shared memory (C_out up to 96, then 144), then the widest that
+# streams it (up to 336, then 752)
+_TD_CHOICES = ((64, True), (32, True), (32, False), (16, False))
+
+
+def _temporal_data_smem(strip: int, co: int, resident: bool, ahead: int) -> int:
+    """A block's shared memory (temporal_data_smem in conv_bn.cu): the filter
+    tile or its ring, the gy, y and x rings, gs1 / gs2 / inv / shift."""
+    cop = _cdiv(co, 16) * 16
+    nb = _TD_N_TILE
+    filt = nb * (3 * cop + 8) if resident \
+        else _TD_W_STAGES * nb * (_TD_K_CHUNK + 8)
+    rings = (2 * ahead + 4) * strip * (cop + 8) + (ahead + 2) * strip * (nb + 8)
+    return 2 * (filt + rings) + 8 * cop + 4 * nb
+
+
+class TemporalDataPlan(NamedTuple):
+    """How the temporal data-gradient kernel cuts its work: units of one clip
+    x one strip of ``strip`` positions, walked over T by ``warps`` warps;
+    ``n_tiles`` tiles of ``n_tile`` input channels (ge is formed once per
+    tile: ``n_tiles`` times per element); the block's filter tile
+    ``resident`` in shared memory or streamed from the L2; ``ahead`` frames
+    in flight; ``blocks`` = ``ranges`` contiguous ranges of
+    ``units_per_block`` units x ``n_tiles``, one block a multiprocessor,
+    each range one partial row of dinv / dshift (``part_rows``);
+    ``smem_bytes`` of shared memory a block."""
+    strip: int
+    n_tile: int
+    warps: int
+    resident: bool
+    ahead: int
+    units: int
+    units_per_block: int
+    ranges: int
+    n_tiles: int
+    blocks: int
+    part_rows: int
+    smem_bytes: int
+
+    def units_of(self, r: int) -> range:
+        """The units of range ``r`` (unit u is clip u // strips, strip
+        u % strips), as the kernel takes them."""
+        return range(r * self.units_per_block,
+                     min(self.units, (r + 1) * self.units_per_block))
+
+
+def temporal_data_plan(b: int, t: int, h: int, w: int, ci: int, co: int,
+                       sms: int) -> TemporalDataPlan:
+    """The temporal data gradient's tiling on a card of ``sms``
+    multiprocessors: the first of _TD_CHOICES whose rings (two frames ahead,
+    else one) fit a block's shared memory, then ``sms // n_tiles`` ranges of
+    units, at most one per unit."""
+    n_tiles = _cdiv(ci, _TD_N_TILE)
+    for strip, resident in _TD_CHOICES:
+        for ahead in ((2, 1) if resident else (1,)):
+            smem = _temporal_data_smem(strip, co, resident, ahead)
+            if smem > _SMEM_BLOCK_MAX:
+                continue
+            units = b * _cdiv(h * w, strip)
+            per = _cdiv(units, max(1, min(units, sms // n_tiles)))
+            ranges = _cdiv(units, per)
+            return TemporalDataPlan(strip, _TD_N_TILE, _TD_LAYOUTS[strip],
+                                    resident, ahead, units, per, ranges,
+                                    n_tiles, ranges * n_tiles, ranges, smem)
+    raise ValueError(
+        f"conv_unit_bwd_data temporal kernel: frame tiles of {co} output "
+        f"channels do not fit a block's shared memory ({smem} B)")
+
+
 def conv_unit_bwd_data(x, w, inv, shift, y, gy, gs1, gs2, *, kind: str):
     """Data gradient of the unit → (dx, dinv, dshift): the plain version on
     the CPU, one kernel launch (plus a fixed-order sum of its per-block
-    dinv/dshift rows) on the card."""
+    dinv/dshift rows) on the card: the forward's kernel with the flipped
+    filter (spatial) or the frame walk (temporal)."""
     if x.device.type == "cpu":
         return conv_unit_bwd_data_reference(x, w, inv, shift, y, gy, gs1, gs2,
                                             kind=kind)
@@ -236,20 +316,26 @@ def conv_unit_bwd_data(x, w, inv, shift, y, gy, gs1, gs2, *, kind: str):
         raise ValueError(f"conv_unit_bwd_data: w {tuple(w.shape)} (want "
                          f"{want_w}), y {tuple(y.shape)} {y.dtype}, gy "
                          f"{tuple(gy.shape)} {gy.dtype}")
-    taps = 9 if kind == "spatial" else 3
-    # [Ci, taps·Co] with flipped taps: wf[ci, tap·Co + co] = W[mirror(tap), ci, co]
-    flip = (0, 1) if kind == "spatial" else (0,)
-    wf = w.to(torch.bfloat16).flip(flip).movedim(-2, 0).reshape(ci, taps * co) \
-        .contiguous()
     x, y, gy = x.contiguous(), y.contiguous(), gy.contiguous()
     gs1, gs2 = gs1.float().contiguous(), gs2.float().contiguous()
     affine = inv is not None
     if affine:
         inv, shift = inv.float().contiguous(), shift.float().contiguous()
-    m = b * t * h * wdt
-    bn = _tile_n(ci)
-    tpb = _rows_per_block(m, ci, bn, x.device)
-    rows = _cdiv(_cdiv(m, _BM), tpb)
+    wf = w.to(torch.bfloat16).contiguous()
+    if kind == "spatial":
+        # [Ci, 9·Co] with flipped taps: wf[ci, tap·Co + co] = W[mirror(tap), ci, co]
+        wf = wf.flip((0, 1)).movedim(-2, 0).reshape(ci, 9 * co).contiguous()
+        m = b * t * h * wdt
+        bn = _tile_n(ci)
+        per = _rows_per_block(m, ci, bn, x.device)
+        rows = _cdiv(_cdiv(m, _BM), per)
+        tiling = (0, 0, 0, 0)
+    else:
+        # the temporal kernel reads the filter as it is and flips the taps
+        sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+        plan = temporal_data_plan(b, t, h, wdt, ci, co, sms)
+        bn, per, rows = plan.n_tile, plan.units_per_block, plan.part_rows
+        tiling = (plan.strip, plan.warps, int(plan.resident), plan.ahead)
     dx = torch.empty_like(x)
     dinv = dshift = part = None
     if affine:
@@ -262,8 +348,8 @@ def conv_unit_bwd_data(x, w, inv, shift, y, gy, gs1, gs2, *, kind: str):
             gy.data_ptr(), y.data_ptr(), gs1.data_ptr(), gs2.data_ptr(),
             wf.data_ptr(), x.data_ptr() if affine else None, ptr(inv),
             ptr(shift), dx.data_ptr(), ptr(dinv), ptr(dshift), ptr(part),
-            0 if kind == "spatial" else 1, b, t, h, wdt, ci, co, bn, tpb,
-            cuda_lib.stream_ptr(x))
+            0 if kind == "spatial" else 1, b, t, h, wdt, ci, co, bn, per,
+            *tiling, cuda_lib.stream_ptr(x))
     cuda_lib.check(err, f"conv_unit_bwd_data {kind} kernel")
     cuda_lib.launches[f"conv_{kind}_bwd_data"] += 1
     return dx, dinv, dshift
@@ -327,7 +413,6 @@ def temporal_filter_plan(b: int, t: int, h: int, w: int, ci: int, co: int,
 _SPATIAL_TILES = ((64, 48), (32, 48))   # (channel block, output-channel tile)
 _SPATIAL_STEPS = (112, 64, 48, 32, 16)  # output pixels per step, preferred first
 _SPATIAL_AHEAD = 3         # steps copied ahead of the products (SF_AHEAD)
-_SMEM_BLOCK_MAX = 227 << 10             # a block's shared memory on sm_90
 
 
 def spatial_ring_rows(h: int, w: int, step: int) -> int:

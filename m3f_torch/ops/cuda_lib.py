@@ -54,7 +54,8 @@ SIGNATURES = {
     "conv_bn": {"m3f_conv_unit_fwd": [P, P, P, P, P, P, P, P, I, I, I, I, I,
                                       I, I, I, I, P],
                 "m3f_conv_unit_bwd_data": [P, P, P, P, P, P, P, P, P, P, P, P,
-                                           I, I, I, I, I, I, I, I, I, P],
+                                           I, I, I, I, I, I, I, I, I, I, I,
+                                           I, I, P],
                 "m3f_conv_unit_bwd_filter": [P, P, P, P, P, P, P, P, P, I, I,
                                              I, I, I, I, I, I, I, I, I, P]},
     "packed_conv": {"m3f_packed_conv": [P, P, P, I, I, I, I, I, I, I, I, P]},

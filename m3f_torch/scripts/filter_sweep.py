@@ -1,8 +1,11 @@
-"""Where the filter-gradient kernels' time goes, on the card.
+"""Where the walk kernels' time goes, on the card: both filter gradients
+and the temporal data gradient.
 
 Times ``conv_unit_bwd_filter`` (``--kind spatial``, the row walk, or
-``--kind temporal``, the frame walk) at the four units of that kind in the
-full-width ``fusion`` train step (32 clips, BN prologue on), beside:
+``--kind temporal``, the frame walk) or ``conv_unit_bwd_data`` of the
+temporal unit (``--kind temporal_data``, its frame walk) at the four units
+of that kind in the full-width ``fusion`` train step (32 clips, BN prologue
+on), beside:
 
 - the same kernel at each tiling it can take: the temporal kernel's channel
   blocks (48, 64); the spatial kernel's channel tiles (64 x 48, 32 x 48)
@@ -17,18 +20,30 @@ full-width ``fusion`` train step (32 clips, BN prologue on), beside:
   is wrong, they are timed only;
 - cuDNN's weight gradient (``torch.nn.grad.conv3d_weight``) on x̂ and ge
   already formed, and a device copy of x (the card's memory rate on this
-  tensor).
+  tensor);
+- for ``temporal_data``: the planner's tiling, one and two frames ahead,
+  half and a quarter of the units per block, twice the blocks, and (built
+  with ``-DTD_TRIALS``) the layouts not kept: 12 warps on 64 positions, and
+  two blocks a multiprocessor of 32 positions with 4 warps or with 6 capped
+  at 168 registers; ablations built with ``-DTD_ABLATE``: without forming
+  ge (1), without the products (2), without the copies of gy, y and x (4),
+  without the epilogue (8: mask, scale, sums, dx stores), and with only the
+  rings streaming (11); cuDNN's data gradient
+  (``torch.nn.grad.conv3d_input``) on ge already formed, and a device copy
+  of the same bytes (gy, y and x in, dx out).
 
 Run on a machine with an NVIDIA GPU, from the repository root:
 
     python -m m3f_torch.scripts.filter_sweep --kind spatial [--reps 20]
     python -m m3f_torch.scripts.filter_sweep --kind spatial --check
+    python -m m3f_torch.scripts.filter_sweep --kind temporal_data --check
 
 It prints the ``nvidia-smi`` card line, then one JSON line per shape with
 the median ms of ``--reps`` calls between CUDA events. ``--check`` instead
 prints what ``ptxas`` says of the kernel (registers, spills, shared memory)
 and holds the kernel once against the plain version at each shape and at a
-few small ones. Nothing runs at import.
+few small ones (``temporal_data``: at every layout the entry point takes).
+Nothing runs at import.
 """
 
 from __future__ import annotations
@@ -66,9 +81,11 @@ HBM = 3.35e12            # H100 SXM memory rate, B/s
 PEAK_BF16 = 989e12       # H100 SXM dense bf16 tensor rate, FLOP/s
 
 
-def build_variants(defines: Dict[str, str]) -> Dict[str, Callable]:
-    """``m3f_conv_unit_bwd_filter`` of conv_bn.cu built with each ``-D``
-    (one nvcc per build, all at once, under build/kernels/ablate/)."""
+def build_variants(defines: Dict[str, str],
+                   entry: str = "m3f_conv_unit_bwd_filter"
+                   ) -> Dict[str, Callable]:
+    """``entry`` of conv_bn.cu built with each ``-D`` (one nvcc per build,
+    all at once, under build/kernels/ablate/)."""
     out = cuda_lib.BUILD_DIR / "ablate"
     out.mkdir(parents=True, exist_ok=True)
     src = str(cuda_lib.CSRC / "conv_bn.cu")
@@ -82,27 +99,29 @@ def build_variants(defines: Dict[str, str]) -> Dict[str, Callable]:
         log, _ = proc.communicate()
         if proc.returncode:
             raise RuntimeError(f"nvcc failed for {name}:\n{log.decode()}")
-        fn = ctypes.CDLL(str(out / f"libconv_bn_{name}.so")
-                         ).m3f_conv_unit_bwd_filter
-        fn.argtypes = cuda_lib.SIGNATURES["conv_bn"]["m3f_conv_unit_bwd_filter"]
+        fn = getattr(ctypes.CDLL(str(out / f"libconv_bn_{name}.so")), entry)
+        fn.argtypes = cuda_lib.SIGNATURES["conv_bn"][entry]
         fn.restype = ctypes.c_int
         fns[name] = fn
     return fns
 
 
 def resources(kind: str) -> None:
-    """Print what ptxas says of the kind's filter-gradient kernel."""
+    """Print what ptxas says of the kind's kernel
+    (``<kind>_filter_kernel`` or ``temporal_data_kernel``)."""
+    kernel = f"{kind}_kernel" if kind == "temporal_data" else f"{kind}_filter_kernel"
     log = subprocess.run(
         [cuda_lib._nvcc(), *cuda_lib.NVCC_FLAGS, "-Xptxas", "-v", "-o",
-         "/dev/null", str(cuda_lib.CSRC / "conv_bn.cu")],
+         "/dev/null", *(["-DTD_TRIALS"] if kind == "temporal_data" else []),
+         str(cuda_lib.CSRC / "conv_bn.cu")],
         capture_output=True, text=True)
     if log.returncode:
         raise RuntimeError(f"nvcc failed:\n{log.stdout}{log.stderr}")
     lines = log.stderr.splitlines()
     for i, line in enumerate(lines):
-        if "Compiling entry function" in line and f"{kind}_filter_kernel" in line:
+        if "Compiling entry function" in line and kernel in line:
             name = line.split("'")[1]
-            print(json.dumps({"kernel": name[name.index(kind) - 2:][:60],
+            print(json.dumps({"kernel": name[name.index(kernel) - 2:][:72],
                               "ptxas": [l.strip() for l in lines[i + 1:i + 4]]}),
                   flush=True)
 
@@ -247,9 +266,168 @@ def sweep(kind: str, reps: int) -> None:
         torch.cuda.empty_cache()
 
 
+# --- the temporal data gradient -------------------------------------------
+
+TD_ABLATIONS = {"no_forming": 1, "no_products": 2, "no_copies": 4,
+                "no_epilogue": 8, "streaming_only": 11}
+# (strip, warps, resident, ahead) of every layout the entry point takes
+# (12 warps, and 4 warps on 32 positions, only in a -DTD_TRIALS build, where
+# (32, 6, 1, 1) is the build capped at two blocks' registers)
+TD_LAYOUTS = ((64, 8, 1, 2), (64, 8, 1, 1), (64, 12, 1, 2), (32, 6, 1, 2),
+              (32, 6, 1, 1), (32, 4, 1, 1), (32, 6, 0, 1), (16, 6, 0, 1))
+# small shapes (x shape, C_out): a partial strip and masked channels; T = 1
+# with C_in over one N tile; C_out wide enough that the planner streams the
+# filter with 32 and with 16 positions
+TD_SMALL = (((2, 3, 10, 10, 152), 40), ((3, 1, 6, 5, 160), 24),
+            ((2, 4, 5, 5, 40), 160), ((2, 2, 3, 3, 24), 344))
+
+
+def data_inputs(xs, co, dev, g):
+    x, inv, shift, y, gy, gs1, gs2 = inputs(xs, co, dev, g)
+    ci = xs[-1]
+    w = ((torch.rand(3, ci, co, device=dev, generator=g) * 2 - 1)
+         / (3 * ci) ** 0.5).to(torch.bfloat16)
+    return x, w, inv, shift, y, gy, gs1, gs2
+
+
+def launch_data(fn, x, w, inv, shift, y, gy, gs1, gs2, layout=None,
+                per_block: Optional[int] = None):
+    """One call of a build's ``m3f_conv_unit_bwd_data`` for the temporal
+    unit with the planner's tiling, or with ``layout`` = (strip, warps,
+    resident, ahead) / ``per_block`` units a block in its place (what
+    ``conv_unit_bwd_data`` does, minus its checks). None when the entry
+    point refuses the layout (its rings do not fit shared memory, or the
+    build lacks it)."""
+    b, t, h, wd, ci = x.shape
+    co = gy.shape[-1]
+    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+    plan = conv_bn.temporal_data_plan(b, t, h, wd, ci, co, sms)
+    strip, warps, resident, ahead = layout or (
+        plan.strip, plan.warps, int(plan.resident), plan.ahead)
+    units = b * -(-h * wd // strip)
+    per = per_block or (plan.units_per_block if not layout else -(
+        -units // max(1, min(units, sms // plan.n_tiles))))
+    rows = -(-units // per)
+    dx = torch.empty_like(x)
+    dinv = torch.empty(ci, dtype=torch.float32, device=x.device)
+    dshift = torch.empty_like(dinv)
+    part = torch.empty(2 * rows * ci, dtype=torch.float32, device=x.device)
+    err = fn(gy.data_ptr(), y.data_ptr(), gs1.data_ptr(), gs2.data_ptr(),
+             w.data_ptr(), x.data_ptr(), inv.data_ptr(), shift.data_ptr(),
+             dx.data_ptr(), dinv.data_ptr(), dshift.data_ptr(),
+             part.data_ptr(), 1, b, t, h, wd, ci, co, plan.n_tile, per, strip,
+             warps, resident, ahead, cuda_lib.stream_ptr(x))
+    if err == 1 and layout:
+        return None                      # cudaErrorInvalidValue: no such layout
+    cuda_lib.check(err, "temporal data sweep")
+    return dx, dinv, dshift
+
+
+def _data_errors(got, ref) -> Dict[str, float]:
+    """max |dx - ref| over max |ref|, and the same of dinv and dshift."""
+    return {k: ((a.float() - r.float()).abs().max()
+                / r.float().abs().max().clamp_min(1e-30)).item()
+            for k, a, r in zip(("dx", "dinv", "dshift"), got, ref)}
+
+
+def check_data() -> None:
+    """ptxas' resource lines, then the temporal data gradient against the
+    plain version: the wrapper once at each small and each train shape (and
+    whether a second call repeats dx, dinv and dshift bit for bit), and at
+    the small shapes every layout the entry point takes."""
+    dev = resolve_device("cuda")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False      # the plain version in fp32
+    resources("temporal_data")
+    cuda_lib.build(["conv_bn"])
+    trials = build_variants({"trials": "TD_TRIALS"}, "m3f_conv_unit_bwd_data")
+    g = torch.Generator(device=dev).manual_seed(12)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for xs, co in TD_SMALL + SHAPES["temporal"]:
+        args = data_inputs(xs, co, dev, g)
+        got = conv_bn.conv_unit_bwd_data(*args, kind="temporal")
+        again = conv_bn.conv_unit_bwd_data(*args, kind="temporal")
+        torch.cuda.synchronize()
+        ref = conv_bn.conv_unit_bwd_data_reference(*args, kind="temporal")
+        plan = conv_bn.temporal_data_plan(*xs, co, sms)
+        row = {"x": list(xs), "co": co,
+               "plan": [plan.strip, plan.warps, plan.resident, plan.ahead],
+               "max_err_over_max_ref": _data_errors(got, ref),
+               "repeats": all(torch.equal(a, b) for a, b in zip(got, again))}
+        if (xs, co) in TD_SMALL:
+            for layout in TD_LAYOUTS:
+                out = launch_data(trials["trials"], *args, layout=layout)
+                torch.cuda.synchronize()
+                row["layout_" + "_".join(map(str, layout))] = \
+                    None if out is None else _data_errors(out, ref)
+        print(json.dumps(row), flush=True)
+        del args, got, again, ref
+        torch.cuda.empty_cache()
+
+
+def sweep_data(reps: int) -> None:
+    dev = resolve_device("cuda")
+    cuda_lib.build(["conv_bn"])
+    main = cuda_lib.library("conv_bn").m3f_conv_unit_bwd_data
+    defines = {name: f"TD_ABLATE={k}" for name, k in TD_ABLATIONS.items()}
+    defines["trials"] = "TD_TRIALS"
+    built = build_variants(defines, "m3f_conv_unit_bwd_data")
+    trials = built.pop("trials")
+    g = torch.Generator(device=dev).manual_seed(12)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for xs, co in SHAPES["temporal"]:
+        ci = xs[-1]
+        args = data_inputs(xs, co, dev, g)
+        x, w, inv, shift, y, gy, gs1, gs2 = args
+        plan = conv_bn.temporal_data_plan(*xs, co, sms)
+        row = {"kind": "temporal_data", "x": list(xs), "co": co,
+               "plan": plan._asdict(),
+               "ms": timed(lambda: conv_bn.conv_unit_bwd_data(
+                   *args, kind="temporal"), reps)}
+
+        def variant(key, fn, **tiling):
+            if launch_data(fn, *args, **tiling) is not None:
+                row[key] = timed(lambda: launch_data(fn, *args, **tiling), reps)
+        variant("entry_ms", main)
+        for layout in TD_LAYOUTS:
+            key = "layout_" + "_".join(map(str, layout))
+            variant(key + "_ms", trials, layout=layout)
+            # twice the blocks: two a multiprocessor where they fit
+            units = xs[0] * -(-xs[2] * xs[3] // layout[0])
+            variant(key + "_two_blocks_ms", trials, layout=layout,
+                    per_block=-(-units // max(1, 2 * sms // plan.n_tiles)))
+        for div in (2, 4):
+            variant(f"units_per_block_over_{div}_ms", main,
+                    per_block=max(1, plan.units_per_block // div))
+        for name, fn in built.items():
+            variant(f"{name}_ms", fn)
+        kern, pad = conv_bn._torch_kernel(w, "temporal")
+        kern = kern.contiguous(memory_format=torch.channels_last_3d)
+        gn = conv_bn._gy_eff(gy, y, gs1, gs2).permute(0, 4, 1, 2, 3)
+        xshape = (xs[0], ci) + tuple(xs[1:4])
+        row["cudnn_ms"] = timed(lambda: torch.nn.grad.conv3d_input(
+            xshape, kern, gn, padding=pad), reps)
+        bx, bg = torch.empty_like(x), torch.empty_like(gy)
+        row["copy_same_bytes_ms"] = timed(
+            lambda: (bx.copy_(x), bg.copy_(gy)), reps)
+        m = x.numel() // ci
+        flops = 2 * m * 3 * ci * co
+        nbytes = 2 * m * co * 2 + 2 * m * ci * 2 + 3 * ci * co * 2 \
+            + 2 * co * 4 + 4 * ci * 4
+        row["bound_ms"] = max(nbytes / HBM, flops / PEAK_BF16) * 1e3
+        row["bound_by"] = "bytes" if nbytes / HBM >= flops / PEAK_BF16 \
+            else "operations"
+        row["tflops"] = flops / row["ms"] / 1e9
+        row["TBps"] = nbytes / row["ms"] / 1e9
+        print(json.dumps(row), flush=True)
+        del x, y, gy, gn, bx, bg, args
+        torch.cuda.empty_cache()
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--kind", choices=("spatial", "temporal"), default="spatial")
+    ap.add_argument("--kind", choices=("spatial", "temporal", "temporal_data"),
+                    default="spatial")
     ap.add_argument("--reps", type=int, default=20)
     ap.add_argument("--check", action="store_true",
                     help="ptxas' resource lines and one comparison per shape")
@@ -257,7 +435,9 @@ def main(argv=None) -> None:
     print(subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip(), flush=True)
-    if opts.check:
+    if opts.kind == "temporal_data":
+        check_data() if opts.check else sweep_data(opts.reps)
+    elif opts.check:
         check(opts.kind)
     else:
         sweep(opts.kind, opts.reps)

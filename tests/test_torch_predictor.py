@@ -141,3 +141,82 @@ def test_input_checks():
         p.predict_video(frames=frames, waveform=wav[None])
     with pytest.raises(ValueError, match="audio"):
         p.predict_video(frames=frames)
+
+
+class _CountingLock:
+    """A context manager that counts its entries and notes what ran inside."""
+
+    def __init__(self):
+        self.entered = 0
+        self.held = False
+
+    def __enter__(self):
+        self.entered += 1
+        self.held = True
+
+    def __exit__(self, *exc):
+        self.held = False
+
+
+def test_reload_takes_lock_only_for_the_swap(tmp_path, monkeypatch):
+    """``reload(checkpoint, lock)``: the lock is entered exactly once, around
+    the swap and not during the read; a failed reload (missing file,
+    mismatching architecture) never takes it and leaves the predictions
+    unchanged; the returned dict equals the JAX package's for the same
+    checkpoint."""
+    import m3f_torch.infer.predictor as mod
+    cfg = tiny(jc)
+    state = jax.device_get(JTrainer(cfg).init_state())
+    first = Checkpointer(str(tmp_path / "a"), keep=1, cfg=cfg).save(state)
+    moved = state._replace(
+        params=jax.tree_util.tree_map(lambda v: v * 1.5, state.params),
+        step=np.asarray(7, np.int32))
+    second = Checkpointer(str(tmp_path / "b"), keep=1, cfg=cfg).save(moved)
+    port = Predictor(cfg=tiny(tc), checkpoint=first, device="cpu")
+    frames, wav = _video(24, 30.0, seed=3)
+    before = port.predict_video(frames=frames, waveform=wav)["pred"]
+
+    lock = _CountingLock()
+    held_during_load = []
+    real_load = mod.load_model_checkpoint
+
+    def watched_load(path):
+        held_during_load.append(lock.held)
+        return real_load(path)
+    monkeypatch.setattr(mod, "load_model_checkpoint", watched_load)
+    held_during_swap = []
+    real_swap = port.model.load_state_dict
+
+    def watched_swap(sd, *a, **k):
+        held_during_swap.append(lock.held)
+        return real_swap(sd, *a, **k)
+    monkeypatch.setattr(port.model, "load_state_dict", watched_swap)
+
+    # failures first: the lock is never taken, the old weights keep serving
+    with pytest.raises(FileNotFoundError):
+        port.reload(str(tmp_path / "missing.npz"), lock=lock)
+    wide = dataclasses.replace(cfg, model=dataclasses.replace(
+        cfg.model, gru=jc.GRUConfig(hidden_size=16)))
+    wstate = jax.device_get(JTrainer(wide).init_state())
+    save_pytree({"params": wstate.params, "state": wstate.bn_state},
+                str(tmp_path / "wide.npz"))
+    with pytest.raises(ValueError, match="does not fit"):
+        port.reload(str(tmp_path / "wide.npz"), lock=lock)
+    assert lock.entered == 0 and held_during_swap == []
+    assert port.reload_count == 0 and port.checkpoint_path == first
+    np.testing.assert_array_equal(
+        port.predict_video(frames=frames, waveform=wav)["pred"], before)
+
+    held_during_load.clear()
+    info = port.reload(second, lock=lock)
+    assert lock.entered == 1 and not lock.held
+    assert held_during_load == [False] and held_during_swap == [True]
+    jinfo = JPredictor(cfg=cfg, checkpoint=first).reload(second)
+    assert info == jinfo == {"checkpoint": second, "step": 7, "reloads": 1}
+    assert port.checkpoint_path == second
+    after = port.predict_video(frames=frames, waveform=wav)["pred"]
+    assert np.abs(after - before).max() > 1e-4
+    # without a lock, as before
+    assert port.reload(first)["reloads"] == 2
+    np.testing.assert_array_equal(
+        port.predict_video(frames=frames, waveform=wav)["pred"], before)

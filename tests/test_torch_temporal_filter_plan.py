@@ -16,7 +16,8 @@ TRAIN = [(32, 16, 56, 56, 144, 64), (32, 8, 28, 28, 288, 128),
          (32, 4, 14, 14, 576, 256), (32, 2, 7, 7, 1152, 512)]
 EDGE = [(2, 7, 5, 3, 40, 24), (3, 1, 6, 5, 24, 16), (2, 2, 9, 9, 48, 40),
         (4, 3, 5, 7, 64, 24), (2, 4, 6, 6, 40, 24), (2, 3, 10, 10, 152, 40),
-        (1, 2, 4, 5, 16, 8)]
+        (1, 2, 4, 5, 16, 8), (1, 3, 9, 8, 8, 96), (3, 1, 6, 5, 160, 104),
+        (2, 3, 7, 5, 296, 144), (2, 4, 5, 5, 40, 160), (2, 2, 3, 3, 24, 344)]
 
 
 @pytest.mark.parametrize("shape", TRAIN + EDGE,
