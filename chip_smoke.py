@@ -19,11 +19,12 @@ H100 (``python3 chip_smoke.py``). It
    shapes: dx per element (one bf16 ulp, carried through inv), dw per
    element (1e-5 of sum |x^|*|ge|), dinv / dshift per channel; each check
    is shown to refuse a zeroed dinv, a dw one channel off, a dw with taps
-   0 and 2 swapped (along dt or dh, and along dw), a dx with a row tile
-   (temporal: the frame walk's last unit) left out, a temporal dx from the
-   filter with taps 0 and 2 swapped and a dw without its last slice's
-   partial; every gradient must repeat its dx, dinv, dshift and dw bit for
-   bit; they are timed beside their plain versions
+   0 and 2 swapped (along dt or dh, and along dw), a dx with the walk's
+   last step (spatial: the row walk's last step of pixels; temporal: the
+   frame walk's last unit) left out, a dx from the filter with taps 0 and
+   2 swapped (along dt; spatial: along h, and along w) and a dw without its
+   last slice's partial; every gradient must repeat its dx, dinv, dshift
+   and dw bit for bit; they are timed beside their plain versions
    and cuDNN's backward (``torch.nn.grad.conv3d_input`` / ``conv3d_weight``)
    and checked again at shapes off the tiling (short clips, partial
    strips, masked channels, images of one row, one column or one pixel,
@@ -448,12 +449,13 @@ def check_bwd_unit(torch, conv_bn, what, x, w, inv, shift, gy, gs1, gs2,
     per element (dx, dw) and per channel (dinv, dshift); then shows that the
     same checks refuse a zeroed dinv, a dw one output channel off, a dw with
     taps 0 and 2 swapped (along dt or dh and, for the spatial kind, along dw;
-    where the reference's differ), a dx whose last row tile (the partial one
-    where there is one; for the temporal kind the frame walk's last unit) is
-    left out, for the temporal kind a dx from the filter with taps 0 and 2
-    swapped along dt, and a dw without its last slice's partial; both
-    gradients must give the same bits (dx, dinv, dshift, dw) on a second
-    call.
+    where the reference's differ), a dx whose walk's last step is left out
+    (the spatial row walk's last step of pixels, the temporal frame walk's
+    last unit), a dx from the filter with taps 0 and 2 swapped (along dt;
+    for the spatial kind along h, and along w; each where it differs from
+    the reference by more than the limit), and a dw without its last
+    slice's partial; both gradients must give the same bits (dx, dinv,
+    dshift, dw) on a second call.
     Returns the kernel's outputs, the reference and the worst error of each."""
     y, _, _ = conv_bn.conv_unit_fwd(x, w, inv, shift, kind=kind)
     dx, dinv, dshift = conv_bn.conv_unit_bwd_data(
@@ -495,24 +497,29 @@ def check_bwd_unit(torch, conv_bn, what, x, w, inv, shift, gy, gs1, gs2,
         torch, conv_bn, x, inv, shift, y, gy, gs1, gs2, dw, kind), dinv, dshift)
     if dinv is not None:
         wrong["dinv_zero"] = (dx, dw, dinv * 0, dshift)
+    b, t, h, wd, ci = x.shape
+    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
     if kind == "spatial":
-        rows = math.prod(dx.shape[:-1]) % CONV_BM or CONV_BM
-        cut = dx.clone().reshape(-1, dx.shape[-1])
-        cut[-rows:] = 0
+        # the row walk's last step: the last pixels of the last range, up to
+        # one step of them
+        plan = conv_bn.spatial_data_plan(b, t, h, wd, ci, gy.shape[-1], sms)
+        q = len(plan.images_of(plan.ranges - 1)) * h * wd
+        cut = dx.clone().reshape(-1, ci)
+        cut[-(q - (q - 1) // plan.step * plan.step):] = 0
     else:
         # the frame walk's last unit: the last clip's last strip, every frame
-        b, t, h, wd, ci = x.shape
-        sms = torch.cuda.get_device_properties(x.device).multi_processor_count
         strip = conv_bn.temporal_data_plan(b, t, h, wd, ci, gy.shape[-1],
                                            sms).strip
         cut = dx.clone().reshape(b, t, h * wd, ci)
         cut[-1, :, (h * wd - 1) // strip * strip:] = 0
     wrong["dx_last_tile_left_out"] = (cut.reshape(dx.shape), dw, dinv, dshift)
-    if kind == "temporal":
+    swaps = {"dx_taps_0_2_swapped": (0,)} if kind == "temporal" else {
+        "dx_taps_0_2_swapped_along_h": (0,), "dx_taps_0_2_swapped_along_w": (1,)}
+    for name, dims in swaps.items():
         swapped = conv_bn.conv_unit_bwd_data_reference(
-            x, w.flip(0), inv, shift, y, gy, gs1, gs2, kind=kind)[0]
+            x, w.flip(dims), inv, shift, y, gy, gs1, gs2, kind=kind)[0]
         if bool(((swapped.float() - ref[0].float()).abs() > lim["dx"]).any()):
-            wrong["dx_taps_0_2_swapped"] = (swapped, dw, dinv, dshift)
+            wrong[name] = (swapped, dw, dinv, dshift)
     dx2, dinv2, dshift2 = conv_bn.conv_unit_bwd_data(
         x, w, inv, shift, y, gy, gs1, gs2, kind=kind)
     require(torch.equal(dx2, dx) and (dinv is None or (
@@ -603,13 +610,24 @@ BWD_KERNELS = ("conv_spatial_bwd_data", "conv_spatial_bwd_filter",
                "conv_temporal_bwd_data", "conv_temporal_bwd_filter")
 
 
-# Spatial shapes for the row walk's tiling (steps of 112 pixels, k-steps of
-# 16, channel tiles of 64 x 48 and 32 x 48): W = 9 and 7 (k-steps that span
-# rows and images: a walk that leaks across images fails them), H = 1, W =
-# 1, 1x1 images, C_in 40 and 152 (not a multiple of the channel block),
-# C_out 24 and 40, a single image, a whole tensor (12 pixels) smaller than
-# one k-step, 600 images of 15 pixels (two images per slice), and images of
-# 70 x 11 (seven steps a slice, whose 72 rows wrap the ring of 45). Temporal
+# Spatial shapes for the two row walks' tilings. The filter gradient: steps
+# of 112 pixels, k-steps of 16, channel tiles of 64 x 48 and 32 x 48. The
+# data gradient (spatial_data_plan): steps of 256 pixels x 64 input
+# channels, or of 128 where a 256-pixel step's rows outgrow shared memory or
+# a thread's copies; K in chunks of 16 output channels, the filter streamed
+# chunk by chunk at every shape (it has no resident branch). W = 9 and 7
+# (steps that span rows and images: a walk that leaks across images fails
+# them), H = 1, W = 1 (a step of 256 over 301 rows), 1x1 images (steps of
+# 128: a 256-pixel step's 513 rows outgrow shared memory), C_in 40 and 152
+# (not a multiple of the channel block: a partial N tile), C_out 24 and 40
+# (a last chunk half masked), a single image, a whole tensor (12 pixels)
+# smaller than one step, 600 images of 15 pixels (two images per slice;
+# five a data-gradient range, so one step spans five images), and images of
+# 70 x 11 (seven steps a slice, whose 72 rows wrap the ring of 45). Then
+# C_out 296, 288, 704, 512, 1024 and 440 (18 to 64 chunks a step; C_in 152
+# with three N tiles, the last 24 wide; 1x1 images at C_out 440), and rows
+# of 200 pixels (data gradient: steps of 128, a 256-pixel step's six rows
+# outgrow a thread's copies). Temporal
 # shapes for the two frame walks' tilings (the filter gradient's 64-position
 # strips, channel blocks of 48 / 64, 64 output channels; the data gradient's
 # strips of 64 / 32 / 16 positions x 144 input channels, its filter resident
@@ -635,6 +653,13 @@ BWD_EDGE_SHAPES = (("spatial", (3, 5, 7, 9, 24), (3, 3, 24, 40)),
                    ("spatial", (1, 2, 2, 3, 16), (3, 3, 16, 24)),
                    ("spatial", (3, 200, 3, 5, 16), (3, 3, 16, 8)),
                    ("spatial", (1, 2, 70, 11, 24), (3, 3, 24, 40)),
+                   ("spatial", (2, 3, 4, 3, 40), (3, 3, 40, 296)),
+                   ("spatial", (1, 2, 9, 11, 40), (3, 3, 40, 288)),
+                   ("spatial", (1, 2, 9, 9, 152), (3, 3, 152, 704)),
+                   ("spatial", (1, 2, 14, 14, 40), (3, 3, 40, 512)),
+                   ("spatial", (2, 3, 1, 1, 24), (3, 3, 24, 440)),
+                   ("spatial", (1, 2, 7, 7, 24), (3, 3, 24, 1024)),
+                   ("spatial", (1, 2, 3, 200, 24), (3, 3, 24, 40)),
                    ("temporal", (2, 7, 5, 3, 40), (3, 40, 24)),
                    ("temporal", (3, 1, 6, 5, 24), (3, 24, 16)),
                    ("temporal", (2, 2, 9, 9, 48), (3, 48, 40)),

@@ -40,31 +40,26 @@
 // temporal_filter_kernel).
 //
 // Design (simple, correct tensor-core kernels; wgmma / TMA come later):
-// - Both forward units and the spatial data gradient share one kernel
-//   (conv_unit_kernel, MODE 0 / 1): a 128 x BN output tile per block, 4 warps
-//   in 2 x 2, each warp 64 x BN/2 with mma.sync m16n8k16 bf16 -> fp32 and
-//   ldmatrix fragment loads. K runs in chunks of 32 over the flattened (tap,
-//   channel) axis; each thread gathers its A rows as 16-byte vectors straight
-//   from the NDHWC tensor at the tap's offset. A tap outside the image (or
-//   clip) is the conv's zero padding, written as zeros AFTER the prologue
-//   (forward) or after ge is formed (data gradient, which gathers gy and y
-//   and forms ge with its two roundings in the gather). The data gradient's B
-//   operand is the flipped, transposed filter, so the same gather reads ge at
-//   the forward's offsets.
-// - Chunks go global -> registers -> shared memory, double-buffered.
+// - Both forward units share one kernel (conv_unit_kernel): a 128 x BN
+//   output tile per block, 4 warps in 2 x 2, each warp 64 x BN/2 with
+//   mma.sync m16n8k16 bf16 -> fp32 and ldmatrix fragment loads. K runs in
+//   chunks of 32 over the flattened (tap, channel) axis; each thread gathers
+//   its A rows as 16-byte vectors straight from the NDHWC tensor at the tap's
+//   offset. A tap outside the image (or clip) is the conv's zero padding,
+//   written as zeros AFTER the prologue. Chunks go global -> registers ->
+//   shared memory, double-buffered.
 // - Forward epilogue: y is rounded and stored; the rounded values feed the
-//   per-channel sums. Data-gradient epilogue: the ReLU mask recomputes the
-//   forward prologue's two roundings from x (or ReLU edges flip), and the
-//   dinv / dshift sums ride the same per-channel machinery. The TPU grid is
-//   sequential and carries sums across steps; CUDA blocks run in parallel,
-//   so each block loops over a few row tiles, reduces its sums in a fixed
-//   order (warp shuffles, then shared memory) into one partial row, and a
-//   second kernel sums the rows per channel in a fixed order. No atomics.
-// - The temporal data gradient is a kernel of its own, temporal_data_kernel
-//   (a frame walk that forms each ge tile once for all three taps and all of
-//   a block's input channels); the filter gradients are spatial_filter_kernel
-//   (a row walk) and temporal_filter_kernel (a frame walk). Each is described
-//   above its code.
+//   per-channel sums. The TPU grid is sequential and carries sums across
+//   steps; CUDA blocks run in parallel, so each block loops over a few row
+//   tiles, reduces its sums in a fixed order (warp shuffles, then shared
+//   memory) into one partial row, and a second kernel sums the rows per
+//   channel in a fixed order. No atomics.
+// - The backward has a kernel per gradient and kind, each described above
+//   its code: the data gradients spatial_data_kernel (a row walk that forms
+//   each ge row once for all nine taps) and temporal_data_kernel (a frame
+//   walk that forms each ge tile once for all three taps), the filter
+//   gradients spatial_filter_kernel (a row walk) and temporal_filter_kernel
+//   (a frame walk).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -104,24 +99,6 @@ __device__ __forceinline__ uint4 prologue(uint4 v, const bf16* inv,
   return v;
 }
 
-// ge = bf16(gy + bf16(gs1 + (2 * y) * gs2)) on 8 bf16 lanes; g1 / g2 are
-// fp32 in shared memory. Explicit roundings: no fused multiply-add.
-__device__ __forceinline__ uint4 gy_eff8(uint4 g, uint4 yv, const float* g1,
-                                         const float* g2) {
-  bf162* pg = reinterpret_cast<bf162*>(&g);
-  const bf162* py = reinterpret_cast<const bf162*>(&yv);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 gf = __bfloat1622float2(pg[i]);
-    const float2 yf = __bfloat1622float2(py[i]);
-    const float a0 = __fadd_rn(g1[2 * i], __fmul_rn(2.f * yf.x, g2[2 * i]));
-    const float a1 = __fadd_rn(g1[2 * i + 1], __fmul_rn(2.f * yf.y, g2[2 * i + 1]));
-    pg[i] = __floats2bfloat162_rn(__fadd_rn(gf.x, rnd(a0)),
-                                  __fadd_rn(gf.y, rnd(a1)));
-  }
-  return g;
-}
-
 __device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
   const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(p));
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
@@ -156,18 +133,14 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
-// Operands of the forward (MODE 0) and data-gradient (MODE 1) kernel. The
-// gathered tensor has Kc channels ("K side"); the output has N ("N side").
+// Operands of the forward kernel. The gathered x has Kc channels ("K
+// side"); the output y has N ("N side").
 struct UnitArgs {
-  const bf16* a;       // gathered: x (forward) or gy (data gradient) [M, Kc]
-  const bf16* a2;      // data gradient: forward output y [M, Kc]
-  const float* ka;     // K side per channel: inv (forward) or gs1 [Kc]
-  const float* kb;     // K side per channel: shift (forward) or gs2 [Kc]
+  const bf16* a;       // gathered: x [M, Kc]
+  const float* ka;     // the prologue's inv [Kc] or null
+  const float* kb;     // the prologue's shift [Kc] or null
   const bf16* wk;      // B operand [N, taps*Kc], k = tap*Kc + c
-  const bf16* xe;      // data gradient with the prologue: forward x [M, N]
-  const float* na;     // data gradient with the prologue: inv [N]
-  const float* nb;     // data gradient with the prologue: shift [N]
-  bf16* out;           // y or dx [M, N]
+  bf16* out;           // y [M, N]
   float* part1;        // per-block partial sums [rows][N]
   float* part2;
   int64_t M;
@@ -176,28 +149,20 @@ struct UnitArgs {
 
 // KIND 0: (1,3,3) spatial conv over each (b, t) image [H, W].
 // KIND 1: (3,1,1) temporal conv over T for each pixel of [H*W].
-// MODE 0: forward; AFFINE = the BN prologue. MODE 1: data gradient (built for
-// KIND 0 only); AFFINE = the forward had the prologue (mask, inv and the
-// dinv / dshift sums).
-template <int BN, bool AFFINE, int KIND, int MODE>
+// AFFINE: the BN prologue.
+template <int BN, bool AFFINE, int KIND>
 __global__ void __launch_bounds__(THREADS)
 conv_unit_kernel(const UnitArgs args) {
   constexpr int NT = BN / 16;                  // n8 tiles per warp
   constexpr int B_VECS = BN * BK / 8;          // 16-byte vectors per B chunk
   constexpr int B_IT = (B_VECS + THREADS - 1) / THREADS;
-  constexpr bool SUMS = MODE == 0 || AFFINE;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* As = reinterpret_cast<bf16*>(smem_raw);          // [2][BM][LDS]
   bf16* Bs = As + 2 * BM * LDS;                           // [2][BN][LDS]
   float* red1 = reinterpret_cast<float*>(Bs + 2 * BN * LDS);  // [2][BN]
   float* red2 = red1 + 2 * BN;                            // [2][BN]
-  // MODE 0: bf16 inv / shift [Kc]. MODE 1: fp32 gs1 / gs2 [Kc], then bf16
-  // inv / shift [N].
-  float* sG1 = red2 + 2 * BN;
-  float* sG2 = sG1 + args.Kc;
-  bf16* sInv = MODE == 0 ? reinterpret_cast<bf16*>(sG1)
-                         : reinterpret_cast<bf16*>(sG2 + args.Kc);
-  bf16* sShift = sInv + (MODE == 0 ? args.Kc : args.N);
+  bf16* sInv = reinterpret_cast<bf16*>(red2 + 2 * BN);   // [Kc]
+  bf16* sShift = sInv + args.Kc;
 
   const bf16* __restrict__ x = args.a;
   const int Ci = args.Kc, Co = args.N;
@@ -211,23 +176,10 @@ conv_unit_kernel(const UnitArgs args) {
   const int nchunks = (K + BK - 1) / BK;
   const int64_t P = (int64_t)H * W;
 
-  if (MODE == 0) {
-    if (AFFINE) {
-      for (int c = tid; c < Ci; c += THREADS) {
-        sInv[c] = __float2bfloat16(args.ka[c]);
-        sShift[c] = __float2bfloat16(args.kb[c]);
-      }
-    }
-  } else {
+  if (AFFINE) {
     for (int c = tid; c < Ci; c += THREADS) {
-      sG1[c] = args.ka[c];
-      sG2[c] = args.kb[c];
-    }
-    if (AFFINE) {
-      for (int c = tid; c < Co; c += THREADS) {
-        sInv[c] = __float2bfloat16(args.na[c]);
-        sShift[c] = __float2bfloat16(args.nb[c]);
-      }
+      sInv[c] = __float2bfloat16(args.ka[c]);
+      sShift[c] = __float2bfloat16(args.kb[c]);
     }
   }
   __syncthreads();
@@ -291,13 +243,7 @@ conv_unit_kernel(const UnitArgs args) {
           }
           if (ok) {
             v = __ldg(reinterpret_cast<const uint4*>(x + src * Ci + ci));
-            if (MODE == 0) {
-              if (AFFINE) v = prologue(v, sInv + ci, sShift + ci);
-            } else {
-              const uint4 yv =
-                  __ldg(reinterpret_cast<const uint4*>(args.a2 + src * Ci + ci));
-              v = gy_eff8(v, yv, sG1 + ci, sG2 + ci);
-            }
+            if (AFFINE) v = prologue(v, sInv + ci, sShift + ci);
           }
         }
         regA[i] = v;
@@ -356,9 +302,7 @@ conv_unit_kernel(const UnitArgs args) {
       __syncthreads();
     }
 
-    // epilogue. MODE 0: round, store, and accumulate the sums of the rounded
-    // values. MODE 1: round dx^, then (prologue) mask, scale by inv, store,
-    // and accumulate dinv = sum x * dxa, dshift = sum dxa.
+    // epilogue: round, store, and accumulate the sums of the rounded values
     const int g = lane >> 2, tg = lane & 3;
 #pragma unroll
     for (int mt = 0; mt < 4; ++mt)
@@ -372,37 +316,16 @@ conv_unit_kernel(const UnitArgs args) {
           if (n >= Co) continue;
           const bf162 p = __floats2bfloat162_rn(acc[mt][nt][half * 2],
                                                 acc[mt][nt][half * 2 + 1]);
-          bf162* dst = reinterpret_cast<bf162*>(args.out + m * Co + n);
-          if (MODE == 0) {
-            *dst = p;
-            const float2 f = __bfloat1622float2(p);
-            st1[nt][0] += f.x;
-            st1[nt][1] += f.y;
-            st2[nt][0] += f.x * f.x;
-            st2[nt][1] += f.y * f.y;
-          } else if (AFFINE) {
-            const float2 xf = __bfloat1622float2(
-                *reinterpret_cast<const bf162*>(args.xe + m * Co + n));
-            const float i0 = __bfloat162float(sInv[n]);
-            const float i1 = __bfloat162float(sInv[n + 1]);
-            const float xa0 = rnd(rnd(xf.x * i0) + __bfloat162float(sShift[n]));
-            const float xa1 = rnd(rnd(xf.y * i1) + __bfloat162float(sShift[n + 1]));
-            const float2 d = __bfloat1622float2(p);
-            const float dxa0 = xa0 > 0.f ? d.x : 0.f;
-            const float dxa1 = xa1 > 0.f ? d.y : 0.f;
-            *dst = __floats2bfloat162_rn(__fmul_rn(dxa0, i0), __fmul_rn(dxa1, i1));
-            st1[nt][0] += xf.x * dxa0;
-            st1[nt][1] += xf.y * dxa1;
-            st2[nt][0] += dxa0;
-            st2[nt][1] += dxa1;
-          } else {
-            *dst = p;
-          }
+          *reinterpret_cast<bf162*>(args.out + m * Co + n) = p;
+          const float2 f = __bfloat1622float2(p);
+          st1[nt][0] += f.x;
+          st1[nt][1] += f.y;
+          st2[nt][0] += f.x * f.x;
+          st2[nt][1] += f.y * f.y;
         }
       }
   }
 
-  if (!SUMS) return;
   // block-level sums in a fixed order: lanes sharing a column, then warps
   const int g = lane >> 2, tg = lane & 3;
 #pragma unroll
@@ -458,12 +381,11 @@ colsum_kernel(const float* __restrict__ part1, const float* __restrict__ part2,
   }
 }
 
-template <int BN, bool AFFINE, int KIND, int MODE>
+template <int BN, bool AFFINE, int KIND>
 int launch_unit(const UnitArgs& args, cudaStream_t stream) {
-  size_t smem = 2 * (BM + BN) * LDS * sizeof(bf16) + 4 * BN * sizeof(float);
-  smem += MODE == 0 ? 2 * args.Kc * sizeof(bf16)
-                    : 2 * args.Kc * sizeof(float) + 2 * args.N * sizeof(bf16);
-  auto kern = conv_unit_kernel<BN, AFFINE, KIND, MODE>;
+  const size_t smem = 2 * (BM + BN) * LDS * sizeof(bf16) + 4 * BN * sizeof(float) +
+                      2 * args.Kc * sizeof(bf16);
+  auto kern = conv_unit_kernel<BN, AFFINE, KIND>;
   cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
@@ -473,39 +395,31 @@ int launch_unit(const UnitArgs& args, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
-// The temporal data gradient (KIND 1, MODE 1) is temporal_data_kernel: that
-// pair is refused by run_unit and never built.
-template <int BN, int MODE>
+template <int BN>
 int dispatch_unit(int kind, int affine, const UnitArgs& a, cudaStream_t s) {
   if (kind == 0)
-    return affine ? launch_unit<BN, true, 0, MODE>(a, s)
-                  : launch_unit<BN, false, 0, MODE>(a, s);
-  if constexpr (MODE == 0)
-    return affine ? launch_unit<BN, true, 1, 0>(a, s)
-                  : launch_unit<BN, false, 1, 0>(a, s);
-  return (int)cudaErrorInvalidValue;
+    return affine ? launch_unit<BN, true, 0>(a, s) : launch_unit<BN, false, 0>(a, s);
+  return affine ? launch_unit<BN, true, 1>(a, s) : launch_unit<BN, false, 1>(a, s);
 }
 
-template <int MODE>
 int run_unit(int kind, int affine, int bn, UnitArgs& a, float* s1, float* s2,
              cudaStream_t s) {
   if (a.M == 0 || a.N == 0) return 0;
-  if ((kind != 0 && kind != 1) || (MODE == 1 && kind == 1) || a.Kc % 8 != 0 ||
-      a.N % 8 != 0 || a.tiles_per_block < 1)
+  if ((kind != 0 && kind != 1) || a.Kc % 8 != 0 || a.N % 8 != 0 ||
+      a.tiles_per_block < 1)
     return (int)cudaErrorInvalidValue;
   a.tiles_m = (int)((a.M + BM - 1) / BM);
   const int R = (a.tiles_m + a.tiles_per_block - 1) / a.tiles_per_block;
   int e;
   if (bn == 48)
-    e = dispatch_unit<48, MODE>(kind, affine, a, s);
+    e = dispatch_unit<48>(kind, affine, a, s);
   else if (bn == 64)
-    e = dispatch_unit<64, MODE>(kind, affine, a, s);
+    e = dispatch_unit<64>(kind, affine, a, s);
   else if (bn == 96)
-    e = dispatch_unit<96, MODE>(kind, affine, a, s);
+    e = dispatch_unit<96>(kind, affine, a, s);
   else
     return (int)cudaErrorInvalidValue;
   if (e != 0) return e;
-  if (MODE == 1 && !affine) return 0;
   colsum_kernel<<<(a.N + 31) / 32, dim3(32, 32), 0, s>>>(a.part1, a.part2, R,
                                                           a.N, s1, s2);
   return (int)cudaGetLastError();
@@ -1032,14 +946,131 @@ struct SpatialFilterArgs {
   int XR;              // rows of the x ring (spatial_ring_rows)
 };
 
-// Rows the x ring must hold: the rows under SF_AHEAD + 1 steps of S pixels
-// at the worst alignment (dr more real rows, di zero rows between images)
-// plus the halo row above and below. ops/conv_bn.py computes the same.
-int spatial_ring_rows(int H, int W, int S) {
-  const int span = (SF_AHEAD + 1) * S;
+// Rows a ring must hold: the rows under `steps` steps of S pixels at the
+// worst alignment (dr more real rows, di zero rows between images) plus the
+// halo row above and below. ops/conv_bn.py computes the same.
+int spatial_ring_rows(int H, int W, int S, int steps) {
+  const int span = steps * S;
   const int dr = (span + W - 2) / W;
   const int di = (dr + H - 1) / H;
   return dr + di + 3;
+}
+
+// The row walk of the spatial kernels (spatial_filter_kernel,
+// spatial_data_kernel). A slice's images lie back to back; the walk takes
+// them as one stream of output pixels, S a step, and one stream of rows with
+// an all-zero row before every image and after the last, kept in a ring of
+// XR rows of W + 2 pixels (columns 0 and W + 1 are the zero padding). Every
+// position moves on by additions: the divisions are made once, before the
+// walk.
+struct RowWalk {
+  int H, W, XR;
+  int x_aw, x_av;      // a copy pass's pixels on: columns, rows
+  int s_aw, s_av;      // a step's S pixels on
+  int S, Q;            // pixels a step, output pixels of the slice
+  int last_row;        // the zero row after the slice's last image
+};
+
+__device__ __forceinline__ RowWalk row_walk(int H, int W, int XR, int XP,
+                                            int S, int images) {
+  return RowWalk{H, W, XR, XP % W, XP / W, S % W, S / W, S, images * H * W,
+                 images * (H + 1)};
+}
+
+// A position in the stream of rows, which a thread takes XP pixels at a
+// time: column w of row vr (ring slot vr % XR); hrow is 0 on the zero row
+// before an image and 1..H on the image's rows; rr counts the image rows
+// above.
+struct XCursor {
+  int w, vr, slot, hrow, rr;
+};
+
+__device__ __forceinline__ XCursor x_seek(const RowWalk& g, int pix) {
+  XCursor c;
+  c.vr = pix / g.W;
+  c.w = pix - c.vr * g.W;
+  c.slot = c.vr % g.XR;
+  c.hrow = c.vr % (g.H + 1);
+  c.rr = c.vr - (c.vr + g.H) / (g.H + 1);
+  return c;
+}
+
+__device__ __forceinline__ void x_advance(const RowWalk& g, XCursor& c) {
+  c.w += g.x_aw;
+  int dv = g.x_av;
+  if (c.w >= g.W) {
+    c.w -= g.W;
+    ++dv;
+  }
+  for (; dv > 0; --dv) {
+    if (c.hrow) ++c.rr;
+    c.hrow = c.hrow == g.H ? 0 : c.hrow + 1;
+    c.slot = c.slot + 1 == g.XR ? 0 : c.slot + 1;
+    ++c.vr;
+  }
+}
+
+// An output pixel of the slice, taken S pixels at a time: column w, row h
+// of its image, stream row vr (one zero row before every image), ring slot.
+struct PCursor {
+  int w, h, vr, slot;
+};
+
+__device__ __forceinline__ PCursor p_seek(const RowWalk& g, int q) {
+  PCursor c;
+  const int rho = q / g.W, img = rho / g.H;
+  c.w = q - rho * g.W;
+  c.h = rho - img * g.H;
+  c.vr = rho + img + 1;
+  c.slot = c.vr % g.XR;
+  return c;
+}
+
+__device__ __forceinline__ void p_advance(const RowWalk& g, PCursor& c) {
+  c.w += g.s_aw;
+  int dr = g.s_av;
+  if (c.w >= g.W) {
+    c.w -= g.W;
+    ++dr;
+  }
+  for (; dr > 0; --dr) {
+    int d = 1;
+    if (++c.h == g.H) {     // over the zero row into the next image
+      c.h = 0;
+      d = 2;
+    }
+    c.vr += d;
+    c.slot += d;
+    if (c.slot >= g.XR) c.slot -= g.XR;
+  }
+}
+
+// The last stream row step j needs: the row below its last pixel. `e` is on
+// step j's last pixel (p_seek(g, S - 1) for step 0); steps come in order.
+__device__ __forceinline__ int row_need(const RowWalk& g, int j, PCursor& e) {
+  if ((j + 1) * g.S >= g.Q) return g.last_row;
+  const int upto = e.vr + 1;
+  p_advance(g, e);
+  return upto;
+}
+
+// A step's tap table: for the output pixel of `tp` (the step's pixel t, of
+// S), the ring offset in pixels of row h + dh - 1 at column w, dh = 0..2,
+// i.e. of the padded pixel (h + dh - 1, w - 1): tap dw adds dw. Pixels past
+// the slice (`live` false) get offset 0. Then tp moves on one step.
+__device__ __forceinline__ void tap_table(const RowWalk& g, int* t, bool live,
+                                          PCursor& tp) {
+  const int WP = g.W + 2;
+  if (live) {
+    const int up = tp.slot == 0 ? g.XR - 1 : tp.slot - 1;
+    const int down = tp.slot + 1 == g.XR ? 0 : tp.slot + 1;
+    t[0] = up * WP + tp.w;
+    t[g.S] = tp.slot * WP + tp.w;
+    t[2 * g.S] = down * WP + tp.w;
+  } else {
+    t[0] = t[g.S] = t[2 * g.S] = 0;
+  }
+  p_advance(g, tp);
 }
 
 template <int NW, int MT>
@@ -1107,87 +1138,17 @@ spatial_filter_kernel(const SpatialFilterArgs a) {
   const bool x_on = tid < XP * XV && c0 + xv < Ci;
   const bool g_on = tid < GP * GV && n0 + gv < Co;
 
-  // Cursors. The divisions are made here, once: in the step loop every
-  // position moves on by additions.
-  const int x_aw = XP % W, x_av = XP / W;      // XP pixels on: columns, rows
-  const int s_aw = S % W, s_av = S / W;        // S pixels on
-  const int last_row = (i1 - i0) * (H + 1);    // the zero row after the last image
-
-  // A position in the stream of x rows, which a thread takes XP pixels at a
-  // time: column w of row vr (ring slot vr % XR); hrow is 0 on the zero row
-  // before an image and 1..H on the image's rows; rr counts the image rows
-  // above. Two cursors a thread: the next vector to copy, the next to form.
-  struct XCursor {
-    int w, vr, slot, hrow, rr;
-  };
-  auto x_advance = [&](XCursor& c) {
-    c.w += x_aw;
-    int dv = x_av;
-    if (c.w >= W) {
-      c.w -= W;
-      ++dv;
-    }
-    for (; dv > 0; --dv) {
-      if (c.hrow) ++c.rr;
-      c.hrow = c.hrow == H ? 0 : c.hrow + 1;
-      c.slot = c.slot + 1 == XR ? 0 : c.slot + 1;
-      ++c.vr;
-    }
-  };
-  XCursor cx;
-  cx.vr = xpix / W;
-  cx.w = xpix - cx.vr * W;
-  cx.slot = cx.vr % XR;
-  cx.hrow = cx.vr % (H + 1);
-  cx.rr = cx.vr - (cx.vr + H) / (H + 1);
-  XCursor fx = cx;
-
-  // An output pixel of the slice, taken S pixels at a time: column w, row h
-  // of its image, stream row vr (one zero row before every image), ring slot.
-  struct PCursor {
-    int w, h, vr, slot;
-  };
-  auto p_seek = [&](int q) {
-    PCursor c;
-    const int rho = q / W, img = rho / H;
-    c.w = q - rho * W;
-    c.h = rho - img * H;
-    c.vr = rho + img + 1;
-    c.slot = c.vr % XR;
-    return c;
-  };
-  auto p_advance = [&](PCursor& c) {
-    c.w += s_aw;
-    int dr = s_av;
-    if (c.w >= W) {
-      c.w -= W;
-      ++dr;
-    }
-    for (; dr > 0; --dr) {
-      int d = 1;
-      if (++c.h == H) {     // over the zero row into the next image
-        c.h = 0;
-        d = 2;
-      }
-      c.vr += d;
-      c.slot += d;
-      if (c.slot >= XR) c.slot -= XR;
-    }
-  };
-  PCursor tp = p_seek(min(tid, S - 1));   // this thread's pixel of the table
-  PCursor ce = p_seek(S - 1), fe = ce;    // the last pixel of the step copied / formed
-  // the last x row a step needs: the row below its last pixel
-  auto need = [&](int j, PCursor& e) {
-    if ((j + 1) * S >= Q) return last_row;
-    const int upto = e.vr + 1;
-    p_advance(e);
-    return upto;
-  };
+  // Cursors (see RowWalk): the next x vector to copy and to form, this
+  // thread's pixel of the table, the last pixel of the step copied / formed.
+  const RowWalk rw = row_walk(H, W, XR, XP, S, i1 > i0 ? i1 - i0 : 0);
+  XCursor cx = x_seek(rw, xpix), fx = cx;
+  PCursor tp = p_seek(rw, min(tid, S - 1));
+  PCursor ce = p_seek(rw, S - 1), fe = ce;
 
   // group j of the copies: the x rows step j adds, its gy / y tile, its table
   auto copy_step = [&](int j) {
     if (j >= nq) return;
-    const int upto = need(j, ce);
+    const int upto = row_need(rw, j, ce);
     if (x_on) {
       while (cx.vr <= upto) {
         const bool real = cx.hrow != 0;
@@ -1195,7 +1156,7 @@ spatial_filter_kernel(const SpatialFilterArgs a) {
             ? a.x + (P0 + (int64_t)cx.rr * W + cx.w) * Ci + c0 + xv : a.x;
         if (!(SF_ABLATE & 4))
           cp_async16(Xs + ((size_t)cx.slot * WP + 1 + cx.w) * LDX + xv, src, real);
-        x_advance(cx);
+        x_advance(rw, cx);
       }
     }
     const int q0 = j * S, slot = j % SF_GS;
@@ -1210,25 +1171,14 @@ spatial_filter_kernel(const SpatialFilterArgs a) {
       }
     }
     // ring offset (in pixels) of x^[h+dh-1][w-1] for each output pixel
-    if (tid < S) {
-      int* t = Tab + slot * 3 * S + tid;
-      if (q0 + tid < Q) {
-        const int up = tp.slot == 0 ? XR - 1 : tp.slot - 1;
-        const int down = tp.slot + 1 == XR ? 0 : tp.slot + 1;
-        t[0] = up * WP + tp.w;
-        t[S] = tp.slot * WP + tp.w;
-        t[2 * S] = down * WP + tp.w;
-      } else {
-        t[0] = t[S] = t[2 * S] = 0;      // ge is zero there; any finite x^
-      }
-      p_advance(tp);
-    }
+    // (ge is zero past the slice: any finite x^ there)
+    if (tid < S) tap_table(rw, Tab + slot * 3 * S + tid, q0 + tid < Q, tp);
   };
   // x^ = prologue(x) in place on the image rows step j added, ge in place of
   // gy: on this thread's own vectors
   auto form_step = [&](int j) {
     if (AFFINE && x_on) {
-      const int upto = need(j, fe);
+      const int upto = row_need(rw, j, fe);
       bf162 inv2[4], shift2[4];
       *reinterpret_cast<uint4*>(inv2) = *reinterpret_cast<const uint4*>(sInv + xv);
       *reinterpret_cast<uint4*>(shift2) = *reinterpret_cast<const uint4*>(sShift + xv);
@@ -1238,7 +1188,7 @@ spatial_filter_kernel(const SpatialFilterArgs a) {
               Xs + ((size_t)fx.slot * WP + 1 + fx.w) * LDX + xv);
           *p = prologue_x2(*p, inv2, shift2);
         }
-        x_advance(fx);
+        x_advance(rw, fx);
       }
     }
     if (g_on) {
@@ -1382,6 +1332,486 @@ int dispatch_spatial_filter(int ci_blk, int co_tile, int affine,
     return spatial_filter_either<8, 3, 1>(affine, a, slices, s);
   if (ci_blk == 32 && co_tile == 48)
     return spatial_filter_either<4, 3, 2>(affine, a, slices, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// ---------------------------------------------------------------------------
+// Spatial data gradient: the row walk
+// ---------------------------------------------------------------------------
+//
+// Replaces _spatial_bwd_data_kernel (m3f/pytorch_tpu/ops/pallas/conv_bn.py,
+// pallas_call at :537), which pads one (b, t) image's ge once per sequential
+// grid step, keeps the flipped filter in VMEM and does one product per strip
+// of rows, then the ReLU mask, the scale by inv and the dinv / dshift sums
+// carried across the grid.
+//
+// dx^[b,t,h,w,ci] = bf16(sum_{dh,dw} sum_co ge[b,t,h+1-dh,w+1-dw,co] *
+// W[dh,dw,ci,co]) does 2*9*Co*Ci FLOP per pixel on (2*Co + 2*Ci) * 2 bytes
+// (gy, y, x in, dx out). Bound on an H100 at the train step's shapes (32
+// clips): stage 1 (gy [32,16,56,56,144] -> dx 64) 266 GFLOP on 1.34 GB with
+// the prologue, 199 FLOP/byte: bytes, 0.40 ms, with the operations (0.27 ms)
+// close behind; stages 2-4 (Ci 128 / 256 / 512) operations, 0.135 / 0.067 /
+// 0.034 ms. So the products must run near the mma.sync rate with the copies
+// hidden under them, ge must not be formed per tap, and the filter (up to
+// 10.6 MB at stage 4) must not be re-read from the L2 for every few pixels.
+//
+// - Row walk (RowWalk, shared with spatial_filter_kernel). A block walks a
+//   range of whole (b, t) images as one dense stream of output pixels in
+//   steps of S (256 where it fits; a step may span rows and images). A step
+//   reads the stream rows from the one above its first pixel to the one
+//   below its last, with one all-zero row before every image and after the
+//   last: a tap row above or below the image is that zero row, never the
+//   neighbour's row; columns 0 and W+1 are zero from the start and never
+//   written (the conv's padding).
+// - K runs outermost inside a step, in chunks of SD_KC = 16 output channels
+//   for all nine taps: per chunk the block copies the step's rows of gy and
+//   y for those channels (cp.async, zero-filled on the zero rows and past
+//   C_out), forms ge in place once (each thread the vectors it copied,
+//   after its own wait_group), and multiplies them by the filter chunk
+//   [NB, 9 taps x 16] for all nine taps. The chunk buffers are double-
+//   buffered (y single: it is read only while forming), so chunk c+1
+//   lands while chunk c is multiplied, one barrier a chunk. The [S, NB]
+//   accumulators stay in registers for the whole step (64 a thread at S =
+//   256, NB = 64), so the filter is read from the L2 once per 256 pixels;
+//   ge is formed once per step's row and N tile (halo rows twice).
+// - A tap is an address offset. Each lane of ldmatrix reads its own output
+//   pixel's row from a per-step table (tap_table, shared with the filter
+//   kernel): the offset of (h + dh - 1, w - 1) in the chunk buffer; tap dw
+//   adds dw pixels. The table is read once a step.
+// - Tensor cores: ldmatrix + mma.sync m16n8k16 bf16 -> fp32; 8 warps in WM x
+//   WN, each MT m16 pixel tiles x NT n8 channel tiles (64 x 32 at S = 256:
+//   six ldmatrix.x4 per 16 products); a tap's fragments are loaded while
+//   the tap before is multiplied.
+// - Epilogue, as temporal_data_kernel's: the x tile [S, NB] lands by
+//   cp.async under the step's products; the accumulator is rounded to dx^,
+//   masked by a bitwise select from the recomputed prologue (_rn forms: no
+//   fused multiply-add), scaled by inv and staged over the x tile; dx leaves
+//   at the next step in 16-byte stores along the channels, each thread
+//   storing the vectors it copied before it copies the next x tile into
+//   them. dinv / dshift: per-thread fp32 sums over the walk, then warp
+//   shuffles and shared memory in a fixed order into one partial row per
+//   block, then colsum_kernel. No atomics: two calls give the same bits.
+// - Parallelism: grid = image ranges x N tiles of 64 input channels (the N
+//   tile fastest: the blocks of one range run together and find gy and y
+//   in the L2), about one block a SM.
+
+constexpr int SD_THREADS = 256;
+constexpr int SD_KC = 16;                 // output channels of a chunk
+constexpr int SD_LDC = SD_KC + 8;         // a chunk buffer's pixel stride (48 B)
+constexpr int SD_LDF = 9 * SD_KC + 8;     // a filter chunk's row stride (304 B)
+constexpr int SD_VMAX = 8;                // gy vectors a thread copies a chunk
+// Measurement knob, for filter_sweep.py only (dx is then wrong): 1 leaves
+// out forming ge, 2 the products, 4 the copies of gy, y and x (the buffers
+// keep what they held), 8 the epilogue (mask, scale, sums, dx stores); 15
+// leaves the filter stream and the walk alone.
+#ifndef SD_ABLATE
+#define SD_ABLATE 0
+#endif
+
+struct SpatialDataArgs {
+  const bf16* gy;      // [images, H, W, Co]
+  const bf16* y;
+  const float* gs1;    // [Co]
+  const float* gs2;
+  const bf16* w;       // the flipped filter [Ci, 9*Co]: w[ci, tap*Co + co] =
+                       // W[2 - tap/3, 2 - tap%3, ci, co]
+  const bf16* x;       // [images, H, W, Ci] or null
+  const float* inv;    // [Ci] or null
+  const float* shift;
+  bf16* dx;            // [images, H, W, Ci]
+  float* part1;        // [ranges][Ci] partial dinv, dshift
+  float* part2;
+  int H, W, Ci, Co;
+  int Cop;             // Co rounded up to the chunk
+  int images;          // B * T
+  int images_per_range;
+  int n_tiles;         // ceil(Ci / NB)
+  int XR;              // rows of a chunk buffer (spatial_ring_rows, one step)
+};
+
+// A block's shared memory; ops/conv_bn.py (_spatial_data_smem) computes the
+// same: two ge and one y chunk buffer, two filter chunks, the x / dx tile,
+// two tap tables, gs1 / gs2, inv / shift.
+size_t spatial_data_smem(int W, int Cop, int S, int NB, int XR) {
+  const size_t buf = (size_t)XR * (W + 2) * SD_LDC;
+  return 2 * (3 * buf + 2 * (size_t)NB * SD_LDF + (size_t)S * (NB + 8)) +
+         24 * (size_t)S + 8 * (size_t)Cop + 4 * (size_t)NB;
+}
+
+// WM x WN warps, each MT m16 pixel tiles x NT n8 channel tiles: S =
+// 16*MT*WM pixels a step, NB = 8*NT*WN input channels a block.
+template <int WM, int WN, int MT, int NT, bool AFFINE>
+__global__ void __launch_bounds__(SD_THREADS, 1)
+spatial_data_kernel(const SpatialDataArgs a) {
+  constexpr int NTH = SD_THREADS;
+  static_assert(32 * WM * WN == NTH, "8 warps");
+  constexpr int S = 16 * MT * WM;
+  constexpr int NB = 8 * NT * WN;
+  constexpr int LDX = NB + 8;                  // x tile row stride (bf16)
+  constexpr int XV = NB / 8;                   // 16-byte vectors per x row
+  constexpr int X_IT = (S * XV + NTH - 1) / NTH;
+  constexpr int FV = NB * 9 * SD_KC / 8;       // 16-byte vectors of a filter chunk
+  constexpr int F_IT = (FV + NTH - 1) / NTH;
+  constexpr int XP = NTH / 2;                  // pixels per copy pass (2 vectors each)
+  const int H = a.H, W = a.W, Ci = a.Ci, Co = a.Co, Cop = a.Cop, XR = a.XR;
+  const int HW = H * W, WP = W + 2, BUF = XR * WP * SD_LDC;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* Gs = reinterpret_cast<bf16*>(smem_raw);            // [2][XR][WP][SD_LDC]
+  bf16* Ys = Gs + 2 * BUF;                                 // [XR][WP][SD_LDC]
+  bf16* Fs = Ys + BUF;                                     // [2][NB][SD_LDF]
+  bf16* Xs = Fs + 2 * NB * SD_LDF;                         // [S][LDX]
+  int* Tab = reinterpret_cast<int*>(Xs + S * LDX);         // [2][3][S]
+  float* sG1 = reinterpret_cast<float*>(Tab + 6 * S);      // [Cop]
+  float* sG2 = sG1 + Cop;
+  bf162* sInv = reinterpret_cast<bf162*>(sG2 + Cop);       // [NB / 2]
+  bf162* sShift = sInv + NB / 2;
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int wm = warp % WM, wn = warp / WM;
+  const int n0 = ((int)blockIdx.x % a.n_tiles) * NB;
+  const int range = (int)blockIdx.x / a.n_tiles;
+  const int i0 = range * a.images_per_range;
+  const int nimg = max(0, min(a.images, i0 + a.images_per_range) - i0);
+  const int Q = nimg * HW;                        // output pixels of the range
+  const int nq = (Q + S - 1) / S;                 // steps of the walk
+  const int nck = Cop / SD_KC;                    // chunks a step
+  const int64_t P0 = (int64_t)i0 * HW;            // the range's first pixel
+
+  // The chunk buffers zero once: the padding columns stay so.
+  {
+    uint4* z = reinterpret_cast<uint4*>(smem_raw);
+    const int n16 = 3 * BUF / 8;
+    for (int i = tid; i < n16; i += NTH) z[i] = make_uint4(0, 0, 0, 0);
+  }
+  for (int c = tid; c < Cop; c += NTH) {
+    sG1[c] = c < Co ? a.gs1[c] : 0.f;
+    sG2[c] = c < Co ? a.gs2[c] : 0.f;
+  }
+  for (int c = tid; c < NB / 2; c += NTH) {
+    const int n = n0 + 2 * c;
+    const bool ok = AFFINE && n < Ci;
+    sInv[c] = __floats2bfloat162_rn(ok ? a.inv[n] : 0.f, ok ? a.inv[n + 1] : 0.f);
+    sShift[c] = __floats2bfloat162_rn(ok ? a.shift[n] : 0.f,
+                                      ok ? a.shift[n + 1] : 0.f);
+  }
+  __syncthreads();
+
+  // Cursors (see RowWalk): this thread's pixel of the table, the first and
+  // the last pixel of the next step to copy.
+  const RowWalk rw = row_walk(H, W, XR, XP, S, nimg);
+  PCursor tp = p_seek(rw, min(tid, S - 1));
+  PCursor cf = p_seek(rw, 0), ce = p_seek(rw, S - 1);
+
+  // This thread's gy vectors of a step: channels gv..gv+7 of each chunk at
+  // buffer offset v_off of the pixel v_pix of the range (-1: a zero row,
+  // -2: none). The same for every chunk of the step; a thread copies and
+  // forms exactly these.
+  const int gv = (tid & 1) * 8;
+  int v_off[SD_VMAX], v_pix[SD_VMAX];
+  auto seek_step = [&](int j) {                  // steps in order
+    const int upto = row_need(rw, j, ce);
+    const int rs = cf.vr - 1;                    // the row above the first pixel
+    p_advance(rw, cf);
+    XCursor c = x_seek(rw, rs * W + (tid >> 1));
+#pragma unroll
+    for (int k = 0; k < SD_VMAX; ++k) {
+      const bool live = c.vr <= upto;
+      v_off[k] = (c.slot * WP + 1 + c.w) * SD_LDC + gv;
+      v_pix[k] = !live ? -2 : c.hrow ? c.rr * W + c.w : -1;
+      if (live) x_advance(rw, c);
+    }
+  };
+  // chunk ck of the current step into buffer b: the step's gy and y rows
+  // for channels ck*16 .. +15, and the filter chunk
+  auto copy_chunk = [&](int ck, int b) {
+    const int ch = ck * SD_KC + gv;
+    if (!(SD_ABLATE & 4)) {
+      bf16* gd = Gs + b * BUF;
+#pragma unroll
+      for (int k = 0; k < SD_VMAX; ++k) {
+        if (v_pix[k] < -1) continue;
+        const bool real = v_pix[k] >= 0 && ch < Co;
+        const int64_t src = real ? (P0 + v_pix[k]) * Co + ch : 0;
+        cp_async16(gd + v_off[k], a.gy + src, real);
+        if (real) cp_async16(Ys + v_off[k], a.y + src, true);
+      }
+    }
+    bf16* fd = Fs + b * NB * SD_LDF;
+#pragma unroll
+    for (int i = 0; i < F_IT; ++i) {
+      const int idx = tid + i * NTH;
+      if (idx >= FV) break;
+      const int n = idx / 18, r = idx - n * 18, tap = r >> 1, kk = (r & 1) * 8;
+      const bool ok = n0 + n < Ci && ck * SD_KC + kk < Co;
+      cp_async16(fd + n * SD_LDF + tap * SD_KC + kk,
+                 ok ? a.w + ((int64_t)(n0 + n) * 9 + tap) * Co + ck * SD_KC + kk
+                    : a.w, ok);
+    }
+  };
+  // ge = gy + bf16(gs1 + 2*y*gs2) in place, on this thread's vectors
+  auto form_chunk = [&](int ck, int b) {
+    const int ch = ck * SD_KC + gv;
+    if ((SD_ABLATE & 1) || ch >= Co) return;
+    float g1[8], g2[8];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      *reinterpret_cast<float4*>(g1 + 4 * h) =
+          *reinterpret_cast<const float4*>(sG1 + ch + 4 * h);
+      *reinterpret_cast<float4*>(g2 + 4 * h) =
+          *reinterpret_cast<const float4*>(sG2 + ch + 4 * h);
+    }
+    bf16* gd = Gs + b * BUF;
+#pragma unroll
+    for (int k = 0; k < SD_VMAX; ++k) {
+      if (v_pix[k] < 0) continue;
+      uint4* p = reinterpret_cast<uint4*>(gd + v_off[k]);
+      *p = gy_eff8_x2(*p, *reinterpret_cast<const uint4*>(Ys + v_off[k]), g1, g2);
+    }
+  };
+
+  // A thread's vectors of the x / dx tile: c = tid + i*NTH -> pixel c / XV,
+  // channels (c % XV) * 8
+  auto copy_x = [&](int j) {
+    if (!AFFINE || (SD_ABLATE & 4)) return;
+    const int npx = min(S, Q - j * S);
+    const bf16* src = a.x + (P0 + (int64_t)j * S) * Ci + n0;
+#pragma unroll
+    for (int i = 0; i < X_IT; ++i) {
+      const int c = tid + i * NTH, r = c / XV, v = (c - r * XV) * 8;
+      if (c >= S * XV) break;
+      const bool ok = r < npx && n0 + v < Ci;
+      cp_async16(Xs + r * LDX + v, ok ? src + r * Ci + v : a.x, ok);
+    }
+  };
+  auto store_dx = [&](int j) {
+    if (SD_ABLATE & 8) return;
+    const int npx = min(S, Q - j * S);
+    bf16* dst = a.dx + (P0 + (int64_t)j * S) * Ci + n0;
+#pragma unroll
+    for (int i = 0; i < X_IT; ++i) {
+      const int c = tid + i * NTH, r = c / XV, v = (c - r * XV) * 8;
+      if (c >= S * XV) break;
+      if (r < npx && n0 + v < Ci)
+        *reinterpret_cast<uint4*>(dst + r * Ci + v) =
+            *reinterpret_cast<const uint4*>(Xs + r * LDX + v);
+    }
+  };
+
+  float acc[MT][NT][4];
+  float st1[NT][2], st2[NT][2];
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt)
+    st1[nt][0] = st1[nt][1] = st2[nt][0] = st2[nt][1] = 0.f;
+
+  // ldmatrix lanes: A (pixels m, channels k) from the chunk buffer at the
+  // lane's pixel's tap row; B (k, input channels n; two n8 tiles a x4) from
+  // the filter chunk [n][tap*16 + k]
+  const int a_koff = (lane >> 4) * 8;
+  const int a_pix = wm * MT * 16 + (lane & 15);
+  const int b_row = wn * NT * 8 + (lane & 7) + ((lane >> 4) & 1) * 8;
+  const int b_koff = ((lane >> 3) & 1) * 8;
+  const int b_row_last = wn * NT * 8 + (NT - 1) * 8 + (lane & 7);
+  int a_off[MT][3];                              // the step's tap rows, per tile
+  auto products = [&](int b) {
+    const bf16* gs = Gs + b * BUF;
+    const bf16* fs = Fs + b * NB * SD_LDF;
+    uint32_t af[2][MT][4], bq[2][NT][2];
+    auto load = [&](int t, int s) {
+      const int dh = t / 3, dw = t - 3 * (t / 3);
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+        ldsm_x4(af[s][mt], gs + a_off[mt][dh] + dw * SD_LDC);
+#pragma unroll
+      for (int p = 0; p < NT / 2; ++p) {
+        uint32_t r4[4];
+        ldsm_x4(r4, fs + (b_row + p * 16) * SD_LDF + t * SD_KC + b_koff);
+        bq[s][2 * p][0] = r4[0];
+        bq[s][2 * p][1] = r4[1];
+        bq[s][2 * p + 1][0] = r4[2];
+        bq[s][2 * p + 1][1] = r4[3];
+      }
+      if (NT & 1) ldsm_x2(bq[s][NT - 1], fs + b_row_last * SD_LDF + t * SD_KC + b_koff);
+    };
+    load(0, 0);
+#pragma unroll
+    for (int t = 0; t < 9; ++t) {
+      if (t + 1 < 9) load(t + 1, (t + 1) & 1);
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt) mma_bf16(acc[mt][nt], af[t & 1][mt], bq[t & 1][nt]);
+    }
+  };
+
+  const int g = lane >> 2, tg = lane & 3;
+  // inv / shift of this thread's accumulator columns
+  bf162 inv2[NT], shift2[NT];
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt) {
+    inv2[nt] = sInv[(wn * NT * 8 + nt * 8 + tg * 2) >> 1];
+    shift2[nt] = sShift[(wn * NT * 8 + nt * 8 + tg * 2) >> 1];
+  }
+  const bf162 zero2 = __float2bfloat162_rn(0.f);
+
+  // the stream's first group: step 0's table, its first chunk and x tile
+  if (nq > 0) {
+    if (tid < S) tap_table(rw, Tab + tid, tid < Q, tp);
+    seek_step(0);
+    copy_chunk(0, 0);
+    copy_x(0);
+  }
+  cp_async_commit();
+  int b = 0;                                     // the buffer of the chunk multiplied
+  for (int j = 0; j < nq; ++j) {
+    for (int ck = 0; ck < nck; ++ck) {
+      cp_async_wait<0>();                        // this thread's copies of the chunk
+      form_chunk(ck, b);
+      __syncthreads();                           // the chunk formed; the one before done
+      if (ck == 0) {
+        if (j > 0) {
+          store_dx(j - 1);                       // then x(j) into the same vectors
+          copy_x(j);
+        }
+        if (j + 1 < nq && tid < S)
+          tap_table(rw, Tab + ((j + 1) & 1) * 3 * S + tid, (j + 1) * S + tid < Q, tp);
+        const int* tab = Tab + (j & 1) * 3 * S + a_pix;
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+          for (int dh = 0; dh < 3; ++dh)
+            a_off[mt][dh] = tab[dh * S + mt * 16] * SD_LDC + a_koff;
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+          for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+            for (int k = 0; k < 4; ++k) acc[mt][nt][k] = 0.f;
+      }
+      if (ck + 1 < nck) {                        // the next chunk, into the other buffers
+        copy_chunk(ck + 1, b ^ 1);
+      } else if (j + 1 < nq) {
+        seek_step(j + 1);
+        copy_chunk(0, b ^ 1);
+      }
+      cp_async_commit();
+      if (!(SD_ABLATE & 2)) products(b);
+      b ^= 1;
+    }
+
+    // epilogue: dx^ = bf16(acc); with the prologue the mask from x, dx =
+    // dxa * inv over the x tile, and the sums over the step's pixels. The
+    // barrier: x(j) landed and visible, dx(j-1) stored.
+    cp_async_wait<0>();
+    __syncthreads();
+    if (!(SD_ABLATE & 8)) {
+      const int npx = min(S, Q - j * S);
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const int row = wm * MT * 16 + mt * 16 + g + half * 8;
+          // pixels past the range read table offset 0: their dx^ is not
+          // zero, so they are masked out of the sums
+          const uint32_t live = row < npx ? 0xffffffffu : 0u;
+#pragma unroll
+          for (int nt = 0; nt < NT; ++nt) {
+            const int col = wn * NT * 8 + nt * 8 + tg * 2;
+            const bf162 d = __floats2bfloat162_rn(acc[mt][nt][half * 2],
+                                                  acc[mt][nt][half * 2 + 1]);
+            bf162* px = reinterpret_cast<bf162*>(Xs + row * LDX + col);
+            if (AFFINE) {
+              const bf162 xv = *px;
+              const uint32_t on = __hgt2_mask(
+                  __hadd2_rn(__hmul2_rn(xv, inv2[nt]), shift2[nt]), zero2) & live;
+              const uint32_t kept = *reinterpret_cast<const uint32_t*>(&d) & on;
+              const bf162 dxa = *reinterpret_cast<const bf162*>(&kept);
+              *px = __hmul2_rn(dxa, inv2[nt]);
+              const float2 xf = __bfloat1622float2(xv);
+              const float2 df = __bfloat1622float2(dxa);
+              st1[nt][0] += xf.x * df.x;
+              st1[nt][1] += xf.y * df.y;
+              st2[nt][0] += df.x;
+              st2[nt][1] += df.y;
+            } else {
+              *px = d;
+            }
+          }
+        }
+    }
+    if ((SD_ABLATE & 8) && H < 0) {    // never true: keeps the products alive
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt)
+          Xs[(mt * NT + nt) * NTH + tid] = __float2bfloat16(
+              acc[mt][nt][0] + acc[mt][nt][1] + acc[mt][nt][2] + acc[mt][nt][3]);
+    }
+  }
+  cp_async_wait<0>();
+  __syncthreads();                     // dx(nq-1) staged; the filter chunks free
+  if (nq > 0) store_dx(nq - 1);
+
+  if (!AFFINE) return;
+  // block-level sums in a fixed order: lanes sharing a column, then warps
+  float* red1 = reinterpret_cast<float*>(Fs);    // [WM][NB]
+  float* red2 = red1 + WM * NB;
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      float v1 = st1[nt][e], v2 = st2[nt][e];
+#pragma unroll
+      for (int off = 4; off < 32; off <<= 1) {
+        v1 += __shfl_xor_sync(0xffffffffu, v1, off);
+        v2 += __shfl_xor_sync(0xffffffffu, v2, off);
+      }
+      if (g == 0) {
+        const int col = wn * NT * 8 + nt * 8 + tg * 2 + e;
+        red1[wm * NB + col] = v1;
+        red2[wm * NB + col] = v2;
+      }
+    }
+  __syncthreads();
+  for (int col = tid; col < NB; col += NTH) {
+    if (n0 + col >= Ci) continue;
+    float v1 = 0.f, v2 = 0.f;
+    for (int m = 0; m < WM; ++m) {
+      v1 += red1[m * NB + col];
+      v2 += red2[m * NB + col];
+    }
+    a.part1[(int64_t)range * Ci + n0 + col] = v1;
+    a.part2[(int64_t)range * Ci + n0 + col] = v2;
+  }
+}
+
+template <int WM, int WN, int MT, int NT, bool AFFINE>
+int launch_spatial_data(const SpatialDataArgs& a, cudaStream_t stream) {
+  constexpr int S = 16 * MT * WM, NB = 8 * NT * WN;
+  const size_t smem = spatial_data_smem(a.W, a.Cop, S, NB, a.XR);
+  if (smem > (size_t)SF_SMEM_MAX || a.XR * a.W > SD_THREADS / 2 * SD_VMAX)
+    return (int)cudaErrorInvalidValue;
+  auto kern = spatial_data_kernel<WM, WN, MT, NT, AFFINE>;
+  cudaError_t e = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  const int ranges = (a.images + a.images_per_range - 1) / a.images_per_range;
+  kern<<<ranges * a.n_tiles, SD_THREADS, smem, stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
+template <int WM, int WN, int MT, int NT>
+int spatial_data_either(int affine, const SpatialDataArgs& a, cudaStream_t s) {
+  return affine ? launch_spatial_data<WM, WN, MT, NT, true>(a, s)
+                : launch_spatial_data<WM, WN, MT, NT, false>(a, s);
+}
+
+// step -> the warp layout (4 x 2 warps, N tile 64). These are the steps
+// spatial_data_plan (ops/conv_bn.py) can ask for: 128 only where a step of
+// 256 pixels reads more rows than a thread's SD_VMAX copies cover.
+int dispatch_spatial_data(int step, int affine, const SpatialDataArgs& a,
+                          cudaStream_t s) {
+  if (step == 256) return spatial_data_either<4, 2, 4, 4>(affine, a, s);
+  if (step == 128) return spatial_data_either<4, 2, 2, 4>(affine, a, s);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -1987,25 +2417,25 @@ extern "C" int m3f_conv_unit_fwd(const void* x, const void* wk, const void* inv,
   const int R = tiles_per_block > 0 ? (tiles_m + tiles_per_block - 1) / tiles_per_block : 0;
   a.part1 = (float*)part;
   a.part2 = a.part1 + (int64_t)R * Co;
-  return run_unit<0>(kind, inv != nullptr, bn, a, (float*)s1, (float*)s2,
-                     (cudaStream_t)stream);
+  return run_unit(kind, inv != nullptr, bn, a, (float*)s1, (float*)s2,
+                  (cudaStream_t)stream);
 }
 
 // Data gradient of the unit. gy, y [B, T, H, W, Co] bf16; gs1/gs2 [Co] fp32;
 // with the prologue x [B, T, H, W, Ci] bf16 and inv/shift [Ci] fp32 (else
 // all three null); dx [B, T, H, W, Ci] bf16; dinv/dshift [Ci] fp32 (with the
-// prologue). Spatial (kind 0): wd [Ci, 9*Co] bf16 is the flipped transposed
-// filter, wd[ci, tap*Co + co] = W[mirror(tap), ci, co]; bn is the output
-// tile's channels, tiles_per_block its row tiles per block, part a scratch
-// of 2 * ceil(ceil(M/128) / tiles_per_block) * Ci floats (with the
-// prologue); strip, warps, resident and ahead are not read. Temporal (kind
-// 1, temporal_data_kernel): wd is the filter itself, [3, Ci, Co] bf16 (the
-// kernel flips the taps as it loads); bn is 144, strip the positions of H*W
-// per unit (64, 32 or 16) with its warps (8, 6, 6), tiles_per_block the
-// units per block, resident whether the block's filter tile stays in shared
-// memory (else it streams), ahead the frames in flight (1 or 2; 1 when
-// streamed), part a scratch of 2 * ceil(units / tiles_per_block) * Ci
-// floats (with the prologue).
+// prologue); part a scratch of 2 * ranges * Ci floats (with the prologue),
+// ranges = ceil(units / tiles_per_block). Spatial (kind 0,
+// spatial_data_kernel): wd [Ci, 9*Co] bf16 is the flipped transposed
+// filter, wd[ci, tap*Co + co] = W[2 - tap/3, 2 - tap%3, ci, co]; bn is the
+// N tile (64), strip the output pixels a step (256 or 128),
+// warps 8, and the units are the B * T images; resident and ahead are not
+// read. Temporal (kind 1, temporal_data_kernel): wd is the filter itself,
+// [3, Ci, Co] bf16 (the kernel flips the taps as it loads); bn is 144, strip
+// the positions of H*W per unit (64, 32 or 16) with its warps (8, 6, 6),
+// the units are the B * ceil(H*W / strip) clip strips, resident whether the
+// block's filter tile stays in shared memory (else it streams), ahead the
+// frames in flight (1 or 2; 1 when streamed).
 extern "C" int m3f_conv_unit_bwd_data(const void* gy, const void* y,
                                       const void* gs1, const void* gs2,
                                       const void* wd, const void* x,
@@ -2017,16 +2447,46 @@ extern "C" int m3f_conv_unit_bwd_data(const void* gy, const void* y,
                                       int warps, int resident, int ahead,
                                       void* stream) {
   const int affine = inv != nullptr;
-  if (affine && (x == nullptr || shift == nullptr || dinv == nullptr ||
-                 dshift == nullptr || part == nullptr))
+  if ((kind != 0 && kind != 1) ||
+      (affine && (x == nullptr || shift == nullptr || dinv == nullptr ||
+                  dshift == nullptr || part == nullptr)))
     return (int)cudaErrorInvalidValue;
   const int64_t M = (int64_t)B * T * H * W;
-  if (kind == 1) {
-    if (M == 0 || Ci == 0) return 0;
-    if (Ci % 8 != 0 || Co % 8 != 0 || Co == 0 || bn != 144 ||
-        tiles_per_block < 1 || ahead < 1 || ahead > 2 || (!resident && ahead != 1))
+  if (M == 0 || Ci == 0) return 0;
+  if (Ci % 8 != 0 || Co % 8 != 0 || Co == 0 || tiles_per_block < 1)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  int ranges, e;
+  float* part1 = (float*)part;
+  if (kind == 0) {
+    if (bn != 64 || warps != 8 || (int64_t)tiles_per_block * H * W >= (1 << 30))
       return (int)cudaErrorInvalidValue;
-    cudaStream_t s = (cudaStream_t)stream;
+    SpatialDataArgs d{};
+    d.gy = (const bf16*)gy;
+    d.y = (const bf16*)y;
+    d.gs1 = (const float*)gs1;
+    d.gs2 = (const float*)gs2;
+    d.w = (const bf16*)wd;
+    d.x = (const bf16*)x;
+    d.inv = (const float*)inv;
+    d.shift = (const float*)shift;
+    d.dx = (bf16*)dx;
+    d.H = H;
+    d.W = W;
+    d.Ci = Ci;
+    d.Co = Co;
+    d.Cop = (Co + SD_KC - 1) / SD_KC * SD_KC;
+    d.images = B * T;
+    d.images_per_range = tiles_per_block;
+    d.n_tiles = (Ci + bn - 1) / bn;
+    d.XR = spatial_ring_rows(H, W, strip, 1);
+    ranges = (d.images + tiles_per_block - 1) / tiles_per_block;
+    d.part1 = part1;
+    d.part2 = affine ? part1 + (int64_t)ranges * Ci : nullptr;
+    e = dispatch_spatial_data(strip, affine, d, s);
+  } else {
+    if (bn != 144 || ahead < 1 || ahead > 2 || (!resident && ahead != 1))
+      return (int)cudaErrorInvalidValue;
     TemporalDataArgs t{};
     t.gy = (const bf16*)gy;
     t.y = (const bf16*)y;
@@ -2047,38 +2507,16 @@ extern "C" int m3f_conv_unit_bwd_data(const void* gy, const void* y,
     t.units_per_block = tiles_per_block;
     t.n_tiles = (Ci + bn - 1) / bn;
     t.ahead = ahead;
-    const int ranges = (t.units + tiles_per_block - 1) / tiles_per_block;
-    t.part1 = (float*)part;
-    t.part2 = affine ? t.part1 + (int64_t)ranges * Ci : nullptr;
-    const int e = dispatch_temporal_data(strip, warps, resident, affine, t, s);
-    if (e != 0 || !affine) return e;
-    colsum_kernel<<<(Ci + 31) / 32, dim3(32, 32), 0, s>>>(
-        t.part1, t.part2, ranges, Ci, (float*)dinv, (float*)dshift);
-    return (int)cudaGetLastError();
+    ranges = (t.units + tiles_per_block - 1) / tiles_per_block;
+    t.part1 = part1;
+    t.part2 = affine ? part1 + (int64_t)ranges * Ci : nullptr;
+    e = dispatch_temporal_data(strip, warps, resident, affine, t, s);
   }
-  UnitArgs a{};
-  a.a = (const bf16*)gy;
-  a.a2 = (const bf16*)y;
-  a.ka = (const float*)gs1;
-  a.kb = (const float*)gs2;
-  a.wk = (const bf16*)wd;
-  a.xe = (const bf16*)x;
-  a.na = (const float*)inv;
-  a.nb = (const float*)shift;
-  a.out = (bf16*)dx;
-  a.M = M;
-  a.Kc = Co;
-  a.N = Ci;
-  a.T = T;
-  a.H = H;
-  a.W = W;
-  a.tiles_per_block = tiles_per_block;
-  const int tiles_m = (int)((a.M + BM - 1) / BM);
-  const int R = tiles_per_block > 0 ? (tiles_m + tiles_per_block - 1) / tiles_per_block : 0;
-  a.part1 = (float*)part;
-  a.part2 = affine ? a.part1 + (int64_t)R * Ci : nullptr;
-  return run_unit<1>(kind, affine, bn, a, (float*)dinv, (float*)dshift,
-                     (cudaStream_t)stream);
+  if (e != 0 || !affine) return e;
+  colsum_kernel<<<(Ci + 31) / 32, dim3(32, 32), 0, s>>>(
+      part1, part1 + (int64_t)ranges * Ci, ranges, Ci, (float*)dinv,
+      (float*)dshift);
+  return (int)cudaGetLastError();
 }
 
 // Filter gradient of the unit. x [B, T, H, W, Ci], gy and y [B, T, H, W, Co]
@@ -2157,7 +2595,7 @@ extern "C" int m3f_conv_unit_bwd_filter(const void* x, const void* gy,
     a.images_per_slice = per;
     a.ci_blocks = (Ci + ci_blk - 1) / ci_blk;
     a.S = strip;
-    a.XR = spatial_ring_rows(H, W, strip);
+    a.XR = spatial_ring_rows(H, W, strip, SF_AHEAD + 1);
     e = dispatch_spatial_filter(ci_blk, bn, affine, a, slices, s);
   }
   if (e != 0 || slices == 1) return e;

@@ -211,8 +211,8 @@ def _check_unit(name, x, ci, co, kind, *tensors):
 
 
 def _rows_per_block(m: int, n: int, bn: int, dev: torch.device) -> int:
-    """Row tiles per block of the forward / spatial data-gradient kernel: enough
-    blocks for ~4 waves of the card, at most _TILES_PER_BLOCK_MAX."""
+    """Row tiles per block of the forward kernel: enough blocks for ~4 waves
+    of the card, at most _TILES_PER_BLOCK_MAX."""
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     tiles_m = -(-m // _BM)
     return max(1, min(_TILES_PER_BLOCK_MAX, tiles_m * (-(-n // bn)) // (4 * sms)))
@@ -297,11 +297,84 @@ def temporal_data_plan(b: int, t: int, h: int, w: int, ci: int, co: int,
         f"channels do not fit a block's shared memory ({smem} B)")
 
 
+# The spatial data gradient's row walk (spatial_data_kernel in conv_bn.cu):
+# 8 warps take a step of `step` output pixels x 64 input channels, K in
+# chunks of 16 output channels for all nine taps
+_SD_THREADS = 256
+_SD_N_TILE = 64            # input channels per block
+_SD_STEPS = (256, 128)     # output pixels per step, preferred first
+_SD_K_CHUNK = 16           # output channels per chunk (SD_KC)
+_SD_VMAX = 8               # gy vectors a thread copies per chunk (SD_VMAX)
+
+
+def _spatial_data_smem(w: int, co: int, step: int, rows: int) -> int:
+    """A block's shared memory (spatial_data_smem in conv_bn.cu): two ge and
+    one y chunk buffer of ``rows`` rows, two filter chunks, the x / dx tile,
+    two tap tables, gs1 / gs2, inv / shift."""
+    cop = _cdiv(co, _SD_K_CHUNK) * _SD_K_CHUNK
+    buf = rows * (w + 2) * (_SD_K_CHUNK + 8)
+    filt = _SD_N_TILE * (9 * _SD_K_CHUNK + 8)
+    return (2 * (3 * buf + 2 * filt + step * (_SD_N_TILE + 8)) + 24 * step
+            + 8 * cop + 4 * _SD_N_TILE)
+
+
+class SpatialDataPlan(NamedTuple):
+    """How the spatial data-gradient kernel cuts its work: ranges of
+    ``images_per_range`` whole (b, t) images, each walked as one stream of
+    output pixels in steps of ``step`` by ``warps`` warps, K in chunks of 16
+    output channels for all nine taps over buffers of ``buf_rows`` rows (the
+    rows one step reads); ``n_tiles`` tiles of ``n_tile`` input channels (ge
+    is formed once per tile); ``blocks`` = ``ranges`` x ``n_tiles``, each
+    range one partial row of dinv / dshift (``part_rows``); ``smem_bytes``
+    of shared memory a block."""
+    step: int
+    n_tile: int
+    warps: int
+    buf_rows: int
+    images: int
+    images_per_range: int
+    ranges: int
+    n_tiles: int
+    blocks: int
+    part_rows: int
+    smem_bytes: int
+
+    def images_of(self, r: int) -> range:
+        """The images (b * T + t) of range ``r``, as the kernel takes them."""
+        return range(r * self.images_per_range,
+                     min(self.images, (r + 1) * self.images_per_range))
+
+
+def spatial_data_plan(b: int, t: int, h: int, w: int, ci: int, co: int,
+                      sms: int) -> SpatialDataPlan:
+    """The spatial data gradient's tiling on a card of ``sms``
+    multiprocessors: the widest of _SD_STEPS whose buffers fit a block's
+    shared memory and whose rows a thread's _SD_VMAX copies a chunk cover,
+    then ``sms // n_tiles`` ranges of whole images, at most one per image."""
+    smem = rows = None
+    for step in _SD_STEPS:
+        rows = spatial_ring_rows(h, w, step, 1)
+        smem = _spatial_data_smem(w, co, step, rows)
+        if smem <= _SMEM_BLOCK_MAX and rows * w <= _SD_THREADS // 2 * _SD_VMAX:
+            break
+    else:
+        raise ValueError(
+            f"conv_unit_bwd_data spatial kernel: {rows} rows of {w} pixels do "
+            f"not fit a block's copies or shared memory ({smem} B)")
+    images = b * t
+    n_tiles = _cdiv(ci, _SD_N_TILE)
+    per = _cdiv(images, max(1, min(images, sms // n_tiles)))
+    ranges = _cdiv(images, per)
+    return SpatialDataPlan(step, _SD_N_TILE, _SD_THREADS // 32, rows, images,
+                           per, ranges, n_tiles, ranges * n_tiles, ranges,
+                           smem)
+
+
 def conv_unit_bwd_data(x, w, inv, shift, y, gy, gs1, gs2, *, kind: str):
     """Data gradient of the unit → (dx, dinv, dshift): the plain version on
     the CPU, one kernel launch (plus a fixed-order sum of its per-block
-    dinv/dshift rows) on the card: the forward's kernel with the flipped
-    filter (spatial) or the frame walk (temporal)."""
+    dinv/dshift rows) on the card: the row walk (spatial) or the frame walk
+    (temporal)."""
     if x.device.type == "cpu":
         return conv_unit_bwd_data_reference(x, w, inv, shift, y, gy, gs1, gs2,
                                             kind=kind)
@@ -322,17 +395,15 @@ def conv_unit_bwd_data(x, w, inv, shift, y, gy, gs1, gs2, *, kind: str):
     if affine:
         inv, shift = inv.float().contiguous(), shift.float().contiguous()
     wf = w.to(torch.bfloat16).contiguous()
+    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
     if kind == "spatial":
         # [Ci, 9·Co] with flipped taps: wf[ci, tap·Co + co] = W[mirror(tap), ci, co]
         wf = wf.flip((0, 1)).movedim(-2, 0).reshape(ci, 9 * co).contiguous()
-        m = b * t * h * wdt
-        bn = _tile_n(ci)
-        per = _rows_per_block(m, ci, bn, x.device)
-        rows = _cdiv(_cdiv(m, _BM), per)
-        tiling = (0, 0, 0, 0)
+        plan = spatial_data_plan(b, t, h, wdt, ci, co, sms)
+        bn, per, rows = plan.n_tile, plan.images_per_range, plan.part_rows
+        tiling = (plan.step, plan.warps, 0, 0)
     else:
         # the temporal kernel reads the filter as it is and flips the taps
-        sms = torch.cuda.get_device_properties(x.device).multi_processor_count
         plan = temporal_data_plan(b, t, h, wdt, ci, co, sms)
         bn, per, rows = plan.n_tile, plan.units_per_block, plan.part_rows
         tiling = (plan.strip, plan.warps, int(plan.resident), plan.ahead)
@@ -415,11 +486,13 @@ _SPATIAL_STEPS = (112, 64, 48, 32, 16)  # output pixels per step, preferred firs
 _SPATIAL_AHEAD = 3         # steps copied ahead of the products (SF_AHEAD)
 
 
-def spatial_ring_rows(h: int, w: int, step: int) -> int:
-    """Rows of the kernel's x ring: the image rows under _SPATIAL_AHEAD + 1
-    steps of ``step`` pixels at the worst alignment, the zero rows between
-    the images they touch, and the halo row above and below."""
-    span = (_SPATIAL_AHEAD + 1) * step
+def spatial_ring_rows(h: int, w: int, step: int,
+                      steps: int = _SPATIAL_AHEAD + 1) -> int:
+    """Rows of a row walk's ring (spatial_ring_rows in conv_bn.cu): the image
+    rows under ``steps`` steps of ``step`` pixels at the worst alignment, the
+    zero rows between the images they touch, and the halo row above and
+    below. The filter gradient's x ring holds _SPATIAL_AHEAD + 1 steps."""
+    span = steps * step
     dr = (span + w - 2) // w
     return dr + _cdiv(dr, h) + 3
 

@@ -1,11 +1,11 @@
 """Where the walk kernels' time goes, on the card: both filter gradients
-and the temporal data gradient.
+and both data gradients.
 
 Times ``conv_unit_bwd_filter`` (``--kind spatial``, the row walk, or
 ``--kind temporal``, the frame walk) or ``conv_unit_bwd_data`` of the
-temporal unit (``--kind temporal_data``, its frame walk) at the four units
-of that kind in the full-width ``fusion`` train step (32 clips, BN prologue
-on), beside:
+temporal unit (``--kind temporal_data``, its frame walk) or of the spatial
+unit (``--kind spatial_data``, its row walk) at the four units of that kind
+in the full-width ``fusion`` train step (32 clips, BN prologue on), beside:
 
 - the same kernel at each tiling it can take: the temporal kernel's channel
   blocks (48, 64); the spatial kernel's channel tiles (64 x 48, 32 x 48)
@@ -30,19 +30,29 @@ on), beside:
   without the epilogue (8: mask, scale, sums, dx stores), and with only the
   rings streaming (11); cuDNN's data gradient
   (``torch.nn.grad.conv3d_input``) on ge already formed, and a device copy
-  of the same bytes (gy, y and x in, dx out).
+  of the same bytes (gy, y and x in, dx out);
+- for ``spatial_data``: with and without the prologue, the planner's tiling
+  and every step the entry point takes where its buffers fit (256 and 128
+  output pixels x 64 input channels); ablations built with
+  ``-DSD_ABLATE``: without forming ge (1), without the products (2),
+  without the copies of gy, y and x (4), without the epilogue (8), and with
+  the filter stream alone (15); cuDNN's data gradient
+  (``torch.nn.grad.conv3d_input``) on ge already formed, and a device copy
+  of the same bytes.
 
 Run on a machine with an NVIDIA GPU, from the repository root:
 
     python -m m3f_torch.scripts.filter_sweep --kind spatial [--reps 20]
     python -m m3f_torch.scripts.filter_sweep --kind spatial --check
     python -m m3f_torch.scripts.filter_sweep --kind temporal_data --check
+    python -m m3f_torch.scripts.filter_sweep --kind spatial_data --check
 
 It prints the ``nvidia-smi`` card line, then one JSON line per shape with
 the median ms of ``--reps`` calls between CUDA events. ``--check`` instead
 prints what ``ptxas`` says of the kernel (registers, spills, shared memory)
 and holds the kernel once against the plain version at each shape and at a
-few small ones (``temporal_data``: at every layout the entry point takes).
+few small ones (``temporal_data``: at every layout the entry point takes;
+``spatial_data``: at every step).
 Nothing runs at import.
 """
 
@@ -108,8 +118,9 @@ def build_variants(defines: Dict[str, str],
 
 def resources(kind: str) -> None:
     """Print what ptxas says of the kind's kernel
-    (``<kind>_filter_kernel`` or ``temporal_data_kernel``)."""
-    kernel = f"{kind}_kernel" if kind == "temporal_data" else f"{kind}_filter_kernel"
+    (``<kind>_filter_kernel``, ``temporal_data_kernel`` or
+    ``spatial_data_kernel``)."""
+    kernel = f"{kind}_kernel" if kind.endswith("_data") else f"{kind}_filter_kernel"
     log = subprocess.run(
         [cuda_lib._nvcc(), *cuda_lib.NVCC_FLAGS, "-Xptxas", "-v", "-o",
          "/dev/null", *(["-DTD_TRIALS"] if kind == "temporal_data" else []),
@@ -424,10 +435,157 @@ def sweep_data(reps: int) -> None:
         torch.cuda.empty_cache()
 
 
+# --- the spatial data gradient --------------------------------------------
+
+SD_ABLATIONS = {"no_forming": 1, "no_products": 2, "no_copies": 4,
+                "no_epilogue": 8, "filter_stream_only": 15}
+# small shapes (x shape, C_out): a partial N tile and masked pixels (W = 9,
+# steps spanning rows and images); C_in 152; one-pixel images; wide C_out
+SD_SMALL = (((3, 5, 7, 9, 24), 40), ((2, 3, 5, 7, 152), 40),
+            ((3, 4, 1, 1, 16), 8), ((1, 2, 14, 14, 40), 512),
+            ((1, 2, 7, 7, 24), 1024))
+
+
+def spatial_data_inputs(xs, co, dev, g):
+    x, inv, shift, y, gy, gs1, gs2 = inputs(xs, co, dev, g)
+    ci = xs[-1]
+    w = ((torch.rand(3, 3, ci, co, device=dev, generator=g) * 2 - 1)
+         / (9 * ci) ** 0.5).to(torch.bfloat16)
+    return x, w, inv, shift, y, gy, gs1, gs2
+
+
+def launch_spatial_data(fn, x, w, inv, shift, y, gy, gs1, gs2, step=None):
+    """One call of a build's ``m3f_conv_unit_bwd_data`` for the spatial unit
+    with the planner's tiling, or with ``step`` output pixels a step in its
+    place (what ``conv_unit_bwd_data`` does, minus its checks); ``inv`` None
+    leaves the prologue out. None when the entry point refuses the step (its
+    buffers do not fit)."""
+    b, t, h, wd, ci = x.shape
+    co = gy.shape[-1]
+    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+    plan = conv_bn.spatial_data_plan(b, t, h, wd, ci, co, sms)
+    wf = w.flip((0, 1)).movedim(-2, 0).reshape(ci, 9 * co).contiguous()
+    dx = torch.empty_like(x)
+    ptr = lambda v: None if v is None else v.data_ptr()
+    dinv = dshift = part = None
+    if inv is not None:
+        dinv = torch.empty(ci, dtype=torch.float32, device=x.device)
+        dshift = torch.empty_like(dinv)
+        part = torch.empty(2 * plan.part_rows * ci, dtype=torch.float32,
+                           device=x.device)
+    err = fn(gy.data_ptr(), y.data_ptr(), gs1.data_ptr(), gs2.data_ptr(),
+             wf.data_ptr(), None if inv is None else x.data_ptr(), ptr(inv),
+             ptr(shift), dx.data_ptr(), ptr(dinv), ptr(dshift), ptr(part), 0,
+             b, t, h, wd, ci, co, plan.n_tile, plan.images_per_range,
+             step or plan.step, plan.warps, 0, 0, cuda_lib.stream_ptr(x))
+    if err == 1 and step:
+        return None                      # cudaErrorInvalidValue: no such step
+    cuda_lib.check(err, f"spatial data sweep, step {step}")
+    return dx, dinv, dshift
+
+
+def check_spatial_data() -> None:
+    """ptxas' resource lines, then the spatial data gradient against the
+    plain version, with and without the prologue: the wrapper once at each
+    small and each train shape (and whether a second call repeats dx, dinv
+    and dshift bit for bit), and at the small shapes every step the entry
+    point takes where it fits."""
+    dev = resolve_device("cuda")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False      # the plain version in fp32
+    resources("spatial_data")
+    cuda_lib.build(["conv_bn"])
+    main = cuda_lib.library("conv_bn").m3f_conv_unit_bwd_data
+    g = torch.Generator(device=dev).manual_seed(12)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for xs, co in SD_SMALL + SHAPES["spatial"]:
+        x, w, inv, shift, y, gy, gs1, gs2 = spatial_data_inputs(xs, co, dev, g)
+        plan = conv_bn.spatial_data_plan(*xs, co, sms)
+        row = {"x": list(xs), "co": co, "plan": [plan.step, plan.buf_rows]}
+        for affine in (True, False):
+            a = (inv, shift) if affine else (None, None)
+            args = (x, w, *a, y, gy, gs1, gs2)
+            got = conv_bn.conv_unit_bwd_data(*args, kind="spatial")
+            again = conv_bn.conv_unit_bwd_data(*args, kind="spatial")
+            torch.cuda.synchronize()
+            ref = conv_bn.conv_unit_bwd_data_reference(*args, kind="spatial")
+            n = 3 if affine else 1
+            key = "affine" if affine else "plain"
+            row[key] = {"max_err_over_max_ref": _data_errors(got[:n], ref[:n]),
+                        "repeats": all(torch.equal(p, q)
+                                       for p, q in zip(got[:n], again[:n]))}
+            if (xs, co) in SD_SMALL:
+                for step in conv_bn._SD_STEPS:
+                    out = launch_spatial_data(main, *args, step=step)
+                    torch.cuda.synchronize()
+                    row[key][f"step_{step}"] = \
+                        None if out is None else _data_errors(out[:n], ref[:n])
+            del got, again, ref
+        print(json.dumps(row), flush=True)
+        del x, y, gy
+        torch.cuda.empty_cache()
+
+
+def sweep_spatial_data(reps: int) -> None:
+    dev = resolve_device("cuda")
+    cuda_lib.build(["conv_bn"])
+    main = cuda_lib.library("conv_bn").m3f_conv_unit_bwd_data
+    built = build_variants({name: f"SD_ABLATE={k}"
+                            for name, k in SD_ABLATIONS.items()},
+                           "m3f_conv_unit_bwd_data")
+    g = torch.Generator(device=dev).manual_seed(12)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for xs, co in SHAPES["spatial"]:
+        ci = xs[-1]
+        x, w, inv, shift, y, gy, gs1, gs2 = spatial_data_inputs(xs, co, dev, g)
+        plan = conv_bn.spatial_data_plan(*xs, co, sms)
+        kern, pad = conv_bn._torch_kernel(w, "spatial")
+        kern = kern.contiguous(memory_format=torch.channels_last_3d)
+        gn = conv_bn._gy_eff(gy, y, gs1, gs2).permute(0, 4, 1, 2, 3)
+        xshape = (xs[0], ci) + tuple(xs[1:4])
+        cudnn = timed(lambda: torch.nn.grad.conv3d_input(
+            xshape, kern, gn, padding=pad), reps)
+        m = x.numel() // ci
+        flops = 2 * m * 9 * ci * co
+        for affine in (True, False):
+            a = (inv, shift) if affine else (None, None)
+            args = (x, w, *a, y, gy, gs1, gs2)
+            row = {"kind": "spatial_data", "x": list(xs), "co": co,
+                   "affine": affine, "plan": plan._asdict(),
+                   "ms": timed(lambda: conv_bn.conv_unit_bwd_data(
+                       *args, kind="spatial"), reps)}
+            row["entry_ms"] = timed(lambda: launch_spatial_data(main, *args), reps)
+            for step in conv_bn._SD_STEPS:
+                if launch_spatial_data(main, *args, step=step) is not None:
+                    row[f"step_{step}_ms"] = timed(
+                        lambda: launch_spatial_data(main, *args, step=step), reps)
+            if affine:
+                for name, fn in built.items():
+                    row[f"{name}_ms"] = timed(
+                        lambda: launch_spatial_data(fn, *args), reps)
+            row["cudnn_ms"] = cudnn
+            if affine:      # x and gy read and written: gy, y, x in, dx out
+                bx, bg = torch.empty_like(x), torch.empty_like(gy)
+                row["copy_same_bytes_ms"] = timed(
+                    lambda: (bx.copy_(x), bg.copy_(gy)), reps)
+                del bx, bg
+            nbytes = 2 * m * co * 2 + m * ci * 2 + 9 * ci * co * 2 + 2 * co * 4
+            if affine:
+                nbytes += m * ci * 2 + 4 * ci * 4
+            row["bound_ms"] = max(nbytes / HBM, flops / PEAK_BF16) * 1e3
+            row["bound_by"] = "bytes" if nbytes / HBM >= flops / PEAK_BF16 \
+                else "operations"
+            row["tflops"] = flops / row["ms"] / 1e9
+            row["TBps"] = nbytes / row["ms"] / 1e9
+            print(json.dumps(row), flush=True)
+        del x, y, gy, gn, args
+        torch.cuda.empty_cache()
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--kind", choices=("spatial", "temporal", "temporal_data"),
-                    default="spatial")
+    ap.add_argument("--kind", choices=("spatial", "temporal", "temporal_data",
+                                       "spatial_data"), default="spatial")
     ap.add_argument("--reps", type=int, default=20)
     ap.add_argument("--check", action="store_true",
                     help="ptxas' resource lines and one comparison per shape")
@@ -437,6 +595,8 @@ def main(argv=None) -> None:
         capture_output=True, text=True, check=True).stdout.strip(), flush=True)
     if opts.kind == "temporal_data":
         check_data() if opts.check else sweep_data(opts.reps)
+    elif opts.kind == "spatial_data":
+        check_spatial_data() if opts.check else sweep_spatial_data(opts.reps)
     elif opts.check:
         check(opts.kind)
     else:

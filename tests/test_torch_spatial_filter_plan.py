@@ -20,7 +20,10 @@ TRAIN = [(32, 16, 56, 56, 64, 144), (32, 8, 28, 28, 128, 288),
 # chip_smoke.py BWD_EDGE_SHAPES, spatial: (B, T, H, W, C_in, C_out)
 EDGE = [(3, 5, 7, 9, 24, 40), (2, 3, 1, 11, 40, 24), (2, 2, 6, 1, 24, 16),
         (3, 4, 1, 1, 16, 8), (2, 3, 5, 7, 152, 40), (1, 1, 9, 13, 48, 40),
-        (1, 2, 2, 3, 16, 24), (3, 200, 3, 5, 16, 8), (1, 2, 70, 11, 24, 40)]
+        (1, 2, 2, 3, 16, 24), (3, 200, 3, 5, 16, 8), (1, 2, 70, 11, 24, 40),
+        (2, 3, 4, 3, 40, 296), (1, 2, 9, 11, 40, 288), (1, 2, 9, 9, 152, 704),
+        (1, 2, 14, 14, 40, 512), (2, 3, 1, 1, 24, 440), (1, 2, 7, 7, 24, 1024),
+        (1, 2, 3, 200, 24, 40)]
 IDS = ["x".join(map(str, s)) for s in TRAIN + EDGE]
 
 
