@@ -9,11 +9,17 @@ H100 (``python3 chip_smoke.py``). It
    source, all at once);
 2. holds each kernel against its plain PyTorch version on the card at the
    shapes the full-width ``longseq_eval`` forward gives it, and times the
-   kernel, the plain version and one PyTorch yardstick call with CUDA events
-   (median of 20); the conv units' channel sums are held per channel, and
-   the same check is shown to refuse a zeroed, channel-shifted or
-   partial-tile-short s1; then checks each kernel at a few shapes off the
-   main path's tiling (masked edges);
+   plain version with CUDA events (median of 20) and the kernel and one
+   PyTorch yardstick call in turn (5 rounds of 20: the median of the round
+   medians and their spread); the conv units' channel sums are held per
+   channel, and the same check is shown to refuse a zeroed,
+   channel-shifted or last-partial-step-short s1; the spatial unit's y
+   check is shown to refuse a y whose zero padding went through the
+   prologue and a y from the filter with dh and dw swapped, and two calls
+   must give the same bits; then checks each kernel at shapes off the main
+   path's tiling (FWD_EDGE_SHAPES: images smaller and larger than a step,
+   W not dividing it, partial chunks, masked channels, the filter resident
+   and streamed; mel rows with a partial last frame block for both hops);
    The four backward kernels of the conv units (data and filter gradient,
    spatial and temporal) are held the same way at the fusion train step's
    shapes: dx per element (one bf16 ulp, carried through inv), dw per
@@ -44,7 +50,9 @@ H100 (``python3 chip_smoke.py``). It
    "longseq_eval")`` at full width with seeded random weights: a 30 fps
    request, a 25 fps request (per-video mel hop) and a chunked one
    (``window.eval_max_windows=64``), each with the launch counters set to 0
-   just before and read just after; every kernel must have launched;
+   just before and read just after; every kernel must have launched; then
+   ``predict_many`` over 3 videos with 2 in flight, each bit for bit
+   ``predict_video``'s, timed beside the serial loop;
 4. runs the same weights of a narrow model through the port on the CPU
    (plain versions) and on the card (kernels) and compares the predictions;
 5. trains the full-width ``fusion`` preset (R(2+1)D-18, batch 8 x 4
@@ -81,7 +89,7 @@ CONV_Y_REL = 2 ** -7     # bf16 y: one ulp from the fp32 summation order ...
 CONV_Y_ABS = 1e-5        # ... plus a floor, relative to max|y|, near zero
 CONV_S_REL = 1e-5        # channel sums, per channel: fp32 summation order,
 #                          relative to sum|y| and to s2 (see sum_limits)
-CONV_BM = 128            # the conv kernel's row tile (BM in conv_bn.cu)
+CONV_BM = 128            # the temporal forward's row tile (BM in conv_bn.cu)
 #                          bf16 dx per element: one ulp (the fp32 summation
 #                          order of dx^); with the prologue, that ulp of dx^
 #                          carried through the scale by |inv| plus two ulps
@@ -150,6 +158,23 @@ def timed(torch, fn, reps=20):
     return statistics.median(times)
 
 
+ROUNDS = 5               # rounds of ALT_REPS calls, kernel and library in turn
+ALT_REPS = 20
+
+
+def timed_alternating(torch, fns, rounds=ROUNDS, reps=ALT_REPS):
+    """``fns`` = {name: fn}, timed in turn: each round times every fn as
+    ``timed`` does (median of ``reps``), one after the other. Returns {name:
+    (median of the round medians, spread = largest - smallest round
+    median)}: a kernel and its library call timed under the same load."""
+    per = {name: [] for name in fns}
+    for _ in range(rounds):
+        for name, fn in fns.items():
+            per[name].append(timed(torch, fn, reps))
+    return {name: (statistics.median(v), max(v) - min(v))
+            for name, v in per.items()}
+
+
 def bound(nbytes, flops, peak):
     t_bytes, t_ops = nbytes / HBM * 1e3, flops / peak * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
@@ -170,7 +195,6 @@ def check_mel(torch, melspec, cfg):
     require(err <= MEL_ATOL and err_d <= MEL_ATOL,
             f"mel kernel vs plain: static {err}, dynamic {err_d} > {MEL_ATOL}")
     bf = torch.bfloat16
-    ms = timed(torch, lambda: melspec.log_mel_spectrogram(wav, cfg, bf))
     plain = timed(torch, lambda: melspec.log_mel_spectrogram_reference(wav, cfg, bf))
     win = torch.hann_window(cfg.win_length, periodic=True, device="cuda")
     fb = torch.from_numpy(melspec.mel_filterbank(cfg)).cuda()
@@ -180,7 +204,10 @@ def check_mel(torch, melspec, cfg):
                           center=True, pad_mode="reflect", return_complex=True)
         power = spec.real ** 2 + spec.imag ** 2               # [N, bins, F]
         return torch.log(power.transpose(1, 2) @ fb + cfg.log_eps).to(bf)
-    lib = timed(torch, library)
+    t = timed_alternating(torch, {
+        "kernel": lambda: melspec.log_mel_spectrogram(wav, cfg, bf),
+        "library": library})
+    (ms, ms_spread), (lib, lib_spread) = t["kernel"], t["library"]
     # The function's own work, whatever the algorithm: per frame the window,
     # a real FFT (5/2 n log2 n), the power of each bin, the mel product and
     # the log; bytes are the wav in and the log-mel out (constants such as
@@ -191,7 +218,8 @@ def check_mel(torch, melspec, cfg):
     nbytes = wav.numel() * 4 + frames * cfg.n_mels * 2
     b_ms, b_by = bound(nbytes, flops, PEAK_FP32)
     emit({"phase": "kernel_melspec", "max_abs_err": err, "max_abs_err_dynamic_hop": err_d,
-          "tol": MEL_ATOL, "ms": ms, "plain_ms": plain, "library_ms": lib,
+          "tol": MEL_ATOL, "ms": ms, "ms_spread": ms_spread, "plain_ms": plain,
+          "library_ms": lib, "library_ms_spread": lib_spread,
           "bound_ms": b_ms})
     return {"name": "melspec", "max_abs_err": max(err, err_d), "ms": ms,
             "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by,
@@ -215,20 +243,22 @@ def check_gru(torch, gru):
     require(err32 <= GRU_ATOL_F32 and err16 <= GRU_ATOL_BF16,
             f"gru kernel vs plain: fp32 {err32} (tol {GRU_ATOL_F32}), bf16 "
             f"{err16} (tol {GRU_ATOL_BF16})")
-    ms = timed(torch, lambda: gru.gru_scan(xb, wb, b))
     plain = timed(torch, lambda: gru.gru_scan_reference(xb, wb, b))
     ref = torch.nn.GRU(768, H, batch_first=True, bidirectional=True).cuda().to(bf)
     ref.flatten_parameters()
     x_in = torch.randn(B, T, 768, device="cuda", generator=g).to(bf)
     with torch.no_grad():
-        lib = timed(torch, lambda: ref(x_in))
+        t = timed_alternating(torch, {"kernel": lambda: gru.gru_scan(xb, wb, b),
+                                      "library": lambda: ref(x_in)})
+    (ms, ms_spread), (lib, lib_spread) = t["kernel"], t["library"]
     flops = 2 * D * T * B * H * 3 * H
     nbytes = xb.numel() * 2 + wb.numel() * 2 + b.numel() * 4 + B * T * D * H * 2
     b_ms, b_by = bound(nbytes, flops, PEAK_BF16)
     emit({"phase": "kernel_gru", "max_abs_err_bf16": err16, "tol_bf16": GRU_ATOL_BF16,
           "max_abs_err_fp32": err32, "tol_fp32": GRU_ATOL_F32, "ms": ms,
-          "plain_ms": plain, "library_ms_nn_gru_incl_input_proj": lib,
-          "bound_ms": b_ms})
+          "ms_spread": ms_spread, "plain_ms": plain,
+          "library_ms_nn_gru_incl_input_proj": lib,
+          "library_ms_spread": lib_spread, "bound_ms": b_ms})
     return {"name": "gru", "max_abs_err": err16, "ms": ms, "plain_ms": plain,
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib}
 
@@ -250,22 +280,80 @@ def sums_within(s1, s2, s10, s20, lims):
                 and ((s2 - s20).abs() <= lims[1]).all())
 
 
-def check_sums(what, y, y0, s1, s2, s10, s20):
+def check_sums(what, y, y0, s1, s2, s10, s20, tail):
     """Holds the sums per channel, then shows that the same check refuses a
-    kernel whose s1 is zero, lies one channel off, or leaves out the rows
-    of a last partial row tile. Returns the worst |s1 - s10| / limit."""
+    kernel whose s1 is zero, lies one channel off, or leaves out the ``tail``
+    pixels at the end of y (the kernel's last partial step or row tile,
+    ``last_partial``; no such control when it is 0). Returns the worst
+    |s1 - s10| / limit."""
     lims = sum_limits(y, y0, s20)
     require(sums_within(s1, s2, s10, s20, lims),
             f"{what}: channel sums off by s1 {(s1 - s10).abs().max().item()}, "
             f"s2 {(s2 - s20).abs().max().item()}")
     wrong = {"s1_zero": s1 * 0, "s1_one_channel_off": s1.roll(1)}
-    partial = math.prod(y.shape[:-1]) % CONV_BM
-    if partial:
-        wrong["s1_partial_tile_left_out"] = \
-            s1 - y.reshape(-1, y.shape[-1])[-partial:].float().sum(0)
+    if tail:
+        wrong["s1_last_partial_step_left_out"] = \
+            s1 - y.reshape(-1, y.shape[-1])[-tail:].float().sum(0)
     passed = [k for k, v in wrong.items() if sums_within(v, s2, s10, s20, lims)]
     require(not passed, f"{what}: the sums check would pass a wrong s1: {passed}")
     return ((s1 - s10).abs() / lims[0]).max().item()
+
+
+def last_partial(torch, conv_bn, kind, xs, co):
+    """Pixels at the end of y that the forward kernel computes in its last
+    partial step: the spatial row walk's last step of the last range, the
+    temporal kernel's last row tile of CONV_BM; 0 where that is full."""
+    if kind == "temporal":
+        return math.prod(xs[:-1]) % CONV_BM
+    b, t, h, w, ci = xs
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    plan = conv_bn.spatial_fwd_plan(b, t, h, w, ci, co, sms)
+    return len(plan.images_of(plan.ranges - 1)) * h * w % plan.step
+
+
+def y_within(y, y0):
+    """y per element: one bf16 ulp (CONV_Y_REL) plus a floor."""
+    y0a = y0.float().abs()
+    return bool(((y.float() - y0.float()).abs()
+                 <= CONV_Y_REL * y0a + CONV_Y_ABS * y0a.max()).all())
+
+
+def check_fwd_unit(torch, F, conv_bn, what, x, w, a, kind):
+    """One forward unit: y per element and the sums per channel against the
+    plain version, with their controls; for the spatial kind the y check
+    is shown to refuse a y whose zero padding went through the prologue
+    (with the prologue) and a y from the filter with dh and dw swapped
+    (images of more than one pixel), and a second call must give the same
+    bits. Returns (max |dy|, worst sums
+    error over its limit)."""
+    y, s1, s2 = conv_bn.conv_unit_fwd(x, w, *a, kind=kind)
+    y0, s10, s20 = conv_bn.conv_unit_reference(x, w, *a, kind=kind)
+    err = (y.float() - y0.float()).abs().max().item()
+    require(y_within(y, y0), f"{what}: max |dy| {err}")
+    ratio = check_sums(what, y, y0, s1, s2, s10, s20,
+                       last_partial(torch, conv_bn, kind, x.shape, w.shape[-1]))
+    if kind == "spatial":
+        wrong = {}
+        if x.shape[2] * x.shape[3] > 1:       # 1x1 images read the centre tap only
+            wrong["filter_dh_dw_swapped"] = conv_bn.conv_unit_reference(
+                x, w.transpose(0, 1), *a, kind=kind)[0]
+        if a[0] is not None:
+            xh = conv_bn._prologue(F.pad(x, (0, 0, 1, 1, 1, 1)), *a)
+            kern, _ = conv_bn._torch_kernel(w.to(x.dtype), kind)
+            wrong["padding_through_prologue"] = F.conv3d(
+                xh.permute(0, 4, 1, 2, 3),
+                kern.contiguous(memory_format=torch.channels_last_3d)
+            ).permute(0, 2, 3, 4, 1)
+            del xh
+        passed = [k for k, v in wrong.items() if y_within(v, y0)]
+        require(not passed, f"{what}: the y check would pass: {passed}")
+        del wrong
+        y2, s12, s22 = conv_bn.conv_unit_fwd(x, w, *a, kind=kind)
+        require(torch.equal(y2, y) and torch.equal(s12, s1)
+                and torch.equal(s22, s2),
+                f"{what}: a second call gave another y, s1 or s2")
+        del y2
+    return err, ratio
 
 
 def _conv_units():
@@ -294,17 +382,8 @@ def check_conv(torch, F, conv_bn):
         if affine:
             a = (torch.rand(xs[-1], device="cuda", generator=g) + 0.5,
                  torch.randn(xs[-1], device="cuda", generator=g) * 0.1)
-        y, s1, s2 = conv_bn.conv_unit_fwd(x, w, *a, kind=kind)
-        y0, s10, s20 = conv_bn.conv_unit_reference(x, w, *a, kind=kind)
-        dy = (y.float() - y0.float()).abs()
-        y0a = y0.float().abs()
-        ok_y = bool((dy <= CONV_Y_REL * y0a + CONV_Y_ABS * y0a.max()).all())
-        err = dy.max().item()
         what = f"conv unit {kind} {xs} affine={affine}"
-        require(ok_y, f"{what}: max |dy| {err}")
-        del dy, y0a
-        s1_ratio = check_sums(what, y, y0, s1, s2, s10, s20)
-        ms = timed(torch, lambda: conv_bn.conv_unit_fwd(x, w, *a, kind=kind))
+        err, s1_ratio = check_fwd_unit(torch, F, conv_bn, what, x, w, a, kind)
         plain = timed(torch, lambda: conv_bn.conv_unit_reference(x, w, *a, kind=kind))
         xhat = torch.clamp_min(x * a[0].to(x.dtype) + a[1].to(x.dtype), 0) \
             if affine else x
@@ -315,7 +394,10 @@ def check_conv(torch, F, conv_bn):
             yl = F.conv3d(xhat.permute(0, 4, 1, 2, 3), kern, padding=pad)
             yf = yl.float()
             return yf.sum((0, 2, 3, 4)), (yf * yf).sum((0, 2, 3, 4))
-        lib = timed(torch, library)
+        t = timed_alternating(torch, {
+            "kernel": lambda: conv_bn.conv_unit_fwd(x, w, *a, kind=kind),
+            "library": library})
+        (ms, ms_spread), (lib, lib_spread) = t["kernel"], t["library"]
         m = math.prod(xs[:-1])
         flops = 2 * m * k * ws[-1]
         nbytes = x.numel() * 2 + w.numel() * 2 + m * ws[-1] * 2 \
@@ -324,7 +406,8 @@ def check_conv(torch, F, conv_bn):
         emit({"phase": "kernel_conv_unit", "kind": kind, "x": list(xs),
               "w": list(ws), "affine": affine, "per_forward": copies,
               "max_abs_err": err, "s1_err_over_limit": s1_ratio,
-              "ms": ms, "plain_ms": plain, "library_ms_conv3d_sums": lib,
+              "ms": ms, "ms_spread": ms_spread, "plain_ms": plain,
+              "library_ms_conv3d_sums": lib, "library_ms_spread": lib_spread,
               "bound_ms": b_ms, "tflops": flops / ms / 1e9})
         acc = out.setdefault(kind, {"name": f"conv_unit_{kind}", "max_abs_err": 0.0,
                                     "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
@@ -333,7 +416,8 @@ def check_conv(torch, F, conv_bn):
         for key, v in (("ms", ms), ("plain_ms", plain), ("library_ms", lib),
                        ("_ops", flops / PEAK_BF16 * 1e3), ("_bytes", nbytes / HBM * 1e3)):
             acc[key] += copies * v
-        del x, y, y0
+        del x, xhat
+        torch.cuda.empty_cache()
     for acc in out.values():
         t_ops, t_bytes = acc.pop("_ops"), acc.pop("_bytes")
         acc["bound_ms"] = max(t_ops, t_bytes)
@@ -533,9 +617,12 @@ def check_bwd_unit(torch, conv_bn, what, x, w, inv, shift, gy, gs1, gs2,
 def check_bwd(torch, conv_bn, clips=32):
     """The four backward kernels at the fusion train step's shapes: each
     held against its plain version, timed beside the plain version and
-    cuDNN's backward (torch.nn.grad.conv3d_input / conv3d_weight, bf16)."""
+    cuDNN's backward (torch.nn.grad.conv3d_input / conv3d_weight, bf16).
+    The forward units are timed at the same shapes too, for their share of
+    the step (phase ``conv_fwd_train_step``)."""
     g = torch.Generator(device="cuda").manual_seed(6)
     out = {}
+    fwd_step = {"spatial": 0.0, "temporal": 0.0}
     for kind, xs, ws, affine, copies in _train_units(clips):
         x = torch.randn(*xs, device="cuda", generator=g).to(torch.bfloat16)
         k = math.prod(ws[:-1])
@@ -553,6 +640,8 @@ def check_bwd(torch, conv_bn, clips=32):
         what = f"conv unit bwd {kind} {xs} affine={affine}"
         y, errs = check_bwd_unit(torch, conv_bn, what, x, w, *a, gy, gs1, gs2,
                                  kind)
+        fwd_step[kind] += copies * timed(
+            torch, lambda: conv_bn.conv_unit_fwd(x, w, *a, kind=kind))
         xh = conv_bn._prologue(x, *a)
         ge = conv_bn._gy_eff(gy, y, gs1, gs2)
         kern, pad = conv_bn._torch_kernel(w, kind)
@@ -603,6 +692,8 @@ def check_bwd(torch, conv_bn, clips=32):
         t_ops, t_bytes = acc.pop("_ops"), acc.pop("_bytes")
         acc["bound_ms"] = max(t_ops, t_bytes)
         acc["bound_by"] = "operations" if t_ops >= t_bytes else "bytes"
+    emit({"phase": "conv_fwd_train_step", "clips": clips,
+          "ms_per_step": fwd_step})
     return [out[k] for k in BWD_KERNELS]
 
 
@@ -876,40 +967,73 @@ def check_probe(torch, F, cuda_lib, pc, probe):
     return entries, counts
 
 
-def check_edges(torch, melspec, gru, conv_bn, cfg):
+# Forward shapes off the main path's tiling (x shape, w shape). The spatial
+# row walk (spatial_fwd_plan): W = 9, C_in 24 (a chunk half masked), C_out 40
+# (steps of 256 x 64 channels, masked), images of 63 pixels (smaller than a
+# step); C_out 136 (one N tile of 144, 8 masked) over images of 35 pixels;
+# one image of 400 pixels (larger than a step) with W = 20 not dividing the
+# step, the filter resident; 16 images of 15 pixels a range (a step spans
+# nine images); C_in 152 (ten chunks, the last half masked) and C_out 288
+# (five N tiles of 64, the filter resident) with W = 13; C_in 200 (the filter
+# streamed) and C_out 152 (three N tiles of 64, the last 24 wide); C_in 264
+# and C_out 288 (two N tiles of 144, the filter streamed); rows of 200
+# pixels (steps of 128: a 256-pixel step's rows outgrow a thread's copies);
+# one-pixel images (513 buffer rows); eight N tiles of a stage-4-like unit.
+# The temporal unit: a partial row tile and masked channels.
+FWD_EDGE_SHAPES = (("spatial", (3, 5, 7, 9, 24), (3, 3, 24, 40)),
+                   ("spatial", (2, 3, 5, 7, 32), (3, 3, 32, 136)),
+                   ("spatial", (1, 2, 20, 20, 24), (3, 3, 24, 144)),
+                   ("spatial", (8, 250, 3, 5, 24), (3, 3, 24, 40)),
+                   ("spatial", (2, 2, 11, 13, 152), (3, 3, 152, 288)),
+                   ("spatial", (1, 2, 9, 9, 200), (3, 3, 200, 152)),
+                   ("spatial", (1, 2, 6, 6, 264), (3, 3, 264, 288)),
+                   ("spatial", (1, 3, 3, 200, 16), (3, 3, 16, 40)),
+                   ("spatial", (3, 4, 1, 1, 16), (3, 3, 16, 8)),
+                   ("spatial", (1, 2, 7, 7, 24), (3, 3, 24, 1152)),
+                   ("temporal", (2, 7, 5, 3, 40), (3, 40, 24)))
+
+
+def check_edges(torch, F, melspec, gru, conv_bn, cfg):
     """Shapes off the main path's tiling, for the kernels' masked edges:
-    conv tiles with a partial row tile and masked output channels, a GRU
-    batch tile half full with H not a multiple of 32, and mel rows long
-    enough for two frame blocks, the second partial."""
+    the conv units at FWD_EDGE_SHAPES with and without the prologue (its
+    shift away from zero, |shift| >= 0.2 either sign, so a border formed as
+    relu(shift) fails), a GRU batch tile half full with H not a multiple of
+    32, and mel rows whose last frame block is partial, for the static hop
+    and for per-row hops."""
     g = torch.Generator(device="cuda").manual_seed(5)
     errs = {}
-    for kind, xs, ws in (("spatial", (3, 5, 7, 9, 24), (3, 3, 24, 40)),
-                         ("temporal", (2, 7, 5, 3, 40), (3, 40, 24))):
-        x = torch.randn(*xs, device="cuda", generator=g).to(torch.bfloat16)
-        w = torch.randn(*ws, device="cuda", generator=g) * 0.1
-        a = (torch.rand(xs[-1], device="cuda", generator=g) + 0.5,
-             torch.randn(xs[-1], device="cuda", generator=g) * 0.1)
-        y, s1, s2 = conv_bn.conv_unit_fwd(x, w, *a, kind=kind)
-        y0, s10, s20 = conv_bn.conv_unit_reference(x, w, *a, kind=kind)
-        y0a = y0.float().abs()
-        dy = (y.float() - y0.float()).abs()
-        what = f"conv unit {kind} at edge shape {xs}"
-        require(bool((dy <= CONV_Y_REL * y0a + CONV_Y_ABS * y0a.max()).all()),
-                f"{what}: max |dy| {dy.max().item()}")
-        errs[f"conv_{kind}"] = dy.max().item()
-        errs[f"conv_{kind}_s1_err_over_limit"] = check_sums(
-            what, y, y0, s1, s2, s10, s20)
+    for kind, xs, ws in FWD_EDGE_SHAPES:
+        for affine in (False, True):
+            x = torch.randn(*xs, device="cuda", generator=g).to(torch.bfloat16)
+            w = torch.randn(*ws, device="cuda", generator=g) * 0.1
+            sh = torch.randn(xs[-1], device="cuda", generator=g) * 0.1
+            a = (torch.rand(xs[-1], device="cuda", generator=g) + 0.5,
+                 sh + 0.2 * torch.sign(sh)) if affine else (None, None)
+            key = f"conv_{kind}_{'x'.join(map(str, xs))}_affine={affine}"
+            errs[key], errs[key + "_s1_err_over_limit"] = check_fwd_unit(
+                torch, F, conv_bn, f"conv unit {kind} at edge shape {xs} "
+                f"affine={affine}", x, w, a, kind)
     xp = torch.randn(5, 9, 2, 3 * 72, device="cuda", generator=g)
     w = torch.randn(2, 72, 3 * 72, device="cuda", generator=g) / math.sqrt(72)
     b = torch.randn(2, 3 * 72, device="cuda", generator=g) * 0.1
     errs["gru"] = (gru.gru_scan(xp, w, b)
                    - gru.gru_scan_reference(xp, w, b)).abs().max().item()
     require(errs["gru"] <= GRU_ATOL_F32, f"gru at edge shape: {errs['gru']}")
+    # 31 frames: a last block of 7; per-row hops of 533, 640 and 667 over 13
+    # frames: a last block of 5, each row reflecting about its own end
     wav = torch.randn(3, 16000, device="cuda", generator=g) * 0.3
     errs["melspec"] = (melspec.log_mel_spectrogram(wav, cfg)
                        - melspec.log_mel_spectrogram_reference(wav, cfg)
                        ).abs().max().item()
-    require(errs["melspec"] <= MEL_ATOL, f"mel at edge shape: {errs['melspec']}")
+    hops = torch.tensor([533, 640, 667], dtype=torch.int32, device="cuda")
+    wav_d = torch.randn(3, 12000, device="cuda", generator=g) * 0.3
+    errs["melspec_dynamic_hop"] = (
+        melspec.log_mel_spectrogram(wav_d, cfg, hop=hops, n_frames_out=13)
+        - melspec.log_mel_spectrogram_reference(wav_d, cfg, hop=hops,
+                                                n_frames_out=13)
+    ).abs().max().item()
+    require(max(errs["melspec"], errs["melspec_dynamic_hop"]) <= MEL_ATOL,
+            f"mel at edge shapes: {errs['melspec']}, {errs['melspec_dynamic_hop']}")
     emit({"phase": "kernel_edge_shapes", "max_abs_err": errs})
 
 
@@ -950,6 +1074,39 @@ def synthetic_stream(np, cfg, SyntheticAVDataset, WindowSequencer,
         ds.load_video(vid)
     return lambda skip: example_stream(ds, seq, cfg.train.batch_size,
                                        seed=seed, skip_batches=skip)
+
+
+def serve_many(torch, np, p, n_videos=3, pipeline=2):
+    """``Predictor.predict_many`` over ``n_videos`` synthetic 1024-frame
+    videos with ``pipeline`` in flight: the ids in input order, each
+    prediction bit for bit ``predict_video``'s. The serial loop and the
+    pipelined stream are timed in turn (serial, stream, stream, serial),
+    host clock around each ending in a synchronise."""
+    videos = [synthetic_video(np, 1024, 30.0, seed=10 + i) for i in range(n_videos)]
+    times = {"serial": [], "pipelined": []}
+    serial = many = None
+    for run in ("serial", "pipelined", "pipelined", "serial"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if run == "serial":
+            serial = [p.predict_video(frames=f, waveform=w)["pred"]
+                      for f, w in videos]
+        else:
+            many = list(p.predict_many(
+                ((str(i), {"frames": f, "waveform": w})
+                 for i, (f, w) in enumerate(videos)), pipeline=pipeline))
+        torch.cuda.synchronize()
+        times[run].append(time.perf_counter() - t0)
+    require([vid for vid, _ in many] == [str(i) for i in range(n_videos)],
+            f"predict_many order {[vid for vid, _ in many]}")
+    require(all(np.array_equal(a, b) for (_, a), b in zip(many, serial)),
+            "predict_many differs from predict_video")
+    frames = 1024 * n_videos
+    emit({"phase": "serve_many", "videos": n_videos, "frames_each": 1024,
+          "pipeline": pipeline, "s": times["pipelined"],
+          "serial_s": times["serial"],
+          "frames_per_s": frames / min(times["pipelined"]),
+          "serial_frames_per_s": frames / min(times["serial"])})
 
 
 def train_fusion(torch, np, cuda_lib, config, Trainer, data):
@@ -1097,7 +1254,7 @@ def main():
     # 2. each kernel against its plain version at the main path's shapes
     kernels = [check_mel(torch, melspec, MelConfig()), check_gru(torch, gru)]
     kernels += check_conv(torch, F, conv_bn)
-    check_edges(torch, melspec, gru, conv_bn, MelConfig())
+    check_edges(torch, F, melspec, gru, conv_bn, MelConfig())
     kernels += check_bwd(torch, conv_bn)
     check_bwd_edges(torch, conv_bn)
     torch.cuda.empty_cache()
@@ -1133,6 +1290,7 @@ def main():
     emit({"phase": "serve_chunked", "frames": 1024, "launches": counts_c,
           "s": dtc, "frames_per_s": 1024 / dtc,
           "max_abs_diff_vs_fused": diff_c, "tol": CHUNK_ATOL})
+    serve_many(torch, np, p)
     del p, pc
     torch.cuda.empty_cache()
 

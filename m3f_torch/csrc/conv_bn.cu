@@ -40,18 +40,21 @@
 // temporal_filter_kernel).
 //
 // Design (simple, correct tensor-core kernels; wgmma / TMA come later):
-// - Both forward units share one kernel (conv_unit_kernel): a 128 x BN
-//   output tile per block, 4 warps in 2 x 2, each warp 64 x BN/2 with
-//   mma.sync m16n8k16 bf16 -> fp32 and ldmatrix fragment loads. K runs in
-//   chunks of 32 over the flattened (tap, channel) axis; each thread gathers
-//   its A rows as 16-byte vectors straight from the NDHWC tensor at the tap's
-//   offset. A tap outside the image (or clip) is the conv's zero padding,
-//   written as zeros AFTER the prologue. Chunks go global -> registers ->
-//   shared memory, double-buffered.
-// - Forward epilogue: y is rounded and stored; the rounded values feed the
+// - The spatial forward is spatial_fwd_kernel, a row walk that forms each
+//   x^ row once for all nine taps and every output channel of its tile
+//   (described above its code).
+// - The temporal forward (conv_unit_kernel): a 128 x BN output tile per
+//   block, 4 warps in 2 x 2, each warp 64 x BN/2 with mma.sync m16n8k16
+//   bf16 -> fp32 and ldmatrix fragment loads. K runs in chunks of 32 over
+//   the flattened (tap, channel) axis; each thread gathers its A rows as
+//   16-byte vectors straight from the NDHWC tensor at the tap's offset. A
+//   tap outside the clip is the conv's zero padding, written as zeros AFTER
+//   the prologue. Chunks go global -> registers -> shared memory,
+//   double-buffered.
+// - Forward epilogues: y is rounded and stored; the rounded values feed the
 //   per-channel sums. The TPU grid is sequential and carries sums across
-//   steps; CUDA blocks run in parallel, so each block loops over a few row
-//   tiles, reduces its sums in a fixed order (warp shuffles, then shared
+//   steps; CUDA blocks run in parallel, so each block loops over its tiles
+//   or steps, reduces its sums in a fixed order (warp shuffles, then shared
 //   memory) into one partial row, and a second kernel sums the rows per
 //   channel in a fixed order. No atomics.
 // - The backward has a kernel per gradient and kind, each described above
@@ -139,7 +142,7 @@ struct UnitArgs {
   const bf16* a;       // gathered: x [M, Kc]
   const float* ka;     // the prologue's inv [Kc] or null
   const float* kb;     // the prologue's shift [Kc] or null
-  const bf16* wk;      // B operand [N, taps*Kc], k = tap*Kc + c
+  const bf16* wk;      // B operand [N, 3*Kc], k = tap*Kc + c
   bf16* out;           // y [M, N]
   float* part1;        // per-block partial sums [rows][N]
   float* part2;
@@ -147,10 +150,9 @@ struct UnitArgs {
   int Kc, N, T, H, W, tiles_m, tiles_per_block;
 };
 
-// KIND 0: (1,3,3) spatial conv over each (b, t) image [H, W].
-// KIND 1: (3,1,1) temporal conv over T for each pixel of [H*W].
-// AFFINE: the BN prologue.
-template <int BN, bool AFFINE, int KIND>
+// The (3,1,1) temporal conv over T for each pixel of [H*W]; AFFINE: the
+// BN prologue. (The spatial forward is spatial_fwd_kernel, a row walk.)
+template <int BN, bool AFFINE>
 __global__ void __launch_bounds__(THREADS)
 conv_unit_kernel(const UnitArgs args) {
   constexpr int NT = BN / 16;                  // n8 tiles per warp
@@ -171,8 +173,7 @@ conv_unit_kernel(const UnitArgs args) {
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int warp_m = warp & 1, warp_n = warp >> 1;
   const int n0 = blockIdx.y * BN;
-  const int taps = KIND == 0 ? 9 : 3;
-  const int K = taps * Ci;
+  const int K = 3 * Ci;
   const int nchunks = (K + BK - 1) / BK;
   const int64_t P = (int64_t)H * W;
 
@@ -195,18 +196,12 @@ conv_unit_kernel(const UnitArgs args) {
   for (int tile = blockIdx.x * args.tiles_per_block; tile < tile_end; ++tile) {
     const int64_t m_base = (int64_t)tile * BM;
     int64_t rm[4];
-    int ra_[4], rb_[4];
+    int ra_[4];
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const int64_t m = m_base + (tid >> 2) + 32 * i;
       rm[i] = m;
-      if (KIND == 0) {
-        rb_[i] = (int)(m % W);
-        ra_[i] = (int)((m / W) % H);
-      } else {
-        ra_[i] = (int)((m / P) % T);
-        rb_[i] = 0;
-      }
+      ra_[i] = (int)((m / P) % T);
     }
 
     float acc[4][NT][4];
@@ -229,18 +224,9 @@ conv_unit_kernel(const UnitArgs args) {
       for (int i = 0; i < 4; ++i) {
         uint4 v = make_uint4(0, 0, 0, 0);
         if (rm[i] < M && k < K) {
-          int64_t src;
-          bool ok;
-          if (KIND == 0) {
-            const int dh = tap / 3 - 1, dw = tap % 3 - 1;
-            ok = (unsigned)(ra_[i] + dh) < (unsigned)H &&
-                 (unsigned)(rb_[i] + dw) < (unsigned)W;
-            src = rm[i] + (int64_t)dh * W + dw;
-          } else {
-            const int dt = tap - 1;
-            ok = (unsigned)(ra_[i] + dt) < (unsigned)T;
-            src = rm[i] + dt * P;
-          }
+          const int dt = tap - 1;
+          const bool ok = (unsigned)(ra_[i] + dt) < (unsigned)T;
+          const int64_t src = rm[i] + dt * P;
           if (ok) {
             v = __ldg(reinterpret_cast<const uint4*>(x + src * Ci + ci));
             if (AFFINE) v = prologue(v, sInv + ci, sShift + ci);
@@ -381,11 +367,11 @@ colsum_kernel(const float* __restrict__ part1, const float* __restrict__ part2,
   }
 }
 
-template <int BN, bool AFFINE, int KIND>
+template <int BN, bool AFFINE>
 int launch_unit(const UnitArgs& args, cudaStream_t stream) {
   const size_t smem = 2 * (BM + BN) * LDS * sizeof(bf16) + 4 * BN * sizeof(float) +
                       2 * args.Kc * sizeof(bf16);
-  auto kern = conv_unit_kernel<BN, AFFINE, KIND>;
+  auto kern = conv_unit_kernel<BN, AFFINE>;
   cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
@@ -396,27 +382,24 @@ int launch_unit(const UnitArgs& args, cudaStream_t stream) {
 }
 
 template <int BN>
-int dispatch_unit(int kind, int affine, const UnitArgs& a, cudaStream_t s) {
-  if (kind == 0)
-    return affine ? launch_unit<BN, true, 0>(a, s) : launch_unit<BN, false, 0>(a, s);
-  return affine ? launch_unit<BN, true, 1>(a, s) : launch_unit<BN, false, 1>(a, s);
+int dispatch_unit(int affine, const UnitArgs& a, cudaStream_t s) {
+  return affine ? launch_unit<BN, true>(a, s) : launch_unit<BN, false>(a, s);
 }
 
-int run_unit(int kind, int affine, int bn, UnitArgs& a, float* s1, float* s2,
+int run_unit(int affine, int bn, UnitArgs& a, float* s1, float* s2,
              cudaStream_t s) {
   if (a.M == 0 || a.N == 0) return 0;
-  if ((kind != 0 && kind != 1) || a.Kc % 8 != 0 || a.N % 8 != 0 ||
-      a.tiles_per_block < 1)
+  if (a.Kc % 8 != 0 || a.N % 8 != 0 || a.tiles_per_block < 1)
     return (int)cudaErrorInvalidValue;
   a.tiles_m = (int)((a.M + BM - 1) / BM);
   const int R = (a.tiles_m + a.tiles_per_block - 1) / a.tiles_per_block;
   int e;
   if (bn == 48)
-    e = dispatch_unit<48>(kind, affine, a, s);
+    e = dispatch_unit<48>(affine, a, s);
   else if (bn == 64)
-    e = dispatch_unit<64>(kind, affine, a, s);
+    e = dispatch_unit<64>(affine, a, s);
   else if (bn == 96)
-    e = dispatch_unit<96>(kind, affine, a, s);
+    e = dispatch_unit<96>(affine, a, s);
   else
     return (int)cudaErrorInvalidValue;
   if (e != 0) return e;
@@ -1816,6 +1799,461 @@ int dispatch_spatial_data(int step, int affine, const SpatialDataArgs& a,
 }
 
 // ---------------------------------------------------------------------------
+// Spatial forward unit: the row walk
+// ---------------------------------------------------------------------------
+//
+// Replaces _spatial_fwd (m3f/pytorch_tpu/ops/pallas/conv_bn.py, pallas_call
+// at :192), which pads one (b, t) image's x^ after the prologue once per
+// sequential grid step, builds a strip's im2col [sh*W, 9*Ci] in VMEM and
+// does one product per strip with the filter resident, carrying the channel
+// sums of the rounded y across the grid.
+//
+// y[b,t,h,w,co] = bf16(sum_{dh,dw} sum_ci x^[b,t,h+dh-1,w+dw-1,ci] *
+// W[dh,dw,ci,co]) does 2*9*Ci*Co FLOP per pixel on (Ci + Co) * 2 bytes (x
+// in, y out). Bound on an H100 at the serving forward's shapes (128 clips):
+// stage 1 (x [128,16,56,56,64] -> Co 144) 1.07 TFLOP on 2.7 GB, 400
+// FLOP/byte: operations, 1.08 ms; stages 2-4 (Ci 128 / 256 / 512)
+// operations, 0.54 / 0.27 / 0.13 ms. So the products must run near the
+// mma.sync rate, x^ must not be formed per tap or per output-channel tile,
+// and the filter (166 KB at stage 1, up to 10.6 MB at stage 4) must not be
+// re-read from the L2 for every few pixels.
+//
+// - Row walk (RowWalk, shared with the backward's spatial kernels). A block
+//   walks a range of whole (b, t) images as one dense stream of output
+//   pixels in steps of S (128 with N tiles of 144, 256 with N tiles of 64).
+//   A step reads the stream rows from the one above its first pixel to the
+//   one below its last, with one all-zero row before every image and after
+//   the last; columns 0 and W+1 are zero: the conv's padding. The prologue
+//   never touches them, so the padding is zero AFTER the prologue (relu(0 *
+//   inv + shift) is not 0), as the reference's pad-after-prologue.
+// - K runs outermost inside a step, in chunks of SW_KC = 16 input channels
+//   for all nine taps: per chunk the block copies the step's x rows for
+//   those channels (cp.async, zero-filled on the zero rows and past C_in),
+//   each thread forms x^ in place once on the vectors it copied, after its
+//   own wait_group (relu(bf16(bf16(x * inv) + shift)) on the bf16x2 unit,
+//   _rn forms: no fused multiply-add), and the chunk is multiplied by the
+//   filter chunk [NB, 9 taps x 16] for all nine taps. Chunk buffers are
+//   double-buffered, one barrier a chunk. The [S, NB] accumulators stay in
+//   registers for the whole step (72 a thread at S = 128, NB = 144), so x^
+//   is formed once per step's row and N tile (the halo rows of a step twice)
+//   and, at stage 1 (C_out 144, one N tile), once for every output channel.
+// - The filter tile [NB, 9 * Ci] stays in shared memory where it fits
+//   beside the chunk buffers (stage 1: 166 KB), copied once per block; else
+//   each chunk's [NB, 9 x 16] slice is streamed with the chunk, so the
+//   filter is read from the L2 once per step of S pixels.
+// - A tap is an address offset. Each lane of ldmatrix reads its own output
+//   pixel's row from a per-step table (tap_table): the offset of (h + dh -
+//   1, w - 1) in the chunk buffer; tap dw adds dw pixels.
+// - Tensor cores: ldmatrix + mma.sync m16n8k16 bf16 -> fp32; 8 warps in WM x
+//   WN, each MT m16 pixel tiles x NT n8 channel tiles (32 x 72 at S = 128,
+//   NB = 144: 6.5 ldmatrix.x4 per 18 products); a tap's fragments are loaded
+//   while the tap before is multiplied.
+// - Epilogue: the accumulators are rounded to bf16 and staged in shared
+//   memory over the chunk buffers (each warp its own [32, 72] region), and
+//   y leaves in 16-byte stores along the channels. s1 / s2 are taken over
+//   the rounded values: per-thread fp32 sums over the walk, then warp
+//   shuffles and shared memory in a fixed order into one partial row per
+//   block, then colsum_kernel. No atomics: two calls give the same bits.
+//   The next step's first chunk is copied after the staging is read (the
+//   padding columns the staging overwrote are zeroed again then).
+// - Parallelism: grid = image ranges x N tiles (the N tile fastest: the
+//   blocks of one range run together and find x in the L2), about one
+//   block a SM.
+
+constexpr int SW_THREADS = 256;
+constexpr int SW_KC = 16;                 // input channels of a chunk
+constexpr int SW_LDC = SW_KC + 8;         // a chunk buffer's pixel stride (48 B)
+constexpr int SW_LDF = 9 * SW_KC + 8;     // a streamed filter chunk's row stride (304 B)
+constexpr int SW_VMAX = 8;                // x vectors a thread copies a chunk
+constexpr int SW_WM = 4;                  // warps along the pixels
+// Measurement knob, for filter_sweep.py only (y is then wrong): 1 leaves
+// out forming x^, 2 the products, 4 the copies of x and of the filter (the
+// buffers keep what they held), 8 the epilogue (staging, y stores, sums);
+// 15 leaves the walk alone.
+#ifndef SW_ABLATE
+#define SW_ABLATE 0
+#endif
+
+struct SpatialFwdArgs {
+  const bf16* x;       // [images, H, W, Ci]
+  const bf16* w;       // [Co, 9*Ci]: w[co, tap*Ci + ci] = W[tap/3, tap%3, ci, co]
+  const float* inv;    // [Ci] or null
+  const float* shift;
+  bf16* y;             // [images, H, W, Co]
+  float* part1;        // [ranges][Co] partial s1, s2
+  float* part2;
+  int H, W, Ci, Co;
+  int Cip;             // Ci rounded up to the chunk
+  int images;          // B * T
+  int images_per_range;
+  int n_tiles;         // ceil(Co / NB)
+  int XR;              // rows of a chunk buffer (spatial_ring_rows, one step)
+  int resident;        // the block's filter tile stays in shared memory
+};
+
+// The chunk buffers, the y staging and the block's sums share one region.
+__host__ __device__ inline size_t spatial_fwd_union(int W, int S, int NB, int XR) {
+  const size_t bufs = 2 * (size_t)XR * (W + 2) * SW_LDC * sizeof(bf16);
+  const size_t stage = (size_t)S * (NB + 8) * sizeof(bf16);
+  const size_t red = 2 * (size_t)SW_WM * NB * sizeof(float);
+  return bufs > stage ? (bufs > red ? bufs : red) : (stage > red ? stage : red);
+}
+
+// A block's shared memory; ops/conv_bn.py (_spatial_fwd_smem) computes the
+// same: that region, the filter tile or two streamed filter chunks, two tap
+// tables, inv / shift.
+size_t spatial_fwd_smem(int W, int Cip, int S, int NB, int XR, int resident) {
+  const size_t filt = resident ? (size_t)NB * (9 * Cip + 8) : 2 * (size_t)NB * SW_LDF;
+  return spatial_fwd_union(W, S, NB, XR) + filt * sizeof(bf16) + 24 * (size_t)S +
+         4 * (size_t)Cip;
+}
+
+// SW_WM x WN warps, each MT m16 pixel tiles x NT n8 channel tiles: S =
+// 16*MT*SW_WM pixels a step, NB = 8*NT*WN output channels a block.
+template <int WN, int MT, int NT, bool AFFINE>
+__global__ void __launch_bounds__(SW_THREADS, 1)
+spatial_fwd_kernel(const SpatialFwdArgs a) {
+  constexpr int NTH = SW_THREADS, WM = SW_WM;
+  static_assert(32 * WM * WN == NTH, "8 warps");
+  constexpr int S = 16 * MT * WM;
+  constexpr int NB = 8 * NT * WN;
+  constexpr int LDS = NB + 8;                  // staging row stride (bf16)
+  constexpr int FV = NB * 9 * SW_KC / 8;       // 16-byte vectors of a filter chunk
+  constexpr int F_IT = (FV + NTH - 1) / NTH;
+  constexpr int XP = NTH / 2;                  // pixels per copy pass (2 vectors each)
+  const int H = a.H, W = a.W, Ci = a.Ci, Co = a.Co, Cip = a.Cip, XR = a.XR;
+  const int HW = H * W, WP = W + 2, BUF = XR * WP * SW_LDC;
+  const bool res = a.resident != 0;
+  const int ldf = res ? 9 * Cip + 8 : SW_LDF;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* Xb = reinterpret_cast<bf16*>(smem_raw);            // [2][XR][WP][SW_LDC]
+  bf16* Ys = Xb;                                           // the staging [S][LDS]
+  bf16* Fs = reinterpret_cast<bf16*>(smem_raw + spatial_fwd_union(W, S, NB, XR));
+  int* Tab = reinterpret_cast<int*>(Fs + (res ? NB * ldf : 2 * NB * SW_LDF));  // [2][3][S]
+  bf162* sInv = reinterpret_cast<bf162*>(Tab + 6 * S);    // [Cip / 2]
+  bf162* sShift = sInv + Cip / 2;
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int wm = warp % WM, wn = warp / WM;
+  const int n0 = ((int)blockIdx.x % a.n_tiles) * NB;
+  const int range = (int)blockIdx.x / a.n_tiles;
+  const int i0 = range * a.images_per_range;
+  const int nimg = max(0, min(a.images, i0 + a.images_per_range) - i0);
+  const int Q = nimg * HW;                        // output pixels of the range
+  const int nq = (Q + S - 1) / S;                 // steps of the walk
+  const int nck = Cip / SW_KC;                    // chunks a step
+  const int64_t P0 = (int64_t)i0 * HW;            // the range's first pixel
+
+  // The chunk buffers zero once: the padding columns stay so (see the
+  // epilogue).
+  {
+    uint4* z = reinterpret_cast<uint4*>(smem_raw);
+    const int n16 = 2 * BUF / 8;
+    for (int i = tid; i < n16; i += NTH) z[i] = make_uint4(0, 0, 0, 0);
+  }
+  for (int c = tid; c < Cip / 2; c += NTH) {
+    const int n = 2 * c;
+    const bool ok = AFFINE && n < Ci;
+    sInv[c] = __floats2bfloat162_rn(ok ? a.inv[n] : 0.f, ok ? a.inv[n + 1] : 0.f);
+    sShift[c] = __floats2bfloat162_rn(ok ? a.shift[n] : 0.f,
+                                      ok ? a.shift[n + 1] : 0.f);
+  }
+  // the resident filter tile: [n][ck * 144 + tap * 16 + kk]
+  if (res && !(SW_ABLATE & 4)) {
+    const int rv = 9 * Cip / 8;                   // vectors of a row
+    for (int idx = tid; idx < NB * rv; idx += NTH) {
+      const int n = idx / rv, col = (idx - n * rv) * 8;
+      const int ck = col / (9 * SW_KC), rr = col - ck * 9 * SW_KC;
+      const int tap = rr / SW_KC, ci = ck * SW_KC + rr - tap * SW_KC;
+      const bool ok = n0 + n < Co && ci < Ci;
+      cp_async16(Fs + n * ldf + col,
+                 ok ? a.w + ((int64_t)(n0 + n) * 9 + tap) * Ci + ci : a.w, ok);
+    }
+  }
+  __syncthreads();
+
+  // Cursors (see RowWalk): this thread's pixel of the table, the first and
+  // the last pixel of the next step to copy.
+  const RowWalk rw = row_walk(H, W, XR, XP, S, nimg);
+  PCursor tp = p_seek(rw, min(tid, S - 1));
+  PCursor cf = p_seek(rw, 0), ce = p_seek(rw, S - 1);
+
+  // This thread's x vectors of a step: channels gv..gv+7 of each chunk at
+  // buffer offset v_off of the pixel v_pix of the range (-1: a zero row,
+  // -2: none). The same for every chunk of the step; a thread copies and
+  // forms exactly these.
+  const int gv = (tid & 1) * 8;
+  int v_off[SW_VMAX], v_pix[SW_VMAX];
+  auto seek_step = [&](int j) {                  // steps in order
+    const int upto = row_need(rw, j, ce);
+    const int rs = cf.vr - 1;                    // the row above the first pixel
+    p_advance(rw, cf);
+    XCursor c = x_seek(rw, rs * W + (tid >> 1));
+#pragma unroll
+    for (int k = 0; k < SW_VMAX; ++k) {
+      const bool live = c.vr <= upto;
+      v_off[k] = (c.slot * WP + 1 + c.w) * SW_LDC + gv;
+      v_pix[k] = !live ? -2 : c.hrow ? c.rr * W + c.w : -1;
+      if (live) x_advance(rw, c);
+    }
+  };
+  // chunk ck of the current step into buffer b: the step's x rows for
+  // channels ck*16 .. +15, and (streamed) the filter chunk
+  auto copy_chunk = [&](int ck, int b) {
+    if (SW_ABLATE & 4) return;
+    const int ch = ck * SW_KC + gv;
+    bf16* xd = Xb + b * BUF;
+#pragma unroll
+    for (int k = 0; k < SW_VMAX; ++k) {
+      if (v_pix[k] < -1) continue;
+      const bool real = v_pix[k] >= 0 && ch < Ci;
+      cp_async16(xd + v_off[k], a.x + (real ? (P0 + v_pix[k]) * Ci + ch : 0), real);
+    }
+    if (res) return;
+    bf16* fd = Fs + b * NB * SW_LDF;
+#pragma unroll
+    for (int i = 0; i < F_IT; ++i) {
+      const int idx = tid + i * NTH;
+      if (idx >= FV) break;
+      const int n = idx / 18, r = idx - n * 18, tap = r >> 1, kk = (r & 1) * 8;
+      const bool ok = n0 + n < Co && ck * SW_KC + kk < Ci;
+      cp_async16(fd + n * SW_LDF + tap * SW_KC + kk,
+                 ok ? a.w + ((int64_t)(n0 + n) * 9 + tap) * Ci + ck * SW_KC + kk
+                    : a.w, ok);
+    }
+  };
+  // x^ = relu(bf16(bf16(x * inv) + shift)) in place, on this thread's
+  // vectors of real pixels (never the zero rows or columns)
+  auto form_chunk = [&](int ck, int b) {
+    const int ch = ck * SW_KC + gv;
+    if (!AFFINE || (SW_ABLATE & 1) || ch >= Ci) return;
+    bf162 iv[4], sv[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      iv[i] = sInv[(ch >> 1) + i];
+      sv[i] = sShift[(ch >> 1) + i];
+    }
+    bf16* xd = Xb + b * BUF;
+#pragma unroll
+    for (int k = 0; k < SW_VMAX; ++k) {
+      if (v_pix[k] < 0) continue;
+      uint4* p = reinterpret_cast<uint4*>(xd + v_off[k]);
+      *p = prologue_x2(*p, iv, sv);
+    }
+  };
+
+  float acc[MT][NT][4];
+  float st1[NT][2], st2[NT][2];
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt)
+    st1[nt][0] = st1[nt][1] = st2[nt][0] = st2[nt][1] = 0.f;
+
+  // ldmatrix lanes: A (pixels m, channels k) from the chunk buffer at the
+  // lane's pixel's tap row; B (k, output channels n; two n8 tiles a x4) from
+  // the filter [n][tap*16 + k] of the chunk
+  const int a_koff = (lane >> 4) * 8;
+  const int a_pix = wm * MT * 16 + (lane & 15);
+  const int b_row = wn * NT * 8 + (lane & 7) + ((lane >> 4) & 1) * 8;
+  const int b_koff = ((lane >> 3) & 1) * 8;
+  const int b_row_last = wn * NT * 8 + (NT - 1) * 8 + (lane & 7);
+  int a_off[MT][3];                              // the step's tap rows, per tile
+  auto products = [&](int ck, int b) {
+    const bf16* xs = Xb + b * BUF;
+    const bf16* fs = res ? Fs + ck * 9 * SW_KC : Fs + b * NB * SW_LDF;
+    uint32_t af[2][MT][4], bq[2][NT][2];
+    auto load = [&](int t, int s) {
+      const int dh = t / 3, dw = t - 3 * (t / 3);
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+        ldsm_x4(af[s][mt], xs + a_off[mt][dh] + dw * SW_LDC);
+#pragma unroll
+      for (int p = 0; p < NT / 2; ++p) {
+        uint32_t r4[4];
+        ldsm_x4(r4, fs + (b_row + p * 16) * ldf + t * SW_KC + b_koff);
+        bq[s][2 * p][0] = r4[0];
+        bq[s][2 * p][1] = r4[1];
+        bq[s][2 * p + 1][0] = r4[2];
+        bq[s][2 * p + 1][1] = r4[3];
+      }
+      if (NT & 1) ldsm_x2(bq[s][NT - 1], fs + b_row_last * ldf + t * SW_KC + b_koff);
+    };
+    load(0, 0);
+#pragma unroll
+    for (int t = 0; t < 9; ++t) {
+      if (t + 1 < 9) load(t + 1, (t + 1) & 1);
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt) mma_bf16(acc[mt][nt], af[t & 1][mt], bq[t & 1][nt]);
+    }
+  };
+
+  const int g = lane >> 2, tg = lane & 3;
+  // the stream's first group: the resident filter, step 0's table and its
+  // first chunk
+  if (nq > 0) {
+    if (tid < S) tap_table(rw, Tab + tid, tid < Q, tp);
+    seek_step(0);
+    copy_chunk(0, 0);
+  }
+  cp_async_commit();
+  int b = 0;                                     // the buffer of the chunk multiplied
+  for (int j = 0; j < nq; ++j) {
+    for (int ck = 0; ck < nck; ++ck) {
+      cp_async_wait<0>();                        // this thread's copies of the chunk
+      form_chunk(ck, b);
+      __syncthreads();                           // the chunk formed; the one before done
+      if (ck == 0) {
+        if (j + 1 < nq && tid < S)
+          tap_table(rw, Tab + ((j + 1) & 1) * 3 * S + tid, (j + 1) * S + tid < Q, tp);
+        const int* tab = Tab + (j & 1) * 3 * S + a_pix;
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+          for (int dh = 0; dh < 3; ++dh)
+            a_off[mt][dh] = tab[dh * S + mt * 16] * SW_LDC + a_koff;
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+          for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+            for (int k = 0; k < 4; ++k) acc[mt][nt][k] = 0.f;
+      }
+      if (ck + 1 < nck) {                        // the next chunk, into the other buffers
+        copy_chunk(ck + 1, b ^ 1);
+        cp_async_commit();
+      }
+      if (!(SW_ABLATE & 2)) products(ck, b);
+      b ^= 1;
+    }
+
+    // epilogue: y = bf16(acc) staged over the chunk buffers, which every
+    // warp has finished reading at this barrier; each warp stores its own
+    // region of the staging in 16-byte vectors
+    __syncthreads();
+    const int npx = min(S, Q - j * S);
+    if (!(SW_ABLATE & 8)) {
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const int row = wm * MT * 16 + mt * 16 + g + half * 8;
+          // pixels past the range read table offset 0: their y is not
+          // zero, so they are left out of the sums (and of the stores)
+          const bool live = row < npx;
+#pragma unroll
+          for (int nt = 0; nt < NT; ++nt) {
+            const int col = wn * NT * 8 + nt * 8 + tg * 2;
+            const bf162 p = __floats2bfloat162_rn(acc[mt][nt][half * 2],
+                                                  acc[mt][nt][half * 2 + 1]);
+            *reinterpret_cast<bf162*>(Ys + row * LDS + col) = p;
+            if (live) {
+              const float2 f = __bfloat1622float2(p);
+              st1[nt][0] += f.x;
+              st1[nt][1] += f.y;
+              st2[nt][0] += f.x * f.x;
+              st2[nt][1] += f.y * f.y;
+            }
+          }
+        }
+      __syncwarp();
+      bf16* dst = a.y + (P0 + (int64_t)j * S) * Co + n0;
+      for (int i = lane; i < MT * 16 * NT; i += 32) {
+        const int r = i / NT, v = i - r * NT;
+        const int row = wm * MT * 16 + r, col = (wn * NT + v) * 8;
+        if (row < npx && n0 + col < Co)
+          *reinterpret_cast<uint4*>(dst + (int64_t)row * Co + col) =
+              *reinterpret_cast<const uint4*>(Ys + row * LDS + col);
+      }
+    }
+    if ((SW_ABLATE & 8) && H < 0) {    // never true: keeps the products alive
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt)
+          Ys[(mt * NT + nt) * NTH + tid] = __float2bfloat16(
+              acc[mt][nt][0] + acc[mt][nt][1] + acc[mt][nt][2] + acc[mt][nt][3]);
+    }
+    __syncthreads();                             // the staging read
+    if (j + 1 < nq) {
+      // the padding columns the staging overwrote, zero again; then the
+      // next step's first chunk
+      for (int i = tid; i < 8 * XR; i += NTH) {
+        const int buf = i / (4 * XR), r = (i >> 2) % XR;
+        const int col = (i & 2) ? W + 1 : 0, half = (i & 1) * 8;
+        *reinterpret_cast<uint4*>(Xb + buf * BUF + (r * WP + col) * SW_LDC + half) =
+            make_uint4(0, 0, 0, 0);
+      }
+      seek_step(j + 1);
+      copy_chunk(0, b);
+      cp_async_commit();
+    }
+  }
+  cp_async_wait<0>();
+
+  // block-level sums in a fixed order: lanes sharing a column, then warps
+  float* red1 = reinterpret_cast<float*>(smem_raw);        // [WM][NB]
+  float* red2 = red1 + WM * NB;
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      float v1 = st1[nt][e], v2 = st2[nt][e];
+#pragma unroll
+      for (int off = 4; off < 32; off <<= 1) {
+        v1 += __shfl_xor_sync(0xffffffffu, v1, off);
+        v2 += __shfl_xor_sync(0xffffffffu, v2, off);
+      }
+      if (g == 0) {
+        const int col = wn * NT * 8 + nt * 8 + tg * 2 + e;
+        red1[wm * NB + col] = v1;
+        red2[wm * NB + col] = v2;
+      }
+    }
+  __syncthreads();
+  for (int col = tid; col < NB; col += NTH) {
+    if (n0 + col >= Co) continue;
+    float v1 = 0.f, v2 = 0.f;
+    for (int m = 0; m < WM; ++m) {
+      v1 += red1[m * NB + col];
+      v2 += red2[m * NB + col];
+    }
+    a.part1[(int64_t)range * Co + n0 + col] = v1;
+    a.part2[(int64_t)range * Co + n0 + col] = v2;
+  }
+}
+
+template <int WN, int MT, int NT, bool AFFINE>
+int launch_spatial_fwd(const SpatialFwdArgs& a, cudaStream_t stream) {
+  constexpr int S = 16 * MT * SW_WM, NB = 8 * NT * WN;
+  const size_t smem = spatial_fwd_smem(a.W, a.Cip, S, NB, a.XR, a.resident);
+  if (smem > (size_t)SF_SMEM_MAX || a.XR * a.W > SW_THREADS / 2 * SW_VMAX)
+    return (int)cudaErrorInvalidValue;
+  auto kern = spatial_fwd_kernel<WN, MT, NT, AFFINE>;
+  cudaError_t e = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  const int ranges = (a.images + a.images_per_range - 1) / a.images_per_range;
+  kern<<<ranges * a.n_tiles, SW_THREADS, smem, stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
+template <int WN, int MT, int NT>
+int spatial_fwd_either(int affine, const SpatialFwdArgs& a, cudaStream_t s) {
+  return affine ? launch_spatial_fwd<WN, MT, NT, true>(a, s)
+                : launch_spatial_fwd<WN, MT, NT, false>(a, s);
+}
+
+// (step, N tile) -> the warp layout (4 x 2 warps). These are the layouts
+// spatial_fwd_plan (ops/conv_bn.py) can ask for.
+int dispatch_spatial_fwd(int step, int nb, int affine, const SpatialFwdArgs& a,
+                         cudaStream_t s) {
+  if (step == 128 && nb == 144) return spatial_fwd_either<2, 2, 9>(affine, a, s);
+  if (step == 256 && nb == 64) return spatial_fwd_either<2, 4, 4>(affine, a, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// ---------------------------------------------------------------------------
 // Temporal data gradient: the frame walk
 // ---------------------------------------------------------------------------
 //
@@ -2393,32 +2831,69 @@ int dispatch_temporal_data(int strip, int warps, int resident, int affine,
 
 // x [B, T, H, W, Ci] bf16; wk [Co, taps*Ci] bf16 with k = tap*Ci + ci
 // (spatial tap = dh*3 + dw, temporal tap = dt); inv/shift [Ci] fp32 or null;
-// y [B, T, H, W, Co] bf16; s1/s2 [Co] fp32; part: scratch of
-// 2 * ceil(ceil(M/128) / tiles_per_block) * Co floats.
+// y [B, T, H, W, Co] bf16; s1/s2 [Co] fp32. Spatial (kind 0,
+// spatial_fwd_kernel): bn is the N tile (144 or 64) and step the output
+// pixels a step (128 or 256, spatial_fwd_plan's pairs), per the images of a
+// range, resident whether the filter tile stays in shared memory; part a
+// scratch of 2 * ceil(B*T / per) * Co floats. Temporal (kind 1,
+// conv_unit_kernel): bn the N tile (48, 64 or 96), per the row tiles of
+// 128 a block, step and resident not read; part a scratch of
+// 2 * ceil(ceil(M/128) / per) * Co floats.
 extern "C" int m3f_conv_unit_fwd(const void* x, const void* wk, const void* inv,
                                  const void* shift, void* y, void* s1, void* s2,
                                  void* part, int kind, int B, int T, int H,
-                                 int W, int Ci, int Co, int bn,
-                                 int tiles_per_block, void* stream) {
-  UnitArgs a{};
-  a.a = (const bf16*)x;
-  a.ka = (const float*)inv;
-  a.kb = (const float*)shift;
-  a.wk = (const bf16*)wk;
-  a.out = (bf16*)y;
-  a.M = (int64_t)B * T * H * W;
-  a.Kc = Ci;
-  a.N = Co;
-  a.T = T;
-  a.H = H;
-  a.W = W;
-  a.tiles_per_block = tiles_per_block;
-  const int tiles_m = (int)((a.M + BM - 1) / BM);
-  const int R = tiles_per_block > 0 ? (tiles_m + tiles_per_block - 1) / tiles_per_block : 0;
-  a.part1 = (float*)part;
-  a.part2 = a.part1 + (int64_t)R * Co;
-  return run_unit(kind, inv != nullptr, bn, a, (float*)s1, (float*)s2,
-                  (cudaStream_t)stream);
+                                 int W, int Ci, int Co, int bn, int per,
+                                 int step, int resident, void* stream) {
+  const int64_t M = (int64_t)B * T * H * W;
+  if ((kind != 0 && kind != 1) || per < 1) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (kind == 1) {
+    UnitArgs a{};
+    a.a = (const bf16*)x;
+    a.ka = (const float*)inv;
+    a.kb = (const float*)shift;
+    a.wk = (const bf16*)wk;
+    a.out = (bf16*)y;
+    a.M = M;
+    a.Kc = Ci;
+    a.N = Co;
+    a.T = T;
+    a.H = H;
+    a.W = W;
+    a.tiles_per_block = per;
+    const int tiles_m = (int)((a.M + BM - 1) / BM);
+    const int R = (tiles_m + per - 1) / per;
+    a.part1 = (float*)part;
+    a.part2 = a.part1 + (int64_t)R * Co;
+    return run_unit(inv != nullptr, bn, a, (float*)s1, (float*)s2, s);
+  }
+  if (M == 0 || Co == 0) return 0;
+  if (Ci % 8 != 0 || Co % 8 != 0 || Ci == 0 || (int64_t)per * H * W >= (1 << 30))
+    return (int)cudaErrorInvalidValue;
+  SpatialFwdArgs f{};
+  f.x = (const bf16*)x;
+  f.w = (const bf16*)wk;
+  f.inv = (const float*)inv;
+  f.shift = (const float*)shift;
+  f.y = (bf16*)y;
+  f.H = H;
+  f.W = W;
+  f.Ci = Ci;
+  f.Co = Co;
+  f.Cip = (Ci + SW_KC - 1) / SW_KC * SW_KC;
+  f.images = B * T;
+  f.images_per_range = per;
+  f.n_tiles = (Co + bn - 1) / bn;
+  f.XR = spatial_ring_rows(H, W, step, 1);
+  f.resident = resident;
+  const int ranges = (f.images + per - 1) / per;
+  f.part1 = (float*)part;
+  f.part2 = f.part1 + (int64_t)ranges * Co;
+  const int e = dispatch_spatial_fwd(step, bn, inv != nullptr, f, s);
+  if (e != 0) return e;
+  colsum_kernel<<<(Co + 31) / 32, dim3(32, 32), 0, s>>>(f.part1, f.part2, ranges,
+                                                         Co, (float*)s1, (float*)s2);
+  return (int)cudaGetLastError();
 }
 
 // Data gradient of the unit. gy, y [B, T, H, W, Co] bf16; gs1/gs2 [Co] fp32;

@@ -180,10 +180,16 @@ class Predictor:
         return {"pred": postprocess(out["pred"], smooth_window=smooth_window)}
 
     def predict_many(self, videos: Iterable[Tuple[str, Dict[str, np.ndarray]]],
-                     smooth_window: int = 0) -> Iterator[Tuple[str, np.ndarray]]:
+                     smooth_window: int = 0, pipeline: int = 2
+                     ) -> Iterator[Tuple[str, np.ndarray]]:
         """(video_id, preds [N, 2]) for each (video_id, {frames, waveform,
-        fps}) pair, in input order."""
+        fps}) pair, in input order, with ``pipeline`` videos in flight
+        (``Trainer.evaluate_stream``): the next video is prepared, uploaded
+        and enqueued before the current one is read back."""
         self._check_smooth(smooth_window)
-        for vid, v in videos:
-            yield vid, self.predict_video(v.get("frames"), v.get("waveform"),
-                                          smooth_window, v.get("fps"))["pred"]
+        prepared = ((vid, self._video_dict(v.get("frames"), v.get("waveform"),
+                                           v.get("fps")))
+                    for vid, v in videos)
+        for vid, r in self.trainer.evaluate_stream(None, prepared,
+                                                   pipeline=pipeline):
+            yield vid, postprocess(r["pred"], smooth_window=smooth_window)

@@ -34,7 +34,7 @@ import torch.nn.functional as F
 
 from m3f_torch.ops import cuda_lib
 
-_BM = 128          # output pixels per tile (csrc/conv_bn.cu BM)
+_BM = 128          # temporal forward: pixels per tile (csrc/conv_bn.cu BM)
 _TILES_PER_BLOCK_MAX = 8
 
 
@@ -71,8 +71,9 @@ def _cdiv(a: int, b: int) -> int:
 
 
 def _tile_n(co: int) -> int:
-    """Output-channel tile of the kernel: the widest of 64, 96, 48 that
-    divides C_out (no masked columns at the model's widths), else 64."""
+    """Output-channel tile of the temporal forward kernel: the widest of
+    64, 96, 48 that divides C_out (no masked columns at the model's
+    widths), else 64."""
     for bn in (64, 96, 48):
         if co % bn == 0:
             return bn
@@ -86,7 +87,9 @@ def conv_unit_fwd(x: torch.Tensor, w: torch.Tensor,
     """Fused (affine + ReLU →) conv → channel sums; returns (y, s1, s2).
 
     Plain composition on the CPU; on the card one kernel launch (plus a
-    fixed-order reduction of its per-block sums) for bf16 activations."""
+    fixed-order reduction of its per-block sums) for bf16 activations: the
+    row walk (spatial, ``spatial_fwd_plan``) or the row-tile kernel
+    (temporal)."""
     if x.device.type == "cpu":
         return conv_unit_reference(x, w, inv, shift, kind=kind)
     tensors = (x, w) + ((inv, shift) if inv is not None else ())
@@ -107,10 +110,17 @@ def conv_unit_fwd(x: torch.Tensor, w: torch.Tensor,
     if inv is not None:
         inv = inv.float().contiguous()
         shift = shift.float().contiguous()
-    m = b * t * h * wd
-    bn = _tile_n(co)
-    tpb = _rows_per_block(m, co, bn, x.device)
-    rows = _cdiv(_cdiv(m, _BM), tpb)
+    if kind == "spatial":
+        sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+        plan = spatial_fwd_plan(b, t, h, wd, ci, co, sms)
+        bn, per, rows = plan.n_tile, plan.images_per_range, plan.part_rows
+        tiling = (plan.step, int(plan.resident))
+    else:
+        m = b * t * h * wd
+        bn = _tile_n(co)
+        per = _rows_per_block(m, co, bn, x.device)
+        rows = _cdiv(_cdiv(m, _BM), per)
+        tiling = (0, 0)
     y = torch.empty(b, t, h, wd, co, dtype=x.dtype, device=x.device)
     s1 = torch.empty(co, dtype=torch.float32, device=x.device)
     s2 = torch.empty(co, dtype=torch.float32, device=x.device)
@@ -121,8 +131,8 @@ def conv_unit_fwd(x: torch.Tensor, w: torch.Tensor,
             None if inv is None else inv.data_ptr(),
             None if shift is None else shift.data_ptr(),
             y.data_ptr(), s1.data_ptr(), s2.data_ptr(), part.data_ptr(),
-            0 if kind == "spatial" else 1, b, t, h, wd, ci, co, bn, tpb,
-            cuda_lib.stream_ptr(x))
+            0 if kind == "spatial" else 1, b, t, h, wd, ci, co, bn, per,
+            *tiling, cuda_lib.stream_ptr(x))
     cuda_lib.check(err, f"conv_unit_fwd {kind} kernel")
     cuda_lib.launches["conv_" + kind] += 1
     return y, s1, s2
@@ -211,14 +221,99 @@ def _check_unit(name, x, ci, co, kind, *tensors):
 
 
 def _rows_per_block(m: int, n: int, bn: int, dev: torch.device) -> int:
-    """Row tiles per block of the forward kernel: enough blocks for ~4 waves
-    of the card, at most _TILES_PER_BLOCK_MAX."""
+    """Row tiles per block of the temporal forward kernel: enough blocks
+    for ~4 waves of the card, at most _TILES_PER_BLOCK_MAX."""
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     tiles_m = -(-m // _BM)
     return max(1, min(_TILES_PER_BLOCK_MAX, tiles_m * (-(-n // bn)) // (4 * sms)))
 
 
 _SMEM_BLOCK_MAX = 227 << 10             # a block's shared memory on sm_90
+
+# The spatial forward's row walk (spatial_fwd_kernel in conv_bn.cu): 8 warps
+# take a step of `step` output pixels x `n_tile` output channels, K in chunks
+# of 16 input channels for all nine taps
+_SW_THREADS = 256
+_SW_LAYOUTS = ((128, 144), (256, 64))    # (step, N tile), preferred on a tie
+_SW_K_CHUNK = 16           # input channels per chunk (SW_KC)
+_SW_VMAX = 8               # x vectors a thread copies per chunk (SW_VMAX)
+_SW_WM = 4                 # warps along the pixels (SW_WM)
+
+
+def _spatial_fwd_smem(w: int, ci: int, step: int, n_tile: int, rows: int,
+                      resident: bool) -> int:
+    """A block's shared memory (spatial_fwd_smem in conv_bn.cu): one region
+    for the two x chunk buffers of ``rows`` rows, the y staging and the
+    block's sums; the filter tile (resident) or two streamed filter chunks;
+    two tap tables; inv / shift."""
+    cip = _cdiv(ci, _SW_K_CHUNK) * _SW_K_CHUNK
+    bufs = 2 * rows * (w + 2) * (_SW_K_CHUNK + 8) * 2
+    stage = step * (n_tile + 8) * 2
+    red = 2 * _SW_WM * n_tile * 4
+    filt = n_tile * (9 * cip + 8) if resident \
+        else 2 * n_tile * (9 * _SW_K_CHUNK + 8)
+    return max(bufs, stage, red) + 2 * filt + 24 * step + 4 * cip
+
+
+class SpatialFwdPlan(NamedTuple):
+    """How the spatial forward kernel cuts its work: ranges of
+    ``images_per_range`` whole (b, t) images, each walked as one stream of
+    output pixels in steps of ``step`` by ``warps`` warps, K in chunks of 16
+    input channels for all nine taps over buffers of ``buf_rows`` rows (the
+    rows one step reads); ``n_tiles`` tiles of ``n_tile`` output channels
+    (x̂ is formed once per tile and step: ``n_tiles`` times per element, a
+    step's halo rows once more); the filter tile ``resident`` in shared
+    memory or streamed with the chunks; ``blocks`` = ``ranges`` x
+    ``n_tiles``, each range one partial row of s1 / s2 (``part_rows``);
+    ``smem_bytes`` of shared memory a block."""
+    step: int
+    n_tile: int
+    warps: int
+    buf_rows: int
+    resident: bool
+    images: int
+    images_per_range: int
+    ranges: int
+    n_tiles: int
+    blocks: int
+    part_rows: int
+    smem_bytes: int
+
+    def images_of(self, r: int) -> range:
+        """The images (b * T + t) of range ``r``, as the kernel takes them."""
+        return range(r * self.images_per_range,
+                     min(self.images, (r + 1) * self.images_per_range))
+
+
+def spatial_fwd_plan(b: int, t: int, h: int, w: int, ci: int, co: int,
+                     sms: int) -> SpatialFwdPlan:
+    """The spatial forward's tiling on a card of ``sms`` multiprocessors: of
+    _SW_LAYOUTS whose step's rows a thread's copies cover, the first whose
+    buffers fit a block's shared memory with the filter resident, else with
+    it streamed, taking on each pass the layout that pads C_out least
+    first (the first of _SW_LAYOUTS on a tie); then ``sms // n_tiles``
+    ranges of whole images, at most one per image. (At the serving stage 2,
+    C_out 288, the resident 64-wide tiles ran 10% faster than streamed
+    144-wide ones: PERF.md, PR 10.)"""
+    layouts = sorted(_SW_LAYOUTS, key=lambda l: _cdiv(co, l[1]) * l[1])
+    for resident in (True, False):
+        for step, n_tile in layouts:
+            rows = spatial_ring_rows(h, w, step, 1)
+            smem = _spatial_fwd_smem(w, ci, step, n_tile, rows, resident)
+            if rows * w > _SW_THREADS // 2 * _SW_VMAX \
+                    or smem > _SMEM_BLOCK_MAX:
+                continue
+            images = b * t
+            n_tiles = _cdiv(co, n_tile)
+            per = _cdiv(images, max(1, min(images, sms // n_tiles)))
+            ranges = _cdiv(images, per)
+            return SpatialFwdPlan(step, n_tile, _SW_THREADS // 32, rows,
+                                  resident, images, per, ranges, n_tiles,
+                                  ranges * n_tiles, ranges, smem)
+    raise ValueError(
+        f"conv_unit_fwd spatial kernel: the rows a step reads, {w} pixels "
+        f"each, do not fit a block's copies or shared memory")
+
 
 # The temporal data gradient's frame walk (temporal_data_kernel in
 # conv_bn.cu): a block of `warps` warps takes `strip` positions x _TD_N_TILE

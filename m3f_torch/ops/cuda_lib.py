@@ -48,11 +48,11 @@ I = ctypes.c_int
 Fl = ctypes.c_float
 # C signatures of the exported entry points (every one returns cudaError_t)
 SIGNATURES = {
-    "melspec": {"m3f_log_mel": [P, I, I, I, P, I, I, I, I, P, P, P, I, I,
-                                I, Fl, P, I, P]},
+    "melspec": {"m3f_log_mel": [P, I, I, I, P, I, I, I, I, P, P, P, P, P,
+                                I, I, I, I, I, Fl, P, I, P]},
     "gru": {"m3f_gru_fwd": [P, P, P, P, P, I, I, I, I, I, I, P]},
     "conv_bn": {"m3f_conv_unit_fwd": [P, P, P, P, P, P, P, P, I, I, I, I, I,
-                                      I, I, I, I, P],
+                                      I, I, I, I, I, I, P],
                 "m3f_conv_unit_bwd_data": [P, P, P, P, P, P, P, P, P, P, P, P,
                                            I, I, I, I, I, I, I, I, I, I, I,
                                            I, I, P],

@@ -9,14 +9,15 @@ rFFT path, static reflect-pad and dynamic-hop framing) and of
 ``log_mel_spectrogram`` is the one entry point: on a CPU tensor it runs the
 plain ``log_mel_spectrogram_reference`` (``torch.fft.rfft``); on a CUDA
 tensor it launches the kernel, which frames straight from the wav rows
-(reflection in index space, no padded copy) and supports the per-row hop,
-so the port needs no fixed-hop fallback.
+(reflection in index space, no padded copy), supports the per-row hop, so
+the port needs no fixed-hop fallback, and does the real DFT as an FFT in
+shared memory whose host constants are ``fft_plan``.
 """
 
 from __future__ import annotations
 
 import functools
-from typing import Optional, Union
+from typing import NamedTuple, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -24,8 +25,6 @@ import torch.nn.functional as F
 
 from m3f_torch.config import MelConfig
 from m3f_torch.ops import cuda_lib
-
-_BINS_PER_PASS = 256   # the kernel's DFT pass width (csrc/melspec.cu NB)
 
 
 # ---------------------------------------------------------------------------
@@ -104,40 +103,63 @@ def _padded_window(cfg: MelConfig) -> np.ndarray:
     return win
 
 
-@functools.lru_cache(maxsize=8)
-def windowed_dft_mats(cfg: MelConfig):
-    """(C', S', fb', lo): window-folded DFT bases over the bins the mel
-    filterbank weighs, and the matching filterbank rows.
+class MelFftPlan(NamedTuple):
+    """The FFT kernel's host constants for one config (csrc/melspec.cu).
 
-    Bins outside ``[lo, hi]`` (the first and last bins with a non-zero
-    filter weight) add exactly zero to every mel sum, so they are left out;
-    the kept bins are zero-padded to a multiple of the kernel's pass width.
-    C'[k, i] = win[k]·cos(-2πk(lo+i)/n), S' likewise with sin, both
-    [n_fft, nbp] float32; fb' [nbp, n_mels].
-    """
+    A frame of n_fft real samples x goes through one n_fft/2-point complex
+    FFT of z[n] = w[2n]·x[2n] + i·w[2n+1]·x[2n+1] in Stockham stages of
+    ``radices`` (in order), then the real split
+    X[k] = (Z[k] + Z*[N-k])/2 − i·e[k]·(Z[k] − Z*[N-k])/2, N = n_fft/2,
+    for the bins ``[bin_lo, bin_hi)`` that some band weighs; band m sums
+    bins ``[band_lo[m], band_hi[m])`` with ``weights[m, k - band_lo[m]]``.
+    e[k] = ``twiddles[k]`` = exp(−2πik/n_fft); the FFT's twiddles are
+    e[2m]."""
+    window: np.ndarray       # [n_fft] fp32, centred in n_fft (librosa)
+    twiddles: np.ndarray     # [n_fft, 2] fp32 (re, im), from float64
+    radices: Tuple[int, ...]
+    band_lo: np.ndarray      # [n_mels] int32
+    band_hi: np.ndarray      # [n_mels] int32
+    weights: np.ndarray      # [n_mels, width] fp32, zero past a band's range
+    bin_lo: int
+    bin_hi: int
+
+
+@functools.lru_cache(maxsize=8)
+def fft_plan(cfg: MelConfig) -> MelFftPlan:
+    """The kernel's plan for ``cfg``; n_fft must be a power of two (at
+    least 4): the kernel has no other FFT."""
     n = cfg.n_fft
-    fb = mel_filterbank(cfg)
-    nz = np.nonzero(fb.any(axis=1))[0]
-    lo, hi = (int(nz[0]), int(nz[-1])) if len(nz) else (0, 0)
-    nb = hi - lo + 1
-    nbp = -(-nb // _BINS_PER_PASS) * _BINS_PER_PASS
-    win = _padded_window(cfg).astype(np.float64)
-    k = np.arange(n, dtype=np.float64)[:, None]
-    b = np.arange(lo, hi + 1, dtype=np.float64)[None, :]
-    ang = -2.0 * np.pi * k * b / n
-    c = np.zeros((n, nbp), np.float32)
-    s = np.zeros((n, nbp), np.float32)
-    c[:, :nb] = win[:, None] * np.cos(ang)
-    s[:, :nb] = win[:, None] * np.sin(ang)
-    fbp = np.zeros((nbp, fb.shape[1]), np.float32)
-    fbp[:nb] = fb[lo:hi + 1]
-    return c, s, fbp, lo
+    if n < 4 or n & (n - 1):
+        raise ValueError(f"the log-mel kernel's FFT needs n_fft a power of "
+                         f"two, at least 4; got {n}")
+    log2n = n.bit_length() - 2               # log2 of the complex FFT's size
+    radices = (2,) * (log2n & 1) + (4,) * (log2n // 2)
+    ang = -2.0 * np.pi * np.arange(n, dtype=np.float64) / n
+    tw = np.stack([np.cos(ang), np.sin(ang)], axis=1).astype(np.float32)
+    fb = mel_filterbank(cfg)                             # [n/2 + 1, n_mels]
+    lo = np.zeros(cfg.n_mels, np.int32)
+    hi = np.zeros(cfg.n_mels, np.int32)
+    for m in range(cfg.n_mels):
+        nz = np.nonzero(fb[:, m])[0]
+        if len(nz):
+            lo[m], hi[m] = nz[0], nz[-1] + 1
+    width = max(1, int((hi - lo).max()))
+    weights = np.zeros((cfg.n_mels, width), np.float32)
+    for m in range(cfg.n_mels):
+        weights[m, :hi[m] - lo[m]] = fb[lo[m]:hi[m], m]
+    used = hi > lo
+    bin_lo = int(lo[used].min()) if used.any() else 0
+    bin_hi = int(hi[used].max()) if used.any() else 0
+    return MelFftPlan(_padded_window(cfg), tw, radices, lo, hi, weights,
+                      bin_lo, bin_hi)
 
 
 @functools.lru_cache(maxsize=8)
-def _device_mats(cfg: MelConfig, device: torch.device):
-    c, s, fbp, _ = windowed_dft_mats(cfg)
-    return tuple(torch.from_numpy(a).to(device) for a in (c, s, fbp))
+def _device_plan(cfg: MelConfig, device: torch.device):
+    p = fft_plan(cfg)
+    return tuple(torch.from_numpy(np.ascontiguousarray(a)).to(device)
+                 for a in (p.window, p.twiddles, p.band_lo, p.band_hi,
+                           p.weights))
 
 
 # ---------------------------------------------------------------------------
@@ -234,7 +256,8 @@ def log_mel_spectrogram(waveform: torch.Tensor, cfg: MelConfig,
         else:
             hop0 = hop_max = int(hop)
         end0 = hop0 * (n_fr - 1) - 1
-    c, s, fbp = _device_mats(cfg, x.device)
+    plan = fft_plan(cfg)
+    win, tw, band_lo, band_hi, weights = _device_plan(cfg, x.device)
     out = torch.empty((n_rows, n_fr, cfg.n_mels), dtype=out_dtype,
                       device=x.device)
     left = cfg.n_fft // 2 if cfg.center else 0
@@ -242,9 +265,11 @@ def log_mel_spectrogram(waveform: torch.Tensor, cfg: MelConfig,
         err = cuda_lib.library("melspec").m3f_log_mel(
             x.data_ptr(), n_rows, t, n_fr,
             None if hops is None else hops.data_ptr(), hop0, end0, left, hop_max,
-            c.data_ptr(), s.data_ptr(), fbp.data_ptr(), fbp.shape[0], cfg.n_fft,
-            cfg.n_mels, cfg.log_eps, out.data_ptr(),
-            int(out_dtype == torch.bfloat16), cuda_lib.stream_ptr(x))
+            win.data_ptr(), tw.data_ptr(), band_lo.data_ptr(),
+            band_hi.data_ptr(), weights.data_ptr(), weights.shape[1],
+            plan.bin_lo, plan.bin_hi, cfg.n_fft, cfg.n_mels, cfg.log_eps,
+            out.data_ptr(), int(out_dtype == torch.bfloat16),
+            cuda_lib.stream_ptr(x))
     cuda_lib.check(err, "log_mel_spectrogram kernel")
     cuda_lib.launches["melspec"] += 1
     return out.reshape(lead + (n_fr, cfg.n_mels))

@@ -1,5 +1,5 @@
-"""Where the walk kernels' time goes, on the card: both filter gradients
-and both data gradients.
+"""Where the walk kernels' time goes, on the card: both filter gradients,
+both data gradients, the spatial forward and the mel frontend.
 
 Times ``conv_unit_bwd_filter`` (``--kind spatial``, the row walk, or
 ``--kind temporal``, the frame walk) or ``conv_unit_bwd_data`` of the
@@ -38,7 +38,19 @@ in the full-width ``fusion`` train step (32 clips, BN prologue on), beside:
   without the copies of gy, y and x (4), without the epilogue (8), and with
   the filter stream alone (15); cuDNN's data gradient
   (``torch.nn.grad.conv3d_input``) on ge already formed, and a device copy
-  of the same bytes.
+  of the same bytes;
+- ``--kind spatial_fwd``: ``conv_unit_fwd`` of the spatial unit (its row
+  walk) at the four spatial units of the serving forward (128 clips), with
+  and without the prologue: the planner's tiling, both layouts (steps of
+  128 x 144 output channels, 256 x 64) with the filter resident and
+  streamed where they fit; ablations built with ``-DSW_ABLATE``: without
+  forming x̂ (1), the products (2), the copies (4), the epilogue (8), and
+  the walk alone (15); cuDNN's conv alone and with the fp32 sums of y, a
+  device copy of x and y, and with ``--parent`` an earlier ``conv_bn.cu``'s
+  spatial forward (the per-tap gather), timed before and after the rest;
+- ``--kind mel``: the mel FFT kernel at the serving path's shapes (static
+  and per-row hop) against its plain version, and beside ``torch.stft`` +
+  the mel matmul in turn (5 rounds).
 
 Run on a machine with an NVIDIA GPU, from the repository root:
 
@@ -46,13 +58,18 @@ Run on a machine with an NVIDIA GPU, from the repository root:
     python -m m3f_torch.scripts.filter_sweep --kind spatial --check
     python -m m3f_torch.scripts.filter_sweep --kind temporal_data --check
     python -m m3f_torch.scripts.filter_sweep --kind spatial_data --check
+    python -m m3f_torch.scripts.filter_sweep --kind spatial_fwd --check
+    python -m m3f_torch.scripts.filter_sweep --kind spatial_fwd \
+        --parent build/parent/conv_bn.cu
+    python -m m3f_torch.scripts.filter_sweep --kind mel [--check]
 
 It prints the ``nvidia-smi`` card line, then one JSON line per shape with
 the median ms of ``--reps`` calls between CUDA events. ``--check`` instead
 prints what ``ptxas`` says of the kernel (registers, spills, shared memory)
 and holds the kernel once against the plain version at each shape and at a
 few small ones (``temporal_data``: at every layout the entry point takes;
-``spatial_data``: at every step).
+``spatial_data``: at every step; ``spatial_fwd``: at every layout, filter
+resident and streamed).
 Nothing runs at import.
 """
 
@@ -92,16 +109,21 @@ PEAK_BF16 = 989e12       # H100 SXM dense bf16 tensor rate, FLOP/s
 
 
 def build_variants(defines: Dict[str, str],
-                   entry: str = "m3f_conv_unit_bwd_filter"
-                   ) -> Dict[str, Callable]:
+                   entry: str = "m3f_conv_unit_bwd_filter",
+                   sources: Optional[Dict[str, str]] = None,
+                   argtypes: Optional[list] = None) -> Dict[str, Callable]:
     """``entry`` of conv_bn.cu built with each ``-D`` (one nvcc per build,
-    all at once, under build/kernels/ablate/)."""
+    all at once, under build/kernels/ablate/); ``sources`` names another
+    source file for a build (a define of "" adds none), ``argtypes`` another
+    C signature."""
     out = cuda_lib.BUILD_DIR / "ablate"
     out.mkdir(parents=True, exist_ok=True)
     src = str(cuda_lib.CSRC / "conv_bn.cu")
+    sources = sources or {}
     procs = {name: subprocess.Popen(
-        [cuda_lib._nvcc(), *cuda_lib.NVCC_FLAGS, *f"-D{d}".split(), "-o",
-         str(out / f"libconv_bn_{name}.so"), src],
+        [cuda_lib._nvcc(), *cuda_lib.NVCC_FLAGS,
+         *(f"-D{d}".split() if d else []), "-o",
+         str(out / f"libconv_bn_{name}.so"), sources.get(name, src)],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
         for name, d in defines.items()}
     fns = {}
@@ -110,7 +132,7 @@ def build_variants(defines: Dict[str, str],
         if proc.returncode:
             raise RuntimeError(f"nvcc failed for {name}:\n{log.decode()}")
         fn = getattr(ctypes.CDLL(str(out / f"libconv_bn_{name}.so")), entry)
-        fn.argtypes = cuda_lib.SIGNATURES["conv_bn"][entry]
+        fn.argtypes = argtypes or cuda_lib.SIGNATURES["conv_bn"][entry]
         fn.restype = ctypes.c_int
         fns[name] = fn
     return fns
@@ -118,13 +140,17 @@ def build_variants(defines: Dict[str, str],
 
 def resources(kind: str) -> None:
     """Print what ptxas says of the kind's kernel
-    (``<kind>_filter_kernel``, ``temporal_data_kernel`` or
-    ``spatial_data_kernel``)."""
-    kernel = f"{kind}_kernel" if kind.endswith("_data") else f"{kind}_filter_kernel"
+    (``<kind>_filter_kernel``, ``temporal_data_kernel``,
+    ``spatial_data_kernel``, ``spatial_fwd_kernel`` or, in melspec.cu,
+    ``log_mel_kernel``)."""
+    kernel = {"spatial_fwd": "spatial_fwd_kernel", "mel": "log_mel_kernel"}.get(
+        kind, f"{kind}_kernel" if kind.endswith("_data")
+        else f"{kind}_filter_kernel")
+    source = "melspec" if kind == "mel" else "conv_bn"
     log = subprocess.run(
         [cuda_lib._nvcc(), *cuda_lib.NVCC_FLAGS, "-Xptxas", "-v", "-o",
          "/dev/null", *(["-DTD_TRIALS"] if kind == "temporal_data" else []),
-         str(cuda_lib.CSRC / "conv_bn.cu")],
+         str(cuda_lib.CSRC / f"{source}.cu")],
         capture_output=True, text=True)
     if log.returncode:
         raise RuntimeError(f"nvcc failed:\n{log.stdout}{log.stderr}")
@@ -582,19 +608,283 @@ def sweep_spatial_data(reps: int) -> None:
         torch.cuda.empty_cache()
 
 
+# --- the spatial forward ----------------------------------------------------
+
+# (x shape, C_out) of the serving forward's spatial units, 128 clips
+FWD_SHAPES = (((128, 16, 56, 56, 64), 144), ((128, 8, 28, 28, 128), 288),
+              ((128, 4, 14, 14, 256), 576), ((128, 2, 7, 7, 512), 1152))
+SW_ABLATIONS = {"no_forming": 1, "no_products": 2, "no_copies": 4,
+                "no_epilogue": 8, "walk_only": 15}
+# small shapes (x shape, C_out): both layouts, masked channels, partial
+# chunks, steps spanning images, one-pixel images, the filter streamed
+SW_SMALL = (((3, 5, 7, 9, 24), 40), ((2, 3, 5, 7, 32), 136),
+            ((8, 250, 3, 5, 24), 40), ((2, 2, 11, 13, 152), 288),
+            ((1, 2, 9, 9, 200), 152), ((1, 2, 6, 6, 264), 288),
+            ((3, 4, 1, 1, 16), 8), ((1, 2, 7, 7, 24), 1152))
+# the parent's C entry (the per-tap gather kernel, KIND 0): x, wk, inv,
+# shift, y, s1, s2, part, kind, B, T, H, W, Ci, Co, bn, tiles_per_block, stream
+PARENT_FWD_ARGS = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
+
+
+def fwd_inputs(xs, co, dev, g):
+    ci = xs[-1]
+    x = torch.randn(*xs, device=dev, generator=g).to(torch.bfloat16)
+    w = (torch.rand(3, 3, ci, co, device=dev, generator=g) * 2 - 1) / (9 * ci) ** 0.5
+    inv = torch.rand(ci, device=dev, generator=g) + 0.5
+    shift = torch.randn(ci, device=dev, generator=g) * 0.1
+    return x, w, inv, shift
+
+
+def _wk(w):
+    """[3, 3, Ci, Co] → the kernels' [Co, 9·Ci] bf16 B operand."""
+    return w.to(torch.bfloat16).movedim(-1, 0).reshape(w.shape[-1], -1).contiguous()
+
+
+def launch_spatial_fwd(fn, x, wk, inv, shift, layout=None, resident=None):
+    """One call of a build's ``m3f_conv_unit_fwd`` for the spatial unit with
+    the planner's tiling, or with ``layout`` = (step, N tile) / ``resident``
+    in its place (what ``conv_unit_fwd`` does, minus its checks); ``inv``
+    None leaves the prologue out. None when the entry point refuses it."""
+    b, t, h, wd, ci = x.shape
+    co = wk.shape[0]
+    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+    plan = conv_bn.spatial_fwd_plan(b, t, h, wd, ci, co, sms)
+    step, nb = layout or (plan.step, plan.n_tile)
+    res = plan.resident if resident is None else resident
+    n_tiles = -(-co // nb)
+    per = -(-plan.images // max(1, min(plan.images, sms // n_tiles)))
+    rows = -(-plan.images // per)
+    y = torch.empty(*x.shape[:-1], co, dtype=x.dtype, device=x.device)
+    s1 = torch.empty(co, dtype=torch.float32, device=x.device)
+    s2 = torch.empty_like(s1)
+    part = torch.empty(2 * rows * co, dtype=torch.float32, device=x.device)
+    ptr = lambda v: None if v is None else v.data_ptr()
+    err = fn(x.data_ptr(), wk.data_ptr(), ptr(inv), ptr(shift), y.data_ptr(),
+             s1.data_ptr(), s2.data_ptr(), part.data_ptr(), 0, b, t, h, wd, ci,
+             co, nb, per, step, int(res), cuda_lib.stream_ptr(x))
+    if err == 1 and (layout or resident is not None):
+        return None                      # cudaErrorInvalidValue: no such tiling
+    cuda_lib.check(err, f"spatial forward sweep, {layout} resident={res}")
+    return y, s1, s2
+
+
+def launch_parent_fwd(fn, x, wk, inv, shift):
+    """One call of the parent's spatial forward (the per-tap gather) with the
+    parent's tiling: N tiles of ``_tile_n`` and ``_rows_per_block`` row
+    tiles of 128 a block."""
+    b, t, h, wd, ci = x.shape
+    co = wk.shape[0]
+    m = b * t * h * wd
+    bn = conv_bn._tile_n(co)
+    tpb = conv_bn._rows_per_block(m, co, bn, x.device)
+    rows = -(-(-(-m // 128)) // tpb)        # ceil(ceil(m / 128) / tpb)
+    y = torch.empty(*x.shape[:-1], co, dtype=x.dtype, device=x.device)
+    s1 = torch.empty(co, dtype=torch.float32, device=x.device)
+    s2 = torch.empty_like(s1)
+    part = torch.empty(2 * rows * co, dtype=torch.float32, device=x.device)
+    ptr = lambda v: None if v is None else v.data_ptr()
+    err = fn(x.data_ptr(), wk.data_ptr(), ptr(inv), ptr(shift), y.data_ptr(),
+             s1.data_ptr(), s2.data_ptr(), part.data_ptr(), 0, b, t, h, wd, ci,
+             co, bn, tpb, cuda_lib.stream_ptr(x))
+    cuda_lib.check(err, "parent spatial forward")
+    return y, s1, s2
+
+
+def _fwd_errors(got, ref) -> Dict[str, float]:
+    """max |y - ref| over max |ref|, and the same of s1 and s2."""
+    return {k: ((a.float() - r.float()).abs().max()
+                / r.float().abs().max().clamp_min(1e-30)).item()
+            for k, a, r in zip(("y", "s1", "s2"), got, ref)}
+
+
+def check_spatial_fwd() -> None:
+    """ptxas' resource lines, then the spatial forward against the plain
+    version, with and without the prologue: the wrapper once at each small
+    and each serving shape (and whether a second call repeats y, s1 and s2
+    bit for bit), and at the small shapes both layouts, filter resident and
+    streamed, where the entry point takes them."""
+    dev = resolve_device("cuda")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    resources("spatial_fwd")
+    cuda_lib.build(["conv_bn"])
+    main = cuda_lib.library("conv_bn").m3f_conv_unit_fwd
+    g = torch.Generator(device=dev).manual_seed(13)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for xs, co in SW_SMALL + FWD_SHAPES:
+        x, w, inv, shift = fwd_inputs(xs, co, dev, g)
+        plan = conv_bn.spatial_fwd_plan(*xs, co, sms)
+        row = {"x": list(xs), "co": co,
+               "plan": [plan.step, plan.n_tile, plan.resident, plan.buf_rows]}
+        for affine in (True, False):
+            a = (inv, shift) if affine else (None, None)
+            got = conv_bn.conv_unit_fwd(x, w, *a, kind="spatial")
+            again = conv_bn.conv_unit_fwd(x, w, *a, kind="spatial")
+            torch.cuda.synchronize()
+            ref = conv_bn.conv_unit_reference(x, w, *a, kind="spatial")
+            key = "affine" if affine else "plain"
+            row[key] = {"max_err_over_max_ref": _fwd_errors(got, ref),
+                        "repeats": all(torch.equal(p, q)
+                                       for p, q in zip(got, again))}
+            if (xs, co) in SW_SMALL:
+                for layout in conv_bn._SW_LAYOUTS:
+                    for res in (True, False):
+                        out = launch_spatial_fwd(main, x, _wk(w), *a,
+                                                 layout=layout, resident=res)
+                        torch.cuda.synchronize()
+                        row[key][f"{layout[0]}x{layout[1]}_res{int(res)}"] = \
+                            None if out is None else _fwd_errors(out, ref)
+            del got, again, ref
+        print(json.dumps(row), flush=True)
+        del x
+        torch.cuda.empty_cache()
+
+
+def sweep_spatial_fwd(reps: int, parent: Optional[str]) -> None:
+    import torch.nn.functional as F
+    dev = resolve_device("cuda")
+    cuda_lib.build(["conv_bn"])
+    main = cuda_lib.library("conv_bn").m3f_conv_unit_fwd
+    defines = {name: f"SW_ABLATE={k}" for name, k in SW_ABLATIONS.items()}
+    built = build_variants(defines, "m3f_conv_unit_fwd")
+    old = None
+    if parent:
+        old = build_variants({"parent": ""}, "m3f_conv_unit_fwd",
+                             {"parent": parent}, PARENT_FWD_ARGS)["parent"]
+    g = torch.Generator(device=dev).manual_seed(13)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for xs, co in FWD_SHAPES:
+        ci = xs[-1]
+        x, w, inv, shift = fwd_inputs(xs, co, dev, g)
+        wk = _wk(w)
+        plan = conv_bn.spatial_fwd_plan(*xs, co, sms)
+        kern, pad = conv_bn._torch_kernel(w.to(x.dtype), "spatial")
+        kern = kern.contiguous(memory_format=torch.channels_last_3d)
+        m = x.numel() // ci
+        flops = 2 * m * 9 * ci * co
+        for affine in (True, False):
+            a = (inv, shift) if affine else (None, None)
+            xh = conv_bn._prologue(x, *a).permute(0, 4, 1, 2, 3)
+            row = {"kind": "spatial_fwd", "x": list(xs), "co": co,
+                   "affine": affine, "plan": plan._asdict()}
+            if old is not None:
+                row["parent_ms"] = [timed(lambda: launch_parent_fwd(
+                    old, x, wk, *a), reps)]
+            row["ms"] = timed(lambda: conv_bn.conv_unit_fwd(
+                x, w, *a, kind="spatial"), reps)
+            row["entry_ms"] = timed(
+                lambda: launch_spatial_fwd(main, x, wk, *a), reps)
+            for layout in conv_bn._SW_LAYOUTS:
+                for res in (True, False):
+                    if launch_spatial_fwd(main, x, wk, *a, layout=layout,
+                                          resident=res) is not None:
+                        row[f"{layout[0]}x{layout[1]}_res{int(res)}_ms"] = timed(
+                            lambda: launch_spatial_fwd(main, x, wk, *a,
+                                                       layout=layout,
+                                                       resident=res), reps)
+            if affine:
+                for name, fn in built.items():
+                    row[f"{name}_ms"] = timed(
+                        lambda: launch_spatial_fwd(fn, x, wk, *a), reps)
+
+            def sums():
+                yf = F.conv3d(xh, kern, padding=pad).float()
+                return yf.sum((0, 2, 3, 4)), (yf * yf).sum((0, 2, 3, 4))
+            row["cudnn_conv_ms"] = timed(lambda: F.conv3d(xh, kern, padding=pad),
+                                         reps)
+            row["cudnn_conv_sums_ms"] = timed(sums, reps)
+            bx = torch.empty_like(x)
+            by = torch.empty(*xs[:-1], co, dtype=x.dtype, device=dev)
+            sy = torch.zeros_like(by)
+            row["copy_x_and_y_ms"] = timed(lambda: (bx.copy_(x), by.copy_(sy)), reps)
+            if old is not None:
+                row["parent_ms"].append(timed(lambda: launch_parent_fwd(
+                    old, x, wk, *a), reps))
+            nbytes = m * ci * 2 + m * co * 2 + 9 * ci * co * 2 + 2 * co * 4 \
+                + (2 * ci * 4 if affine else 0)
+            row["bound_ms"] = max(nbytes / HBM, flops / PEAK_BF16) * 1e3
+            row["bound_by"] = "bytes" if nbytes / HBM >= flops / PEAK_BF16 \
+                else "operations"
+            row["tflops"] = flops / row["ms"] / 1e9
+            print(json.dumps(row), flush=True)
+            del xh, bx, by, sy
+        del x
+        torch.cuda.empty_cache()
+
+
+# --- the log-mel frontend ---------------------------------------------------
+
+def sweep_mel(reps: int, check_only: bool) -> None:
+    """The FFT kernel at the serving path's shapes (128 rows of 7995
+    samples at the static hop, 128 of 10005 at a per-row hop of 640),
+    against the plain version; ptxas' resource lines; unless ``check_only``,
+    the kernel and ``torch.stft`` + the mel matmul (the static rows) timed
+    in turn, 5 rounds of ``reps``, and the plain version."""
+    from m3f_torch.config import MelConfig
+    from m3f_torch.ops import melspec
+    dev = resolve_device("cuda")
+    resources("mel")
+    cfg = MelConfig()
+    g = torch.Generator(device=dev).manual_seed(14)
+    wav = torch.randn(128, 7995, device=dev, generator=g) * 0.3
+    wav_d = torch.randn(128, 10005, device=dev, generator=g) * 0.3
+    hops = torch.full((128,), 640, dtype=torch.int32, device=dev)
+    bf = torch.bfloat16
+    calls = {
+        "static": (lambda: melspec.log_mel_spectrogram(wav, cfg, bf),
+                   lambda: melspec.log_mel_spectrogram_reference(wav, cfg, bf)),
+        "dynamic_hop": (
+            lambda: melspec.log_mel_spectrogram(wav_d, cfg, bf, hop=hops,
+                                                n_frames_out=16),
+            lambda: melspec.log_mel_spectrogram_reference(
+                wav_d, cfg, bf, hop=hops, n_frames_out=16))}
+    win = torch.hann_window(cfg.win_length, periodic=True, device=dev)
+    fb = torch.from_numpy(melspec.mel_filterbank(cfg)).to(dev)
+
+    def library():
+        spec = torch.stft(wav, cfg.n_fft, cfg.hop_length, window=win,
+                          center=True, pad_mode="reflect", return_complex=True)
+        power = spec.real ** 2 + spec.imag ** 2
+        return torch.log(power.transpose(1, 2) @ fb + cfg.log_eps).to(bf)
+    for name, (kern, plain) in calls.items():
+        err = (kern().float() - plain().float()).abs().max().item()
+        row = {"kind": "mel", "rows": name, "max_abs_err_bf16": err,
+               "repeats": torch.equal(kern(), kern())}
+        if not check_only:
+            rounds = {"ms": [], "library_ms": []}
+            for _ in range(5):
+                rounds["ms"].append(timed(kern, reps))
+                if name == "static":
+                    rounds["library_ms"].append(timed(library, reps))
+            row.update({k: statistics.median(v) for k, v in rounds.items() if v})
+            row["spread_ms"] = max(rounds["ms"]) - min(rounds["ms"])
+            row["plain_ms"] = timed(plain, reps)
+        print(json.dumps(row), flush=True)
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--kind", choices=("spatial", "temporal", "temporal_data",
-                                       "spatial_data"), default="spatial")
+                                       "spatial_data", "spatial_fwd", "mel"),
+                    default="spatial")
     ap.add_argument("--reps", type=int, default=20)
     ap.add_argument("--check", action="store_true",
                     help="ptxas' resource lines and one comparison per shape")
+    ap.add_argument("--parent", default=None,
+                    help="spatial_fwd: a conv_bn.cu whose spatial forward "
+                         "(the per-tap gather, C entry before the row walk) "
+                         "is timed beside the kernel")
     opts = ap.parse_args(argv)
     print(subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip(), flush=True)
     if opts.kind == "temporal_data":
         check_data() if opts.check else sweep_data(opts.reps)
+    elif opts.kind == "spatial_fwd":
+        check_spatial_fwd() if opts.check \
+            else sweep_spatial_fwd(opts.reps, opts.parent)
+    elif opts.kind == "mel":
+        sweep_mel(opts.reps, opts.check)
     elif opts.kind == "spatial_data":
         check_spatial_data() if opts.check else sweep_spatial_data(opts.reps)
     elif opts.check:

@@ -301,7 +301,6 @@ class Trainer:
             need = -(-need // sr) * sr + spw
         return need
 
-    @torch.no_grad()
     def evaluate_video(self, state: Optional[TrainState],
                        video: Dict[str, np.ndarray]) -> Dict[str, Any]:
         """Sliding-window eval of one video (``labels`` and ``valid`` give
@@ -310,6 +309,16 @@ class Trainer:
         (the model's own when ``state`` is None) → {"pred": [n, 2] stitched,
         smoothed (``window.eval_smooth``) and clipped, "ccc_v", "ccc_a",
         "stats": the pooled-CCC sufficient statistics}."""
+        return self._collect_eval(self._dispatch_eval(state, video))
+
+    @torch.no_grad()
+    def _dispatch_eval(self, state: Optional[TrainState],
+                       video: Dict[str, np.ndarray]):
+        """Prepare and upload one video and enqueue its eval on the device
+        without reading anything back; ``_collect_eval`` reads the result.
+        The chunked eval reads each chunk's sums to the host as it goes (as
+        the reference's does), so its dispatch does all the work and its
+        collect only passes the result on."""
         wcfg = self.cfg.window
         weights = None
         if state is not None and state.ema is not None:
@@ -320,17 +329,40 @@ class Trainer:
         starts = window_starts(n, wcfg.window_frames, wcfg.eval_stride)
         if wcfg.eval_max_windows and len(starts) > wcfg.eval_max_windows:
             pred = self._evaluate_chunked(video, starts, weights)
-            per_dim = _host_ccc(pred, labels, valid)
-        else:
-            pred, per_dim = self._evaluate_fused(video, starts, weights)
+            return pred, _host_ccc(pred, labels, valid), labels, valid
+        stitched, per_dim = self._evaluate_fused(video, starts, weights)
+        return stitched[:n], per_dim, labels, valid
+
+    def _collect_eval(self, pending) -> Dict[str, Any]:
+        """The result of one ``_dispatch_eval``: its device tensors read
+        back (waiting for the video's kernels), host arrays as they are."""
+        pred, per_dim, labels, valid = (
+            v.cpu().numpy() if isinstance(v, torch.Tensor) else v
+            for v in pending)
         return {"pred": pred,
                 "ccc_v": float(per_dim[0]), "ccc_a": float(per_dim[1]),
                 "stats": ccc_sufficient_stats(pred, labels, valid)}
 
+    def evaluate_stream(self, state: Optional[TrainState], videos,
+                        pipeline: int = 2):
+        """Whole-video eval over (video_id, video dict) pairs with
+        ``max(pipeline, 1)`` videos in flight: video i+1 is prepared,
+        uploaded and enqueued before video i is read back. Yields
+        (video_id, ``evaluate_video`` result) in input order."""
+        inflight = []
+        for vid, video in videos:
+            inflight.append((vid, self._dispatch_eval(state, video)))
+            if len(inflight) >= max(pipeline, 1):
+                v, pending = inflight.pop(0)
+                yield v, self._collect_eval(pending)
+        for v, pending in inflight:
+            yield v, self._collect_eval(pending)
+
     def _evaluate_fused(self, video, starts: np.ndarray,
                         weights: Optional[Tensors] = None):
-        """→ (pred [n, 2], per-dim CCC over the padded timeline in fp32 on
-        the device, as the reference's fused eval)."""
+        """→ (stitched [n_frames_pad, 2], per-dim CCC over the padded
+        timeline in fp32), both on the device and not read back, as the
+        reference's fused eval."""
         wcfg, mcfg = self.cfg.window, self.cfg.model
         L = wcfg.window_frames
         sr = mcfg.mel.sample_rate
@@ -377,7 +409,7 @@ class Trainer:
         valid[:n] = video["valid"]
         per_dim = ccc(stitched, self._to_device(labels),
                       mask=self._to_device(valid)[:, None], axis=(0,))
-        return stitched[:n].cpu().numpy(), per_dim.cpu().numpy()
+        return stitched, per_dim
 
     def _evaluate_chunked(self, video, starts: np.ndarray,
                           weights: Optional[Tensors] = None) -> np.ndarray:
@@ -435,12 +467,13 @@ class Trainer:
         return np.clip(stitched, -1.0, 1.0)
 
     def evaluate(self, state: Optional[TrainState], dataset, max_videos: int = 0,
-                 per_video_fn=None) -> Dict[str, float]:
+                 pipeline: int = 2, per_video_fn=None) -> Dict[str, float]:
         """Split-level CCC in both conventions: ``ccc_v/ccc_a/ccc_mean``
         (mean of per-video CCCs) and ``pooled_ccc_*`` (one CCC over all
         videos' valid frames, from fp64 sufficient statistics);
         ``ccc_select`` is the one ``train.eval_ccc_convention`` picks.
-        ``dataset`` has ``video_ids()`` and ``load_video(id)``."""
+        ``dataset`` has ``video_ids()`` and ``load_video(id)``; ``pipeline``
+        videos are in flight (``evaluate_stream``)."""
         ids = dataset.video_ids()
         if max_videos:
             ids = ids[:max_videos]
@@ -448,9 +481,10 @@ class Trainer:
             raise ValueError(
                 "evaluate(): the validation split has no videos — check "
                 "data.root / annotation layout (empty Validation_Set?)")
+        videos = ((vid, dataset.load_video(vid)) for vid in ids)
         return self._aggregate_eval(
-            ((vid, self.evaluate_video(state, dataset.load_video(vid)))
-             for vid in ids), per_video_fn)
+            self.evaluate_stream(state, videos, pipeline=pipeline),
+            per_video_fn)
 
     def _aggregate_eval(self, results, per_video_fn=None) -> Dict[str, float]:
         """(video_id, evaluate_video result) pairs → the metric dict."""
@@ -539,7 +573,7 @@ class Trainer:
                 t0, seen = time.time(), 0
             if (val_dataset is not None and tcfg.eval_every > 0
                     and (i + 1) % tcfg.eval_every == 0):
-                ev = self.evaluate(state, val_dataset)
+                ev = self.evaluate(state, dataset=val_dataset)
                 log(f"  eval @{i+1}: ccc_v={ev['ccc_v']:.4f} "
                     f"ccc_a={ev['ccc_a']:.4f} "
                     f"pooled_v={ev['pooled_ccc_v']:.4f} "

@@ -1,8 +1,8 @@
 """The port's log-mel frontend (m3f_torch/ops/melspec.py) against the JAX
 package: the plain rFFT version against ``log_mel_spectrogram`` (static and
 per-example hop) and ``log_mel_spectrogram_pallas`` in interpret mode, and
-the CUDA kernel's host constants against the rFFT. Inputs are numpy from a
-seed; tolerances are per test."""
+the CUDA kernel's host constants (its FFT plan) against the rFFT. Inputs
+are numpy from a seed; tolerances are per test."""
 
 import numpy as np
 import pytest
@@ -74,21 +74,28 @@ def test_matches_jax_pallas_kernel_interpret():
 
 
 def test_kernel_constants_reproduce_rfft_mel():
-    """The CUDA kernel's inputs — window-folded DFT bases over the bins the
-    filterbank weighs, and the matching filterbank rows — give the plain
-    version's log-mel (float64 product here; the kernel runs fp32)."""
-    c, s, fbp, lo = melspec.windowed_dft_mats(CFG)
-    assert c.shape[1] % 256 == 0 and fbp.shape[0] == c.shape[1]
+    """The CUDA kernel's inputs — its FFT plan (window, twiddles, stages,
+    real split) over the bins the filterbank weighs, and each band's packed
+    weights over its own bin range — give the plain version's log-mel
+    (complex64 here, as the kernel's fp32)."""
+    from test_torch_mel_fft_plan import run_plan
+    plan = melspec.fft_plan(CFG)
     fb = melspec.mel_filterbank(CFG)
     dropped = np.ones(len(fb), bool)
-    dropped[lo:lo + c.shape[1]] = False
+    dropped[plan.bin_lo:plan.bin_hi] = False
     assert not fb[dropped].any()            # trimmed bins weigh exactly zero
     wav = _wav((1, SPW), 4)
     x = np.pad(wav[0], CFG.n_fft // 2, mode="reflect")
     frames = np.stack([x[f * CFG.hop_length:f * CFG.hop_length + CFG.n_fft]
-                       for f in range(16)]).astype(np.float64)
-    re, im = frames @ c, frames @ s
-    got = np.log((re * re + im * im) @ fbp + CFG.log_eps)
+                       for f in range(16)])
+    spec = run_plan(frames, plan)
+    power = (spec.real ** 2 + spec.imag ** 2).astype(np.float32)
+    mel = np.zeros((16, CFG.n_mels), np.float32)
+    for m in range(CFG.n_mels):
+        lo, hi = plan.band_lo[m], plan.band_hi[m]
+        mel[:, m] = power[:, lo - plan.bin_lo:hi - plan.bin_lo] \
+            @ plan.weights[m, :hi - lo]
+    got = np.log(mel + CFG.log_eps)
     want = melspec.log_mel_spectrogram(torch.from_numpy(wav), CFG).numpy()[0]
     np.testing.assert_allclose(got, want, atol=1e-3, rtol=0)
 

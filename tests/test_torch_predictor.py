@@ -90,6 +90,56 @@ def test_chunked_equals_fused_and_predict_many():
     np.testing.assert_array_equal(many["a"], chunked)
 
 
+def _counted(items, pulled):
+    """Yield ``items``, recording in ``pulled`` how many were taken."""
+    for item in items:
+        pulled.append(item[0])
+        yield item
+
+
+# a fused, an off-rate and a chunked video (160 frames: 19 windows > 6)
+_MANY = (("a", 48, None), ("b", 48, 25.0), ("c", 160, None), ("d", 70, None))
+
+
+@pytest.mark.parametrize("pipeline", [1, 2, 3])
+def test_predict_many_pipeline_equals_serial(pipeline):
+    """``predict_many`` with ``pipeline`` videos in flight: each result bit
+    for bit ``predict_video``'s, in input order, and the input generator
+    pulled at most ``pipeline`` videos ahead of the result yielded."""
+    port = Predictor(cfg=tiny(tc), device="cpu")
+    videos = []
+    for vid, n, fps in _MANY:
+        frames, wav = _video(n, fps or 30.0, seed=n + len(vid))
+        videos.append((vid, {"frames": frames, "waveform": wav, "fps": fps}))
+    pulled = []
+    got = []
+    for vid, pred in port.predict_many(_counted(videos, pulled),
+                                       pipeline=pipeline):
+        got.append(vid)
+        assert len(pulled) <= len(got) - 1 + pipeline
+        v = dict(videos)[vid]
+        want = port.predict_video(v["frames"], v["waveform"],
+                                  fps=v["fps"])["pred"]
+        np.testing.assert_array_equal(pred, want)
+    assert got == [vid for vid, _, _ in _MANY]
+
+
+def test_predict_many_matches_jax(pair):
+    """The port's ``predict_many(..., pipeline=2)`` against the JAX one on the
+    same weights, at the tolerance of ``test_predict_video_matches_jax``."""
+    dtype, jp, port = pair
+    videos = []
+    for vid, n, fps in _MANY[:3]:
+        frames, wav = _video(n, fps or 30.0, seed=n)
+        videos.append((vid, {"frames": frames, "waveform": wav, "fps": fps}))
+    got = list(port.predict_many(iter(videos), pipeline=2))
+    want = list(jp.predict_many(iter(videos), pipeline=2))
+    assert [v for v, _ in got] == [v for v, _ in want] == ["a", "b", "c"]
+    tol = F32_TOL if dtype == "float32" else BF16_TOL
+    for (_, g), (_, w) in zip(got, want):
+        np.testing.assert_allclose(g, w, rtol=tol, atol=tol)
+
+
 def test_checkpoint_layouts_and_ema(tmp_path):
     """Full TrainState layout prefers ``.ema/``; the import-script layout
     (``params/``, ``state/``) loads too; a mismatching file raises and

@@ -321,6 +321,37 @@ def test_evaluate_matches_the_reference(fitted):
                                [r["ccc_v"], r["ccc_a"]], atol=1e-4)
 
 
+@pytest.mark.parametrize("pipeline", [1, 2, 3])
+def test_evaluate_pipeline_equals_serial(fitted, pipeline):
+    """``evaluate(..., pipeline=)`` and ``evaluate_stream``: every video's
+    result bit for bit ``evaluate_video``'s, in input order, the input
+    generator pulled at most ``pipeline`` videos ahead; the metrics those of
+    the serial loop."""
+    pt, tstate, tds = fitted["pt"], fitted["tstate"], fitted["tds"]
+    ids = tds.video_ids()
+    serial = {vid: pt.evaluate_video(tstate, tds.load_video(vid))
+              for vid in ids}
+    seen = []
+    got = pt.evaluate(tstate, tds, pipeline=pipeline,
+                      per_video_fn=lambda vid, r: seen.append((vid, r)))
+    assert [vid for vid, _ in seen] == list(ids)
+    for vid, r in seen:
+        np.testing.assert_array_equal(r["pred"], serial[vid]["pred"])
+        np.testing.assert_array_equal(r["stats"], serial[vid]["stats"])
+        assert (r["ccc_v"], r["ccc_a"]) == (serial[vid]["ccc_v"],
+                                            serial[vid]["ccc_a"])
+    assert got == pt._aggregate_eval(serial.items())
+    pulled = []
+
+    def videos():
+        for vid in ids:
+            pulled.append(vid)
+            yield vid, tds.load_video(vid)
+    for k, (vid, _) in enumerate(pt.evaluate_stream(tstate, videos(),
+                                                    pipeline=pipeline)):
+        assert vid == ids[k] and len(pulled) <= k + pipeline
+
+
 def test_best_tracker_matches_the_reference():
     seq = [0.1, 0.3, 0.29, 0.31, 0.2, 0.2, 0.2]
     a, b = BestTracker(2, 0.005), JBest(2, 0.005)
