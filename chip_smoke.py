@@ -13,13 +13,20 @@ H100 (``python3 chip_smoke.py``). It
    PyTorch yardstick call in turn (5 rounds of 20: the median of the round
    medians and their spread); the conv units' channel sums are held per
    channel, and the same check is shown to refuse a zeroed,
-   channel-shifted or last-partial-step-short s1; the spatial unit's y
-   check is shown to refuse a y whose zero padding went through the
-   prologue and a y from the filter with dh and dw swapped, and two calls
-   must give the same bits; then checks each kernel at shapes off the main
-   path's tiling (FWD_EDGE_SHAPES: images smaller and larger than a step,
-   W not dividing it, partial chunks, masked channels, the filter resident
-   and streamed; mel rows with a partial last frame block for both hops);
+   channel-shifted or last-partial-step-short (temporal: last-partial-
+   strip-short) s1; the spatial unit's y check is shown to refuse a y whose
+   zero padding went through the prologue and a y from the filter with dh
+   and dw swapped, the temporal unit's a y whose zero frames at the clip
+   edges went through the prologue, a y from the filter with taps 0 and 2
+   swapped and a y whose clips read their neighbours' frames; two calls
+   must give the same bits; both mel routes, the FFT and (n_fft 400, not a
+   power of two) the DFT product, are held fp32 and bf16 out, static and
+   per-row hop, and timed; then checks each kernel at shapes off the main path's
+   tiling (FWD_EDGE_SHAPES: images smaller and larger than a step, W not
+   dividing it, partial chunks, masked channels, the filter resident and
+   streamed; clips of 1-7 frames, partial strips and strips across clips;
+   widths that are not multiples of 8, which the wrappers zero-pad; mel
+   rows with a partial last frame block for both hops);
    The four backward kernels of the conv units (data and filter gradient,
    spatial and temporal) are held the same way at the fusion train step's
    shapes: dx per element (one bf16 ulp, carried through inv), dw per
@@ -34,7 +41,8 @@ H100 (``python3 chip_smoke.py``). It
    and cuDNN's backward (``torch.nn.grad.conv3d_input`` / ``conv3d_weight``)
    and checked again at shapes off the tiling (short clips, partial
    strips, masked channels, images of one row, one column or one pixel,
-   k-steps that span rows and images);
+   k-steps that span rows and images, widths that are not multiples of
+   8); the temporal forward is held at the train shapes as well;
    The four kernels of the packed-layout conv probe (packed_conv with bf16
    and fp32 y, ablate_slabs, ablate_matmul, packed_conv_chunked) are held
    against their plain versions at the probe's full shape (COUT 144, timed
@@ -52,7 +60,9 @@ H100 (``python3 chip_smoke.py``). It
    (``window.eval_max_windows=64``), each with the launch counters set to 0
    just before and read just after; every kernel must have launched; then
    ``predict_many`` over 3 videos with 2 in flight, each bit for bit
-   ``predict_video``'s, timed beside the serial loop;
+   ``predict_video``'s, timed beside the serial loop; then the same weights
+   with ``model.mel.n_fft`` = ``win_length`` = 400, whose request must go
+   through the mel DFT route and not the FFT;
 4. runs the same weights of a narrow model through the port on the CPU
    (plain versions) and on the card (kernels) and compares the predictions;
 5. trains the full-width ``fusion`` preset (R(2+1)D-18, batch 8 x 4
@@ -81,7 +91,9 @@ import sys
 import time
 
 # Tolerances, stated before the run:
-MEL_ATOL = 5e-3          # log domain, fp32 (tests/test_melspec_pallas.py:41)
+MEL_ATOL = 5e-3          # log domain, fp32 (tests/test_melspec_pallas.py:41);
+#                          bf16 out: that plus one bf16 ulp of the plain
+#                          value (each side rounds its fp32 value once)
 GRU_ATOL_F32 = 1e-5      # fp32 recurrence (tests/test_gru_pallas.py:21-22)
 GRU_ATOL_BF16 = 2 ** -6  # bf16 x/W: a bf16 round of h@W_hh can flip by one
 #                          ulp with the fp32 summation order (4 ulps at |h|=1)
@@ -89,8 +101,7 @@ CONV_Y_REL = 2 ** -7     # bf16 y: one ulp from the fp32 summation order ...
 CONV_Y_ABS = 1e-5        # ... plus a floor, relative to max|y|, near zero
 CONV_S_REL = 1e-5        # channel sums, per channel: fp32 summation order,
 #                          relative to sum|y| and to s2 (see sum_limits)
-CONV_BM = 128            # the temporal forward's row tile (BM in conv_bn.cu)
-#                          bf16 dx per element: one ulp (the fp32 summation
+# bf16 dx per element (BWD_DX_ABS): one ulp (the fp32 summation
 #                          order of dx^); with the prologue, that ulp of dx^
 #                          carried through the scale by |inv| plus two ulps
 #                          of dx for the two roundings of dxa*inv (half an ulp
@@ -142,14 +153,22 @@ def emit(obj):
     print(json.dumps(obj), flush=True)
 
 
+SPIN_CYCLES = 2_000_000  # ~1 ms of torch.cuda._sleep, longer than a call's
+#                          host work
+
+
 def timed(torch, fn, reps=20):
-    """Median ms of ``reps`` calls, each between two CUDA events."""
+    """Median ms of ``reps`` calls, each between two CUDA events and queued
+    behind a spin kernel: the host has launched the whole call before the
+    first event is reached, so the events time the device alone, not the
+    host's launch work (which inflated short kernels' times before)."""
     fn()
     torch.cuda.synchronize()
     times = []
     for _ in range(reps):
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(SPIN_CYCLES)
         a.record()
         fn()
         b.record()
@@ -180,21 +199,34 @@ def bound(nbytes, flops, peak):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def check_mel(torch, melspec, cfg):
-    """K1 at the main path's shapes: 128 rows of 7995 samples (static hop)
-    and 128 rows of 10005 samples (per-row hop 640, the 25 fps request)."""
+def check_mel(torch, cuda_lib, melspec, cfg, name):
+    """The mel route ``name`` ("melspec": the FFT, n_fft a power of two;
+    "melspec_dft": the DFT product, any other n_fft) at the main path's
+    shapes: 128 rows of 7995 samples (static hop) and 128 rows of 10005
+    samples (per-row hop 640, the 25 fps request), fp32 and bf16 out,
+    against the plain version; each call must launch that route. Timed in
+    turn with ``torch.stft`` + the mel matmul at the same config."""
     g = torch.Generator(device="cuda").manual_seed(1)
     wav = torch.randn(128, 7995, device="cuda", generator=g) * 0.3
-    err = (melspec.log_mel_spectrogram(wav, cfg)
-           - melspec.log_mel_spectrogram_reference(wav, cfg)).abs().max().item()
     wav_d = torch.randn(128, 10005, device="cuda", generator=g) * 0.3
     hops = torch.full((128,), 640, dtype=torch.int32, device="cuda")
-    err_d = (melspec.log_mel_spectrogram(wav_d, cfg, hop=hops, n_frames_out=16)
-             - melspec.log_mel_spectrogram_reference(
-                 wav_d, cfg, hop=hops, n_frames_out=16)).abs().max().item()
-    require(err <= MEL_ATOL and err_d <= MEL_ATOL,
-            f"mel kernel vs plain: static {err}, dynamic {err_d} > {MEL_ATOL}")
     bf = torch.bfloat16
+    errs = {}
+    for rows, (w_, kw) in {"static": (wav, {}),
+                           "dynamic_hop": (wav_d, {"hop": hops,
+                                                   "n_frames_out": 16})}.items():
+        before = cuda_lib.launches[name]
+        got = melspec.log_mel_spectrogram(w_, cfg, **kw)
+        require(cuda_lib.launches[name] == before + 1,
+                f"mel n_fft {cfg.n_fft} {rows}: not the {name} route")
+        errs[rows] = (got - melspec.log_mel_spectrogram_reference(w_, cfg, **kw)
+                      ).abs().max().item()
+        got = melspec.log_mel_spectrogram(w_, cfg, bf, **kw).float()
+        want = melspec.log_mel_spectrogram_reference(w_, cfg, bf, **kw).float()
+        ok = bool(((got - want).abs() <= MEL_ATOL + ulp_bf16(torch, want)).all())
+        errs[rows + "_bf16"] = (got - want).abs().max().item()
+        require(errs[rows] <= MEL_ATOL and ok,
+                f"{name} kernel vs plain: {errs} (tol {MEL_ATOL}, bf16 + one ulp)")
     plain = timed(torch, lambda: melspec.log_mel_spectrogram_reference(wav, cfg, bf))
     win = torch.hann_window(cfg.win_length, periodic=True, device="cuda")
     fb = torch.from_numpy(melspec.mel_filterbank(cfg)).cuda()
@@ -217,12 +249,12 @@ def check_mel(torch, melspec, cfg):
                       + 2 * bins * cfg.n_mels + cfg.n_mels)
     nbytes = wav.numel() * 4 + frames * cfg.n_mels * 2
     b_ms, b_by = bound(nbytes, flops, PEAK_FP32)
-    emit({"phase": "kernel_melspec", "max_abs_err": err, "max_abs_err_dynamic_hop": err_d,
+    emit({"phase": "kernel_" + name, "n_fft": n, "max_abs_err": errs,
           "tol": MEL_ATOL, "ms": ms, "ms_spread": ms_spread, "plain_ms": plain,
           "library_ms": lib, "library_ms_spread": lib_spread,
           "bound_ms": b_ms})
-    return {"name": "melspec", "max_abs_err": max(err, err_d), "ms": ms,
-            "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by,
+    return {"name": name, "max_abs_err": max(errs["static"], errs["dynamic_hop"]),
+            "ms": ms, "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by,
             "library_ms": lib}
 
 
@@ -280,35 +312,49 @@ def sums_within(s1, s2, s10, s20, lims):
                 and ((s2 - s20).abs() <= lims[1]).all())
 
 
-def check_sums(what, y, y0, s1, s2, s10, s20, tail):
+def check_sums(what, y, y0, s1, s2, s10, s20, last):
     """Holds the sums per channel, then shows that the same check refuses a
-    kernel whose s1 is zero, lies one channel off, or leaves out the ``tail``
-    pixels at the end of y (the kernel's last partial step or row tile,
-    ``last_partial``; no such control when it is 0). Returns the worst
-    |s1 - s10| / limit."""
+    kernel whose s1 is zero, lies one channel off, or leaves out the share
+    of y the kernel computes in its last partial step or strip (``last``
+    from ``last_partial``: (name, s1 share); no such control when it is
+    None). Returns the worst |s1 - s10| / limit."""
     lims = sum_limits(y, y0, s20)
     require(sums_within(s1, s2, s10, s20, lims),
             f"{what}: channel sums off by s1 {(s1 - s10).abs().max().item()}, "
             f"s2 {(s2 - s20).abs().max().item()}")
     wrong = {"s1_zero": s1 * 0, "s1_one_channel_off": s1.roll(1)}
-    if tail:
-        wrong["s1_last_partial_step_left_out"] = \
-            s1 - y.reshape(-1, y.shape[-1])[-tail:].float().sum(0)
+    if last is not None:
+        wrong[f"s1_{last[0]}_left_out"] = s1 - last[1]
     passed = [k for k, v in wrong.items() if sums_within(v, s2, s10, s20, lims)]
     require(not passed, f"{what}: the sums check would pass a wrong s1: {passed}")
     return ((s1 - s10).abs() / lims[0]).max().item()
 
 
-def last_partial(torch, conv_bn, kind, xs, co):
-    """Pixels at the end of y that the forward kernel computes in its last
-    partial step: the spatial row walk's last step of the last range, the
-    temporal kernel's last row tile of CONV_BM; 0 where that is full."""
-    if kind == "temporal":
-        return math.prod(xs[:-1]) % CONV_BM
-    b, t, h, w, ci = xs
+def _round8(n):
+    """The kernels' channel count: the wrappers zero-pad to multiples of 8."""
+    return -(-n // 8) * 8
+
+
+def last_partial(torch, conv_bn, kind, y, ci):
+    """(name, s1 share) of the y pixels that the forward kernel computes in
+    its last partial step: the spatial row walk's last step of the last
+    range, the temporal frame walk's last strip of (clip, position) pairs
+    (at every frame); None where that step or strip is full."""
+    b, t, h, w, co = y.shape
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    plan = conv_bn.spatial_fwd_plan(b, t, h, w, ci, co, sms)
-    return len(plan.images_of(plan.ranges - 1)) * h * w % plan.step
+    if kind == "temporal":
+        plan = conv_bn.temporal_fwd_plan(b, t, h, w, _round8(ci), _round8(co),
+                                         sms)
+        rem = plan.positions % plan.strip
+        if not rem:
+            return None
+        pairs = y.reshape(b, t, h * w, co).permute(0, 2, 1, 3).reshape(-1, t, co)
+        return "last_partial_strip", pairs[-rem:].float().sum((0, 1))
+    plan = conv_bn.spatial_fwd_plan(b, t, h, w, _round8(ci), _round8(co), sms)
+    tail = len(plan.images_of(plan.ranges - 1)) * h * w % plan.step
+    if not tail:
+        return None
+    return "last_partial_step", y.reshape(-1, co)[-tail:].float().sum(0)
 
 
 def y_within(y, y0):
@@ -320,39 +366,52 @@ def y_within(y, y0):
 
 def check_fwd_unit(torch, F, conv_bn, what, x, w, a, kind):
     """One forward unit: y per element and the sums per channel against the
-    plain version, with their controls; for the spatial kind the y check
-    is shown to refuse a y whose zero padding went through the prologue
-    (with the prologue) and a y from the filter with dh and dw swapped
-    (images of more than one pixel), and a second call must give the same
-    bits. Returns (max |dy|, worst sums
-    error over its limit)."""
+    plain version, with their controls, and a second call must give the
+    same bits. For the spatial kind the y check is shown to refuse a y whose
+    zero padding went through the prologue (with the prologue) and a y from
+    the filter with dh and dw swapped (images of more than one pixel); for
+    the temporal kind a y whose zero frames at the clip edges went through
+    the prologue (relu(shift), with the prologue), a y from the filter with
+    taps 0 and 2 swapped (clips of more than one frame) and a y whose clips
+    read their neighbours' frames across the boundary (more than one clip).
+    Returns (max |dy|, worst sums error over its limit)."""
     y, s1, s2 = conv_bn.conv_unit_fwd(x, w, *a, kind=kind)
     y0, s10, s20 = conv_bn.conv_unit_reference(x, w, *a, kind=kind)
     err = (y.float() - y0.float()).abs().max().item()
     require(y_within(y, y0), f"{what}: max |dy| {err}")
     ratio = check_sums(what, y, y0, s1, s2, s10, s20,
-                       last_partial(torch, conv_bn, kind, x.shape, w.shape[-1]))
+                       last_partial(torch, conv_bn, kind, y, x.shape[-1]))
+    wrong = {}
+    kern = conv_bn._torch_kernel(w.to(x.dtype), kind)[0].contiguous(
+        memory_format=torch.channels_last_3d)
     if kind == "spatial":
-        wrong = {}
         if x.shape[2] * x.shape[3] > 1:       # 1x1 images read the centre tap only
             wrong["filter_dh_dw_swapped"] = conv_bn.conv_unit_reference(
                 x, w.transpose(0, 1), *a, kind=kind)[0]
-        if a[0] is not None:
-            xh = conv_bn._prologue(F.pad(x, (0, 0, 1, 1, 1, 1)), *a)
-            kern, _ = conv_bn._torch_kernel(w.to(x.dtype), kind)
-            wrong["padding_through_prologue"] = F.conv3d(
-                xh.permute(0, 4, 1, 2, 3),
-                kern.contiguous(memory_format=torch.channels_last_3d)
-            ).permute(0, 2, 3, 4, 1)
-            del xh
-        passed = [k for k, v in wrong.items() if y_within(v, y0)]
-        require(not passed, f"{what}: the y check would pass: {passed}")
-        del wrong
-        y2, s12, s22 = conv_bn.conv_unit_fwd(x, w, *a, kind=kind)
-        require(torch.equal(y2, y) and torch.equal(s12, s1)
-                and torch.equal(s22, s2),
-                f"{what}: a second call gave another y, s1 or s2")
-        del y2
+        pad = (0, 0, 1, 1, 1, 1)              # H and W: zero before the prologue
+    else:
+        if x.shape[1] > 1:                    # one frame reads the centre tap only
+            wrong["filter_taps_0_2_swapped"] = conv_bn.conv_unit_reference(
+                x, w.flip(0), *a, kind=kind)[0]
+        if x.shape[0] > 1:                    # the clips as one long clip
+            wrong["frames_leak_across_clips"] = conv_bn.conv_unit_reference(
+                x.reshape(1, -1, *x.shape[2:]), w, *a, kind=kind)[0].reshape(
+                    y0.shape)
+        pad = (0, 0, 0, 0, 0, 0, 1, 1)        # T: zero frames before the prologue
+    if a[0] is not None:
+        xh = conv_bn._prologue(F.pad(x, pad), *a)
+        key = "padding_through_prologue" if kind == "spatial" \
+            else "edge_frames_through_prologue"
+        wrong[key] = F.conv3d(xh.permute(0, 4, 1, 2, 3), kern
+                              ).permute(0, 2, 3, 4, 1)
+        del xh
+    passed = [k for k, v in wrong.items() if y_within(v, y0)]
+    require(not passed, f"{what}: the y check would pass: {passed}")
+    del wrong
+    y2, s12, s22 = conv_bn.conv_unit_fwd(x, w, *a, kind=kind)
+    require(torch.equal(y2, y) and torch.equal(s12, s1) and torch.equal(s22, s2),
+            f"{what}: a second call gave another y, s1 or s2")
+    del y2
     return err, ratio
 
 
@@ -507,13 +566,15 @@ def last_slice_left_out(torch, conv_bn, x, inv, shift, y, gy, gs1, gs2, dw,
     co = gy.shape[-1]
     sms = torch.cuda.get_device_properties(x.device).multi_processor_count
     if kind == "spatial":
-        plan = conv_bn.spatial_filter_plan(b, t, h, w, ci, co, sms)
+        plan = conv_bn.spatial_filter_plan(b, t, h, w, _round8(ci), _round8(co),
+                                           sms)
         mask = torch.zeros(b * t, device=x.device)
         last = plan.units_of(plan.slices - 1)
         mask[last.start:last.stop] = 1
         mask = mask.reshape(b, t, 1, 1, 1)
     else:
-        plan = conv_bn.temporal_filter_plan(b, t, h, w, ci, co, sms)
+        plan = conv_bn.temporal_filter_plan(b, t, h, w, _round8(ci),
+                                            _round8(co), sms)
         strips = -(-h * w // plan.strip)
         mask = torch.zeros(b, h * w, device=x.device)
         for u in plan.units_of(plan.slices - 1):
@@ -582,18 +643,18 @@ def check_bwd_unit(torch, conv_bn, what, x, w, inv, shift, gy, gs1, gs2,
     if dinv is not None:
         wrong["dinv_zero"] = (dx, dw, dinv * 0, dshift)
     b, t, h, wd, ci = x.shape
+    ci8, co8 = _round8(ci), _round8(gy.shape[-1])   # the kernel's widths
     sms = torch.cuda.get_device_properties(x.device).multi_processor_count
     if kind == "spatial":
         # the row walk's last step: the last pixels of the last range, up to
         # one step of them
-        plan = conv_bn.spatial_data_plan(b, t, h, wd, ci, gy.shape[-1], sms)
+        plan = conv_bn.spatial_data_plan(b, t, h, wd, ci8, co8, sms)
         q = len(plan.images_of(plan.ranges - 1)) * h * wd
         cut = dx.clone().reshape(-1, ci)
         cut[-(q - (q - 1) // plan.step * plan.step):] = 0
     else:
         # the frame walk's last unit: the last clip's last strip, every frame
-        strip = conv_bn.temporal_data_plan(b, t, h, wd, ci, gy.shape[-1],
-                                           sms).strip
+        strip = conv_bn.temporal_data_plan(b, t, h, wd, ci8, co8, sms).strip
         cut = dx.clone().reshape(b, t, h * wd, ci)
         cut[-1, :, (h * wd - 1) // strip * strip:] = 0
     wrong["dx_last_tile_left_out"] = (cut.reshape(dx.shape), dw, dinv, dshift)
@@ -614,15 +675,17 @@ def check_bwd_unit(torch, conv_bn, what, x, w, inv, shift, gy, gs1, gs2,
     return y, errs
 
 
-def check_bwd(torch, conv_bn, clips=32):
+def check_bwd(torch, F, conv_bn, clips=32):
     """The four backward kernels at the fusion train step's shapes: each
     held against its plain version, timed beside the plain version and
     cuDNN's backward (torch.nn.grad.conv3d_input / conv3d_weight, bf16).
     The forward units are timed at the same shapes too, for their share of
-    the step (phase ``conv_fwd_train_step``)."""
+    the step, and the temporal one is held against its plain version there
+    as at the serving shapes (phase ``conv_fwd_train_step``)."""
     g = torch.Generator(device="cuda").manual_seed(6)
     out = {}
     fwd_step = {"spatial": 0.0, "temporal": 0.0}
+    fwd_errs = {}
     for kind, xs, ws, affine, copies in _train_units(clips):
         x = torch.randn(*xs, device="cuda", generator=g).to(torch.bfloat16)
         k = math.prod(ws[:-1])
@@ -638,6 +701,10 @@ def check_bwd(torch, conv_bn, clips=32):
         gs1 = torch.randn(co, device="cuda", generator=g) * 1e-5
         gs2 = torch.randn(co, device="cuda", generator=g) * 1e-6
         what = f"conv unit bwd {kind} {xs} affine={affine}"
+        if kind == "temporal":
+            fwd_errs[str(list(xs))] = check_fwd_unit(
+                torch, F, conv_bn, f"conv unit {kind} {xs} (train)", x, w, a,
+                kind)
         y, errs = check_bwd_unit(torch, conv_bn, what, x, w, *a, gy, gs1, gs2,
                                  kind)
         fwd_step[kind] += copies * timed(
@@ -693,7 +760,8 @@ def check_bwd(torch, conv_bn, clips=32):
         acc["bound_ms"] = max(t_ops, t_bytes)
         acc["bound_by"] = "operations" if t_ops >= t_bytes else "bytes"
     emit({"phase": "conv_fwd_train_step", "clips": clips,
-          "ms_per_step": fwd_step})
+          "ms_per_step": fwd_step,
+          "temporal_max_abs_err_and_s1_err_over_limit": fwd_errs})
     return [out[k] for k in BWD_KERNELS]
 
 
@@ -718,7 +786,8 @@ BWD_KERNELS = ("conv_spatial_bwd_data", "conv_spatial_bwd_filter",
 # C_out 296, 288, 704, 512, 1024 and 440 (18 to 64 chunks a step; C_in 152
 # with three N tiles, the last 24 wide; 1x1 images at C_out 440), and rows
 # of 200 pixels (data gradient: steps of 128, a 256-pixel step's six rows
-# outgrow a thread's copies). Temporal
+# outgrow a thread's copies); widths that are not multiples of 8, C_in 108 ->
+# C_out 48 and 12 -> 20, which the wrappers zero-pad (both kinds). Temporal
 # shapes for the two frame walks' tilings (the filter gradient's 64-position
 # strips, channel blocks of 48 / 64, 64 output channels; the data gradient's
 # strips of 64 / 32 / 16 positions x 144 input channels, its filter resident
@@ -751,6 +820,10 @@ BWD_EDGE_SHAPES = (("spatial", (3, 5, 7, 9, 24), (3, 3, 24, 40)),
                    ("spatial", (2, 3, 1, 1, 24), (3, 3, 24, 440)),
                    ("spatial", (1, 2, 7, 7, 24), (3, 3, 24, 1024)),
                    ("spatial", (1, 2, 3, 200, 24), (3, 3, 24, 40)),
+                   ("spatial", (1, 2, 6, 6, 108), (3, 3, 108, 48)),
+                   ("spatial", (2, 3, 4, 5, 12), (3, 3, 12, 20)),
+                   ("temporal", (1, 2, 6, 6, 108), (3, 108, 48)),
+                   ("temporal", (2, 3, 4, 5, 12), (3, 12, 20)),
                    ("temporal", (2, 7, 5, 3, 40), (3, 40, 24)),
                    ("temporal", (3, 1, 6, 5, 24), (3, 24, 16)),
                    ("temporal", (2, 2, 9, 9, 48), (3, 48, 40)),
@@ -979,7 +1052,16 @@ def check_probe(torch, F, cuda_lib, pc, probe):
 # and C_out 288 (two N tiles of 144, the filter streamed); rows of 200
 # pixels (steps of 128: a 256-pixel step's rows outgrow a thread's copies);
 # one-pixel images (513 buffer rows); eight N tiles of a stage-4-like unit.
-# The temporal unit: a partial row tile and masked channels.
+# The temporal frame walk (temporal_fwd_plan: strips of 128 (clip,
+# position) pairs x 64 output channels): T 7 over 30 pairs (the whole
+# tensor under one strip, C_in 40, C_out 24); T 1 (no tap but the centre);
+# T 2 over 162 pairs (a partial last strip, C_out 40); T 3 over clips of 35
+# pairs (strips span clips, a partial last one); strips over clips of 33
+# pairs at T 2; C_in 152 (two chunks of 80, the last half masked); C_in 8;
+# C_in 296 (three chunks) with three N tiles, the last 16 wide; C_out 160
+# and 344 (three and six N tiles); C_in 576 with the filter streamed. Both
+# kinds at widths that are not multiples of 8 (C_in 108 -> C_out 48 and 12
+# -> 20: the wrapper zero-pads them).
 FWD_EDGE_SHAPES = (("spatial", (3, 5, 7, 9, 24), (3, 3, 24, 40)),
                    ("spatial", (2, 3, 5, 7, 32), (3, 3, 32, 136)),
                    ("spatial", (1, 2, 20, 20, 24), (3, 3, 24, 144)),
@@ -990,7 +1072,21 @@ FWD_EDGE_SHAPES = (("spatial", (3, 5, 7, 9, 24), (3, 3, 24, 40)),
                    ("spatial", (1, 3, 3, 200, 16), (3, 3, 16, 40)),
                    ("spatial", (3, 4, 1, 1, 16), (3, 3, 16, 8)),
                    ("spatial", (1, 2, 7, 7, 24), (3, 3, 24, 1152)),
-                   ("temporal", (2, 7, 5, 3, 40), (3, 40, 24)))
+                   ("spatial", (1, 2, 6, 6, 108), (3, 3, 108, 48)),
+                   ("spatial", (2, 3, 4, 5, 12), (3, 3, 12, 20)),
+                   ("temporal", (2, 7, 5, 3, 40), (3, 40, 24)),
+                   ("temporal", (3, 1, 6, 5, 24), (3, 24, 16)),
+                   ("temporal", (2, 2, 9, 9, 48), (3, 48, 40)),
+                   ("temporal", (4, 3, 5, 7, 64), (3, 64, 24)),
+                   ("temporal", (5, 2, 3, 11, 32), (3, 32, 24)),
+                   ("temporal", (2, 3, 10, 10, 152), (3, 152, 40)),
+                   ("temporal", (1, 3, 9, 8, 8), (3, 8, 96)),
+                   ("temporal", (2, 3, 7, 5, 296), (3, 296, 144)),
+                   ("temporal", (2, 4, 5, 5, 40), (3, 40, 160)),
+                   ("temporal", (2, 2, 3, 3, 24), (3, 24, 344)),
+                   ("temporal", (3, 3, 7, 7, 576), (3, 576, 256)),
+                   ("temporal", (1, 2, 6, 6, 108), (3, 108, 48)),
+                   ("temporal", (2, 3, 4, 5, 12), (3, 12, 20)))
 
 
 def check_edges(torch, F, melspec, gru, conv_bn, cfg):
@@ -1047,7 +1143,8 @@ def synthetic_video(np, n, fps, seed):
 FORWARD_KERNELS = ("melspec", "gru", "conv_spatial", "conv_temporal")
 
 
-def serve(torch, np, cuda_lib, p, frames, wav, fps=None):
+def serve(torch, np, cuda_lib, p, frames, wav, fps=None,
+          kernels=FORWARD_KERNELS):
     cuda_lib.reset_launches()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -1058,7 +1155,7 @@ def serve(torch, np, cuda_lib, p, frames, wav, fps=None):
     require(pred.shape == (len(frames), 2), f"pred shape {pred.shape}")
     require(bool(np.isfinite(pred).all()), "non-finite predictions")
     require(bool((np.abs(pred) <= 1.0).all()), "predictions outside [-1, 1]")
-    missing = [k for k in FORWARD_KERNELS if counts[k] == 0]
+    missing = [k for k in kernels if counts[k] == 0]
     require(not missing, f"kernels not launched on the main path: {missing}")
     return pred, counts, dt
 
@@ -1252,10 +1349,14 @@ def main():
           "build_s": time.perf_counter() - t0})
 
     # 2. each kernel against its plain version at the main path's shapes
-    kernels = [check_mel(torch, melspec, MelConfig()), check_gru(torch, gru)]
+    mel400 = {"n_fft": 400, "win_length": 400}     # not a power of two
+    kernels = [check_mel(torch, cuda_lib, melspec, MelConfig(), "melspec"),
+               check_mel(torch, cuda_lib, melspec, MelConfig(**mel400),
+                         "melspec_dft"),
+               check_gru(torch, gru)]
     kernels += check_conv(torch, F, conv_bn)
     check_edges(torch, F, melspec, gru, conv_bn, MelConfig())
-    kernels += check_bwd(torch, conv_bn)
+    kernels += check_bwd(torch, F, conv_bn)
     check_bwd_edges(torch, conv_bn)
     torch.cuda.empty_cache()
 
@@ -1291,7 +1392,19 @@ def main():
           "s": dtc, "frames_per_s": 1024 / dtc,
           "max_abs_diff_vs_fused": diff_c, "tol": CHUNK_ATOL})
     serve_many(torch, np, p)
-    del p, pc
+    # the same weights with a mel n_fft of 400: the DFT route, not the FFT
+    p400 = Predictor(preset="longseq_eval", overrides={
+        f"model.mel.{k}": v for k, v in mel400.items()})
+    p400.model.load_state_dict(p.model.state_dict())
+    p400.predict_video(frames=frames, waveform=wav)       # warm run
+    _, counts400, dt400 = serve(
+        torch, np, cuda_lib, p400, frames, wav,
+        kernels=("melspec_dft",) + FORWARD_KERNELS[1:])
+    want400 = dict(want, melspec=0, melspec_dft=1)
+    require(counts400 == want400, f"launches {counts400}, expected {want400}")
+    emit({"phase": "serve_mel_n_fft_400", "frames": 1024,
+          "launches": counts400, "s": dt400, "frames_per_s": 1024 / dt400})
+    del p, pc, p400
     torch.cuda.empty_cache()
 
     # 4. whole-path parity: one narrow model, CPU plain versions vs kernels
@@ -1334,6 +1447,7 @@ def main():
     # 6. the kernels line, the card line, the result line
     pallas = "m3f/pytorch_tpu/ops/pallas/"
     replaces = {"melspec": pallas + "melspec_pallas.py:88",
+                "melspec_dft": pallas + "melspec_pallas.py:88",
                 "gru": pallas + "gru_pallas.py:61",
                 "conv_unit_spatial": pallas + "conv_bn.py:172",
                 "conv_unit_temporal": pallas + "conv_bn.py:217",
@@ -1348,16 +1462,20 @@ def main():
     counter = {"melspec": "melspec", "gru": "gru",
                "conv_unit_spatial": "conv_spatial",
                "conv_unit_temporal": "conv_temporal"}
-    source = {"melspec": "m3f_torch/csrc/melspec.cu", "gru": "m3f_torch/csrc/gru.cu",
+    source = {"melspec": "m3f_torch/csrc/melspec.cu",
+              "melspec_dft": "m3f_torch/csrc/melspec.cu",
+              "gru": "m3f_torch/csrc/gru.cu",
               **{k: "m3f_torch/csrc/packed_conv.cu" for k in PROBE_KERNELS}}
     line = []
     for k in kernels:
         name = k["name"]
-        # forward kernels: their launches serving one video; backward
-        # kernels: theirs over the 10 timed train steps; probe kernels:
-        # theirs in one probe run
+        # forward kernels: their launches serving one video (the DFT mel
+        # route: serving it with n_fft 400); backward kernels: theirs over
+        # the 10 timed train steps; probe kernels: theirs in one probe run
         if name in counter:
             launches = counts30[counter[name]]
+        elif name == "melspec_dft":
+            launches = counts400[name]
         elif name in PROBE_KERNELS:
             launches = counts_probe[name]
         else:

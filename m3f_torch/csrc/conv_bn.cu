@@ -41,22 +41,16 @@
 //
 // Design (simple, correct tensor-core kernels; wgmma / TMA come later):
 // - The spatial forward is spatial_fwd_kernel, a row walk that forms each
-//   x^ row once for all nine taps and every output channel of its tile
-//   (described above its code).
-// - The temporal forward (conv_unit_kernel): a 128 x BN output tile per
-//   block, 4 warps in 2 x 2, each warp 64 x BN/2 with mma.sync m16n8k16
-//   bf16 -> fp32 and ldmatrix fragment loads. K runs in chunks of 32 over
-//   the flattened (tap, channel) axis; each thread gathers its A rows as
-//   16-byte vectors straight from the NDHWC tensor at the tap's offset. A
-//   tap outside the clip is the conv's zero padding, written as zeros AFTER
-//   the prologue. Chunks go global -> registers -> shared memory,
-//   double-buffered.
-// - Forward epilogues: y is rounded and stored; the rounded values feed the
-//   per-channel sums. The TPU grid is sequential and carries sums across
-//   steps; CUDA blocks run in parallel, so each block loops over its tiles
-//   or steps, reduces its sums in a fixed order (warp shuffles, then shared
-//   memory) into one partial row, and a second kernel sums the rows per
-//   channel in a fixed order. No atomics.
+//   x^ row once for all nine taps and every output channel of its tile; the
+//   temporal forward is temporal_fwd_kernel, a frame walk that forms each
+//   x^ tile once for all three taps and every output channel of its tile
+//   (each described above its code).
+// - Forward epilogues: y is rounded, staged in shared memory and stored in
+//   16-byte vectors; the rounded values feed the per-channel sums. The TPU
+//   grid is sequential and carries sums across steps; CUDA blocks run in
+//   parallel, so each block reduces its sums over its whole walk in a fixed
+//   order (warp shuffles, then shared memory) into one partial row, and
+//   colsum_kernel sums the rows per channel in a fixed order. No atomics.
 // - The backward has a kernel per gradient and kind, each described above
 //   its code: the data gradients spatial_data_kernel (a row walk that forms
 //   each ge row once for all nine taps) and temporal_data_kernel (a frame
@@ -72,35 +66,6 @@ namespace {
 
 typedef __nv_bfloat16 bf16;
 typedef __nv_bfloat162 bf162;
-
-constexpr int BM = 128;          // output pixels per tile
-constexpr int BK = 32;           // K per chunk
-constexpr int LDS = BK + 8;      // shared row stride (bf16): 80 B, conflict-free
-constexpr int THREADS = 128;
-
-__device__ __forceinline__ float rnd(float v) {
-  return __bfloat162float(__float2bfloat16(v));
-}
-
-// relu(bf16(bf16(x * inv) + shift)) on 8 bf16 lanes
-__device__ __forceinline__ uint4 prologue(uint4 v, const bf16* inv,
-                                          const bf16* shift) {
-  const uint4 iv = *reinterpret_cast<const uint4*>(inv);
-  const uint4 sv = *reinterpret_cast<const uint4*>(shift);
-  bf162* p = reinterpret_cast<bf162*>(&v);
-  const bf162* pi = reinterpret_cast<const bf162*>(&iv);
-  const bf162* ps = reinterpret_cast<const bf162*>(&sv);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 x = __bfloat1622float2(p[i]);
-    const float2 a = __bfloat1622float2(pi[i]);
-    const float2 b = __bfloat1622float2(ps[i]);
-    const float y0 = fmaxf(rnd(rnd(x.x * a.x) + b.x), 0.f);
-    const float y1 = fmaxf(rnd(rnd(x.y * a.y) + b.y), 0.f);
-    p[i] = __floats2bfloat162_rn(y0, y1);
-  }
-  return v;
-}
 
 __device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
   const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -136,209 +101,6 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
-// Operands of the forward kernel. The gathered x has Kc channels ("K
-// side"); the output y has N ("N side").
-struct UnitArgs {
-  const bf16* a;       // gathered: x [M, Kc]
-  const float* ka;     // the prologue's inv [Kc] or null
-  const float* kb;     // the prologue's shift [Kc] or null
-  const bf16* wk;      // B operand [N, 3*Kc], k = tap*Kc + c
-  bf16* out;           // y [M, N]
-  float* part1;        // per-block partial sums [rows][N]
-  float* part2;
-  int64_t M;
-  int Kc, N, T, H, W, tiles_m, tiles_per_block;
-};
-
-// The (3,1,1) temporal conv over T for each pixel of [H*W]; AFFINE: the
-// BN prologue. (The spatial forward is spatial_fwd_kernel, a row walk.)
-template <int BN, bool AFFINE>
-__global__ void __launch_bounds__(THREADS)
-conv_unit_kernel(const UnitArgs args) {
-  constexpr int NT = BN / 16;                  // n8 tiles per warp
-  constexpr int B_VECS = BN * BK / 8;          // 16-byte vectors per B chunk
-  constexpr int B_IT = (B_VECS + THREADS - 1) / THREADS;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* As = reinterpret_cast<bf16*>(smem_raw);          // [2][BM][LDS]
-  bf16* Bs = As + 2 * BM * LDS;                           // [2][BN][LDS]
-  float* red1 = reinterpret_cast<float*>(Bs + 2 * BN * LDS);  // [2][BN]
-  float* red2 = red1 + 2 * BN;                            // [2][BN]
-  bf16* sInv = reinterpret_cast<bf16*>(red2 + 2 * BN);   // [Kc]
-  bf16* sShift = sInv + args.Kc;
-
-  const bf16* __restrict__ x = args.a;
-  const int Ci = args.Kc, Co = args.N;
-  const int64_t M = args.M;
-  const int T = args.T, H = args.H, W = args.W;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int warp_m = warp & 1, warp_n = warp >> 1;
-  const int n0 = blockIdx.y * BN;
-  const int K = 3 * Ci;
-  const int nchunks = (K + BK - 1) / BK;
-  const int64_t P = (int64_t)H * W;
-
-  if (AFFINE) {
-    for (int c = tid; c < Ci; c += THREADS) {
-      sInv[c] = __float2bfloat16(args.ka[c]);
-      sShift[c] = __float2bfloat16(args.kb[c]);
-    }
-  }
-  __syncthreads();
-
-  float st1[NT][2], st2[NT][2];
-#pragma unroll
-  for (int nt = 0; nt < NT; ++nt)
-    st1[nt][0] = st1[nt][1] = st2[nt][0] = st2[nt][1] = 0.f;
-
-  const int kv = tid & 3;                      // this thread's 8-wide K slot
-  const int tile_end = min(args.tiles_m,
-                           (int)(blockIdx.x + 1) * args.tiles_per_block);
-  for (int tile = blockIdx.x * args.tiles_per_block; tile < tile_end; ++tile) {
-    const int64_t m_base = (int64_t)tile * BM;
-    int64_t rm[4];
-    int ra_[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int64_t m = m_base + (tid >> 2) + 32 * i;
-      rm[i] = m;
-      ra_[i] = (int)((m / P) % T);
-    }
-
-    float acc[4][NT][4];
-#pragma unroll
-    for (int a = 0; a < 4; ++a)
-#pragma unroll
-      for (int b = 0; b < NT; ++b)
-#pragma unroll
-        for (int c = 0; c < 4; ++c) acc[a][b][c] = 0.f;
-
-    uint4 regA[4], regB[B_IT];
-    auto load = [&](int chunk) {
-      const int k = chunk * BK + kv * 8;
-      int tap = 0, ci = 0;
-      if (k < K) {
-        tap = k / Ci;
-        ci = k - tap * Ci;
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        uint4 v = make_uint4(0, 0, 0, 0);
-        if (rm[i] < M && k < K) {
-          const int dt = tap - 1;
-          const bool ok = (unsigned)(ra_[i] + dt) < (unsigned)T;
-          const int64_t src = rm[i] + dt * P;
-          if (ok) {
-            v = __ldg(reinterpret_cast<const uint4*>(x + src * Ci + ci));
-            if (AFFINE) v = prologue(v, sInv + ci, sShift + ci);
-          }
-        }
-        regA[i] = v;
-      }
-#pragma unroll
-      for (int j = 0; j < B_IT; ++j) {
-        const int v = j * THREADS + tid;
-        uint4 r = make_uint4(0, 0, 0, 0);
-        if (v < B_VECS) {
-          const int n = v >> 2, kb = chunk * BK + (v & 3) * 8;
-          if (n0 + n < Co && kb < K)
-            r = __ldg(reinterpret_cast<const uint4*>(args.wk + (int64_t)(n0 + n) * K + kb));
-        }
-        regB[j] = r;
-      }
-    };
-    auto store = [&](int buf) {
-      bf16* a = As + buf * BM * LDS;
-      bf16* b = Bs + buf * BN * LDS;
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-        *reinterpret_cast<uint4*>(a + ((tid >> 2) + 32 * i) * LDS + kv * 8) = regA[i];
-#pragma unroll
-      for (int j = 0; j < B_IT; ++j) {
-        const int v = j * THREADS + tid;
-        if (v < B_VECS)
-          *reinterpret_cast<uint4*>(b + (v >> 2) * LDS + (v & 3) * 8) = regB[j];
-      }
-    };
-
-    load(0);
-    store(0);
-    __syncthreads();
-    for (int chunk = 0; chunk < nchunks; ++chunk) {
-      const int buf = chunk & 1;
-      if (chunk + 1 < nchunks) load(chunk + 1);
-      const bf16* a = As + buf * BM * LDS;
-      const bf16* b = Bs + buf * BN * LDS;
-#pragma unroll
-      for (int ks = 0; ks < BK / 16; ++ks) {
-        uint32_t af[4][4], bfr[NT][2];
-#pragma unroll
-        for (int mt = 0; mt < 4; ++mt)
-          ldsm_x4(af[mt], a + (warp_m * 64 + mt * 16 + (lane & 15)) * LDS +
-                              ks * 16 + (lane >> 4) * 8);
-#pragma unroll
-        for (int nt = 0; nt < NT; ++nt)
-          ldsm_x2(bfr[nt], b + (warp_n * (BN / 2) + nt * 8 + (lane & 7)) * LDS +
-                               ks * 16 + ((lane >> 3) & 1) * 8);
-#pragma unroll
-        for (int mt = 0; mt < 4; ++mt)
-#pragma unroll
-          for (int nt = 0; nt < NT; ++nt) mma_bf16(acc[mt][nt], af[mt], bfr[nt]);
-      }
-      if (chunk + 1 < nchunks) store(buf ^ 1);
-      __syncthreads();
-    }
-
-    // epilogue: round, store, and accumulate the sums of the rounded values
-    const int g = lane >> 2, tg = lane & 3;
-#pragma unroll
-    for (int mt = 0; mt < 4; ++mt)
-#pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        const int64_t m = m_base + warp_m * 64 + mt * 16 + g + half * 8;
-        if (m >= M) continue;
-#pragma unroll
-        for (int nt = 0; nt < NT; ++nt) {
-          const int n = n0 + warp_n * (BN / 2) + nt * 8 + tg * 2;
-          if (n >= Co) continue;
-          const bf162 p = __floats2bfloat162_rn(acc[mt][nt][half * 2],
-                                                acc[mt][nt][half * 2 + 1]);
-          *reinterpret_cast<bf162*>(args.out + m * Co + n) = p;
-          const float2 f = __bfloat1622float2(p);
-          st1[nt][0] += f.x;
-          st1[nt][1] += f.y;
-          st2[nt][0] += f.x * f.x;
-          st2[nt][1] += f.y * f.y;
-        }
-      }
-  }
-
-  // block-level sums in a fixed order: lanes sharing a column, then warps
-  const int g = lane >> 2, tg = lane & 3;
-#pragma unroll
-  for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      float v1 = st1[nt][j], v2 = st2[nt][j];
-#pragma unroll
-      for (int off = 4; off < 32; off <<= 1) {
-        v1 += __shfl_xor_sync(0xffffffffu, v1, off);
-        v2 += __shfl_xor_sync(0xffffffffu, v2, off);
-      }
-      if (g == 0) {
-        const int col = warp_n * (BN / 2) + nt * 8 + tg * 2 + j;
-        red1[warp_m * BN + col] = v1;
-        red2[warp_m * BN + col] = v2;
-      }
-    }
-  __syncthreads();
-  for (int col = tid; col < BN; col += THREADS) {
-    if (n0 + col < Co) {
-      args.part1[(int64_t)blockIdx.x * Co + n0 + col] = red1[col] + red1[BN + col];
-      args.part2[(int64_t)blockIdx.x * Co + n0 + col] = red2[col] + red2[BN + col];
-    }
-  }
-}
-
 // s[c] = sum over rows r of part[r, c], in a fixed order
 __global__ void __launch_bounds__(1024)
 colsum_kernel(const float* __restrict__ part1, const float* __restrict__ part2,
@@ -365,47 +127,6 @@ colsum_kernel(const float* __restrict__ part1, const float* __restrict__ part2,
     s1[c] = b1;
     s2[c] = b2;
   }
-}
-
-template <int BN, bool AFFINE>
-int launch_unit(const UnitArgs& args, cudaStream_t stream) {
-  const size_t smem = 2 * (BM + BN) * LDS * sizeof(bf16) + 4 * BN * sizeof(float) +
-                      2 * args.Kc * sizeof(bf16);
-  auto kern = conv_unit_kernel<BN, AFFINE>;
-  cudaError_t e = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (e != cudaSuccess) return (int)e;
-  dim3 grid((args.tiles_m + args.tiles_per_block - 1) / args.tiles_per_block,
-            (args.N + BN - 1) / BN);
-  kern<<<grid, THREADS, smem, stream>>>(args);
-  return (int)cudaGetLastError();
-}
-
-template <int BN>
-int dispatch_unit(int affine, const UnitArgs& a, cudaStream_t s) {
-  return affine ? launch_unit<BN, true>(a, s) : launch_unit<BN, false>(a, s);
-}
-
-int run_unit(int affine, int bn, UnitArgs& a, float* s1, float* s2,
-             cudaStream_t s) {
-  if (a.M == 0 || a.N == 0) return 0;
-  if (a.Kc % 8 != 0 || a.N % 8 != 0 || a.tiles_per_block < 1)
-    return (int)cudaErrorInvalidValue;
-  a.tiles_m = (int)((a.M + BM - 1) / BM);
-  const int R = (a.tiles_m + a.tiles_per_block - 1) / a.tiles_per_block;
-  int e;
-  if (bn == 48)
-    e = dispatch_unit<48>(affine, a, s);
-  else if (bn == 64)
-    e = dispatch_unit<64>(affine, a, s);
-  else if (bn == 96)
-    e = dispatch_unit<96>(affine, a, s);
-  else
-    return (int)cudaErrorInvalidValue;
-  if (e != 0) return e;
-  colsum_kernel<<<(a.N + 31) / 32, dim3(32, 32), 0, s>>>(a.part1, a.part2, R,
-                                                          a.N, s1, s2);
-  return (int)cudaGetLastError();
 }
 
 // ---------------------------------------------------------------------------
@@ -2254,6 +1975,486 @@ int dispatch_spatial_fwd(int step, int nb, int affine, const SpatialFwdArgs& a,
 }
 
 // ---------------------------------------------------------------------------
+// Temporal forward unit: the frame walk
+// ---------------------------------------------------------------------------
+//
+// Replaces _temporal_fwd (m3f/pytorch_tpu/ops/pallas/conv_bn.py, pallas_call
+// at :250), which takes a strip of one clip over all T frames, forms x^
+// after the prologue with a zero frame at each end of the clip, builds the
+// im2col [T*p, 3*Ci] in VMEM and does one product with the filter resident,
+// carrying the channel sums of the rounded y across the sequential grid.
+//
+// y[b,t,p,co] = bf16(sum_dt sum_ci x^[b,t+dt-1,p,ci] * W[dt,ci,co]) does
+// 2*3*Ci*Co FLOP per pixel on (Ci + Co) * 2 bytes (x in, y out). Bound on an
+// H100 at the serving forward's shapes (128 clips): stage 1 (x
+// [128,16,56,56,144] -> Co 64) 0.355 TFLOP on 2.67 GB, 133 FLOP/byte, under
+// the ~295 at which the tensor cores set the floor: bytes, 0.80 ms; stage 2
+// (288 -> 128) bytes, 0.20 ms; stages 3-4 (576 -> 256, 1152 -> 512)
+// operations, 0.090 / 0.045 ms. Stage 1 is four fifths of the video's
+// bound. So the design reads each x element once (at stage 1, where one
+// tile covers C_out), forms it once, and lets y leave in whole vectors.
+//
+// - Frame walk. A work unit is a strip of S consecutive (clip, position)
+//   pairs of the flattened B*H*W axis, walked over t = 0..T-1 (every clip
+//   has the same T, so the strip's rows share t). Where H*W is small
+//   (stages 3-4: 196 and 49) a strip spans several clips, so one pass of
+//   the filter serves S positions whatever H*W is; a block's units follow
+//   one another in one stream of chunks, so the rings stay full across
+//   unit boundaries.
+// - Input-stationary. The walk takes x frame t in chunks of KC input
+//   channels; each chunk lands by cp.async (16-byte copies, zero-filled
+//   past the strip and past C_in), is formed into x^ in place once by the
+//   thread that copied it (relu(bf16(bf16(x * inv) + shift)) on the bf16x2
+//   unit, _rn forms: no fused multiply-add), and is multiplied once per
+//   tap into three register accumulators: output frames t+1 (tap 0), t
+//   (tap 1) and t-1 (tap 2). So each x^ tile feeds all three output frames
+//   and every output channel of the block. A tap whose output frame lies
+//   outside the clip is skipped: the frames t = -1 and t = T are zero AFTER
+//   the prologue, and no clip reads another's frames. After frame t's last
+//   chunk, output frame t-1 is complete and leaves; the accumulators shift
+//   by one frame. The rings hold chunks, not whole frames, so a strip of
+//   128 positions fits at any C_in.
+// - The filter tile [NB, 3 * Ci] stays in shared memory where it fits
+//   (stage 1: 55 KB, stage 2 at N tiles of 64: 110 KB); else each chunk's
+//   [NB, 3 x KC] slice streams from the L2 with the chunk, through the same
+//   ring: the filter is then read once per frame and strip of S positions.
+// - Tensor cores: ldmatrix + mma.sync m16n8k16 bf16 -> fp32; warp tiles of
+//   32 x 32 (96 accumulators a thread for the three frames, ~215
+//   registers); a chunk's A fragments are loaded once per k16 step and
+//   serve the three taps.
+// - One __syncthreads per chunk: it publishes the chunk formed by every
+//   thread and frees the slot of the chunk before, into which the next
+//   chunk's copy is issued (a ring of two slots: one chunk in flight while
+//   one is formed and multiplied; two in flight measured slower).
+// - Epilogue: each warp rounds its [32, 32] tile to bf16, stages it in a
+//   region of shared memory of its own and stores y in 16-byte vectors
+//   along the channels (no block barrier); s1 / s2 are per-thread fp32 sums
+//   of the rounded values over the walk, then warp shuffles and shared
+//   memory in a fixed order into one partial row per block, then
+//   colsum_kernel. No atomics: two calls give the same bits.
+// - Parallelism: grid = ranges of units x N tiles (the N tile fastest: the
+//   blocks of one range run together and find x in the L2): one block of
+//   8 warps a SM (strips of 128 x 64 output channels), or two of 4 warps
+//   (64 x 64) where their shared memory fits half a SM (stage 1, 106 KB):
+//   one block's products then run under the other's copies, forming and
+//   epilogue, which inside a block add up (every warp does each in turn).
+//   A 64 x 128 layout and every fragment of a k16 step loaded before its
+//   products were measured and not kept (PERF.md).
+//
+// Measured on an NVIDIA H100 80GB HBM3 at 700.00 W (m3f_torch/scripts/
+// filter_sweep.py --kind temporal_fwd, serving shapes, 128 clips, the
+// planner's tiling through the C entry, device time: each call queued
+// behind a spin kernel, 5 rounds of 20 in turn; two identical launches
+// within 0.044 ms at stage 1 and 0.0005 ms elsewhere): 1.82 / 0.90 / 0.51
+// / 0.25 ms per launch at stages 1-4, against 26.0 / 1.78 / 0.53 / 0.17
+// for cuDNN's conv with the fp32 sums of y and 5.4 / 3.2 / 1.6 / 0.54 for
+// the per-K-tile gather it replaced (the previous source, same call). At stage 1 the two blocks
+// of 64 x 64 a SM ran 6% faster than one of 128 x 64 (4% at 32 clips),
+// beyond the spread between identical launches. What holds it back, from
+// the ablation builds at stage 1: the parts add up instead of overlapping,
+// products 0.80, copies 0.35, forming 0.22, epilogue 0.16 ms, where
+// streaming x and y alone (no products) takes 1.02 and the bytes' bound is
+// 0.80; at stages 3-4 the filter streamed once per strip and frame, and at
+// stage 4 only 49 strips of 128 (32 clips: 13, so 104 blocks for 132 SMs):
+// cuDNN's conv + sums is as fast at stage 3 and 1.5x faster at stage 4.
+
+constexpr int TW_XV = 9;       // x vectors a thread copies a chunk, at most
+constexpr int TW_XS = 2;       // slots of the x (and streamed filter) ring
+constexpr int TW_LDY = 40;     // a warp's y staging row stride (32 + 8 bf16)
+// Measurement knob, for filter_sweep.py only (y is then wrong): 1 leaves
+// out forming x^, 2 the products, 4 the copies of x and of the streamed
+// filter (the rings keep what they held), 8 the epilogue (staging, y
+// stores, sums); 15 leaves the walk alone.
+#ifndef TW_ABLATE
+#define TW_ABLATE 0
+#endif
+
+struct TemporalFwdArgs {
+  const bf16* x;       // [B, T, H*W, Ci]
+  const bf16* w;       // [Co, 3*Ci]: w[co, tap*Ci + ci] = W[tap, ci, co]
+  const float* inv;    // [Ci] or null
+  const float* shift;
+  bf16* y;             // [B, T, H*W, Co]
+  float* part1;        // [ranges][Co] partial s1, s2
+  float* part2;
+  int T, HW, Ci, Co;
+  int positions;       // B * H*W: the axis the strips cut
+  int KC;              // input channels of a chunk (a multiple of 16)
+  int nck;             // chunks a frame: ceil(Ci / KC)
+  int units;           // ceil(positions / S)
+  int units_per_block;
+  int n_tiles;         // ceil(Co / NB)
+  int resident;        // the block's filter tile stays in shared memory
+};
+
+// A block's shared memory; ops/conv_bn.py (_temporal_fwd_smem) computes the
+// same: the filter tile (resident) or its ring, the x ring, each warp's y
+// staging, inv / shift.
+size_t temporal_fwd_smem(int S, int NB, int KC, int nck, bool res) {
+  const size_t filt = res ? (size_t)NB * (3 * nck * KC + 8)
+                          : (size_t)TW_XS * NB * (3 * KC + 8);
+  const size_t ring = (size_t)TW_XS * S * (KC + 8);
+  const size_t stage = (size_t)(S / 32) * (NB / 32) * 32 * TW_LDY;
+  return 2 * (filt + ring + stage) + 4 * (size_t)nck * KC;
+}
+
+// WM x WN warps of 32 x 32: S = 32*WM positions, NB = 32*WN output
+// channels; PER_SM blocks must fit a multiprocessor's registers together.
+template <int WM, int WN, bool AFFINE, int PER_SM>
+__global__ void __launch_bounds__(32 * WM * WN, PER_SM)
+temporal_fwd_kernel(const TemporalFwdArgs a) {
+  constexpr int NTH = 32 * WM * WN;
+  constexpr int S = 32 * WM, NB = 32 * WN;
+  constexpr int MT = 2, NT = 4;                 // a warp's m16 x n8 tiles
+  constexpr int XS = TW_XS;
+  const int T = a.T, HW = a.HW, Ci = a.Ci, Co = a.Co, KC = a.KC, nck = a.nck;
+  const bool res = a.resident != 0;
+  const int LDX = KC + 8;                       // row strides (bf16): odd
+  const int LDF = res ? 3 * nck * KC + 8 : 3 * KC + 8;   // multiples of 16 B
+  const int VPR = KC / 8;                       // vectors of a chunk row
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* Fs = reinterpret_cast<bf16*>(smem_raw);   // [NB][LDF] or [XS][NB][LDF]
+  bf16* Xs = Fs + (res ? NB * LDF : XS * NB * LDF);           // [XS][S][LDX]
+  bf16* Ys = Xs + XS * S * LDX;                               // [warps][32][TW_LDY]
+  bf162* sInv = reinterpret_cast<bf162*>(Ys + WM * WN * 32 * TW_LDY);  // [nck*KC/2]
+  bf162* sShift = sInv + nck * KC / 2;
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int wm = warp % WM, wn = warp / WM;
+  const int n0 = ((int)blockIdx.x % a.n_tiles) * NB;
+  const int range = (int)blockIdx.x / a.n_tiles;
+  const int u0 = range * a.units_per_block;
+  const int u1 = min(a.units, u0 + a.units_per_block);
+  const int nq = u1 > u0 ? (u1 - u0) * T * nck : 0;   // chunks of the walk
+
+  for (int c = tid; c < nck * KC / 2; c += NTH) {
+    const int n = 2 * c;
+    const bool ok = AFFINE && n < Ci;
+    sInv[c] = __floats2bfloat162_rn(ok ? a.inv[n] : 0.f, ok ? a.inv[n + 1] : 0.f);
+    sShift[c] = __floats2bfloat162_rn(ok ? a.shift[n] : 0.f,
+                                      ok ? a.shift[n + 1] : 0.f);
+  }
+  // the resident filter tile: [n][c*3*KC + tap*KC + k] = W[tap, c*KC + k,
+  // n0 + n], zero past Ci and Co
+  if (res && !(TW_ABLATE & 4)) {
+    const int rv = 3 * nck * VPR;                 // vectors of a row
+    for (int idx = tid; idx < NB * rv; idx += NTH) {
+      const int n = idx / rv, col = (idx - n * rv) * 8;
+      const int c = col / (3 * KC), rr = col - c * 3 * KC;
+      const int tap = rr / KC, ci = c * KC + rr - tap * KC;
+      const bool ok = n0 + n < Co && ci < Ci;
+      cp_async16(Fs + n * LDF + col,
+                 ok ? a.w + ((int64_t)(n0 + n) * 3 + tap) * Ci + ci : a.w, ok);
+    }
+  }
+
+  // This thread's x vectors of a chunk: c = tid + i*NTH -> row c / VPR,
+  // channels (c % VPR) * 8 of the chunk; the same for every chunk.
+  const int nvec = S * VPR;
+  int x_soff[TW_XV], x_ch[TW_XV], x_pos[TW_XV];
+#pragma unroll
+  for (int i = 0; i < TW_XV; ++i) {
+    const int c = tid + i * NTH, r = c / VPR, v8 = (c - r * VPR) * 8;
+    x_soff[i] = r * LDX + v8;
+    x_ch[i] = v8;
+    x_pos[i] = -1;
+  }
+  // The position of row r of unit u at frame 0, b*T*HW + p (-1 past the
+  // strip's end): only entering a unit divides.
+  auto row_pos = [&](int u, int r) {
+    const int gp = u * S + r;
+    if (gp >= a.positions) return -1;
+    const int b = gp / HW;
+    return b * T * HW + (gp - b * HW);
+  };
+  auto seek_x = [&](int u) {
+#pragma unroll
+    for (int i = 0; i < TW_XV; ++i)
+      x_pos[i] = row_pos(u, (tid + i * NTH) / VPR);
+  };
+
+  // A cursor on the walk: chunk c of frame t of unit u, the walk's q-th.
+  struct Cursor {
+    int q, u, t, c;
+  };
+  auto step = [&](Cursor& w) {
+    ++w.q;
+    if (++w.c < nck) return false;
+    w.c = 0;
+    if (++w.t < T) return false;
+    w.t = 0;
+    ++w.u;
+    return true;                   // a new unit
+  };
+
+  // chunk w of the walk into its slot: x rows of the strip for the chunk's
+  // channels, and (streamed) the filter chunk
+  auto copy_chunk = [&](const Cursor& w) {
+    if ((TW_ABLATE & 4) || w.q >= nq) return;
+    const int slot = w.q % XS;
+    bf16* xd = Xs + slot * S * LDX;
+    const int64_t frame = (int64_t)w.t * HW;
+#pragma unroll
+    for (int i = 0; i < TW_XV; ++i) {
+      if (tid + i * NTH >= nvec) break;
+      const int ch = w.c * KC + x_ch[i];
+      const bool ok = x_pos[i] >= 0 && ch < Ci;
+      cp_async16(xd + x_soff[i],
+                 ok ? a.x + (x_pos[i] + frame) * Ci + ch : a.x, ok);
+    }
+    if (res) return;
+    bf16* fd = Fs + slot * NB * LDF;
+    const int rv = 3 * VPR;                     // vectors of a filter row
+    int n = tid / rv, j = tid - n * rv;
+    const int dn = NTH / rv, dj = NTH - dn * rv;
+    for (int idx = tid; idx < NB * rv; idx += NTH) {
+      const int tap = (j >= VPR) + (j >= 2 * VPR), k8 = (j - tap * VPR) * 8;
+      const int ci = w.c * KC + k8;
+      const bool ok = n0 + n < Co && ci < Ci;
+      cp_async16(fd + n * LDF + tap * KC + k8,
+                 ok ? a.w + ((int64_t)(n0 + n) * 3 + tap) * Ci + ci : a.w, ok);
+      n += dn;
+      j += dj;
+      if (j >= rv) {
+        j -= rv;
+        ++n;
+      }
+    }
+  };
+  // x^ in place, on this thread's vectors of the chunk (channels past Ci
+  // have inv = shift = 0: they stay 0)
+  auto form_chunk = [&](const Cursor& w) {
+    if (!AFFINE || (TW_ABLATE & 1)) return;
+    bf16* xd = Xs + (w.q % XS) * S * LDX;
+#pragma unroll
+    for (int i = 0; i < TW_XV; ++i) {
+      if (tid + i * NTH >= nvec) break;
+      const int ch = w.c * KC + x_ch[i];
+      const uint4 iv4 = *reinterpret_cast<const uint4*>(sInv + (ch >> 1));
+      const uint4 sv4 = *reinterpret_cast<const uint4*>(sShift + (ch >> 1));
+      const bf162* iv = reinterpret_cast<const bf162*>(&iv4);
+      const bf162* sv = reinterpret_cast<const bf162*>(&sv4);
+      const bf162 iv2[4] = {iv[0], iv[1], iv[2], iv[3]};
+      const bf162 sv2[4] = {sv[0], sv[1], sv[2], sv[3]};
+      uint4* p = reinterpret_cast<uint4*>(xd + x_soff[i]);
+      *p = prologue_x2(*p, iv2, sv2);
+    }
+  };
+
+  float acc[3][MT][NT][4];         // output frames t-1, t, t+1
+#pragma unroll
+  for (int f = 0; f < 3; ++f)
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int k = 0; k < 4; ++k) acc[f][mt][nt][k] = 0.f;
+  float st1[NT][2], st2[NT][2];
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt)
+    st1[nt][0] = st1[nt][1] = st2[nt][0] = st2[nt][1] = 0.f;
+
+  // ldmatrix lanes: A (positions m, channels k) from [position][k]; B
+  // (channels k, output channels n; two n8 tiles a x4) from [n][tap*KC + k]
+  const int a_off = (wm * 32 + (lane & 15)) * LDX + (lane >> 4) * 8;
+  const int b_off = (wn * 32 + (lane & 7) + ((lane >> 4) & 1) * 8) * LDF +
+                    ((lane >> 3) & 1) * 8;
+  auto products = [&](const Cursor& w) {
+    const bf16* xs = Xs + (w.q % XS) * S * LDX + a_off;
+    const bf16* fs = (res ? Fs + w.c * 3 * KC : Fs + (w.q % XS) * NB * LDF) + b_off;
+    const bool t0 = w.t + 1 < T, t2 = w.t > 0;   // taps 0 and 2 inside the clip
+    for (int ks = 0; ks < KC / 16; ++ks) {
+      uint32_t af[MT][4];
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) ldsm_x4(af[mt], xs + mt * 16 * LDX + ks * 16);
+#pragma unroll
+      for (int dt = 0; dt < 3; ++dt) {
+        if ((dt == 0 && !t0) || (dt == 2 && !t2)) continue;
+        uint32_t bq[NT][2];
+#pragma unroll
+        for (int p = 0; p < NT / 2; ++p) {
+          uint32_t r4[4];
+          ldsm_x4(r4, fs + p * 16 * LDF + dt * KC + ks * 16);
+          bq[2 * p][0] = r4[0];
+          bq[2 * p][1] = r4[1];
+          bq[2 * p + 1][0] = r4[2];
+          bq[2 * p + 1][1] = r4[3];
+        }
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+          for (int nt = 0; nt < NT; ++nt) mma_bf16(acc[2 - dt][mt][nt], af[mt], bq[nt]);
+      }
+    }
+  };
+
+  // The epilogue's rows: fragment rows (valid below nvalid) and the rows
+  // this lane stores, wm*32 + lane/4 + 8*i, at their frame-0 positions.
+  const int g = lane >> 2, tg = lane & 3;
+  int y_pos[4];
+  int nvalid = 0;
+  auto seek_y = [&](int u) {
+    nvalid = min(S, a.positions - u * S);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) y_pos[i] = row_pos(u, wm * 32 + g + 8 * i);
+  };
+  bf16* Yw = Ys + warp * 32 * TW_LDY;
+  // output frame tf of the current unit from accumulator f
+  auto epilogue = [&](const float (&f)[MT][NT][4], int tf) {
+    if (TW_ABLATE & 8) return;
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int row = mt * 16 + g + half * 8;
+        const bool live = wm * 32 + row < nvalid;
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt) {
+          const bf162 p = __floats2bfloat162_rn(f[mt][nt][half * 2],
+                                                f[mt][nt][half * 2 + 1]);
+          *reinterpret_cast<bf162*>(Yw + row * TW_LDY + nt * 8 + tg * 2) = p;
+          if (live) {
+            const float2 v = __bfloat1622float2(p);
+            st1[nt][0] += v.x;
+            st1[nt][1] += v.y;
+            st2[nt][0] += v.x * v.x;
+            st2[nt][1] += v.y * v.y;
+          }
+        }
+      }
+    __syncwarp();
+    const int col = n0 + wn * 32 + tg * 8;
+    const int64_t frame = (int64_t)tf * HW;
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      if (y_pos[i] >= 0 && col < Co)
+        *reinterpret_cast<uint4*>(a.y + (y_pos[i] + frame) * Co + col) =
+            *reinterpret_cast<const uint4*>(Yw + (g + 8 * i) * TW_LDY + tg * 8);
+    __syncwarp();
+  };
+
+  Cursor cc{0, u0, 0, 0};
+  if (nq > 0) seek_x(u0);
+  // the stream's first group: the resident filter with chunk 0
+  copy_chunk(cc);
+  if (step(cc)) seek_x(cc.u);
+  cp_async_commit();
+  Cursor mc{0, u0, 0, 0};
+  if (nq > 0) seek_y(u0);
+  __syncthreads();                   // inv / shift visible
+
+  for (int q = 0; q < nq; ++q) {
+    cp_async_wait<0>();              // this thread's copies of chunk q landed
+    form_chunk(mc);
+    __syncthreads();                 // chunk q formed; chunk q-1 multiplied
+    copy_chunk(cc);                  // chunk q+1, into the slot of q-1
+    if (step(cc)) seek_x(cc.u);
+    cp_async_commit();
+    if (!(TW_ABLATE & 2)) products(mc);
+    if (mc.c == nck - 1) {           // frame t's last chunk: frame t-1 is done
+      const int t = mc.t;
+      if (t > 0) epilogue(acc[0], t - 1);
+      if (t + 1 == T) {
+        epilogue(acc[1], t);
+#pragma unroll
+        for (int f = 0; f < 3; ++f)
+#pragma unroll
+          for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+            for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+              for (int k = 0; k < 4; ++k) acc[f][mt][nt][k] = 0.f;
+      } else {
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+          for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+            for (int k = 0; k < 4; ++k) {
+              acc[0][mt][nt][k] = acc[1][mt][nt][k];
+              acc[1][mt][nt][k] = acc[2][mt][nt][k];
+              acc[2][mt][nt][k] = 0.f;
+            }
+      }
+    }
+    if (step(mc)) seek_y(mc.u);
+    if ((TW_ABLATE & 8) && T < 0) {    // never true: keeps the products alive
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt)
+          Ys[(mt * NT + nt) * NTH + tid] = __float2bfloat16(
+              acc[0][mt][nt][0] + acc[1][mt][nt][1] + acc[2][mt][nt][2]);
+    }
+  }
+  cp_async_wait<0>();
+  __syncthreads();                   // every warp done with the rings
+
+  // block-level sums in a fixed order: lanes sharing a column, then warps
+  float* red1 = reinterpret_cast<float*>(Xs);    // [WM][NB]
+  float* red2 = red1 + WM * NB;
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      float v1 = st1[nt][e], v2 = st2[nt][e];
+#pragma unroll
+      for (int off = 4; off < 32; off <<= 1) {
+        v1 += __shfl_xor_sync(0xffffffffu, v1, off);
+        v2 += __shfl_xor_sync(0xffffffffu, v2, off);
+      }
+      if (g == 0) {
+        const int col = wn * 32 + nt * 8 + tg * 2 + e;
+        red1[wm * NB + col] = v1;
+        red2[wm * NB + col] = v2;
+      }
+    }
+  __syncthreads();
+  for (int col = tid; col < NB; col += NTH) {
+    if (n0 + col >= Co) continue;
+    float v1 = 0.f, v2 = 0.f;
+    for (int m = 0; m < WM; ++m) {
+      v1 += red1[m * NB + col];
+      v2 += red2[m * NB + col];
+    }
+    a.part1[(int64_t)range * Co + n0 + col] = v1;
+    a.part2[(int64_t)range * Co + n0 + col] = v2;
+  }
+}
+
+template <int WM, int WN, bool AFFINE, int PER_SM>
+int launch_temporal_fwd(const TemporalFwdArgs& a, cudaStream_t stream) {
+  constexpr int S = 32 * WM, NB = 32 * WN, NTH = 32 * WM * WN;
+  const size_t smem = temporal_fwd_smem(S, NB, a.KC, a.nck, a.resident != 0);
+  if (smem > (size_t)SF_SMEM_MAX || S * (a.KC / 8) > TW_XV * NTH)
+    return (int)cudaErrorInvalidValue;
+  auto kern = temporal_fwd_kernel<WM, WN, AFFINE, PER_SM>;
+  cudaError_t e = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  const int ranges = (a.units + a.units_per_block - 1) / a.units_per_block;
+  kern<<<ranges * a.n_tiles, NTH, smem, stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
+template <int WM, int WN, int PER_SM>
+int temporal_fwd_either(int affine, const TemporalFwdArgs& a, cudaStream_t s) {
+  return affine ? launch_temporal_fwd<WM, WN, true, PER_SM>(a, s)
+                : launch_temporal_fwd<WM, WN, false, PER_SM>(a, s);
+}
+
+// (strip, N tile) -> the warp layout of 32 x 32 warp tiles: 8 warps, or 4
+// with two blocks a SM. These are the layouts temporal_fwd_plan
+// (ops/conv_bn.py) can ask for.
+int dispatch_temporal_fwd(int strip, int nb, int affine,
+                          const TemporalFwdArgs& a, cudaStream_t s) {
+  if (strip == 128 && nb == 64) return temporal_fwd_either<4, 2, 1>(affine, a, s);
+  if (strip == 64 && nb == 64) return temporal_fwd_either<2, 2, 2>(affine, a, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// ---------------------------------------------------------------------------
 // Temporal data gradient: the frame walk
 // ---------------------------------------------------------------------------
 //
@@ -2831,68 +3032,79 @@ int dispatch_temporal_data(int strip, int warps, int resident, int affine,
 
 // x [B, T, H, W, Ci] bf16; wk [Co, taps*Ci] bf16 with k = tap*Ci + ci
 // (spatial tap = dh*3 + dw, temporal tap = dt); inv/shift [Ci] fp32 or null;
-// y [B, T, H, W, Co] bf16; s1/s2 [Co] fp32. Spatial (kind 0,
-// spatial_fwd_kernel): bn is the N tile (144 or 64) and step the output
-// pixels a step (128 or 256, spatial_fwd_plan's pairs), per the images of a
-// range, resident whether the filter tile stays in shared memory; part a
-// scratch of 2 * ceil(B*T / per) * Co floats. Temporal (kind 1,
-// conv_unit_kernel): bn the N tile (48, 64 or 96), per the row tiles of
-// 128 a block, step and resident not read; part a scratch of
-// 2 * ceil(ceil(M/128) / per) * Co floats.
+// y [B, T, H, W, Co] bf16; s1/s2 [Co] fp32; part a scratch of 2 * ranges *
+// Co floats. Spatial (kind 0, spatial_fwd_kernel): bn is the N tile (144 or
+// 64) and step the output pixels a step (128 or 256, spatial_fwd_plan's
+// pairs), per the images of a range (ranges = ceil(B*T / per)), resident
+// whether the filter tile stays in shared memory; kc is not read.
+// Temporal (kind 1, temporal_fwd_kernel): step is the strip of (clip,
+// position) pairs (128 or 64) and bn the N tile (64 or 128,
+// temporal_fwd_plan's pairs), per the strips of a range (ranges =
+// ceil(ceil(B*H*W / step) / per)), resident whether the filter tile stays
+// in shared memory and kc the input channels of a chunk (a multiple of 16).
 extern "C" int m3f_conv_unit_fwd(const void* x, const void* wk, const void* inv,
                                  const void* shift, void* y, void* s1, void* s2,
                                  void* part, int kind, int B, int T, int H,
                                  int W, int Ci, int Co, int bn, int per,
-                                 int step, int resident, void* stream) {
+                                 int step, int resident, int kc,
+                                 void* stream) {
   const int64_t M = (int64_t)B * T * H * W;
   if ((kind != 0 && kind != 1) || per < 1) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = (cudaStream_t)stream;
-  if (kind == 1) {
-    UnitArgs a{};
-    a.a = (const bf16*)x;
-    a.ka = (const float*)inv;
-    a.kb = (const float*)shift;
-    a.wk = (const bf16*)wk;
-    a.out = (bf16*)y;
-    a.M = M;
-    a.Kc = Ci;
-    a.N = Co;
-    a.T = T;
-    a.H = H;
-    a.W = W;
-    a.tiles_per_block = per;
-    const int tiles_m = (int)((a.M + BM - 1) / BM);
-    const int R = (tiles_m + per - 1) / per;
-    a.part1 = (float*)part;
-    a.part2 = a.part1 + (int64_t)R * Co;
-    return run_unit(inv != nullptr, bn, a, (float*)s1, (float*)s2, s);
-  }
   if (M == 0 || Co == 0) return 0;
-  if (Ci % 8 != 0 || Co % 8 != 0 || Ci == 0 || (int64_t)per * H * W >= (1 << 30))
-    return (int)cudaErrorInvalidValue;
-  SpatialFwdArgs f{};
-  f.x = (const bf16*)x;
-  f.w = (const bf16*)wk;
-  f.inv = (const float*)inv;
-  f.shift = (const float*)shift;
-  f.y = (bf16*)y;
-  f.H = H;
-  f.W = W;
-  f.Ci = Ci;
-  f.Co = Co;
-  f.Cip = (Ci + SW_KC - 1) / SW_KC * SW_KC;
-  f.images = B * T;
-  f.images_per_range = per;
-  f.n_tiles = (Co + bn - 1) / bn;
-  f.XR = spatial_ring_rows(H, W, step, 1);
-  f.resident = resident;
-  const int ranges = (f.images + per - 1) / per;
-  f.part1 = (float*)part;
-  f.part2 = f.part1 + (int64_t)ranges * Co;
-  const int e = dispatch_spatial_fwd(step, bn, inv != nullptr, f, s);
+  if (Ci % 8 != 0 || Co % 8 != 0 || Ci == 0) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  float* part1 = (float*)part;
+  int ranges, e;
+  if (kind == 1) {
+    if (step < 32 || kc < 16 || kc % 16 != 0 || M >= ((int64_t)1 << 31))
+      return (int)cudaErrorInvalidValue;
+    TemporalFwdArgs t{};
+    t.x = (const bf16*)x;
+    t.w = (const bf16*)wk;
+    t.inv = (const float*)inv;
+    t.shift = (const float*)shift;
+    t.y = (bf16*)y;
+    t.T = T;
+    t.HW = H * W;
+    t.Ci = Ci;
+    t.Co = Co;
+    t.positions = B * H * W;
+    t.KC = kc;
+    t.nck = (Ci + kc - 1) / kc;
+    t.units = (t.positions + step - 1) / step;
+    t.units_per_block = per;
+    t.n_tiles = (Co + bn - 1) / bn;
+    t.resident = resident;
+    ranges = (t.units + per - 1) / per;
+    t.part1 = part1;
+    t.part2 = part1 + (int64_t)ranges * Co;
+    e = dispatch_temporal_fwd(step, bn, inv != nullptr, t, s);
+  } else {
+    if ((int64_t)per * H * W >= (1 << 30)) return (int)cudaErrorInvalidValue;
+    SpatialFwdArgs f{};
+    f.x = (const bf16*)x;
+    f.w = (const bf16*)wk;
+    f.inv = (const float*)inv;
+    f.shift = (const float*)shift;
+    f.y = (bf16*)y;
+    f.H = H;
+    f.W = W;
+    f.Ci = Ci;
+    f.Co = Co;
+    f.Cip = (Ci + SW_KC - 1) / SW_KC * SW_KC;
+    f.images = B * T;
+    f.images_per_range = per;
+    f.n_tiles = (Co + bn - 1) / bn;
+    f.XR = spatial_ring_rows(H, W, step, 1);
+    f.resident = resident;
+    ranges = (f.images + per - 1) / per;
+    f.part1 = part1;
+    f.part2 = part1 + (int64_t)ranges * Co;
+    e = dispatch_spatial_fwd(step, bn, inv != nullptr, f, s);
+  }
   if (e != 0) return e;
-  colsum_kernel<<<(Co + 31) / 32, dim3(32, 32), 0, s>>>(f.part1, f.part2, ranges,
-                                                         Co, (float*)s1, (float*)s2);
+  colsum_kernel<<<(Co + 31) / 32, dim3(32, 32), 0, s>>>(
+      part1, part1 + (int64_t)ranges * Co, ranges, Co, (float*)s1, (float*)s2);
   return (int)cudaGetLastError();
 }
 

@@ -38,6 +38,14 @@
 //   written once in the output dtype.
 // - Per-row hop: with a hop array each row frames at its own hop and
 //   reflects about its own end, (F-1)*hop - 1 (melspec.py _frame_dynamic).
+//
+// A second route, log_mel_dft_kernel (entry m3f_log_mel_dft), takes an
+// n_fft that is not a power of two (the FFT's stages need one): the TPU
+// kernel's own method, a product of the frames with window-folded cos /
+// sin bases over the bins the filterbank weighs (melspec.py
+// windowed_dft_mats), ~20x the function's work on the fp32 cores. It is
+// the route for such configs only, not made fast (described above its
+// code).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -189,6 +197,138 @@ log_mel_kernel(const float* __restrict__ wav, int S, int F,
   }
 }
 
+// ---------------------------------------------------------------------------
+// The DFT-product route, for an n_fft that is not a power of two
+// ---------------------------------------------------------------------------
+//
+// - One block per (wav row, DFT_FPB output frames); the row's samples its
+//   frames touch are copied into shared memory once, with the centring
+//   reflection applied in index space, as above.
+// - The DFT is a product of the frames with window-folded cos / sin bases
+//   (built on the host in float64, only the bins the mel filterbank weighs,
+//   padded to a multiple of DFT_NB with zero columns). Basis tiles of
+//   DFT_KT taps x DFT_NB bins are staged in shared memory (taps past n_fft
+//   zero, so any n_fft works); each thread keeps a 4-frame x 4-bin register
+//   tile of real and imaginary sums.
+// - Power goes to shared memory per DFT_NB-bin pass and is folded into the
+//   mel sums (kept in shared memory) before the next pass; log(mel + eps)
+//   is written once in the output dtype. Per-row hop as above.
+
+constexpr int DFT_FPB = 16;   // frames per block
+constexpr int DFT_NB = 256;   // DFT bins per pass
+constexpr int DFT_KT = 32;    // DFT taps per shared tile
+
+__global__ void __launch_bounds__(THREADS)
+log_mel_dft_kernel(const float* __restrict__ wav, int S, int F,
+                   const int* __restrict__ hops, int hop0, int end0, int left,
+                   const float* __restrict__ cmat, const float* __restrict__ smat,
+                   const float* __restrict__ fb, int nbp, int n_fft, int n_mels,
+                   float log_eps, void* __restrict__ out, int out_bf16) {
+  extern __shared__ __align__(16) float smem[];
+  const int row = blockIdx.x;
+  const int f0 = blockIdx.y * DFT_FPB;
+  const int nf = min(DFT_FPB, F - f0);
+  int hop = hop0, end = end0;
+  if (hops != nullptr) {
+    hop = hops[row];                        // the wrapper bounds it by hop_max
+    end = hop * (F - 1) - 1;
+  }
+  const int ktp = (n_fft + DFT_KT - 1) / DFT_KT * DFT_KT;   // taps, padded
+  const int seg_len = (nf - 1) * hop + ktp;
+
+  float* ctile = smem;                      // [DFT_KT][DFT_NB]
+  float* stile = ctile + DFT_KT * DFT_NB;   // [DFT_KT][DFT_NB]
+  float* power = stile + DFT_KT * DFT_NB;   // [DFT_FPB][DFT_NB]
+  float* melacc = power + DFT_FPB * DFT_NB; // [DFT_FPB][n_mels]
+  float* seg = melacc + DFT_FPB * n_mels;   // [seg_len]
+
+  const int tid = threadIdx.x;
+  const float* x = wav + (int64_t)row * S;
+  const int start = f0 * hop - left;
+  // samples past a frame's n_fft meet zero basis rows; they are read as
+  // finite values from the row all the same
+  for (int i = tid; i < seg_len; i += THREADS) {
+    int j = start + i;
+    j = j < 0 ? -j : j;                     // left reflection: -k -> k
+    if (j > end) j = 2 * end - j;           // right reflection about end
+    j = min(max(j, 0), S - 1);
+    seg[i] = x[j];
+  }
+  for (int i = tid; i < DFT_FPB * n_mels; i += THREADS) melacc[i] = 0.f;
+
+  const int fg = tid >> 6;                  // frames fg*4 .. fg*4+3
+  const int bg = tid & 63;                  // bins bg*4 .. bg*4+3 of a pass
+  for (int pass = 0; pass < nbp / DFT_NB; ++pass) {
+    float re[4][4], im[4][4];
+#pragma unroll
+    for (int a = 0; a < 4; ++a)
+#pragma unroll
+      for (int b = 0; b < 4; ++b) re[a][b] = im[a][b] = 0.f;
+
+    for (int k0 = 0; k0 < ktp; k0 += DFT_KT) {
+      __syncthreads();                      // previous tile fully consumed
+      for (int v = tid; v < DFT_KT * DFT_NB / 4; v += THREADS) {
+        const int kk = v / (DFT_NB / 4), c4 = v % (DFT_NB / 4);
+        float4 c = make_float4(0.f, 0.f, 0.f, 0.f), sn = c;
+        if (k0 + kk < n_fft) {
+          const int64_t g = (int64_t)(k0 + kk) * nbp + pass * DFT_NB + c4 * 4;
+          c = *reinterpret_cast<const float4*>(cmat + g);
+          sn = *reinterpret_cast<const float4*>(smat + g);
+        }
+        reinterpret_cast<float4*>(ctile)[v] = c;
+        reinterpret_cast<float4*>(stile)[v] = sn;
+      }
+      __syncthreads();
+#pragma unroll 4
+      for (int kk = 0; kk < DFT_KT; ++kk) {
+        float xv[4];
+#pragma unroll
+        for (int a = 0; a < 4; ++a) {
+          const int f = fg * 4 + a;
+          xv[a] = f < nf ? seg[f * hop + k0 + kk] : 0.f;
+        }
+        const float4 c = reinterpret_cast<const float4*>(ctile + kk * DFT_NB)[bg];
+        const float4 sn = reinterpret_cast<const float4*>(stile + kk * DFT_NB)[bg];
+        const float cv[4] = {c.x, c.y, c.z, c.w};
+        const float sv[4] = {sn.x, sn.y, sn.z, sn.w};
+#pragma unroll
+        for (int a = 0; a < 4; ++a)
+#pragma unroll
+          for (int b = 0; b < 4; ++b) {
+            re[a][b] = fmaf(xv[a], cv[b], re[a][b]);
+            im[a][b] = fmaf(xv[a], sv[b], im[a][b]);
+          }
+      }
+    }
+#pragma unroll
+    for (int a = 0; a < 4; ++a)
+#pragma unroll
+      for (int b = 0; b < 4; ++b)
+        power[(fg * 4 + a) * DFT_NB + bg * 4 + b] =
+            re[a][b] * re[a][b] + im[a][b] * im[a][b];
+    __syncthreads();
+    // mel[f, m] += sum_b power[f, b] * fb[b, m]; each output has one owner
+    const float* fbp = fb + (int64_t)pass * DFT_NB * n_mels;
+    for (int o = tid; o < DFT_FPB * n_mels; o += THREADS) {
+      const int f = o / n_mels, m = o % n_mels;
+      float acc = 0.f;
+      for (int b = 0; b < DFT_NB; ++b)
+        acc = fmaf(power[f * DFT_NB + b], fbp[b * n_mels + m], acc);
+      melacc[o] += acc;
+    }
+  }
+  __syncthreads();
+  for (int o = tid; o < nf * n_mels; o += THREADS) {
+    const int f = o / n_mels;
+    const float v = logf(melacc[o] + log_eps);
+    const int64_t dst = ((int64_t)row * F + f0 + f) * n_mels + (o % n_mels);
+    if (out_bf16)
+      reinterpret_cast<__nv_bfloat16*>(out)[dst] = __float2bfloat16(v);
+    else
+      reinterpret_cast<float*>(out)[dst] = v;
+  }
+}
+
 }  // namespace
 
 extern "C" int m3f_log_mel(const void* wav, int n_rows, int S, int F,
@@ -213,6 +353,33 @@ extern "C" int m3f_log_mel(const void* wav, int n_rows, int S, int F,
       (const float*)wav, S, F, (const int*)hops, hop0, end0, left,
       (const float*)window, (const float2*)twid, (const int*)band_lo,
       (const int*)band_hi, (const float*)fbw, width, bin_lo, bin_hi, n_fft,
+      n_mels, log_eps, out, out_bf16);
+  return (int)cudaGetLastError();
+}
+
+// The DFT-product route: cmat / smat [n_fft, nbp] fp32 window-folded bases
+// over the bins the filterbank weighs (zero columns past them), fb [nbp,
+// n_mels] the matching filterbank rows, nbp a multiple of 256; the other
+// arguments as m3f_log_mel's.
+extern "C" int m3f_log_mel_dft(const void* wav, int n_rows, int S, int F,
+                               const void* hops, int hop0, int end0, int left,
+                               int hop_max, const void* cmat, const void* smat,
+                               const void* fb, int nbp, int n_fft, int n_mels,
+                               float log_eps, void* out, int out_bf16,
+                               void* stream) {
+  if (n_rows <= 0 || F <= 0) return 0;
+  if (nbp % DFT_NB != 0 || n_fft < 1) return (int)cudaErrorInvalidValue;
+  const int ktp = (n_fft + DFT_KT - 1) / DFT_KT * DFT_KT;
+  const int seg_max = (min(F, DFT_FPB) - 1) * hop_max + ktp;
+  const size_t smem = sizeof(float) *
+      (2 * DFT_KT * DFT_NB + DFT_FPB * DFT_NB + DFT_FPB * n_mels + seg_max);
+  cudaError_t e = cudaFuncSetAttribute(
+      log_mel_dft_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  dim3 grid(n_rows, (F + DFT_FPB - 1) / DFT_FPB);
+  log_mel_dft_kernel<<<grid, THREADS, smem, (cudaStream_t)stream>>>(
+      (const float*)wav, S, F, (const int*)hops, hop0, end0, left,
+      (const float*)cmat, (const float*)smat, (const float*)fb, nbp, n_fft,
       n_mels, log_eps, out, out_bf16);
   return (int)cudaGetLastError();
 }

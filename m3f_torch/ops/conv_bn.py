@@ -34,9 +34,6 @@ import torch.nn.functional as F
 
 from m3f_torch.ops import cuda_lib
 
-_BM = 128          # temporal forward: pixels per tile (csrc/conv_bn.cu BM)
-_TILES_PER_BLOCK_MAX = 8
-
 
 def _torch_kernel(w: torch.Tensor, kind: str) -> Tuple[torch.Tensor, tuple]:
     """Reference-layout unit weight → (F.conv3d weight [Co, Ci, kt, kh, kw],
@@ -70,14 +67,43 @@ def _cdiv(a: int, b: int) -> int:
     return -(-a // b)
 
 
-def _tile_n(co: int) -> int:
-    """Output-channel tile of the temporal forward kernel: the widest of
-    64, 96, 48 that divides C_out (no masked columns at the model's
-    widths), else 64."""
-    for bn in (64, 96, 48):
-        if co % bn == 0:
-            return bn
-    return 64
+def _round8(n: int) -> int:
+    return _cdiv(n, 8) * 8
+
+
+def _zero_pad(t: Optional[torch.Tensor], *sizes: int) -> Optional[torch.Tensor]:
+    """``t`` zero-padded at the end of its last ``len(sizes)`` axes up to
+    ``sizes`` (None stays None)."""
+    if t is None:
+        return None
+    pad = []
+    for axis, n in zip(range(-1, -len(sizes) - 1, -1), reversed(sizes)):
+        pad += [0, n - t.shape[axis]]
+    return F.pad(t, pad) if any(pad) else t
+
+
+def pad_channels(x, w, inv, shift, *co_side):
+    """The kernels take C_in and C_out in multiples of 8: a unit's tensors
+    zero-padded up to them. x, inv and shift (and w's C_in axis) pad along
+    C_in, w's C_out axis and ``co_side`` (y, gy [..., C_out]; gs1, gs2
+    [C_out]) along C_out. inv = shift = 0 forms x̂ = relu(0·0 + 0) = 0 on
+    the padded input channels, and gy = y = gs1 = gs2 = 0 gives ge = 0 on
+    the padded output channels, so neither adds to a real output; ``w`` may
+    be None (the filter gradient takes none)."""
+    ci = x.shape[-1]
+    co = (w if w is not None else co_side[0]).shape[-1]
+    ci8, co8 = _round8(ci), _round8(co)
+    return (_zero_pad(x, ci8), _zero_pad(w, ci8, co8), _zero_pad(inv, ci8),
+            _zero_pad(shift, ci8), *(_zero_pad(v, co8) for v in co_side))
+
+
+def cut_channels(t: Optional[torch.Tensor], *sizes: int
+                 ) -> Optional[torch.Tensor]:
+    """A padded unit's output cut back: the leading ``sizes`` of its last
+    ``len(sizes)`` axes (None stays None)."""
+    if t is None:
+        return None
+    return t[(..., *(slice(0, n) for n in sizes))]
 
 
 def conv_unit_fwd(x: torch.Tensor, w: torch.Tensor,
@@ -88,8 +114,9 @@ def conv_unit_fwd(x: torch.Tensor, w: torch.Tensor,
 
     Plain composition on the CPU; on the card one kernel launch (plus a
     fixed-order reduction of its per-block sums) for bf16 activations: the
-    row walk (spatial, ``spatial_fwd_plan``) or the row-tile kernel
-    (temporal)."""
+    row walk (spatial, ``spatial_fwd_plan``) or the frame walk (temporal,
+    ``temporal_fwd_plan``). Channel counts that are not multiples of 8 run
+    zero-padded (``pad_channels``)."""
     if x.device.type == "cpu":
         return conv_unit_reference(x, w, inv, shift, kind=kind)
     tensors = (x, w) + ((inv, shift) if inv is not None else ())
@@ -98,11 +125,14 @@ def conv_unit_fwd(x: torch.Tensor, w: torch.Tensor,
     co = w.shape[-1]
     want_w = (3, 3, ci, co) if kind == "spatial" else (3, ci, co)
     if kind not in ("spatial", "temporal") or tuple(w.shape) != want_w \
-            or x.dtype != torch.bfloat16 or ci % 8 or co % 8:
+            or x.dtype != torch.bfloat16:
         raise ValueError(
-            f"conv_unit_fwd kernel takes bf16 x [B,T,H,W,Ci] and w {want_w} "
-            f"with Ci, Co multiples of 8; got kind={kind!r} x "
-            f"{tuple(x.shape)} {x.dtype}, w {tuple(w.shape)}")
+            f"conv_unit_fwd kernel takes bf16 x [B,T,H,W,Ci] and w {want_w}; "
+            f"got kind={kind!r} x {tuple(x.shape)} {x.dtype}, w "
+            f"{tuple(w.shape)}")
+    if ci % 8 or co % 8:
+        y, s1, s2 = conv_unit_fwd(*pad_channels(x, w, inv, shift), kind=kind)
+        return cut_channels(y, co), cut_channels(s1, co), cut_channels(s2, co)
     x = x.contiguous()
     taps = 9 if kind == "spatial" else 3
     # [Co, taps·Ci] with k = tap·Ci + ci: the kernel's K-major B operand
@@ -110,17 +140,15 @@ def conv_unit_fwd(x: torch.Tensor, w: torch.Tensor,
     if inv is not None:
         inv = inv.float().contiguous()
         shift = shift.float().contiguous()
+    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
     if kind == "spatial":
-        sms = torch.cuda.get_device_properties(x.device).multi_processor_count
         plan = spatial_fwd_plan(b, t, h, wd, ci, co, sms)
         bn, per, rows = plan.n_tile, plan.images_per_range, plan.part_rows
-        tiling = (plan.step, int(plan.resident))
+        tiling = (plan.step, int(plan.resident), 0)
     else:
-        m = b * t * h * wd
-        bn = _tile_n(co)
-        per = _rows_per_block(m, co, bn, x.device)
-        rows = _cdiv(_cdiv(m, _BM), per)
-        tiling = (0, 0)
+        plan = temporal_fwd_plan(b, t, h, wd, ci, co, sms)
+        bn, per, rows = plan.n_tile, plan.units_per_block, plan.part_rows
+        tiling = (plan.strip, int(plan.resident), plan.k_chunk)
     y = torch.empty(b, t, h, wd, co, dtype=x.dtype, device=x.device)
     s1 = torch.empty(co, dtype=torch.float32, device=x.device)
     s2 = torch.empty(co, dtype=torch.float32, device=x.device)
@@ -210,22 +238,13 @@ def conv_unit_bwd_reference(x, w, inv, shift, y, gy, gs1, gs2, *, kind: str):
     return dx, dw, dinv, dshift
 
 
-def _check_unit(name, x, ci, co, kind, *tensors):
+def _check_unit(name, x, kind, *tensors):
     cuda_lib.require_cuda(name, x, *[t for t in tensors if t is not None])
     if kind not in ("spatial", "temporal") or x.dtype != torch.bfloat16 \
-            or x.dim() != 5 or ci % 8 or co % 8:
+            or x.dim() != 5:
         raise ValueError(
-            f"{name} kernel takes bf16 [B,T,H,W,C] tensors with C_in, C_out "
-            f"multiples of 8; got kind={kind!r} x {tuple(x.shape)} {x.dtype}, "
-            f"C_out {co}")
-
-
-def _rows_per_block(m: int, n: int, bn: int, dev: torch.device) -> int:
-    """Row tiles per block of the temporal forward kernel: enough blocks
-    for ~4 waves of the card, at most _TILES_PER_BLOCK_MAX."""
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    tiles_m = -(-m // _BM)
-    return max(1, min(_TILES_PER_BLOCK_MAX, tiles_m * (-(-n // bn)) // (4 * sms)))
+            f"{name} kernel takes bf16 [B,T,H,W,C] tensors; got kind={kind!r} "
+            f"x {tuple(x.shape)} {x.dtype}")
 
 
 _SMEM_BLOCK_MAX = 227 << 10             # a block's shared memory on sm_90
@@ -313,6 +332,136 @@ def spatial_fwd_plan(b: int, t: int, h: int, w: int, ci: int, co: int,
     raise ValueError(
         f"conv_unit_fwd spatial kernel: the rows a step reads, {w} pixels "
         f"each, do not fit a block's copies or shared memory")
+
+
+# The temporal forward's frame walk (temporal_fwd_kernel in conv_bn.cu):
+# warps of 32 x 32 take a strip of `strip` (clip, position) pairs x `n_tile`
+# output channels, K in chunks of `k_chunk` input channels for all three taps
+_TW_XV = 9                 # x vectors a thread copies a chunk, at most (TW_XV)
+_TW_LDY = 40               # a warp's y staging row stride (TW_LDY)
+_TW_XS = 2                 # slots of the x (and streamed filter) ring (TW_XS)
+# every (strip, N tile) the kernel is built for -> its blocks a SM
+_TW_BUILT = {(128, 64): 1, (64, 64): 2}
+# (strip, N tile, filter resident), preferred first: two blocks a SM of 64 x
+# 64 where the filter and the rings fit half a SM (stage 1: 6% faster than
+# one block of 128 x 64 at 128 clips, 4% at 32, timed in turn, PERF.md),
+# else one of 128 x 64 with the filter resident, else streamed
+_TW_CHOICES = ((64, 64, True), (128, 64, True), (128, 64, False))
+_SMEM_SM = 228 << 10       # a multiprocessor's shared memory on sm_90, of
+#                            which each block reserves 1 KB
+
+
+def _temporal_fwd_smem(strip: int, n_tile: int, k_chunk: int, chunks: int,
+                       resident: bool) -> int:
+    """A block's shared memory (temporal_fwd_smem in conv_bn.cu): the filter
+    tile (resident) or a ring of filter chunks, the ring of x chunks, each
+    warp's y staging, inv / shift."""
+    filt = n_tile * (3 * chunks * k_chunk + 8) if resident \
+        else _TW_XS * n_tile * (3 * k_chunk + 8)
+    ring = _TW_XS * strip * (k_chunk + 8)
+    stage = (strip // 32) * (n_tile // 32) * 32 * _TW_LDY
+    return 2 * (filt + ring + stage) + 4 * chunks * k_chunk
+
+
+def _tw_units_per_block(units: int, n_tiles: int, sms: int,
+                        per_sm: int) -> int:
+    """Units a range, for ``units`` x ``n_tiles`` blocks of equal work on
+    ``sms`` multiprocessors of ``per_sm`` blocks each: the fewest
+    unit-times to the last block's end (waves x units a range), on a tie
+    the most units a range (each range is a block per N tile, which loads
+    its filter tile and writes a partial row). Measured on an H100
+    (filter_sweep.py --kind temporal_fwd, PERF.md): stage 4 at 128 clips
+    (49 units x 8 N tiles) takes 49 ranges of one unit, 392 blocks in three
+    waves, 21% faster than 13 ranges of four (104 blocks, 28 SMs idle,
+    four unit-times); at the tie of 32 clips stage 3 (49 units x 4), 25
+    ranges of two (100 blocks, one wave) ran 2% faster than 49 of one
+    (196 blocks, two waves)."""
+    slots = per_sm * sms
+    per_wave = max(1, slots // n_tiles)        # ranges a wave holds
+    if units <= per_wave:
+        return 1
+    best = None
+    for waves in range(1, _cdiv(units, per_wave) + 1):
+        per = _cdiv(units, waves * per_wave)
+        key = (_cdiv(_cdiv(units, per) * n_tiles, slots) * per, -per)
+        best = min(best or key, key)
+    return -best[1]
+
+
+class TemporalFwdPlan(NamedTuple):
+    """How the temporal forward kernel cuts its work: units of ``strip``
+    consecutive (clip, position) pairs of the flattened B·H·W axis (a strip
+    spans several clips where H·W is small), each walked over T by
+    ``warps`` warps, x in ``chunks`` chunks of ``k_chunk`` input channels a
+    frame, one in flight; ``n_tiles`` tiles of ``n_tile``
+    output channels (x̂ is formed once per tile: ``n_tiles`` times per
+    element); the filter tile ``resident`` in shared memory or streamed with
+    the chunks; ``blocks`` = ``ranges`` contiguous ranges of
+    ``units_per_block`` units x ``n_tiles`` (``_tw_units_per_block``),
+    each range one partial row of s1 / s2 (``part_rows``); ``smem_bytes`` of
+    shared memory a block."""
+    strip: int
+    n_tile: int
+    warps: int
+    resident: bool
+    k_chunk: int
+    chunks: int
+    positions: int
+    units: int
+    units_per_block: int
+    ranges: int
+    n_tiles: int
+    blocks: int
+    part_rows: int
+    smem_bytes: int
+
+    def units_of(self, r: int) -> range:
+        """The units of range ``r``, as the kernel takes them."""
+        return range(r * self.units_per_block,
+                     min(self.units, (r + 1) * self.units_per_block))
+
+    def positions_of(self, u: int) -> range:
+        """The (clip, position) pairs b·H·W + p of unit ``u``; the unit
+        walks every frame of each."""
+        return range(u * self.strip, min(self.positions, (u + 1) * self.strip))
+
+
+def temporal_fwd_plan(b: int, t: int, h: int, w: int, ci: int, co: int,
+                      sms: int, layout: Optional[Tuple[int, int, bool]] = None
+                      ) -> TemporalFwdPlan:
+    """The temporal forward's tiling on a card of ``sms`` multiprocessors:
+    the first of _TW_CHOICES with a chunking that fits a block's share of
+    shared memory (_TW_BUILT: blocks a SM), the fewest chunks a frame (a
+    thread copies at most _TW_XV x vectors a chunk); then the ranges of
+    units (``_tw_units_per_block``). ``layout`` = (strip, N tile, resident)
+    asks for one of _TW_BUILT (the sweep's)."""
+    if layout and tuple(layout[:2]) not in _TW_BUILT:
+        raise ValueError(f"conv_unit_fwd temporal kernel: no layout {layout}")
+    cip = _cdiv(ci, 16) * 16
+    for strip, n_tile, resident in [layout] if layout else _TW_CHOICES:
+        per_sm = _TW_BUILT[(strip, n_tile)]
+        threads = strip * n_tile // 32
+        smem_max = min(_SMEM_BLOCK_MAX, _SMEM_SM // per_sm - 1024)
+        kc_max = _TW_XV * threads * 8 // strip // 16 * 16
+        for chunks in range(_cdiv(cip, kc_max), cip // 16 + 1):
+            kc = _cdiv(_cdiv(cip, chunks), 16) * 16
+            if _cdiv(ci, kc) != chunks:
+                continue
+            smem = _temporal_fwd_smem(strip, n_tile, kc, chunks, resident)
+            if smem > smem_max:
+                continue
+            positions = b * h * w
+            units = _cdiv(positions, strip)
+            n_tiles = _cdiv(co, n_tile)
+            per = _tw_units_per_block(units, n_tiles, sms, per_sm)
+            ranges = _cdiv(units, per)
+            return TemporalFwdPlan(strip, n_tile, threads // 32, resident,
+                                   kc, chunks, positions, units, per, ranges,
+                                   n_tiles, ranges * n_tiles, ranges, smem)
+    raise ValueError(
+        f"conv_unit_fwd temporal kernel: no chunk of {ci} input channels "
+        f"fits a block's shared memory beside {co} output channels"
+        + (f" in layout {layout}" if layout else ""))
 
 
 # The temporal data gradient's frame walk (temporal_data_kernel in
@@ -469,14 +618,14 @@ def conv_unit_bwd_data(x, w, inv, shift, y, gy, gs1, gs2, *, kind: str):
     """Data gradient of the unit → (dx, dinv, dshift): the plain version on
     the CPU, one kernel launch (plus a fixed-order sum of its per-block
     dinv/dshift rows) on the card: the row walk (spatial) or the frame walk
-    (temporal)."""
+    (temporal); channel counts that are not multiples of 8 run zero-padded
+    (``pad_channels``)."""
     if x.device.type == "cpu":
         return conv_unit_bwd_data_reference(x, w, inv, shift, y, gy, gs1, gs2,
                                             kind=kind)
     b, t, h, wdt, ci = x.shape
     co = gy.shape[-1]
-    _check_unit("conv_unit_bwd_data", x, ci, co, kind, w, inv, shift, y, gy,
-                gs1, gs2)
+    _check_unit("conv_unit_bwd_data", x, kind, w, inv, shift, y, gy, gs1, gs2)
     want_w = (3, 3, ci, co) if kind == "spatial" else (3, ci, co)
     if tuple(w.shape) != want_w or tuple(y.shape) != tuple(gy.shape) \
             or tuple(gy.shape[:-1]) != (b, t, h, wdt) \
@@ -484,6 +633,11 @@ def conv_unit_bwd_data(x, w, inv, shift, y, gy, gs1, gs2, *, kind: str):
         raise ValueError(f"conv_unit_bwd_data: w {tuple(w.shape)} (want "
                          f"{want_w}), y {tuple(y.shape)} {y.dtype}, gy "
                          f"{tuple(gy.shape)} {gy.dtype}")
+    if ci % 8 or co % 8:
+        dx, dinv, dshift = conv_unit_bwd_data(
+            *pad_channels(x, w, inv, shift, y, gy, gs1, gs2), kind=kind)
+        return (cut_channels(dx, ci), cut_channels(dinv, ci),
+                cut_channels(dshift, ci))
     x, y, gy = x.contiguous(), y.contiguous(), gy.contiguous()
     gs1, gs2 = gs1.float().contiguous(), gs2.float().contiguous()
     affine = inv is not None
@@ -663,18 +817,23 @@ def conv_unit_bwd_filter(x, inv, shift, y, gy, gs1, gs2, *, kind: str
                          ) -> torch.Tensor:
     """Filter gradient of the unit → fp32 dw in the reference layout: the
     plain version on the CPU, one kernel launch (plus a fixed-order sum of
-    its slices' partials when there is more than one) on the card."""
+    its slices' partials when there is more than one) on the card; channel
+    counts that are not multiples of 8 run zero-padded (``pad_channels``)."""
     if x.device.type == "cpu":
         return conv_unit_bwd_filter_reference(x, inv, shift, y, gy, gs1, gs2,
                                               kind=kind)
     b, t, h, wdt, ci = x.shape
     co = gy.shape[-1]
-    _check_unit("conv_unit_bwd_filter", x, ci, co, kind, inv, shift, y, gy,
-                gs1, gs2)
+    _check_unit("conv_unit_bwd_filter", x, kind, inv, shift, y, gy, gs1, gs2)
     if tuple(y.shape) != tuple(gy.shape) or tuple(gy.shape[:-1]) != (b, t, h, wdt) \
             or y.dtype != x.dtype or gy.dtype != x.dtype:
         raise ValueError(f"conv_unit_bwd_filter: y {tuple(y.shape)} {y.dtype}, "
                          f"gy {tuple(gy.shape)} {gy.dtype}, x {tuple(x.shape)}")
+    if ci % 8 or co % 8:
+        xp, _, invp, shiftp, *rest = pad_channels(x, None, inv, shift, y, gy,
+                                                  gs1, gs2)
+        return cut_channels(conv_unit_bwd_filter(xp, invp, shiftp, *rest,
+                                                 kind=kind), ci, co)
     x, y, gy = x.contiguous(), y.contiguous(), gy.contiguous()
     gs1, gs2 = gs1.float().contiguous(), gs2.float().contiguous()
     if inv is not None:

@@ -32,7 +32,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-lineinfo")
 SOURCES = ("melspec", "gru", "conv_bn", "packed_conv")
 
-launches: Dict[str, int] = {"melspec": 0, "gru": 0,
+launches: Dict[str, int] = {"melspec": 0, "melspec_dft": 0, "gru": 0,
                             "conv_spatial": 0, "conv_temporal": 0,
                             "conv_spatial_bwd_data": 0,
                             "conv_spatial_bwd_filter": 0,
@@ -49,10 +49,12 @@ Fl = ctypes.c_float
 # C signatures of the exported entry points (every one returns cudaError_t)
 SIGNATURES = {
     "melspec": {"m3f_log_mel": [P, I, I, I, P, I, I, I, I, P, P, P, P, P,
-                                I, I, I, I, I, Fl, P, I, P]},
+                                I, I, I, I, I, Fl, P, I, P],
+                "m3f_log_mel_dft": [P, I, I, I, P, I, I, I, I, P, P, P, I, I,
+                                    I, Fl, P, I, P]},
     "gru": {"m3f_gru_fwd": [P, P, P, P, P, I, I, I, I, I, I, P]},
     "conv_bn": {"m3f_conv_unit_fwd": [P, P, P, P, P, P, P, P, I, I, I, I, I,
-                                      I, I, I, I, I, I, P],
+                                      I, I, I, I, I, I, I, P],
                 "m3f_conv_unit_bwd_data": [P, P, P, P, P, P, P, P, P, P, P, P,
                                            I, I, I, I, I, I, I, I, I, I, I,
                                            I, I, P],

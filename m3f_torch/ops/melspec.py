@@ -8,10 +8,13 @@ rFFT path, static reflect-pad and dynamic-hop framing) and of
 
 ``log_mel_spectrogram`` is the one entry point: on a CPU tensor it runs the
 plain ``log_mel_spectrogram_reference`` (``torch.fft.rfft``); on a CUDA
-tensor it launches the kernel, which frames straight from the wav rows
-(reflection in index space, no padded copy), supports the per-row hop, so
-the port needs no fixed-hop fallback, and does the real DFT as an FFT in
-shared memory whose host constants are ``fft_plan``.
+tensor it launches a kernel, which frames straight from the wav rows
+(reflection in index space, no padded copy) and supports the per-row hop,
+so the port needs no fixed-hop fallback. For an ``n_fft`` that is a power
+of two (at least 4) the kernel does the real DFT as an FFT in shared memory
+whose host constants are ``fft_plan``; for any other ``n_fft`` a second
+kernel does it as a product with window-folded DFT bases
+(``windowed_dft_mats``), as the TPU kernel does.
 """
 
 from __future__ import annotations
@@ -26,6 +29,7 @@ import torch.nn.functional as F
 from m3f_torch.config import MelConfig
 from m3f_torch.ops import cuda_lib
 
+_BINS_PER_PASS = 256   # the DFT route's pass width (csrc/melspec.cu DFT_NB)
 
 # ---------------------------------------------------------------------------
 # Host-side constants (numpy, computed once per config)
@@ -124,12 +128,19 @@ class MelFftPlan(NamedTuple):
     bin_hi: int
 
 
+def fft_route(cfg: MelConfig) -> bool:
+    """Whether the card takes the FFT kernel for ``cfg`` (n_fft a power of
+    two, at least 4); else the DFT-product kernel."""
+    n = cfg.n_fft
+    return n >= 4 and not n & (n - 1)
+
+
 @functools.lru_cache(maxsize=8)
 def fft_plan(cfg: MelConfig) -> MelFftPlan:
     """The kernel's plan for ``cfg``; n_fft must be a power of two (at
     least 4): the kernel has no other FFT."""
     n = cfg.n_fft
-    if n < 4 or n & (n - 1):
+    if not fft_route(cfg):
         raise ValueError(f"the log-mel kernel's FFT needs n_fft a power of "
                          f"two, at least 4; got {n}")
     log2n = n.bit_length() - 2               # log2 of the complex FFT's size
@@ -160,6 +171,42 @@ def _device_plan(cfg: MelConfig, device: torch.device):
     return tuple(torch.from_numpy(np.ascontiguousarray(a)).to(device)
                  for a in (p.window, p.twiddles, p.band_lo, p.band_hi,
                            p.weights))
+
+
+@functools.lru_cache(maxsize=8)
+def windowed_dft_mats(cfg: MelConfig):
+    """(C', S', fb', lo): the DFT route's window-folded bases over the bins
+    the mel filterbank weighs, and the matching filterbank rows.
+
+    Bins outside ``[lo, hi]`` (the first and last bins with a non-zero
+    filter weight) add exactly zero to every mel sum, so they are left out;
+    the kept bins are zero-padded to a multiple of the kernel's pass width.
+    C'[k, i] = win[k]·cos(-2πk(lo+i)/n), S' likewise with sin, both
+    [n_fft, nbp] float32; fb' [nbp, n_mels].
+    """
+    n = cfg.n_fft
+    fb = mel_filterbank(cfg)
+    nz = np.nonzero(fb.any(axis=1))[0]
+    lo, hi = (int(nz[0]), int(nz[-1])) if len(nz) else (0, 0)
+    nb = hi - lo + 1
+    nbp = -(-nb // _BINS_PER_PASS) * _BINS_PER_PASS
+    win = _padded_window(cfg).astype(np.float64)
+    k = np.arange(n, dtype=np.float64)[:, None]
+    b = np.arange(lo, hi + 1, dtype=np.float64)[None, :]
+    ang = -2.0 * np.pi * k * b / n
+    c = np.zeros((n, nbp), np.float32)
+    s = np.zeros((n, nbp), np.float32)
+    c[:, :nb] = win[:, None] * np.cos(ang)
+    s[:, :nb] = win[:, None] * np.sin(ang)
+    fbp = np.zeros((nbp, fb.shape[1]), np.float32)
+    fbp[:nb] = fb[lo:hi + 1]
+    return c, s, fbp, lo
+
+
+@functools.lru_cache(maxsize=8)
+def _device_mats(cfg: MelConfig, device: torch.device):
+    c, s, fbp, _ = windowed_dft_mats(cfg)
+    return tuple(torch.from_numpy(a).to(device) for a in (c, s, fbp))
 
 
 # ---------------------------------------------------------------------------
@@ -256,20 +303,32 @@ def log_mel_spectrogram(waveform: torch.Tensor, cfg: MelConfig,
         else:
             hop0 = hop_max = int(hop)
         end0 = hop0 * (n_fr - 1) - 1
-    plan = fft_plan(cfg)
-    win, tw, band_lo, band_hi, weights = _device_plan(cfg, x.device)
     out = torch.empty((n_rows, n_fr, cfg.n_mels), dtype=out_dtype,
                       device=x.device)
     left = cfg.n_fft // 2 if cfg.center else 0
+    frames = (x.data_ptr(), n_rows, t, n_fr,
+              None if hops is None else hops.data_ptr(), hop0, end0, left,
+              hop_max)
+    lib = cuda_lib.library("melspec")
     with torch.cuda.device(x.device):
-        err = cuda_lib.library("melspec").m3f_log_mel(
-            x.data_ptr(), n_rows, t, n_fr,
-            None if hops is None else hops.data_ptr(), hop0, end0, left, hop_max,
-            win.data_ptr(), tw.data_ptr(), band_lo.data_ptr(),
-            band_hi.data_ptr(), weights.data_ptr(), weights.shape[1],
-            plan.bin_lo, plan.bin_hi, cfg.n_fft, cfg.n_mels, cfg.log_eps,
-            out.data_ptr(), int(out_dtype == torch.bfloat16),
-            cuda_lib.stream_ptr(x))
-    cuda_lib.check(err, "log_mel_spectrogram kernel")
-    cuda_lib.launches["melspec"] += 1
+        if fft_route(cfg):
+            plan = fft_plan(cfg)
+            win, tw, band_lo, band_hi, weights = _device_plan(cfg, x.device)
+            err = lib.m3f_log_mel(
+                *frames, win.data_ptr(), tw.data_ptr(), band_lo.data_ptr(),
+                band_hi.data_ptr(), weights.data_ptr(), weights.shape[1],
+                plan.bin_lo, plan.bin_hi, cfg.n_fft, cfg.n_mels, cfg.log_eps,
+                out.data_ptr(), int(out_dtype == torch.bfloat16),
+                cuda_lib.stream_ptr(x))
+            counter = "melspec"
+        else:
+            c, s, fbp = _device_mats(cfg, x.device)
+            err = lib.m3f_log_mel_dft(
+                *frames, c.data_ptr(), s.data_ptr(), fbp.data_ptr(),
+                fbp.shape[0], cfg.n_fft, cfg.n_mels, cfg.log_eps,
+                out.data_ptr(), int(out_dtype == torch.bfloat16),
+                cuda_lib.stream_ptr(x))
+            counter = "melspec_dft"
+    cuda_lib.check(err, f"log_mel_spectrogram {counter} kernel")
+    cuda_lib.launches[counter] += 1
     return out.reshape(lead + (n_fr, cfg.n_mels))

@@ -1,5 +1,5 @@
 """Where the walk kernels' time goes, on the card: both filter gradients,
-both data gradients, the spatial forward and the mel frontend.
+both data gradients, both forward units and the mel frontend.
 
 Times ``conv_unit_bwd_filter`` (``--kind spatial``, the row walk, or
 ``--kind temporal``, the frame walk) or ``conv_unit_bwd_data`` of the
@@ -48,9 +48,25 @@ in the full-width ``fusion`` train step (32 clips, BN prologue on), beside:
   the walk alone (15); cuDNN's conv alone and with the fp32 sums of y, a
   device copy of x and y, and with ``--parent`` an earlier ``conv_bn.cu``'s
   spatial forward (the per-tap gather), timed before and after the rest;
+- ``--kind temporal_fwd``: ``conv_unit_fwd`` of the temporal unit (its
+  frame walk) at the four temporal units of the serving forward (128 clips)
+  and of the train step (32 clips), with the prologue, every time a device
+  time (``timed`` queued): in alternating rounds (``alternating``) the
+  wrapper, the planner's tiling through the C entry twice (the gap between
+  the two is the spread of identical launches), every layout (strips of
+  128 x 64 output channels, and of 64 x 64 two blocks a SM, the filter
+  resident and streamed where they fit) at the planner's chunks and at
+  twice as many, and the ranges the planner took before it counted waves
+  and one unit a range;
+  ablations built with ``-DTW_ABLATE``: without forming x̂ (1), the
+  products (2), the copies (4), the epilogue (8), and the walk alone (15);
+  cuDNN's conv alone and with the fp32 sums of y, a device copy of x and y,
+  and with ``--parent`` an earlier ``conv_bn.cu``'s temporal forward (the
+  per-tap gather, ``conv_unit_kernel``), timed before and after the rest;
 - ``--kind mel``: the mel FFT kernel at the serving path's shapes (static
-  and per-row hop) against its plain version, and beside ``torch.stft`` +
-  the mel matmul in turn (5 rounds).
+  and per-row hop), and the DFT-product kernel (n_fft 400) at the same
+  rows, against their plain versions, and beside ``torch.stft`` + the mel
+  matmul in turn (5 rounds).
 
 Run on a machine with an NVIDIA GPU, from the repository root:
 
@@ -61,6 +77,9 @@ Run on a machine with an NVIDIA GPU, from the repository root:
     python -m m3f_torch.scripts.filter_sweep --kind spatial_fwd --check
     python -m m3f_torch.scripts.filter_sweep --kind spatial_fwd \
         --parent build/parent/conv_bn.cu
+    python -m m3f_torch.scripts.filter_sweep --kind temporal_fwd --check
+    python -m m3f_torch.scripts.filter_sweep --kind temporal_fwd \
+        --parent build/parent/conv_bn.cu
     python -m m3f_torch.scripts.filter_sweep --kind mel [--check]
 
 It prints the ``nvidia-smi`` card line, then one JSON line per shape with
@@ -69,7 +88,7 @@ prints what ``ptxas`` says of the kernel (registers, spills, shared memory)
 and holds the kernel once against the plain version at each shape and at a
 few small ones (``temporal_data``: at every layout the entry point takes;
 ``spatial_data``: at every step; ``spatial_fwd``: at every layout, filter
-resident and streamed).
+resident and streamed; ``temporal_fwd``: at every layout).
 Nothing runs at import.
 """
 
@@ -141,9 +160,11 @@ def build_variants(defines: Dict[str, str],
 def resources(kind: str) -> None:
     """Print what ptxas says of the kind's kernel
     (``<kind>_filter_kernel``, ``temporal_data_kernel``,
-    ``spatial_data_kernel``, ``spatial_fwd_kernel`` or, in melspec.cu,
-    ``log_mel_kernel``)."""
-    kernel = {"spatial_fwd": "spatial_fwd_kernel", "mel": "log_mel_kernel"}.get(
+    ``spatial_data_kernel``, ``spatial_fwd_kernel``, ``temporal_fwd_kernel``
+    or, in melspec.cu, ``log_mel_kernel`` and ``log_mel_dft_kernel``)."""
+    kernel = {"spatial_fwd": "spatial_fwd_kernel",
+              "temporal_fwd": "temporal_fwd_kernel",
+              "mel": "log_mel"}.get(
         kind, f"{kind}_kernel" if kind.endswith("_data")
         else f"{kind}_filter_kernel")
     source = "melspec" if kind == "mel" else "conv_bn"
@@ -163,19 +184,41 @@ def resources(kind: str) -> None:
                   flush=True)
 
 
-def timed(fn: Callable, reps: int) -> float:
+SPIN_CYCLES = 2_000_000  # ~1 ms of torch.cuda._sleep, longer than a call's
+#                          host work (planner, allocations, launches)
+ROUNDS = 5               # rounds of --reps calls in ``alternating``
+
+
+def timed(fn: Callable, reps: int, queued: bool = False) -> float:
+    """Median ms of ``reps`` calls, each between two CUDA events. With
+    ``queued`` each call is queued behind a spin kernel, so the host has
+    launched the whole call before the first event is reached: the events
+    then time the device alone, not the host's launch work."""
     fn()
     torch.cuda.synchronize()
     times = []
     for _ in range(reps):
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
+        if queued:
+            torch.cuda._sleep(SPIN_CYCLES)
         a.record()
         fn()
         b.record()
         b.synchronize()
         times.append(a.elapsed_time(b))
     return statistics.median(times)
+
+
+def alternating(fns: Dict[str, Callable], reps: int) -> Dict[str, list]:
+    """``fns`` timed in turn (``timed``, queued) for ROUNDS rounds: {name:
+    [median of the round medians, largest - smallest round median]}."""
+    per = {name: [] for name in fns}
+    for _ in range(ROUNDS):
+        for name, fn in fns.items():
+            per[name].append(timed(fn, reps, queued=True))
+    return {name: [statistics.median(v), max(v) - min(v)]
+            for name, v in per.items()}
 
 
 def launch(fn, kind: str, x, inv, shift, y, gy, gs1, gs2,
@@ -661,32 +704,41 @@ def launch_spatial_fwd(fn, x, wk, inv, shift, layout=None, resident=None):
     ptr = lambda v: None if v is None else v.data_ptr()
     err = fn(x.data_ptr(), wk.data_ptr(), ptr(inv), ptr(shift), y.data_ptr(),
              s1.data_ptr(), s2.data_ptr(), part.data_ptr(), 0, b, t, h, wd, ci,
-             co, nb, per, step, int(res), cuda_lib.stream_ptr(x))
+             co, nb, per, step, int(res), 0, cuda_lib.stream_ptr(x))
     if err == 1 and (layout or resident is not None):
         return None                      # cudaErrorInvalidValue: no such tiling
     cuda_lib.check(err, f"spatial forward sweep, {layout} resident={res}")
     return y, s1, s2
 
 
-def launch_parent_fwd(fn, x, wk, inv, shift):
-    """One call of the parent's spatial forward (the per-tap gather) with the
-    parent's tiling: N tiles of ``_tile_n`` and ``_rows_per_block`` row
-    tiles of 128 a block."""
+def _parent_tiling(m: int, co: int, dev) -> tuple:
+    """The per-tap gather kernel's tiling (the parent sources' planner):
+    the widest N tile of 64, 96, 48 dividing C_out (else 64), and row tiles
+    of 128 pixels a block for ~4 waves of the card, at most 8; returns
+    (N tile, row tiles a block, partial rows)."""
+    bn = next((n for n in (64, 96, 48) if co % n == 0), 64)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    tiles_m = -(-m // 128)
+    tpb = max(1, min(8, tiles_m * (-(-co // bn)) // (4 * sms)))
+    return bn, tpb, -(-tiles_m // tpb)
+
+
+def launch_parent_fwd(fn, x, wk, inv, shift, kind=0, extra=()):
+    """One call of a parent source's per-tap gather forward (spatial kind
+    0, or temporal kind 1) with the parent's tiling; ``extra`` are the
+    trailing int arguments its C entry takes beyond ``tiles_per_block``."""
     b, t, h, wd, ci = x.shape
     co = wk.shape[0]
-    m = b * t * h * wd
-    bn = conv_bn._tile_n(co)
-    tpb = conv_bn._rows_per_block(m, co, bn, x.device)
-    rows = -(-(-(-m // 128)) // tpb)        # ceil(ceil(m / 128) / tpb)
+    bn, tpb, rows = _parent_tiling(b * t * h * wd, co, x.device)
     y = torch.empty(*x.shape[:-1], co, dtype=x.dtype, device=x.device)
     s1 = torch.empty(co, dtype=torch.float32, device=x.device)
     s2 = torch.empty_like(s1)
     part = torch.empty(2 * rows * co, dtype=torch.float32, device=x.device)
     ptr = lambda v: None if v is None else v.data_ptr()
     err = fn(x.data_ptr(), wk.data_ptr(), ptr(inv), ptr(shift), y.data_ptr(),
-             s1.data_ptr(), s2.data_ptr(), part.data_ptr(), 0, b, t, h, wd, ci,
-             co, bn, tpb, cuda_lib.stream_ptr(x))
-    cuda_lib.check(err, "parent spatial forward")
+             s1.data_ptr(), s2.data_ptr(), part.data_ptr(), kind, b, t, h, wd,
+             ci, co, bn, tpb, *extra, cuda_lib.stream_ptr(x))
+    cuda_lib.check(err, "parent forward")
     return y, s1, s2
 
 
@@ -812,19 +864,235 @@ def sweep_spatial_fwd(reps: int, parent: Optional[str]) -> None:
         torch.cuda.empty_cache()
 
 
+# --- the temporal forward ---------------------------------------------------
+
+# (x shape, C_out) of the temporal units: the serving forward (128 clips)
+# and the train step (32 clips)
+TW_SHAPES = tuple(((clips, t, s, s, mid), c)
+                  for clips in (128, 32)
+                  for c, t, s, mid in ((64, 16, 56, 144), (128, 8, 28, 288),
+                                       (256, 4, 14, 576), (512, 2, 7, 1152)))
+TW_ABLATIONS = {"no_forming": 1, "no_products": 2, "no_copies": 4,
+                "no_epilogue": 8, "walk_only": 15}
+# (strip, N tile, filter resident) of every layout the entry point takes
+TW_LAYOUTS = tuple((s, n, r) for r in (True, False)
+                   for s, n in conv_bn._TW_BUILT)
+# small shapes (x shape, C_out): T 7 / 1 / 2 / 3, a partial strip, a strip
+# spanning clips, masked channels (C_in 40, 152; C_out 24, 40), chunks
+# (C_in 296, 576: several a frame), the filter streamed (C_out 344), widths
+# that are not multiples of 8 (the wrapper pads them)
+TW_SMALL = (((2, 7, 5, 3, 40), 24), ((3, 1, 6, 5, 24), 16),
+            ((2, 2, 9, 9, 48), 40), ((2, 3, 10, 10, 152), 40),
+            ((1, 3, 9, 8, 8), 96), ((2, 3, 7, 5, 296), 144),
+            ((2, 4, 5, 5, 40), 160), ((2, 2, 3, 3, 24), 344),
+            ((3, 3, 7, 7, 576), 256), ((2, 3, 4, 5, 12), 20),
+            ((1, 2, 6, 6, 108), 48))
+# the parent's C entry (the per-tap gather, KIND 1): x, wk, inv, shift, y,
+# s1, s2, part, kind, B, T, H, W, Ci, Co, bn, tiles_per_block, step,
+# resident, stream
+PARENT_TW_ARGS = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 11 + [ctypes.c_void_p]
+
+
+def tw_inputs(xs, co, dev, g):
+    ci = xs[-1]
+    x = torch.randn(*xs, device=dev, generator=g).to(torch.bfloat16)
+    w = (torch.rand(3, ci, co, device=dev, generator=g) * 2 - 1) / (3 * ci) ** 0.5
+    inv = torch.rand(ci, device=dev, generator=g) + 0.5
+    shift = torch.randn(ci, device=dev, generator=g) * 0.1
+    return x, w, inv, shift
+
+
+def _wk_t(w):
+    """[3, Ci, Co] → the kernels' [Co, 3·Ci] bf16 B operand."""
+    return w.to(torch.bfloat16).movedim(-1, 0).reshape(w.shape[-1], -1).contiguous()
+
+
+def launch_temporal_fwd(fn, x, wk, inv, shift, layout=None, chunks=None,
+                        per=None):
+    """One call of a build's ``m3f_conv_unit_fwd`` for the temporal unit
+    with the planner's tiling, or with ``layout`` = (strip, N tile,
+    resident), ``chunks`` a frame and ``per`` units a range in its place
+    (what ``conv_unit_fwd`` does, minus its checks); ``inv`` None leaves
+    the prologue out. None when the entry point (or the planner) refuses
+    it."""
+    b, t, h, wd, ci = x.shape
+    co = wk.shape[0]
+    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+    try:
+        plan = conv_bn.temporal_fwd_plan(b, t, h, wd, ci, co, sms, layout)
+    except ValueError:
+        return None
+    kc = plan.k_chunk
+    if chunks:
+        kc = conv_bn._cdiv(conv_bn._cdiv(ci, chunks), 16) * 16
+    per = per or plan.units_per_block
+    y = torch.empty(*x.shape[:-1], co, dtype=x.dtype, device=x.device)
+    s1 = torch.empty(co, dtype=torch.float32, device=x.device)
+    s2 = torch.empty_like(s1)
+    part = torch.empty(2 * conv_bn._cdiv(plan.units, per) * co,
+                       dtype=torch.float32, device=x.device)
+    ptr = lambda v: None if v is None else v.data_ptr()
+    err = fn(x.data_ptr(), wk.data_ptr(), ptr(inv), ptr(shift), y.data_ptr(),
+             s1.data_ptr(), s2.data_ptr(), part.data_ptr(), 1, b, t, h, wd, ci,
+             co, plan.n_tile, per, plan.strip, int(plan.resident), kc,
+             cuda_lib.stream_ptr(x))
+    if err == 1 and (layout or chunks):
+        return None                      # cudaErrorInvalidValue: no such tiling
+    cuda_lib.check(err, f"temporal forward sweep, {layout} {chunks} {per}")
+    return y, s1, s2
+
+
+def _tw_per_one_wave(plan, sms: int) -> int:
+    """The units a range the planner took before it filled a wave: at most
+    blocks-a-SM x sms // n_tiles ranges, as few as that allows."""
+    slots = conv_bn._TW_BUILT[(plan.strip, plan.n_tile)] * sms
+    return conv_bn._cdiv(plan.units,
+                         max(1, min(plan.units, slots // plan.n_tiles)))
+
+
+def check_temporal_fwd() -> None:
+    """ptxas' resource lines, then the temporal forward against the plain
+    version, with and without the prologue: the wrapper once at each small,
+    serving and train shape (and whether a second call repeats y, s1 and s2
+    bit for bit), and at the small shapes every layout the entry point
+    takes."""
+    dev = resolve_device("cuda")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    resources("temporal_fwd")
+    cuda_lib.build(["conv_bn"])
+    main = cuda_lib.library("conv_bn").m3f_conv_unit_fwd
+    g = torch.Generator(device=dev).manual_seed(15)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for xs, co in TW_SMALL + TW_SHAPES:
+        x, w, inv, shift = tw_inputs(xs, co, dev, g)
+        ci8, co8 = -(-xs[-1] // 8) * 8, -(-co // 8) * 8
+        plan = conv_bn.temporal_fwd_plan(*xs[:-1], ci8, co8, sms)
+        row = {"x": list(xs), "co": co,
+               "plan": [plan.strip, plan.n_tile, plan.resident, plan.k_chunk,
+                        plan.chunks, plan.blocks]}
+        for affine in (True, False):
+            a = (inv, shift) if affine else (None, None)
+            got = conv_bn.conv_unit_fwd(x, w, *a, kind="temporal")
+            again = conv_bn.conv_unit_fwd(x, w, *a, kind="temporal")
+            torch.cuda.synchronize()
+            ref = conv_bn.conv_unit_reference(x, w, *a, kind="temporal")
+            key = "affine" if affine else "plain"
+            row[key] = {"max_err_over_max_ref": _fwd_errors(got, ref),
+                        "repeats": all(torch.equal(p, q)
+                                       for p, q in zip(got, again))}
+            if (xs, co) in TW_SMALL and xs[-1] % 8 == 0 and co % 8 == 0:
+                for layout in TW_LAYOUTS:
+                    out = launch_temporal_fwd(main, x, _wk_t(w), *a,
+                                              layout=layout)
+                    torch.cuda.synchronize()
+                    row[key]["_".join(map(str, layout))] = \
+                        None if out is None else _fwd_errors(out, ref)
+            del got, again, ref
+        print(json.dumps(row), flush=True)
+        del x
+        torch.cuda.empty_cache()
+
+
+def sweep_temporal_fwd(reps: int, parent: Optional[str]) -> None:
+    import torch.nn.functional as F
+    dev = resolve_device("cuda")
+    cuda_lib.build(["conv_bn"])
+    main = cuda_lib.library("conv_bn").m3f_conv_unit_fwd
+    defines = {name: f"TW_ABLATE={k}" for name, k in TW_ABLATIONS.items()}
+    built = build_variants(defines, "m3f_conv_unit_fwd")
+    old = None
+    if parent:
+        old = build_variants({"parent": ""}, "m3f_conv_unit_fwd",
+                             {"parent": parent}, PARENT_TW_ARGS)["parent"]
+    g = torch.Generator(device=dev).manual_seed(15)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for xs, co in TW_SHAPES:
+        ci = xs[-1]
+        x, w, inv, shift = tw_inputs(xs, co, dev, g)
+        wk = _wk_t(w)
+        a = (inv, shift)                 # every temporal unit has the prologue
+        plan = conv_bn.temporal_fwd_plan(*xs, co, sms)
+        row = {"kind": "temporal_fwd", "x": list(xs), "co": co,
+               "plan": plan._asdict()}
+        if old is not None:
+            row["parent_ms"] = [timed(lambda: launch_parent_fwd(
+                old, x, wk, *a, 1, (0, 0)), reps, queued=True)]
+        entry = lambda: launch_temporal_fwd(main, x, wk, *a)
+        fns = {"wrapper": lambda: conv_bn.conv_unit_fwd(
+                   x, w, *a, kind="temporal"),
+               "entry": entry, "entry_again": entry}
+        for per in {_tw_per_one_wave(plan, sms), 1} - {plan.units_per_block}:
+            fns[f"entry_per{per}"] = lambda per=per: launch_temporal_fwd(
+                main, x, wk, *a, per=per)
+        for layout in TW_LAYOUTS:
+            try:
+                lp = conv_bn.temporal_fwd_plan(*xs, co, sms, layout)
+            except ValueError:
+                continue
+            for ch in (lp.chunks, 2 * lp.chunks):
+                if launch_temporal_fwd(main, x, wk, *a, layout=layout,
+                                       chunks=ch) is None:
+                    continue
+                fns["_".join(map(str, (*layout, "chunks", ch)))] = \
+                    lambda layout=layout, ch=ch: launch_temporal_fwd(
+                        main, x, wk, *a, layout=layout, chunks=ch)
+        row["alternating_ms"] = alternating(fns, reps)
+        row["ms"] = row["alternating_ms"]["wrapper"][0]
+        row["entry_ms"] = row["alternating_ms"]["entry"][0]
+        row["identical_launches_gap_ms"] = abs(
+            row["entry_ms"] - row["alternating_ms"]["entry_again"][0])
+        for name, fn in built.items():
+            row[f"{name}_ms"] = timed(
+                lambda: launch_temporal_fwd(fn, x, wk, *a), reps, queued=True)
+        xh = conv_bn._prologue(x, *a).permute(0, 4, 1, 2, 3)
+        kern, pad = conv_bn._torch_kernel(w.to(x.dtype), "temporal")
+        kern = kern.contiguous(memory_format=torch.channels_last_3d)
+
+        def sums():
+            yf = F.conv3d(xh, kern, padding=pad).float()
+            return yf.sum((0, 2, 3, 4)), (yf * yf).sum((0, 2, 3, 4))
+        row["cudnn_conv_ms"] = timed(lambda: F.conv3d(xh, kern, padding=pad),
+                                     reps, queued=True)
+        row["cudnn_conv_sums_ms"] = timed(sums, reps, queued=True)
+        bx = torch.empty_like(x)
+        by = torch.empty(*xs[:-1], co, dtype=x.dtype, device=dev)
+        sy = torch.zeros_like(by)
+        row["copy_x_and_y_ms"] = timed(lambda: (bx.copy_(x), by.copy_(sy)),
+                                       reps, queued=True)
+        if old is not None:
+            row["parent_ms"].append(timed(lambda: launch_parent_fwd(
+                old, x, wk, *a, 1, (0, 0)), reps, queued=True))
+        m = x.numel() // ci
+        flops = 2 * m * 3 * ci * co
+        nbytes = m * ci * 2 + m * co * 2 + 3 * ci * co * 2 + 2 * co * 4 \
+            + 2 * ci * 4
+        row["bound_ms"] = max(nbytes / HBM, flops / PEAK_BF16) * 1e3
+        row["bound_by"] = "bytes" if nbytes / HBM >= flops / PEAK_BF16 \
+            else "operations"
+        row["tflops"] = flops / row["ms"] / 1e9
+        row["TBps"] = nbytes / row["ms"] / 1e9
+        print(json.dumps(row), flush=True)
+        del x, xh, bx, by, sy
+        torch.cuda.empty_cache()
+
+
 # --- the log-mel frontend ---------------------------------------------------
 
 def sweep_mel(reps: int, check_only: bool) -> None:
     """The FFT kernel at the serving path's shapes (128 rows of 7995
-    samples at the static hop, 128 of 10005 at a per-row hop of 640),
+    samples at the static hop, 128 of 10005 at a per-row hop of 640), and
+    the DFT-product kernel at the same rows with n_fft = win_length = 400,
     against the plain version; ptxas' resource lines; unless ``check_only``,
-    the kernel and ``torch.stft`` + the mel matmul (the static rows) timed
+    each kernel and ``torch.stft`` + the mel matmul (the static rows) timed
     in turn, 5 rounds of ``reps``, and the plain version."""
+    import dataclasses
     from m3f_torch.config import MelConfig
     from m3f_torch.ops import melspec
     dev = resolve_device("cuda")
     resources("mel")
     cfg = MelConfig()
+    cfg400 = dataclasses.replace(cfg, n_fft=400, win_length=400)
     g = torch.Generator(device=dev).manual_seed(14)
     wav = torch.randn(128, 7995, device=dev, generator=g) * 0.3
     wav_d = torch.randn(128, 10005, device=dev, generator=g) * 0.3
@@ -837,25 +1105,40 @@ def sweep_mel(reps: int, check_only: bool) -> None:
             lambda: melspec.log_mel_spectrogram(wav_d, cfg, bf, hop=hops,
                                                 n_frames_out=16),
             lambda: melspec.log_mel_spectrogram_reference(
-                wav_d, cfg, bf, hop=hops, n_frames_out=16))}
-    win = torch.hann_window(cfg.win_length, periodic=True, device=dev)
-    fb = torch.from_numpy(melspec.mel_filterbank(cfg)).to(dev)
+                wav_d, cfg, bf, hop=hops, n_frames_out=16)),
+        "dft_n_fft_400": (
+            lambda: melspec.log_mel_spectrogram(wav, cfg400, bf),
+            lambda: melspec.log_mel_spectrogram_reference(wav, cfg400, bf)),
+        "dft_n_fft_400_dynamic_hop": (
+            lambda: melspec.log_mel_spectrogram(wav_d, cfg400, bf, hop=hops,
+                                                n_frames_out=16),
+            lambda: melspec.log_mel_spectrogram_reference(
+                wav_d, cfg400, bf, hop=hops, n_frames_out=16))}
+    def library(c):
+        win = torch.hann_window(c.win_length, periodic=True, device=dev)
+        fb = torch.from_numpy(melspec.mel_filterbank(c)).to(dev)
 
-    def library():
-        spec = torch.stft(wav, cfg.n_fft, cfg.hop_length, window=win,
-                          center=True, pad_mode="reflect", return_complex=True)
-        power = spec.real ** 2 + spec.imag ** 2
-        return torch.log(power.transpose(1, 2) @ fb + cfg.log_eps).to(bf)
+        def call():
+            spec = torch.stft(wav, c.n_fft, c.hop_length, window=win,
+                              center=True, pad_mode="reflect",
+                              return_complex=True)
+            power = spec.real ** 2 + spec.imag ** 2
+            return torch.log(power.transpose(1, 2) @ fb + c.log_eps).to(bf)
+        return call
+    libs = {"static": library(cfg), "dft_n_fft_400": library(cfg400)}
     for name, (kern, plain) in calls.items():
+        before = dict(cuda_lib.launches)
         err = (kern().float() - plain().float()).abs().max().item()
-        row = {"kind": "mel", "rows": name, "max_abs_err_bf16": err,
-               "repeats": torch.equal(kern(), kern())}
+        route = [k for k in ("melspec", "melspec_dft")
+                 if cuda_lib.launches[k] > before[k]]
+        row = {"kind": "mel", "rows": name, "route": route,
+               "max_abs_err_bf16": err, "repeats": torch.equal(kern(), kern())}
         if not check_only:
             rounds = {"ms": [], "library_ms": []}
             for _ in range(5):
                 rounds["ms"].append(timed(kern, reps))
-                if name == "static":
-                    rounds["library_ms"].append(timed(library, reps))
+                if name in libs:
+                    rounds["library_ms"].append(timed(libs[name], reps))
             row.update({k: statistics.median(v) for k, v in rounds.items() if v})
             row["spread_ms"] = max(rounds["ms"]) - min(rounds["ms"])
             row["plain_ms"] = timed(plain, reps)
@@ -865,15 +1148,16 @@ def sweep_mel(reps: int, check_only: bool) -> None:
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--kind", choices=("spatial", "temporal", "temporal_data",
-                                       "spatial_data", "spatial_fwd", "mel"),
+                                       "spatial_data", "spatial_fwd",
+                                       "temporal_fwd", "mel"),
                     default="spatial")
     ap.add_argument("--reps", type=int, default=20)
     ap.add_argument("--check", action="store_true",
                     help="ptxas' resource lines and one comparison per shape")
     ap.add_argument("--parent", default=None,
-                    help="spatial_fwd: a conv_bn.cu whose spatial forward "
-                         "(the per-tap gather, C entry before the row walk) "
-                         "is timed beside the kernel")
+                    help="spatial_fwd / temporal_fwd: a conv_bn.cu whose "
+                         "forward of that kind (the per-tap gather, C entry "
+                         "before the walk) is timed beside the kernel")
     opts = ap.parse_args(argv)
     print(subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -883,6 +1167,9 @@ def main(argv=None) -> None:
     elif opts.kind == "spatial_fwd":
         check_spatial_fwd() if opts.check \
             else sweep_spatial_fwd(opts.reps, opts.parent)
+    elif opts.kind == "temporal_fwd":
+        check_temporal_fwd() if opts.check \
+            else sweep_temporal_fwd(opts.reps, opts.parent)
     elif opts.kind == "mel":
         sweep_mel(opts.reps, opts.check)
     elif opts.kind == "spatial_data":

@@ -88,8 +88,12 @@ def test_cpu_tensor_takes_plain_version():
 
 
 def test_kernel_tile_choice_covers_model_widths():
-    """Output-channel tiles divide every fused unit's width at full size."""
-    for c in (64, 128, 256, 512):
-        mid = (27 * c * c) // (12 * c)
-        for co in (mid, c):
-            assert co % conv_bn._tile_n(co) == 0
+    """The temporal forward's output-channel tiles divide every fused
+    temporal unit's width at full size (128 clips served, 32 trained): no
+    masked columns, and a layout the kernel is built for."""
+    for clips in (128, 32):
+        for c, t, s in ((64, 16, 56), (128, 8, 28), (256, 4, 14), (512, 2, 7)):
+            mid = (27 * c * c) // (12 * c)
+            plan = conv_bn.temporal_fwd_plan(clips, t, s, s, mid, c, 132)
+            assert c % plan.n_tile == 0
+            assert (plan.strip, plan.n_tile) in conv_bn._TW_BUILT
