@@ -26,7 +26,12 @@ H100 (``python3 chip_smoke.py``). It
    dividing it, partial chunks, masked channels, the filter resident and
    streamed; clips of 1-7 frames, partial strips and strips across clips;
    widths that are not multiples of 8, which the wrappers zero-pad; mel
-   rows with a partial last frame block for both hops);
+   rows with a partial last frame block for both hops; the GRU at
+   GRU_EDGE_SHAPES, each on its planner's route). The GRU is held on both
+   of its routes, the cluster walk (which the serving shape must take) and
+   the stream route (the first design), and timed in turn with the stream
+   route, the port's layer (input projection, then the kernel) and
+   ``nn.GRU`` on the same input, and at the train step's shape;
    The four backward kernels of the conv units (data and filter gradient,
    spatial and temporal) are held the same way at the fusion train step's
    shapes: dx per element (one bf16 ulp, carried through inv), dw per
@@ -258,41 +263,100 @@ def check_mel(torch, cuda_lib, melspec, cfg, name):
             "library_ms": lib}
 
 
-def check_gru(torch, gru):
+def check_gru(torch, cuda_lib, gru):
     """K2 at the main path's shapes: B=16 sequences, T=128, H=256, both
-    directions, bf16 x_proj and W_hh (gru.backend="xla"); fp32 too."""
+    directions, bf16 x_proj and W_hh (gru.backend="xla"); fp32 too. The
+    wrapper must take the cluster route ("gru" counts, "gru_stream" does
+    not); the stream route (the first design, forced) is held the same way.
+    Timed in turn: the kernel, the stream route, the port's layer (x @ W_ih
+    + b_ih, then the kernel: what models/gru.py runs) and ``nn.GRU`` on the
+    same input (it computes the layer); then the kernel at the train step's
+    shape (B=8, T=64) with the fp32 carries kept, held (output and carries)
+    and timed."""
     B, T, H, D = 16, 128, 256, 2
     g = torch.Generator(device="cuda").manual_seed(2)
     xp = torch.randn(B, T, D, 3 * H, device="cuda", generator=g)
     w = torch.randn(D, H, 3 * H, device="cuda", generator=g) / math.sqrt(H)
     b = torch.randn(D, 3 * H, device="cuda", generator=g) * 0.1
-    err32 = (gru.gru_scan(xp, w, b)
-             - gru.gru_scan_reference(xp, w, b)).abs().max().item()
     bf = torch.bfloat16
     xb, wb = xp.to(bf), w.to(bf)
-    err16 = (gru.gru_scan(xb, wb, b).float()
-             - gru.gru_scan_reference(xb, wb, b).float()).abs().max().item()
-    require(err32 <= GRU_ATOL_F32 and err16 <= GRU_ATOL_BF16,
-            f"gru kernel vs plain: fp32 {err32} (tol {GRU_ATOL_F32}), bf16 "
-            f"{err16} (tol {GRU_ATOL_BF16})")
+    errs = {}
+    for route in ("cluster", "stream"):
+        before = dict(cuda_lib.launches)
+        errs[route + "_fp32"] = (gru._gru_forward(xp, w, b, route=route)
+                                 - gru.gru_scan_reference(xp, w, b)
+                                 ).abs().max().item()
+        errs[route + "_bf16"] = (
+            gru._gru_forward(xb, wb, b, route=route).float()
+            - gru.gru_scan_reference(xb, wb, b).float()).abs().max().item()
+        moved = {k: cuda_lib.launches[k] - before[k]
+                 for k in ("gru", "gru_stream")}
+        counter = "gru" if route == "cluster" else "gru_stream"
+        require(moved == {**{"gru": 0, "gru_stream": 0}, counter: 2},
+                f"gru {route} route launches {moved}")
+    before = dict(cuda_lib.launches)
+    gru.gru_scan(xb, wb, b)
+    require(cuda_lib.launches["gru"] == before["gru"] + 1
+            and cuda_lib.launches["gru_stream"] == before["gru_stream"],
+            "gru_scan at the serving shape did not take the cluster route")
+    for route in ("cluster", "stream"):
+        require(errs[route + "_fp32"] <= GRU_ATOL_F32
+                and errs[route + "_bf16"] <= GRU_ATOL_BF16,
+                f"gru {route} kernel vs plain: {errs} (tol {GRU_ATOL_F32}, "
+                f"{GRU_ATOL_BF16})")
     plain = timed(torch, lambda: gru.gru_scan_reference(xb, wb, b))
     ref = torch.nn.GRU(768, H, batch_first=True, bidirectional=True).cuda().to(bf)
     ref.flatten_parameters()
     x_in = torch.randn(B, T, 768, device="cuda", generator=g).to(bf)
+    w_ih = (torch.randn(768, D * 3 * H, device="cuda", generator=g)
+            / math.sqrt(768)).to(bf)
+    b_ih = (torch.randn(D * 3 * H, device="cuda", generator=g) * 0.1).to(bf)
     with torch.no_grad():
-        t = timed_alternating(torch, {"kernel": lambda: gru.gru_scan(xb, wb, b),
-                                      "library": lambda: ref(x_in)})
+        t = timed_alternating(torch, {
+            "kernel": lambda: gru.gru_scan(xb, wb, b),
+            "stream": lambda: gru._gru_forward(xb, wb, b, route="stream"),
+            "layer": lambda: gru.gru_scan(
+                (x_in @ w_ih + b_ih).reshape(B, T, D, 3 * H), wb, b),
+            "library": lambda: ref(x_in)})
     (ms, ms_spread), (lib, lib_spread) = t["kernel"], t["library"]
+    xt = xb[:8, :64].contiguous()
+    got, want = (f(xt, wb, b, carries=True)
+                 for f in (gru._gru_forward, gru.gru_scan_reference))
+    errs["cluster_train_bf16"] = max(
+        (got[0].float() - want[0].float()).abs().max().item(),
+        (got[1] - want[1]).abs().max().item())
+    require(errs["cluster_train_bf16"] <= GRU_ATOL_BF16,
+            f"gru at the train shape, output and carries: {errs}")
+    train_ms = timed(torch, lambda: gru._gru_forward(xt, wb, b, carries=True))
     flops = 2 * D * T * B * H * 3 * H
     nbytes = xb.numel() * 2 + wb.numel() * 2 + b.numel() * 4 + B * T * D * H * 2
     b_ms, b_by = bound(nbytes, flops, PEAK_BF16)
-    emit({"phase": "kernel_gru", "max_abs_err_bf16": err16, "tol_bf16": GRU_ATOL_BF16,
-          "max_abs_err_fp32": err32, "tol_fp32": GRU_ATOL_F32, "ms": ms,
-          "ms_spread": ms_spread, "plain_ms": plain,
+    emit({"phase": "kernel_gru", "route": "cluster",
+          "plan": gru.gru_plan(B, T, H, D, True)._asdict(),
+          "max_abs_err": errs, "tol_bf16": GRU_ATOL_BF16,
+          "tol_fp32": GRU_ATOL_F32, "ms": ms, "ms_spread": ms_spread,
+          "stream_ms": t["stream"][0], "stream_ms_spread": t["stream"][1],
+          "plain_ms": plain, "layer_ms": t["layer"][0],
+          "layer_ms_spread": t["layer"][1],
           "library_ms_nn_gru_incl_input_proj": lib,
-          "library_ms_spread": lib_spread, "bound_ms": b_ms})
-    return {"name": "gru", "max_abs_err": err16, "ms": ms, "plain_ms": plain,
-            "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib}
+          "library_ms_spread": lib_spread, "train_ms_b8_t64_carries": train_ms,
+          "bound_ms": b_ms})
+    entry = {"max_abs_err": errs["cluster_bf16"], "plain_ms": plain,
+             "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib}
+    return [dict(entry, name="gru", ms=ms),
+            dict(entry, name="gru_stream", ms=t["stream"][0],
+                 max_abs_err=errs["stream_bf16"])]
+
+
+# (B, T, H, D, x dtype, W dtype, tolerance): a batch tile half full with H
+# not a multiple of 32, a second tile of one row, one direction, the pallas
+# backend's fp32 W with bf16 x, and fp32 W at H=512, which fits no cluster
+# (the stream route)
+GRU_EDGE_SHAPES = ((5, 9, 72, 2, "float32", "float32", GRU_ATOL_F32),
+                   (17, 3, 64, 2, "float32", "float32", GRU_ATOL_F32),
+                   (5, 9, 72, 1, "bfloat16", "bfloat16", GRU_ATOL_BF16),
+                   (16, 32, 256, 2, "bfloat16", "float32", GRU_ATOL_BF16),
+                   (3, 5, 512, 2, "float32", "float32", GRU_ATOL_F32))
 
 
 def sum_limits(y, y0, s20):
@@ -1089,13 +1153,13 @@ FWD_EDGE_SHAPES = (("spatial", (3, 5, 7, 9, 24), (3, 3, 24, 40)),
                    ("temporal", (2, 3, 4, 5, 12), (3, 12, 20)))
 
 
-def check_edges(torch, F, melspec, gru, conv_bn, cfg):
+def check_edges(torch, F, cuda_lib, melspec, gru, conv_bn, cfg):
     """Shapes off the main path's tiling, for the kernels' masked edges:
     the conv units at FWD_EDGE_SHAPES with and without the prologue (its
     shift away from zero, |shift| >= 0.2 either sign, so a border formed as
-    relu(shift) fails), a GRU batch tile half full with H not a multiple of
-    32, and mel rows whose last frame block is partial, for the static hop
-    and for per-row hops."""
+    relu(shift) fails), the GRU at GRU_EDGE_SHAPES, each on the route its
+    planner gives it (its counter, and only it, moves), and mel rows whose
+    last frame block is partial, for the static hop and for per-row hops."""
     g = torch.Generator(device="cuda").manual_seed(5)
     errs = {}
     for kind, xs, ws in FWD_EDGE_SHAPES:
@@ -1109,12 +1173,27 @@ def check_edges(torch, F, melspec, gru, conv_bn, cfg):
             errs[key], errs[key + "_s1_err_over_limit"] = check_fwd_unit(
                 torch, F, conv_bn, f"conv unit {kind} at edge shape {xs} "
                 f"affine={affine}", x, w, a, kind)
-    xp = torch.randn(5, 9, 2, 3 * 72, device="cuda", generator=g)
-    w = torch.randn(2, 72, 3 * 72, device="cuda", generator=g) / math.sqrt(72)
-    b = torch.randn(2, 3 * 72, device="cuda", generator=g) * 0.1
-    errs["gru"] = (gru.gru_scan(xp, w, b)
-                   - gru.gru_scan_reference(xp, w, b)).abs().max().item()
-    require(errs["gru"] <= GRU_ATOL_F32, f"gru at edge shape: {errs['gru']}")
+    for B, T, H, D, xdt, wdt, tol in GRU_EDGE_SHAPES:
+        xdt, wdt = getattr(torch, xdt), getattr(torch, wdt)
+        xp = torch.randn(B, T, D, 3 * H, device="cuda", generator=g).to(xdt)
+        w = (torch.randn(D, H, 3 * H, device="cuda", generator=g)
+             / math.sqrt(H)).to(wdt)
+        b = torch.randn(D, 3 * H, device="cuda", generator=g) * 0.1
+        route = gru.gru_route(B, H, D, wdt == torch.bfloat16)
+        counter = "gru" if route == "cluster" else "gru_stream"
+        before = dict(cuda_lib.launches)
+        key = f"gru_{B}x{T}x{H}_d{D}_{str(xdt)[6:]}_w_{str(wdt)[6:]}_{route}"
+        errs[key] = (gru.gru_scan(xp, w, b).float()
+                     - gru.gru_scan_reference(xp, w, b).float()
+                     ).abs().max().item()
+        moved = {k: cuda_lib.launches[k] - before[k]
+                 for k in ("gru", "gru_stream")}
+        require(moved == {**{"gru": 0, "gru_stream": 0}, counter: 1},
+                f"gru at edge shape {key}: launches {moved}")
+        require(errs[key] <= tol, f"gru at edge shape {key}: {errs[key]} "
+                f"(tol {tol})")
+    require(any(k.endswith("stream") for k in errs), "no gru edge shape "
+            "took the stream route")
     # 31 frames: a last block of 7; per-row hops of 533, 640 and 667 over 13
     # frames: a last block of 5, each row reflecting about its own end
     wav = torch.randn(3, 16000, device="cuda", generator=g) * 0.3
@@ -1353,9 +1432,9 @@ def main():
     kernels = [check_mel(torch, cuda_lib, melspec, MelConfig(), "melspec"),
                check_mel(torch, cuda_lib, melspec, MelConfig(**mel400),
                          "melspec_dft"),
-               check_gru(torch, gru)]
+               *check_gru(torch, cuda_lib, gru)]
     kernels += check_conv(torch, F, conv_bn)
-    check_edges(torch, F, melspec, gru, conv_bn, MelConfig())
+    check_edges(torch, F, cuda_lib, melspec, gru, conv_bn, MelConfig())
     kernels += check_bwd(torch, F, conv_bn)
     check_bwd_edges(torch, conv_bn)
     torch.cuda.empty_cache()
@@ -1449,6 +1528,7 @@ def main():
     replaces = {"melspec": pallas + "melspec_pallas.py:88",
                 "melspec_dft": pallas + "melspec_pallas.py:88",
                 "gru": pallas + "gru_pallas.py:61",
+                "gru_stream": pallas + "gru_pallas.py:61",
                 "conv_unit_spatial": pallas + "conv_bn.py:172",
                 "conv_unit_temporal": pallas + "conv_bn.py:217",
                 "conv_spatial_bwd_data": pallas + "conv_bn.py:537",
@@ -1459,18 +1539,20 @@ def main():
                 "ablate_slabs": "scripts/probe_packed_conv.py:139",
                 "ablate_matmul": "scripts/probe_packed_conv.py:157",
                 "packed_conv_chunked": "scripts/probe_packed_conv.py:207"}
-    counter = {"melspec": "melspec", "gru": "gru",
+    counter = {"melspec": "melspec", "gru": "gru", "gru_stream": "gru_stream",
                "conv_unit_spatial": "conv_spatial",
                "conv_unit_temporal": "conv_temporal"}
     source = {"melspec": "m3f_torch/csrc/melspec.cu",
               "melspec_dft": "m3f_torch/csrc/melspec.cu",
               "gru": "m3f_torch/csrc/gru.cu",
+              "gru_stream": "m3f_torch/csrc/gru.cu",
               **{k: "m3f_torch/csrc/packed_conv.cu" for k in PROBE_KERNELS}}
     line = []
     for k in kernels:
         name = k["name"]
         # forward kernels: their launches serving one video (the DFT mel
-        # route: serving it with n_fft 400); backward kernels: theirs over
+        # route: serving it with n_fft 400; the GRU's stream route: none,
+        # the serving path takes the cluster walk); backward kernels: theirs over
         # the 10 timed train steps; probe kernels: theirs in one probe run
         if name in counter:
             launches = counts30[counter[name]]

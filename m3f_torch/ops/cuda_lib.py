@@ -33,6 +33,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 SOURCES = ("melspec", "gru", "conv_bn", "packed_conv")
 
 launches: Dict[str, int] = {"melspec": 0, "melspec_dft": 0, "gru": 0,
+                            "gru_stream": 0,
                             "conv_spatial": 0, "conv_temporal": 0,
                             "conv_spatial_bwd_data": 0,
                             "conv_spatial_bwd_filter": 0,
@@ -52,7 +53,9 @@ SIGNATURES = {
                                 I, I, I, I, I, Fl, P, I, P],
                 "m3f_log_mel_dft": [P, I, I, I, P, I, I, I, I, P, P, P, I, I,
                                     I, Fl, P, I, P]},
-    "gru": {"m3f_gru_fwd": [P, P, P, P, P, I, I, I, I, I, I, P]},
+    "gru": {"m3f_gru_cluster_fwd": [P, P, P, P, P, I, I, I, I, I, I, I, I, I,
+                                    P],
+            "m3f_gru_stream_fwd": [P, P, P, P, P, I, I, I, I, I, I, P]},
     "conv_bn": {"m3f_conv_unit_fwd": [P, P, P, P, P, P, P, P, I, I, I, I, I,
                                       I, I, I, I, I, I, I, P],
                 "m3f_conv_unit_bwd_data": [P, P, P, P, P, P, P, P, P, P, P, P,

@@ -23,15 +23,150 @@ backpropagation through time in PyTorch ops over those carries, with the
 reference's roundings (the cotangent of the recurrent product rounded to the
 compute dtype, each step's ``dW_hh`` rounded there too) and ``dW_hh``,
 ``db_hh`` accumulated in fp32.
+
+Two routes on the card (``gru_route``): ``"cluster"``, the kernel
+``gru_cluster_kernel`` — one thread-block cluster per (direction, tile of 16
+sequences), ``W_hh`` split by hidden unit over the cluster's blocks and kept
+in shared memory for the whole sequence, h exchanged through distributed
+shared memory with one cluster barrier a step (``gru_plan`` cuts the work)
+— wherever a cluster's slice fits; ``"stream"``, the first design
+(``gru_kernel``, ``W_hh`` read from the L2 every step), for the shapes it
+does not. Each route has its own launch counter (``"gru"``, ``"gru_stream"``);
+neither falls back to the other.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import List, NamedTuple, Optional, Tuple
 
 import torch
 
 from m3f_torch.ops import cuda_lib
+
+BM = 16                  # sequences a batch tile: the M of one mma.sync tile
+NSLOT = 2                # xp ring slots (step t and t + 1)
+SMEM_LIMIT = 232_448     # shared memory a block can use on an H100
+MAX_THREADS = 512        # threads a block (unit groups x K parts)
+CLUSTER_SIZES = (8, 16)  # 8 is portable; 16 only where 8 does not fit
+# K parts a unit group, by w_bf16: fp32 W's FFMA product gains from 2 (1.088
+# -> 0.893 ms at the serving shape on an H100), bf16 W's mma.sync does not
+# (0.371 / 0.372; 4 parts 0.400; filter_sweep --kind gru, PERF.md §6)
+KSPLIT = {True: 1, False: 2}
+
+
+def _round_up(a: int, m: int) -> int:
+    return -(-a // m) * m
+
+
+def cluster_smem(h: int, units: int, w_bf16: bool, ksplit: int = 1) -> int:
+    """Bytes of shared memory a block of the cluster walk takes
+    (``cluster_layout`` in ``csrc/gru.cu``): the W slice (bf16: [3U][K+8],
+    fp32: [K][3U]), two h buffers [16][K + 16 bytes] in W's dtype, the xp
+    ring [2][16][3U] (bf16 with bf16 W, else sized for fp32) and, with K
+    split over ``ksplit`` warps, their partial products [ksplit - 1][U/8][32
+    lanes][12] fp32; K = H padded to a multiple of 32."""
+    ws = 2 if w_bf16 else 4
+    n = 3 * units
+    kp = _round_up(h, 32)
+    w_bytes = n * (kp + 8) * 2 if w_bf16 else kp * n * 4
+    h_bytes = BM * (kp + 16 // ws) * ws
+    x_bytes = NSLOT * BM * n * (2 if w_bf16 else 4)
+    r_bytes = (ksplit - 1) * (units // 8) * 32 * 12 * 4
+    return w_bytes + 2 * h_bytes + x_bytes + r_bytes
+
+
+class GruPlan(NamedTuple):
+    """How the cluster walk cuts a [B, T, D, 3H] recurrence: ``clusters`` =
+    D x ``batch_tiles`` clusters of ``cluster`` blocks (grid (cluster,
+    batch_tiles, D)), block r owning hidden units [r·units, (r+1)·units) of
+    every gate; a block has units / 8 unit groups of ``ksplit`` warps each,
+    which split K (``threads`` in all); ``fits`` is False where no cluster
+    size fits (then the "stream" route runs)."""
+    batch: int
+    hidden: int
+    directions: int
+    cluster: int
+    units: int
+    ksplit: int
+    bm: int
+    batch_tiles: int
+    clusters: int
+    threads: int
+    k_pad: int
+    smem: int
+    waves: int
+    fits: bool
+
+    def units_of(self, rank: int) -> range:
+        """The hidden units block ``rank`` owns (those below H)."""
+        return range(rank * self.units, min((rank + 1) * self.units, self.hidden))
+
+    def k_range(self, part: int) -> range:
+        """The k a warp of K part ``part`` multiplies (whole steps of 32)."""
+        nk = self.k_pad // 32
+        return range(part * nk // self.ksplit * 32,
+                     (part + 1) * nk // self.ksplit * 32)
+
+    def lanes(self, cluster: int, rank: int) -> List[Tuple[int, List[Tuple[int, int, int]]]]:
+        """(thread, [(direction, sequence, unit), ...]) of every thread of
+        block ``rank`` of cluster ``cluster`` (cluster = d · batch_tiles +
+        tile), as the kernel maps them: warp w is unit group q = w % (U/8)
+        and K part w // (U/8); the K part 0 warp of group q owns units
+        8q..8q+7 of the block, its lane l the rows l/4 and l/4 + 8 of the
+        tile and the units 8q + 2(l%4) + {0, 1}; masked rows and units, and
+        the other K parts' warps, own nothing."""
+        d, tile = divmod(cluster, self.batch_tiles)
+        groups = self.units // 8
+        out = []
+        for tid in range(self.threads):
+            warp, lane = divmod(tid, 32)
+            q, part = warp % groups, warp // groups
+            owned = []
+            for i in range(2 if part == 0 else 0):
+                b = tile * self.bm + lane // 4 + 8 * i
+                for e in range(2):
+                    j = rank * self.units + q * 8 + 2 * (lane % 4) + e
+                    if b < self.batch and j < self.hidden:
+                        owned.append((d, b, j))
+            out.append((tid, owned))
+        return out
+
+
+def gru_plan(b: int, t: int, h: int, d: int, w_bf16: bool,
+             sms: int = 132) -> GruPlan:
+    """The cluster walk's cut of a recurrence of ``b`` sequences, ``t``
+    steps, ``h`` hidden units and ``d`` directions with W_hh in bf16 or
+    fp32: the first cluster size of ``CLUSTER_SIZES`` whose slice fits,
+    U = ceil(H / C) rounded up to a multiple of 8, and as many blocks as
+    own a unit (C = ceil(H / U) <= the size tried); K split over
+    ``KSPLIT[w_bf16]`` warps a unit group, fewer where the threads or the
+    partials' shared memory do not fit. H must be even (a lane's two units
+    are one 4- or 8-byte word). ``t`` changes nothing: the walk keeps no
+    time tile."""
+    del t
+    tiles = -(-b // BM)
+    plan = None
+    for size in CLUSTER_SIZES:
+        units = _round_up(-(-h // size), 8)
+        cluster = -(-h // units)
+        ksplit = KSPLIT[w_bf16]
+        while ksplit > 1 and (units // 8 * 32 * ksplit > MAX_THREADS or
+                              cluster_smem(h, units, w_bf16, ksplit) > SMEM_LIMIT):
+            ksplit //= 2
+        smem = cluster_smem(h, units, w_bf16, ksplit)
+        fits = (h % 2 == 0 and units // 8 * 32 <= MAX_THREADS
+                and smem <= SMEM_LIMIT)
+        plan = GruPlan(b, h, d, cluster, units, ksplit, BM, tiles, d * tiles,
+                       units // 8 * 32 * ksplit, _round_up(h, 32), smem,
+                       -(-(d * tiles * cluster) // sms), fits)
+        if fits:
+            break
+    return plan
+
+
+def gru_route(b: int, h: int, d: int, w_bf16: bool) -> str:
+    """``"cluster"`` where ``gru_plan`` fits, else ``"stream"``."""
+    return "cluster" if gru_plan(b, 1, h, d, w_bf16).fits else "stream"
 
 
 def _lane_index(d: int, t: int, step: int, device) -> torch.Tensor:
@@ -74,9 +209,11 @@ def gru_scan_reference(xp: torch.Tensor, w_hh: torch.Tensor,
 
 
 def _gru_forward(xp: torch.Tensor, w_hh: torch.Tensor, b_hh: torch.Tensor,
-                 carries: bool = False):
+                 carries: bool = False, route: Optional[str] = None):
     """Plain loop on the CPU, one kernel launch for all directions on the
-    card; ``carries`` as in ``gru_scan_reference``."""
+    card, on ``route`` (default: ``gru_route``'s choice; "stream" forces
+    the first design, for timing); ``carries`` as in
+    ``gru_scan_reference``."""
     if xp.device.type == "cpu":
         return gru_scan_reference(xp, w_hh, b_hh, carries)
     cuda_lib.require_cuda("gru_scan", xp, w_hh, b_hh)
@@ -92,18 +229,32 @@ def _gru_forward(xp: torch.Tensor, w_hh: torch.Tensor, b_hh: torch.Tensor,
             f"gru_scan kernel takes xp [B,T,D,3H] f32/bf16, w_hh [D,H,3H] in "
             f"xp's dtype or f32, b_hh [D,3H] f32; got {tuple(xp.shape)} {xp.dtype}, "
             f"{tuple(w_hh.shape)} {w_hh.dtype}, {tuple(b_hh.shape)} {b_hh.dtype}")
+    w_bf16 = w_hh.dtype == torch.bfloat16
+    plan = gru_plan(b, t, hdim, d, w_bf16)
+    route = route or ("cluster" if plan.fits else "stream")
     xp, w_hh, b_hh = xp.contiguous(), w_hh.contiguous(), b_hh.contiguous()
     out = torch.empty(b, t, d, hdim, dtype=xp.dtype, device=xp.device)
     hs = torch.empty(b, t, d, hdim, dtype=torch.float32, device=xp.device) \
         if carries else None
+    args = (xp.data_ptr(), w_hh.data_ptr(), b_hh.data_ptr(), out.data_ptr(),
+            None if hs is None else hs.data_ptr(), b, t, hdim, d,
+            int(xp.dtype == torch.bfloat16), int(w_bf16))
+    lib = cuda_lib.library("gru")
     with torch.cuda.device(xp.device):
-        err = cuda_lib.library("gru").m3f_gru_fwd(
-            xp.data_ptr(), w_hh.data_ptr(), b_hh.data_ptr(), out.data_ptr(),
-            None if hs is None else hs.data_ptr(),
-            b, t, hdim, d, int(xp.dtype == torch.bfloat16),
-            int(w_hh.dtype == torch.bfloat16), cuda_lib.stream_ptr(xp))
-    cuda_lib.check(err, "gru_scan kernel")
-    cuda_lib.launches["gru"] += 1
+        if route == "cluster":
+            if not plan.fits:
+                raise ValueError(f"gru_scan: no cluster fits H={hdim} "
+                                 f"(w_bf16={w_bf16}); take the stream route")
+            err = lib.m3f_gru_cluster_fwd(*args, plan.cluster, plan.units,
+                                          plan.ksplit, cuda_lib.stream_ptr(xp))
+            counter = "gru"
+        elif route == "stream":
+            err = lib.m3f_gru_stream_fwd(*args, cuda_lib.stream_ptr(xp))
+            counter = "gru_stream"
+        else:
+            raise ValueError(f"unknown gru route {route!r} (cluster | stream)")
+    cuda_lib.check(err, f"gru_scan kernel ({route})")
+    cuda_lib.launches[counter] += 1
     return (out, hs) if carries else out
 
 

@@ -1,5 +1,6 @@
 """Where the walk kernels' time goes, on the card: both filter gradients,
-both data gradients, both forward units and the mel frontend.
+both data gradients, both forward units, the mel frontend and the GRU
+recurrence.
 
 Times ``conv_unit_bwd_filter`` (``--kind spatial``, the row walk, or
 ``--kind temporal``, the frame walk) or ``conv_unit_bwd_data`` of the
@@ -66,7 +67,19 @@ in the full-width ``fusion`` train step (32 clips, BN prologue on), beside:
 - ``--kind mel``: the mel FFT kernel at the serving path's shapes (static
   and per-row hop), and the DFT-product kernel (n_fft 400) at the same
   rows, against their plain versions, and beside ``torch.stft`` + the mel
-  matmul in turn (5 rounds).
+  matmul in turn (5 rounds);
+- ``--kind gru``: the GRU's cluster walk (``gru_cluster_kernel``) at the
+  serving (16 sequences of 128 steps) and train (8 of 64, fp32 carries)
+  shapes, bf16 and fp32 W, every time a device time: in alternating rounds
+  the wrapper, its C entry twice, the stream route (the first design),
+  the planner's cluster with K in 1, 2 and 4 warp parts, clusters of 16
+  blocks, ``nn.GRU`` and the port's layer (input projection, then the
+  kernel) on the same input, and with ``--parent`` an earlier ``gru.cu``'s
+  ``m3f_gru_fwd``; ablation builds ``-DGRU_ABLATE``: without the products
+  (1), the exchange (2), the walk alone (5: exchange and cluster barrier,
+  the chain's floor, also per step), a block barrier in place of the
+  cluster barrier (8), without the output stores (16) or the xp copies
+  (32).
 
 Run on a machine with an NVIDIA GPU, from the repository root:
 
@@ -81,6 +94,8 @@ Run on a machine with an NVIDIA GPU, from the repository root:
     python -m m3f_torch.scripts.filter_sweep --kind temporal_fwd \
         --parent build/parent/conv_bn.cu
     python -m m3f_torch.scripts.filter_sweep --kind mel [--check]
+    python -m m3f_torch.scripts.filter_sweep --kind gru [--check] \
+        [--parent build/parent/gru.cu]
 
 It prints the ``nvidia-smi`` card line, then one JSON line per shape with
 the median ms of ``--reps`` calls between CUDA events. ``--check`` instead
@@ -88,7 +103,8 @@ prints what ``ptxas`` says of the kernel (registers, spills, shared memory)
 and holds the kernel once against the plain version at each shape and at a
 few small ones (``temporal_data``: at every layout the entry point takes;
 ``spatial_data``: at every step; ``spatial_fwd``: at every layout, filter
-resident and streamed; ``temporal_fwd``: at every layout).
+resident and streamed; ``temporal_fwd``: at every layout; ``gru``: on
+both routes at the edge shapes too, and at every layout).
 Nothing runs at import.
 """
 
@@ -104,7 +120,7 @@ from typing import Callable, Dict, Optional
 import torch
 
 from m3f_torch.nn import resolve_device
-from m3f_torch.ops import conv_bn, cuda_lib
+from m3f_torch.ops import conv_bn, cuda_lib, gru
 
 # (x shape, C_out) of the fusion train step's units, 32 clips
 SHAPES = {
@@ -125,6 +141,7 @@ SPATIAL_STEPS = (48, 64, 80, 96, 112, 128)
 TAPS = {"spatial": 9, "temporal": 3}
 HBM = 3.35e12            # H100 SXM memory rate, B/s
 PEAK_BF16 = 989e12       # H100 SXM dense bf16 tensor rate, FLOP/s
+PEAK_FP32 = 67e12        # H100 SXM fp32 rate outside the tensor cores
 
 
 def build_variants(defines: Dict[str, str],
@@ -158,16 +175,18 @@ def build_variants(defines: Dict[str, str],
 
 
 def resources(kind: str) -> None:
-    """Print what ptxas says of the kind's kernel
+    """Print what ptxas says of the kind's kernels
     (``<kind>_filter_kernel``, ``temporal_data_kernel``,
-    ``spatial_data_kernel``, ``spatial_fwd_kernel``, ``temporal_fwd_kernel``
-    or, in melspec.cu, ``log_mel_kernel`` and ``log_mel_dft_kernel``)."""
-    kernel = {"spatial_fwd": "spatial_fwd_kernel",
-              "temporal_fwd": "temporal_fwd_kernel",
-              "mel": "log_mel"}.get(
-        kind, f"{kind}_kernel" if kind.endswith("_data")
-        else f"{kind}_filter_kernel")
-    source = "melspec" if kind == "mel" else "conv_bn"
+    ``spatial_data_kernel``, ``spatial_fwd_kernel``, ``temporal_fwd_kernel``;
+    in melspec.cu ``log_mel_kernel`` and ``log_mel_dft_kernel``; in gru.cu
+    ``gru_cluster_kernel`` and ``gru_kernel``)."""
+    kernels = {"spatial_fwd": ("spatial_fwd_kernel",),
+               "temporal_fwd": ("temporal_fwd_kernel",),
+               "mel": ("log_mel",),
+               "gru": ("18gru_cluster_kernel", "10gru_kernel")}.get(
+        kind, (f"{kind}_kernel" if kind.endswith("_data")
+               else f"{kind}_filter_kernel",))
+    source = {"mel": "melspec", "gru": "gru"}.get(kind, "conv_bn")
     log = subprocess.run(
         [cuda_lib._nvcc(), *cuda_lib.NVCC_FLAGS, "-Xptxas", "-v", "-o",
          "/dev/null", *(["-DTD_TRIALS"] if kind == "temporal_data" else []),
@@ -177,7 +196,8 @@ def resources(kind: str) -> None:
         raise RuntimeError(f"nvcc failed:\n{log.stdout}{log.stderr}")
     lines = log.stderr.splitlines()
     for i, line in enumerate(lines):
-        if "Compiling entry function" in line and kernel in line:
+        kernel = next((k for k in kernels if k in line), None)
+        if "Compiling entry function" in line and kernel:
             name = line.split("'")[1]
             print(json.dumps({"kernel": name[name.index(kernel) - 2:][:72],
                               "ptxas": [l.strip() for l in lines[i + 1:i + 4]]}),
@@ -1145,11 +1165,224 @@ def sweep_mel(reps: int, check_only: bool) -> None:
         print(json.dumps(row), flush=True)
 
 
+# --- the GRU recurrence ----------------------------------------------------
+
+# (B, T, H, D): the serving path's recurrence (16 sequences of 128 steps)
+# and the train step's (8 of 64, the fp32 carries kept)
+GRU_SHAPES = {"serve": (16, 128, 256, 2), "train": (8, 64, 256, 2)}
+# off the tiling: a batch tile half full and H not a multiple of 32, a second
+# tile of one row, one block of 8 units, one direction, a cluster of 16
+GRU_SMALL = ((5, 9, 72, 2), (5, 9, 72, 1), (17, 3, 64, 2), (17, 3, 64, 1),
+             (1, 2, 8, 2), (1, 2, 8, 1), (4, 6, 512, 2))
+# (x dtype, W dtype): the "xla" backend's bf16 W, the "pallas" backend's
+# fp32 W, and fp32 throughout
+GRU_DTYPES = {"bf16": (torch.bfloat16, torch.bfloat16),
+              "fp32_w": (torch.bfloat16, torch.float32),
+              "fp32": (torch.float32, torch.float32)}
+GRU_TOL = {torch.float32: 1e-5, torch.bfloat16: 2 ** -6}   # as chip_smoke.py
+GRU_ABLATIONS = {"no_products": 1, "no_exchange": 2, "walk_only": 5,
+                 "block_barrier": 8, "no_out_stores": 16, "no_xp_copies": 32}
+
+
+def gru_cuts(plan) -> Dict[str, tuple]:
+    """(cluster, units, ksplit) of each layout the sweep holds or times: the
+    planner's cluster with K in 1, 2 and 4 parts, and clusters of 16 blocks
+    of 16 units (K in 1 and 2 parts)."""
+    cuts = {f"ksplit{k}": (plan.cluster, plan.units, k) for k in (1, 2, 4)}
+    cuts.update({f"cluster16_ksplit{k}": (16, 16, k) for k in (1, 2)})
+    return cuts
+
+
+def gru_inputs(shape, dtypes, dev, g):
+    b, t, h, d = shape
+    xp = torch.randn(b, t, d, 3 * h, device=dev, generator=g).to(dtypes[0])
+    w = (torch.randn(d, h, 3 * h, device=dev, generator=g) / h ** 0.5
+         ).to(dtypes[1])
+    bias = torch.randn(d, 3 * h, device=dev, generator=g) * 0.1
+    return xp, w, bias
+
+
+def launch_gru(fn, xp, w, bias, cut=None, carries=False, cluster=True):
+    """One call of a build's ``m3f_gru_cluster_fwd`` with the planner's cut
+    or ``cut`` = (cluster, units, ksplit) in its place, or (``cluster``
+    False) of a stream entry point (``m3f_gru_stream_fwd``, an earlier
+    source's ``m3f_gru_fwd``). None when the entry point refuses the cut."""
+    b, t, d, h3 = xp.shape
+    h = h3 // 3
+    out = torch.empty(b, t, d, h, dtype=xp.dtype, device=xp.device)
+    hs = torch.empty(b, t, d, h, dtype=torch.float32, device=xp.device) \
+        if carries else None
+    args = (xp.data_ptr(), w.data_ptr(), bias.data_ptr(), out.data_ptr(),
+            None if hs is None else hs.data_ptr(), b, t, h, d,
+            int(xp.dtype == torch.bfloat16), int(w.dtype == torch.bfloat16))
+    if cluster:
+        plan = gru.gru_plan(b, t, h, d, w.dtype == torch.bfloat16)
+        err = fn(*args, *(cut or (plan.cluster, plan.units, plan.ksplit)),
+                 cuda_lib.stream_ptr(xp))
+        if err == 1 and cut:
+            return None                  # cudaErrorInvalidValue: no such cut
+    else:
+        err = fn(*args, cuda_lib.stream_ptr(xp))
+    cuda_lib.check(err, f"gru sweep, cut {cut}")
+    return out
+
+
+def check_gru() -> None:
+    """ptxas' resource lines, then the recurrence against the plain version
+    (``gru_scan_reference``) at the small shapes, the serving shape and the
+    train shape (with the fp32 carries), for each dtype pair: through the
+    wrapper on the planner's route (and whether a second call repeats the
+    output bit for bit), forced onto the stream route, and, where the
+    cluster route fits, at every layout of ``gru_cuts`` the entry point
+    takes."""
+    dev = resolve_device("cuda")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    resources("gru")
+    cuda_lib.build(["gru"])
+    entry = cuda_lib.library("gru").m3f_gru_cluster_fwd
+    g = torch.Generator(device=dev).manual_seed(16)
+    shapes = [(s, None) for s in GRU_SMALL] + list(
+        (s, k) for k, s in GRU_SHAPES.items())
+    for shape, name in shapes:
+        for dname, dtypes in GRU_DTYPES.items():
+            xp, w, bias = gru_inputs(shape, dtypes, dev, g)
+            carries = name == "train"
+            plan = gru.gru_plan(shape[0], shape[1], shape[2], shape[3],
+                                dtypes[1] == torch.bfloat16)
+            tol = GRU_TOL[dtypes[0]]
+            ref = gru.gru_scan_reference(xp, w, bias, carries)
+            before = dict(cuda_lib.launches)
+            got = gru._gru_forward(xp, w, bias, carries)
+            again = gru._gru_forward(xp, w, bias, carries)
+            route = [k for k in ("gru", "gru_stream")
+                     if cuda_lib.launches[k] > before[k]]
+            stream = gru._gru_forward(xp, w, bias, carries, route="stream")
+            torch.cuda.synchronize()
+            err = lambda a, r: (a.float() - r.float()).abs().max().item()
+            if carries:
+                row_err = {"out": err(got[0], ref[0]), "hs": err(got[1], ref[1]),
+                           "stream_out": err(stream[0], ref[0]),
+                           "stream_hs": err(stream[1], ref[1])}
+                repeats = all(torch.equal(a, b) for a, b in zip(got, again))
+            else:
+                row_err = {"out": err(got, ref), "stream_out": err(stream, ref)}
+                repeats = torch.equal(got, again)
+            for cname, cut in (gru_cuts(plan).items() if plan.fits else ()):
+                got_cut = launch_gru(entry, xp, w, bias, cut=cut)
+                torch.cuda.synchronize()
+                if got_cut is not None:
+                    row_err[cname + "_out"] = err(
+                        got_cut, ref[0] if carries else ref)
+            print(json.dumps({
+                "kind": "gru", "shape": list(shape), "dtypes": dname,
+                "route": route, "plan": plan._asdict(), "max_abs_err": row_err,
+                "tol": tol, "within": all(v is None or v <= tol
+                                          for v in row_err.values()),
+                "repeats": repeats}), flush=True)
+            del xp, w, bias, ref, got, again, stream
+        torch.cuda.empty_cache()
+
+
+def sweep_gru(reps: int, parent: Optional[str]) -> None:
+    """At the serving and train shapes, bf16 and fp32 W (x in bf16), every
+    time a device time: in alternating rounds the wrapper (the planner's
+    route, the train shape with carries), the cluster entry twice (the gap
+    between the two is the spread of identical launches), the stream route,
+    every layout of ``gru_cuts``, ``--parent``'s ``m3f_gru_fwd`` and,
+    with bf16 W, ``nn.GRU`` (bf16, input 768, its projection included) and
+    the port's layer (``x @ W_ih + b_ih`` then the kernel) on the same
+    input; then the ablation builds (``-DGRU_ABLATE``): without the
+    products (1), without the exchange (2: each block reads its own h only),
+    the walk alone (5: exchange and cluster barrier, the chain's floor), a
+    block barrier in place of the cluster barrier (8), without the output
+    stores (16) and without the xp copies (32); their outputs are wrong,
+    they are timed only. Per-step µs = ms / T."""
+    dev = resolve_device("cuda")
+    cuda_lib.build(["gru"])
+    entry = cuda_lib.library("gru").m3f_gru_cluster_fwd
+    src = str(cuda_lib.CSRC / "gru.cu")
+    built = build_variants(
+        {f"gru_{n}": f"GRU_ABLATE={k}" for n, k in GRU_ABLATIONS.items()},
+        "m3f_gru_cluster_fwd", {f"gru_{n}": src for n in GRU_ABLATIONS},
+        cuda_lib.SIGNATURES["gru"]["m3f_gru_cluster_fwd"])
+    old = None
+    if parent:
+        old = build_variants({"gru_parent": ""}, "m3f_gru_fwd",
+                             {"gru_parent": parent},
+                             cuda_lib.SIGNATURES["gru"]["m3f_gru_stream_fwd"]
+                             )["gru_parent"]
+    g = torch.Generator(device=dev).manual_seed(17)
+    for name, shape in GRU_SHAPES.items():
+        b, t, h, d = shape
+        carries = name == "train"
+        for dname in ("bf16", "fp32_w"):
+            dtypes = GRU_DTYPES[dname]
+            xp, w, bias = gru_inputs(shape, dtypes, dev, g)
+            plan = gru.gru_plan(b, t, h, d, dtypes[1] == torch.bfloat16)
+            run = lambda fn=entry, **kw: launch_gru(fn, xp, w, bias,
+                                                    carries=carries, **kw)
+            fns = {"wrapper": lambda: gru._gru_forward(xp, w, bias, carries),
+                   "entry": run, "entry_again": run,
+                   "stream": lambda: gru._gru_forward(xp, w, bias, carries,
+                                                      route="stream")}
+            for cname, cut in gru_cuts(plan).items():
+                if run(cut=cut) is not None:
+                    fns[cname] = lambda cut=cut: run(cut=cut)
+            if old is not None:
+                fns["parent"] = lambda: run(old, cluster=False)
+            if dname == "bf16":
+                ref = torch.nn.GRU(768, h, batch_first=True,
+                                   bidirectional=d == 2).to(dev, dtypes[0])
+                ref.flatten_parameters()
+                x_in = torch.randn(b, t, 768, device=dev, generator=g
+                                   ).to(dtypes[0])
+                w_ih = (torch.randn(768, d * 3 * h, device=dev, generator=g)
+                        / 768 ** 0.5).to(dtypes[0])
+                b_ih = torch.zeros(d * 3 * h, device=dev, dtype=dtypes[0])
+
+                def nn_gru():
+                    with torch.no_grad():
+                        return ref(x_in)
+
+                def layer():
+                    return gru._gru_forward(
+                        (x_in @ w_ih + b_ih).reshape(b, t, d, 3 * h), w, bias,
+                        carries)
+                fns.update({"nn_gru": nn_gru, "layer": layer})
+            row = {"kind": "gru", "shape": name, "x": [b, t, h, d],
+                   "dtypes": dname, "carries": carries,
+                   "plan": plan._asdict()}
+            row["alternating_ms"] = alternating(fns, reps)
+            row["ms"] = row["alternating_ms"]["wrapper"][0]
+            row["entry_ms"] = row["alternating_ms"]["entry"][0]
+            row["identical_launches_gap_ms"] = abs(
+                row["entry_ms"] - row["alternating_ms"]["entry_again"][0])
+            for aname, fn in built.items():
+                row[f"{aname[4:]}_ms"] = timed(lambda: run(fn), reps,
+                                               queued=True)
+            row["per_step_us"] = {
+                k: row[k + "_ms"] * 1e3 / t
+                for k in ("entry", *GRU_ABLATIONS)}
+            row["chain_floor_ms"] = row["walk_only_ms"]
+            wb = 2 if dtypes[1] == torch.bfloat16 else 4
+            nbytes = (xp.numel() * xp.element_size() + w.numel() * wb
+                      + bias.numel() * 4 + b * t * d * h * xp.element_size()
+                      + (b * t * d * h * 4 if carries else 0))
+            flops = 2 * d * t * b * h * 3 * h
+            peak = PEAK_BF16 if wb == 2 else PEAK_FP32
+            row["bound_ms"] = max(nbytes / HBM, flops / peak) * 1e3
+            row["bound_by"] = "bytes" if nbytes / HBM >= flops / peak \
+                else "operations"
+            print(json.dumps(row), flush=True)
+            del xp, w, bias
+            torch.cuda.empty_cache()
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--kind", choices=("spatial", "temporal", "temporal_data",
                                        "spatial_data", "spatial_fwd",
-                                       "temporal_fwd", "mel"),
+                                       "temporal_fwd", "mel", "gru"),
                     default="spatial")
     ap.add_argument("--reps", type=int, default=20)
     ap.add_argument("--check", action="store_true",
@@ -1157,7 +1390,8 @@ def main(argv=None) -> None:
     ap.add_argument("--parent", default=None,
                     help="spatial_fwd / temporal_fwd: a conv_bn.cu whose "
                          "forward of that kind (the per-tap gather, C entry "
-                         "before the walk) is timed beside the kernel")
+                         "before the walk) is timed beside the kernel; gru: "
+                         "a gru.cu whose m3f_gru_fwd is")
     opts = ap.parse_args(argv)
     print(subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -1172,6 +1406,8 @@ def main(argv=None) -> None:
             else sweep_temporal_fwd(opts.reps, opts.parent)
     elif opts.kind == "mel":
         sweep_mel(opts.reps, opts.check)
+    elif opts.kind == "gru":
+        check_gru() if opts.check else sweep_gru(opts.reps, opts.parent)
     elif opts.kind == "spatial_data":
         check_spatial_data() if opts.check else sweep_spatial_data(opts.reps)
     elif opts.check:
