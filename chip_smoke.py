@@ -49,12 +49,15 @@ H100 (``python3 chip_smoke.py``). It
    k-steps that span rows and images, widths that are not multiples of
    8); the temporal forward is held at the train shapes as well;
    The four kernels of the packed-layout conv probe (packed_conv with bf16
-   and fp32 y, ablate_slabs, ablate_matmul, packed_conv_chunked) are held
-   against their plain versions at the probe's full shape (COUT 144, timed
-   beside the plain versions, ``F.conv2d`` and ``torch.matmul``; and COUT
-   128) and at two shapes off the tiling, each check shown to refuse a y
-   with its tail columns zeroed and a y without the x-edge masks (for the
-   product ablation, a y with its last image left out); then the probe
+   and fp32 y and packed_conv_chunked, both the TMA-fed wgmma walk;
+   ablate_slabs, ablate_matmul) are held against their plain versions at
+   the probe's full shape (COUT 144, timed beside the plain versions,
+   ``F.conv2d`` and ``torch.matmul``; and COUT 128), at two shapes off the
+   tiling and at COUT 264 (two N passes, 140 units: the persistent grid's
+   last wave partial), each check shown to refuse a y with its tail
+   columns zeroed and a y without the x-edge masks (for the product
+   ablation, a y with its last image left out), and the conv shown to
+   refuse an x at an odd offset (no tensor map for it); then the probe
    runs every phase at full shape (``probe_packed_conv.run``) with the
    counters set to 0 just before and read just after, each of its four
    kernels launched, packed_conv and packed_conv_chunked within 2e-2 of
@@ -1050,30 +1053,63 @@ def check_probe_shape(torch, F, pc, shape, seed, timing):
     return out
 
 
+def _probe_plans(pc, shape):
+    """The conv walk's layout at ``shape`` for each conv kernel."""
+    return {mode: {k: getattr(plan, k) for k in ("bn", "np", "stages",
+                                                 "smem", "grid", "units")}
+            for mode in pc.CONV_MODES for plan in [pc.packed_plan(shape, mode)]}
+
+
 def check_probe(torch, F, cuda_lib, pc, probe):
     """The probe slice: the four kernels held against their plain versions
-    at the full shape (COUT 144, timed; COUT 128) and at two shapes off the
-    tiling; then the probe itself (``probe.run``, every phase, at the full
-    shape) with the counters set to 0 just before and read just after, and
-    its check at COUT 128. Returns the kernels' entries and the launches."""
+    at the full shape (COUT 144, timed; COUT 128), at two shapes off the
+    tiling and at COUT 264 over a partial last wave; the conv refusing an x
+    at an odd offset; then the probe itself (``probe.run``, every phase, at
+    the full shape) with the counters set to 0 just before and read just
+    after, and its check at COUT 128. Returns the kernels' entries and the
+    launches."""
     full = check_probe_shape(torch, F, pc, pc.ProbeShape(), 8, timing=True)
     for name, res in full.items():
         emit({"phase": "kernel_probe", "kernel": name, "cout": 144, **res})
+    emit({"phase": "kernel_probe_plans", "cout": 144,
+          "plans": _probe_plans(pc, pc.ProbeShape())})
     errs = {name: r["max_abs_err"] for name, r in full.items()}
     for cout_shape, seed in ((pc.ProbeShape(COUT=128), 9),
-                             # a lane tail of 112, COUT one and a half m16
-                             # tiles, W not a multiple of 8, four chunks
+                             # a lane tail of 112, COUT 24 (one N pass of
+                             # 32), W not a multiple of 8, four chunks
                              (pc.ProbeShape(B=2, T=3, H=20, W=20, CIN=16,
                                             COUT=24, CHUNK=128), 10),
-                             # two channel blocks (COUT > 144), CIN 24 (taps
-                             # straddle the K chunks), two tiles per chunk
+                             # COUT 152 (one pass of N 192 on 64
+                             # positions), CIN 24 (the window boxes read
+                             # zeros past CIN), four tiles a chunk
                              (pc.ProbeShape(B=1, T=2, H=12, W=12, CIN=24,
-                                            COUT=152, CHUNK=256), 11)):
+                                            COUT=152, CHUNK=256), 11),
+                             # COUT 264: two N passes; 140 units over 132
+                             # blocks, the last wave partial
+                             (pc.ProbeShape(B=5, T=7, H=20, W=20, CIN=32,
+                                            COUT=264, CHUNK=128), 12)):
         res = check_probe_shape(torch, F, pc, cout_shape, seed, timing=False)
         emit({"phase": "kernel_probe_shape", "shape": str(cout_shape),
-              "errors": res})
+              "errors": res, "plans": _probe_plans(pc, cout_shape)})
         for name, r in res.items():
             errs[name] = max(errs[name], r["max_abs_err"])
+    # an x at an odd element offset: no tensor map can be encoded for it,
+    # so the wrapper raises (it never falls back)
+    shape = pc.ProbeShape(B=2, T=3, H=20, W=20, CIN=16, COUT=24, CHUNK=128)
+    x, w, _ = _probe_inputs(torch, shape, 13)
+    odd = torch.empty(x.numel() + 1, device="cuda", dtype=x.dtype)[1:].view(x.shape)
+    odd.copy_(x)
+    refused = {}
+    for name, call in (("packed_conv", lambda: pc.packed_conv(odd, w, shape)),
+                       ("packed_conv_chunked",
+                        lambda: pc.packed_conv_chunked(odd, w, shape))):
+        try:
+            call()
+        except (ValueError, RuntimeError) as e:
+            refused[name] = str(e)
+    require(len(refused) == 2, f"an x at an odd offset was not refused: {refused}")
+    emit({"phase": "kernel_probe_odd_offset", "refused": refused})
+    del x, w, odd
     cuda_lib.reset_launches()
     torch.cuda.synchronize()
     t0 = time.perf_counter()

@@ -3,7 +3,9 @@ PyTorch versions and the CUDA kernels.
 
 Counterpart of the four Pallas kernels of ``scripts/probe_packed_conv.py``
 (``packed_conv``, ``ablate_slabs``, ``ablate_matmul``,
-``packed_conv_chunked``); the kernels are ``csrc/packed_conv.cu``.
+``packed_conv_chunked``); the kernels are ``csrc/packed_conv.cu``. The conv
+(``packed_conv``, ``packed_conv_chunked``) is a TMA-fed ``wgmma`` walk whose
+layout ``packed_plan`` picks; the two ablations keep the first design.
 
 Layout: an image's positions ``p = y·W + x`` ride the minor axis. ``x_cm``
 [BT, CIN, HWM] holds each channel's HW positions at ``MARGIN`` (the margins
@@ -28,6 +30,7 @@ code runs at the probe's full size and small.
 from __future__ import annotations
 
 import dataclasses
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -35,7 +38,7 @@ import torch
 from m3f_torch.ops import cuda_lib
 
 TAPS = [(dy, dx) for dy in (-1, 0, 1) for dx in (-1, 0, 1)]
-_BN = 128        # positions per tile of every kernel (BN in packed_conv.cu)
+_BN = 128        # positions per tile of the ablation kernels (BN in packed_conv.cu)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -143,32 +146,224 @@ def _check(name: str, shape: ProbeShape, a: torch.Tensor,
         raise ValueError(f"{name}: {'; '.join(bad)} ({shape})")
 
 
-# mode of m3f_packed_conv (csrc/packed_conv.cu)
-_MODES = {"packed_conv": 0, "packed_conv_f32": 1, "ablate_slabs": 2,
-          "ablate_matmul": 3, "packed_conv_chunked": 4}
+# The conv's walk (packed_tma_kernel in csrc/packed_conv.cu)
+TILE_P = 64              # positions of a consumer warpgroup's tile (wgmma M)
+WROW = 88                # positions of an x window: 64 + up to 7 + 2 + 1
+ROW = 128                # bytes of a 128-byte-swizzled W row (64 bf16)
+BOX_C = 64               # channels of an x window and of a W tile (one
+#                          128-byte swizzled row of W)
+TMA_ALIGN = 8            # elements: the copy engine takes a box only at an
+#                          innermost coordinate on 16 bytes (measured on the
+#                          H100: any other offset is an illegal instruction)
+WIDTHS = (32, 64, 128, 144, 192)   # the kernel's wgmma N instantiations (a
+#                                      pass of 256 fits no layout's ring)
+MAX_STAGES = 4           # ring slots
+SMEM_LIMIT = 232_448     # shared memory a block can use on an H100
+SMS = 132                # H100 SXM multiprocessors: the persistent grid
+ENCODE_FAILED = 0x10000  # m3f_packed_conv_tma: + the CUresult of a refused map
+CONV_MODES = ("packed_conv", "packed_conv_f32", "packed_conv_chunked")
+# tile positions in the order the planner tries them, W streamed beside the
+# windows in both: two consumer warpgroups on 128 positions (at the probe's
+# shape 0.50 ms against 0.61 for one warpgroup on 64, whose epilogue and
+# fragment loads the tensor cores wait for: filter_sweep --kind packed,
+# PERF.md), then one on 64 (a pass of N 192 fits only its ring)
+LAYOUTS = (128, 64)
 
 
-def _launch(name: str, shape: ProbeShape, a: torch.Tensor, w_cm: torch.Tensor,
-            out_f32: bool = False) -> torch.Tensor:
-    """One launch of kernel ``name`` -> y [BT, COUT, HWP]. The card path's
-    guard: bf16 tensors on one CUDA device and the kernel's alignment
-    (16-byte loads of w_cm rows and x_cm windows, whole tiles per chunk)."""
-    cuda_lib.require_cuda(name, a, w_cm)
-    chunk = shape.CHUNK if name == "packed_conv_chunked" else 0
-    if a.dtype != torch.bfloat16 or w_cm.dtype != torch.bfloat16 \
-            or shape.CIN % 8 or shape.MARGIN % 8 or chunk % _BN:
+def _round_up(a: int, m: int) -> int:
+    return -(-a // m) * m
+
+
+class PackedPlan(NamedTuple):
+    """The walk's cut of one conv call (``packed_plan``)."""
+    mode: str
+    bn: int              # positions a tile: 64 per consumer warpgroup
+    warpgroups: int
+    np: int              # wgmma N of a pass, one of WIDTHS
+    passes: Tuple[Tuple[int, int], ...]   # (first channel, channels) a pass
+    k_pad: int           # K per tap: CIN in boxes of 64 channels, zeros past CIN
+    kc: int              # channel boxes a tap
+    k16: Tuple[int, ...]  # wgmma k-steps of 16 channels in each box
+    stages: int
+    regions: Dict[str, Tuple[int, int]]   # name: (byte offset, bytes)
+    smem: int            # dynamic shared memory asked for (with the 1024 slack)
+    stage_tx: int        # bytes one ring slot's barrier waits for: a
+    #                      (dy, channel box) of a tile
+    unit: str            # "tile" or "chunk"
+    tiles_per_unit: int
+    units: int
+    grid: int
+    boxes: Dict[str, Tuple[Tuple[int, int, int], int]]  # (box, swizzle bytes)
+    fits: bool
+
+    def blocks_units(self, block: int) -> range:
+        """The units block ``block`` takes, in order (round-robin)."""
+        return range(block, self.units, self.grid)
+
+    def unit_tiles(self, unit: int, shape: "ProbeShape") -> list:
+        """(image, first position) of each tile of ``unit``, in order."""
+        per_image = shape.HWP // (self.tiles_per_unit * self.bn)
+        b, t0 = divmod(unit, per_image)
+        return [(b, (t0 * self.tiles_per_unit + t) * self.bn)
+                for t in range(self.tiles_per_unit)]
+
+
+def window_start(shape: ProbeShape, p0: int, dy: int) -> int:
+    """First position of the x window of (tile at p0, dy): 8-aligned (the
+    copy engine's innermost coordinate falls on 16 bytes), at or before
+    MARGIN + p0 + dy*W - 1, WROW long, so it holds the three dx taps."""
+    return (shape.MARGIN + p0 + dy * shape.W - 1) // TMA_ALIGN * TMA_ALIGN
+
+
+def _regions(np_: int, wgs: int, stages: int,
+             y_size: int) -> Tuple[Dict[str, Tuple[int, int]], int]:
+    """Byte regions from the 1024-aligned base, as the kernel lays them out
+    (the B ring [stage][dx], the y staging tiles, the x window ring
+    [stage][warpgroup], the barriers) and the shared memory asked for."""
+    sizes = [("b", stages * 3 * np_ * ROW),
+             ("y", wgs * np_ * TILE_P * y_size),
+             ("x", stages * wgs * BOX_C * WROW * 2),
+             ("bars", 2 * stages * 8)]
+    regions, off = {}, 0
+    for name, size in sizes:
+        regions[name] = (off, size)
+        off += size
+    return regions, off + 1024
+
+
+def packed_plan(shape: ProbeShape, mode: str, bn: Optional[int] = None,
+                sms: int = SMS) -> PackedPlan:
+    """The conv walk's cut of ``shape`` for ``mode`` (one of CONV_MODES):
+    the fewest N passes (each the narrowest of WIDTHS that covers COUT in
+    that many passes) for which a layout fits, K per tap in boxes of BOX_C
+    channels (the copy engine fills channels past CIN with zeros), and the
+    first layout of LAYOUTS (``bn`` where given) whose ring of at least 2 slots (at most MAX_STAGES; a slot is
+    one (dy, channel box) of a tile) fits SMEM_LIMIT; a persistent grid of
+    min(sms, units) blocks, a unit being a tile (or, for the chunked
+    kernel, CHUNK positions of one image, its tiles in order). ``fits`` is
+    False when no layout fits."""
+    if mode not in CONV_MODES:
+        raise ValueError(f"packed_plan: mode {mode!r}, expected one of {CONV_MODES}")
+    chunked = mode == "packed_conv_chunked"
+    y_size = 4 if mode == "packed_conv_f32" else 2
+    kc = -(-shape.CIN // BOX_C)
+    layouts = [b for b in LAYOUTS if bn in (None, b)]
+    if not layouts:
+        raise ValueError(f"packed_plan: no layout of {LAYOUTS} has bn {bn}")
+    plan = None
+    npasses = -(-shape.COUT // WIDTHS[-1])
+    while plan is None or not plan.fits:
+        need = _round_up(-(-shape.COUT // npasses), 8)
+        if need < WIDTHS[0] and plan is not None:
+            break                           # narrower passes fit no better
+        np_ = next(w for w in WIDTHS if w >= need)
+        passes = tuple((i * np_, min(np_, shape.COUT - i * np_))
+                       for i in range(npasses))
+        for b in layouts:
+            plan = _layout(shape, mode, chunked, y_size, kc, np_, passes, b, sms)
+            if plan.fits:
+                break
+        npasses += 1
+    return plan
+
+
+def _layout(shape: ProbeShape, mode: str, chunked: bool, y_size: int, kc: int,
+            np_: int, passes: tuple, b: int, sms: int) -> PackedPlan:
+    """``packed_plan``'s cut with N passes of ``np_`` on ``b`` positions a
+    tile."""
+    whole = shape.HWP % b == 0 and (not chunked or shape.CHUNK % b == 0)
+    for st in range(MAX_STAGES, 1, -1):
+        regions, smem = _regions(np_, b // TILE_P, st, y_size)
+        stages = st
+        if smem <= SMEM_LIMIT:
+            break
+    tiles_per_unit = shape.CHUNK // b if chunked else 1
+    units = shape.BT * (shape.HWP // (tiles_per_unit * b)) if whole else 0
+    return PackedPlan(
+        mode=mode, bn=b, warpgroups=b // TILE_P, np=np_,
+        passes=passes, k_pad=kc * BOX_C, kc=kc, k16=(BOX_C // 16,) * kc,
+        stages=stages, regions=regions, smem=smem,
+        stage_tx=(b // TILE_P) * BOX_C * WROW * 2 + 3 * np_ * ROW,
+        unit="chunk" if chunked else "tile",
+        tiles_per_unit=tiles_per_unit, units=units, grid=max(1, min(sms, units)),
+        boxes={"x": ((WROW, BOX_C, 1), 0), "w": ((BOX_C, 1, np_), 128),
+               "y": ((TILE_P, np_, 1), 0 if y_size == 4 else 128)},
+        fits=whole and smem <= SMEM_LIMIT)
+
+
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def call_tma(fn, name: str, shape: ProbeShape, x_cm: torch.Tensor,
+             w_cm: torch.Tensor, plan: PackedPlan) -> torch.Tensor:
+    """One call of an ``m3f_packed_conv_tma`` entry point (this source's, or
+    a timing build's) with ``plan`` -> y [BT, COUT, HWP]; raises on a refused
+    launch or a tensor map the CUDA driver cannot encode. Counts nothing."""
+    if not plan.fits:
+        raise ValueError(f"{name}: no layout of packed_plan fits {shape} "
+                         f"(smem {plan.smem} of {SMEM_LIMIT}, {plan})")
+    for what, t in (("x_cm", x_cm), ("w_cm", w_cm)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}: {what}'s base address {t.data_ptr():#x} is not "
+                             f"16-byte aligned: the copy engine cannot map it")
+    out_f32 = plan.mode == "packed_conv_f32"
+    y = torch.empty(shape.BT, shape.COUT, shape.HWP, device=x_cm.device,
+                    dtype=torch.float32 if out_f32 else torch.bfloat16)
+    with torch.cuda.device(x_cm.device):
+        err = fn(x_cm.data_ptr(), w_cm.data_ptr(), y.data_ptr(), int(out_f32),
+                 shape.BT, shape.CIN, shape.COUT, shape.W, shape.HWP, shape.MARGIN,
+                 shape.CHUNK if plan.unit == "chunk" else 0, plan.bn,
+                 plan.stages, plan.np, plan.grid,
+                 cuda_lib.stream_ptr(x_cm))
+    if err >= ENCODE_FAILED:
+        raise RuntimeError(f"{name}: the CUDA driver refused a tensor map (CUresult "
+                           f"{err - ENCODE_FAILED}; base addresses and strides "
+                           f"must be 16-byte aligned)")
+    cuda_lib.check(err, f"{name} kernel")
+    return y
+
+
+def _launch_conv(name: str, shape: ProbeShape, x_cm: torch.Tensor,
+                 w_cm: torch.Tensor, out_f32: bool = False) -> torch.Tensor:
+    """One launch of the conv walk (``packed_plan``'s layout) -> y."""
+    cuda_lib.require_cuda(name, x_cm, w_cm)
+    if x_cm.dtype != torch.bfloat16 or w_cm.dtype != torch.bfloat16 \
+            or shape.CIN % 8 or shape.MARGIN % 8:
         raise ValueError(
             f"{name} kernel takes bf16 inputs with CIN and MARGIN multiples "
-            f"of 8 and CHUNK a multiple of {_BN}; got {a.dtype}, {w_cm.dtype}, "
+            f"of 8; got {x_cm.dtype}, {w_cm.dtype}, {shape}")
+    mode = "packed_conv_f32" if out_f32 else name
+    plan = packed_plan(shape, mode, sms=_sm_count(x_cm.device))
+    y = call_tma(cuda_lib.library("packed_conv").m3f_packed_conv_tma, name, shape,
+                 x_cm.contiguous(), w_cm.contiguous(), plan)
+    cuda_lib.launches[name] += 1
+    return y
+
+
+# mode of m3f_packed_conv (csrc/packed_conv.cu): the ablations
+_MODES = {"ablate_slabs": 2, "ablate_matmul": 3}
+
+
+def _launch(name: str, shape: ProbeShape, a: torch.Tensor,
+            w_cm: torch.Tensor) -> torch.Tensor:
+    """One launch of ablation kernel ``name`` -> y [BT, COUT, HWP] bf16. The
+    card path's guard: bf16 tensors on one CUDA device and the kernel's
+    alignment (16-byte loads of w_cm rows and x_cm windows, whole tiles)."""
+    cuda_lib.require_cuda(name, a, w_cm)
+    if a.dtype != torch.bfloat16 or w_cm.dtype != torch.bfloat16 \
+            or shape.CIN % 8 or shape.MARGIN % 8 or shape.HWP % _BN:
+        raise ValueError(
+            f"{name} kernel takes bf16 inputs with CIN and MARGIN multiples "
+            f"of 8 and HWP a multiple of {_BN}; got {a.dtype}, {w_cm.dtype}, "
             f"{shape}")
     a, w_cm = a.contiguous(), w_cm.contiguous()
     y = torch.empty(shape.BT, shape.COUT, shape.HWP, device=a.device,
-                    dtype=torch.float32 if out_f32 else torch.bfloat16)
+                    dtype=torch.bfloat16)
     with torch.cuda.device(a.device):
         err = cuda_lib.library("packed_conv").m3f_packed_conv(
-            a.data_ptr(), w_cm.data_ptr(), y.data_ptr(),
-            _MODES[name + ("_f32" if out_f32 else "")], shape.BT, shape.CIN,
-            shape.COUT, shape.W, shape.HWP, shape.MARGIN, chunk,
+            a.data_ptr(), w_cm.data_ptr(), y.data_ptr(), _MODES[name], shape.BT,
+            shape.CIN, shape.COUT, shape.W, shape.HWP, shape.MARGIN,
             cuda_lib.stream_ptr(a))
     cuda_lib.check(err, f"{name} kernel")
     cuda_lib.launches[name] += 1
@@ -178,22 +373,22 @@ def _launch(name: str, shape: ProbeShape, a: torch.Tensor, w_cm: torch.Tensor,
 def packed_conv(x_cm: torch.Tensor, w_cm: torch.Tensor, shape: ProbeShape,
                 out_f32: bool = False) -> torch.Tensor:
     """y [BT, COUT, HWP] of the packed conv (module doc): the plain version
-    on the CPU, one kernel launch on the card."""
+    on the CPU, one launch of the conv walk on the card."""
     _check("packed_conv", shape, x_cm, w_cm)
     if x_cm.device.type == "cpu":
         return packed_conv_reference(x_cm, w_cm, shape, out_f32)
-    return _launch("packed_conv", shape, x_cm, w_cm, out_f32)
+    return _launch_conv("packed_conv", shape, x_cm, w_cm, out_f32)
 
 
 def packed_conv_chunked(x_cm: torch.Tensor, w_cm: torch.Tensor,
                         shape: ProbeShape) -> torch.Tensor:
-    """The packed conv with bf16 y, on the card one block per image and
-    CHUNK positions, that chunk's halo window staged in shared memory once
-    and the nine taps built from it; the plain version on the CPU."""
+    """The packed conv with bf16 y; on the card the conv walk with whole
+    CHUNKs of one image as its units (their tiles in order, the TPU kernel's
+    grid step); the plain version on the CPU."""
     _check("packed_conv_chunked", shape, x_cm, w_cm)
     if x_cm.device.type == "cpu":
         return packed_conv_reference(x_cm, w_cm, shape)
-    return _launch("packed_conv_chunked", shape, x_cm, w_cm)
+    return _launch_conv("packed_conv_chunked", shape, x_cm, w_cm)
 
 
 def ablate_slabs(x_cm: torch.Tensor, w_cm: torch.Tensor,

@@ -1,6 +1,6 @@
 """Where the walk kernels' time goes, on the card: both filter gradients,
-both data gradients, both forward units, the mel frontend and the GRU
-recurrence.
+both data gradients, both forward units, the mel frontend, the GRU
+recurrence and the packed-layout conv of the layout probe.
 
 Times ``conv_unit_bwd_filter`` (``--kind spatial``, the row walk, or
 ``--kind temporal``, the frame walk) or ``conv_unit_bwd_data`` of the
@@ -79,7 +79,19 @@ in the full-width ``fusion`` train step (32 clips, BN prologue on), beside:
   (1), the exchange (2), the walk alone (5: exchange and cluster barrier,
   the chain's floor, also per step), a block barrier in place of the
   cluster barrier (8), without the output stores (16) or the xp copies
-  (32).
+  (32);
+- ``--kind packed``: the packed-layout conv's walk (``packed_tma_kernel``,
+  rows 9 and 12) at the probe's full shape, COUT 144, 128, 152 and 192,
+  every time a device time: in alternating rounds rows 9 (bf16 and fp32
+  y), 12, 10 and 11 through the wrappers, every layout of
+  ``packed_conv.LAYOUTS`` that fits through the C entry (whole and
+  chunked), ``--parent``'s rows 9, 12, 10 and 11 (an earlier
+  ``packed_conv.cu``, the ``mma.sync`` design),
+  ``F.conv2d`` channels-last, ``torch.matmul`` at the GEMM shapes and a
+  device copy of x and y; ablation builds ``-DPK_ABLATE``: without the
+  products (1: copies, fragment loads, mask and stores, the byte floor),
+  the mask (2), the y stores (4, the products kept live) and with one x
+  window for all three dy (8: the cost of the window reads).
 
 Run on a machine with an NVIDIA GPU, from the repository root:
 
@@ -96,6 +108,8 @@ Run on a machine with an NVIDIA GPU, from the repository root:
     python -m m3f_torch.scripts.filter_sweep --kind mel [--check]
     python -m m3f_torch.scripts.filter_sweep --kind gru [--check] \
         [--parent build/parent/gru.cu]
+    python -m m3f_torch.scripts.filter_sweep --kind packed [--check] \
+        [--parent build/parent/packed_conv.cu]
 
 It prints the ``nvidia-smi`` card line, then one JSON line per shape with
 the median ms of ``--reps`` calls between CUDA events. ``--check`` instead
@@ -104,7 +118,9 @@ and holds the kernel once against the plain version at each shape and at a
 few small ones (``temporal_data``: at every layout the entry point takes;
 ``spatial_data``: at every step; ``spatial_fwd``: at every layout, filter
 resident and streamed; ``temporal_fwd``: at every layout; ``gru``: on
-both routes at the edge shapes too, and at every layout).
+both routes at the edge shapes too, and at every layout; ``packed``: every
+layout at small, edge and full shapes, and an x at an odd offset, which
+must raise).
 Nothing runs at import.
 """
 
@@ -118,9 +134,10 @@ import subprocess
 from typing import Callable, Dict, Optional
 
 import torch
+import torch.nn.functional as F
 
 from m3f_torch.nn import resolve_device
-from m3f_torch.ops import conv_bn, cuda_lib, gru
+from m3f_torch.ops import conv_bn, cuda_lib, gru, packed_conv
 
 # (x shape, C_out) of the fusion train step's units, 32 clips
 SHAPES = {
@@ -1377,12 +1394,245 @@ def sweep_gru(reps: int, parent: Optional[str]) -> None:
             del xp, w, bias
             torch.cuda.empty_cache()
 
+# The packed-layout conv (rows 9 and 12): the probe's full shape, COUT 144
+# and 128, and COUT 152 / 192 (one pass of N 192 on 64 positions, the
+# planner's, against two of N 128 on 128); off the tiling (chip_smoke.py's shapes): CIN 16 / COUT 24 (one N
+# pass of 32, 8 rows masked), CIN 24 / COUT 152 (boxes past CIN read zeros,
+# W streamed), COUT 264 (two N passes) over 140 units (a partial last wave);
+# small: CIN 8, W 10 (lane tail), CIN 136 (three boxes of channels a tap),
+# COUT 200 (two passes of N 128: a pass of 256 fits no ring)
+PK_SHAPES = {"cout144": packed_conv.ProbeShape(),
+             "cout128": packed_conv.ProbeShape(COUT=128),
+             "cout152": packed_conv.ProbeShape(COUT=152),
+             "cout192": packed_conv.ProbeShape(COUT=192)}
+PK_SMALL = (packed_conv.ProbeShape(B=1, T=2, H=10, W=10, CIN=8, COUT=16, CHUNK=128),
+            packed_conv.ProbeShape(B=2, T=3, H=20, W=20, CIN=16, COUT=24, CHUNK=128),
+            packed_conv.ProbeShape(B=1, T=2, H=12, W=12, CIN=24, COUT=152, CHUNK=256),
+            packed_conv.ProbeShape(B=5, T=7, H=20, W=20, CIN=32, COUT=264, CHUNK=128),
+            packed_conv.ProbeShape(B=1, T=3, H=9, W=7, CIN=136, COUT=40, CHUNK=128),
+            packed_conv.ProbeShape(B=3, T=2, H=9, W=15, CIN=48, COUT=200, CHUNK=128))
+PK_ABLATIONS = {"no_products": 1, "no_mask": 2, "no_y_stores": 4,
+                "one_x_slab": 8}
+PK_TOL_REL = 1e-5        # fp32 y: 1e-5 of |W_cm|@|P| plus 1e-6; bf16 y one
+PK_TOL_ABS = 1e-6        # bf16 ulp on top (as chip_smoke.py)
+# the first design's C entry (an earlier packed_conv.cu, --parent)
+PK_PARENT_SIG = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+
+
+def pk_inputs(shape, dev, g):
+    """x_cm random everywhere (margins and tail read as given), w_cm /
+    sqrt(K), bf16."""
+    x = torch.randn(shape.BT, shape.CIN, shape.HWM, device=dev, generator=g
+                    ).to(torch.bfloat16)
+    w = (torch.randn(shape.COUT, shape.K, device=dev, generator=g)
+         / shape.K ** 0.5).to(torch.bfloat16)
+    return x, w
+
+
+def pk_within(got, x, w, shape) -> Dict[str, float]:
+    """max |y - plain| and its ratio to the limit (fp32 y: 1e-5 of
+    |W_cm|@|P| + 1e-6; bf16 y: one bf16 ulp of the fp32 value on top)."""
+    ref = packed_conv.packed_conv_reference(x, w, shape, out_f32=True)
+    lim = PK_TOL_REL * torch.matmul(w.float().abs(), packed_conv.im2col(
+        x, shape).float().abs()) + PK_TOL_ABS
+    if got.dtype == torch.bfloat16:
+        a = ref.abs().clamp_min(2.0 ** -126)
+        lim = lim + torch.exp2(torch.floor(torch.log2(a)) - 7)
+        ref = ref.to(torch.bfloat16).float()
+    d = (got.float() - ref).abs()
+    return {"max_abs_err": d.max().item(), "err_over_limit": (d / lim).max().item()}
+
+
+def pk_resources() -> None:
+    """What ptxas says of every build of packed_conv.cu (this source and
+    each -DPK_ABLATE timing build): registers, spills, shared memory of
+    each kernel, and its warnings (a wgmma pipeline it serialised)."""
+    src = str(cuda_lib.CSRC / "packed_conv.cu")
+    builds = {"kernel": [], **{n: [f"-DPK_ABLATE={k}"] for n, k in PK_ABLATIONS.items()}}
+    procs = {n: subprocess.Popen(
+        [cuda_lib._nvcc(), *cuda_lib.NVCC_FLAGS, "-Xptxas", "-v", *d, "-o",
+         "/dev/null", src], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True) for n, d in builds.items()}
+    for n, proc in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode:
+            raise RuntimeError(f"nvcc failed for {n}:\n{log}")
+        lines = log.splitlines()
+        for i, line in enumerate(lines):
+            if "Compiling entry function" in line and "packed" in line:
+                name = line.split("'")[1]
+                print(json.dumps({"build": n, "kernel": name[name.index("packed"):][:48],
+                                  "ptxas": [l.strip() for l in lines[i + 1:i + 4]]}),
+                      flush=True)
+            elif "Performance Loss" in line:
+                print(json.dumps({"build": n, "ptxas_warning": line.strip()[:160],
+                                  "kernel": line.split("'")[-2][-48:]}), flush=True)
+
+
+def check_packed() -> None:
+    """ptxas' lines of every build, then the conv walk against the plain
+    version at the small, edge and full shapes, for bf16 y, fp32 y and the
+    chunked walk, at the planner's layout through the wrapper (and whether a
+    second call repeats y bit for bit) and at every layout of LAYOUTS the
+    shape fits; then a view at an odd offset, which must raise."""
+    dev = resolve_device("cuda")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    pk_resources()
+    cuda_lib.build(["packed_conv"])
+    entry = cuda_lib.library("packed_conv").m3f_packed_conv_tma
+    g = torch.Generator(device=dev).manual_seed(21)
+    for shape in PK_SMALL + tuple(PK_SHAPES.values()):
+        x, w = pk_inputs(shape, dev, g)
+        for mode in packed_conv.CONV_MODES:
+            if mode == "packed_conv_chunked":
+                call = lambda: packed_conv.packed_conv_chunked(x, w, shape)
+            else:
+                f32 = mode == "packed_conv_f32"
+                call = lambda f32=f32: packed_conv.packed_conv(x, w, shape, f32)
+            got, again = call(), call()
+            torch.cuda.synchronize()
+            plan = packed_conv.packed_plan(shape, mode)
+            row = {"kind": "packed", "shape": str(shape), "mode": mode,
+                   "plan": {"bn": plan.bn, "np": plan.np, "stages": plan.stages,
+                            "smem": plan.smem, "grid": plan.grid},
+                   "wrapper": pk_within(got, x, w, shape),
+                   "repeats": torch.equal(got, again)}
+            name = "packed_conv_chunked" if mode == "packed_conv_chunked" else "packed_conv"
+            for bn in packed_conv.LAYOUTS:
+                lp = packed_conv.packed_plan(shape, mode, bn=bn)
+                if lp.fits:
+                    y = packed_conv.call_tma(entry, name, shape, x, w, lp)
+                    torch.cuda.synchronize()
+                    row[f"bn{bn}"] = pk_within(y, x, w, shape)
+            row["within"] = all(v["err_over_limit"] <= 1.0 for v in row.values()
+                                if isinstance(v, dict) and "err_over_limit" in v)
+            print(json.dumps(row), flush=True)
+            del got, again
+        del x, w
+        torch.cuda.empty_cache()
+    shape = PK_SMALL[1]
+    x, w = pk_inputs(shape, dev, g)
+    flat = torch.empty(x.numel() + 1, device=dev, dtype=torch.bfloat16)
+    odd = flat[1:].view(x.shape)
+    odd.copy_(x)
+    try:
+        packed_conv.packed_conv(odd, w, shape)
+        refused = None
+    except (ValueError, RuntimeError) as e:
+        refused = str(e)
+    print(json.dumps({"kind": "packed", "odd_offset_view_refused": refused}),
+          flush=True)
+
+
+def sweep_packed(reps: int, parent: Optional[str]) -> None:
+    """At the probe's full shape (COUT 144, 128, 152 and 192), every time
+    a device time (``timed`` queued behind a spin): in alternating rounds
+    the wrapper's rows 9 (bf16 y), 12, 10 and 11, both layouts through the
+    C entry (128 positions a tile and 64, with the fewest N passes each
+    fits), row 9 with fp32 y, ``--parent``'s rows 9, 12, 10 and 11 (the
+    first design), ``F.conv2d``
+    channels-last, ``torch.matmul`` at the GEMM shape (channels-major,
+    ``[COUT, K] x [K, HWP]`` per image, as row 11's library call, and
+    positions-major ``[BT*HWP, K] x [K, COUT]``), and a device copy of x
+    and y; then the timing builds ``-DPK_ABLATE=``: 1 no products (TMA, mask
+    and stores: the byte floor), 2 no mask pass, 4 no y stores, 8 one x slab
+    for all nine taps (the cost of the nine L2 reads of x), at both
+    layouts. Their outputs are wrong; they are timed only."""
+    dev = resolve_device("cuda")
+    cuda_lib.build(["packed_conv"])
+    entry = cuda_lib.library("packed_conv").m3f_packed_conv_tma
+    src = str(cuda_lib.CSRC / "packed_conv.cu")
+    built = build_variants(
+        {f"pk_{n}": f"PK_ABLATE={k}" for n, k in PK_ABLATIONS.items()},
+        "m3f_packed_conv_tma", {f"pk_{n}": src for n in PK_ABLATIONS},
+        cuda_lib.SIGNATURES["packed_conv"]["m3f_packed_conv_tma"])
+    old = None
+    if parent:
+        old = build_variants({"pk_parent": ""}, "m3f_packed_conv",
+                             {"pk_parent": parent}, PK_PARENT_SIG)["pk_parent"]
+    g = torch.Generator(device=dev).manual_seed(22)
+    for name, shape in PK_SHAPES.items():
+        x, w = pk_inputs(shape, dev, g)
+        layouts = {f"bn{bn}": packed_conv.packed_plan(shape, "packed_conv", bn=bn)
+                   for bn in packed_conv.LAYOUTS}
+        layouts = {k: v for k, v in layouts.items() if v.fits}
+        p = torch.randn(shape.K, shape.HWP, device=dev, generator=g
+                        ).to(torch.bfloat16)
+        fns = {"row9": lambda: packed_conv.packed_conv(x, w, shape),
+               "row12": lambda: packed_conv.packed_conv_chunked(x, w, shape),
+               "row9_f32": lambda: packed_conv.packed_conv(x, w, shape, True),
+               "row10": lambda: packed_conv.ablate_slabs(x, w, shape),
+               "row11": lambda: packed_conv.ablate_matmul(p, w, shape)}
+        for lname, lp in layouts.items():
+            fns[lname] = lambda lp=lp: packed_conv.call_tma(
+                entry, "packed_conv", shape, x, w, lp)
+            lc = packed_conv.packed_plan(shape, "packed_conv_chunked", bn=lp.bn)
+            fns[lname + "_chunked"] = lambda lc=lc: packed_conv.call_tma(
+                entry, "packed_conv_chunked", shape, x, w, lc)
+        if old is not None:
+            def parent_call(mode, a):
+                y = torch.empty(shape.BT, shape.COUT, shape.HWP, device=dev,
+                                dtype=torch.bfloat16)
+                cuda_lib.check(old(a.data_ptr(), w.data_ptr(), y.data_ptr(), mode,
+                                   shape.BT, shape.CIN, shape.COUT, shape.W,
+                                   shape.HWP, shape.MARGIN,
+                                   shape.CHUNK if mode == 4 else 0,
+                                   cuda_lib.stream_ptr(x)), "parent packed conv")
+                return y
+            fns["parent_row9"] = lambda: parent_call(0, x)
+            fns["parent_row12"] = lambda: parent_call(4, x)
+            fns["parent_row10"] = lambda: parent_call(2, x)
+            fns["parent_row11"] = lambda: parent_call(3, p)
+        hw = shape.MARGIN, shape.MARGIN + shape.HW
+        x_nd = x[:, :, hw[0]:hw[1]].reshape(shape.BT, shape.CIN, shape.H, shape.W) \
+            .contiguous(memory_format=torch.channels_last)
+        w_nd = w.reshape(shape.COUT, 3, 3, shape.CIN).permute(0, 3, 1, 2) \
+            .contiguous(memory_format=torch.channels_last)
+        p_bt = p.expand(shape.BT, -1, -1)
+        p_pm = torch.randn(shape.BT * shape.HWP, shape.K, device=dev, generator=g
+                           ).to(torch.bfloat16)
+        y = torch.empty(shape.BT, shape.COUT, shape.HWP, device=dev,
+                        dtype=torch.bfloat16)
+        xc, yc = torch.empty_like(x), torch.empty_like(y)
+        fns.update({
+            "conv2d": lambda: F.conv2d(x_nd, w_nd, padding=1),
+            "matmul_cm": lambda: torch.matmul(w, p_bt),
+            "matmul_pm": lambda: torch.matmul(p_pm, w.t()),
+            "copy_x_y": lambda: (xc.copy_(x), yc.copy_(y))})
+        row = {"kind": "packed", "shape": name, "x": [shape.BT, shape.CIN,
+                                                      shape.HWM],
+               "cout": shape.COUT,
+               "plans": {k: {"bn": v.bn, "np": v.np, "passes": len(v.passes),
+                             "stages": v.stages, "smem": v.smem, "grid": v.grid}
+                         for k, v in layouts.items()}}
+        row["alternating_ms"] = alternating(fns, reps)
+        for aname, fn in built.items():
+            for lname, lp in layouts.items():
+                row[f"{aname[3:]}_{lname}_ms"] = timed(
+                    lambda: packed_conv.call_tma(fn, "packed_conv", shape, x, w, lp),
+                    reps, queued=True)
+        flops = 2 * shape.BT * shape.HWP * shape.K * shape.COUT
+        nbytes = x.numel() * 2 + w.numel() * 2 + y.numel() * 2
+        row["bound_ms"] = max(nbytes / HBM, flops / PEAK_BF16) * 1e3
+        row["bound_by"] = "bytes" if nbytes / HBM >= flops / PEAK_BF16 \
+            else "operations"
+        row["copy_bytes_per_s"] = 2 * (x.numel() + y.numel()) * 2 / (
+            row["alternating_ms"]["copy_x_y"][0] / 1e3)
+        row["tflops"] = {k: flops / v[0] / 1e9
+                         for k, v in row["alternating_ms"].items()
+                         if k.startswith(("row", "bn", "parent", "conv2d"))
+                         and not k.endswith("row10")}
+        print(json.dumps(row), flush=True)
+        del x, w, p, x_nd, w_nd, p_bt, p_pm, y, xc, yc
+        torch.cuda.empty_cache()
+
 
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--kind", choices=("spatial", "temporal", "temporal_data",
                                        "spatial_data", "spatial_fwd",
-                                       "temporal_fwd", "mel", "gru"),
+                                       "temporal_fwd", "mel", "gru",
+                                       "packed"),
                     default="spatial")
     ap.add_argument("--reps", type=int, default=20)
     ap.add_argument("--check", action="store_true",
@@ -1391,7 +1641,9 @@ def main(argv=None) -> None:
                     help="spatial_fwd / temporal_fwd: a conv_bn.cu whose "
                          "forward of that kind (the per-tap gather, C entry "
                          "before the walk) is timed beside the kernel; gru: "
-                         "a gru.cu whose m3f_gru_fwd is")
+                         "a gru.cu whose m3f_gru_fwd is; packed: a "
+                         "packed_conv.cu whose m3f_packed_conv (rows 9 and "
+                         "12, the first design) is")
     opts = ap.parse_args(argv)
     print(subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -1408,6 +1660,8 @@ def main(argv=None) -> None:
         sweep_mel(opts.reps, opts.check)
     elif opts.kind == "gru":
         check_gru() if opts.check else sweep_gru(opts.reps, opts.parent)
+    elif opts.kind == "packed":
+        check_packed() if opts.check else sweep_packed(opts.reps, opts.parent)
     elif opts.kind == "spatial_data":
         check_spatial_data() if opts.check else sweep_spatial_data(opts.reps)
     elif opts.check:
