@@ -56,8 +56,9 @@ H100 (``python3 chip_smoke.py``). It
    tiling and at COUT 264 (two N passes, 140 units: the persistent grid's
    last wave partial), each check shown to refuse a y with its tail
    columns zeroed and a y without the x-edge masks (for the product
-   ablation, a y with its last image left out), and the conv shown to
-   refuse an x at an odd offset (no tensor map for it); then the probe
+   ablation, a y with its last image left out), and each of the four held
+   on an input one element off 16 bytes (copied to aligned storage for the
+   copy engine), against the y of the inputs shifted by one; then the probe
    runs every phase at full shape (``probe_packed_conv.run``) with the
    counters set to 0 just before and read just after, each of its four
    kernels launched, packed_conv and packed_conv_chunked within 2e-2 of
@@ -1054,16 +1055,59 @@ def check_probe_shape(torch, F, pc, shape, seed, timing):
 
 
 def _probe_plans(pc, shape):
-    """The conv walk's layout at ``shape`` for each conv kernel."""
-    return {mode: {k: getattr(plan, k) for k in ("bn", "np", "stages",
-                                                 "smem", "grid", "units")}
-            for mode in pc.CONV_MODES for plan in [pc.packed_plan(shape, mode)]}
+    """The conv walk's layout at ``shape`` for each conv kernel, and each
+    ablation kernel's (``ablation_plan``)."""
+    plans = {mode: {k: getattr(plan, k) for k in ("bn", "np", "stages",
+                                                  "smem", "grid", "units")}
+             for mode in pc.CONV_MODES for plan in [pc.packed_plan(shape, mode)]}
+    plans.update({name: {k: getattr(plan, k) for k in (
+        "bn", "np", "imgs", "yt", "windows", "stages", "resident", "smem", "grid",
+        "items")}
+        for name in pc.ABLATIONS for plan in [pc.ablation_plan(shape, name)]})
+    return plans
+
+
+def check_probe_odd_offset(torch, pc):
+    """The four probe kernels on an input one element off 16 bytes (x_cm,
+    or p_const for ablate_matmul; the wrappers copy it to aligned storage
+    for the copy engine) held against their plain versions on the same
+    values, each check shown to refuse the y of the storage's aligned
+    start, the inputs shifted by one element. Returns {kernel: max |dy|}."""
+    shape = pc.ProbeShape(B=2, T=3, H=20, W=20, CIN=16, COUT=24, CHUNK=128)
+    x, w, p = _probe_inputs(torch, shape, 13)
+    errs = {}
+    for name in PROBE_KERNELS:
+        a = p if name == "ablate_matmul" else x
+        flat = torch.empty(a.numel() + 1, device="cuda", dtype=a.dtype)
+        odd = flat[1:].view(a.shape)
+        odd.copy_(a)
+        require(odd.data_ptr() % 16 != 0, f"{name}: the view is on 16 bytes")
+        kern = getattr(pc, name)
+        got, shifted = kern(odd, w, shape), kern(flat[:-1].view(a.shape), w, shape)
+        want = (pc.ablate_matmul_reference(odd, w, shape) if name == "ablate_matmul"
+                else pc.ablate_slabs_reference(odd, w, shape)
+                if name == "ablate_slabs" else pc.packed_conv_reference(odd, w, shape))
+        if name == "ablate_slabs":
+            lim = None
+        else:
+            pm = odd if name == "ablate_matmul" else pc.im2col(odd, shape)
+            y32 = torch.matmul(w.float(), pm.float())
+            lim = ulp_bf16(torch, y32) + PROBE_F32_REL * torch.matmul(
+                w.float().abs(), pm.float().abs()) + PROBE_ABS
+        err = (got.float() - want.float()).abs().max().item()
+        require(probe_within(torch, got, want, lim),
+                f"{name} on an input at an odd offset: max |dy| {err}")
+        require(not probe_within(torch, shifted, want, lim),
+                f"{name}: the odd-offset check would pass the inputs shifted "
+                f"by one element")
+        errs[name] = err
+    return errs
 
 
 def check_probe(torch, F, cuda_lib, pc, probe):
     """The probe slice: the four kernels held against their plain versions
     at the full shape (COUT 144, timed; COUT 128), at two shapes off the
-    tiling and at COUT 264 over a partial last wave; the conv refusing an x
+    tiling and at COUT 264 over a partial last wave; the four on an input
     at an odd offset; then the probe itself (``probe.run``, every phase, at
     the full shape) with the counters set to 0 just before and read just
     after, and its check at COUT 128. Returns the kernels' entries and the
@@ -1093,23 +1137,8 @@ def check_probe(torch, F, cuda_lib, pc, probe):
               "errors": res, "plans": _probe_plans(pc, cout_shape)})
         for name, r in res.items():
             errs[name] = max(errs[name], r["max_abs_err"])
-    # an x at an odd element offset: no tensor map can be encoded for it,
-    # so the wrapper raises (it never falls back)
-    shape = pc.ProbeShape(B=2, T=3, H=20, W=20, CIN=16, COUT=24, CHUNK=128)
-    x, w, _ = _probe_inputs(torch, shape, 13)
-    odd = torch.empty(x.numel() + 1, device="cuda", dtype=x.dtype)[1:].view(x.shape)
-    odd.copy_(x)
-    refused = {}
-    for name, call in (("packed_conv", lambda: pc.packed_conv(odd, w, shape)),
-                       ("packed_conv_chunked",
-                        lambda: pc.packed_conv_chunked(odd, w, shape))):
-        try:
-            call()
-        except (ValueError, RuntimeError) as e:
-            refused[name] = str(e)
-    require(len(refused) == 2, f"an x at an odd offset was not refused: {refused}")
-    emit({"phase": "kernel_probe_odd_offset", "refused": refused})
-    del x, w, odd
+    emit({"phase": "kernel_probe_odd_offset",
+          "errors": check_probe_odd_offset(torch, pc)})
     cuda_lib.reset_launches()
     torch.cuda.synchronize()
     t0 = time.perf_counter()

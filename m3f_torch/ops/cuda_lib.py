@@ -63,7 +63,8 @@ SIGNATURES = {
                                            I, I, P],
                 "m3f_conv_unit_bwd_filter": [P, P, P, P, P, P, P, P, P, I, I,
                                              I, I, I, I, I, I, I, I, I, P]},
-    "packed_conv": {"m3f_packed_conv": [P, P, P, I, I, I, I, I, I, I, P],
+    "packed_conv": {"m3f_packed_ablate": [P, P, P, I, I, I, I, I, I, I, I, I,
+                                          I, I, I, I, P],
                     "m3f_packed_conv_tma": [P, P, P, I, I, I, I, I, I, I, I, I,
                                             I, I, I, P]},
 }

@@ -5,7 +5,11 @@ Counterpart of the four Pallas kernels of ``scripts/probe_packed_conv.py``
 (``packed_conv``, ``ablate_slabs``, ``ablate_matmul``,
 ``packed_conv_chunked``); the kernels are ``csrc/packed_conv.cu``. The conv
 (``packed_conv``, ``packed_conv_chunked``) is a TMA-fed ``wgmma`` walk whose
-layout ``packed_plan`` picks; the two ablations keep the first design.
+layout ``packed_plan`` picks; the two ablations are TMA-fed walks too
+(``ablate_matmul`` a ``wgmma`` GEMM on a resident P^T tile, ``ablate_slabs``
+the masked im2col formed in shared memory) whose layouts ``ablation_plan``
+picks. On the card an input whose base is off 16 bytes is copied to
+aligned storage first (``_aligned``), never refused.
 
 Layout: an image's positions ``p = y·W + x`` ride the minor axis. ``x_cm``
 [BT, CIN, HWM] holds each channel's HW positions at ``MARGIN`` (the margins
@@ -38,7 +42,6 @@ import torch
 from m3f_torch.ops import cuda_lib
 
 TAPS = [(dy, dx) for dy in (-1, 0, 1) for dx in (-1, 0, 1)]
-_BN = 128        # positions per tile of the ablation kernels (BN in packed_conv.cu)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -295,18 +298,30 @@ def _sm_count(device: torch.device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """``t`` itself when its base address lies on 16 bytes, else a fresh
+    contiguous copy on the same device (the allocator places it on 512 bytes
+    on the card). The copy engine takes a tensor map only at a 16-byte
+    aligned base: a view at an odd element offset goes through the same
+    kernel on aligned storage, never to the plain version."""
+    if t.data_ptr() % 16 == 0:
+        return t
+    return t.clone(memory_format=torch.contiguous_format)
+
+
 def call_tma(fn, name: str, shape: ProbeShape, x_cm: torch.Tensor,
              w_cm: torch.Tensor, plan: PackedPlan) -> torch.Tensor:
     """One call of an ``m3f_packed_conv_tma`` entry point (this source's, or
     a timing build's) with ``plan`` -> y [BT, COUT, HWP]; raises on a refused
-    launch or a tensor map the CUDA driver cannot encode. Counts nothing."""
+    launch or a tensor map the CUDA driver cannot encode. Counts nothing.
+    Asserts 16-byte aligned bases (the wrappers hand it ``_aligned``
+    tensors)."""
     if not plan.fits:
         raise ValueError(f"{name}: no layout of packed_plan fits {shape} "
                          f"(smem {plan.smem} of {SMEM_LIMIT}, {plan})")
     for what, t in (("x_cm", x_cm), ("w_cm", w_cm)):
-        if t.data_ptr() % 16:
-            raise ValueError(f"{name}: {what}'s base address {t.data_ptr():#x} is not "
-                             f"16-byte aligned: the copy engine cannot map it")
+        assert t.data_ptr() % 16 == 0, \
+            f"{name}: {what}'s base address {t.data_ptr():#x} is not on 16 bytes"
     out_f32 = plan.mode == "packed_conv_f32"
     y = torch.empty(shape.BT, shape.COUT, shape.HWP, device=x_cm.device,
                     dtype=torch.float32 if out_f32 else torch.bfloat16)
@@ -316,56 +331,272 @@ def call_tma(fn, name: str, shape: ProbeShape, x_cm: torch.Tensor,
                  shape.CHUNK if plan.unit == "chunk" else 0, plan.bn,
                  plan.stages, plan.np, plan.grid,
                  cuda_lib.stream_ptr(x_cm))
+    _check_err(err, name)
+    return y
+
+
+def _check_err(err: int, name: str) -> None:
     if err >= ENCODE_FAILED:
         raise RuntimeError(f"{name}: the CUDA driver refused a tensor map (CUresult "
                            f"{err - ENCODE_FAILED}; base addresses and strides "
                            f"must be 16-byte aligned)")
     cuda_lib.check(err, f"{name} kernel")
-    return y
+
+
+def _card_inputs(name: str, shape: ProbeShape, a: torch.Tensor,
+                 w_cm: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The card path's guard (bf16 tensors on one CUDA device, CIN and
+    MARGIN multiples of 8: 16-byte strides and window starts) -> both
+    tensors contiguous on 16-byte aligned storage."""
+    cuda_lib.require_cuda(name, a, w_cm)
+    if a.dtype != torch.bfloat16 or w_cm.dtype != torch.bfloat16 \
+            or shape.CIN % 8 or shape.MARGIN % 8:
+        raise ValueError(
+            f"{name} kernel takes bf16 inputs with CIN and MARGIN multiples "
+            f"of 8; got {a.dtype}, {w_cm.dtype}, {shape}")
+    return _aligned(a.contiguous()), _aligned(w_cm.contiguous())
 
 
 def _launch_conv(name: str, shape: ProbeShape, x_cm: torch.Tensor,
                  w_cm: torch.Tensor, out_f32: bool = False) -> torch.Tensor:
     """One launch of the conv walk (``packed_plan``'s layout) -> y."""
-    cuda_lib.require_cuda(name, x_cm, w_cm)
-    if x_cm.dtype != torch.bfloat16 or w_cm.dtype != torch.bfloat16 \
-            or shape.CIN % 8 or shape.MARGIN % 8:
-        raise ValueError(
-            f"{name} kernel takes bf16 inputs with CIN and MARGIN multiples "
-            f"of 8; got {x_cm.dtype}, {w_cm.dtype}, {shape}")
+    x_cm, w_cm = _card_inputs(name, shape, x_cm, w_cm)
     mode = "packed_conv_f32" if out_f32 else name
     plan = packed_plan(shape, mode, sms=_sm_count(x_cm.device))
     y = call_tma(cuda_lib.library("packed_conv").m3f_packed_conv_tma, name, shape,
-                 x_cm.contiguous(), w_cm.contiguous(), plan)
+                 x_cm, w_cm, plan)
     cuda_lib.launches[name] += 1
     return y
 
 
-# mode of m3f_packed_conv (csrc/packed_conv.cu): the ablations
-_MODES = {"ablate_slabs": 2, "ablate_matmul": 3}
+# The ablations (rows 10 and 11; ablate_slabs_kernel and
+# ablate_matmul_kernel in csrc/packed_conv.cu, entry m3f_packed_ablate)
+ABLATIONS = ("ablate_slabs", "ablate_matmul")
+ABL_MODES = {"ablate_slabs": 2, "ablate_matmul": 3}
+# row 11: two consumer warpgroups split the images of a 64-position tile
+# (the 128-position layouts, and one warpgroup alone, lost at every
+# measured shape: PERF.md); the layouts, in the order the planner tries
+# them, are the images of a work item, two or one a warpgroup. Each keeps
+# the block's P^T tile resident and streams W, each W box read by both.
+MATMUL_WGS = 2
+MATMUL_LAYOUTS = (4, 2)
+P_BOX = 64 * 64 * 2      # bytes of a P^T box: 64 k rows of 64 positions
+ACC_MAX = 256            # a warpgroup's images x N (its fp32 accumulators a
+#                          thread) at most: ptxas keeps a block of two to 168
+#                          registers a thread, and 2 x 144 spilled there
+ABL_MAX_STAGES = 8       # ring slots of both ablations
+SLAB_BN = 128            # positions of a row 10 tile
+SLAB_ROW = 144           # positions of a row 10 x window of one dy: 128 + up
+#                          to 7 + 2, and the funnel's word past them, on 8
+SLAB_FORMERS = 256       # row 10's forming threads (then one producer warp)
+Y_ROWS_MAX = 256         # rows of a TMA box
+
+
+class AblationPlan(NamedTuple):
+    """An ablation kernel's cut of one call (``ablation_plan``)."""
+    name: str
+    bn: int              # positions a tile
+    threads: int
+    np: int              # row 11: wgmma N of a pass, one of WIDTHS (row 10: 0)
+    passes: Tuple[Tuple[int, int], ...]   # row 11: (first channel, channels)
+    imgs: int            # images a work item (row 10: 1)
+    yt: int              # row 11: staging tiles a warpgroup (row 10: 0)
+    windows: int         # row 10: x windows a (tile, channel box), 1 or 3
+    kb: int              # row 11: 64-k boxes of K; row 10: channel boxes a tap
+    box_c: int           # channels (row 11: k rows) of a box
+    stages: int          # ring slots: W boxes (row 11), x windows (row 10)
+    resident: str        # what stays in shared memory across a block's items
+    regions: Dict[str, Tuple[int, int]]   # name: (byte offset, bytes)
+    smem: int            # dynamic shared memory asked for (with the 1024 slack)
+    stage_tx: int        # bytes one ring slot's barrier waits for
+    tiles: int           # position tiles an image
+    groups: int          # work items a tile (row 11) or an image (row 10)
+    items: int
+    per: int             # items a block: a contiguous range
+    grid: int
+    boxes: Dict[str, Tuple[Tuple[int, int, int], int]]  # (box, swizzle bytes)
+    fits: bool
+
+    def blocks_items(self, block: int) -> range:
+        """The work items block ``block`` takes, in order."""
+        return range(block * self.per, min((block + 1) * self.per, self.items))
+
+    def item_tiles(self, item: int, shape: "ProbeShape") -> list:
+        """(image, first position) of each tile of y that ``item`` writes:
+        row 11's items are tile-major (a tile, then a group of images), row
+        10's image-major (an image, then a tile)."""
+        if self.name == "ablate_slabs":
+            b, t = divmod(item, self.tiles)
+            return [(b, t * self.bn)]
+        t, g = divmod(item, self.groups)
+        return [(b, t * self.bn)
+                for b in range(g * self.imgs, min((g + 1) * self.imgs, shape.BT))]
+
+
+def _spread(items: int, sms: int) -> Tuple[int, int]:
+    """(items a block, blocks): contiguous ranges over at most ``sms``
+    blocks, none empty."""
+    per = -(-items // max(1, sms)) if items else 1
+    return per, max(1, -(-items // per))
+
+
+def _pack_regions(sizes) -> Tuple[Dict[str, Tuple[int, int]], int]:
+    regions, off = {}, 0
+    for name, size in sizes:
+        regions[name] = (off, size)
+        off += size
+    return regions, off + 1024
+
+
+def slab_window_start(shape: ProbeShape, p0: int, dy: int, windows: int) -> int:
+    """First position of row 10's x window serving (tile at p0, dy): one
+    window for all three dy starts where dy = -1's would."""
+    return window_start(shape, p0, -1 if windows == 1 else dy)
+
+
+def slab_window(shape: ProbeShape) -> Tuple[int, int]:
+    """(windows a tile and channel box, positions a window) of row 10: one
+    window from dy = -1's start to the dy = +1 tap's funnel words, where it
+    fits a box of 256, else one SLAB_ROW window per dy."""
+    one = _round_up((-shape.W - 1) % TMA_ALIGN + 2 * shape.W + 137, TMA_ALIGN)
+    return (1, one) if one <= 256 else (3, SLAB_ROW)
+
+
+def ablation_plan(shape: ProbeShape, name: str, sms: int = SMS,
+                  imgs: Optional[int] = None,
+                  stages: Optional[int] = None,
+                  windows: Optional[int] = None) -> AblationPlan:
+    """The ablation kernel's cut of ``shape`` (``name`` one of ABLATIONS).
+
+    ablate_matmul: the fewest N passes (the narrowest of WIDTHS covering
+    COUT in that many) for which a layout fits, then the first of
+    MATMUL_LAYOUTS (``imgs`` where given) whose warpgroups' accumulators
+    stay within ACC_MAX and whose resident P^T tile (K in boxes of 64, zeros
+    past K), staging tiles (one per image of a warpgroup where they fit,
+    else one) and W ring of at least 2 slots (the deepest that fits, at
+    most ABL_MAX_STAGES) fit SMEM_LIMIT. ablate_slabs: 128-position
+    tiles, min(64, CIN) channels a box, x windows of ``slab_window``
+    (``windows`` 3 forces one a dy), the staging tile of rows < COUT (in
+    boxes of at most 256 rows), a scratch tile for the rows formed and not
+    stored, and the deepest ring (``stages`` where given) that fits. Both:
+    a grid of at most ``sms`` blocks, each a contiguous range of work
+    items. ``fits`` is False when no layout fits."""
+    if name not in ABLATIONS:
+        raise ValueError(f"ablation_plan: name {name!r}, expected one of {ABLATIONS}")
+    if name == "ablate_slabs":
+        return _slab_plan(shape, sms, stages, windows)
+    layouts = [m for m in MATMUL_LAYOUTS if imgs in (None, m)]
+    if not layouts:
+        raise ValueError(f"ablation_plan: no layout of {MATMUL_LAYOUTS} has {imgs} images")
+    plan = None
+    npasses = -(-shape.COUT // WIDTHS[-1])
+    while plan is None or not plan.fits:
+        need = _round_up(-(-shape.COUT // npasses), 8)
+        if need < WIDTHS[0] and plan is not None:
+            break                           # narrower passes fit no better
+        np_ = next(w for w in WIDTHS if w >= need)
+        passes = tuple((i * np_, min(np_, shape.COUT - i * np_))
+                       for i in range(npasses))
+        for m in layouts:
+            plan = _matmul_layout(shape, np_, passes, m, sms, stages)
+            if plan.fits:
+                break
+        npasses += 1
+    return plan
+
+
+def _matmul_layout(shape: ProbeShape, np_: int, passes: tuple, m: int, sms: int,
+                   stages: Optional[int]) -> AblationPlan:
+    """Row 11's cut with N passes of ``np_`` and ``m`` images a work item."""
+    per_wg = m // MATMUL_WGS             # images of one warpgroup
+    kb = -(-shape.K // BOX_C)
+    for yt in dict.fromkeys((per_wg, 1)):
+        for st in ([stages] if stages else range(ABL_MAX_STAGES, 1, -1)):
+            regions, smem = _pack_regions([("p", kb * P_BOX),
+                                           ("w", st * np_ * ROW),
+                                           ("y", MATMUL_WGS * yt * np_ * TILE_P * 2),
+                                           ("bars", (2 * st + 2) * 8)])
+            if smem <= SMEM_LIMIT:
+                break
+        if smem <= SMEM_LIMIT:
+            break
+    tiles = shape.HWP // TILE_P
+    groups = -(-shape.BT // m)
+    items = tiles * groups
+    per, grid = _spread(items, sms)
+    return AblationPlan(
+        name="ablate_matmul", bn=TILE_P, threads=MATMUL_WGS * 128 + 32, np=np_,
+        passes=passes, imgs=m, yt=yt, windows=0, kb=kb, box_c=BOX_C, stages=st,
+        resident="p_const", regions=regions, smem=smem, stage_tx=np_ * ROW,
+        tiles=tiles, groups=groups, items=items, per=per, grid=grid,
+        boxes={"p": ((TILE_P, BOX_C, 1), 128), "w": ((BOX_C, np_, 1), 128),
+               "y": ((TILE_P, np_, 1), 128)},
+        fits=(smem <= SMEM_LIMIT and 2 <= st <= ABL_MAX_STAGES
+              and per_wg * np_ <= ACC_MAX and kb * P_BOX < 1 << 20))
+
+
+def _slab_plan(shape: ProbeShape, sms: int, stages: Optional[int],
+               windows: Optional[int]) -> AblationPlan:
+    """Row 10's cut: see ``ablation_plan``."""
+    box_c = min(BOX_C, shape.CIN)
+    kc = -(-shape.CIN // box_c)
+    ny = -(-shape.COUT // Y_ROWS_MAX)
+    y_rows = _round_up(-(-shape.COUT // ny), 8)
+    wins, wrow = (3, SLAB_ROW) if windows == 3 else slab_window(shape)
+    slot = box_c * wrow * 2
+    for st in ([stages] if stages else range(ABL_MAX_STAGES, 1, -1)):
+        regions, smem = _pack_regions([("y", ny * y_rows * SLAB_BN * 2),
+                                       ("scratch", BOX_C * SLAB_BN * 2),
+                                       ("x", st * slot),
+                                       ("bars", 2 * st * 8)])
+        if smem <= SMEM_LIMIT:
+            break
+    tiles = shape.HWP // SLAB_BN
+    items = shape.BT * tiles
+    per, grid = _spread(items, sms)
+    return AblationPlan(
+        name="ablate_slabs", bn=SLAB_BN, threads=SLAB_FORMERS + 32, np=0,
+        passes=(), imgs=1, yt=0, windows=wins, kb=kc, box_c=box_c, stages=st,
+        resident="none",
+        regions=regions, smem=smem, stage_tx=slot, tiles=tiles, groups=tiles,
+        items=items, per=per, grid=grid,
+        boxes={"x": ((wrow, box_c, 1), 0), "y": ((SLAB_BN, y_rows, 1), 0)},
+        fits=(shape.HWP % SLAB_BN == 0 and shape.COUT <= shape.K
+              and smem <= SMEM_LIMIT and 2 <= st <= ABL_MAX_STAGES
+              and windows in (None, 3, wins)))
+
+
+def call_ablation(fn, shape: ProbeShape, a: torch.Tensor, w_cm: torch.Tensor,
+                  plan: AblationPlan) -> torch.Tensor:
+    """One call of an ``m3f_packed_ablate`` entry point (this source's, or a
+    timing build's) with ``plan`` -> y [BT, COUT, HWP] bf16; raises on a
+    layout that does not fit, a refused launch or a tensor map the CUDA
+    driver cannot encode. Counts nothing."""
+    if not plan.fits:
+        raise ValueError(f"{plan.name}: no layout of ablation_plan fits {shape} "
+                         f"(smem {plan.smem} of {SMEM_LIMIT}, {plan})")
+    for what, t in (("a", a), ("w_cm", w_cm)):
+        assert t.data_ptr() % 16 == 0, \
+            f"{plan.name}: {what}'s base address {t.data_ptr():#x} is not on 16 bytes"
+    y = torch.empty(shape.BT, shape.COUT, shape.HWP, device=a.device,
+                    dtype=torch.bfloat16)
+    with torch.cuda.device(a.device):
+        err = fn(a.data_ptr(), w_cm.data_ptr(), y.data_ptr(), ABL_MODES[plan.name],
+                 shape.BT, shape.CIN, shape.COUT, shape.W, shape.HWP, shape.MARGIN,
+                 plan.stages, plan.np, plan.imgs, plan.yt, plan.windows,
+                 plan.grid, cuda_lib.stream_ptr(a))
+    _check_err(err, plan.name)
+    return y
 
 
 def _launch(name: str, shape: ProbeShape, a: torch.Tensor,
             w_cm: torch.Tensor) -> torch.Tensor:
-    """One launch of ablation kernel ``name`` -> y [BT, COUT, HWP] bf16. The
-    card path's guard: bf16 tensors on one CUDA device and the kernel's
-    alignment (16-byte loads of w_cm rows and x_cm windows, whole tiles)."""
-    cuda_lib.require_cuda(name, a, w_cm)
-    if a.dtype != torch.bfloat16 or w_cm.dtype != torch.bfloat16 \
-            or shape.CIN % 8 or shape.MARGIN % 8 or shape.HWP % _BN:
-        raise ValueError(
-            f"{name} kernel takes bf16 inputs with CIN and MARGIN multiples "
-            f"of 8 and HWP a multiple of {_BN}; got {a.dtype}, {w_cm.dtype}, "
-            f"{shape}")
-    a, w_cm = a.contiguous(), w_cm.contiguous()
-    y = torch.empty(shape.BT, shape.COUT, shape.HWP, device=a.device,
-                    dtype=torch.bfloat16)
-    with torch.cuda.device(a.device):
-        err = cuda_lib.library("packed_conv").m3f_packed_conv(
-            a.data_ptr(), w_cm.data_ptr(), y.data_ptr(), _MODES[name], shape.BT,
-            shape.CIN, shape.COUT, shape.W, shape.HWP, shape.MARGIN,
-            cuda_lib.stream_ptr(a))
-    cuda_lib.check(err, f"{name} kernel")
+    """One launch of ablation kernel ``name`` (``ablation_plan``'s layout)
+    -> y [BT, COUT, HWP] bf16."""
+    a, w_cm = _card_inputs(name, shape, a, w_cm)
+    plan = ablation_plan(shape, name, sms=_sm_count(a.device))
+    y = call_ablation(cuda_lib.library("packed_conv").m3f_packed_ablate, shape, a,
+                      w_cm, plan)
     cuda_lib.launches[name] += 1
     return y
 

@@ -91,7 +91,18 @@ in the full-width ``fusion`` train step (32 clips, BN prologue on), beside:
   device copy of x and y; ablation builds ``-DPK_ABLATE``: without the
   products (1: copies, fragment loads, mask and stores, the byte floor),
   the mask (2), the y stores (4, the products kept live) and with one x
-  window for all three dy (8: the cost of the window reads).
+  window for all three dy (8: the cost of the window reads);
+- ``--kind packed_ablate``: the probe's two ablation kernels (row 10,
+  ``ablate_slabs_kernel``; row 11, ``ablate_matmul_kernel``) at the same
+  full shapes, every time a device time: in alternating rounds rows 10 and
+  11 through the wrappers, every layout of ``ablation_plan`` that fits
+  (row 11: ``packed_conv.MATMUL_LAYOUTS``; row 10: ring depths, one x
+  window a tile or one a dy) through
+  the C entry, ``--parent``'s rows 10 and 11 (an earlier
+  ``packed_conv.cu``'s ``m3f_packed_conv``), ``torch.matmul`` batched over
+  BT and a device copy of x and y; ablation builds ``-DPA_ABLATE``: without
+  the products (1, row 11), the mask (2, row 10), the y stores (4) and with
+  the rows >= COUT not formed (8, row 10).
 
 Run on a machine with an NVIDIA GPU, from the repository root:
 
@@ -110,6 +121,8 @@ Run on a machine with an NVIDIA GPU, from the repository root:
         [--parent build/parent/gru.cu]
     python -m m3f_torch.scripts.filter_sweep --kind packed [--check] \
         [--parent build/parent/packed_conv.cu]
+    python -m m3f_torch.scripts.filter_sweep --kind packed_ablate [--check] \
+        [--parent build/parent/packed_conv.cu]
 
 It prints the ``nvidia-smi`` card line, then one JSON line per shape with
 the median ms of ``--reps`` calls between CUDA events. ``--check`` instead
@@ -118,9 +131,9 @@ and holds the kernel once against the plain version at each shape and at a
 few small ones (``temporal_data``: at every layout the entry point takes;
 ``spatial_data``: at every step; ``spatial_fwd``: at every layout, filter
 resident and streamed; ``temporal_fwd``: at every layout; ``gru``: on
-both routes at the edge shapes too, and at every layout; ``packed``: every
-layout at small, edge and full shapes, and an x at an odd offset, which
-must raise).
+both routes at the edge shapes too, and at every layout; ``packed`` and
+``packed_ablate``: every layout at small, edge and full shapes, and an
+input one element off 16 bytes, which must give the plain version's y).
 Nothing runs at import.
 """
 
@@ -1510,18 +1523,46 @@ def check_packed() -> None:
             del got, again
         del x, w
         torch.cuda.empty_cache()
-    shape = PK_SMALL[1]
+    print(json.dumps({"kind": "packed", "odd_offset_view_within": odd_offset(
+        PK_SMALL[1], dev, g, ("packed_conv", "packed_conv_chunked"))}), flush=True)
+
+
+def odd_offset(shape, dev, g, names) -> Dict[str, dict]:
+    """Each of ``names`` on an input one element off 16 bytes (x_cm, or
+    p_const for ablate_matmul) against its plain version on the same
+    values; the control, y from the storage's aligned start (the inputs
+    shifted by one element), must fall outside the same check."""
     x, w = pk_inputs(shape, dev, g)
-    flat = torch.empty(x.numel() + 1, device=dev, dtype=torch.bfloat16)
-    odd = flat[1:].view(x.shape)
-    odd.copy_(x)
-    try:
-        packed_conv.packed_conv(odd, w, shape)
-        refused = None
-    except (ValueError, RuntimeError) as e:
-        refused = str(e)
-    print(json.dumps({"kind": "packed", "odd_offset_view_refused": refused}),
-          flush=True)
+    p = torch.randn(shape.K, shape.HWP, device=dev, generator=g).to(torch.bfloat16)
+    out = {}
+    for name in names:
+        a = p if name == "ablate_matmul" else x
+        flat = torch.empty(a.numel() + 1, device=dev, dtype=torch.bfloat16)
+        odd = flat[1:].view(a.shape)
+        odd.copy_(a)
+        fn = getattr(packed_conv, name)
+        got, shifted = fn(odd, w, shape), fn(flat[:-1].view(a.shape), w, shape)
+        out[name] = {"base_mod_16": odd.data_ptr() % 16,
+                     "within": pa_within(name, got, odd, w, shape),
+                     "control_within": pa_within(name, shifted, odd, w, shape)}
+    return out
+
+
+def pa_within(name: str, got, a, w, shape) -> bool:
+    """y of kernel ``name`` within its limit of the plain version on ``a``,
+    ``w``: the ablate_slabs copy bit for bit, ablate_matmul one bf16 ulp
+    of the fp32 product plus PK_TOL_REL of |W_cm|@|p_const| and PK_TOL_ABS,
+    the conv ``pk_within``'s limit."""
+    if name == "ablate_slabs":
+        return torch.equal(got.view(torch.int16), packed_conv.ablate_slabs_reference(
+            a, w, shape).view(torch.int16))
+    if name == "ablate_matmul":
+        ref = torch.matmul(w.float(), a.float())
+        lim = PK_TOL_REL * torch.matmul(w.float().abs(), a.float().abs()) \
+            + PK_TOL_ABS + torch.exp2(torch.floor(torch.log2(
+                ref.abs().clamp_min(2.0 ** -126))) - 7)
+        return bool(((got.float() - ref).abs() <= lim).all())
+    return pk_within(got, a, w, shape)["err_over_limit"] <= 1.0
 
 
 def sweep_packed(reps: int, parent: Optional[str]) -> None:
@@ -1627,12 +1668,187 @@ def sweep_packed(reps: int, parent: Optional[str]) -> None:
         torch.cuda.empty_cache()
 
 
+# The ablations (rows 10 and 11, ablate_slabs_kernel and
+# ablate_matmul_kernel): the conv's shapes, every layout of
+# packed_conv.MATMUL_LAYOUTS (row 11) and every ring depth (row 10) that fits
+PA_ABLATIONS = {"no_products": 1, "no_mask": 2, "no_y_stores": 4,
+                "unread_rows_not_formed": 8}
+PA_BUILDS = {"no_products": "ablate_matmul", "no_mask": "ablate_slabs",
+             "no_y_stores": None, "unread_rows_not_formed": "ablate_slabs"}
+# the first design's C entry (an earlier packed_conv.cu's m3f_packed_conv,
+# modes 2 and 3, --parent)
+PA_PARENT_SIG = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+
+
+def pa_layouts(shape, name) -> Dict[str, "packed_conv.AblationPlan"]:
+    """Every layout of ``name`` that fits ``shape``: row 11 each of
+    MATMUL_LAYOUTS (the fewest N passes it fits), row 10 the planner's
+    windows in rings of 2-5 slots, and one window a dy (its deepest ring)."""
+    if name == "ablate_matmul":
+        plans = {f"imgs{m}": packed_conv.ablation_plan(shape, name, imgs=m)
+                 for m in packed_conv.MATMUL_LAYOUTS}
+    else:
+        plans = {f"stages{st}": packed_conv.ablation_plan(shape, name, stages=st)
+                 for st in range(2, 6)}
+        plans["windows3"] = packed_conv.ablation_plan(shape, name, windows=3)
+    return {k: v for k, v in plans.items() if v.fits}
+
+
+def _plan_row(plan) -> dict:
+    return {k: getattr(plan, k) for k in ("bn", "np", "imgs", "yt", "windows", "stages",
+                                          "smem", "items", "grid")}
+
+
+def pa_resources() -> None:
+    """What ptxas says of every build of packed_conv.cu's ablation kernels
+    (this source and each -DPA_ABLATE timing build): registers, spills,
+    shared memory, and its warnings (a wgmma pipeline it serialised)."""
+    src = str(cuda_lib.CSRC / "packed_conv.cu")
+    builds = {"kernel": [], **{n: [f"-DPA_ABLATE={k}"] for n, k in PA_ABLATIONS.items()}}
+    procs = {n: subprocess.Popen(
+        [cuda_lib._nvcc(), *cuda_lib.NVCC_FLAGS, "-Xptxas", "-v", *d, "-o",
+         "/dev/null", src], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True) for n, d in builds.items()}
+    for n, proc in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode:
+            raise RuntimeError(f"nvcc failed for {n}:\n{log}")
+        lines = log.splitlines()
+        for i, line in enumerate(lines):
+            if "Compiling entry function" in line and "ablat" in line:
+                name = line.split("'")[1]
+                print(json.dumps({"build": n, "kernel": name[name.index("ablat"):][:48],
+                                  "ptxas": [l.strip() for l in lines[i + 1:i + 4]]}),
+                      flush=True)
+            elif "Performance Loss" in line and "ablat" in line:
+                print(json.dumps({"build": n, "ptxas_warning": line.strip()[:160],
+                                  "kernel": line.split("'")[-2][-48:]}), flush=True)
+
+
+def check_packed_ablate() -> None:
+    """ptxas' lines of every build, then rows 10 and 11 against their plain
+    versions at the small, edge and full shapes: through the wrapper (and
+    whether a second call repeats y bit for bit) and at every layout that
+    fits through the C entry, row 10 bit for bit; then an input at an odd
+    offset, which must give the plain version's y."""
+    dev = resolve_device("cuda")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    pa_resources()
+    cuda_lib.build(["packed_conv"])
+    entry = cuda_lib.library("packed_conv").m3f_packed_ablate
+    g = torch.Generator(device=dev).manual_seed(23)
+    for shape in PK_SMALL + tuple(PK_SHAPES.values()):
+        x, w = pk_inputs(shape, dev, g)
+        p = torch.randn(shape.K, shape.HWP, device=dev, generator=g).to(torch.bfloat16)
+        for name in packed_conv.ABLATIONS:
+            a = p if name == "ablate_matmul" else x
+            fn = getattr(packed_conv, name)
+            got, again = fn(a, w, shape), fn(a, w, shape)
+            torch.cuda.synchronize()
+            row = {"kind": "packed_ablate", "shape": str(shape), "name": name,
+                   "plan": _plan_row(packed_conv.ablation_plan(shape, name)),
+                   "wrapper": pa_within(name, got, a, w, shape),
+                   "repeats": torch.equal(got, again)}
+            for lname, lp in pa_layouts(shape, name).items():
+                y = packed_conv.call_ablation(entry, shape, a, w, lp)
+                torch.cuda.synchronize()
+                row[lname] = pa_within(name, y, a, w, shape)
+            row["within"] = all(v for k, v in row.items() if k == "wrapper"
+                                or k.startswith(("imgs", "stages", "windows")))
+            print(json.dumps(row), flush=True)
+            del got, again
+        del x, w, p
+        torch.cuda.empty_cache()
+    print(json.dumps({"kind": "packed_ablate", "odd_offset_view_within": odd_offset(
+        PK_SMALL[1], dev, g, packed_conv.ABLATIONS)}), flush=True)
+
+
+def sweep_packed_ablate(reps: int, parent: Optional[str]) -> None:
+    """At the probe's full shape (COUT 144, 128, 152 and 192), every time
+    a device time (``timed`` queued behind a spin): in alternating rounds
+    rows 10 and 11 through the wrappers, every layout that fits through the
+    C entry, ``--parent``'s rows 10 and 11 (an earlier packed_conv.cu's
+    ``m3f_packed_conv``), ``torch.matmul`` at row 11's product batched over
+    BT (its library call) and a device copy of x and y (row 10's bytes);
+    then the timing builds ``-DPA_ABLATE=``: 1 no products (row 11: loads,
+    staging and stores, the byte floor), 2 no mask (row 10), 4 no y stores
+    (both rows, the products kept live), 8 rows >= COUT not formed (row
+    10: what forming the rows nobody reads costs), at the planner's
+    layouts. Their outputs are wrong; they are timed only."""
+    dev = resolve_device("cuda")
+    cuda_lib.build(["packed_conv"])
+    entry = cuda_lib.library("packed_conv").m3f_packed_ablate
+    src = str(cuda_lib.CSRC / "packed_conv.cu")
+    built = build_variants(
+        {f"pa_{n}": f"PA_ABLATE={k}" for n, k in PA_ABLATIONS.items()},
+        "m3f_packed_ablate", {f"pa_{n}": src for n in PA_ABLATIONS},
+        cuda_lib.SIGNATURES["packed_conv"]["m3f_packed_ablate"])
+    old = None
+    if parent:
+        old = build_variants({"pa_parent": ""}, "m3f_packed_conv",
+                             {"pa_parent": parent}, PA_PARENT_SIG)["pa_parent"]
+    g = torch.Generator(device=dev).manual_seed(24)
+    for sname, shape in PK_SHAPES.items():
+        x, w = pk_inputs(shape, dev, g)
+        p = torch.randn(shape.K, shape.HWP, device=dev, generator=g).to(torch.bfloat16)
+        args = {"ablate_slabs": x, "ablate_matmul": p}
+        row10, row11 = (f"row{r}" for r in (10, 11))
+        fns = {row10: lambda: packed_conv.ablate_slabs(x, w, shape),
+               row11: lambda: packed_conv.ablate_matmul(p, w, shape)}
+        plans = {}
+        for name, a in args.items():
+            for lname, lp in pa_layouts(shape, name).items():
+                key = f"{'row10' if name == 'ablate_slabs' else 'row11'}_{lname}"
+                plans[key] = _plan_row(lp)
+                fns[key] = lambda lp=lp, a=a: packed_conv.call_ablation(
+                    entry, shape, a, w, lp)
+        if old is not None:
+            def parent_call(mode, a):
+                y = torch.empty(shape.BT, shape.COUT, shape.HWP, device=dev,
+                                dtype=torch.bfloat16)
+                cuda_lib.check(old(a.data_ptr(), w.data_ptr(), y.data_ptr(), mode,
+                                   shape.BT, shape.CIN, shape.COUT, shape.W,
+                                   shape.HWP, shape.MARGIN, cuda_lib.stream_ptr(x)),
+                               "parent ablation")
+                return y
+            fns["parent_row10"] = lambda: parent_call(2, x)
+            fns["parent_row11"] = lambda: parent_call(3, p)
+        p_bt = p.expand(shape.BT, -1, -1)
+        y = torch.empty(shape.BT, shape.COUT, shape.HWP, device=dev,
+                        dtype=torch.bfloat16)
+        xc, yc = torch.empty_like(x), torch.empty_like(y)
+        fns.update({"matmul_cm": lambda: torch.matmul(w, p_bt),
+                    "copy_x_y": lambda: (xc.copy_(x), yc.copy_(y))})
+        row = {"kind": "packed_ablate", "shape": sname, "cout": shape.COUT,
+               "plans": plans, "alternating_ms": alternating(fns, reps)}
+        for aname, fn in built.items():
+            for name in packed_conv.ABLATIONS:
+                if PA_BUILDS[aname[3:]] not in (None, name):
+                    continue
+                lp = packed_conv.ablation_plan(shape, name)
+                row[f"{aname[3:]}_{name}_ms"] = timed(
+                    lambda: packed_conv.call_ablation(fn, shape, args[name], w, lp),
+                    reps, queued=True)
+        flops = 2 * shape.BT * shape.HWP * shape.K * shape.COUT
+        slab_bytes = (x.numel() + y.numel()) * 2
+        mm_bytes = (p.numel() + w.numel() + y.numel()) * 2
+        row["bound_ms"] = {"row10": slab_bytes / HBM * 1e3,
+                           "row11": max(mm_bytes / HBM, flops / PEAK_BF16) * 1e3}
+        row["copy_bytes_per_s"] = 2 * slab_bytes / (
+            row["alternating_ms"]["copy_x_y"][0] / 1e3)
+        row["tflops"] = {k: flops / v[0] / 1e9 for k, v in row["alternating_ms"].items()
+                         if k.startswith(("row11", "parent_row11", "matmul"))}
+        print(json.dumps(row), flush=True)
+        del x, w, p, p_bt, y, xc, yc
+        torch.cuda.empty_cache()
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--kind", choices=("spatial", "temporal", "temporal_data",
                                        "spatial_data", "spatial_fwd",
                                        "temporal_fwd", "mel", "gru",
-                                       "packed"),
+                                       "packed", "packed_ablate"),
                     default="spatial")
     ap.add_argument("--reps", type=int, default=20)
     ap.add_argument("--check", action="store_true",
@@ -1643,7 +1859,9 @@ def main(argv=None) -> None:
                          "before the walk) is timed beside the kernel; gru: "
                          "a gru.cu whose m3f_gru_fwd is; packed: a "
                          "packed_conv.cu whose m3f_packed_conv (rows 9 and "
-                         "12, the first design) is")
+                         "12, the first design) is; packed_ablate: a "
+                         "packed_conv.cu whose m3f_packed_conv (rows 10 and "
+                         "11, modes 2 and 3) is")
     opts = ap.parse_args(argv)
     print(subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -1662,6 +1880,9 @@ def main(argv=None) -> None:
         check_gru() if opts.check else sweep_gru(opts.reps, opts.parent)
     elif opts.kind == "packed":
         check_packed() if opts.check else sweep_packed(opts.reps, opts.parent)
+    elif opts.kind == "packed_ablate":
+        check_packed_ablate() if opts.check \
+            else sweep_packed_ablate(opts.reps, opts.parent)
     elif opts.kind == "spatial_data":
         check_spatial_data() if opts.check else sweep_spatial_data(opts.reps)
     elif opts.check:
