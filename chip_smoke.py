@@ -72,6 +72,22 @@ H100 (``python3 chip_smoke.py``). It
    ``predict_video``'s, timed beside the serial loop; then the same weights
    with ``model.mel.n_fft`` = ``win_length`` = 400, whose request must go
    through the mel DFT route and not the FFT;
+   then the live-serving path on the same weights: ``Predictor.warmup``
+   (every input shape of a video up to 1024 frames, nominal and at 25 fps)
+   and ``SessionGroup.warmup``, timed; the 1024-frame video pushed a second
+   at a time through ``Predictor.stream`` at 30 and at 25 fps, covering
+   every frame once and in order, within STREAM_ATOL / STREAM_MEAN_ATOL of
+   its ``predict_video`` (push latency p50 / p99); 16 sessions fed tick by
+   tick through ``SessionGroup.push_many`` so that every batch bucket 1-16
+   occurs, beside two sessions at 25 and 27 fps batched at their own mel
+   hops, each within the same limits of its own ``predict_video``; an
+   in-process ``PredictServer``: ``/predict`` with an x-npy answer bit for
+   bit ``predict_video``'s, 4 concurrent HTTP streams within the limits,
+   ``/statz``; and ``utils.profiling.trace`` around one served video
+   (device time by kernel and by the host op that launched it, beside the
+   host time; the four forward kernels must be among its device events);
+   the stream and group phases set the counters to 0 just before and
+   require every forward kernel launched;
 4. runs the same weights of a narrow model through the port on the CPU
    (plain versions) and on the card (kernels) and compares the predictions;
 5. trains the full-width ``fusion`` preset (R(2+1)D-18, batch 8 x 4
@@ -143,6 +159,18 @@ TRAIN_PARAM_REL = 0.5    # ... and |params_card - params_cpu| (L2) within
 #                          (bf16 vs fp32 on the CPU: 0.23): a random-init
 #                          net training on batch statistics amplifies
 #                          one-ulp differences of its bf16 convs
+
+STREAM_ATOL = 1e-2       # a live stream (one W-window sequence a forward,
+STREAM_MEAN_ATOL = 1e-3  # or a SessionGroup batch of 1-16) against the same
+#                          video's predict_video (16 sequences a forward) on
+#                          the card, bf16: the two batchings may differ only
+#                          by the batch's effect on the summation order of
+#                          cuDNN's convs and the GEMMs (a bf16 ulp of an
+#                          activation here and there, carried to the tanh
+#                          outputs), well inside the 3e-2 / 5e-3 that hold
+#                          the card against the CPU's different arithmetic
+HTTP_STREAMS = 4         # concurrent HTTP streams in phase http_server
+TRACE_TOP = 15           # rows of the trace summary printed
 
 PEAK_BF16 = 989e12       # H100 SXM dense bf16 tensor rate, FLOP/s
 PEAK_FP32 = 67e12        # H100 SXM fp32 rate outside the tensor cores
@@ -1350,6 +1378,304 @@ def serve_many(torch, np, p, n_videos=3, pipeline=2):
           "serial_frames_per_s": frames / min(times["serial"])})
 
 
+def _push_chunks(np, frames, wav, fps, seconds=1.0, sr=16000):
+    """(frames, wav) chunks of ``seconds`` of a capture at ``fps``, then
+    the audio's tail."""
+    step = int(round(fps * seconds))
+    for i in range(0, len(frames), step):
+        a0, a1 = (int(round(f / fps * sr)) for f in (i, i + step))
+        if i + step >= len(frames):
+            a1 = len(wav)
+        yield frames[i:i + step], wav[a0:a1]
+
+
+def stream_within(np, got, want, what):
+    """A stream's emission against offline predictions: the limits, and
+    the numbers printed beside them."""
+    require(got.shape == want.shape, f"{what}: shape {got.shape} vs {want.shape}")
+    d = np.abs(got - want)
+    out = {"max_abs_diff": float(d.max()), "mean_abs_diff": float(d.mean()),
+           "bit_equal_frames": float((d.max(axis=1) == 0).mean())}
+    require(out["max_abs_diff"] <= STREAM_ATOL
+            and out["mean_abs_diff"] <= STREAM_MEAN_ATOL,
+            f"{what} vs predict_video: {out}")
+    return out
+
+
+def serve_stream(torch, np, cuda_lib, p, frames, wav, want, fps=None,
+                 kernels=FORWARD_KERNELS, phase="serve_stream"):
+    """One capture through ``p.stream(fps)``, a second of frames and audio
+    a push, then flush; the counters set to 0 just before. The emission
+    must cover every frame once, in order, and match ``predict_video``;
+    each push is timed on the host clock ending in a synchronise."""
+    cuda_lib.reset_launches()
+    sess = p.stream(fps=fps)
+    got, lat = [], []
+    t0 = time.perf_counter()
+    for f, w in _push_chunks(np, frames, wav, fps or 30.0):
+        t = time.perf_counter()
+        lo, pred = sess.push(frames=f, waveform=w)
+        torch.cuda.synchronize()
+        lat.append(time.perf_counter() - t)
+        require(lo == sum(len(g) for g in got),
+                f"{phase}: emission starts at {lo}, expected {sum(map(len, got))}")
+        got.append(pred)
+    lo, pred = sess.flush()
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    require(lo == sum(len(g) for g in got), f"{phase}: flush starts at {lo}")
+    got.append(pred)
+    counts = dict(cuda_lib.launches)
+    missing = [k for k in kernels if counts[k] == 0]
+    require(not missing, f"{phase}: kernels not launched: {missing}")
+    result = {"phase": phase, "frames": len(frames), "fps": fps or 30.0,
+              "pushes": len(lat), "latency_frames": sess.latency_frames,
+              **stream_within(np, np.concatenate(got), want, phase),
+              "tol_max": STREAM_ATOL, "tol_mean": STREAM_MEAN_ATOL,
+              "push_p50_ms": float(np.percentile(lat, 50)) * 1e3,
+              "push_p99_ms": float(np.percentile(lat, 99)) * 1e3,
+              "s": dt, "frames_per_s": len(frames) / dt, "launches": counts}
+    emit(result)
+    return result
+
+
+# 30 fps sessions of phase session_group starting at each tick (one push
+# of 64 frames a tick, 4 pushes of a 256-frame video; a session readies one
+# group at its 2nd, 3rd and 4th push): ticks then carry 1, 2, 4, 5, 9 and
+# 4 groups, so the batches pad to every bucket 1, 2, 4, 8, 16. Beside them,
+# from tick 0, one session at each off rate: their groups share batches
+# of the dynamic-hop schema, each entry framed at its own mel hop
+GROUP_STARTS = {0: 1, 4: 2, 8: 4, 12: 5, 14: 4}
+GROUP_OFF_RATES = (25.0, 27.0)
+
+
+def session_group(torch, np, cuda_lib, SessionGroup, p, n_frames=256,
+                  kernels=FORWARD_KERNELS):
+    """16 sessions on 16 seeded 30 fps videos fed tick by tick through
+    ``push_many`` so that every batch bucket 1-16 occurs, beside one
+    session at each of ``GROUP_OFF_RATES`` whose groups share batches at
+    their own mel hops; each session's emission must match its own
+    ``predict_video``. Returns the 30 fps videos and their offline
+    predictions."""
+    n = sum(GROUP_STARTS.values())
+    fps = [30.0] * n + list(GROUP_OFF_RATES)
+    videos = [synthetic_video(np, n_frames, r, seed=100 + i)
+              for i, r in enumerate(fps)]
+    offline = [p.predict_video(frames=f, waveform=w,
+                               fps=None if r == 30.0 else r)["pred"]
+               for (f, w), r in zip(videos, fps)]
+    group = SessionGroup(p, max_batch=16)
+    sizes, hops = [], []
+    fwd = group._fwd
+
+    def recording(feed):
+        if "hop" in feed:
+            hops.append(feed["hop"].tolist())
+        else:
+            sizes.append(len(feed["video"]))
+        return fwd(feed)
+    group._fwd = recording
+    begin = [tick for tick, k in sorted(GROUP_STARTS.items())
+             for _ in range(k)] + [0] * len(GROUP_OFF_RATES)
+    sessions = [group.open(fps=None if r == 30.0 else r) for r in fps]
+    chunks = [list(_push_chunks(np, f, w, r, seconds=64 / r))
+              for (f, w), r in zip(videos, fps)]
+    got = [[] for _ in sessions]
+    ticks = []
+    cuda_lib.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for tick in range(max(GROUP_STARTS) + 4):
+        pushes = {}
+        for i, s in enumerate(sessions):
+            j = tick - begin[i]
+            if 0 <= j < len(chunks[i]):
+                pushes[s] = {"frames": chunks[i][j][0], "waveform": chunks[i][j][1]}
+        t = time.perf_counter()
+        outs = group.push_many(pushes)
+        torch.cuda.synchronize()
+        ticks.append(time.perf_counter() - t)
+        for i, s in enumerate(sessions):
+            if s in outs:
+                got[i].append(outs[s][1])
+    for i, s in enumerate(sessions):
+        got[i].append(group.flush(s)[1])
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = dict(cuda_lib.launches)
+    missing = [k for k in kernels if counts[k] == 0]
+    require(not missing, f"session_group: kernels not launched: {missing}")
+    require({1, 2, 4, 8, 16} <= set(sizes), f"session_group batches {sizes}")
+    require(any(len(set(h)) == len(GROUP_OFF_RATES) for h in hops),
+            f"session_group: no batch held every off rate's hop: {hops}")
+    diffs = [stream_within(np, np.concatenate(g), want, f"session {i}")
+             for i, (g, want) in enumerate(zip(got, offline))]
+    emit({"phase": "session_group", "sessions": n,
+          "off_rate_sessions": list(GROUP_OFF_RATES), "frames_each": n_frames,
+          "batches": sizes, "dynamic_hop_batches": hops, "ticks": len(ticks),
+          "tick_ms": [t * 1e3 for t in ticks],
+          "max_abs_diff": max(d["max_abs_diff"] for d in diffs),
+          "mean_abs_diff": max(d["mean_abs_diff"] for d in diffs),
+          "bit_equal_frames": min(d["bit_equal_frames"] for d in diffs),
+          "tol_max": STREAM_ATOL, "tol_mean": STREAM_MEAN_ATOL,
+          "s": dt, "frames_per_s": len(fps) * n_frames / dt, "launches": counts})
+    return videos[:n], offline[:n]
+
+
+def _http(url, body=None, headers=None, timeout=120):
+    import urllib.request
+    req = urllib.request.Request(url, data=body, headers=headers or {})
+    with urllib.request.urlopen(req, timeout=timeout) as r:
+        return r.read()
+
+
+def _npz(np, **arrays):
+    import io
+    buf = io.BytesIO()
+    np.savez(buf, **arrays)
+    return buf.getvalue()
+
+
+def http_server(torch, np, PredictServer, p, frames, wav, want, videos, offline):
+    """An in-process PredictServer on an OS-assigned port: /predict with an
+    x-npy answer on the 1024-frame video, bit for bit ``predict_video``'s;
+    then ``HTTP_STREAMS`` streams pushed at once from threads, each
+    matching its own ``predict_video``; /statz's latency and batches."""
+    import io
+    import threading
+    srv = PredictServer(p, port=0)
+    thread = srv.start_background()
+    base = f"http://127.0.0.1:{srv.port}"
+    try:
+        body = _npz(np, frames=frames, waveform=wav)
+        t0 = time.perf_counter()
+        pred = np.load(io.BytesIO(_http(base + "/predict", body,
+                                        {"Accept": "application/x-npy"})))
+        predict_s = time.perf_counter() - t0
+        require(np.array_equal(pred, want), "/predict differs from predict_video")
+        results, errors = [None] * HTTP_STREAMS, []
+
+        def run(i):
+            try:
+                sid = json.loads(_http(base + "/stream/open", b""))["id"]
+                got = []
+                for f, w in _push_chunks(np, *videos[i], 30.0):
+                    out = json.loads(_http(f"{base}/stream/{sid}/push",
+                                           _npz(np, frames=f, waveform=w)))
+                    got.append(np.asarray(out["pred"], np.float32).reshape(-1, 2))
+                out = json.loads(_http(f"{base}/stream/{sid}/flush", b""))
+                got.append(np.asarray(out["pred"], np.float32).reshape(-1, 2))
+                results[i] = np.concatenate(got)
+            except Exception as e:  # noqa: BLE001 — reported below
+                errors.append(f"stream {i}: {type(e).__name__}: {e}")
+
+        threads = [threading.Thread(target=run, args=(i,))
+                   for i in range(HTTP_STREAMS)]
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=300)
+        streams_s = time.perf_counter() - t0
+        require(not any(t.is_alive() for t in threads), "an HTTP stream hung")
+        require(not errors, f"HTTP streams failed: {errors}")
+        diffs = [stream_within(np, r, offline[i], f"HTTP stream {i}")
+                 for i, r in enumerate(results)]
+        statz = json.loads(_http(base + "/statz"))
+    finally:
+        srv.shutdown()
+        thread.join(timeout=30)
+    emit({"phase": "http_server", "predict_frames": len(frames),
+          "predict_bytes": len(body), "predict_s": predict_s,
+          "streams": HTTP_STREAMS, "streams_s": streams_s,
+          "max_abs_diff": max(d["max_abs_diff"] for d in diffs),
+          "mean_abs_diff": max(d["mean_abs_diff"] for d in diffs),
+          "tol_max": STREAM_ATOL, "tol_mean": STREAM_MEAN_ATOL,
+          "latency": statz["latency"],
+          "micro_batch_hist": statz["micro_batch_hist"],
+          "bytes_in": statz["bytes_in"]})
+
+
+TRACE_KERNELS = {"melspec": "log_mel_kernel", "gru": "gru_cluster_kernel",
+                 "conv_spatial": "spatial_fwd_kernel",
+                 "conv_temporal": "temporal_fwd_kernel"}
+
+
+def device_ms_by_op(trace_dir, device_cats):
+    """Device ms of the newest trace under ``trace_dir`` by the host op
+    that launched each device event: the outermost op around its launch
+    with that op's first input's shape, or, where no op was around it (the
+    port's kernels, launched through ctypes), the kernel's name. Returns
+    ({op: [ms, count]}, {(op, shape): [ms, count]})."""
+    import glob
+    import gzip
+    path = max(glob.glob(os.path.join(trace_dir, "**", "*.trace.json.gz"),
+                         recursive=True), key=os.path.getmtime)
+    with gzip.open(path) as f:
+        events = [e for e in json.load(f)["traceEvents"] if e.get("ph") == "X"]
+    launch = {e["args"]["correlation"]: e for e in events
+              if e.get("cat") == "cuda_runtime" and "correlation" in e.get("args", {})}
+    ops = [e for e in events if e.get("cat") == "cpu_op"]
+    by_op, by_shape = {}, {}
+    for e in events:
+        if e.get("cat") not in device_cats or not e.get("dur"):
+            continue
+        r = launch.get(e.get("args", {}).get("correlation"))
+        around = [o for o in ops if r is not None and o["tid"] == r["tid"]
+                  and o["ts"] <= r["ts"] <= o["ts"] + o["dur"]]
+        if around:
+            o = max(around, key=lambda o: o["dur"])
+            name = o["name"]
+            dims = o.get("args", {}).get("Input Dims") or [[]]
+            shape = str(dims[0])
+        else:
+            name, shape = e["name"][:60], ""
+        for table, key in ((by_op, name), (by_shape, (name, shape))):
+            row = table.setdefault(key, [0.0, 0])
+            row[0] += e["dur"] / 1e3
+            row[1] += 1
+    return by_op, by_shape
+
+
+def trace_serve(torch, np, profiling, p, frames, wav, trace_dir):
+    """``profiling.trace`` around one ``predict_video`` of the 1024-frame
+    video: the device time by op (top ``TRACE_TOP``) and in all beside the
+    host time, and the time of the four kernels against the rest; every
+    kernel of the path must be among the device events."""
+    import shutil
+    shutil.rmtree(trace_dir, ignore_errors=True)
+    torch.cuda.synchronize()
+    with profiling.trace(trace_dir):
+        t0 = time.perf_counter()
+        p.predict_video(frames=frames, waveform=wav)
+        torch.cuda.synchronize()
+        host_s = time.perf_counter() - t0
+    rows = profiling.summarize_trace(trace_dir, top=10 ** 6, group=False)
+    device_ms = profiling.device_total_ms(trace_dir)
+    names = [r["op"] for r in rows]
+    missing = [k for k, kern in TRACE_KERNELS.items()
+               if not any(kern in n for n in names)]
+    require(not missing, f"trace_serve: no device event of {missing}")
+    ours = sum(r["ms"] for r in rows
+               if any(k in r["op"] for k in TRACE_KERNELS.values()))
+    copies = sum(r["ms"] for r in rows if r["op"].startswith("Memcpy"))
+    by_op, by_shape = device_ms_by_op(trace_dir, profiling.DEVICE_CATS)
+    by_op = sorted(by_op.items(), key=lambda kv: -kv[1][0])
+    by_shape = sorted(by_shape.items(), key=lambda kv: -kv[1][0])
+    emit({"phase": "trace_serve", "frames": len(frames), "host_ms": host_s * 1e3,
+          "device_ms": device_ms, "idle_share": 1 - device_ms / (host_s * 1e3),
+          "kernels_ms": ours, "memcpy_ms": copies,
+          "rest_ms": device_ms - ours - copies, "device_ops": len(rows),
+          "top": [{"op": r["op"][:100], "ms": r["ms"],
+                   "percent": r["percent"], "count": r["count"]}
+                  for r in rows[:TRACE_TOP]],
+          "by_launching_op": [{"op": k, "ms": v[0], "count": v[1]}
+                              for k, v in by_op[:TRACE_TOP]],
+          "by_launching_op_and_shape": [
+              {"op": k[0], "input": k[1], "ms": v[0], "count": v[1]}
+              for k, v in by_shape[:TRACE_TOP]]})
+
+
 def train_fusion(torch, np, cuda_lib, config, Trainer, data):
     """The full-width fusion preset trains on the card through Trainer.fit:
     2 warm steps, then a second fit of 10 steps whose launches must be
@@ -1472,8 +1798,9 @@ def main():
         from m3f_torch.config import MelConfig
         from m3f_torch.data.synthetic import SyntheticAVDataset
         from m3f_torch.data.windowing import WindowSequencer, example_stream
-        from m3f_torch.infer import Predictor
+        from m3f_torch.infer import Predictor, PredictServer, SessionGroup
         from m3f_torch.train.loop import Trainer
+        from m3f_torch.utils import profiling
     except ImportError as e:
         print(f"chip_smoke: the m3f_torch package is not next to this file "
               f"({e})", file=sys.stderr)
@@ -1523,7 +1850,8 @@ def main():
           "s": dt, "frames_per_s": 1024 / dt,
           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9})
     frames25, wav25 = synthetic_video(np, 1024, 25.0, seed=1)
-    _, counts25, dt25 = serve(torch, np, cuda_lib, p, frames25, wav25, fps=25.0)
+    pred25, counts25, dt25 = serve(torch, np, cuda_lib, p, frames25, wav25,
+                                   fps=25.0)
     emit({"phase": "serve_25fps", "frames": 1024, "launches": counts25,
           "s": dt25, "frames_per_s": 1024 / dt25})
     pc = Predictor(preset="longseq_eval",
@@ -1536,6 +1864,24 @@ def main():
           "s": dtc, "frames_per_s": 1024 / dtc,
           "max_abs_diff_vs_fused": diff_c, "tol": CHUNK_ATOL})
     serve_many(torch, np, p)
+
+    # 3b. live serving: warmup, streams, a session group, the HTTP server,
+    # and a trace of one served video
+    t0 = time.perf_counter()
+    p.warmup(max_frames=1024, rates=(25.0,))
+    warm_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    SessionGroup(p, max_batch=16).warmup(rates=(25.0,))
+    emit({"phase": "warmup", "max_frames": 1024, "rates": [25.0],
+          "predictor_s": warm_s, "group_s": time.perf_counter() - t0})
+    serve_stream(torch, np, cuda_lib, p, frames, wav, pred30)
+    serve_stream(torch, np, cuda_lib, p, frames25, wav25, pred25, fps=25.0,
+                 phase="serve_stream_25fps")
+    videos, offline = session_group(torch, np, cuda_lib, SessionGroup, p)
+    http_server(torch, np, PredictServer, p, frames, wav, pred30, videos,
+                offline)
+    trace_serve(torch, np, profiling, p, frames, wav,
+                os.path.join(repo, "build", "trace_serve"))
     # the same weights with a mel n_fft of 400: the DFT route, not the FFT
     p400 = Predictor(preset="longseq_eval", overrides={
         f"model.mel.{k}": v for k, v in mel400.items()})

@@ -264,6 +264,14 @@ def log_mel_spectrogram_reference(waveform: torch.Tensor, cfg: MelConfig,
 # Entry point: plain version on the CPU, the CUDA kernel on the card
 # ---------------------------------------------------------------------------
 
+def row_hops(hop: torch.Tensor, lead) -> torch.Tensor:
+    """One hop per row of a ``[*lead, samples]`` wav, contiguous: ``hop``
+    broadcast over the leading dims from the left, as the plain version's
+    framing does (a batch's ``[B]`` hops over its ``[B, W]`` windows)."""
+    hop = hop.reshape(hop.shape + (1,) * (len(lead) - hop.ndim))
+    return hop.expand(tuple(lead)).reshape(-1).contiguous()
+
+
 def log_mel_spectrogram(waveform: torch.Tensor, cfg: MelConfig,
                         out_dtype: torch.dtype = torch.float32,
                         hop: Union[None, int, torch.Tensor] = None,
@@ -297,8 +305,7 @@ def log_mel_spectrogram(waveform: torch.Tensor, cfg: MelConfig,
             raise ValueError("dynamic hop needs cfg.center and n_frames_out")
         n_fr = n_frames_out
         if isinstance(hop, torch.Tensor):
-            hops = (hop.to(device=x.device, dtype=torch.int32)
-                    .expand(lead).reshape(-1).contiguous())
+            hops = row_hops(hop.to(device=x.device, dtype=torch.int32), lead)
             hop0 = hop_max = int(hops.max())
         else:
             hop0 = hop_max = int(hop)

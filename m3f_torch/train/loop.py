@@ -23,14 +23,20 @@ Counterpart of ``m3f/pytorch_tpu/train/loop.py``:
   - videos with more than ``window.eval_max_windows`` windows go in chunks
     of that many windows whose partial sums accumulate on the host.
 
+``make_eval_forward`` is the streaming sessions' group forward (a host
+feed of W-window sequences → per-frame predictions). ``fit`` traces steps
+start+2 to start+12 into ``train.profile_dir`` (``utils/profiling.trace``)
+when it is set.
+
 Not ported yet, and refused rather than ignored: ``model.dropout > 0``,
 ``data.augment`` and ``model.init_from`` (ROADMAP: dropout, augment and
-init_from); ``train.profile_dir``, ``train.debug_nans`` and a
-``metric_writer`` (ROADMAP: CLI and tooling).
+init_from); ``train.debug_nans`` and a ``metric_writer`` (ROADMAP: CLI and
+tooling).
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import time
 from typing import Any, Callable, Dict, List, Optional, Tuple
@@ -47,6 +53,7 @@ from m3f_torch.ops.stitch import (coverage_matrix, smooth_moving_average,
                                   stitch_framewise, stitch_framewise_sums,
                                   window_starts)
 from m3f_torch.train.optim import global_norm, make_optimizer
+from m3f_torch.utils.profiling import trace
 
 # window-count granularity of a dispatch, in W-window sequences: the
 # reference's 8·n_data/gcd(8, n_data) with one data device
@@ -243,6 +250,19 @@ class Trainer:
             e.copy_(e * dd + params[n] * (1.0 - dd))
 
     # -- whole-video eval ---------------------------------------------------
+
+    def make_eval_forward(self) -> Callable[[Dict[str, np.ndarray]],
+                                            torch.Tensor]:
+        """Eval forward of a batch of W-window sequences: a host feed
+        {video [b, W, L, S, S, 3] uint8, wav [b, W, spw], hop [b] (a
+        dynamic-hop batch: each entry's own mel hop)}, as the model needs,
+        is uploaded and run through the model's no-grad forward with its
+        own weights → [b, W, L, 2] on the device."""
+        def fwd(feed: Dict[str, np.ndarray]) -> torch.Tensor:
+            dev = {k: self._to_device(v) for k, v in feed.items()}
+            return self.model(video=dev.get("video"), wav=dev.get("wav"),
+                              mel=dev.get("mel"), hop=dev.get("hop"))
+        return fwd
 
     def _win_bucket(self) -> int:
         return self.cfg.window.windows_per_clip * _SEQ_BUCKET
@@ -525,13 +545,11 @@ class Trainer:
         cadences. Returns (state, history): ``loss`` and ``grad_norm`` at
         each log step, ``eval`` results at each eval."""
         tcfg = self.cfg.train
-        for name, value, item in (
-                ("metric_writer", metric_writer is not None, "CLI and tooling"),
-                ("train.profile_dir", bool(tcfg.profile_dir), "CLI and tooling"),
-                ("train.debug_nans", tcfg.debug_nans, "CLI and tooling")):
+        for name, value in (("metric_writer", metric_writer is not None),
+                            ("train.debug_nans", tcfg.debug_nans)):
             if value:
                 raise NotImplementedError(
-                    f"{name} is not ported yet (ROADMAP: {item})")
+                    f"{name} is not ported yet (ROADMAP: CLI and tooling)")
         num_steps = num_steps or tcfg.num_steps
         state = self.init_state(keep_weights=keep_weights)
         if checkpointer is not None:
@@ -550,59 +568,66 @@ class Trainer:
                        and not hasattr(train_stream, "__next__"))
         if owns_stream:
             train_stream = train_stream(start_step)
-        for i in range(start_step, num_steps):
-            host_batch = next(train_stream)
-            feed = {"labels": host_batch["labels"], "mask": host_batch["mask"]}
-            if use_v:
-                feed["video"] = host_batch["video"]
-            if use_a:
-                feed["wav"] = host_batch["wav"]
-                if "hop" in host_batch:
-                    feed["hop"] = host_batch["hop"]
-            metrics = self.train_step(state, feed)
-            seen += host_batch["labels"].shape[0] * host_batch["labels"].shape[1]
-            if (tcfg.log_every > 0 and (i + 1) % tcfg.log_every == 0) \
-                    or i + 1 == num_steps:
-                loss = float(metrics["loss"])
-                dt = time.time() - t0
-                history["loss"].append(loss)
-                history["grad_norm"].append(float(metrics["grad_norm"]))
-                log(f"step {i+1}/{num_steps} loss={loss:.4f} "
-                    f"batch_ccc={float(metrics['batch_ccc']):.4f} "
-                    f"clips/s={seen / dt:.1f}")
-                t0, seen = time.time(), 0
-            if (val_dataset is not None and tcfg.eval_every > 0
-                    and (i + 1) % tcfg.eval_every == 0):
-                ev = self.evaluate(state, dataset=val_dataset)
-                log(f"  eval @{i+1}: ccc_v={ev['ccc_v']:.4f} "
-                    f"ccc_a={ev['ccc_a']:.4f} "
-                    f"pooled_v={ev['pooled_ccc_v']:.4f} "
-                    f"pooled_a={ev['pooled_ccc_a']:.4f}")
-                history.setdefault("eval", []).append(ev)
-                if plateau is not None:
-                    _, hit = plateau.update(ev["ccc_select"], i + 1)
-                    if hit:
-                        cur = float(state.lr_mult)
-                        new = max(cur * ocfg.plateau_factor,
-                                  ocfg.plateau_min_scale)
-                        if new < cur:
-                            state.lr_mult = float(np.float32(new))
-                            log(f"  plateau @{i+1}: no "
-                                f"{tcfg.eval_ccc_convention} CCC improvement "
-                                f"for {plateau.bad_evals} evals — lr x "
-                                f"{ocfg.plateau_factor:g} (mult {new:.2e})")
-                        plateau.bad_evals = 0
-                is_best, should_stop = best.update(ev["ccc_select"], i + 1)
-                if is_best and checkpointer is not None:
-                    checkpointer.save_best(state, ev["ccc_select"])
-                if should_stop:
-                    log(f"early stop @{i+1}: no ccc_mean improvement for "
-                        f"{best.bad_evals} evals (best {best.best:.4f} "
-                        f"@step {best.best_step})")
-                    break
-            if (checkpointer is not None and tcfg.checkpoint_every > 0
-                    and (i + 1) % tcfg.checkpoint_every == 0):
-                checkpointer.save_async(state)
+        # a trace of steps start+2 to start+12: the first two build the
+        # kernels and warm the allocator
+        with contextlib.ExitStack() as profiling:
+            for i in range(start_step, num_steps):
+                if tcfg.profile_dir and i == start_step + 2:
+                    profiling.enter_context(trace(tcfg.profile_dir))
+                host_batch = next(train_stream)
+                feed = {"labels": host_batch["labels"], "mask": host_batch["mask"]}
+                if use_v:
+                    feed["video"] = host_batch["video"]
+                if use_a:
+                    feed["wav"] = host_batch["wav"]
+                    if "hop" in host_batch:
+                        feed["hop"] = host_batch["hop"]
+                metrics = self.train_step(state, feed)
+                seen += host_batch["labels"].shape[0] * host_batch["labels"].shape[1]
+                if i == start_step + 12:
+                    profiling.close()
+                if (tcfg.log_every > 0 and (i + 1) % tcfg.log_every == 0) \
+                        or i + 1 == num_steps:
+                    loss = float(metrics["loss"])
+                    dt = time.time() - t0
+                    history["loss"].append(loss)
+                    history["grad_norm"].append(float(metrics["grad_norm"]))
+                    log(f"step {i+1}/{num_steps} loss={loss:.4f} "
+                        f"batch_ccc={float(metrics['batch_ccc']):.4f} "
+                        f"clips/s={seen / dt:.1f}")
+                    t0, seen = time.time(), 0
+                if (val_dataset is not None and tcfg.eval_every > 0
+                        and (i + 1) % tcfg.eval_every == 0):
+                    ev = self.evaluate(state, dataset=val_dataset)
+                    log(f"  eval @{i+1}: ccc_v={ev['ccc_v']:.4f} "
+                        f"ccc_a={ev['ccc_a']:.4f} "
+                        f"pooled_v={ev['pooled_ccc_v']:.4f} "
+                        f"pooled_a={ev['pooled_ccc_a']:.4f}")
+                    history.setdefault("eval", []).append(ev)
+                    if plateau is not None:
+                        _, hit = plateau.update(ev["ccc_select"], i + 1)
+                        if hit:
+                            cur = float(state.lr_mult)
+                            new = max(cur * ocfg.plateau_factor,
+                                      ocfg.plateau_min_scale)
+                            if new < cur:
+                                state.lr_mult = float(np.float32(new))
+                                log(f"  plateau @{i+1}: no "
+                                    f"{tcfg.eval_ccc_convention} CCC improvement "
+                                    f"for {plateau.bad_evals} evals — lr x "
+                                    f"{ocfg.plateau_factor:g} (mult {new:.2e})")
+                            plateau.bad_evals = 0
+                    is_best, should_stop = best.update(ev["ccc_select"], i + 1)
+                    if is_best and checkpointer is not None:
+                        checkpointer.save_best(state, ev["ccc_select"])
+                    if should_stop:
+                        log(f"early stop @{i+1}: no ccc_mean improvement for "
+                            f"{best.bad_evals} evals (best {best.best:.4f} "
+                            f"@step {best.best_step})")
+                        break
+                if (checkpointer is not None and tcfg.checkpoint_every > 0
+                        and (i + 1) % tcfg.checkpoint_every == 0):
+                    checkpointer.save_async(state)
         if owns_stream and hasattr(train_stream, "close"):
             train_stream.close()
         if checkpointer is not None:

@@ -368,7 +368,10 @@ def _one_batch(cfg):
 
 @pytest.mark.parametrize("what", ["dropout", "augment", "init_from",
                                   "profile_dir", "debug_nans", "metric_writer"])
-def test_unported_features_raise(what):
+def test_unported_features_raise(what, tmp_path):
+    """Each feature not ported yet raises; ``profile_dir``, ported with the
+    profiling hooks, no longer does: a 3-step fit traces its third step
+    into it (tests/test_torch_profiling.py holds the window)."""
     cfg = _cfg(tc)
     if what == "dropout":
         cfg = dataclasses.replace(cfg, model=dataclasses.replace(cfg.model,
@@ -381,8 +384,13 @@ def test_unported_features_raise(what):
             cfg.model, init_from="weights.npz"))
     elif what in ("profile_dir", "debug_nans"):
         cfg = dataclasses.replace(cfg, train=dataclasses.replace(
-            cfg.train, **{what: "trace" if what == "profile_dir" else True}))
+            cfg.train, **{what: str(tmp_path) if what == "profile_dir"
+                          else True}))
     tr = Trainer(cfg, device="cpu")
+    if what == "profile_dir":
+        tr.fit(_one_batch(cfg), log=lambda s: None)
+        assert len(list(tmp_path.glob("*.pt.trace.json.gz"))) == 1
+        return
     writer = object() if what == "metric_writer" else None
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tr.fit(_one_batch(cfg), num_steps=1, log=lambda s: None,
