@@ -87,7 +87,17 @@ H100 (``python3 chip_smoke.py``). It
    (device time by kernel and by the host op that launched it, beside the
    host time; the four forward kernels must be among its device events);
    the stream and group phases set the counters to 0 just before and
-   require every forward kernel launched;
+   require every forward kernel launched; then checkpoint ensembles of the
+   same preset (phase ``serve_ensemble``): two members,
+   ``Trainer.commit_state(..., eval_only=True)`` snapshots of the seed-0
+   and seed-1 inits; ``predict_ensemble`` of [a] and of [a, a] must repeat
+   a's single prediction of the 1024-frame video bit for bit, and of
+   [a, b] the float64 mean of the two single tracks, with the counters set
+   to 0 just before it and exactly twice a served video's launches after;
+   ``evaluate_ensemble([a, b])`` over ``serve_many``'s three videos
+   (labels from seeds, a span invalid; phase ``eval_ensemble``): two
+   models, finite metrics, and ``write_submission`` into
+   ``build/submission/``, one file a video of 1025 lines;
 4. runs the same weights of a narrow model through the port on the CPU
    (plain versions) and on the card (kernels) and compares the predictions;
 5. trains the full-width ``fusion`` preset (R(2+1)D-18, batch 8 x 4
@@ -96,9 +106,16 @@ H100 (``python3 chip_smoke.py``). It
    (from the seed again) with the counters set to 0 just before; each
    kernel must have launched exactly its per-step count times 10, loss and
    grad norm must be finite and the params must move (s/step between the
-   ends of the first and last step, clips/s, peak memory); then 3 steps of a
-   narrow model on the CPU and on the card, from the same weights and
-   batches, compared;
+   ends of the first and last step, clips/s, peak memory); the same preset
+   with ``model.dropout=0.1`` and ``data.augment=true`` (phase
+   ``train_fusion_options``): 10 steps with exactly the same launches, a
+   finite loss that differs from the plain fit's, and a second fit from
+   the seed repeating its losses bit for bit (step time beside the plain
+   one's); ``model.init_from`` (phase ``init_from``): an ``r2plus1d``-kind
+   file written from the seed-0 model's ``visual.*``, loaded by a trainer
+   seeded 1, whose step-0 ``visual.*`` must be the file's and every other
+   tensor its own seed's; then 3 steps of a narrow model on the CPU and
+   on the card, from the same weights and batches, compared;
 6. prints the ``kernels`` line, the card line and, last,
    ``{"ok": true, "device": {...}}``.
 
@@ -1676,6 +1693,191 @@ def trace_serve(torch, np, profiling, p, frames, wav, trace_dir):
               for k, v in by_shape[:TRACE_TOP]]})
 
 
+def _video_dict(np, frames, wav, seed):
+    """A video for ``Trainer``'s eval: the frames and wav, labels in
+    [-1, 1] from ``seed`` and a span of frames marked invalid."""
+    rng = np.random.RandomState(seed)
+    n = len(frames)
+    valid = np.ones(n, bool)
+    valid[n // 3:n // 3 + 40] = False
+    return {"frames": frames, "waveform": wav, "valid": valid,
+            "labels": rng.uniform(-1, 1, (n, 2)).astype(np.float32)}
+
+
+def serve_ensemble(torch, np, cuda_lib, Trainer, cfg, frames, wav, counts1):
+    """Two ensemble members, ``commit_state(..., eval_only=True)`` snapshots
+    of the seed-0 and seed-1 inits of a ``Trainer`` of ``cfg``: the
+    ensembles [a] and [a, a] repeat a's single prediction bit for bit, and
+    [a, b] is bit for bit the float64 mean of the two single tracks, with
+    exactly twice a served video's launches (``counts1``). Returns the
+    trainer and the members."""
+    tr = Trainer(cfg)
+    a = tr.commit_state(tr.init_state(seed=0), eval_only=True)
+    b = tr.commit_state(tr.init_state(seed=1), eval_only=True)
+    video = _video_dict(np, frames, wav, seed=0)
+    single_a = tr.evaluate_video(a, video)["pred"]
+    single_b = tr.evaluate_video(b, video)["pred"]
+    require(not np.array_equal(single_a, single_b),
+            "the seed-0 and seed-1 members predict the same")
+    for members in ([a], [a, a]):
+        got = tr.predict_ensemble(members, video)
+        require(np.array_equal(got, single_a),
+                f"ensemble of {len(members)} x a differs from a by "
+                f"{float(np.abs(got - single_a).max())}")
+    mean = np.mean([single_a, single_b], axis=0, dtype=np.float64
+                   ).astype(np.float32)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    cuda_lib.reset_launches()
+    t0 = time.perf_counter()
+    ens = tr.predict_ensemble([a, b], video)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = dict(cuda_lib.launches)
+    want = {k: 2 * v for k, v in counts1.items()}
+    require(counts == want, f"ensemble launches {counts}, expected {want}")
+    require(ens.shape == (len(frames), 2) and bool(np.isfinite(ens).all()),
+            f"ensemble prediction {ens.shape}")
+    require(np.array_equal(ens, mean), "ensemble [a, b] is not the float64 "
+            f"mean of a and b: {float(np.abs(ens - mean).max())}")
+    emit({"phase": "serve_ensemble", "frames": len(frames), "members": 2,
+          "launches": counts, "s": dt, "frames_per_s": len(frames) / dt,
+          "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+          "max_abs_a_minus_b": float(np.abs(single_a - single_b).max())})
+    return tr, a, b
+
+
+def eval_ensemble(torch, np, write_submission, tr, a, b, out_dir,
+                  n_videos=3, n_frames=1024):
+    """``evaluate_ensemble([a, b])`` over ``serve_many``'s synthetic videos
+    (labels from seeds, a span invalid): ``n_models`` 2 and finite metrics;
+    the mean tracks then go through ``write_submission`` into ``out_dir``:
+    one file a video, each of ``n_frames + 1`` lines."""
+    videos = {f"video_{i}": _video_dict(
+        np, *synthetic_video(np, n_frames, 30.0, seed=10 + i), seed=20 + i)
+        for i in range(n_videos)}
+
+    class Split:
+        def video_ids(self):
+            return list(videos)
+
+        def load_video(self, vid):
+            return videos[vid]
+    preds = {}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = tr.evaluate_ensemble(
+        [a, b], Split(), per_video_fn=lambda vid, r: preds.update({vid: r["pred"]}))
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    keys = ("ccc_v", "ccc_a", "ccc_mean", "pooled_ccc_v", "pooled_ccc_a",
+            "pooled_ccc_mean", "ccc_select")
+    require(res["n_models"] == 2 and all(math.isfinite(res[k]) for k in keys),
+            f"evaluate_ensemble: {res}")
+    if os.path.isdir(out_dir):
+        for f in os.listdir(out_dir):
+            os.unlink(os.path.join(out_dir, f))
+    write_submission(out_dir, preds,
+                     {vid: v["valid"] for vid, v in videos.items()})
+    files = sorted(os.listdir(out_dir))
+    require(files == sorted(f"{vid}.txt" for vid in videos),
+            f"submission files {files}")
+    for f in files:
+        with open(os.path.join(out_dir, f)) as fh:
+            lines = fh.read().splitlines()
+        require(len(lines) == n_frames + 1 and lines[0] == "valence,arousal",
+                f"{f}: {len(lines)} lines, header {lines[:1]}")
+    emit({"phase": "eval_ensemble", "videos": n_videos, "frames_each": n_frames,
+          "members": 2, "s": dt, "frames_per_s": n_videos * n_frames / dt,
+          "submission_files": len(files),
+          **{k: res[k] for k in keys}})
+
+
+def train_fusion_options(torch, np, cuda_lib, config, Trainer, data,
+                         counts_train, plain, overrides=None, steps=10):
+    """The full-width fusion preset with ``model.dropout=0.1`` and
+    ``data.augment=true``: 2 warm steps, then two fits of ``steps`` from the
+    seed. The first has the counters set to 0 just before; its launches
+    must be ``train_fusion``'s (``counts_train``), its losses finite and
+    different from ``train_fusion``'s (``plain``: its losses and step
+    time); the second must repeat its losses bit for bit."""
+    cfg = config.apply_overrides(config.fusion(), {
+        "train.log_every": 1, "model.dropout": 0.1, "data.augment": True,
+        **(overrides or {})})
+    tr = Trainer(cfg)
+    stream = synthetic_stream(np, cfg, *data, seed=0)
+    tr.fit(stream, num_steps=2, log=lambda s: None)             # warm
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    cuda_lib.reset_launches()
+    ends = []
+    t0 = time.perf_counter()
+    _, hist = tr.fit(stream, num_steps=steps,
+                     log=lambda s: ends.append(time.perf_counter()))
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = dict(cuda_lib.launches)
+    step_s = (ends[-1] - ends[0]) / (steps - 1)
+    require(counts == counts_train,
+            f"train launches with the options {counts}, expected {counts_train}")
+    loss = hist["loss"]
+    require(len(loss) == steps and all(math.isfinite(v) for v in loss),
+            f"train loss with the options {loss}")
+    _, again = tr.fit(stream, num_steps=steps, log=lambda s: None)
+    require(again["loss"] == loss,
+            f"a second fit from the seed gave {again['loss']}, not {loss}")
+    require(loss != plain["loss"],
+            "the losses with dropout and augmentation are the plain fit's")
+    clips = cfg.train.batch_size * cfg.window.windows_per_clip
+    emit({"phase": "train_fusion_options", "dropout": cfg.model.dropout,
+          "augment": cfg.data.augment, "steps": steps, "launches": counts,
+          "s": dt, "s_per_step": step_s, "clips_per_s": clips / step_s,
+          "plain_s_per_step": plain["s_per_step"],
+          "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+          "loss": loss, "plain_loss": plain["loss"],
+          "repeats_bit_for_bit": True})
+
+
+def init_from(torch, config, Trainer, save_pytree, to_jax_params, path,
+              overrides=None):
+    """``model.init_from``: an ``r2plus1d``-kind file written from the
+    seed-0 fusion model's ``visual.*``; a fusion ``Trainer`` seeded 1 with
+    it set starts (step 0) with the file's ``visual.*`` and every other
+    tensor of its own seed's init."""
+    cfg0 = config.apply_overrides(config.fusion(), overrides or {})
+    src = Trainer(cfg0).model
+    leaves = {}
+    for group, tensors in (("params", dict(src.named_parameters())),
+                           ("state", dict(src.named_buffers()))):
+        visual = {n[len("visual."):]: t for n, t in tensors.items()
+                  if n.startswith("visual.")}
+        leaves.update({f"{group}/{k}": v
+                       for k, v in to_jax_params(visual).items()})
+    save_pytree(leaves, path, {"kind": "r2plus1d"})
+    want_visual = {n: t.detach().clone() for n, t in src.state_dict().items()
+                   if n.startswith("visual.")}
+    del src
+    cfg1 = config.apply_overrides(cfg0, {"train.seed": 1})
+    seeded = Trainer(cfg1).init_state()
+    own = {n: t.detach().clone() for n, t in
+           {**seeded.params, **seeded.bn_state}.items()}
+    tr = Trainer(config.apply_overrides(cfg1, {"model.init_from": path}))
+    state = tr.init_state()
+    require(state.step == 0, f"init_from state at step {state.step}")
+    tensors = {**state.params, **state.bn_state}
+    require(tensors.keys() == own.keys(), "init_from changed the state's names")
+    bad_v = [n for n in want_visual if not torch.equal(tensors[n], want_visual[n])]
+    bad_o = [n for n in own if not n.startswith("visual.")
+             and not torch.equal(tensors[n], own[n])]
+    require(not bad_v, f"visual.* not the file's: {bad_v[:5]}")
+    require(not bad_o, f"tensors outside visual.* not the seed's: {bad_o[:5]}")
+    moved = sum(not torch.equal(want_visual[n], own[n]) for n in want_visual)
+    require(moved > 0, "the file's visual.* equal the seed-1 init (no control)")
+    emit({"phase": "init_from", "kind": "r2plus1d",
+          "visual_tensors": len(want_visual), "other_tensors":
+          len(own) - len(want_visual), "visual_differing_from_seed": moved})
+
+
 def train_fusion(torch, np, cuda_lib, config, Trainer, data):
     """The full-width fusion preset trains on the card through Trainer.fit:
     2 warm steps, then a second fit of 10 steps whose launches must be
@@ -1720,7 +1922,7 @@ def train_fusion(torch, np, cuda_lib, config, Trainer, data):
           "clips_per_s": clips / step_s,
           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
           "loss": loss, "grad_norm": gnorm, "max_param_move": moved})
-    return counts
+    return counts, {"loss": loss, "s_per_step": step_s}
 
 
 def train_parity(torch, np, cuda_lib, config, Trainer, data):
@@ -1799,6 +2001,8 @@ def main():
         from m3f_torch.data.synthetic import SyntheticAVDataset
         from m3f_torch.data.windowing import WindowSequencer, example_stream
         from m3f_torch.infer import Predictor, PredictServer, SessionGroup
+        from m3f_torch.infer.submission import write_submission
+        from m3f_torch.train.checkpoint import save_pytree, to_jax_params
         from m3f_torch.train.loop import Trainer
         from m3f_torch.utils import profiling
     except ImportError as e:
@@ -1894,7 +2098,17 @@ def main():
     require(counts400 == want400, f"launches {counts400}, expected {want400}")
     emit({"phase": "serve_mel_n_fft_400", "frames": 1024,
           "launches": counts400, "s": dt400, "frames_per_s": 1024 / dt400})
+    cfg_serve = p.cfg
     del p, pc, p400
+    torch.cuda.empty_cache()
+
+    # 3c. checkpoint ensembles: two members of the same preset, a served
+    # video, then three videos scored and written as a submission
+    tr_e, a, b = serve_ensemble(torch, np, cuda_lib, Trainer, cfg_serve,
+                                frames, wav, want)
+    eval_ensemble(torch, np, write_submission, tr_e, a, b,
+                  os.path.join(repo, "build", "submission"))
+    del tr_e, a, b
     torch.cuda.empty_cache()
 
     # 4. whole-path parity: one narrow model, CPU plain versions vs kernels
@@ -1930,7 +2144,14 @@ def main():
 
     # 5. the training path at full width, and card vs CPU training
     data = (SyntheticAVDataset, WindowSequencer, example_stream)
-    counts_train = train_fusion(torch, np, cuda_lib, config, Trainer, data)
+    counts_train, plain = train_fusion(torch, np, cuda_lib, config, Trainer,
+                                       data)
+    torch.cuda.empty_cache()
+    train_fusion_options(torch, np, cuda_lib, config, Trainer, data,
+                         counts_train, plain)
+    torch.cuda.empty_cache()
+    init_from(torch, config, Trainer, save_pytree, to_jax_params,
+              os.path.join(repo, "build", "init_from", "visual.npz"))
     torch.cuda.empty_cache()
     train_parity(torch, np, cuda_lib, config, Trainer, data)
 

@@ -28,7 +28,7 @@ import numpy as np
 from m3f_torch.config import FPS_BAND, PRESETS, ExperimentConfig, apply_overrides
 from m3f_torch.infer.submission import postprocess
 from m3f_torch.ops.stitch import window_starts
-from m3f_torch.train.checkpoint import load_model_checkpoint
+from m3f_torch.train.checkpoint import read_model_checkpoint
 from m3f_torch.train.loop import Trainer
 
 
@@ -95,7 +95,7 @@ class Predictor:
         and upload the tensors to its device, WITHOUT touching the model:
         the expensive part of a reload, safe while the old weights serve.
         Returns (state dict on the device, step)."""
-        sd, step = load_model_checkpoint(checkpoint)
+        sd, step = read_model_checkpoint(checkpoint)
         have = self.model.state_dict()
         want = {k: tuple(v.shape) for k, v in have.items()}
         got = {k: tuple(v.shape) for k, v in sd.items()}

@@ -11,9 +11,11 @@ Counterpart of ``m3f/pytorch_tpu/models/m3f.py``:
 ``forward`` is the eval forward (``apply(..., train=False)``, under
 ``torch.no_grad``); ``forward_train`` the differentiable train forward
 (``train=True``): BatchNorm on batch statistics, its running buffers updated
-in place. Dropout (``model.dropout > 0``) is not ported yet: its random
-stream cannot match the reference's, and it comes with augmentation
-(ROADMAP, "dropout, augment and init_from").
+in place, and with ``model.dropout > 0`` inverted dropout on the fused
+features (before the BiGRU) and on the GRU output (before the head), the
+two keep masks drawn in that order from the caller's ``torch.Generator``
+by ``dropout_mask``. The reference's random stream cannot be matched; its
+masks can be fed in by replacing ``dropout_mask``. Eval ignores dropout.
 """
 
 from __future__ import annotations
@@ -38,6 +40,22 @@ def upsample_nearest(x: torch.Tensor, length: int) -> torch.Tensor:
         return x
     idx = (torch.arange(length, device=x.device) * tp) // length
     return x.index_select(1, idx)
+
+
+def dropout_mask(shape, rate: float, generator: Optional[torch.Generator],
+                 device) -> torch.Tensor:
+    """Keep mask of inverted dropout: ``rand < 1 - rate``, drawn from
+    ``generator`` (a generator on ``device``)."""
+    return torch.rand(shape, generator=generator, device=device) < 1.0 - rate
+
+
+def apply_dropout(x: torch.Tensor, keep: torch.Tensor,
+                  rate: float) -> torch.Tensor:
+    """``where(keep, x / (1 - rate), 0)`` in x's dtype, the reference's
+    rounding: the divisor is rounded to x's dtype first."""
+    div = torch.tensor(1.0 - rate, dtype=x.dtype, device=x.device)
+    return torch.where(keep, x / div, torch.zeros((), dtype=x.dtype,
+                                                  device=x.device))
 
 
 class M3F(nn.Module):
@@ -74,15 +92,16 @@ class M3F(nn.Module):
     def forward_train(self, video: Optional[torch.Tensor] = None,
                       mel: Optional[torch.Tensor] = None,
                       wav: Optional[torch.Tensor] = None,
-                      hop=None) -> torch.Tensor:
-        """Differentiable train forward (inputs as ``forward``)."""
-        if self.cfg.dropout > 0.0:
-            raise NotImplementedError(
-                f"model.dropout={self.cfg.dropout} is not ported yet (ROADMAP: "
-                "dropout, augment and init_from); set model.dropout=0")
-        return self._run(video, mel, wav, hop, train=True)
+                      hop=None,
+                      generator: Optional[torch.Generator] = None
+                      ) -> torch.Tensor:
+        """Differentiable train forward (inputs as ``forward``); with
+        ``model.dropout > 0`` its two masks come from ``generator`` (on the
+        inputs' device; None: the global stream)."""
+        return self._run(video, mel, wav, hop, train=True, generator=generator)
 
-    def _run(self, video, mel, wav, hop, train: bool) -> torch.Tensor:
+    def _run(self, video, mel, wav, hop, train: bool,
+             generator: Optional[torch.Generator] = None) -> torch.Tensor:
         cfg = self.cfg
         if self.audio is not None and mel is None and wav is not None:
             mel = log_mel_spectrogram(
@@ -119,7 +138,14 @@ class M3F(nn.Module):
             else:
                 feats.append(afeat.reshape(b, w, -1))
         fused = torch.cat(feats, dim=-1)
+        rate = cfg.dropout if train else 0.0
+        if rate > 0.0:
+            fused = apply_dropout(fused, dropout_mask(
+                fused.shape, rate, generator, fused.device), rate)
         seq = self.gru(fused)
+        if rate > 0.0:
+            seq = apply_dropout(seq, dropout_mask(
+                seq.shape, rate, generator, seq.device), rate)
         out = self.head(seq.float())
         if cfg.head_activation == "tanh":
             out = torch.tanh(out)

@@ -2,7 +2,8 @@
 
 Counterpart of ``m3f/pytorch_tpu/ops/stitch.py``. The framewise stitch is a
 scatter-add (``index_add_``) of the W·L per-frame window predictions and
-their coverage counts; host-side postprocess helpers are numpy.
+their coverage counts; ``stitch_overlap_average`` (one prediction per
+window) scatter-adds in float64; host-side postprocess helpers are numpy.
 """
 
 from __future__ import annotations
@@ -33,6 +34,28 @@ def coverage_matrix(starts: torch.Tensor, num_frames: int,
     f = torch.arange(num_frames, device=starts.device)[:, None]
     s = starts[None, :]
     return ((f >= s) & (f < s + window)).float()
+
+
+def stitch_overlap_average(window_preds: torch.Tensor, starts: torch.Tensor,
+                           num_frames: int, window: int) -> torch.Tensor:
+    """Overlap-average one prediction per window [W, C] onto the frame
+    timeline → [num_frames, C] fp32; each window covers ``window`` frames
+    from its start. The sums are float64 scatter-adds over the coverage,
+    so no TF32 setting can change them (the reference pins its product to
+    full fp32 precision)."""
+    w, c = window_preds.shape
+    dev = window_preds.device
+    idx = (starts.long()[:, None]
+           + torch.arange(window, device=dev)[None, :]).reshape(-1)
+    # frames past the end add zeros (to the last frame): no host sync
+    keep = (idx < num_frames).double()[:, None]
+    idx = idx.clamp_max(num_frames - 1)
+    vals = window_preds.double()[:, None, :].expand(w, window, c)
+    num = torch.zeros(num_frames, c, dtype=torch.float64, device=dev)
+    den = torch.zeros(num_frames, 1, dtype=torch.float64, device=dev)
+    num.index_add_(0, idx, vals.reshape(-1, c) * keep)
+    den.index_add_(0, idx, keep)
+    return (num / torch.clamp_min(den, 1.0)).float()
 
 
 def stitch_framewise_sums(window_preds: torch.Tensor, starts: torch.Tensor,

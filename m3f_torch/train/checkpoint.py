@@ -15,8 +15,12 @@ and written on a thread), resumes from the newest usable file (a corrupt one
 falls back to an older one; a config-hash mismatch aborts), keeps the best
 by eval CCC and saves on SIGTERM.
 
-The load side reads a JAX checkpoint with numpy alone and returns the port's
-``state_dict``:
+The load side reads a JAX checkpoint with numpy alone:
+``read_model_checkpoint(path)`` gives the port's ``state_dict`` and step
+(the serving path), ``load_model_checkpoint(state, path)`` a new
+``TrainState`` on a template state (the reference's signature; ensemble
+members), ``load_pretrained_init(state_dict, path)`` fills one branch or the
+whole model from an import-script file (``model.init_from``). In each:
 
 - module names mirror the reference's param tree, so a path
   ``visual/blocks/0/conv1/spatial/kernel`` is the key
@@ -39,7 +43,7 @@ import signal
 import tempfile
 import threading
 import weakref
-from dataclasses import dataclass, field
+from dataclasses import dataclass, field, replace
 from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
@@ -93,7 +97,38 @@ def from_jax_params(params: Any, bn_state: Any) -> Dict[str, torch.Tensor]:
     return _convert(flat)
 
 
-def load_model_checkpoint(path: str) -> Tuple[Dict[str, torch.Tensor], int]:
+def _model_leaves(path: str):
+    """A JAX checkpoint's model leaves: ({params path: array}, {BN state
+    path: array}, step or None, stray keys).
+
+    The TrainState layout (``.params/…``, ``.bn_state/…``, ``.step``) gives
+    the EMA shadow ``.ema/…`` in place of the params when it holds one, as
+    the reference's eval does, and its step; its optimizer state is never
+    read. The import-script layout (``params/…``, ``state/…``) has no step,
+    and every other key of it is stray."""
+    with np.load(path) as z:
+        data = {k: z[k] for k in z.files if k != "__meta__"}
+    if data.keys() & {"step", ".step"}:
+        params = ".ema" if any(k.startswith(".ema/") for k in data) \
+            else ".params"
+        groups = {params + "/": 0, ".bn_state/": 1}
+        step = int(np.asarray(data[".step" if ".step" in data else "step"]))
+    else:
+        groups = {"params/": 0, "state/": 1}
+        step = None
+    out: Tuple[Dict[str, np.ndarray], Dict[str, np.ndarray]] = ({}, {})
+    stray = []
+    for k, v in data.items():
+        for p, g in groups.items():
+            if k.startswith(p):
+                out[g][k[len(p):]] = v
+                break
+        else:
+            stray.append(k)
+    return out[0], out[1], step, stray
+
+
+def read_model_checkpoint(path: str) -> Tuple[Dict[str, torch.Tensor], int]:
     """(state dict, step) for serving from a JAX checkpoint ``.npz``.
 
     Accepts the full TrainState layout (``.params/…``, ``.bn_state/…``,
@@ -101,29 +136,114 @@ def load_model_checkpoint(path: str) -> Tuple[Dict[str, torch.Tensor], int]:
     reference's eval does) and the import-script layout (``params/…``,
     ``state/…``; step 0). Optimizer state is never read.
     """
-    with np.load(path) as z:
-        data = {k: z[k] for k in z.files if k != "__meta__"}
-    if data.keys() & {"step", ".step"}:
-        params = ".ema" if any(k.startswith(".ema/") for k in data) \
-            else ".params"
-        prefixes = (params + "/", ".bn_state/")
-        step = int(np.asarray(data[".step" if ".step" in data else "step"]))
-    else:
-        prefixes = ("params/", "state/")
-        step = 0
-    flat = {}
-    for k, v in data.items():
-        for p in prefixes:
-            if k.startswith(p):
-                rest = k[len(p):]
-                if rest in flat:
-                    raise ValueError(f"checkpoint {path}: leaf {rest!r} is in "
-                                     "both params and state")
-                flat[rest] = v
+    params, state, step, _ = _model_leaves(path)
+    flat = dict(params)
+    for rest, v in state.items():
+        if rest in flat:
+            raise ValueError(f"checkpoint {path}: leaf {rest!r} is in "
+                             "both params and state")
+        flat[rest] = v
     if not flat:
-        raise ValueError(f"checkpoint {path} holds no model leaves under "
-                         f"{prefixes}")
-    return _convert(flat), step
+        raise ValueError(f"checkpoint {path} holds no model leaves")
+    return _convert(flat), step or 0
+
+
+def _fit_to(template: Dict[str, torch.Tensor], flat: Dict[str, np.ndarray],
+            path: str) -> Dict[str, torch.Tensor]:
+    """``/``-keyed leaves converted onto ``template``'s names, shapes and
+    dtypes (host tensors); raises on a leaf the template lacks and on a
+    template name the leaves lack."""
+    conv = _convert(flat)
+    extra = sorted(conv.keys() - template.keys())
+    if extra:
+        raise ValueError(f"checkpoint {path} has model leaves the eval model "
+                         f"lacks: {extra[:5]} — architecture mismatch")
+    missing = sorted(template.keys() - conv.keys())
+    if missing:
+        raise ValueError(f"checkpoint {path} missing model leaf "
+                         f"{missing[0]} (and {len(missing) - 1} more)")
+    return {n: conv[n].to(t.dtype).reshape(t.shape)
+            for n, t in template.items()}
+
+
+def load_model_checkpoint(state, path: str):
+    """A new ``TrainState`` for eval from a JAX checkpoint ``.npz``, with
+    the reference's signature: the params (the EMA shadow ``.ema/…`` when
+    the file holds one) and the BN state of ``path``, on ``state``'s names,
+    shapes and dtypes, as host tensors (``Trainer.commit_state`` puts them
+    on the device); the step of a TrainState file, else ``state``'s; the
+    optimizer state and ``lr_mult`` of ``state``. The EMA shadow, if
+    ``state`` has one, is a copy of the loaded params. Both layouts load
+    (``read_model_checkpoint``); a model leaf the template lacks, a missing
+    one and (import layout) any other key raise ``ValueError``."""
+    params, bn, step, stray = _model_leaves(path)
+    if step is None and stray:
+        raise ValueError(f"checkpoint mismatch: {path} has keys outside "
+                         f"params/ and state/: {sorted(stray)[:5]}")
+    new_params = _fit_to(state.params, params, path)
+    return replace(
+        state, params=new_params,
+        bn_state=_fit_to(state.bn_state, bn, path),
+        ema=None if state.ema is None else
+        {n: t.clone() for n, t in new_params.items()},
+        step=state.step if step is None else step)
+
+
+# ``kind`` of an import-script file (its meta) → the model branch it fills
+_INIT_BRANCHES = {"m3f": "", "r2plus1d": "visual", "audio_cnn": "audio"}
+
+
+def load_pretrained_init(state_dict: Dict[str, torch.Tensor],
+                         path: str) -> Dict[str, torch.Tensor]:
+    """``state_dict`` with one branch (or all) replaced by the weights of an
+    import-script file (``params/…``, ``state/…``; ``model.init_from``).
+
+    The file's meta ``kind`` picks the target: ``m3f`` the whole model,
+    ``r2plus1d`` the ``visual.*`` branch, ``audio_cnn`` the ``audio.*``
+    branch; without one it is inferred from the key prefixes, as the
+    reference does. A branch file's paths lack the branch prefix. Every
+    other tensor keeps its value. Raises ``ValueError`` on a branch the
+    model lacks and on missing or extra leaves."""
+    kind = load_meta(path).get("kind")
+    with np.load(path) as z:
+        keys = [k for k in z.files if k != "__meta__"]
+        data = {k: z[k] for k in keys}
+    if kind is None:
+        if any(k.startswith("params/gru") for k in keys):
+            kind = "m3f"
+        elif any(k.startswith("params/stem") for k in keys):
+            kind = "r2plus1d"
+        else:
+            kind = "audio_cnn"
+    if kind not in _INIT_BRANCHES:
+        raise ValueError(f"init_from {path}: unknown kind {kind!r} (one of "
+                         f"{sorted(_INIT_BRANCHES)})")
+    branch = _INIT_BRANCHES[kind]
+    prefix = branch + "." if branch else ""
+    template = {n: t for n, t in state_dict.items() if n.startswith(prefix)}
+    if branch and not template:
+        have = sorted({n.split(".")[0] for n in state_dict})
+        raise ValueError(f"init_from kind={kind} needs model branch "
+                         f"'{branch}', but the model has {have}")
+    flat: Dict[str, np.ndarray] = {}
+    stray = []
+    for k, v in data.items():
+        group, _, rest = k.partition("/")
+        name = f"{branch}/{rest}" if branch else rest
+        if group not in ("params", "state") or not rest or name in flat:
+            stray.append(k)
+        flat[name] = v
+    conv = _convert(flat)
+    missing = sorted(template.keys() - conv.keys())
+    extra = sorted(conv.keys() - template.keys()) + stray
+    if missing or extra:
+        raise ValueError(f"checkpoint mismatch: {path} does not fit the "
+                         f"model's {branch or 'whole model'}: "
+                         f"missing={missing[:5]} extra={extra[:5]}")
+    out = dict(state_dict)
+    for n, t in template.items():
+        out[n] = conv[n].to(device=t.device, dtype=t.dtype).reshape(t.shape)
+    return out
 
 
 def to_jax_params(tensors: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:

@@ -23,15 +23,30 @@ Counterpart of ``m3f/pytorch_tpu/train/loop.py``:
   - videos with more than ``window.eval_max_windows`` windows go in chunks
     of that many windows whose partial sums accumulate on the host.
 
+  A state is evaluated with its own params (its EMA shadow when it has
+  one) and BN state: through ``torch.func.functional_call`` unless they are
+  the model's own tensors.
+- **Ensembles:** ``commit_state(state, eval_only=True)`` makes a member
+  whose tensors are its own (a state from ``init_state`` aliases the model
+  and changes with the next ``init_state`` or step).
+  ``predict_ensemble`` / ``evaluate_ensemble`` upload each video once,
+  dispatch it against the k states, then collect, and score the per-frame
+  float64 mean of the k tracks.
+- **Train options:** ``data.augment`` (``ops/augment.py``) and
+  ``model.dropout`` draw from generators on the device seeded from
+  ``(train.seed, step)`` and ``(train.seed ^ 0x5eed, step)``, so a resumed
+  run draws what an uninterrupted one does; ``model.init_from`` fills a
+  branch or the whole model after the seeded init
+  (``checkpoint.load_pretrained_init``); ``fit(metric_writer=)`` writes the
+  reference's rows (``utils/logging.MetricWriter``).
+
 ``make_eval_forward`` is the streaming sessions' group forward (a host
 feed of W-window sequences → per-frame predictions). ``fit`` traces steps
 start+2 to start+12 into ``train.profile_dir`` (``utils/profiling.trace``)
 when it is set.
 
-Not ported yet, and refused rather than ignored: ``model.dropout > 0``,
-``data.augment`` and ``model.init_from`` (ROADMAP: dropout, augment and
-init_from); ``train.debug_nans`` and a ``metric_writer`` (ROADMAP: CLI and
-tooling).
+Not ported yet, and refused rather than ignored: ``train.debug_nans``
+(ROADMAP: CLI and tooling).
 """
 
 from __future__ import annotations
@@ -47,11 +62,13 @@ import torch
 from m3f_torch.config import ExperimentConfig
 from m3f_torch.models.m3f import M3F
 from m3f_torch.nn import resolve_device
+from m3f_torch.ops.augment import augment_clips
 from m3f_torch.ops.ccc import (ccc, ccc_from_stats, ccc_loss,
                                ccc_sufficient_stats, make_loss)
 from m3f_torch.ops.stitch import (coverage_matrix, smooth_moving_average,
                                   stitch_framewise, stitch_framewise_sums,
                                   window_starts)
+from m3f_torch.train.checkpoint import load_pretrained_init
 from m3f_torch.train.optim import global_norm, make_optimizer
 from m3f_torch.utils.profiling import trace
 
@@ -60,6 +77,37 @@ from m3f_torch.utils.profiling import trace
 _SEQ_BUCKET = 8
 
 Tensors = Dict[str, torch.Tensor]
+
+
+def _step_seed(base: int, step: int) -> int:
+    """The seed of a step's generator, a fixed function of ``(base, step)``:
+    splitmix64 of the pair, so that its low 32 bits, all that a CPU
+    generator takes, depend on both."""
+    m = (1 << 64) - 1
+    z = ((((base % (1 << 32)) << 32) | (step % (1 << 32)))
+         + 0x9E3779B97F4A7C15) & m
+    z = ((z ^ (z >> 30)) * 0xBF58476D1CE4E5B9) & m
+    z = ((z ^ (z >> 27)) * 0x94D049BB133111EB) & m
+    return z ^ (z >> 31)
+
+
+def _in_flight(videos, dispatch, collect, pipeline: int):
+    """(video_id, ``collect(dispatch(video))``) over (video_id, video)
+    pairs, in input order, with ``max(pipeline, 1)`` videos dispatched
+    before the oldest is collected."""
+    inflight = []
+    for vid, video in videos:
+        inflight.append((vid, dispatch(video)))
+        if len(inflight) >= max(pipeline, 1):
+            v, pending = inflight.pop(0)
+            yield v, collect(pending)
+    for v, pending in inflight:
+        yield v, collect(pending)
+
+
+def _mean_track(preds: List[np.ndarray]) -> np.ndarray:
+    """Per-frame mean of k prediction tracks, in float64, as float32."""
+    return np.mean(preds, axis=0, dtype=np.float64).astype(np.float32)
 
 
 @dataclasses.dataclass
@@ -153,19 +201,24 @@ class Trainer:
         are re-initialized from ``train.seed`` (or ``seed``), as a new
         ``Trainer(cfg)``'s are, in place: the tensors keep their identity,
         so whatever was built on ``Trainer.model`` stays valid.
-        ``keep_weights=True`` starts from what the caller loaded into
-        ``self.model`` instead (the port's stand-in for ``model.init_from``
-        until that is ported)."""
-        if self.cfg.model.init_from:
-            raise NotImplementedError(
-                "model.init_from is not ported yet (ROADMAP: dropout, augment "
-                "and init_from); load the weights into Trainer.model and pass "
-                "keep_weights=True to init_state / fit instead")
+        ``model.init_from`` then fills its branch (or the whole model) from
+        that file. ``keep_weights=True`` starts from what the caller loaded
+        into ``self.model`` instead; it and ``model.init_from`` are
+        refused together. The state's params and BN state are the model's
+        own tensors: ``commit_state(..., eval_only=True)`` snapshots them."""
+        init_from = self.cfg.model.init_from
+        if keep_weights and init_from:
+            raise ValueError(
+                f"model.init_from={init_from!r} and keep_weights=True both "
+                "name the starting weights; pass one of them")
         if not keep_weights:
             seed = self.cfg.train.seed if seed is None else seed
             fresh = M3F(self.cfg.model, device="cpu",
                         generator=torch.Generator().manual_seed(seed))
-            self.model.load_state_dict(fresh.state_dict())
+            sd = fresh.state_dict()
+            if init_from:
+                sd = load_pretrained_init(sd, init_from)
+            self.model.load_state_dict(sd)
         params = dict(self.model.named_parameters())
         ema = ({n: p.detach().clone() for n, p in params.items()}
                if self.cfg.train.ema_decay > 0 else None)
@@ -173,6 +226,36 @@ class Trainer:
         return TrainState(params, dict(self.model.named_buffers()),
                           self.tx.init({n: p.detach() for n, p in params.items()}),
                           0, ema, lr_mult)
+
+    def commit_state(self, state: TrainState,
+                     eval_only: bool = False) -> TrainState:
+        """``state`` on the trainer's device (a host-loaded state, e.g. from
+        ``load_model_checkpoint``, is moved; tensors already there stay as
+        they are).
+
+        ``eval_only``: the state will only be evaluated. The EMA policy is
+        folded in first (``eval_state``), then the optimizer state and the
+        EMA shadow are dropped, and the params and BN state become detached
+        copies of their own, never the model's tensors: an ensemble member
+        that a later ``init_state`` or train step cannot change, holding
+        its parameters once and no Adam moments."""
+        dev = self.device
+        if eval_only:
+            st = self.eval_state(state)
+            own = {n: t.detach().to(dev, copy=True) for n, t in st.params.items()}
+            return dataclasses.replace(
+                st, params=own, ema=None, opt_state=None,
+                bn_state={n: t.detach().to(dev, copy=True)
+                          for n, t in st.bn_state.items()})
+
+        def move(tree):
+            if isinstance(tree, dict):
+                return {k: move(v) for k, v in tree.items()}
+            return tree.to(dev) if isinstance(tree, torch.Tensor) else tree
+        return dataclasses.replace(
+            state, params=move(state.params), bn_state=move(state.bn_state),
+            opt_state=move(state.opt_state),
+            ema=None if state.ema is None else move(state.ema))
 
     def eval_state(self, state: TrainState) -> TrainState:
         """The state whose params are the EMA shadow when EMA is on."""
@@ -185,28 +268,40 @@ class Trainer:
     def _to_device(self, arr) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(arr)).to(self.device)
 
-    def _loss_fn(self, batch: Dict[str, torch.Tensor]):
+    def _loss_fn(self, batch: Dict[str, torch.Tensor],
+                 generator: Optional[torch.Generator] = None):
         preds = self.model.forward_train(video=batch.get("video"),
                                          wav=batch.get("wav"),
                                          mel=batch.get("mel"),
-                                         hop=batch.get("hop"))
+                                         hop=batch.get("hop"),
+                                         generator=generator)
         return self.loss_fn(preds, batch["labels"], batch["mask"]), preds
+
+    def _step_generator(self, base: int, step: int) -> torch.Generator:
+        return torch.Generator(device=self.device).manual_seed(
+            _step_seed(base, step))
 
     def train_step(self, state: TrainState,
                    batch: Dict[str, Any]) -> Dict[str, torch.Tensor]:
         """One optimizer step on ``batch`` (host numpy or tensors: labels,
         mask, and video / wav / mel / hop as the model needs), in place on
         ``state``. Returns the metrics as 0-d device tensors (reading them
-        waits for the step)."""
-        if self.cfg.data.augment:
-            raise NotImplementedError(
-                "data.augment is not ported yet (ROADMAP: dropout, augment "
-                "and init_from)")
-        tcfg = self.cfg.train
+        waits for the step). With ``data.augment`` the video is augmented
+        on the device, and with ``model.dropout > 0`` the forward drops
+        out, each from a generator seeded from the step (module doc)."""
+        tcfg, dcfg = self.cfg.train, self.cfg.data
         batch = {k: v if isinstance(v, torch.Tensor) else self._to_device(v)
                  for k, v in batch.items()}
+        if dcfg.augment and "video" in batch:
+            batch["video"] = augment_clips(
+                batch["video"], flip_prob=dcfg.aug_flip_prob,
+                brightness=dcfg.aug_brightness, contrast=dcfg.aug_contrast,
+                compute_dtype=self.model.dtype,
+                generator=self._step_generator(tcfg.seed, state.step))
+        drop_gen = (self._step_generator(tcfg.seed ^ 0x5eed, state.step)
+                    if self.cfg.model.dropout > 0.0 else None)
         names = list(state.params)
-        loss, preds = self._loss_fn(batch)
+        loss, preds = self._loss_fn(batch, drop_gen)
         grads = torch.autograd.grad(loss, [state.params[n] for n in names],
                                     allow_unused=True)
         grads = {n: torch.zeros_like(state.params[n]) if g is None else g
@@ -306,7 +401,7 @@ class Trainer:
         if weights is None:
             return self.model(**feed)
         return torch.func.functional_call(self.model, weights, (), feed,
-                                          strict=False)
+                                          strict=True)
 
     def _plan(self, video: Dict[str, np.ndarray]):
         mcfg = self.cfg.model
@@ -325,24 +420,40 @@ class Trainer:
                        video: Dict[str, np.ndarray]) -> Dict[str, Any]:
         """Sliding-window eval of one video (``labels`` and ``valid`` give
         the frame count and the scored frames; ``frames``, ``waveform``,
-        ``fps`` as the model needs) with the weights of ``eval_state(state)``
-        (the model's own when ``state`` is None) → {"pred": [n, 2] stitched,
-        smoothed (``window.eval_smooth``) and clipped, "ccc_v", "ccc_a",
-        "stats": the pooled-CCC sufficient statistics}."""
+        ``fps`` as the model needs) with the params and BN state of
+        ``eval_state(state)`` (the model's own when ``state`` is None) →
+        {"pred": [n, 2] stitched, smoothed (``window.eval_smooth``) and
+        clipped, "ccc_v", "ccc_a", "stats": the pooled-CCC sufficient
+        statistics}."""
         return self._collect_eval(self._dispatch_eval(state, video))
+
+    def _eval_weights(self, state: Optional[TrainState]) -> Optional[Tensors]:
+        """The params and BN state ``state`` is evaluated with, on the
+        device; None when they are the model's own tensors (or ``state`` is
+        None): the model then runs as it is."""
+        if state is None:
+            return None
+        st = self.eval_state(state)
+        weights = {**st.params, **st.bn_state}
+        own = dict(self.model.named_parameters())
+        own.update(self.model.named_buffers())
+        if weights.keys() == own.keys() and all(
+                weights[n] is t for n, t in own.items()):
+            return None
+        return {n: t.to(self.device) for n, t in weights.items()}
 
     @torch.no_grad()
     def _dispatch_eval(self, state: Optional[TrainState],
-                       video: Dict[str, np.ndarray]):
-        """Prepare and upload one video and enqueue its eval on the device
-        without reading anything back; ``_collect_eval`` reads the result.
-        The chunked eval reads each chunk's sums to the host as it goes (as
-        the reference's does), so its dispatch does all the work and its
-        collect only passes the result on."""
+                       video: Dict[str, np.ndarray], prep=None):
+        """Prepare and upload one video (or take ``prep``, a
+        ``_prepare_eval_inputs`` result: an ensemble dispatches one upload
+        against k states) and enqueue its eval on the device without
+        reading anything back; ``_collect_eval`` reads the result. The
+        chunked eval reads each chunk's sums to the host as it goes (as the
+        reference's does), so its dispatch does all the work and its collect
+        only passes the result on."""
         wcfg = self.cfg.window
-        weights = None
-        if state is not None and state.ema is not None:
-            weights = self.eval_state(state).params
+        weights = self._eval_weights(state)
         n = len(video["labels"])
         labels = np.asarray(video["labels"], np.float32)
         valid = np.asarray(video["valid"], bool)
@@ -350,7 +461,9 @@ class Trainer:
         if wcfg.eval_max_windows and len(starts) > wcfg.eval_max_windows:
             pred = self._evaluate_chunked(video, starts, weights)
             return pred, _host_ccc(pred, labels, valid), labels, valid
-        stitched, per_dim = self._evaluate_fused(video, starts, weights)
+        if prep is None:
+            prep = self._prepare_eval_inputs(video, starts)
+        stitched, per_dim = self._evaluate_fused(prep, weights)
         return stitched[:n], per_dim, labels, valid
 
     def _collect_eval(self, pending) -> Dict[str, Any]:
@@ -369,22 +482,16 @@ class Trainer:
         ``max(pipeline, 1)`` videos in flight: video i+1 is prepared,
         uploaded and enqueued before video i is read back. Yields
         (video_id, ``evaluate_video`` result) in input order."""
-        inflight = []
-        for vid, video in videos:
-            inflight.append((vid, self._dispatch_eval(state, video)))
-            if len(inflight) >= max(pipeline, 1):
-                v, pending = inflight.pop(0)
-                yield v, self._collect_eval(pending)
-        for v, pending in inflight:
-            yield v, self._collect_eval(pending)
+        return _in_flight(videos, lambda video: self._dispatch_eval(state, video),
+                          self._collect_eval, pipeline)
 
-    def _evaluate_fused(self, video, starts: np.ndarray,
-                        weights: Optional[Tensors] = None):
-        """→ (stitched [n_frames_pad, 2], per-dim CCC over the padded
-        timeline in fp32), both on the device and not read back, as the
-        reference's fused eval."""
+    def _prepare_eval_inputs(self, video, starts: np.ndarray) -> Dict[str, Any]:
+        """The fused eval's host padding and its one upload: the frames
+        padded to the frame bucket and the wav cut or padded to the bucketed
+        length, on the device, beside the padded window starts, their sample
+        offsets, the hop plan and the padded labels. Every dispatch that
+        takes it reads the same device buffers."""
         wcfg, mcfg = self.cfg.window, self.cfg.model
-        L = wcfg.window_frames
         sr = mcfg.mel.sample_rate
         n = len(video["labels"])
         n_win = len(starts)
@@ -402,9 +509,30 @@ class Trainer:
             w = video["waveform"]
             wav = self._to_device(
                 np.pad(w, (0, max(0, need - len(w))))[:need].astype(np.float32))
-        sample_starts = np.round(starts_p / fps * sr).astype(np.int32)
-        preds = self._windowed_forward(starts_p, sample_starts, frames, wav,
-                                       spw, hop, weights)
+        labels = np.full((n_frames_pad, 2), -5.0, np.float32)
+        labels[:n] = video["labels"]
+        valid = np.zeros(n_frames_pad, bool)
+        valid[:n] = video["valid"]
+        return {"n": n, "n_win": n_win, "n_frames_pad": n_frames_pad,
+                "starts": starts_p,
+                "sample_starts": np.round(starts_p / fps * sr).astype(np.int32),
+                "frames": frames, "wav": wav, "spw": spw, "hop": hop,
+                "labels": self._to_device(labels),
+                "valid": self._to_device(valid)}
+
+    def _evaluate_fused(self, prep: Dict[str, Any],
+                        weights: Optional[Tensors] = None):
+        """→ (stitched [n_frames_pad, 2], per-dim CCC over the padded
+        timeline in fp32), both on the device and not read back, as the
+        reference's fused eval."""
+        wcfg, mcfg = self.cfg.window, self.cfg.model
+        L = wcfg.window_frames
+        n, n_win, n_frames_pad = prep["n"], prep["n_win"], prep["n_frames_pad"]
+        starts_p = prep["starts"]
+        n_win_pad = len(starts_p)
+        preds = self._windowed_forward(starts_p, prep["sample_starts"],
+                                       prep["frames"], prep["wav"],
+                                       prep["spw"], prep["hop"], weights)
         st = self._to_device(starts_p)
         win_valid = torch.arange(n_win_pad, device=self.device) < n_win
         if mcfg.per_frame:
@@ -423,12 +551,8 @@ class Trainer:
                 torch.where((fidx < n)[:, None], stitched, last[None, :]),
                 wcfg.eval_smooth)
         stitched = torch.clamp(stitched, -1.0, 1.0)
-        labels = np.full((n_frames_pad, 2), -5.0, np.float32)
-        labels[:n] = video["labels"]
-        valid = np.zeros(n_frames_pad, bool)
-        valid[:n] = video["valid"]
-        per_dim = ccc(stitched, self._to_device(labels),
-                      mask=self._to_device(valid)[:, None], axis=(0,))
+        per_dim = ccc(stitched, prep["labels"], mask=prep["valid"][:, None],
+                      axis=(0,))
         return stitched, per_dim
 
     def _evaluate_chunked(self, video, starts: np.ndarray,
@@ -526,6 +650,75 @@ class Trainer:
                              else out["ccc_mean"])
         return out
 
+    # -- ensembles ------------------------------------------------------------
+
+    def evaluate_ensemble(self, states: List[TrainState], dataset,
+                          max_videos: int = 0,
+                          per_video_fn=None) -> Dict[str, float]:
+        """``evaluate``'s metrics (plus ``n_models``) of the prediction-level
+        ensemble of ``states``: each video's per-frame mean track of the k
+        states, scored in both CCC conventions. Each video is uploaded
+        once, and its k evals are dispatched before the first is read back
+        (``_ensemble_stream``). Members should be ``commit_state(...,
+        eval_only=True)`` snapshots."""
+        if not states:
+            raise ValueError("evaluate_ensemble() needs at least one state")
+        ids = dataset.video_ids()
+        if max_videos:
+            ids = ids[:max_videos]
+        if not ids:
+            raise ValueError(
+                "evaluate_ensemble(): the split has no videos — check "
+                "data.root / annotation layout")
+        videos = ((vid, dataset.load_video(vid)) for vid in ids)
+        out = self._aggregate_eval(self._ensemble_stream(states, videos),
+                                   per_video_fn)
+        out["n_models"] = len(states)
+        return out
+
+    def _ensemble_stream(self, states: List[TrainState], videos,
+                         pipeline: int = 2):
+        """``evaluate_stream``'s loop with k states a video: video i+1 is
+        uploaded and its k evals enqueued before video i is read back.
+        Yields (video_id, result) with the mean track's CCC and pooled
+        statistics, as ``_collect_eval``'s."""
+        def dispatch(video):
+            return (np.asarray(video["labels"], np.float32),
+                    np.asarray(video["valid"], bool),
+                    self._dispatch_eval_multi(states, video))
+
+        def collect(item):
+            labels, valid, pending = item
+            pred = _mean_track([self._collect_eval(p)["pred"] for p in pending])
+            per_dim = _host_ccc(pred, labels, valid)
+            return {"pred": pred,
+                    "ccc_v": float(per_dim[0]), "ccc_a": float(per_dim[1]),
+                    "stats": ccc_sufficient_stats(pred, labels, valid)}
+        return _in_flight(videos, dispatch, collect, pipeline)
+
+    def _dispatch_eval_multi(self, states: List[TrainState], video):
+        """One video's eval against k states, enqueued without a read back:
+        a fused video's one upload (``_prepare_eval_inputs``) is shared by
+        the k dispatches; a video over ``window.eval_max_windows`` takes the
+        chunked path once per state."""
+        wcfg = self.cfg.window
+        starts = window_starts(len(video["labels"]), wcfg.window_frames,
+                               wcfg.eval_stride)
+        if wcfg.eval_max_windows and len(starts) > wcfg.eval_max_windows:
+            return [self._dispatch_eval(st, video) for st in states]
+        prep = self._prepare_eval_inputs(video, starts)
+        return [self._dispatch_eval(st, video, prep=prep) for st in states]
+
+    def predict_ensemble(self, states: List[TrainState],
+                         video) -> np.ndarray:
+        """[N, 2] per-frame mean (float64, cast to float32) of the stitched
+        predictions of ``states`` on one video; the k evals are enqueued
+        before the first is read back."""
+        if not states:
+            raise ValueError("predict_ensemble() needs at least one state")
+        pending = self._dispatch_eval_multi(states, video)
+        return _mean_track([self._collect_eval(p)["pred"] for p in pending])
+
     # -- fit ------------------------------------------------------------------
 
     def fit(self, train_stream, val_dataset=None,
@@ -542,14 +735,15 @@ class Trainer:
         restore with the restored step, so a resumed run consumes exactly
         the batches an uninterrupted one would. Logs, evaluates (with
         early stop and plateau decays) and checkpoints at the configured
-        cadences. Returns (state, history): ``loss`` and ``grad_norm`` at
-        each log step, ``eval`` results at each eval."""
+        cadences; ``metric_writer`` (``utils/logging.MetricWriter``) gets
+        the reference's rows: ``loss``, ``grad_norm`` and ``clips_per_sec``
+        at each log step, ``eval_<key>`` at each eval. Returns (state,
+        history): ``loss`` and ``grad_norm`` at each log step, ``eval``
+        results at each eval."""
         tcfg = self.cfg.train
-        for name, value in (("metric_writer", metric_writer is not None),
-                            ("train.debug_nans", tcfg.debug_nans)):
-            if value:
-                raise NotImplementedError(
-                    f"{name} is not ported yet (ROADMAP: CLI and tooling)")
+        if tcfg.debug_nans:
+            raise NotImplementedError(
+                "train.debug_nans is not ported yet (ROADMAP: CLI and tooling)")
         num_steps = num_steps or tcfg.num_steps
         state = self.init_state(keep_weights=keep_weights)
         if checkpointer is not None:
@@ -589,12 +783,17 @@ class Trainer:
                 if (tcfg.log_every > 0 and (i + 1) % tcfg.log_every == 0) \
                         or i + 1 == num_steps:
                     loss = float(metrics["loss"])
+                    gnorm = float(metrics["grad_norm"])
                     dt = time.time() - t0
                     history["loss"].append(loss)
-                    history["grad_norm"].append(float(metrics["grad_norm"]))
+                    history["grad_norm"].append(gnorm)
                     log(f"step {i+1}/{num_steps} loss={loss:.4f} "
                         f"batch_ccc={float(metrics['batch_ccc']):.4f} "
                         f"clips/s={seen / dt:.1f}")
+                    if metric_writer is not None:
+                        metric_writer.write(i + 1, {
+                            "loss": loss, "grad_norm": gnorm,
+                            "clips_per_sec": seen / dt})
                     t0, seen = time.time(), 0
                 if (val_dataset is not None and tcfg.eval_every > 0
                         and (i + 1) % tcfg.eval_every == 0):
@@ -604,6 +803,9 @@ class Trainer:
                         f"pooled_v={ev['pooled_ccc_v']:.4f} "
                         f"pooled_a={ev['pooled_ccc_a']:.4f}")
                     history.setdefault("eval", []).append(ev)
+                    if metric_writer is not None:
+                        metric_writer.write(i + 1, {f"eval_{k}": v
+                                                    for k, v in ev.items()})
                     if plateau is not None:
                         _, hit = plateau.update(ev["ccc_select"], i + 1)
                         if hit:

@@ -24,7 +24,7 @@ from m3f_torch.data.synthetic import SyntheticAVDataset
 from m3f_torch.data.windowing import WindowSequencer, example_stream
 from m3f_torch.models.m3f import M3F
 from m3f_torch.train.checkpoint import (Checkpointer, _convert, _flatten,
-                                        from_jax_params, load_model_checkpoint,
+                                        from_jax_params, read_model_checkpoint,
                                         to_jax_params)
 from m3f_torch.train.loop import Trainer
 
@@ -152,7 +152,7 @@ def test_the_jax_package_serves_a_port_checkpoint(tmp_path):
     jt = JTrainer(jcfg)
     jstate = jload(jt.init_state(), path)
     assert int(jstate.step) == 2
-    sd, step = load_model_checkpoint(path)
+    sd, step = read_model_checkpoint(path)
     assert step == 2
     for n, e in state.ema.items():
         assert torch.equal(sd[n], e)

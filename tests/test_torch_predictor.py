@@ -17,7 +17,7 @@ from m3f.pytorch_tpu.infer import Predictor as JPredictor
 from m3f.pytorch_tpu.train.checkpoint import Checkpointer, save_pytree
 from m3f.pytorch_tpu.train.loop import Trainer as JTrainer
 from m3f_torch.infer import Predictor
-from m3f_torch.train.checkpoint import load_model_checkpoint
+from m3f_torch.train.checkpoint import read_model_checkpoint
 
 F32_TOL = 2e-5      # fp32 compute: order-only differences end to end
 BF16_TOL = 3e-2     # bf16 compute: one-ulp rounding differences carried
@@ -152,8 +152,8 @@ def test_checkpoint_layouts_and_ema(tmp_path):
     ema = {".ema/" + k[len(".params/"):]: v * 2 for k, v in data.items()
            if k.startswith(".params/")}
     np.savez(tmp_path / "ema.npz", **data, **ema)
-    sd_full, step = load_model_checkpoint(full)
-    sd_ema, _ = load_model_checkpoint(str(tmp_path / "ema.npz"))
+    sd_full, step = read_model_checkpoint(full)
+    sd_ema, _ = read_model_checkpoint(str(tmp_path / "ema.npz"))
     assert step == 0
     k = "head.kernel"
     np.testing.assert_array_equal(sd_ema[k].numpy(), 2 * sd_full[k].numpy())
@@ -161,7 +161,7 @@ def test_checkpoint_layouts_and_ema(tmp_path):
                                   sd_full["audio.bn.0.mean"].numpy())
     save_pytree({"params": state.params, "state": state.bn_state},
                 str(tmp_path / "import.npz"))
-    sd_imp, _ = load_model_checkpoint(str(tmp_path / "import.npz"))
+    sd_imp, _ = read_model_checkpoint(str(tmp_path / "import.npz"))
     assert sd_imp.keys() == sd_full.keys()
     for key in sd_full:
         np.testing.assert_array_equal(sd_imp[key].numpy(), sd_full[key].numpy())
@@ -228,12 +228,12 @@ def test_reload_takes_lock_only_for_the_swap(tmp_path, monkeypatch):
 
     lock = _CountingLock()
     held_during_load = []
-    real_load = mod.load_model_checkpoint
+    real_load = mod.read_model_checkpoint
 
     def watched_load(path):
         held_during_load.append(lock.held)
         return real_load(path)
-    monkeypatch.setattr(mod, "load_model_checkpoint", watched_load)
+    monkeypatch.setattr(mod, "read_model_checkpoint", watched_load)
     held_during_swap = []
     real_swap = port.model.load_state_dict
 

@@ -20,7 +20,8 @@ and numpy inputs from seeds, at narrow widths in fp32:
   ``keep_weights=True`` it goes on from the weights in ``Trainer.model``;
 - whole-video eval and ``evaluate`` (both CCC conventions) vs the
   reference's;
-- the guards: what is not ported raises ``NotImplementedError``.
+- the guards: what is not ported (``train.debug_nans``) raises
+  ``NotImplementedError``; what was ported since runs.
 """
 
 import dataclasses
@@ -369,9 +370,15 @@ def _one_batch(cfg):
 @pytest.mark.parametrize("what", ["dropout", "augment", "init_from",
                                   "profile_dir", "debug_nans", "metric_writer"])
 def test_unported_features_raise(what, tmp_path):
-    """Each feature not ported yet raises; ``profile_dir``, ported with the
-    profiling hooks, no longer does: a 3-step fit traces its third step
-    into it (tests/test_torch_profiling.py holds the window)."""
+    """``train.debug_nans``, the one feature of ``fit`` not ported yet,
+    raises; the others, ported since, run: ``profile_dir`` traces the third
+    step of a 3-step fit (tests/test_torch_profiling.py holds the window),
+    dropout, augmentation, ``init_from`` (a whole-model file) and a metric
+    writer train a step with a finite loss
+    (tests/test_torch_dropout_augment.py, test_torch_init_from.py and
+    test_torch_logging.py hold them against the reference)."""
+    from m3f_torch.train.checkpoint import save_pytree, to_jax_params
+    from m3f_torch.utils.logging import MetricWriter
     cfg = _cfg(tc)
     if what == "dropout":
         cfg = dataclasses.replace(cfg, model=dataclasses.replace(cfg.model,
@@ -380,8 +387,15 @@ def test_unported_features_raise(what, tmp_path):
         cfg = dataclasses.replace(cfg, data=dataclasses.replace(cfg.data,
                                                                 augment=True))
     elif what == "init_from":
+        src = Trainer(_cfg(tc, seed=1), device="cpu").model
+        leaves = {f"params/{k}": v for k, v in to_jax_params(
+            dict(src.named_parameters())).items()}
+        leaves.update({f"state/{k}": v for k, v in to_jax_params(
+            dict(src.named_buffers())).items()})
+        path = str(tmp_path / "weights.npz")
+        save_pytree(leaves, path, {"kind": "m3f"})
         cfg = dataclasses.replace(cfg, model=dataclasses.replace(
-            cfg.model, init_from="weights.npz"))
+            cfg.model, init_from=path))
     elif what in ("profile_dir", "debug_nans"):
         cfg = dataclasses.replace(cfg, train=dataclasses.replace(
             cfg.train, **{what: str(tmp_path) if what == "profile_dir"
@@ -391,10 +405,18 @@ def test_unported_features_raise(what, tmp_path):
         tr.fit(_one_batch(cfg), log=lambda s: None)
         assert len(list(tmp_path.glob("*.pt.trace.json.gz"))) == 1
         return
-    writer = object() if what == "metric_writer" else None
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tr.fit(_one_batch(cfg), num_steps=1, log=lambda s: None,
-               metric_writer=writer)
+    if what == "debug_nans":
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            tr.fit(_one_batch(cfg), num_steps=1, log=lambda s: None)
+        return
+    writer = (MetricWriter(str(tmp_path / "m"), tensorboard=False)
+              if what == "metric_writer" else None)
+    _, hist = tr.fit(_one_batch(cfg), num_steps=1, log=lambda s: None,
+                     metric_writer=writer)
+    assert np.isfinite(hist["loss"]).all()
+    if writer is not None:
+        writer.close()
+        assert (tmp_path / "m" / "train.jsonl").read_text().count("\n") == 1
 
 
 @pytest.mark.parametrize("field,value", [("ema_decay", 1.0),
