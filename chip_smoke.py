@@ -116,6 +116,25 @@ H100 (``python3 chip_smoke.py``). It
    seeded 1, whose step-0 ``visual.*`` must be the file's and every other
    tensor its own seed's; then 3 steps of a narrow model on the CPU and
    on the card, from the same weights and batches, compared;
+5b. the data layer and the command line: the port's JPEG loader built from
+   ``csrc/loader.cc`` for this host (phase ``data_loader``: 1024 decodes
+   of the committed fixtures plus a missing and a corrupt file, each frame
+   within LOADER_TOL of the committed reference decode, frames/s; on the
+   ``own+nvjpeg`` build the same frames through the nvJPEG fallback too);
+   a fake ABAW tree under ``build/abaw_fake/`` made of fixture copies,
+   PCM16 wavs and annotations with -5 rows (a 25 fps video, a 60 ms wav
+   tail, a test split with a gap); then ``m3f_torch.main`` as a user runs
+   it: ``doctor`` (only the 25 fps video off-rate), ``train`` of the
+   full-width ``fusion`` preset from the JPEGs (8 hop-aware steps, every
+   kernel of rows 1-8 launched, the backward ones 10 a step, checkpoints,
+   a trace; 4 steps resumed; 2 from ``--resume-from``) with the input
+   timed alone, ``inspect``, ``profile``, ``eval`` of a checkpoint and of
+   a two-member ensemble, ``predict`` of the test split, ``export
+   --format torch`` and the import script (a video predicted bit for bit
+   alike), ``serve`` as a process of its own (``/predict`` against the
+   in-process prediction, SIGINT, exit 0), 2 steps each of ``audio_only``
+   and ``visual_only`` (their launches) and ``train.debug_nans`` (a NaN in
+   the second batch raises at step 2);
 6. prints the ``kernels`` line, the card line and, last,
    ``{"ok": true, "device": {...}}``.
 
@@ -127,6 +146,7 @@ every comparison.
 import json
 import math
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -1659,7 +1679,6 @@ def trace_serve(torch, np, profiling, p, frames, wav, trace_dir):
     video: the device time by op (top ``TRACE_TOP``) and in all beside the
     host time, and the time of the four kernels against the rest; every
     kernel of the path must be among the device events."""
-    import shutil
     shutil.rmtree(trace_dir, ignore_errors=True)
     torch.cuda.synchronize()
     with profiling.trace(trace_dir):
@@ -1982,6 +2001,493 @@ def train_parity(torch, np, cuda_lib, config, Trainer, data):
     emit(result)
 
 
+# ---------------------------------------------------------------------------
+# The data layer and the CLI: the port's JPEG loader, a fake ABAW tree made
+# from the committed fixtures, and ``m3f_torch.main`` driven as a user would
+# ---------------------------------------------------------------------------
+
+FIXTURES = os.path.join("tests", "data", "torch_crops")
+LOADER_FRAMES = 1024     # decoded in phase data_loader (the 16 fixtures, cycled)
+LOADER_TOL = 2           # levels, against the committed reference decode
+#                          (tests/test_native_loader.py:37-39); 0 expected:
+#                          libjpeg, or the port's own decoder, is libjpeg's
+#                          decode bit for bit
+LOADER_NVJPEG_TOL = 4    # the nvJPEG fallback (non-baseline streams) on the
+#                          fixtures: its IDCT is not libjpeg's, so it is held
+#                          only to this sanity bound
+# the fake tree: {video: (frames, fps of its wav, wav tail in s)}
+ABAW_TRAIN = {"vid_a": (1024, 30.0, 0.0), "vid_tail": (1024, 30.0, 0.06),
+              "vid_25": (900, 25.0, 0.0)}
+ABAW_VAL = {"vid_v": (512, 30.0, 0.0)}
+ABAW_TEST = ("vid_t", 700, range(301, 341))   # 1-based crops missing
+ABAW_INVALID = range(100, 120)                # frames labelled -5
+CLI_STEPS = (8, 12, 10)  # train, resumed train, --resume-from (+2 steps)
+
+
+def data_loader(np, native_loader, repo):
+    """The port's JPEG loader: built from ``csrc/loader.cc`` for this host
+    (timed), LOADER_FRAMES fixture paths plus a missing and a corrupt file
+    decoded at 112 in one call, each frame held to the committed reference
+    decode within LOADER_TOL, the two bad slots zeroed with ok=False;
+    frames/s on the host clock (the median of 3 calls after a warm one).
+    On the own+nvjpeg build the same call again through nvJPEG alone (the
+    fallback of non-baseline streams), within LOADER_NVJPEG_TOL."""
+    t0 = time.perf_counter()
+    native_loader.build()
+    build_s = time.perf_counter() - t0
+    require(native_loader.native_available(), "the JPEG loader did not load")
+    ref = np.load(os.path.join(repo, FIXTURES, "reference_decode.npz"))["frames"]
+    fx = [os.path.join(repo, FIXTURES, f"{i:05d}.jpg") for i in range(1, 17)]
+    bad_dir = os.path.join(repo, "build", "data_loader")
+    os.makedirs(bad_dir, exist_ok=True)
+    corrupt = os.path.join(bad_dir, "corrupt.jpg")
+    with open(corrupt, "wb") as f:
+        f.write(b"\xff\xd8\xff\xe0not really a jpeg")
+    paths = [fx[i % 16] for i in range(LOADER_FRAMES)]
+    paths += [os.path.join(bad_dir, "missing.jpg"), corrupt]
+    native_loader.decode_jpeg_batch(fx, 112)                     # warm
+    times = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        frames, ok = native_loader.decode_jpeg_batch(paths, 112)
+        times.append(time.perf_counter() - t0)
+    require(bool(ok[:LOADER_FRAMES].all()), "a fixture did not decode")
+    require(not ok[LOADER_FRAMES:].any()
+            and not frames[LOADER_FRAMES:].any(), "bad files not zeroed")
+    d = np.abs(frames[:LOADER_FRAMES].astype(np.int16)
+               - ref[np.arange(LOADER_FRAMES) % 16].astype(np.int16))
+    err = int(d.max())
+    require(err <= LOADER_TOL, f"decode differs from the reference by {err}")
+    s = statistics.median(times)
+    nv = None
+    if native_loader.backend() == "own+nvjpeg":
+        # the fallback, run on the same frames
+        native_loader.nvjpeg_only(True)
+        try:
+            native_loader.decode_jpeg_batch(fx, 112)                 # warm
+            t0 = time.perf_counter()
+            fn, okn = native_loader.decode_jpeg_batch(paths, 112)
+            nv_s = time.perf_counter() - t0
+        finally:
+            native_loader.nvjpeg_only(False)
+        require(bool(okn[:LOADER_FRAMES].all()), "nvJPEG did not decode")
+        dn = np.abs(fn[:LOADER_FRAMES].astype(np.int16)
+                    - ref[np.arange(LOADER_FRAMES) % 16].astype(np.int16))
+        require(int(dn.max()) <= LOADER_NVJPEG_TOL,
+                f"the nvJPEG fallback differs by {int(dn.max())}")
+        nv = {"max_abs_diff": int(dn.max()),
+              "share_differing": float((dn > 0).mean()),
+              "tol": LOADER_NVJPEG_TOL, "s": nv_s,
+              "frames_per_s": LOADER_FRAMES / nv_s}
+    emit({"phase": "data_loader", "backend": native_loader.backend(),
+          "build_s": build_s, "frames": LOADER_FRAMES, "size": 112,
+          "max_abs_diff": err, "share_differing": float((d > 0).mean()),
+          "tol": LOADER_TOL, "s": times, "frames_per_s": LOADER_FRAMES / s,
+          "nvjpeg_fallback": nv})
+
+
+def _write_wav(np, path, n_samples, seed):
+    import wave
+    rng = np.random.RandomState(seed)
+    t = np.arange(n_samples) / 16000.0
+    x = 0.2 * np.sin(2 * np.pi * 220 * t) + 0.05 * rng.randn(n_samples)
+    with wave.open(path, "wb") as w:
+        w.setnchannels(1)
+        w.setsampwidth(2)
+        w.setframerate(16000)
+        w.writeframes((np.clip(x, -1, 1) * 32767).astype("<i2").tobytes())
+
+
+def build_fake_abaw(np, repo):
+    """The ABAW layout under build/abaw_fake/: crops are copies of the
+    fixtures in a seeded order per video, PCM16 wavs, annotations with -5
+    rows (ABAW_INVALID); train two 1024-frame 30 fps videos (one wav with a
+    60 ms tail) and a 900-frame one whose wav makes it 25 fps, val one of
+    512 frames, test a 700-frame crop dir without annotation and with
+    crops 301-340 missing. No containers."""
+    root = os.path.join(repo, "build", "abaw_fake")
+    shutil.rmtree(root, ignore_errors=True)
+    ann = os.path.join(root, "annotations", "VA_Estimation_Challenge")
+    fx = [os.path.join(repo, FIXTURES, f"{i:05d}.jpg") for i in range(1, 17)]
+    os.makedirs(os.path.join(root, "audio"))
+    seed = 0
+
+    def crops(vid, n, skip=()):
+        d = os.path.join(root, "cropped_aligned", vid)
+        os.makedirs(d)
+        order = np.random.RandomState(seed).randint(0, 16, n)
+        for i in range(1, n + 1):
+            if i not in skip:
+                shutil.copyfile(fx[order[i - 1]], os.path.join(d, f"{i:05d}.jpg"))
+
+    for split, videos in (("Train_Set", ABAW_TRAIN), ("Validation_Set", ABAW_VAL)):
+        os.makedirs(os.path.join(ann, split))
+        for vid, (n, fps, tail) in videos.items():
+            seed += 1
+            crops(vid, n)
+            t = np.arange(n) / fps
+            with open(os.path.join(ann, split, vid + ".txt"), "w") as f:
+                f.write("valence,arousal\n")
+                for i in range(n):
+                    f.write("-5,-5\n" if i in ABAW_INVALID else
+                            f"{0.7 * np.sin(0.9 * t[i]):.3f},"
+                            f"{0.6 * np.cos(0.7 * t[i]):.3f}\n")
+            _write_wav(np, os.path.join(root, "audio", vid + ".wav"),
+                       int(round((n / fps + tail) * 16000)), seed)
+    vid, n, gap = ABAW_TEST
+    seed += 1
+    crops(vid, n, skip=gap)
+    _write_wav(np, os.path.join(root, "audio", vid + ".wav"),
+               int(round(n / 30.0 * 16000)), seed)
+    return root
+
+
+def cli(main, argv, log_dir, name):
+    """``main(argv)`` with its standard output kept in ``log_dir/name.log``
+    (and returned); the log's tail goes to stderr if the call raises."""
+    import contextlib
+    import io
+    buf = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(buf):
+            rc = main(argv)
+    except BaseException:
+        print(buf.getvalue()[-4000:], file=sys.stderr)
+        raise
+    finally:
+        os.makedirs(log_dir, exist_ok=True)
+        with open(os.path.join(log_dir, name + ".log"), "w") as f:
+            f.write(buf.getvalue())
+    require(rc == 0, f"{name}: exit code {rc}")
+    return buf.getvalue()
+
+
+def _steps_logged(out):
+    return [int(l.split()[1].split("/")[0]) for l in out.splitlines()
+            if l.startswith("step ")]
+
+
+def _step_s(ck_dir, clips):
+    """{step: s} from the run's train.jsonl (clips/s of each logged step,
+    log_every=1: the time since the previous log, so an eval or checkpoint
+    after a step's log falls into the next step's)."""
+    rows = [json.loads(l) for l in open(os.path.join(ck_dir, "train.jsonl"))]
+    return {r["step"]: clips / r["clips_per_sec"] for r in rows
+            if "clips_per_sec" in r}
+
+
+def _s_per_step(np, ck_dir, clips, steps):
+    """Median s/step over ``steps`` (``_step_s``)."""
+    got = _step_s(ck_dir, clips)
+    require(set(steps) <= set(got), f"train.jsonl steps {sorted(got)}")
+    return float(np.median([got[k] for k in steps]))
+
+
+PRODUCER_BATCHES = 16    # batches timed through the CLI's input alone
+
+
+def _producer(np, config, train_stream, root):
+    """The CLI's train input alone (``main.train_stream`` over the fake
+    tree, hop-aware, through its Prefetcher), no model: host s per batch
+    over PRODUCER_BATCHES after a first one."""
+    from m3f_torch.data.affwild2 import AffWild2Dataset
+    cfg = config.apply_overrides(config.fusion(), {"data.synthetic": False,
+                                                   "data.root": root})
+    ds = AffWild2Dataset(cfg.data, cfg.model.mel, split="train")
+    stream = train_stream(cfg, ds, True)(0)
+    try:
+        next(stream)
+        t = [time.perf_counter()]
+        for _ in range(PRODUCER_BATCHES):
+            next(stream)
+            t.append(time.perf_counter())
+    finally:
+        stream.close()
+    d = np.diff(t)
+    return {"batches": PRODUCER_BATCHES, "median_s": float(np.median(d)),
+            "mean_s": float(d.mean()), "batches_per_s": float(1 / d.mean())}
+
+
+def cli_doctor(np, main, root, log_dir):
+    out = cli(main, ["doctor", "--json", "data.root=" + root], log_dir,
+              "cli_doctor")
+    rows = [json.loads(l) for l in out.splitlines() if l.startswith("{")]
+    off = sorted(r["video"] for r in rows if r["fps"] != 30.0)
+    require(off == ["vid_25"], f"off-rate videos {off}, expected ['vid_25']")
+    require(not any(r["errors"] for r in rows), f"doctor errors: {rows}")
+    emit({"phase": "cli_doctor", "videos": len(rows), "off_rate": off,
+          "fps": {r["video"]: r["fps"] for r in rows}})
+
+
+def cli_train(torch, np, cuda_lib, config, main, train_stream, root, repo,
+              log_dir):
+    """``train --preset fusion`` at full width on the fake tree: 8 steps
+    with an eval and a checkpoint every 4 and a trace; hop-aware windowing
+    on, every train step's mel call given a per-entry hop that holds the
+    25 fps hop, every kernel of rows 1-8 launched (the backward kernels 10
+    a step); checkpoints 4, 8 and best; then 12 steps resumed from step 8
+    (4 steps), and a fresh directory seeded from step 8 by --resume-from;
+    each step's time (train.jsonl), and the input alone (``_producer``)."""
+    from m3f_torch.models import m3f as m3f_model
+    ck = os.path.join(repo, "build", "cli_train")
+    trace_dir = os.path.join(ck, "trace")
+    for d in (ck, ck + "_seeded"):
+        shutil.rmtree(d, ignore_errors=True)
+    cfg = config.fusion()
+    # options first, then the key=value overrides (argparse)
+    common = ["data.synthetic=false", "data.root=" + root,
+              "train.eval_every=4", "train.checkpoint_every=4",
+              "train.log_every=1"]
+    hops = []
+    real = m3f_model.log_mel_spectrogram
+
+    def spy(*a, **kw):
+        if torch.is_grad_enabled() and isinstance(kw.get("hop"), torch.Tensor):
+            hops.append(sorted(set(kw["hop"].flatten().tolist())))
+        return real(*a, **kw)
+    m3f_model.log_mel_spectrogram = spy
+    try:
+        cuda_lib.reset_launches()
+        t0 = time.perf_counter()
+        out = cli(main, ["train", "--preset", "fusion", *common,
+                         "train.num_steps=8",
+                         "train.checkpoint_dir=" + ck,
+                         "train.profile_dir=" + trace_dir], log_dir, "cli_train")
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        counts = dict(cuda_lib.launches)
+    finally:
+        m3f_model.log_mel_spectrogram = real
+    steps = CLI_STEPS[0]
+    require("hop-aware windowing enabled" in out, "hop-aware windowing is off")
+    hop25 = cfg.model.mel.hop_for_fps(25.0, cfg.data.fps)
+    require(len(hops) == steps and any(hop25 in h for h in hops),
+            f"train-step mel hops {hops}, expected the 25 fps hop {hop25}")
+    missing = [k for k in FORWARD_KERNELS if counts[k] < steps]
+    missing += [k for k in BWD_KERNELS if counts[k] != 10 * steps]
+    require(not missing, f"cli_train launches {counts}")
+    for name in ("ckpt_00000004.npz", "ckpt_00000008.npz", "best.npz"):
+        require(os.path.exists(os.path.join(ck, name)), f"no {name}")
+    require(_steps_logged(out) == list(range(1, steps + 1)), "steps logged")
+    clips = cfg.train.batch_size * cfg.window.windows_per_clip
+    step_s = _s_per_step(np, ck, clips, range(2, steps + 1))
+    out2 = cli(main, ["train", "--preset", "fusion", *common,
+                      f"train.num_steps={CLI_STEPS[1]}",
+                      "train.checkpoint_dir=" + ck], log_dir, "cli_train_resume")
+    resumed = _steps_logged(out2)
+    require(resumed == list(range(steps + 1, CLI_STEPS[1] + 1)),
+            f"the resumed run logged steps {resumed}")
+    require(os.path.exists(os.path.join(ck, f"ckpt_{CLI_STEPS[1]:08d}.npz")),
+            "no checkpoint of the resumed run")
+    out3 = cli(main, ["train", "--preset", "fusion", "--no-eval",
+                      "--resume-from", os.path.join(ck, "ckpt_00000008.npz"),
+                      *common, f"train.num_steps={CLI_STEPS[2]}",
+                      "train.checkpoint_dir=" + ck + "_seeded"],
+               log_dir, "cli_train_resume_from")
+    seeded = _steps_logged(out3)
+    require("seeded" in out3 and seeded == list(range(steps + 1,
+                                                      CLI_STEPS[2] + 1)),
+            f"--resume-from logged steps {seeded}")
+    producer = _producer(np, config, train_stream, root)
+    emit({"phase": "cli_train", "preset": "fusion", "steps": steps,
+          "batch": cfg.train.batch_size, "windows": cfg.window.windows_per_clip,
+          "hop_aware": True, "train_hops": sorted({x for h in hops for x in h}),
+          "launches": counts, "s": dt, "s_per_step": step_s,
+          "s_per_step_note": "median of steps 2-8, steps 3-8 under the profiler",
+          "clips_per_s": clips / step_s,
+          "step_s": _step_s(ck, clips),
+          "producer": producer, "resumed_steps": resumed,
+          "resume_from_steps": seeded})
+    return ck, trace_dir
+
+
+def cli_inspect_profile(main, ck, trace_dir, log_dir):
+    path = os.path.join(ck, f"ckpt_{CLI_STEPS[1]:08d}.npz")
+    row = json.loads(cli(main, ["inspect", "--json", path], log_dir,
+                         "cli_inspect").splitlines()[-1])
+    require(row["layout"].startswith("TrainState") and row["step"] == CLI_STEPS[1],
+            f"inspect: {row}")
+    emit({"phase": "cli_inspect", "layout": row["layout"], "step": row["step"],
+          "leaves": row["leaves"], "mbytes": row["mbytes"]})
+    out = cli(main, ["profile", trace_dir], log_dir, "cli_profile")
+    rows = [l for l in out.splitlines() if " ms " in l]
+    require(rows, "profile printed no rows")
+    emit({"phase": "cli_profile", "rows": len(rows), "top": rows[:5]})
+
+
+def cli_eval(np, main, root, ck, log_dir):
+    """``eval --split val --per-video`` of the step-12 checkpoint, then of
+    step 8 and of the ensemble of both, which must differ from each."""
+    res = {}
+    for name, paths in (("12", [CLI_STEPS[1]]), ("8", [8]), ("8+12", [8, CLI_STEPS[1]])):
+        arg = ",".join(os.path.join(ck, f"ckpt_{s:08d}.npz") for s in paths)
+        out = cli(main, ["eval", "--split", "val", "--per-video",
+                         "--checkpoint", arg, "data.synthetic=false",
+                         "data.root=" + root], log_dir, "cli_eval_" + name)
+        rows = [json.loads(l) for l in out.splitlines() if l.startswith("{")]
+        require(len(rows) == 2 and rows[0]["video"] == "vid_v", f"eval rows {rows}")
+        require(all(math.isfinite(v) for v in rows[1].values()), f"eval {rows}")
+        res[name] = rows[1]
+    for k in ("12", "8"):
+        require(res["8+12"]["ccc_v"] != res[k]["ccc_v"],
+                f"the ensemble's CCC equals checkpoint {k}'s")
+    emit({"phase": "cli_eval", "split": "val",
+          "ccc": {k: {m: v[m] for m in ("ccc_v", "ccc_a")} for k, v in res.items()}})
+
+
+def cli_predict(main, root, ck, repo, log_dir):
+    out_dir = os.path.join(repo, "build", "cli_submission")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    t0 = time.perf_counter()
+    cli(main, ["predict", "--split", "test", "--out", out_dir, "--checkpoint",
+               os.path.join(ck, f"ckpt_{CLI_STEPS[1]:08d}.npz"),
+               "data.synthetic=false", "data.root=" + root], log_dir,
+        "cli_predict")
+    dt = time.perf_counter() - t0
+    files = sorted(os.listdir(out_dir))
+    vid, n, _ = ABAW_TEST
+    require(files == [vid + ".txt"], f"submission files {files}")
+    lines = open(os.path.join(out_dir, files[0])).read().splitlines()
+    require(len(lines) == n + 1, f"{len(lines)} lines, expected {n + 1}")
+    emit({"phase": "cli_predict", "split": "test", "files": files,
+          "lines": len(lines), "s": dt})
+
+
+def cli_export(torch, np, main, Predictor, ck, repo, log_dir):
+    """``export --format torch`` of the step-12 checkpoint, the import
+    script on that export, and a Predictor on each file: a 256-frame video
+    predicted bit for bit alike."""
+    from m3f_torch.scripts import import_torch_checkpoint
+    d = os.path.join(repo, "build", "cli_export")
+    os.makedirs(d, exist_ok=True)
+    src = os.path.join(ck, f"ckpt_{CLI_STEPS[1]:08d}.npz")
+    pt, imported = os.path.join(d, "ckpt.pt"), os.path.join(d, "imported.npz")
+    cli(main, ["export", "--format", "torch", "--checkpoint", src, "--out", pt],
+        log_dir, "cli_export")
+    cli(import_torch_checkpoint.main, [pt, imported, "--kind", "m3f"], log_dir,
+        "cli_import")
+    frames, wav = synthetic_video(np, 256, 30.0, seed=7)
+    p = Predictor(preset="fusion", checkpoint=src)
+    want = p.predict_video(frames=frames, waveform=wav)["pred"]
+    got = Predictor(preset="fusion", checkpoint=imported).predict_video(
+        frames=frames, waveform=wav)["pred"]
+    require(np.array_equal(got, want),
+            f"imported export differs by {np.abs(got - want).max()}")
+    emit({"phase": "cli_export", "format": "torch", "tensors": len(torch.load(pt)),
+          "frames": len(frames), "bit_equal": True})
+    del p
+    return src, frames, wav, want
+
+
+def cli_serve(np, repo, src, frames, wav, want, log_dir):
+    """``python -m m3f_torch.main serve`` as a process of its own: /healthz
+    polled, one /predict of the 256-frame video within the stream limits
+    of the in-process prediction, SIGINT, exit code 0."""
+    import io
+    import signal
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    os.makedirs(log_dir, exist_ok=True)
+    log = open(os.path.join(log_dir, "cli_serve.log"), "w")
+    env = dict(os.environ, PYTHONPATH=repo)
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "m3f_torch.main", "serve", "--preset", "fusion",
+         "--checkpoint", src, "--port", str(port), "--warmup-frames", "0"],
+        cwd=repo, env=env, stdout=log, stderr=subprocess.STDOUT)
+    base = f"http://127.0.0.1:{port}"
+    try:
+        while True:
+            require(proc.poll() is None, "the server exited before serving")
+            require(time.perf_counter() - t0 < 300, "the server never came up")
+            try:
+                json.loads(_http(base + "/healthz", timeout=5))
+                break
+            except OSError:
+                time.sleep(0.5)
+        up_s = time.perf_counter() - t0
+        t1 = time.perf_counter()
+        pred = np.load(io.BytesIO(_http(base + "/predict",
+                                        _npz(np, frames=frames, waveform=wav),
+                                        {"Accept": "application/x-npy"})))
+        predict_s = time.perf_counter() - t1
+        diff = stream_within(np, pred, want, "served /predict")
+        proc.send_signal(signal.SIGINT)
+        rc = proc.wait(timeout=120)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        log.close()
+    require(rc == 0, f"the server exited with {rc} after SIGINT")
+    emit({"phase": "cli_serve", "up_s": up_s, "predict_s": predict_s,
+          "frames": len(frames), **diff, "tol_max": STREAM_ATOL,
+          "tol_mean": STREAM_MEAN_ATOL, "exit_code": rc})
+
+
+def cli_presets(torch, np, cuda_lib, config, main, root, repo, log_dir):
+    """Two steps each of ``audio_only`` (mel and GRU, no conv unit) and
+    ``visual_only`` (no mel) through ``train`` on the fake tree."""
+    res = {}
+    for preset in ("audio_only", "visual_only"):
+        cfg = config.PRESETS[preset]()
+        ck = os.path.join(repo, "build", "cli_" + preset)
+        shutil.rmtree(ck, ignore_errors=True)
+        cuda_lib.reset_launches()
+        out = cli(main, ["train", "--preset", preset, "--no-eval",
+                         "data.synthetic=false", "data.root=" + root,
+                         "train.num_steps=2", "train.log_every=1",
+                         "train.checkpoint_every=0", "train.checkpoint_dir=" + ck],
+                  log_dir, "cli_" + preset)
+        torch.cuda.synchronize()
+        counts = dict(cuda_lib.launches)
+        conv = [k for k in counts if k.startswith("conv_")]
+        if preset == "audio_only":
+            ok = counts["melspec"] == 2 and counts["gru"] == 2 \
+                and not any(counts[k] for k in conv)
+        else:
+            ok = counts["melspec"] == counts["melspec_dft"] == 0 \
+                and counts["gru"] == 2 and all(counts[k] == 20 for k in conv)
+        require(ok, f"{preset} launches {counts}")
+        require(_steps_logged(out) == [1, 2], f"{preset} steps")
+        clips = cfg.train.batch_size * cfg.window.windows_per_clip
+        s = _s_per_step(np, ck, clips, [2])
+        res[preset] = {"batch": cfg.train.batch_size, "s_per_step": s,
+                       "clips_per_s": clips / s, "launches": counts}
+    emit({"phase": "cli_presets", "steps": 2, **res})
+
+
+def cli_debug_nans(torch, np, config, Trainer, data):
+    """A full-width fusion fit on a stream whose second batch holds a NaN
+    in its wav: with ``train.debug_nans`` it raises FloatingPointError at
+    step 2; without, it trains on (the second loss is NaN)."""
+    base = config.apply_overrides(config.fusion(), {"train.log_every": 1})
+    factory = synthetic_stream(np, base, *data, seed=3)
+
+    def stream(skip):
+        for i, b in enumerate(factory(skip)):
+            if i == 1:
+                b = dict(b, wav=b["wav"].copy())
+                b["wav"][0, 0, 100] = np.nan
+            yield b
+    cfg = config.apply_overrides(base, {"train.debug_nans": True})
+    t0 = time.perf_counter()
+    try:
+        Trainer(cfg).fit(stream, num_steps=2, log=lambda s: None)
+        raised = None
+    except FloatingPointError as e:
+        raised = str(e)
+    dt = time.perf_counter() - t0
+    require(raised is not None and "step 2" in raised,
+            f"debug_nans: {raised!r}, expected a FloatingPointError at step 2")
+    torch.cuda.empty_cache()
+    _, hist = Trainer(base).fit(stream, num_steps=2, log=lambda s: None)
+    emit({"phase": "cli_debug_nans", "raised": raised.splitlines()[0][:200],
+          "s": dt, "without_flag_loss": hist["loss"]})
+
+
 def main():
     import numpy as np
     import torch
@@ -2005,6 +2511,8 @@ def main():
         from m3f_torch.train.checkpoint import save_pytree, to_jax_params
         from m3f_torch.train.loop import Trainer
         from m3f_torch.utils import profiling
+        from m3f_torch import main as cli_main
+        from m3f_torch.data import native_loader
     except ImportError as e:
         print(f"chip_smoke: the m3f_torch package is not next to this file "
               f"({e})", file=sys.stderr)
@@ -2154,6 +2662,24 @@ def main():
               os.path.join(repo, "build", "init_from", "visual.npz"))
     torch.cuda.empty_cache()
     train_parity(torch, np, cuda_lib, config, Trainer, data)
+    torch.cuda.empty_cache()
+
+    # 5b. the data layer and the command line on a fake ABAW tree
+    log_dir = os.path.join(repo, "build", "cli_logs")
+    data_loader(np, native_loader, repo)
+    root = build_fake_abaw(np, repo)
+    cli_doctor(np, cli_main.main, root, log_dir)
+    ck, trace_dir = cli_train(torch, np, cuda_lib, config, cli_main.main,
+                              cli_main.train_stream, root, repo, log_dir)
+    cli_inspect_profile(cli_main.main, ck, trace_dir, log_dir)
+    cli_eval(np, cli_main.main, root, ck, log_dir)
+    cli_predict(cli_main.main, root, ck, repo, log_dir)
+    served = cli_export(torch, np, cli_main.main, Predictor, ck, repo, log_dir)
+    torch.cuda.empty_cache()
+    cli_serve(np, repo, *served, log_dir)
+    cli_presets(torch, np, cuda_lib, config, cli_main.main, root, repo, log_dir)
+    torch.cuda.empty_cache()
+    cli_debug_nans(torch, np, config, Trainer, data)
 
     # 6. the kernels line, the card line, the result line
     pallas = "m3f/pytorch_tpu/ops/pallas/"

@@ -21,14 +21,16 @@ static shapes:
 ``mel_frames_per_window`` mel frames: with centered framing,
 n_frames = 1 + samples//hop  ⇒  samples = (mel_frames − 1) · hop.
 
-The multi-host partitioning (``SubsetDataset``, ``process_sharded_stream``)
-comes with the ``parallel/`` slice.
+``process_sharded_stream`` feeds each process of a multi-process run a
+disjoint share of the data (``SubsetDataset``, ``partition_video_ids``); in
+one process it is ``example_stream``. Nothing else of ``parallel/`` is
+ported yet.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Dict, Iterator, List
+from typing import Dict, Iterator, List, Optional
 
 import numpy as np
 
@@ -317,3 +319,111 @@ def example_stream(dataset, sequencer: WindowSequencer, batch_size: int,
         out = finish_batch(batch)
         if out is not None:
             yield out
+
+
+# ---------------------------------------------------------------------------
+# Multi-process input partitioning
+# ---------------------------------------------------------------------------
+
+@dataclass
+class SubsetDataset:
+    """View of a dataset restricted to a subset of its video ids."""
+
+    base: object
+    ids: List[str]
+
+    def __post_init__(self):
+        # advertise the num_frames protocol only when the base can honor it
+        # cheaply — otherwise example_stream would take the has-protocol
+        # branch and this forward's load_video fallback would bypass the
+        # stream's decode cache, decoding every video twice per epoch
+        if getattr(self.base, "num_frames", None) is None:
+            self.num_frames = None
+
+    def video_ids(self) -> List[str]:
+        return list(self.ids)
+
+    def load_video(self, video_id: str):
+        return self.base.load_video(video_id)
+
+    def num_frames(self, video_id: str) -> int:
+        return self.base.num_frames(video_id)
+
+
+def partition_video_ids(ids: List[str], process_index: int,
+                        process_count: int) -> List[str]:
+    """Round-robin partition: disjoint across processes, union == ids."""
+    if not 0 <= process_index < process_count:
+        raise ValueError(f"process_index {process_index} not in "
+                         f"[0, {process_count})")
+    return list(ids)[process_index::process_count]
+
+
+def process_grid() -> tuple:
+    """(rank, world size) of an initialised ``torch.distributed`` group,
+    else (0, 1)."""
+    import torch.distributed as dist
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_rank(), dist.get_world_size()
+    return 0, 1
+
+
+def process_sharded_stream(dataset, sequencer: WindowSequencer,
+                           local_batch_size: int, *, seed: int = 0,
+                           loop: bool = True, shuffle_buffer: int = 0,
+                           skip_batches: int = 0,
+                           cache_videos: int = 1,
+                           process_index: Optional[int] = None,
+                           process_count: Optional[int] = None
+                           ) -> Iterator[Dict[str, np.ndarray]]:
+    """Per-process example stream for multi-process training: each process
+    feeds a disjoint slice of the data, ``local_batch_size`` =
+    global batch / ``process_count``. ``process_index`` / ``process_count``
+    default to the rank and world size of an initialised
+    ``torch.distributed`` group, else 0 and 1.
+
+    Partitioning: video-level round-robin (+ a per-process shuffle seed) when
+    there are at least as many videos as processes; otherwise every process
+    runs the SAME deterministic example stream (same seed) and keeps examples
+    ``i ≡ process_index (mod process_count)`` — example-level disjointness
+    that still covers everything.
+    """
+    if process_index is None or process_count is None:
+        rank, world = process_grid()
+    pi = rank if process_index is None else process_index
+    pc = world if process_count is None else process_count
+    if pc == 1:
+        yield from example_stream(dataset, sequencer, local_batch_size,
+                                  seed=seed, loop=loop,
+                                  shuffle_buffer=shuffle_buffer,
+                                  skip_batches=skip_batches,
+                                  cache_videos=cache_videos)
+        return
+    ids = dataset.video_ids()
+    if len(ids) >= pc:
+        sub = SubsetDataset(dataset, partition_video_ids(ids, pi, pc))
+        yield from example_stream(sub, sequencer, local_batch_size,
+                                  seed=seed + 1_000_003 * pi, loop=loop,
+                                  shuffle_buffer=shuffle_buffer,
+                                  skip_batches=skip_batches,
+                                  cache_videos=cache_videos)
+        return
+    # tiny-dataset fallback (fewer videos than processes): example-level
+    # interleave. skip here drops formed local batches — materialization
+    # cost is bounded by the dataset being tiny by definition of this path
+    src = example_stream(dataset, sequencer, 1, seed=seed, loop=loop,
+                         shuffle_buffer=shuffle_buffer,
+                         cache_videos=cache_videos)
+    batch: List[Dict[str, np.ndarray]] = []
+    skipped = 0
+    for i, b in enumerate(src):
+        if i % pc != pi:
+            continue
+        batch.append(b)
+        if len(batch) == local_batch_size:
+            if skipped < skip_batches:
+                skipped += 1
+            else:
+                yield {k: np.concatenate([x[k] for x in batch])
+                       for k in batch[0]}
+            batch = []

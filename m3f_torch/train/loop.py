@@ -39,14 +39,18 @@ Counterpart of ``m3f/pytorch_tpu/train/loop.py``:
   branch or the whole model after the seeded init
   (``checkpoint.load_pretrained_init``); ``fit(metric_writer=)`` writes the
   reference's rows (``utils/logging.MetricWriter``).
+- **``train.debug_nans``:** the JAX package turns on ``jax_debug_nans``, so
+  the first non-finite value of a step raises ``FloatingPointError``. Here
+  each step's backward runs under ``torch.autograd.detect_anomaly(
+  check_nan=True)`` and its loss and gradient norm are checked (a read of
+  the card each step); the first non-finite one raises
+  ``FloatingPointError`` naming the step. The flag is the config's, so
+  every caller of ``fit`` / ``train_step`` gets it.
 
 ``make_eval_forward`` is the streaming sessions' group forward (a host
 feed of W-window sequences → per-frame predictions). ``fit`` traces steps
 start+2 to start+12 into ``train.profile_dir`` (``utils/profiling.trace``)
 when it is set.
-
-Not ported yet, and refused rather than ignored: ``train.debug_nans``
-(ROADMAP: CLI and tooling).
 """
 
 from __future__ import annotations
@@ -162,6 +166,22 @@ def _host_ccc(pred: np.ndarray, target: np.ndarray, valid: np.ndarray,
     var_p = (dp * dp).sum(axis=0) / cnt
     var_t = (dt * dt).sum(axis=0) / cnt
     return 2.0 * cov / (var_p + var_t + (mu_p - mu_t) ** 2 + eps)
+
+
+@contextlib.contextmanager
+def _nan_guard(step: int):
+    """``train.debug_nans`` around one step's forward and backward: anomaly
+    mode's refusal of a NaN that a backward function returns becomes a
+    ``FloatingPointError`` naming the step."""
+    with torch.autograd.detect_anomaly(check_nan=True):
+        try:
+            yield
+        except RuntimeError as e:
+            if "nan" not in str(e).lower():
+                raise
+            raise FloatingPointError(
+                f"train.debug_nans: NaN in the backward at step {step}: "
+                f"{e}") from e
 
 
 class Trainer:
@@ -301,9 +321,11 @@ class Trainer:
         drop_gen = (self._step_generator(tcfg.seed ^ 0x5eed, state.step)
                     if self.cfg.model.dropout > 0.0 else None)
         names = list(state.params)
-        loss, preds = self._loss_fn(batch, drop_gen)
-        grads = torch.autograd.grad(loss, [state.params[n] for n in names],
-                                    allow_unused=True)
+        step = state.step + 1
+        with (_nan_guard(step) if tcfg.debug_nans else contextlib.nullcontext()):
+            loss, preds = self._loss_fn(batch, drop_gen)
+            grads = torch.autograd.grad(loss, [state.params[n] for n in names],
+                                        allow_unused=True)
         grads = {n: torch.zeros_like(state.params[n]) if g is None else g
                  for n, g in zip(names, grads)}
         with torch.no_grad():
@@ -322,6 +344,12 @@ class Trainer:
                     preds, batch["labels"], batch["mask"],
                     one_pass=tcfg.ccc_stats == "one_pass"),
             }
+            if tcfg.debug_nans:
+                for k in ("loss", "grad_norm"):
+                    if not torch.isfinite(metrics[k]).item():
+                        raise FloatingPointError(
+                            f"train.debug_nans: non-finite {k} "
+                            f"({metrics[k].item()}) at step {step}")
             if state.ema is not None:
                 self._update_ema(state, params)
         state.step += 1
@@ -741,9 +769,6 @@ class Trainer:
         history): ``loss`` and ``grad_norm`` at each log step, ``eval``
         results at each eval."""
         tcfg = self.cfg.train
-        if tcfg.debug_nans:
-            raise NotImplementedError(
-                "train.debug_nans is not ported yet (ROADMAP: CLI and tooling)")
         num_steps = num_steps or tcfg.num_steps
         state = self.init_state(keep_weights=keep_weights)
         if checkpointer is not None:

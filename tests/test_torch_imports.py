@@ -23,7 +23,25 @@ for n in names:
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith(("jax.", "jaxlib"))
              or m == "m3f" or m.startswith("m3f."))
+new = {"m3f_torch.main", "m3f_torch.data.affwild2", "m3f_torch.data.doctor",
+       "m3f_torch.data.native_loader", "m3f_torch.data.windowing",
+       "m3f_torch.train.convert", "m3f_torch.scripts.import_torch_checkpoint",
+       "m3f_torch.scripts.export_torch_checkpoint",
+       "m3f_torch.scripts.average_checkpoints"}
+assert new <= set(names), sorted(new - set(names))
 print(len(names), bad)
+"""
+
+_LOADER = """
+import sys
+from m3f_torch.data import native_loader
+assert native_loader.native_available()
+maps = open("/proc/self/maps").read()
+assert "libm3f_loader.so" not in maps, "loaded the JAX package's library"
+assert str(native_loader.BUILD_DIR) in maps
+bad = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")
+             or m == "m3f" or m.startswith("m3f."))
+print(native_loader.backend(), bad)
 """
 
 
@@ -43,8 +61,19 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
                          env=_env(), capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     count, bad = out.stdout.strip().split(" ", 1)
-    assert int(count) >= 28          # every module of the port was imported
+    assert int(count) >= 41          # every module of the port was imported
     assert bad == "[]"
+
+
+def test_port_loader_is_its_own_build():
+    """The data layer loads the port's loader from build/loader, never the
+    JAX package's native/loader/libm3f_loader.so, and imports no JAX."""
+    env = _env()
+    env.pop("M3F_LOADER_SO", None)
+    out = subprocess.run([sys.executable, "-c", _LOADER], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.split() == ["libjpeg", "[]"]
 
 
 def test_entry_points_need_a_gpu_unless_asked_for_the_cpu():

@@ -20,8 +20,9 @@ and numpy inputs from seeds, at narrow widths in fp32:
   ``keep_weights=True`` it goes on from the weights in ``Trainer.model``;
 - whole-video eval and ``evaluate`` (both CCC conventions) vs the
   reference's;
-- the guards: what is not ported (``train.debug_nans``) raises
-  ``NotImplementedError``; what was ported since runs.
+- the guards: the features of ``fit`` that were once refused run now
+  (``train.debug_nans`` last; tests/test_torch_cli.py holds its raise
+  against the reference's).
 """
 
 import dataclasses
@@ -370,13 +371,13 @@ def _one_batch(cfg):
 @pytest.mark.parametrize("what", ["dropout", "augment", "init_from",
                                   "profile_dir", "debug_nans", "metric_writer"])
 def test_unported_features_raise(what, tmp_path):
-    """``train.debug_nans``, the one feature of ``fit`` not ported yet,
-    raises; the others, ported since, run: ``profile_dir`` traces the third
-    step of a 3-step fit (tests/test_torch_profiling.py holds the window),
-    dropout, augmentation, ``init_from`` (a whole-model file) and a metric
-    writer train a step with a finite loss
-    (tests/test_torch_dropout_augment.py, test_torch_init_from.py and
-    test_torch_logging.py hold them against the reference)."""
+    """Every feature of ``fit`` that was once refused runs: ``profile_dir``
+    traces the third step of a 3-step fit (tests/test_torch_profiling.py
+    holds the window); dropout, augmentation, ``init_from`` (a whole-model
+    file), ``debug_nans`` (on finite data) and a metric writer train a step
+    with a finite loss (tests/test_torch_dropout_augment.py,
+    test_torch_init_from.py, test_torch_logging.py and test_torch_cli.py
+    hold them against the reference)."""
     from m3f_torch.train.checkpoint import save_pytree, to_jax_params
     from m3f_torch.utils.logging import MetricWriter
     cfg = _cfg(tc)
@@ -404,10 +405,6 @@ def test_unported_features_raise(what, tmp_path):
     if what == "profile_dir":
         tr.fit(_one_batch(cfg), log=lambda s: None)
         assert len(list(tmp_path.glob("*.pt.trace.json.gz"))) == 1
-        return
-    if what == "debug_nans":
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tr.fit(_one_batch(cfg), num_steps=1, log=lambda s: None)
         return
     writer = (MetricWriter(str(tmp_path / "m"), tensorboard=False)
               if what == "metric_writer" else None)
