@@ -119,8 +119,7 @@ H100 (``python3 chip_smoke.py``). It
 5b. the data layer and the command line: the port's JPEG loader built from
    ``csrc/loader.cc`` for this host (phase ``data_loader``: 1024 decodes
    of the committed fixtures plus a missing and a corrupt file, each frame
-   within LOADER_TOL of the committed reference decode, frames/s; on the
-   ``own+nvjpeg`` build the same frames through the nvJPEG fallback too);
+   within LOADER_TOL of the committed reference decode, frames/s);
    a fake ABAW tree under ``build/abaw_fake/`` made of fixture copies,
    PCM16 wavs and annotations with -5 rows (a 25 fps video, a 60 ms wav
    tail, a test split with a gap); then ``m3f_torch.main`` as a user runs
@@ -2010,11 +2009,9 @@ FIXTURES = os.path.join("tests", "data", "torch_crops")
 LOADER_FRAMES = 1024     # decoded in phase data_loader (the 16 fixtures, cycled)
 LOADER_TOL = 2           # levels, against the committed reference decode
 #                          (tests/test_native_loader.py:37-39); 0 expected:
-#                          libjpeg, or the port's own decoder, is libjpeg's
-#                          decode bit for bit
-LOADER_NVJPEG_TOL = 4    # the nvJPEG fallback (non-baseline streams) on the
-#                          fixtures: its IDCT is not libjpeg's, so it is held
-#                          only to this sanity bound
+#                          libjpeg, or the port's own decoder where the host
+#                          has no libjpeg headers, is libjpeg's decode bit
+#                          for bit
 # the fake tree: {video: (frames, fps of its wav, wav tail in s)}
 ABAW_TRAIN = {"vid_a": (1024, 30.0, 0.0), "vid_tail": (1024, 30.0, 0.06),
               "vid_25": (900, 25.0, 0.0)}
@@ -2029,9 +2026,13 @@ def data_loader(np, native_loader, repo):
     (timed), LOADER_FRAMES fixture paths plus a missing and a corrupt file
     decoded at 112 in one call, each frame held to the committed reference
     decode within LOADER_TOL, the two bad slots zeroed with ok=False;
-    frames/s on the host clock (the median of 3 calls after a warm one).
-    On the own+nvjpeg build the same call again through nvJPEG alone (the
-    fallback of non-baseline streams), within LOADER_NVJPEG_TOL."""
+    frames/s on the host clock (the median of 5 calls after a warm one).
+    Each call alternates with one of ``cv2.imread`` on a pool of as many
+    threads decoding the same fixtures (``scripts/loader_bench.py``), the
+    alternative to a native decoder, timed here in the process that trains
+    (null without cv2)."""
+    from concurrent.futures import ThreadPoolExecutor
+    from m3f_torch.scripts.loader_bench import cv2_pool_decode
     t0 = time.perf_counter()
     native_loader.build()
     build_s = time.perf_counter() - t0
@@ -2045,12 +2046,26 @@ def data_loader(np, native_loader, repo):
         f.write(b"\xff\xd8\xff\xe0not really a jpeg")
     paths = [fx[i % 16] for i in range(LOADER_FRAMES)]
     paths += [os.path.join(bad_dir, "missing.jpg"), corrupt]
+    try:
+        import cv2  # noqa: F401
+    except ImportError:
+        cv2 = None
+    workers = min(8, os.cpu_count() or 1)        # the loader's threads
+    pool_out = np.empty((LOADER_FRAMES, 112, 112, 3), np.uint8)
     native_loader.decode_jpeg_batch(fx, 112)                     # warm
-    times = []
-    for _ in range(3):
-        t0 = time.perf_counter()
-        frames, ok = native_loader.decode_jpeg_batch(paths, 112)
-        times.append(time.perf_counter() - t0)
+    times, pool_times = [], []
+    with ThreadPoolExecutor(workers) as pool:
+        if cv2 is not None:
+            cv2_pool_decode(paths[:LOADER_FRAMES], 112, pool, workers, pool_out)
+        for _ in range(5):
+            t0 = time.perf_counter()
+            frames, ok = native_loader.decode_jpeg_batch(paths, 112)
+            times.append(time.perf_counter() - t0)
+            if cv2 is not None:
+                t0 = time.perf_counter()
+                cv2_pool_decode(paths[:LOADER_FRAMES], 112, pool, workers,
+                                pool_out)
+                pool_times.append(time.perf_counter() - t0)
     require(bool(ok[:LOADER_FRAMES].all()), "a fixture did not decode")
     require(not ok[LOADER_FRAMES:].any()
             and not frames[LOADER_FRAMES:].any(), "bad files not zeroed")
@@ -2059,31 +2074,18 @@ def data_loader(np, native_loader, repo):
     err = int(d.max())
     require(err <= LOADER_TOL, f"decode differs from the reference by {err}")
     s = statistics.median(times)
-    nv = None
-    if native_loader.backend() == "own+nvjpeg":
-        # the fallback, run on the same frames
-        native_loader.nvjpeg_only(True)
-        try:
-            native_loader.decode_jpeg_batch(fx, 112)                 # warm
-            t0 = time.perf_counter()
-            fn, okn = native_loader.decode_jpeg_batch(paths, 112)
-            nv_s = time.perf_counter() - t0
-        finally:
-            native_loader.nvjpeg_only(False)
-        require(bool(okn[:LOADER_FRAMES].all()), "nvJPEG did not decode")
-        dn = np.abs(fn[:LOADER_FRAMES].astype(np.int16)
-                    - ref[np.arange(LOADER_FRAMES) % 16].astype(np.int16))
-        require(int(dn.max()) <= LOADER_NVJPEG_TOL,
-                f"the nvJPEG fallback differs by {int(dn.max())}")
-        nv = {"max_abs_diff": int(dn.max()),
-              "share_differing": float((dn > 0).mean()),
-              "tol": LOADER_NVJPEG_TOL, "s": nv_s,
-              "frames_per_s": LOADER_FRAMES / nv_s}
+    alt = None
+    if pool_times:
+        alt = {"threads": workers, "s": pool_times,
+               "frames_per_s": LOADER_FRAMES / statistics.median(pool_times),
+               "max_abs_diff": int(np.abs(
+                   pool_out.astype(np.int16)
+                   - ref[np.arange(LOADER_FRAMES) % 16].astype(np.int16)).max())}
     emit({"phase": "data_loader", "backend": native_loader.backend(),
           "build_s": build_s, "frames": LOADER_FRAMES, "size": 112,
           "max_abs_diff": err, "share_differing": float((d > 0).mean()),
           "tol": LOADER_TOL, "s": times, "frames_per_s": LOADER_FRAMES / s,
-          "nvjpeg_fallback": nv})
+          "cv2_pool": alt})
 
 
 def _write_wav(np, path, n_samples, seed):

@@ -10,29 +10,24 @@
 //   m3f_decode_jpeg_batch(paths, n, out, H, W, n_threads, ok) -> n_failed
 //     paths: array of n NUL-terminated file paths ("" = missing)
 //     out:   caller-allocated uint8 buffer [n, H, W, 3] (RGB)
-//     ok:    per-slot 1 / 0 (may be null); a failed or missing file leaves
-//            its slot zeroed and counts in the return
+//     ok:    per slot (may be null): 1 decoded; 0 missing or corrupt; 2 a
+//            stream the own decoder does not take (M3F_LOADER_OWN only).
+//            A slot that is not 1 is zeroed and counts in the return.
 //   m3f_loader_self_test() -> 42
 //
 // The decoder is chosen at build time:
-//   default             libjpeg (jpeglib.h, -ljpeg): the reference's decode.
-//   -DM3F_LOADER_NVJPEG for a host with the CUDA toolkit and no libjpeg
-//                       headers: the port's own baseline decoder (below;
-//                       libjpeg's default decode bit for bit on the streams
-//                       it takes: sequential Huffman, 8-bit, grey or YCbCr),
-//                       and for any other stream (progressive, arithmetic,
-//                       CMYK, ...) nvJPEG (nvjpeg.h, -lnvjpeg -lcudart;
-//                       hybrid backend: Huffman decode on the host, IDCT on
-//                       the card) to component planes, converted like
-//                       libjpeg's, so its frames differ only by the IDCT.
-//   -DM3F_LOADER_OWN    the own decoder alone (a test build: the tests hold
-//                       it to libjpeg's decode, bit for bit).
-// Every decoder fills the same slot or scratch, then the same
-// resize_bilinear.
+//   default          libjpeg (jpeglib.h, -ljpeg): the reference's decode.
+//   -DM3F_LOADER_OWN for a host without libjpeg's headers: the port's own
+//                    baseline decoder (below), libjpeg's default decode bit
+//                    for bit on the streams it takes (sequential Huffman,
+//                    8-bit, grey or YCbCr); any other stream (progressive,
+//                    arithmetic, 12-bit, CMYK, ...) gets ok 2, which the
+//                    caller raises on rather than decode it differently.
+// Either fills the same slot or scratch, then the same resize_bilinear.
 //
 // Built on first use by m3f_torch/data/native_loader.py:
 //   g++ -O3 -std=c++17 -fPIC -pthread -shared loader.cc -o ... -ljpeg
-// (or the nvJPEG flags) into build/loader/ at the repository root, keyed by
+// (or -DM3F_LOADER_OWN) into build/loader/ at the repository root, keyed by
 // a hash of this file and the flags.
 
 #include <atomic>
@@ -46,20 +41,15 @@
 #include <thread>
 #include <vector>
 
-#if defined(M3F_LOADER_NVJPEG) || defined(M3F_LOADER_OWN)
-#define M3F_OWN_DECODER 1
-#endif
-
-#ifdef M3F_LOADER_NVJPEG
-#include <cuda_runtime.h>
-#include <nvjpeg.h>
-#endif
-#ifndef M3F_OWN_DECODER
+#ifndef M3F_LOADER_OWN
 #include <csetjmp>
 #include <jpeglib.h>
 #endif
 
 namespace {
+
+// The outcome of one file's decode (the ok byte of its slot).
+enum Decoded { kFailed = 0, kDecoded = 1, kUnsupported = 2 };
 
 // The destination of a decode: the slot itself when the image is exactly
 // out_w×out_h (the common case for pre-cropped 112×112 faces), else
@@ -71,7 +61,7 @@ uint8_t* rgb_target(std::vector<uint8_t>& pixels, uint8_t* direct, int out_w,
   return pixels.data();
 }
 
-#ifdef M3F_OWN_DECODER
+#ifdef M3F_LOADER_OWN
 // ---------------------------------------------------------------------------
 // Component planes → RGB exactly as libjpeg(-turbo) makes them by default:
 // "fancy" (triangle-filter) chroma upsampling (jdsample.c h2v1 / h2v2 /
@@ -200,7 +190,7 @@ void planes_to_rgb(const Planes& planes, int w, int h, uint8_t* dst) {
 // interleaved or not, restart intervals; libjpeg's accurate integer IDCT
 // (jidctint.c jpeg_idct_islow) and its range limiting, then planes_to_rgb.
 // Any other stream (progressive, arithmetic coding, 12-bit, CMYK, RGB-coded)
-// is left to the caller (`*supported` false).
+// is declined (`*supported` false): its slot gets kUnsupported.
 // ---------------------------------------------------------------------------
 
 const int kNaturalOrder[64 + 16] = {
@@ -676,171 +666,18 @@ bool read_file(const char* path, std::vector<uint8_t>& data) {
   return true;
 }
 
-#endif  // M3F_OWN_DECODER
-
-#ifdef M3F_LOADER_NVJPEG
-
-// One library handle (thread safe) for the process; decode contexts (a
-// decoder state, which is not thread safe, a stream and a device buffer)
-// are pooled and reused across calls, so a batch frees no device memory.
-struct NvCtx {
-  nvjpegJpegState_t state = nullptr;
-  cudaStream_t stream = nullptr;
-  uint8_t* dev = nullptr;
-  size_t dev_bytes = 0;
-};
-
-nvjpegHandle_t nv_handle() {
-  static nvjpegHandle_t handle = nullptr;
-  static std::once_flag once;
-  std::call_once(once, [] {
-    if (nvjpegCreateEx(NVJPEG_BACKEND_HYBRID, nullptr, nullptr, 0,
-                       &handle) != NVJPEG_STATUS_SUCCESS)
-      handle = nullptr;
-  });
-  return handle;
-}
-
-std::mutex g_pool_mu;
-std::vector<NvCtx*> g_pool;
-
-NvCtx* acquire_ctx(nvjpegHandle_t handle) {
-  {
-    std::lock_guard<std::mutex> lock(g_pool_mu);
-    if (!g_pool.empty()) {
-      NvCtx* c = g_pool.back();
-      g_pool.pop_back();
-      return c;
-    }
-  }
-  NvCtx* c = new NvCtx();
-  if (nvjpegJpegStateCreate(handle, &c->state) != NVJPEG_STATUS_SUCCESS ||
-      cudaStreamCreateWithFlags(&c->stream, cudaStreamNonBlocking) !=
-          cudaSuccess) {
-    if (c->state) nvjpegJpegStateDestroy(c->state);
-    delete c;
-    return nullptr;
-  }
-  return c;
-}
-
-void release_ctx(NvCtx* c) {
-  std::lock_guard<std::mutex> lock(g_pool_mu);
-  g_pool.push_back(c);
-}
-
-// nvJPEG's decode of a stream the own decoder does not take: the component
-// planes of a grey or 4:4:4 / 4:2:2 / 4:2:0 / 4:4:0 YCbCr image, converted
-// by planes_to_rgb, else nvJPEG's own RGB.
-bool nv_decode(const std::vector<uint8_t>& data, std::vector<uint8_t>& pixels,
-               uint8_t* direct, int out_w, int out_h, int* w, int* h) {
-  nvjpegHandle_t handle = nv_handle();
-  if (!handle || data.empty()) return false;
-  int n_comp = 0;
-  nvjpegChromaSubsampling_t sub;
-  int ws[NVJPEG_MAX_COMPONENT], hs[NVJPEG_MAX_COMPONENT];
-  if (nvjpegGetImageInfo(handle, data.data(), data.size(), &n_comp, &sub, ws,
-                         hs) != NVJPEG_STATUS_SUCCESS)
-    return false;
-  *w = ws[0];
-  *h = hs[0];
-  if (*w <= 0 || *h <= 0) return false;
-  int hf = 0, vf = 0;                     // chroma upsampling factors
-  if (n_comp == 3) {
-    if (sub == NVJPEG_CSS_444) hf = 1, vf = 1;
-    else if (sub == NVJPEG_CSS_422) hf = 2, vf = 1;
-    else if (sub == NVJPEG_CSS_420) hf = 2, vf = 2;
-    else if (sub == NVJPEG_CSS_440) hf = 1, vf = 2;
-  }
-  const bool grey = n_comp == 1;
-  const int n_planes = grey ? 1 : (hf > 0 ? 3 : 0);   // 0: nvJPEG's RGB
-  size_t plane_bytes[3] = {0, 0, 0};
-  size_t bytes = static_cast<size_t>(*w) * *h * 3;
-  if (n_planes) {
-    bytes = 0;
-    for (int k = 0; k < n_planes; ++k)
-      bytes += plane_bytes[k] = static_cast<size_t>(ws[k]) * hs[k];
-  }
-  uint8_t* dst = rgb_target(pixels, direct, out_w, out_h, *w, *h);
-  thread_local std::vector<uint8_t> host_planes;
-  if (n_planes) host_planes.resize(bytes);
-  NvCtx* c = acquire_ctx(handle);
-  if (!c) return false;
-  if (c->dev_bytes < bytes) {
-    cudaFree(c->dev);
-    c->dev = nullptr;
-    c->dev_bytes = 0;
-    if (cudaMalloc(&c->dev, bytes) == cudaSuccess) c->dev_bytes = bytes;
-  }
-  bool ok = false;
-  if (c->dev) {
-    nvjpegImage_t img;
-    memset(&img, 0, sizeof img);
-    nvjpegOutputFormat_t fmt = NVJPEG_OUTPUT_RGBI;
-    img.channel[0] = c->dev;
-    img.pitch[0] = static_cast<unsigned int>(*w) * 3;
-    if (n_planes) {
-      fmt = grey ? NVJPEG_OUTPUT_Y : NVJPEG_OUTPUT_YUV;
-      size_t off = 0;
-      for (int k = 0; k < n_planes; ++k) {
-        img.channel[k] = c->dev + off;
-        img.pitch[k] = static_cast<unsigned int>(ws[k]);
-        off += plane_bytes[k];
-      }
-    }
-    ok = nvjpegDecode(handle, c->state, data.data(), data.size(), fmt, &img,
-                      c->stream) == NVJPEG_STATUS_SUCCESS &&
-         cudaMemcpyAsync(n_planes ? host_planes.data() : dst, c->dev, bytes,
-                         cudaMemcpyDeviceToHost, c->stream) == cudaSuccess &&
-         cudaStreamSynchronize(c->stream) == cudaSuccess;
-  }
-  release_ctx(c);
-  if (ok && n_planes) {
-    Planes pl;
-    pl.ncomp = n_planes;
-    size_t off = 0;
-    for (int k = 0; k < n_planes; ++k) {
-      pl.data[k] = host_planes.data() + off;
-      pl.stride[k] = pl.w[k] = ws[k];
-      pl.h[k] = hs[k];
-      off += plane_bytes[k];
-    }
-    pl.hf[1] = pl.hf[2] = hf;
-    pl.vf[1] = pl.vf[2] = vf;
-    planes_to_rgb(pl, *w, *h, dst);
-  }
-  return ok;
-}
-
-#endif  // M3F_LOADER_NVJPEG
-
-#ifdef M3F_OWN_DECODER
-
-#ifdef M3F_LOADER_NVJPEG
-// Every stream to nvJPEG (m3f_loader_nvjpeg_only): how a test measures the
-// fallback's frames on streams the own decoder would take.
-std::atomic<int> g_nvjpeg_only{0};
-#endif
-
-// Decode one JPEG file to RGB (into rgb_target): the own decoder, and
-// nvJPEG for the streams it does not take (the own-only test build fails
-// them). Returns false on failure; *w/*h get the source dimensions.
-bool decode_jpeg_file(const char* path, std::vector<uint8_t>& pixels,
-                      uint8_t* direct, int out_w, int out_h, int* w, int* h) {
+// Decode one JPEG file to RGB (into rgb_target) with the own decoder; *w/*h
+// get the source dimensions.
+Decoded decode_jpeg_file(const char* path, std::vector<uint8_t>& pixels,
+                         uint8_t* direct, int out_w, int out_h, int* w,
+                         int* h) {
   thread_local std::vector<uint8_t> data;
-  if (!read_file(path, data)) return false;
+  if (!read_file(path, data)) return kFailed;
   bool supported = true;
-#ifdef M3F_LOADER_NVJPEG
-  if (g_nvjpeg_only.load())
-    return nv_decode(data, pixels, direct, out_w, out_h, w, h);
-#endif
   if (own_decode(data.data(), data.size(), pixels, direct, out_w, out_h, w, h,
                  &supported))
-    return true;
-#ifdef M3F_LOADER_NVJPEG
-  if (!supported) return nv_decode(data, pixels, direct, out_w, out_h, w, h);
-#endif
-  return false;
+    return kDecoded;
+  return supported ? kFailed : kUnsupported;
 }
 
 #else
@@ -855,12 +692,13 @@ void jpeg_err_exit(j_common_ptr cinfo) {
   longjmp(err->jump, 1);
 }
 
-// Decode one JPEG file to RGB (into rgb_target). Returns false on failure;
-// *w/*h get the source dimensions.
-bool decode_jpeg_file(const char* path, std::vector<uint8_t>& pixels,
-                      uint8_t* direct, int out_w, int out_h, int* w, int* h) {
+// Decode one JPEG file to RGB (into rgb_target) with libjpeg; *w/*h get
+// the source dimensions.
+Decoded decode_jpeg_file(const char* path, std::vector<uint8_t>& pixels,
+                         uint8_t* direct, int out_w, int out_h, int* w,
+                         int* h) {
   FILE* f = fopen(path, "rb");
-  if (!f) return false;
+  if (!f) return kFailed;
 
   jpeg_decompress_struct cinfo;
   JpegErr jerr;
@@ -869,7 +707,7 @@ bool decode_jpeg_file(const char* path, std::vector<uint8_t>& pixels,
   if (setjmp(jerr.jump)) {
     jpeg_destroy_decompress(&cinfo);
     fclose(f);
-    return false;
+    return kFailed;
   }
   jpeg_create_decompress(&cinfo);
   jpeg_stdio_src(&cinfo, f);
@@ -893,10 +731,10 @@ bool decode_jpeg_file(const char* path, std::vector<uint8_t>& pixels,
   jpeg_finish_decompress(&cinfo);
   jpeg_destroy_decompress(&cinfo);
   fclose(f);
-  return true;
+  return kDecoded;
 }
 
-#endif  // M3F_OWN_DECODER
+#endif  // M3F_LOADER_OWN
 
 // Bilinear resize RGB uint8 (src WxH -> dst out_w x out_h), matching
 // cv2.INTER_LINEAR's half-pixel-center sampling convention.
@@ -974,37 +812,31 @@ void parallel_for(int n, int n_threads, const std::function<void(int)>& fn) {
 extern "C" {
 
 // Decode n JPEGs into out[n, H, W, 3] RGB.  ok_out[i] (may be null) gets
-// 1 on success, 0 on a missing/undecodable file (slot is zeroed).
-// Returns the number of failures.
+// the slot's Decoded value; a slot that is not kDecoded is zeroed.
+// Returns the number of slots that are not.
 int m3f_decode_jpeg_batch(const char** paths, int n, uint8_t* out, int out_h,
                           int out_w, int n_threads, uint8_t* ok_out) {
   std::atomic<int> failed{0};
   const size_t img_bytes = static_cast<size_t>(out_h) * out_w * 3;
   parallel_for(n, n_threads, [&](int i) {
     uint8_t* slot = out + i * img_bytes;
-    bool ok = false;
+    Decoded st = kFailed;
     if (paths[i] && paths[i][0]) {  // empty path = intentionally missing
       thread_local std::vector<uint8_t> scratch;
       int w = 0, h = 0;
-      if (decode_jpeg_file(paths[i], scratch, slot, out_w, out_h, &w, &h)) {
-        if (w != out_w || h != out_h)
-          resize_bilinear(scratch.data(), w, h, slot, out_w, out_h);
-        ok = true;
-      }
+      st = decode_jpeg_file(paths[i], scratch, slot, out_w, out_h, &w, &h);
+      if (st == kDecoded && (w != out_w || h != out_h))
+        resize_bilinear(scratch.data(), w, h, slot, out_w, out_h);
     }
-    if (!ok) {
+    if (st != kDecoded) {
       memset(slot, 0, img_bytes);
       failed.fetch_add(1);
     }
-    if (ok_out) ok_out[i] = ok ? 1 : 0;
+    if (ok_out) ok_out[i] = static_cast<uint8_t>(st);
   });
   return failed.load();
 }
 
 int m3f_loader_self_test() { return 42; }
-
-#ifdef M3F_LOADER_NVJPEG
-void m3f_loader_nvjpeg_only(int on) { g_nvjpeg_only.store(on); }
-#endif
 
 }  // extern "C"

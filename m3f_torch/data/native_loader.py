@@ -13,23 +13,22 @@ The library is the port's own, built on first use with ``g++ -O3
 -std=c++17 -fPIC -pthread -shared`` into ``build/loader/`` at the
 repository root, its file name keyed by a hash of the source and the flags
 (an edited source builds anew). ``backend()`` says which decoder it was
-built against:
+built with:
 
 - ``libjpeg`` where ``jpeglib.h`` is on the compiler's path (``-ljpeg``):
   the reference's decode, bit for bit on the same libjpeg;
-- ``own+nvjpeg`` where it is not but the CUDA toolkit's ``nvjpeg.h`` is
-  (``-DM3F_LOADER_NVJPEG -lnvjpeg -lcudart``; the card's hosts ship no
-  libjpeg headers): the port's own baseline decoder, which gives libjpeg's
-  decode bit for bit on sequential Huffman 8-bit grey / YCbCr streams (the
-  crops of the ABAW distribution), and nvJPEG's hybrid backend for any
-  other stream (progressive, ...), whose frames may differ from libjpeg's
-  by a few levels (its IDCT);
-- ``cv2`` where neither can be built (no ``g++``, or neither header): the
-  reference's cv2 decode, with a notice.
+- ``own`` where it is not (``-DM3F_LOADER_OWN``; the card's hosts ship no
+  libjpeg headers): the port's own baseline decoder, libjpeg's decode bit
+  for bit on sequential Huffman 8-bit grey / YCbCr streams (the crops of
+  the ABAW distribution). A batch holding any other stream (progressive,
+  ...) raises ``RuntimeError`` naming it rather than decode it
+  differently;
+- ``cv2`` without ``g++``: the reference's cv2 path, with a notice.
 
 ``M3F_LOADER_SO`` names a prebuilt library to load instead. A build that
-was tried and failed raises with the compiler's output; it never falls
-back to cv2.
+was tried and failed raises with the compiler's output, and a library that
+was built or named but does not load or fails its self test raises with
+its path; neither falls back to cv2.
 """
 
 from __future__ import annotations
@@ -56,34 +55,23 @@ _lib_checked = False
 _backend = ""
 
 
-def _has_header(cxx: str, header: str, flags=()) -> bool:
-    probe = subprocess.run([cxx, "-E", "-x", "c++", *flags, "-"],
+def _has_header(cxx: str, header: str) -> bool:
+    probe = subprocess.run([cxx, "-E", "-x", "c++", "-"],
                            input=f"#include <cstdio>\n#include <{header}>\n".encode(),
                            stdout=subprocess.DEVNULL, stderr=subprocess.DEVNULL)
     return probe.returncode == 0
 
 
-def _cuda_home() -> str:
-    return os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") \
-        or "/usr/local/cuda"
-
-
 def _toolchain() -> Optional[Tuple[str, str, Tuple[str, ...]]]:
     """(decoder, compiler, flags after the source) of the build this host
-    can make: libjpeg when ``jpeglib.h`` is found, else nvJPEG when the CUDA
-    toolkit's ``nvjpeg.h`` is (the own decoder and nvJPEG); None without
-    ``g++`` or either header."""
+    can make: libjpeg when ``jpeglib.h`` is found, else the port's own
+    decoder; None without ``g++``."""
     cxx = shutil.which(os.environ.get("CXX", "g++"))
     if cxx is None:
         return None
     if _has_header(cxx, "jpeglib.h"):
         return "libjpeg", cxx, ("-ljpeg",)
-    cuda = _cuda_home()
-    inc, lib = os.path.join(cuda, "include"), os.path.join(cuda, "lib64")
-    if _has_header(cxx, "nvjpeg.h", (f"-I{inc}",)):
-        return "own+nvjpeg", cxx, ("-DM3F_LOADER_NVJPEG", f"-I{inc}", f"-L{lib}",
-                               f"-Wl,-rpath,{lib}", "-lnvjpeg", "-lcudart")
-    return None
+    return "own", cxx, ("-DM3F_LOADER_OWN",)
 
 
 def _lib_path(libs: Tuple[str, ...] = ()) -> Path:
@@ -131,27 +119,27 @@ def _load_lib() -> Optional[ctypes.CDLL]:
               f"falling back to the port's own build / cv2", flush=True)
         override = ""
     path = os.path.abspath(override) if override else build()
-    _lib_checked = True
-    if override:
-        _backend = "M3F_LOADER_SO"
     if path is None:
-        print("WARNING: this host cannot build the JPEG loader (no g++, or "
-              "neither jpeglib.h nor the CUDA toolkit's nvjpeg.h); decoding "
-              "with cv2", flush=True)
+        print("WARNING: this host cannot build the JPEG loader (no g++); "
+              "decoding with cv2", flush=True)
+        _lib_checked, _backend = True, "cv2"
         return None
     try:
         lib = ctypes.CDLL(str(path))
-        lib.m3f_decode_jpeg_batch.restype = ctypes.c_int
-        lib.m3f_decode_jpeg_batch.argtypes = [
-            ctypes.POINTER(ctypes.c_char_p), ctypes.c_int,
-            ctypes.POINTER(ctypes.c_uint8), ctypes.c_int, ctypes.c_int,
-            ctypes.c_int, ctypes.POINTER(ctypes.c_uint8),
-        ]
-        if lib.m3f_loader_self_test() != 42:
-            return None
-        _lib = lib
-    except OSError:
-        _lib = None
+    except OSError as e:
+        raise RuntimeError(f"the JPEG loader {path} does not load: {e}") from e
+    test = getattr(lib, "m3f_loader_self_test", None)
+    if test is None or test() != 42 or not hasattr(lib, "m3f_decode_jpeg_batch"):
+        raise RuntimeError(f"the JPEG loader {path} fails its self test")
+    lib.m3f_decode_jpeg_batch.restype = ctypes.c_int
+    lib.m3f_decode_jpeg_batch.argtypes = [
+        ctypes.POINTER(ctypes.c_char_p), ctypes.c_int,
+        ctypes.POINTER(ctypes.c_uint8), ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, ctypes.POINTER(ctypes.c_uint8),
+    ]
+    if override:
+        _backend = "M3F_LOADER_SO"
+    _lib, _lib_checked = lib, True
     return _lib
 
 
@@ -160,20 +148,24 @@ def native_available() -> bool:
 
 
 def backend() -> str:
-    """The decoder ``decode_jpeg_batch`` uses: ``libjpeg``, ``own+nvjpeg``,
+    """The decoder ``decode_jpeg_batch`` uses: ``libjpeg``, ``own``,
     ``M3F_LOADER_SO`` (a prebuilt library) or ``cv2``."""
-    return _backend if _load_lib() is not None else "cv2"
+    _load_lib()
+    return _backend
 
 
-def nvjpeg_only(on: bool) -> None:
-    """Route every stream of the ``own+nvjpeg`` build to nvJPEG, or back
-    to the own decoder first: how ``chip_smoke.py`` measures the nvJPEG
-    fallback's frames on the fixtures. Raises on any other build."""
-    lib = _load_lib()
-    fn = getattr(lib, "m3f_loader_nvjpeg_only", None) if lib else None
-    if fn is None:
-        raise RuntimeError(f"the {backend()} loader has no nvJPEG decoder")
-    fn(1 if on else 0)
+def _present(paths: Sequence[str]) -> list:
+    """``paths`` with "" for each file that does not exist, from one
+    listing of each directory rather than a stat a path (slow where system
+    calls are, as on the card's hosts: ``scripts/loader_bench.py``)."""
+    listed = {}
+    for d in {os.path.dirname(p) for p in paths if p}:
+        try:
+            listed[d] = set(os.listdir(d or "."))
+        except OSError:
+            listed[d] = set()
+    return [p if p and os.path.basename(p) in listed[os.path.dirname(p)]
+            else "" for p in paths]
 
 
 def decode_jpeg_batch(paths: Sequence[str], size: int,
@@ -181,25 +173,32 @@ def decode_jpeg_batch(paths: Sequence[str], size: int,
                       out: Optional[np.ndarray] = None) -> tuple:
     """Decode and resize a batch of JPEGs → (uint8 [n, size, size, 3] RGB,
     ok mask). A missing or undecodable file gives a zeroed slot with
-    ok=False (the caller marks those frames invalid)."""
+    ok=False (the caller marks those frames invalid). A stream the ``own``
+    decoder does not take raises ``RuntimeError`` naming it."""
     n = len(paths)
     if out is None:
         out = np.empty((n, size, size, 3), dtype=np.uint8)
     lib = _load_lib()
+    paths = _present(paths)
     if lib is not None:
-        arr = (ctypes.c_char_p * n)(
-            *[p.encode() if p and os.path.exists(p) else b"" for p in paths])
+        arr = (ctypes.c_char_p * n)(*[p.encode() for p in paths])
         ok_u8 = np.zeros(n, dtype=np.uint8)
         n_threads = n_threads or min(8, os.cpu_count() or 1)
         lib.m3f_decode_jpeg_batch(
             arr, n, out.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)),
             size, size, n_threads,
             ok_u8.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)))
+        declined = [paths[i] for i in np.flatnonzero(ok_u8 == 2)]
+        if declined:
+            raise RuntimeError(
+                f"the port's own JPEG decoder (this host has no libjpeg "
+                f"headers) takes only sequential 8-bit grey / YCbCr JPEGs; "
+                f"{len(declined)} of the batch are not, e.g. {declined[:3]}")
         return out, ok_u8.astype(bool)
     ok = np.ones(n, dtype=bool)
     import cv2
     for i, p in enumerate(paths):
-        img = cv2.imread(p, cv2.IMREAD_COLOR) if p and os.path.exists(p) else None
+        img = cv2.imread(p, cv2.IMREAD_COLOR) if p else None
         if img is None:
             out[i] = 0
             ok[i] = False

@@ -73,7 +73,9 @@ def test_port_loader_is_its_own_build():
     out = subprocess.run([sys.executable, "-c", _LOADER], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert out.stdout.split() == ["libjpeg", "[]"]
+    decoder, bad = out.stdout.split()
+    assert decoder in ("libjpeg", "own")        # either of the port's builds
+    assert bad == "[]"
 
 
 def test_entry_points_need_a_gpu_unless_asked_for_the_cpu():

@@ -4,11 +4,12 @@
 fixtures (``tests/data/torch_crops``, whose committed reference decode is
 the JAX decoder's) and of images that need a resize; missing and corrupt
 files give zeroed slots with ok=False; the build is keyed by the source
-and refuses loudly when the compiler fails; the port's own baseline
-decoder (the nvJPEG build's decoder for baseline streams, built alone with
-``-DM3F_LOADER_OWN``) gives libjpeg's decode bit for bit for every chroma
-sampling, odd sizes, grey, restart intervals, optimized tables, another
-encoder's files and truncated files, and declines progressive ones; ``Prefetcher`` keeps order,
+and refuses loudly when the compiler fails, and a library that does not
+load or fails its self test raises; a host without ``jpeglib.h`` builds
+the port's own baseline decoder (``-DM3F_LOADER_OWN``), which gives
+libjpeg's decode bit for bit for every chroma sampling, odd sizes, grey,
+restart intervals, optimized tables, another encoder's files and truncated
+files, and raises on a progressive one; ``Prefetcher`` keeps order,
 raises its producer's error on the consumer side and ``close()`` unblocks
 a producer stuck on a full queue."""
 
@@ -40,27 +41,6 @@ def test_port_builds_its_own_library():
     assert "native" not in lib.parts
 
 
-def test_nvjpeg_only_needs_the_nvjpeg_build():
-    with pytest.raises(RuntimeError, match="no nvJPEG decoder"):
-        tnl.nvjpeg_only(True)
-
-
-def test_nvjpeg_build_where_libjpeg_headers_are_missing(monkeypatch):
-    """A host with the CUDA toolkit and no jpeglib.h (the card's) builds the
-    nvJPEG decoder; with neither header there is nothing to build."""
-    monkeypatch.setenv("CUDA_HOME", "/toolkit")
-    monkeypatch.setattr(tnl, "_has_header",
-                        lambda cxx, h, flags=(): h == "nvjpeg.h"
-                        and "-I/toolkit/include" in flags)
-    decoder, _, flags = tnl._toolchain()
-    assert decoder == "own+nvjpeg"
-    assert {"-DM3F_LOADER_NVJPEG", "-lnvjpeg", "-lcudart",
-            "-L/toolkit/lib64"} <= set(flags)
-    assert tnl._lib_path(flags) != tnl._lib_path(("-ljpeg",))
-    monkeypatch.setattr(tnl, "_has_header", lambda cxx, h, flags=(): False)
-    assert tnl._toolchain() is None
-
-
 def test_fixtures_decode_to_the_committed_reference(reference):
     frames, names = reference
     assert names == [os.path.basename(p) for p in PATHS]
@@ -86,23 +66,11 @@ def test_resized_decode_equal(tmp_path, size):
     np.testing.assert_array_equal(got, want)
 
 
-def _own_build(tmp_path):
-    """The test build of csrc/loader.cc with the port's own decoder alone
-    (the nvJPEG build's decoder of baseline streams)."""
-    import ctypes
-    import subprocess
-    so = str(tmp_path / "own.so")
-    subprocess.run(["g++", *tnl.CXX_FLAGS, "-DM3F_LOADER_OWN",
-                    str(tnl.SOURCE), "-o", so], check=True)
-    lib = ctypes.CDLL(so)
-    lib.m3f_decode_jpeg_batch.argtypes = [
-        ctypes.POINTER(ctypes.c_char_p), ctypes.c_int,
-        ctypes.POINTER(ctypes.c_uint8), ctypes.c_int, ctypes.c_int,
-        ctypes.c_int, ctypes.POINTER(ctypes.c_uint8)]
-    return lib
-
-
-def test_own_decoder_is_libjpegs(tmp_path, monkeypatch):
+def _samples(tmp_path):
+    """The fixtures plus images of every chroma sampling, odd sizes (some
+    needing a resize at 112), grey, restart intervals, optimized tables,
+    another encoder's (PIL) files and truncated files; and progressive
+    ones, apart."""
     import cv2
     from PIL import Image
     samplings = [getattr(cv2, f"IMWRITE_JPEG_SAMPLING_FACTOR_{s}")
@@ -134,15 +102,95 @@ def test_own_decoder_is_libjpegs(tmp_path, monkeypatch):
             p = str(tmp_path / f"cut{cut}.jpg")
             open(p, "wb").write(data[:cut])
             paths.append(p)
-    monkeypatch.setattr(tnl, "_lib", _own_build(tmp_path))
-    monkeypatch.setattr(tnl, "_lib_checked", True)
-    for size in (112, 40):
-        got, ok = tnl.decode_jpeg_batch(paths, size)
-        want, jok = jnl.decode_jpeg_batch(paths, size)
+    return paths, progressive
+
+
+def _no_jpeglib(monkeypatch, tmp_path):
+    """This host as the card's: no jpeglib.h, so the own decoder's build."""
+    monkeypatch.setattr(tnl, "_has_header", lambda cxx, h: False)
+    monkeypatch.setattr(tnl, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(tnl, "_lib", None)
+    monkeypatch.setattr(tnl, "_lib_checked", False)
+    monkeypatch.delenv("M3F_LOADER_SO", raising=False)
+
+
+def test_own_build_where_libjpeg_headers_are_missing(monkeypatch, tmp_path):
+    """Without jpeglib.h the library is built with -DM3F_LOADER_OWN
+    (another file name) and loads; with no compiler nothing is built."""
+    _no_jpeglib(monkeypatch, tmp_path)
+    decoder, _, flags = tnl._toolchain()
+    assert (decoder, flags) == ("own", ("-DM3F_LOADER_OWN",))
+    assert tnl._lib_path(flags) != tnl._lib_path(("-ljpeg",))
+    assert tnl.native_available() and tnl.backend() == "own"
+    assert tnl._lib_path(flags).exists()
+    monkeypatch.setenv("CXX", "no-such-compiler")
+    assert tnl._toolchain() is None
+
+
+def test_own_decoder_is_libjpegs(monkeypatch, tmp_path):
+    """The own build gives the JAX loader's frames and ok mask bit for bit
+    (libjpeg), and raises on a batch holding a progressive stream."""
+    pytest.importorskip("cv2")
+    paths, progressive = _samples(tmp_path)
+    want = {size: jnl.decode_jpeg_batch(paths, size) for size in (112, 40)}
+    _no_jpeglib(monkeypatch, tmp_path)
+    for size, (frames, jok) in want.items():
+        got, ok = tnl.decode_jpeg_batch(paths, size, n_threads=3)
         assert ok.tolist() == jok.tolist() and ok[:-5].all()
-        np.testing.assert_array_equal(got, want)
-    _, ok = tnl.decode_jpeg_batch(progressive, 112)
-    assert not ok.any()            # left to nvJPEG in the card's build
+        np.testing.assert_array_equal(got, frames)
+    with pytest.raises(RuntimeError, match=r"1 of the batch .*_prog\.jpg"):
+        tnl.decode_jpeg_batch(PATHS[:2] + progressive[:1], 112)
+
+
+def test_progressive_streams_decode_with_libjpeg(tmp_path):
+    """The libjpeg build takes what the own decoder declines."""
+    pytest.importorskip("cv2")
+    _, progressive = _samples(tmp_path)
+    got, ok = tnl.decode_jpeg_batch(progressive, 112)
+    want, jok = jnl.decode_jpeg_batch(progressive, 112)
+    assert ok.all() and jok.all()
+    np.testing.assert_array_equal(got, want)
+
+
+def test_own_build_missing_and_corrupt_files(monkeypatch, tmp_path):
+    corrupt = str(tmp_path / "bad.jpg")
+    with open(corrupt, "wb") as f:
+        f.write(b"\xff\xd8\xff\xe0not really a jpeg")
+    paths = [PATHS[0], "/nonexistent/x.jpg", corrupt, "",
+             str(tmp_path / "gone.jpg"), PATHS[1]]
+    want, jok = jnl.decode_jpeg_batch(paths, 112)
+    _no_jpeglib(monkeypatch, tmp_path)
+    out = np.full((6, 112, 112, 3), 7, np.uint8)
+    got, ok = tnl.decode_jpeg_batch(paths, 112, out=out)
+    assert got is out and ok.tolist() == jok.tolist() == [1, 0, 0, 0, 0, 1]
+    np.testing.assert_array_equal(got, want)
+
+
+def test_a_library_that_does_not_load_raises(monkeypatch, tmp_path):
+    """A named or built library that does not load, fails its self test or
+    has no decode entry raises with its path, every time: never cv2."""
+    import subprocess
+    monkeypatch.setattr(tnl, "_lib", None)
+    monkeypatch.setattr(tnl, "_lib_checked", False)
+    junk = tmp_path / "junk.so"
+    junk.write_text("not a library")
+    monkeypatch.setenv("M3F_LOADER_SO", str(junk))
+    for _ in range(2):
+        with pytest.raises(RuntimeError, match=f"{junk} does not load: .*junk"):
+            tnl.decode_jpeg_batch(PATHS[:1], 112)
+    assert not tnl._lib_checked
+    for k, ret in enumerate((41, 42)):      # 42, but no decode entry
+        src, so = tmp_path / "lib.cc", tmp_path / f"lib{k}.so"
+        src.write_text(f'extern "C" int m3f_loader_self_test() {{ return {ret}; }}\n')
+        subprocess.run(["g++", "-shared", "-fPIC", str(src), "-o", str(so)],
+                       check=True)
+        monkeypatch.setenv("M3F_LOADER_SO", str(so))
+        with pytest.raises(RuntimeError, match=f"{so} fails its self test"):
+            tnl.native_available()
+    monkeypatch.setenv("M3F_LOADER_SO", str(tmp_path / "b.so"))
+    monkeypatch.setattr(tnl, "build", lambda: str(junk))   # a built library
+    with pytest.raises(RuntimeError, match="does not load"):
+        tnl.backend()
 
 
 def test_missing_and_corrupt_files(tmp_path):
@@ -165,7 +213,7 @@ def test_missing_and_corrupt_files(tmp_path):
 
 def test_cv2_path_only_where_the_loader_cannot_be_built(monkeypatch, tmp_path,
                                                         reference):
-    """No compiler or no jpeglib.h: the cv2 decode, with a notice (within
+    """No compiler: the cv2 decode, with a notice (within
     ±2 levels of the reference); a build that runs and fails raises with
     the compiler's output."""
     pytest.importorskip("cv2")
