@@ -48,6 +48,20 @@ H100 (``python3 chip_smoke.py``). It
    strips, masked channels, images of one row, one column or one pixel,
    k-steps that span rows and images, widths that are not multiples of
    8); the temporal forward is held at the train shapes as well;
+   The fp32 conv units (rows 3f / 4f, ``csrc/conv_bn_f32.cu``, phase
+   ``kernel_conv_f32``) are held against their plain versions at every
+   fused unit's serving shape of ``longseq_eval`` with
+   ``compute_dtype=float32`` and at F32_EDGE_SHAPES (partial position and
+   channel tiles, 1x1 images, one frame, widths the wrapper zero-pads),
+   y per element within CONV_F32_REL of sum |x^|*|w| plus CONV_F32_ABS, the
+   sums per channel; each check is shown to refuse a y from swapped taps,
+   a y whose padding went through the prologue, a y whose prologue rounds
+   once (a fused multiply-add, seen on a clip where the two roundings
+   cancel exactly), a zeroed or shifted s1 and an s1 without the last
+   range's share; two calls give the same bits; timed beside the plain
+   version and cuDNN's fp32 conv (no TF32) plus the sums. Rows 3-8 are held
+   at the lane midplanes 128 / 256 / 512 / 1152 (phase ``kernel_lane``:
+   the forward at the serving shapes, the backward at the train shapes);
    The four kernels of the packed-layout conv probe (packed_conv with bf16
    and fp32 y and packed_conv_chunked, both the TMA-fed wgmma walk;
    ablate_slabs, ablate_matmul) are held against their plain versions at
@@ -98,6 +112,16 @@ H100 (``python3 chip_smoke.py``). It
    (labels from seeds, a span invalid; phase ``eval_ensemble``): two
    models, finite metrics, and ``write_submission`` into
    ``build/submission/``, one file a video of 1025 lines;
+3d. serves every visual backbone of the reference at full width (phase
+   ``serve_backbones``: ``longseq_eval`` with ``conv_mode=3d``,
+   ``conv_mode=mc3``, ``se_ratio=16``, ``stem_s2d=true``,
+   ``mid_mode=lane`` or ``compute_dtype=float32``): the 1024-frame video
+   after a warm run (frames/s, peak memory), launches held to the
+   configuration's fused blocks (the fp32 one through rows 3f / 4f), and
+   each card against CPU on a 48-frame video of 32x32 frames (bf16 within
+   the serving limits, fp32 within F32_PATH_ATOL / F32_PATH_MEAN_ATOL and
+   its backbone features within F32_FEAT_REL, which the same features
+   with TF32 on in cuDNN must exceed);
 4. runs the same weights of a narrow model through the port on the CPU
    (plain versions) and on the card (kernels) and compares the predictions;
 5. trains the full-width ``fusion`` preset (R(2+1)D-18, batch 8 x 4
@@ -115,7 +139,12 @@ H100 (``python3 chip_smoke.py``). It
    file written from the seed-0 model's ``visual.*``, loaded by a trainer
    seeded 1, whose step-0 ``visual.*`` must be the file's and every other
    tensor its own seed's; then 3 steps of a narrow model on the CPU and
-   on the card, from the same weights and batches, compared;
+   on the card, from the same weights and batches, compared; two
+   full-width fusion steps of each bf16 backbone of phase serve_backbones
+   (phase ``train_backbones``: finite losses, their launches, s/step, peak
+   memory); and fusion with ``compute_dtype=float32``, whose ``fit`` and
+   ``train_step`` must raise NotImplementedError before any launch (phase
+   ``train_fp32_refused``: no fp32 backward kernels yet);
 5b. the data layer and the command line: the port's JPEG loader built from
    ``csrc/loader.cc`` for this host (phase ``data_loader``: 1024 decodes
    of the committed fixtures plus a missing and a corrupt file, each frame
@@ -205,6 +234,23 @@ STREAM_MEAN_ATOL = 1e-3  # or a SessionGroup batch of 1-16) against the same
 #                          activation here and there, carried to the tanh
 #                          outputs), well inside the 3e-2 / 5e-3 that hold
 #                          the card against the CPU's different arithmetic
+# fp32 conv units (rows 3f / 4f), fixed before their first run on the card:
+CONV_F32_REL = 1e-5      # y per element: 1e-5 of sum |x^|*|w| over the
+#                          output's taps (fp32 sums in another order, K up to
+#                          10368) ...
+CONV_F32_ABS = 1e-30     # ... plus a floor for products that underflow: an
+#                          output whose every product is 0 must be 0 (the
+#                          fused mul-add prologue control lives there)
+F32_FWD_ROUNDS, F32_FWD_REPS = 3, 5   # timed_alternating for the fp32 units
+F32_PATH_ATOL = 1e-4     # fp32 serving preds (tanh outputs), card vs CPU:
+F32_PATH_MEAN_ATOL = 1e-5   # 300x tighter than bf16's 3e-2 / 5e-3 (the
+#                          CPU's fp32 vs float64 run: 2.2e-8 max at this size)
+F32_FEAT_REL = 5e-5      # fp32 backbone features, card vs CPU, max |diff| /
+#                          max |feature|: the CPU's fp32 vs float64 run moves
+#                          them by 3.5e-7-5.4e-7 of their largest, a TF32
+#                          emulation of the library convs by 4.8e-4-6.3e-4
+#                          (every family, measured on the CPU before the card
+#                          run); the phase shows TF32 on the card exceeds it
 HTTP_STREAMS = 4         # concurrent HTTP streams in phase http_server
 TRACE_TOP = 15           # rows of the trace summary printed
 
@@ -2001,6 +2047,411 @@ def train_parity(torch, np, cuda_lib, config, Trainer, data):
 
 
 # ---------------------------------------------------------------------------
+# fp32 conv units (rows 3f / 4f), the lane widths, and every visual backbone
+# ---------------------------------------------------------------------------
+
+def f32_limit(torch, F, conv_bn, x, w, a, kind):
+    """The fp32 y check's limit per element: CONV_F32_REL of sum |x^|*|w|
+    over the output's taps (x^ the plain prologue's), plus CONV_F32_ABS."""
+    xh = conv_bn._prologue(x, *a) if a[0] is not None else x
+    kern, pad = conv_bn._torch_kernel(w.float().abs(), kind)
+    s = F.conv3d(xh.abs().permute(0, 4, 1, 2, 3),
+                 kern.contiguous(memory_format=torch.channels_last_3d),
+                 padding=pad).permute(0, 2, 3, 4, 1)
+    return s.mul_(CONV_F32_REL).add_(CONV_F32_ABS)
+
+
+def f32_within(y, y0, lim):
+    return bool(((y - y0).abs() <= lim).all())
+
+
+def last_range_f32(torch, conv_bn, y):
+    """(name, s1 share) of the fp32 forward's last range of position tiles
+    (None when one range holds them all)."""
+    b, t, h, w, co = y.shape
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    plan = conv_bn.f32_fwd_plan(b, t, h, w, _round8(co), sms)
+    if plan.ranges < 2:
+        return None
+    start = (plan.ranges - 1) * plan.tiles_per_range * 64
+    return "last_range", y.reshape(-1, co)[start:].sum(0)
+
+
+def f32_unit_inputs(torch, g, xs, ws, affine):
+    """fp32 x, w and (inv, shift) for one unit. With the prologue, shift is
+    -(x0 * inv) rounded once, and clip 0 holds x0 at every position: there
+    x^ = relu((x0 * inv) + shift) is 0 exactly when the product and the
+    sum round apart (the reference), and x0*inv - f32(x0*inv), half the
+    time above 0, when one fused multiply-add rounds them together."""
+    x = torch.randn(*xs, device="cuda", generator=g)
+    k = math.prod(ws[:-1])
+    w = (torch.rand(*ws, device="cuda", generator=g) * 2 - 1) / math.sqrt(k)
+    if not affine:
+        return x, w, (None, None)
+    inv = torch.rand(xs[-1], device="cuda", generator=g) + 0.5
+    x0 = torch.rand(xs[-1], device="cuda", generator=g) - 0.5
+    x[0] = x0
+    return x, w, (inv, -(x0 * inv))
+
+
+def check_fwd_unit_f32(torch, F, conv_bn, what, x, w, a, kind):
+    """One fp32 unit against its plain version: y per element within
+    f32_limit, the sums per channel (sum_limits), each shown to refuse the
+    wrong answers: a y from the filter with dh / dw (spatial) or taps 0 / 2
+    (temporal) swapped, a y whose padding went through the prologue, a y
+    whose prologue rounds once (a fused multiply-add), a zeroed or
+    channel-shifted s1 and an s1 without the last range's share; a second
+    call must give the same bits. Returns (max |dy|, worst |dy| / limit,
+    worst sums error / limit)."""
+    y, s1, s2 = conv_bn.conv_unit_fwd(x, w, *a, kind=kind)
+    y0, s10, s20 = conv_bn.conv_unit_reference(x, w, *a, kind=kind)
+    lim = f32_limit(torch, F, conv_bn, x, w, a, kind)
+    d = (y - y0).abs()
+    err, over = d.max().item(), (d / lim).max().item()
+    del d
+    require(over <= 1.0, f"{what}: |dy| over its limit by {over} (max {err})")
+    ratio = check_sums(what, y, y0, s1, s2, s10, s20,
+                       last_range_f32(torch, conv_bn, y))
+    wrong = {}
+    if kind == "spatial" and x.shape[2] * x.shape[3] > 1:
+        wrong["filter_dh_dw_swapped"] = lambda: conv_bn.conv_unit_reference(
+            x, w.transpose(0, 1), *a, kind=kind)[0]
+    if kind == "temporal" and x.shape[1] > 1:
+        wrong["filter_taps_0_2_swapped"] = lambda: conv_bn.conv_unit_reference(
+            x, w.flip(0), *a, kind=kind)[0]
+    if a[0] is not None:
+        pad = (0, 0, 1, 1, 1, 1) if kind == "spatial" else (0, 0, 0, 0, 0, 0, 1, 1)
+        kern = conv_bn._torch_kernel(w, kind)[0].contiguous(
+            memory_format=torch.channels_last_3d)
+        wrong["padding_through_prologue"] = lambda: F.conv3d(
+            conv_bn._prologue(F.pad(x, pad), *a).permute(0, 4, 1, 2, 3),
+            kern).permute(0, 2, 3, 4, 1)
+        wrong["fused_mul_add_prologue"] = lambda: conv_bn.conv_unit_reference(
+            torch.clamp_min((x.double() * a[0].double() + a[1].double())
+                            .float(), 0), w, kind=kind)[0]
+    passed = [k for k, fn in wrong.items() if f32_within(fn(), y0, lim)]
+    require(not passed, f"{what}: the y check would pass: {passed}")
+    y2, s12, s22 = conv_bn.conv_unit_fwd(x, w, *a, kind=kind)
+    require(torch.equal(y2, y) and torch.equal(s12, s1) and torch.equal(s22, s2),
+            f"{what}: a second call gave another y, s1 or s2")
+    return err, over, ratio
+
+
+# fp32 shapes off the serving tiling: M not a multiple of the 64-position
+# tile, C_out 40 and 72 (a partial output-channel tile), C_in 24 and 40 (a
+# partial 16-channel chunk), 1x1 images (every spatial tap but the centre in
+# the padding), one frame and two (temporal padding), and widths that are
+# not multiples of 8 (C_in 12 -> C_out 20, 108 -> 48: zero-padded by the
+# wrapper); each with and without the prologue
+F32_EDGE_SHAPES = (("spatial", (3, 5, 7, 9, 24), (3, 3, 24, 40)),
+                   ("spatial", (2, 3, 1, 1, 8), (3, 3, 8, 72)),
+                   ("spatial", (2, 2, 9, 9, 12), (3, 3, 12, 20)),
+                   ("spatial", (2, 2, 5, 7, 108), (3, 3, 108, 48)),
+                   ("temporal", (2, 1, 6, 6, 24), (3, 24, 40)),
+                   ("temporal", (3, 2, 5, 7, 40), (3, 40, 72)),
+                   ("temporal", (2, 4, 6, 6, 12), (3, 12, 20)),
+                   ("temporal", (2, 5, 5, 5, 108), (3, 108, 48)))
+
+
+def check_conv_f32(torch, F, conv_bn):
+    """Rows 3f / 4f: the fp32 units against their plain versions at every
+    fused unit's serving shape (longseq_eval with compute_dtype=float32: 128
+    clips) and at F32_EDGE_SHAPES, with the controls of
+    ``check_fwd_unit_f32``; timed (kernel and library in turn,
+    F32_FWD_ROUNDS rounds of F32_FWD_REPS) beside the plain version and
+    ``F.conv3d`` in fp32 (no TF32) plus the sums. Returns the two rows of
+    the kernels line, per served video."""
+    g = torch.Generator(device="cuda").manual_seed(13)
+    edges = {}
+    for kind, xs, ws in F32_EDGE_SHAPES:
+        for affine in (False, True):
+            x, w, a = f32_unit_inputs(torch, g, xs, ws, affine)
+            key = f"{kind}_{'x'.join(map(str, xs))}_to_{ws[-1]}_affine={affine}"
+            edges[key] = check_fwd_unit_f32(torch, F, conv_bn,
+                                            f"fp32 unit at edge shape {key}",
+                                            x, w, a, kind)
+    out = {}
+    for kind, xs, ws, affine, copies in _conv_units():
+        x, w, a = f32_unit_inputs(torch, g, xs, ws, affine)
+        what = f"fp32 conv unit {kind} {xs} affine={affine}"
+        err, over, s1_ratio = check_fwd_unit_f32(torch, F, conv_bn, what, x,
+                                                 w, a, kind)
+        torch.cuda.empty_cache()
+        plain = timed(torch, lambda: conv_bn.conv_unit_reference(
+            x, w, *a, kind=kind), reps=F32_FWD_REPS)
+        xhat = conv_bn._prologue(x, *a) if affine else x
+        kern, pad = conv_bn._torch_kernel(w, kind)
+        kern = kern.contiguous(memory_format=torch.channels_last_3d)
+
+        def library():
+            yl = F.conv3d(xhat.permute(0, 4, 1, 2, 3), kern, padding=pad)
+            return yl.sum((0, 2, 3, 4)), (yl * yl).sum((0, 2, 3, 4))
+        t = timed_alternating(torch, {
+            "kernel": lambda: conv_bn.conv_unit_fwd(x, w, *a, kind=kind),
+            "library": library}, rounds=F32_FWD_ROUNDS, reps=F32_FWD_REPS)
+        (ms, ms_spread), (lib, lib_spread) = t["kernel"], t["library"]
+        m = math.prod(xs[:-1])
+        k = math.prod(ws[:-1])
+        flops = 2 * m * k * ws[-1]
+        nbytes = 4 * (x.numel() + w.numel() + m * ws[-1]
+                      + (2 * xs[-1] if affine else 0) + 2 * ws[-1])
+        emit({"phase": "kernel_conv_f32", "kind": kind, "x": list(xs),
+              "w": list(ws), "affine": affine, "per_forward": copies,
+              "max_abs_err": err, "err_over_limit": over,
+              "s1_err_over_limit": s1_ratio, "ms": ms, "ms_spread": ms_spread,
+              "plain_ms": plain, "library_ms_conv3d_sums": lib,
+              "library_ms_spread": lib_spread,
+              "bound_ms": bound(nbytes, flops, PEAK_FP32)[0],
+              "tflops": flops / ms / 1e9})
+        name = f"conv_unit_{kind}_f32"
+        acc = out.setdefault(kind, {"name": name, "max_abs_err": 0.0, "ms": 0.0,
+                                    "plain_ms": 0.0, "library_ms": 0.0,
+                                    "_ops": 0.0, "_bytes": 0.0})
+        acc["max_abs_err"] = max(acc["max_abs_err"], err)
+        for key, v in (("ms", ms), ("plain_ms", plain), ("library_ms", lib),
+                       ("_ops", flops / PEAK_FP32 * 1e3),
+                       ("_bytes", nbytes / HBM * 1e3)):
+            acc[key] += copies * v
+        del x, xhat
+        torch.cuda.empty_cache()
+    for acc in out.values():
+        t_ops, t_bytes = acc.pop("_ops"), acc.pop("_bytes")
+        acc["bound_ms"] = max(t_ops, t_bytes)
+        acc["bound_by"] = "operations" if t_ops >= t_bytes else "bytes"
+    emit({"phase": "kernel_conv_f32_edges",
+          "max_abs_err_err_over_limit_s1_over_limit": edges,
+          "tol_rel": CONV_F32_REL, "tol_abs": CONV_F32_ABS})
+    return [out["spatial"], out["temporal"]]
+
+
+def _lane_units(clips):
+    """(kind, x shape, w shape, affine) of the fused units of R(2+1)D-18 with
+    mid_mode="lane" over ``clips`` clips: midplanes 128 / 256 / 512 / 1152."""
+    units = []
+    for c, t, s in ((64, 16, 56), (128, 8, 28), (256, 4, 14), (512, 2, 7)):
+        mid = max(128, ((27 * c * c) // (12 * c) + 63) // 128 * 128)
+        units += [("spatial", (clips, t, s, s, c), (3, 3, c, mid), False),
+                  ("spatial", (clips, t, s, s, c), (3, 3, c, mid), True),
+                  ("temporal", (clips, t, s, s, mid), (3, mid, c), True)]
+    return units
+
+
+def check_lane(torch, F, conv_bn):
+    """Rows 3-8 at the lane widths (phase kernel_lane): the forward units at
+    the serving shapes (128 clips) and the backward at the train shapes (32
+    clips), each against its plain version under the bf16 limits and
+    controls of check_fwd_unit / check_bwd_unit; the planners' tilings at
+    widths 128 / 256 / 512 (they were sized at 144 / 288 / 576)."""
+    g = torch.Generator(device="cuda").manual_seed(17)
+    errs = {}
+    for kind, xs, ws, affine in _lane_units(128):
+        x = torch.randn(*xs, device="cuda", generator=g).to(torch.bfloat16)
+        w = (torch.rand(*ws, device="cuda", generator=g) * 2 - 1) \
+            / math.sqrt(math.prod(ws[:-1]))
+        a = (torch.rand(xs[-1], device="cuda", generator=g) + 0.5,
+             torch.randn(xs[-1], device="cuda", generator=g) * 0.1) \
+            if affine else (None, None)
+        key = f"fwd_{kind}_{xs[-1]}_to_{ws[-1]}_affine={affine}"
+        errs[key] = check_fwd_unit(torch, F, conv_bn, f"lane unit {key}", x, w,
+                                   a, kind)
+        del x
+        torch.cuda.empty_cache()
+    for kind, xs, ws, affine in _lane_units(32):
+        x = torch.randn(*xs, device="cuda", generator=g).to(torch.bfloat16)
+        w = ((torch.rand(*ws, device="cuda", generator=g) * 2 - 1)
+             / math.sqrt(math.prod(ws[:-1]))).to(torch.bfloat16)
+        a = (torch.rand(xs[-1], device="cuda", generator=g) + 0.5,
+             torch.randn(xs[-1], device="cuda", generator=g) * 0.1) \
+            if affine else (None, None)
+        co = ws[-1]
+        gy = (torch.randn(*xs[:-1], co, device="cuda", generator=g) * 1e-2
+              ).to(torch.bfloat16)
+        gs1 = torch.randn(co, device="cuda", generator=g) * 1e-5
+        gs2 = torch.randn(co, device="cuda", generator=g) * 1e-6
+        key = f"bwd_{kind}_{xs[-1]}_to_{co}_affine={affine}"
+        _, errs[key] = check_bwd_unit(torch, conv_bn, f"lane unit {key}", x, w,
+                                      *a, gy, gs1, gs2, kind)
+        del x, gy
+        torch.cuda.empty_cache()
+    emit({"phase": "kernel_lane", "widths": [128, 256, 512, 1152],
+          "errors": errs})
+
+
+# (name, overrides) of the served backbones beside R(2+1)D-18 in bf16
+BACKBONES = (("conv_mode=3d", {"model.visual.conv_mode": "3d"}),
+             ("conv_mode=mc3", {"model.visual.conv_mode": "mc3"}),
+             ("se_ratio=16", {"model.visual.se_ratio": 16}),
+             ("stem_s2d=true", {"model.visual.stem_s2d": True}),
+             ("mid_mode=lane", {"model.visual.mid_mode": "lane"}),
+             ("compute_dtype=float32", {"model.compute_dtype": "float32"}))
+
+
+def backbone_launches(cuda_lib, cfg, fused_blocks, per=1):
+    """The launches a served video (``per`` = 1) or ``per`` train steps of
+    ``cfg`` must make: the mel and GRU kernels, and 2 units a fused block
+    (10 at R(2+1)D-18) of each kind, fp32 or bf16, forward (and in
+    training backward)."""
+    want = {k: 0 for k in cuda_lib.launches}
+    want["melspec"] = per
+    want["gru"] = per * cfg.model.gru.num_layers
+    sfx = "_f32" if cfg.model.compute_dtype == "float32" else ""
+    for kind in ("spatial", "temporal"):
+        want[f"conv_{kind}{sfx}"] = 2 * fused_blocks * per
+    return want
+
+
+def _clips_of(torch, np, frames, starts, length, dtype, device):
+    """[len(starts), length, S, S, 3] clips of a uint8 video, /255 in dtype."""
+    x = np.stack([frames[s:s + length] for s in starts])
+    return torch.from_numpy(x).to(device=device, dtype=dtype) / 255.0
+
+
+def serve_backbones(torch, np, cuda_lib, Predictor, frames, wav):
+    """Every BACKBONES configuration served at full width (longseq_eval and
+    one override, seeded random weights): the 1024-frame video's
+    predict_video (frames/s after a warm run, peak memory, launches per
+    kernel held to backbone_launches); then the same configuration at full
+    width on 32x32 frames, W = 2, card against CPU on a 48-frame video
+    (bf16 within PATH_ATOL / PATH_MEAN_ATOL, fp32 within F32_PATH_ATOL /
+    F32_PATH_MEAN_ATOL) and, for fp32, the backbone's per-frame features of
+    its five clips within F32_FEAT_REL, with TF32 turned on for the
+    library's convs as the control that must exceed it. Returns the fp32
+    configuration's launches."""
+    rng = np.random.RandomState(21)
+    small_f = rng.randint(0, 256, (48, 32, 32, 3), dtype=np.uint8)
+    small_w = (rng.randn(int(48 / 30 * 16000) + 16000) * 0.1).astype(np.float32)
+    counts_f32 = None
+    for name, ov in BACKBONES:
+        p = Predictor(preset="longseq_eval", overrides=ov)
+        fp32 = p.cfg.model.compute_dtype == "float32"
+        fused = p.model.visual.fused_blocks
+        want = backbone_launches(cuda_lib, p.cfg, fused)
+        p.predict_video(frames=frames, waveform=wav)          # warm run
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        pred, counts, dt = serve(torch, np, cuda_lib, p, frames, wav,
+                                 kernels=[k for k, v in want.items() if v])
+        require(counts == want, f"{name}: launches {counts}, expected {want}")
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        if fp32:
+            counts_f32 = counts
+        del p
+        torch.cuda.empty_cache()
+        small = dict(ov, **{"window.windows_per_clip": 2, "data.image_size": 32})
+        pc = Predictor(preset="longseq_eval", overrides=small, device="cpu")
+        pg = Predictor(preset="longseq_eval", overrides=small)
+        pg.model.load_state_dict(pc.model.state_dict())
+        a = pc.predict_video(frames=small_f, waveform=small_w)["pred"]
+        b = pg.predict_video(frames=small_f, waveform=small_w)["pred"]
+        d = np.abs(a - b)
+        tol = (F32_PATH_ATOL, F32_PATH_MEAN_ATOL) if fp32 \
+            else (PATH_ATOL, PATH_MEAN_ATOL)
+        require(d.max() <= tol[0] and d.mean() <= tol[1],
+                f"{name}: card vs CPU preds max {d.max()}, mean {d.mean()}")
+        res = {"phase": "serve_backbones", "config": name, "frames": 1024,
+               "s": dt, "frames_per_s": 1024 / dt, "peak_mem_gb": peak,
+               "launches": counts, "fused_blocks": fused,
+               "card_vs_cpu": {"frames": 48, "image_size": 32,
+                               "max_abs_diff": float(d.max()),
+                               "mean_abs_diff": float(d.mean()),
+                               "tol_max": tol[0], "tol_mean": tol[1]}}
+        if fp32:
+            starts = list(range(0, 48 - 16 + 1, 8))
+            with torch.no_grad():
+                want_f = pc.model.visual(_clips_of(
+                    torch, np, small_f, starts, 16, torch.float32, "cpu"),
+                    per_frame=True)
+                clips = _clips_of(torch, np, small_f, starts, 16,
+                                  torch.float32, "cuda")
+                with pg.model.precision():
+                    got_f = pg.model.visual(clips, per_frame=True).cpu()
+                # the control: TF32 in cuDNN's convs, outside the scope
+                torch.backends.cudnn.allow_tf32 = True
+                try:
+                    tf32_f = pg.model.visual(clips, per_frame=True).cpu()
+                finally:
+                    torch.backends.cudnn.allow_tf32 = False
+            scale = want_f.abs().max().item()
+            rel = (got_f - want_f).abs().max().item() / scale
+            rel_tf32 = (tf32_f - want_f).abs().max().item() / scale
+            require(rel <= F32_FEAT_REL, f"{name}: backbone features card vs "
+                    f"CPU {rel} of their largest > {F32_FEAT_REL}")
+            require(rel_tf32 > F32_FEAT_REL, f"{name}: TF32 features within "
+                    f"the fp32 limit ({rel_tf32}): the check cannot see TF32")
+            res["features_card_vs_cpu"] = {"rel": rel, "tf32_rel": rel_tf32,
+                                           "tol_rel": F32_FEAT_REL}
+        emit(res)
+        del pc, pg
+        torch.cuda.empty_cache()
+    return counts_f32
+
+
+def train_backbones(torch, np, cuda_lib, config, Trainer, data):
+    """Two full-width fusion steps of every bf16 configuration of BACKBONES
+    through Trainer.fit: finite losses, launches held to backbone_launches,
+    s/step (the second step, between the ends of both), peak memory."""
+    for name, ov in BACKBONES:
+        cfg = config.apply_overrides(config.fusion(),
+                                     {**ov, "train.log_every": 1})
+        if cfg.model.compute_dtype == "float32":
+            continue
+        tr = Trainer(cfg)
+        stream = synthetic_stream(np, cfg, *data, seed=0)
+        fused = tr.model.visual.fused_blocks
+        want = backbone_launches(cuda_lib, cfg, fused, per=2)
+        for k in ("spatial", "temporal"):
+            for part in ("data", "filter"):
+                want[f"conv_{k}_bwd_{part}"] = 2 * fused * 2
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        cuda_lib.reset_launches()
+        ends = []
+        _, hist = tr.fit(stream, num_steps=2,
+                         log=lambda s: ends.append(time.perf_counter()))
+        torch.cuda.synchronize()
+        counts = dict(cuda_lib.launches)
+        require(counts == want, f"train {name}: launches {counts}, "
+                f"expected {want}")
+        loss = hist["loss"]
+        require(len(loss) == 2 and all(math.isfinite(v) for v in
+                                       loss + hist["grad_norm"]),
+                f"train {name}: loss {loss}, grad norm {hist['grad_norm']}")
+        emit({"phase": "train_backbones", "config": name, "steps": 2,
+              "s_per_step": ends[1] - ends[0], "loss": loss,
+              "grad_norm": hist["grad_norm"], "launches": counts,
+              "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9})
+        del tr
+        torch.cuda.empty_cache()
+
+
+def train_fp32_refused(torch, np, cuda_lib, config, Trainer, data):
+    """fusion with compute_dtype=float32 on the card: Trainer.fit and
+    Trainer.train_step raise NotImplementedError naming the ROADMAP item
+    before any kernel is launched."""
+    cfg = config.apply_overrides(config.fusion(),
+                                 {"model.compute_dtype": "float32"})
+    tr = Trainer(cfg)
+    stream = synthetic_stream(np, cfg, *data, seed=0)
+    raised = []
+    cuda_lib.reset_launches()
+    for call in (lambda: tr.fit(stream, num_steps=1, log=lambda s: None),
+                 lambda: tr.train_step(tr.init_state(), next(stream(0)))):
+        try:
+            call()
+            raised.append(None)
+        except NotImplementedError as e:
+            raised.append(str(e))
+    torch.cuda.synchronize()
+    launched = {k: v for k, v in cuda_lib.launches.items() if v}
+    require(all(r and "fp32 conv-unit backward kernels" in r for r in raised),
+            f"fp32 training on the card: {raised}")
+    require(not launched, f"fp32 training launched {launched} before refusing")
+    emit({"phase": "train_fp32_refused", "raised": raised[0], "launches": 0})
+    del tr
+    torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
 # The data layer and the CLI: the port's JPEG loader, a fake ABAW tree made
 # from the committed fixtures, and ``m3f_torch.main`` driven as a user would
 # ---------------------------------------------------------------------------
@@ -2449,9 +2900,11 @@ def cli_presets(torch, np, cuda_lib, config, main, root, repo, log_dir):
         if preset == "audio_only":
             ok = counts["melspec"] == 2 and counts["gru"] == 2 \
                 and not any(counts[k] for k in conv)
-        else:
+        else:      # bf16: each bf16 unit 10 a step, no fp32 unit
             ok = counts["melspec"] == counts["melspec_dft"] == 0 \
-                and counts["gru"] == 2 and all(counts[k] == 20 for k in conv)
+                and counts["gru"] == 2 and all(
+                    counts[k] == (0 if k.endswith("_f32") else 20)
+                    for k in conv)
         require(ok, f"{preset} launches {counts}")
         require(_steps_logged(out) == [1, 2], f"{preset} steps")
         clips = cfg.train.batch_size * cfg.window.windows_per_clip
@@ -2541,6 +2994,11 @@ def main():
                *check_gru(torch, cuda_lib, gru)]
     kernels += check_conv(torch, F, conv_bn)
     check_edges(torch, F, cuda_lib, melspec, gru, conv_bn, MelConfig())
+    torch.cuda.empty_cache()
+    kernels += check_conv_f32(torch, F, conv_bn)
+    torch.cuda.empty_cache()
+    check_lane(torch, F, conv_bn)
+    torch.cuda.empty_cache()
     kernels += check_bwd(torch, F, conv_bn)
     check_bwd_edges(torch, conv_bn)
     torch.cuda.empty_cache()
@@ -2621,6 +3079,10 @@ def main():
     del tr_e, a, b
     torch.cuda.empty_cache()
 
+    # 3d. every visual backbone of the reference served at full width (five
+    # bf16 variants and fp32 activations), each beside its CPU run
+    counts_f32 = serve_backbones(torch, np, cuda_lib, Predictor, frames, wav)
+
     # 4. whole-path parity: one narrow model, CPU plain versions vs kernels
     overrides = {"model.visual.block_channels": [32, 64, 128, 256],
                  "model.visual.stem_channels": 32,
@@ -2665,6 +3127,8 @@ def main():
     torch.cuda.empty_cache()
     train_parity(torch, np, cuda_lib, config, Trainer, data)
     torch.cuda.empty_cache()
+    train_backbones(torch, np, cuda_lib, config, Trainer, data)
+    train_fp32_refused(torch, np, cuda_lib, config, Trainer, data)
 
     # 5b. the data layer and the command line on a fake ABAW tree
     log_dir = os.path.join(repo, "build", "cli_logs")
@@ -2691,6 +3155,8 @@ def main():
                 "gru_stream": pallas + "gru_pallas.py:61",
                 "conv_unit_spatial": pallas + "conv_bn.py:172",
                 "conv_unit_temporal": pallas + "conv_bn.py:217",
+                "conv_unit_spatial_f32": pallas + "conv_bn.py:172",
+                "conv_unit_temporal_f32": pallas + "conv_bn.py:217",
                 "conv_spatial_bwd_data": pallas + "conv_bn.py:537",
                 "conv_spatial_bwd_filter": pallas + "conv_bn.py:554",
                 "conv_temporal_bwd_data": pallas + "conv_bn.py:612",
@@ -2702,10 +3168,14 @@ def main():
     counter = {"melspec": "melspec", "gru": "gru", "gru_stream": "gru_stream",
                "conv_unit_spatial": "conv_spatial",
                "conv_unit_temporal": "conv_temporal"}
+    counter_f32 = {"conv_unit_spatial_f32": "conv_spatial_f32",
+                   "conv_unit_temporal_f32": "conv_temporal_f32"}
     source = {"melspec": "m3f_torch/csrc/melspec.cu",
               "melspec_dft": "m3f_torch/csrc/melspec.cu",
               "gru": "m3f_torch/csrc/gru.cu",
               "gru_stream": "m3f_torch/csrc/gru.cu",
+              "conv_unit_spatial_f32": "m3f_torch/csrc/conv_bn_f32.cu",
+              "conv_unit_temporal_f32": "m3f_torch/csrc/conv_bn_f32.cu",
               **{k: "m3f_torch/csrc/packed_conv.cu" for k in PROBE_KERNELS}}
     line = []
     for k in kernels:
@@ -2716,6 +3186,8 @@ def main():
         # the 10 timed train steps; probe kernels: theirs in one probe run
         if name in counter:
             launches = counts30[counter[name]]
+        elif name in counter_f32:        # serving one video in fp32
+            launches = counts_f32[counter_f32[name]]
         elif name == "melspec_dft":
             launches = counts400[name]
         elif name in PROBE_KERNELS:

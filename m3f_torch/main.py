@@ -75,8 +75,7 @@ def _parse_value(s: str):
 
 def build_config(preset: str, overrides: List[str]) -> ExperimentConfig:
     # "<preset>+lane+s2d" = stacked variants: "lane" = lane-rounded midplanes
-    # (visual.mid_mode="lane"), "s2d" = the space-to-depth stem; the model
-    # refuses both until they are ported (ROADMAP §1)
+    # (visual.mid_mode="lane"), "s2d" = the space-to-depth stem
     base, *variants = preset.split("+")
     cfg = PRESETS[base]()
     for variant in variants:
@@ -115,7 +114,7 @@ def refuse_multi_process(coordinator: str = "", env=None) -> None:
     if signals:
         raise NotImplementedError(
             f"multi-process training ({', '.join(signals)}) is not ported: "
-            "the port trains on one card (ROADMAP §1 item 4, parallel/)")
+            "the port trains on one card (ROADMAP §1: parallel/)")
 
 
 def refuse_xla_cache(env=None) -> None:

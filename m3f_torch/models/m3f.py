@@ -16,10 +16,14 @@ features (before the BiGRU) and on the GRU output (before the head), the
 two keep masks drawn in that order from the caller's ``torch.Generator``
 by ``dropout_mask``. The reference's random stream cannot be matched; its
 masks can be fed in by replacing ``dropout_mask``. Eval ignores dropout.
+With ``model.compute_dtype="float32"`` on the card both run inside
+``precision()`` (``nn.full_fp32``): no TF32 in cuDNN's convs or cuBLAS's
+products, as the reference computes them in fp32.
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import Optional
 
 import torch
@@ -29,7 +33,7 @@ from m3f_torch.config import ModelConfig
 from m3f_torch.models.audio import AudioCNN
 from m3f_torch.models.gru import BiGRU
 from m3f_torch.models.r2plus1d import R2Plus1D
-from m3f_torch.nn import Dense, compute_dtype, resolve_device
+from m3f_torch.nn import Dense, compute_dtype, full_fp32, resolve_device
 from m3f_torch.ops.melspec import log_mel_spectrogram
 
 
@@ -87,7 +91,8 @@ class M3F(nn.Module):
         """Eval forward. ``wav`` [B, W, samples] goes through the log-mel
         frontend (``hop``: per-video mel hop with a max-hop-sized buffer);
         ``mel`` [B, W, F, n_mels] skips it."""
-        return self._run(video, mel, wav, hop, train=False)
+        with self.precision():
+            return self._run(video, mel, wav, hop, train=False)
 
     def forward_train(self, video: Optional[torch.Tensor] = None,
                       mel: Optional[torch.Tensor] = None,
@@ -98,7 +103,17 @@ class M3F(nn.Module):
         """Differentiable train forward (inputs as ``forward``); with
         ``model.dropout > 0`` its two masks come from ``generator`` (on the
         inputs' device; None: the global stream)."""
-        return self._run(video, mel, wav, hop, train=True, generator=generator)
+        with self.precision():
+            return self._run(video, mel, wav, hop, train=True,
+                             generator=generator)
+
+    def precision(self):
+        """``nn.full_fp32`` for an fp32 model on the card, else nothing: a
+        forward (and a train step's backward) inside it keeps fp32 convs
+        and products in fp32."""
+        if self.dtype == torch.float32 and self.head.kernel.is_cuda:
+            return full_fp32()
+        return contextlib.nullcontext()
 
     def _run(self, video, mel, wav, hop, train: bool,
              generator: Optional[torch.Generator] = None) -> torch.Tensor:

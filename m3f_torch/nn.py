@@ -8,7 +8,11 @@ Counterpart of ``m3f/pytorch_tpu/nn.py``.
   load, ``train/checkpoint.py``), and runs on a permuted *view* of the
   activation, never a copy.
 - **dtypes:** parameters fp32, compute in the activation's dtype (bf16 by
-  default); a conv on fp32 input accumulates and returns fp32.
+  default); a conv on fp32 input accumulates and returns fp32. On the card
+  an fp32 model runs inside ``full_fp32``, so cuDNN's convs and cuBLAS's
+  products stay in fp32 and do not drop to TF32.
+- **Padding:** ``conv`` pads each spatial axis by a (low, high) pair; an
+  asymmetric pair is an explicit zero ``F.pad`` before an unpadded conv.
 - **BatchNorm** is the reference's one-pass ``E[x²]−E[x]²`` form clamped at
   0 (optionally two-pass), with the normalize ``x·inv + shift`` done in the
   compute dtype — not ``nn.BatchNorm3d``, whose variance order differs.
@@ -16,8 +20,10 @@ Counterpart of ``m3f/pytorch_tpu/nn.py``.
 
 from __future__ import annotations
 
+import contextlib
 import math
-from typing import Sequence, Tuple
+import threading
+from typing import Sequence, Tuple, Union
 
 import torch
 import torch.nn.functional as F
@@ -58,20 +64,59 @@ class Dense(nn.Module):
         return x @ self.kernel.to(x.dtype) + self.bias.to(x.dtype)
 
 
+Padding = Union[int, Tuple[int, int]]
+
+
+def _pairs(padding: Sequence[Padding], nd: int) -> Tuple[Tuple[int, int], ...]:
+    """One (low, high) pair per spatial axis; an int pads both sides."""
+    pads = tuple((p, p) if isinstance(p, int) else tuple(p)
+                 for p in (tuple(padding) or (0,) * nd))
+    if len(pads) != nd or any(len(p) != 2 for p in pads):
+        raise ValueError(f"padding {padding!r} for a {nd}-D conv: one int or "
+                         "(low, high) pair per spatial axis")
+    return pads
+
+
+def conv(x: torch.Tensor, weight: torch.Tensor, strides: Sequence[int] = (),
+         padding: Sequence[Padding] = ()) -> torch.Tensor:
+    """Channels-last conv of x [N, *spatial, C] with ``weight`` [O, C, *k]
+    (cast to x's dtype) → [N, *spatial', O]. ``padding`` is one int or one
+    (low, high) pair per spatial axis; where any pair is asymmetric the zero
+    padding is an explicit ``F.pad`` and the conv itself pads nothing."""
+    nd = weight.dim() - 2
+    if nd not in (2, 3):
+        raise ValueError(f"conv supports 2-D and 3-D kernels, got {tuple(weight.shape)}")
+    pads = _pairs(padding, nd)
+    perm_in = (0, nd + 1) + tuple(range(1, nd + 1))
+    perm_out = (0,) + tuple(range(2, nd + 2)) + (1,)
+    xc = x.permute(perm_in)
+    if all(lo == hi for lo, hi in pads):
+        sym = tuple(lo for lo, _ in pads)
+    else:
+        xc = F.pad(xc, [v for lo, hi in reversed(pads) for v in (lo, hi)])
+        sym = (0,) * nd
+    fn = F.conv3d if nd == 3 else F.conv2d
+    y = fn(xc, weight.to(x.dtype), stride=tuple(strides) or (1,) * nd,
+           padding=sym)
+    return y.permute(perm_out)
+
+
 class Conv(nn.Module):
     """2-D or 3-D channels-last convolution (no bias, as every conv of the
-    model). ``padding`` is one int per spatial axis (symmetric)."""
+    model). ``padding`` is one int (symmetric) or (low, high) pair per
+    spatial axis (``conv``)."""
 
     def __init__(self, in_channels: int, out_channels: int,
                  kernel_size: Tuple[int, ...], gen: torch.Generator,
-                 strides: Tuple[int, ...] = (), padding: Tuple[int, ...] = ()):
+                 strides: Tuple[int, ...] = (),
+                 padding: Tuple[Padding, ...] = ()):
         super().__init__()
         nd = len(kernel_size)
         if nd not in (2, 3):
             raise ValueError(f"Conv supports 2-D and 3-D kernels, got {kernel_size}")
         self.kernel_size = tuple(kernel_size)
         self.strides = tuple(strides) or (1,) * nd
-        self.padding = tuple(padding) or (0,) * nd
+        self.padding = _pairs(padding, nd)
         fan_in = math.prod(kernel_size) * in_channels
         w = fan_in_uniform(gen, (out_channels, in_channels) + self.kernel_size,
                            fan_in)
@@ -80,13 +125,7 @@ class Conv(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """x [N, *spatial, C] → [N, *spatial', O] in x's dtype."""
-        nd = len(self.kernel_size)
-        conv = F.conv3d if nd == 3 else F.conv2d
-        perm_in = (0, nd + 1) + tuple(range(1, nd + 1))
-        perm_out = (0,) + tuple(range(2, nd + 2)) + (1,)
-        y = conv(x.permute(perm_in), self.weight.to(x.dtype),
-                 stride=self.strides, padding=self.padding)
-        return y.permute(perm_out)
+        return conv(x, self.weight, self.strides, self.padding)
 
 
 class BatchNorm(nn.Module):
@@ -159,6 +198,37 @@ def relu(x: torch.Tensor) -> torch.Tensor:
 def global_avg_pool(x: torch.Tensor) -> torch.Tensor:
     """Mean over all spatial axes: [N, *spatial, C] → [N, C]."""
     return x.mean(dim=tuple(range(1, x.ndim - 1)))
+
+
+_fp32_lock = threading.Lock()
+_fp32_depth = 0
+_fp32_saved: Tuple[bool, bool] = (True, False)
+
+
+@contextlib.contextmanager
+def full_fp32():
+    """cuDNN's convs and cuBLAS's products in full fp32 (no TF32) while
+    inside: an fp32 model's forward and backward on the card, whose
+    reference rounds nothing to TF32's 10-bit mantissa. PyTorch keeps the two
+    switches process-wide, so overlapping scopes from several threads (the
+    HTTP server's) share one count: the first to enter turns TF32 off, the
+    last to leave restores what was set before. Meanwhile other threads'
+    fp32 work runs without TF32 too, never with less precision."""
+    global _fp32_depth, _fp32_saved
+    cudnn, matmul = torch.backends.cudnn, torch.backends.cuda.matmul
+    with _fp32_lock:
+        if _fp32_depth == 0:
+            _fp32_saved = (cudnn.allow_tf32, matmul.allow_tf32)
+            cudnn.allow_tf32 = False
+            matmul.allow_tf32 = False
+        _fp32_depth += 1
+    try:
+        yield
+    finally:
+        with _fp32_lock:
+            _fp32_depth -= 1
+            if _fp32_depth == 0:
+                cudnn.allow_tf32, matmul.allow_tf32 = _fp32_saved
 
 
 def compute_dtype(name: str) -> torch.dtype:

@@ -23,6 +23,12 @@ when the unit has the prologue, with fp32 ``dinv = Σ x·dxa`` and
 ``dshift = Σ dxa``) and ``dw`` in fp32 straight from the accumulator.
 ``conv_unit`` is the differentiable unit (a ``torch.autograd.Function``):
 both halves are kernels on the card and plain versions on the CPU.
+
+x is bf16 or fp32. The forward has kernels for both (``csrc/conv_bn.cu``
+for bf16, ``csrc/conv_bn_f32.cu`` for fp32: the reference's Pallas units
+run in the dtype of x); the backward kernels take bf16 only, so an fp32
+unit trains on the CPU alone (``Trainer`` refuses fp32 training on the card
+before it launches anything).
 """
 
 from __future__ import annotations
@@ -32,6 +38,7 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from m3f_torch.nn import full_fp32
 from m3f_torch.ops import cuda_lib
 
 
@@ -55,9 +62,10 @@ def conv_unit_reference(x: torch.Tensor, w: torch.Tensor,
     if inv is not None:
         x = torch.clamp_min(x * inv.to(dtype) + shift.to(dtype), 0)
     kernel, pad = _torch_kernel(w.to(dtype), kind)
-    y = F.conv3d(x.permute(0, 4, 1, 2, 3),
-                 kernel.contiguous(memory_format=torch.channels_last_3d),
-                 padding=pad).permute(0, 2, 3, 4, 1)
+    with full_fp32():                   # an fp32 conv stays fp32 (no TF32)
+        y = F.conv3d(x.permute(0, 4, 1, 2, 3),
+                     kernel.contiguous(memory_format=torch.channels_last_3d),
+                     padding=pad).permute(0, 2, 3, 4, 1)
     yf = y.float()
     axes = (0, 1, 2, 3)
     return y, yf.sum(axes), (yf * yf).sum(axes)
@@ -113,10 +121,11 @@ def conv_unit_fwd(x: torch.Tensor, w: torch.Tensor,
     """Fused (affine + ReLU →) conv → channel sums; returns (y, s1, s2).
 
     Plain composition on the CPU; on the card one kernel launch (plus a
-    fixed-order reduction of its per-block sums) for bf16 activations: the
+    fixed-order reduction of its per-block sums): for bf16 activations the
     row walk (spatial, ``spatial_fwd_plan``) or the frame walk (temporal,
-    ``temporal_fwd_plan``). Channel counts that are not multiples of 8 run
-    zero-padded (``pad_channels``)."""
+    ``temporal_fwd_plan``), for fp32 the fp32 unit (``f32_fwd_plan``).
+    Channel counts that are not multiples of 8 run zero-padded
+    (``pad_channels``)."""
     if x.device.type == "cpu":
         return conv_unit_reference(x, w, inv, shift, kind=kind)
     tensors = (x, w) + ((inv, shift) if inv is not None else ())
@@ -125,14 +134,16 @@ def conv_unit_fwd(x: torch.Tensor, w: torch.Tensor,
     co = w.shape[-1]
     want_w = (3, 3, ci, co) if kind == "spatial" else (3, ci, co)
     if kind not in ("spatial", "temporal") or tuple(w.shape) != want_w \
-            or x.dtype != torch.bfloat16:
+            or x.dtype not in (torch.bfloat16, torch.float32):
         raise ValueError(
-            f"conv_unit_fwd kernel takes bf16 x [B,T,H,W,Ci] and w {want_w}; "
-            f"got kind={kind!r} x {tuple(x.shape)} {x.dtype}, w "
+            f"conv_unit_fwd kernel takes bf16 or fp32 x [B,T,H,W,Ci] and w "
+            f"{want_w}; got kind={kind!r} x {tuple(x.shape)} {x.dtype}, w "
             f"{tuple(w.shape)}")
     if ci % 8 or co % 8:
         y, s1, s2 = conv_unit_fwd(*pad_channels(x, w, inv, shift), kind=kind)
         return cut_channels(y, co), cut_channels(s1, co), cut_channels(s2, co)
+    if x.dtype == torch.float32:
+        return _conv_unit_fwd_f32(x, w, inv, shift, kind)
     x = x.contiguous()
     taps = 9 if kind == "spatial" else 3
     # [Co, taps·Ci] with k = tap·Ci + ci: the kernel's K-major B operand
@@ -163,6 +174,78 @@ def conv_unit_fwd(x: torch.Tensor, w: torch.Tensor,
             *tiling, cuda_lib.stream_ptr(x))
     cuda_lib.check(err, f"conv_unit_fwd {kind} kernel")
     cuda_lib.launches["conv_" + kind] += 1
+    return y, s1, s2
+
+
+# The fp32 forward (conv_f32_kernel in conv_bn_f32.cu): tiles of 64
+# positions x 64 output channels, a block walking a range of position tiles
+_F32_BM = 64
+_F32_BN = 64
+_F32_BLOCKS_PER_SM = 8     # target blocks a multiprocessor (about two waves)
+
+
+class F32FwdPlan(NamedTuple):
+    """How the fp32 forward cuts its work: ``m_tiles`` tiles of 64 of the
+    M = B·T·H·W positions, ``n_tiles`` tiles of 64 output channels;
+    ``ranges`` of ``tiles_per_range`` consecutive position tiles, one block
+    a range and output-channel tile (``blocks``), each range one partial row
+    of s1 / s2."""
+    m_tiles: int
+    n_tiles: int
+    tiles_per_range: int
+    ranges: int
+    blocks: int
+
+
+def f32_fwd_plan(b: int, t: int, h: int, w: int, co: int,
+                 sms: int) -> F32FwdPlan:
+    """The fp32 forward's tiling on a card of ``sms`` multiprocessors:
+    about _F32_BLOCKS_PER_SM blocks a multiprocessor, at most one a
+    position tile."""
+    m_tiles = _cdiv(b * t * h * w, _F32_BM)
+    n_tiles = _cdiv(co, _F32_BN)
+    want = max(1, min(m_tiles, _F32_BLOCKS_PER_SM * sms // n_tiles))
+    per = _cdiv(m_tiles, want)
+    ranges = _cdiv(m_tiles, per)
+    return F32FwdPlan(m_tiles, n_tiles, per, ranges, ranges * n_tiles)
+
+
+def _aligned16(t: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
+    """``t`` contiguous on 16-byte-aligned storage (the kernel's vector
+    loads): a copy where its base is off 16 bytes."""
+    if t is None:
+        return None
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+def _conv_unit_fwd_f32(x, w, inv, shift, kind):
+    """The fp32 unit on the card (Ci, Co multiples of 8): one launch of
+    conv_f32_kernel plus the fixed-order sum of its partial rows."""
+    b, t, h, wd, ci = x.shape
+    co = w.shape[-1]
+    taps = 9 if kind == "spatial" else 3
+    x = _aligned16(x)
+    wk = _aligned16(w.float().reshape(taps * ci, co))   # row tap·Ci + ci
+    inv = _aligned16(None if inv is None else inv.float())
+    shift = _aligned16(None if shift is None else shift.float())
+    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+    plan = f32_fwd_plan(b, t, h, wd, co, sms)
+    y = torch.empty(b, t, h, wd, co, dtype=torch.float32, device=x.device)
+    s1 = torch.empty(co, dtype=torch.float32, device=x.device)
+    s2 = torch.empty(co, dtype=torch.float32, device=x.device)
+    part = torch.empty(2 * plan.ranges * co, dtype=torch.float32,
+                       device=x.device)
+    with torch.cuda.device(x.device):
+        err = cuda_lib.library("conv_bn_f32").m3f_conv_unit_fwd_f32(
+            x.data_ptr(), wk.data_ptr(),
+            None if inv is None else inv.data_ptr(),
+            None if shift is None else shift.data_ptr(),
+            y.data_ptr(), s1.data_ptr(), s2.data_ptr(), part.data_ptr(),
+            0 if kind == "spatial" else 1, b, t, h, wd, ci, co,
+            plan.tiles_per_range, cuda_lib.stream_ptr(x))
+    cuda_lib.check(err, f"conv_unit_fwd {kind} fp32 kernel")
+    cuda_lib.launches[f"conv_{kind}_f32"] += 1
     return y, s1, s2
 
 

@@ -30,11 +30,12 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-lineinfo")
-SOURCES = ("melspec", "gru", "conv_bn", "packed_conv")
+SOURCES = ("melspec", "gru", "conv_bn", "conv_bn_f32", "packed_conv")
 
 launches: Dict[str, int] = {"melspec": 0, "melspec_dft": 0, "gru": 0,
                             "gru_stream": 0,
                             "conv_spatial": 0, "conv_temporal": 0,
+                            "conv_spatial_f32": 0, "conv_temporal_f32": 0,
                             "conv_spatial_bwd_data": 0,
                             "conv_spatial_bwd_filter": 0,
                             "conv_temporal_bwd_data": 0,
@@ -63,6 +64,8 @@ SIGNATURES = {
                                            I, I, P],
                 "m3f_conv_unit_bwd_filter": [P, P, P, P, P, P, P, P, P, I, I,
                                              I, I, I, I, I, I, I, I, I, P]},
+    "conv_bn_f32": {"m3f_conv_unit_fwd_f32": [P, P, P, P, P, P, P, P, I, I, I,
+                                              I, I, I, I, I, P]},
     "packed_conv": {"m3f_packed_ablate": [P, P, P, I, I, I, I, I, I, I, I, I,
                                           I, I, I, I, P],
                     "m3f_packed_conv_tma": [P, P, P, I, I, I, I, I, I, I, I, I,

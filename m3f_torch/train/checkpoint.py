@@ -151,8 +151,10 @@ def read_model_checkpoint(path: str) -> Tuple[Dict[str, torch.Tensor], int]:
 def _fit_to(template: Dict[str, torch.Tensor], flat: Dict[str, np.ndarray],
             path: str) -> Dict[str, torch.Tensor]:
     """``/``-keyed leaves converted onto ``template``'s names, shapes and
-    dtypes (host tensors); raises on a leaf the template lacks and on a
-    template name the leaves lack."""
+    dtypes (host tensors); raises on a leaf the template lacks, on a
+    template name the leaves lack and on a leaf of another shape (an
+    r3d_18 file on an mc3_18 template has the same names), all before any
+    tensor is returned."""
     conv = _convert(flat)
     extra = sorted(conv.keys() - template.keys())
     if extra:
@@ -162,8 +164,12 @@ def _fit_to(template: Dict[str, torch.Tensor], flat: Dict[str, np.ndarray],
     if missing:
         raise ValueError(f"checkpoint {path} missing model leaf "
                          f"{missing[0]} (and {len(missing) - 1} more)")
-    return {n: conv[n].to(t.dtype).reshape(t.shape)
-            for n, t in template.items()}
+    shape = sorted(n for n, t in template.items()
+                   if tuple(conv[n].shape) != tuple(t.shape))
+    if shape:
+        raise ValueError(f"checkpoint {path}: leaves of another shape than "
+                         f"the model's: {shape[:5]} — architecture mismatch")
+    return {n: conv[n].to(t.dtype) for n, t in template.items()}
 
 
 def load_model_checkpoint(state, path: str):

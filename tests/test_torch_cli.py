@@ -248,7 +248,7 @@ def test_profile_prints_the_trace_summary(tmp_path):
 def test_refusals(run, monkeypatch, tmp_path):
     base = ["train", "--device", "cpu", *narrow(run["root"]),
             f"train.checkpoint_dir={tmp_path}"]
-    with pytest.raises(NotImplementedError, match="ROADMAP §1 item 4"):
+    with pytest.raises(NotImplementedError, match="ROADMAP §1: parallel/"):
         tmain.main(base + ["--coordinator", "localhost:1234,2,0"])
     for var, value in (("M3F_COORDINATOR", "h:1"),
                        ("JAX_COORDINATOR_ADDRESS", "h:1"),
@@ -264,9 +264,11 @@ def test_refusals(run, monkeypatch, tmp_path):
         mp.setenv("M3F_JAX_CACHE", str(tmp_path))
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             tmain.main(["doctor", *narrow(run["root"])])
-    with pytest.raises(NotImplementedError):             # not ported yet
-        tmain.main(["eval", "--device", "cpu", "--preset", "fusion+lane",
-                    *narrow(run["root"])])
+    # the lane-midplanes variant is no refusal any more: it evaluates
+    # (tests/test_torch_backbones.py holds it against the reference)
+    got = _eval(tmain.main, run, "--preset", "fusion+lane",
+                device=("--device", "cpu"))
+    assert np.isfinite(got[-1]["ccc_v"]) and np.isfinite(got[-1]["ccc_a"])
     if not torch.cuda.is_available():
         for cmd in ("train", "eval", "predict", "serve"):
             with pytest.raises(RuntimeError, match="cuda"):

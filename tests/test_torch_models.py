@@ -76,9 +76,11 @@ def test_audio_cnn(per_frame, dtype):
 
 def test_midplanes():
     for i, o in [(64, 64), (64, 128), (128, 256), (3, 64), (512, 512)]:
-        assert midplanes(i, o) == (27 * i * o) // (9 * i + 3 * o)
-    with pytest.raises(NotImplementedError):
-        midplanes(64, 64, mode="lane")
+        mid = (27 * i * o) // (9 * i + 3 * o)
+        assert midplanes(i, o) == mid
+        assert midplanes(i, o, mode="lane") == max(128, (mid + 63) // 128 * 128)
+    with pytest.raises(ValueError, match="mid_mode"):
+        midplanes(64, 64, mode="wide")
 
 
 def test_r2plus1d_fused_routing_equals_both_jax_backends():
@@ -95,14 +97,6 @@ def test_r2plus1d_fused_routing_equals_both_jax_backends():
                     params, state, jnp.asarray(clips), per_frame=True)
             np.testing.assert_allclose(got, np.asarray(want), rtol=F32_TOL,
                                        atol=F32_TOL, err_msg=backend)
-
-
-@pytest.mark.parametrize("family", [dict(conv_mode="3d"), dict(se_ratio=16),
-                                    dict(stem_s2d=True), dict(mid_mode="lane")],
-                         ids=["3d", "se", "stem_s2d", "lane"])
-def test_r2plus1d_unported_variants_raise(family):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        R2Plus1D(_visual(tc, **family), _gen())
 
 
 def test_r2plus1d_unknown_conv_backend_raises():
