@@ -62,6 +62,18 @@ H100 (``python3 chip_smoke.py``). It
    version and cuDNN's fp32 conv (no TF32) plus the sums. Rows 3-8 are held
    at the lane midplanes 128 / 256 / 512 / 1152 (phase ``kernel_lane``:
    the forward at the serving shapes, the backward at the train shapes);
+   the fp32 backward kernels (rows 5f-8f, ``csrc/conv_bn_f32.cu``, phase
+   ``kernel_conv_f32_bwd``) are held against their plain versions (TF32 off)
+   at F32_EDGE_SHAPES (phase ``kernel_conv_f32_bwd_edges``) and at every
+   fused unit's shape of the fusion train step: dx per element within
+   BWD_F32_REL of (|ge| (*) |w| mirrored) through the mask and |inv|, dw
+   per element within 1e-5 of sum |x^|*|ge|, dinv / dshift per channel;
+   each check is shown to refuse the plain version under TF32 (at the train
+   shapes), a dw without its last slice's share, a dinv without its last
+   partial row, swapped taps, and at the edge shapes a dx whose ge went
+   through the formula in the padding and a dw whose x^ went through the
+   prologue there; two calls give the same bits; timed beside the plain
+   version and cuDNN's fp32 ``conv3d_input`` / ``conv3d_weight``;
    The four kernels of the packed-layout conv probe (packed_conv with bf16
    and fp32 y and packed_conv_chunked, both the TMA-fed wgmma walk;
    ablate_slabs, ablate_matmul) are held against their plain versions at
@@ -142,9 +154,14 @@ H100 (``python3 chip_smoke.py``). It
    on the card, from the same weights and batches, compared; two
    full-width fusion steps of each bf16 backbone of phase serve_backbones
    (phase ``train_backbones``: finite losses, their launches, s/step, peak
-   memory); and fusion with ``compute_dtype=float32``, whose ``fit`` and
-   ``train_step`` must raise NotImplementedError before any launch (phase
-   ``train_fp32_refused``: no fp32 backward kernels yet);
+   memory; the fp32 one through the fp32 backward kernels, none of the bf16
+   ones); and full-width fusion with ``compute_dtype=float32`` through
+   ``Trainer.fit`` (phase ``train_fp32``: 2 warm steps, then 4 with the
+   counters set to 0 just before, each fp32 kernel of rows 3f-8f launched
+   10 times a step and no bf16 conv kernel, finite losses, s/step, peak
+   memory); ``train_parity`` also trains the narrow model in fp32 on the
+   card against the CPU (through rows 3f-8f) beside the CPU's own fp32 run
+   on a video one part in 1e7 off;
 5b. the data layer and the command line: the port's JPEG loader built from
    ``csrc/loader.cc`` for this host (phase ``data_loader``: 1024 decodes
    of the committed fixtures plus a missing and a corrupt file, each frame
@@ -171,6 +188,7 @@ to this file, it exits non-zero before printing any result. TF32 is off for
 every comparison.
 """
 
+import contextlib
 import json
 import math
 import os
@@ -251,6 +269,30 @@ F32_FEAT_REL = 5e-5      # fp32 backbone features, card vs CPU, max |diff| /
 #                          emulation of the library convs by 4.8e-4-6.3e-4
 #                          (every family, measured on the CPU before the card
 #                          run); the phase shows TF32 on the card exceeds it
+# fp32 conv-unit backward (rows 5f-8f), fixed before their first run on the
+# card:
+BWD_F32_REL = 1e-5       # dx per element: 1e-5 of (|ge| (*) |w| mirrored)
+#                          through the mask and |inv| (fp32 sums in another
+#                          order, K up to 10368) ...
+BWD_F32_ABS = 1e-30      # ... plus a floor for sums whose every product is 0;
+#                          dw per element: BWD_DW_REL of sum |x^|*|ge| plus
+#                          BWD_DW_ABS of its largest, and dinv / dshift per
+#                          channel BWD_S_REL, as the bf16 backward (dw is fp32
+#                          on both routes)
+F32_BWD_ROUNDS, F32_BWD_REPS = 3, 5   # timed_alternating for rows 5f-8f
+F32_TRAIN_STEPS = 4      # phase train_fp32: fit steps after 2 warm ones
+F32_TRAIN_LOSS_ATOL = 1e-3   # narrow fp32 training, card vs CPU, per-step
+F32_TRAIN_PARAM_REL = 0.15   # loss, and params (L2) within 0.15 of the CPU
+#                          run's move: the same 3 steps on the CPU with each
+#                          pixel of the video one part in 1e7 off (a random
+#                          sign each) move the losses by up to 1.5e-4 and
+#                          the params by 0.034-0.043 of the move (measured on
+#                          the CPU before the card run; the phase repeats that
+#                          run beside the card's): a random-init net on batch
+#                          statistics through the CCC loss amplifies any
+#                          rounding difference. Both stay under the CPU's
+#                          bf16-vs-fp32 gap (3.6e-3, 0.23 of the move), so
+#                          the check tells the two dtypes apart
 HTTP_STREAMS = 4         # concurrent HTTP streams in phase http_server
 TRACE_TOP = 15           # rows of the trace summary printed
 
@@ -1989,11 +2031,22 @@ def train_fusion(torch, np, cuda_lib, config, Trainer, data):
     return counts, {"loss": loss, "s_per_step": step_s}
 
 
+def perturbed(np, video):
+    """A uint8 video as the model sees it (x / 255, fp32), each pixel one
+    part in 1e7 off with a seeded random sign: a rounding-level change."""
+    v = video.astype(np.float32) / np.float32(255)
+    sign = np.random.RandomState(7).choice(np.float32([-1, 1]), v.shape)
+    return v * (np.float32(1) + np.float32(1e-7) * sign)
+
+
 def train_parity(torch, np, cuda_lib, config, Trainer, data):
     """One narrow model (a two-stage R(2+1)D whose stage-1 blocks run every
     fused unit, plus a strided block), the same weights and batches: 3 SGD
     steps with the plain versions on the CPU and with the kernels on the
-    card; the CPU's own fp32 run is reported beside them."""
+    card, in bf16 and in fp32 (``card_fp32`` against ``cpu_fp32``, through
+    rows 3f-8f); the CPU's own fp32 run is reported beside the bf16 pair,
+    and beside the fp32 pair the CPU's fp32 run on a ``perturbed`` video
+    (``cpu_fp32_perturbed``: the spread of a rounding-level change)."""
     overrides = {"model.visual.block_channels": [32, 64],
                  "model.visual.blocks_per_stage": [2, 1],
                  "model.visual.stem_channels": 32,
@@ -2007,9 +2060,14 @@ def train_parity(torch, np, cuda_lib, config, Trainer, data):
                  "data.synthetic_num_videos": 2,
                  "data.synthetic_video_frames": 64}
     runs = {}
+    need = {"bfloat16": FORWARD_KERNELS + BWD_KERNELS,
+            "float32": ("melspec", "gru", "conv_spatial_f32",
+                        "conv_temporal_f32") + F32_BWD_KERNELS}
     for run, dev, dtype in (("cpu", "cpu", "bfloat16"),
                             ("cpu_fp32", "cpu", "float32"),
-                            ("card", "cuda", "bfloat16")):
+                            ("cpu_fp32_perturbed", "cpu", "float32"),
+                            ("card", "cuda", "bfloat16"),
+                            ("card_fp32", "cuda", "float32")):
         cfg = config.apply_overrides(config.fusion(), {
             **overrides, "model.compute_dtype": dtype})
         tr = Trainer(cfg, device=dev)
@@ -2017,32 +2075,50 @@ def train_parity(torch, np, cuda_lib, config, Trainer, data):
             tr.model.load_state_dict(runs["cpu"][2])
         init = {k: v.clone() for k, v in tr.model.state_dict().items()}
         w0 = torch.cat([p.detach().cpu().flatten() for p in tr.model.parameters()])
+        stream = synthetic_stream(np, cfg, *data, seed=1)
+        if run == "cpu_fp32_perturbed":
+            stream = (lambda base: lambda skip: (
+                dict(bt, video=perturbed(np, bt["video"])) for bt in base(skip)))(
+                    stream)
         cuda_lib.reset_launches()
-        _, hist = tr.fit(synthetic_stream(np, cfg, *data, seed=1), num_steps=3,
-                         log=lambda s: None, keep_weights=run != "cpu")
+        _, hist = tr.fit(stream, num_steps=3, log=lambda s: None,
+                         keep_weights=run != "cpu")
         if dev == "cuda":
-            missing = [k for k in FORWARD_KERNELS + BWD_KERNELS
-                       if cuda_lib.launches[k] == 0]
-            require(not missing, f"narrow card training skipped {missing}")
+            missing = [k for k in need[dtype] if cuda_lib.launches[k] == 0]
+            require(not missing, f"narrow card training ({run}) skipped "
+                    f"{missing}")
         w = torch.cat([p.detach().cpu().flatten() for p in tr.model.parameters()])
         runs[run] = (hist["loss"], w, init, w0)
-    loss, w, _, w0 = runs["cpu"]
-    move = (w - w0).norm().item()
 
-    def gap(run):
+    def gap(run, base):
+        loss, w, _, w0 = runs[base]
         other = runs[run]
         return (max(abs(a - b) for a, b in zip(loss, other[0])),
-                (other[1] - w).norm().item() / move)
-    dloss, drel = gap("card")
-    ref_loss, ref_rel = gap("cpu_fp32")
+                (other[1] - w).norm().item() / (w - w0).norm().item())
+    loss = runs["cpu"][0]
+    dloss, drel = gap("card", "cpu")
+    ref_loss, ref_rel = gap("cpu_fp32", "cpu")
+    f32_loss, f32_rel = gap("card_fp32", "cpu_fp32")
+    pert_loss, pert_rel = gap("cpu_fp32_perturbed", "cpu_fp32")
     result = {"phase": "train_parity_cpu_vs_card", "steps": 3,
               "loss_cpu": loss, "loss_card": runs["card"][0],
               "max_abs_loss_diff": dloss, "tol_loss": TRAIN_LOSS_ATOL,
               "param_diff_over_move": drel, "tol_param": TRAIN_PARAM_REL,
               "cpu_bf16_vs_fp32": {"max_abs_loss_diff": ref_loss,
-                                   "param_diff_over_move": ref_rel}}
+                                   "param_diff_over_move": ref_rel},
+              "card_fp32_vs_cpu_fp32": {
+                  "loss_cpu_fp32": runs["cpu_fp32"][0],
+                  "loss_card_fp32": runs["card_fp32"][0],
+                  "max_abs_loss_diff": f32_loss, "tol_loss": F32_TRAIN_LOSS_ATOL,
+                  "param_diff_over_move": f32_rel,
+                  "tol_param": F32_TRAIN_PARAM_REL},
+              "cpu_fp32_perturbed_vs_cpu_fp32": {
+                  "max_abs_loss_diff": pert_loss,
+                  "param_diff_over_move": pert_rel}}
     require(dloss <= TRAIN_LOSS_ATOL and drel <= TRAIN_PARAM_REL,
             f"narrow training card vs CPU: {result}")
+    require(f32_loss <= F32_TRAIN_LOSS_ATOL and f32_rel <= F32_TRAIN_PARAM_REL,
+            f"narrow fp32 training card vs CPU: {result}")
     emit(result)
 
 
@@ -2224,6 +2300,250 @@ def check_conv_f32(torch, F, conv_bn):
     return [out["spatial"], out["temporal"]]
 
 
+def f32_bwd_limits(torch, F, conv_bn, x, w, inv, shift, y, gy, gs1, gs2,
+                   ref, dxa, dxa_ref, kind):
+    """bwd_limits' dw and dinv / dshift limits, with the fp32 dx limit:
+    BWD_F32_REL of (|ge| (*) |w| mirrored), through the mask and |inv|, plus
+    BWD_F32_ABS."""
+    lim = bwd_limits(torch, conv_bn, x, inv, shift, y, gy, gs1, gs2, ref, dxa,
+                     dxa_ref, kind)
+    kern, pad = conv_bn._torch_kernel(w.abs(), kind)
+    s = F.conv3d(conv_bn._gy_eff(gy, y, gs1, gs2).abs().permute(0, 4, 1, 2, 3),
+                 kern.flip(2, 3, 4).transpose(0, 1), padding=pad
+                 ).permute(0, 2, 3, 4, 1)
+    if inv is not None:
+        s = s * ((x * inv + shift) > 0) * inv.abs()
+    lim["dx"] = s.mul_(BWD_F32_REL).add_(BWD_F32_ABS)
+    return lim
+
+
+def plain_bwd_tf32(torch, conv_bn, *args, kind):
+    """The control: the plain backward with its convs in TF32 (cuDNN's
+    default for fp32, which the plain version's full_fp32 scope turns off)."""
+    scope = conv_bn.full_fp32
+    conv_bn.full_fp32 = contextlib.nullcontext
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        return conv_bn.conv_unit_bwd_reference(*args, kind=kind)
+    finally:
+        conv_bn.full_fp32 = scope
+        torch.backends.cudnn.allow_tf32 = False
+
+
+def check_bwd_unit_f32(torch, F, conv_bn, what, x, w, a, gy, gs1, gs2, kind,
+                       padding_controls=False):
+    """One fp32 backward unit (rows 5f / 6f or 7f / 8f): the kernels against
+    the plain version (TF32 off), dx and dw per element, dinv / dshift per
+    channel (f32_bwd_limits); each check shown to refuse the wrong answers:
+    the plain version under TF32 (its dx or dw), a dw from the taps 0 / 2
+    swapped and a dx from the filter with them swapped (where they differ),
+    a dw without its last slice's share and a dinv without its last partial
+    row (where there are two), and with ``padding_controls`` a dx from ge
+    formed through the formula in the padding (gs1 there) and a dw from x^
+    formed through the prologue there (relu(shift)); a second call must
+    give the same bits. Returns (errors, whether the TF32 control failed
+    the check)."""
+    inv, shift = a
+    y = conv_bn.conv_unit_fwd(x, w, *a, kind=kind)[0]
+    dx, dinv, dshift = conv_bn.conv_unit_bwd_data(x, w, *a, y, gy, gs1, gs2,
+                                                  kind=kind)
+    dw = conv_bn.conv_unit_bwd_filter(x, *a, y, gy, gs1, gs2, kind=kind)
+    ref = conv_bn.conv_unit_bwd_reference(x, w, *a, y, gy, gs1, gs2, kind=kind)
+    if inv is not None:
+        mask = (x * inv + shift) > 0
+        dxa_ref = conv_bn.conv_unit_bwd_data_reference(
+            x, w, None, None, y, gy, gs1, gs2, kind=kind)[0] * mask
+        dxa = conv_bn.conv_unit_bwd_data(x, w, None, None, y, gy, gs1, gs2,
+                                         kind=kind)[0] * mask
+    else:
+        dxa, dxa_ref = dx, ref[0]
+    lim = f32_bwd_limits(torch, F, conv_bn, x, w, inv, shift, y, gy, gs1, gs2,
+                         ref, dxa, dxa_ref, kind)
+    got = (dx, dw, dinv, dshift)
+    errs = {"dx": (dx - ref[0]).abs().max().item(),
+            "dw": (dw - ref[1]).abs().max().item(),
+            "dx_over_limit": ((dx - ref[0]).abs() / lim["dx"]).max().item(),
+            "dw_over_limit": ((dw - ref[1]).abs() / lim["dw"]).max().item()}
+    if dinv is not None:
+        errs["dinv_over_limit"] = ((dinv - ref[2]).abs() / lim["dinv"]).max().item()
+        errs["dshift_over_limit"] = ((dshift - ref[3]).abs()
+                                     / lim["dshift"]).max().item()
+    require(bwd_within(torch, got, ref, lim), f"{what}: backward off: {errs}")
+    wrong = {}
+    tf32 = plain_bwd_tf32(torch, conv_bn, x, w, *a, y, gy, gs1, gs2, kind=kind)
+    wrong["plain_under_tf32"] = (tf32[0], tf32[1], dinv, dshift)
+    if bool(((ref[1].flip(0) - ref[1]).abs() > lim["dw"]).any()):
+        wrong["dw_taps_0_2_swapped"] = (dx, dw.flip(0), dinv, dshift)
+    swapped = conv_bn.conv_unit_bwd_data_reference(
+        x, w.flip(0), *a, y, gy, gs1, gs2, kind=kind)[0]
+    if bool(((swapped - ref[0]).abs() > lim["dx"]).any()):
+        wrong["dx_taps_0_2_swapped"] = (swapped, dw, dinv, dshift)
+    b, t, h, wd, ci = x.shape
+    co = gy.shape[-1]
+    m = b * t * h * wd
+    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+    fplan = conv_bn.f32_bwd_filter_plan(b, t, h, wd, _round8(ci), _round8(co),
+                                        kind, sms)
+    if fplan.slices > 1:
+        last = fplan.positions_of(fplan.slices - 1, m)
+        keep = torch.zeros(m, 1, device=x.device)
+        keep[last.start:last.stop] = 1
+        ge = (conv_bn._gy_eff(gy, y, gs1, gs2).reshape(m, co) * keep
+              ).reshape(gy.shape)
+        zero = torch.zeros(co, device=x.device)
+        share = conv_bn.conv_unit_bwd_filter_reference(
+            x, inv, shift, torch.zeros_like(y), ge, zero, zero, kind=kind)
+        wrong["dw_last_slice_left_out"] = (dx, dw - share, dinv, dshift)
+    dplan = conv_bn.f32_bwd_data_plan(b, t, h, wd, _round8(ci), sms)
+    if inv is not None and dplan.ranges > 1:
+        start = (dplan.ranges - 1) * dplan.tiles_per_range * 64
+        share = (x * dxa_ref).reshape(m, ci)[start:].sum(0)
+        wrong["dinv_last_row_left_out"] = (dx, dw, dinv - share, dshift)
+    if padding_controls:
+        pad = (0, 0, 1, 1, 1, 1) if kind == "spatial" \
+            else (0, 0, 0, 0, 0, 0, 1, 1)
+        kern = conv_bn._torch_kernel(w, kind)[0]
+        gep = conv_bn._gy_eff(F.pad(gy, pad), F.pad(y, pad), gs1, gs2)
+        dxh = F.conv3d(gep.permute(0, 4, 1, 2, 3),
+                       kern.flip(2, 3, 4).transpose(0, 1)).permute(0, 2, 3, 4, 1)
+        if inv is not None:
+            dxh = dxh * ((x * inv + shift) > 0) * inv
+        wrong["dx_ge_through_formula_in_padding"] = (dxh, dw, dinv, dshift)
+        if inv is not None:
+            xhp = conv_bn._prologue(F.pad(x, pad), inv, shift)
+            ksize = (1, 3, 3) if kind == "spatial" else (3, 1, 1)
+            dk = torch.nn.grad.conv3d_weight(
+                xhp.permute(0, 4, 1, 2, 3), (co, ci) + ksize,
+                conv_bn._gy_eff(gy, y, gs1, gs2).permute(0, 4, 1, 2, 3))
+            dk = dk[:, :, 0].permute(2, 3, 1, 0) if kind == "spatial" \
+                else dk[:, :, :, 0, 0].permute(2, 1, 0)
+            wrong["dw_x_through_prologue_in_padding"] = (dx, dk, dinv, dshift)
+    passed = [k for k, v in wrong.items() if bwd_within(torch, v, ref, lim)]
+    tf32_seen = "plain_under_tf32" not in passed
+    require(not [k for k in passed if k != "plain_under_tf32"],
+            f"{what}: the backward checks would pass: {passed}")
+    dx2, dinv2, dshift2 = conv_bn.conv_unit_bwd_data(x, w, *a, y, gy, gs1, gs2,
+                                                     kind=kind)
+    dw2 = conv_bn.conv_unit_bwd_filter(x, *a, y, gy, gs1, gs2, kind=kind)
+    require(torch.equal(dx2, dx) and torch.equal(dw2, dw) and (dinv is None or (
+        torch.equal(dinv2, dinv) and torch.equal(dshift2, dshift))),
+        f"{what}: a second call gave another dx, dw, dinv or dshift")
+    errs["controls"] = sorted(wrong)
+    return errs, tf32_seen
+
+
+def f32_bwd_inputs(torch, g, xs, ws, affine, scale=1e-2):
+    """fp32 x, w, (inv, shift) and cotangents for one backward unit; shift
+    lies away from zero (|shift| >= 0.2, either sign), so a border formed as
+    relu(shift) instead of zero fails."""
+    x = torch.randn(*xs, device="cuda", generator=g)
+    w = (torch.rand(*ws, device="cuda", generator=g) * 2 - 1) \
+        / math.sqrt(math.prod(ws[:-1]))
+    a = (None, None)
+    if affine:
+        sh = torch.randn(xs[-1], device="cuda", generator=g) * 0.1
+        a = (torch.rand(xs[-1], device="cuda", generator=g) + 0.5,
+             sh + 0.2 * torch.sign(sh))
+    co = ws[-1]
+    gy = torch.randn(*xs[:-1], co, device="cuda", generator=g) * scale
+    gs1 = torch.randn(co, device="cuda", generator=g) * scale * 1e-3
+    gs2 = torch.randn(co, device="cuda", generator=g) * scale * 1e-4
+    return x, w, a, gy, gs1, gs2
+
+
+F32_BWD_KERNELS = ("conv_spatial_bwd_data_f32", "conv_spatial_bwd_filter_f32",
+                   "conv_temporal_bwd_data_f32", "conv_temporal_bwd_filter_f32")
+
+
+def check_conv_f32_bwd(torch, F, conv_bn, clips=32):
+    """Rows 5f-8f: the fp32 backward kernels against their plain versions
+    (TF32 off) at F32_EDGE_SHAPES, with and without the prologue and with the
+    padding controls, then at every fused unit's shape of the fusion train
+    step (``_train_units``), where the plain version under TF32 must fail
+    the check; timed (kernel and library in turn, F32_BWD_ROUNDS rounds of
+    F32_BWD_REPS) beside the plain version and cuDNN's
+    ``torch.nn.grad.conv3d_input`` / ``conv3d_weight`` in fp32 (no TF32).
+    Returns the four rows of the kernels line, per train step."""
+    g = torch.Generator(device="cuda").manual_seed(19)
+    edges, tf32_edges = {}, 0
+    for kind, xs, ws in F32_EDGE_SHAPES:
+        for affine in (False, True):
+            x, w, a, gy, gs1, gs2 = f32_bwd_inputs(torch, g, xs, ws, affine,
+                                                   scale=1.0)
+            key = f"{kind}_{'x'.join(map(str, xs))}_to_{ws[-1]}_affine={affine}"
+            edges[key], seen = check_bwd_unit_f32(
+                torch, F, conv_bn, f"fp32 bwd at edge shape {key}", x, w, a,
+                gy, gs1, gs2, kind, padding_controls=True)
+            tf32_edges += seen
+    emit({"phase": "kernel_conv_f32_bwd_edges", "errors": edges,
+          "tf32_control_failed_at": tf32_edges, "of": len(edges),
+          "tol_dx_rel": BWD_F32_REL, "tol_dw_rel": BWD_DW_REL})
+    out = {}
+    for kind, xs, ws, affine, copies in _train_units(clips):
+        x, w, a, gy, gs1, gs2 = f32_bwd_inputs(torch, g, xs, ws, affine)
+        what = f"fp32 conv unit bwd {kind} {xs} affine={affine}"
+        errs, seen = check_bwd_unit_f32(torch, F, conv_bn, what, x, w, a, gy,
+                                        gs1, gs2, kind)
+        require(seen, f"{what}: the plain version under TF32 passes the "
+                "check: it cannot see TF32")
+        torch.cuda.empty_cache()
+        y = conv_bn.conv_unit_fwd(x, w, *a, kind=kind)[0]
+        xh = conv_bn._prologue(x, *a)
+        ge = conv_bn._gy_eff(gy, y, gs1, gs2)
+        kern, pad = conv_bn._torch_kernel(w, kind)
+        kern = kern.contiguous(memory_format=torch.channels_last_3d)
+        xn, gn = xh.permute(0, 4, 1, 2, 3), ge.permute(0, 4, 1, 2, 3)
+        xshape = (xs[0], xs[-1]) + tuple(xs[1:4])
+        t = timed_alternating(torch, {
+            "data": lambda: conv_bn.conv_unit_bwd_data(x, w, *a, y, gy, gs1,
+                                                       gs2, kind=kind),
+            "data_library": lambda: torch.nn.grad.conv3d_input(
+                xshape, kern, gn, padding=pad),
+            "filter": lambda: conv_bn.conv_unit_bwd_filter(x, *a, y, gy, gs1,
+                                                           gs2, kind=kind),
+            "filter_library": lambda: torch.nn.grad.conv3d_weight(
+                xn, kern.shape, gn, padding=pad)},
+            rounds=F32_BWD_ROUNDS, reps=F32_BWD_REPS)
+        plain = {"data": timed(torch, lambda: conv_bn.conv_unit_bwd_data_reference(
+                     x, w, *a, y, gy, gs1, gs2, kind=kind), reps=F32_BWD_REPS),
+                 "filter": timed(torch, lambda: conv_bn.conv_unit_bwd_filter_reference(
+                     x, *a, y, gy, gs1, gs2, kind=kind), reps=F32_BWD_REPS)}
+        m, ci, co = math.prod(xs[:-1]), xs[-1], ws[-1]
+        flops = 2 * m * math.prod(ws[:-1]) * co
+        vec = 4 * (2 * co + (2 * ci if affine else 0))
+        nbytes = {"data": 4 * (2 * m * co + w.numel() + m * ci
+                               + (m * ci + 2 * ci if affine else 0)) + vec,
+                  "filter": 4 * (m * ci + 2 * m * co + w.numel()) + vec}
+        for part in ("data", "filter"):
+            (ms, spread), (lib, lib_spread) = t[part], t[part + "_library"]
+            emit({"phase": f"kernel_conv_f32_bwd_{part}", "kind": kind,
+                  "x": list(xs), "w": list(ws), "affine": affine,
+                  "per_step": copies, "errors": errs, "ms": ms,
+                  "ms_spread": spread, "plain_ms": plain[part],
+                  "library_ms": lib, "library_ms_spread": lib_spread,
+                  "tflops": flops / ms / 1e9,
+                  "bound_ms": bound(nbytes[part], flops, PEAK_FP32)[0]})
+            name = f"conv_{kind}_bwd_{part}_f32"
+            acc = out.setdefault(name, {"name": name, "max_abs_err": 0.0,
+                                        "ms": 0.0, "plain_ms": 0.0,
+                                        "library_ms": 0.0, "_ops": 0.0,
+                                        "_bytes": 0.0})
+            acc["max_abs_err"] = max(acc["max_abs_err"],
+                                     errs["dx" if part == "data" else "dw"])
+            for key, v in (("ms", ms), ("plain_ms", plain[part]),
+                           ("library_ms", lib),
+                           ("_ops", flops / PEAK_FP32 * 1e3),
+                           ("_bytes", nbytes[part] / HBM * 1e3)):
+                acc[key] += copies * v
+        del x, y, gy, xh, ge, xn, gn
+        torch.cuda.empty_cache()
+    for acc in out.values():
+        t_ops, t_bytes = acc.pop("_ops"), acc.pop("_bytes")
+        acc["bound_ms"] = max(t_ops, t_bytes)
+        acc["bound_by"] = "operations" if t_ops >= t_bytes else "bytes"
+    return [out[k] for k in F32_BWD_KERNELS]
+
+
 def _lane_units(clips):
     """(kind, x shape, w shape, affine) of the fused units of R(2+1)D-18 with
     mid_mode="lane" over ``clips`` clips: midplanes 128 / 256 / 512 / 1152."""
@@ -2387,21 +2707,23 @@ def serve_backbones(torch, np, cuda_lib, Predictor, frames, wav):
 
 
 def train_backbones(torch, np, cuda_lib, config, Trainer, data):
-    """Two full-width fusion steps of every bf16 configuration of BACKBONES
-    through Trainer.fit: finite losses, launches held to backbone_launches,
-    s/step (the second step, between the ends of both), peak memory."""
+    """Two full-width fusion steps of every configuration of BACKBONES
+    (fp32 through rows 3f-8f) through Trainer.fit: finite losses, launches
+    held to backbone_launches and the backward kernels of the
+    configuration's dtype (2 a fused block and step each; none of the
+    other dtype's), s/step (the second step, between the ends of both),
+    peak memory."""
     for name, ov in BACKBONES:
         cfg = config.apply_overrides(config.fusion(),
                                      {**ov, "train.log_every": 1})
-        if cfg.model.compute_dtype == "float32":
-            continue
         tr = Trainer(cfg)
         stream = synthetic_stream(np, cfg, *data, seed=0)
         fused = tr.model.visual.fused_blocks
         want = backbone_launches(cuda_lib, cfg, fused, per=2)
+        sfx = "_f32" if cfg.model.compute_dtype == "float32" else ""
         for k in ("spatial", "temporal"):
             for part in ("data", "filter"):
-                want[f"conv_{k}_bwd_{part}"] = 2 * fused * 2
+                want[f"conv_{k}_bwd_{part}{sfx}"] = 2 * fused * 2
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         cuda_lib.reset_launches()
@@ -2424,31 +2746,52 @@ def train_backbones(torch, np, cuda_lib, config, Trainer, data):
         torch.cuda.empty_cache()
 
 
-def train_fp32_refused(torch, np, cuda_lib, config, Trainer, data):
-    """fusion with compute_dtype=float32 on the card: Trainer.fit and
-    Trainer.train_step raise NotImplementedError naming the ROADMAP item
-    before any kernel is launched."""
-    cfg = config.apply_overrides(config.fusion(),
-                                 {"model.compute_dtype": "float32"})
+def train_fp32(torch, np, cuda_lib, config, Trainer, data):
+    """fusion with compute_dtype=float32 trains on the card through
+    Trainer.fit: 2 warm steps, then a second fit of F32_TRAIN_STEPS steps
+    (from the seed again) with the counters set to 0 just before; its
+    launches must be exactly the fp32 kernels' per-step counts (rows 3f-8f
+    10 a step each, no bf16 conv kernel), its losses and grad norms finite
+    and its params moved (s/step between the ends of its first and last
+    step, peak memory). Returns its launches."""
+    cfg = config.apply_overrides(config.fusion(), {
+        "model.compute_dtype": "float32", "train.log_every": 1})
     tr = Trainer(cfg)
     stream = synthetic_stream(np, cfg, *data, seed=0)
-    raised = []
-    cuda_lib.reset_launches()
-    for call in (lambda: tr.fit(stream, num_steps=1, log=lambda s: None),
-                 lambda: tr.train_step(tr.init_state(), next(stream(0)))):
-        try:
-            call()
-            raised.append(None)
-        except NotImplementedError as e:
-            raised.append(str(e))
+    tr.fit(stream, num_steps=2, log=lambda s: None)             # warm
+    before = {n: p.detach().clone() for n, p in tr.model.named_parameters()}
     torch.cuda.synchronize()
-    launched = {k: v for k, v in cuda_lib.launches.items() if v}
-    require(all(r and "fp32 conv-unit backward kernels" in r for r in raised),
-            f"fp32 training on the card: {raised}")
-    require(not launched, f"fp32 training launched {launched} before refusing")
-    emit({"phase": "train_fp32_refused", "raised": raised[0], "launches": 0})
+    torch.cuda.reset_peak_memory_stats()
+    steps = F32_TRAIN_STEPS
+    cuda_lib.reset_launches()
+    ends = []
+    t0 = time.perf_counter()
+    _, hist = tr.fit(stream, num_steps=steps,
+                     log=lambda s: ends.append(time.perf_counter()))
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = dict(cuda_lib.launches)
+    per_step = {"melspec": 1, "gru": cfg.model.gru.num_layers,
+                "conv_spatial_f32": 10, "conv_temporal_f32": 10,
+                **{k: 10 for k in F32_BWD_KERNELS}}
+    want = {k: per_step.get(k, 0) * steps for k in cuda_lib.launches}
+    require(counts == want, f"fp32 train launches {counts}, expected {want}")
+    loss, gnorm = hist["loss"], hist["grad_norm"]
+    require(len(loss) == steps and all(math.isfinite(v) for v in loss + gnorm),
+            f"fp32 train loss {loss}, grad norm {gnorm}")
+    moved = max((p.detach() - before[n]).abs().max().item()
+                for n, p in tr.model.named_parameters())
+    require(moved > 0, "the fp32 params did not move")
+    step_s = (ends[-1] - ends[0]) / (steps - 1)
+    emit({"phase": "train_fp32", "batch": cfg.train.batch_size,
+          "windows": cfg.window.windows_per_clip, "steps": steps,
+          "launches": counts, "s": dt, "s_per_step": step_s,
+          "clips_per_s": cfg.train.batch_size * cfg.window.windows_per_clip
+          / step_s, "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+          "loss": loss, "grad_norm": gnorm, "max_param_move": moved})
     del tr
     torch.cuda.empty_cache()
+    return counts
 
 
 # ---------------------------------------------------------------------------
@@ -3002,6 +3345,8 @@ def main():
     kernels += check_bwd(torch, F, conv_bn)
     check_bwd_edges(torch, conv_bn)
     torch.cuda.empty_cache()
+    kernels += check_conv_f32_bwd(torch, F, conv_bn)
+    torch.cuda.empty_cache()
 
     # 2b. the probe slice: its kernels against their plain versions, then
     # the probe itself at full shape (its own launch counts)
@@ -3128,7 +3473,8 @@ def main():
     train_parity(torch, np, cuda_lib, config, Trainer, data)
     torch.cuda.empty_cache()
     train_backbones(torch, np, cuda_lib, config, Trainer, data)
-    train_fp32_refused(torch, np, cuda_lib, config, Trainer, data)
+    torch.cuda.empty_cache()
+    counts_fp32_train = train_fp32(torch, np, cuda_lib, config, Trainer, data)
 
     # 5b. the data layer and the command line on a fake ABAW tree
     log_dir = os.path.join(repo, "build", "cli_logs")
@@ -3161,6 +3507,10 @@ def main():
                 "conv_spatial_bwd_filter": pallas + "conv_bn.py:554",
                 "conv_temporal_bwd_data": pallas + "conv_bn.py:612",
                 "conv_temporal_bwd_filter": pallas + "conv_bn.py:625",
+                "conv_spatial_bwd_data_f32": pallas + "conv_bn.py:537",
+                "conv_spatial_bwd_filter_f32": pallas + "conv_bn.py:554",
+                "conv_temporal_bwd_data_f32": pallas + "conv_bn.py:612",
+                "conv_temporal_bwd_filter_f32": pallas + "conv_bn.py:625",
                 "packed_conv": "scripts/probe_packed_conv.py:85",
                 "ablate_slabs": "scripts/probe_packed_conv.py:139",
                 "ablate_matmul": "scripts/probe_packed_conv.py:157",
@@ -3176,6 +3526,7 @@ def main():
               "gru_stream": "m3f_torch/csrc/gru.cu",
               "conv_unit_spatial_f32": "m3f_torch/csrc/conv_bn_f32.cu",
               "conv_unit_temporal_f32": "m3f_torch/csrc/conv_bn_f32.cu",
+              **{k: "m3f_torch/csrc/conv_bn_f32.cu" for k in F32_BWD_KERNELS},
               **{k: "m3f_torch/csrc/packed_conv.cu" for k in PROBE_KERNELS}}
     line = []
     for k in kernels:
@@ -3183,8 +3534,11 @@ def main():
         # forward kernels: their launches serving one video (the DFT mel
         # route: serving it with n_fft 400; the GRU's stream route: none,
         # the serving path takes the cluster walk); backward kernels: theirs over
-        # the 10 timed train steps; probe kernels: theirs in one probe run
-        if name in counter:
+        # the 10 timed train steps (fp32: the F32_TRAIN_STEPS of phase
+        # train_fp32); probe kernels: theirs in one probe run
+        if name in F32_BWD_KERNELS:
+            launches = counts_fp32_train[name]
+        elif name in counter:
             launches = counts30[counter[name]]
         elif name in counter_f32:        # serving one video in fp32
             launches = counts_f32[counter_f32[name]]

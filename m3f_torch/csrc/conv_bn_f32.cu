@@ -1,11 +1,19 @@
-// Fused conv + BatchNorm forward units for fp32 activations.
+// Fused conv + BatchNorm units for fp32 activations: the forward and both
+// halves of the backward.
 //
-// Replaces: m3f/pytorch_tpu/ops/pallas/conv_bn.py _spatial_fwd (kernel
-// _spatial_fwd_kernel, pallas_call at :192) and _temporal_fwd
-// (_temporal_fwd_kernel, :250) when x is fp32 (model.compute_dtype =
-// "float32"): the Pallas kernels run in the dtype of x, and
-// tests/test_conv_bn_fused.py holds them in fp32. conv_bn.cu keeps the bf16
-// units.
+// Replaces, when x is fp32 (model.compute_dtype = "float32"; the Pallas
+// kernels run in the dtype of x, and tests/test_conv_bn_fused.py holds them
+// in fp32), in m3f/pytorch_tpu/ops/pallas/conv_bn.py:
+//   conv_f32_kernel         _spatial_fwd (_spatial_fwd_kernel, pallas_call
+//                           at :192) and _temporal_fwd (_temporal_fwd_kernel,
+//                           :250)
+//   bwd_data_f32_kernel     _spatial_bwd's data gradient
+//                           (_spatial_bwd_data_kernel, :537) and
+//                           _temporal_bwd's (_temporal_bwd_data_kernel, :612)
+//   bwd_filter_f32_kernel   _spatial_bwd's filter gradient
+//                           (_spatial_bwd_filter_kernel, :554) and
+//                           _temporal_bwd's (_temporal_bwd_filter_kernel, :625)
+// conv_bn.cu keeps the bf16 units.
 //
 // One unit:
 //   prologue:  x^ = relu(f32(f32(x * inv) + shift))   (previous BN + ReLU,
@@ -16,46 +24,68 @@
 //                              0, not the prologue of 0), fp32 FMA
 //   epilogue:  s1 = sum y, s2 = sum y^2 per output channel, fp32, over the
 //              emitted y
+// Its backward, from the cotangents (gy, gs1, gs2) folded into
+//   ge = f32(gy + f32(gs1 + f32(f32(2 y) * gs2)))   (_gy_eff, each op rounded)
+// which is 0 in the padding (not gs1: the reference zeroes the border):
+//   data:      dx^ = ge (*) W mirrored and transposed [Co -> Ci], stride 1,
+//              pad 1; with the prologue xa = f32(f32(x * inv) + shift),
+//              dxa = xa > 0 ? dx^ : 0, dx = f32(dxa * inv), and per input
+//              channel dinv = sum x * dxa, dshift = sum dxa; without it
+//              dx = dx^
+//   filter:    dw[tap * Ci + ci, co] = sum_m x^[neighbour(m, tap), ci] *
+//              ge[m, co], fp32, x^ 0 in the padding
 //
-// Bound on an H100: operations. As an implicit GEMM over the M = B*T*H*W
-// positions with K = 9*Ci (spatial) or 3*Ci (temporal) taps x channels, the
-// unit does 2*K*Co FLOP per position on (Ci + Co)*4 bytes: at the serving
-// stage-1 spatial unit (Ci 64 -> Co 144) ~200 FLOP per byte, far above the
-// ~20 at which the fp32 CUDA cores (67 TFLOP/s; the reference is fp32, so
-// no TF32 and no tensor cores) and not memory (3.35 TB/s) set the floor.
+// Bound on an H100: operations. Each of the three is an implicit GEMM over
+// the M = B*T*H*W positions with K = taps x channels, 2*K*N FLOP per
+// position on (Ci + Co)*4 bytes (the backward reads gy and y, 8*Co): at the
+// stage-1 spatial unit (Ci 64, Co 144) ~200 FLOP per byte or more, far above
+// the ~20 at which the fp32 CUDA cores (67 TFLOP/s; the reference is fp32,
+// so no TF32 and no tensor cores) and not memory (3.35 TB/s) set the floor.
 //
-// Design (simple and right first; a faster design is later work):
-// - A block owns a tile of 64 positions x 64 output channels, 256 threads,
-//   each 4 positions x 4 channels in registers. It walks K in chunks of 16
-//   input channels of one tap: the x^ chunk [16][64] (formed at the gather:
-//   the neighbour's x through the prologue, 0 where the tap falls in the
-//   padding or past Ci) and the filter chunk [16][64] go through shared
-//   memory, the next chunk's loads held in registers while the products of
-//   the current one run. Forming x^ again for each of the 9 (3) taps costs
-//   2 FLOP per element and tap against 2*Co of products, so the gather does
-//   not stage x^ rows once for all taps; the neighbours' rows come from L1
-//   and L2.
-// - A block walks a contiguous range of position tiles (the grid's y) for
-//   one output-channel tile (the grid's x, fastest, so the blocks that read
-//   the same x run together), adding each tile's y and y^2 to per-thread
-//   sums in a fixed order; at the end the 16 position groups are reduced in
-//   a fixed order into one partial row per range, and colsum_f32_kernel
-//   sums the rows per channel in a fixed order. No atomics: two calls give
-//   the same bits.
-// - Channel counts are multiples of 8 (the wrapper zero-pads others), so
-//   every x, w and y access is a 16-byte vector and a chunk's channels are
-//   either all inside or all past C.
+// Design (simple and right first; a faster design is later work). Every
+// kernel is a block of 256 threads owning a 64 x 64 tile, each thread 4 x 4
+// sums in registers, K walked in chunks of 16 through shared memory, the
+// next chunk's loads held in registers while the products of the current
+// one run; channel counts are multiples of 8 (the wrapper zero-pads
+// others), so every access is a 16-byte vector and a chunk's channels are
+// either all inside or all past C. No atomics: two calls give the same bits.
+// - conv_f32_kernel: 64 positions x 64 output channels; K = taps x Ci in
+//   chunks of 16 input channels of one tap, the x^ chunk formed at the
+//   gather (the neighbour's x through the prologue, 0 in the padding or past
+//   Ci). Forming x^ again for each of the 9 (3) taps costs 2 FLOP per element
+//   and tap against 2*Co of products, so x^ rows are not staged once for all
+//   taps; the neighbours' rows come from L1 and L2. A block walks a
+//   contiguous range of position tiles (the grid's y) for one output-channel
+//   tile (the grid's x, fastest, so the blocks that read the same x run
+//   together), adding each tile's y and y^2 to per-thread sums in a fixed
+//   order; at the end the 16 position groups are reduced in a fixed order
+//   into one partial row per range, and colsum_f32_kernel sums the rows per
+//   channel in a fixed order.
+// - bwd_data_f32_kernel: the same walk with the roles of the channels
+//   swapped: 64 positions x 64 input channels, K = taps x Co in chunks of 16
+//   output channels of one tap, the ge chunk formed at the gather from gy,
+//   y, gs1 and gs2 at the neighbour (0 in the padding and past Co), the
+//   filter chunk read from [taps * Co, Ci] with the taps mirrored (the
+//   wrapper lays it out). The epilogue applies the mask and inv, and the
+//   partial rows of dinv / dshift go through colsum_f32_kernel as s1 / s2 do.
+// - bwd_filter_f32_kernel: 64 rows of K = taps x Ci x 64 output channels of
+//   dw over a slice of the positions, walked in chunks of 16 positions: x^
+//   formed at the gather (4 rows of one tap a thread, fixed for the block),
+//   ge at the load. A slice writes one partial [K, Co] (or dw itself when
+//   there is one slice), and slice_sum_f32_kernel sums the partials in slice
+//   order.
 //
-// Measured times are in PERF.md (chip_smoke.py, phase kernel_conv_f32).
+// Measured times are in PERF.md (chip_smoke.py, phases kernel_conv_f32 and
+// kernel_conv_f32_bwd).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int BM = 64;        // positions per tile
-constexpr int BN = 64;        // output channels per tile
-constexpr int KC = 16;        // input channels per chunk
+constexpr int BM = 64;        // positions (filter gradient: K rows) per tile
+constexpr int BN = 64;        // output (data gradient: input) channels per tile
+constexpr int KC = 16;        // channels (filter gradient: positions) per chunk
 constexpr int THREADS = 256;
 
 struct F32FwdArgs {
@@ -71,14 +101,138 @@ struct F32FwdArgs {
   int m_tiles, tiles_per_range;
 };
 
+struct F32BwdDataArgs {
+  const float* gy;     // [M, Co]
+  const float* y;      // [M, Co]
+  const float* gs1;    // [Co]
+  const float* gs2;    // [Co]
+  const float* wt;     // [taps * Co, Ci], row tap * Co + co = W[taps-1-tap, ci, co]
+  const float* x;      // [M, Ci] or null (no prologue)
+  const float* inv;    // [Ci] or null
+  const float* shift;  // [Ci] or null
+  float* dx;           // [M, Ci]
+  float* part1;        // [ranges, Ci]: dinv's partial rows
+  float* part2;        // [ranges, Ci]: dshift's
+  int T, H, W, Ci, Co;
+  int64_t M;
+  int m_tiles, tiles_per_range;
+};
+
+struct F32BwdFilterArgs {
+  const float* x;      // [M, Ci]
+  const float* gy;     // [M, Co]
+  const float* y;      // [M, Co]
+  const float* gs1;    // [Co]
+  const float* gs2;    // [Co]
+  const float* inv;    // [Ci] or null
+  const float* shift;  // [Ci] or null
+  float* out;          // [slices, taps * Ci, Co]: partials, or dw (one slice)
+  int T, H, W, Ci, Co;
+  int64_t M;
+  int chunks, chunks_per_slice;
+};
+
+__device__ __forceinline__ float4 zero4() {
+  return make_float4(0.f, 0.f, 0.f, 0.f);
+}
+
+__device__ __forceinline__ float4 ld4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+
 // relu(f32(f32(x * inv) + shift)): the _rn intrinsics keep nvcc from
 // contracting the two roundings into one fma
 __device__ __forceinline__ float prologue(float x, float inv, float shift) {
   return fmaxf(__fadd_rn(__fmul_rn(x, inv), shift), 0.f);
 }
 
-// KIND 0: spatial (taps (dh, dw) = (tap / 3 - 1, tap % 3 - 1)); 1: temporal
-// (dt = tap - 1)
+__device__ __forceinline__ float4 prologue4(float4 x, float4 inv, float4 shift) {
+  return make_float4(prologue(x.x, inv.x, shift.x), prologue(x.y, inv.y, shift.y),
+                     prologue(x.z, inv.z, shift.z), prologue(x.w, inv.w, shift.w));
+}
+
+// the folded cotangent gy + (gs1 + 2 y gs2), each op rounded as _gy_eff is
+__device__ __forceinline__ float fold(float gy, float y, float gs1, float gs2) {
+  return __fadd_rn(gy, __fadd_rn(gs1, __fmul_rn(__fmul_rn(2.f, y), gs2)));
+}
+
+__device__ __forceinline__ float4 fold4(float4 gy, float4 y, float4 gs1,
+                                        float4 gs2) {
+  return make_float4(fold(gy.x, y.x, gs1.x, gs2.x), fold(gy.y, y.y, gs1.y, gs2.y),
+                     fold(gy.z, y.z, gs1.z, gs2.z), fold(gy.w, y.w, gs1.w, gs2.w));
+}
+
+// (t, h, w) of position m of [B, T, H, W]
+__device__ __forceinline__ void decode(int64_t m, int T, int H, int W, int& t,
+                                       int& h, int& w) {
+  const int64_t HW = (int64_t)H * W;
+  const int64_t img = m / HW;
+  const int r = (int)(m - img * HW);
+  h = r / W;
+  w = r - h * W;
+  t = (int)(img % T);
+}
+
+// The neighbour of position m (at t, h, w) that tap reads: KIND 0 spatial,
+// (dh, dw) = (tap / 3 - 1, tap % 3 - 1); 1 temporal, dt = tap - 1. False
+// where it falls in the zero padding.
+template <int KIND>
+__device__ __forceinline__ bool neighbour(int64_t m, int t, int h, int w,
+                                          int tap, int T, int H, int W,
+                                          int64_t& src) {
+  if (KIND == 0) {
+    const int dh = tap / 3 - 1, dw = tap % 3 - 1;
+    const int hh = h + dh, ww = w + dw;
+    src = m + (int64_t)dh * W + dw;
+    return hh >= 0 && hh < H && ww >= 0 && ww < W;
+  }
+  const int tt = t + tap - 1;
+  src = m + (int64_t)(tap - 1) * H * W;
+  return tt >= 0 && tt < T;
+}
+
+// acc[i][j] += A[kk][ty * 4 + i] * B[kk][tx * 4 + j] over the chunk
+__device__ __forceinline__ void chunk_products(float (*As)[BM],
+                                               float (*Bs)[BN], int tx,
+                                               int ty, float (&acc)[4][4]) {
+#pragma unroll
+  for (int kk = 0; kk < KC; ++kk) {
+    const float4 av = *reinterpret_cast<const float4*>(&As[kk][ty * 4]);
+    const float4 bv = *reinterpret_cast<const float4*>(&Bs[kk][tx * 4]);
+    const float ar[4] = {av.x, av.y, av.z, av.w};
+    const float br[4] = {bv.x, bv.y, bv.z, bv.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(ar[i], br[j], acc[i][j]);
+  }
+}
+
+// The range's partial rows (part1, part2 [ranges, C]) from the per-thread
+// sums: the 16 position groups in order
+__device__ __forceinline__ void partial_rows(const float (&s1)[4],
+                                             const float (&s2)[4],
+                                             float (*red1)[BN],
+                                             float (*red2)[BN], int n0, int C,
+                                             float* part1, float* part2) {
+  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    red1[ty][tx * 4 + j] = s1[j];
+    red2[ty][tx * 4 + j] = s2[j];
+  }
+  __syncthreads();
+  if (tid < BN && n0 + tid < C) {
+    float b1 = 0.f, b2 = 0.f;
+    for (int g = 0; g < 16; ++g) {
+      b1 += red1[g][tid];
+      b2 += red2[g][tid];
+    }
+    part1[(int64_t)blockIdx.y * C + n0 + tid] = b1;
+    part2[(int64_t)blockIdx.y * C + n0 + tid] = b2;
+  }
+}
+
 template <int KIND, bool AFFINE>
 __global__ void __launch_bounds__(THREADS)
 conv_f32_kernel(const F32FwdArgs a) {
@@ -94,7 +248,6 @@ conv_f32_kernel(const F32FwdArgs a) {
   const int taps = KIND == 0 ? 9 : 3;
   const int nck = (a.Ci + KC - 1) / KC;
   const int steps = taps * nck;
-  const int HW = a.H * a.W;
 
   float s1[4] = {0.f, 0.f, 0.f, 0.f}, s2[4] = {0.f, 0.f, 0.f, 0.f};
 
@@ -106,13 +259,7 @@ conv_f32_kernel(const F32FwdArgs a) {
     const int64_t gm = m0 + lp;
     const bool gm_ok = gm < a.M;
     int gt = 0, gh = 0, gw = 0;
-    if (gm_ok) {
-      const int64_t img = gm / HW;
-      const int r = (int)(gm - img * HW);
-      gh = r / a.W;
-      gw = r - gh * a.W;
-      gt = (int)(img % a.T);
-    }
+    if (gm_ok) decode(gm, a.T, a.H, a.W, gt, gh, gw);
     float acc[4][4];
 #pragma unroll
     for (int i = 0; i < 4; ++i)
@@ -124,40 +271,19 @@ conv_f32_kernel(const F32FwdArgs a) {
       const int tap = step / nck;
       const int c0 = (step - tap * nck) * KC;
       // x^ of the neighbour of position gm at this tap, 4 channels
-      xa = make_float4(0.f, 0.f, 0.f, 0.f);
+      xa = zero4();
       const int c = c0 + lc;
-      if (gm_ok && c < a.Ci) {
-        bool ok;
-        int64_t src;
-        if (KIND == 0) {
-          const int dh = tap / 3 - 1, dw = tap % 3 - 1;
-          const int hh = gh + dh, ww = gw + dw;
-          ok = hh >= 0 && hh < a.H && ww >= 0 && ww < a.W;
-          src = gm + (int64_t)dh * a.W + dw;
-        } else {
-          const int dt = tap - 1;
-          const int tt = gt + dt;
-          ok = tt >= 0 && tt < a.T;
-          src = gm + (int64_t)dt * HW;
-        }
-        if (ok) {
-          xa = *reinterpret_cast<const float4*>(a.x + src * a.Ci + c);
-          if (AFFINE) {
-            const float4 iv = *reinterpret_cast<const float4*>(a.inv + c);
-            const float4 sh = *reinterpret_cast<const float4*>(a.shift + c);
-            xa.x = prologue(xa.x, iv.x, sh.x);
-            xa.y = prologue(xa.y, iv.y, sh.y);
-            xa.z = prologue(xa.z, iv.z, sh.z);
-            xa.w = prologue(xa.w, iv.w, sh.w);
-          }
-        }
+      int64_t src;
+      if (gm_ok && c < a.Ci &&
+          neighbour<KIND>(gm, gt, gh, gw, tap, a.T, a.H, a.W, src)) {
+        xa = ld4(a.x + src * a.Ci + c);
+        if (AFFINE) xa = prologue4(xa, ld4(a.inv + c), ld4(a.shift + c));
       }
       // the filter rows tap * Ci + c0 + lk, channels n0 + ln .. + 3
-      wb = make_float4(0.f, 0.f, 0.f, 0.f);
+      wb = zero4();
       const int k = c0 + lk;
       if (k < a.Ci && n0 + ln < a.Co)
-        wb = *reinterpret_cast<const float4*>(
-            a.w + ((int64_t)tap * a.Ci + k) * a.Co + n0 + ln);
+        wb = ld4(a.w + ((int64_t)tap * a.Ci + k) * a.Co + n0 + ln);
     };
     auto store = [&]() {
       As[lc + 0][lp] = xa.x;
@@ -172,17 +298,7 @@ conv_f32_kernel(const F32FwdArgs a) {
     __syncthreads();
     for (int step = 0; step < steps; ++step) {
       if (step + 1 < steps) load(step + 1);
-#pragma unroll
-      for (int kk = 0; kk < KC; ++kk) {
-        const float4 av = *reinterpret_cast<const float4*>(&As[kk][ty * 4]);
-        const float4 bv = *reinterpret_cast<const float4*>(&Bs[kk][tx * 4]);
-        const float ar[4] = {av.x, av.y, av.z, av.w};
-        const float br[4] = {bv.x, bv.y, bv.z, bv.w};
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(ar[i], br[j], acc[i][j]);
-      }
+      chunk_products(As, Bs, tx, ty, acc);
       __syncthreads();
       if (step + 1 < steps) {
         store();
@@ -208,22 +324,210 @@ conv_f32_kernel(const F32FwdArgs a) {
       }
     }
   }
+  partial_rows(s1, s2, red1, red2, n0, a.Co, a.part1, a.part2);
+}
 
-  // the range's partial row: the 16 position groups in order
+// The data gradient: dx (and the partial rows of dinv / dshift with the
+// prologue) over a range of position tiles for one input-channel tile
+template <int KIND, bool AFFINE>
+__global__ void __launch_bounds__(THREADS)
+bwd_data_f32_kernel(const F32BwdDataArgs a) {
+  __shared__ __align__(16) float As[KC][BM];
+  __shared__ __align__(16) float Bs[KC][BN];
+  __shared__ float red1[AFFINE ? 16 : 1][BN], red2[AFFINE ? 16 : 1][BN];
+
+  const int tid = threadIdx.x;
+  const int tx = tid % 16, ty = tid / 16;       // compute: channels, positions
+  const int lp = tid / 4, lc = (tid % 4) * 4;   // ge gather: position, channels
+  const int lk = tid / 16, ln = (tid % 16) * 4; // w load: k row, channels
+  const int n0 = blockIdx.x * BN;               // input channels
+  const int taps = KIND == 0 ? 9 : 3;
+  const int nck = (a.Co + KC - 1) / KC;
+  const int steps = taps * nck;
+
+  float s1[4] = {0.f, 0.f, 0.f, 0.f}, s2[4] = {0.f, 0.f, 0.f, 0.f};
+
+  const int t_begin = blockIdx.y * a.tiles_per_range;
+  const int t_end = min(a.m_tiles, t_begin + a.tiles_per_range);
+  for (int tile = t_begin; tile < t_end; ++tile) {
+    const int64_t m0 = (int64_t)tile * BM;
+    const int64_t gm = m0 + lp;
+    const bool gm_ok = gm < a.M;
+    int gt = 0, gh = 0, gw = 0;
+    if (gm_ok) decode(gm, a.T, a.H, a.W, gt, gh, gw);
+    float acc[4][4];
 #pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    red1[ty][tx * 4 + j] = s1[j];
-    red2[ty][tx * 4 + j] = s2[j];
-  }
-  __syncthreads();
-  if (tid < BN && n0 + tid < a.Co) {
-    float b1 = 0.f, b2 = 0.f;
-    for (int g = 0; g < 16; ++g) {
-      b1 += red1[g][tid];
-      b2 += red2[g][tid];
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+
+    float4 ga, wb;
+    auto load = [&](int step) {
+      const int tap = step / nck;
+      const int c0 = (step - tap * nck) * KC;
+      // ge of the neighbour of position gm at this tap (the filter's tap is
+      // the mirror), 4 output channels; 0 in the padding
+      ga = zero4();
+      const int c = c0 + lc;
+      int64_t src;
+      if (gm_ok && c < a.Co &&
+          neighbour<KIND>(gm, gt, gh, gw, tap, a.T, a.H, a.W, src))
+        ga = fold4(ld4(a.gy + src * a.Co + c), ld4(a.y + src * a.Co + c),
+                   ld4(a.gs1 + c), ld4(a.gs2 + c));
+      // the mirrored filter's rows tap * Co + c0 + lk, input channels
+      // n0 + ln .. + 3
+      wb = zero4();
+      const int k = c0 + lk;
+      if (k < a.Co && n0 + ln < a.Ci)
+        wb = ld4(a.wt + ((int64_t)tap * a.Co + k) * a.Ci + n0 + ln);
+    };
+    auto store = [&]() {
+      As[lc + 0][lp] = ga.x;
+      As[lc + 1][lp] = ga.y;
+      As[lc + 2][lp] = ga.z;
+      As[lc + 3][lp] = ga.w;
+      *reinterpret_cast<float4*>(&Bs[lk][ln]) = wb;
+    };
+
+    load(0);
+    store();
+    __syncthreads();
+    for (int step = 0; step < steps; ++step) {
+      if (step + 1 < steps) load(step + 1);
+      chunk_products(As, Bs, tx, ty, acc);
+      __syncthreads();
+      if (step + 1 < steps) {
+        store();
+        __syncthreads();
+      }
     }
-    a.part1[(int64_t)blockIdx.y * a.Co + n0 + tid] = b1;
-    a.part2[(int64_t)blockIdx.y * a.Co + n0 + tid] = b2;
+
+    // epilogue: the mask and inv, dx, and the tile's share of dinv / dshift
+    const int n = n0 + tx * 4;
+    if (n < a.Ci) {
+      float iv[4] = {0.f, 0.f, 0.f, 0.f}, sh[4] = {0.f, 0.f, 0.f, 0.f};
+      if (AFFINE) {
+        const float4 i4 = ld4(a.inv + n), s4 = ld4(a.shift + n);
+        iv[0] = i4.x; iv[1] = i4.y; iv[2] = i4.z; iv[3] = i4.w;
+        sh[0] = s4.x; sh[1] = s4.y; sh[2] = s4.z; sh[3] = s4.w;
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int64_t m = m0 + ty * 4 + i;
+        if (m < a.M) {
+          float d[4] = {acc[i][0], acc[i][1], acc[i][2], acc[i][3]};
+          if (AFFINE) {
+            const float4 x4 = ld4(a.x + m * a.Ci + n);
+            const float xv[4] = {x4.x, x4.y, x4.z, x4.w};
+#pragma unroll
+            for (int j = 0; j < 4; ++j) {
+              const float xa = __fadd_rn(__fmul_rn(xv[j], iv[j]), sh[j]);
+              const float dxa = xa > 0.f ? d[j] : 0.f;
+              d[j] = __fmul_rn(dxa, iv[j]);
+              s1[j] = __fadd_rn(s1[j], __fmul_rn(xv[j], dxa));
+              s2[j] = __fadd_rn(s2[j], dxa);
+            }
+          }
+          *reinterpret_cast<float4*>(a.dx + m * a.Ci + n) =
+              make_float4(d[0], d[1], d[2], d[3]);
+        }
+      }
+    }
+  }
+  if constexpr (AFFINE)
+    partial_rows(s1, s2, red1, red2, n0, a.Ci, a.part1, a.part2);
+}
+
+// The filter gradient: one 64 x 64 tile of [taps * Ci, Co] over the slice
+// blockIdx.z of the positions, walked in chunks of 16
+template <int KIND, bool AFFINE>
+__global__ void __launch_bounds__(THREADS)
+bwd_filter_f32_kernel(const F32BwdFilterArgs a) {
+  __shared__ __align__(16) float As[KC][BM];    // [position][K row]: x^
+  __shared__ __align__(16) float Bs[KC][BN];    // [position][channel]: ge
+
+  const int tid = threadIdx.x;
+  const int tx = tid % 16, ty = tid / 16;       // compute: channels, K rows
+  const int lp = tid / 16, l4 = (tid % 16) * 4; // loads: position, 4 columns
+  const int n0 = blockIdx.x * BN;
+  const int k0 = blockIdx.y * BM;
+  const int K = (KIND == 0 ? 9 : 3) * a.Ci;
+  // this thread's gather rows k0 + l4 .. + 3: one tap, 4 input channels
+  // (Ci is a multiple of 8), the same for the whole walk
+  const int r = k0 + l4;
+  const bool r_ok = r < K;
+  const int tap = r_ok ? r / a.Ci : 0;
+  const int ci = r - tap * a.Ci;
+  float4 iv = zero4(), sh = zero4();
+  if (AFFINE && r_ok) {
+    iv = ld4(a.inv + ci);
+    sh = ld4(a.shift + ci);
+  }
+  const int co = n0 + l4;
+  const bool co_ok = co < a.Co;
+  float4 g1 = zero4(), g2 = zero4();
+  if (co_ok) {
+    g1 = ld4(a.gs1 + co);
+    g2 = ld4(a.gs2 + co);
+  }
+
+  float acc[4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+
+  float4 xa, gb;
+  auto load = [&](int chunk) {
+    const int64_t m = (int64_t)chunk * KC + lp;
+    xa = zero4();
+    gb = zero4();
+    if (m < a.M) {
+      if (r_ok) {
+        int t, h, w;
+        decode(m, a.T, a.H, a.W, t, h, w);
+        int64_t src;
+        if (neighbour<KIND>(m, t, h, w, tap, a.T, a.H, a.W, src)) {
+          xa = ld4(a.x + src * a.Ci + ci);
+          if (AFFINE) xa = prologue4(xa, iv, sh);
+        }
+      }
+      if (co_ok)
+        gb = fold4(ld4(a.gy + m * a.Co + co), ld4(a.y + m * a.Co + co), g1, g2);
+    }
+  };
+  auto store = [&]() {
+    *reinterpret_cast<float4*>(&As[lp][l4]) = xa;
+    *reinterpret_cast<float4*>(&Bs[lp][l4]) = gb;
+  };
+
+  const int c_begin = blockIdx.z * a.chunks_per_slice;
+  const int c_end = min(a.chunks, c_begin + a.chunks_per_slice);
+  if (c_begin < c_end) {
+    load(c_begin);
+    store();
+    __syncthreads();
+    for (int c = c_begin; c < c_end; ++c) {
+      if (c + 1 < c_end) load(c + 1);
+      chunk_products(As, Bs, tx, ty, acc);
+      __syncthreads();
+      if (c + 1 < c_end) {
+        store();
+        __syncthreads();
+      }
+    }
+  }
+
+  const int n = n0 + tx * 4;
+  if (n < a.Co) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int row = k0 + ty * 4 + i;
+      if (row < K)
+        *reinterpret_cast<float4*>(
+            a.out + ((int64_t)blockIdx.z * K + row) * a.Co + n) =
+            make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
+    }
   }
 }
 
@@ -253,6 +557,19 @@ colsum_f32_kernel(const float* __restrict__ part1,
     }
     s1[c] = b1;
     s2[c] = b2;
+  }
+}
+
+// out[e] = sum over slices s of part[s, e], in slice order
+__global__ void __launch_bounds__(256)
+slice_sum_f32_kernel(const float* __restrict__ part, int slices, int64_t E,
+                     float* __restrict__ out) {
+  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
+  for (int64_t e = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; e < E;
+       e += stride) {
+    float s = 0.f;
+    for (int k = 0; k < slices; ++k) s += part[(int64_t)k * E + e];
+    out[e] = s;
   }
 }
 
@@ -311,5 +628,135 @@ extern "C" int m3f_conv_unit_fwd_f32(const void* x, const void* wk,
   if (e != cudaSuccess) return (int)e;
   colsum_f32_kernel<<<(Co + 31) / 32, dim3(32, 32), 0, s>>>(
       a.part1, a.part2, ranges, Co, (float*)s1, (float*)s2);
+  return (int)cudaGetLastError();
+}
+
+// Data gradient, fp32. gy / y [B, T, H, W, Co], gs1 / gs2 [Co], wt
+// [taps * Co, Ci] (row tap * Co + co = W[taps - 1 - tap, ci, co]: the
+// filter's taps mirrored, each transposed), x [B, T, H, W, Ci] and
+// inv / shift [Ci] with the prologue (all three null without), dx
+// [B, T, H, W, Ci], dinv / dshift [Ci] and part a scratch of 2 * ranges * Ci
+// floats with the prologue (else null), ranges = ceil(ceil(M / 64) / per);
+// all fp32, contiguous, 16-byte aligned, Ci and Co multiples of 8. Returns
+// a cudaError_t.
+extern "C" int m3f_conv_unit_bwd_data_f32(
+    const void* gy, const void* y, const void* gs1, const void* gs2,
+    const void* wt, const void* x, const void* inv, const void* shift,
+    void* dx, void* dinv, void* dshift, void* part, int kind, int B, int T,
+    int H, int W, int Ci, int Co, int per, void* stream) {
+  const int64_t M = (int64_t)B * T * H * W;
+  const bool affine = x != nullptr;
+  if ((kind != 0 && kind != 1) || per < 1 || Ci % 8 != 0 || Co % 8 != 0 ||
+      Ci == 0 || Co == 0 || (inv == nullptr) == affine ||
+      (shift == nullptr) == affine || (dinv == nullptr) == affine ||
+      (dshift == nullptr) == affine || (part == nullptr) == affine)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (M == 0) {
+    if (!affine) return 0;
+    cudaMemsetAsync(dinv, 0, sizeof(float) * Ci, s);
+    cudaMemsetAsync(dshift, 0, sizeof(float) * Ci, s);
+    return (int)cudaGetLastError();
+  }
+  const int64_t m_tiles = (M + BM - 1) / BM;
+  if (m_tiles >= ((int64_t)1 << 31)) return (int)cudaErrorInvalidValue;
+  const int ranges = (int)((m_tiles + per - 1) / per);
+  if (ranges > 65535) return (int)cudaErrorInvalidValue;
+  F32BwdDataArgs a{};
+  a.gy = (const float*)gy;
+  a.y = (const float*)y;
+  a.gs1 = (const float*)gs1;
+  a.gs2 = (const float*)gs2;
+  a.wt = (const float*)wt;
+  a.x = (const float*)x;
+  a.inv = (const float*)inv;
+  a.shift = (const float*)shift;
+  a.dx = (float*)dx;
+  a.part1 = (float*)part;
+  a.part2 = affine ? (float*)part + (int64_t)ranges * Ci : nullptr;
+  a.T = T;
+  a.H = H;
+  a.W = W;
+  a.Ci = Ci;
+  a.Co = Co;
+  a.M = M;
+  a.m_tiles = (int)m_tiles;
+  a.tiles_per_range = per;
+  const dim3 grid((Ci + BN - 1) / BN, ranges);
+  if (kind == 0) {
+    if (affine)
+      bwd_data_f32_kernel<0, true><<<grid, THREADS, 0, s>>>(a);
+    else
+      bwd_data_f32_kernel<0, false><<<grid, THREADS, 0, s>>>(a);
+  } else {
+    if (affine)
+      bwd_data_f32_kernel<1, true><<<grid, THREADS, 0, s>>>(a);
+    else
+      bwd_data_f32_kernel<1, false><<<grid, THREADS, 0, s>>>(a);
+  }
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess || !affine) return (int)e;
+  colsum_f32_kernel<<<(Ci + 31) / 32, dim3(32, 32), 0, s>>>(
+      a.part1, a.part2, ranges, Ci, (float*)dinv, (float*)dshift);
+  return (int)cudaGetLastError();
+}
+
+// Filter gradient, fp32. x [B, T, H, W, Ci], gy / y [B, T, H, W, Co],
+// gs1 / gs2 [Co], inv / shift [Ci] or both null, dw [taps * Ci, Co] (row
+// tap * Ci + ci), part a scratch of slices * taps * Ci * Co floats when
+// slices > 1 (else null); slice s takes the chunks of 16 positions
+// [s * per, (s + 1) * per); all fp32, contiguous, 16-byte aligned, Ci and Co
+// multiples of 8. Returns a cudaError_t.
+extern "C" int m3f_conv_unit_bwd_filter_f32(
+    const void* x, const void* gy, const void* y, const void* gs1,
+    const void* gs2, const void* inv, const void* shift, void* dw, void* part,
+    int kind, int B, int T, int H, int W, int Ci, int Co, int per, int slices,
+    void* stream) {
+  const int64_t M = (int64_t)B * T * H * W;
+  const int64_t chunks = (M + KC - 1) / KC;
+  const int64_t K = (int64_t)(kind == 0 ? 9 : 3) * Ci;
+  if ((kind != 0 && kind != 1) || per < 1 || slices < 1 || slices > 65535 ||
+      Ci % 8 != 0 || Co % 8 != 0 || Ci == 0 || Co == 0 ||
+      (inv == nullptr) != (shift == nullptr) || (part == nullptr) != (slices == 1) ||
+      chunks >= ((int64_t)1 << 31) || (int64_t)per * slices < chunks ||
+      (K + BM - 1) / BM > 65535)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  F32BwdFilterArgs a{};
+  a.x = (const float*)x;
+  a.gy = (const float*)gy;
+  a.y = (const float*)y;
+  a.gs1 = (const float*)gs1;
+  a.gs2 = (const float*)gs2;
+  a.inv = (const float*)inv;
+  a.shift = (const float*)shift;
+  a.out = slices > 1 ? (float*)part : (float*)dw;
+  a.T = T;
+  a.H = H;
+  a.W = W;
+  a.Ci = Ci;
+  a.Co = Co;
+  a.M = M;
+  a.chunks = (int)chunks;
+  a.chunks_per_slice = per;
+  const dim3 grid((Co + BN - 1) / BN, (unsigned)((K + BM - 1) / BM), slices);
+  const bool affine = inv != nullptr;
+  if (kind == 0) {
+    if (affine)
+      bwd_filter_f32_kernel<0, true><<<grid, THREADS, 0, s>>>(a);
+    else
+      bwd_filter_f32_kernel<0, false><<<grid, THREADS, 0, s>>>(a);
+  } else {
+    if (affine)
+      bwd_filter_f32_kernel<1, true><<<grid, THREADS, 0, s>>>(a);
+    else
+      bwd_filter_f32_kernel<1, false><<<grid, THREADS, 0, s>>>(a);
+  }
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess || slices == 1) return (int)e;
+  const int64_t E = K * Co;
+  const int64_t blocks = (E + 255) / 256;
+  slice_sum_f32_kernel<<<(unsigned)(blocks < 4096 ? blocks : 4096), 256, 0, s>>>(
+      (const float*)part, slices, E, (float*)dw);
   return (int)cudaGetLastError();
 }

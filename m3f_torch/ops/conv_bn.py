@@ -24,11 +24,11 @@ when the unit has the prologue, with fp32 ``dinv = Σ x·dxa`` and
 ``conv_unit`` is the differentiable unit (a ``torch.autograd.Function``):
 both halves are kernels on the card and plain versions on the CPU.
 
-x is bf16 or fp32. The forward has kernels for both (``csrc/conv_bn.cu``
-for bf16, ``csrc/conv_bn_f32.cu`` for fp32: the reference's Pallas units
-run in the dtype of x); the backward kernels take bf16 only, so an fp32
-unit trains on the CPU alone (``Trainer`` refuses fp32 training on the card
-before it launches anything).
+x is bf16 or fp32, and both halves have kernels for both (the reference's
+Pallas units run in the dtype of x): ``csrc/conv_bn.cu`` for bf16,
+``csrc/conv_bn_f32.cu`` for fp32 (the forward, ``f32_fwd_plan``; the data
+and filter gradients, ``f32_bwd_data_plan`` / ``f32_bwd_filter_plan``), so
+an fp32 unit trains on the card as a bf16 one does.
 """
 
 from __future__ import annotations
@@ -284,7 +284,8 @@ def conv_unit_bwd_data_reference(x, w, inv, shift, y, gy, gs1, gs2, *,
     # the conv's data gradient is the conv of ge with the flipped, transposed
     # filter at the same padding
     flip = kernel.flip(2, 3, 4).transpose(0, 1)
-    dxh = F.conv3d(_ncdhw(ge), flip, padding=pad).permute(0, 2, 3, 4, 1)
+    with full_fp32():                   # an fp32 conv stays fp32 (no TF32)
+        dxh = F.conv3d(_ncdhw(ge), flip, padding=pad).permute(0, 2, 3, 4, 1)
     dxh = dxh.to(dtype)
     if inv is None:
         return dxh, None, None
@@ -305,8 +306,9 @@ def conv_unit_bwd_filter_reference(x, inv, shift, y, gy, gs1, gs2, *,
     ci, co = x.shape[-1], gy.shape[-1]
     ksize, pad = ((1, 3, 3), (0, 1, 1)) if kind == "spatial" \
         else ((3, 1, 1), (1, 0, 0))
-    dk = torch.nn.grad.conv3d_weight(_ncdhw(xh), (co, ci) + ksize, _ncdhw(ge),
-                                     padding=pad)          # [Co, Ci, kt, kh, kw]
+    with full_fp32():                   # an fp32 conv stays fp32 (no TF32)
+        dk = torch.nn.grad.conv3d_weight(_ncdhw(xh), (co, ci) + ksize,
+                                         _ncdhw(ge), padding=pad)  # [Co, Ci, kt, kh, kw]
     if kind == "spatial":
         return dk[:, :, 0].permute(2, 3, 1, 0).contiguous()
     return dk[:, :, :, 0, 0].permute(2, 1, 0).contiguous()
@@ -323,11 +325,11 @@ def conv_unit_bwd_reference(x, w, inv, shift, y, gy, gs1, gs2, *, kind: str):
 
 def _check_unit(name, x, kind, *tensors):
     cuda_lib.require_cuda(name, x, *[t for t in tensors if t is not None])
-    if kind not in ("spatial", "temporal") or x.dtype != torch.bfloat16 \
-            or x.dim() != 5:
+    if kind not in ("spatial", "temporal") \
+            or x.dtype not in (torch.bfloat16, torch.float32) or x.dim() != 5:
         raise ValueError(
-            f"{name} kernel takes bf16 [B,T,H,W,C] tensors; got kind={kind!r} "
-            f"x {tuple(x.shape)} {x.dtype}")
+            f"{name} kernel takes bf16 or fp32 [B,T,H,W,C] tensors; got "
+            f"kind={kind!r} x {tuple(x.shape)} {x.dtype}")
 
 
 _SMEM_BLOCK_MAX = 227 << 10             # a block's shared memory on sm_90
@@ -700,9 +702,10 @@ def spatial_data_plan(b: int, t: int, h: int, w: int, ci: int, co: int,
 def conv_unit_bwd_data(x, w, inv, shift, y, gy, gs1, gs2, *, kind: str):
     """Data gradient of the unit → (dx, dinv, dshift): the plain version on
     the CPU, one kernel launch (plus a fixed-order sum of its per-block
-    dinv/dshift rows) on the card: the row walk (spatial) or the frame walk
-    (temporal); channel counts that are not multiples of 8 run zero-padded
-    (``pad_channels``)."""
+    dinv/dshift rows) on the card: for bf16 the row walk (spatial) or the
+    frame walk (temporal), for fp32 the fp32 data gradient
+    (``f32_bwd_data_plan``); channel counts that are not multiples of 8 run
+    zero-padded (``pad_channels``)."""
     if x.device.type == "cpu":
         return conv_unit_bwd_data_reference(x, w, inv, shift, y, gy, gs1, gs2,
                                             kind=kind)
@@ -721,6 +724,8 @@ def conv_unit_bwd_data(x, w, inv, shift, y, gy, gs1, gs2, *, kind: str):
             *pad_channels(x, w, inv, shift, y, gy, gs1, gs2), kind=kind)
         return (cut_channels(dx, ci), cut_channels(dinv, ci),
                 cut_channels(dshift, ci))
+    if x.dtype == torch.float32:
+        return _conv_unit_bwd_data_f32(x, w, inv, shift, y, gy, gs1, gs2, kind)
     x, y, gy = x.contiguous(), y.contiguous(), gy.contiguous()
     gs1, gs2 = gs1.float().contiguous(), gs2.float().contiguous()
     affine = inv is not None
@@ -900,8 +905,9 @@ def conv_unit_bwd_filter(x, inv, shift, y, gy, gs1, gs2, *, kind: str
                          ) -> torch.Tensor:
     """Filter gradient of the unit → fp32 dw in the reference layout: the
     plain version on the CPU, one kernel launch (plus a fixed-order sum of
-    its slices' partials when there is more than one) on the card; channel
-    counts that are not multiples of 8 run zero-padded (``pad_channels``)."""
+    its slices' partials when there is more than one) on the card, for fp32
+    x the fp32 filter gradient (``f32_bwd_filter_plan``); channel counts
+    that are not multiples of 8 run zero-padded (``pad_channels``)."""
     if x.device.type == "cpu":
         return conv_unit_bwd_filter_reference(x, inv, shift, y, gy, gs1, gs2,
                                               kind=kind)
@@ -917,6 +923,8 @@ def conv_unit_bwd_filter(x, inv, shift, y, gy, gs1, gs2, *, kind: str
                                                   gs1, gs2)
         return cut_channels(conv_unit_bwd_filter(xp, invp, shiftp, *rest,
                                                  kind=kind), ci, co)
+    if x.dtype == torch.float32:
+        return _conv_unit_bwd_filter_f32(x, inv, shift, y, gy, gs1, gs2, kind)
     x, y, gy = x.contiguous(), y.contiguous(), gy.contiguous()
     gs1, gs2 = gs1.float().contiguous(), gs2.float().contiguous()
     if inv is not None:
@@ -943,6 +951,135 @@ def conv_unit_bwd_filter(x, inv, shift, y, gy, gs1, gs2, *, kind: str
             ci_blk, strip, cuda_lib.stream_ptr(x))
     cuda_lib.check(err, f"conv_unit_bwd_filter {kind} kernel")
     cuda_lib.launches[f"conv_{kind}_bwd_filter"] += 1
+    return dw.reshape((3, 3, ci, co) if kind == "spatial" else (3, ci, co))
+
+
+# The fp32 backward (bwd_data_f32_kernel and bwd_filter_f32_kernel in
+# conv_bn_f32.cu): the data gradient tiles as the fp32 forward does, its N
+# the input channels; the filter gradient takes tiles of 64 rows of
+# K = taps·C_in x 64 output channels over slices of the positions, walked in
+# chunks of 16
+_F32_KC = 16
+
+
+def f32_bwd_data_plan(b: int, t: int, h: int, w: int, ci: int,
+                      sms: int) -> F32FwdPlan:
+    """The fp32 data gradient's tiling: the forward's (``f32_fwd_plan``)
+    with the C_in input channels of dx as its N; each range of position
+    tiles writes one partial row of dinv / dshift."""
+    return f32_fwd_plan(b, t, h, w, ci, sms)
+
+
+class F32FilterPlan(NamedTuple):
+    """How the fp32 filter gradient cuts its work: ``k_tiles`` tiles of 64
+    of the K = taps·C_in rows of dw, ``n_tiles`` tiles of 64 output
+    channels; the M = B·T·H·W positions in ``chunks`` chunks of 16, cut into
+    ``slices`` contiguous ranges of ``chunks_per_slice`` chunks, one block a
+    slice and tile (``blocks``), each slice one fp32 partial of dw
+    (``part_bytes``, 0 when one slice writes dw itself)."""
+    k_tiles: int
+    n_tiles: int
+    chunks: int
+    chunks_per_slice: int
+    slices: int
+    blocks: int
+    part_bytes: int
+
+    def positions_of(self, s: int, m: int) -> range:
+        """The positions of slice ``s`` of ``m``, as the kernel takes them."""
+        c = self.chunks_per_slice * _F32_KC
+        return range(min(m, s * c), min(m, (s + 1) * c))
+
+
+def f32_bwd_filter_plan(b: int, t: int, h: int, w: int, ci: int, co: int,
+                        kind: str, sms: int) -> F32FilterPlan:
+    """The fp32 filter gradient's tiling on a card of ``sms``
+    multiprocessors: enough slices for about _F32_BLOCKS_PER_SM blocks a
+    multiprocessor, at most one a chunk, with a partial buffer of at most
+    _FILTER_PART_BYTES; no slice is empty."""
+    k = (9 if kind == "spatial" else 3) * ci
+    k_tiles, n_tiles = _cdiv(k, _F32_BM), _cdiv(co, _F32_BN)
+    chunks = _cdiv(b * t * h * w, _F32_KC)
+    out_bytes = 4 * k * co
+    s = max(1, min(chunks, _cdiv(_F32_BLOCKS_PER_SM * sms, k_tiles * n_tiles),
+                   _FILTER_PART_BYTES // out_bytes))
+    per = max(1, _cdiv(chunks, s))
+    slices = max(1, _cdiv(chunks, per))
+    return F32FilterPlan(k_tiles, n_tiles, chunks, per, slices,
+                         k_tiles * n_tiles * slices,
+                         slices * out_bytes if slices > 1 else 0)
+
+
+def f32_bwd_data_filter(w: torch.Tensor, kind: str) -> torch.Tensor:
+    """The fp32 data gradient's B operand, [taps·C_out, C_in]: row
+    tap·C_out + co holds W[taps - 1 - tap, :, co] (the taps mirrored, each
+    transposed), so the gather at a tap's neighbour meets the mirrored tap."""
+    ci, co = w.shape[-2], w.shape[-1]
+    taps = 9 if kind == "spatial" else 3
+    return w.float().reshape(taps, ci, co).flip(0).transpose(1, 2) \
+        .reshape(taps * co, ci)
+
+
+def _conv_unit_bwd_data_f32(x, w, inv, shift, y, gy, gs1, gs2, kind):
+    """The fp32 data gradient on the card (C_in, C_out multiples of 8): one
+    launch of bwd_data_f32_kernel plus, with the prologue, the fixed-order
+    sum of its partial rows of dinv / dshift."""
+    b, t, h, wd, ci = x.shape
+    co = gy.shape[-1]
+    affine = inv is not None
+    gy, y = _aligned16(gy), _aligned16(y)
+    gs1, gs2 = _aligned16(gs1.float()), _aligned16(gs2.float())
+    wt = _aligned16(f32_bwd_data_filter(w, kind))
+    xa = None                           # x only with the prologue
+    if affine:
+        xa, inv, shift = (_aligned16(x), _aligned16(inv.float()),
+                          _aligned16(shift.float()))
+    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+    plan = f32_bwd_data_plan(b, t, h, wd, ci, sms)
+    dx = torch.empty(b, t, h, wd, ci, dtype=torch.float32, device=x.device)
+    dinv = dshift = part = None
+    if affine:
+        dinv = torch.empty(ci, dtype=torch.float32, device=x.device)
+        dshift = torch.empty(ci, dtype=torch.float32, device=x.device)
+        part = torch.empty(2 * plan.ranges * ci, dtype=torch.float32,
+                           device=x.device)
+    ptr = lambda v: None if v is None else v.data_ptr()
+    with torch.cuda.device(x.device):
+        err = cuda_lib.library("conv_bn_f32").m3f_conv_unit_bwd_data_f32(
+            gy.data_ptr(), y.data_ptr(), gs1.data_ptr(), gs2.data_ptr(),
+            wt.data_ptr(), ptr(xa), ptr(inv), ptr(shift), dx.data_ptr(),
+            ptr(dinv), ptr(dshift), ptr(part), 0 if kind == "spatial" else 1,
+            b, t, h, wd, ci, co, plan.tiles_per_range, cuda_lib.stream_ptr(x))
+    cuda_lib.check(err, f"conv_unit_bwd_data {kind} fp32 kernel")
+    cuda_lib.launches[f"conv_{kind}_bwd_data_f32"] += 1
+    return dx, dinv, dshift
+
+
+def _conv_unit_bwd_filter_f32(x, inv, shift, y, gy, gs1, gs2, kind):
+    """The fp32 filter gradient on the card (C_in, C_out multiples of 8):
+    one launch of bwd_filter_f32_kernel plus, with more than one slice, the
+    sum of the slices' partials in slice order."""
+    b, t, h, wd, ci = x.shape
+    co = gy.shape[-1]
+    x, gy, y = _aligned16(x), _aligned16(gy), _aligned16(y)
+    gs1, gs2 = _aligned16(gs1.float()), _aligned16(gs2.float())
+    inv = _aligned16(None if inv is None else inv.float())
+    shift = _aligned16(None if shift is None else shift.float())
+    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+    plan = f32_bwd_filter_plan(b, t, h, wd, ci, co, kind, sms)
+    k = (9 if kind == "spatial" else 3) * ci
+    dw = torch.empty(k, co, dtype=torch.float32, device=x.device)
+    part = torch.empty(plan.slices * k * co, dtype=torch.float32,
+                       device=x.device) if plan.slices > 1 else None
+    ptr = lambda v: None if v is None else v.data_ptr()
+    with torch.cuda.device(x.device):
+        err = cuda_lib.library("conv_bn_f32").m3f_conv_unit_bwd_filter_f32(
+            x.data_ptr(), gy.data_ptr(), y.data_ptr(), gs1.data_ptr(),
+            gs2.data_ptr(), ptr(inv), ptr(shift), dw.data_ptr(), ptr(part),
+            0 if kind == "spatial" else 1, b, t, h, wd, ci, co,
+            plan.chunks_per_slice, plan.slices, cuda_lib.stream_ptr(x))
+    cuda_lib.check(err, f"conv_unit_bwd_filter {kind} fp32 kernel")
+    cuda_lib.launches[f"conv_{kind}_bwd_filter_f32"] += 1
     return dw.reshape((3, 3, ci, co) if kind == "spatial" else (3, ci, co))
 
 

@@ -40,6 +40,10 @@ launches: Dict[str, int] = {"melspec": 0, "melspec_dft": 0, "gru": 0,
                             "conv_spatial_bwd_filter": 0,
                             "conv_temporal_bwd_data": 0,
                             "conv_temporal_bwd_filter": 0,
+                            "conv_spatial_bwd_data_f32": 0,
+                            "conv_spatial_bwd_filter_f32": 0,
+                            "conv_temporal_bwd_data_f32": 0,
+                            "conv_temporal_bwd_filter_f32": 0,
                             "packed_conv": 0, "ablate_slabs": 0,
                             "ablate_matmul": 0, "packed_conv_chunked": 0}
 
@@ -65,7 +69,13 @@ SIGNATURES = {
                 "m3f_conv_unit_bwd_filter": [P, P, P, P, P, P, P, P, P, I, I,
                                              I, I, I, I, I, I, I, I, I, P]},
     "conv_bn_f32": {"m3f_conv_unit_fwd_f32": [P, P, P, P, P, P, P, P, I, I, I,
-                                              I, I, I, I, I, P]},
+                                              I, I, I, I, I, P],
+                    "m3f_conv_unit_bwd_data_f32": [P, P, P, P, P, P, P, P, P, P,
+                                                   P, P, I, I, I, I, I, I, I,
+                                                   I, P],
+                    "m3f_conv_unit_bwd_filter_f32": [P, P, P, P, P, P, P, P, P,
+                                                     I, I, I, I, I, I, I, I,
+                                                     I, P]},
     "packed_conv": {"m3f_packed_ablate": [P, P, P, I, I, I, I, I, I, I, I, I,
                                           I, I, I, I, P],
                     "m3f_packed_conv_tma": [P, P, P, I, I, I, I, I, I, I, I, I,

@@ -48,10 +48,10 @@ Counterpart of ``m3f/pytorch_tpu/train/loop.py``:
   every caller of ``fit`` / ``train_step`` gets it.
 
 - **fp32 on the card:** a train step's forward and backward run inside
-  ``M3F.precision()`` (no TF32). Where the visual branch runs fused conv
-  units, whose backward kernels take bf16 only, ``fit`` and
-  ``train_step`` refuse ``model.compute_dtype="float32"`` on the card
-  before they launch anything (``refuse_fp32_units_training``).
+  ``M3F.precision()`` (no TF32 in cuDNN's convs and cuBLAS's products),
+  and the fused conv units run their fp32 kernels, forward and backward
+  (``ops/conv_bn.py``, ``csrc/conv_bn_f32.cu``), so
+  ``model.compute_dtype="float32"`` trains on the card as bf16 does.
 
 ``make_eval_forward`` is the streaming sessions' group forward (a host
 feed of W-window sequences → per-frame predictions). ``fit`` traces steps
@@ -190,22 +190,6 @@ def _nan_guard(step: int):
                 f"{e}") from e
 
 
-def refuse_fp32_units_training(model: M3F, device) -> None:
-    """Raise NotImplementedError where a train step would need a kernel the
-    port lacks: an fp32 ``model`` on the card (``device``) whose visual
-    branch runs fused conv units, whose backward kernels take bf16 only. It
-    raises before anything is launched; the CPU (plain versions) and the
-    families without fused units train in fp32."""
-    if torch.device(device).type != "cuda" or model.dtype != torch.float32 \
-            or model.visual is None or not model.visual.fused_blocks:
-        return
-    raise NotImplementedError(
-        "training with model.compute_dtype='float32' on the card needs the "
-        "fp32 conv-unit backward kernels, which are not ported yet (ROADMAP "
-        "§1: fp32 conv-unit backward kernels (rows 5–8 at fp32)); train in "
-        "bfloat16, or on the CPU (device='cpu'); fp32 serving runs on the card")
-
-
 class Trainer:
     """Owns the model (seeded from ``train.seed``), trains it and evaluates
     whole videos. ``device="cuda"`` (default) raises without a GPU; the
@@ -331,7 +315,6 @@ class Trainer:
         waits for the step). With ``data.augment`` the video is augmented
         on the device, and with ``model.dropout > 0`` the forward drops
         out, each from a generator seeded from the step (module doc)."""
-        refuse_fp32_units_training(self.model, self.device)
         tcfg, dcfg = self.cfg.train, self.cfg.data
         batch = {k: v if isinstance(v, torch.Tensor) else self._to_device(v)
                  for k, v in batch.items()}
@@ -792,7 +775,6 @@ class Trainer:
         at each log step, ``eval_<key>`` at each eval. Returns (state,
         history): ``loss`` and ``grad_norm`` at each log step, ``eval``
         results at each eval."""
-        refuse_fp32_units_training(self.model, self.device)
         tcfg = self.cfg.train
         num_steps = num_steps or tcfg.num_steps
         state = self.init_state(keep_weights=keep_weights)
