@@ -48,17 +48,24 @@ H100 (``python3 chip_smoke.py``). It
    strips, masked channels, images of one row, one column or one pixel,
    k-steps that span rows and images, widths that are not multiples of
    8); the temporal forward is held at the train shapes as well;
-   The fp32 conv units (rows 3f / 4f, ``csrc/conv_bn_f32.cu``, phase
-   ``kernel_conv_f32``) are held against their plain versions at every
+   The fp32 conv units (rows 3f / 4f, ``csrc/conv_bn_f32.cu``: row 3f the
+   row walk ``spatial_fwd_f32_kernel``, row 4f the per-tap gather; phase
+   ``kernel_conv_f32``, with the spatial plan's step, N tile, K chunk and
+   ranges) are held against their plain versions at every
    fused unit's serving shape of ``longseq_eval`` with
-   ``compute_dtype=float32`` and at F32_EDGE_SHAPES (partial position and
-   channel tiles, 1x1 images, one frame, widths the wrapper zero-pads),
+   ``compute_dtype=float32``, at F32_EDGE_SHAPES (partial position and
+   channel tiles, 1x1 images, one frame, widths the wrapper zero-pads) and
+   at F32_WALK_EDGE_SHAPES (7x7 images several a step with the last range
+   not full, C_out 200, 1152 in N tiles of 144, 256 in tiles of 128) and
+   at F32_GATHER_EDGE_SHAPES (images too wide for the row walk: the spatial
+   kind through the per-tap gather),
    y per element within CONV_F32_REL of sum |x^|*|w| plus CONV_F32_ABS, the
    sums per channel; each check is shown to refuse a y from swapped taps,
    a y whose padding went through the prologue, a y whose prologue rounds
    once (a fused multiply-add, seen on a clip where the two roundings
    cancel exactly), a zeroed or shifted s1 and an s1 without the last
-   range's share; two calls give the same bits; timed beside the plain
+   range's share (the row walk's ranges of images; within one range its
+   last partial step); two calls give the same bits; timed beside the plain
    version and cuDNN's fp32 conv (no TF32) plus the sums. Rows 3-8 are held
    at the lane midplanes 128 / 256 / 512 / 1152 (phase ``kernel_lane``:
    the forward at the serving shapes, the backward at the train shapes);
@@ -2141,11 +2148,30 @@ def f32_within(y, y0, lim):
     return bool(((y - y0).abs() <= lim).all())
 
 
-def last_range_f32(torch, conv_bn, y):
-    """(name, s1 share) of the fp32 forward's last range of position tiles
-    (None when one range holds them all)."""
+def spatial_plan_f32(torch, conv_bn, x, co):
+    """The fp32 spatial row walk's plan for x [B, T, H, W, C_in] -> C_out
+    (channel counts as the wrapper pads them), or None (the gather)."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return conv_bn.f32_spatial_fwd_plan(*x.shape[:4], _round8(x.shape[-1]),
+                                        _round8(co), sms)
+
+
+def last_range_f32(torch, conv_bn, kind, x, y):
+    """(name, s1 share) of the y the fp32 forward computes in its last
+    range: for the spatial row walk the last range of images, or its last
+    partial step where one range holds them all; else the gather's last
+    range of position tiles (None where nothing is left over)."""
     b, t, h, w, co = y.shape
     sms = torch.cuda.get_device_properties(0).multi_processor_count
+    walk = spatial_plan_f32(torch, conv_bn, x, co) if kind == "spatial" \
+        else None
+    if walk is not None:
+        if walk.ranges > 1:
+            start = (walk.ranges - 1) * walk.images_per_range * h * w
+            return "last_range", y.reshape(-1, co)[start:].sum(0)
+        tail = walk.images * h * w % walk.step
+        return None if not tail else \
+            ("last_partial_step", y.reshape(-1, co)[-tail:].sum(0))
     plan = conv_bn.f32_fwd_plan(b, t, h, w, _round8(co), sms)
     if plan.ranges < 2:
         return None
@@ -2187,7 +2213,7 @@ def check_fwd_unit_f32(torch, F, conv_bn, what, x, w, a, kind):
     del d
     require(over <= 1.0, f"{what}: |dy| over its limit by {over} (max {err})")
     ratio = check_sums(what, y, y0, s1, s2, s10, s20,
-                       last_range_f32(torch, conv_bn, y))
+                       last_range_f32(torch, conv_bn, kind, x, y))
     wrong = {}
     if kind == "spatial" and x.shape[2] * x.shape[3] > 1:
         wrong["filter_dh_dw_swapped"] = lambda: conv_bn.conv_unit_reference(
@@ -2227,25 +2253,44 @@ F32_EDGE_SHAPES = (("spatial", (3, 5, 7, 9, 24), (3, 3, 24, 40)),
                    ("temporal", (3, 2, 5, 7, 40), (3, 40, 72)),
                    ("temporal", (2, 4, 6, 6, 12), (3, 12, 20)),
                    ("temporal", (2, 5, 5, 5, 108), (3, 108, 48)))
+# the fp32 row walk off the serving tiling (forward only): 7x7 images two a
+# range and a step, the last range one image (135 of them); C_out 200 in
+# two N tiles of 128, the last masked; 1152 in eight tiles of 144 at
+# several images a step; 256 in two tiles of 128
+F32_WALK_EDGE_SHAPES = (("spatial", (3, 45, 7, 7, 24), (3, 3, 24, 40)),
+                        ("spatial", (2, 3, 7, 7, 40), (3, 3, 40, 200)),
+                        ("spatial", (2, 16, 7, 7, 64), (3, 3, 64, 1152)),
+                        ("spatial", (2, 4, 14, 14, 32), (3, 3, 32, 256)))
+# the spatial kind where no row-walk layout fits (images 240 wide, as from
+# data.image_size above 400): the per-tap gather (forward only); two clips,
+# since f32_unit_inputs' prologue makes clip 0's x^ zero
+F32_GATHER_EDGE_SHAPES = (("spatial", (2, 2, 2, 240, 16), (3, 3, 16, 16)),)
 
 
 def check_conv_f32(torch, F, conv_bn):
     """Rows 3f / 4f: the fp32 units against their plain versions at every
     fused unit's serving shape (longseq_eval with compute_dtype=float32: 128
-    clips) and at F32_EDGE_SHAPES, with the controls of
-    ``check_fwd_unit_f32``; timed (kernel and library in turn,
-    F32_FWD_ROUNDS rounds of F32_FWD_REPS) beside the plain version and
-    ``F.conv3d`` in fp32 (no TF32) plus the sums. Returns the two rows of
-    the kernels line, per served video."""
+    clips), at F32_EDGE_SHAPES, F32_WALK_EDGE_SHAPES and
+    F32_GATHER_EDGE_SHAPES, with the controls of ``check_fwd_unit_f32``;
+    timed (kernel and library in turn, F32_FWD_ROUNDS rounds of
+    F32_FWD_REPS) beside the plain version and ``F.conv3d`` in fp32 (no
+    TF32) plus the sums. Returns the two rows of the kernels line, per
+    served video."""
     g = torch.Generator(device="cuda").manual_seed(13)
     edges = {}
-    for kind, xs, ws in F32_EDGE_SHAPES:
+    for kind, xs, ws in (F32_EDGE_SHAPES + F32_WALK_EDGE_SHAPES
+                         + F32_GATHER_EDGE_SHAPES):
         for affine in (False, True):
             x, w, a = f32_unit_inputs(torch, g, xs, ws, affine)
             key = f"{kind}_{'x'.join(map(str, xs))}_to_{ws[-1]}_affine={affine}"
-            edges[key] = check_fwd_unit_f32(torch, F, conv_bn,
-                                            f"fp32 unit at edge shape {key}",
-                                            x, w, a, kind)
+            plan = spatial_plan_f32(torch, conv_bn, x, ws[-1]) \
+                if kind == "spatial" else None
+            if (kind, xs, ws) in F32_GATHER_EDGE_SHAPES:
+                require(plan is None, f"{key}: the row walk takes it: {plan}")
+            edges[key] = check_fwd_unit_f32(
+                torch, F, conv_bn, f"fp32 unit at edge shape {key}", x, w, a,
+                kind) + ((None if plan is None else
+                          [plan.step, plan.n_tile, plan.k_chunk, plan.ranges]),)
     out = {}
     for kind, xs, ws, affine, copies in _conv_units():
         x, w, a = f32_unit_inputs(torch, g, xs, ws, affine)
@@ -2271,8 +2316,13 @@ def check_conv_f32(torch, F, conv_bn):
         flops = 2 * m * k * ws[-1]
         nbytes = 4 * (x.numel() + w.numel() + m * ws[-1]
                       + (2 * xs[-1] if affine else 0) + 2 * ws[-1])
+        plan = spatial_plan_f32(torch, conv_bn, x, ws[-1]) \
+            if kind == "spatial" else None
         emit({"phase": "kernel_conv_f32", "kind": kind, "x": list(xs),
               "w": list(ws), "affine": affine, "per_forward": copies,
+              "plan": None if plan is None else {
+                  "step": plan.step, "n_tile": plan.n_tile,
+                  "k_chunk": plan.k_chunk, "ranges": plan.ranges},
               "max_abs_err": err, "err_over_limit": over,
               "s1_err_over_limit": s1_ratio, "ms": ms, "ms_spread": ms_spread,
               "plain_ms": plain, "library_ms_conv3d_sums": lib,
@@ -2295,7 +2345,7 @@ def check_conv_f32(torch, F, conv_bn):
         acc["bound_ms"] = max(t_ops, t_bytes)
         acc["bound_by"] = "operations" if t_ops >= t_bytes else "bytes"
     emit({"phase": "kernel_conv_f32_edges",
-          "max_abs_err_err_over_limit_s1_over_limit": edges,
+          "max_abs_err_err_over_limit_s1_over_limit_walk_plan": edges,
           "tol_rel": CONV_F32_REL, "tol_abs": CONV_F32_ABS})
     return [out["spatial"], out["temporal"]]
 

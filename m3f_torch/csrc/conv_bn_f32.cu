@@ -4,9 +4,11 @@
 // Replaces, when x is fp32 (model.compute_dtype = "float32"; the Pallas
 // kernels run in the dtype of x, and tests/test_conv_bn_fused.py holds them
 // in fp32), in m3f/pytorch_tpu/ops/pallas/conv_bn.py:
-//   conv_f32_kernel         _spatial_fwd (_spatial_fwd_kernel, pallas_call
-//                           at :192) and _temporal_fwd (_temporal_fwd_kernel,
-//                           :250)
+//   spatial_fwd_f32_kernel  _spatial_fwd (_spatial_fwd_kernel, pallas_call
+//                           at :192): a row walk (its own section below)
+//   conv_f32_kernel         _temporal_fwd (_temporal_fwd_kernel, :250), and
+//                           _spatial_fwd where no row-walk layout fits the
+//                           images (rows of a few hundred pixels)
 //   bwd_data_f32_kernel     _spatial_bwd's data gradient
 //                           (_spatial_bwd_data_kernel, :537) and
 //                           _temporal_bwd's (_temporal_bwd_data_kernel, :612)
@@ -42,19 +44,20 @@
 // the ~20 at which the fp32 CUDA cores (67 TFLOP/s; the reference is fp32,
 // so no TF32 and no tensor cores) and not memory (3.35 TB/s) set the floor.
 //
-// Design (simple and right first; a faster design is later work). Every
-// kernel is a block of 256 threads owning a 64 x 64 tile, each thread 4 x 4
-// sums in registers, K walked in chunks of 16 through shared memory, the
-// next chunk's loads held in registers while the products of the current
-// one run; channel counts are multiples of 8 (the wrapper zero-pads
+// Design of the per-tap gathers (simple and right first; the spatial
+// forward's row walk is the redesign, described above its code). Every
+// gather kernel is a block of 256 threads owning a 64 x 64 tile, each
+// thread 4 x 4 sums in registers, K walked in chunks of 16 through shared
+// memory, the next chunk's loads held in registers while the products of
+// the current one run; channel counts are multiples of 8 (the wrapper zero-pads
 // others), so every access is a 16-byte vector and a chunk's channels are
 // either all inside or all past C. No atomics: two calls give the same bits.
 // - conv_f32_kernel: 64 positions x 64 output channels; K = taps x Ci in
 //   chunks of 16 input channels of one tap, the x^ chunk formed at the
 //   gather (the neighbour's x through the prologue, 0 in the padding or past
-//   Ci). Forming x^ again for each of the 9 (3) taps costs 2 FLOP per element
-//   and tap against 2*Co of products, so x^ rows are not staged once for all
-//   taps; the neighbours' rows come from L1 and L2. A block walks a
+//   Ci), again for each of the 3 (9) taps; the neighbours' rows come from
+//   L1 and L2 (for the spatial kind that, with 64-channel N tiles, is what
+//   the row walk takes out). A block walks a
 //   contiguous range of position tiles (the grid's y) for one output-channel
 //   tile (the grid's x, fastest, so the blocks that read the same x run
 //   together), adding each tile's y and y^2 to per-thread sums in a fixed
@@ -76,7 +79,8 @@
 //   order.
 //
 // Measured times are in PERF.md (chip_smoke.py, phases kernel_conv_f32 and
-// kernel_conv_f32_bwd).
+// kernel_conv_f32_bwd; m3f_torch/scripts/filter_sweep.py --kind
+// spatial_fwd_f32 for the row walk's layouts, trials and ablations).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -573,6 +577,395 @@ slice_sum_f32_kernel(const float* __restrict__ part, int slices, int64_t E,
   }
 }
 
+// ---------------------------------------------------------------------------
+// The spatial forward: the row walk (spatial_fwd_f32_kernel)
+// ---------------------------------------------------------------------------
+//
+// Replaces _spatial_fwd (m3f/pytorch_tpu/ops/pallas/conv_bn.py, pallas_call
+// at :192, kernel _spatial_fwd_kernel at :62) for fp32 x. At the serving
+// forward's stage 1 (x [128,16,56,56,64] -> Co 144) a launch is 1.07 TFLOP
+// of fp32 FMA on 5.3 GB: 15.9 ms at 67 TFLOP/s against 1.6 ms of memory, so
+// the CUDA cores set the floor at every stage. What conv_f32_kernel spends
+// beyond the products (x^ gathered and formed again for each of the nine
+// taps and each 64-channel N tile, one shared load per two FMA, 33% of the
+// columns padding at C_out 144) is what this design takes out.
+//
+// - Row walk. A block walks a range of whole (b, t) images as one dense
+//   stream of output pixels, S = 8 * NPG a step (112 with N tiles of 144,
+//   128 with tiles of 128). A step's chunk buffer
+//   holds the stream rows from the one above its first pixel to the one
+//   below its last (local row 0 upward), with an all-zero row before every
+//   image and after the last, and columns 0 and W+1 zero: the conv's
+//   padding, never touched by the prologue, so it is 0 AFTER the prologue
+//   (relu(shift) is not 0), as the reference's pad-after-prologue. A step
+//   may span many rows and several images (W = 7: an image is 49 pixels).
+//   A pixel's taps are one base offset (its row above, column w - 1) plus
+//   (dh * (W+2) + dw) pixels, the same for every pixel.
+// - K inside a step, in chunks of KC input channels (16, or 8 where the
+//   16-channel buffers do not fit) for all nine taps: the block copies the
+//   step's x rows for the chunk with cp.async into [pixel][KC + 4] (zero
+//   filled on the zero rows and past C_in), each thread forms x^ in place
+//   once on the vectors it copied, after its own wait_group, with two
+//   roundings (__fmul_rn / __fadd_rn: no fused multiply-add), and the
+//   filter chunk [9 * KC, NB] streams from the L2 with it. Both are double
+//   buffered, one barrier a chunk: x^ is formed once per staged pixel, step
+//   and N tile (a step's halo rows twice).
+// - FFMA microkernel: a block of NPG x NCG threads, each 8 pixels (pg +
+//   NPG i) x 8 output channels (4 at cg * 4, 4 at NB/2 + cg * 4), 64 fp32
+//   sums. A is a float4 of 4 channels of one pixel at its tap offset, B a
+//   float4 of 4 output channels: 16 LDS.128 per 256 FFMA. Every pixel row
+//   of the buffer starts on 16 bytes, and its stride (KC + 4 floats) puts 8
+//   neighbouring pixels on distinct banks.
+// - N tiles of NB = 144 (C_out 144 / 288 / 576 / 1152, mid_mode "flops") or
+//   128 (128 / 256 / 512, "lane"): at stage 1 one tile, x^ formed once for
+//   every output channel. Other multiples of 8 take a masked last tile.
+// - Epilogue: y leaves from registers in 16-byte stores along the channels
+//   (a warp's lanes write one pixel's row); s1 / s2 are per-thread fp32 sums
+//   over the walk in a fixed order, then the NPG pixel groups in order into
+//   one partial row per range, summed by colsum_f32_kernel. No atomics: two
+//   calls give the same bits.
+// - Grid: image ranges x N tiles, the N tile fastest (the blocks reading
+//   the same x run together), one block a SM. A block is at most 8 warps:
+//   9 put three warps on one of the four 16,384-register files and ptxas
+//   then caps a thread at 168 registers, where the 64 sums, the A / B
+//   vectors and the walk's offsets spill (ptxas wants ~230-255). So N tiles
+//   of 144 (18 channel groups) take 14 pixel groups (S = 112, 252
+//   threads), tiles of 128 take 16 (S = 128, 256 threads). 112 divides the
+//   pixels of 16 images at every stage (56^2 ... 7^2 x 16), so the serving
+//   ranges end on whole steps.
+
+constexpr int SWF_VMAX = 8;           // x vectors a thread copies a chunk, at most
+constexpr int SWF_SMEM_MAX = 232448;  // 227 KB, a block's most on sm_90
+// Measurement knob, for filter_sweep.py only (y is then wrong): 1 leaves out
+// forming x^, 2 the products, 4 the copies of x and of the filter (the
+// buffers keep what they held), 8 the epilogue (y stores and sums); 15
+// leaves the walk alone.
+#ifndef SWF_ABLATE
+#define SWF_ABLATE 0
+#endif
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
+                                           bool pred) {
+  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
+  const int n = pred ? 16 : 0;
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(s), "l"(gmem), "r"(n) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+struct SpatialFwdF32Args {
+  const float* x;      // [images, H, W, Ci]
+  const float* w;      // [9 * Ci, Co], row tap * Ci + ci
+  const float* inv;    // [Ci] or null
+  const float* shift;
+  float* y;            // [images, H, W, Co]
+  float* part1;        // [ranges, Co]
+  float* part2;
+  int H, W, Ci, Co;
+  int images, images_per_range, n_tiles;
+  int XR;              // rows of a chunk buffer (swf_rows at the step)
+};
+
+// Rows one step of S pixels reads at the worst alignment: dr more image
+// rows, di zero rows between images, and the halo row above and below.
+// ops/conv_bn.py (spatial_ring_rows with one step) computes the same.
+int swf_rows(int H, int W, int S) {
+  const int dr = (S + W - 2) / W;
+  const int di = (dr + H - 1) / H;
+  return dr + di + 3;
+}
+
+// A block's shared memory: two x chunk buffers [XR][W + 2][KC + 4] and two
+// filter chunks [9 * KC][NB] (the block's sums reuse the latter at the
+// end); ops/conv_bn.py (_spatial_fwd_f32_smem) computes the same.
+size_t swf_smem(int W, int XR, int KC, int NB) {
+  return (2 * (size_t)XR * (W + 2) * (KC + 4) + 2 * (size_t)9 * KC * NB) *
+         sizeof(float);
+}
+
+// The stream row of output pixel q of a range: one zero row before every
+// image, so image i's row h is row i * (H + 1) + h + 1.
+__device__ __forceinline__ int swf_stream_row(int q, int W, int H) {
+  const int rho = q / W;
+  return rho + rho / H + 1;
+}
+
+// component k of v (k a constant once the loops are unrolled)
+__device__ __forceinline__ float lane4(const float4 v, int k) {
+  return k == 0 ? v.x : k == 1 ? v.y : k == 2 ? v.z : v.w;
+}
+
+// NPG x NCG threads, each 8 pixels x 8 output channels: S = 8 * NPG pixels
+// a step, NB = 8 * NCG output channels a block.
+template <int NCG, int NPG, int KC, bool AFFINE>
+__global__ void __launch_bounds__(NPG * NCG, 1)
+spatial_fwd_f32_kernel(const SpatialFwdF32Args a) {
+  constexpr int NTH = NPG * NCG, NB = 8 * NCG, S = 8 * NPG;
+  constexpr int LDC = KC + 4;                  // a pixel's stride (floats)
+  constexpr int QV = KC / 4;                   // 16-byte vectors of a pixel's chunk
+  constexpr int XP = NTH / QV;                 // pixels of a copy pass
+  constexpr int FR = 9 * KC;                   // filter rows of a chunk
+  constexpr int FV = FR * NB / 4;              // 16-byte vectors of a filter chunk
+  constexpr int F_IT = (FV + NTH - 1) / NTH;
+  static_assert(NTH % QV == 0 && NPG <= FR && NTH <= 256 && NB <= NTH,
+                "copies, block sums, 8 warps");
+  const int H = a.H, W = a.W, Ci = a.Ci, Co = a.Co;
+  const int WP = W + 2, HW = H * W;
+  const int BUF = a.XR * WP * LDC;             // floats of an x chunk buffer
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* Xb = reinterpret_cast<float*>(smem_raw);   // [2][XR][WP][LDC]
+  float* Fb = Xb + 2 * BUF;                         // [2][FR][NB]
+
+  const int tid = threadIdx.x;
+  const int cg = tid % NCG, pg = tid / NCG;
+  const int n0 = ((int)blockIdx.x % a.n_tiles) * NB;
+  const int range = (int)blockIdx.x / a.n_tiles;
+  const int i0 = range * a.images_per_range;
+  const int nimg = min(a.images, i0 + a.images_per_range) - i0;
+  const int Q = nimg * HW;                      // output pixels of the range
+  const int nq = (Q + S - 1) / S;               // steps of the walk
+  const int nck = (Ci + KC - 1) / KC;           // chunks a step
+  const int64_t P0 = (int64_t)i0 * HW;          // the range's first pixel
+  const int cq = (tid % QV) * 4;                // this thread's channels of a chunk
+
+  // The x buffers zero once: the padding columns are never written again.
+  for (int i = tid; i < 2 * BUF / 4; i += NTH)
+    reinterpret_cast<float4*>(Xb)[i] = zero4();
+  __syncthreads();
+
+  // This thread's x vectors of a step: channels cq .. cq+3 of each chunk at
+  // buffer offset v_off of the range's pixel v_pix (-1: a zero row, -2:
+  // none). The same for every chunk of the step; a thread copies and forms
+  // exactly these.
+  int v_off[SWF_VMAX], v_pix[SWF_VMAX];
+  auto seek_copies = [&](int j) {
+    const int q0 = j * S, q1 = min(Q, q0 + S) - 1;
+    const int rs = swf_stream_row(q0, W, H) - 1;
+    const int npp = (swf_stream_row(q1, W, H) + 2 - rs) * W;
+#pragma unroll
+    for (int k = 0; k < SWF_VMAX; ++k) {
+      const int pp = tid / QV + k * XP;
+      v_off[k] = 0;
+      v_pix[k] = -2;
+      if (pp < npp) {
+        const int lr = pp / W, w = pp - lr * W;
+        const int vr = rs + lr;
+        const int img = vr / (H + 1), hr = vr - img * (H + 1);
+        v_off[k] = (lr * WP + w + 1) * LDC + cq;
+        v_pix[k] = hr == 0 ? -1 : (img * H + hr - 1) * W + w;
+      }
+    }
+  };
+  // This thread's output pixels of step j: the offset of the padded pixel
+  // (h - 1, w - 1) in the chunk buffer (0 past the range: their y is
+  // neither stored nor summed).
+  int base[8];
+  auto seek_pixels = [&](int j) {
+    const int rs = swf_stream_row(j * S, W, H) - 1;
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int q = j * S + pg + NPG * i;
+      base[i] = 0;
+      if (q < Q) {
+        const int rho = q / W;
+        base[i] = ((rho + rho / H - rs) * WP + q - rho * W) * LDC;
+      }
+    }
+  };
+  // chunk ck of the current step into buffer b: the step's x rows for
+  // channels ck*KC .. +KC-1, and the filter chunk [9 * KC, NB]
+  auto copy_chunk = [&](int ck, int b) {
+    if (SWF_ABLATE & 4) return;
+    const int ch = ck * KC + cq;
+    float* xd = Xb + b * BUF;
+#pragma unroll
+    for (int k = 0; k < SWF_VMAX; ++k) {
+      if (v_pix[k] < -1) continue;
+      const bool real = v_pix[k] >= 0 && ch < Ci;
+      cp_async16(xd + v_off[k], real ? a.x + (P0 + v_pix[k]) * Ci + ch : a.x,
+                 real);
+    }
+    float* fd = Fb + b * FR * NB;
+#pragma unroll
+    for (int i = 0; i < F_IT; ++i) {
+      const int idx = tid + i * NTH;
+      if (FV % NTH != 0 && idx >= FV) break;
+      const int r = idx / (NB / 4), c4 = (idx - r * (NB / 4)) * 4;
+      const int tap = r / KC, ci = ck * KC + r - tap * KC;
+      const bool ok = ci < Ci && n0 + c4 < Co;
+      cp_async16(fd + r * NB + c4,
+                 ok ? a.w + ((int64_t)tap * Ci + ci) * Co + n0 + c4 : a.w, ok);
+    }
+  };
+  // x^ = relu(f32(f32(x * inv) + shift)) in place, on this thread's vectors
+  // of real pixels (never the zero rows or columns)
+  auto form_chunk = [&](int ck, int b) {
+    const int ch = ck * KC + cq;
+    if (!AFFINE || (SWF_ABLATE & 1) || ch >= Ci) return;
+    const float4 iv = ld4(a.inv + ch), sv = ld4(a.shift + ch);
+    float* xd = Xb + b * BUF;
+#pragma unroll
+    for (int k = 0; k < SWF_VMAX; ++k) {
+      if (v_pix[k] < 0) continue;
+      float4* p = reinterpret_cast<float4*>(xd + v_off[k]);
+      *p = prologue4(*p, iv, sv);
+    }
+  };
+
+  float acc[8][8];
+  // acc[i][c] += x^ at pixel i's tap t, channel k, times the filter's row
+  // (t, k) at this thread's 8 output channels, over the chunk in buffer b
+  auto products = [&](int b) {
+    const float* xs = Xb + b * BUF;
+    const float* fs = Fb + b * FR * NB + cg * 4;
+    auto tap = [&](int t) {
+      const float* xt = xs + ((t / 3) * WP + t % 3) * LDC;
+      const float* ft = fs + t * KC * NB;
+#pragma unroll
+      for (int q = 0; q < QV; ++q) {
+        float4 av[8];
+#pragma unroll
+        for (int i = 0; i < 8; ++i) av[i] = ld4(xt + base[i] + 4 * q);
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+          const float4 b0 = ld4(ft + (4 * q + kk) * NB);
+          const float4 b1 = ld4(ft + (4 * q + kk) * NB + NB / 2);
+#pragma unroll
+          for (int i = 0; i < 8; ++i) {
+            const float ak = lane4(av[i], kk);
+            acc[i][0] = fmaf(ak, b0.x, acc[i][0]);
+            acc[i][1] = fmaf(ak, b0.y, acc[i][1]);
+            acc[i][2] = fmaf(ak, b0.z, acc[i][2]);
+            acc[i][3] = fmaf(ak, b0.w, acc[i][3]);
+            acc[i][4] = fmaf(ak, b1.x, acc[i][4]);
+            acc[i][5] = fmaf(ak, b1.y, acc[i][5]);
+            acc[i][6] = fmaf(ak, b1.z, acc[i][6]);
+            acc[i][7] = fmaf(ak, b1.w, acc[i][7]);
+          }
+        }
+      }
+    };
+#pragma unroll 1
+    for (int t = 0; t < 9; ++t) tap(t);
+  };
+
+  float s1[8], s2[8];
+#pragma unroll
+  for (int c = 0; c < 8; ++c) s1[c] = s2[c] = 0.f;
+
+  if (nq > 0) {
+    seek_copies(0);
+    copy_chunk(0, 0);
+  }
+  cp_async_commit();
+  int b = 0;                                    // the buffer of the chunk multiplied
+  for (int j = 0; j < nq; ++j) {
+    seek_pixels(j);
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int c = 0; c < 8; ++c) acc[i][c] = 0.f;
+    for (int ck = 0; ck < nck; ++ck) {
+      cp_async_wait_all();                      // this thread's copies of the chunk
+      form_chunk(ck, b);
+      __syncthreads();                          // the chunk formed; the one before done
+      if (ck + 1 < nck) {                       // the next chunk, into the other buffers
+        copy_chunk(ck + 1, b ^ 1);
+      } else if (j + 1 < nq) {                  // the next step's first
+        seek_copies(j + 1);
+        copy_chunk(0, b ^ 1);
+      }
+      cp_async_commit();
+      if (!(SWF_ABLATE & 2)) products(b);
+      b ^= 1;
+    }
+
+    // epilogue: y straight from the registers, and the step's share of the
+    // sums in a fixed order
+    const int npx = min(S, Q - j * S);
+    if (!(SWF_ABLATE & 8)) {
+      const bool lo = n0 + cg * 4 < Co, hi = n0 + NB / 2 + cg * 4 < Co;
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const int p = pg + NPG * i;
+        if (p >= npx) continue;
+        float* yr = a.y + (P0 + (int64_t)j * S + p) * Co + n0 + cg * 4;
+        if (lo)
+          *reinterpret_cast<float4*>(yr) =
+              make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
+        if (hi)
+          *reinterpret_cast<float4*>(yr + NB / 2) =
+              make_float4(acc[i][4], acc[i][5], acc[i][6], acc[i][7]);
+#pragma unroll
+        for (int c = 0; c < 8; ++c) {
+          s1[c] = __fadd_rn(s1[c], acc[i][c]);
+          s2[c] = __fadd_rn(s2[c], __fmul_rn(acc[i][c], acc[i][c]));
+        }
+      }
+    } else if (H < 0) {                         // never true: keeps the products alive
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int c = 0; c < 8; ++c) a.y[i * 8 + c] = acc[i][c];
+    }
+  }
+  cp_async_wait_all();
+  __syncthreads();                              // every product read: reuse the filter buffers
+
+  // the block's partial row: the NPG pixel groups in order
+  float* red1 = Fb;                             // [NPG][NB]
+  float* red2 = Fb + NPG * NB;
+#pragma unroll
+  for (int c = 0; c < 4; ++c) {
+    red1[pg * NB + cg * 4 + c] = s1[c];
+    red1[pg * NB + NB / 2 + cg * 4 + c] = s1[4 + c];
+    red2[pg * NB + cg * 4 + c] = s2[c];
+    red2[pg * NB + NB / 2 + cg * 4 + c] = s2[4 + c];
+  }
+  __syncthreads();
+  if (tid < NB && n0 + tid < Co) {
+    float v1 = 0.f, v2 = 0.f;
+    for (int g = 0; g < NPG; ++g) {
+      v1 += red1[g * NB + tid];
+      v2 += red2[g * NB + tid];
+    }
+    a.part1[(int64_t)range * Co + n0 + tid] = v1;
+    a.part2[(int64_t)range * Co + n0 + tid] = v2;
+  }
+}
+
+template <int NCG, int NPG, int KC, bool AFFINE>
+int launch_spatial_fwd_f32(const SpatialFwdF32Args& a, int ranges,
+                           cudaStream_t stream) {
+  constexpr int NTH = NPG * NCG;
+  const size_t smem = swf_smem(a.W, a.XR, KC, 8 * NCG);
+  if (smem > (size_t)SWF_SMEM_MAX || a.XR * a.W > SWF_VMAX * (NTH / (KC / 4)))
+    return (int)cudaErrorInvalidValue;
+  auto kern = spatial_fwd_f32_kernel<NCG, NPG, KC, AFFINE>;
+  cudaError_t e = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  kern<<<ranges * a.n_tiles, NTH, smem, stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
+// The layouts f32_spatial_fwd_plan (ops/conv_bn.py) can ask for: (N tile,
+// K chunk) -> NCG = N tile / 8 channel groups, NPG pixel groups.
+template <int NCG, int NPG, int KC>
+int spatial_fwd_f32_either(bool affine, SpatialFwdF32Args a, int ranges,
+                           cudaStream_t s) {
+  a.XR = swf_rows(a.H, a.W, 8 * NPG);
+  return affine ? launch_spatial_fwd_f32<NCG, NPG, KC, true>(a, ranges, s)
+                : launch_spatial_fwd_f32<NCG, NPG, KC, false>(a, ranges, s);
+}
+
 }  // namespace
 
 // Forward unit, fp32. x [B, T, H, W, Ci], wk [taps * Ci, Co] (taps 9 for
@@ -628,6 +1021,62 @@ extern "C" int m3f_conv_unit_fwd_f32(const void* x, const void* wk,
   if (e != cudaSuccess) return (int)e;
   colsum_f32_kernel<<<(Co + 31) / 32, dim3(32, 32), 0, s>>>(
       a.part1, a.part2, ranges, Co, (float*)s1, (float*)s2);
+  return (int)cudaGetLastError();
+}
+
+// Spatial forward unit, fp32, the row walk. x [B, T, H, W, Ci], wk
+// [9 * Ci, Co] (row tap * Ci + ci), inv / shift [Ci] or both null, y
+// [B, T, H, W, Co], s1 / s2 [Co], part a scratch of 2 * ranges * Co floats,
+// ranges = ceil(B * T / per); nb (144 or 128) output channels a block (a
+// step of 112 or 128 pixels), kc (16 or 8) input channels a chunk; all fp32, contiguous, 16-byte aligned,
+// Ci and Co multiples of 8. Returns a cudaError_t (cudaErrorInvalidValue
+// where the layout's buffers do not fit).
+extern "C" int m3f_spatial_fwd_f32(const void* x, const void* wk,
+                                   const void* inv, const void* shift, void* y,
+                                   void* s1, void* s2, void* part, int B, int T,
+                                   int H, int W, int Ci, int Co, int nb, int kc,
+                                   int per, void* stream) {
+  const int64_t images = (int64_t)B * T;
+  if (per < 1 || Ci % 8 != 0 || Co % 8 != 0 || Ci == 0 || Co == 0 ||
+      (inv == nullptr) != (shift == nullptr) || (nb != 144 && nb != 128) ||
+      (kc != 16 && kc != 8) || (int64_t)per * H * W >= ((int64_t)1 << 31) ||
+      images >= ((int64_t)1 << 31))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (images * H * W == 0) {
+    cudaMemsetAsync(s1, 0, sizeof(float) * Co, s);
+    cudaMemsetAsync(s2, 0, sizeof(float) * Co, s);
+    return (int)cudaGetLastError();
+  }
+  const int64_t ranges = (images + per - 1) / per;
+  const int n_tiles = (Co + nb - 1) / nb;
+  if (ranges * n_tiles >= ((int64_t)1 << 31)) return (int)cudaErrorInvalidValue;
+  SpatialFwdF32Args a{};
+  a.x = (const float*)x;
+  a.w = (const float*)wk;
+  a.inv = (const float*)inv;
+  a.shift = (const float*)shift;
+  a.y = (float*)y;
+  a.part1 = (float*)part;
+  a.part2 = (float*)part + ranges * Co;
+  a.H = H;
+  a.W = W;
+  a.Ci = Ci;
+  a.Co = Co;
+  a.images = (int)images;
+  a.images_per_range = per;
+  a.n_tiles = n_tiles;
+  const bool affine = inv != nullptr;
+  int err;
+  if (nb == 144)
+    err = kc == 16 ? spatial_fwd_f32_either<18, 14, 16>(affine, a, (int)ranges, s)
+                   : spatial_fwd_f32_either<18, 14, 8>(affine, a, (int)ranges, s);
+  else
+    err = kc == 16 ? spatial_fwd_f32_either<16, 16, 16>(affine, a, (int)ranges, s)
+                   : spatial_fwd_f32_either<16, 16, 8>(affine, a, (int)ranges, s);
+  if (err != 0) return err;
+  colsum_f32_kernel<<<(Co + 31) / 32, dim3(32, 32), 0, s>>>(
+      a.part1, a.part2, (int)ranges, Co, (float*)s1, (float*)s2);
   return (int)cudaGetLastError();
 }
 

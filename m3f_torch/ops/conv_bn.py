@@ -210,6 +210,88 @@ def f32_fwd_plan(b: int, t: int, h: int, w: int, co: int,
     return F32FwdPlan(m_tiles, n_tiles, per, ranges, ranges * n_tiles)
 
 
+# The fp32 spatial forward's row walk (spatial_fwd_f32_kernel in
+# conv_bn_f32.cu): step/8 x n_tile/8 threads, each 8 pixels x 8 output
+# channels, take a step of `step` output pixels x `n_tile` output channels,
+# K in chunks of `k_chunk` input channels for all nine taps; at most 8 warps
+# a block (9 cap a thread's registers at 168), so tiles of 144 take steps of
+# 112 (252 threads), tiles of 128 steps of 128 (256)
+_SWF_STEPS = {144: 112, 128: 128}   # N tile -> output pixels a step (8·NPG)
+_SWF_VMAX = 8              # x vectors a thread copies a chunk (SWF_VMAX)
+_SWF_N_TILES = (144, 128)  # output channels a block, preferred on a tie
+_SWF_K_CHUNKS = (16, 8)    # input channels a chunk, preferred first
+
+
+def _spatial_fwd_f32_smem(w: int, rows: int, k_chunk: int, n_tile: int) -> int:
+    """A block's shared memory (swf_smem in conv_bn_f32.cu): two x chunk
+    buffers of ``rows`` rows of w + 2 pixels at a stride of k_chunk + 4
+    floats, two filter chunks [9·k_chunk, n_tile]."""
+    return 4 * (2 * rows * (w + 2) * (k_chunk + 4) + 2 * 9 * k_chunk * n_tile)
+
+
+class F32SpatialFwdPlan(NamedTuple):
+    """How the fp32 spatial forward's row walk cuts its work: ranges of
+    ``images_per_range`` whole (b, t) images, each walked as one stream of
+    output pixels in steps of ``step`` by ``threads`` threads, K in chunks
+    of ``k_chunk`` input channels for all nine taps over buffers of
+    ``buf_rows`` rows (the rows one step reads); ``n_tiles`` tiles of
+    ``n_tile`` output channels (x̂ is formed once per tile and step);
+    ``blocks`` = ``ranges`` x ``n_tiles``, each range one partial row of
+    s1 / s2 (``part_rows``); ``smem_bytes`` of shared memory a block."""
+    step: int
+    n_tile: int
+    k_chunk: int
+    threads: int
+    buf_rows: int
+    images: int
+    images_per_range: int
+    ranges: int
+    n_tiles: int
+    blocks: int
+    part_rows: int
+    smem_bytes: int
+
+    def images_of(self, r: int) -> range:
+        """The images (b * T + t) of range ``r``, as the kernel takes them."""
+        return range(r * self.images_per_range,
+                     min(self.images, (r + 1) * self.images_per_range))
+
+
+def f32_spatial_fwd_plan(b: int, t: int, h: int, w: int, ci: int, co: int,
+                         sms: int, n_tile: Optional[int] = None,
+                         k_chunk: Optional[int] = None
+                         ) -> Optional[F32SpatialFwdPlan]:
+    """The fp32 spatial forward's tiling on a card of ``sms``
+    multiprocessors: the N tile of _SWF_N_TILES that pads C_out least (144
+    on a tie: every fused width divides by 144 or by 128), then the first
+    chunk of _SWF_K_CHUNKS whose step's rows a thread's copies cover and
+    whose buffers fit a block's shared memory (else the other N tile); then
+    ``sms // n_tiles`` ranges of whole images, at most one per image.
+    ``n_tile`` / ``k_chunk`` ask for one layout (the sweep's). None where no
+    layout fits: the wrapper then takes the per-tap gather
+    (``f32_fwd_plan``)."""
+    tiles = sorted(_SWF_N_TILES, key=lambda n: _cdiv(co, n) * n)
+    for nb in (n_tile,) if n_tile else tiles:
+        step = _SWF_STEPS[nb]
+        rows = spatial_ring_rows(h, w, step, 1)
+        threads = step // 8 * nb // 8
+        for kc in (k_chunk,) if k_chunk else _SWF_K_CHUNKS:
+            smem = _spatial_fwd_f32_smem(w, rows, kc, nb)
+            if rows * w > _SWF_VMAX * threads // (kc // 4) \
+                    or smem > _SMEM_BLOCK_MAX:
+                continue
+            images = b * t
+            n_tiles = _cdiv(co, nb)
+            per = _cdiv(images, max(1, min(images, sms // n_tiles)))
+            if per * h * w >= 2 ** 31:
+                return None
+            ranges = _cdiv(images, per)
+            return F32SpatialFwdPlan(step, nb, kc, threads, rows, images,
+                                     per, ranges, n_tiles, ranges * n_tiles,
+                                     ranges, smem)
+    return None
+
+
 def _aligned16(t: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
     """``t`` contiguous on 16-byte-aligned storage (the kernel's vector
     loads): a copy where its base is off 16 bytes."""
@@ -220,8 +302,11 @@ def _aligned16(t: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
 
 
 def _conv_unit_fwd_f32(x, w, inv, shift, kind):
-    """The fp32 unit on the card (Ci, Co multiples of 8): one launch of
-    conv_f32_kernel plus the fixed-order sum of its partial rows."""
+    """The fp32 unit on the card (Ci, Co multiples of 8): one launch of the
+    spatial row walk (spatial_fwd_f32_kernel, ``f32_spatial_fwd_plan``) or,
+    for the temporal kind and where no row-walk layout fits, of the per-tap
+    gather (conv_f32_kernel, ``f32_fwd_plan``), plus the fixed-order sum of
+    its partial rows."""
     b, t, h, wd, ci = x.shape
     co = w.shape[-1]
     taps = 9 if kind == "spatial" else 3
@@ -230,20 +315,28 @@ def _conv_unit_fwd_f32(x, w, inv, shift, kind):
     inv = _aligned16(None if inv is None else inv.float())
     shift = _aligned16(None if shift is None else shift.float())
     sms = torch.cuda.get_device_properties(x.device).multi_processor_count
-    plan = f32_fwd_plan(b, t, h, wd, co, sms)
+    walk = f32_spatial_fwd_plan(b, t, h, wd, ci, co, sms) \
+        if kind == "spatial" else None
+    gather = f32_fwd_plan(b, t, h, wd, co, sms) if walk is None else None
+    rows = walk.part_rows if walk is not None else gather.ranges
     y = torch.empty(b, t, h, wd, co, dtype=torch.float32, device=x.device)
     s1 = torch.empty(co, dtype=torch.float32, device=x.device)
     s2 = torch.empty(co, dtype=torch.float32, device=x.device)
-    part = torch.empty(2 * plan.ranges * co, dtype=torch.float32,
-                       device=x.device)
-    with torch.cuda.device(x.device):
-        err = cuda_lib.library("conv_bn_f32").m3f_conv_unit_fwd_f32(
-            x.data_ptr(), wk.data_ptr(),
+    part = torch.empty(2 * rows * co, dtype=torch.float32, device=x.device)
+    ptrs = (x.data_ptr(), wk.data_ptr(),
             None if inv is None else inv.data_ptr(),
             None if shift is None else shift.data_ptr(),
-            y.data_ptr(), s1.data_ptr(), s2.data_ptr(), part.data_ptr(),
-            0 if kind == "spatial" else 1, b, t, h, wd, ci, co,
-            plan.tiles_per_range, cuda_lib.stream_ptr(x))
+            y.data_ptr(), s1.data_ptr(), s2.data_ptr(), part.data_ptr())
+    lib = cuda_lib.library("conv_bn_f32")
+    with torch.cuda.device(x.device):
+        if walk is not None:
+            err = lib.m3f_spatial_fwd_f32(
+                *ptrs, b, t, h, wd, ci, co, walk.n_tile, walk.k_chunk,
+                walk.images_per_range, cuda_lib.stream_ptr(x))
+        else:
+            err = lib.m3f_conv_unit_fwd_f32(
+                *ptrs, 0 if kind == "spatial" else 1, b, t, h, wd, ci, co,
+                gather.tiles_per_range, cuda_lib.stream_ptr(x))
     cuda_lib.check(err, f"conv_unit_fwd {kind} fp32 kernel")
     cuda_lib.launches[f"conv_{kind}_f32"] += 1
     return y, s1, s2

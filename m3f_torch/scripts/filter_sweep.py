@@ -64,6 +64,20 @@ in the full-width ``fusion`` train step (32 clips, BN prologue on), beside:
   cuDNN's conv alone and with the fp32 sums of y, a device copy of x and y,
   and with ``--parent`` an earlier ``conv_bn.cu``'s temporal forward (the
   per-tap gather, ``conv_unit_kernel``), timed before and after the rest;
+- ``--kind spatial_fwd_f32``: ``conv_unit_fwd`` of the spatial unit at fp32
+  x (the row walk ``spatial_fwd_f32_kernel`` in ``csrc/conv_bn_f32.cu``) at
+  the four spatial units of the serving forward (128 clips) and at a
+  stage-1 unit of 112x112 images (``data.image_size=224``, 32 clips: the
+  plan's 8-channel chunks), with and without the prologue, every time a
+  device time: in alternating rounds the wrapper, every layout the plan
+  can choose (N tiles of 144 and 128, K chunks of 16 and 8) through the C
+  entry, the per-tap gather (``conv_f32_kernel``, the first design and the
+  route of images too wide for the walk) through this source's
+  ``m3f_conv_unit_fwd_f32`` and, with ``--parent``, through an earlier
+  ``conv_bn_f32.cu``'s, and cuDNN's fp32 conv plus the sums (TF32 off);
+  ablations built with ``-DSWF_ABLATE``: without
+  forming x̂ (1), the products (2), the copies (4), the epilogue (8), and
+  the walk alone (15); cuDNN's conv alone and a device copy of x and y;
 - ``--kind mel``: the mel FFT kernel at the serving path's shapes (static
   and per-row hop), and the DFT-product kernel (n_fft 400) at the same
   rows, against their plain versions, and beside ``torch.stft`` + the mel
@@ -113,6 +127,9 @@ Run on a machine with an NVIDIA GPU, from the repository root:
     python -m m3f_torch.scripts.filter_sweep --kind spatial_fwd --check
     python -m m3f_torch.scripts.filter_sweep --kind spatial_fwd \
         --parent build/parent/conv_bn.cu
+    python -m m3f_torch.scripts.filter_sweep --kind spatial_fwd_f32 --check
+    python -m m3f_torch.scripts.filter_sweep --kind spatial_fwd_f32 \
+        --parent build/parent/conv_bn_f32.cu
     python -m m3f_torch.scripts.filter_sweep --kind temporal_fwd --check
     python -m m3f_torch.scripts.filter_sweep --kind temporal_fwd \
         --parent build/parent/conv_bn.cu
@@ -130,8 +147,9 @@ prints what ``ptxas`` says of the kernel (registers, spills, shared memory)
 and holds the kernel once against the plain version at each shape and at a
 few small ones (``temporal_data``: at every layout the entry point takes;
 ``spatial_data``: at every step; ``spatial_fwd``: at every layout, filter
-resident and streamed; ``temporal_fwd``: at every layout; ``gru``: on
-both routes at the edge shapes too, and at every layout; ``packed`` and
+resident and streamed; ``spatial_fwd_f32``: at every layout;
+``temporal_fwd``: at every layout; ``gru``: on both routes at the edge
+shapes too, and at every layout; ``packed`` and
 ``packed_ablate``: every layout at small, edge and full shapes, and an
 input one element off 16 bytes, which must give the plain version's y).
 Nothing runs at import.
@@ -208,15 +226,18 @@ def resources(kind: str) -> None:
     """Print what ptxas says of the kind's kernels
     (``<kind>_filter_kernel``, ``temporal_data_kernel``,
     ``spatial_data_kernel``, ``spatial_fwd_kernel``, ``temporal_fwd_kernel``;
+    in conv_bn_f32.cu ``spatial_fwd_f32_kernel``;
     in melspec.cu ``log_mel_kernel`` and ``log_mel_dft_kernel``; in gru.cu
     ``gru_cluster_kernel`` and ``gru_kernel``)."""
     kernels = {"spatial_fwd": ("spatial_fwd_kernel",),
+               "spatial_fwd_f32": ("spatial_fwd_f32_kernel",),
                "temporal_fwd": ("temporal_fwd_kernel",),
                "mel": ("log_mel",),
                "gru": ("18gru_cluster_kernel", "10gru_kernel")}.get(
         kind, (f"{kind}_kernel" if kind.endswith("_data")
                else f"{kind}_filter_kernel",))
-    source = {"mel": "melspec", "gru": "gru"}.get(kind, "conv_bn")
+    source = {"mel": "melspec", "gru": "gru",
+              "spatial_fwd_f32": "conv_bn_f32"}.get(kind, "conv_bn")
     log = subprocess.run(
         [cuda_lib._nvcc(), *cuda_lib.NVCC_FLAGS, "-Xptxas", "-v", "-o",
          "/dev/null", *(["-DTD_TRIALS"] if kind == "temporal_data" else []),
@@ -1127,6 +1148,215 @@ def sweep_temporal_fwd(reps: int, parent: Optional[str]) -> None:
         torch.cuda.empty_cache()
 
 
+# --- the fp32 spatial forward -----------------------------------------------
+
+# ablation builds of conv_bn_f32.cu (-DSWF_ABLATE)
+SWF_ABLATIONS = {"no_forming": 1, "no_products": 2, "no_copies": 4,
+                 "no_epilogue": 8, "walk_only": 15}
+# every layout the plan can choose: (N tile, K chunk)
+SWF_LAYOUTS = tuple((nb, kc) for nb in conv_bn._SWF_N_TILES
+                    for kc in conv_bn._SWF_K_CHUNKS)
+# small shapes (x shape, C_out): partial chunks, masked N tiles, steps
+# across images (7x7 and 4x7 images, 135 images: ranges of 2), one-pixel
+# images (8-channel chunks), C_out 1152 / 256 / 200, images too wide for
+# the walk (the per-tap gather)
+SWF_SMALL = (((3, 5, 7, 9, 24), 40), ((3, 45, 7, 7, 24), 40),
+             ((2, 3, 4, 7, 40), 200), ((2, 16, 7, 7, 64), 1152),
+             ((2, 4, 14, 14, 32), 256), ((3, 4, 1, 1, 16), 72),
+             ((1, 2, 9, 9, 200), 152), ((1, 2, 2, 240, 16), 16))
+# stage 1 of data.image_size=224 (112x112 images) at 32 clips: too wide for
+# 16-channel chunks, so the plan takes 8-channel ones
+SWF_WIDE = (((32, 16, 112, 112, 64), 144),)
+SWF_ENTRY = "m3f_spatial_fwd_f32"
+PARENT_F32_ENTRY = "m3f_conv_unit_fwd_f32"
+
+
+def swf_inputs(xs, co, dev, g):
+    ci = xs[-1]
+    x = torch.randn(*xs, device=dev, generator=g)
+    w = (torch.rand(3, 3, ci, co, device=dev, generator=g) * 2 - 1) / (9 * ci) ** 0.5
+    inv = torch.rand(ci, device=dev, generator=g) + 0.5
+    shift = torch.randn(ci, device=dev, generator=g) * 0.1
+    return x, w, inv, shift
+
+
+def launch_swf(fn, x, wk, inv, shift, layout=None):
+    """One call of a build's ``m3f_spatial_fwd_f32`` with the planner's
+    layout or ``layout`` = (N tile, K chunk) (what ``conv_unit_fwd`` does
+    for fp32 x, minus its checks); ``inv`` None leaves the prologue out.
+    None where the layout does not fit."""
+    b, t, h, wd, ci = x.shape
+    co = wk.shape[1]
+    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+    nb, kc = layout or (None, None)
+    plan = conv_bn.f32_spatial_fwd_plan(b, t, h, wd, ci, co, sms, nb, kc)
+    if plan is None:
+        return None
+    y = torch.empty(*x.shape[:-1], co, device=x.device)
+    s1 = torch.empty(co, device=x.device)
+    s2 = torch.empty_like(s1)
+    part = torch.empty(2 * plan.part_rows * co, device=x.device)
+    ptr = lambda v: None if v is None else v.data_ptr()
+    err = fn(x.data_ptr(), wk.data_ptr(), ptr(inv), ptr(shift), y.data_ptr(),
+             s1.data_ptr(), s2.data_ptr(), part.data_ptr(), b, t, h, wd, ci,
+             co, plan.n_tile, plan.k_chunk, plan.images_per_range,
+             cuda_lib.stream_ptr(x))
+    cuda_lib.check(err, f"fp32 spatial forward sweep, {layout}")
+    return y, s1, s2
+
+
+def launch_gather_f32(fn, x, wk, inv, shift):
+    """One call of a ``m3f_conv_unit_fwd_f32`` (the per-tap gather,
+    conv_f32_kernel, kind 0) with ``f32_fwd_plan``'s tiling."""
+    b, t, h, wd, ci = x.shape
+    co = wk.shape[1]
+    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+    plan = conv_bn.f32_fwd_plan(b, t, h, wd, co, sms)
+    y = torch.empty(*x.shape[:-1], co, device=x.device)
+    s1 = torch.empty(co, device=x.device)
+    s2 = torch.empty_like(s1)
+    part = torch.empty(2 * plan.ranges * co, device=x.device)
+    ptr = lambda v: None if v is None else v.data_ptr()
+    err = fn(x.data_ptr(), wk.data_ptr(), ptr(inv), ptr(shift), y.data_ptr(),
+             s1.data_ptr(), s2.data_ptr(), part.data_ptr(), 0, b, t, h, wd,
+             ci, co, plan.tiles_per_range, cuda_lib.stream_ptr(x))
+    cuda_lib.check(err, "fp32 gather forward")
+    return y, s1, s2
+
+
+def check_spatial_fwd_f32() -> None:
+    """ptxas' resource lines of spatial_fwd_f32_kernel, then the fp32
+    spatial forward against the plain version (TF32 off), with and without
+    the prologue: the wrapper once at each small and serving shape (and
+    whether a second call repeats y, s1 and s2 bit for bit), every layout
+    of SWF_LAYOUTS that fits at each shape, and the per-tap gather."""
+    dev = resolve_device("cuda")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    resources("spatial_fwd_f32")
+    cuda_lib.build(["conv_bn_f32"])
+    lib = cuda_lib.library("conv_bn_f32")
+    main, gather = getattr(lib, SWF_ENTRY), getattr(lib, PARENT_F32_ENTRY)
+    g = torch.Generator(device=dev).manual_seed(13)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for xs, co in SWF_SMALL + FWD_SHAPES:
+        x, w, inv, shift = swf_inputs(xs, co, dev, g)
+        wk = w.reshape(9 * xs[-1], co)
+        plan = conv_bn.f32_spatial_fwd_plan(*xs, co, sms)
+        row = {"x": list(xs), "co": co,
+               "plan": None if plan is None else [
+                   plan.step, plan.n_tile, plan.k_chunk, plan.buf_rows,
+                   plan.ranges, plan.smem_bytes]}
+        for affine in (True, False):
+            a = (inv, shift) if affine else (None, None)
+            got = conv_bn.conv_unit_fwd(x, w, *a, kind="spatial")
+            again = conv_bn.conv_unit_fwd(x, w, *a, kind="spatial")
+            torch.cuda.synchronize()
+            ref = conv_bn.conv_unit_reference(x, w, *a, kind="spatial")
+            key = "affine" if affine else "plain"
+            row[key] = {"max_err_over_max_ref": _fwd_errors(got, ref),
+                        "repeats": all(torch.equal(p, q)
+                                       for p, q in zip(got, again))}
+            for layout in SWF_LAYOUTS:
+                out = launch_swf(main, x, wk, *a, layout=layout)
+                torch.cuda.synchronize()
+                row[key][f"{layout[0]}x{layout[1]}"] = \
+                    None if out is None else _fwd_errors(out, ref)
+                del out
+            out = launch_gather_f32(gather, x, wk, *a)
+            torch.cuda.synchronize()
+            row[key]["gather"] = _fwd_errors(out, ref)
+            del out
+            del got, again, ref
+            torch.cuda.empty_cache()
+        print(json.dumps(row), flush=True)
+        del x
+        torch.cuda.empty_cache()
+
+
+def sweep_spatial_fwd_f32(reps: int, parent: Optional[str]) -> None:
+    """The fp32 spatial forward at the serving forward's four spatial
+    units (128 clips) and at SWF_WIDE, with and without the prologue,
+    every time a device time: in alternating rounds the wrapper, every
+    layout through the C entry, the per-tap gather through this source's
+    entry and, with ``parent``, through that source's, and cuDNN's fp32
+    conv plus the sums (TF32 off); then the ablation builds, cuDNN's conv
+    alone and a device copy of x and y."""
+    import torch.nn.functional as F
+    dev = resolve_device("cuda")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cuda_lib.build(["conv_bn_f32"])
+    lib = cuda_lib.library("conv_bn_f32")
+    main, gather = getattr(lib, SWF_ENTRY), getattr(lib, PARENT_F32_ENTRY)
+    src = str(cuda_lib.CSRC / "conv_bn_f32.cu")
+    defines = {f"swf_{name}": f"SWF_ABLATE={k}"
+               for name, k in SWF_ABLATIONS.items()}
+    built = build_variants(defines, SWF_ENTRY, {name: src for name in defines},
+                           cuda_lib.SIGNATURES["conv_bn_f32"][SWF_ENTRY])
+    old = None
+    if parent:
+        old = build_variants({"parent_f32": ""}, PARENT_F32_ENTRY,
+                             {"parent_f32": parent},
+                             cuda_lib.SIGNATURES["conv_bn_f32"][PARENT_F32_ENTRY]
+                             )["parent_f32"]
+    g = torch.Generator(device=dev).manual_seed(13)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for xs, co in FWD_SHAPES + SWF_WIDE:
+        ci = xs[-1]
+        x, w, inv, shift = swf_inputs(xs, co, dev, g)
+        wk = w.reshape(9 * ci, co)
+        plan = conv_bn.f32_spatial_fwd_plan(*xs, co, sms)
+        kern, pad = conv_bn._torch_kernel(w, "spatial")
+        kern = kern.contiguous(memory_format=torch.channels_last_3d)
+        m = x.numel() // ci
+        flops = 2 * m * 9 * ci * co
+        for affine in (True, False):
+            a = (inv, shift) if affine else (None, None)
+            xh = conv_bn._prologue(x, *a).permute(0, 4, 1, 2, 3)
+
+            def sums():
+                yf = F.conv3d(xh, kern, padding=pad)
+                return yf.sum((0, 2, 3, 4)), (yf * yf).sum((0, 2, 3, 4))
+            fns = {"wrapper": lambda: conv_bn.conv_unit_fwd(
+                x, w, *a, kind="spatial")}
+            for layout in SWF_LAYOUTS:
+                if launch_swf(main, x, wk, *a, layout=layout) is not None:
+                    fns[f"layout_{layout[0]}x{layout[1]}"] = \
+                        lambda layout=layout: launch_swf(main, x, wk, *a,
+                                                         layout=layout)
+            fns["gather"] = lambda: launch_gather_f32(gather, x, wk, *a)
+            if old is not None:
+                fns["parent"] = lambda: launch_gather_f32(old, x, wk, *a)
+            fns["cudnn_conv_sums"] = sums
+            row = {"kind": "spatial_fwd_f32", "x": list(xs), "co": co,
+                   "affine": affine, "plan": plan._asdict(),
+                   "alternating_ms": alternating(fns, reps)}
+            row["ms"] = row["alternating_ms"]["wrapper"][0]
+            for name, fn in built.items():
+                row[f"{name[4:]}_ms"] = timed(
+                    lambda: launch_swf(fn, x, wk, *a), reps, queued=True)
+            row["cudnn_conv_ms"] = timed(
+                lambda: F.conv3d(xh, kern, padding=pad), reps, queued=True)
+            bx = torch.empty_like(x)
+            by = torch.empty(*xs[:-1], co, device=dev)
+            sy = torch.zeros_like(by)
+            row["copy_x_and_y_ms"] = timed(
+                lambda: (bx.copy_(x), by.copy_(sy)), reps, queued=True)
+            nbytes = 4 * (m * ci + m * co + 9 * ci * co + 2 * co
+                          + (2 * ci if affine else 0))
+            row["bound_ms"] = max(nbytes / HBM, flops / PEAK_FP32) * 1e3
+            row["bound_by"] = "bytes" if nbytes / HBM >= flops / PEAK_FP32 \
+                else "operations"
+            row["tflops"] = flops / row["ms"] / 1e9
+            row["share_of_bound"] = row["bound_ms"] / row["ms"]
+            print(json.dumps(row), flush=True)
+            del xh, bx, by, sy
+            torch.cuda.empty_cache()
+        del x
+        torch.cuda.empty_cache()
+
+
 # --- the log-mel frontend ---------------------------------------------------
 
 def sweep_mel(reps: int, check_only: bool) -> None:
@@ -1847,6 +2077,7 @@ def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--kind", choices=("spatial", "temporal", "temporal_data",
                                        "spatial_data", "spatial_fwd",
+                                       "spatial_fwd_f32",
                                        "temporal_fwd", "mel", "gru",
                                        "packed", "packed_ablate"),
                     default="spatial")
@@ -1854,7 +2085,10 @@ def main(argv=None) -> None:
     ap.add_argument("--check", action="store_true",
                     help="ptxas' resource lines and one comparison per shape")
     ap.add_argument("--parent", default=None,
-                    help="spatial_fwd / temporal_fwd: a conv_bn.cu whose "
+                    help="spatial_fwd_f32: a conv_bn_f32.cu whose fp32 "
+                         "forward (m3f_conv_unit_fwd_f32, the per-tap gather) "
+                         "is timed beside the row walk; "
+                         "spatial_fwd / temporal_fwd: a conv_bn.cu whose "
                          "forward of that kind (the per-tap gather, C entry "
                          "before the walk) is timed beside the kernel; gru: "
                          "a gru.cu whose m3f_gru_fwd is; packed: a "
@@ -1871,6 +2105,9 @@ def main(argv=None) -> None:
     elif opts.kind == "spatial_fwd":
         check_spatial_fwd() if opts.check \
             else sweep_spatial_fwd(opts.reps, opts.parent)
+    elif opts.kind == "spatial_fwd_f32":
+        check_spatial_fwd_f32() if opts.check \
+            else sweep_spatial_fwd_f32(opts.reps, opts.parent)
     elif opts.kind == "temporal_fwd":
         check_temporal_fwd() if opts.check \
             else sweep_temporal_fwd(opts.reps, opts.parent)

@@ -1,15 +1,21 @@
-"""The fp32 forward conv unit (``conv_f32_kernel`` in
-m3f_torch/csrc/conv_bn_f32.cu, wrapped by ``ops.conv_bn.conv_unit_fwd``
-for fp32 x) where a CPU can hold it: its tiling (``f32_fwd_plan``) at every
-fused unit's serving and training shape, a numpy run of the kernel's walk
-(position tiles of 64, K in chunks of 16 input channels a tap, the neighbour
-gather with its zero padding, the two-rounding prologue, partial rows of
-the sums per range) against the JAX package's Pallas units in fp32 under
-interpret mode (as tests/test_conv_bn_fused.py runs them), the scoped fp32
-precision of ``nn.full_fp32`` (no TF32) across threads, and one train step
-of an fp32 model with fused units against the JAX package's (its backward
-kernels are tests/test_torch_conv_f32_bwd.py's). The kernel itself runs
-only on the card (chip_smoke.py, phase kernel_conv_f32).
+"""The fp32 forward conv unit (wrapped by ``ops.conv_bn.conv_unit_fwd`` for
+fp32 x; m3f_torch/csrc/conv_bn_f32.cu) where a CPU can hold it: the spatial
+kind's row walk (``spatial_fwd_f32_kernel``, tiled by
+``f32_spatial_fwd_plan``) and the temporal kind's per-tap gather
+(``conv_f32_kernel``, ``f32_fwd_plan``) at every fused unit's serving and
+training shape, numpy runs of both walks against the JAX package's Pallas
+units in fp32 under interpret mode (as tests/test_conv_bn_fused.py runs
+them): the row walk's steps of 128 output pixels over ranges of whole
+images with a zero row before every image and after the last, zero
+columns, the two-rounding prologue on real pixels only, K in chunks of 16
+(or 8) input channels for all nine taps, N tiles of 144 / 128 and the
+fixed order of its sums; the gather's position tiles of 64, K in chunks of
+16 input channels a tap with its zero padding; both with partial rows of
+the sums per range. Also the scoped fp32 precision of ``nn.full_fp32`` (no
+TF32) across threads, and one train step of an fp32 model with fused
+units against the JAX package's (its backward kernels are
+tests/test_torch_conv_f32_bwd.py's). The kernels themselves run only on
+the card (chip_smoke.py, phase kernel_conv_f32).
 
 Tolerances: y within F32_TOL of its largest magnitude (fp32 sums in another
 order); the sums per channel rtol 1e-4 / atol 1e-2 (tests/test_torch_conv_bn.py,
@@ -36,7 +42,86 @@ SMS = 132
 
 
 def _emulate(x, w, inv, shift, kind, sms=SMS):
-    """The kernel's walk in numpy (fp32): returns (y, s1, s2)."""
+    """The kernel's walk in numpy (fp32): returns (y, s1, s2). The spatial
+    kind takes the row walk where its plan has a layout, else (as the
+    wrapper) the per-tap gather."""
+    b, t, h, wd, ci = x.shape
+    if kind == "spatial":
+        plan = conv_bn.f32_spatial_fwd_plan(b, t, h, wd, ci, w.shape[-1], sms)
+        if plan is not None:
+            return _emulate_row_walk(x, w, inv, shift, plan)
+    return _emulate_gather(x, w, inv, shift, kind, sms)
+
+
+def _emulate_row_walk(x, w, inv, shift, plan):
+    """spatial_fwd_f32_kernel's walk: per range of images a stream of rows
+    (a zero row before every image and after the last, zero columns 0 and
+    W+1, x̂ formed on real pixels only), steps of ``plan.step`` output
+    pixels reading the buffer rows from the one above the first pixel to
+    the one below the last, K in chunks of ``plan.k_chunk`` channels for
+    all nine taps at one offset per pixel plus (dh·(W+2) + dw); pixel p's
+    y and y² summed by pixel group p % (step / 8) over the walk in order,
+    then the groups in order into the range's partial row, then the rows in
+    order."""
+    b, t, h, wd, ci = x.shape
+    co = w.shape[-1]
+    step, kc = plan.step, plan.k_chunk
+    npg = step // 8                            # pixel groups (threads a column)
+    cip = -(-ci // kc) * kc
+    ncols = plan.n_tiles * plan.n_tile
+    xh = x if inv is None else np.maximum(np.float32(x * inv) + shift,
+                                          np.float32(0))
+    imgs = xh.reshape(b * t, h, wd, ci)
+    wk = np.zeros((9, cip, ncols), np.float32)
+    wk[:, :ci, :co] = w.reshape(9, ci, co)
+    y = np.zeros((b * t * h * wd, co), np.float32)
+    rows1, rows2 = [], []
+    for r in range(plan.ranges):
+        ims = plan.images_of(r)
+        stream = np.zeros((len(ims) * (h + 1) + 1, wd + 2, cip), np.float32)
+        for k, i in enumerate(ims):
+            stream[k * (h + 1) + 1:(k + 1) * (h + 1), 1:wd + 1, :ci] = imgs[i]
+        q_all = len(ims) * h * wd
+        p0 = ims[0] * h * wd
+        g1 = np.zeros((npg, ncols), np.float32)
+        g2 = np.zeros((npg, ncols), np.float32)
+        for j in range(-(-q_all // step)):
+            q = np.arange(j * step, min(q_all, (j + 1) * step))
+            rho = q // wd
+            vr = rho + rho // h + 1            # stream rows of the pixels
+            rs, re = vr[0] - 1, vr[-1] + 1
+            assert re - rs + 1 <= plan.buf_rows
+            buf = stream[rs:re + 1]
+            lr, col = vr - rs, q - rho * wd
+            acc = np.zeros((len(q), ncols), np.float32)
+            for ck in range(cip // kc):
+                for tap in range(9):
+                    dh, dw = divmod(tap, 3)
+                    a = buf[lr - 1 + dh, col + dw, ck * kc:(ck + 1) * kc]
+                    acc += a @ wk[tap, ck * kc:(ck + 1) * kc]
+            y[p0 + q] = acc[:, :co]
+            for i in range(0, len(q), npg):
+                blk = acc[i:i + npg]
+                g1[:len(blk)] += blk
+                g2[:len(blk)] += blk * blk
+        v1 = np.zeros(ncols, np.float32)
+        v2 = np.zeros(ncols, np.float32)
+        for g in range(npg):
+            v1 += g1[g]
+            v2 += g2[g]
+        rows1.append(v1[:co])
+        rows2.append(v2[:co])
+    s1 = np.zeros(co, np.float32)
+    s2 = np.zeros(co, np.float32)
+    for v1, v2 in zip(rows1, rows2):
+        s1 += v1
+        s2 += v2
+    return y.reshape(b, t, h, wd, co), s1, s2
+
+
+def _emulate_gather(x, w, inv, shift, kind, sms=SMS):
+    """conv_f32_kernel's walk (the temporal kind, and the spatial kind
+    where no row-walk layout fits)."""
     b, t, h, wd, ci = x.shape
     co = w.shape[-1]
     taps = 9 if kind == "spatial" else 3
@@ -89,7 +174,23 @@ EMU_CASES = [
     ("temporal", (2, 1, 3, 5, 24), (3, 24, 40)),
     ("temporal", (3, 2, 4, 5, 16), (3, 16, 72)),
     ("temporal", (2, 5, 6, 3, 40), (3, 40, 24)),
+    # the row walk: W 7 with steps across images (ranges of 4 images of 49
+    # pixels, the last range's one step partial), a partial chunk and a
+    # masked N tile; 1x1 images (a zero row between every two pixels: the
+    # 16-channel buffers do not fit, the 8-channel ones do) with C_out 200
+    # in two N tiles of 128; 4x7 images, three a step, C_in 40 (chunks of
+    # 16, 16, 8); 7x7 images at C_out 144, one N tile
+    ("spatial", (2, 5, 7, 7, 24), (3, 3, 24, 40)),
+    ("spatial", (1, 4, 1, 1, 16), (3, 3, 16, 200)),
+    ("spatial", (2, 3, 4, 7, 40), (3, 3, 40, 200)),
+    ("spatial", (2, 4, 7, 7, 16), (3, 3, 16, 144)),
+    # images too wide for the row walk: the spatial kind's per-tap gather
+    ("spatial", (1, 2, 2, 240, 16), (3, 3, 16, 16)),
 ]
+# the multiprocessors the plan is made for, where not SMS: fewer put
+# several images in a range, so that a step spans images
+EMU_SMS = {(2, 5, 7, 7, 24): 3, (1, 4, 1, 1, 16): 2, (2, 3, 4, 7, 40): 4,
+           (2, 4, 7, 7, 16): 2, (3, 2, 1, 1, 8): 2}
 
 
 def _data(xshape, wshape, seed):
@@ -105,7 +206,7 @@ def _data(xshape, wshape, seed):
 def test_kernel_walk_matches_pallas_unit_fp32(kind, xshape, wshape, affine):
     x, w, inv, shift = _data(xshape, wshape, seed=len(xshape) + xshape[0])
     a = (inv, shift) if affine else (None, None)
-    got = _emulate(x, w, *a, kind)
+    got = _emulate(x, w, *a, kind, sms=EMU_SMS.get(xshape, SMS))
     ja = tuple(jnp.asarray(v) for v in a) if affine else (None, None)
     wants = [cb.conv_unit_reference(jnp.asarray(x), jnp.asarray(w), *ja,
                                     kind=kind)]
@@ -151,6 +252,69 @@ def test_plan_covers_every_unit_shape(clips, mode):
         assert p.ranges <= 65535 and p.n_tiles * 64 >= co
         assert p.blocks <= 8 * SMS + p.n_tiles
         assert p.blocks >= min(p.m_tiles * p.n_tiles, 4 * SMS)
+
+
+@pytest.mark.parametrize("mode", ["flops", "lane"])
+@pytest.mark.parametrize("clips", [128, 32])
+def test_spatial_fwd_plan_covers_every_spatial_unit(clips, mode):
+    """The row walk's plan at every fused spatial unit (C_in -> the
+    midplane width): a layout at every one, every image in exactly one
+    range, one wave of blocks, N tiles covering C_out, NB 144 or 128 where
+    one divides C_out (so no masked columns at any fused width), steps of
+    112 (NB 144) or 128 (NB 128) pixels, at 128 clips those of 112 ending
+    on the ranges' last pixel (16 images), at most 8 warps a block, the
+    16-channel chunks, buffers that hold a step's rows and that a thread's
+    copies cover, within a block's shared memory, at most 65535 ranges."""
+    for xs, co in _unit_shapes(clips, mode)[::2]:
+        b, t, h, w, ci = xs
+        p = conv_bn.f32_spatial_fwd_plan(b, t, h, w, ci, co, SMS)
+        assert p is not None and p.k_chunk == 16
+        assert p.images == b * t
+        covered = [i for r in range(p.ranges) for i in p.images_of(r)]
+        assert covered == list(range(p.images))
+        assert all(len(p.images_of(r)) for r in range(p.ranges))
+        assert p.ranges <= 65535 and p.part_rows == p.ranges
+        assert p.n_tile in (144, 128) and p.n_tiles == -(-co // p.n_tile)
+        assert co % p.n_tile == 0 and (co % 144 or p.n_tile == 144)
+        assert p.blocks == p.ranges * p.n_tiles <= SMS
+        assert p.step == {144: 112, 128: 128}[p.n_tile]
+        assert p.threads == p.step // 8 * p.n_tile // 8 <= 256
+        if p.n_tile == 144 and clips == 128:
+            assert p.images_per_range * h * w % p.step == 0
+        assert p.buf_rows == conv_bn.spatial_ring_rows(h, w, p.step, 1)
+        assert p.buf_rows * w <= 8 * p.threads // (p.k_chunk // 4)
+        assert p.smem_bytes == conv_bn._spatial_fwd_f32_smem(
+            w, p.buf_rows, p.k_chunk, p.n_tile) <= 227 * 1024
+
+
+# (B, T, H, W, C_in, C_out) -> (N tile, K chunk) or None (the gather)
+PLAN_EDGES = {(2, 5, 7, 7, 24, 40): (128, 16),
+              (1, 4, 1, 1, 16, 200): (128, 8),
+              (2, 3, 4, 7, 40, 200): (128, 16),
+              (3, 5, 7, 9, 24, 1152): (144, 16),
+              (1, 2, 7, 7, 24, 256): (128, 16),
+              (1, 2, 2, 200, 16, 16): (128, 8),
+              (1, 2, 2, 240, 16, 16): None,
+              (1, 2, 2, 600, 16, 16): None}
+
+
+@pytest.mark.parametrize("shape", list(PLAN_EDGES),
+                         ids=["x".join(map(str, s)) for s in PLAN_EDGES])
+def test_spatial_fwd_plan_edges(shape):
+    """Off the fused widths: C_out 40 and 200 take the N tile that pads
+    least (128), 1152 the one with fewer tiles (144); buffers too large
+    for 16-channel chunks take 8-channel ones, and images too wide for
+    both go to the per-tap gather (None). Every step's rows fit the
+    buffers (the numpy walk asserts it); a layout asked for is taken."""
+    b, t, h, w, ci, co = shape
+    p = conv_bn.f32_spatial_fwd_plan(b, t, h, w, ci, co, SMS)
+    assert (None if p is None else (p.n_tile, p.k_chunk)) == PLAN_EDGES[shape]
+    if p is not None:
+        assert p.smem_bytes <= 227 * 1024
+        assert p.buf_rows * w <= 8 * p.threads // (p.k_chunk // 4)
+        q = conv_bn.f32_spatial_fwd_plan(b, t, h, w, ci, co, SMS,
+                                         n_tile=p.n_tile, k_chunk=8)
+        assert q is not None and (q.n_tile, q.k_chunk) == (p.n_tile, 8)
 
 
 def test_full_fp32_turns_tf32_off_while_any_thread_is_inside():
