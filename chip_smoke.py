@@ -49,23 +49,29 @@ H100 (``python3 chip_smoke.py``). It
    k-steps that span rows and images, widths that are not multiples of
    8); the temporal forward is held at the train shapes as well;
    The fp32 conv units (rows 3f / 4f, ``csrc/conv_bn_f32.cu``: row 3f the
-   row walk ``spatial_fwd_f32_kernel``, row 4f the per-tap gather; phase
-   ``kernel_conv_f32``, with the spatial plan's step, N tile, K chunk and
-   ranges) are held against their plain versions at every
+   row walk ``spatial_fwd_f32_kernel``, row 4f the frame walk
+   ``temporal_fwd_f32_kernel``; phase ``kernel_conv_f32``, with the plan:
+   the spatial step, N tile, K chunk and ranges, the temporal strip, N
+   tile, K chunk, register tile and resident or streamed filter) are held
+   against their plain versions at every
    fused unit's serving shape of ``longseq_eval`` with
    ``compute_dtype=float32``, at F32_EDGE_SHAPES (partial position and
-   channel tiles, 1x1 images, one frame, widths the wrapper zero-pads) and
+   channel tiles, 1x1 images, one frame, widths the wrapper zero-pads),
    at F32_WALK_EDGE_SHAPES (7x7 images several a step with the last range
-   not full, C_out 200, 1152 in N tiles of 144, 256 in tiles of 128) and
-   at F32_GATHER_EDGE_SHAPES (images too wide for the row walk: the spatial
-   kind through the per-tap gather),
+   not full, C_out 200, 1152 in N tiles of 144, 256 in tiles of 128), at
+   F32_GATHER_EDGE_SHAPES (images too wide for the row walk: the spatial
+   kind through the per-tap gather) and at F32_FRAME_EDGE_SHAPES (one
+   frame, strips across 7x7 clips, C_out 200, the stage-4 train shape with
+   fewer strips than SMs),
    y per element within CONV_F32_REL of sum |x^|*|w| plus CONV_F32_ABS, the
    sums per channel; each check is shown to refuse a y from swapped taps,
    a y whose padding went through the prologue, a y whose prologue rounds
    once (a fused multiply-add, seen on a clip where the two roundings
-   cancel exactly), a zeroed or shifted s1 and an s1 without the last
-   range's share (the row walk's ranges of images; within one range its
-   last partial step); two calls give the same bits; timed beside the plain
+   cancel exactly), a y whose clips read their neighbours' frames (the
+   temporal kind), a zeroed or shifted s1 and an s1 without the last
+   range's share (the walks' ranges of images or strips; within one range
+   its last partial step or strip); two calls give the same bits; timed
+   beside the plain
    version and cuDNN's fp32 conv (no TF32) plus the sums. Rows 3-8 are held
    at the lane midplanes 128 / 256 / 512 / 1152 (phase ``kernel_lane``:
    the forward at the serving shapes, the backward at the train shapes);
@@ -363,6 +369,10 @@ def timed_alternating(torch, fns, rounds=ROUNDS, reps=ALT_REPS):
 
 
 def bound(nbytes, flops, peak):
+    """The least time for the work: ``nbytes`` at the memory rate or
+    ``flops`` at ``peak``, the larger. ``flops`` counts what the function
+    needs on these inputs (a conv unit: 2·C_in·C_out a
+    ``conv_bn.tap_pairs`` pair; the zero padding needs none)."""
     t_bytes, t_ops = nbytes / HBM * 1e3, flops / peak * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
@@ -685,7 +695,7 @@ def check_conv(torch, F, conv_bn):
             "library": library})
         (ms, ms_spread), (lib, lib_spread) = t["kernel"], t["library"]
         m = math.prod(xs[:-1])
-        flops = 2 * m * k * ws[-1]
+        flops = 2 * conv_bn.tap_pairs(kind, *xs[:4]) * xs[-1] * ws[-1]
         nbytes = x.numel() * 2 + w.numel() * 2 + m * ws[-1] * 2 \
             + (2 * xs[-1] * 4 if affine else 0) + 2 * ws[-1] * 4
         b_ms, _ = bound(nbytes, flops, PEAK_BF16)
@@ -956,7 +966,7 @@ def check_bwd(torch, F, conv_bn, clips=32):
                        timed(torch, lambda: torch.nn.grad.conv3d_weight(
                            xn, kern.shape, gn, padding=pad)))}
         m, n_co, n_ci = math.prod(xs[:-1]), co, xs[-1]
-        flops = 2 * m * k * n_co
+        flops = 2 * conv_bn.tap_pairs(kind, *xs[:4]) * n_ci * n_co
         vec = 2 * n_co * 4 + (2 * n_ci * 4 if affine else 0)
         nbytes = {"data": 2 * m * n_co * 2 + w.numel() * 2 + m * n_ci * 2
                   + (m * n_ci * 2 if affine else 0) + vec + (2 * n_ci * 4 if affine else 0),
@@ -2156,13 +2166,32 @@ def spatial_plan_f32(torch, conv_bn, x, co):
                                         _round8(co), sms)
 
 
+def temporal_plan_f32(torch, conv_bn, x, co):
+    """The fp32 temporal frame walk's plan for x [B, T, H, W, C_in] ->
+    C_out (channel counts as the wrapper pads them)."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return conv_bn.f32_temporal_fwd_plan(*x.shape[:4], _round8(x.shape[-1]),
+                                         _round8(co), sms)
+
+
 def last_range_f32(torch, conv_bn, kind, x, y):
     """(name, s1 share) of the y the fp32 forward computes in its last
-    range: for the spatial row walk the last range of images, or its last
-    partial step where one range holds them all; else the gather's last
-    range of position tiles (None where nothing is left over)."""
+    range: for the temporal frame walk the last range of strips (every
+    frame of their positions), or its last partial strip where one range
+    holds them all; for the spatial row walk the last range of images, or
+    its last partial step; else the gather's last range of position tiles
+    (None where nothing is left over)."""
     b, t, h, w, co = y.shape
     sms = torch.cuda.get_device_properties(0).multi_processor_count
+    if kind == "temporal":
+        plan = temporal_plan_f32(torch, conv_bn, x, co)
+        pos = y.reshape(b, t, h * w, co).permute(0, 2, 1, 3).reshape(-1, t, co)
+        if plan.ranges > 1:
+            start = plan.units_of(plan.ranges - 1)[0] * plan.strip
+            return "last_range", pos[start:].sum((0, 1))
+        tail = plan.positions % plan.strip
+        return None if not tail else \
+            ("last_partial_strip", pos[-tail:].sum((0, 1)))
     walk = spatial_plan_f32(torch, conv_bn, x, co) if kind == "spatial" \
         else None
     if walk is not None:
@@ -2201,7 +2230,8 @@ def check_fwd_unit_f32(torch, F, conv_bn, what, x, w, a, kind):
     f32_limit, the sums per channel (sum_limits), each shown to refuse the
     wrong answers: a y from the filter with dh / dw (spatial) or taps 0 / 2
     (temporal) swapped, a y whose padding went through the prologue, a y
-    whose prologue rounds once (a fused multiply-add), a zeroed or
+    whose prologue rounds once (a fused multiply-add), a y whose clips read
+    their neighbours' frames (temporal, more than one clip), a zeroed or
     channel-shifted s1 and an s1 without the last range's share; a second
     call must give the same bits. Returns (max |dy|, worst |dy| / limit,
     worst sums error / limit)."""
@@ -2221,6 +2251,10 @@ def check_fwd_unit_f32(torch, F, conv_bn, what, x, w, a, kind):
     if kind == "temporal" and x.shape[1] > 1:
         wrong["filter_taps_0_2_swapped"] = lambda: conv_bn.conv_unit_reference(
             x, w.flip(0), *a, kind=kind)[0]
+    if kind == "temporal" and x.shape[0] > 1:     # the clips as one long clip
+        wrong["frames_leak_across_clips"] = lambda: conv_bn.conv_unit_reference(
+            x.reshape(1, -1, *x.shape[2:]), w, *a, kind=kind)[0].reshape(
+                y0.shape)
     if a[0] is not None:
         pad = (0, 0, 1, 1, 1, 1) if kind == "spatial" else (0, 0, 0, 0, 0, 0, 1, 1)
         kern = conv_bn._torch_kernel(w, kind)[0].contiguous(
@@ -2265,13 +2299,41 @@ F32_WALK_EDGE_SHAPES = (("spatial", (3, 45, 7, 7, 24), (3, 3, 24, 40)),
 # data.image_size above 400): the per-tap gather (forward only); two clips,
 # since f32_unit_inputs' prologue makes clip 0's x^ zero
 F32_GATHER_EDGE_SHAPES = (("spatial", (2, 2, 2, 240, 16), (3, 3, 16, 16)),)
+# the fp32 frame walk off the serving tiling (forward only): clips of one
+# frame across a strip; 7x7 clips five a strip, the second strip partial,
+# C_in 40 (chunks of 16, 16, 8); C_out 200 in four N tiles of 64, the last
+# masked; the stage-4 train shape (32 clips, C_out 512), 13 strips x 8 N
+# tiles for 132 SMs
+F32_FRAME_EDGE_SHAPES = (("temporal", (3, 1, 7, 7, 24), (3, 24, 40)),
+                         ("temporal", (5, 3, 7, 7, 40), (3, 40, 48)),
+                         ("temporal", (2, 3, 4, 7, 40), (3, 40, 200)),
+                         ("temporal", (32, 2, 7, 7, 1152), (3, 1152, 512)))
+
+
+def plan_f32(torch, conv_bn, kind, x, co):
+    """The fp32 walk's plan as the phase lines carry it: the spatial row
+    walk's step, N tile, K chunk and ranges (None: the gather); the
+    temporal frame walk's strip, N tile, K chunk, register tile (positions
+    x output channels x output frames a thread), resident or streamed
+    filter and ranges."""
+    if kind == "spatial":
+        p = spatial_plan_f32(torch, conv_bn, x, co)
+        return None if p is None else {"step": p.step, "n_tile": p.n_tile,
+                                       "k_chunk": p.k_chunk,
+                                       "ranges": p.ranges}
+    p = temporal_plan_f32(torch, conv_bn, x, co)
+    return {"strip": p.strip, "n_tile": p.n_tile, "k_chunk": p.k_chunk,
+            "register_tile": "x".join(map(str, p.register_tile)),
+            "filter": "resident" if p.resident else "streamed",
+            "ranges": p.ranges}
 
 
 def check_conv_f32(torch, F, conv_bn):
     """Rows 3f / 4f: the fp32 units against their plain versions at every
     fused unit's serving shape (longseq_eval with compute_dtype=float32: 128
-    clips), at F32_EDGE_SHAPES, F32_WALK_EDGE_SHAPES and
-    F32_GATHER_EDGE_SHAPES, with the controls of ``check_fwd_unit_f32``;
+    clips), at F32_EDGE_SHAPES, F32_WALK_EDGE_SHAPES,
+    F32_GATHER_EDGE_SHAPES and F32_FRAME_EDGE_SHAPES, with the controls of
+    ``check_fwd_unit_f32``;
     timed (kernel and library in turn, F32_FWD_ROUNDS rounds of
     F32_FWD_REPS) beside the plain version and ``F.conv3d`` in fp32 (no
     TF32) plus the sums. Returns the two rows of the kernels line, per
@@ -2279,18 +2341,18 @@ def check_conv_f32(torch, F, conv_bn):
     g = torch.Generator(device="cuda").manual_seed(13)
     edges = {}
     for kind, xs, ws in (F32_EDGE_SHAPES + F32_WALK_EDGE_SHAPES
-                         + F32_GATHER_EDGE_SHAPES):
+                         + F32_GATHER_EDGE_SHAPES + F32_FRAME_EDGE_SHAPES):
         for affine in (False, True):
             x, w, a = f32_unit_inputs(torch, g, xs, ws, affine)
             key = f"{kind}_{'x'.join(map(str, xs))}_to_{ws[-1]}_affine={affine}"
-            plan = spatial_plan_f32(torch, conv_bn, x, ws[-1]) \
-                if kind == "spatial" else None
+            plan = plan_f32(torch, conv_bn, kind, x, ws[-1])
             if (kind, xs, ws) in F32_GATHER_EDGE_SHAPES:
                 require(plan is None, f"{key}: the row walk takes it: {plan}")
             edges[key] = check_fwd_unit_f32(
                 torch, F, conv_bn, f"fp32 unit at edge shape {key}", x, w, a,
-                kind) + ((None if plan is None else
-                          [plan.step, plan.n_tile, plan.k_chunk, plan.ranges]),)
+                kind) + (plan,)
+            del x, w
+        torch.cuda.empty_cache()
     out = {}
     for kind, xs, ws, affine, copies in _conv_units():
         x, w, a = f32_unit_inputs(torch, g, xs, ws, affine)
@@ -2312,17 +2374,12 @@ def check_conv_f32(torch, F, conv_bn):
             "library": library}, rounds=F32_FWD_ROUNDS, reps=F32_FWD_REPS)
         (ms, ms_spread), (lib, lib_spread) = t["kernel"], t["library"]
         m = math.prod(xs[:-1])
-        k = math.prod(ws[:-1])
-        flops = 2 * m * k * ws[-1]
+        flops = 2 * conv_bn.tap_pairs(kind, *xs[:4]) * xs[-1] * ws[-1]
         nbytes = 4 * (x.numel() + w.numel() + m * ws[-1]
                       + (2 * xs[-1] if affine else 0) + 2 * ws[-1])
-        plan = spatial_plan_f32(torch, conv_bn, x, ws[-1]) \
-            if kind == "spatial" else None
         emit({"phase": "kernel_conv_f32", "kind": kind, "x": list(xs),
               "w": list(ws), "affine": affine, "per_forward": copies,
-              "plan": None if plan is None else {
-                  "step": plan.step, "n_tile": plan.n_tile,
-                  "k_chunk": plan.k_chunk, "ranges": plan.ranges},
+              "plan": plan_f32(torch, conv_bn, kind, x, ws[-1]),
               "max_abs_err": err, "err_over_limit": over,
               "s1_err_over_limit": s1_ratio, "ms": ms, "ms_spread": ms_spread,
               "plain_ms": plain, "library_ms_conv3d_sums": lib,
@@ -2345,7 +2402,7 @@ def check_conv_f32(torch, F, conv_bn):
         acc["bound_ms"] = max(t_ops, t_bytes)
         acc["bound_by"] = "operations" if t_ops >= t_bytes else "bytes"
     emit({"phase": "kernel_conv_f32_edges",
-          "max_abs_err_err_over_limit_s1_over_limit_walk_plan": edges,
+          "max_abs_err_err_over_limit_s1_over_limit_plan": edges,
           "tol_rel": CONV_F32_REL, "tol_abs": CONV_F32_ABS})
     return [out["spatial"], out["temporal"]]
 
@@ -2559,7 +2616,7 @@ def check_conv_f32_bwd(torch, F, conv_bn, clips=32):
                  "filter": timed(torch, lambda: conv_bn.conv_unit_bwd_filter_reference(
                      x, *a, y, gy, gs1, gs2, kind=kind), reps=F32_BWD_REPS)}
         m, ci, co = math.prod(xs[:-1]), xs[-1], ws[-1]
-        flops = 2 * m * math.prod(ws[:-1]) * co
+        flops = 2 * conv_bn.tap_pairs(kind, *xs[:4]) * ci * co
         vec = 4 * (2 * co + (2 * ci if affine else 0))
         nbytes = {"data": 4 * (2 * m * co + w.numel() + m * ci
                                + (m * ci + 2 * ci if affine else 0)) + vec,

@@ -6,8 +6,9 @@
 // in fp32), in m3f/pytorch_tpu/ops/pallas/conv_bn.py:
 //   spatial_fwd_f32_kernel  _spatial_fwd (_spatial_fwd_kernel, pallas_call
 //                           at :192): a row walk (its own section below)
-//   conv_f32_kernel         _temporal_fwd (_temporal_fwd_kernel, :250), and
-//                           _spatial_fwd where no row-walk layout fits the
+//   temporal_fwd_f32_kernel _temporal_fwd (_temporal_fwd_kernel, :250): a
+//                           frame walk (its own section below)
+//   conv_f32_kernel         _spatial_fwd where no row-walk layout fits the
 //                           images (rows of a few hundred pixels)
 //   bwd_data_f32_kernel     _spatial_bwd's data gradient
 //                           (_spatial_bwd_data_kernel, :537) and
@@ -44,20 +45,20 @@
 // the ~20 at which the fp32 CUDA cores (67 TFLOP/s; the reference is fp32,
 // so no TF32 and no tensor cores) and not memory (3.35 TB/s) set the floor.
 //
-// Design of the per-tap gathers (simple and right first; the spatial
-// forward's row walk is the redesign, described above its code). Every
+// Design of the per-tap gathers (simple and right first; the forward's row
+// and frame walks are the redesigns, described above their code). Every
 // gather kernel is a block of 256 threads owning a 64 x 64 tile, each
 // thread 4 x 4 sums in registers, K walked in chunks of 16 through shared
 // memory, the next chunk's loads held in registers while the products of
 // the current one run; channel counts are multiples of 8 (the wrapper zero-pads
 // others), so every access is a 16-byte vector and a chunk's channels are
 // either all inside or all past C. No atomics: two calls give the same bits.
-// - conv_f32_kernel: 64 positions x 64 output channels; K = taps x Ci in
-//   chunks of 16 input channels of one tap, the x^ chunk formed at the
-//   gather (the neighbour's x through the prologue, 0 in the padding or past
-//   Ci), again for each of the 3 (9) taps; the neighbours' rows come from
-//   L1 and L2 (for the spatial kind that, with 64-channel N tiles, is what
-//   the row walk takes out). A block walks a
+// - conv_f32_kernel (spatial only): 64 positions x 64 output channels; K =
+//   9 x Ci in chunks of 16 input channels of one tap, the x^ chunk formed at
+//   the gather (the neighbour's x through the prologue, 0 in the padding or
+//   past Ci), again for each of the 9 taps; the neighbours' rows come from
+//   L1 and L2 (with 64-channel N tiles, what the row walk takes out). A
+//   block walks a
 //   contiguous range of position tiles (the grid's y) for one output-channel
 //   tile (the grid's x, fastest, so the blocks that read the same x run
 //   together), adding each tile's y and y^2 to per-thread sums in a fixed
@@ -80,7 +81,7 @@
 //
 // Measured times are in PERF.md (chip_smoke.py, phases kernel_conv_f32 and
 // kernel_conv_f32_bwd; m3f_torch/scripts/filter_sweep.py --kind
-// spatial_fwd_f32 for the row walk's layouts, trials and ablations).
+// spatial_fwd_f32 / temporal_fwd_f32 for the walks' layouts and ablations).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -237,7 +238,7 @@ __device__ __forceinline__ void partial_rows(const float (&s1)[4],
   }
 }
 
-template <int KIND, bool AFFINE>
+template <bool AFFINE>
 __global__ void __launch_bounds__(THREADS)
 conv_f32_kernel(const F32FwdArgs a) {
   __shared__ __align__(16) float As[KC][BM];
@@ -249,7 +250,7 @@ conv_f32_kernel(const F32FwdArgs a) {
   const int lp = tid / 4, lc = (tid % 4) * 4;   // x gather: position, channels
   const int lk = tid / 16, ln = (tid % 16) * 4; // w load: k row, channels
   const int n0 = blockIdx.x * BN;
-  const int taps = KIND == 0 ? 9 : 3;
+  const int taps = 9;
   const int nck = (a.Ci + KC - 1) / KC;
   const int steps = taps * nck;
 
@@ -279,7 +280,7 @@ conv_f32_kernel(const F32FwdArgs a) {
       const int c = c0 + lc;
       int64_t src;
       if (gm_ok && c < a.Ci &&
-          neighbour<KIND>(gm, gt, gh, gw, tap, a.T, a.H, a.W, src)) {
+          neighbour<0>(gm, gt, gh, gw, tap, a.T, a.H, a.W, src)) {
         xa = ld4(a.x + src * a.Ci + c);
         if (AFFINE) xa = prologue4(xa, ld4(a.inv + c), ld4(a.shift + c));
       }
@@ -966,20 +967,398 @@ int spatial_fwd_f32_either(bool affine, SpatialFwdF32Args a, int ranges,
                 : launch_spatial_fwd_f32<NCG, NPG, KC, false>(a, ranges, s);
 }
 
+// ---------------------------------------------------------------------------
+// The temporal forward: the frame walk (temporal_fwd_f32_kernel)
+// ---------------------------------------------------------------------------
+//
+// Replaces _temporal_fwd (m3f/pytorch_tpu/ops/pallas/conv_bn.py, pallas_call
+// at :250, kernel _temporal_fwd_kernel at :133) for fp32 x:
+//   y[b,t,p,:] = sum_dt x^[b,t+dt-1,p,:] @ W[dt]
+// with the frames -1 and T zero AFTER the prologue and no clip reading
+// another's frames. At the serving forward's stage 1 (x [128,16,56,56,144]
+// -> Co 64) a launch is 0.355 TFLOP of fp32 FMA on 5.3 GB: 5.30 ms at 67
+// TFLOP/s against 1.59 ms of memory, and every stage is operation-bound
+// (stage 4, [128,2,7,7,1152] -> 512: 0.66 against 0.03). What the per-tap
+// gather spent beyond the products (x^ gathered and formed again for each
+// of the three taps and each 64-channel N tile, 4x4 register tiles, a
+// synchronous gather through registers, (b, t, h, w) decoded per tile) is
+// what this design takes out. The walk follows the bf16 temporal_fwd_kernel
+// (conv_bn.cu); the microkernel follows spatial_fwd_f32_kernel above.
+//
+// - Frame walk, input-stationary. A work unit is a strip of S consecutive
+//   positions of the flattened B*H*W axis, walked over t = 0..T-1 (every
+//   clip has the same T, so the strip's rows share t). Where H*W is small
+//   (stages 3-4: 196 and 49) a strip spans several clips, so one pass of
+//   the filter serves S positions whatever H*W is; a block's units follow
+//   one another in one stream of chunks.
+// - Frame t's x arrives in chunks of KC = 16 input channels by cp.async
+//   into a [S][KC + 4] buffer (zero-filled past the strip and past C_in).
+//   The thread that copied a vector forms it in place once, after its own
+//   wait_group, with __fmul_rn / __fadd_rn (two roundings, no FMA), and
+//   never forms a vector past the strip or past C_in. The formed chunk is
+//   multiplied into three accumulator sets: output frames t+1 (tap 0), t
+//   (tap 1) and t-1 (tap 2); a tap whose output frame lies outside the clip
+//   is skipped, which is the zero padding after the prologue. After frame
+//   t's last chunk, output frame t-1 is complete: its y leaves and its sums
+//   are taken, and the sets shift by one frame. So each x^ element is formed
+//   once per N tile, not once per tap and tile.
+// - The filter chunk [3 * KC, NB] (row tap * KC + k) streams from the L2
+//   through the same double buffer, or, where [3 * C_in, NB] fits beside
+//   the x buffers (stage 1 at NB 64: 108 KB), stays resident in shared
+//   memory, loaded once per block with the first chunk.
+// - FFMA microkernel (fp32 CUDA cores: the reference is fp32, so no TF32
+//   and no tensor cores): a block of NPG x NCG threads, each 4 positions
+//   (pg + NPG i) x 8 output channels (4 at cg * 4, 4 at NB/2 + cg * 4) x 3
+//   output frames, 96 fp32 sums. A is a float4 of 4 channels of one
+//   position, B two float4 of output channels: 28 LDS.128 per 384 FFMA. A
+//   warp is 4 position groups x 8 channel groups, so its A and B loads are
+//   4 and 8 distinct vectors (one wavefront each); a row stride of KC + 4
+//   floats puts 4 neighbouring positions on distinct banks.
+// - One layout: N tile 64 x strip 128 (NCG 8, NPG 32: 256 threads, one
+//   block a SM; ptxas gives 255 registers a thread and no spill). At stage
+//   1 (C_out 64) one tile covers every output channel, so x^ is formed once
+//   in all. N tiles of 128 x strips of 64 were measured 2-4% slower at
+//   stages 2-4 and not kept (PERF.md). At most 8 warps a block: nine cap a
+//   thread at 168 registers (spatial_fwd_f32_kernel's finding).
+// - Epilogue: y leaves from registers in 16-byte stores along the channels
+//   (8 lanes write 128 bytes of one position's row); s1 / s2 are per-thread
+//   fp32 sums over the walk in a fixed order (units, frames, positions),
+//   then the NPG position groups in order into one partial row per range,
+//   summed by colsum_f32_kernel. No atomics: two calls give the same bits.
+// - Grid: ranges of units x N tiles, the N tile fastest (the blocks reading
+//   the same x run together); f32_temporal_fwd_plan (ops/conv_bn.py) sizes
+//   the ranges for the fewest unit-times to the last block's end.
+
+constexpr int TWF_KC = 16;            // input channels a chunk
+constexpr int TWF_NCG = 8;            // channel groups: N tile 8 * NCG = 64
+constexpr int TWF_NPG = 32;           // position groups: strip 4 * NPG = 128
+// Measurement knob, for filter_sweep.py only (y is then wrong): 1 leaves out
+// forming x^, 2 the products, 4 the copies of x and of the filter (the
+// buffers keep what they held), 8 the epilogue (y stores and sums); 15
+// leaves the walk alone.
+#ifndef TWF_ABLATE
+#define TWF_ABLATE 0
+#endif
+
+struct TemporalFwdF32Args {
+  const float* x;      // [B, T, H*W, Ci]
+  const float* w;      // [3 * Ci, Co], row tap * Ci + ci
+  const float* inv;    // [Ci] or null
+  const float* shift;
+  float* y;            // [B, T, H*W, Co]
+  float* part1;        // [ranges, Co]
+  float* part2;
+  int64_t positions;   // B * H*W: the axis the strips cut
+  int T, HW, Ci, Co;
+  int units;           // ceil(positions / S)
+  int units_per_range;
+  int n_tiles;
+  int resident;        // the block's filter tile stays in shared memory
+};
+
+// A block's shared memory: the filter (resident [3 * Cip][NB], Cip = C_in
+// in whole chunks, or two streamed chunks [3 * KC][NB]) and two x chunk
+// buffers [S][KC + 4]; the block's sums reuse it at the end.
+// ops/conv_bn.py (_temporal_fwd_f32_smem) computes the same.
+size_t twf_smem(int S, int NB, int Cip, int res) {
+  const size_t filt = res ? (size_t)3 * Cip * NB : (size_t)2 * 3 * TWF_KC * NB;
+  return sizeof(float) * (filt + (size_t)2 * S * (TWF_KC + 4));
+}
+
+// NPG x NCG threads, each 4 positions x 8 output channels x 3 frames:
+// S = 4 * NPG positions a strip, NB = 8 * NCG output channels a block.
+template <bool AFFINE>
+__global__ void __launch_bounds__(TWF_NPG * TWF_NCG, 1)
+temporal_fwd_f32_kernel(const TemporalFwdF32Args a) {
+  constexpr int NCG = TWF_NCG, NPG = TWF_NPG;
+  constexpr int NTH = NPG * NCG, NB = 8 * NCG, S = 4 * NPG;
+  constexpr int KC = TWF_KC, LDC = KC + 4;     // a position's stride (floats)
+  constexpr int QV = KC / 4;                   // 16-byte vectors of a position's chunk
+  constexpr int XV = S * QV / NTH;             // x vectors a thread copies a chunk
+  constexpr int FR = 3 * KC;                   // filter rows of a chunk
+  constexpr int FV = FR * NB / 4;              // 16-byte vectors of a filter chunk
+  static_assert(S * QV % NTH == 0 && FV % NTH == 0 && NCG == 8 &&
+                    NPG % 4 == 0 && NTH <= 256 &&
+                    2 * NPG * NB <= FR * NB + 2 * S * LDC,
+                "copies, warp layout, 8 warps, block sums");
+  const int T = a.T, HW = a.HW, Ci = a.Ci, Co = a.Co;
+  const bool res = a.resident != 0;
+  const int nck = (Ci + KC - 1) / KC;          // chunks a frame
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* Xb = reinterpret_cast<float*>(smem_raw);   // [2][S][LDC]
+  float* Fb = Xb + 2 * S * LDC;                     // [nck][FR][NB] or [2][FR][NB]
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int cg = lane >> 2;                     // channels cg*4, NB/2 + cg*4
+  const int pg = warp * 4 + (lane & 3);         // positions pg + NPG*i
+  const int n0 = ((int)blockIdx.x % a.n_tiles) * NB;
+  const int range = (int)blockIdx.x / a.n_tiles;
+  const int u0 = range * a.units_per_range;
+  const int u1 = min(a.units, u0 + a.units_per_range);
+  const int nq = u1 > u0 ? (u1 - u0) * T * nck : 0;   // chunks of the walk
+  const int cq = (tid % QV) * 4;               // this thread's channels of a chunk
+
+  // the resident filter: chunk c's rows tap * KC + k at [c][FR][NB], zero
+  // past Ci and Co
+  if (res && !(TWF_ABLATE & 4)) {
+    for (int idx = tid; idx < nck * FV; idx += NTH) {
+      const int r = idx / (NB / 4), c4 = (idx - r * (NB / 4)) * 4;
+      const int c = r / FR, tap = (r - c * FR) / KC;
+      const int ci = c * KC + r - c * FR - tap * KC;
+      const bool ok = ci < Ci && n0 + c4 < Co;
+      cp_async16(Fb + r * NB + c4,
+                 ok ? a.w + ((int64_t)tap * Ci + ci) * Co + n0 + c4 : a.w, ok);
+    }
+  }
+
+  // The position of strip row r of unit u at frame 0, b*T*HW + p (-1 past
+  // the positions): only entering a unit divides.
+  auto row_pos = [&](int u, int r) -> int64_t {
+    const int64_t gp = (int64_t)u * S + r;
+    if (gp >= a.positions) return -1;
+    const int64_t b = gp / HW;
+    return b * T * HW + (gp - b * HW);
+  };
+  // This thread's x vectors of a chunk: tid + j*NTH -> strip row
+  // (tid + j*NTH) / QV, channels cq .. cq+3 of the chunk
+  int64_t x_pos[XV];
+  auto seek_x = [&](int u) {
+#pragma unroll
+    for (int j = 0; j < XV; ++j) x_pos[j] = row_pos(u, (tid + j * NTH) / QV);
+  };
+  // This thread's output positions, strip rows pg + NPG*i
+  int64_t y_pos[4];
+  auto seek_y = [&](int u) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) y_pos[i] = row_pos(u, pg + NPG * i);
+  };
+
+  // A cursor on the walk: chunk c of frame t of unit u, the walk's q-th.
+  struct Cursor {
+    int q, u, t, c;
+  };
+  auto advance = [&](Cursor& w) {
+    ++w.q;
+    if (++w.c < nck) return false;
+    w.c = 0;
+    if (++w.t < T) return false;
+    w.t = 0;
+    ++w.u;
+    return true;                   // a new unit
+  };
+
+  // chunk w into buffer w.q & 1: the strip's x rows at frame w.t for the
+  // chunk's channels, and (streamed) the filter chunk
+  auto copy_chunk = [&](const Cursor& w) {
+    if (TWF_ABLATE & 4) return;
+    const int ch = w.c * KC + cq;
+    float* xd = Xb + (w.q & 1) * S * LDC;
+    const int64_t frame = (int64_t)w.t * HW;
+#pragma unroll
+    for (int j = 0; j < XV; ++j) {
+      const bool ok = x_pos[j] >= 0 && ch < Ci;
+      cp_async16(xd + (tid + j * NTH) / QV * LDC + cq,
+                 ok ? a.x + (x_pos[j] + frame) * Ci + ch : a.x, ok);
+    }
+    if (res) return;
+    float* fd = Fb + (w.q & 1) * FR * NB;
+#pragma unroll
+    for (int i = 0; i < FV / NTH; ++i) {
+      const int idx = tid + i * NTH;
+      const int r = idx / (NB / 4), c4 = (idx - r * (NB / 4)) * 4;
+      const int tap = r / KC, ci = w.c * KC + r - tap * KC;
+      const bool ok = ci < Ci && n0 + c4 < Co;
+      cp_async16(fd + r * NB + c4,
+                 ok ? a.w + ((int64_t)tap * Ci + ci) * Co + n0 + c4 : a.w, ok);
+    }
+  };
+  // x^ = relu(f32(f32(x * inv) + shift)) in place, on this thread's
+  // vectors of the chunk (never those past the strip or past Ci)
+  auto form_chunk = [&](const Cursor& w) {
+    const int ch = w.c * KC + cq;
+    if (!AFFINE || (TWF_ABLATE & 1) || ch >= Ci) return;
+    const float4 iv = ld4(a.inv + ch), sv = ld4(a.shift + ch);
+    float* xd = Xb + (w.q & 1) * S * LDC;
+#pragma unroll
+    for (int j = 0; j < XV; ++j) {
+      if (x_pos[j] < 0) continue;
+      float4* p = reinterpret_cast<float4*>(xd + (tid + j * NTH) / QV * LDC + cq);
+      *p = prologue4(*p, iv, sv);
+    }
+  };
+
+  float acc[3][4][8];              // output frames t-1, t, t+1
+#pragma unroll
+  for (int f = 0; f < 3; ++f)
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int c = 0; c < 8; ++c) acc[f][i][c] = 0.f;
+  // acc[2 - dt][i][c] += x^ at position i, channel k, times the filter's
+  // row (dt, k) at this thread's 8 output channels, over chunk w; the taps
+  // whose output frame lies outside the clip are skipped
+  auto products = [&](const Cursor& w) {
+    const float* xs = Xb + (w.q & 1) * S * LDC + pg * LDC;
+    const float* fs = (res ? Fb + w.c * FR * NB : Fb + (w.q & 1) * FR * NB) + cg * 4;
+    const bool t0 = w.t + 1 < T, t2 = w.t > 0;
+#pragma unroll
+    for (int q = 0; q < QV; ++q) {
+      float4 av[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) av[i] = ld4(xs + i * NPG * LDC + 4 * q);
+#pragma unroll
+      for (int dt = 0; dt < 3; ++dt) {
+        if ((dt == 0 && !t0) || (dt == 2 && !t2)) continue;
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+          const float* fr = fs + (dt * KC + 4 * q + kk) * NB;
+          const float4 b0 = ld4(fr), b1 = ld4(fr + NB / 2);
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const float ak = lane4(av[i], kk);
+            const int f = 2 - dt;
+            acc[f][i][0] = fmaf(ak, b0.x, acc[f][i][0]);
+            acc[f][i][1] = fmaf(ak, b0.y, acc[f][i][1]);
+            acc[f][i][2] = fmaf(ak, b0.z, acc[f][i][2]);
+            acc[f][i][3] = fmaf(ak, b0.w, acc[f][i][3]);
+            acc[f][i][4] = fmaf(ak, b1.x, acc[f][i][4]);
+            acc[f][i][5] = fmaf(ak, b1.y, acc[f][i][5]);
+            acc[f][i][6] = fmaf(ak, b1.z, acc[f][i][6]);
+            acc[f][i][7] = fmaf(ak, b1.w, acc[f][i][7]);
+          }
+        }
+      }
+    }
+  };
+
+  float s1[8], s2[8];
+#pragma unroll
+  for (int c = 0; c < 8; ++c) s1[c] = s2[c] = 0.f;
+  const bool lo = n0 + cg * 4 < Co, hi = n0 + NB / 2 + cg * 4 < Co;
+  // output frame tf of the current unit from accumulator set f: y straight
+  // from the registers, and its share of the sums in a fixed order
+  auto epilogue = [&](const float (&f)[4][8], int tf) {
+    if (TWF_ABLATE & 8) return;
+    const int64_t frame = (int64_t)tf * HW;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      if (y_pos[i] < 0) continue;
+      float* yr = a.y + (y_pos[i] + frame) * Co + n0 + cg * 4;
+      if (lo)
+        *reinterpret_cast<float4*>(yr) = make_float4(f[i][0], f[i][1], f[i][2], f[i][3]);
+      if (hi)
+        *reinterpret_cast<float4*>(yr + NB / 2) =
+            make_float4(f[i][4], f[i][5], f[i][6], f[i][7]);
+#pragma unroll
+      for (int c = 0; c < 8; ++c) {
+        s1[c] = __fadd_rn(s1[c], f[i][c]);
+        s2[c] = __fadd_rn(s2[c], __fmul_rn(f[i][c], f[i][c]));
+      }
+    }
+  };
+
+  Cursor cc{0, u0, 0, 0}, mc{0, u0, 0, 0};   // the chunk copied, multiplied
+  if (nq > 0) {
+    seek_x(u0);
+    seek_y(u0);
+    copy_chunk(cc);                 // with the resident filter, one group
+  }
+  cp_async_commit();
+  for (int q = 0; q < nq; ++q) {
+    cp_async_wait_all();            // this thread's copies of chunk q landed
+    form_chunk(mc);
+    __syncthreads();                // chunk q formed; chunk q-1 multiplied
+    if (q + 1 < nq) {               // chunk q+1, into the buffers of q-1
+      if (advance(cc)) seek_x(cc.u);
+      copy_chunk(cc);
+    }
+    cp_async_commit();
+    if (!(TWF_ABLATE & 2)) products(mc);
+    if (mc.c == nck - 1) {          // frame t's last chunk: frame t-1 is done
+      const int t = mc.t;
+      if (t > 0) epilogue(acc[0], t - 1);
+      if (t + 1 == T) {
+        epilogue(acc[1], t);
+#pragma unroll
+        for (int f = 0; f < 3; ++f)
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+#pragma unroll
+            for (int c = 0; c < 8; ++c) acc[f][i][c] = 0.f;
+      } else {
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int c = 0; c < 8; ++c) {
+            acc[0][i][c] = acc[1][i][c];
+            acc[1][i][c] = acc[2][i][c];
+            acc[2][i][c] = 0.f;
+          }
+      }
+    }
+    if (advance(mc)) seek_y(mc.u);
+    if ((TWF_ABLATE & 8) && T < 0) {   // never true: keeps the products alive
+#pragma unroll
+      for (int f = 0; f < 3; ++f)
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int c = 0; c < 8; ++c) a.y[(f * 4 + i) * 8 + c] = acc[f][i][c];
+    }
+  }
+  cp_async_wait_all();
+  __syncthreads();                  // every product read: reuse the buffers
+
+  // the block's partial row: the NPG position groups in order
+  float* red1 = Xb;                 // [NPG][NB]
+  float* red2 = Xb + NPG * NB;
+#pragma unroll
+  for (int c = 0; c < 4; ++c) {
+    red1[pg * NB + cg * 4 + c] = s1[c];
+    red1[pg * NB + NB / 2 + cg * 4 + c] = s1[4 + c];
+    red2[pg * NB + cg * 4 + c] = s2[c];
+    red2[pg * NB + NB / 2 + cg * 4 + c] = s2[4 + c];
+  }
+  __syncthreads();
+  if (tid < NB && n0 + tid < Co) {
+    float v1 = 0.f, v2 = 0.f;
+    for (int g = 0; g < NPG; ++g) {
+      v1 += red1[g * NB + tid];
+      v2 += red2[g * NB + tid];
+    }
+    a.part1[(int64_t)range * Co + n0 + tid] = v1;
+    a.part2[(int64_t)range * Co + n0 + tid] = v2;
+  }
+}
+
+template <bool AFFINE>
+int launch_temporal_fwd_f32(const TemporalFwdF32Args& a, int ranges,
+                            cudaStream_t stream) {
+  const int cip = (a.Ci + TWF_KC - 1) / TWF_KC * TWF_KC;
+  const size_t smem = twf_smem(4 * TWF_NPG, 8 * TWF_NCG, cip, a.resident);
+  if (smem > (size_t)SWF_SMEM_MAX) return (int)cudaErrorInvalidValue;
+  auto kern = temporal_fwd_f32_kernel<AFFINE>;
+  cudaError_t e = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  kern<<<ranges * a.n_tiles, TWF_NPG * TWF_NCG, smem, stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
-// Forward unit, fp32. x [B, T, H, W, Ci], wk [taps * Ci, Co] (taps 9 for
-// kind 0 spatial, 3 for kind 1 temporal), inv / shift [Ci] or both null,
-// y [B, T, H, W, Co], s1 / s2 [Co], part a scratch of 2 * ranges * Co
-// floats, ranges = ceil(ceil(M / 64) / per); all fp32, contiguous, Ci and Co
-// multiples of 8. Returns a cudaError_t.
+// Spatial forward unit, fp32, the per-tap gather (the route of images too
+// wide for the row walk). x [B, T, H, W, Ci], wk [9 * Ci, Co], inv / shift
+// [Ci] or both null, y [B, T, H, W, Co], s1 / s2 [Co], part a scratch of
+// 2 * ranges * Co floats, ranges = ceil(ceil(M / 64) / per); all fp32,
+// contiguous, Ci and Co multiples of 8. Returns a cudaError_t.
 extern "C" int m3f_conv_unit_fwd_f32(const void* x, const void* wk,
                                      const void* inv, const void* shift,
                                      void* y, void* s1, void* s2, void* part,
-                                     int kind, int B, int T, int H, int W,
-                                     int Ci, int Co, int per, void* stream) {
+                                     int B, int T, int H, int W, int Ci,
+                                     int Co, int per, void* stream) {
   const int64_t M = (int64_t)B * T * H * W;
-  if ((kind != 0 && kind != 1) || per < 1) return (int)cudaErrorInvalidValue;
+  if (per < 1) return (int)cudaErrorInvalidValue;
   if (M == 0 || Co == 0) return 0;
   if (Ci % 8 != 0 || Co % 8 != 0 || Ci == 0 || (inv == nullptr) != (shift == nullptr))
     return (int)cudaErrorInvalidValue;
@@ -1005,22 +1384,71 @@ extern "C" int m3f_conv_unit_fwd_f32(const void* x, const void* wk,
   a.part1 = (float*)part;
   a.part2 = (float*)part + (int64_t)ranges * Co;
   const dim3 grid((Co + BN - 1) / BN, ranges);
-  const bool affine = inv != nullptr;
-  if (kind == 0) {
-    if (affine)
-      conv_f32_kernel<0, true><<<grid, THREADS, 0, s>>>(a);
-    else
-      conv_f32_kernel<0, false><<<grid, THREADS, 0, s>>>(a);
-  } else {
-    if (affine)
-      conv_f32_kernel<1, true><<<grid, THREADS, 0, s>>>(a);
-    else
-      conv_f32_kernel<1, false><<<grid, THREADS, 0, s>>>(a);
-  }
+  if (inv != nullptr)
+    conv_f32_kernel<true><<<grid, THREADS, 0, s>>>(a);
+  else
+    conv_f32_kernel<false><<<grid, THREADS, 0, s>>>(a);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   colsum_f32_kernel<<<(Co + 31) / 32, dim3(32, 32), 0, s>>>(
       a.part1, a.part2, ranges, Co, (float*)s1, (float*)s2);
+  return (int)cudaGetLastError();
+}
+
+// Temporal forward unit, fp32, the frame walk. x [B, T, H, W, Ci], wk
+// [3 * Ci, Co] (row tap * Ci + ci), inv / shift [Ci] or both null, y
+// [B, T, H, W, Co], s1 / s2 [Co], part a scratch of 2 * ranges * Co floats,
+// ranges = ceil(ceil(B * H * W / 128) / per) (strips of 128 positions, N
+// tiles of 64 output channels), resident 1 to keep the filter tile in
+// shared memory; all fp32, contiguous, 16-byte aligned, Ci and Co
+// multiples of 8. Returns a cudaError_t (cudaErrorInvalidValue where the
+// resident filter does not fit).
+extern "C" int m3f_temporal_fwd_f32(const void* x, const void* wk,
+                                    const void* inv, const void* shift,
+                                    void* y, void* s1, void* s2, void* part,
+                                    int B, int T, int H, int W, int Ci, int Co,
+                                    int resident, int per, void* stream) {
+  const int64_t positions = (int64_t)B * H * W;
+  if (per < 1 || Ci % 8 != 0 || Co % 8 != 0 || Ci == 0 || Co == 0 ||
+      (inv == nullptr) != (shift == nullptr) ||
+      (resident != 0 && resident != 1) || (int64_t)H * W >= ((int64_t)1 << 31))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (positions * T == 0) {
+    cudaMemsetAsync(s1, 0, sizeof(float) * Co, s);
+    cudaMemsetAsync(s2, 0, sizeof(float) * Co, s);
+    return (int)cudaGetLastError();
+  }
+  const int strip = 4 * TWF_NPG, nb = 8 * TWF_NCG;
+  const int64_t units = (positions + strip - 1) / strip;
+  const int64_t ranges = (units + per - 1) / per;
+  const int n_tiles = (Co + nb - 1) / nb;
+  if (units >= ((int64_t)1 << 31) || ranges * n_tiles >= ((int64_t)1 << 31) ||
+      units * T * ((Ci + TWF_KC - 1) / TWF_KC) >= ((int64_t)1 << 31))
+    return (int)cudaErrorInvalidValue;
+  TemporalFwdF32Args a{};
+  a.x = (const float*)x;
+  a.w = (const float*)wk;
+  a.inv = (const float*)inv;
+  a.shift = (const float*)shift;
+  a.y = (float*)y;
+  a.part1 = (float*)part;
+  a.part2 = (float*)part + ranges * Co;
+  a.positions = positions;
+  a.T = T;
+  a.HW = H * W;
+  a.Ci = Ci;
+  a.Co = Co;
+  a.units = (int)units;
+  a.units_per_range = per;
+  a.n_tiles = n_tiles;
+  a.resident = resident;
+  const int err = inv != nullptr
+      ? launch_temporal_fwd_f32<true>(a, (int)ranges, s)
+      : launch_temporal_fwd_f32<false>(a, (int)ranges, s);
+  if (err != 0) return err;
+  colsum_f32_kernel<<<(Co + 31) / 32, dim3(32, 32), 0, s>>>(
+      a.part1, a.part2, (int)ranges, Co, (float*)s1, (float*)s2);
   return (int)cudaGetLastError();
 }
 

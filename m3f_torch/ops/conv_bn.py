@@ -26,7 +26,8 @@ both halves are kernels on the card and plain versions on the CPU.
 
 x is bf16 or fp32, and both halves have kernels for both (the reference's
 Pallas units run in the dtype of x): ``csrc/conv_bn.cu`` for bf16,
-``csrc/conv_bn_f32.cu`` for fp32 (the forward, ``f32_fwd_plan``; the data
+``csrc/conv_bn_f32.cu`` for fp32 (the forward, ``f32_temporal_fwd_plan`` /
+``f32_spatial_fwd_plan`` / ``f32_fwd_plan``; the data
 and filter gradients, ``f32_bwd_data_plan`` / ``f32_bwd_filter_plan``), so
 an fp32 unit trains on the card as a bf16 one does.
 """
@@ -69,6 +70,17 @@ def conv_unit_reference(x: torch.Tensor, w: torch.Tensor,
     yf = y.float()
     axes = (0, 1, 2, 3)
     return y, yf.sum(axes), (yf * yf).sum(axes)
+
+
+def tap_pairs(kind: str, b: int, t: int, h: int, w: int) -> int:
+    """The (output position, tap) pairs of a unit over x [b, t, h, w, ·]
+    whose input lies inside the clip: 3T - 2 a column of frames for the
+    temporal kind, (3H - 2)(3W - 2) an image for the spatial kind. The
+    unit's function needs 2·C_in·C_out operations a pair (the zero padding
+    needs none): the operation count of its bound."""
+    if kind == "temporal":
+        return b * h * w * (3 * t - 2)
+    return b * t * (3 * h - 2) * (3 * w - 2)
 
 
 def _cdiv(a: int, b: int) -> int:
@@ -123,7 +135,8 @@ def conv_unit_fwd(x: torch.Tensor, w: torch.Tensor,
     Plain composition on the CPU; on the card one kernel launch (plus a
     fixed-order reduction of its per-block sums): for bf16 activations the
     row walk (spatial, ``spatial_fwd_plan``) or the frame walk (temporal,
-    ``temporal_fwd_plan``), for fp32 the fp32 unit (``f32_fwd_plan``).
+    ``temporal_fwd_plan``), for fp32 the fp32 walks
+    (``f32_spatial_fwd_plan``, ``f32_temporal_fwd_plan``).
     Channel counts that are not multiples of 8 run zero-padded
     (``pad_channels``)."""
     if x.device.type == "cpu":
@@ -177,8 +190,10 @@ def conv_unit_fwd(x: torch.Tensor, w: torch.Tensor,
     return y, s1, s2
 
 
-# The fp32 forward (conv_f32_kernel in conv_bn_f32.cu): tiles of 64
-# positions x 64 output channels, a block walking a range of position tiles
+# The fp32 spatial forward's per-tap gather (conv_f32_kernel in
+# conv_bn_f32.cu; the route of images too wide for the row walk): tiles of
+# 64 positions x 64 output channels, a block walking a range of position
+# tiles
 _F32_BM = 64
 _F32_BN = 64
 _F32_BLOCKS_PER_SM = 8     # target blocks a multiprocessor (about two waves)
@@ -292,6 +307,86 @@ def f32_spatial_fwd_plan(b: int, t: int, h: int, w: int, ci: int, co: int,
     return None
 
 
+# The fp32 temporal forward's frame walk (temporal_fwd_f32_kernel in
+# conv_bn_f32.cu): 256 threads, each 4 positions x 8 output channels x 3
+# output frames, take a strip of 128 positions x 64 output channels, K in
+# chunks of 16 input channels for all three taps
+_TWF_NPG = 32              # position groups (TWF_NPG)
+_TWF_NCG = 8               # channel groups (TWF_NCG)
+_TWF_TILE = (4, 8, 3)      # positions x output channels x output frames a thread
+_TWF_STRIP = _TWF_TILE[0] * _TWF_NPG          # positions a strip
+_TWF_N_TILE = _TWF_TILE[1] * _TWF_NCG         # output channels a block
+_TWF_THREADS = _TWF_NPG * _TWF_NCG
+_TWF_K_CHUNK = 16          # input channels a chunk (TWF_KC)
+
+
+def _temporal_fwd_f32_smem(ci: int, resident: bool) -> int:
+    """A block's shared memory (twf_smem in conv_bn_f32.cu): the filter
+    (resident [3·C_in in whole chunks, 64], or two streamed chunks [3·16,
+    64]) and two x chunk buffers [128, 16 + 4]."""
+    cip = _cdiv(ci, _TWF_K_CHUNK) * _TWF_K_CHUNK
+    filt = 3 * cip * _TWF_N_TILE if resident \
+        else 2 * 3 * _TWF_K_CHUNK * _TWF_N_TILE
+    return 4 * (filt + 2 * _TWF_STRIP * (_TWF_K_CHUNK + 4))
+
+
+class F32TemporalFwdPlan(NamedTuple):
+    """How the fp32 temporal forward's frame walk cuts its work: units of
+    ``strip`` consecutive positions of the flattened B·H·W axis (a strip
+    spans several clips where H·W is small), each walked over T by
+    ``threads`` threads, x in chunks of ``k_chunk`` input channels a frame
+    formed once into three output-frame accumulators; ``n_tiles`` tiles of
+    ``n_tile`` output channels (x̂ is formed once per tile); the filter tile
+    ``resident`` in shared memory or streamed with the chunks; ``blocks`` =
+    ``ranges`` contiguous ranges of ``units_per_range`` units x ``n_tiles``
+    (``_tw_units_per_block``), each range one partial row of s1 / s2
+    (``part_rows``); ``smem_bytes`` of shared memory a block;
+    ``register_tile`` the sums a thread holds (positions x output channels
+    x output frames)."""
+    strip: int
+    n_tile: int
+    k_chunk: int
+    threads: int
+    register_tile: Tuple[int, int, int]
+    resident: bool
+    positions: int
+    units: int
+    units_per_range: int
+    ranges: int
+    n_tiles: int
+    blocks: int
+    part_rows: int
+    smem_bytes: int
+
+    def units_of(self, r: int) -> range:
+        """The units of range ``r``, as the kernel takes them."""
+        return range(r * self.units_per_range,
+                     min(self.units, (r + 1) * self.units_per_range))
+
+    def positions_of(self, u: int) -> range:
+        """The positions b·H·W + p of unit ``u``; the unit walks every
+        frame of each."""
+        return range(u * self.strip, min(self.positions, (u + 1) * self.strip))
+
+
+def f32_temporal_fwd_plan(b: int, t: int, h: int, w: int, ci: int, co: int,
+                          sms: int) -> F32TemporalFwdPlan:
+    """The fp32 temporal forward's tiling on a card of ``sms``
+    multiprocessors, for every shape: the filter resident where it fits a
+    block's shared memory beside the x buffers, else streamed (which always
+    fits); ranges of strips by ``_tw_units_per_block`` (one block a SM)."""
+    res = _temporal_fwd_f32_smem(ci, True) <= _SMEM_BLOCK_MAX
+    positions = b * h * w
+    units = _cdiv(positions, _TWF_STRIP)
+    n_tiles = _cdiv(co, _TWF_N_TILE)
+    per = _tw_units_per_block(units, n_tiles, sms, 1)
+    ranges = _cdiv(units, per)
+    return F32TemporalFwdPlan(_TWF_STRIP, _TWF_N_TILE, _TWF_K_CHUNK,
+                              _TWF_THREADS, _TWF_TILE, res, positions, units,
+                              per, ranges, n_tiles, ranges * n_tiles, ranges,
+                              _temporal_fwd_f32_smem(ci, res))
+
+
 def _aligned16(t: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
     """``t`` contiguous on 16-byte-aligned storage (the kernel's vector
     loads): a copy where its base is off 16 bytes."""
@@ -303,10 +398,11 @@ def _aligned16(t: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
 
 def _conv_unit_fwd_f32(x, w, inv, shift, kind):
     """The fp32 unit on the card (Ci, Co multiples of 8): one launch of the
-    spatial row walk (spatial_fwd_f32_kernel, ``f32_spatial_fwd_plan``) or,
-    for the temporal kind and where no row-walk layout fits, of the per-tap
-    gather (conv_f32_kernel, ``f32_fwd_plan``), plus the fixed-order sum of
-    its partial rows."""
+    temporal frame walk (temporal_fwd_f32_kernel, ``f32_temporal_fwd_plan``),
+    the spatial row walk (spatial_fwd_f32_kernel, ``f32_spatial_fwd_plan``)
+    or, where no row-walk layout fits the images, the spatial per-tap gather
+    (conv_f32_kernel, ``f32_fwd_plan``), plus the fixed-order sum of its
+    partial rows."""
     b, t, h, wd, ci = x.shape
     co = w.shape[-1]
     taps = 9 if kind == "spatial" else 3
@@ -315,10 +411,14 @@ def _conv_unit_fwd_f32(x, w, inv, shift, kind):
     inv = _aligned16(None if inv is None else inv.float())
     shift = _aligned16(None if shift is None else shift.float())
     sms = torch.cuda.get_device_properties(x.device).multi_processor_count
-    walk = f32_spatial_fwd_plan(b, t, h, wd, ci, co, sms) \
-        if kind == "spatial" else None
-    gather = f32_fwd_plan(b, t, h, wd, co, sms) if walk is None else None
-    rows = walk.part_rows if walk is not None else gather.ranges
+    frames = walk = gather = None
+    if kind == "temporal":
+        frames = f32_temporal_fwd_plan(b, t, h, wd, ci, co, sms)
+        rows = frames.part_rows
+    else:
+        walk = f32_spatial_fwd_plan(b, t, h, wd, ci, co, sms)
+        gather = f32_fwd_plan(b, t, h, wd, co, sms) if walk is None else None
+        rows = walk.part_rows if walk is not None else gather.ranges
     y = torch.empty(b, t, h, wd, co, dtype=torch.float32, device=x.device)
     s1 = torch.empty(co, dtype=torch.float32, device=x.device)
     s2 = torch.empty(co, dtype=torch.float32, device=x.device)
@@ -329,14 +429,18 @@ def _conv_unit_fwd_f32(x, w, inv, shift, kind):
             y.data_ptr(), s1.data_ptr(), s2.data_ptr(), part.data_ptr())
     lib = cuda_lib.library("conv_bn_f32")
     with torch.cuda.device(x.device):
-        if walk is not None:
+        if frames is not None:
+            err = lib.m3f_temporal_fwd_f32(
+                *ptrs, b, t, h, wd, ci, co, int(frames.resident),
+                frames.units_per_range, cuda_lib.stream_ptr(x))
+        elif walk is not None:
             err = lib.m3f_spatial_fwd_f32(
                 *ptrs, b, t, h, wd, ci, co, walk.n_tile, walk.k_chunk,
                 walk.images_per_range, cuda_lib.stream_ptr(x))
         else:
             err = lib.m3f_conv_unit_fwd_f32(
-                *ptrs, 0 if kind == "spatial" else 1, b, t, h, wd, ci, co,
-                gather.tiles_per_range, cuda_lib.stream_ptr(x))
+                *ptrs, b, t, h, wd, ci, co, gather.tiles_per_range,
+                cuda_lib.stream_ptr(x))
     cuda_lib.check(err, f"conv_unit_fwd {kind} fp32 kernel")
     cuda_lib.launches[f"conv_{kind}_f32"] += 1
     return y, s1, s2

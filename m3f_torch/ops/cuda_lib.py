@@ -69,9 +69,11 @@ SIGNATURES = {
                 "m3f_conv_unit_bwd_filter": [P, P, P, P, P, P, P, P, P, I, I,
                                              I, I, I, I, I, I, I, I, I, P]},
     "conv_bn_f32": {"m3f_conv_unit_fwd_f32": [P, P, P, P, P, P, P, P, I, I, I,
-                                              I, I, I, I, I, P],
+                                              I, I, I, I, P],
                     "m3f_spatial_fwd_f32": [P, P, P, P, P, P, P, P, I, I, I, I,
                                             I, I, I, I, I, P],
+                    "m3f_temporal_fwd_f32": [P, P, P, P, P, P, P, P, I, I, I,
+                                             I, I, I, I, I, P],
                     "m3f_conv_unit_bwd_data_f32": [P, P, P, P, P, P, P, P, P, P,
                                                    P, P, I, I, I, I, I, I, I,
                                                    I, P],

@@ -69,7 +69,9 @@ in the full-width ``fusion`` train step (32 clips, BN prologue on), beside:
   the four spatial units of the serving forward (128 clips) and at a
   stage-1 unit of 112x112 images (``data.image_size=224``, 32 clips: the
   plan's 8-channel chunks), with and without the prologue, every time a
-  device time: in alternating rounds the wrapper, every layout the plan
+  device time: in alternating rounds the wrapper, the planner's layout
+  through the C entry twice (their gap is the spread of identical
+  launches), every layout the plan
   can choose (N tiles of 144 and 128, K chunks of 16 and 8) through the C
   entry, the per-tap gather (``conv_f32_kernel``, the first design and the
   route of images too wide for the walk) through this source's
@@ -78,6 +80,22 @@ in the full-width ``fusion`` train step (32 clips, BN prologue on), beside:
   ablations built with ``-DSWF_ABLATE``: without
   forming x̂ (1), the products (2), the copies (4), the epilogue (8), and
   the walk alone (15); cuDNN's conv alone and a device copy of x and y;
+- ``--kind temporal_fwd_f32``: ``conv_unit_fwd`` of the temporal unit at
+  fp32 x (the frame walk ``temporal_fwd_f32_kernel`` in
+  ``csrc/conv_bn_f32.cu``) at the four temporal units of the serving
+  forward (128 clips) and of the train step (32 clips), with and without
+  the prologue, every time a device time: in alternating rounds the
+  wrapper, the planner's layout through the C entry twice, the filter
+  resident and streamed where each fits, with ``--parent`` an earlier
+  ``conv_bn_f32.cu``'s temporal forward (the per-tap gather, kind 1 of
+  its ``m3f_conv_unit_fwd_f32``, ``PARENT_F32_SIGNATURE``), and
+  cuDNN's fp32 conv plus the sums (TF32 off); ablations built with
+  ``-DTWF_ABLATE``: without forming x̂ (1), the products (2), the copies
+  (4), the epilogue (8), and the walk alone (15); cuDNN's conv alone and a
+  device copy of x and y. Both fp32 kinds run one check and one sweep
+  (``check_fwd_f32`` / ``sweep_fwd_f32``) from their row of ``F32_FWD``;
+  every bound counts the (position, tap) pairs inside the clip
+  (``conv_bn.tap_pairs``);
 - ``--kind mel``: the mel FFT kernel at the serving path's shapes (static
   and per-row hop), and the DFT-product kernel (n_fft 400) at the same
   rows, against their plain versions, and beside ``torch.stft`` + the mel
@@ -130,6 +148,9 @@ Run on a machine with an NVIDIA GPU, from the repository root:
     python -m m3f_torch.scripts.filter_sweep --kind spatial_fwd_f32 --check
     python -m m3f_torch.scripts.filter_sweep --kind spatial_fwd_f32 \
         --parent build/parent/conv_bn_f32.cu
+    python -m m3f_torch.scripts.filter_sweep --kind temporal_fwd_f32 --check
+    python -m m3f_torch.scripts.filter_sweep --kind temporal_fwd_f32 \
+        [--reps 10] [--parent build/parent/conv_bn_f32.cu]
     python -m m3f_torch.scripts.filter_sweep --kind temporal_fwd --check
     python -m m3f_torch.scripts.filter_sweep --kind temporal_fwd \
         --parent build/parent/conv_bn.cu
@@ -147,7 +168,8 @@ prints what ``ptxas`` says of the kernel (registers, spills, shared memory)
 and holds the kernel once against the plain version at each shape and at a
 few small ones (``temporal_data``: at every layout the entry point takes;
 ``spatial_data``: at every step; ``spatial_fwd``: at every layout, filter
-resident and streamed; ``spatial_fwd_f32``: at every layout;
+resident and streamed; ``spatial_fwd_f32``, ``temporal_fwd_f32``: at
+every layout;
 ``temporal_fwd``: at every layout; ``gru``: on both routes at the edge
 shapes too, and at every layout; ``packed`` and
 ``packed_ablate``: every layout at small, edge and full shapes, and an
@@ -162,7 +184,7 @@ import ctypes
 import json
 import statistics
 import subprocess
-from typing import Callable, Dict, Optional
+from typing import Callable, Dict, NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
@@ -226,18 +248,20 @@ def resources(kind: str) -> None:
     """Print what ptxas says of the kind's kernels
     (``<kind>_filter_kernel``, ``temporal_data_kernel``,
     ``spatial_data_kernel``, ``spatial_fwd_kernel``, ``temporal_fwd_kernel``;
-    in conv_bn_f32.cu ``spatial_fwd_f32_kernel``;
+    in conv_bn_f32.cu ``spatial_fwd_f32_kernel`` and
+    ``temporal_fwd_f32_kernel``;
     in melspec.cu ``log_mel_kernel`` and ``log_mel_dft_kernel``; in gru.cu
     ``gru_cluster_kernel`` and ``gru_kernel``)."""
     kernels = {"spatial_fwd": ("spatial_fwd_kernel",),
                "spatial_fwd_f32": ("spatial_fwd_f32_kernel",),
+               "temporal_fwd_f32": ("temporal_fwd_f32_kernel",),
                "temporal_fwd": ("temporal_fwd_kernel",),
                "mel": ("log_mel",),
                "gru": ("18gru_cluster_kernel", "10gru_kernel")}.get(
         kind, (f"{kind}_kernel" if kind.endswith("_data")
                else f"{kind}_filter_kernel",))
-    source = {"mel": "melspec", "gru": "gru",
-              "spatial_fwd_f32": "conv_bn_f32"}.get(kind, "conv_bn")
+    source = {"mel": "melspec", "gru": "gru", "spatial_fwd_f32": "conv_bn_f32",
+              "temporal_fwd_f32": "conv_bn_f32"}.get(kind, "conv_bn")
     log = subprocess.run(
         [cuda_lib._nvcc(), *cuda_lib.NVCC_FLAGS, "-Xptxas", "-v", "-o",
          "/dev/null", *(["-DTD_TRIALS"] if kind == "temporal_data" else []),
@@ -404,7 +428,7 @@ def sweep(kind: str, reps: int) -> None:
         buf = torch.empty_like(x)
         row["copy_x_ms"] = timed(lambda: buf.copy_(x), reps)
         m = x.numel() // ci
-        flops = 2 * m * TAPS[kind] * ci * co
+        flops = 2 * conv_bn.tap_pairs(kind, *xs[:4]) * ci * co
         nbytes = m * ci * 2 + 2 * m * co * 2 + 2 * ci * 4 + 2 * co * 4 \
             + TAPS[kind] * ci * co * 4
         row["bound_ms"] = max(nbytes / HBM, flops / PEAK_BF16) * 1e3
@@ -562,7 +586,7 @@ def sweep_data(reps: int) -> None:
         row["copy_same_bytes_ms"] = timed(
             lambda: (bx.copy_(x), bg.copy_(gy)), reps)
         m = x.numel() // ci
-        flops = 2 * m * 3 * ci * co
+        flops = 2 * conv_bn.tap_pairs("temporal", *xs[:4]) * ci * co
         nbytes = 2 * m * co * 2 + 2 * m * ci * 2 + 3 * ci * co * 2 \
             + 2 * co * 4 + 4 * ci * 4
         row["bound_ms"] = max(nbytes / HBM, flops / PEAK_BF16) * 1e3
@@ -686,7 +710,7 @@ def sweep_spatial_data(reps: int) -> None:
         cudnn = timed(lambda: torch.nn.grad.conv3d_input(
             xshape, kern, gn, padding=pad), reps)
         m = x.numel() // ci
-        flops = 2 * m * 9 * ci * co
+        flops = 2 * conv_bn.tap_pairs("spatial", *xs[:4]) * ci * co
         for affine in (True, False):
             a = (inv, shift) if affine else (None, None)
             args = (x, w, *a, y, gy, gs1, gs2)
@@ -884,7 +908,7 @@ def sweep_spatial_fwd(reps: int, parent: Optional[str]) -> None:
         kern, pad = conv_bn._torch_kernel(w.to(x.dtype), "spatial")
         kern = kern.contiguous(memory_format=torch.channels_last_3d)
         m = x.numel() // ci
-        flops = 2 * m * 9 * ci * co
+        flops = 2 * conv_bn.tap_pairs("spatial", *xs[:4]) * ci * co
         for affine in (True, False):
             a = (inv, shift) if affine else (None, None)
             xh = conv_bn._prologue(x, *a).permute(0, 4, 1, 2, 3)
@@ -1135,7 +1159,7 @@ def sweep_temporal_fwd(reps: int, parent: Optional[str]) -> None:
             row["parent_ms"].append(timed(lambda: launch_parent_fwd(
                 old, x, wk, *a, 1, (0, 0)), reps, queued=True))
         m = x.numel() // ci
-        flops = 2 * m * 3 * ci * co
+        flops = 2 * conv_bn.tap_pairs("temporal", *xs[:4]) * ci * co
         nbytes = m * ci * 2 + m * co * 2 + 3 * ci * co * 2 + 2 * co * 4 \
             + 2 * ci * 4
         row["bound_ms"] = max(nbytes / HBM, flops / PEAK_BF16) * 1e3
@@ -1148,18 +1172,15 @@ def sweep_temporal_fwd(reps: int, parent: Optional[str]) -> None:
         torch.cuda.empty_cache()
 
 
-# --- the fp32 spatial forward -----------------------------------------------
+# --- the fp32 forwards: the spatial row walk and the temporal frame walk -----
 
-# ablation builds of conv_bn_f32.cu (-DSWF_ABLATE)
-SWF_ABLATIONS = {"no_forming": 1, "no_products": 2, "no_copies": 4,
+# ablation builds of conv_bn_f32.cu (-DSWF_ABLATE / -DTWF_ABLATE)
+F32_ABLATIONS = {"no_forming": 1, "no_products": 2, "no_copies": 4,
                  "no_epilogue": 8, "walk_only": 15}
-# every layout the plan can choose: (N tile, K chunk)
-SWF_LAYOUTS = tuple((nb, kc) for nb in conv_bn._SWF_N_TILES
-                    for kc in conv_bn._SWF_K_CHUNKS)
-# small shapes (x shape, C_out): partial chunks, masked N tiles, steps
-# across images (7x7 and 4x7 images, 135 images: ranges of 2), one-pixel
-# images (8-channel chunks), C_out 1152 / 256 / 200, images too wide for
-# the walk (the per-tap gather)
+# small shapes (x shape, C_out) of the spatial walk: partial chunks, masked
+# N tiles, steps across images (7x7 and 4x7 images, 135 images: ranges of
+# 2), one-pixel images (8-channel chunks), C_out 1152 / 256 / 200, images
+# too wide for the walk (the per-tap gather)
 SWF_SMALL = (((3, 5, 7, 9, 24), 40), ((3, 45, 7, 7, 24), 40),
              ((2, 3, 4, 7, 40), 200), ((2, 16, 7, 7, 64), 1152),
              ((2, 4, 14, 14, 32), 256), ((3, 4, 1, 1, 16), 72),
@@ -1167,8 +1188,18 @@ SWF_SMALL = (((3, 5, 7, 9, 24), 40), ((3, 45, 7, 7, 24), 40),
 # stage 1 of data.image_size=224 (112x112 images) at 32 clips: too wide for
 # 16-channel chunks, so the plan takes 8-channel ones
 SWF_WIDE = (((32, 16, 112, 112, 64), 144),)
-SWF_ENTRY = "m3f_spatial_fwd_f32"
-PARENT_F32_ENTRY = "m3f_conv_unit_fwd_f32"
+# small shapes of the temporal walk: T 1 / 2 / 3 / 5, strips across clips
+# (7x7 and 5x5 images), a partial chunk (C_in 40), masked N tiles (C_out
+# 40, 200), several units a range (1568 positions: 13 or 25 strips), a
+# resident filter (C_in 200)
+TWF_SMALL = (((2, 1, 3, 5, 24), 40), ((3, 2, 7, 7, 16), 40),
+             ((2, 3, 4, 7, 40), 200), ((2, 5, 6, 3, 40), 24),
+             ((32, 2, 7, 7, 64), 512), ((1, 3, 9, 9, 200), 72))
+# the gather's C entry in this source, and in older sources that took the
+# kind (0 spatial, 1 temporal) before the batch
+GATHER_F32_ENTRY = "m3f_conv_unit_fwd_f32"
+PARENT_F32_SIGNATURE = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8 \
+    + [ctypes.c_void_p]
 
 
 def swf_inputs(xs, co, dev, g):
@@ -1205,9 +1236,40 @@ def launch_swf(fn, x, wk, inv, shift, layout=None):
     return y, s1, s2
 
 
-def launch_gather_f32(fn, x, wk, inv, shift):
+CUDA_ERROR_INVALID_VALUE = 1
+
+
+def launch_twf(fn, x, wk, inv, shift, layout=None):
+    """One call of a build's ``m3f_temporal_fwd_f32`` with the planner's
+    layout or the filter resident (``layout`` True) or streamed (False)
+    over the planner's ranges (what ``conv_unit_fwd`` does for fp32 x,
+    minus its checks); ``inv`` None leaves the prologue out. None where the
+    C entry refuses the layout (a resident filter that does not fit)."""
+    b, t, h, wd, ci = x.shape
+    co = wk.shape[1]
+    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+    plan = conv_bn.f32_temporal_fwd_plan(b, t, h, wd, ci, co, sms)
+    resident = plan.resident if layout is None else layout
+    y = torch.empty(*x.shape[:-1], co, device=x.device)
+    s1 = torch.empty(co, device=x.device)
+    s2 = torch.empty_like(s1)
+    part = torch.empty(2 * plan.part_rows * co, device=x.device)
+    ptr = lambda v: None if v is None else v.data_ptr()
+    err = fn(x.data_ptr(), wk.data_ptr(), ptr(inv), ptr(shift), y.data_ptr(),
+             s1.data_ptr(), s2.data_ptr(), part.data_ptr(), b, t, h, wd, ci,
+             co, int(resident), plan.units_per_range, cuda_lib.stream_ptr(x))
+    if err == CUDA_ERROR_INVALID_VALUE and layout is not None:
+        return None
+    cuda_lib.check(err, f"fp32 temporal forward sweep, resident={resident}")
+    return y, s1, s2
+
+
+
+def launch_gather_f32(fn, x, wk, inv, shift, kind=None):
     """One call of a ``m3f_conv_unit_fwd_f32`` (the per-tap gather,
-    conv_f32_kernel, kind 0) with ``f32_fwd_plan``'s tiling."""
+    conv_f32_kernel) with ``f32_fwd_plan``'s tiling: this source's (spatial
+    only, ``kind`` None) or an older source's, which takes ``kind`` (0
+    spatial, 1 temporal; built with PARENT_F32_SIGNATURE)."""
     b, t, h, wd, ci = x.shape
     co = wk.shape[1]
     sms = torch.cuda.get_device_properties(x.device).multi_processor_count
@@ -1218,55 +1280,101 @@ def launch_gather_f32(fn, x, wk, inv, shift):
     part = torch.empty(2 * plan.ranges * co, device=x.device)
     ptr = lambda v: None if v is None else v.data_ptr()
     err = fn(x.data_ptr(), wk.data_ptr(), ptr(inv), ptr(shift), y.data_ptr(),
-             s1.data_ptr(), s2.data_ptr(), part.data_ptr(), 0, b, t, h, wd,
-             ci, co, plan.tiles_per_range, cuda_lib.stream_ptr(x))
+             s1.data_ptr(), s2.data_ptr(), part.data_ptr(),
+             *(() if kind is None else (kind,)), b, t, h, wd, ci, co,
+             plan.tiles_per_range, cuda_lib.stream_ptr(x))
     cuda_lib.check(err, "fp32 gather forward")
     return y, s1, s2
 
 
-def check_spatial_fwd_f32() -> None:
-    """ptxas' resource lines of spatial_fwd_f32_kernel, then the fp32
-    spatial forward against the plain version (TF32 off), with and without
-    the prologue: the wrapper once at each small and serving shape (and
-    whether a second call repeats y, s1 and s2 bit for bit), every layout
-    of SWF_LAYOUTS that fits at each shape, and the per-tap gather."""
+class F32FwdKind(NamedTuple):
+    """What the fp32 forward sweep does for one kind: the kernel's ``taps``
+    (the filter's leading ``kernel`` shape), the C ``entry`` and its
+    ``launch`` (layout None: the planner's), the ``plan`` function, the
+    ``layouts`` the plan can take (name -> layout), the ablation ``knob``,
+    the random ``seed``, the shapes of ``--check`` and of the sweep,
+    whether this source's per-tap ``gather`` takes the kind, and the kind
+    an older source's gather took (``parent_kind``)."""
+    taps: int
+    kernel: tuple
+    entry: str
+    launch: Callable
+    plan: Callable
+    layouts: Dict[str, object]
+    knob: str
+    seed: int
+    check_shapes: tuple
+    sweep_shapes: tuple
+    gather: bool
+    parent_kind: int
+
+
+F32_FWD = {
+    "spatial": F32FwdKind(
+        9, (3, 3), "m3f_spatial_fwd_f32", launch_swf,
+        conv_bn.f32_spatial_fwd_plan,
+        {f"layout_{nb}x{kc}": (nb, kc) for nb in conv_bn._SWF_N_TILES
+         for kc in conv_bn._SWF_K_CHUNKS},
+        "SWF_ABLATE", 13, SWF_SMALL + FWD_SHAPES, FWD_SHAPES + SWF_WIDE,
+        True, 0),
+    "temporal": F32FwdKind(
+        3, (3,), "m3f_temporal_fwd_f32", launch_twf,
+        conv_bn.f32_temporal_fwd_plan,
+        {"filter_resident": True, "filter_streamed": False},
+        "TWF_ABLATE", 17, TWF_SMALL + TW_SHAPES, TW_SHAPES, False, 1)}
+
+
+def _f32_fwd_inputs(spec: F32FwdKind, xs, co, dev, g):
+    """x, the filter in the kind's shape, its [taps·C_in, C_out] matrix,
+    inv and shift."""
+    x, w, inv, shift = swf_inputs(xs, co, dev, g)
+    ci = xs[-1]
+    w = w.reshape(9, ci, co)[:spec.taps].reshape(*spec.kernel, ci, co)
+    return x, w, w.reshape(spec.taps * ci, co), inv, shift
+
+
+def check_fwd_f32(kind: str) -> None:
+    """ptxas' resource lines of the kind's fp32 walk, then the walk against
+    the plain version (TF32 off), with and without the prologue: the
+    wrapper once at each small and serving shape (and whether a second call
+    repeats y, s1 and s2 bit for bit), every layout of the kind that fits
+    at each shape, and, for the spatial kind, the per-tap gather."""
+    spec = F32_FWD[kind]
     dev = resolve_device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    resources("spatial_fwd_f32")
+    resources(f"{kind}_fwd_f32")
     cuda_lib.build(["conv_bn_f32"])
     lib = cuda_lib.library("conv_bn_f32")
-    main, gather = getattr(lib, SWF_ENTRY), getattr(lib, PARENT_F32_ENTRY)
-    g = torch.Generator(device=dev).manual_seed(13)
+    main = getattr(lib, spec.entry)
+    g = torch.Generator(device=dev).manual_seed(spec.seed)
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    for xs, co in SWF_SMALL + FWD_SHAPES:
-        x, w, inv, shift = swf_inputs(xs, co, dev, g)
-        wk = w.reshape(9 * xs[-1], co)
-        plan = conv_bn.f32_spatial_fwd_plan(*xs, co, sms)
+    for xs, co in spec.check_shapes:
+        x, w, wk, inv, shift = _f32_fwd_inputs(spec, xs, co, dev, g)
+        plan = spec.plan(*xs, co, sms)
         row = {"x": list(xs), "co": co,
-               "plan": None if plan is None else [
-                   plan.step, plan.n_tile, plan.k_chunk, plan.buf_rows,
-                   plan.ranges, plan.smem_bytes]}
+               "plan": None if plan is None else plan._asdict()}
         for affine in (True, False):
             a = (inv, shift) if affine else (None, None)
-            got = conv_bn.conv_unit_fwd(x, w, *a, kind="spatial")
-            again = conv_bn.conv_unit_fwd(x, w, *a, kind="spatial")
+            got = conv_bn.conv_unit_fwd(x, w, *a, kind=kind)
+            again = conv_bn.conv_unit_fwd(x, w, *a, kind=kind)
             torch.cuda.synchronize()
-            ref = conv_bn.conv_unit_reference(x, w, *a, kind="spatial")
+            ref = conv_bn.conv_unit_reference(x, w, *a, kind=kind)
             key = "affine" if affine else "plain"
             row[key] = {"max_err_over_max_ref": _fwd_errors(got, ref),
                         "repeats": all(torch.equal(p, q)
                                        for p, q in zip(got, again))}
-            for layout in SWF_LAYOUTS:
-                out = launch_swf(main, x, wk, *a, layout=layout)
+            for name, layout in spec.layouts.items():
+                out = spec.launch(main, x, wk, *a, layout=layout)
                 torch.cuda.synchronize()
-                row[key][f"{layout[0]}x{layout[1]}"] = \
-                    None if out is None else _fwd_errors(out, ref)
+                row[key][name] = None if out is None else _fwd_errors(out, ref)
                 del out
-            out = launch_gather_f32(gather, x, wk, *a)
-            torch.cuda.synchronize()
-            row[key]["gather"] = _fwd_errors(out, ref)
-            del out
+            if spec.gather:
+                out = launch_gather_f32(getattr(lib, GATHER_F32_ENTRY), x,
+                                        wk, *a)
+                torch.cuda.synchronize()
+                row[key]["gather"] = _fwd_errors(out, ref)
+                del out
             del got, again, ref
             torch.cuda.empty_cache()
         print(json.dumps(row), flush=True)
@@ -1274,43 +1382,46 @@ def check_spatial_fwd_f32() -> None:
         torch.cuda.empty_cache()
 
 
-def sweep_spatial_fwd_f32(reps: int, parent: Optional[str]) -> None:
-    """The fp32 spatial forward at the serving forward's four spatial
-    units (128 clips) and at SWF_WIDE, with and without the prologue,
-    every time a device time: in alternating rounds the wrapper, every
-    layout through the C entry, the per-tap gather through this source's
-    entry and, with ``parent``, through that source's, and cuDNN's fp32
-    conv plus the sums (TF32 off); then the ablation builds, cuDNN's conv
-    alone and a device copy of x and y."""
+def sweep_fwd_f32(kind: str, reps: int, parent: Optional[str]) -> None:
+    """The kind's fp32 walk at its sweep shapes (spatial: the serving
+    forward's four units, 128 clips, and SWF_WIDE; temporal: the four units
+    of the serving forward and of the train step, 32 clips), with and
+    without the prologue, every time a device time: in alternating rounds
+    the wrapper, the planner's layout through the C entry twice (their gap
+    is the spread of identical launches), every layout of the kind that
+    fits, the spatial per-tap gather through this source's entry, with
+    ``parent`` that source's gather of the kind, and cuDNN's fp32 conv
+    plus the sums (TF32 off); then the ablation builds, cuDNN's conv alone
+    and a device copy of x and y. The bound counts the operations the
+    function needs (``conv_bn.tap_pairs``)."""
     import torch.nn.functional as F
+    spec = F32_FWD[kind]
     dev = resolve_device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     cuda_lib.build(["conv_bn_f32"])
     lib = cuda_lib.library("conv_bn_f32")
-    main, gather = getattr(lib, SWF_ENTRY), getattr(lib, PARENT_F32_ENTRY)
+    main = getattr(lib, spec.entry)
     src = str(cuda_lib.CSRC / "conv_bn_f32.cu")
-    defines = {f"swf_{name}": f"SWF_ABLATE={k}"
-               for name, k in SWF_ABLATIONS.items()}
-    built = build_variants(defines, SWF_ENTRY, {name: src for name in defines},
-                           cuda_lib.SIGNATURES["conv_bn_f32"][SWF_ENTRY])
+    defines = {f"{kind}_f32_{name}": f"{spec.knob}={k}"
+               for name, k in F32_ABLATIONS.items()}
+    built = build_variants(defines, spec.entry, {name: src for name in defines},
+                           cuda_lib.SIGNATURES["conv_bn_f32"][spec.entry])
     old = None
     if parent:
-        old = build_variants({"parent_f32": ""}, PARENT_F32_ENTRY,
+        old = build_variants({"parent_f32": ""}, GATHER_F32_ENTRY,
                              {"parent_f32": parent},
-                             cuda_lib.SIGNATURES["conv_bn_f32"][PARENT_F32_ENTRY]
-                             )["parent_f32"]
-    g = torch.Generator(device=dev).manual_seed(13)
+                             PARENT_F32_SIGNATURE)["parent_f32"]
+    g = torch.Generator(device=dev).manual_seed(spec.seed)
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    for xs, co in FWD_SHAPES + SWF_WIDE:
+    for xs, co in spec.sweep_shapes:
         ci = xs[-1]
-        x, w, inv, shift = swf_inputs(xs, co, dev, g)
-        wk = w.reshape(9 * ci, co)
-        plan = conv_bn.f32_spatial_fwd_plan(*xs, co, sms)
-        kern, pad = conv_bn._torch_kernel(w, "spatial")
+        x, w, wk, inv, shift = _f32_fwd_inputs(spec, xs, co, dev, g)
+        plan = spec.plan(*xs, co, sms)
+        kern, pad = conv_bn._torch_kernel(w, kind)
         kern = kern.contiguous(memory_format=torch.channels_last_3d)
         m = x.numel() // ci
-        flops = 2 * m * 9 * ci * co
+        flops = 2 * conv_bn.tap_pairs(kind, *xs[:4]) * ci * co
         for affine in (True, False):
             a = (inv, shift) if affine else (None, None)
             xh = conv_bn._prologue(x, *a).permute(0, 4, 1, 2, 3)
@@ -1318,24 +1429,31 @@ def sweep_spatial_fwd_f32(reps: int, parent: Optional[str]) -> None:
             def sums():
                 yf = F.conv3d(xh, kern, padding=pad)
                 return yf.sum((0, 2, 3, 4)), (yf * yf).sum((0, 2, 3, 4))
+            entry = lambda: spec.launch(main, x, wk, *a)
             fns = {"wrapper": lambda: conv_bn.conv_unit_fwd(
-                x, w, *a, kind="spatial")}
-            for layout in SWF_LAYOUTS:
-                if launch_swf(main, x, wk, *a, layout=layout) is not None:
-                    fns[f"layout_{layout[0]}x{layout[1]}"] = \
-                        lambda layout=layout: launch_swf(main, x, wk, *a,
-                                                         layout=layout)
-            fns["gather"] = lambda: launch_gather_f32(gather, x, wk, *a)
+                       x, w, *a, kind=kind),
+                   "entry": entry, "entry_again": entry}
+            for name, layout in spec.layouts.items():
+                if spec.launch(main, x, wk, *a, layout=layout) is not None:
+                    fns[name] = lambda layout=layout: spec.launch(
+                        main, x, wk, *a, layout=layout)
+            if spec.gather:
+                fns["gather"] = lambda: launch_gather_f32(
+                    getattr(lib, GATHER_F32_ENTRY), x, wk, *a)
             if old is not None:
-                fns["parent"] = lambda: launch_gather_f32(old, x, wk, *a)
+                fns["parent"] = lambda: launch_gather_f32(old, x, wk, *a,
+                                                          spec.parent_kind)
             fns["cudnn_conv_sums"] = sums
-            row = {"kind": "spatial_fwd_f32", "x": list(xs), "co": co,
+            row = {"kind": f"{kind}_fwd_f32", "x": list(xs), "co": co,
                    "affine": affine, "plan": plan._asdict(),
                    "alternating_ms": alternating(fns, reps)}
             row["ms"] = row["alternating_ms"]["wrapper"][0]
+            row["identical_launches_gap_ms"] = abs(
+                row["alternating_ms"]["entry"][0]
+                - row["alternating_ms"]["entry_again"][0])
             for name, fn in built.items():
-                row[f"{name[4:]}_ms"] = timed(
-                    lambda: launch_swf(fn, x, wk, *a), reps, queued=True)
+                row[f"{name[len(kind) + 5:]}_ms"] = timed(
+                    lambda: spec.launch(fn, x, wk, *a), reps, queued=True)
             row["cudnn_conv_ms"] = timed(
                 lambda: F.conv3d(xh, kern, padding=pad), reps, queued=True)
             bx = torch.empty_like(x)
@@ -1343,7 +1461,7 @@ def sweep_spatial_fwd_f32(reps: int, parent: Optional[str]) -> None:
             sy = torch.zeros_like(by)
             row["copy_x_and_y_ms"] = timed(
                 lambda: (bx.copy_(x), by.copy_(sy)), reps, queued=True)
-            nbytes = 4 * (m * ci + m * co + 9 * ci * co + 2 * co
+            nbytes = 4 * (m * ci + m * co + spec.taps * ci * co + 2 * co
                           + (2 * ci if affine else 0))
             row["bound_ms"] = max(nbytes / HBM, flops / PEAK_FP32) * 1e3
             row["bound_by"] = "bytes" if nbytes / HBM >= flops / PEAK_FP32 \
@@ -2077,7 +2195,7 @@ def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--kind", choices=("spatial", "temporal", "temporal_data",
                                        "spatial_data", "spatial_fwd",
-                                       "spatial_fwd_f32",
+                                       "spatial_fwd_f32", "temporal_fwd_f32",
                                        "temporal_fwd", "mel", "gru",
                                        "packed", "packed_ablate"),
                     default="spatial")
@@ -2085,9 +2203,10 @@ def main(argv=None) -> None:
     ap.add_argument("--check", action="store_true",
                     help="ptxas' resource lines and one comparison per shape")
     ap.add_argument("--parent", default=None,
-                    help="spatial_fwd_f32: a conv_bn_f32.cu whose fp32 "
-                         "forward (m3f_conv_unit_fwd_f32, the per-tap gather) "
-                         "is timed beside the row walk; "
+                    help="spatial_fwd_f32 / temporal_fwd_f32: a "
+                         "conv_bn_f32.cu whose fp32 forward of that kind "
+                         "(m3f_conv_unit_fwd_f32, the per-tap gather) is "
+                         "timed beside the walk; "
                          "spatial_fwd / temporal_fwd: a conv_bn.cu whose "
                          "forward of that kind (the per-tap gather, C entry "
                          "before the walk) is timed beside the kernel; gru: "
@@ -2105,9 +2224,10 @@ def main(argv=None) -> None:
     elif opts.kind == "spatial_fwd":
         check_spatial_fwd() if opts.check \
             else sweep_spatial_fwd(opts.reps, opts.parent)
-    elif opts.kind == "spatial_fwd_f32":
-        check_spatial_fwd_f32() if opts.check \
-            else sweep_spatial_fwd_f32(opts.reps, opts.parent)
+    elif opts.kind in ("spatial_fwd_f32", "temporal_fwd_f32"):
+        kind = opts.kind[:-len("_fwd_f32")]
+        check_fwd_f32(kind) if opts.check \
+            else sweep_fwd_f32(kind, opts.reps, opts.parent)
     elif opts.kind == "temporal_fwd":
         check_temporal_fwd() if opts.check \
             else sweep_temporal_fwd(opts.reps, opts.parent)

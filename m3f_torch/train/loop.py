@@ -190,6 +190,28 @@ def _nan_guard(step: int):
                 f"{e}") from e
 
 
+def _check_mesh(mesh) -> None:
+    """Refuses a ``train.mesh`` this package cannot build, as the JAX
+    package's ``create_mesh`` does: ``num_data`` rows of devices beyond the
+    devices of the process group (one without a ``torch.distributed``
+    group), and any ``num_model`` above 1, since tensor parallelism is not
+    ported (ROADMAP §1, ``parallel/``). ``num_data`` -1 takes every device."""
+    from m3f_torch.data.windowing import process_grid
+    if mesh.num_model > 1:
+        raise NotImplementedError(
+            f"train.mesh.num_model={mesh.num_model}: tensor parallelism is "
+            "not ported (ROADMAP §1, parallel/); use num_model=1")
+    if mesh.num_data == -1:
+        return
+    if mesh.num_data < 1:
+        raise ValueError(f"train.mesh.num_data must be -1 or at least 1, got "
+                         f"{mesh.num_data}")
+    n = process_grid()[1]
+    if mesh.num_data > n:
+        raise ValueError(f"mesh {mesh.num_data}x{mesh.num_model} needs "
+                         f"{mesh.num_data} devices, have {n}")
+
+
 class Trainer:
     """Owns the model (seeded from ``train.seed``), trains it and evaluates
     whole videos. ``device="cuda"`` (default) raises without a GPU; the
@@ -209,6 +231,7 @@ class Trainer:
                 f"window.window_frames={cfg.window.window_frames} but "
                 f"model.frames_per_window={cfg.model.frames_per_window} — "
                 "these must match")
+        _check_mesh(cfg.train.mesh)
         self.cfg = cfg
         self.device = resolve_device(device)
         self.model = M3F(cfg.model, device=self.device,

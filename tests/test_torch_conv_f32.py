@@ -1,16 +1,20 @@
 """The fp32 forward conv unit (wrapped by ``ops.conv_bn.conv_unit_fwd`` for
 fp32 x; m3f_torch/csrc/conv_bn_f32.cu) where a CPU can hold it: the spatial
 kind's row walk (``spatial_fwd_f32_kernel``, tiled by
-``f32_spatial_fwd_plan``) and the temporal kind's per-tap gather
-(``conv_f32_kernel``, ``f32_fwd_plan``) at every fused unit's serving and
-training shape, numpy runs of both walks against the JAX package's Pallas
-units in fp32 under interpret mode (as tests/test_conv_bn_fused.py runs
-them): the row walk's steps of 128 output pixels over ranges of whole
-images with a zero row before every image and after the last, zero
-columns, the two-rounding prologue on real pixels only, K in chunks of 16
-(or 8) input channels for all nine taps, N tiles of 144 / 128 and the
-fixed order of its sums; the gather's position tiles of 64, K in chunks of
-16 input channels a tap with its zero padding; both with partial rows of
+``f32_spatial_fwd_plan``) and its per-tap gather for images too wide for
+the walk (``conv_f32_kernel``, ``f32_fwd_plan``), the temporal kind's frame
+walk (``temporal_fwd_f32_kernel``, ``f32_temporal_fwd_plan``) at every fused
+unit's serving and training shape, numpy runs of the three walks against
+the JAX package's Pallas units in fp32 under interpret mode (as
+tests/test_conv_bn_fused.py runs them): the row walk's steps of 128 output
+pixels over ranges of whole images with a zero row before every image and
+after the last, zero columns, the two-rounding prologue on real pixels
+only, K in chunks of 16 (or 8) input channels for all nine taps, N tiles of
+144 / 128 and the fixed order of its sums; the gather's position tiles of
+64, K in chunks of 16 input channels a tap with its zero padding; the frame
+walk's strips of positions across clips, chunks of 16 input channels
+formed once into three output-frame accumulators, the taps past the clip's
+edge skipped, and the fixed order of its sums; each with partial rows of
 the sums per range. Also the scoped fp32 precision of ``nn.full_fp32`` (no
 TF32) across threads, and one train step of an fp32 model with fused
 units against the JAX package's (its backward kernels are
@@ -22,7 +26,9 @@ order); the sums per channel rtol 1e-4 / atol 1e-2 (tests/test_torch_conv_bn.py,
 from tests/test_conv_bn_fused.py:41-46)."""
 
 import dataclasses
+import re
 import threading
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -42,15 +48,88 @@ SMS = 132
 
 
 def _emulate(x, w, inv, shift, kind, sms=SMS):
-    """The kernel's walk in numpy (fp32): returns (y, s1, s2). The spatial
-    kind takes the row walk where its plan has a layout, else (as the
-    wrapper) the per-tap gather."""
+    """The kernel's walk in numpy (fp32): returns (y, s1, s2). The temporal
+    kind takes the frame walk; the spatial kind the row walk where its plan
+    has a layout, else (as the wrapper) the per-tap gather."""
     b, t, h, wd, ci = x.shape
-    if kind == "spatial":
-        plan = conv_bn.f32_spatial_fwd_plan(b, t, h, wd, ci, w.shape[-1], sms)
-        if plan is not None:
-            return _emulate_row_walk(x, w, inv, shift, plan)
-    return _emulate_gather(x, w, inv, shift, kind, sms)
+    if kind == "temporal":
+        plan = conv_bn.f32_temporal_fwd_plan(b, t, h, wd, ci, w.shape[-1], sms)
+        return _emulate_frame_walk(x, w, inv, shift, plan)
+    plan = conv_bn.f32_spatial_fwd_plan(b, t, h, wd, ci, w.shape[-1], sms)
+    if plan is not None:
+        return _emulate_row_walk(x, w, inv, shift, plan)
+    return _emulate_gather(x, w, inv, shift, sms)
+
+
+def _colsum(rows, co):
+    """colsum_f32_kernel's order: row r into lane r % 32 in order, then the
+    32 lanes in order."""
+    lanes = [np.zeros(co, np.float32) for _ in range(32)]
+    for r, v in enumerate(rows):
+        lanes[r % 32] += v
+    s = np.zeros(co, np.float32)
+    for v in lanes:
+        s += v
+    return s
+
+
+def _emulate_frame_walk(x, w, inv, shift, plan):
+    """temporal_fwd_f32_kernel's walk: per range its units in order, each a
+    strip of ``plan.strip`` positions of the flattened B·H·W axis (across
+    clips where H·W is small) walked over the frames; frame t's x̂ in chunks
+    of ``plan.k_chunk`` input channels (zero past C_in) multiplied into
+    three accumulator sets, output frames t+1 (tap 0), t (tap 1) and t-1
+    (tap 2), a tap whose output frame lies outside the clip skipped; after
+    frame t's last chunk frame t-1 leaves (and at the clip's last frame t
+    too) and the sets shift. Strip row p's y and y² are summed by position
+    group p % (strip / 4) over the walk in order, then the groups in order
+    into the range's partial row, then the rows in colsum_f32_kernel's
+    order."""
+    b, t, h, wd, ci = x.shape
+    co = w.shape[-1]
+    hw, kc = h * wd, plan.k_chunk
+    npg = plan.strip // 4                        # position groups
+    cip = -(-ci // kc) * kc
+    ncols = plan.n_tiles * plan.n_tile
+    xh = x if inv is None else np.maximum(np.float32(x * inv) + shift,
+                                          np.float32(0))
+    xp = np.zeros((b, t, hw, cip), np.float32)
+    xp[..., :ci] = xh.reshape(b, t, hw, ci)
+    wk = np.zeros((3, cip, ncols), np.float32)
+    wk[:, :ci, :co] = w
+    y = np.zeros((b, t, hw, co), np.float32)
+    rows1, rows2 = [], []
+    for r in range(plan.ranges):
+        g1 = np.zeros((npg, ncols), np.float32)
+        g2 = np.zeros((npg, ncols), np.float32)
+        for u in plan.units_of(r):
+            pos = np.array(plan.positions_of(u))
+            bi, pi = pos // hw, pos % hw
+            acc = np.zeros((3, len(pos), ncols), np.float32)
+            for tt in range(t):
+                for c in range(cip // kc):
+                    a = xp[bi, tt, pi, c * kc:(c + 1) * kc]
+                    for dt in range(3):
+                        if 0 <= tt + 1 - dt < t:
+                            acc[2 - dt] += a @ wk[dt, c * kc:(c + 1) * kc]
+                done = ([(0, tt - 1)] if tt > 0 else []) \
+                    + ([(1, tt)] if tt + 1 == t else [])
+                for f, tf in done:
+                    y[bi, tf, pi] = acc[f][:, :co]
+                    for i in range(4):
+                        blk = acc[f][npg * i:npg * (i + 1)]
+                        g1[:len(blk)] += blk
+                        g2[:len(blk)] += blk * blk
+                acc = np.stack([acc[1], acc[2], np.zeros_like(acc[2])])
+        v1 = np.zeros(ncols, np.float32)
+        v2 = np.zeros(ncols, np.float32)
+        for g in range(npg):
+            v1 += g1[g]
+            v2 += g2[g]
+        rows1.append(v1[:co])
+        rows2.append(v2[:co])
+    return (y.reshape(b, t, h, wd, co), _colsum(rows1, co),
+            _colsum(rows2, co))
 
 
 def _emulate_row_walk(x, w, inv, shift, plan):
@@ -119,32 +198,27 @@ def _emulate_row_walk(x, w, inv, shift, plan):
     return y.reshape(b, t, h, wd, co), s1, s2
 
 
-def _emulate_gather(x, w, inv, shift, kind, sms=SMS):
-    """conv_f32_kernel's walk (the temporal kind, and the spatial kind
-    where no row-walk layout fits)."""
+def _emulate_gather(x, w, inv, shift, sms=SMS):
+    """conv_f32_kernel's walk (the spatial kind where no row-walk layout
+    fits)."""
     b, t, h, wd, ci = x.shape
     co = w.shape[-1]
-    taps = 9 if kind == "spatial" else 3
     plan = conv_bn.f32_fwd_plan(b, t, h, wd, co, sms)
     m_all = b * t * h * wd
     xf = x.reshape(m_all, ci)
-    wk = w.reshape(taps * ci, co)
+    wk = w.reshape(9 * ci, co)
     m = np.arange(plan.m_tiles * 64)
     ok_m = m < m_all
-    img, r = m // (h * wd), m % (h * wd)
-    gh, gw, gt = r // wd, r % wd, img % t
+    r = m % (h * wd)
+    gh, gw = r // wd, r % wd
     acc = np.zeros((len(m), plan.n_tiles * 64), np.float32)
-    for step in range(taps * -(-ci // 16)):
+    for step in range(9 * -(-ci // 16)):
         tap, c0 = divmod(step, -(-ci // 16))
         c0 *= 16
-        if kind == "spatial":
-            dh, dw = tap // 3 - 1, tap % 3 - 1
-            ok = ok_m & (gh + dh >= 0) & (gh + dh < h) & (gw + dw >= 0) \
-                & (gw + dw < wd)
-            src = m + dh * wd + dw
-        else:
-            ok = ok_m & (gt + tap - 1 >= 0) & (gt + tap - 1 < t)
-            src = m + (tap - 1) * h * wd
+        dh, dw = tap // 3 - 1, tap % 3 - 1
+        ok = ok_m & (gh + dh >= 0) & (gh + dh < h) & (gw + dw >= 0) \
+            & (gw + dw < wd)
+        src = m + dh * wd + dw
         a = np.zeros((len(m), 16), np.float32)
         cs = np.arange(c0, min(c0 + 16, ci))
         v = xf[np.where(ok, src, 0)][:, cs]
@@ -166,7 +240,7 @@ def _emulate_gather(x, w, inv, shift, kind, sms=SMS):
 # (kind, x shape, w shape): a partial last position tile (M not a multiple
 # of 64), partial chunks (C_in 24, 8), a partial output-channel tile (C_out
 # 40, 72), 1x1 images (every spatial tap but the centre in the padding),
-# one frame and two (temporal padding), clips across position tiles
+# one frame and two (temporal padding), clips across a strip
 EMU_CASES = [
     ("spatial", (2, 3, 5, 7, 24), (3, 3, 24, 40)),
     ("spatial", (3, 2, 1, 1, 8), (3, 3, 8, 72)),
@@ -186,11 +260,19 @@ EMU_CASES = [
     ("spatial", (2, 4, 7, 7, 16), (3, 3, 16, 144)),
     # images too wide for the row walk: the spatial kind's per-tap gather
     ("spatial", (1, 2, 2, 240, 16), (3, 3, 16, 16)),
+    # the frame walk: 7x7 clips of two frames, strips across clips (49
+    # positions < 128) and two units in one range; C_in 40 (chunks of 16,
+    # 16, 8) at C_out 200 (N tiles of 64, the last masked to 8 channels);
+    # clips of one frame, a strip across five 5x5 clips
+    ("temporal", (3, 2, 7, 7, 16), (3, 16, 40)),
+    ("temporal", (2, 3, 4, 7, 40), (3, 40, 200)),
+    ("temporal", (5, 1, 5, 5, 8), (3, 8, 16)),
 ]
 # the multiprocessors the plan is made for, where not SMS: fewer put
-# several images in a range, so that a step spans images
+# several images (spatial) or strips (temporal) in a range, so that a step
+# spans images or a block walks several strips
 EMU_SMS = {(2, 5, 7, 7, 24): 3, (1, 4, 1, 1, 16): 2, (2, 3, 4, 7, 40): 4,
-           (2, 4, 7, 7, 16): 2, (3, 2, 1, 1, 8): 2}
+           (2, 4, 7, 7, 16): 2, (3, 2, 1, 1, 8): 2, (3, 2, 7, 7, 16): 1}
 
 
 def _data(xshape, wshape, seed):
@@ -315,6 +397,117 @@ def test_spatial_fwd_plan_edges(shape):
         q = conv_bn.f32_spatial_fwd_plan(b, t, h, w, ci, co, SMS,
                                          n_tile=p.n_tile, k_chunk=8)
         assert q is not None and (q.n_tile, q.k_chunk) == (p.n_tile, 8)
+
+
+def _twf_source():
+    """conv_bn_f32.cu's text and its TWF_ constants."""
+    src = (Path(conv_bn.__file__).parents[1] / "csrc" / "conv_bn_f32.cu"
+           ).read_text()
+    return src, {k: int(v) for k, v in
+                 re.findall(r"constexpr int (TWF_\w+) = (\d+);", src)}
+
+
+def _c_twf_smem():
+    """twf_smem of conv_bn_f32.cu as a Python function of (strip, N tile,
+    C_in in whole chunks, resident): its two expressions read from the
+    source, so the plan's formula is held against the C side's."""
+    src, consts = _twf_source()
+    body = re.search(r"size_t twf_smem\(int S, int NB, int Cip, int res\) "
+                     r"\{(.*?)\n\}", src, re.S).group(1)
+    filt = re.search(r"const size_t filt = res \? (.*?) : (.*?);", body, re.S)
+    total = re.search(r"return sizeof\(float\) \* (.*?);", body, re.S).group(1)
+    py = lambda e: " ".join(e.replace("(size_t)", "").split())
+
+    def smem(strip, n_tile, cip, resident):
+        env = {"S": strip, "NB": n_tile, "Cip": cip, **consts}
+        env["filt"] = eval(py(filt.group(1 if resident else 2)), {}, env)
+        return 4 * eval(py(total), {}, env)
+    return smem
+
+
+def _check_temporal_plan(p, b, t, h, w, ci, co):
+    """What every fp32 frame-walk plan must hold: every position in exactly
+    one strip and every strip in exactly one non-empty range, the strip, N
+    tile, threads (8 warps), register tile and chunk of the C side's
+    constants, N tiles covering C_out, the resident filter exactly where it
+    fits a block's shared memory, and a shared-memory size that is the C
+    side's."""
+    assert p.positions == b * h * w and p.units == -(-p.positions // p.strip)
+    covered = [q for u in range(p.units) for q in p.positions_of(u)]
+    assert covered == list(range(p.positions))
+    units = [u for r in range(p.ranges) for u in p.units_of(r)]
+    assert units == list(range(p.units))
+    assert all(len(p.units_of(r)) for r in range(p.ranges))
+    assert p.part_rows == p.ranges and p.blocks == p.ranges * p.n_tiles
+    _, c = _twf_source()
+    assert (p.strip, p.n_tile, p.k_chunk, p.threads) == (
+        4 * c["TWF_NPG"], 8 * c["TWF_NCG"], c["TWF_KC"],
+        c["TWF_NPG"] * c["TWF_NCG"]) == (128, 64, 16, 256)
+    assert p.register_tile == (p.strip // c["TWF_NPG"],
+                               p.n_tile // c["TWF_NCG"], 3) == (4, 8, 3)
+    assert p.n_tiles == -(-co // p.n_tile)
+    cip = -(-ci // 16) * 16
+    c_smem = _c_twf_smem()
+    assert p.smem_bytes == c_smem(p.strip, p.n_tile, cip, p.resident) \
+        == conv_bn._temporal_fwd_f32_smem(ci, p.resident)
+    assert p.resident == (c_smem(p.strip, p.n_tile, cip, True) <= 227 * 1024)
+    assert p.smem_bytes <= 227 * 1024
+
+
+@pytest.mark.parametrize("mode", ["flops", "lane"])
+@pytest.mark.parametrize("clips", [128, 32])
+def test_temporal_fwd_f32_plan_covers_every_temporal_unit(clips, mode):
+    """The frame walk's plan at every fused temporal unit (the midplane
+    width -> C_out): C_out in whole N tiles of 64 (at stage 1 one tile, so
+    x̂ is formed once), the filter resident at stage 1 (and at lane's stage
+    2, C_in 256), one wave of blocks
+    unless a range is one strip (stage 4 at 128 clips: 49 strips x 8 N
+    tiles, three waves of one strip against two of two), and what every
+    plan holds (``_check_temporal_plan``)."""
+    for xs, co in _unit_shapes(clips, mode)[1::2]:
+        b, t, h, w, ci = xs
+        p = conv_bn.f32_temporal_fwd_plan(b, t, h, w, ci, co, SMS)
+        _check_temporal_plan(p, b, t, h, w, ci, co)
+        assert co % p.n_tile == 0
+        assert p.resident or co > 64
+        assert p.blocks <= SMS or p.units_per_range == 1
+
+
+# (B, T, H, W, C_in, C_out) -> the filter resident
+TWF_PLAN_EDGES = {(1, 1, 1, 1, 8, 8): True,
+                  (2, 3, 4, 7, 40, 200): True,
+                  (4, 2, 5, 5, 272, 64): True,
+                  (4, 2, 5, 5, 280, 64): False,
+                  (1, 5, 3, 3, 256, 128): True,
+                  (3, 4, 1, 1, 288, 16): False,
+                  (2, 3, 9, 9, 1152, 1000): False,
+                  (32, 2, 7, 7, 1152, 512): False}
+
+
+@pytest.mark.parametrize("shape", list(TWF_PLAN_EDGES),
+                         ids=["x".join(map(str, s)) for s in TWF_PLAN_EDGES])
+def test_temporal_fwd_f32_plan_edges(shape):
+    """Off the fused widths: the resident filter up to the last C_in that
+    fits beside the x buffers (272), streamed beyond (280, 288 at 1x1
+    images); a single position; C_out 72, 200 and 1000 in masked tiles; the
+    stage-4 train shape (13 strips x 8 N tiles for 132 SMs); and what every
+    plan holds."""
+    p = conv_bn.f32_temporal_fwd_plan(*shape, SMS)
+    assert p.resident == TWF_PLAN_EDGES[shape]
+    _check_temporal_plan(p, *shape)
+
+
+@pytest.mark.parametrize("kind", ["spatial", "temporal"])
+@pytest.mark.parametrize("shape", [(1, 1, 1, 1), (2, 3, 4, 5), (1, 2, 7, 1)])
+def test_tap_pairs_count_the_products_inside_the_clip(kind, shape):
+    """``tap_pairs`` (the operation count of the units' bounds) is the
+    plain unit's y summed at x = 1, w = 1, one channel in and out, no
+    prologue: one per (position, tap) pair whose input lies in the clip."""
+    ws = (3, 3, 1, 1) if kind == "spatial" else (3, 1, 1)
+    y = conv_bn.conv_unit_reference(
+        torch.ones(*shape, 1, dtype=torch.float64),
+        torch.ones(*ws, dtype=torch.float64), kind=kind)[0]
+    assert conv_bn.tap_pairs(kind, *shape) == int(y.sum())
 
 
 def test_full_fp32_turns_tf32_off_while_any_thread_is_inside():

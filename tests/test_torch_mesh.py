@@ -1,0 +1,89 @@
+"""``train.mesh`` in the port's ``Trainer`` beside the JAX package's: a mesh
+that cannot be built is refused before the model is, with the reference's
+wording (``parallel/mesh.py`` ``order_devices_for_mesh``: ``mesh {data}x
+{model} needs {n} devices, have {m}``); tensor parallelism (``num_model`` >
+1) is not ported and is refused by name; ``num_data`` -1 (every device)
+and 1 build a trainer that takes a step. The JAX side runs on the suite's 8
+fake CPU devices (tests/conftest.py), the port on one process without a
+``torch.distributed`` group (one device)."""
+
+import re
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+import m3f.pytorch_tpu.config as jc
+import m3f_torch.config as tc
+from m3f.pytorch_tpu.train.loop import Trainer as JTrainer
+from m3f_torch.data.synthetic import SyntheticAVDataset
+from m3f_torch.data.windowing import WindowSequencer, example_stream
+from m3f_torch.train.loop import Trainer
+
+REFUSAL = re.compile(r"mesh (\d+)x1 needs (\d+) devices, have (\d+)")
+
+
+def _cfg(mod, num_data, num_model=1):
+    return mod.ExperimentConfig(
+        name="t",
+        model=mod.ModelConfig(
+            use_video=False,
+            audio=mod.AudioNetConfig(channels=(4, 8), feature_dim=8),
+            gru=mod.GRUConfig(hidden_size=8), compute_dtype="float32"),
+        window=mod.WindowConfig(windows_per_clip=2),
+        data=mod.DataConfig(synthetic_num_videos=2, synthetic_video_frames=64,
+                            image_size=32),
+        train=mod.TrainConfig(batch_size=2, num_steps=1, log_every=1,
+                              eval_every=0, checkpoint_every=0,
+                              mesh=mod.MeshConfig(num_data=num_data,
+                                                  num_model=num_model)))
+
+
+def _refusal(fn):
+    with pytest.raises(ValueError) as e:
+        fn()
+    m = REFUSAL.search(str(e.value))
+    assert m, str(e.value)
+    return tuple(int(v) for v in m.groups())
+
+
+@pytest.mark.parametrize("extra", [1, 3])
+def test_a_mesh_wider_than_the_devices_is_refused_as_by_jax(extra):
+    """One more device row than there are devices (and three more): the
+    JAX ``Trainer`` and the port's both raise ValueError with the same
+    words, each naming its own device count."""
+    n_jax = jax.device_count()
+    want = _refusal(lambda: JTrainer(_cfg(jc, n_jax + extra)))
+    assert want == (n_jax + extra, n_jax + extra, n_jax)
+    got = _refusal(lambda: Trainer(_cfg(tc, 1 + extra), device="cpu"))
+    assert got == (1 + extra, 1 + extra, 1)
+
+
+def test_tensor_parallel_mesh_is_refused_by_name():
+    with pytest.raises(NotImplementedError, match=r"parallel/"):
+        Trainer(_cfg(tc, -1, num_model=2), device="cpu")
+    with pytest.raises(NotImplementedError, match=r"num_model=2"):
+        Trainer(_cfg(tc, 1, num_model=2), device="cpu")
+
+
+@pytest.mark.parametrize("num_data", [0, -2])
+def test_a_mesh_without_rows_is_refused(num_data):
+    with pytest.raises(ValueError, match=r"num_data"):
+        Trainer(_cfg(tc, num_data), device="cpu")
+
+
+@pytest.mark.parametrize("num_data", [-1, 1])
+def test_every_device_or_one_row_trains(num_data):
+    """``num_data`` -1 and 1 build the trainer as before and take a step
+    with a finite loss."""
+    torch.set_num_threads(1)
+    cfg = _cfg(tc, num_data)
+    tr = Trainer(cfg, device="cpu")
+    state = tr.init_state()
+    batch = next(example_stream(SyntheticAVDataset(cfg.data, cfg.model.mel),
+                                WindowSequencer(cfg.window, cfg.model.mel,
+                                                mel_frames=16),
+                                cfg.train.batch_size, seed=0))
+    metrics = tr.train_step(state, batch)
+    assert np.isfinite(float(metrics["loss"]))
