@@ -76,8 +76,14 @@ H100 (``python3 chip_smoke.py``). It
    at the lane midplanes 128 / 256 / 512 / 1152 (phase ``kernel_lane``:
    the forward at the serving shapes, the backward at the train shapes);
    the fp32 backward kernels (rows 5f-8f, ``csrc/conv_bn_f32.cu``, phase
-   ``kernel_conv_f32_bwd``) are held against their plain versions (TF32 off)
-   at F32_EDGE_SHAPES (phase ``kernel_conv_f32_bwd_edges``) and at every
+   ``kernel_conv_f32_bwd``; row 6f the row walk
+   ``spatial_filter_f32_kernel``, its plan in every phase line) are held
+   against their plain versions (TF32 off) at F32_EDGE_SHAPES,
+   F32_FILTER_WALK_EDGE_SHAPES (images two a slice with a one-image last
+   slice, C_out 200, C_in 24, 1x1 images, the stage-4 train shape) and
+   F32_GATHER_EDGE_SHAPES (the spatial filter gradient of images too wide
+   for the row walk through the per-tap gather; phase
+   ``kernel_conv_f32_bwd_edges``) and at every
    fused unit's shape of the fusion train step: dx per element within
    BWD_F32_REL of (|ge| (*) |w| mirrored) through the mask and |inv|, dw
    per element within 1e-5 of sum |x^|*|ge|, dinv / dshift per channel;
@@ -2296,9 +2302,22 @@ F32_WALK_EDGE_SHAPES = (("spatial", (3, 45, 7, 7, 24), (3, 3, 24, 40)),
                         ("spatial", (2, 16, 7, 7, 64), (3, 3, 64, 1152)),
                         ("spatial", (2, 4, 14, 14, 32), (3, 3, 32, 256)))
 # the spatial kind where no row-walk layout fits (images 240 wide, as from
-# data.image_size above 400): the per-tap gather (forward only); two clips,
-# since f32_unit_inputs' prologue makes clip 0's x^ zero
-F32_GATHER_EDGE_SHAPES = (("spatial", (2, 2, 2, 240, 16), (3, 3, 16, 16)),)
+# data.image_size above 400): the forward's per-tap gather; two clips,
+# since f32_unit_inputs' prologue makes clip 0's x^ zero. The filter
+# gradient's walk fits images 240 wide; at 600 it takes its per-tap gather
+# too
+F32_GATHER_EDGE_SHAPES = (("spatial", (2, 2, 2, 240, 16), (3, 3, 16, 16)),
+                          ("spatial", (2, 2, 2, 600, 16), (3, 3, 16, 16)))
+# the fp32 spatial filter gradient's row walk off the train tiling: 131 7x7
+# images two a slice on 132 SMs (C_in 24: two channel blocks, one of them
+# partial), the last slice one image; C_out 200 in two N tiles of 128, the
+# last masked; 1x1 images, several a step; the stage-4 train shape (32
+# clips, 256 blocks in one slice)
+F32_FILTER_WALK_EDGE_SHAPES = (
+    ("spatial", (1, 131, 7, 7, 24), (3, 3, 24, 40)),
+    ("spatial", (2, 3, 4, 7, 40), (3, 3, 40, 200)),
+    ("spatial", (3, 4, 1, 1, 16), (3, 3, 16, 72)),
+    ("spatial", (32, 2, 7, 7, 512), (3, 3, 512, 1152)))
 # the fp32 frame walk off the serving tiling (forward only): clips of one
 # frame across a strip; 7x7 clips five a strip, the second strip partial,
 # C_in 40 (chunks of 16, 16, 8); C_out 200 in four N tiles of 64, the last
@@ -2437,6 +2456,27 @@ def plain_bwd_tf32(torch, conv_bn, *args, kind):
         torch.backends.cudnn.allow_tf32 = False
 
 
+def filter_plan_f32(torch, conv_bn, kind, x, co):
+    """The fp32 filter gradient's plan for x [B, T, H, W, C_in] -> C_out
+    (channel counts as the wrapper pads them): the spatial row walk's, or
+    None (the per-tap gather: the temporal kind, images too wide)."""
+    if kind != "spatial":
+        return None
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return conv_bn.f32_spatial_filter_plan(*x.shape[:4], _round8(x.shape[-1]),
+                                           _round8(co), sms)
+
+
+def filter_plan_line(p):
+    """The row walk's plan as the phase lines carry it (None: the gather)."""
+    return None if p is None else {
+        "step": p.step, "n_tile": p.n_tile, "ci_blk": p.ci_blk,
+        "register_tile": "x".join(map(str, p.register_tile)),
+        "ring_rows": p.ring_rows, "slices": p.slices,
+        "images_per_slice": p.images_per_slice, "blocks": p.blocks,
+        "threads": p.threads}
+
+
 def check_bwd_unit_f32(torch, F, conv_bn, what, x, w, a, gy, gs1, gs2, kind,
                        padding_controls=False):
     """One fp32 backward unit (rows 5f / 6f or 7f / 8f): the kernels against
@@ -2489,10 +2529,12 @@ def check_bwd_unit_f32(torch, F, conv_bn, what, x, w, a, gy, gs1, gs2, kind,
     co = gy.shape[-1]
     m = b * t * h * wd
     sms = torch.cuda.get_device_properties(x.device).multi_processor_count
-    fplan = conv_bn.f32_bwd_filter_plan(b, t, h, wd, _round8(ci), _round8(co),
-                                        kind, sms)
+    walk = filter_plan_f32(torch, conv_bn, kind, x, co)
+    fplan = walk or conv_bn.f32_bwd_filter_plan(b, t, h, wd, _round8(ci),
+                                                _round8(co), kind, sms)
     if fplan.slices > 1:
-        last = fplan.positions_of(fplan.slices - 1, m)
+        last = fplan.positions_of(fplan.slices - 1, m) if walk is None else \
+            range(walk.images_of(walk.slices - 1)[0] * h * wd, m)
         keep = torch.zeros(m, 1, device=x.device)
         keep[last.start:last.stop] = 1
         ge = (conv_bn._gy_eff(gy, y, gs1, gs2).reshape(m, co) * keep
@@ -2536,6 +2578,7 @@ def check_bwd_unit_f32(torch, F, conv_bn, what, x, w, a, gy, gs1, gs2, kind,
         torch.equal(dinv2, dinv) and torch.equal(dshift2, dshift))),
         f"{what}: a second call gave another dx, dw, dinv or dshift")
     errs["controls"] = sorted(wrong)
+    errs["filter_plan"] = filter_plan_line(walk)
     return errs, tf32_seen
 
 
@@ -2564,16 +2607,19 @@ F32_BWD_KERNELS = ("conv_spatial_bwd_data_f32", "conv_spatial_bwd_filter_f32",
 
 def check_conv_f32_bwd(torch, F, conv_bn, clips=32):
     """Rows 5f-8f: the fp32 backward kernels against their plain versions
-    (TF32 off) at F32_EDGE_SHAPES, with and without the prologue and with the
-    padding controls, then at every fused unit's shape of the fusion train
-    step (``_train_units``), where the plain version under TF32 must fail
-    the check; timed (kernel and library in turn, F32_BWD_ROUNDS rounds of
-    F32_BWD_REPS) beside the plain version and cuDNN's
+    (TF32 off) at F32_EDGE_SHAPES, F32_FILTER_WALK_EDGE_SHAPES and
+    F32_GATHER_EDGE_SHAPES (the spatial filter gradient's per-tap gather
+    taken at one of them at least), with and without the prologue and with
+    the padding controls, then at every fused unit's shape of the fusion
+    train step (``_train_units``), where the plain version under TF32 must
+    fail the check; timed (kernel and library in turn, F32_BWD_ROUNDS
+    rounds of F32_BWD_REPS) beside the plain version and cuDNN's
     ``torch.nn.grad.conv3d_input`` / ``conv3d_weight`` in fp32 (no TF32).
     Returns the four rows of the kernels line, per train step."""
     g = torch.Generator(device="cuda").manual_seed(19)
-    edges, tf32_edges = {}, 0
-    for kind, xs, ws in F32_EDGE_SHAPES:
+    edges, tf32_edges, gathered = {}, 0, []
+    for kind, xs, ws in (F32_EDGE_SHAPES + F32_FILTER_WALK_EDGE_SHAPES
+                         + F32_GATHER_EDGE_SHAPES):
         for affine in (False, True):
             x, w, a, gy, gs1, gs2 = f32_bwd_inputs(torch, g, xs, ws, affine,
                                                    scale=1.0)
@@ -2582,8 +2628,19 @@ def check_conv_f32_bwd(torch, F, conv_bn, clips=32):
                 torch, F, conv_bn, f"fp32 bwd at edge shape {key}", x, w, a,
                 gy, gs1, gs2, kind, padding_controls=True)
             tf32_edges += seen
+            if (kind, xs, ws) in F32_FILTER_WALK_EDGE_SHAPES:
+                require(edges[key]["filter_plan"] is not None,
+                        f"{key}: the filter gradient takes the gather")
+            if (kind, xs, ws) in F32_GATHER_EDGE_SHAPES \
+                    and edges[key]["filter_plan"] is None:
+                gathered.append(key)
+            del x, w, gy
+        torch.cuda.empty_cache()
+    require(gathered, "no F32_GATHER_EDGE_SHAPES took the spatial filter "
+            "gradient's per-tap gather")
     emit({"phase": "kernel_conv_f32_bwd_edges", "errors": edges,
           "tf32_control_failed_at": tf32_edges, "of": len(edges),
+          "filter_gather_at": gathered,
           "tol_dx_rel": BWD_F32_REL, "tol_dw_rel": BWD_DW_REL})
     out = {}
     for kind, xs, ws, affine, copies in _train_units(clips):
@@ -2625,7 +2682,9 @@ def check_conv_f32_bwd(torch, F, conv_bn, clips=32):
             (ms, spread), (lib, lib_spread) = t[part], t[part + "_library"]
             emit({"phase": f"kernel_conv_f32_bwd_{part}", "kind": kind,
                   "x": list(xs), "w": list(ws), "affine": affine,
-                  "per_step": copies, "errors": errs, "ms": ms,
+                  "per_step": copies, "errors": errs,
+                  "plan": errs["filter_plan"] if part == "filter" else None,
+                  "ms": ms,
                   "ms_spread": spread, "plain_ms": plain[part],
                   "library_ms": lib, "library_ms_spread": lib_spread,
                   "tflops": flops / ms / 1e9,

@@ -13,9 +13,14 @@
 //   bwd_data_f32_kernel     _spatial_bwd's data gradient
 //                           (_spatial_bwd_data_kernel, :537) and
 //                           _temporal_bwd's (_temporal_bwd_data_kernel, :612)
-//   bwd_filter_f32_kernel   _spatial_bwd's filter gradient
-//                           (_spatial_bwd_filter_kernel, :554) and
-//                           _temporal_bwd's (_temporal_bwd_filter_kernel, :625)
+//   spatial_filter_f32_kernel _spatial_bwd's filter gradient
+//                           (_spatial_bwd_filter_kernel, :554): a row walk
+//                           (its own section below), after fold_f32_kernel
+//                           folds ge once
+//   bwd_filter_f32_kernel   _temporal_bwd's filter gradient
+//                           (_temporal_bwd_filter_kernel, :625), and
+//                           _spatial_bwd's where no row-walk layout fits the
+//                           images
 // conv_bn.cu keeps the bf16 units.
 //
 // One unit:
@@ -46,7 +51,8 @@
 // so no TF32 and no tensor cores) and not memory (3.35 TB/s) set the floor.
 //
 // Design of the per-tap gathers (simple and right first; the forward's row
-// and frame walks are the redesigns, described above their code). Every
+// and frame walks and the spatial filter gradient's row walk are the
+// redesigns, described above their code). Every
 // gather kernel is a block of 256 threads owning a 64 x 64 tile, each
 // thread 4 x 4 sums in registers, K walked in chunks of 16 through shared
 // memory, the next chunk's loads held in registers while the products of
@@ -72,16 +78,18 @@
 //   filter chunk read from [taps * Co, Ci] with the taps mirrored (the
 //   wrapper lays it out). The epilogue applies the mask and inv, and the
 //   partial rows of dinv / dshift go through colsum_f32_kernel as s1 / s2 do.
-// - bwd_filter_f32_kernel: 64 rows of K = taps x Ci x 64 output channels of
-//   dw over a slice of the positions, walked in chunks of 16 positions: x^
-//   formed at the gather (4 rows of one tap a thread, fixed for the block),
-//   ge at the load. A slice writes one partial [K, Co] (or dw itself when
-//   there is one slice), and slice_sum_f32_kernel sums the partials in slice
-//   order.
+// - bwd_filter_f32_kernel (the temporal kind, and the spatial kind's images
+//   too wide for the row walk): 64 rows of K = taps x Ci x 64 output
+//   channels of dw over a slice of the positions, walked in chunks of 16
+//   positions: x^ formed at the gather (4 rows of one tap a thread, fixed
+//   for the block), ge at the load. A slice writes one partial [K, Co] (or
+//   dw itself when there is one slice), and slice_sum_f32_kernel sums the
+//   partials in slice order.
 //
 // Measured times are in PERF.md (chip_smoke.py, phases kernel_conv_f32 and
 // kernel_conv_f32_bwd; m3f_torch/scripts/filter_sweep.py --kind
-// spatial_fwd_f32 / temporal_fwd_f32 for the walks' layouts and ablations).
+// spatial_fwd_f32 / temporal_fwd_f32 / spatial_filter_f32 for the walks'
+// layouts and ablations).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -1345,6 +1353,371 @@ int launch_temporal_fwd_f32(const TemporalFwdF32Args& a, int ranges,
   return (int)cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// The spatial filter gradient: the row walk (spatial_filter_f32_kernel)
+// ---------------------------------------------------------------------------
+//
+// Replaces _spatial_bwd's filter gradient (m3f/pytorch_tpu/ops/pallas/
+// conv_bn.py:554, kernel _spatial_bwd_filter_kernel at :356) for fp32 x:
+//   dw[tap * Ci + ci, co] = sum_m x^[neighbour(m, tap), ci] * ge[m, co]
+// with x^ and ge 0 in the padding. At the train step's stage 1 (x
+// [32,16,56,56,64], ge [.., 144]) a launch is 0.26 TFLOP of fp32 FMA on
+// 2.3 GB: 3.9 ms at 67 TFLOP/s against 0.69 ms of memory, and every stage
+// is operation-bound. What the per-tap gather (bwd_filter_f32_kernel) spent
+// beyond the products (x^ formed 27 times a pixel at stage 1, once per tap
+// and per 64-channel N tile; ge folded again for each 64-row K tile; a third
+// of the columns padding at C_out 144; one LDS.128 of A and one of B per 16
+// FMA) is what this design takes out. The walk follows the bf16
+// spatial_filter_kernel (conv_bn.cu) and spatial_fwd_f32_kernel above.
+//
+// - ge = gy + (gs1 + (2 y) gs2), each op rounded, is folded once into a
+//   scratch [M, Co] by fold_f32_kernel before the walk (a pass over 2.8 GB
+//   at stage 1), so the walk copies one tensor, not gy and y, and no block
+//   folds it again (a fold in every channel block measured 1.5x slower).
+// - Row walk. A block owns every tap of SFF_CB = 16 input channels x an N
+//   tile of NB output channels ([9 * 16, NB] of dw, 96 sums a thread in
+//   registers across the whole walk) over a slice of whole (b, t) images,
+//   walked as one stream of output pixels, S a step. The x rows live in a
+//   ring of XR stream rows of W + 2 pixels: an all-zero row before every
+//   image and after the last, columns 0 and W + 1 zero (never written), so
+//   the padding is 0 AFTER the prologue, as the reference's. Each row is
+//   copied once by cp.async ([pixel][16 + 4] floats) and formed in place
+//   once (x^, two roundings: __fmul_rn / __fadd_rn); the ring holds the rows
+//   of two steps, those multiplied and those arriving. So x^ is formed once
+//   per pixel and N tile.
+// - A producer warp. The block is 3 x 4 x NCG consumer threads and one warp
+//   more that copies step j+1's x rows and ge rows ([S][NB + 4], double
+//   buffered), forms its x^ and writes its table while the consumers
+//   multiply step j; one barrier a step. 144 = 9 x 16 puts a factor 3 in
+//   the consumers' count, so they are 7 warps (6 for NB 128) on four
+//   schedulers: the producer runs on the one with a single consumer warp,
+//   in its idle issue slots. (PERF.md, PR 22: all threads copying and
+//   forming before each barrier was 5-10% slower, a producer two steps
+//   ahead 2-5% slower, bulk copies of a pixel's x and ge row slower than
+//   16-byte cp.async.)
+// - A tap is an address. A step's table holds, per output pixel and dh, the
+//   ring offset of the padded pixel (h + dh - 1, w - 1); tap dw adds dw
+//   pixels. Pixels past the slice point at a padding column (x^ 0, ge 0).
+// - FFMA microkernel (fp32 CUDA cores; the reference is fp32, so no TF32
+//   and no tensor cores): consumer (dh, cg, ng) holds the three dw taps of
+//   row dh x 4 input channels (cg * 4) x 8 output channels (4 at ng * 4, 4
+//   at NB/2 + ng * 4). A pixel costs it 3 LDS.128 of x^ (its dw taps), 2 of
+//   ge and a quarter of the table's LDS.128 for 96 FFMA: 1 LDS.128 per 18
+//   FFMA against 1 per 8 in the gather.
+// - N tiles of NB = 144 (C_out 144 / 288 / 576 / 1152, mid_mode "flops")
+//   or 128 (128 / 256 / 512, "lane"); other multiples of 8 take a masked
+//   last tile. One block a SM.
+// - Epilogue: the 96 sums leave from registers in 16-byte stores into the
+//   slice's partial [9 * Ci, Co] (or dw itself with one slice), and
+//   slice_sum_f32_kernel sums the partials in slice order. No atomics: two
+//   calls give the same bits.
+// - Grid: slices x channel blocks x N tiles, the channel block fastest (the
+//   blocks reading the same ge run together), the slice slowest.
+//   f32_spatial_filter_plan (ops/conv_bn.py) picks NB, S, the ring's rows
+//   and the slices.
+
+constexpr int SFF_CB = 16;            // input channels a block
+// Measurement knob, for filter_sweep.py only (dw is then wrong): 1 leaves
+// out forming x^, 2 the products, 4 the copies of x and ge (the buffers
+// keep what they held), 8 the epilogue (the dw stores); 15 leaves the walk
+// alone (the fold of ge runs in every build).
+#ifndef SFF_ABLATE
+#define SFF_ABLATE 0
+#endif
+
+// The threads that multiply; the block is one warp more (the producer).
+__host__ __device__ constexpr int sff_consumers(int ncg) {
+  return 3 * (SFF_CB / 4) * ncg;
+}
+__host__ __device__ constexpr int sff_block(int ncg) {
+  return ((sff_consumers(ncg) + 31) / 32 + 1) * 32;
+}
+
+// n / d for 0 <= n < 2^31 and d >= 1 by a multiply-high and at most one
+// correction, m = floor((2^32 - 1) / d) computed once (the walk's runtime
+// divisors: W, H, H + 1, XR, 4 W)
+struct FastDiv {
+  uint32_t d, m;
+};
+
+inline FastDiv fast_div(int d) {
+  return FastDiv{(uint32_t)d, 0xFFFFFFFFu / (uint32_t)d};
+}
+
+__device__ __forceinline__ int fdiv(int n, const FastDiv f) {
+  uint32_t q = __umulhi((uint32_t)n, f.m);
+  if ((uint32_t)n - q * f.d >= f.d) ++q;
+  return (int)q;
+}
+
+struct SpatialFilterF32Args {
+  const float* x;      // [images, H, W, Ci]
+  const float* ge;     // [images, H, W, Co]: the folded cotangent
+  const float* inv;    // [Ci] or null
+  const float* shift;
+  float* out;          // [slices][9 * Ci][Co] partials, or dw (one slice)
+  int H, W, Ci, Co;
+  int images, images_per_slice, ci_blocks, n_tiles;
+  int S;               // output pixels a step, a multiple of 8
+  int XR;              // rows of the x^ ring (swf_rows of two steps)
+  FastDiv by_w, by_h, by_h1, by_xr, by_4w;
+};
+
+// A block's shared memory: the x^ ring [XR][W + 2][16 + 4], two ge buffers
+// [S][NB + 4] and two tables [3][S]; ops/conv_bn.py
+// (_spatial_filter_f32_smem) computes the same.
+size_t sff_smem(int W, int XR, int S, int NB) {
+  return sizeof(float) * ((size_t)XR * (W + 2) * (SFF_CB + 4) +
+                          (size_t)2 * S * (NB + 4)) +
+         sizeof(int) * (size_t)2 * 3 * S;
+}
+
+// 3 x SFF_CB/4 x NCG consumers, each 3 taps x 4 input channels x 8 output
+// channels (NB = 8 * NCG output channels a block), and the producer warp.
+template <int NCG, bool AFFINE>
+__global__ void __launch_bounds__(sff_block(NCG), 1)
+spatial_filter_f32_kernel(const SpatialFilterF32Args a) {
+  constexpr int CB = SFF_CB, CG = CB / 4, NB = 8 * NCG;
+  constexpr int NTH = sff_consumers(NCG);      // the threads that multiply
+  constexpr int NBLK = sff_block(NCG);
+  constexpr int LDX = CB + 4;                  // a ring pixel's stride (floats)
+  constexpr int LDG = NB + 4;                  // a ge row's stride (floats)
+  constexpr int GV = NB / 4;                   // 16-byte vectors of a ge row
+  static_assert(CG == 4, "a pixel's 16 channels in 4 vectors");
+  const int H = a.H, W = a.W, Ci = a.Ci, Co = a.Co, S = a.S, XR = a.XR;
+  const int WP = W + 2, HW = H * W;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* Xs = reinterpret_cast<float*>(smem_raw);   // [XR][WP][LDX]: the x^ ring
+  float* Gs = Xs + XR * WP * LDX;                   // [2][S][LDG]: ge
+  int* Tab = reinterpret_cast<int*>(Gs + 2 * S * LDG);   // [2][3][S]
+
+  const int tid = threadIdx.x;
+  const int ng = tid % NCG, cg = (tid / NCG) % CG, dh = tid / (NCG * CG);
+  const bool producer = tid >= NBLK - 32;
+  const int lane = tid & 31;
+  const int tiles = a.ci_blocks * a.n_tiles;
+  const int tile = (int)blockIdx.x % tiles, slice = (int)blockIdx.x / tiles;
+  const int c0 = (tile % a.ci_blocks) * CB, n0 = (tile / a.ci_blocks) * NB;
+  const int i0 = slice * a.images_per_slice;
+  const int nimg = min(a.images, i0 + a.images_per_slice) - i0;
+  const int Q = nimg * HW;                      // output pixels of the slice
+  const int nq = (Q + S - 1) / S;               // steps of the walk
+  const int64_t P0 = (int64_t)i0 * HW;          // the slice's first pixel
+  const int last_row = nimg * (H + 1);          // the zero row after the last image
+
+  // The ring zero once: the padding columns are never written again.
+  for (int i = tid; i < XR * WP * LDX / 4; i += NBLK)
+    reinterpret_cast<float4*>(Xs)[i] = zero4();
+  __syncthreads();
+
+  // The last stream row step j reads: the row below its last pixel.
+  auto need = [&](int j) {
+    if ((j + 1) * S >= Q) return last_row;
+    const int rho = fdiv((j + 1) * S - 1, a.by_w);
+    return rho + fdiv(rho, a.by_h) + 2;
+  };
+  // The rows (lo, upto] step j adds: their 4 W vectors each, this lane's
+  // share (vectors lane, lane + 32, ...: the same channel cq in every row)
+  // to `fn(ring offset, source pixel of the slice or -1 on a zero row,
+  // channel)`. Rows of 32 pixels or more a row at a time; shorter ones (a
+  // step adds many) in one loop unrolled so that the vectors' loads
+  // overlap.
+  auto rows_of = [&](int lo, int upto, auto&& fn) {
+    if (W >= 32) {
+      int vr = lo + 1;
+      int img = fdiv(vr, a.by_h1), hr = vr - img * (H + 1);
+      int slot = vr - fdiv(vr, a.by_xr) * XR;
+      for (; vr <= upto; ++vr) {
+        for (int u = lane; u < 4 * W; u += 32) {
+          const int col = u >> 2, cq = (u & 3) * 4;
+          fn((slot * WP + col + 1) * LDX + cq,
+             hr == 0 ? -1 : (img * H + hr - 1) * W + col, cq);
+        }
+        if (++hr == H + 1) {
+          hr = 0;
+          ++img;
+        }
+        slot = slot + 1 == XR ? 0 : slot + 1;
+      }
+      return;
+    }
+    const int n = (upto - lo) * 4 * W;
+#pragma unroll 4
+    for (int v = lane; v < n; v += 32) {
+      const int r = fdiv(v, a.by_4w), u = v - r * 4 * W;
+      const int vr = lo + 1 + r;
+      const int img = fdiv(vr, a.by_h1), hr = vr - img * (H + 1);
+      const int col = u >> 2, cq = (u & 3) * 4;
+      fn(((vr - fdiv(vr, a.by_xr) * XR) * WP + col + 1) * LDX + cq,
+         hr == 0 ? -1 : (img * H + hr - 1) * W + col, cq);
+    }
+  };
+  // This lane's channels of x^: the same 4 in every row
+  float4 inv4 = zero4(), shift4 = zero4();
+  if (AFFINE && producer && c0 + (lane & 3) * 4 < Ci) {
+    inv4 = ld4(a.inv + c0 + (lane & 3) * 4);
+    shift4 = ld4(a.shift + c0 + (lane & 3) * 4);
+  }
+  // Step j's copies into buffer b (cp.async, zero-filled on the zero rows,
+  // past Ci, past the slice and past Co), and its table; then, once they
+  // land, x^ in place on the rows (image rows and channels < Ci only).
+  auto produce = [&](int j, int b) {
+    const int lo = j == 0 ? -1 : need(j - 1), upto = need(j);
+    if (!(SFF_ABLATE & 4)) {
+      rows_of(lo, upto, [&](int off, int pix, int cq) {
+        const bool real = pix >= 0 && c0 + cq < Ci;
+        cp_async16(Xs + off, real ? a.x + (P0 + pix) * Ci + c0 + cq : a.x, real);
+      });
+      const int q0 = j * S;
+      float* gd = Gs + b * S * LDG;
+#pragma unroll 4
+      for (int v = lane; v < S * GV; v += 32) {
+        const int p = v / GV, c4 = (v - p * GV) * 4;
+        const bool ok = q0 + p < Q && n0 + c4 < Co;
+        cp_async16(gd + p * LDG + c4,
+                   ok ? a.ge + (P0 + q0 + p) * Co + n0 + c4 : a.ge, ok);
+      }
+    }
+    cp_async_commit();
+    for (int i = lane; i < S; i += 32) {
+      const int q = j * S + i;
+      int* t = Tab + b * 3 * S + i;
+      if (q < Q) {
+        const int rho = fdiv(q, a.by_w), w = q - rho * W;
+        const int up = rho + fdiv(rho, a.by_h);      // the stream row above
+        int slot = up - fdiv(up, a.by_xr) * XR;
+#pragma unroll
+        for (int r = 0; r < 3; ++r) {
+          t[r * S] = slot * WP + w;
+          slot = slot + 1 == XR ? 0 : slot + 1;
+        }
+      } else {
+        t[0] = t[S] = t[2 * S] = 0;
+      }
+    }
+    cp_async_wait_all();                        // this lane's copies landed
+    rows_of(lo, upto, [&](int off, int pix, int cq) {
+      if (!AFFINE || (SFF_ABLATE & 1) || pix < 0 || c0 + cq >= Ci) return;
+      float4* p = reinterpret_cast<float4*>(Xs + off);
+      *p = prologue4(*p, inv4, shift4);
+    });
+  };
+
+  float acc[3][4][8];
+#pragma unroll
+  for (int d = 0; d < 3; ++d)
+#pragma unroll
+    for (int k = 0; k < 4; ++k)
+#pragma unroll
+      for (int c = 0; c < 8; ++c) acc[d][k][c] = 0.f;
+  // acc[dw][k][c] += x^ at the pixel's tap (dh, dw), channel cg * 4 + k,
+  // times ge at the pixel, this thread's output channel c, over step b's S
+  // pixels
+  auto products = [&](int b) {
+    const int* tab = Tab + (b * 3 + dh) * S;
+    const float* xs = Xs + cg * 4;
+    const float* gs = Gs + b * S * LDG + ng * 4;
+#pragma unroll 2
+    for (int p = 0; p < S; p += 4) {
+      const int4 o4 = *reinterpret_cast<const int4*>(tab + p);
+      const int o[4] = {o4.x, o4.y, o4.z, o4.w};
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float* xa = xs + o[i] * LDX;
+        const float4 av[3] = {ld4(xa), ld4(xa + LDX), ld4(xa + 2 * LDX)};
+        const float* gb = gs + (p + i) * LDG;
+        const float4 b0 = ld4(gb), b1 = ld4(gb + NB / 2);
+#pragma unroll
+        for (int d = 0; d < 3; ++d)
+#pragma unroll
+          for (int k = 0; k < 4; ++k) {
+            const float ak = lane4(av[d], k);
+            acc[d][k][0] = fmaf(ak, b0.x, acc[d][k][0]);
+            acc[d][k][1] = fmaf(ak, b0.y, acc[d][k][1]);
+            acc[d][k][2] = fmaf(ak, b0.z, acc[d][k][2]);
+            acc[d][k][3] = fmaf(ak, b0.w, acc[d][k][3]);
+            acc[d][k][4] = fmaf(ak, b1.x, acc[d][k][4]);
+            acc[d][k][5] = fmaf(ak, b1.y, acc[d][k][5]);
+            acc[d][k][6] = fmaf(ak, b1.z, acc[d][k][6]);
+            acc[d][k][7] = fmaf(ak, b1.w, acc[d][k][7]);
+          }
+      }
+    }
+  };
+
+  // The producer readies step j+1 while the consumers multiply step j; one
+  // barrier a step publishes the one and frees the other's buffers.
+  if (producer && nq > 0) produce(0, 0);
+  __syncthreads();
+  for (int j = 0; j < nq; ++j) {
+    const int b = j & 1;
+    if (producer) {
+      if (j + 1 < nq) produce(j + 1, b ^ 1);
+    } else if (tid < NTH && !(SFF_ABLATE & 2)) {
+      products(b);
+    }
+    __syncthreads();                            // step j+1 formed; step j multiplied
+  }
+
+  // the block's [9 * CB, NB] of the slice's partial
+  if (SFF_ABLATE & 8) {
+    if (H < 0)                                  // never true: keeps the products alive
+#pragma unroll
+      for (int d = 0; d < 3; ++d)
+#pragma unroll
+        for (int k = 0; k < 4; ++k)
+#pragma unroll
+          for (int c = 0; c < 8; ++c) a.out[(d * 4 + k) * 8 + c] = acc[d][k][c];
+    return;
+  }
+  if (tid >= NTH || c0 + cg * 4 >= Ci) return;
+  float* out = a.out + (int64_t)slice * 9 * Ci * Co;
+  const bool lo = n0 + ng * 4 < Co, hi = n0 + NB / 2 + ng * 4 < Co;
+#pragma unroll
+  for (int d = 0; d < 3; ++d)
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      float* r = out + ((int64_t)(dh * 3 + d) * Ci + c0 + cg * 4 + k) * Co + n0 +
+                 ng * 4;
+      if (lo)
+        *reinterpret_cast<float4*>(r) =
+            make_float4(acc[d][k][0], acc[d][k][1], acc[d][k][2], acc[d][k][3]);
+      if (hi)
+        *reinterpret_cast<float4*>(r + NB / 2) =
+            make_float4(acc[d][k][4], acc[d][k][5], acc[d][k][6], acc[d][k][7]);
+    }
+}
+
+// ge[m, c] = fold(gy, y, gs1[c], gs2[c]) over [M, C] (C a multiple of 4),
+// the walk's input
+__global__ void __launch_bounds__(256)
+fold_f32_kernel(const float* __restrict__ gy, const float* __restrict__ y,
+                const float* __restrict__ gs1, const float* __restrict__ gs2,
+                float* __restrict__ ge, int64_t M, int C) {
+  const int64_t n4 = M * C / 4;
+  const int c4s = C / 4;
+  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
+  for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < n4;
+       i += stride) {
+    const int c = (int)(i % c4s) * 4;
+    reinterpret_cast<float4*>(ge)[i] =
+        fold4(ld4(gy + 4 * i), ld4(y + 4 * i), ld4(gs1 + c), ld4(gs2 + c));
+  }
+}
+
+template <int NCG, bool AFFINE>
+int launch_spatial_filter_f32(const SpatialFilterF32Args& a, int blocks,
+                              cudaStream_t stream) {
+  const size_t smem = sff_smem(a.W, a.XR, a.S, 8 * NCG);
+  if (smem > (size_t)SWF_SMEM_MAX) return (int)cudaErrorInvalidValue;
+  auto kern = spatial_filter_f32_kernel<NCG, AFFINE>;
+  cudaError_t e = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  kern<<<blocks, sff_block(NCG), smem, stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // Spatial forward unit, fp32, the per-tap gather (the route of images too
@@ -1634,6 +2007,84 @@ extern "C" int m3f_conv_unit_bwd_filter_f32(
   const int64_t E = K * Co;
   const int64_t blocks = (E + 255) / 256;
   slice_sum_f32_kernel<<<(unsigned)(blocks < 4096 ? blocks : 4096), 256, 0, s>>>(
+      (const float*)part, slices, E, (float*)dw);
+  return (int)cudaGetLastError();
+}
+
+// Spatial filter gradient, fp32, the row walk. x [B, T, H, W, Ci], gy / y
+// [B, T, H, W, Co], gs1 / gs2 [Co], inv / shift [Ci] or both null, dw
+// [9 * Ci, Co] (row tap * Ci + ci), part a scratch of slices * 9 * Ci * Co
+// floats when slices > 1 (else null), ge a scratch of B * T * H * W * Co
+// floats (ge folded once before the walk); slice s takes the images [s *
+// per, (s + 1) * per) of the B * T, slices = ceil(B * T / per); nb (144 or
+// 128) output channels a block, step (a multiple of 8) output pixels a
+// step; all fp32, contiguous, 16-byte aligned, Ci and Co multiples of 8.
+// Returns a cudaError_t (cudaErrorInvalidValue where the layout's buffers
+// do not fit).
+extern "C" int m3f_spatial_filter_f32(
+    const void* x, const void* gy, const void* y, const void* gs1,
+    const void* gs2, const void* inv, const void* shift, void* dw, void* part,
+    void* ge, int B, int T, int H, int W, int Ci, int Co, int nb, int step,
+    int per, int slices, void* stream) {
+  const int64_t images = (int64_t)B * T;
+  if (per < 1 || slices < 1 || Ci % 8 != 0 || Co % 8 != 0 || Ci == 0 ||
+      Co == 0 || (inv == nullptr) != (shift == nullptr) ||
+      (part == nullptr) != (slices == 1) || (nb != 144 && nb != 128) ||
+      step < 8 || step % 8 != 0 || images >= ((int64_t)1 << 31) ||
+      (int64_t)per * H * W >= ((int64_t)1 << 31) ||
+      (images > 0 && (slices != (images + per - 1) / per)))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  const int64_t K = (int64_t)9 * Ci;
+  if (images * H * W == 0) {
+    cudaMemsetAsync(dw, 0, sizeof(float) * K * Co, s);
+    return (int)cudaGetLastError();
+  }
+  if (ge == nullptr) return (int)cudaErrorInvalidValue;
+  const int ci_blocks = (Ci + SFF_CB - 1) / SFF_CB;
+  const int n_tiles = (Co + nb - 1) / nb;
+  const int64_t blocks = (int64_t)slices * ci_blocks * n_tiles;
+  if (blocks >= ((int64_t)1 << 31)) return (int)cudaErrorInvalidValue;
+  const int64_t n4 = images * H * W * Co / 4;
+  const int64_t fblocks = (n4 + 255) / 256;
+  fold_f32_kernel<<<(unsigned)(fblocks < 8192 ? fblocks : 8192), 256, 0, s>>>(
+      (const float*)gy, (const float*)y, (const float*)gs1, (const float*)gs2,
+      (float*)ge, images * H * W, Co);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  SpatialFilterF32Args a{};
+  a.x = (const float*)x;
+  a.ge = (const float*)ge;
+  a.inv = (const float*)inv;
+  a.shift = (const float*)shift;
+  a.out = slices > 1 ? (float*)part : (float*)dw;
+  a.H = H;
+  a.W = W;
+  a.Ci = Ci;
+  a.Co = Co;
+  a.images = (int)images;
+  a.images_per_slice = per;
+  a.ci_blocks = ci_blocks;
+  a.n_tiles = n_tiles;
+  a.S = step;
+  a.XR = swf_rows(H, W, 2 * step);
+  a.by_w = fast_div(W);
+  a.by_h = fast_div(H);
+  a.by_h1 = fast_div(H + 1);
+  a.by_xr = fast_div(a.XR);
+  a.by_4w = fast_div(4 * W);
+  const bool affine = inv != nullptr;
+  int err;
+  if (nb == 144)
+    err = affine ? launch_spatial_filter_f32<18, true>(a, (int)blocks, s)
+                 : launch_spatial_filter_f32<18, false>(a, (int)blocks, s);
+  else
+    err = affine ? launch_spatial_filter_f32<16, true>(a, (int)blocks, s)
+                 : launch_spatial_filter_f32<16, false>(a, (int)blocks, s);
+  if (err != 0 || slices == 1) return err;
+  const int64_t E = K * Co;
+  const int64_t sblocks = (E + 255) / 256;
+  slice_sum_f32_kernel<<<(unsigned)(sblocks < 4096 ? sblocks : 4096), 256, 0, s>>>(
       (const float*)part, slices, E, (float*)dw);
   return (int)cudaGetLastError();
 }

@@ -28,8 +28,9 @@ x is bf16 or fp32, and both halves have kernels for both (the reference's
 Pallas units run in the dtype of x): ``csrc/conv_bn.cu`` for bf16,
 ``csrc/conv_bn_f32.cu`` for fp32 (the forward, ``f32_temporal_fwd_plan`` /
 ``f32_spatial_fwd_plan`` / ``f32_fwd_plan``; the data
-and filter gradients, ``f32_bwd_data_plan`` / ``f32_bwd_filter_plan``), so
-an fp32 unit trains on the card as a bf16 one does.
+and filter gradients, ``f32_bwd_data_plan`` / ``f32_spatial_filter_plan``
+/ ``f32_bwd_filter_plan``), so an fp32 unit trains on the card as a bf16
+one does.
 """
 
 from __future__ import annotations
@@ -1207,6 +1208,101 @@ def f32_bwd_filter_plan(b: int, t: int, h: int, w: int, ci: int, co: int,
                          slices * out_bytes if slices > 1 else 0)
 
 
+# The fp32 spatial filter gradient's row walk (spatial_filter_f32_kernel in
+# conv_bn_f32.cu): 3 x 16/4 x n_tile/8 consumer threads, thread (dh, cg, ng)
+# holding the three dw taps of row dh x 4 input channels x 8 output
+# channels, and one producer warp take [9·16, n_tile] of dw over a slice of
+# whole images, walked in steps of `step` output pixels, two in flight
+# (multiplied, and copied and formed) over a ring of x̂ rows that holds
+# them; ge is folded once before the walk
+_SFF_CB = 16               # input channels a block (SFF_CB)
+_SFF_BUF = 2               # steps in flight
+_SFF_TILE = (3, 4, 8)      # taps x input channels x output channels a thread
+_SFF_N_TILES = (144, 128)  # output channels a block, preferred on a tie
+_SFF_STEPS = (128, 64, 32)  # output pixels a step, preferred first
+
+
+def _spatial_filter_f32_smem(w: int, rows: int, step: int, n_tile: int) -> int:
+    """A block's shared memory (sff_smem in conv_bn_f32.cu): the x̂ ring of
+    ``rows`` rows of w + 2 pixels at a stride of 16 + 4 floats, _SFF_BUF ge
+    buffers [step, n_tile + 4] and _SFF_BUF tables [3, step] of ints."""
+    return (4 * (rows * (w + 2) * (_SFF_CB + 4)
+                 + _SFF_BUF * step * (n_tile + 4))
+            + 4 * _SFF_BUF * 3 * step)
+
+
+class F32SpatialFilterPlan(NamedTuple):
+    """How the fp32 spatial filter gradient's row walk cuts its work:
+    blocks of ``ci_blk`` input x ``n_tile`` output channels for all nine
+    taps (``threads`` threads: consumers, each ``register_tile`` = taps x
+    input channels x output channels of sums, and a producer warp),
+    ``ci_blocks`` x ``n_tiles`` of them; ``slices`` contiguous ranges of
+    ``images_per_slice`` whole (b, t) images, each walked as one stream of
+    output pixels in steps of ``step`` over a ring of ``ring_rows`` x̂
+    rows; ``blocks`` = slices x channel blocks x N tiles, each slice one
+    fp32 partial of dw (``part_bytes``, 0 when one slice writes dw itself);
+    ``smem_bytes`` of shared memory a block; ge folded once before the walk
+    into a scratch of ``ge_bytes``."""
+    step: int
+    n_tile: int
+    ci_blk: int
+    threads: int
+    register_tile: Tuple[int, int, int]
+    ring_rows: int
+    images: int
+    images_per_slice: int
+    slices: int
+    ci_blocks: int
+    n_tiles: int
+    blocks: int
+    part_bytes: int
+    smem_bytes: int
+    ge_bytes: int
+
+    def images_of(self, s: int) -> range:
+        """The images (b * T + t) of slice ``s``, as the kernel takes them."""
+        return range(s * self.images_per_slice,
+                     min(self.images, (s + 1) * self.images_per_slice))
+
+
+def f32_spatial_filter_plan(b: int, t: int, h: int, w: int, ci: int, co: int,
+                            sms: int, n_tile: Optional[int] = None,
+                            step: Optional[int] = None
+                            ) -> Optional[F32SpatialFilterPlan]:
+    """The fp32 spatial filter gradient's tiling on a card of ``sms``
+    multiprocessors: the N tile of _SFF_N_TILES that pads C_out least (144
+    on a tie), the first step of _SFF_STEPS whose buffers fit a block's
+    shared memory (else the other N tile); then ``sms // tiles`` slices of
+    whole images (one wave of blocks), at most one per image, with a partial
+    buffer of at most _FILTER_PART_BYTES. ``n_tile`` / ``step`` ask for
+    one layout (the sweep's). None where no layout fits: the wrapper then
+    takes the per-tap gather (``f32_bwd_filter_plan``)."""
+    tiles = sorted(_SFF_N_TILES, key=lambda n: _cdiv(co, n) * n)
+    for nb in (n_tile,) if n_tile else tiles:
+        consumers = 3 * (_SFF_CB // 4) * (nb // 8)
+        threads = (_cdiv(consumers, 32) + 1) * 32
+        for st in (step,) if step else _SFF_STEPS:
+            rows = spatial_ring_rows(h, w, st, _SFF_BUF)
+            smem = _spatial_filter_f32_smem(w, rows, st, nb)
+            if smem > _SMEM_BLOCK_MAX:
+                continue
+            images = b * t
+            ci_blocks, n_tiles = _cdiv(ci, _SFF_CB), _cdiv(co, nb)
+            out_bytes = 4 * 9 * ci * co
+            want = max(1, min(images, sms // (ci_blocks * n_tiles),
+                              _FILTER_PART_BYTES // out_bytes))
+            per = max(1, _cdiv(images, want))
+            if per * h * w >= 2 ** 31:
+                return None
+            slices = max(1, _cdiv(images, per))
+            return F32SpatialFilterPlan(
+                st, nb, _SFF_CB, threads, _SFF_TILE, rows, images, per,
+                slices, ci_blocks, n_tiles, slices * ci_blocks * n_tiles,
+                slices * out_bytes if slices > 1 else 0, smem,
+                4 * images * h * w * co)
+    return None
+
+
 def f32_bwd_data_filter(w: torch.Tensor, kind: str) -> torch.Tensor:
     """The fp32 data gradient's B operand, [taps·C_out, C_in]: row
     tap·C_out + co holds W[taps - 1 - tap, :, co] (the taps mirrored, each
@@ -1254,8 +1350,11 @@ def _conv_unit_bwd_data_f32(x, w, inv, shift, y, gy, gs1, gs2, kind):
 
 def _conv_unit_bwd_filter_f32(x, inv, shift, y, gy, gs1, gs2, kind):
     """The fp32 filter gradient on the card (C_in, C_out multiples of 8):
-    one launch of bwd_filter_f32_kernel plus, with more than one slice, the
-    sum of the slices' partials in slice order."""
+    one launch of the spatial row walk (spatial_filter_f32_kernel,
+    ``f32_spatial_filter_plan``) or, for the temporal kind and for images
+    too wide for the walk, of the per-tap gather (bwd_filter_f32_kernel,
+    ``f32_bwd_filter_plan``), plus, with more than one slice, the sum of
+    the slices' partials in slice order."""
     b, t, h, wd, ci = x.shape
     co = gy.shape[-1]
     x, gy, y = _aligned16(x), _aligned16(gy), _aligned16(y)
@@ -1263,18 +1362,30 @@ def _conv_unit_bwd_filter_f32(x, inv, shift, y, gy, gs1, gs2, kind):
     inv = _aligned16(None if inv is None else inv.float())
     shift = _aligned16(None if shift is None else shift.float())
     sms = torch.cuda.get_device_properties(x.device).multi_processor_count
-    plan = f32_bwd_filter_plan(b, t, h, wd, ci, co, kind, sms)
+    walk = f32_spatial_filter_plan(b, t, h, wd, ci, co, sms) \
+        if kind == "spatial" else None
+    plan = walk or f32_bwd_filter_plan(b, t, h, wd, ci, co, kind, sms)
     k = (9 if kind == "spatial" else 3) * ci
     dw = torch.empty(k, co, dtype=torch.float32, device=x.device)
     part = torch.empty(plan.slices * k * co, dtype=torch.float32,
                        device=x.device) if plan.slices > 1 else None
-    ptr = lambda v: None if v is None else v.data_ptr()
+    ptrs = (x.data_ptr(), gy.data_ptr(), y.data_ptr(), gs1.data_ptr(),
+            gs2.data_ptr(), None if inv is None else inv.data_ptr(),
+            None if shift is None else shift.data_ptr(), dw.data_ptr(),
+            None if part is None else part.data_ptr())
+    lib = cuda_lib.library("conv_bn_f32")
     with torch.cuda.device(x.device):
-        err = cuda_lib.library("conv_bn_f32").m3f_conv_unit_bwd_filter_f32(
-            x.data_ptr(), gy.data_ptr(), y.data_ptr(), gs1.data_ptr(),
-            gs2.data_ptr(), ptr(inv), ptr(shift), dw.data_ptr(), ptr(part),
-            0 if kind == "spatial" else 1, b, t, h, wd, ci, co,
-            plan.chunks_per_slice, plan.slices, cuda_lib.stream_ptr(x))
+        if walk is not None:
+            ge = torch.empty(walk.ge_bytes // 4, dtype=torch.float32,
+                             device=x.device)
+            err = lib.m3f_spatial_filter_f32(
+                *ptrs, ge.data_ptr(), b, t, h, wd, ci, co, walk.n_tile,
+                walk.step, walk.images_per_slice, walk.slices,
+                cuda_lib.stream_ptr(x))
+        else:
+            err = lib.m3f_conv_unit_bwd_filter_f32(
+                *ptrs, 0 if kind == "spatial" else 1, b, t, h, wd, ci, co,
+                plan.chunks_per_slice, plan.slices, cuda_lib.stream_ptr(x))
     cuda_lib.check(err, f"conv_unit_bwd_filter {kind} fp32 kernel")
     cuda_lib.launches[f"conv_{kind}_bwd_filter_f32"] += 1
     return dw.reshape((3, 3, ci, co) if kind == "spatial" else (3, ci, co))

@@ -79,7 +79,9 @@ SIGNATURES = {
                                                    I, P],
                     "m3f_conv_unit_bwd_filter_f32": [P, P, P, P, P, P, P, P, P,
                                                      I, I, I, I, I, I, I, I,
-                                                     I, P]},
+                                                     I, P],
+                    "m3f_spatial_filter_f32": [P, P, P, P, P, P, P, P, P, P, I,
+                                               I, I, I, I, I, I, I, I, I, P]},
     "packed_conv": {"m3f_packed_ablate": [P, P, P, I, I, I, I, I, I, I, I, I,
                                           I, I, I, I, P],
                     "m3f_packed_conv_tma": [P, P, P, I, I, I, I, I, I, I, I, I,

@@ -96,6 +96,21 @@ in the full-width ``fusion`` train step (32 clips, BN prologue on), beside:
   (``check_fwd_f32`` / ``sweep_fwd_f32``) from their row of ``F32_FWD``;
   every bound counts the (position, tap) pairs inside the clip
   (``conv_bn.tap_pairs``);
+- ``--kind spatial_filter_f32``: ``conv_unit_bwd_filter`` of the spatial
+  unit at fp32 x (the row walk ``spatial_filter_f32_kernel`` in
+  ``csrc/conv_bn_f32.cu``) at the four spatial units of the train step (32
+  clips) and at a stage-1 unit of 112x112 images, with and without the
+  prologue, every time a device time: in alternating rounds the wrapper,
+  the planner's layout through the C entry twice, every layout the plan can
+  choose (N tiles of 144 and 128, steps of 128, 64 and 32), the per-tap
+  gather (``bwd_filter_f32_kernel``, the first design and the route of
+  images too wide for the walk) through this source's entry and, with
+  ``--parent``, through an earlier ``conv_bn_f32.cu``'s, and cuDNN's fp32
+  ``conv3d_weight`` on x̂ and ge already formed (TF32 off); ablations built
+  with ``-DSFF_ABLATE`` (the fold of ge runs in each): without forming x̂
+  (1), the products (2), the copies (4), the epilogue (8), the copies alone
+  (3: no forming, no products), the products alone (5), the forming alone
+  (6), and the walk alone (15); a device copy of x, gy and y;
 - ``--kind mel``: the mel FFT kernel at the serving path's shapes (static
   and per-row hop), and the DFT-product kernel (n_fft 400) at the same
   rows, against their plain versions, and beside ``torch.stft`` + the mel
@@ -148,6 +163,9 @@ Run on a machine with an NVIDIA GPU, from the repository root:
     python -m m3f_torch.scripts.filter_sweep --kind spatial_fwd_f32 --check
     python -m m3f_torch.scripts.filter_sweep --kind spatial_fwd_f32 \
         --parent build/parent/conv_bn_f32.cu
+    python -m m3f_torch.scripts.filter_sweep --kind spatial_filter_f32 --check
+    python -m m3f_torch.scripts.filter_sweep --kind spatial_filter_f32 \
+        [--reps 10] [--parent build/parent/conv_bn_f32.cu]
     python -m m3f_torch.scripts.filter_sweep --kind temporal_fwd_f32 --check
     python -m m3f_torch.scripts.filter_sweep --kind temporal_fwd_f32 \
         [--reps 10] [--parent build/parent/conv_bn_f32.cu]
@@ -168,8 +186,8 @@ prints what ``ptxas`` says of the kernel (registers, spills, shared memory)
 and holds the kernel once against the plain version at each shape and at a
 few small ones (``temporal_data``: at every layout the entry point takes;
 ``spatial_data``: at every step; ``spatial_fwd``: at every layout, filter
-resident and streamed; ``spatial_fwd_f32``, ``temporal_fwd_f32``: at
-every layout;
+resident and streamed; ``spatial_fwd_f32``, ``temporal_fwd_f32``, ``spatial_filter_f32``: at
+every layout, and the spatial per-tap gathers;
 ``temporal_fwd``: at every layout; ``gru``: on both routes at the edge
 shapes too, and at every layout; ``packed`` and
 ``packed_ablate``: every layout at small, edge and full shapes, and an
@@ -248,12 +266,13 @@ def resources(kind: str) -> None:
     """Print what ptxas says of the kind's kernels
     (``<kind>_filter_kernel``, ``temporal_data_kernel``,
     ``spatial_data_kernel``, ``spatial_fwd_kernel``, ``temporal_fwd_kernel``;
-    in conv_bn_f32.cu ``spatial_fwd_f32_kernel`` and
-    ``temporal_fwd_f32_kernel``;
+    in conv_bn_f32.cu ``spatial_fwd_f32_kernel``,
+    ``temporal_fwd_f32_kernel`` and ``spatial_filter_f32_kernel``;
     in melspec.cu ``log_mel_kernel`` and ``log_mel_dft_kernel``; in gru.cu
     ``gru_cluster_kernel`` and ``gru_kernel``)."""
     kernels = {"spatial_fwd": ("spatial_fwd_kernel",),
                "spatial_fwd_f32": ("spatial_fwd_f32_kernel",),
+               "spatial_filter_f32": ("spatial_filter_f32_kernel",),
                "temporal_fwd_f32": ("temporal_fwd_f32_kernel",),
                "temporal_fwd": ("temporal_fwd_kernel",),
                "mel": ("log_mel",),
@@ -261,7 +280,8 @@ def resources(kind: str) -> None:
         kind, (f"{kind}_kernel" if kind.endswith("_data")
                else f"{kind}_filter_kernel",))
     source = {"mel": "melspec", "gru": "gru", "spatial_fwd_f32": "conv_bn_f32",
-              "temporal_fwd_f32": "conv_bn_f32"}.get(kind, "conv_bn")
+              "temporal_fwd_f32": "conv_bn_f32",
+              "spatial_filter_f32": "conv_bn_f32"}.get(kind, "conv_bn")
     log = subprocess.run(
         [cuda_lib._nvcc(), *cuda_lib.NVCC_FLAGS, "-Xptxas", "-v", "-o",
          "/dev/null", *(["-DTD_TRIALS"] if kind == "temporal_data" else []),
@@ -1475,6 +1495,234 @@ def sweep_fwd_f32(kind: str, reps: int, parent: Optional[str]) -> None:
         torch.cuda.empty_cache()
 
 
+# --- the fp32 spatial filter gradient: the row walk --------------------------
+
+# small shapes (x shape, C_out) of the walk: a partial channel block (C_in
+# 24), masked N tiles (C_out 40, 200), steps across images (7x7 images; 135
+# images: slices of 2 with a one-image last slice on 132 SMs at C_in 24 ->
+# 40), 1x1 images, C_out 1152, images too wide for the walk (the gather)
+SFF_SMALL = (((3, 5, 7, 9, 24), 40), ((1, 131, 7, 7, 24), 40),
+             ((2, 3, 4, 7, 40), 200), ((2, 16, 7, 7, 64), 1152),
+             ((3, 4, 1, 1, 16), 72), ((1, 2, 2, 600, 16), 16))
+# stage 1 of data.image_size=224 (112x112 images) at 32 clips
+SFF_WIDE = (((32, 16, 112, 112, 64), 144),)
+SFF_ABLATIONS = {"no_forming": 1, "no_products": 2, "no_copies": 4,
+                 "no_epilogue": 8, "walk_only": 15, "copies_only": 3,
+                 "products_only": 5, "forming_only": 6}
+SFF_ENTRY = "m3f_spatial_filter_f32"
+GATHER_FILTER_F32_ENTRY = "m3f_conv_unit_bwd_filter_f32"
+
+
+def sff_inputs(xs, co, dev, g):
+    """fp32 x, inv, shift, y, gy, gs1, gs2 for one spatial unit."""
+    ci = xs[-1]
+    x = torch.randn(*xs, device=dev, generator=g)
+    inv = torch.rand(ci, device=dev, generator=g) + 0.5
+    shift = torch.randn(ci, device=dev, generator=g) * 0.1
+    y = torch.randn(*xs[:-1], co, device=dev, generator=g)
+    gy = torch.randn(*xs[:-1], co, device=dev, generator=g) * 1e-2
+    gs1 = torch.randn(co, device=dev, generator=g) * 1e-5
+    gs2 = torch.randn(co, device=dev, generator=g) * 1e-6
+    return x, inv, shift, y, gy, gs1, gs2
+
+
+def launch_sff(fn, x, inv, shift, y, gy, gs1, gs2, layout=None):
+    """One call of a build's ``m3f_spatial_filter_f32`` with the planner's
+    layout or ``layout`` = (N tile, step) (what ``conv_unit_bwd_filter``
+    does for fp32 x, minus its checks); ``inv`` None leaves the prologue
+    out. None where no such layout fits."""
+    b, t, h, wd, ci = x.shape
+    co = gy.shape[-1]
+    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+    plan = conv_bn.f32_spatial_filter_plan(b, t, h, wd, ci, co, sms,
+                                           *(layout or ()))
+    if plan is None:
+        return None
+    dw = torch.empty(9 * ci, co, device=x.device)
+    part = torch.empty(plan.slices * 9 * ci * co, device=x.device) \
+        if plan.slices > 1 else None
+    ge = torch.empty(plan.ge_bytes // 4, device=x.device)
+    ptr = lambda v: None if v is None else v.data_ptr()
+    err = fn(x.data_ptr(), gy.data_ptr(), y.data_ptr(), gs1.data_ptr(),
+             gs2.data_ptr(), ptr(inv), ptr(shift), dw.data_ptr(), ptr(part),
+             ge.data_ptr(), b, t, h, wd, ci, co, plan.n_tile, plan.step,
+             plan.images_per_slice, plan.slices, cuda_lib.stream_ptr(x))
+    cuda_lib.check(err, f"fp32 spatial filter sweep, {layout}")
+    return dw
+
+
+def launch_filter_gather_f32(fn, x, inv, shift, y, gy, gs1, gs2):
+    """One call of a source's ``m3f_conv_unit_bwd_filter_f32`` (the per-tap
+    gather, bwd_filter_f32_kernel) for the spatial kind with
+    ``f32_bwd_filter_plan``'s tiling."""
+    b, t, h, wd, ci = x.shape
+    co = gy.shape[-1]
+    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+    plan = conv_bn.f32_bwd_filter_plan(b, t, h, wd, ci, co, "spatial", sms)
+    dw = torch.empty(9 * ci, co, device=x.device)
+    part = torch.empty(plan.slices * 9 * ci * co, device=x.device) \
+        if plan.slices > 1 else None
+    ptr = lambda v: None if v is None else v.data_ptr()
+    err = fn(x.data_ptr(), gy.data_ptr(), y.data_ptr(), gs1.data_ptr(),
+             gs2.data_ptr(), ptr(inv), ptr(shift), dw.data_ptr(), ptr(part),
+             0, b, t, h, wd, ci, co, plan.chunks_per_slice, plan.slices,
+             cuda_lib.stream_ptr(x))
+    cuda_lib.check(err, "fp32 spatial filter gather")
+    return dw
+
+
+def _dw_over_limit(got, ref, absw) -> float:
+    """max |dw - ref| over the limit 1e-5 of sum |x^|*|ge| plus 1e-6 of that
+    sum's largest (chip_smoke.py's dw limit)."""
+    lim = 1e-5 * absw + 1e-6 * absw.max()
+    return ((got.reshape(ref.shape) - ref).abs() / lim).max().item()
+
+
+def _abs_dw(xh, ge):
+    """sum over pixels of |x^| * |ge| per filter element [3, 3, C_in, C_out]."""
+    ci, co = xh.shape[-1], ge.shape[-1]
+    dk = torch.nn.grad.conv3d_weight(
+        xh.abs().permute(0, 4, 1, 2, 3), (co, ci, 1, 3, 3),
+        ge.abs().permute(0, 4, 1, 2, 3), padding=(0, 1, 1))
+    return dk[:, :, 0].permute(2, 3, 1, 0)
+
+
+SFF_LAYOUTS = {f"layout_{nb}x{st}": (nb, st) for nb in conv_bn._SFF_N_TILES
+               for st in conv_bn._SFF_STEPS}
+
+
+def check_filter_f32() -> None:
+    """ptxas' resource lines of the walk, then the walk against the plain
+    version (TF32 off), with and without the prologue, at SFF_SMALL, the
+    train step's four spatial units (32 clips) and SFF_WIDE: the wrapper
+    (and whether a second call repeats dw bit for bit), every layout that
+    fits through the C entry, and the per-tap gather; each as max |dw -
+    ref| over max |ref| and over chip_smoke.py's dw limit."""
+    dev = resolve_device("cuda")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    resources("spatial_filter_f32")
+    cuda_lib.build(["conv_bn_f32"])
+    lib = cuda_lib.library("conv_bn_f32")
+    main, gather = getattr(lib, SFF_ENTRY), getattr(lib, GATHER_FILTER_F32_ENTRY)
+    g = torch.Generator(device=dev).manual_seed(23)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for xs, co in SFF_SMALL + SHAPES["spatial"] + SFF_WIDE:
+        x, inv, shift, y, gy, gs1, gs2 = sff_inputs(xs, co, dev, g)
+        plan = conv_bn.f32_spatial_filter_plan(*xs, co, sms)
+        row = {"x": list(xs), "co": co,
+               "plan": None if plan is None else plan._asdict()}
+        for affine in (True, False):
+            a = (inv, shift) if affine else (None, None)
+            args = (x, *a, y, gy, gs1, gs2)
+            got = conv_bn.conv_unit_bwd_filter(*args, kind="spatial")
+            again = conv_bn.conv_unit_bwd_filter(*args, kind="spatial")
+            torch.cuda.synchronize()
+            ref = conv_bn.conv_unit_bwd_filter_reference(*args, kind="spatial")
+            absw = _abs_dw(conv_bn._prologue(x, *a), conv_bn._gy_eff(gy, y, gs1, gs2))
+            err = lambda d: {"over_max_ref": ((d.reshape(ref.shape) - ref).abs().max()
+                                              / ref.abs().max()).item(),
+                             "over_limit": _dw_over_limit(d, ref, absw)}
+            key = "affine" if affine else "plain"
+            row[key] = {"wrapper": err(got), "repeats": torch.equal(got, again)}
+            for name, layout in SFF_LAYOUTS.items():
+                out = launch_sff(main, *args, layout=layout)
+                torch.cuda.synchronize()
+                row[key][name] = None if out is None else err(out)
+                del out
+            out = launch_filter_gather_f32(gather, *args)
+            torch.cuda.synchronize()
+            row[key]["gather"] = err(out)
+            del got, again, ref, absw, out
+            torch.cuda.empty_cache()
+        print(json.dumps(row), flush=True)
+        del x, y, gy
+        torch.cuda.empty_cache()
+
+
+def sweep_filter_f32(reps: int, parent: Optional[str]) -> None:
+    """The walk at the train step's four spatial units (32 clips) and
+    SFF_WIDE, with and without the prologue, every time a device time: in
+    alternating rounds the wrapper, the planner's layout through the C entry
+    twice (their gap is the spread of identical launches), every layout that
+    fits, the per-tap gather through this source's entry and, with
+    ``parent``, through that source's, and cuDNN's fp32
+    ``conv3d_weight`` on x̂ and ge already formed (TF32 off); then the
+    ablation builds (-DSFF_ABLATE) and a device copy of x, gy and y. The
+    bound counts the operations the function needs
+    (``conv_bn.tap_pairs``)."""
+    dev = resolve_device("cuda")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cuda_lib.build(["conv_bn_f32"])
+    lib = cuda_lib.library("conv_bn_f32")
+    main, gather = getattr(lib, SFF_ENTRY), getattr(lib, GATHER_FILTER_F32_ENTRY)
+    src = str(cuda_lib.CSRC / "conv_bn_f32.cu")
+    sig = cuda_lib.SIGNATURES["conv_bn_f32"]
+    defines = {f"sff_{name}": f"SFF_ABLATE={k}"
+               for name, k in SFF_ABLATIONS.items()}
+    built = build_variants(defines, SFF_ENTRY, {name: src for name in defines},
+                           sig[SFF_ENTRY])
+    old = None
+    if parent:
+        old = build_variants({"parent_f32": ""}, GATHER_FILTER_F32_ENTRY,
+                             {"parent_f32": parent},
+                             sig[GATHER_FILTER_F32_ENTRY])["parent_f32"]
+    g = torch.Generator(device=dev).manual_seed(23)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for xs, co in SHAPES["spatial"] + SFF_WIDE:
+        ci = xs[-1]
+        x, inv, shift, y, gy, gs1, gs2 = sff_inputs(xs, co, dev, g)
+        plan = conv_bn.f32_spatial_filter_plan(*xs, co, sms)
+        m = x.numel() // ci
+        flops = 2 * conv_bn.tap_pairs("spatial", *xs[:4]) * ci * co
+        for affine in (True, False):
+            a = (inv, shift) if affine else (None, None)
+            args = (x, *a, y, gy, gs1, gs2)
+            xn = conv_bn._prologue(x, *a).permute(0, 4, 1, 2, 3)
+            gn = conv_bn._gy_eff(gy, y, gs1, gs2).permute(0, 4, 1, 2, 3)
+            entry = lambda: launch_sff(main, *args)
+            fns = {"wrapper": lambda: conv_bn.conv_unit_bwd_filter(
+                       *args, kind="spatial"),
+                   "entry": entry, "entry_again": entry}
+            for name, layout in SFF_LAYOUTS.items():
+                if launch_sff(main, *args, layout=layout) is not None:
+                    fns[name] = lambda layout=layout: launch_sff(
+                        main, *args, layout=layout)
+            fns["gather"] = lambda: launch_filter_gather_f32(gather, *args)
+            if old is not None:
+                fns["parent"] = lambda: launch_filter_gather_f32(old, *args)
+            fns["cudnn_conv3d_weight"] = lambda: torch.nn.grad.conv3d_weight(
+                xn, (co, ci, 1, 3, 3), gn, padding=(0, 1, 1))
+            row = {"kind": "spatial_filter_f32", "x": list(xs), "co": co,
+                   "affine": affine, "plan": plan._asdict(),
+                   "alternating_ms": alternating(fns, reps)}
+            row["ms"] = row["alternating_ms"]["wrapper"][0]
+            row["identical_launches_gap_ms"] = abs(
+                row["alternating_ms"]["entry"][0]
+                - row["alternating_ms"]["entry_again"][0])
+            for name, fn in built.items():
+                row[f"{name[4:]}_ms"] = timed(
+                    lambda: launch_sff(fn, *args), reps, queued=True)
+            bx, by, bg = torch.empty_like(x), torch.empty_like(y), torch.empty_like(gy)
+            row["copy_x_gy_y_ms"] = timed(
+                lambda: (bx.copy_(x), by.copy_(y), bg.copy_(gy)), reps,
+                queued=True)
+            nbytes = 4 * (m * ci + 2 * m * co + 9 * ci * co + 2 * co
+                          + (2 * ci if affine else 0))
+            row["bound_ms"] = max(nbytes / HBM, flops / PEAK_FP32) * 1e3
+            row["bound_by"] = "bytes" if nbytes / HBM >= flops / PEAK_FP32 \
+                else "operations"
+            row["tflops"] = {k: flops / v[0] / 1e9
+                             for k, v in row["alternating_ms"].items()}
+            row["share_of_bound"] = row["bound_ms"] / row["ms"]
+            print(json.dumps(row), flush=True)
+            del xn, gn, bx, by, bg
+            torch.cuda.empty_cache()
+        del x, y, gy
+        torch.cuda.empty_cache()
+
+
 # --- the log-mel frontend ---------------------------------------------------
 
 def sweep_mel(reps: int, check_only: bool) -> None:
@@ -2196,6 +2444,7 @@ def main(argv=None) -> None:
     ap.add_argument("--kind", choices=("spatial", "temporal", "temporal_data",
                                        "spatial_data", "spatial_fwd",
                                        "spatial_fwd_f32", "temporal_fwd_f32",
+                                       "spatial_filter_f32",
                                        "temporal_fwd", "mel", "gru",
                                        "packed", "packed_ablate"),
                     default="spatial")
@@ -2206,7 +2455,10 @@ def main(argv=None) -> None:
                     help="spatial_fwd_f32 / temporal_fwd_f32: a "
                          "conv_bn_f32.cu whose fp32 forward of that kind "
                          "(m3f_conv_unit_fwd_f32, the per-tap gather) is "
-                         "timed beside the walk; "
+                         "timed beside the walk; spatial_filter_f32: a "
+                         "conv_bn_f32.cu whose spatial filter gradient "
+                         "(m3f_conv_unit_bwd_filter_f32, the per-tap gather) "
+                         "is; "
                          "spatial_fwd / temporal_fwd: a conv_bn.cu whose "
                          "forward of that kind (the per-tap gather, C entry "
                          "before the walk) is timed beside the kernel; gru: "
@@ -2224,6 +2476,9 @@ def main(argv=None) -> None:
     elif opts.kind == "spatial_fwd":
         check_spatial_fwd() if opts.check \
             else sweep_spatial_fwd(opts.reps, opts.parent)
+    elif opts.kind == "spatial_filter_f32":
+        check_filter_f32() if opts.check \
+            else sweep_filter_f32(opts.reps, opts.parent)
     elif opts.kind in ("spatial_fwd_f32", "temporal_fwd_f32"):
         kind = opts.kind[:-len("_fwd_f32")]
         check_fwd_f32(kind) if opts.check \
