@@ -76,14 +76,17 @@ H100 (``python3 chip_smoke.py``). It
    at the lane midplanes 128 / 256 / 512 / 1152 (phase ``kernel_lane``:
    the forward at the serving shapes, the backward at the train shapes);
    the fp32 backward kernels (rows 5f-8f, ``csrc/conv_bn_f32.cu``, phase
-   ``kernel_conv_f32_bwd``; row 6f the row walk
-   ``spatial_filter_f32_kernel``, its plan in every phase line) are held
-   against their plain versions (TF32 off) at F32_EDGE_SHAPES,
+   ``kernel_conv_f32_bwd``; row 5f the row walk
+   ``spatial_data_f32_kernel``, row 6f the row walk
+   ``spatial_filter_f32_kernel``, their plans in every phase line) are
+   held against their plain versions (TF32 off) at F32_EDGE_SHAPES,
    F32_FILTER_WALK_EDGE_SHAPES (images two a slice with a one-image last
-   slice, C_out 200, C_in 24, 1x1 images, the stage-4 train shape) and
-   F32_GATHER_EDGE_SHAPES (the spatial filter gradient of images too wide
-   for the row walk through the per-tap gather; phase
-   ``kernel_conv_f32_bwd_edges``) and at every
+   slice, C_out 200, C_in 24, 1x1 images, the stage-4 train shape),
+   F32_DATA_WALK_EDGE_SHAPES (images four a range with a one-image last
+   range, C_in 200, C_out 40, 1x1 images several a step, the stage-3 and
+   stage-4 train shapes with their K splits) and F32_GATHER_EDGE_SHAPES
+   (both spatial gradients of images too wide for the row walks through
+   the per-tap gathers; phase ``kernel_conv_f32_bwd_edges``) and at every
    fused unit's shape of the fusion train step: dx per element within
    BWD_F32_REL of (|ge| (*) |w| mirrored) through the mask and |inv|, dw
    per element within 1e-5 of sum |x^|*|ge|, dinv / dshift per channel;
@@ -2318,6 +2321,17 @@ F32_FILTER_WALK_EDGE_SHAPES = (
     ("spatial", (2, 3, 4, 7, 40), (3, 3, 40, 200)),
     ("spatial", (3, 4, 1, 1, 16), (3, 3, 16, 72)),
     ("spatial", (32, 2, 7, 7, 512), (3, 3, 512, 1152)))
+# the fp32 spatial data gradient's row walk off the train tiling: 129 7x7
+# images four a range on 132 SMs, the last range one image, C_in 200 in
+# four N tiles of 64 (the last masked), C_out 40 (chunks of 16, 16 and 8);
+# 1x1 images, 22 a step, in N tiles of 128 and 8-channel chunks split nine
+# ways; the stage-3 and stage-4 train shapes (32 clips), K split four and
+# eight ways
+F32_DATA_WALK_EDGE_SHAPES = (
+    ("spatial", (1, 129, 7, 7, 200), (3, 3, 200, 40)),
+    ("spatial", (3, 100, 1, 1, 16), (3, 3, 16, 72)),
+    ("spatial", (32, 4, 14, 14, 256), (3, 3, 256, 576)),
+    ("spatial", (32, 2, 7, 7, 512), (3, 3, 512, 1152)))
 # the fp32 frame walk off the serving tiling (forward only): clips of one
 # frame across a strip; 7x7 clips five a strip, the second strip partial,
 # C_in 40 (chunks of 16, 16, 8); C_out 200 in four N tiles of 64, the last
@@ -2467,6 +2481,27 @@ def filter_plan_f32(torch, conv_bn, kind, x, co):
                                            _round8(co), sms)
 
 
+def data_plan_f32(torch, conv_bn, kind, x, co):
+    """The fp32 data gradient's plan for x [B, T, H, W, C_in] -> C_out
+    (channel counts as the wrapper pads them): the spatial row walk's, or
+    None (the per-tap gather: the temporal kind, images too wide)."""
+    if kind != "spatial":
+        return None
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return conv_bn.f32_spatial_data_plan(*x.shape[:4], _round8(x.shape[-1]),
+                                         _round8(co), sms)
+
+
+def data_plan_line(p):
+    """The data walk's plan as the phase lines carry it (None: the
+    gather)."""
+    return None if p is None else {
+        "step": p.step, "n_tile": p.n_tile, "k_chunk": p.k_chunk,
+        "images_per_range": p.images_per_range, "ranges": p.ranges,
+        "k_splits": p.k_splits, "chunks_per_split": p.chunks_per_split,
+        "blocks": p.blocks, "model_us": p.model_us}
+
+
 def filter_plan_line(p):
     """The row walk's plan as the phase lines carry it (None: the gather)."""
     return None if p is None else {
@@ -2543,9 +2578,18 @@ def check_bwd_unit_f32(torch, F, conv_bn, what, x, w, a, gy, gs1, gs2, kind,
         share = conv_bn.conv_unit_bwd_filter_reference(
             x, inv, shift, torch.zeros_like(y), ge, zero, zero, kind=kind)
         wrong["dw_last_slice_left_out"] = (dx, dw - share, dinv, dshift)
-    dplan = conv_bn.f32_bwd_data_plan(b, t, h, wd, _round8(ci), sms)
-    if inv is not None and dplan.ranges > 1:
-        start = (dplan.ranges - 1) * dplan.tiles_per_range * 64
+    dwalk = data_plan_f32(torch, conv_bn, kind, x, co)
+    if dwalk is None:                   # the gather's last range of tiles
+        dplan = conv_bn.f32_bwd_data_plan(b, t, h, wd, _round8(ci), sms)
+        rows = dplan.ranges
+        start = (rows - 1) * dplan.tiles_per_range * 64
+    elif dwalk.k_splits == 1:           # the walk's last range of images
+        rows = dwalk.ranges
+        start = dwalk.images_of(rows - 1)[0] * h * wd
+    else:                               # the split sum's last block of rows
+        rows = dwalk.part_rows
+        start = (rows - 1) * conv_bn._SDF_SUM_ROWS
+    if inv is not None and rows > 1:
         share = (x * dxa_ref).reshape(m, ci)[start:].sum(0)
         wrong["dinv_last_row_left_out"] = (dx, dw, dinv - share, dshift)
     if padding_controls:
@@ -2579,6 +2623,7 @@ def check_bwd_unit_f32(torch, F, conv_bn, what, x, w, a, gy, gs1, gs2, kind,
         f"{what}: a second call gave another dx, dw, dinv or dshift")
     errs["controls"] = sorted(wrong)
     errs["filter_plan"] = filter_plan_line(walk)
+    errs["data_plan"] = data_plan_line(dwalk)
     return errs, tf32_seen
 
 
@@ -2607,19 +2652,21 @@ F32_BWD_KERNELS = ("conv_spatial_bwd_data_f32", "conv_spatial_bwd_filter_f32",
 
 def check_conv_f32_bwd(torch, F, conv_bn, clips=32):
     """Rows 5f-8f: the fp32 backward kernels against their plain versions
-    (TF32 off) at F32_EDGE_SHAPES, F32_FILTER_WALK_EDGE_SHAPES and
-    F32_GATHER_EDGE_SHAPES (the spatial filter gradient's per-tap gather
-    taken at one of them at least), with and without the prologue and with
-    the padding controls, then at every fused unit's shape of the fusion
-    train step (``_train_units``), where the plain version under TF32 must
-    fail the check; timed (kernel and library in turn, F32_BWD_ROUNDS
-    rounds of F32_BWD_REPS) beside the plain version and cuDNN's
+    (TF32 off) at F32_EDGE_SHAPES, F32_FILTER_WALK_EDGE_SHAPES,
+    F32_DATA_WALK_EDGE_SHAPES and F32_GATHER_EDGE_SHAPES (the spatial
+    filter and data gradients' per-tap gathers each taken at one of them at
+    least), with and without the prologue and with the padding controls,
+    then at every fused unit's shape of the fusion train step
+    (``_train_units``), where the plain version under TF32 must fail the
+    check; timed (kernel and library in turn, F32_BWD_ROUNDS rounds of
+    F32_BWD_REPS) beside the plain version and cuDNN's
     ``torch.nn.grad.conv3d_input`` / ``conv3d_weight`` in fp32 (no TF32).
     Returns the four rows of the kernels line, per train step."""
     g = torch.Generator(device="cuda").manual_seed(19)
-    edges, tf32_edges, gathered = {}, 0, []
-    for kind, xs, ws in (F32_EDGE_SHAPES + F32_FILTER_WALK_EDGE_SHAPES
-                         + F32_GATHER_EDGE_SHAPES):
+    edges, tf32_edges, gathered, data_gathered = {}, 0, [], []
+    for kind, xs, ws in dict.fromkeys(
+            F32_EDGE_SHAPES + F32_FILTER_WALK_EDGE_SHAPES
+            + F32_DATA_WALK_EDGE_SHAPES + F32_GATHER_EDGE_SHAPES):
         for affine in (False, True):
             x, w, a, gy, gs1, gs2 = f32_bwd_inputs(torch, g, xs, ws, affine,
                                                    scale=1.0)
@@ -2631,16 +2678,24 @@ def check_conv_f32_bwd(torch, F, conv_bn, clips=32):
             if (kind, xs, ws) in F32_FILTER_WALK_EDGE_SHAPES:
                 require(edges[key]["filter_plan"] is not None,
                         f"{key}: the filter gradient takes the gather")
+            if (kind, xs, ws) in F32_DATA_WALK_EDGE_SHAPES:
+                require(edges[key]["data_plan"] is not None,
+                        f"{key}: the data gradient takes the gather")
             if (kind, xs, ws) in F32_GATHER_EDGE_SHAPES \
                     and edges[key]["filter_plan"] is None:
                 gathered.append(key)
+            if (kind, xs, ws) in F32_GATHER_EDGE_SHAPES \
+                    and edges[key]["data_plan"] is None:
+                data_gathered.append(key)
             del x, w, gy
         torch.cuda.empty_cache()
     require(gathered, "no F32_GATHER_EDGE_SHAPES took the spatial filter "
             "gradient's per-tap gather")
+    require(data_gathered, "no F32_GATHER_EDGE_SHAPES took the spatial data "
+            "gradient's per-tap gather")
     emit({"phase": "kernel_conv_f32_bwd_edges", "errors": edges,
           "tf32_control_failed_at": tf32_edges, "of": len(edges),
-          "filter_gather_at": gathered,
+          "filter_gather_at": gathered, "data_gather_at": data_gathered,
           "tol_dx_rel": BWD_F32_REL, "tol_dw_rel": BWD_DW_REL})
     out = {}
     for kind, xs, ws, affine, copies in _train_units(clips):
@@ -2683,7 +2738,7 @@ def check_conv_f32_bwd(torch, F, conv_bn, clips=32):
             emit({"phase": f"kernel_conv_f32_bwd_{part}", "kind": kind,
                   "x": list(xs), "w": list(ws), "affine": affine,
                   "per_step": copies, "errors": errs,
-                  "plan": errs["filter_plan"] if part == "filter" else None,
+                  "plan": errs[f"{part}_plan"],
                   "ms": ms,
                   "ms_spread": spread, "plain_ms": plain[part],
                   "library_ms": lib, "library_ms_spread": lib_spread,

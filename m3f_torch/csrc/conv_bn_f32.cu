@@ -10,9 +10,14 @@
 //                           frame walk (its own section below)
 //   conv_f32_kernel         _spatial_fwd where no row-walk layout fits the
 //                           images (rows of a few hundred pixels)
-//   bwd_data_f32_kernel     _spatial_bwd's data gradient
-//                           (_spatial_bwd_data_kernel, :537) and
-//                           _temporal_bwd's (_temporal_bwd_data_kernel, :612)
+//   spatial_data_f32_kernel _spatial_bwd's data gradient
+//                           (_spatial_bwd_data_kernel, :537): a row walk (its
+//                           own section below), with a K split summed by
+//                           data_split_sum_f32_kernel where M is short
+//   bwd_data_f32_kernel     _temporal_bwd's data gradient
+//                           (_temporal_bwd_data_kernel, :612), and
+//                           _spatial_bwd's where no row-walk layout fits the
+//                           images
 //   spatial_filter_f32_kernel _spatial_bwd's filter gradient
 //                           (_spatial_bwd_filter_kernel, :554): a row walk
 //                           (its own section below), after fold_f32_kernel
@@ -51,8 +56,8 @@
 // so no TF32 and no tensor cores) and not memory (3.35 TB/s) set the floor.
 //
 // Design of the per-tap gathers (simple and right first; the forward's row
-// and frame walks and the spatial filter gradient's row walk are the
-// redesigns, described above their code). Every
+// and frame walks and the spatial gradients' row walks are the redesigns,
+// described above their code). Every
 // gather kernel is a block of 256 threads owning a 64 x 64 tile, each
 // thread 4 x 4 sums in registers, K walked in chunks of 16 through shared
 // memory, the next chunk's loads held in registers while the products of
@@ -71,13 +76,15 @@
 //   order; at the end the 16 position groups are reduced in a fixed order
 //   into one partial row per range, and colsum_f32_kernel sums the rows per
 //   channel in a fixed order.
-// - bwd_data_f32_kernel: the same walk with the roles of the channels
-//   swapped: 64 positions x 64 input channels, K = taps x Co in chunks of 16
-//   output channels of one tap, the ge chunk formed at the gather from gy,
-//   y, gs1 and gs2 at the neighbour (0 in the padding and past Co), the
-//   filter chunk read from [taps * Co, Ci] with the taps mirrored (the
-//   wrapper lays it out). The epilogue applies the mask and inv, and the
-//   partial rows of dinv / dshift go through colsum_f32_kernel as s1 / s2 do.
+// - bwd_data_f32_kernel (the temporal kind, and the spatial kind's images
+//   too wide for the row walk): the same walk with the roles of the
+//   channels swapped: 64 positions x 64 input channels, K = taps x Co in
+//   chunks of 16 output channels of one tap, the ge chunk formed at the
+//   gather from gy, y, gs1 and gs2 at the neighbour (0 in the padding and
+//   past Co), the filter chunk read from [taps * Co, Ci] with the taps
+//   mirrored (the wrapper lays it out). The epilogue applies the mask and
+//   inv, and the partial rows of dinv / dshift go through colsum_f32_kernel
+//   as s1 / s2 do.
 // - bwd_filter_f32_kernel (the temporal kind, and the spatial kind's images
 //   too wide for the row walk): 64 rows of K = taps x Ci x 64 output
 //   channels of dw over a slice of the positions, walked in chunks of 16
@@ -88,8 +95,8 @@
 //
 // Measured times are in PERF.md (chip_smoke.py, phases kernel_conv_f32 and
 // kernel_conv_f32_bwd; m3f_torch/scripts/filter_sweep.py --kind
-// spatial_fwd_f32 / temporal_fwd_f32 / spatial_filter_f32 for the walks'
-// layouts and ablations).
+// spatial_fwd_f32 / temporal_fwd_f32 / spatial_filter_f32 / spatial_data_f32
+// for the walks' layouts and ablations).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -711,6 +718,48 @@ __device__ __forceinline__ float lane4(const float4 v, int k) {
   return k == 0 ? v.x : k == 1 ? v.y : k == 2 ? v.z : v.w;
 }
 
+// The row walks' FFMA microkernel over one chunk of KC channels for all nine
+// taps: acc[i][c] += A at pixel i's tap t, channel k, times the filter's
+// row (t, k) at this thread's 8 output channels (4 at fs, 4 at fs + NB/2).
+// xs is the chunk buffer ([rows][WP][LDC]), base[i] pixel i's offset of its
+// padded pixel (h - 1, w - 1), fs the filter chunk [9 * KC][NB] at this
+// thread's first channel.
+template <int KC, int NB, int LDC>
+__device__ __forceinline__ void walk_products(const float* xs, const float* fs,
+                                              const int (&base)[8], int WP,
+                                              float (&acc)[8][8]) {
+  constexpr int QV = KC / 4;
+  auto tap = [&](int t) {
+    const float* xt = xs + ((t / 3) * WP + t % 3) * LDC;
+    const float* ft = fs + t * KC * NB;
+#pragma unroll
+    for (int q = 0; q < QV; ++q) {
+      float4 av[8];
+#pragma unroll
+      for (int i = 0; i < 8; ++i) av[i] = ld4(xt + base[i] + 4 * q);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        const float4 b0 = ld4(ft + (4 * q + kk) * NB);
+        const float4 b1 = ld4(ft + (4 * q + kk) * NB + NB / 2);
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          const float ak = lane4(av[i], kk);
+          acc[i][0] = fmaf(ak, b0.x, acc[i][0]);
+          acc[i][1] = fmaf(ak, b0.y, acc[i][1]);
+          acc[i][2] = fmaf(ak, b0.z, acc[i][2]);
+          acc[i][3] = fmaf(ak, b0.w, acc[i][3]);
+          acc[i][4] = fmaf(ak, b1.x, acc[i][4]);
+          acc[i][5] = fmaf(ak, b1.y, acc[i][5]);
+          acc[i][6] = fmaf(ak, b1.z, acc[i][6]);
+          acc[i][7] = fmaf(ak, b1.w, acc[i][7]);
+        }
+      }
+    }
+  };
+#pragma unroll 1
+  for (int t = 0; t < 9; ++t) tap(t);
+}
+
 // NPG x NCG threads, each 8 pixels x 8 output channels: S = 8 * NPG pixels
 // a step, NB = 8 * NCG output channels a block.
 template <int NCG, int NPG, int KC, bool AFFINE>
@@ -832,37 +881,8 @@ spatial_fwd_f32_kernel(const SpatialFwdF32Args a) {
   // acc[i][c] += x^ at pixel i's tap t, channel k, times the filter's row
   // (t, k) at this thread's 8 output channels, over the chunk in buffer b
   auto products = [&](int b) {
-    const float* xs = Xb + b * BUF;
-    const float* fs = Fb + b * FR * NB + cg * 4;
-    auto tap = [&](int t) {
-      const float* xt = xs + ((t / 3) * WP + t % 3) * LDC;
-      const float* ft = fs + t * KC * NB;
-#pragma unroll
-      for (int q = 0; q < QV; ++q) {
-        float4 av[8];
-#pragma unroll
-        for (int i = 0; i < 8; ++i) av[i] = ld4(xt + base[i] + 4 * q);
-#pragma unroll
-        for (int kk = 0; kk < 4; ++kk) {
-          const float4 b0 = ld4(ft + (4 * q + kk) * NB);
-          const float4 b1 = ld4(ft + (4 * q + kk) * NB + NB / 2);
-#pragma unroll
-          for (int i = 0; i < 8; ++i) {
-            const float ak = lane4(av[i], kk);
-            acc[i][0] = fmaf(ak, b0.x, acc[i][0]);
-            acc[i][1] = fmaf(ak, b0.y, acc[i][1]);
-            acc[i][2] = fmaf(ak, b0.z, acc[i][2]);
-            acc[i][3] = fmaf(ak, b0.w, acc[i][3]);
-            acc[i][4] = fmaf(ak, b1.x, acc[i][4]);
-            acc[i][5] = fmaf(ak, b1.y, acc[i][5]);
-            acc[i][6] = fmaf(ak, b1.z, acc[i][6]);
-            acc[i][7] = fmaf(ak, b1.w, acc[i][7]);
-          }
-        }
-      }
-    };
-#pragma unroll 1
-    for (int t = 0; t < 9; ++t) tap(t);
+    walk_products<KC, NB, LDC>(Xb + b * BUF, Fb + b * FR * NB + cg * 4, base,
+                               WP, acc);
   };
 
   float s1[8], s2[8];
@@ -1718,6 +1738,434 @@ int launch_spatial_filter_f32(const SpatialFilterF32Args& a, int blocks,
   return (int)cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// The spatial data gradient: the row walk (spatial_data_f32_kernel)
+// ---------------------------------------------------------------------------
+//
+// Replaces _spatial_bwd's data gradient (m3f/pytorch_tpu/ops/pallas/
+// conv_bn.py:537, kernel _spatial_bwd_data_kernel at :293, ge from _gy_eff
+// at :287) for fp32 x:
+//   dx^[m, ci] = sum_tap sum_co ge[neighbour(m, tap), co] * W[8 - tap, ci, co]
+// with ge 0 in the padding, then with the prologue the mask, dx = f32(dxa *
+// inv) and dinv / dshift. At the train step's stage 1 (gy [32,16,56,56,144]
+// -> dx 64) a launch is 0.26 TFLOP of fp32 FMA on 2.6 GB: 3.9 ms at 67
+// TFLOP/s against 0.8 ms of memory, and every stage is operation-bound.
+// What the per-tap gather (bwd_data_f32_kernel) spent beyond the products
+// (ge folded again for each of the nine taps and each 64-channel N tile: 9
+// to 72 times a pixel; one LDS.128 of A and one of B per 16 FFMA; loads
+// through registers with a bounds test per vector; at stages 3-4 a long K
+// over few positions, 13% of the SMs' time idle at the end) is what this
+// design takes out. It is spatial_fwd_f32_kernel's walk with ge in place of
+// x^ and the mirrored filter in place of W, and the bf16 spatial_data_kernel's
+// epilogue (conv_bn.cu).
+//
+// - Row walk. A block walks a range of whole (b, t) images as one dense
+//   stream of output pixels, S a step, with an all-zero row before every
+//   image and after the last and columns 0 and W+1 zero: ge's padding, 0
+//   and not the fold of a zero gy and y (gs1). A pixel's taps are one base
+//   offset plus (dh * (W+2) + dw) pixels, tap t meeting the filter's row
+//   block t of [9 * Co, Ci] (W[8 - t] transposed, laid out by the wrapper).
+// - K inside a step, in chunks of KC output channels (16, or 8 where the
+//   buffers need it) for all nine taps: the block copies the step's gy and y
+//   rows for the chunk with cp.async (zero-filled on the zero rows and past
+//   C_out), each thread folds ge = gy + (gs1 + (2 y) gs2) in place once on
+//   the vectors it copied, after its own wait_group (each op rounded; never
+//   on the zero rows, columns or channels), and the filter chunk [9 * KC,
+//   NB] streams from the L2 with it. gy and the filter are double
+//   buffered, y single (only its copier reads it, before the barrier that
+//   frees it): one barrier a chunk, ge formed once per staged pixel, step
+//   and N tile (a step's halo rows twice).
+// - FFMA microkernel (spatial_fwd_f32_kernel's): NPG x NCG threads, each 8
+//   pixels (pg + NPG i) x 8 input channels (4 at cg * 4, 4 at NB/2 + cg *
+//   4), 64 fp32 sums; 16 LDS.128 per 256 FFMA. N tiles of NB = 64 (steps of
+//   256, C_in 64) or 128 (steps of 128, C_in 128 / 256 / 512), at most 8
+//   warps a block (9 cap a thread at 168 registers and spill); other
+//   multiples of 8 take a masked last tile.
+// - Epilogue: dx leaves from registers in 16-byte stores along the
+//   channels; with the prologue x is read there from global memory (an x
+//   tile in shared memory beside three ge / y buffers and two filter chunks
+//   would not fit at stage 1), xa = f32(f32(x * inv) + shift) with two
+//   roundings, the mask, dx = f32(dxa * inv), and dinv / dshift as per-thread
+//   fp32 sums over the walk in a fixed order, then the NPG pixel groups in
+//   order into one partial row per range, summed by colsum_f32_kernel.
+// - K split (short M, long K: stages 3-4, where one range per SM would hold
+//   a few images and round its steps up): the grid's ranges may also cut the
+//   chunks, each split writing its partial dx^ [M, Ci] straight from the
+//   registers; data_split_sum_f32_kernel then sums the splits in order and
+//   applies the epilogue (the mask needs the whole sum), one partial row of
+//   dinv / dshift per 64 positions. No atomics anywhere: two calls give the
+//   same bits.
+// - Grid: ranges x splits x N tiles, the N tile fastest (the blocks reading
+//   the same ge run together), one block a SM. f32_spatial_data_plan
+//   (ops/conv_bn.py) picks NB, KC, the ranges and the splits for the least
+//   modelled time in one wave.
+
+constexpr int SDF_SUM_ROWS = 64;      // positions a block of the split sum
+// Measurement knob, for filter_sweep.py only (dx is then wrong): 1 leaves
+// out forming ge, 2 the products, 4 the copies of gy, y and the filter (the
+// buffers keep what they held), 8 the epilogue (dx stores and sums); 15
+// leaves the walk alone.
+#ifndef SDF_ABLATE
+#define SDF_ABLATE 0
+#endif
+
+struct SpatialDataF32Args {
+  const float* gy;     // [images, H, W, Co]
+  const float* y;
+  const float* gs1;    // [Co]
+  const float* gs2;
+  const float* wt;     // [9 * Co, Ci], row tap * Co + co = W[8 - tap, ci, co]
+  const float* x;      // [images, H, W, Ci] (the prologue, one split) or null
+  const float* inv;    // [Ci] or null
+  const float* shift;
+  float* dx;           // [images, H, W, Ci], or [splits][M][Ci] partial dx^
+  float* part1;        // [ranges, Ci]: dinv's partial rows (the prologue)
+  float* part2;        // [ranges, Ci]: dshift's
+  int64_t M;           // positions: a split's stride
+  int H, W, Ci, Co;
+  int images, images_per_range, n_tiles, splits, chunks_per_split;
+  int XR;              // rows of a chunk buffer (swf_rows at the step)
+};
+
+// A block's shared memory: two gy / ge chunk buffers and one y buffer
+// [XR][W + 2][KC + 4], two filter chunks [9 * KC][NB] (the block's sums
+// reuse them at the end); ops/conv_bn.py (_spatial_data_f32_smem) computes
+// the same.
+size_t sdf_smem(int W, int XR, int KC, int NB) {
+  return (3 * (size_t)XR * (W + 2) * (KC + 4) + 2 * (size_t)9 * KC * NB) *
+         sizeof(float);
+}
+
+// NPG x NCG threads, each 8 pixels x 8 input channels: S = 8 * NPG pixels
+// a step, NB = 8 * NCG input channels a block.
+template <int NCG, int NPG, int KC, bool AFFINE>
+__global__ void __launch_bounds__(NPG * NCG, 1)
+spatial_data_f32_kernel(const SpatialDataF32Args a) {
+  constexpr int NTH = NPG * NCG, NB = 8 * NCG, S = 8 * NPG;
+  constexpr int LDC = KC + 4;                  // a pixel's stride (floats)
+  constexpr int QV = KC / 4;                   // 16-byte vectors of a pixel's chunk
+  constexpr int XP = NTH / QV;                 // pixels of a copy pass
+  constexpr int FR = 9 * KC;                   // filter rows of a chunk
+  constexpr int FV = FR * NB / 4;              // 16-byte vectors of a filter chunk
+  constexpr int F_IT = (FV + NTH - 1) / NTH;
+  static_assert(NTH % QV == 0 && NPG <= FR && NTH <= 256 && NB <= NTH,
+                "copies, block sums, 8 warps");
+  const int H = a.H, W = a.W, Ci = a.Ci, Co = a.Co;
+  const int WP = W + 2, HW = H * W;
+  const int BUF = a.XR * WP * LDC;             // floats of a chunk buffer
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* Gb = reinterpret_cast<float*>(smem_raw);   // [2][XR][WP][LDC]: gy, then ge
+  float* Yb = Gb + 2 * BUF;                         // [XR][WP][LDC]: y
+  float* Fb = Yb + BUF;                             // [2][FR][NB]
+
+  const int tid = threadIdx.x;
+  const int cg = tid % NCG, pg = tid / NCG;
+  const int n0 = ((int)blockIdx.x % a.n_tiles) * NB;
+  const int rs = (int)blockIdx.x / a.n_tiles;  // range * splits + split
+  const int split = rs % a.splits, range = rs / a.splits;
+  const int i0 = range * a.images_per_range;
+  const int nimg = min(a.images, i0 + a.images_per_range) - i0;
+  const int Q = nimg * HW;                      // output pixels of the range
+  const int nq = (Q + S - 1) / S;               // steps of the walk
+  const int c_lo = split * a.chunks_per_split;  // this split's chunks
+  const int c_hi = min((Co + KC - 1) / KC, c_lo + a.chunks_per_split);
+  const int64_t P0 = (int64_t)i0 * HW;          // the range's first pixel
+  const int cq = (tid % QV) * 4;                // this thread's channels of a chunk
+  float* dx = a.dx + (int64_t)split * a.M * Ci;
+
+  // The gy buffers zero once: the padding columns are never written again.
+  for (int i = tid; i < 2 * BUF / 4; i += NTH)
+    reinterpret_cast<float4*>(Gb)[i] = zero4();
+  __syncthreads();
+
+  // This thread's vectors of a step: channels cq .. cq+3 of each chunk at
+  // buffer offset v_off of the range's pixel v_pix (-1: a zero row, -2:
+  // none). The same for every chunk of the step; a thread copies and folds
+  // exactly these.
+  int v_off[SWF_VMAX], v_pix[SWF_VMAX];
+  auto seek_copies = [&](int j) {
+    const int q0 = j * S, q1 = min(Q, q0 + S) - 1;
+    const int r0 = swf_stream_row(q0, W, H) - 1;
+    const int npp = (swf_stream_row(q1, W, H) + 2 - r0) * W;
+#pragma unroll
+    for (int k = 0; k < SWF_VMAX; ++k) {
+      const int pp = tid / QV + k * XP;
+      v_off[k] = 0;
+      v_pix[k] = -2;
+      if (pp < npp) {
+        const int lr = pp / W, w = pp - lr * W;
+        const int vr = r0 + lr;
+        const int img = vr / (H + 1), hr = vr - img * (H + 1);
+        v_off[k] = (lr * WP + w + 1) * LDC + cq;
+        v_pix[k] = hr == 0 ? -1 : (img * H + hr - 1) * W + w;
+      }
+    }
+  };
+  // This thread's output pixels of step j: the offset of the padded pixel
+  // (h - 1, w - 1) in the chunk buffer (0 past the range: their dx is
+  // neither stored nor summed).
+  int base[8];
+  auto seek_pixels = [&](int j) {
+    const int r0 = swf_stream_row(j * S, W, H) - 1;
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int q = j * S + pg + NPG * i;
+      base[i] = 0;
+      if (q < Q) {
+        const int rho = q / W;
+        base[i] = ((rho + rho / H - r0) * WP + q - rho * W) * LDC;
+      }
+    }
+  };
+  // chunk ck of the current step into buffer b: the step's gy and y rows for
+  // output channels ck*KC .. +KC-1, and the filter chunk [9 * KC, NB]
+  auto copy_chunk = [&](int ck, int b) {
+    if (SDF_ABLATE & 4) return;
+    const int ch = ck * KC + cq;
+    float* gd = Gb + b * BUF;
+#pragma unroll
+    for (int k = 0; k < SWF_VMAX; ++k) {
+      if (v_pix[k] < -1) continue;
+      const bool real = v_pix[k] >= 0 && ch < Co;
+      const int64_t src = real ? (P0 + v_pix[k]) * Co + ch : 0;
+      cp_async16(gd + v_off[k], a.gy + src, real);
+      if (real) cp_async16(Yb + v_off[k], a.y + src, true);
+    }
+    float* fd = Fb + b * FR * NB;
+#pragma unroll
+    for (int i = 0; i < F_IT; ++i) {
+      const int idx = tid + i * NTH;
+      if (FV % NTH != 0 && idx >= FV) break;
+      const int r = idx / (NB / 4), c4 = (idx - r * (NB / 4)) * 4;
+      const int tap = r / KC, co = ck * KC + r - tap * KC;
+      const bool ok = co < Co && n0 + c4 < Ci;
+      cp_async16(fd + r * NB + c4,
+                 ok ? a.wt + ((int64_t)tap * Co + co) * Ci + n0 + c4 : a.wt, ok);
+    }
+  };
+  // ge = gy + (gs1 + (2 y) gs2) in place, on this thread's vectors of real
+  // pixels and channels (never the zero rows, columns or channels past Co)
+  auto form_chunk = [&](int ck, int b) {
+    const int ch = ck * KC + cq;
+    if ((SDF_ABLATE & 1) || ch >= Co) return;
+    const float4 g1 = ld4(a.gs1 + ch), g2 = ld4(a.gs2 + ch);
+    float* gd = Gb + b * BUF;
+#pragma unroll
+    for (int k = 0; k < SWF_VMAX; ++k) {
+      if (v_pix[k] < 0) continue;
+      float4* p = reinterpret_cast<float4*>(gd + v_off[k]);
+      *p = fold4(*p, ld4(Yb + v_off[k]), g1, g2);
+    }
+  };
+
+  float acc[8][8];
+  // acc[i][c] += ge at pixel i's tap t, output channel k, times the
+  // mirrored filter's row (t, k) at this thread's 8 input channels, over the
+  // chunk in buffer b
+  auto products = [&](int b) {
+    walk_products<KC, NB, LDC>(Gb + b * BUF, Fb + b * FR * NB + cg * 4, base,
+                               WP, acc);
+  };
+
+  float s1[8], s2[8];
+#pragma unroll
+  for (int c = 0; c < 8; ++c) s1[c] = s2[c] = 0.f;
+
+  if (nq > 0 && c_lo < c_hi) {
+    seek_copies(0);
+    copy_chunk(c_lo, 0);
+  }
+  cp_async_commit();
+  int b = 0;                                    // the buffer of the chunk multiplied
+  for (int j = 0; j < nq && c_lo < c_hi; ++j) {
+    seek_pixels(j);
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int c = 0; c < 8; ++c) acc[i][c] = 0.f;
+    for (int ck = c_lo; ck < c_hi; ++ck) {
+      cp_async_wait_all();                      // this thread's copies of the chunk
+      form_chunk(ck, b);
+      __syncthreads();                          // the chunk formed; the one before done
+      if (ck + 1 < c_hi) {                      // the next chunk, into the other buffers
+        copy_chunk(ck + 1, b ^ 1);
+      } else if (j + 1 < nq) {                  // the next step's first
+        seek_copies(j + 1);
+        copy_chunk(c_lo, b ^ 1);
+      }
+      cp_async_commit();
+      if (!(SDF_ABLATE & 2)) products(b);
+      b ^= 1;
+    }
+
+    // epilogue: dx (or the split's partial dx^) straight from the
+    // registers; with the prologue the mask and inv from x, and the step's
+    // share of dinv / dshift in a fixed order
+    const int npx = min(S, Q - j * S);
+    if (!(SDF_ABLATE & 8)) {
+      const bool lo = n0 + cg * 4 < Ci, hi = n0 + NB / 2 + cg * 4 < Ci;
+      float4 iv[2] = {zero4(), zero4()}, sv[2] = {zero4(), zero4()};
+      if (AFFINE) {
+        if (lo) {
+          iv[0] = ld4(a.inv + n0 + cg * 4);
+          sv[0] = ld4(a.shift + n0 + cg * 4);
+        }
+        if (hi) {
+          iv[1] = ld4(a.inv + n0 + NB / 2 + cg * 4);
+          sv[1] = ld4(a.shift + n0 + NB / 2 + cg * 4);
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const int p = pg + NPG * i;
+        if (p >= npx) continue;
+        const int64_t m = P0 + (int64_t)j * S + p;
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          if (!(h ? hi : lo)) continue;
+          const int n = n0 + h * (NB / 2) + cg * 4;
+          float d[4] = {acc[i][4 * h], acc[i][4 * h + 1], acc[i][4 * h + 2],
+                        acc[i][4 * h + 3]};
+          if (AFFINE) {
+            const float4 x4 = ld4(a.x + m * Ci + n);
+#pragma unroll
+            for (int k = 0; k < 4; ++k) {
+              const float xv = lane4(x4, k), ivk = lane4(iv[h], k);
+              const float xa = __fadd_rn(__fmul_rn(xv, ivk), lane4(sv[h], k));
+              const float dxa = xa > 0.f ? d[k] : 0.f;
+              d[k] = __fmul_rn(dxa, ivk);
+              s1[4 * h + k] = __fadd_rn(s1[4 * h + k], __fmul_rn(xv, dxa));
+              s2[4 * h + k] = __fadd_rn(s2[4 * h + k], dxa);
+            }
+          }
+          *reinterpret_cast<float4*>(dx + m * Ci + n) =
+              make_float4(d[0], d[1], d[2], d[3]);
+        }
+      }
+    } else if (H < 0) {                         // never true: keeps the products alive
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int c = 0; c < 8; ++c) dx[i * 8 + c] = acc[i][c];
+    }
+  }
+  if (!AFFINE) return;
+  cp_async_wait_all();
+  __syncthreads();                              // every product read: reuse the filter buffers
+
+  // the range's partial row: the NPG pixel groups in order
+  float* red1 = Fb;                             // [NPG][NB]
+  float* red2 = Fb + NPG * NB;
+#pragma unroll
+  for (int c = 0; c < 4; ++c) {
+    red1[pg * NB + cg * 4 + c] = s1[c];
+    red1[pg * NB + NB / 2 + cg * 4 + c] = s1[4 + c];
+    red2[pg * NB + cg * 4 + c] = s2[c];
+    red2[pg * NB + NB / 2 + cg * 4 + c] = s2[4 + c];
+  }
+  __syncthreads();
+  if (tid < NB && n0 + tid < Ci) {
+    float v1 = 0.f, v2 = 0.f;
+    for (int g = 0; g < NPG; ++g) {
+      v1 += red1[g * NB + tid];
+      v2 += red2[g * NB + tid];
+    }
+    a.part1[(int64_t)range * Ci + n0 + tid] = v1;
+    a.part2[(int64_t)range * Ci + n0 + tid] = v2;
+  }
+}
+
+// The K split's second pass: dx^ = the splits' partials [splits][M][Ci]
+// summed in split order, then (AFFINE) the mask, dx = f32(dxa * inv) and one
+// partial row of dinv / dshift per block of SDF_SUM_ROWS positions (4 groups
+// of rows in a fixed order). Block (x: positions, y: 256 channels).
+template <bool AFFINE>
+__global__ void __launch_bounds__(256)
+data_split_sum_f32_kernel(const float* __restrict__ part, int splits,
+                          int64_t M, int Ci, const float* __restrict__ x,
+                          const float* __restrict__ inv,
+                          const float* __restrict__ shift,
+                          float* __restrict__ dx, float* __restrict__ part1,
+                          float* __restrict__ part2) {
+  __shared__ float red1[4][256], red2[4][256];
+  const int tid = threadIdx.x, g = tid / 64;
+  const int c = ((int)blockIdx.y * 64 + tid % 64) * 4;
+  const bool ok = c < Ci;
+  float4 iv = zero4(), sv = zero4();
+  if (AFFINE && ok) {
+    iv = ld4(inv + c);
+    sv = ld4(shift + c);
+  }
+  float s1[4] = {0.f, 0.f, 0.f, 0.f}, s2[4] = {0.f, 0.f, 0.f, 0.f};
+  const int64_t m0 = (int64_t)blockIdx.x * SDF_SUM_ROWS;
+  for (int p = g; ok && p < SDF_SUM_ROWS && m0 + p < M; p += 4) {
+    const int64_t m = m0 + p;
+    float4 d = ld4(part + m * Ci + c);
+    for (int k = 1; k < splits; ++k) {
+      const float4 e = ld4(part + ((int64_t)k * M + m) * Ci + c);
+      d = make_float4(__fadd_rn(d.x, e.x), __fadd_rn(d.y, e.y),
+                      __fadd_rn(d.z, e.z), __fadd_rn(d.w, e.w));
+    }
+    if (AFFINE) {
+      const float4 x4 = ld4(x + m * Ci + c);
+      float dv[4] = {d.x, d.y, d.z, d.w};
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const float xv = lane4(x4, k), ivk = lane4(iv, k);
+        const float xa = __fadd_rn(__fmul_rn(xv, ivk), lane4(sv, k));
+        const float dxa = xa > 0.f ? dv[k] : 0.f;
+        dv[k] = __fmul_rn(dxa, ivk);
+        s1[k] = __fadd_rn(s1[k], __fmul_rn(xv, dxa));
+        s2[k] = __fadd_rn(s2[k], dxa);
+      }
+      d = make_float4(dv[0], dv[1], dv[2], dv[3]);
+    }
+    *reinterpret_cast<float4*>(dx + m * Ci + c) = d;
+  }
+  if (!AFFINE) return;
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    red1[g][(tid % 64) * 4 + k] = s1[k];
+    red2[g][(tid % 64) * 4 + k] = s2[k];
+  }
+  __syncthreads();
+  const int col = (int)blockIdx.y * 256 + tid;
+  if (col < Ci) {
+    float v1 = 0.f, v2 = 0.f;
+    for (int r = 0; r < 4; ++r) {
+      v1 += red1[r][tid];
+      v2 += red2[r][tid];
+    }
+    part1[(int64_t)blockIdx.x * Ci + col] = v1;
+    part2[(int64_t)blockIdx.x * Ci + col] = v2;
+  }
+}
+
+template <int NCG, int NPG, int KC, bool AFFINE>
+int launch_spatial_data_f32(const SpatialDataF32Args& a, int blocks,
+                            cudaStream_t stream) {
+  constexpr int NTH = NPG * NCG;
+  const size_t smem = sdf_smem(a.W, a.XR, KC, 8 * NCG);
+  if (smem > (size_t)SWF_SMEM_MAX || a.XR * a.W > SWF_VMAX * (NTH / (KC / 4)))
+    return (int)cudaErrorInvalidValue;
+  auto kern = spatial_data_f32_kernel<NCG, NPG, KC, AFFINE>;
+  cudaError_t e = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  kern<<<blocks, NTH, smem, stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
+// The layouts f32_spatial_data_plan (ops/conv_bn.py) can ask for: (N tile,
+// K chunk) -> NCG = N tile / 8 channel groups, NPG pixel groups (8 warps).
+template <int NCG, int NPG, int KC>
+int spatial_data_f32_either(bool affine, SpatialDataF32Args a, int blocks,
+                            cudaStream_t s) {
+  a.XR = swf_rows(a.H, a.W, 8 * NPG);
+  return affine ? launch_spatial_data_f32<NCG, NPG, KC, true>(a, blocks, s)
+                : launch_spatial_data_f32<NCG, NPG, KC, false>(a, blocks, s);
+}
+
 }  // namespace
 
 // Spatial forward unit, fp32, the per-tap gather (the route of images too
@@ -2086,5 +2534,101 @@ extern "C" int m3f_spatial_filter_f32(
   const int64_t sblocks = (E + 255) / 256;
   slice_sum_f32_kernel<<<(unsigned)(sblocks < 4096 ? sblocks : 4096), 256, 0, s>>>(
       (const float*)part, slices, E, (float*)dw);
+  return (int)cudaGetLastError();
+}
+
+// Spatial data gradient, fp32, the row walk. gy / y [B, T, H, W, Co],
+// gs1 / gs2 [Co], wt [9 * Co, Ci] (row tap * Co + co = W[8 - tap, ci, co]:
+// the filter's taps mirrored, each transposed), x [B, T, H, W, Ci] and
+// inv / shift [Ci] with the prologue (all three null without), dx
+// [B, T, H, W, Ci], dinv / dshift [Ci] and part a scratch of 2 * rows * Ci
+// floats with the prologue (else null; rows = ranges with one split, else
+// ceil(M / 64)), dxpart a scratch of splits * M * Ci floats when splits > 1
+// (else null); ranges of per images of the B * T; nb (64 or 128) input
+// channels a block (a step of 256 or 128 pixels), kc (16 or 8) output
+// channels a chunk, the ceil(Co / kc) chunks cut into splits of
+// ceil(chunks / splits), none empty; all fp32, contiguous, 16-byte aligned,
+// Ci and Co multiples of 8. Returns a cudaError_t (cudaErrorInvalidValue
+// where the layout's buffers do not fit).
+extern "C" int m3f_spatial_data_f32(
+    const void* gy, const void* y, const void* gs1, const void* gs2,
+    const void* wt, const void* x, const void* inv, const void* shift,
+    void* dx, void* dinv, void* dshift, void* part, void* dxpart, int B,
+    int T, int H, int W, int Ci, int Co, int nb, int kc, int per, int splits,
+    void* stream) {
+  const int64_t images = (int64_t)B * T;
+  const int64_t M = images * H * W;
+  const bool affine = x != nullptr;
+  const int chunks = (kc > 0) ? (Co + kc - 1) / kc : 0;
+  const int cps = splits > 0 ? (chunks + splits - 1) / splits : 0;
+  if (per < 1 || splits < 1 || Ci % 8 != 0 || Co % 8 != 0 || Ci == 0 ||
+      Co == 0 || (nb != 64 && nb != 128) || (kc != 16 && kc != 8) ||
+      (inv == nullptr) == affine || (shift == nullptr) == affine ||
+      (dinv == nullptr) == affine || (dshift == nullptr) == affine ||
+      (part == nullptr) == affine || (dxpart == nullptr) != (splits == 1) ||
+      (splits - 1) * cps >= chunks || (int64_t)per * H * W >= ((int64_t)1 << 31) ||
+      images >= ((int64_t)1 << 31))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (M == 0) {
+    if (!affine) return 0;
+    cudaMemsetAsync(dinv, 0, sizeof(float) * Ci, s);
+    cudaMemsetAsync(dshift, 0, sizeof(float) * Ci, s);
+    return (int)cudaGetLastError();
+  }
+  const int64_t ranges = (images + per - 1) / per;
+  const int n_tiles = (Ci + nb - 1) / nb;
+  const int64_t blocks = ranges * splits * n_tiles;
+  const int64_t sum_rows = (M + SDF_SUM_ROWS - 1) / SDF_SUM_ROWS;
+  if (blocks >= ((int64_t)1 << 31) || sum_rows >= ((int64_t)1 << 31))
+    return (int)cudaErrorInvalidValue;
+  const bool walk_affine = affine && splits == 1;   // the epilogue in the walk
+  const int64_t rows = splits == 1 ? ranges : sum_rows;
+  SpatialDataF32Args a{};
+  a.gy = (const float*)gy;
+  a.y = (const float*)y;
+  a.gs1 = (const float*)gs1;
+  a.gs2 = (const float*)gs2;
+  a.wt = (const float*)wt;
+  a.x = walk_affine ? (const float*)x : nullptr;
+  a.inv = walk_affine ? (const float*)inv : nullptr;
+  a.shift = walk_affine ? (const float*)shift : nullptr;
+  a.dx = splits == 1 ? (float*)dx : (float*)dxpart;
+  a.part1 = affine ? (float*)part : nullptr;
+  a.part2 = affine ? (float*)part + rows * Ci : nullptr;
+  a.M = M;
+  a.H = H;
+  a.W = W;
+  a.Ci = Ci;
+  a.Co = Co;
+  a.images = (int)images;
+  a.images_per_range = per;
+  a.n_tiles = n_tiles;
+  a.splits = splits;
+  a.chunks_per_split = cps;
+  int err;
+  if (nb == 64)
+    err = kc == 16 ? spatial_data_f32_either<8, 32, 16>(walk_affine, a, (int)blocks, s)
+                   : spatial_data_f32_either<8, 32, 8>(walk_affine, a, (int)blocks, s);
+  else
+    err = kc == 16 ? spatial_data_f32_either<16, 16, 16>(walk_affine, a, (int)blocks, s)
+                   : spatial_data_f32_either<16, 16, 8>(walk_affine, a, (int)blocks, s);
+  if (err != 0) return err;
+  if (splits > 1) {
+    const dim3 grid((unsigned)sum_rows, (Ci + 255) / 256);
+    if (affine)
+      data_split_sum_f32_kernel<true><<<grid, 256, 0, s>>>(
+          (const float*)dxpart, splits, M, Ci, (const float*)x,
+          (const float*)inv, (const float*)shift, (float*)dx, a.part1, a.part2);
+    else
+      data_split_sum_f32_kernel<false><<<grid, 256, 0, s>>>(
+          (const float*)dxpart, splits, M, Ci, nullptr, nullptr, nullptr,
+          (float*)dx, nullptr, nullptr);
+    cudaError_t e = cudaGetLastError();
+    if (e != cudaSuccess) return (int)e;
+  }
+  if (!affine) return 0;
+  colsum_f32_kernel<<<(Ci + 31) / 32, dim3(32, 32), 0, s>>>(
+      a.part1, a.part2, (int)rows, Ci, (float*)dinv, (float*)dshift);
   return (int)cudaGetLastError();
 }

@@ -1303,6 +1303,133 @@ def f32_spatial_filter_plan(b: int, t: int, h: int, w: int, ci: int, co: int,
     return None
 
 
+# The fp32 spatial data gradient's row walk (spatial_data_f32_kernel in
+# conv_bn_f32.cu): step/8 x n_tile/8 threads, each 8 pixels x 8 input
+# channels, take a step of `step` output pixels x `n_tile` input channels,
+# K in chunks of `k_chunk` output channels for all nine taps, ge folded in
+# place once per staged pixel; at most 8 warps a block, so tiles of 64 take
+# steps of 256, tiles of 128 steps of 128 (256 threads both). The ranges of
+# images and the K splits are chosen by a model of the walk's time: one
+# chunk of a full step (2·9·k_chunk·step·n_tile FLOP) at the rate a SM
+# reached in this walk for its N tile (measured, PERF.md §6: tiles of 64
+# read B in one shared-memory wavefront a load, tiles of 128 in two), and a
+# split's extra traffic (its partial dx̂ written and read) at _SDF_SPLIT_BPS
+# plus its second launch (_SDF_SPLIT_US)
+_SDF_STEPS = {64: 256, 128: 128}    # N tile -> output pixels a step (8·NPG)
+_SDF_N_TILES = (64, 128)   # input channels a block, preferred on a tie
+_SDF_K_CHUNKS = (16, 8)    # output channels a chunk, preferred first
+_SDF_SUM_ROWS = 64         # positions a block of the split sum (SDF_SUM_ROWS)
+_SDF_SM_FLOPS = {64: 0.315e12, 128: 0.285e12}   # fp32 FFMA rate of a SM
+_SDF_SPLIT_BPS = 2.5e12    # the card's memory rate on the split's partials
+_SDF_SPLIT_US = 10.0       # the split sum's launch and its sums' colsum
+
+
+def _spatial_data_f32_smem(w: int, rows: int, k_chunk: int, n_tile: int) -> int:
+    """A block's shared memory (sdf_smem in conv_bn_f32.cu): two gy / ge
+    chunk buffers and one y buffer of ``rows`` rows of w + 2 pixels at a
+    stride of k_chunk + 4 floats, two filter chunks [9·k_chunk, n_tile]."""
+    return 4 * (3 * rows * (w + 2) * (k_chunk + 4) + 2 * 9 * k_chunk * n_tile)
+
+
+class F32SpatialDataPlan(NamedTuple):
+    """How the fp32 spatial data gradient's row walk cuts its work: ranges
+    of ``images_per_range`` whole (b, t) images, each walked as one stream
+    of output pixels in steps of ``step`` by ``threads`` threads, K in
+    ``chunks`` chunks of ``k_chunk`` output channels for all nine taps over
+    buffers of ``buf_rows`` rows (the rows one step reads), cut into
+    ``k_splits`` splits of ``chunks_per_split``; ``n_tiles`` tiles of
+    ``n_tile`` input channels (ge is formed once per tile and step);
+    ``blocks`` = ranges x splits x N tiles, one wave. With one split each
+    range writes one partial row of dinv / dshift; with more each split
+    writes a partial dx̂ [M, C_in] (``part_bytes``) and a second pass sums
+    them in split order, one partial row per _SDF_SUM_ROWS positions
+    (``part_rows`` either way); ``smem_bytes`` of shared memory a block;
+    ``model_us`` the modelled time of the launch."""
+    step: int
+    n_tile: int
+    k_chunk: int
+    threads: int
+    buf_rows: int
+    images: int
+    images_per_range: int
+    ranges: int
+    n_tiles: int
+    chunks: int
+    k_splits: int
+    chunks_per_split: int
+    blocks: int
+    part_rows: int
+    part_bytes: int
+    smem_bytes: int
+    model_us: float
+
+    def images_of(self, r: int) -> range:
+        """The images (b * T + t) of range ``r``, as the kernel takes them."""
+        return range(r * self.images_per_range,
+                     min(self.images, (r + 1) * self.images_per_range))
+
+    def chunks_of(self, s: int) -> range:
+        """The chunks of K split ``s``, as the kernel takes them."""
+        return range(s * self.chunks_per_split,
+                     min(self.chunks, (s + 1) * self.chunks_per_split))
+
+
+def f32_spatial_data_plan(b: int, t: int, h: int, w: int, ci: int, co: int,
+                          sms: int, n_tile: Optional[int] = None,
+                          k_chunk: Optional[int] = None,
+                          k_splits: Optional[int] = None
+                          ) -> Optional[F32SpatialDataPlan]:
+    """The fp32 spatial data gradient's tiling on a card of ``sms``
+    multiprocessors: for each N tile of _SDF_N_TILES, the first chunk of
+    _SDF_K_CHUNKS whose step's rows a thread's copies cover and whose
+    buffers fit a block's shared memory; then for each count of K splits
+    the most ranges of whole images that keep one wave (``sms`` blocks),
+    and of all these the least modelled time (steps of the longest range x
+    chunks of a split x a chunk's time, plus a split's traffic), the first
+    N tile and then fewer splits on a tie. ``n_tile`` / ``k_chunk`` /
+    ``k_splits`` ask for one layout (the sweep's and the tests'). None
+    where no layout fits: the wrapper then takes the per-tap gather
+    (``f32_bwd_data_plan``)."""
+    images, m = b * t, b * t * h * w
+    best = None
+    for nb in (n_tile,) if n_tile else _SDF_N_TILES:
+        step = _SDF_STEPS[nb]
+        rows = spatial_ring_rows(h, w, step, 1)
+        threads = step // 8 * nb // 8
+        for kc in (k_chunk,) if k_chunk else _SDF_K_CHUNKS:
+            smem = _spatial_data_f32_smem(w, rows, kc, nb)
+            if rows * w > _SWF_VMAX * threads // (kc // 4) \
+                    or smem > _SMEM_BLOCK_MAX:
+                continue
+            n_tiles, chunks = _cdiv(ci, nb), _cdiv(co, kc)
+            chunk_us = 2 * 9 * kc * step * nb / _SDF_SM_FLOPS[nb] * 1e6
+            for want in (k_splits,) if k_splits else range(1, chunks + 1):
+                cps = _cdiv(chunks, want)
+                splits = _cdiv(chunks, cps)            # no split empty
+                ranges_max = sms // (n_tiles * splits)
+                if k_splits is None and ranges_max < 1:
+                    break
+                per = _cdiv(images, max(1, min(images, ranges_max)))
+                if per * h * w >= 2 ** 31:
+                    return None
+                ranges = _cdiv(images, per)
+                us = _cdiv(per * h * w, step) * cps * chunk_us
+                if splits > 1:
+                    us += (2 * splits * m * ci * 4 / _SDF_SPLIT_BPS * 1e6
+                           + _SDF_SPLIT_US)
+                key = (us, splits)
+                if best is None or key < best[0]:
+                    rows_part = ranges if splits == 1 \
+                        else _cdiv(m, _SDF_SUM_ROWS)
+                    best = (key, F32SpatialDataPlan(
+                        step, nb, kc, threads, rows, images, per, ranges,
+                        n_tiles, chunks, splits, cps,
+                        ranges * splits * n_tiles, rows_part,
+                        4 * splits * m * ci if splits > 1 else 0, smem, us))
+            break
+    return None if best is None else best[1]
+
+
 def f32_bwd_data_filter(w: torch.Tensor, kind: str) -> torch.Tensor:
     """The fp32 data gradient's B operand, [taps·C_out, C_in]: row
     tap·C_out + co holds W[taps - 1 - tap, :, co] (the taps mirrored, each
@@ -1314,9 +1441,12 @@ def f32_bwd_data_filter(w: torch.Tensor, kind: str) -> torch.Tensor:
 
 
 def _conv_unit_bwd_data_f32(x, w, inv, shift, y, gy, gs1, gs2, kind):
-    """The fp32 data gradient on the card (C_in, C_out multiples of 8): one
-    launch of bwd_data_f32_kernel plus, with the prologue, the fixed-order
-    sum of its partial rows of dinv / dshift."""
+    """The fp32 data gradient on the card (C_in, C_out multiples of 8): the
+    spatial row walk (spatial_data_f32_kernel, ``f32_spatial_data_plan``,
+    with a K split its second pass) or, for the temporal kind and for images
+    too wide for the walk, the per-tap gather (bwd_data_f32_kernel,
+    ``f32_bwd_data_plan``); plus, with the prologue, the fixed-order sum of
+    the partial rows of dinv / dshift."""
     b, t, h, wd, ci = x.shape
     co = gy.shape[-1]
     affine = inv is not None
@@ -1328,21 +1458,33 @@ def _conv_unit_bwd_data_f32(x, w, inv, shift, y, gy, gs1, gs2, kind):
         xa, inv, shift = (_aligned16(x), _aligned16(inv.float()),
                           _aligned16(shift.float()))
     sms = torch.cuda.get_device_properties(x.device).multi_processor_count
-    plan = f32_bwd_data_plan(b, t, h, wd, ci, sms)
+    walk = f32_spatial_data_plan(b, t, h, wd, ci, co, sms) \
+        if kind == "spatial" else None
+    plan = walk or f32_bwd_data_plan(b, t, h, wd, ci, sms)
+    rows = walk.part_rows if walk is not None else plan.ranges
     dx = torch.empty(b, t, h, wd, ci, dtype=torch.float32, device=x.device)
     dinv = dshift = part = None
     if affine:
         dinv = torch.empty(ci, dtype=torch.float32, device=x.device)
         dshift = torch.empty(ci, dtype=torch.float32, device=x.device)
-        part = torch.empty(2 * plan.ranges * ci, dtype=torch.float32,
-                           device=x.device)
+        part = torch.empty(2 * rows * ci, dtype=torch.float32, device=x.device)
     ptr = lambda v: None if v is None else v.data_ptr()
-    with torch.cuda.device(x.device):
-        err = cuda_lib.library("conv_bn_f32").m3f_conv_unit_bwd_data_f32(
-            gy.data_ptr(), y.data_ptr(), gs1.data_ptr(), gs2.data_ptr(),
+    ptrs = (gy.data_ptr(), y.data_ptr(), gs1.data_ptr(), gs2.data_ptr(),
             wt.data_ptr(), ptr(xa), ptr(inv), ptr(shift), dx.data_ptr(),
-            ptr(dinv), ptr(dshift), ptr(part), 0 if kind == "spatial" else 1,
-            b, t, h, wd, ci, co, plan.tiles_per_range, cuda_lib.stream_ptr(x))
+            ptr(dinv), ptr(dshift), ptr(part))
+    lib = cuda_lib.library("conv_bn_f32")
+    with torch.cuda.device(x.device):
+        if walk is not None:
+            dxpart = torch.empty(walk.part_bytes // 4, dtype=torch.float32,
+                                 device=x.device) if walk.k_splits > 1 else None
+            err = lib.m3f_spatial_data_f32(
+                *ptrs, ptr(dxpart), b, t, h, wd, ci, co, walk.n_tile,
+                walk.k_chunk, walk.images_per_range, walk.k_splits,
+                cuda_lib.stream_ptr(x))
+        else:
+            err = lib.m3f_conv_unit_bwd_data_f32(
+                *ptrs, 0 if kind == "spatial" else 1, b, t, h, wd, ci, co,
+                plan.tiles_per_range, cuda_lib.stream_ptr(x))
     cuda_lib.check(err, f"conv_unit_bwd_data {kind} fp32 kernel")
     cuda_lib.launches[f"conv_{kind}_bwd_data_f32"] += 1
     return dx, dinv, dshift

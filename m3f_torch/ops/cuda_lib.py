@@ -81,7 +81,8 @@ SIGNATURES = {
                                                      I, I, I, I, I, I, I, I,
                                                      I, P],
                     "m3f_spatial_filter_f32": [P, P, P, P, P, P, P, P, P, P, I,
-                                               I, I, I, I, I, I, I, I, I, P]},
+                                               I, I, I, I, I, I, I, I, I, P],
+                    "m3f_spatial_data_f32": [P] * 13 + [I] * 10 + [P]},
     "packed_conv": {"m3f_packed_ablate": [P, P, P, I, I, I, I, I, I, I, I, I,
                                           I, I, I, I, P],
                     "m3f_packed_conv_tma": [P, P, P, I, I, I, I, I, I, I, I, I,

@@ -111,6 +111,21 @@ in the full-width ``fusion`` train step (32 clips, BN prologue on), beside:
   (1), the products (2), the copies (4), the epilogue (8), the copies alone
   (3: no forming, no products), the products alone (5), the forming alone
   (6), and the walk alone (15); a device copy of x, gy and y;
+- ``--kind spatial_data_f32``: ``conv_unit_bwd_data`` of the spatial unit
+  at fp32 x (the row walk ``spatial_data_f32_kernel`` in
+  ``csrc/conv_bn_f32.cu``, with its K split's second pass) at the four
+  spatial units of the train step (32 clips) and at a stage-1 unit of
+  112x112 images, with and without the prologue, every time a device time:
+  in alternating rounds the wrapper, the planner's layout through the C
+  entry twice, every layout the plan can choose (N tiles of 128 and 64, K
+  chunks of 16 and 8, each with the plan's split for it) and the plan's
+  layout with its K whole, the per-tap gather (``bwd_data_f32_kernel``,
+  the first design and the route of images too wide for the walk) through
+  this source's entry and, with ``--parent``, through an earlier
+  ``conv_bn_f32.cu``'s, and cuDNN's fp32 ``conv3d_input`` on ge already
+  formed (TF32 off); ablations built with ``-DSDF_ABLATE``: without
+  forming ge (1), the products (2), the copies (4), the epilogue (8), and
+  the walk alone (15); a device copy of gy, y and x;
 - ``--kind mel``: the mel FFT kernel at the serving path's shapes (static
   and per-row hop), and the DFT-product kernel (n_fft 400) at the same
   rows, against their plain versions, and beside ``torch.stft`` + the mel
@@ -160,11 +175,15 @@ Run on a machine with an NVIDIA GPU, from the repository root:
     python -m m3f_torch.scripts.filter_sweep --kind spatial_fwd --check
     python -m m3f_torch.scripts.filter_sweep --kind spatial_fwd \
         --parent build/parent/conv_bn.cu
-    python -m m3f_torch.scripts.filter_sweep --kind spatial_fwd_f32 --check
+    python -m m3f_torch.scripts.filter_sweep --kind spatial_fwd_f32 --check \
+        [--parent build/parent/conv_bn_f32.cu]
     python -m m3f_torch.scripts.filter_sweep --kind spatial_fwd_f32 \
         --parent build/parent/conv_bn_f32.cu
     python -m m3f_torch.scripts.filter_sweep --kind spatial_filter_f32 --check
     python -m m3f_torch.scripts.filter_sweep --kind spatial_filter_f32 \
+        [--reps 10] [--parent build/parent/conv_bn_f32.cu]
+    python -m m3f_torch.scripts.filter_sweep --kind spatial_data_f32 --check
+    python -m m3f_torch.scripts.filter_sweep --kind spatial_data_f32 \
         [--reps 10] [--parent build/parent/conv_bn_f32.cu]
     python -m m3f_torch.scripts.filter_sweep --kind temporal_fwd_f32 --check
     python -m m3f_torch.scripts.filter_sweep --kind temporal_fwd_f32 \
@@ -186,8 +205,9 @@ prints what ``ptxas`` says of the kernel (registers, spills, shared memory)
 and holds the kernel once against the plain version at each shape and at a
 few small ones (``temporal_data``: at every layout the entry point takes;
 ``spatial_data``: at every step; ``spatial_fwd``: at every layout, filter
-resident and streamed; ``spatial_fwd_f32``, ``temporal_fwd_f32``, ``spatial_filter_f32``: at
-every layout, and the spatial per-tap gathers;
+resident and streamed; ``spatial_fwd_f32``, ``temporal_fwd_f32``,
+``spatial_filter_f32``, ``spatial_data_f32``: at every layout, and the
+spatial per-tap gathers;
 ``temporal_fwd``: at every layout; ``gru``: on both routes at the edge
 shapes too, and at every layout; ``packed`` and
 ``packed_ablate``: every layout at small, edge and full shapes, and an
@@ -267,12 +287,15 @@ def resources(kind: str) -> None:
     (``<kind>_filter_kernel``, ``temporal_data_kernel``,
     ``spatial_data_kernel``, ``spatial_fwd_kernel``, ``temporal_fwd_kernel``;
     in conv_bn_f32.cu ``spatial_fwd_f32_kernel``,
-    ``temporal_fwd_f32_kernel`` and ``spatial_filter_f32_kernel``;
+    ``temporal_fwd_f32_kernel``, ``spatial_filter_f32_kernel``,
+    ``spatial_data_f32_kernel`` and ``data_split_sum_f32_kernel``;
     in melspec.cu ``log_mel_kernel`` and ``log_mel_dft_kernel``; in gru.cu
     ``gru_cluster_kernel`` and ``gru_kernel``)."""
     kernels = {"spatial_fwd": ("spatial_fwd_kernel",),
                "spatial_fwd_f32": ("spatial_fwd_f32_kernel",),
                "spatial_filter_f32": ("spatial_filter_f32_kernel",),
+               "spatial_data_f32": ("spatial_data_f32_kernel",
+                                    "data_split_sum_f32_kernel"),
                "temporal_fwd_f32": ("temporal_fwd_f32_kernel",),
                "temporal_fwd": ("temporal_fwd_kernel",),
                "mel": ("log_mel",),
@@ -281,7 +304,8 @@ def resources(kind: str) -> None:
                else f"{kind}_filter_kernel",))
     source = {"mel": "melspec", "gru": "gru", "spatial_fwd_f32": "conv_bn_f32",
               "temporal_fwd_f32": "conv_bn_f32",
-              "spatial_filter_f32": "conv_bn_f32"}.get(kind, "conv_bn")
+              "spatial_filter_f32": "conv_bn_f32",
+              "spatial_data_f32": "conv_bn_f32"}.get(kind, "conv_bn")
     log = subprocess.run(
         [cuda_lib._nvcc(), *cuda_lib.NVCC_FLAGS, "-Xptxas", "-v", "-o",
          "/dev/null", *(["-DTD_TRIALS"] if kind == "temporal_data" else []),
@@ -1353,12 +1377,14 @@ def _f32_fwd_inputs(spec: F32FwdKind, xs, co, dev, g):
     return x, w, w.reshape(spec.taps * ci, co), inv, shift
 
 
-def check_fwd_f32(kind: str) -> None:
+def check_fwd_f32(kind: str, parent: Optional[str] = None) -> None:
     """ptxas' resource lines of the kind's fp32 walk, then the walk against
     the plain version (TF32 off), with and without the prologue: the
     wrapper once at each small and serving shape (and whether a second call
     repeats y, s1 and s2 bit for bit), every layout of the kind that fits
-    at each shape, and, for the spatial kind, the per-tap gather."""
+    at each shape, and, for the spatial kind, the per-tap gather; with
+    ``parent`` (a source with the same C entry) whether that source's walk
+    gives the same y, s1 and s2 bit for bit at the planner's layout."""
     spec = F32_FWD[kind]
     dev = resolve_device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1367,6 +1393,12 @@ def check_fwd_f32(kind: str) -> None:
     cuda_lib.build(["conv_bn_f32"])
     lib = cuda_lib.library("conv_bn_f32")
     main = getattr(lib, spec.entry)
+    old = None
+    if parent:
+        old = build_variants({"parent_walk": ""}, spec.entry,
+                             {"parent_walk": parent},
+                             cuda_lib.SIGNATURES["conv_bn_f32"][spec.entry])[
+                                 "parent_walk"]
     g = torch.Generator(device=dev).manual_seed(spec.seed)
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     for xs, co in spec.check_shapes:
@@ -1394,6 +1426,12 @@ def check_fwd_f32(kind: str) -> None:
                                         wk, *a)
                 torch.cuda.synchronize()
                 row[key]["gather"] = _fwd_errors(out, ref)
+                del out
+            if old is not None:
+                out = spec.launch(old, x, wk, *a)
+                torch.cuda.synchronize()
+                row[key]["parent_bit_equal"] = None if out is None else all(
+                    torch.equal(p, q) for p, q in zip(out, got))
                 del out
             del got, again, ref
             torch.cuda.empty_cache()
@@ -1718,6 +1756,252 @@ def sweep_filter_f32(reps: int, parent: Optional[str]) -> None:
             row["share_of_bound"] = row["bound_ms"] / row["ms"]
             print(json.dumps(row), flush=True)
             del xn, gn, bx, by, bg
+            torch.cuda.empty_cache()
+        del x, y, gy
+        torch.cuda.empty_cache()
+
+
+# --- the fp32 spatial data gradient: the row walk ----------------------------
+
+# small shapes (x shape, C_out) of the walk: C_out 40 (chunks of 16, 16 and
+# 8), 129 7x7 images four a range with a one-image last range at C_in 200
+# (four N tiles of 64, the last masked), C_out 200 at C_in 40 (a masked
+# tile of 64), 1x1 images several a step (N tiles of 128, 8-channel chunks,
+# K split), C_out 1152 at 7x7 images, images too wide for the walk (the
+# gather)
+SDF_SMALL = (((3, 5, 7, 9, 24), 40), ((1, 129, 7, 7, 200), 40),
+             ((2, 3, 4, 7, 40), 200), ((3, 100, 1, 1, 16), 72),
+             ((2, 16, 7, 7, 64), 1152), ((1, 2, 2, 600, 16), 16))
+SDF_ABLATIONS = {"no_forming": 1, "no_products": 2, "no_copies": 4,
+                 "no_epilogue": 8, "walk_only": 15}
+SDF_ENTRY = "m3f_spatial_data_f32"
+GATHER_DATA_F32_ENTRY = "m3f_conv_unit_bwd_data_f32"
+# every layout the plan can take (N tile, K chunk), each with the plan's
+# split for it, and the plan's layout with its K whole
+SDF_LAYOUTS = {**{f"layout_{nb}x{kc}": (nb, kc, None)
+                  for nb in conv_bn._SDF_N_TILES for kc in conv_bn._SDF_K_CHUNKS},
+               "one_split": (None, None, 1)}
+
+
+def sdf_inputs(xs, co, dev, g):
+    """fp32 x, w [3, 3, C_in, C_out], inv, shift, y, gy, gs1, gs2."""
+    x, inv, shift, y, gy, gs1, gs2 = sff_inputs(xs, co, dev, g)
+    ci = xs[-1]
+    w = (torch.rand(3, 3, ci, co, device=dev, generator=g) * 2 - 1) / (9 * ci) ** 0.5
+    return x, w, inv, shift, y, gy, gs1, gs2
+
+
+def launch_sdf(fn, x, w, inv, shift, y, gy, gs1, gs2, layout=None):
+    """One call of a build's ``m3f_spatial_data_f32`` with the planner's
+    layout or ``layout`` = (N tile, K chunk, K splits; None: the plan's)
+    (what ``conv_unit_bwd_data`` does for fp32 x, minus its checks); ``inv``
+    None leaves the prologue out. None where no such layout fits."""
+    b, t, h, wd, ci = x.shape
+    co = gy.shape[-1]
+    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+    nb, kc, splits = layout or (None, None, None)
+    if layout is not None and nb is None:       # the plan's layout, asked splits
+        p = conv_bn.f32_spatial_data_plan(b, t, h, wd, ci, co, sms)
+        if p is None:
+            return None
+        nb, kc = p.n_tile, p.k_chunk
+    plan = conv_bn.f32_spatial_data_plan(b, t, h, wd, ci, co, sms, nb, kc,
+                                         splits)
+    if plan is None:
+        return None
+    wt = conv_bn.f32_bwd_data_filter(w, "spatial").contiguous()
+    dx = torch.empty_like(x)
+    affine = inv is not None
+    dinv = torch.empty(ci, device=x.device) if affine else None
+    dshift = torch.empty(ci, device=x.device) if affine else None
+    part = torch.empty(2 * plan.part_rows * ci, device=x.device) if affine else None
+    dxpart = torch.empty(plan.part_bytes // 4, device=x.device) \
+        if plan.k_splits > 1 else None
+    ptr = lambda v: None if v is None else v.data_ptr()
+    err = fn(gy.data_ptr(), y.data_ptr(), gs1.data_ptr(), gs2.data_ptr(),
+             wt.data_ptr(), x.data_ptr() if affine else None, ptr(inv),
+             ptr(shift), dx.data_ptr(), ptr(dinv), ptr(dshift), ptr(part),
+             ptr(dxpart), b, t, h, wd, ci, co, plan.n_tile, plan.k_chunk,
+             plan.images_per_range, plan.k_splits, cuda_lib.stream_ptr(x))
+    cuda_lib.check(err, f"fp32 spatial data sweep, {layout}")
+    return dx, dinv, dshift
+
+
+def launch_data_gather_f32(fn, x, w, inv, shift, y, gy, gs1, gs2):
+    """One call of a source's ``m3f_conv_unit_bwd_data_f32`` (the per-tap
+    gather, bwd_data_f32_kernel) for the spatial kind with
+    ``f32_bwd_data_plan``'s tiling."""
+    b, t, h, wd, ci = x.shape
+    co = gy.shape[-1]
+    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+    plan = conv_bn.f32_bwd_data_plan(b, t, h, wd, ci, sms)
+    wt = conv_bn.f32_bwd_data_filter(w, "spatial").contiguous()
+    dx = torch.empty_like(x)
+    affine = inv is not None
+    dinv = torch.empty(ci, device=x.device) if affine else None
+    dshift = torch.empty(ci, device=x.device) if affine else None
+    part = torch.empty(2 * plan.ranges * ci, device=x.device) if affine else None
+    ptr = lambda v: None if v is None else v.data_ptr()
+    err = fn(gy.data_ptr(), y.data_ptr(), gs1.data_ptr(), gs2.data_ptr(),
+             wt.data_ptr(), x.data_ptr() if affine else None, ptr(inv),
+             ptr(shift), dx.data_ptr(), ptr(dinv), ptr(dshift), ptr(part), 0,
+             b, t, h, wd, ci, co, plan.tiles_per_range, cuda_lib.stream_ptr(x))
+    cuda_lib.check(err, "fp32 spatial data gather")
+    return dx, dinv, dshift
+
+
+def _data_f32_errors(x, w, inv, shift, y, gy, gs1, gs2):
+    """A function of a (dx, dinv, dshift) giving max |dx - ref| over
+    chip_smoke.py's fp32 dx limit (1e-5 of |ge| (*) |w| mirrored, through
+    the mask and |inv|, plus 1e-30) and the largest relative error of dinv
+    and dshift."""
+    ref = conv_bn.conv_unit_bwd_data_reference(x, w, inv, shift, y, gy, gs1,
+                                               gs2, kind="spatial")
+    kern, pad = conv_bn._torch_kernel(w.abs(), "spatial")
+    ge = conv_bn._gy_eff(gy, y, gs1, gs2).abs().permute(0, 4, 1, 2, 3)
+    lim = F.conv3d(ge, kern.flip(2, 3, 4).transpose(0, 1), padding=pad
+                   ).permute(0, 2, 3, 4, 1)
+    if inv is not None:
+        lim = lim * ((x * inv + shift) > 0) * inv.abs()
+    lim = lim * 1e-5 + 1e-30
+
+    def errors(got):
+        out = {"dx_over_limit": ((got[0] - ref[0]).abs() / lim).max().item()}
+        if inv is not None:
+            for k, name in ((1, "dinv"), (2, "dshift")):
+                out[f"{name}_rel"] = ((got[k] - ref[k]).abs().max()
+                                      / ref[k].abs().max()).item()
+        return out
+    return errors
+
+
+def check_data_f32() -> None:
+    """ptxas' resource lines of the walk and its split sum, then the walk
+    against the plain version (TF32 off), with and without the prologue, at
+    SDF_SMALL, the train step's four spatial units (32 clips) and SFF_WIDE:
+    the wrapper (and whether a second call repeats dx, dinv and dshift bit
+    for bit), every layout that fits through the C entry (the plan's split
+    for it, and the plan's layout with one split), and the per-tap
+    gather."""
+    dev = resolve_device("cuda")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    resources("spatial_data_f32")
+    cuda_lib.build(["conv_bn_f32"])
+    lib = cuda_lib.library("conv_bn_f32")
+    main, gather = getattr(lib, SDF_ENTRY), getattr(lib, GATHER_DATA_F32_ENTRY)
+    g = torch.Generator(device=dev).manual_seed(29)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for xs, co in SDF_SMALL + SHAPES["spatial"] + SFF_WIDE:
+        x, w, inv, shift, y, gy, gs1, gs2 = sdf_inputs(xs, co, dev, g)
+        plan = conv_bn.f32_spatial_data_plan(*xs, co, sms)
+        row = {"x": list(xs), "co": co,
+               "plan": None if plan is None else plan._asdict()}
+        for affine in (True, False):
+            a = (inv, shift) if affine else (None, None)
+            args = (x, w, *a, y, gy, gs1, gs2)
+            got = conv_bn.conv_unit_bwd_data(*args, kind="spatial")
+            again = conv_bn.conv_unit_bwd_data(*args, kind="spatial")
+            torch.cuda.synchronize()
+            err = _data_f32_errors(*args)
+            key = "affine" if affine else "plain"
+            row[key] = {"wrapper": err(got),
+                        "repeats": all(p is None or torch.equal(p, q)
+                                       for p, q in zip(got, again))}
+            for name, layout in SDF_LAYOUTS.items():
+                out = launch_sdf(main, *args, layout=layout)
+                torch.cuda.synchronize()
+                row[key][name] = None if out is None else err(out)
+                del out
+            out = launch_data_gather_f32(gather, *args)
+            torch.cuda.synchronize()
+            row[key]["gather"] = err(out)
+            del got, again, out, err
+            torch.cuda.empty_cache()
+        print(json.dumps(row), flush=True)
+        del x, y, gy
+        torch.cuda.empty_cache()
+
+
+def sweep_data_f32(reps: int, parent: Optional[str]) -> None:
+    """The walk at the train step's four spatial units (32 clips) and
+    SFF_WIDE, with and without the prologue, every time a device time: in
+    alternating rounds the wrapper, the planner's layout through the C entry
+    twice (their gap is the spread of identical launches), every layout that
+    fits (SDF_LAYOUTS), the per-tap gather through this source's entry and,
+    with ``parent``, through that source's, and cuDNN's fp32
+    ``conv3d_input`` on ge already formed (TF32 off); then the ablation
+    builds (-DSDF_ABLATE) and a device copy of gy, y and x. The bound counts
+    the operations the function needs (``conv_bn.tap_pairs``)."""
+    dev = resolve_device("cuda")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cuda_lib.build(["conv_bn_f32"])
+    lib = cuda_lib.library("conv_bn_f32")
+    main, gather = getattr(lib, SDF_ENTRY), getattr(lib, GATHER_DATA_F32_ENTRY)
+    src = str(cuda_lib.CSRC / "conv_bn_f32.cu")
+    sig = cuda_lib.SIGNATURES["conv_bn_f32"]
+    defines = {f"sdf_{name}": f"SDF_ABLATE={k}"
+               for name, k in SDF_ABLATIONS.items()}
+    built = build_variants(defines, SDF_ENTRY, {name: src for name in defines},
+                           sig[SDF_ENTRY])
+    old = None
+    if parent:
+        old = build_variants({"parent_f32": ""}, GATHER_DATA_F32_ENTRY,
+                             {"parent_f32": parent},
+                             sig[GATHER_DATA_F32_ENTRY])["parent_f32"]
+    g = torch.Generator(device=dev).manual_seed(29)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for xs, co in SHAPES["spatial"] + SFF_WIDE:
+        ci = xs[-1]
+        x, w, inv, shift, y, gy, gs1, gs2 = sdf_inputs(xs, co, dev, g)
+        plan = conv_bn.f32_spatial_data_plan(*xs, co, sms)
+        m = x.numel() // ci
+        flops = 2 * conv_bn.tap_pairs("spatial", *xs[:4]) * ci * co
+        kern, pad = conv_bn._torch_kernel(w, "spatial")
+        kern = kern.contiguous(memory_format=torch.channels_last_3d)
+        xshape = (xs[0], ci) + tuple(xs[1:4])
+        for affine in (True, False):
+            a = (inv, shift) if affine else (None, None)
+            args = (x, w, *a, y, gy, gs1, gs2)
+            gn = conv_bn._gy_eff(gy, y, gs1, gs2).permute(0, 4, 1, 2, 3)
+            entry = lambda: launch_sdf(main, *args)
+            fns = {"wrapper": lambda: conv_bn.conv_unit_bwd_data(
+                       *args, kind="spatial"),
+                   "entry": entry, "entry_again": entry}
+            for name, layout in SDF_LAYOUTS.items():
+                if launch_sdf(main, *args, layout=layout) is not None:
+                    fns[name] = lambda layout=layout: launch_sdf(
+                        main, *args, layout=layout)
+            fns["gather"] = lambda: launch_data_gather_f32(gather, *args)
+            if old is not None:
+                fns["parent"] = lambda: launch_data_gather_f32(old, *args)
+            fns["cudnn_conv3d_input"] = lambda: torch.nn.grad.conv3d_input(
+                xshape, kern, gn, padding=pad)
+            row = {"kind": "spatial_data_f32", "x": list(xs), "co": co,
+                   "affine": affine, "plan": plan._asdict(),
+                   "alternating_ms": alternating(fns, reps)}
+            row["ms"] = row["alternating_ms"]["wrapper"][0]
+            row["identical_launches_gap_ms"] = abs(
+                row["alternating_ms"]["entry"][0]
+                - row["alternating_ms"]["entry_again"][0])
+            for name, fn in built.items():
+                row[f"{name[4:]}_ms"] = timed(
+                    lambda: launch_sdf(fn, *args), reps, queued=True)
+            bx, by, bg = torch.empty_like(x), torch.empty_like(y), torch.empty_like(gy)
+            row["copy_gy_y_x_ms"] = timed(
+                lambda: (bx.copy_(x), by.copy_(y), bg.copy_(gy)), reps,
+                queued=True)
+            nbytes = 4 * (2 * m * co + 9 * ci * co + m * ci + 2 * co
+                          + (m * ci + 2 * ci if affine else 0))
+            row["bound_ms"] = max(nbytes / HBM, flops / PEAK_FP32) * 1e3
+            row["bound_by"] = "bytes" if nbytes / HBM >= flops / PEAK_FP32 \
+                else "operations"
+            row["tflops"] = {k: flops / v[0] / 1e9
+                             for k, v in row["alternating_ms"].items()}
+            row["share_of_bound"] = row["bound_ms"] / row["ms"]
+            print(json.dumps(row), flush=True)
+            del gn, bx, by, bg
             torch.cuda.empty_cache()
         del x, y, gy
         torch.cuda.empty_cache()
@@ -2445,6 +2729,7 @@ def main(argv=None) -> None:
                                        "spatial_data", "spatial_fwd",
                                        "spatial_fwd_f32", "temporal_fwd_f32",
                                        "spatial_filter_f32",
+                                       "spatial_data_f32",
                                        "temporal_fwd", "mel", "gru",
                                        "packed", "packed_ablate"),
                     default="spatial")
@@ -2455,10 +2740,14 @@ def main(argv=None) -> None:
                     help="spatial_fwd_f32 / temporal_fwd_f32: a "
                          "conv_bn_f32.cu whose fp32 forward of that kind "
                          "(m3f_conv_unit_fwd_f32, the per-tap gather) is "
-                         "timed beside the walk; spatial_filter_f32: a "
+                         "timed beside the walk, or with --check whose walk "
+                         "(the same C entry) must give the same bits; "
+                         "spatial_filter_f32: a "
                          "conv_bn_f32.cu whose spatial filter gradient "
                          "(m3f_conv_unit_bwd_filter_f32, the per-tap gather) "
-                         "is; "
+                         "is; spatial_data_f32: a conv_bn_f32.cu whose "
+                         "spatial data gradient (m3f_conv_unit_bwd_data_f32, "
+                         "the per-tap gather) is; "
                          "spatial_fwd / temporal_fwd: a conv_bn.cu whose "
                          "forward of that kind (the per-tap gather, C entry "
                          "before the walk) is timed beside the kernel; gru: "
@@ -2479,9 +2768,12 @@ def main(argv=None) -> None:
     elif opts.kind == "spatial_filter_f32":
         check_filter_f32() if opts.check \
             else sweep_filter_f32(opts.reps, opts.parent)
+    elif opts.kind == "spatial_data_f32":
+        check_data_f32() if opts.check \
+            else sweep_data_f32(opts.reps, opts.parent)
     elif opts.kind in ("spatial_fwd_f32", "temporal_fwd_f32"):
         kind = opts.kind[:-len("_fwd_f32")]
-        check_fwd_f32(kind) if opts.check \
+        check_fwd_f32(kind, opts.parent) if opts.check \
             else sweep_fwd_f32(kind, opts.reps, opts.parent)
     elif opts.kind == "temporal_fwd":
         check_temporal_fwd() if opts.check \

@@ -1,24 +1,38 @@
-"""The fp32 conv-unit backward (``bwd_data_f32_kernel``,
-``spatial_filter_f32_kernel`` and ``bwd_filter_f32_kernel`` in
-m3f_torch/csrc/conv_bn_f32.cu, wrapped by ``ops.conv_bn.conv_unit_bwd_data``
-/ ``conv_unit_bwd_filter`` for fp32 x) where a CPU can hold it: a numpy run
-of each kernel's walk against the JAX package's Pallas backward in fp32
-under interpret mode (``_spatial_bwd`` / ``_temporal_bwd``, as
-tests/test_torch_conv_bn_bwd.py runs them; a clip of one frame against the
-XLA composition ``_xla_bwd``, since the Pallas temporal units need two
-frames) and against the port's plain version, at the forward's EMU_CASES
-and at FILTER_CASES with and without the prologue; the tilings
-(``f32_bwd_data_plan``, ``f32_bwd_filter_plan``,
-``f32_spatial_filter_plan``) at every fused unit's train shape, the last's
-shared-memory formula against the C source's; and the plain versions' convs
-run without TF32. The kernels themselves run only on the card
+"""The fp32 conv-unit backward (``spatial_data_f32_kernel``,
+``bwd_data_f32_kernel``, ``spatial_filter_f32_kernel`` and
+``bwd_filter_f32_kernel`` in m3f_torch/csrc/conv_bn_f32.cu, wrapped by
+``ops.conv_bn.conv_unit_bwd_data`` / ``conv_unit_bwd_filter`` for fp32 x)
+where a CPU can hold it: a numpy run of each kernel's walk against the JAX
+package's Pallas backward in fp32 under interpret mode (``_spatial_bwd`` /
+``_temporal_bwd``, as tests/test_torch_conv_bn_bwd.py runs them; a clip of
+one frame against the XLA composition ``_xla_bwd``, since the Pallas
+temporal units need two frames) and against the port's plain version, at
+the forward's EMU_CASES, at FILTER_CASES and at DATA_CASES with and without
+the prologue; the tilings (``f32_bwd_data_plan``,
+``f32_spatial_data_plan``, ``f32_bwd_filter_plan``,
+``f32_spatial_filter_plan``) at every fused unit's train shape, the walks'
+shared-memory formulas against the C source's; and the plain versions'
+convs run without TF32. The kernels themselves run only on the card
 (chip_smoke.py, phase kernel_conv_f32_bwd).
 
-Data walk: tiles of 64 positions x 64 input channels, K in chunks of 16
-output channels of one tap, ge formed at the gather from gy, y, gs1 and gs2
-at the tap's neighbour (0 in the padding and past C_out) against the
-filter's mirrored tap, then the two-rounding xa, the mask, dx = dxa * inv
-and one partial row of dinv / dshift per range of tiles, summed in order.
+Spatial data row walk: ranges of whole images, each a stream of rows (a
+zero row before every image and after the last, zero columns 0 and W+1),
+steps of S output pixels reading the rows from the one above the first
+pixel to the one below the last, K in chunks of 16 or 8 output channels
+for all nine taps (ge folded on real pixels and channels < C_out only, 0
+elsewhere) at one offset per pixel plus (dh·(W+2) + dw) against the
+mirrored filter; the chunks of each range cut into K splits, each split's
+partial dx^ summed in split order. With one split the walk applies the
+two-rounding xa, the mask and dx = dxa * inv and sums dinv / dshift by
+pixel group over the walk, then the groups in order into one partial row a
+range; with several the second pass does, one partial row per 64
+positions; the rows summed in order.
+Data gather (the temporal kind, and spatial images too wide for the walk):
+tiles of 64 positions x 64 input channels, K in chunks of 16 output
+channels of one tap, ge formed at the gather from gy, y, gs1 and gs2 at the
+tap's neighbour (0 in the padding and past C_out) against the filter's
+mirrored tap, then the two-rounding xa, the mask, dx = dxa * inv and one
+partial row of dinv / dshift per range of tiles, summed in order.
 Spatial filter row walk: slices of whole images, each a stream of rows (a
 zero row before every image and after the last, zero columns 0 and W+1)
 held in a ring of two steps' rows, each row copied and formed once (x^
@@ -82,7 +96,9 @@ def _neighbour(kind, m, tap, t, h, w):
 
 
 def _emulate_data(x, w, inv, shift, y, gy, gs1, gs2, kind, sms=SMS):
-    """The data kernel's walk in numpy (fp32): returns (dx, dinv, dshift)."""
+    """bwd_data_f32_kernel's walk (the temporal kind, and the spatial kind
+    where no row-walk layout fits the images) in numpy (fp32): returns (dx,
+    dinv, dshift)."""
     b, t, h, wd, ci = x.shape
     co = gy.shape[-1]
     taps = 9 if kind == "spatial" else 3
@@ -119,6 +135,117 @@ def _emulate_data(x, w, inv, shift, y, gy, gs1, gs2, kind, sms=SMS):
         dinv = dinv + (xf[q] * dxa[q]).sum(0)
         dshift = dshift + dxa[q].sum(0)
     return (dxa * inv).reshape(x.shape), dinv, dshift
+
+
+def _emulate_dx(x, w, inv, shift, y, gy, gs1, gs2, kind, sms=None):
+    """The data gradient's walk in numpy (fp32), as the wrapper routes it:
+    the spatial row walk where its plan has a layout, else the per-tap
+    gather; returns (dx, dinv, dshift)."""
+    sms = sms or DATA_SMS.get(x.shape, SMS)
+    if kind == "spatial":
+        plan = conv_bn.f32_spatial_data_plan(*x.shape, gy.shape[-1], sms)
+        if plan is not None:
+            return _emulate_data_walk(x, w, inv, shift, y, gy, gs1, gs2,
+                                      plan)[:3]
+    return _emulate_data(x, w, inv, shift, y, gy, gs1, gs2, kind, sms)
+
+
+def _emulate_data_walk(x, w, inv, shift, y, gy, gs1, gs2, plan, pad=None,
+                       leak=False):
+    """spatial_data_f32_kernel's walk and, with K splits, its second pass:
+    per range of whole images a stream of rows (a zero row before every
+    image and after the last, zero columns 0 and W+1; ge folded on real
+    pixels and channels < C_out only), each split's chunks of
+    ``plan.k_chunk`` output channels in order, steps of ``plan.step``
+    output pixels reading each tap at the pixel's row above plus (dh, dw)
+    against the mirrored filter's rows (tap, k); the splits' partial dx^
+    summed in split order. With the prologue, one split: dinv / dshift by
+    pixel group p % (step / 8) over the range's steps in order, then the
+    groups in order into the range's partial row; several: by row group
+    p % 4 over each block of 64 positions, the groups in order into the
+    block's row; the rows then in order. Controls: ``pad`` (per output
+    channel) puts that ge in the padding in place of 0; ``leak`` stacks a
+    range's images with no zero row between them (a halo row from the
+    neighbouring image). Returns (dx, dinv, dshift, dinv's partial rows)."""
+    b, t, h, wd, ci = x.shape
+    co = gy.shape[-1]
+    step, kc, npg = plan.step, plan.k_chunk, plan.step // 8
+    hw, m_all = h * wd, b * t * h * wd
+    cop, ncols = plan.chunks * kc, plan.n_tiles * plan.n_tile
+    wk = np.zeros((9, cop, ncols), np.float32)
+    wk[:, :co, :ci] = conv_bn.f32_bwd_data_filter(
+        torch.from_numpy(w), "spatial").numpy().reshape(9, co, ci)
+    imgs = np.zeros((b * t, h, wd, cop), np.float32)
+    imgs[..., :co] = _fold(gy, y, gs1, gs2).reshape(b * t, h, wd, co)
+    padv = np.zeros(cop, np.float32)
+    if pad is not None:
+        padv[:co] = pad
+    dxh = np.zeros((plan.k_splits, m_all, ncols), np.float32)
+    sep = 0 if leak else 1                       # zero rows between images
+    for r in range(plan.ranges):
+        ims = plan.images_of(r)
+        stream = np.tile(padv, (len(ims) * (h + sep) + 2 - sep, wd + 2, 1))
+        for k, i in enumerate(ims):
+            top = k * (h + sep) + 1
+            stream[top:top + h, 1:wd + 1] = imgs[i]
+        q_all, p0 = len(ims) * hw, ims[0] * hw
+        for s in range(plan.k_splits):
+            for j in range(-(-q_all // step)):
+                q = np.arange(j * step, min(q_all, (j + 1) * step))
+                rho = q // wd
+                col, vr = q - rho * wd, rho + sep * (rho // h) + 1
+                assert vr.max() - vr.min() + 3 <= plan.buf_rows
+                acc = np.zeros((len(q), ncols), np.float32)
+                for ck in plan.chunks_of(s):
+                    cs = slice(ck * kc, (ck + 1) * kc)
+                    for tap in range(9):
+                        dh, dw = divmod(tap, 3)
+                        acc += stream[vr - 1 + dh, col + dw, cs] @ wk[tap, cs]
+                dxh[s, p0 + q] = acc
+    d = dxh[0]
+    for part in dxh[1:]:                         # in split order
+        d = d + part
+    d = d[:, :ci]
+    if inv is None:
+        return d.reshape(x.shape), None, None, None
+    xf = x.reshape(m_all, ci)
+    dxa = np.where((xf * inv) + shift > 0, d, np.float32(0))
+    xd = xf * dxa
+    rows1, rows2 = [], []
+    if plan.k_splits == 1:
+        for r in range(plan.ranges):
+            ims = plan.images_of(r)
+            p0, q_all = ims[0] * hw, len(ims) * hw
+            g1 = np.zeros((npg, ci), np.float32)
+            g2 = np.zeros((npg, ci), np.float32)
+            for i in range(0, q_all, npg):
+                blk = slice(p0 + i, p0 + min(q_all, i + npg))
+                n = blk.stop - blk.start
+                g1[:n] += xd[blk]
+                g2[:n] += dxa[blk]
+            rows1.append(_in_order(g1))
+            rows2.append(_in_order(g2))
+    else:
+        for m0 in range(0, m_all, conv_bn._SDF_SUM_ROWS):
+            g1 = np.zeros((4, ci), np.float32)
+            g2 = np.zeros((4, ci), np.float32)
+            for i in range(m0, min(m_all, m0 + conv_bn._SDF_SUM_ROWS), 4):
+                n = min(m_all, i + 4) - i
+                g1[:n] += xd[i:i + n]
+                g2[:n] += dxa[i:i + n]
+            rows1.append(_in_order(g1))
+            rows2.append(_in_order(g2))
+    assert len(rows1) == plan.part_rows
+    return ((dxa * inv).reshape(x.shape), _in_order(rows1), _in_order(rows2),
+            rows1)
+
+
+def _in_order(rows):
+    """The rows of ``rows`` summed one after another (fp32)."""
+    out = np.zeros_like(rows[0])
+    for v in rows:
+        out = out + v
+    return out
 
 
 def _emulate_filter(x, inv, shift, y, gy, gs1, gs2, kind, sms=None):
@@ -258,13 +385,39 @@ FILTER_CASES = [("spatial", (1, 5, 7, 7, 24), (3, 3, 24, 40)),
 # images in one slice)
 FILTER_SMS = {(2, 5, 7, 7, 24): 4, (2, 4, 7, 7, 16): 3, (1, 4, 1, 1, 16): 2,
               (1, 5, 7, 7, 24): 6}
-ALL_CASES = EMU_CASES + FILTER_CASES
+# the spatial data walk off EMU_CASES: seven 7x7 images at C_in 200 (four
+# N tiles of 64, the last masked to 8 channels) and C_out 40 (chunks of 16,
+# 16 and 8)
+DATA_CASES = [("spatial", (1, 7, 7, 7, 200), (3, 3, 200, 40))]
+# the multiprocessors the data plans are made for, where not SMS: fewer put
+# several images in a range and keep the K whole, or split it (7x7 images:
+# two ranges of 5, one split; 7x7 at C_out 144: two ranges of 4, two splits
+# of 5 and 4 chunks; 1x1 images: one range of 6, several a step; 4x7
+# images at C_out 200: four splits of 4, 4, 4 and 1 chunks; five 7x7
+# images: ranges of 3 and 2, three splits; seven 7x7 images: ranges of 4
+# and 3, two splits, or with one split asked for ranges of 2, 2, 2 and 1)
+DATA_SMS = {(2, 5, 7, 7, 24): 2, (2, 4, 7, 7, 16): 4, (3, 2, 1, 1, 8): 1,
+            (2, 3, 4, 7, 40): 4, (1, 5, 7, 7, 24): 6, (1, 7, 7, 7, 200): 16}
+ALL_CASES = EMU_CASES + FILTER_CASES + DATA_CASES
 
 CASES = [pytest.param(i, affine, id=f"{_case_id(*c)}-{'affine' if affine else 'plain'}")
          for i, c in enumerate(EMU_CASES) for affine in (False, True)]
 WALK_CASES = [pytest.param(len(EMU_CASES) + i, affine,
                            id=f"{_case_id(*c)}-{'affine' if affine else 'plain'}")
               for i, c in enumerate(FILTER_CASES) for affine in (False, True)]
+# (case, K splits asked for or None: the plan's) of the data walk's edges:
+# FILTER_CASES' five 7x7 images (ranges of 3 and 2, three splits),
+# DATA_CASES' seven at C_in 200 (the plan's two splits of 2 and 1 chunks
+# over ranges of 4 and 3; one split asked for: ranges of 2 to a one-image
+# last)
+_DATA_EDGES = ((len(EMU_CASES), None),
+               (len(EMU_CASES) + len(FILTER_CASES), None),
+               (len(EMU_CASES) + len(FILTER_CASES), 1))
+DATA_WALK_CASES = [
+    pytest.param(i, splits, affine,
+                 id=f"{_case_id(*ALL_CASES[i])}-splits={splits or 'plan'}-"
+                    f"{'affine' if affine else 'plain'}")
+    for i, splits in _DATA_EDGES for affine in (False, True)]
 
 
 @functools.lru_cache(maxsize=None)
@@ -299,22 +452,56 @@ def _inputs(i, affine):
     return kind, (x, w, inv, shift, y, gy, gs1, gs2), want, plain
 
 
+def _data_within(x, inv, shift, dx, dinv, dshift, ref):
+    """dx within DX_TOL of the reference's largest, dinv / dshift per
+    channel within S_RTOL plus S_REL of the channel's sum of magnitudes."""
+    if not np.abs(dx - ref[0]).max() <= DX_TOL * np.abs(ref[0]).max():
+        return False
+    if inv is None:
+        return ref[2] is None and dinv is None and dshift is None
+    # the scale of each channel's summation error
+    mask = (x * inv + shift) > 0
+    dxa = np.where(mask, ref[0] / inv, 0)
+    axes = tuple(range(x.ndim - 1))
+    return all((np.abs(got - r) <= S_RTOL * np.abs(r) + S_REL * scale).all()
+               for got, r, scale in ((dinv, ref[2], np.abs(x * dxa).sum(axes)),
+                                     (dshift, ref[3], np.abs(dxa).sum(axes))))
+
+
 @pytest.mark.parametrize("i,affine", CASES)
 def test_data_walk_matches_pallas_backward_fp32(i, affine):
+    """EMU_CASES as the wrapper routes them: the spatial row walk where its
+    plan has a layout (DATA_SMS: ranges of several images, K splits), the
+    per-tap gather for the temporal kind and images too wide."""
     kind, (x, w, inv, shift, y, gy, gs1, gs2), want, plain = _inputs(i, affine)
-    dx, dinv, dshift = _emulate_data(x, w, inv, shift, y, gy, gs1, gs2, kind)
+    if kind == "spatial":
+        walk = conv_bn.f32_spatial_data_plan(
+            *x.shape, gy.shape[-1], DATA_SMS.get(x.shape, SMS))
+        assert (walk is None) == (x.shape[3] == 240)
+    dx, dinv, dshift = _emulate_dx(x, w, inv, shift, y, gy, gs1, gs2, kind)
     for ref in (want, plain):
-        assert np.abs(dx - ref[0]).max() <= DX_TOL * np.abs(ref[0]).max()
-        if inv is None:
-            assert ref[2] is None and dinv is None and dshift is None
-            continue
-        # the scale of each channel's summation error
-        mask = (x * inv + shift) > 0
-        dxa = np.where(mask, ref[0] / inv, 0)
-        axes = tuple(range(x.ndim - 1))
-        for got, r, scale in ((dinv, ref[2], np.abs(x * dxa).sum(axes)),
-                              (dshift, ref[3], np.abs(dxa).sum(axes))):
-            assert (np.abs(got - r) <= S_RTOL * np.abs(r) + S_REL * scale).all()
+        assert _data_within(x, inv, shift, dx, dinv, dshift, ref)
+
+
+@pytest.mark.parametrize("i,splits,affine", DATA_WALK_CASES)
+def test_spatial_data_walk_edges_match_pallas_backward_fp32(i, splits, affine):
+    """The data walk off EMU_CASES: several images a range with a one-image
+    last range, a masked N tile, chunks of 16, 16 and 8, K splits of the
+    plan's and asked for."""
+    kind, (x, w, inv, shift, y, gy, gs1, gs2), want, plain = _inputs(i, affine)
+    plan = conv_bn.f32_spatial_data_plan(*x.shape, gy.shape[-1],
+                                         DATA_SMS[x.shape], k_splits=splits)
+    shape = (plan.images_per_range, plan.ranges, plan.k_splits,
+             [len(plan.chunks_of(s)) for s in range(plan.k_splits)])
+    assert shape == {(1, 5, 7, 7, 24, None): (3, 2, 3, [1, 1, 1]),
+                     (1, 7, 7, 7, 200, None): (4, 2, 2, [2, 1]),
+                     (1, 7, 7, 7, 200, 1): (2, 4, 1, [3])}[x.shape + (splits,)]
+    if x.shape[-1] == 200:
+        assert (plan.n_tile, plan.n_tiles) == (64, 4)
+    dx, dinv, dshift, _ = _emulate_data_walk(x, w, inv, shift, y, gy, gs1,
+                                             gs2, plan)
+    for ref in (want, plain):
+        assert _data_within(x, inv, shift, dx, dinv, dshift, ref)
 
 
 def _dw_limit(x, inv, shift, y, gy, gs1, gs2, kind):
@@ -364,7 +551,12 @@ def test_walks_see_the_padding_and_the_slices():
     padding (gs1 there) and x^ formed through the prologue in the padding
     (relu(shift) there) each miss the reference at the 1x1-image and
     one-frame cases, and a dw without its last slice's share where the
-    walk takes several slices."""
+    walk takes several slices. The data row walk's emulation can fail too
+    (7x7 images five a range, two ranges, one split; gs1 of the size of gy,
+    xa > 0 for about half the elements): ge = gs1 in its padding rows and
+    columns, a range's images with no zero row between them (the halo row
+    from the neighbouring image) and a dinv without its last range's row
+    each miss the reference."""
     for i in (1, 3):                       # 1x1 images; a clip of one frame
         kind, (x, w, inv, shift, y, gy, gs1, gs2), want, _ = _inputs(i, True)
         ci, co = x.shape[-1], gy.shape[-1]
@@ -408,6 +600,19 @@ def test_walks_see_the_padding_and_the_slices():
             torch.zeros(gy.shape), torch.from_numpy(ge), zero, zero,
             kind=kind).numpy()
         assert np.abs(short - want[1]).max() > DW_REL * np.abs(want[1]).max()
+    kind, args, want, _ = _inputs(6, True)
+    x, inv, shift, gs1 = args[0], args[2], args[3], args[6]
+    plan = conv_bn.f32_spatial_data_plan(*x.shape, args[5].shape[-1],
+                                         DATA_SMS[x.shape])
+    assert (plan.images_per_range, plan.ranges, plan.k_splits) == (5, 2, 1)
+    right = _emulate_data_walk(*args, plan)
+    assert _data_within(x, inv, shift, *right[:3], want)
+    for wrong in (_emulate_data_walk(*args, plan, pad=gs1),
+                  _emulate_data_walk(*args, plan, leak=True)):
+        assert np.abs(wrong[0] - want[0]).max() > DX_TOL * np.abs(want[0]).max()
+    short = right[1] - right[3][-1]
+    assert not _data_within(x, inv, shift, right[0], short, right[2], want)
+    assert (x.reshape(-1, x.shape[-1])[5 * 49:] * inv + shift > 0).mean() > 0.3
 
 
 def test_walks_see_the_padding_and_the_ring_slices():
@@ -489,9 +694,62 @@ def _check_spatial_filter_plan(p, b, t, h, w, ci, co, sms=SMS):
         <= 227 * 1024
 
 
+def _c_sdf_smem():
+    """sdf_smem of conv_bn_f32.cu as a Python function of (W, buffer rows,
+    K chunk, N tile): its expression read from the source, so the plan's
+    formula is held against the C side's."""
+    src = (Path(conv_bn.__file__).parents[1] / "csrc" / "conv_bn_f32.cu"
+           ).read_text()
+    body = re.search(r"size_t sdf_smem\(int W, int XR, int KC, int NB\) "
+                     r"\{\s*return (.*?);\n\}", src, re.S).group(1)
+    expr = " ".join(body.replace("(size_t)", "").replace("sizeof(float)", "4")
+                    .split())
+    rows = int(re.search(r"constexpr int SDF_SUM_ROWS = (\d+);", src).group(1))
+
+    def smem(w, buf_rows, k_chunk, n_tile):
+        return eval(expr, {}, {"W": w, "XR": buf_rows, "KC": k_chunk,
+                               "NB": n_tile})
+    return smem, rows
+
+
+def _check_spatial_data_plan(p, b, t, h, w, ci, co, sms=SMS):
+    """What every fp32 spatial data-walk plan must hold: every image in
+    exactly one range and no range empty, every chunk of 16 or 8 output
+    channels in exactly one K split and no split empty, N tiles of 64 (steps
+    of 256) or 128 (steps of 128) covering C_in at 256 threads (8 warps),
+    buffers of a step's rows that a thread's copies cover, one wave of
+    blocks within the grid's limit, int offsets within their limits, the
+    partial rows (one a range, or one per SDF_SUM_ROWS positions with a K
+    split) and the split partials' bytes, and a shared-memory size within a
+    block's that is the C side's."""
+    c_smem, sum_rows = _c_sdf_smem()
+    assert p.images == b * t
+    covered = [i for r in range(p.ranges) for i in p.images_of(r)]
+    assert covered == list(range(p.images))
+    assert all(len(p.images_of(r)) for r in range(p.ranges))
+    assert p.k_chunk in (16, 8) and p.chunks == -(-co // p.k_chunk)
+    chunks = [c for k in range(p.k_splits) for c in p.chunks_of(k)]
+    assert chunks == list(range(p.chunks))
+    assert all(len(p.chunks_of(k)) for k in range(p.k_splits))
+    assert (p.n_tile, p.step) in ((64, 256), (128, 128))
+    assert p.n_tiles == -(-ci // p.n_tile)
+    assert p.threads == p.step // 8 * p.n_tile // 8 == 256
+    assert p.buf_rows == conv_bn.spatial_ring_rows(h, w, p.step, 1)
+    assert p.buf_rows * w <= 8 * p.threads // (p.k_chunk // 4)
+    assert p.blocks == p.ranges * p.k_splits * p.n_tiles <= max(sms, p.n_tiles)
+    assert p.blocks < 2 ** 31 and p.images_per_range * h * w < 2 ** 31
+    m = b * t * h * w
+    assert p.part_rows == (p.ranges if p.k_splits == 1 else -(-m // sum_rows))
+    assert p.part_bytes == (4 * p.k_splits * m * ci if p.k_splits > 1 else 0)
+    assert p.smem_bytes == c_smem(w, p.buf_rows, p.k_chunk, p.n_tile) \
+        == conv_bn._spatial_data_f32_smem(w, p.buf_rows, p.k_chunk, p.n_tile) \
+        <= 227 * 1024
+
+
 @pytest.mark.parametrize("mode", ["flops", "lane"])
 @pytest.mark.parametrize("clips", [128, 32])
-@pytest.mark.parametrize("part", ["data", "filter", "spatial_filter_walk"])
+@pytest.mark.parametrize("part", ["data", "filter", "spatial_filter_walk",
+                                  "spatial_data_walk"])
 def test_plans_cover_every_train_shape(part, clips, mode):
     """Every fused unit's shape: the data gradient's position tiles each in
     exactly one range, at most 65535 ranges (the grid's y), every input
@@ -503,7 +761,22 @@ def test_plans_cover_every_train_shape(part, clips, mode):
     unit and at stage 1 of data.image_size=224 (112x112 images): a layout,
     N tiles of 144 (flops; lane's 1152 too) or 128 (lane) with no masked
     column, steps of 128, and what every walk plan holds
-    (``_check_spatial_filter_plan``)."""
+    (``_check_spatial_filter_plan``); the spatial data gradient's row walk
+    at the same shapes: a layout, N tiles of 64 at C_in 64 and no masked
+    column, chunks of 16 (8 at 112x112 images), one split at
+    stages 1-2 and several at stages 3-4 (short M, long K), and what every
+    data-walk plan holds (``_check_spatial_data_plan``)."""
+    if part == "spatial_data_walk":
+        units = _unit_shapes(clips, mode)[::2]
+        units.append(((clips, 16, 112, 112, 64), units[0][1]))
+        for k, (xs, co) in enumerate(units):
+            p = conv_bn.f32_spatial_data_plan(*xs, co, SMS)
+            assert p is not None
+            assert xs[-1] % p.n_tile == 0 and (xs[-1] > 64 or p.n_tile == 64)
+            assert p.k_chunk == (8 if xs[3] == 112 else 16)
+            assert (p.k_splits > 1) == (k in (2, 3))
+            _check_spatial_data_plan(p, *xs, co)
+        return
     if part == "spatial_filter_walk":
         units = _unit_shapes(clips, mode)[::2]
         units.append(((clips, 16, 112, 112, 64), units[0][1]))
@@ -583,6 +856,48 @@ def test_spatial_filter_f32_plan_edges(shape):
         _check_spatial_filter_plan(p, *shape)
         if shape[1] == 131:
             assert len(p.images_of(p.slices - 1)) == 1
+
+
+# (B, T, H, W, C_in, C_out) -> (N tile, K chunk, images a range, ranges,
+# K splits) of the data walk on 132 SMs, or None (the per-tap gather):
+# chip_smoke.py's F32_DATA_WALK_EDGE_SHAPES (129 7x7 images four a range,
+# the last one, C_in 200 in four N tiles of 64, C_out 40; 1x1 images 22 a
+# step, N tiles of 128 (steps of 256 do not fit) in 8-channel chunks split
+# nine ways; stages 3 and 4 at 32 clips, K split four and eight ways) and
+# F32_GATHER_EDGE_SHAPES (rows of 240 and 600 pixels: no layout), stage 4 at
+# 128 clips, a single pixel
+SDF_PLAN_EDGES = {(1, 129, 7, 7, 200, 40): (64, 16, 4, 33, 1),
+                  (3, 100, 1, 1, 16, 72): (128, 8, 22, 14, 9),
+                  (32, 4, 14, 14, 256, 576): (64, 16, 16, 8, 4),
+                  (32, 2, 7, 7, 512, 1152): (64, 16, 32, 2, 8),
+                  (2, 2, 2, 240, 16, 16): None,
+                  (2, 2, 2, 600, 16, 16): None,
+                  (128, 2, 7, 7, 512, 1152): (64, 16, 128, 2, 8),
+                  (1, 1, 1, 1, 8, 8): (128, 8, 1, 1, 1)}
+
+
+@pytest.mark.parametrize("shape", list(SDF_PLAN_EDGES),
+                         ids=["x".join(map(str, s)) for s in SDF_PLAN_EDGES])
+def test_spatial_data_f32_plan_edges(shape):
+    """Off the train widths: the layout of least modelled time (steps of the
+    longest range x chunks of a split, plus a split's traffic and launch),
+    one wave of blocks; 8-channel chunks where 16 do not fit; None where no
+    layout fits (rows of 240 pixels and more); the plan's N tile with
+    8-channel chunks in two splits, asked for, is taken; and what every
+    data-walk plan holds."""
+    p = conv_bn.f32_spatial_data_plan(*shape, SMS)
+    want = SDF_PLAN_EDGES[shape]
+    assert (None if p is None else (p.n_tile, p.k_chunk, p.images_per_range,
+                                    p.ranges, p.k_splits)) == want
+    if p is None:
+        return
+    _check_spatial_data_plan(p, *shape)
+    if shape[1] == 129:
+        assert len(p.images_of(p.ranges - 1)) == 1
+    q = conv_bn.f32_spatial_data_plan(*shape, SMS, n_tile=p.n_tile,
+                                      k_chunk=8, k_splits=2)
+    assert (q.n_tile, q.k_chunk, q.k_splits) == (p.n_tile, 8, min(2, q.chunks))
+    _check_spatial_data_plan(q, *shape)
 
 
 @pytest.mark.parametrize("kind", ["spatial", "temporal"])
