@@ -78,15 +78,21 @@ H100 (``python3 chip_smoke.py``). It
    the fp32 backward kernels (rows 5f-8f, ``csrc/conv_bn_f32.cu``, phase
    ``kernel_conv_f32_bwd``; row 5f the row walk
    ``spatial_data_f32_kernel``, row 6f the row walk
-   ``spatial_filter_f32_kernel``, their plans in every phase line) are
+   ``spatial_filter_f32_kernel``, row 7f the frame walk
+   ``temporal_data_f32_kernel``, their plans in every phase line) are
    held against their plain versions (TF32 off) at F32_EDGE_SHAPES,
    F32_FILTER_WALK_EDGE_SHAPES (images two a slice with a one-image last
    slice, C_out 200, C_in 24, 1x1 images, the stage-4 train shape),
    F32_DATA_WALK_EDGE_SHAPES (images four a range with a one-image last
    range, C_in 200, C_out 40, 1x1 images several a step, the stage-3 and
-   stage-4 train shapes with their K splits) and F32_GATHER_EDGE_SHAPES
-   (both spatial gradients of images too wide for the row walks through
-   the per-tap gathers; phase ``kernel_conv_f32_bwd_edges``) and at every
+   stage-4 train shapes with their K splits), F32_TEMPORAL_DATA_EDGE_SHAPES
+   (one-frame clips, 7x7 clips across strips with a partial last strip at
+   C_in 200 and C_out 40, C_out 200, the stage-4 train shape, and
+   F32_TEMPORAL_DATA_144_SHAPES: N tiles of 144 with a partial last
+   strip, a masked tile and ranges of two strips) and
+   F32_GATHER_EDGE_SHAPES (both spatial gradients of images too wide for
+   the row walks through the per-tap gathers; phase
+   ``kernel_conv_f32_bwd_edges``) and at every
    fused unit's shape of the fusion train step: dx per element within
    BWD_F32_REL of (|ge| (*) |w| mirrored) through the mask and |inv|, dw
    per element within 1e-5 of sum |x^|*|ge|, dinv / dshift per channel;
@@ -2332,6 +2338,26 @@ F32_DATA_WALK_EDGE_SHAPES = (
     ("spatial", (3, 100, 1, 1, 16), (3, 3, 16, 72)),
     ("spatial", (32, 4, 14, 14, 256), (3, 3, 256, 576)),
     ("spatial", (32, 2, 7, 7, 512), (3, 3, 512, 1152)))
+# the fp32 temporal data gradient's frame walk in N tiles of 144 (strips of
+# 56) off the train tiling: five 7x7 clips of three frames, 245 positions
+# over five strips, the last partial; 81 7x7 clips at C_in 280, two N
+# tiles, the second masked, 71 strips (the last partial) in 36 ranges of
+# two, the last of one
+F32_TEMPORAL_DATA_144_SHAPES = (
+    ("temporal", (5, 3, 7, 7, 144), (3, 144, 40)),
+    ("temporal", (81, 3, 7, 7, 280), (3, 280, 40)))
+# the fp32 temporal data gradient's frame walk off the train tiling: clips
+# of one frame at C_out 40 (chunks of 16, 16 and 8); five 7x7 clips of
+# three frames across strips, the last strip partial, at C_in 200 (a masked
+# N tile of 64) over two ranges; C_out 200, the filter streamed beside the
+# x slots with the prologue and resident without; the stage-4 train shape
+# (32 clips, the filter streamed, 7 ranges of two strips); the tiles of 144
+F32_TEMPORAL_DATA_EDGE_SHAPES = (
+    ("temporal", (3, 1, 7, 7, 24), (3, 24, 40)),
+    ("temporal", (5, 3, 7, 7, 200), (3, 200, 40)),
+    ("temporal", (4, 2, 5, 5, 64), (3, 64, 200)),
+    ("temporal", (32, 2, 7, 7, 1152), (3, 1152, 512))) \
+    + F32_TEMPORAL_DATA_144_SHAPES
 # the fp32 frame walk off the serving tiling (forward only): clips of one
 # frame across a strip; 7x7 clips five a strip, the second strip partial,
 # C_in 40 (chunks of 16, 16, 8); C_out 200 in four N tiles of 64, the last
@@ -2481,25 +2507,35 @@ def filter_plan_f32(torch, conv_bn, kind, x, co):
                                            _round8(co), sms)
 
 
-def data_plan_f32(torch, conv_bn, kind, x, co):
+def data_plan_f32(torch, conv_bn, kind, x, co, affine):
     """The fp32 data gradient's plan for x [B, T, H, W, C_in] -> C_out
-    (channel counts as the wrapper pads them): the spatial row walk's, or
-    None (the per-tap gather: the temporal kind, images too wide)."""
-    if kind != "spatial":
-        return None
+    (channel counts as the wrapper pads them), with the prologue or
+    without: the temporal frame walk's, the spatial row walk's, or None
+    (the spatial per-tap gather: images too wide)."""
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    return conv_bn.f32_spatial_data_plan(*x.shape[:4], _round8(x.shape[-1]),
-                                         _round8(co), sms)
+    shape = (*x.shape[:4], _round8(x.shape[-1]), _round8(co), sms)
+    if kind == "temporal":
+        return conv_bn.f32_temporal_data_plan(*shape, affine)
+    return conv_bn.f32_spatial_data_plan(*shape)
 
 
 def data_plan_line(p):
     """The data walk's plan as the phase lines carry it (None: the
     gather)."""
-    return None if p is None else {
-        "step": p.step, "n_tile": p.n_tile, "k_chunk": p.k_chunk,
-        "images_per_range": p.images_per_range, "ranges": p.ranges,
-        "k_splits": p.k_splits, "chunks_per_split": p.chunks_per_split,
-        "blocks": p.blocks, "model_us": p.model_us}
+    if p is None:
+        return None
+    if hasattr(p, "strip"):             # the temporal frame walk
+        return {"walk": "frames", "strip": p.strip, "n_tile": p.n_tile,
+                "k_chunk": p.k_chunk,
+                "register_tile": "x".join(map(str, p.register_tile)),
+                "filter": "resident" if p.resident else "streamed",
+                "units_per_range": p.units_per_range, "ranges": p.ranges,
+                "blocks": p.blocks}
+    return {"walk": "rows", "step": p.step, "n_tile": p.n_tile,
+            "k_chunk": p.k_chunk, "images_per_range": p.images_per_range,
+            "ranges": p.ranges, "k_splits": p.k_splits,
+            "chunks_per_split": p.chunks_per_split, "blocks": p.blocks,
+            "model_us": p.model_us}
 
 
 def filter_plan_line(p):
@@ -2578,19 +2614,26 @@ def check_bwd_unit_f32(torch, F, conv_bn, what, x, w, a, gy, gs1, gs2, kind,
         share = conv_bn.conv_unit_bwd_filter_reference(
             x, inv, shift, torch.zeros_like(y), ge, zero, zero, kind=kind)
         wrong["dw_last_slice_left_out"] = (dx, dw - share, dinv, dshift)
-    dwalk = data_plan_f32(torch, conv_bn, kind, x, co)
+    dwalk = data_plan_f32(torch, conv_bn, kind, x, co, inv is not None)
+    last = torch.zeros(m, dtype=torch.bool, device=x.device)
     if dwalk is None:                   # the gather's last range of tiles
         dplan = conv_bn.f32_bwd_data_plan(b, t, h, wd, _round8(ci), sms)
         rows = dplan.ranges
-        start = (rows - 1) * dplan.tiles_per_range * 64
+        last[(rows - 1) * dplan.tiles_per_range * 64:] = True
+    elif kind == "temporal":            # the frame walk's last range of
+        rows = dwalk.ranges             # strips, at every frame
+        start = dwalk.positions_of(dwalk.units_of(rows - 1)[0])[0]
+        pos = torch.arange(b * h * wd, device=x.device)
+        last = (pos >= start).reshape(b, 1, h * wd).expand(b, t, h * wd) \
+            .reshape(m)
     elif dwalk.k_splits == 1:           # the walk's last range of images
         rows = dwalk.ranges
-        start = dwalk.images_of(rows - 1)[0] * h * wd
+        last[dwalk.images_of(rows - 1)[0] * h * wd:] = True
     else:                               # the split sum's last block of rows
         rows = dwalk.part_rows
-        start = (rows - 1) * conv_bn._SDF_SUM_ROWS
+        last[(rows - 1) * conv_bn._SDF_SUM_ROWS:] = True
     if inv is not None and rows > 1:
-        share = (x * dxa_ref).reshape(m, ci)[start:].sum(0)
+        share = (x * dxa_ref).reshape(m, ci)[last].sum(0)
         wrong["dinv_last_row_left_out"] = (dx, dw, dinv - share, dshift)
     if padding_controls:
         pad = (0, 0, 1, 1, 1, 1) if kind == "spatial" \
@@ -2653,9 +2696,10 @@ F32_BWD_KERNELS = ("conv_spatial_bwd_data_f32", "conv_spatial_bwd_filter_f32",
 def check_conv_f32_bwd(torch, F, conv_bn, clips=32):
     """Rows 5f-8f: the fp32 backward kernels against their plain versions
     (TF32 off) at F32_EDGE_SHAPES, F32_FILTER_WALK_EDGE_SHAPES,
-    F32_DATA_WALK_EDGE_SHAPES and F32_GATHER_EDGE_SHAPES (the spatial
-    filter and data gradients' per-tap gathers each taken at one of them at
-    least), with and without the prologue and with the padding controls,
+    F32_DATA_WALK_EDGE_SHAPES, F32_TEMPORAL_DATA_EDGE_SHAPES (the frame
+    walk required, in N tiles of 144 at F32_TEMPORAL_DATA_144_SHAPES) and F32_GATHER_EDGE_SHAPES (the spatial filter and data
+    gradients' per-tap gathers each taken at one of them at least), with
+    and without the prologue and with the padding controls,
     then at every fused unit's shape of the fusion train step
     (``_train_units``), where the plain version under TF32 must fail the
     check; timed (kernel and library in turn, F32_BWD_ROUNDS rounds of
@@ -2666,7 +2710,8 @@ def check_conv_f32_bwd(torch, F, conv_bn, clips=32):
     edges, tf32_edges, gathered, data_gathered = {}, 0, [], []
     for kind, xs, ws in dict.fromkeys(
             F32_EDGE_SHAPES + F32_FILTER_WALK_EDGE_SHAPES
-            + F32_DATA_WALK_EDGE_SHAPES + F32_GATHER_EDGE_SHAPES):
+            + F32_DATA_WALK_EDGE_SHAPES + F32_TEMPORAL_DATA_EDGE_SHAPES
+            + F32_GATHER_EDGE_SHAPES):
         for affine in (False, True):
             x, w, a, gy, gs1, gs2 = f32_bwd_inputs(torch, g, xs, ws, affine,
                                                    scale=1.0)
@@ -2681,6 +2726,14 @@ def check_conv_f32_bwd(torch, F, conv_bn, clips=32):
             if (kind, xs, ws) in F32_DATA_WALK_EDGE_SHAPES:
                 require(edges[key]["data_plan"] is not None,
                         f"{key}: the data gradient takes the gather")
+            if kind == "temporal":
+                require((edges[key]["data_plan"] or {}).get("walk")
+                        == "frames", f"{key}: the temporal data gradient "
+                        f"takes no frame walk: {edges[key]['data_plan']}")
+            if (kind, xs, ws) in F32_TEMPORAL_DATA_144_SHAPES:
+                require(edges[key]["data_plan"]["n_tile"] == 144,
+                        f"{key}: the frame walk takes no N tile of 144: "
+                        f"{edges[key]['data_plan']}")
             if (kind, xs, ws) in F32_GATHER_EDGE_SHAPES \
                     and edges[key]["filter_plan"] is None:
                 gathered.append(key)

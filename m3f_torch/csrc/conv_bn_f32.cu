@@ -14,10 +14,11 @@
 //                           (_spatial_bwd_data_kernel, :537): a row walk (its
 //                           own section below), with a K split summed by
 //                           data_split_sum_f32_kernel where M is short
-//   bwd_data_f32_kernel     _temporal_bwd's data gradient
-//                           (_temporal_bwd_data_kernel, :612), and
-//                           _spatial_bwd's where no row-walk layout fits the
-//                           images
+//   temporal_data_f32_kernel _temporal_bwd's data gradient
+//                           (_temporal_bwd_data_kernel, :612): a frame walk
+//                           (its own section below)
+//   bwd_data_f32_kernel     _spatial_bwd's data gradient where no row-walk
+//                           layout fits the images
 //   spatial_filter_f32_kernel _spatial_bwd's filter gradient
 //                           (_spatial_bwd_filter_kernel, :554): a row walk
 //                           (its own section below), after fold_f32_kernel
@@ -56,8 +57,8 @@
 // so no TF32 and no tensor cores) and not memory (3.35 TB/s) set the floor.
 //
 // Design of the per-tap gathers (simple and right first; the forward's row
-// and frame walks and the spatial gradients' row walks are the redesigns,
-// described above their code). Every
+// and frame walks, the spatial gradients' row walks and the temporal data
+// gradient's frame walk are the redesigns, described above their code). Every
 // gather kernel is a block of 256 threads owning a 64 x 64 tile, each
 // thread 4 x 4 sums in registers, K walked in chunks of 16 through shared
 // memory, the next chunk's loads held in registers while the products of
@@ -76,9 +77,9 @@
 //   order; at the end the 16 position groups are reduced in a fixed order
 //   into one partial row per range, and colsum_f32_kernel sums the rows per
 //   channel in a fixed order.
-// - bwd_data_f32_kernel (the temporal kind, and the spatial kind's images
-//   too wide for the row walk): the same walk with the roles of the
-//   channels swapped: 64 positions x 64 input channels, K = taps x Co in
+// - bwd_data_f32_kernel (the spatial kind's images too wide for the row
+//   walk): the same walk with the roles of the
+//   channels swapped: 64 positions x 64 input channels, K = 9 x Co in
 //   chunks of 16 output channels of one tap, the ge chunk formed at the
 //   gather from gy, y, gs1 and gs2 at the neighbour (0 in the padding and
 //   past Co), the filter chunk read from [taps * Co, Ci] with the taps
@@ -96,7 +97,7 @@
 // Measured times are in PERF.md (chip_smoke.py, phases kernel_conv_f32 and
 // kernel_conv_f32_bwd; m3f_torch/scripts/filter_sweep.py --kind
 // spatial_fwd_f32 / temporal_fwd_f32 / spatial_filter_f32 / spatial_data_f32
-// for the walks' layouts and ablations).
+// / temporal_data_f32 for the walks' layouts and ablations).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -347,9 +348,9 @@ conv_f32_kernel(const F32FwdArgs a) {
   partial_rows(s1, s2, red1, red2, n0, a.Co, a.part1, a.part2);
 }
 
-// The data gradient: dx (and the partial rows of dinv / dshift with the
-// prologue) over a range of position tiles for one input-channel tile
-template <int KIND, bool AFFINE>
+// The spatial data gradient: dx (and the partial rows of dinv / dshift with
+// the prologue) over a range of position tiles for one input-channel tile
+template <bool AFFINE>
 __global__ void __launch_bounds__(THREADS)
 bwd_data_f32_kernel(const F32BwdDataArgs a) {
   __shared__ __align__(16) float As[KC][BM];
@@ -361,7 +362,7 @@ bwd_data_f32_kernel(const F32BwdDataArgs a) {
   const int lp = tid / 4, lc = (tid % 4) * 4;   // ge gather: position, channels
   const int lk = tid / 16, ln = (tid % 16) * 4; // w load: k row, channels
   const int n0 = blockIdx.x * BN;               // input channels
-  const int taps = KIND == 0 ? 9 : 3;
+  const int taps = 9;
   const int nck = (a.Co + KC - 1) / KC;
   const int steps = taps * nck;
 
@@ -391,7 +392,7 @@ bwd_data_f32_kernel(const F32BwdDataArgs a) {
       const int c = c0 + lc;
       int64_t src;
       if (gm_ok && c < a.Co &&
-          neighbour<KIND>(gm, gt, gh, gw, tap, a.T, a.H, a.W, src))
+          neighbour<0>(gm, gt, gh, gw, tap, a.T, a.H, a.W, src))
         ga = fold4(ld4(a.gy + src * a.Co + c), ld4(a.y + src * a.Co + c),
                    ld4(a.gs1 + c), ld4(a.gs2 + c));
       // the mirrored filter's rows tap * Co + c0 + lk, input channels
@@ -674,6 +675,11 @@ __device__ __forceinline__ void cp_async_commit() {
 
 __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// all but the most recent group landed
+__device__ __forceinline__ void cp_async_wait_one() {
+  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
 }
 
 struct SpatialFwdF32Args {
@@ -2166,6 +2172,497 @@ int spatial_data_f32_either(bool affine, SpatialDataF32Args a, int blocks,
                 : launch_spatial_data_f32<NCG, NPG, KC, false>(a, blocks, s);
 }
 
+// ---------------------------------------------------------------------------
+// The temporal data gradient: the frame walk (temporal_data_f32_kernel)
+// ---------------------------------------------------------------------------
+//
+// Replaces _temporal_bwd's data gradient (m3f/pytorch_tpu/ops/pallas/
+// conv_bn.py:612, kernel _temporal_bwd_data_kernel at :407, ge from _gy_eff
+// at :287) for fp32 x:
+//   dx^[b,t,p,ci] = sum_k sum_co ge[b,t+k-1,p,co] * W[2-k][ci,co]
+// with ge 0 at the frames -1 and T (not the fold of a zero gy and y, which
+// is gs1), then with the prologue the mask, dx = f32(dxa * inv) and dinv /
+// dshift. At the train step's stage 1 (gy [32,16,56,56,64] -> dx 144) a
+// launch is 85 GFLOP of fp32 FMA on 2.7 GB: 1.27 ms at 67 TFLOP/s against
+// 0.80 ms of memory, and every stage is operation-bound. What the per-tap
+// gather (bwd_data_f32_kernel's first design) spent beyond the products (ge
+// gathered and folded again for each of the three taps and each 64-channel
+// N tile, a quarter of stage 1's columns padding, 4x4 register tiles, a
+// synchronous gather through registers, (b, t, h, w) decoded per tile) is
+// what this design takes out. It is temporal_fwd_f32_kernel's walk with ge
+// in place of x^ and the mirrored filter in place of W, and
+// spatial_data_f32_kernel's epilogue.
+//
+// - Frame walk. A unit is a strip of S consecutive positions of the
+//   flattened B*H*W axis (across clips where H*W is small), walked over t =
+//   0..T-1; a block's units follow one another in one stream of chunks.
+//   Frame t's gy and y arrive by cp.async in chunks of KC = 16 output
+//   channels (gy double buffered, zero-filled past the strip and past
+//   C_out; y single: only its copier reads it, before the barrier that frees
+//   it). Each thread folds ge = gy + (gs1 + (2 y) gs2) in place once on the
+//   vectors it copied, after its own wait_group (each op rounded; never past
+//   the strip or past C_out). The folded chunk feeds three accumulator sets,
+//   dx^ frames t+1 (tap 0), t (tap 1) and t-1 (tap 2); a tap whose frame
+//   lies outside the clip is skipped, which is ge's zero padding. After
+//   frame t's last chunk dx^ frame t-1 is complete and leaves through the
+//   epilogue, and the sets shift by one frame.
+// - The mirrored filter [3 * C_out, C_in] (row tap * Co + co = W[2 - tap,
+//   ci, co], laid out by the wrapper) stays resident in shared memory where
+//   [3 * C_out, NB] fits beside the buffers (loaded once a block with the
+//   first chunk), else streams in [3 * KC, NB] chunks with the ge chunks.
+// - FFMA microkernel (temporal_fwd_f32_kernel's): NPG x NCG threads, each 4
+//   positions (pg + NPG i) x 8 input channels (4 at cg * 4, 4 at NB/2 + cg
+//   * 4) x 3 frames, 96 fp32 sums; 28 LDS.128 per 384 FFMA. N tiles of NB =
+//   8 * NCG: 64 (a warp is 4 position groups x 8 channel groups and reads B
+//   in one wavefront), or 144, which divides every train stage's C_in (a
+//   warp then holds threads tid % NCG and reads B in three wavefronts, and
+//   still beats 8 positions x 4 channels a thread, whose warps read A and B
+//   in one each; tiles of 48 and 72 won no stage: PERF.md); the
+//   strip S = 4 * NPG is the most that 8 warps hold (tdf_run's instances
+//   below).
+// - Epilogue: dx leaves from registers in 16-byte stores along the
+//   channels. With the prologue each thread copies the x vectors its
+//   epilogue will read (4 positions x 8 channels of each finished frame)
+//   by cp.async into its own slots of shared memory before the frame's
+//   last chunk is multiplied, as a group of its own that the products then
+//   hide (reading them from global memory in the epilogue stalled the
+//   block: PERF.md); then xa = f32(f32(x * inv) + shift) with two
+//   roundings, the mask, dx = f32(dxa * inv), and dinv / dshift as
+//   per-thread fp32 sums over the walk in a fixed order (units, frames,
+//   positions), then the NPG position groups in order into one partial row
+//   per range, summed by colsum_f32_kernel. No atomics: two calls give the
+//   same bits.
+// - Grid: ranges of units x N tiles, the N tile fastest (the blocks reading
+//   the same ge run together), one block a SM; f32_temporal_data_plan
+//   (ops/conv_bn.py) picks NB and sizes the ranges for the fewest unit-times
+//   to the last block's end.
+
+constexpr int TDF_KC = 16;            // output channels a chunk
+// Measurement knob, for filter_sweep.py only (dx is then wrong, but for
+// 16): 1 leaves out folding ge, 2 the products, 4 the copies of gy, y, x
+// and the filter (the buffers keep what they held), 8 the epilogue (dx
+// stores and sums, and the copies of x); 15 leaves the walk alone; 16 reads
+// x from global memory in the epilogue (the first design) in place of the
+// copies ahead.
+#ifndef TDF_ABLATE
+#define TDF_ABLATE 0
+#endif
+
+struct TemporalDataF32Args {
+  const float* gy;     // [B, T, H*W, Co]
+  const float* y;
+  const float* gs1;    // [Co]
+  const float* gs2;
+  const float* wt;     // [3 * Co, Ci], row tap * Co + co = W[2 - tap, ci, co]
+  const float* x;      // [B, T, H*W, Ci] (the prologue) or null
+  const float* inv;    // [Ci] or null
+  const float* shift;
+  float* dx;           // [B, T, H*W, Ci]
+  float* part1;        // [ranges, Ci]: dinv's partial rows (the prologue)
+  float* part2;        // [ranges, Ci]: dshift's
+  int64_t positions;   // B * H*W: the axis the strips cut
+  int T, HW, Ci, Co;
+  int units;           // ceil(positions / S)
+  int units_per_range;
+  int n_tiles;
+  int resident;        // the block's filter tile stays in shared memory
+};
+
+// A block's shared memory: two gy / ge chunk buffers and one y buffer
+// [S][KC + 4], with the prologue the threads' x slots (two frames of 4
+// positions x 8 channels a thread: 2 * S * NB floats), and the filter
+// (resident [3 * Cop][NB], Cop = C_out in whole chunks, or two streamed
+// chunks [3 * KC][NB]); the block's sums reuse it at the end.
+// ops/conv_bn.py (_temporal_data_f32_smem) computes the same.
+size_t tdf_smem(int S, int NB, int Cop, int res, int aff) {
+  const size_t filt = res ? (size_t)3 * Cop * NB : (size_t)2 * 3 * TDF_KC * NB;
+  const size_t xs = aff ? (size_t)2 * S * NB : 0;
+  return sizeof(float) * (filt + xs + (size_t)3 * S * (TDF_KC + 4));
+}
+
+// NPG x NCG threads, each 4 positions x 8 input channels (two vectors of
+// 4) x 3 frames: S = 4 * NPG positions a strip, NB = 8 * NCG input
+// channels a block.
+template <int NCG, int NPG, bool AFFINE>
+__global__ void __launch_bounds__(NPG * NCG, 1)
+temporal_data_f32_kernel(const TemporalDataF32Args a) {
+  constexpr int PT = 4, CV = 2;                // positions, channel vectors
+  constexpr int NTH = NPG * NCG, NB = 8 * NCG, S = 4 * NPG;
+  constexpr int NV = NB / 2;                   // channel vector j at j * NV
+  constexpr int KC = TDF_KC, LDC = KC + 4;     // a position's stride (floats)
+  constexpr int QV = KC / 4;                   // 16-byte vectors of a position's chunk
+  constexpr int GVN = S * QV;                  // 16-byte vectors of a strip's chunk
+  constexpr int GV = (GVN + NTH - 1) / NTH;    // ... a thread copies, at most
+  constexpr int FR = 3 * KC;                   // filter rows of a chunk
+  constexpr int FV = FR * NB / 4;              // 16-byte vectors of a filter chunk
+  constexpr int F_IT = (FV + NTH - 1) / NTH;
+  static_assert(NTH % QV == 0 && NTH <= 256 && NTH >= NB &&
+                    (NCG % 8 != 0 || NPG % 4 == 0) &&
+                    2 * NPG * NB <= 3 * S * LDC + 2 * FR * NB,
+                "copies, warp layout, 8 warps, block sums");
+  const int T = a.T, HW = a.HW, Ci = a.Ci, Co = a.Co;
+  const bool res = a.resident != 0;
+  const int nck = (Co + KC - 1) / KC;          // chunks a frame
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* Gb = reinterpret_cast<float*>(smem_raw);   // [2][S][LDC]: gy, then ge
+  float* Yb = Gb + 2 * S * LDC;                     // [S][LDC]: y
+  float* Xs = Yb + S * LDC;                         // [2][8][NTH] float4: x
+  float* Fb = Xs + (AFFINE ? 2 * S * NB : 0);       // [nck][FR][NB] or [2][FR][NB]
+
+  const int tid = threadIdx.x;
+  int cg, pg;                                   // channels j * NV + cg*4,
+  if constexpr (NCG % 8 == 0) {                 // positions pg + NPG*i
+    const int lane = tid & 31, warp = tid >> 5; // a warp: 4 x 8 of them
+    cg = (warp % (NCG / 8)) * 8 + (lane >> 2);
+    pg = (warp / (NCG / 8)) * 4 + (lane & 3);
+  } else {
+    cg = tid % NCG;
+    pg = tid / NCG;
+  }
+  const int n0 = ((int)blockIdx.x % a.n_tiles) * NB;
+  const int range = (int)blockIdx.x / a.n_tiles;
+  const int u0 = range * a.units_per_range;
+  const int u1 = min(a.units, u0 + a.units_per_range);
+  const int nq = u1 > u0 ? (u1 - u0) * T * nck : 0;   // chunks of the walk
+  const int cq = (tid % QV) * 4;               // this thread's channels of a chunk
+
+  // the resident filter: chunk c's rows tap * KC + k at [c][FR][NB], zero
+  // past Co and Ci
+  if (res && !(TDF_ABLATE & 4)) {
+    for (int idx = tid; idx < nck * FV; idx += NTH) {
+      const int r = idx / (NB / 4), c4 = (idx - r * (NB / 4)) * 4;
+      const int c = r / FR, tap = (r - c * FR) / KC;
+      const int co = c * KC + r - c * FR - tap * KC;
+      const bool ok = co < Co && n0 + c4 < Ci;
+      cp_async16(Fb + r * NB + c4,
+                 ok ? a.wt + ((int64_t)tap * Co + co) * Ci + n0 + c4 : a.wt, ok);
+    }
+  }
+
+  // The position of strip row r of unit u at frame 0, b*T*HW + p (-1 past
+  // the positions): only entering a unit divides.
+  auto row_pos = [&](int u, int r) -> int64_t {
+    const int64_t gp = (int64_t)u * S + r;
+    if (gp >= a.positions) return -1;
+    const int64_t b = gp / HW;
+    return b * T * HW + (gp - b * HW);
+  };
+  // This thread's gy / y vectors of a chunk: tid + j*NTH -> strip row
+  // (tid + j*NTH) / QV, channels cq .. cq+3 of the chunk (-2: none)
+  int64_t g_pos[GV];
+  auto seek_g = [&](int u) {
+#pragma unroll
+    for (int j = 0; j < GV; ++j) {
+      const int idx = tid + j * NTH;
+      g_pos[j] = idx < GVN ? row_pos(u, idx / QV) : -2;
+    }
+  };
+  // This thread's dx positions, strip rows pg + NPG*i
+  int64_t d_pos[PT];
+  auto seek_d = [&](int u) {
+#pragma unroll
+    for (int i = 0; i < PT; ++i) d_pos[i] = row_pos(u, pg + NPG * i);
+  };
+
+  // A cursor on the walk: chunk c of frame t of unit u, the walk's q-th.
+  struct Cursor {
+    int q, u, t, c;
+  };
+  auto advance = [&](Cursor& w) {
+    ++w.q;
+    if (++w.c < nck) return false;
+    w.c = 0;
+    if (++w.t < T) return false;
+    w.t = 0;
+    ++w.u;
+    return true;                   // a new unit
+  };
+
+  // chunk w: the strip's gy rows at frame w.t for the chunk's output
+  // channels into buffer w.q & 1, its y rows into the y buffer, and
+  // (streamed) the filter chunk
+  auto copy_chunk = [&](const Cursor& w) {
+    if (TDF_ABLATE & 4) return;
+    const int ch = w.c * KC + cq;
+    float* gd = Gb + (w.q & 1) * S * LDC;
+    const int64_t frame = (int64_t)w.t * HW;
+#pragma unroll
+    for (int j = 0; j < GV; ++j) {
+      if (g_pos[j] < -1) continue;
+      const int off = (tid + j * NTH) / QV * LDC + cq;
+      const bool ok = g_pos[j] >= 0 && ch < Co;
+      const int64_t src = ok ? (g_pos[j] + frame) * Co + ch : 0;
+      cp_async16(gd + off, a.gy + src, ok);
+      if (ok) cp_async16(Yb + off, a.y + src, true);
+    }
+    if (res) return;
+    float* fd = Fb + (w.q & 1) * FR * NB;
+#pragma unroll
+    for (int i = 0; i < F_IT; ++i) {
+      const int idx = tid + i * NTH;
+      if (FV % NTH != 0 && idx >= FV) break;
+      const int r = idx / (NB / 4), c4 = (idx - r * (NB / 4)) * 4;
+      const int tap = r / KC, co = w.c * KC + r - tap * KC;
+      const bool ok = co < Co && n0 + c4 < Ci;
+      cp_async16(fd + r * NB + c4,
+                 ok ? a.wt + ((int64_t)tap * Co + co) * Ci + n0 + c4 : a.wt, ok);
+    }
+  };
+  // ge = gy + (gs1 + (2 y) gs2) in place, on this thread's vectors of the
+  // chunk (never those past the strip or past Co)
+  auto form_chunk = [&](const Cursor& w) {
+    const int ch = w.c * KC + cq;
+    if ((TDF_ABLATE & 1) || ch >= Co) return;
+    const float4 g1 = ld4(a.gs1 + ch), g2 = ld4(a.gs2 + ch);
+    float* gd = Gb + (w.q & 1) * S * LDC;
+#pragma unroll
+    for (int j = 0; j < GV; ++j) {
+      if (g_pos[j] < 0) continue;
+      const int off = (tid + j * NTH) / QV * LDC + cq;
+      float4* p = reinterpret_cast<float4*>(gd + off);
+      *p = fold4(*p, ld4(Yb + off), g1, g2);
+    }
+  };
+
+  constexpr int NC = 4 * CV;       // a thread's input channels
+  float acc[3][PT][NC];            // dx^ frames t-1, t, t+1
+#pragma unroll
+  for (int f = 0; f < 3; ++f)
+#pragma unroll
+    for (int i = 0; i < PT; ++i)
+#pragma unroll
+      for (int c = 0; c < NC; ++c) acc[f][i][c] = 0.f;
+  // acc[2 - tap][i][c] += ge at position i, output channel k, times the
+  // mirrored filter's row (tap, k) at this thread's input channels, over
+  // chunk w; the taps whose dx^ frame lies outside the clip are skipped
+  auto products = [&](const Cursor& w) {
+    const float* gs = Gb + (w.q & 1) * S * LDC + pg * LDC;
+    const float* fs = (res ? Fb + w.c * FR * NB : Fb + (w.q & 1) * FR * NB) + cg * 4;
+    const bool t0 = w.t + 1 < T, t2 = w.t > 0;
+#pragma unroll
+    for (int q = 0; q < QV; ++q) {
+      float4 av[PT];
+#pragma unroll
+      for (int i = 0; i < PT; ++i) av[i] = ld4(gs + i * NPG * LDC + 4 * q);
+#pragma unroll
+      for (int tap = 0; tap < 3; ++tap) {
+        if ((tap == 0 && !t0) || (tap == 2 && !t2)) continue;
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+          const float* fr = fs + (tap * KC + 4 * q + kk) * NB;
+          float4 bv[CV];
+#pragma unroll
+          for (int j = 0; j < CV; ++j) bv[j] = ld4(fr + j * NV);
+#pragma unroll
+          for (int i = 0; i < PT; ++i) {
+            const float ak = lane4(av[i], kk);
+            const int f = 2 - tap;
+#pragma unroll
+            for (int j = 0; j < CV; ++j) {
+              acc[f][i][4 * j] = fmaf(ak, bv[j].x, acc[f][i][4 * j]);
+              acc[f][i][4 * j + 1] = fmaf(ak, bv[j].y, acc[f][i][4 * j + 1]);
+              acc[f][i][4 * j + 2] = fmaf(ak, bv[j].z, acc[f][i][4 * j + 2]);
+              acc[f][i][4 * j + 3] = fmaf(ak, bv[j].w, acc[f][i][4 * j + 3]);
+            }
+          }
+        }
+      }
+    }
+  };
+
+  float s1[NC], s2[NC];            // dinv's and dshift's per-thread sums
+#pragma unroll
+  for (int c = 0; c < NC; ++c) s1[c] = s2[c] = 0.f;
+  bool ok[CV];                     // channel vector j inside Ci
+#pragma unroll
+  for (int j = 0; j < CV; ++j) ok[j] = n0 + j * NV + cg * 4 < Ci;
+  // This thread's x slot k (j * PT + i: channel vector j, position i) of
+  // frame slot fs: [fs][k][NTH] float4, a warp's lanes on consecutive
+  // vectors
+  auto x_slot = [&](int fs, int k) { return Xs + ((fs * 8 + k) * NTH + tid) * 4; };
+  // the x vectors the epilogues of chunk w will read, into this thread's
+  // slots: frame t-1 into slot 0, at the clip's last frame frame t into 1
+  auto copy_x = [&](const Cursor& w) {
+    if (TDF_ABLATE & (4 | 8 | 16)) return;
+#pragma unroll
+    for (int fs = 0; fs < 2; ++fs) {
+      const int tf = w.t - 1 + fs;
+      if ((fs == 0 && w.t == 0) || (fs == 1 && w.t + 1 != T)) continue;
+      const int64_t frame = (int64_t)tf * HW;
+#pragma unroll
+      for (int j = 0; j < CV; ++j) {
+        if (!ok[j]) continue;
+        const int n = n0 + j * NV + cg * 4;
+#pragma unroll
+        for (int i = 0; i < PT; ++i)
+          if (d_pos[i] >= 0)
+            cp_async16(x_slot(fs, j * PT + i),
+                       a.x + (d_pos[i] + frame) * Ci + n, true);
+      }
+    }
+  };
+  // dx^ frame tf of the current unit from accumulator set f, with the
+  // prologue x from frame slot fs: the mask and inv, dx straight from the
+  // registers, and its share of dinv / dshift in a fixed order
+  auto epilogue = [&](const float (&f)[PT][NC], int tf, int fs) {
+    if (TDF_ABLATE & 8) return;
+    const int64_t frame = (int64_t)tf * HW;
+#pragma unroll
+    for (int j = 0; j < CV; ++j) {
+      if (!ok[j]) continue;
+      const int n = n0 + j * NV + cg * 4;
+      float4 x4[PT];
+      if (AFFINE) {
+#pragma unroll
+        for (int i = 0; i < PT; ++i)
+          x4[i] = !(TDF_ABLATE & 16) ? ld4(x_slot(fs, j * PT + i))
+                  : d_pos[i] < 0     ? zero4()
+                                     : ld4(a.x + (d_pos[i] + frame) * Ci + n);
+      }
+      float4 iv = zero4(), sv = zero4();
+      if (AFFINE) {
+        iv = ld4(a.inv + n);
+        sv = ld4(a.shift + n);
+      }
+#pragma unroll
+      for (int i = 0; i < PT; ++i) {
+        if (d_pos[i] < 0) continue;
+        float d[4] = {f[i][4 * j], f[i][4 * j + 1], f[i][4 * j + 2],
+                      f[i][4 * j + 3]};
+        if (AFFINE) {
+#pragma unroll
+          for (int k = 0; k < 4; ++k) {
+            const float xv = lane4(x4[i], k), ivk = lane4(iv, k);
+            const float xa = __fadd_rn(__fmul_rn(xv, ivk), lane4(sv, k));
+            const float dxa = xa > 0.f ? d[k] : 0.f;
+            d[k] = __fmul_rn(dxa, ivk);
+            s1[4 * j + k] = __fadd_rn(s1[4 * j + k], __fmul_rn(xv, dxa));
+            s2[4 * j + k] = __fadd_rn(s2[4 * j + k], dxa);
+          }
+        }
+        *reinterpret_cast<float4*>(a.dx + (d_pos[i] + frame) * Ci + n) =
+            make_float4(d[0], d[1], d[2], d[3]);
+      }
+    }
+  };
+
+  Cursor cc{0, u0, 0, 0}, mc{0, u0, 0, 0};   // the chunk copied, multiplied
+  if (nq > 0) {
+    seek_g(u0);
+    seek_d(u0);
+    copy_chunk(cc);                 // with the resident filter, one group
+  }
+  cp_async_commit();
+  for (int q = 0; q < nq; ++q) {
+    cp_async_wait_all();            // this thread's copies of chunk q landed
+    form_chunk(mc);
+    __syncthreads();                // chunk q folded; chunk q-1 multiplied
+    const bool last = mc.c == nck - 1;   // frame t's last chunk
+    if (AFFINE && last) {           // the epilogue's x, a group of its own
+      copy_x(mc);
+      cp_async_commit();
+    }
+    if (q + 1 < nq) {               // chunk q+1, into the buffers of q-1
+      if (advance(cc)) seek_g(cc.u);
+      copy_chunk(cc);
+    }
+    cp_async_commit();
+    if (!(TDF_ABLATE & 2)) products(mc);
+    if (last) {                     // frame t-1 is done
+      const int t = mc.t;
+      if (AFFINE) cp_async_wait_one();   // this thread's x landed
+      if (t > 0) epilogue(acc[0], t - 1, 0);
+      if (t + 1 == T) {
+        epilogue(acc[1], t, 1);
+#pragma unroll
+        for (int f = 0; f < 3; ++f)
+#pragma unroll
+          for (int i = 0; i < PT; ++i)
+#pragma unroll
+            for (int c = 0; c < NC; ++c) acc[f][i][c] = 0.f;
+      } else {
+#pragma unroll
+        for (int i = 0; i < PT; ++i)
+#pragma unroll
+          for (int c = 0; c < NC; ++c) {
+            acc[0][i][c] = acc[1][i][c];
+            acc[1][i][c] = acc[2][i][c];
+            acc[2][i][c] = 0.f;
+          }
+      }
+    }
+    if (advance(mc)) seek_d(mc.u);
+    if ((TDF_ABLATE & 8) && T < 0) {   // never true: keeps the products alive
+#pragma unroll
+      for (int f = 0; f < 3; ++f)
+#pragma unroll
+        for (int i = 0; i < PT; ++i)
+#pragma unroll
+          for (int c = 0; c < NC; ++c) a.dx[(f * PT + i) * NC + c] = acc[f][i][c];
+    }
+  }
+  if (!AFFINE) return;
+  cp_async_wait_all();
+  __syncthreads();                  // every product read: reuse the buffers
+
+  // the range's partial row: the NPG position groups in order
+  float* red1 = Gb;                 // [NPG][NB]
+  float* red2 = Gb + NPG * NB;
+#pragma unroll
+  for (int j = 0; j < CV; ++j)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      red1[pg * NB + j * NV + cg * 4 + c] = s1[4 * j + c];
+      red2[pg * NB + j * NV + cg * 4 + c] = s2[4 * j + c];
+    }
+  __syncthreads();
+  if (tid < NB && n0 + tid < Ci) {
+    float v1 = 0.f, v2 = 0.f;
+    for (int g = 0; g < NPG; ++g) {
+      v1 += red1[g * NB + tid];
+      v2 += red2[g * NB + tid];
+    }
+    a.part1[(int64_t)range * Ci + n0 + tid] = v1;
+    a.part2[(int64_t)range * Ci + n0 + tid] = v2;
+  }
+}
+
+// One launch of the frame walk in the layout NCG x NPG (N tile 8 * NCG,
+// strips of 4 * NPG positions) over ranges of per units, then with the
+// prologue the fixed-order sum of the partial rows: the C entry's args
+// completed here, since the strip sets the units.
+template <int NCG, int NPG>
+int tdf_run(TemporalDataF32Args a, int per, float* dinv, float* dshift,
+            float* part, cudaStream_t s) {
+  constexpr int S = 4 * NPG, NB = 8 * NCG;
+  const int64_t units = (a.positions + S - 1) / S;
+  const int64_t ranges = (units + per - 1) / per;
+  const int n_tiles = (a.Ci + NB - 1) / NB;
+  if (units >= ((int64_t)1 << 31) || ranges * n_tiles >= ((int64_t)1 << 31) ||
+      units * a.T * ((a.Co + TDF_KC - 1) / TDF_KC) >= ((int64_t)1 << 31))
+    return (int)cudaErrorInvalidValue;
+  const bool affine = a.x != nullptr;
+  a.units = (int)units;
+  a.units_per_range = per;
+  a.n_tiles = n_tiles;
+  a.part1 = affine ? part : nullptr;
+  a.part2 = affine ? part + ranges * a.Ci : nullptr;
+  const int cop = (a.Co + TDF_KC - 1) / TDF_KC * TDF_KC;
+  const size_t smem = tdf_smem(S, NB, cop, a.resident, affine);
+  if (smem > (size_t)SWF_SMEM_MAX) return (int)cudaErrorInvalidValue;
+  auto kern = affine ? temporal_data_f32_kernel<NCG, NPG, true>
+                     : temporal_data_f32_kernel<NCG, NPG, false>;
+  cudaError_t e = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  kern<<<(unsigned)(ranges * n_tiles), NPG * NCG, smem, s>>>(a);
+  e = cudaGetLastError();
+  if (e != cudaSuccess || !affine) return (int)e;
+  colsum_f32_kernel<<<(a.Ci + 31) / 32, dim3(32, 32), 0, s>>>(
+      a.part1, a.part2, (int)ranges, a.Ci, dinv, dshift);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // Spatial forward unit, fp32, the per-tap gather (the route of images too
@@ -2329,8 +2826,9 @@ extern "C" int m3f_spatial_fwd_f32(const void* x, const void* wk,
   return (int)cudaGetLastError();
 }
 
-// Data gradient, fp32. gy / y [B, T, H, W, Co], gs1 / gs2 [Co], wt
-// [taps * Co, Ci] (row tap * Co + co = W[taps - 1 - tap, ci, co]: the
+// Spatial data gradient, fp32, the per-tap gather (the route of images too
+// wide for the row walk). gy / y [B, T, H, W, Co], gs1 / gs2 [Co], wt
+// [9 * Co, Ci] (row tap * Co + co = W[8 - tap, ci, co]: the
 // filter's taps mirrored, each transposed), x [B, T, H, W, Ci] and
 // inv / shift [Ci] with the prologue (all three null without), dx
 // [B, T, H, W, Ci], dinv / dshift [Ci] and part a scratch of 2 * ranges * Ci
@@ -2340,11 +2838,11 @@ extern "C" int m3f_spatial_fwd_f32(const void* x, const void* wk,
 extern "C" int m3f_conv_unit_bwd_data_f32(
     const void* gy, const void* y, const void* gs1, const void* gs2,
     const void* wt, const void* x, const void* inv, const void* shift,
-    void* dx, void* dinv, void* dshift, void* part, int kind, int B, int T,
-    int H, int W, int Ci, int Co, int per, void* stream) {
+    void* dx, void* dinv, void* dshift, void* part, int B, int T, int H,
+    int W, int Ci, int Co, int per, void* stream) {
   const int64_t M = (int64_t)B * T * H * W;
   const bool affine = x != nullptr;
-  if ((kind != 0 && kind != 1) || per < 1 || Ci % 8 != 0 || Co % 8 != 0 ||
+  if (per < 1 || Ci % 8 != 0 || Co % 8 != 0 ||
       Ci == 0 || Co == 0 || (inv == nullptr) == affine ||
       (shift == nullptr) == affine || (dinv == nullptr) == affine ||
       (dshift == nullptr) == affine || (part == nullptr) == affine)
@@ -2381,17 +2879,10 @@ extern "C" int m3f_conv_unit_bwd_data_f32(
   a.m_tiles = (int)m_tiles;
   a.tiles_per_range = per;
   const dim3 grid((Ci + BN - 1) / BN, ranges);
-  if (kind == 0) {
-    if (affine)
-      bwd_data_f32_kernel<0, true><<<grid, THREADS, 0, s>>>(a);
-    else
-      bwd_data_f32_kernel<0, false><<<grid, THREADS, 0, s>>>(a);
-  } else {
-    if (affine)
-      bwd_data_f32_kernel<1, true><<<grid, THREADS, 0, s>>>(a);
-    else
-      bwd_data_f32_kernel<1, false><<<grid, THREADS, 0, s>>>(a);
-  }
+  if (affine)
+    bwd_data_f32_kernel<true><<<grid, THREADS, 0, s>>>(a);
+  else
+    bwd_data_f32_kernel<false><<<grid, THREADS, 0, s>>>(a);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess || !affine) return (int)e;
   colsum_f32_kernel<<<(Ci + 31) / 32, dim3(32, 32), 0, s>>>(
@@ -2631,4 +3122,57 @@ extern "C" int m3f_spatial_data_f32(
   colsum_f32_kernel<<<(Ci + 31) / 32, dim3(32, 32), 0, s>>>(
       a.part1, a.part2, (int)rows, Ci, (float*)dinv, (float*)dshift);
   return (int)cudaGetLastError();
+}
+
+// Temporal data gradient, fp32, the frame walk. gy / y [B, T, H, W, Co],
+// gs1 / gs2 [Co], wt [3 * Co, Ci] (row tap * Co + co = W[2 - tap, ci, co]:
+// the filter's taps mirrored, each transposed), x [B, T, H, W, Ci] and
+// inv / shift [Ci] with the prologue (all three null without), dx
+// [B, T, H, W, Ci], dinv / dshift [Ci] and part a scratch of 2 * ranges * Ci
+// floats with the prologue (else null); nb (64 or 144) input channels a
+// block, each with its strip (128 or 56 positions of the B * H * W), ranges = ceil(ceil(B * H * W / strip) / per), resident 1
+// to keep the filter tile in shared memory; all fp32, contiguous, 16-byte
+// aligned, Ci and Co multiples of 8. Returns a cudaError_t
+// (cudaErrorInvalidValue where the resident filter does not fit).
+extern "C" int m3f_temporal_data_f32(
+    const void* gy, const void* y, const void* gs1, const void* gs2,
+    const void* wt, const void* x, const void* inv, const void* shift,
+    void* dx, void* dinv, void* dshift, void* part, int B, int T, int H,
+    int W, int Ci, int Co, int nb, int resident, int per, void* stream) {
+  const bool affine = x != nullptr;
+  if (per < 1 || Ci % 8 != 0 || Co % 8 != 0 || Ci == 0 || Co == 0 ||
+      (inv == nullptr) == affine || (shift == nullptr) == affine ||
+      (dinv == nullptr) == affine || (dshift == nullptr) == affine ||
+      (part == nullptr) == affine || (resident != 0 && resident != 1) ||
+      (int64_t)H * W >= ((int64_t)1 << 31))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  TemporalDataF32Args a{};
+  a.gy = (const float*)gy;
+  a.y = (const float*)y;
+  a.gs1 = (const float*)gs1;
+  a.gs2 = (const float*)gs2;
+  a.wt = (const float*)wt;
+  a.x = (const float*)x;
+  a.inv = (const float*)inv;
+  a.shift = (const float*)shift;
+  a.dx = (float*)dx;
+  a.positions = (int64_t)B * H * W;
+  a.T = T;
+  a.HW = H * W;
+  a.Ci = Ci;
+  a.Co = Co;
+  a.resident = resident;
+  if (a.positions * T == 0) {
+    if (!affine) return 0;
+    cudaMemsetAsync(dinv, 0, sizeof(float) * Ci, s);
+    cudaMemsetAsync(dshift, 0, sizeof(float) * Ci, s);
+    return (int)cudaGetLastError();
+  }
+  float *di = (float*)dinv, *ds = (float*)dshift, *scratch = (float*)part;
+  switch (nb) {                   // the layouts: tdf_run<NCG, NPG>
+    case 64: return tdf_run<8, 32>(a, per, di, ds, scratch, s);
+    case 144: return tdf_run<18, 14>(a, per, di, ds, scratch, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }

@@ -28,7 +28,8 @@ x is bf16 or fp32, and both halves have kernels for both (the reference's
 Pallas units run in the dtype of x): ``csrc/conv_bn.cu`` for bf16,
 ``csrc/conv_bn_f32.cu`` for fp32 (the forward, ``f32_temporal_fwd_plan`` /
 ``f32_spatial_fwd_plan`` / ``f32_fwd_plan``; the data
-and filter gradients, ``f32_bwd_data_plan`` / ``f32_spatial_filter_plan``
+gradient, ``f32_temporal_data_plan`` / ``f32_spatial_data_plan`` /
+``f32_bwd_data_plan``; the filter gradient, ``f32_spatial_filter_plan``
 / ``f32_bwd_filter_plan``), so an fp32 unit trains on the card as a bf16
 one does.
 """
@@ -902,7 +903,7 @@ def conv_unit_bwd_data(x, w, inv, shift, y, gy, gs1, gs2, *, kind: str):
     the CPU, one kernel launch (plus a fixed-order sum of its per-block
     dinv/dshift rows) on the card: for bf16 the row walk (spatial) or the
     frame walk (temporal), for fp32 the fp32 data gradient
-    (``f32_bwd_data_plan``); channel counts that are not multiples of 8 run
+    (``_conv_unit_bwd_data_f32``); channel counts that are not multiples of 8 run
     zero-padded (``pad_channels``)."""
     if x.device.type == "cpu":
         return conv_unit_bwd_data_reference(x, w, inv, shift, y, gy, gs1, gs2,
@@ -1152,7 +1153,8 @@ def conv_unit_bwd_filter(x, inv, shift, y, gy, gs1, gs2, *, kind: str
     return dw.reshape((3, 3, ci, co) if kind == "spatial" else (3, ci, co))
 
 
-# The fp32 backward (bwd_data_f32_kernel and bwd_filter_f32_kernel in
+# The fp32 backward's per-tap gathers (bwd_data_f32_kernel, the spatial
+# kind's images too wide for the row walk, and bwd_filter_f32_kernel in
 # conv_bn_f32.cu): the data gradient tiles as the fp32 forward does, its N
 # the input channels; the filter gradient takes tiles of 64 rows of
 # K = taps·C_in x 64 output channels over slices of the positions, walked in
@@ -1430,6 +1432,100 @@ def f32_spatial_data_plan(b: int, t: int, h: int, w: int, ci: int, co: int,
     return None if best is None else best[1]
 
 
+# The fp32 temporal data gradient's frame walk (temporal_data_f32_kernel in
+# conv_bn_f32.cu): row 4f's walk with ge in place of x̂, each thread 4
+# positions x 8 input channels x 3 dx̂ frames, K in chunks of 16 output
+# channels for all three taps, ge folded in place once per strip, frame and
+# N tile; at most 8 warps a block, so each N tile has its strip
+_TDF_LAYOUTS = {64: 128, 144: 56}  # N tile -> strip
+# preferred first where they pad C_in alike (measured on an H100,
+# filter_sweep.py --kind temporal_data_f32, PERF.md: at the train step's
+# stages 3-4 tiles of 64 took 5% less than 144, whose warps read B in three
+# wavefronts)
+_TDF_N_TILES = (64, 144)
+_TDF_TILE = (4, 8, 3)      # positions x input channels x dx̂ frames a thread
+_TDF_K_CHUNK = 16          # output channels a chunk (TDF_KC)
+
+
+def _temporal_data_f32_smem(co: int, n_tile: int, resident: bool,
+                            affine: bool) -> int:
+    """A block's shared memory (tdf_smem in conv_bn_f32.cu): two gy / ge
+    chunk buffers and one y buffer [strip, 16 + 4], with the prologue the
+    threads' x slots (two frames of [strip, n_tile]), and the filter
+    (resident [3·C_out in whole chunks, n_tile], or two streamed chunks
+    [3·16, n_tile])."""
+    cop = _cdiv(co, _TDF_K_CHUNK) * _TDF_K_CHUNK
+    strip = _TDF_LAYOUTS[n_tile]
+    filt = 3 * cop * n_tile if resident else 2 * 3 * _TDF_K_CHUNK * n_tile
+    xs = 2 * strip * n_tile if affine else 0
+    return 4 * (filt + xs + 3 * strip * (_TDF_K_CHUNK + 4))
+
+
+class F32TemporalDataPlan(NamedTuple):
+    """How the fp32 temporal data gradient's frame walk cuts its work: units
+    of ``strip`` consecutive positions of the flattened B·H·W axis (a strip
+    spans several clips where H·W is small), each walked over T by
+    ``threads`` threads, gy and y in chunks of ``k_chunk`` output channels a
+    frame, ge folded once into three dx̂-frame accumulators; ``n_tiles``
+    tiles of ``n_tile`` input channels (ge is folded once per tile), each
+    thread ``register_tile`` = positions x input channels x dx̂ frames of
+    sums (_TDF_TILE); the
+    mirrored filter tile ``resident`` in shared memory or streamed with the
+    chunks; ``blocks`` = ``ranges`` contiguous ranges of ``units_per_range``
+    units x ``n_tiles`` (``_tw_units_per_block``), each range one partial
+    row of dinv / dshift (``part_rows``); ``smem_bytes`` of shared memory a
+    block."""
+    strip: int
+    n_tile: int
+    k_chunk: int
+    threads: int
+    register_tile: Tuple[int, int, int]
+    resident: bool
+    positions: int
+    units: int
+    units_per_range: int
+    ranges: int
+    n_tiles: int
+    blocks: int
+    part_rows: int
+    smem_bytes: int
+
+    def units_of(self, r: int) -> range:
+        """The units of range ``r``, as the kernel takes them."""
+        return range(r * self.units_per_range,
+                     min(self.units, (r + 1) * self.units_per_range))
+
+    def positions_of(self, u: int) -> range:
+        """The positions b·H·W + p of unit ``u``; the unit walks every
+        frame of each."""
+        return range(u * self.strip, min(self.positions, (u + 1) * self.strip))
+
+
+def f32_temporal_data_plan(b: int, t: int, h: int, w: int, ci: int, co: int,
+                           sms: int, affine: bool = True,
+                           n_tile: Optional[int] = None
+                           ) -> F32TemporalDataPlan:
+    """The fp32 temporal data gradient's tiling on a card of ``sms``
+    multiprocessors, for every shape, with the prologue (``affine``) or
+    without: the N tile of _TDF_N_TILES that pads C_in least (on a tie the
+    first), the filter resident where it fits a block's shared memory
+    beside the buffers, else streamed (which always fits); ranges of strips
+    by ``_tw_units_per_block`` (one block a SM). ``n_tile`` asks for one N
+    tile (the sweep's and the tests')."""
+    nb = n_tile or min(_TDF_N_TILES, key=lambda n: _cdiv(ci, n) * n)
+    res = _temporal_data_f32_smem(co, nb, True, affine) <= _SMEM_BLOCK_MAX
+    strip = _TDF_LAYOUTS[nb]
+    positions = b * h * w
+    units = _cdiv(positions, strip)
+    n_tiles = _cdiv(ci, nb)
+    per = _tw_units_per_block(units, n_tiles, sms, 1)
+    ranges = _cdiv(units, per)
+    return F32TemporalDataPlan(strip, nb, _TDF_K_CHUNK, strip * nb // 32,
+                               _TDF_TILE, res, positions, units, per, ranges,
+                               n_tiles, ranges * n_tiles, ranges,
+                               _temporal_data_f32_smem(co, nb, res, affine))
+
+
 def f32_bwd_data_filter(w: torch.Tensor, kind: str) -> torch.Tensor:
     """The fp32 data gradient's B operand, [taps·C_out, C_in]: row
     tap·C_out + co holds W[taps - 1 - tap, :, co] (the taps mirrored, each
@@ -1442,11 +1538,13 @@ def f32_bwd_data_filter(w: torch.Tensor, kind: str) -> torch.Tensor:
 
 def _conv_unit_bwd_data_f32(x, w, inv, shift, y, gy, gs1, gs2, kind):
     """The fp32 data gradient on the card (C_in, C_out multiples of 8): the
-    spatial row walk (spatial_data_f32_kernel, ``f32_spatial_data_plan``,
-    with a K split its second pass) or, for the temporal kind and for images
-    too wide for the walk, the per-tap gather (bwd_data_f32_kernel,
-    ``f32_bwd_data_plan``); plus, with the prologue, the fixed-order sum of
-    the partial rows of dinv / dshift."""
+    temporal frame walk (temporal_data_f32_kernel,
+    ``f32_temporal_data_plan``), the spatial row walk
+    (spatial_data_f32_kernel, ``f32_spatial_data_plan``, with a K split its
+    second pass) or, for images too wide for the row walk, the spatial
+    per-tap gather (bwd_data_f32_kernel, ``f32_bwd_data_plan``); plus, with
+    the prologue, the fixed-order sum of the partial rows of dinv /
+    dshift."""
     b, t, h, wd, ci = x.shape
     co = gy.shape[-1]
     affine = inv is not None
@@ -1458,10 +1556,15 @@ def _conv_unit_bwd_data_f32(x, w, inv, shift, y, gy, gs1, gs2, kind):
         xa, inv, shift = (_aligned16(x), _aligned16(inv.float()),
                           _aligned16(shift.float()))
     sms = torch.cuda.get_device_properties(x.device).multi_processor_count
-    walk = f32_spatial_data_plan(b, t, h, wd, ci, co, sms) \
-        if kind == "spatial" else None
-    plan = walk or f32_bwd_data_plan(b, t, h, wd, ci, sms)
-    rows = walk.part_rows if walk is not None else plan.ranges
+    frames = walk = gather = None
+    if kind == "temporal":
+        frames = f32_temporal_data_plan(b, t, h, wd, ci, co, sms, affine)
+        rows = frames.part_rows
+    else:
+        walk = f32_spatial_data_plan(b, t, h, wd, ci, co, sms)
+        gather = f32_bwd_data_plan(b, t, h, wd, ci, sms) if walk is None \
+            else None
+        rows = walk.part_rows if walk is not None else gather.ranges
     dx = torch.empty(b, t, h, wd, ci, dtype=torch.float32, device=x.device)
     dinv = dshift = part = None
     if affine:
@@ -1474,7 +1577,12 @@ def _conv_unit_bwd_data_f32(x, w, inv, shift, y, gy, gs1, gs2, kind):
             ptr(dinv), ptr(dshift), ptr(part))
     lib = cuda_lib.library("conv_bn_f32")
     with torch.cuda.device(x.device):
-        if walk is not None:
+        if frames is not None:
+            err = lib.m3f_temporal_data_f32(
+                *ptrs, b, t, h, wd, ci, co, frames.n_tile,
+                int(frames.resident), frames.units_per_range,
+                cuda_lib.stream_ptr(x))
+        elif walk is not None:
             dxpart = torch.empty(walk.part_bytes // 4, dtype=torch.float32,
                                  device=x.device) if walk.k_splits > 1 else None
             err = lib.m3f_spatial_data_f32(
@@ -1483,8 +1591,8 @@ def _conv_unit_bwd_data_f32(x, w, inv, shift, y, gy, gs1, gs2, kind):
                 cuda_lib.stream_ptr(x))
         else:
             err = lib.m3f_conv_unit_bwd_data_f32(
-                *ptrs, 0 if kind == "spatial" else 1, b, t, h, wd, ci, co,
-                plan.tiles_per_range, cuda_lib.stream_ptr(x))
+                *ptrs, b, t, h, wd, ci, co, gather.tiles_per_range,
+                cuda_lib.stream_ptr(x))
     cuda_lib.check(err, f"conv_unit_bwd_data {kind} fp32 kernel")
     cuda_lib.launches[f"conv_{kind}_bwd_data_f32"] += 1
     return dx, dinv, dshift

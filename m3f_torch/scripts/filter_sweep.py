@@ -126,6 +126,19 @@ in the full-width ``fusion`` train step (32 clips, BN prologue on), beside:
   formed (TF32 off); ablations built with ``-DSDF_ABLATE``: without
   forming ge (1), the products (2), the copies (4), the epilogue (8), and
   the walk alone (15); a device copy of gy, y and x;
+- ``--kind temporal_data_f32``: ``conv_unit_bwd_data`` of the temporal
+  unit at fp32 x (the frame walk ``temporal_data_f32_kernel`` in
+  ``csrc/conv_bn_f32.cu``) at the four temporal units of the train step
+  (32 clips, with the prologue), every time a device time: in alternating
+  rounds the wrapper, the planner's layout through the C entry twice,
+  every N tile the plan can choose (64, 144) and the plan's with
+  the filter resident and streamed, with ``--parent`` an earlier
+  ``conv_bn_f32.cu``'s per-tap gather (``bwd_data_f32_kernel``, the first
+  design), and cuDNN's fp32 ``conv3d_input`` on ge already formed (TF32
+  off); ablations built with ``-DTDF_ABLATE``: without folding ge (1), the
+  products (2), the copies (4), the epilogue (8), the walk alone (15), and
+  x read from global memory in the epilogue in place of its copies ahead
+  (16, the first design); a device copy of gy, y and x;
 - ``--kind mel``: the mel FFT kernel at the serving path's shapes (static
   and per-row hop), and the DFT-product kernel (n_fft 400) at the same
   rows, against their plain versions, and beside ``torch.stft`` + the mel
@@ -185,6 +198,10 @@ Run on a machine with an NVIDIA GPU, from the repository root:
     python -m m3f_torch.scripts.filter_sweep --kind spatial_data_f32 --check
     python -m m3f_torch.scripts.filter_sweep --kind spatial_data_f32 \
         [--reps 10] [--parent build/parent/conv_bn_f32.cu]
+    python -m m3f_torch.scripts.filter_sweep --kind temporal_data_f32 --check \
+        [--parent build/parent/conv_bn_f32.cu]
+    python -m m3f_torch.scripts.filter_sweep --kind temporal_data_f32 \
+        [--reps 10] [--parent build/parent/conv_bn_f32.cu]
     python -m m3f_torch.scripts.filter_sweep --kind temporal_fwd_f32 --check
     python -m m3f_torch.scripts.filter_sweep --kind temporal_fwd_f32 \
         [--reps 10] [--parent build/parent/conv_bn_f32.cu]
@@ -206,8 +223,8 @@ and holds the kernel once against the plain version at each shape and at a
 few small ones (``temporal_data``: at every layout the entry point takes;
 ``spatial_data``: at every step; ``spatial_fwd``: at every layout, filter
 resident and streamed; ``spatial_fwd_f32``, ``temporal_fwd_f32``,
-``spatial_filter_f32``, ``spatial_data_f32``: at every layout, and the
-spatial per-tap gathers;
+``spatial_filter_f32``, ``spatial_data_f32``, ``temporal_data_f32``: at
+every layout, and the per-tap gathers;
 ``temporal_fwd``: at every layout; ``gru``: on both routes at the edge
 shapes too, and at every layout; ``packed`` and
 ``packed_ablate``: every layout at small, edge and full shapes, and an
@@ -288,7 +305,8 @@ def resources(kind: str) -> None:
     ``spatial_data_kernel``, ``spatial_fwd_kernel``, ``temporal_fwd_kernel``;
     in conv_bn_f32.cu ``spatial_fwd_f32_kernel``,
     ``temporal_fwd_f32_kernel``, ``spatial_filter_f32_kernel``,
-    ``spatial_data_f32_kernel`` and ``data_split_sum_f32_kernel``;
+    ``spatial_data_f32_kernel``, ``data_split_sum_f32_kernel`` and
+    ``temporal_data_f32_kernel``;
     in melspec.cu ``log_mel_kernel`` and ``log_mel_dft_kernel``; in gru.cu
     ``gru_cluster_kernel`` and ``gru_kernel``)."""
     kernels = {"spatial_fwd": ("spatial_fwd_kernel",),
@@ -296,6 +314,7 @@ def resources(kind: str) -> None:
                "spatial_filter_f32": ("spatial_filter_f32_kernel",),
                "spatial_data_f32": ("spatial_data_f32_kernel",
                                     "data_split_sum_f32_kernel"),
+               "temporal_data_f32": ("temporal_data_f32_kernel",),
                "temporal_fwd_f32": ("temporal_fwd_f32_kernel",),
                "temporal_fwd": ("temporal_fwd_kernel",),
                "mel": ("log_mel",),
@@ -305,7 +324,8 @@ def resources(kind: str) -> None:
     source = {"mel": "melspec", "gru": "gru", "spatial_fwd_f32": "conv_bn_f32",
               "temporal_fwd_f32": "conv_bn_f32",
               "spatial_filter_f32": "conv_bn_f32",
-              "spatial_data_f32": "conv_bn_f32"}.get(kind, "conv_bn")
+              "spatial_data_f32": "conv_bn_f32",
+              "temporal_data_f32": "conv_bn_f32"}.get(kind, "conv_bn")
     log = subprocess.run(
         [cuda_lib._nvcc(), *cuda_lib.NVCC_FLAGS, "-Xptxas", "-v", "-o",
          "/dev/null", *(["-DTD_TRIALS"] if kind == "temporal_data" else []),
@@ -1776,6 +1796,10 @@ SDF_ABLATIONS = {"no_forming": 1, "no_products": 2, "no_copies": 4,
                  "no_epilogue": 8, "walk_only": 15}
 SDF_ENTRY = "m3f_spatial_data_f32"
 GATHER_DATA_F32_ENTRY = "m3f_conv_unit_bwd_data_f32"
+# an older conv_bn_f32.cu's gather entry, which took the kind (git show
+# 20c000c:m3f_torch/csrc/conv_bn_f32.cu, the last with the temporal kind)
+PARENT_DATA_F32_SIGNATURE = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 8 \
+    + [ctypes.c_void_p]
 # every layout the plan can take (N tile, K chunk), each with the plan's
 # split for it, and the plan's layout with its K whole
 SDF_LAYOUTS = {**{f"layout_{nb}x{kc}": (nb, kc, None)
@@ -1827,15 +1851,19 @@ def launch_sdf(fn, x, w, inv, shift, y, gy, gs1, gs2, layout=None):
     return dx, dinv, dshift
 
 
-def launch_data_gather_f32(fn, x, w, inv, shift, y, gy, gs1, gs2):
-    """One call of a source's ``m3f_conv_unit_bwd_data_f32`` (the per-tap
-    gather, bwd_data_f32_kernel) for the spatial kind with
-    ``f32_bwd_data_plan``'s tiling."""
+def launch_data_gather_f32(fn, x, w, inv, shift, y, gy, gs1, gs2,
+                           kind=None):
+    """One call of a ``m3f_conv_unit_bwd_data_f32`` (the per-tap gather,
+    bwd_data_f32_kernel) with ``f32_bwd_data_plan``'s tiling: this source's
+    (spatial only, ``kind`` None) or an older source's, which takes ``kind``
+    (0 spatial, 1 temporal; built with PARENT_DATA_F32_SIGNATURE). The
+    filter's rank says the kind."""
     b, t, h, wd, ci = x.shape
     co = gy.shape[-1]
     sms = torch.cuda.get_device_properties(x.device).multi_processor_count
     plan = conv_bn.f32_bwd_data_plan(b, t, h, wd, ci, sms)
-    wt = conv_bn.f32_bwd_data_filter(w, "spatial").contiguous()
+    wt = conv_bn.f32_bwd_data_filter(
+        w, "spatial" if w.dim() == 4 else "temporal").contiguous()
     dx = torch.empty_like(x)
     affine = inv is not None
     dinv = torch.empty(ci, device=x.device) if affine else None
@@ -1844,20 +1872,21 @@ def launch_data_gather_f32(fn, x, w, inv, shift, y, gy, gs1, gs2):
     ptr = lambda v: None if v is None else v.data_ptr()
     err = fn(gy.data_ptr(), y.data_ptr(), gs1.data_ptr(), gs2.data_ptr(),
              wt.data_ptr(), x.data_ptr() if affine else None, ptr(inv),
-             ptr(shift), dx.data_ptr(), ptr(dinv), ptr(dshift), ptr(part), 0,
-             b, t, h, wd, ci, co, plan.tiles_per_range, cuda_lib.stream_ptr(x))
-    cuda_lib.check(err, "fp32 spatial data gather")
+             ptr(shift), dx.data_ptr(), ptr(dinv), ptr(dshift), ptr(part),
+             *(() if kind is None else (kind,)), b, t, h, wd, ci, co,
+             plan.tiles_per_range, cuda_lib.stream_ptr(x))
+    cuda_lib.check(err, "fp32 data gather")
     return dx, dinv, dshift
 
 
-def _data_f32_errors(x, w, inv, shift, y, gy, gs1, gs2):
+def _data_f32_errors(x, w, inv, shift, y, gy, gs1, gs2, kind="spatial"):
     """A function of a (dx, dinv, dshift) giving max |dx - ref| over
     chip_smoke.py's fp32 dx limit (1e-5 of |ge| (*) |w| mirrored, through
     the mask and |inv|, plus 1e-30) and the largest relative error of dinv
     and dshift."""
     ref = conv_bn.conv_unit_bwd_data_reference(x, w, inv, shift, y, gy, gs1,
-                                               gs2, kind="spatial")
-    kern, pad = conv_bn._torch_kernel(w.abs(), "spatial")
+                                               gs2, kind=kind)
+    kern, pad = conv_bn._torch_kernel(w.abs(), kind)
     ge = conv_bn._gy_eff(gy, y, gs1, gs2).abs().permute(0, 4, 1, 2, 3)
     lim = F.conv3d(ge, kern.flip(2, 3, 4).transpose(0, 1), padding=pad
                    ).permute(0, 2, 3, 4, 1)
@@ -1949,7 +1978,7 @@ def sweep_data_f32(reps: int, parent: Optional[str]) -> None:
     if parent:
         old = build_variants({"parent_f32": ""}, GATHER_DATA_F32_ENTRY,
                              {"parent_f32": parent},
-                             sig[GATHER_DATA_F32_ENTRY])["parent_f32"]
+                             PARENT_DATA_F32_SIGNATURE)["parent_f32"]
     g = torch.Generator(device=dev).manual_seed(29)
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     for xs, co in SHAPES["spatial"] + SFF_WIDE:
@@ -1975,7 +2004,8 @@ def sweep_data_f32(reps: int, parent: Optional[str]) -> None:
                         main, *args, layout=layout)
             fns["gather"] = lambda: launch_data_gather_f32(gather, *args)
             if old is not None:
-                fns["parent"] = lambda: launch_data_gather_f32(old, *args)
+                fns["parent"] = lambda: launch_data_gather_f32(old, *args,
+                                                               kind=0)
             fns["cudnn_conv3d_input"] = lambda: torch.nn.grad.conv3d_input(
                 xshape, kern, gn, padding=pad)
             row = {"kind": "spatial_data_f32", "x": list(xs), "co": co,
@@ -2004,6 +2034,194 @@ def sweep_data_f32(reps: int, parent: Optional[str]) -> None:
             del gn, bx, by, bg
             torch.cuda.empty_cache()
         del x, y, gy
+        torch.cuda.empty_cache()
+
+
+# --- the fp32 temporal data gradient: the frame walk -------------------------
+
+# small shapes (x shape, C_out) of the walk: clips of one frame at C_out 40
+# (chunks of 16, 16 and 8); five 7x7 clips across strips, the last strip
+# partial, at C_in 200 (a masked N tile in every layout); 1x1 clips several
+# a strip; 10x10 clips at C_in 152; the stage-4 width at two clips (the
+# filter streamed)
+TDF_SMALL = (((3, 1, 7, 7, 24), 40), ((5, 3, 7, 7, 200), 40),
+             ((3, 2, 1, 1, 16), 72), ((2, 3, 10, 10, 152), 40),
+             ((2, 2, 7, 7, 1152), 512))
+TDF_ABLATIONS = {"no_forming": 1, "no_products": 2, "no_copies": 4,
+                 "no_epilogue": 8, "walk_only": 15, "x_from_global": 16}
+TDF_ENTRY = "m3f_temporal_data_f32"
+# every N tile the plan can take, and the plan's with the filter resident
+# and streamed: (N tile, resident); None the plan's
+TDF_LAYOUTS = {**{f"layout_{nb}": (nb, None) for nb in conv_bn._TDF_N_TILES},
+               "resident": (None, True), "streamed": (None, False)}
+
+
+def tdf_inputs(xs, co, dev, g):
+    """fp32 x, w [3, C_in, C_out], inv, shift, y, gy, gs1, gs2."""
+    x, inv, shift, y, gy, gs1, gs2 = sff_inputs(xs, co, dev, g)
+    ci = xs[-1]
+    w = (torch.rand(3, ci, co, device=dev, generator=g) * 2 - 1) / (3 * ci) ** 0.5
+    return x, w, inv, shift, y, gy, gs1, gs2
+
+
+def launch_tdf(fn, x, w, inv, shift, y, gy, gs1, gs2, layout=None):
+    """One call of a build's ``m3f_temporal_data_f32`` with the planner's
+    layout or ``layout`` = (N tile, filter resident; None: the plan's),
+    the filter's layout forced through the C entry's ``resident`` argument
+    (what ``conv_unit_bwd_data`` does for fp32 x, minus its checks); ``inv``
+    None leaves the prologue out. None where the C entry refuses the layout
+    (a resident filter that does not fit)."""
+    b, t, h, wd, ci = x.shape
+    co = gy.shape[-1]
+    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+    nb, asked = layout or (None, None)
+    plan = conv_bn.f32_temporal_data_plan(b, t, h, wd, ci, co, sms,
+                                          inv is not None, nb)
+    resident = plan.resident if asked is None else asked
+    wt = conv_bn.f32_bwd_data_filter(w, "temporal").contiguous()
+    dx = torch.empty_like(x)
+    affine = inv is not None
+    dinv = torch.empty(ci, device=x.device) if affine else None
+    dshift = torch.empty(ci, device=x.device) if affine else None
+    part = torch.empty(2 * plan.part_rows * ci, device=x.device) if affine else None
+    ptr = lambda v: None if v is None else v.data_ptr()
+    err = fn(gy.data_ptr(), y.data_ptr(), gs1.data_ptr(), gs2.data_ptr(),
+             wt.data_ptr(), x.data_ptr() if affine else None, ptr(inv),
+             ptr(shift), dx.data_ptr(), ptr(dinv), ptr(dshift), ptr(part),
+             b, t, h, wd, ci, co, plan.n_tile, int(resident),
+             plan.units_per_range, cuda_lib.stream_ptr(x))
+    if err == CUDA_ERROR_INVALID_VALUE and layout is not None:
+        return None
+    cuda_lib.check(err, f"fp32 temporal data sweep, {layout}")
+    return dx, dinv, dshift
+
+
+def check_temporal_data_f32(parent: Optional[str]) -> None:
+    """ptxas' resource lines of the walk, then the walk against the plain
+    version (TF32 off), with and without the prologue, at TDF_SMALL and the
+    train step's four temporal units (32 clips): the wrapper (and whether a
+    second call repeats dx, dinv and dshift bit for bit), every layout that
+    fits through the C entry (TDF_LAYOUTS) and, with ``parent``, an older
+    source's per-tap gather."""
+    dev = resolve_device("cuda")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    resources("temporal_data_f32")
+    cuda_lib.build(["conv_bn_f32"])
+    main = getattr(cuda_lib.library("conv_bn_f32"), TDF_ENTRY)
+    old = None
+    if parent:
+        old = build_variants({"parent_f32": ""}, GATHER_DATA_F32_ENTRY,
+                             {"parent_f32": parent},
+                             PARENT_DATA_F32_SIGNATURE)["parent_f32"]
+    g = torch.Generator(device=dev).manual_seed(31)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for xs, co in TDF_SMALL + SHAPES["temporal"]:
+        x, w, inv, shift, y, gy, gs1, gs2 = tdf_inputs(xs, co, dev, g)
+        row = {"x": list(xs), "co": co,
+               "plan": conv_bn.f32_temporal_data_plan(*xs, co, sms)._asdict()}
+        for affine in (True, False):
+            a = (inv, shift) if affine else (None, None)
+            args = (x, w, *a, y, gy, gs1, gs2)
+            got = conv_bn.conv_unit_bwd_data(*args, kind="temporal")
+            again = conv_bn.conv_unit_bwd_data(*args, kind="temporal")
+            torch.cuda.synchronize()
+            err = _data_f32_errors(*args, kind="temporal")
+            key = "affine" if affine else "plain"
+            row[key] = {"wrapper": err(got),
+                        "repeats": all(p is None or torch.equal(p, q)
+                                       for p, q in zip(got, again))}
+            for name, layout in TDF_LAYOUTS.items():
+                out = launch_tdf(main, *args, layout=layout)
+                torch.cuda.synchronize()
+                row[key][name] = None if out is None else err(out)
+                del out
+            if old is not None:
+                out = launch_data_gather_f32(old, *args, kind=1)
+                torch.cuda.synchronize()
+                row[key]["parent"] = err(out)
+                del out
+            del got, again, err
+            torch.cuda.empty_cache()
+        print(json.dumps(row), flush=True)
+        del x, y, gy
+        torch.cuda.empty_cache()
+
+
+def sweep_temporal_data_f32(reps: int, parent: Optional[str]) -> None:
+    """The walk at the train step's four temporal units (32 clips, with the
+    prologue, as the train step runs them), every time a device time: in
+    alternating rounds the wrapper, the planner's layout through the C entry
+    twice (their gap is the spread of identical launches), every layout
+    that fits (TDF_LAYOUTS), with ``parent`` an older source's per-tap
+    gather, and cuDNN's fp32 ``conv3d_input`` on ge already formed (TF32
+    off); then the ablation builds (-DTDF_ABLATE) and a device copy of gy,
+    y and x. The bound counts the operations the function needs
+    (``conv_bn.tap_pairs``)."""
+    dev = resolve_device("cuda")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cuda_lib.build(["conv_bn_f32"])
+    main = getattr(cuda_lib.library("conv_bn_f32"), TDF_ENTRY)
+    src = str(cuda_lib.CSRC / "conv_bn_f32.cu")
+    sig = cuda_lib.SIGNATURES["conv_bn_f32"]
+    defines = {f"tdf_{name}": f"TDF_ABLATE={k}"
+               for name, k in TDF_ABLATIONS.items()}
+    built = build_variants(defines, TDF_ENTRY, {name: src for name in defines},
+                           sig[TDF_ENTRY])
+    old = None
+    if parent:
+        old = build_variants({"parent_f32": ""}, GATHER_DATA_F32_ENTRY,
+                             {"parent_f32": parent},
+                             PARENT_DATA_F32_SIGNATURE)["parent_f32"]
+    g = torch.Generator(device=dev).manual_seed(31)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for xs, co in SHAPES["temporal"]:
+        ci = xs[-1]
+        x, w, inv, shift, y, gy, gs1, gs2 = tdf_inputs(xs, co, dev, g)
+        plan = conv_bn.f32_temporal_data_plan(*xs, co, sms)
+        m = x.numel() // ci
+        flops = 2 * conv_bn.tap_pairs("temporal", *xs[:4]) * ci * co
+        kern, pad = conv_bn._torch_kernel(w, "temporal")
+        kern = kern.contiguous(memory_format=torch.channels_last_3d)
+        xshape = (xs[0], ci) + tuple(xs[1:4])
+        args = (x, w, inv, shift, y, gy, gs1, gs2)
+        gn = conv_bn._gy_eff(gy, y, gs1, gs2).permute(0, 4, 1, 2, 3)
+        entry = lambda: launch_tdf(main, *args)
+        fns = {"wrapper": lambda: conv_bn.conv_unit_bwd_data(
+                   *args, kind="temporal"),
+               "entry": entry, "entry_again": entry}
+        for name, layout in TDF_LAYOUTS.items():
+            if launch_tdf(main, *args, layout=layout) is not None:
+                fns[name] = lambda layout=layout: launch_tdf(
+                    main, *args, layout=layout)
+        if old is not None:
+            fns["parent"] = lambda: launch_data_gather_f32(old, *args, kind=1)
+        fns["cudnn_conv3d_input"] = lambda: torch.nn.grad.conv3d_input(
+            xshape, kern, gn, padding=pad)
+        row = {"kind": "temporal_data_f32", "x": list(xs), "co": co,
+               "affine": True, "plan": plan._asdict(),
+               "alternating_ms": alternating(fns, reps)}
+        row["ms"] = row["alternating_ms"]["wrapper"][0]
+        row["identical_launches_gap_ms"] = abs(
+            row["alternating_ms"]["entry"][0]
+            - row["alternating_ms"]["entry_again"][0])
+        for name, fn in built.items():
+            row[f"{name[4:]}_ms"] = timed(
+                lambda: launch_tdf(fn, *args), reps, queued=True)
+        bx, by, bg = torch.empty_like(x), torch.empty_like(y), torch.empty_like(gy)
+        row["copy_gy_y_x_ms"] = timed(
+            lambda: (bx.copy_(x), by.copy_(y), bg.copy_(gy)), reps,
+            queued=True)
+        nbytes = 4 * (2 * m * co + 3 * ci * co + 2 * m * ci + 2 * co + 2 * ci)
+        row["bound_ms"] = max(nbytes / HBM, flops / PEAK_FP32) * 1e3
+        row["bound_by"] = "bytes" if nbytes / HBM >= flops / PEAK_FP32 \
+            else "operations"
+        row["tflops"] = {k: flops / v[0] / 1e9
+                         for k, v in row["alternating_ms"].items()}
+        row["share_of_bound"] = row["bound_ms"] / row["ms"]
+        print(json.dumps(row), flush=True)
+        del gn, bx, by, bg, x, y, gy
         torch.cuda.empty_cache()
 
 
@@ -2730,6 +2948,7 @@ def main(argv=None) -> None:
                                        "spatial_fwd_f32", "temporal_fwd_f32",
                                        "spatial_filter_f32",
                                        "spatial_data_f32",
+                                       "temporal_data_f32",
                                        "temporal_fwd", "mel", "gru",
                                        "packed", "packed_ablate"),
                     default="spatial")
@@ -2747,7 +2966,10 @@ def main(argv=None) -> None:
                          "(m3f_conv_unit_bwd_filter_f32, the per-tap gather) "
                          "is; spatial_data_f32: a conv_bn_f32.cu whose "
                          "spatial data gradient (m3f_conv_unit_bwd_data_f32, "
-                         "the per-tap gather) is; "
+                         "the per-tap gather) is; temporal_data_f32: a "
+                         "conv_bn_f32.cu whose temporal data gradient (the "
+                         "per-tap gather, which took the kind) is, with "
+                         "--check held against the plain version too; "
                          "spatial_fwd / temporal_fwd: a conv_bn.cu whose "
                          "forward of that kind (the per-tap gather, C entry "
                          "before the walk) is timed beside the kernel; gru: "
@@ -2771,6 +2993,9 @@ def main(argv=None) -> None:
     elif opts.kind == "spatial_data_f32":
         check_data_f32() if opts.check \
             else sweep_data_f32(opts.reps, opts.parent)
+    elif opts.kind == "temporal_data_f32":
+        check_temporal_data_f32(opts.parent) if opts.check \
+            else sweep_temporal_data_f32(opts.reps, opts.parent)
     elif opts.kind in ("spatial_fwd_f32", "temporal_fwd_f32"):
         kind = opts.kind[:-len("_fwd_f32")]
         check_fwd_f32(kind, opts.parent) if opts.check \

@@ -1,18 +1,19 @@
 """The fp32 conv-unit backward (``spatial_data_f32_kernel``,
-``bwd_data_f32_kernel``, ``spatial_filter_f32_kernel`` and
-``bwd_filter_f32_kernel`` in m3f_torch/csrc/conv_bn_f32.cu, wrapped by
+``temporal_data_f32_kernel``, ``bwd_data_f32_kernel``,
+``spatial_filter_f32_kernel`` and ``bwd_filter_f32_kernel`` in
+m3f_torch/csrc/conv_bn_f32.cu, wrapped by
 ``ops.conv_bn.conv_unit_bwd_data`` / ``conv_unit_bwd_filter`` for fp32 x)
 where a CPU can hold it: a numpy run of each kernel's walk against the JAX
 package's Pallas backward in fp32 under interpret mode (``_spatial_bwd`` /
 ``_temporal_bwd``, as tests/test_torch_conv_bn_bwd.py runs them; a clip of
 one frame against the XLA composition ``_xla_bwd``, since the Pallas
 temporal units need two frames) and against the port's plain version, at
-the forward's EMU_CASES, at FILTER_CASES and at DATA_CASES with and without
-the prologue; the tilings (``f32_bwd_data_plan``,
-``f32_spatial_data_plan``, ``f32_bwd_filter_plan``,
-``f32_spatial_filter_plan``) at every fused unit's train shape, the walks'
-shared-memory formulas against the C source's; and the plain versions'
-convs run without TF32. The kernels themselves run only on the card
+the forward's EMU_CASES, at FILTER_CASES, DATA_CASES and TDF_CASES with
+and without the prologue; the tilings (``f32_bwd_data_plan``,
+``f32_spatial_data_plan``, ``f32_temporal_data_plan``,
+``f32_bwd_filter_plan``, ``f32_spatial_filter_plan``) at every fused unit's
+train shape, the walks' shared-memory formulas against the C source's; and
+the plain versions' convs run without TF32. The kernels themselves run only on the card
 (chip_smoke.py, phase kernel_conv_f32_bwd).
 
 Spatial data row walk: ranges of whole images, each a stream of rows (a
@@ -27,7 +28,15 @@ two-rounding xa, the mask and dx = dxa * inv and sums dinv / dshift by
 pixel group over the walk, then the groups in order into one partial row a
 range; with several the second pass does, one partial row per 64
 positions; the rows summed in order.
-Data gather (the temporal kind, and spatial images too wide for the walk):
+Temporal data frame walk: strips of the flattened B·H·W axis (across clips
+where H·W is small) walked over T, ranges of strips; frame t's ge in
+chunks of 16 output channels (folded on the strip's positions and channels
+< C_out only, 0 elsewhere) multiplied into dx^ frames t+1, t and t-1
+against the mirrored filter's taps 0, 1 and 2, a tap whose frame lies
+outside the clip skipped; then the two-rounding xa, the mask, dx = dxa *
+inv, dinv / dshift by position group over the walk, the groups in order
+into one partial row a range, the rows in colsum order.
+Data gather (spatial images too wide for the row walk):
 tiles of 64 positions x 64 input channels, K in chunks of 16 output
 channels of one tap, ge formed at the gather from gy, y, gs1 and gs2 at the
 tap's neighbour (0 in the padding and past C_out) against the filter's
@@ -61,7 +70,7 @@ import jax.numpy as jnp
 
 import m3f.pytorch_tpu.ops.pallas.conv_bn as jcb
 from m3f_torch.ops import conv_bn
-from test_torch_conv_f32 import EMU_CASES, SMS, _unit_shapes
+from test_torch_conv_f32 import EMU_CASES, SMS, _colsum, _unit_shapes
 
 DX_TOL = 2e-5
 DW_REL, DW_ABS = 1e-5, 1e-6
@@ -95,25 +104,24 @@ def _neighbour(kind, m, tap, t, h, w):
     return np.where(ok, src, 0), ok
 
 
-def _emulate_data(x, w, inv, shift, y, gy, gs1, gs2, kind, sms=SMS):
-    """bwd_data_f32_kernel's walk (the temporal kind, and the spatial kind
-    where no row-walk layout fits the images) in numpy (fp32): returns (dx,
-    dinv, dshift)."""
+def _emulate_data(x, w, inv, shift, y, gy, gs1, gs2, sms=SMS):
+    """bwd_data_f32_kernel's walk (spatial only: where no row-walk layout
+    fits the images) in numpy (fp32): returns (dx, dinv, dshift)."""
     b, t, h, wd, ci = x.shape
     co = gy.shape[-1]
-    taps = 9 if kind == "spatial" else 3
     plan = conv_bn.f32_bwd_data_plan(b, t, h, wd, ci, sms)
     m_all = b * t * h * wd
-    wt = conv_bn.f32_bwd_data_filter(torch.from_numpy(w), kind).numpy()
+    wt = conv_bn.f32_bwd_data_filter(torch.from_numpy(w), "spatial").numpy()
     gyf, yf = gy.reshape(m_all, co), y.reshape(m_all, co)
     m = np.arange(plan.m_tiles * 64)
     ok_m = m < m_all
     nck = -(-co // KC)
     acc = np.zeros((len(m), plan.n_tiles * 64), np.float32)
-    for step in range(taps * nck):
+    for step in range(9 * nck):
         tap, c0 = divmod(step, nck)
         cs = np.arange(c0 * KC, min(c0 * KC + KC, co))
-        src, ok = _neighbour(kind, np.minimum(m, m_all - 1), tap, t, h, wd)
+        src, ok = _neighbour("spatial", np.minimum(m, m_all - 1), tap, t, h,
+                             wd)
         ok &= ok_m
         a = np.zeros((len(m), KC), np.float32)
         a[:, :len(cs)] = np.where(ok[:, None], _fold(
@@ -139,15 +147,19 @@ def _emulate_data(x, w, inv, shift, y, gy, gs1, gs2, kind, sms=SMS):
 
 def _emulate_dx(x, w, inv, shift, y, gy, gs1, gs2, kind, sms=None):
     """The data gradient's walk in numpy (fp32), as the wrapper routes it:
-    the spatial row walk where its plan has a layout, else the per-tap
-    gather; returns (dx, dinv, dshift)."""
+    the temporal frame walk; the spatial row walk where its plan has a
+    layout, else the per-tap gather; returns (dx, dinv, dshift)."""
+    if kind == "temporal":
+        plan = conv_bn.f32_temporal_data_plan(
+            *x.shape, gy.shape[-1], sms or TDF_SMS.get(x.shape, SMS),
+            inv is not None)
+        return _emulate_temporal_data_walk(x, w, inv, shift, y, gy, gs1, gs2,
+                                           plan)[:3]
     sms = sms or DATA_SMS.get(x.shape, SMS)
-    if kind == "spatial":
-        plan = conv_bn.f32_spatial_data_plan(*x.shape, gy.shape[-1], sms)
-        if plan is not None:
-            return _emulate_data_walk(x, w, inv, shift, y, gy, gs1, gs2,
-                                      plan)[:3]
-    return _emulate_data(x, w, inv, shift, y, gy, gs1, gs2, kind, sms)
+    plan = conv_bn.f32_spatial_data_plan(*x.shape, gy.shape[-1], sms)
+    if plan is not None:
+        return _emulate_data_walk(x, w, inv, shift, y, gy, gs1, gs2, plan)[:3]
+    return _emulate_data(x, w, inv, shift, y, gy, gs1, gs2, sms)
 
 
 def _emulate_data_walk(x, w, inv, shift, y, gy, gs1, gs2, plan, pad=None,
@@ -238,6 +250,81 @@ def _emulate_data_walk(x, w, inv, shift, y, gy, gs1, gs2, plan, pad=None,
     assert len(rows1) == plan.part_rows
     return ((dxa * inv).reshape(x.shape), _in_order(rows1), _in_order(rows2),
             rows1)
+
+
+def _emulate_temporal_data_walk(x, w, inv, shift, y, gy, gs1, gs2, plan,
+                                pad=None):
+    """temporal_data_f32_kernel's walk: per range its units in order, each a
+    strip of ``plan.strip`` positions of the flattened B·H·W axis (across
+    clips where H·W is small) walked over the frames; frame t's ge (folded
+    on the strip's positions and channels < C_out only) in chunks of
+    ``plan.k_chunk`` output channels multiplied into three accumulator
+    sets, dx^ frames t+1 (tap 0), t (tap 1) and t-1 (tap 2) against the
+    mirrored filter's rows (tap, k), a tap whose frame lies outside the clip
+    skipped; after frame t's last chunk frame t-1 leaves (and at the clip's
+    last frame t too) and the sets shift. With the prologue, strip row p's
+    x * dxa and dxa are summed by position group p % (strip / 4) over the
+    range's units and frames in order, then the groups in order into the
+    range's partial row, the rows in colsum_f32_kernel's order. ``pad`` (a
+    control, per output channel) puts that ge at the frames -1 and T in
+    place of 0. Returns (dx, dinv, dshift, dinv's partial rows)."""
+    b, t, h, wd, ci = x.shape
+    co = gy.shape[-1]
+    hw, kc, npg = h * wd, plan.k_chunk, plan.strip // 4
+    cop = -(-co // kc) * kc
+    ncols = plan.n_tiles * plan.n_tile
+    ge = np.zeros((b, t, hw, cop), np.float32)
+    ge[..., :co] = _fold(gy, y, gs1, gs2).reshape(b, t, hw, co)
+    wk = np.zeros((3, cop, ncols), np.float32)
+    wk[:, :co, :ci] = conv_bn.f32_bwd_data_filter(
+        torch.from_numpy(w), "temporal").numpy().reshape(3, co, ci)
+    dxh = np.zeros((b, t, hw, ncols), np.float32)
+    for r in range(plan.ranges):
+        for u in plan.units_of(r):
+            pos = np.array(plan.positions_of(u))
+            bi, pi = pos // hw, pos % hw
+            acc = np.zeros((3, len(pos), ncols), np.float32)
+            for tt in range(t):
+                for c in range(cop // kc):
+                    cs = slice(c * kc, (c + 1) * kc)
+                    a = ge[bi, tt, pi, cs]
+                    for tap in range(3):
+                        if 0 <= tt + 1 - tap < t:
+                            acc[2 - tap] += a @ wk[tap, cs]
+                done = ([(0, tt - 1)] if tt > 0 else []) \
+                    + ([(1, tt)] if tt + 1 == t else [])
+                for f, tf in done:
+                    dxh[bi, tf, pi] = acc[f]
+                acc = np.stack([acc[1], acc[2], np.zeros_like(acc[2])])
+    if pad is not None:                        # ge = pad at frames -1 and T
+        padv = np.zeros(cop, np.float32)
+        padv[:co] = pad
+        dxh[:, 0] += padv @ wk[0]
+        dxh[:, t - 1] += padv @ wk[2]
+    dxh = dxh[..., :ci]
+    if inv is None:
+        return dxh.reshape(x.shape), None, None, None
+    xf = x.reshape(b, t, hw, ci)
+    dxa = np.where((xf * inv) + shift > 0, dxh, np.float32(0))
+    xd = xf * dxa
+    rows1, rows2 = [], []
+    for r in range(plan.ranges):
+        g1 = np.zeros((npg, ci), np.float32)
+        g2 = np.zeros((npg, ci), np.float32)
+        for u in plan.units_of(r):
+            pos = np.array(plan.positions_of(u))
+            bi, pi = pos // hw, pos % hw
+            for tf in range(t):
+                for i in range(4):
+                    blk = slice(npg * i, npg * (i + 1))
+                    n = len(pos[blk])
+                    g1[:n] += xd[bi[blk], tf, pi[blk]]
+                    g2[:n] += dxa[bi[blk], tf, pi[blk]]
+        rows1.append(_in_order(g1))
+        rows2.append(_in_order(g2))
+    assert len(rows1) == plan.part_rows
+    return ((dxa * inv).reshape(x.shape), _colsum(rows1, ci),
+            _colsum(rows2, ci), rows1)
 
 
 def _in_order(rows):
@@ -398,7 +485,18 @@ DATA_CASES = [("spatial", (1, 7, 7, 7, 200), (3, 3, 200, 40))]
 # and 3, two splits, or with one split asked for ranges of 2, 2, 2 and 1)
 DATA_SMS = {(2, 5, 7, 7, 24): 2, (2, 4, 7, 7, 16): 4, (3, 2, 1, 1, 8): 1,
             (2, 3, 4, 7, 40): 4, (1, 5, 7, 7, 24): 6, (1, 7, 7, 7, 200): 16}
-ALL_CASES = EMU_CASES + FILTER_CASES + DATA_CASES
+# the temporal data frame walk off EMU_CASES: five 7x7 clips of three frames
+# and seven 5x5 clips of two across strips (the last strip partial in
+# every layout), C_in 200 and 24 (a masked last N tile in every layout),
+# C_out 40 (chunks of 16, 16 and 8)
+TDF_CASES = [("temporal", (5, 3, 7, 7, 200), (3, 200, 40)),
+             ("temporal", (7, 2, 5, 5, 24), (3, 24, 40))]
+# the multiprocessors the frame walk's plans are made for, where not SMS:
+# fewer put several strips in a range (C_in 200: ranges of 2, 2 and 1
+# strips at N tiles of 144, one of 2 at 64; C_in 24: one range of every
+# strip)
+TDF_SMS = {(5, 3, 7, 7, 200): 6, (7, 2, 5, 5, 24): 1}
+ALL_CASES = EMU_CASES + FILTER_CASES + DATA_CASES + TDF_CASES
 
 CASES = [pytest.param(i, affine, id=f"{_case_id(*c)}-{'affine' if affine else 'plain'}")
          for i, c in enumerate(EMU_CASES) for affine in (False, True)]
@@ -468,11 +566,20 @@ def _data_within(x, inv, shift, dx, dinv, dshift, ref):
                                      (dshift, ref[3], np.abs(dxa).sum(axes))))
 
 
+TDF_WALK_CASES = [
+    pytest.param(len(ALL_CASES) - len(TDF_CASES) + i, nb, affine,
+                 id=f"{_case_id(*c)}-n_tile={nb}-{'affine' if affine else 'plain'}")
+    for i, c in enumerate(TDF_CASES) for nb in conv_bn._TDF_N_TILES
+    for affine in (False, True)]
+
+
 @pytest.mark.parametrize("i,affine", CASES)
 def test_data_walk_matches_pallas_backward_fp32(i, affine):
-    """EMU_CASES as the wrapper routes them: the spatial row walk where its
-    plan has a layout (DATA_SMS: ranges of several images, K splits), the
-    per-tap gather for the temporal kind and images too wide."""
+    """EMU_CASES as the wrapper routes them: the temporal frame walk (one
+    strip a range at 132 SMs; ranges of several strips are
+    TDF_CASES'), the spatial row walk where its plan has a layout
+    (DATA_SMS: ranges of several images, K splits), the per-tap gather for
+    images too wide."""
     kind, (x, w, inv, shift, y, gy, gs1, gs2), want, plain = _inputs(i, affine)
     if kind == "spatial":
         walk = conv_bn.f32_spatial_data_plan(
@@ -500,6 +607,26 @@ def test_spatial_data_walk_edges_match_pallas_backward_fp32(i, splits, affine):
         assert (plan.n_tile, plan.n_tiles) == (64, 4)
     dx, dinv, dshift, _ = _emulate_data_walk(x, w, inv, shift, y, gy, gs1,
                                              gs2, plan)
+    for ref in (want, plain):
+        assert _data_within(x, inv, shift, dx, dinv, dshift, ref)
+
+
+@pytest.mark.parametrize("i,n_tile,affine", TDF_WALK_CASES)
+def test_temporal_data_walk_edges_match_pallas_backward_fp32(i, n_tile, affine):
+    """The frame walk at TDF_CASES in every N tile the plan can take: clips
+    across strips with a partial last strip, ranges of several strips
+    (TDF_SMS), a masked last N tile, chunks of 16, 16 and 8, two and three
+    frames."""
+    kind, (x, w, inv, shift, y, gy, gs1, gs2), want, plain = _inputs(i, affine)
+    plan = conv_bn.f32_temporal_data_plan(*x.shape, gy.shape[-1],
+                                          TDF_SMS[x.shape], affine,
+                                          n_tile=n_tile)
+    assert plan.n_tile == n_tile and plan.units > 1
+    assert len(plan.positions_of(plan.units - 1)) < plan.strip
+    assert plan.n_tiles * n_tile > x.shape[-1]
+    assert any(len(plan.units_of(r)) > 1 for r in range(plan.ranges))
+    dx, dinv, dshift, _ = _emulate_temporal_data_walk(
+        x, w, inv, shift, y, gy, gs1, gs2, plan)
     for ref in (want, plain):
         assert _data_within(x, inv, shift, dx, dinv, dshift, ref)
 
@@ -746,10 +873,72 @@ def _check_spatial_data_plan(p, b, t, h, w, ci, co, sms=SMS):
         <= 227 * 1024
 
 
+def _c_tdf():
+    """tdf_smem of conv_bn_f32.cu as a Python function of (strip, N tile,
+    C_out in whole chunks, resident, the prologue), its three expressions
+    read from the source, and the C entry's layouts {N tile: (NCG, NPG)}
+    read from its ``tdf_run<NCG, NPG>`` instances (N tile 8·NCG, strip
+    4·NPG)."""
+    src = (Path(conv_bn.__file__).parents[1] / "csrc" / "conv_bn_f32.cu"
+           ).read_text()
+    consts = {k: int(v) for k, v in
+              re.findall(r"constexpr int (TDF_\w+) = (\d+);", src)}
+    body = re.search(r"size_t tdf_smem\(int S, int NB, int Cop, int res, "
+                     r"int aff\) \{(.*?)\n\}", src, re.S).group(1)
+    filt = re.search(r"const size_t filt = res \? (.*?) : (.*?);", body, re.S)
+    xs = re.search(r"const size_t xs = aff \? (.*?) : (.*?);", body, re.S)
+    total = re.search(r"return sizeof\(float\) \* (.*?);", body, re.S).group(1)
+    py = lambda e: " ".join(e.replace("(size_t)", "").split())
+
+    def smem(strip, n_tile, cop, resident, affine):
+        env = {"S": strip, "NB": n_tile, "Cop": cop, **consts}
+        env["filt"] = eval(py(filt.group(1 if resident else 2)), {}, env)
+        env["xs"] = eval(py(xs.group(1 if affine else 2)), {}, env)
+        return 4 * eval(py(total), {}, env)
+    layouts = {int(nb): (int(ncg), int(npg)) for nb, ncg, npg in re.findall(
+        r"case (\d+): return tdf_run<(\d+), (\d+)>", src)}
+    return smem, consts, layouts
+
+
+def _check_temporal_data_plan(p, b, t, h, w, ci, co, sms=SMS, affine=True):
+    """What every fp32 temporal data-walk plan must hold: every position in
+    exactly one strip and every strip in exactly one non-empty range, the
+    N tile and strip of one of the C entry's layouts (8·NCG, 4·NPG; at most
+    8 warps), the chunk and register tile of the C side's constants, N
+    tiles covering C_in, the resident filter exactly where it fits a
+    block's shared memory (with the prologue beside the x slots), the
+    ranges of ``_tw_units_per_block`` (the
+    fewest strip-times to the last block's end), and a shared-memory size
+    that is the C side's."""
+    c_smem, consts, layouts = _c_tdf()
+    assert p.positions == b * h * w and p.units == -(-p.positions // p.strip)
+    covered = [q for u in range(p.units) for q in p.positions_of(u)]
+    assert covered == list(range(p.positions))
+    units = [u for r in range(p.ranges) for u in p.units_of(r)]
+    assert units == list(range(p.units))
+    assert all(len(p.units_of(r)) for r in range(p.ranges))
+    assert p.part_rows == p.ranges and p.blocks == p.ranges * p.n_tiles
+    assert layouts == {nb: (nb // 8, strip // 4) for nb, strip
+                       in conv_bn._TDF_LAYOUTS.items()}
+    ncg, npg = layouts[p.n_tile]
+    assert (p.strip, p.threads) == (4 * npg, ncg * npg) and p.threads <= 256
+    assert p.k_chunk == consts["TDF_KC"] == 16
+    assert p.register_tile == (p.strip // npg, p.n_tile // ncg, 3) == (4, 8, 3)
+    assert p.n_tiles == -(-ci // p.n_tile)
+    cop = -(-co // 16) * 16
+    assert p.smem_bytes == c_smem(p.strip, p.n_tile, cop, p.resident, affine) \
+        == conv_bn._temporal_data_f32_smem(co, p.n_tile, p.resident, affine) \
+        <= 227 * 1024
+    assert p.resident == (c_smem(p.strip, p.n_tile, cop, True, affine)
+                          <= 227 * 1024)
+    assert p.units_per_range == conv_bn._tw_units_per_block(
+        p.units, p.n_tiles, sms, 1)
+
+
 @pytest.mark.parametrize("mode", ["flops", "lane"])
 @pytest.mark.parametrize("clips", [128, 32])
 @pytest.mark.parametrize("part", ["data", "filter", "spatial_filter_walk",
-                                  "spatial_data_walk"])
+                                  "spatial_data_walk", "temporal_data_walk"])
 def test_plans_cover_every_train_shape(part, clips, mode):
     """Every fused unit's shape: the data gradient's position tiles each in
     exactly one range, at most 65535 ranges (the grid's y), every input
@@ -765,7 +954,16 @@ def test_plans_cover_every_train_shape(part, clips, mode):
     at the same shapes: a layout, N tiles of 64 at C_in 64 and no masked
     column, chunks of 16 (8 at 112x112 images), one split at
     stages 1-2 and several at stages 3-4 (short M, long K), and what every
-    data-walk plan holds (``_check_spatial_data_plan``)."""
+    data-walk plan holds (``_check_spatial_data_plan``); the temporal data
+    gradient's frame walk at every temporal unit: C_in in whole N tiles
+    (no padded column) and what every frame-walk plan holds
+    (``_check_temporal_data_plan``)."""
+    if part == "temporal_data_walk":
+        for xs, co in _unit_shapes(clips, mode)[1::2]:
+            p = conv_bn.f32_temporal_data_plan(*xs, co, SMS)
+            assert xs[-1] % p.n_tile == 0
+            _check_temporal_data_plan(p, *xs, co)
+        return
     if part == "spatial_data_walk":
         units = _unit_shapes(clips, mode)[::2]
         units.append(((clips, 16, 112, 112, 64), units[0][1]))
@@ -898,6 +1096,75 @@ def test_spatial_data_f32_plan_edges(shape):
                                       k_chunk=8, k_splits=2)
     assert (q.n_tile, q.k_chunk, q.k_splits) == (p.n_tile, 8, min(2, q.chunks))
     _check_spatial_data_plan(q, *shape)
+
+
+# (B, T, H, W, C_in, C_out) -> (N tile, resident, strips a range, ranges)
+# of the frame walk on 132 SMs with the prologue: chip_smoke.py's
+# F32_TEMPORAL_DATA_EDGE_SHAPES (one-frame clips; 7x7 clips across strips,
+# the last partial, at C_in 200 and C_out 40; the same at C_in 144 in tiles
+# of 144; 81 7x7 clips at C_in 280, tiles of 144 with the second masked,
+# ranges of two strips, the last of one; C_out 200, the filter streamed
+# beside the x slots and resident without the prologue; the stage-4 train
+# shape), C_in 288 at C_out 96 (tiles of 144), a single position, stage 4
+# at 128 clips
+TDF_PLAN_EDGES = {(3, 1, 7, 7, 24, 40): (64, True, 1, 2),
+                  (5, 3, 7, 7, 200, 40): (64, True, 1, 2),
+                  (5, 3, 7, 7, 144, 40): (144, True, 1, 5),
+                  (81, 3, 7, 7, 280, 40): (144, True, 2, 36),
+                  (4, 2, 5, 5, 64, 200): (64, False, 1, 1),
+                  (2, 2, 9, 9, 576, 1152): (64, False, 1, 2),
+                  (32, 2, 7, 7, 1152, 512): (64, False, 2, 7),
+                  (2, 3, 6, 6, 288, 96): (144, False, 1, 2),
+                  (1, 1, 1, 1, 8, 8): (64, True, 1, 1),
+                  (128, 2, 7, 7, 1152, 512): (64, False, 7, 7)}
+
+
+@pytest.mark.parametrize("shape", list(TDF_PLAN_EDGES),
+                         ids=["x".join(map(str, s)) for s in TDF_PLAN_EDGES])
+def test_temporal_data_f32_plan_edges(shape):
+    """Off the train widths: the N tile that pads C_in least, the filter
+    resident where [3·C_out, N tile] fits beside the buffers, ranges for
+    the fewest strip-times to the last block's end (stage 4 at 32 clips: 7
+    ranges of two strips x 18 N tiles, one wave; at 128: 7 of seven); each
+    N tile asked for is taken; the resident layout's shared memory is the
+    C side's (the C entry refuses it where it does not fit); and what every
+    plan holds."""
+    p = conv_bn.f32_temporal_data_plan(*shape, SMS)
+    assert (p.n_tile, p.resident, p.units_per_range, p.ranges) \
+        == TDF_PLAN_EDGES[shape]
+    _check_temporal_data_plan(p, *shape)
+    for nb in conv_bn._TDF_N_TILES:
+        q = conv_bn.f32_temporal_data_plan(*shape, SMS, n_tile=nb)
+        assert q.n_tile == nb
+        _check_temporal_data_plan(q, *shape)
+    cop = -(-shape[-1] // 16) * 16
+    assert conv_bn._temporal_data_f32_smem(shape[-1], p.n_tile, True, True) \
+        == _c_tdf()[0](p.strip, p.n_tile, cop, True, True)
+    q = conv_bn.f32_temporal_data_plan(*shape, SMS, affine=False)
+    _check_temporal_data_plan(q, *shape, affine=False)
+    assert q.resident >= p.resident
+    assert q.resident > p.resident or shape != (4, 2, 5, 5, 64, 200)
+
+
+def test_frame_walk_sees_the_padding_and_the_ranges():
+    """The frame walk's emulation can fail: ge formed through the formula
+    at the frames -1 and T (gs1 there, of the size of gy) misses the
+    reference, and a dinv without its last range's partial row misses it
+    where the walk takes several ranges (five 7x7 clips of three frames,
+    ranges of two, two and one strips; xa > 0 for about half the
+    elements)."""
+    kind, args, want, _ = _inputs(len(ALL_CASES) - len(TDF_CASES), True)
+    x, inv, shift, gs1 = args[0], args[2], args[3], args[6]
+    plan = conv_bn.f32_temporal_data_plan(*x.shape, args[5].shape[-1],
+                                          TDF_SMS[x.shape], n_tile=144)
+    assert plan.ranges == 3 and len(plan.units_of(2)) == 1
+    right = _emulate_temporal_data_walk(*args, plan)
+    assert _data_within(x, inv, shift, *right[:3], want)
+    wrong = _emulate_temporal_data_walk(*args, plan, pad=gs1)
+    assert np.abs(wrong[0] - want[0]).max() > DX_TOL * np.abs(want[0]).max()
+    short = right[1] - right[3][-1]
+    assert not _data_within(x, inv, shift, right[0], short, right[2], want)
+    assert (x * inv + shift > 0).mean() > 0.3
 
 
 @pytest.mark.parametrize("kind", ["spatial", "temporal"])
