@@ -79,7 +79,8 @@ H100 (``python3 chip_smoke.py``). It
    ``kernel_conv_f32_bwd``; row 5f the row walk
    ``spatial_data_f32_kernel``, row 6f the row walk
    ``spatial_filter_f32_kernel``, row 7f the frame walk
-   ``temporal_data_f32_kernel``, their plans in every phase line) are
+   ``temporal_data_f32_kernel``, row 8f the frame walk
+   ``temporal_filter_f32_kernel``, their plans in every phase line) are
    held against their plain versions (TF32 off) at F32_EDGE_SHAPES,
    F32_FILTER_WALK_EDGE_SHAPES (images two a slice with a one-image last
    slice, C_out 200, C_in 24, 1x1 images, the stage-4 train shape),
@@ -89,7 +90,14 @@ H100 (``python3 chip_smoke.py``). It
    (one-frame clips, 7x7 clips across strips with a partial last strip at
    C_in 200 and C_out 40, C_out 200, the stage-4 train shape, and
    F32_TEMPORAL_DATA_144_SHAPES: N tiles of 144 with a partial last
-   strip, a masked tile and ranges of two strips) and
+   strip, a masked tile and ranges of two strips),
+   F32_TEMPORAL_FILTER_EDGE_SHAPES (one-frame clips, 7x7 clips across
+   strips, C_in 40, 200 and 280 in partial channel blocks, C_out 40, 22
+   slices with a short last, the stage-4 train shape, and
+   F32_TEMPORAL_FILTER_64_SHAPES: channel blocks of 64 with a partial last
+   strip, an idle warp and a masked N tile; every temporal shape must take
+   the filter gradient's frame walk; an empty batch must give a zero dw)
+   and
    F32_GATHER_EDGE_SHAPES (both spatial gradients of images too wide for
    the row walks through the per-tap gathers; phase
    ``kernel_conv_f32_bwd_edges``) and at every
@@ -2358,6 +2366,27 @@ F32_TEMPORAL_DATA_EDGE_SHAPES = (
     ("temporal", (4, 2, 5, 5, 64), (3, 64, 200)),
     ("temporal", (32, 2, 7, 7, 1152), (3, 1152, 512))) \
     + F32_TEMPORAL_DATA_144_SHAPES
+# the fp32 temporal filter gradient's frame walk off the train tiling (strips
+# of 32): clips of one frame across strips (31 strips, the last of 20, in
+# slices of 18 and 13) at C_out 40 (a masked N tile); five 7x7 clips of
+# three frames several a strip, the last partial, at C_in 40 (one block of
+# 48: a warp past C_in) and C_out 48, slices of 6 and 2; C_in 200 in five
+# blocks of 48 (the last of 8) at C_out 40, slices of 9, 9 and 1; 85 7x7
+# clips at C_in 280, 131 strips in 22 slices, the last of five; the stage-4
+# train shape (32 clips: six slices of 9 strips, the last of 4); the
+# channel blocks of 64
+F32_TEMPORAL_FILTER_64_SHAPES = (
+    # five 7x7 clips of three frames, 8 strips (the last of 21) in slices of
+    # 6 and 2, at C_in 104 (two blocks of 64: the second's channels 112-127
+    # leave its last warp idle) and C_out 40 (a masked N tile)
+    ("temporal", (5, 3, 7, 7, 104), (3, 104, 40)),)
+F32_TEMPORAL_FILTER_EDGE_SHAPES = (
+    ("temporal", (20, 1, 7, 7, 24), (3, 24, 40)),
+    ("temporal", (5, 3, 7, 7, 40), (3, 40, 48)),
+    ("temporal", (12, 2, 7, 7, 200), (3, 200, 40)),
+    ("temporal", (85, 3, 7, 7, 280), (3, 280, 40)),
+    ("temporal", (32, 2, 7, 7, 1152), (3, 1152, 512))) \
+    + F32_TEMPORAL_FILTER_64_SHAPES
 # the fp32 frame walk off the serving tiling (forward only): clips of one
 # frame across a strip; 7x7 clips five a strip, the second strip partial,
 # C_in 40 (chunks of 16, 16, 8); C_out 200 in four N tiles of 64, the last
@@ -2498,13 +2527,14 @@ def plain_bwd_tf32(torch, conv_bn, *args, kind):
 
 def filter_plan_f32(torch, conv_bn, kind, x, co):
     """The fp32 filter gradient's plan for x [B, T, H, W, C_in] -> C_out
-    (channel counts as the wrapper pads them): the spatial row walk's, or
-    None (the per-tap gather: the temporal kind, images too wide)."""
-    if kind != "spatial":
-        return None
+    (channel counts as the wrapper pads them): the temporal frame walk's,
+    the spatial row walk's, or None (the spatial per-tap gather: images too
+    wide)."""
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    return conv_bn.f32_spatial_filter_plan(*x.shape[:4], _round8(x.shape[-1]),
-                                           _round8(co), sms)
+    shape = (*x.shape[:4], _round8(x.shape[-1]), _round8(co), sms)
+    if kind == "temporal":
+        return conv_bn.f32_temporal_filter_plan(*shape)
+    return conv_bn.f32_spatial_filter_plan(*shape)
 
 
 def data_plan_f32(torch, conv_bn, kind, x, co, affine):
@@ -2539,13 +2569,22 @@ def data_plan_line(p):
 
 
 def filter_plan_line(p):
-    """The row walk's plan as the phase lines carry it (None: the gather)."""
-    return None if p is None else {
-        "step": p.step, "n_tile": p.n_tile, "ci_blk": p.ci_blk,
-        "register_tile": "x".join(map(str, p.register_tile)),
-        "ring_rows": p.ring_rows, "slices": p.slices,
-        "images_per_slice": p.images_per_slice, "blocks": p.blocks,
-        "threads": p.threads}
+    """The filter walk's plan as the phase lines carry it (None: the
+    gather)."""
+    if p is None:
+        return None
+    if hasattr(p, "strip"):             # the temporal frame walk
+        return {"walk": "frames", "strip": p.strip, "n_tile": p.n_tile,
+                "ci_blk": p.ci_blk,
+                "register_tile": "x".join(map(str, p.register_tile)),
+                "units_per_slice": p.units_per_slice, "slices": p.slices,
+                "blocks": p.blocks, "threads": p.threads}
+    return {"walk": "rows", "step": p.step, "n_tile": p.n_tile,
+            "ci_blk": p.ci_blk,
+            "register_tile": "x".join(map(str, p.register_tile)),
+            "ring_rows": p.ring_rows, "slices": p.slices,
+            "images_per_slice": p.images_per_slice, "blocks": p.blocks,
+            "threads": p.threads}
 
 
 def check_bwd_unit_f32(torch, F, conv_bn, what, x, w, a, gy, gs1, gs2, kind,
@@ -2602,12 +2641,18 @@ def check_bwd_unit_f32(torch, F, conv_bn, what, x, w, a, gy, gs1, gs2, kind,
     sms = torch.cuda.get_device_properties(x.device).multi_processor_count
     walk = filter_plan_f32(torch, conv_bn, kind, x, co)
     fplan = walk or conv_bn.f32_bwd_filter_plan(b, t, h, wd, _round8(ci),
-                                                _round8(co), kind, sms)
+                                                _round8(co), sms)
     if fplan.slices > 1:
-        last = fplan.positions_of(fplan.slices - 1, m) if walk is None else \
-            range(walk.images_of(walk.slices - 1)[0] * h * wd, m)
         keep = torch.zeros(m, 1, device=x.device)
-        keep[last.start:last.stop] = 1
+        if kind == "temporal":          # the frame walk's last slice of
+            pos = torch.arange(b * h * wd, device=x.device)   # strips, at
+            start = walk.positions_of(walk.units_of(walk.slices - 1)[0])[0]
+            keep[(pos >= start).reshape(b, 1, h * wd).expand(b, t, h * wd)
+                 .reshape(m)] = 1       # every frame
+        else:
+            last = fplan.positions_of(fplan.slices - 1, m) if walk is None \
+                else range(walk.images_of(walk.slices - 1)[0] * h * wd, m)
+            keep[last.start:last.stop] = 1
         ge = (conv_bn._gy_eff(gy, y, gs1, gs2).reshape(m, co) * keep
               ).reshape(gy.shape)
         zero = torch.zeros(co, device=x.device)
@@ -2697,7 +2742,11 @@ def check_conv_f32_bwd(torch, F, conv_bn, clips=32):
     """Rows 5f-8f: the fp32 backward kernels against their plain versions
     (TF32 off) at F32_EDGE_SHAPES, F32_FILTER_WALK_EDGE_SHAPES,
     F32_DATA_WALK_EDGE_SHAPES, F32_TEMPORAL_DATA_EDGE_SHAPES (the frame
-    walk required, in N tiles of 144 at F32_TEMPORAL_DATA_144_SHAPES) and F32_GATHER_EDGE_SHAPES (the spatial filter and data
+    walk required, in N tiles of 144 at F32_TEMPORAL_DATA_144_SHAPES),
+    F32_TEMPORAL_FILTER_EDGE_SHAPES (the filter gradient's frame walk
+    required at every temporal shape, in channel blocks of 64 at
+    F32_TEMPORAL_FILTER_64_SHAPES; an empty batch's dw must be zero) and
+    F32_GATHER_EDGE_SHAPES (the spatial filter and data
     gradients' per-tap gathers each taken at one of them at least), with
     and without the prologue and with the padding controls,
     then at every fused unit's shape of the fusion train step
@@ -2705,13 +2754,14 @@ def check_conv_f32_bwd(torch, F, conv_bn, clips=32):
     check; timed (kernel and library in turn, F32_BWD_ROUNDS rounds of
     F32_BWD_REPS) beside the plain version and cuDNN's
     ``torch.nn.grad.conv3d_input`` / ``conv3d_weight`` in fp32 (no TF32).
-    Returns the four rows of the kernels line, per train step."""
+    Returns the four rows of the kernels line, per train step, each with
+    its ms a launch per stage."""
     g = torch.Generator(device="cuda").manual_seed(19)
     edges, tf32_edges, gathered, data_gathered = {}, 0, [], []
     for kind, xs, ws in dict.fromkeys(
             F32_EDGE_SHAPES + F32_FILTER_WALK_EDGE_SHAPES
             + F32_DATA_WALK_EDGE_SHAPES + F32_TEMPORAL_DATA_EDGE_SHAPES
-            + F32_GATHER_EDGE_SHAPES):
+            + F32_TEMPORAL_FILTER_EDGE_SHAPES + F32_GATHER_EDGE_SHAPES):
         for affine in (False, True):
             x, w, a, gy, gs1, gs2 = f32_bwd_inputs(torch, g, xs, ws, affine,
                                                    scale=1.0)
@@ -2730,10 +2780,17 @@ def check_conv_f32_bwd(torch, F, conv_bn, clips=32):
                 require((edges[key]["data_plan"] or {}).get("walk")
                         == "frames", f"{key}: the temporal data gradient "
                         f"takes no frame walk: {edges[key]['data_plan']}")
+                require((edges[key]["filter_plan"] or {}).get("walk")
+                        == "frames", f"{key}: the temporal filter gradient "
+                        f"takes no frame walk: {edges[key]['filter_plan']}")
             if (kind, xs, ws) in F32_TEMPORAL_DATA_144_SHAPES:
                 require(edges[key]["data_plan"]["n_tile"] == 144,
                         f"{key}: the frame walk takes no N tile of 144: "
                         f"{edges[key]['data_plan']}")
+            if (kind, xs, ws) in F32_TEMPORAL_FILTER_64_SHAPES:
+                require(edges[key]["filter_plan"]["ci_blk"] == 64,
+                        f"{key}: the filter frame walk takes no channel "
+                        f"block of 64: {edges[key]['filter_plan']}")
             if (kind, xs, ws) in F32_GATHER_EDGE_SHAPES \
                     and edges[key]["filter_plan"] is None:
                 gathered.append(key)
@@ -2746,6 +2803,17 @@ def check_conv_f32_bwd(torch, F, conv_bn, clips=32):
             "gradient's per-tap gather")
     require(data_gathered, "no F32_GATHER_EDGE_SHAPES took the spatial data "
             "gradient's per-tap gather")
+    # an empty batch: the temporal filter walk's C entry sets dw to 0
+    x, _, a, gy, gs1, gs2 = f32_bwd_inputs(
+        torch, torch.Generator(device="cuda").manual_seed(25),
+        (0, 2, 7, 7, 48), (3, 48, 64), True, scale=1.0)
+    dw = conv_bn.conv_unit_bwd_filter(x, *a, gy, gy, gs1, gs2,
+                                      kind="temporal")
+    torch.cuda.synchronize()
+    require(tuple(dw.shape) == (3, 48, 64) and not dw.any().item(),
+            f"the temporal filter gradient of an empty batch is not a zero "
+            f"[3, 48, 64]: {tuple(dw.shape)}")
+    del x, gy, dw
     emit({"phase": "kernel_conv_f32_bwd_edges", "errors": edges,
           "tf32_control_failed_at": tf32_edges, "of": len(edges),
           "filter_gather_at": gathered, "data_gather_at": data_gathered,
@@ -2801,7 +2869,10 @@ def check_conv_f32_bwd(torch, F, conv_bn, clips=32):
             acc = out.setdefault(name, {"name": name, "max_abs_err": 0.0,
                                         "ms": 0.0, "plain_ms": 0.0,
                                         "library_ms": 0.0, "_ops": 0.0,
-                                        "_bytes": 0.0})
+                                        "_bytes": 0.0, "ms_per_stage": []})
+            acc["ms_per_stage"].append({"x": list(xs), "affine": affine,
+                                        "per_step": copies, "ms": ms,
+                                        "library_ms": lib})
             acc["max_abs_err"] = max(acc["max_abs_err"],
                                      errs["dx" if part == "data" else "dw"])
             for key, v in (("ms", ms), ("plain_ms", plain[part]),
@@ -3828,7 +3899,9 @@ def main():
                      "launches": launches,
                      "max_abs_err": k["max_abs_err"], "ms": k["ms"],
                      "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
-                     "bound_by": k["bound_by"], "library_ms": k["library_ms"]})
+                     "bound_by": k["bound_by"], "library_ms": k["library_ms"],
+                     **({"ms_per_stage": k["ms_per_stage"]}
+                        if "ms_per_stage" in k else {})})
     emit({"phase": "total", "s": time.perf_counter() - t_start})
     print(smi)
     emit({"kernels": line})

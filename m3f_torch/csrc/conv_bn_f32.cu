@@ -23,10 +23,11 @@
 //                           (_spatial_bwd_filter_kernel, :554): a row walk
 //                           (its own section below), after fold_f32_kernel
 //                           folds ge once
-//   bwd_filter_f32_kernel   _temporal_bwd's filter gradient
-//                           (_temporal_bwd_filter_kernel, :625), and
-//                           _spatial_bwd's where no row-walk layout fits the
-//                           images
+//   temporal_filter_f32_kernel _temporal_bwd's filter gradient
+//                           (_temporal_bwd_filter_kernel, :625): a frame
+//                           walk (its own section below)
+//   bwd_filter_f32_kernel   _spatial_bwd's filter gradient where no row-walk
+//                           layout fits the images
 // conv_bn.cu keeps the bf16 units.
 //
 // One unit:
@@ -57,8 +58,8 @@
 // so no TF32 and no tensor cores) and not memory (3.35 TB/s) set the floor.
 //
 // Design of the per-tap gathers (simple and right first; the forward's row
-// and frame walks, the spatial gradients' row walks and the temporal data
-// gradient's frame walk are the redesigns, described above their code). Every
+// and frame walks, the spatial gradients' row walks and the temporal
+// gradients' frame walks are the redesigns, described above their code). Every
 // gather kernel is a block of 256 threads owning a 64 x 64 tile, each
 // thread 4 x 4 sums in registers, K walked in chunks of 16 through shared
 // memory, the next chunk's loads held in registers while the products of
@@ -86,8 +87,8 @@
 //   mirrored (the wrapper lays it out). The epilogue applies the mask and
 //   inv, and the partial rows of dinv / dshift go through colsum_f32_kernel
 //   as s1 / s2 do.
-// - bwd_filter_f32_kernel (the temporal kind, and the spatial kind's images
-//   too wide for the row walk): 64 rows of K = taps x Ci x 64 output
+// - bwd_filter_f32_kernel (the spatial kind's images too wide for the row
+//   walk): 64 rows of K = 9 x Ci x 64 output
 //   channels of dw over a slice of the positions, walked in chunks of 16
 //   positions: x^ formed at the gather (4 rows of one tap a thread, fixed
 //   for the block), ge at the load. A slice writes one partial [K, Co] (or
@@ -97,7 +98,8 @@
 // Measured times are in PERF.md (chip_smoke.py, phases kernel_conv_f32 and
 // kernel_conv_f32_bwd; m3f_torch/scripts/filter_sweep.py --kind
 // spatial_fwd_f32 / temporal_fwd_f32 / spatial_filter_f32 / spatial_data_f32
-// / temporal_data_f32 for the walks' layouts and ablations).
+// / temporal_data_f32 / temporal_filter_f32 for the walks' layouts and
+// ablations).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -147,7 +149,7 @@ struct F32BwdFilterArgs {
   const float* gs2;    // [Co]
   const float* inv;    // [Ci] or null
   const float* shift;  // [Ci] or null
-  float* out;          // [slices, taps * Ci, Co]: partials, or dw (one slice)
+  float* out;          // [slices, 9 * Ci, Co]: partials, or dw (one slice)
   int T, H, W, Ci, Co;
   int64_t M;
   int chunks, chunks_per_slice;
@@ -194,22 +196,14 @@ __device__ __forceinline__ void decode(int64_t m, int T, int H, int W, int& t,
   t = (int)(img % T);
 }
 
-// The neighbour of position m (at t, h, w) that tap reads: KIND 0 spatial,
-// (dh, dw) = (tap / 3 - 1, tap % 3 - 1); 1 temporal, dt = tap - 1. False
-// where it falls in the zero padding.
-template <int KIND>
-__device__ __forceinline__ bool neighbour(int64_t m, int t, int h, int w,
-                                          int tap, int T, int H, int W,
-                                          int64_t& src) {
-  if (KIND == 0) {
-    const int dh = tap / 3 - 1, dw = tap % 3 - 1;
-    const int hh = h + dh, ww = w + dw;
-    src = m + (int64_t)dh * W + dw;
-    return hh >= 0 && hh < H && ww >= 0 && ww < W;
-  }
-  const int tt = t + tap - 1;
-  src = m + (int64_t)(tap - 1) * H * W;
-  return tt >= 0 && tt < T;
+// The neighbour of position m (at h, w) that spatial tap reads, (dh, dw) =
+// (tap / 3 - 1, tap % 3 - 1). False where it falls in the zero padding.
+__device__ __forceinline__ bool neighbour(int64_t m, int h, int w, int tap,
+                                          int H, int W, int64_t& src) {
+  const int dh = tap / 3 - 1, dw = tap % 3 - 1;
+  const int hh = h + dh, ww = w + dw;
+  src = m + (int64_t)dh * W + dw;
+  return hh >= 0 && hh < H && ww >= 0 && ww < W;
 }
 
 // acc[i][j] += A[kk][ty * 4 + i] * B[kk][tx * 4 + j] over the chunk
@@ -296,7 +290,7 @@ conv_f32_kernel(const F32FwdArgs a) {
       const int c = c0 + lc;
       int64_t src;
       if (gm_ok && c < a.Ci &&
-          neighbour<0>(gm, gt, gh, gw, tap, a.T, a.H, a.W, src)) {
+          neighbour(gm, gh, gw, tap, a.H, a.W, src)) {
         xa = ld4(a.x + src * a.Ci + c);
         if (AFFINE) xa = prologue4(xa, ld4(a.inv + c), ld4(a.shift + c));
       }
@@ -392,7 +386,7 @@ bwd_data_f32_kernel(const F32BwdDataArgs a) {
       const int c = c0 + lc;
       int64_t src;
       if (gm_ok && c < a.Co &&
-          neighbour<0>(gm, gt, gh, gw, tap, a.T, a.H, a.W, src))
+          neighbour(gm, gh, gw, tap, a.H, a.W, src))
         ga = fold4(ld4(a.gy + src * a.Co + c), ld4(a.y + src * a.Co + c),
                    ld4(a.gs1 + c), ld4(a.gs2 + c));
       // the mirrored filter's rows tap * Co + c0 + lk, input channels
@@ -459,9 +453,9 @@ bwd_data_f32_kernel(const F32BwdDataArgs a) {
     partial_rows(s1, s2, red1, red2, n0, a.Ci, a.part1, a.part2);
 }
 
-// The filter gradient: one 64 x 64 tile of [taps * Ci, Co] over the slice
-// blockIdx.z of the positions, walked in chunks of 16
-template <int KIND, bool AFFINE>
+// The spatial filter gradient: one 64 x 64 tile of [9 * Ci, Co] over the
+// slice blockIdx.z of the positions, walked in chunks of 16
+template <bool AFFINE>
 __global__ void __launch_bounds__(THREADS)
 bwd_filter_f32_kernel(const F32BwdFilterArgs a) {
   __shared__ __align__(16) float As[KC][BM];    // [position][K row]: x^
@@ -472,7 +466,7 @@ bwd_filter_f32_kernel(const F32BwdFilterArgs a) {
   const int lp = tid / 16, l4 = (tid % 16) * 4; // loads: position, 4 columns
   const int n0 = blockIdx.x * BN;
   const int k0 = blockIdx.y * BM;
-  const int K = (KIND == 0 ? 9 : 3) * a.Ci;
+  const int K = 9 * a.Ci;
   // this thread's gather rows k0 + l4 .. + 3: one tap, 4 input channels
   // (Ci is a multiple of 8), the same for the whole walk
   const int r = k0 + l4;
@@ -508,7 +502,7 @@ bwd_filter_f32_kernel(const F32BwdFilterArgs a) {
         int t, h, w;
         decode(m, a.T, a.H, a.W, t, h, w);
         int64_t src;
-        if (neighbour<KIND>(m, t, h, w, tap, a.T, a.H, a.W, src)) {
+        if (neighbour(m, h, w, tap, a.H, a.W, src)) {
           xa = ld4(a.x + src * a.Ci + ci);
           if (AFFINE) xa = prologue4(xa, iv, sh);
         }
@@ -2663,6 +2657,377 @@ int tdf_run(TemporalDataF32Args a, int per, float* dinv, float* dshift,
   return (int)cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// The temporal filter gradient: the frame walk (temporal_filter_f32_kernel)
+// ---------------------------------------------------------------------------
+//
+// Replaces _temporal_bwd's filter gradient (m3f/pytorch_tpu/ops/pallas/
+// conv_bn.py:625, kernel _temporal_bwd_filter_kernel at :454, ge from
+// _gy_eff at :287) for fp32 x:
+//   dw[k * Ci + ci, co] = sum_{b,t,p} x^[b, t+k-1, p, ci] * ge[b, t, p, co]
+// with x^ 0 at the frames -1 and T (not relu(shift)). At the train step's
+// stage 1 (x [32,16,56,56,144], ge [.., 64]) a launch is 85 GFLOP of fp32
+// FMA on 1.7 GB: 1.27 ms at 67 TFLOP/s against 0.52 ms of memory, and every
+// stage is operation-bound. What the per-tap gather (bwd_filter_f32_kernel's
+// first design) spent beyond the products (x^ formed again for each of the
+// three taps and each 64-channel N tile, ge folded again for each 64-row K
+// tile: 7 to 54 times an element; (t, h, w) decoded per position and chunk;
+// a synchronous gather through registers; one LDS.128 of A and one of B per
+// 16 FFMA) is what this design takes out. It is temporal_fwd_f32_kernel's
+// frame walk with the products turned round: dw stays in registers, and the
+// positions are the sum.
+//
+// - Frame walk. A unit is a strip of S = 32 consecutive positions of the
+//   flattened B*H*W axis (across clips where H*W is small), walked over t =
+//   0..T-1; a slice's units follow one another in one stream of steps, step
+//   j being frame j % T of unit j / T. A block owns every tap of CB input
+//   channels x an N tile of 64 output channels: [3 * CB, 64] of dw, 96 sums
+//   a thread in registers across the whole walk.
+// - x^ once. Frame j's x rows for the block's channels arrive by cp.async
+//   into a ring of TFF_XS frames ([S][CB] each: frames j-1, j, j+1 and the
+//   one arriving); the thread that copied a vector forms x^ in place, once,
+//   after its own wait_group (two roundings: __fmul_rn / __fadd_rn; never
+//   past the strip or C_in). Step j's ge [S][64] then feeds all three taps:
+//   x^ frame t-1 (tap 0), t (tap 1) and t+1 (tap 2); a tap whose frame lies
+//   outside the clip is skipped, which is x^'s zero padding after the
+//   prologue. So x^ is read from memory and formed once per N tile (at
+//   stage 1 once in all), ge once per channel block.
+// - ge folded once, in place in each channel block as row 7f does (gy
+//   double buffered, y single: only its copier reads it, before the barrier
+//   that frees it; each op rounded, never past the strip or C_out). A
+//   fold_f32_kernel pass into a scratch [M, Co] before the walk was 10%
+//   slower at stage 1 and within 1% at stages 3-4 (PERF.md, PR 25).
+// - All threads copy and form: after its own wait_group a thread forms its
+//   vectors of frame j+1 and folds its vectors of ge j, one barrier a step
+//   publishes them and frees the buffers of step j-1, the copies of x^ j+2
+//   and ge j+1 are issued, and the products of step j hide them. A
+//   producer warp (row 6f's shape) and a unit-major walk with x^ in
+//   registers both measured slower (PERF.md).
+// - FFMA microkernel (fp32 CUDA cores: the reference is fp32, so no TF32
+//   and no tensor cores): CB/4 channel groups x 8 output-channel groups,
+//   each thread 3 taps x 4 input channels (cg * 4) x 8 output channels (4 at
+//   ng * 4, 4 at 32 + ng * 4) over every position of each step. A position
+//   costs it 3 LDS.128 of x^ and 2 of ge for 96 FFMA (one per ~19, against
+//   one per 8 in the gather). A warp is 4 channel groups x 8 output-channel
+//   groups of one position, so its A loads are 4 distinct vectors and its B
+//   loads 8 (one wavefront each). CB = 48 (3 warps, four blocks a SM; 48
+//   divides every flops-mode width) or 64 (4 warps, three a SM): 48 or 56
+//   KB of shared memory a block and 12 warps a SM (ptxas capped at 168
+//   registers), so that one block's barrier, copies and forming hide behind
+//   the others' products (8 warps a SM ran 7-17% slower, PERF.md). A warp
+//   whose 16 channels all lie past C_in (the tail of the last channel
+//   block) skips its copies and products.
+// - Epilogue: the sums through shared memory (each quad of output channels
+//   stored pair-swapped: see there), stored along the output channels into
+//   the slice's partial [3 * Ci, Co] (or dw itself with one slice);
+//   slice_sum_f32_kernel sums the partials in slice order. No atomics: two
+//   calls give the same bits.
+// - Grid: slices of units x channel blocks x N tiles, the channel block
+//   fastest (the blocks reading the same ge run together);
+//   f32_temporal_filter_plan (ops/conv_bn.py) picks CB and sizes the slices.
+
+constexpr int TFF_NB = 64;            // output channels a block
+constexpr int TFF_XS = 4;             // x^ frames in the ring
+// Measurement knob, for filter_sweep.py only (dw is then wrong): 1 leaves
+// out forming x^ and folding ge, 2 the products, 4 the copies of x, gy and y
+// (the buffers keep what they held), 8 the epilogue (the dw stores); 15
+// leaves the walk alone; 64 stores the sums in output-channel order (b and
+// the sum then share a register bank in every FFMA, see the epilogue).
+#ifndef TFF_ABLATE
+#define TFF_ABLATE 0
+#endif
+
+struct TemporalFilterF32Args {
+  const float* x;      // [B, T, H*W, Ci]
+  const float* gy;     // [B, T, H*W, Co]
+  const float* y;      // [B, T, H*W, Co]
+  const float* gs1;    // [Co]
+  const float* gs2;
+  const float* inv;    // [Ci] or null
+  const float* shift;
+  float* out;          // [slices][3 * Ci][Co] partials, or dw (one slice)
+  int positions;       // B * H*W: the axis the strips cut
+  int T, HW, Ci, Co;
+  int units, units_per_slice, ci_blocks, n_tiles;
+  FastDiv by_hw;
+};
+
+// A block's shared memory: the x^ ring [TFF_XS][S][CB], two gy / ge
+// buffers [S][64] and a y buffer [S][64]; the block's sums reuse it at the
+// end. ops/conv_bn.py (_temporal_filter_f32_smem) computes the same.
+size_t tff_smem(int CB, int S) {
+  return sizeof(float) * ((size_t)TFF_XS * S * CB + (size_t)3 * S * TFF_NB);
+}
+
+// One position group: each thread walks every position of a step, from a
+// first position p0 that the kernel computes at run time (warp / (CG / 4),
+// always 0 with TFF_PG 1). ptxas schedules the products 5-6% faster with
+// the loop's start a run-time value than with a constant start (PERF.md,
+// PR 25 run 15): keep p0 a run-time value.
+constexpr int TFF_PG = 1;
+
+// acc[d][k][c] += x^ of tap d (frame t - 1 + d) at position p, channel k,
+// times ge at p, this thread's output channel c, over positions p0, p0 +
+// TFF_PG, ... < n (n <= S); xm / x0 / xp and gs at this thread's first
+// channel. The next position's vectors are loaded before this one's
+// products. T0 / T2: taps 0 / 2 inside the clip.
+template <int CB, int S, bool T0, bool T2>
+__device__ __forceinline__ void tff_products(const float* xm, const float* x0,
+                                             const float* xp, const float* gs,
+                                             int p0, int n,
+                                             float (&acc)[3][4][8]) {
+  constexpr int NB = TFF_NB, step = TFF_PG;
+  if (p0 >= n) return;
+  float4 av[3], b0, b1;
+  auto load = [&](int p, float4 (&a)[3], float4& c0, float4& c1) {
+    a[0] = T0 ? ld4(xm + p * CB) : zero4();
+    a[1] = ld4(x0 + p * CB);
+    a[2] = T2 ? ld4(xp + p * CB) : zero4();
+    c0 = ld4(gs + p * NB);
+    c1 = ld4(gs + p * NB + NB / 2);
+  };
+  load(p0, av, b0, b1);
+#pragma unroll 2
+  for (int p = p0; p < n; p += step) {
+    float4 an[3], bn0, bn1;
+    load(min(p + step, S - 1), an, bn0, bn1);   // a row of the buffers
+    const float b[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+#pragma unroll
+    for (int d = 0; d < 3; ++d) {
+      if ((d == 0 && !T0) || (d == 2 && !T2)) continue;
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const float ak = lane4(av[d], k);
+#pragma unroll
+        for (int c = 0; c < 8; ++c) acc[d][k][c] = fmaf(ak, b[c], acc[d][k][c]);
+      }
+    }
+#pragma unroll
+    for (int d = 0; d < 3; ++d) av[d] = an[d];
+    b0 = bn0;
+    b1 = bn1;
+  }
+}
+
+// CG channel groups x 8 output-channel groups (CB = 4 * CG input channels,
+// 64 output channels a block; CG / 4 warps) over strips of S positions,
+// each thread 3 taps x 4 input channels x 8 output channels; BPS blocks a
+// SM.
+template <int CG, int S, int BPS>
+__global__ void __launch_bounds__(8 * CG, BPS)
+temporal_filter_f32_kernel(const TemporalFilterF32Args a) {
+  constexpr int CB = 4 * CG, NB = TFF_NB, XS = TFF_XS;
+  constexpr int NTH = 8 * CG;                  // threads: CG / 4 warps
+  constexpr int QX = CB / 4, QG = NB / 4;      // 16-byte vectors of a position's x / ge row
+  constexpr int XV = (S * QX + NTH - 1) / NTH; // x vectors a thread copies a frame, at most
+  constexpr int GV = (S * QG + NTH - 1) / NTH; // ge (gy, y) vectors
+  static_assert(TFF_PG == 1 && CG % 4 == 0 && NTH % 32 == 0 && NTH <= 128 && NTH % QX == 0 &&
+                    NTH % QG == 0 && 3 * CB * NB <= XS * S * CB + 3 * S * NB,
+                "one position group, warp layout, 4 warps, fixed channels a thread, block sums");
+  const int T = a.T, HW = a.HW, Ci = a.Ci, Co = a.Co;
+  const bool affine = a.inv != nullptr;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* Xr = reinterpret_cast<float*>(smem_raw);   // [XS][S][CB]: the x^ ring
+  float* Gb = Xr + XS * S * CB;                     // [2][S][NB]: gy, then ge
+  float* Yb = Gb + 2 * S * NB;                      // [S][NB]: y
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int ng = lane & 7;                      // channels ng*4, NB/2 + ng*4
+  const int cg = (warp % (CG / 4)) * 4 + (lane >> 3);   // input channels cg*4
+  const int pg = warp / (CG / 4);               // first position (0): TFF_PG
+  const int tiles = a.ci_blocks * a.n_tiles;
+  const int tile = (int)blockIdx.x % tiles, slice = (int)blockIdx.x / tiles;
+  const int c0 = (tile % a.ci_blocks) * CB, n0 = (tile / a.ci_blocks) * NB;
+  // a warp's 16 input channels all past Ci (the last channel block's): no
+  // products, its sums stay 0 and are never stored
+  const bool busy = c0 + (warp % (CG / 4)) * 16 < Ci;
+  const int u0 = slice * a.units_per_slice;
+  const int u1 = min(a.units, u0 + a.units_per_slice);
+  const int nsteps = u1 > u0 ? (u1 - u0) * T : 0;
+  // this thread's copy vectors: the same channels in every row
+  const int xq = (tid % QX) * 4, gq = (tid % QG) * 4;
+  const bool x_in = c0 + xq < Ci, g_in = n0 + gq < Co;
+  float4 iv = zero4(), sv = zero4(), g1 = zero4(), g2 = zero4();
+  if (affine && x_in) {
+    iv = ld4(a.inv + c0 + xq);
+    sv = ld4(a.shift + c0 + xq);
+  }
+  if (g_in) {
+    g1 = ld4(a.gs1 + n0 + gq);
+    g2 = ld4(a.gs2 + n0 + gq);
+  }
+
+  // The row of strip position r of unit u at frame f (-1 past the
+  // positions): b*T*HW + f*HW + p for position gp = b*HW + p.
+  auto row_of = [&](int u, int r, int f) -> int64_t {
+    const int gp = u * S + r;
+    if (gp >= a.positions) return -1;
+    const int b = fdiv(gp, a.by_hw);
+    return (int64_t)gp + (int64_t)b * (T - 1) * HW + (int64_t)f * HW;
+  };
+  // x frame s of the walk (unit u0 + s / T, frame s % T) into ring slot s % XS
+  // (vectors past Ci not at all: only sums never stored read them)
+  auto copy_x = [&](int s) {
+    if ((TFF_ABLATE & 4) || !x_in) return;
+    const int u = u0 + s / T, f = s - (s / T) * T;
+    float* xd = Xr + (s % XS) * S * CB;
+#pragma unroll
+    for (int j = 0; j < XV; ++j) {
+      const int v = tid + j * NTH;
+      if (S * QX % NTH != 0 && v >= S * QX) break;
+      const int64_t row = row_of(u, v / QX, f);
+      cp_async16(xd + v * 4, row >= 0 ? a.x + row * Ci + c0 + xq : a.x,
+                 row >= 0);
+    }
+  };
+  // x^ = relu(f32(f32(x * inv) + shift)) in place, on this thread's vectors
+  // of frame s (never those past the strip or past Ci)
+  auto form_x = [&](int s) {
+    if (!affine || (TFF_ABLATE & 1) || !x_in) return;
+    const int u = u0 + s / T;
+    float* xd = Xr + (s % XS) * S * CB;
+#pragma unroll
+    for (int j = 0; j < XV; ++j) {
+      const int v = tid + j * NTH;
+      if (S * QX % NTH != 0 && v >= S * QX) break;
+      if (u * S + v / QX >= a.positions) continue;
+      float4* p = reinterpret_cast<float4*>(xd + v * 4);
+      *p = prologue4(*p, iv, sv);
+    }
+  };
+  // gy of step s into buffer s & 1, its y into the y buffer
+  auto copy_g = [&](int s) {
+    if (TFF_ABLATE & 4) return;
+    const int u = u0 + s / T, f = s - (s / T) * T;
+    float* gd = Gb + (s & 1) * S * NB;
+#pragma unroll
+    for (int j = 0; j < GV; ++j) {
+      const int v = tid + j * NTH;
+      if (S * QG % NTH != 0 && v >= S * QG) break;
+      const int64_t row = row_of(u, v / QG, f);
+      const bool ok = row >= 0 && g_in;
+      const int64_t src = ok ? row * Co + n0 + gq : 0;
+      cp_async16(gd + v * 4, a.gy + src, ok);
+      if (ok) cp_async16(Yb + v * 4, a.y + src, true);
+    }
+  };
+  // ge = gy + (gs1 + (2 y) gs2) in place, on this thread's vectors of step
+  // s (never those past the strip or past Co)
+  auto fold_g = [&](int s) {
+    if ((TFF_ABLATE & 1) || !g_in) return;
+    const int u = u0 + s / T;
+    float* gd = Gb + (s & 1) * S * NB;
+#pragma unroll
+    for (int j = 0; j < GV; ++j) {
+      const int v = tid + j * NTH;
+      if (S * QG % NTH != 0 && v >= S * QG) break;
+      if (u * S + v / QG >= a.positions) continue;
+      float4* p = reinterpret_cast<float4*>(gd + v * 4);
+      *p = fold4(*p, ld4(Yb + v * 4), g1, g2);
+    }
+  };
+
+  float acc[3][4][8];
+#pragma unroll
+  for (int d = 0; d < 3; ++d)
+#pragma unroll
+    for (int k = 0; k < 4; ++k)
+#pragma unroll
+      for (int c = 0; c < 8; ++c) acc[d][k][c] = 0.f;
+
+  // Step j: its wait covers x^ j+1 and ge j (issued a step ahead), one
+  // barrier publishes them and frees the buffers of step j-1, then x^ j+2
+  // and ge j+1 are issued and the products of step j hide them.
+  if (nsteps > 0) {
+    copy_x(0);
+    if (nsteps > 1) copy_x(1);
+    copy_g(0);
+  }
+  cp_async_commit();
+  for (int j = 0; j < nsteps; ++j) {
+    cp_async_wait_all();            // this thread's copies of step j landed
+    if (j == 0) form_x(0);
+    if (j + 1 < nsteps) form_x(j + 1);
+    fold_g(j);
+    __syncthreads();                // x^ j+1 and ge j formed; step j-1 multiplied
+    if (j + 2 < nsteps) copy_x(j + 2);   // into the slot of x^ j-2
+    if (j + 1 < nsteps) copy_g(j + 1);   // into the buffers of step j-1
+    cp_async_commit();
+    if ((TFF_ABLATE & 2) || !busy) continue;
+    const int u = u0 + j / T, t = j - (j / T) * T;
+    const int n = min(S, a.positions - u * S);   // the strip's positions
+    const float* xm = Xr + ((j + XS - 1) % XS) * S * CB + cg * 4;
+    const float* x0 = Xr + (j % XS) * S * CB + cg * 4;
+    const float* xp = Xr + ((j + 1) % XS) * S * CB + cg * 4;
+    const float* gs = Gb + (j & 1) * S * NB + ng * 4;
+    const bool t0 = t > 0, t2 = t + 1 < T;
+    if (t0 && t2)
+      tff_products<CB, S, true, true>(xm, x0, xp, gs, pg, n, acc);
+    else if (t0)
+      tff_products<CB, S, true, false>(xm, x0, xp, gs, pg, n, acc);
+    else if (t2)
+      tff_products<CB, S, false, true>(xm, x0, xp, gs, pg, n, acc);
+    else
+      tff_products<CB, S, false, false>(xm, x0, xp, gs, pg, n, acc);
+  }
+  cp_async_wait_all();
+  __syncthreads();                  // every product read: reuse the buffers
+
+  if (TFF_ABLATE & 8) {
+    if (T < 0)                      // never true: keeps the products alive
+#pragma unroll
+      for (int d = 0; d < 3; ++d)
+#pragma unroll
+        for (int k = 0; k < 4; ++k)
+#pragma unroll
+          for (int c = 0; c < 8; ++c) a.out[(d * 4 + k) * 8 + c] = acc[d][k][c];
+    return;
+  }
+  // the block's [3 * CB, NB], each pair of output channels swapped (column
+  // c at c ^ SW). ptxas lays a vector store's four sums out as an aligned
+  // register quad and keeps them there through the walk; swapped, the sum of an even channel sits at an odd
+  // register and the reverse, so no FFMA reads its b value (aligned as
+  // loaded) and its sum from one register bank. (TFF_ABLATE & 64 stores
+  // them in order: every FFMA then does.)
+  constexpr int SW = (TFF_ABLATE & 64) ? 0 : 1;
+  float* red = Xr;                  // [3 * CB][NB]
+#pragma unroll
+  for (int d = 0; d < 3; ++d)
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const float* s = acc[d][k];
+      float* r = red + (d * CB + cg * 4 + k) * NB + ng * 4;
+      *reinterpret_cast<float4*>(r) =
+          make_float4(s[0 ^ SW], s[1 ^ SW], s[2 ^ SW], s[3 ^ SW]);
+      *reinterpret_cast<float4*>(r + NB / 2) =
+          make_float4(s[4 ^ SW], s[5 ^ SW], s[6 ^ SW], s[7 ^ SW]);
+    }
+  __syncthreads();
+  float* out = a.out + (int64_t)slice * 3 * Ci * Co;
+  for (int e = tid; e < 3 * CB * NB; e += NTH) {
+    const int row = e / NB, col = e - row * NB;
+    const int d = row / CB, ci = c0 + row - d * CB, co = n0 + col;
+    if (ci >= Ci || co >= Co) continue;
+    out[((int64_t)d * Ci + ci) * Co + co] = red[e ^ SW];
+  }
+}
+
+template <int CG, int S, int BPS>
+int launch_temporal_filter_f32(const TemporalFilterF32Args& a, int blocks,
+                               cudaStream_t stream) {
+  const size_t smem = tff_smem(4 * CG, S);
+  if (smem > (size_t)SWF_SMEM_MAX) return (int)cudaErrorInvalidValue;
+  auto kern = temporal_filter_f32_kernel<CG, S, BPS>;
+  cudaError_t e = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(kern, cudaFuncAttributePreferredSharedMemoryCarveout,
+                             (int)cudaSharedmemCarveoutMaxShared);
+  if (e != cudaSuccess) return (int)e;
+  kern<<<blocks, 8 * CG, smem, stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // Spatial forward unit, fp32, the per-tap gather (the route of images too
@@ -2890,21 +3255,22 @@ extern "C" int m3f_conv_unit_bwd_data_f32(
   return (int)cudaGetLastError();
 }
 
-// Filter gradient, fp32. x [B, T, H, W, Ci], gy / y [B, T, H, W, Co],
-// gs1 / gs2 [Co], inv / shift [Ci] or both null, dw [taps * Ci, Co] (row
-// tap * Ci + ci), part a scratch of slices * taps * Ci * Co floats when
+// Spatial filter gradient, fp32, the per-tap gather (the route of images
+// too wide for the row walk). x [B, T, H, W, Ci], gy / y [B, T, H, W, Co],
+// gs1 / gs2 [Co], inv / shift [Ci] or both null, dw [9 * Ci, Co] (row
+// tap * Ci + ci), part a scratch of slices * 9 * Ci * Co floats when
 // slices > 1 (else null); slice s takes the chunks of 16 positions
 // [s * per, (s + 1) * per); all fp32, contiguous, 16-byte aligned, Ci and Co
 // multiples of 8. Returns a cudaError_t.
 extern "C" int m3f_conv_unit_bwd_filter_f32(
     const void* x, const void* gy, const void* y, const void* gs1,
     const void* gs2, const void* inv, const void* shift, void* dw, void* part,
-    int kind, int B, int T, int H, int W, int Ci, int Co, int per, int slices,
+    int B, int T, int H, int W, int Ci, int Co, int per, int slices,
     void* stream) {
   const int64_t M = (int64_t)B * T * H * W;
   const int64_t chunks = (M + KC - 1) / KC;
-  const int64_t K = (int64_t)(kind == 0 ? 9 : 3) * Ci;
-  if ((kind != 0 && kind != 1) || per < 1 || slices < 1 || slices > 65535 ||
+  const int64_t K = (int64_t)9 * Ci;
+  if (per < 1 || slices < 1 || slices > 65535 ||
       Ci % 8 != 0 || Co % 8 != 0 || Ci == 0 || Co == 0 ||
       (inv == nullptr) != (shift == nullptr) || (part == nullptr) != (slices == 1) ||
       chunks >= ((int64_t)1 << 31) || (int64_t)per * slices < chunks ||
@@ -2929,18 +3295,10 @@ extern "C" int m3f_conv_unit_bwd_filter_f32(
   a.chunks = (int)chunks;
   a.chunks_per_slice = per;
   const dim3 grid((Co + BN - 1) / BN, (unsigned)((K + BM - 1) / BM), slices);
-  const bool affine = inv != nullptr;
-  if (kind == 0) {
-    if (affine)
-      bwd_filter_f32_kernel<0, true><<<grid, THREADS, 0, s>>>(a);
-    else
-      bwd_filter_f32_kernel<0, false><<<grid, THREADS, 0, s>>>(a);
-  } else {
-    if (affine)
-      bwd_filter_f32_kernel<1, true><<<grid, THREADS, 0, s>>>(a);
-    else
-      bwd_filter_f32_kernel<1, false><<<grid, THREADS, 0, s>>>(a);
-  }
+  if (inv != nullptr)
+    bwd_filter_f32_kernel<true><<<grid, THREADS, 0, s>>>(a);
+  else
+    bwd_filter_f32_kernel<false><<<grid, THREADS, 0, s>>>(a);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess || slices == 1) return (int)e;
   const int64_t E = K * Co;
@@ -3175,4 +3533,69 @@ extern "C" int m3f_temporal_data_f32(
     case 144: return tdf_run<18, 14>(a, per, di, ds, scratch, s);
     default: return (int)cudaErrorInvalidValue;
   }
+}
+
+// Temporal filter gradient, fp32, the frame walk. x [B, T, H, W, Ci], gy / y
+// [B, T, H, W, Co], gs1 / gs2 [Co], inv / shift [Ci] or both null, dw
+// [3 * Ci, Co] (row tap * Ci + ci), part a scratch of slices * 3 * Ci * Co
+// floats when slices > 1 (else null); a layout of cb input channels a block
+// over strips of `strip` positions of the B * H * W (the instances below);
+// slice s takes the strips [s * per, (s + 1) * per), slices = ceil(strips /
+// per); all fp32, contiguous, 16-byte aligned, Ci and Co multiples of 8.
+// Returns a cudaError_t.
+extern "C" int m3f_temporal_filter_f32(
+    const void* x, const void* gy, const void* y, const void* gs1,
+    const void* gs2, const void* inv, const void* shift, void* dw, void* part,
+    int B, int T, int H, int W, int Ci, int Co, int cb, int strip, int per,
+    int slices, void* stream) {
+  const int64_t positions = (int64_t)B * H * W;
+  const int64_t units = strip > 0 ? (positions + strip - 1) / strip : 0;
+  if (per < 1 || slices < 1 || strip < 1 || Ci % 8 != 0 || Co % 8 != 0 ||
+      Ci == 0 || Co == 0 || (inv == nullptr) != (shift == nullptr) ||
+      (part == nullptr) != (slices == 1) ||
+      positions >= ((int64_t)1 << 31) || units * T >= ((int64_t)1 << 31) ||
+      (units > 0 && slices != (units + per - 1) / per))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  const int64_t K = (int64_t)3 * Ci;
+  if (positions * T == 0) {
+    cudaMemsetAsync(dw, 0, sizeof(float) * K * Co, s);
+    return (int)cudaGetLastError();
+  }
+  const int ci_blocks = (Ci + cb - 1) / cb;
+  const int n_tiles = (Co + TFF_NB - 1) / TFF_NB;
+  const int64_t blocks = (int64_t)slices * ci_blocks * n_tiles;
+  if (blocks >= ((int64_t)1 << 31)) return (int)cudaErrorInvalidValue;
+  TemporalFilterF32Args a{};
+  a.x = (const float*)x;
+  a.gy = (const float*)gy;
+  a.y = (const float*)y;
+  a.gs1 = (const float*)gs1;
+  a.gs2 = (const float*)gs2;
+  a.inv = (const float*)inv;
+  a.shift = (const float*)shift;
+  a.out = slices > 1 ? (float*)part : (float*)dw;
+  a.positions = (int)positions;
+  a.T = T;
+  a.HW = H * W;
+  a.Ci = Ci;
+  a.Co = Co;
+  a.units = (int)units;
+  a.units_per_slice = per;
+  a.ci_blocks = ci_blocks;
+  a.n_tiles = n_tiles;
+  a.by_hw = fast_div(H * W);
+  // the layouts: cb = 4 * CG input channels, strips of S positions, BPS
+  // blocks a SM
+  const int n = (int)blocks;
+  int err;
+  if (cb == 48 && strip == 32) err = launch_temporal_filter_f32<12, 32, 4>(a, n, s);
+  else if (cb == 64 && strip == 32) err = launch_temporal_filter_f32<16, 32, 3>(a, n, s);
+  else return (int)cudaErrorInvalidValue;
+  if (err != 0 || slices == 1) return err;
+  const int64_t E = K * Co;
+  const int64_t sblocks = (E + 255) / 256;
+  slice_sum_f32_kernel<<<(unsigned)(sblocks < 4096 ? sblocks : 4096), 256, 0, s>>>(
+      (const float*)part, slices, E, (float*)dw);
+  return (int)cudaGetLastError();
 }

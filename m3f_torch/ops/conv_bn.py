@@ -29,9 +29,9 @@ Pallas units run in the dtype of x): ``csrc/conv_bn.cu`` for bf16,
 ``csrc/conv_bn_f32.cu`` for fp32 (the forward, ``f32_temporal_fwd_plan`` /
 ``f32_spatial_fwd_plan`` / ``f32_fwd_plan``; the data
 gradient, ``f32_temporal_data_plan`` / ``f32_spatial_data_plan`` /
-``f32_bwd_data_plan``; the filter gradient, ``f32_spatial_filter_plan``
-/ ``f32_bwd_filter_plan``), so an fp32 unit trains on the card as a bf16
-one does.
+``f32_bwd_data_plan``; the filter gradient, ``f32_temporal_filter_plan``
+/ ``f32_spatial_filter_plan`` / ``f32_bwd_filter_plan``), so an fp32 unit
+trains on the card as a bf16 one does.
 """
 
 from __future__ import annotations
@@ -1105,7 +1105,7 @@ def conv_unit_bwd_filter(x, inv, shift, y, gy, gs1, gs2, *, kind: str
     """Filter gradient of the unit → fp32 dw in the reference layout: the
     plain version on the CPU, one kernel launch (plus a fixed-order sum of
     its slices' partials when there is more than one) on the card, for fp32
-    x the fp32 filter gradient (``f32_bwd_filter_plan``); channel counts
+    x the fp32 filter gradient (``_conv_unit_bwd_filter_f32``); channel counts
     that are not multiples of 8 run zero-padded (``pad_channels``)."""
     if x.device.type == "cpu":
         return conv_unit_bwd_filter_reference(x, inv, shift, y, gy, gs1, gs2,
@@ -1153,11 +1153,11 @@ def conv_unit_bwd_filter(x, inv, shift, y, gy, gs1, gs2, *, kind: str
     return dw.reshape((3, 3, ci, co) if kind == "spatial" else (3, ci, co))
 
 
-# The fp32 backward's per-tap gathers (bwd_data_f32_kernel, the spatial
-# kind's images too wide for the row walk, and bwd_filter_f32_kernel in
-# conv_bn_f32.cu): the data gradient tiles as the fp32 forward does, its N
-# the input channels; the filter gradient takes tiles of 64 rows of
-# K = taps·C_in x 64 output channels over slices of the positions, walked in
+# The fp32 backward's per-tap gathers (bwd_data_f32_kernel and
+# bwd_filter_f32_kernel in conv_bn_f32.cu, the spatial kind's images too
+# wide for the row walks): the data gradient tiles as the fp32 forward does,
+# its N the input channels; the filter gradient takes tiles of 64 rows of
+# K = 9·C_in x 64 output channels over slices of the positions, walked in
 # chunks of 16
 _F32_KC = 16
 
@@ -1171,8 +1171,8 @@ def f32_bwd_data_plan(b: int, t: int, h: int, w: int, ci: int,
 
 
 class F32FilterPlan(NamedTuple):
-    """How the fp32 filter gradient cuts its work: ``k_tiles`` tiles of 64
-    of the K = taps·C_in rows of dw, ``n_tiles`` tiles of 64 output
+    """How the fp32 spatial filter gradient's gather cuts its work:
+    ``k_tiles`` tiles of 64 of the K = 9·C_in rows of dw, ``n_tiles`` tiles of 64 output
     channels; the M = B·T·H·W positions in ``chunks`` chunks of 16, cut into
     ``slices`` contiguous ranges of ``chunks_per_slice`` chunks, one block a
     slice and tile (``blocks``), each slice one fp32 partial of dw
@@ -1192,12 +1192,12 @@ class F32FilterPlan(NamedTuple):
 
 
 def f32_bwd_filter_plan(b: int, t: int, h: int, w: int, ci: int, co: int,
-                        kind: str, sms: int) -> F32FilterPlan:
-    """The fp32 filter gradient's tiling on a card of ``sms``
-    multiprocessors: enough slices for about _F32_BLOCKS_PER_SM blocks a
-    multiprocessor, at most one a chunk, with a partial buffer of at most
-    _FILTER_PART_BYTES; no slice is empty."""
-    k = (9 if kind == "spatial" else 3) * ci
+                        sms: int) -> F32FilterPlan:
+    """The fp32 spatial filter gradient's gather tiling on a card of
+    ``sms`` multiprocessors: enough slices for about _F32_BLOCKS_PER_SM
+    blocks a multiprocessor, at most one a chunk, with a partial buffer of
+    at most _FILTER_PART_BYTES; no slice is empty."""
+    k = 9 * ci
     k_tiles, n_tiles = _cdiv(k, _F32_BM), _cdiv(co, _F32_BN)
     chunks = _cdiv(b * t * h * w, _F32_KC)
     out_bytes = 4 * k * co
@@ -1526,6 +1526,112 @@ def f32_temporal_data_plan(b: int, t: int, h: int, w: int, ci: int, co: int,
                                _temporal_data_f32_smem(co, nb, res, affine))
 
 
+# The fp32 temporal filter gradient's frame walk (temporal_filter_f32_kernel
+# in conv_bn_f32.cu): a block owns every tap of `ci_blk` input x 64 output
+# channels ([3·ci_blk, 64] of dw, 3x4x8 FFMA sums a thread) over a slice of
+# strips of `strip` positions of the flattened B·H·W axis, each walked over
+# T; x̂ is copied and formed once a frame into a ring of four frames (t-1,
+# t, t+1 and the one arriving), ge of frame t feeds all three taps; ge
+# folded once, in place in each channel block
+_TFF_N_TILE = 64           # output channels a block (TFF_NB)
+_TFF_X_SLOTS = 4           # x̂ frames in the ring (TFF_XS)
+_TFF_BUF = 2               # gy / ge buffers (and one of y)
+# the C entry's layouts, (input channels a block, positions a strip) ->
+# blocks a SM (warps of 4 channel groups x 8 output-channel groups, 12
+# warps a SM: CB 48 in blocks of 3, 64 in blocks of 4)
+_TFF_LAYOUTS = {(48, 32): 4, (64, 32): 3}
+# each layout's time per padded input channel relative to (48, 32),
+# measured on an H100 (filter_sweep.py --kind temporal_filter_f32, PERF.md:
+# CB 64 0.91 at C_in 576, 1.08 at 288): the plan takes the layout of the
+# least padded C_in x this, so CB 48 at the train step's stages 1-2 and 64
+# at 3-4, and 64 at the lane widths (128, 256, 640)
+_TFF_COST = {(48, 32): 1.0, (64, 32): 0.95}
+_TFF_TILE = (3, 4, 8)      # taps x input channels x output channels a thread
+# position-frames a block walks at the least: its pipeline fill and
+# epilogue (a partial [3·ci_blk, 64]) then stay a small share of it.
+# Measured on an H100 (filter_sweep.py, PERF.md): stage 4 (T = 2, CB 64
+# over strips of 32) in six slices of 9 strips 0.284 ms, in five of 10
+# 0.299, in seven of 7 0.308, in four of 13 0.320
+_TFF_MIN_ROWS = 576
+
+
+def _temporal_filter_f32_smem(ci_blk: int, strip: int) -> int:
+    """A block's shared memory (tff_smem in conv_bn_f32.cu): the x̂ ring of
+    _TFF_X_SLOTS frames [strip, ci_blk], _TFF_BUF gy / ge buffers [strip,
+    64] and a y buffer [strip, 64]."""
+    return 4 * (_TFF_X_SLOTS * strip * ci_blk
+                + (_TFF_BUF + 1) * strip * _TFF_N_TILE)
+
+
+class F32TemporalFilterPlan(NamedTuple):
+    """How the fp32 temporal filter gradient's frame walk cuts its work:
+    units of ``strip`` consecutive positions of the flattened B·H·W axis (a
+    strip spans several clips where H·W is small), each walked over T;
+    blocks of ``ci_blk`` input x ``n_tile`` output channels for all three
+    taps (``threads`` threads, each ``register_tile`` = taps x input
+    channels x output channels of sums; ``blocks_per_sm`` a SM),
+    ``ci_blocks`` x ``n_tiles`` of them; ``slices`` contiguous ranges of
+    ``units_per_slice`` units (``_tw_units_per_block``), ``blocks`` =
+    slices x channel blocks x N tiles, each slice one fp32 partial of dw
+    (``part_bytes``, 0 when one slice writes dw itself); ``smem_bytes`` of
+    shared memory a block."""
+    strip: int
+    n_tile: int
+    ci_blk: int
+    threads: int
+    blocks_per_sm: int
+    register_tile: Tuple[int, int, int]
+    positions: int
+    units: int
+    units_per_slice: int
+    slices: int
+    ci_blocks: int
+    n_tiles: int
+    blocks: int
+    part_bytes: int
+    smem_bytes: int
+
+    def units_of(self, s: int) -> range:
+        """The units of slice ``s``, as the kernel takes them."""
+        return range(s * self.units_per_slice,
+                     min(self.units, (s + 1) * self.units_per_slice))
+
+    def positions_of(self, u: int) -> range:
+        """The positions b·H·W + p of unit ``u``; the unit walks every
+        frame of each."""
+        return range(u * self.strip, min(self.positions, (u + 1) * self.strip))
+
+
+def f32_temporal_filter_plan(b: int, t: int, h: int, w: int, ci: int, co: int,
+                             sms: int, layout: Optional[Tuple[int, int]] = None
+                             ) -> F32TemporalFilterPlan:
+    """The fp32 temporal filter gradient's tiling on a card of ``sms``
+    multiprocessors, for every shape: the layout of _TFF_LAYOUTS of the
+    least padded C_in x _TFF_COST (on a tie the first), slices of strips by
+    ``_tw_units_per_block`` (its blocks a SM), with at least _TFF_MIN_ROWS
+    position-frames a block and as many more strips as keep the partials
+    within _FILTER_PART_BYTES. ``layout`` (channel block, strip) asks for
+    one (the sweep's and the tests'). With no positions or frames (B, H·W
+    or T 0) one slice: the C entry then sets dw to 0."""
+    cb, strip = layout or min(
+        _TFF_LAYOUTS, key=lambda k: _cdiv(ci, k[0]) * k[0] * _TFF_COST[k])
+    threads, per_sm = 2 * cb, _TFF_LAYOUTS[cb, strip]
+    positions = b * h * w
+    units = _cdiv(positions, strip)
+    ci_blocks, n_tiles = _cdiv(ci, cb), _cdiv(co, _TFF_N_TILE)
+    out_bytes = 4 * 3 * ci * co
+    per = max(1, units) if units * t == 0 else min(units, max(
+        _tw_units_per_block(units, ci_blocks * n_tiles, sms, per_sm),
+        _cdiv(_TFF_MIN_ROWS, t * strip),
+        _cdiv(units, max(1, _FILTER_PART_BYTES // out_bytes))))
+    slices = max(1, _cdiv(units, per))
+    return F32TemporalFilterPlan(
+        strip, _TFF_N_TILE, cb, threads, per_sm, _TFF_TILE, positions,
+        units, per, slices, ci_blocks, n_tiles, slices * ci_blocks * n_tiles,
+        slices * out_bytes if slices > 1 else 0,
+        _temporal_filter_f32_smem(cb, strip))
+
+
 def f32_bwd_data_filter(w: torch.Tensor, kind: str) -> torch.Tensor:
     """The fp32 data gradient's B operand, [taps·C_out, C_in]: row
     tap·C_out + co holds W[taps - 1 - tap, :, co] (the taps mirrored, each
@@ -1600,11 +1706,12 @@ def _conv_unit_bwd_data_f32(x, w, inv, shift, y, gy, gs1, gs2, kind):
 
 def _conv_unit_bwd_filter_f32(x, inv, shift, y, gy, gs1, gs2, kind):
     """The fp32 filter gradient on the card (C_in, C_out multiples of 8):
-    one launch of the spatial row walk (spatial_filter_f32_kernel,
-    ``f32_spatial_filter_plan``) or, for the temporal kind and for images
-    too wide for the walk, of the per-tap gather (bwd_filter_f32_kernel,
-    ``f32_bwd_filter_plan``), plus, with more than one slice, the sum of
-    the slices' partials in slice order."""
+    one launch of the temporal frame walk (temporal_filter_f32_kernel,
+    ``f32_temporal_filter_plan``), of the spatial row walk
+    (spatial_filter_f32_kernel, ``f32_spatial_filter_plan``) or, for images
+    too wide for the row walk, of the spatial per-tap gather
+    (bwd_filter_f32_kernel, ``f32_bwd_filter_plan``), plus, with more than
+    one slice, the sum of the slices' partials in slice order."""
     b, t, h, wd, ci = x.shape
     co = gy.shape[-1]
     x, gy, y = _aligned16(x), _aligned16(gy), _aligned16(y)
@@ -1612,9 +1719,12 @@ def _conv_unit_bwd_filter_f32(x, inv, shift, y, gy, gs1, gs2, kind):
     inv = _aligned16(None if inv is None else inv.float())
     shift = _aligned16(None if shift is None else shift.float())
     sms = torch.cuda.get_device_properties(x.device).multi_processor_count
-    walk = f32_spatial_filter_plan(b, t, h, wd, ci, co, sms) \
-        if kind == "spatial" else None
-    plan = walk or f32_bwd_filter_plan(b, t, h, wd, ci, co, kind, sms)
+    frames = walk = None
+    if kind == "temporal":
+        plan = frames = f32_temporal_filter_plan(b, t, h, wd, ci, co, sms)
+    else:
+        walk = f32_spatial_filter_plan(b, t, h, wd, ci, co, sms)
+        plan = walk or f32_bwd_filter_plan(b, t, h, wd, ci, co, sms)
     k = (9 if kind == "spatial" else 3) * ci
     dw = torch.empty(k, co, dtype=torch.float32, device=x.device)
     part = torch.empty(plan.slices * k * co, dtype=torch.float32,
@@ -1623,19 +1733,25 @@ def _conv_unit_bwd_filter_f32(x, inv, shift, y, gy, gs1, gs2, kind):
             gs2.data_ptr(), None if inv is None else inv.data_ptr(),
             None if shift is None else shift.data_ptr(), dw.data_ptr(),
             None if part is None else part.data_ptr())
+    scratch = walk.ge_bytes if walk else 0
+    ge = torch.empty(scratch // 4, dtype=torch.float32, device=x.device) \
+        if scratch else None
+    ge_ptr = None if ge is None else ge.data_ptr()
     lib = cuda_lib.library("conv_bn_f32")
     with torch.cuda.device(x.device):
-        if walk is not None:
-            ge = torch.empty(walk.ge_bytes // 4, dtype=torch.float32,
-                             device=x.device)
+        if frames is not None:
+            err = lib.m3f_temporal_filter_f32(
+                *ptrs, b, t, h, wd, ci, co, frames.ci_blk, frames.strip,
+                frames.units_per_slice, frames.slices, cuda_lib.stream_ptr(x))
+        elif walk is not None:
             err = lib.m3f_spatial_filter_f32(
-                *ptrs, ge.data_ptr(), b, t, h, wd, ci, co, walk.n_tile,
+                *ptrs, ge_ptr, b, t, h, wd, ci, co, walk.n_tile,
                 walk.step, walk.images_per_slice, walk.slices,
                 cuda_lib.stream_ptr(x))
         else:
             err = lib.m3f_conv_unit_bwd_filter_f32(
-                *ptrs, 0 if kind == "spatial" else 1, b, t, h, wd, ci, co,
-                plan.chunks_per_slice, plan.slices, cuda_lib.stream_ptr(x))
+                *ptrs, b, t, h, wd, ci, co, plan.chunks_per_slice,
+                plan.slices, cuda_lib.stream_ptr(x))
     cuda_lib.check(err, f"conv_unit_bwd_filter {kind} fp32 kernel")
     cuda_lib.launches[f"conv_{kind}_bwd_filter_f32"] += 1
     return dw.reshape((3, 3, ci, co) if kind == "spatial" else (3, ci, co))

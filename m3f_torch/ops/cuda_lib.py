@@ -75,13 +75,12 @@ SIGNATURES = {
                     "m3f_temporal_fwd_f32": [P, P, P, P, P, P, P, P, I, I, I,
                                              I, I, I, I, I, P],
                     "m3f_conv_unit_bwd_data_f32": [P] * 12 + [I] * 7 + [P],
-                    "m3f_conv_unit_bwd_filter_f32": [P, P, P, P, P, P, P, P, P,
-                                                     I, I, I, I, I, I, I, I,
-                                                     I, P],
+                    "m3f_conv_unit_bwd_filter_f32": [P] * 9 + [I] * 8 + [P],
                     "m3f_spatial_filter_f32": [P, P, P, P, P, P, P, P, P, P, I,
                                                I, I, I, I, I, I, I, I, I, P],
                     "m3f_spatial_data_f32": [P] * 13 + [I] * 10 + [P],
-                    "m3f_temporal_data_f32": [P] * 12 + [I] * 9 + [P]},
+                    "m3f_temporal_data_f32": [P] * 12 + [I] * 9 + [P],
+                    "m3f_temporal_filter_f32": [P] * 9 + [I] * 10 + [P]},
     "packed_conv": {"m3f_packed_ablate": [P, P, P, I, I, I, I, I, I, I, I, I,
                                           I, I, I, I, P],
                     "m3f_packed_conv_tma": [P, P, P, I, I, I, I, I, I, I, I, I,

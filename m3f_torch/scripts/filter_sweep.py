@@ -139,6 +139,23 @@ in the full-width ``fusion`` train step (32 clips, BN prologue on), beside:
   products (2), the copies (4), the epilogue (8), the walk alone (15), and
   x read from global memory in the epilogue in place of its copies ahead
   (16, the first design); a device copy of gy, y and x;
+- ``--kind temporal_filter_f32``: ``conv_unit_bwd_filter`` of the temporal
+  unit at fp32 x (the frame walk ``temporal_filter_f32_kernel`` in
+  ``csrc/conv_bn_f32.cu``) at the four temporal units of the train step
+  (32 clips, with the prologue), every time a device time: in alternating
+  rounds the wrapper, the planner's layout through the C entry twice,
+  every layout the plan can choose (channel blocks of 48 and 64 over
+  strips of 32, four and three blocks a SM), the planner's layout in other
+  slice counts, with
+  ``--parent`` an earlier ``conv_bn_f32.cu``'s per-tap gather
+  (``bwd_filter_f32_kernel``, the first design), and cuDNN's fp32
+  ``conv3d_weight`` on x̂ and ge already formed (TF32 off); ablations
+  built with ``-DTFF_ABLATE``: without forming x̂ and folding ge (1), the
+  products (2), the copies (4), the dw stores (8), the walk alone (15),
+  and the sums stored in channel order (64, b and the sum in one register
+  bank); a device copy of x, gy and y. ``--check`` also counts the
+  walk's FFMAs whose sources meet in a register bank, from the built
+  library's SASS;
 - ``--kind mel``: the mel FFT kernel at the serving path's shapes (static
   and per-row hop), and the DFT-product kernel (n_fft 400) at the same
   rows, against their plain versions, and beside ``torch.stft`` + the mel
@@ -202,6 +219,10 @@ Run on a machine with an NVIDIA GPU, from the repository root:
         [--parent build/parent/conv_bn_f32.cu]
     python -m m3f_torch.scripts.filter_sweep --kind temporal_data_f32 \
         [--reps 10] [--parent build/parent/conv_bn_f32.cu]
+    python -m m3f_torch.scripts.filter_sweep --kind temporal_filter_f32 \
+        --check [--parent build/parent/conv_bn_f32.cu]
+    python -m m3f_torch.scripts.filter_sweep --kind temporal_filter_f32 \
+        [--reps 10] [--parent build/parent/conv_bn_f32.cu]
     python -m m3f_torch.scripts.filter_sweep --kind temporal_fwd_f32 --check
     python -m m3f_torch.scripts.filter_sweep --kind temporal_fwd_f32 \
         [--reps 10] [--parent build/parent/conv_bn_f32.cu]
@@ -223,8 +244,8 @@ and holds the kernel once against the plain version at each shape and at a
 few small ones (``temporal_data``: at every layout the entry point takes;
 ``spatial_data``: at every step; ``spatial_fwd``: at every layout, filter
 resident and streamed; ``spatial_fwd_f32``, ``temporal_fwd_f32``,
-``spatial_filter_f32``, ``spatial_data_f32``, ``temporal_data_f32``: at
-every layout, and the per-tap gathers;
+``spatial_filter_f32``, ``spatial_data_f32``, ``temporal_data_f32``,
+``temporal_filter_f32``: at every layout, and the per-tap gathers;
 ``temporal_fwd``: at every layout; ``gru``: on both routes at the edge
 shapes too, and at every layout; ``packed`` and
 ``packed_ablate``: every layout at small, edge and full shapes, and an
@@ -238,7 +259,9 @@ import argparse
 import ctypes
 import json
 import statistics
+import re
 import subprocess
+from pathlib import Path
 from typing import Callable, Dict, NamedTuple, Optional
 
 import torch
@@ -305,8 +328,8 @@ def resources(kind: str) -> None:
     ``spatial_data_kernel``, ``spatial_fwd_kernel``, ``temporal_fwd_kernel``;
     in conv_bn_f32.cu ``spatial_fwd_f32_kernel``,
     ``temporal_fwd_f32_kernel``, ``spatial_filter_f32_kernel``,
-    ``spatial_data_f32_kernel``, ``data_split_sum_f32_kernel`` and
-    ``temporal_data_f32_kernel``;
+    ``spatial_data_f32_kernel``, ``data_split_sum_f32_kernel``,
+    ``temporal_data_f32_kernel`` and ``temporal_filter_f32_kernel``;
     in melspec.cu ``log_mel_kernel`` and ``log_mel_dft_kernel``; in gru.cu
     ``gru_cluster_kernel`` and ``gru_kernel``)."""
     kernels = {"spatial_fwd": ("spatial_fwd_kernel",),
@@ -315,6 +338,7 @@ def resources(kind: str) -> None:
                "spatial_data_f32": ("spatial_data_f32_kernel",
                                     "data_split_sum_f32_kernel"),
                "temporal_data_f32": ("temporal_data_f32_kernel",),
+               "temporal_filter_f32": ("temporal_filter_f32_kernel",),
                "temporal_fwd_f32": ("temporal_fwd_f32_kernel",),
                "temporal_fwd": ("temporal_fwd_kernel",),
                "mel": ("log_mel",),
@@ -325,7 +349,8 @@ def resources(kind: str) -> None:
               "temporal_fwd_f32": "conv_bn_f32",
               "spatial_filter_f32": "conv_bn_f32",
               "spatial_data_f32": "conv_bn_f32",
-              "temporal_data_f32": "conv_bn_f32"}.get(kind, "conv_bn")
+              "temporal_data_f32": "conv_bn_f32",
+              "temporal_filter_f32": "conv_bn_f32"}.get(kind, "conv_bn")
     log = subprocess.run(
         [cuda_lib._nvcc(), *cuda_lib.NVCC_FLAGS, "-Xptxas", "-v", "-o",
          "/dev/null", *(["-DTD_TRIALS"] if kind == "temporal_data" else []),
@@ -341,6 +366,45 @@ def resources(kind: str) -> None:
             print(json.dumps({"kernel": name[name.index(kernel) - 2:][:72],
                               "ptxas": [l.strip() for l in lines[i + 1:i + 4]]}),
                   flush=True)
+
+
+def ffma_bank_conflicts(lib, kernel: str) -> Dict[str, Dict[str, int]]:
+    """For each function of the built library ``lib`` whose name holds
+    ``kernel``: its FFMAs, and those of them whose source registers read
+    from the register file (not marked ``.reuse``) include two in one bank
+    (register number mod 2), from ``cuobjdump -sass``. Such an FFMA waits a
+    cycle for its second read; the count shows when ptxas lays a kernel's
+    sums out against its operands (temporal_filter_f32_kernel's epilogue
+    note)."""
+    nvcc = Path(cuda_lib._nvcc())
+    sass = subprocess.run([str(nvcc.with_name("cuobjdump")), "-sass", str(lib)],
+                          capture_output=True, text=True, check=True).stdout
+    return count_ffma_bank_conflicts(sass, kernel)
+
+
+def count_ffma_bank_conflicts(sass: str, kernel: str
+                              ) -> Dict[str, Dict[str, int]]:
+    """``ffma_bank_conflicts`` on the text of ``cuobjdump -sass``."""
+    ins = re.compile(r"\s+/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?"
+                     r"(FFMA[A-Z0-9_.]*)\s+(.*?);")
+    counts = {}
+    for func in re.split(r"\n\s*Function : ", sass):
+        name = func.split("\n", 1)[0].strip()
+        if kernel not in name:
+            continue
+        total = clash = 0
+        for line in func.splitlines():
+            m = ins.match(line)
+            if not m:
+                continue
+            regs = [r.strip() for r in m.group(2).split(",")][1:4]
+            banks = [int(r[1:].split(".")[0]) % 2 for r in regs
+                     if re.fullmatch(r"R\d+", r)]
+            total += 1
+            clash += len(banks) != len(set(banks))
+        counts[name[name.index(kernel):]] = {"ffma": total,
+                                             "bank_conflicts": clash}
+    return counts
 
 
 SPIN_CYCLES = 2_000_000  # ~1 ms of torch.cuda._sleep, longer than a call's
@@ -1569,6 +1633,11 @@ SFF_ABLATIONS = {"no_forming": 1, "no_products": 2, "no_copies": 4,
                  "products_only": 5, "forming_only": 6}
 SFF_ENTRY = "m3f_spatial_filter_f32"
 GATHER_FILTER_F32_ENTRY = "m3f_conv_unit_bwd_filter_f32"
+# an older conv_bn_f32.cu's filter gather entry, which took the kind (git
+# show 6f59ff2:m3f_torch/csrc/conv_bn_f32.cu, the last with the temporal
+# kind)
+PARENT_FILTER_F32_SIGNATURE = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 9 \
+    + [ctypes.c_void_p]
 
 
 def sff_inputs(xs, co, dev, g):
@@ -1609,23 +1678,37 @@ def launch_sff(fn, x, inv, shift, y, gy, gs1, gs2, layout=None):
     return dw
 
 
-def launch_filter_gather_f32(fn, x, inv, shift, y, gy, gs1, gs2):
-    """One call of a source's ``m3f_conv_unit_bwd_filter_f32`` (the per-tap
-    gather, bwd_filter_f32_kernel) for the spatial kind with
-    ``f32_bwd_filter_plan``'s tiling."""
+def _parent_filter_tiling(b, t, h, wd, ci, co, taps, sms):
+    """(chunks a slice, slices, K) of the per-tap filter gather's tiling
+    (``f32_bwd_filter_plan``, which took the kind before the temporal frame
+    walk: K = taps·C_in rows in tiles of 64)."""
+    k = taps * ci
+    tiles = -(-k // 64) * -(-co // 64)
+    chunks = -(-(b * t * h * wd) // 16)
+    want = max(1, min(chunks, -(-8 * sms // tiles),
+                      conv_bn._FILTER_PART_BYTES // (4 * k * co)))
+    per = max(1, -(-chunks // want))
+    return per, max(1, -(-chunks // per)), k
+
+
+def launch_filter_gather_f32(fn, x, inv, shift, y, gy, gs1, gs2, kind=None):
+    """One call of a ``m3f_conv_unit_bwd_filter_f32`` (the per-tap gather,
+    bwd_filter_f32_kernel) with its tiling: this source's (spatial only,
+    ``kind`` None) or an older source's, which takes ``kind`` (0 spatial, 1
+    temporal; built with PARENT_FILTER_F32_SIGNATURE)."""
     b, t, h, wd, ci = x.shape
     co = gy.shape[-1]
     sms = torch.cuda.get_device_properties(x.device).multi_processor_count
-    plan = conv_bn.f32_bwd_filter_plan(b, t, h, wd, ci, co, "spatial", sms)
-    dw = torch.empty(9 * ci, co, device=x.device)
-    part = torch.empty(plan.slices * 9 * ci * co, device=x.device) \
-        if plan.slices > 1 else None
+    per, slices, k = _parent_filter_tiling(b, t, h, wd, ci, co,
+                                           3 if kind == 1 else 9, sms)
+    dw = torch.empty(k, co, device=x.device)
+    part = torch.empty(slices * k * co, device=x.device) if slices > 1 else None
     ptr = lambda v: None if v is None else v.data_ptr()
     err = fn(x.data_ptr(), gy.data_ptr(), y.data_ptr(), gs1.data_ptr(),
              gs2.data_ptr(), ptr(inv), ptr(shift), dw.data_ptr(), ptr(part),
-             0, b, t, h, wd, ci, co, plan.chunks_per_slice, plan.slices,
-             cuda_lib.stream_ptr(x))
-    cuda_lib.check(err, "fp32 spatial filter gather")
+             *(() if kind is None else (kind,)), b, t, h, wd, ci, co, per,
+             slices, cuda_lib.stream_ptr(x))
+    cuda_lib.check(err, "fp32 filter gather")
     return dw
 
 
@@ -1725,7 +1808,7 @@ def sweep_filter_f32(reps: int, parent: Optional[str]) -> None:
     if parent:
         old = build_variants({"parent_f32": ""}, GATHER_FILTER_F32_ENTRY,
                              {"parent_f32": parent},
-                             sig[GATHER_FILTER_F32_ENTRY])["parent_f32"]
+                             PARENT_FILTER_F32_SIGNATURE)["parent_f32"]
     g = torch.Generator(device=dev).manual_seed(23)
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     for xs, co in SHAPES["spatial"] + SFF_WIDE:
@@ -1749,7 +1832,8 @@ def sweep_filter_f32(reps: int, parent: Optional[str]) -> None:
                         main, *args, layout=layout)
             fns["gather"] = lambda: launch_filter_gather_f32(gather, *args)
             if old is not None:
-                fns["parent"] = lambda: launch_filter_gather_f32(old, *args)
+                fns["parent"] = lambda: launch_filter_gather_f32(old, *args,
+                                                                 kind=0)
             fns["cudnn_conv3d_weight"] = lambda: torch.nn.grad.conv3d_weight(
                 xn, (co, ci, 1, 3, 3), gn, padding=(0, 1, 1))
             row = {"kind": "spatial_filter_f32", "x": list(xs), "co": co,
@@ -2222,6 +2306,207 @@ def sweep_temporal_data_f32(reps: int, parent: Optional[str]) -> None:
         row["share_of_bound"] = row["bound_ms"] / row["ms"]
         print(json.dumps(row), flush=True)
         del gn, bx, by, bg, x, y, gy
+        torch.cuda.empty_cache()
+
+
+# --- the fp32 temporal filter gradient: the frame walk -----------------------
+
+# small shapes (x shape, C_out) of the walk: clips of one frame across a
+# strip; 7x7 clips across strips, the last strip partial, at C_in 200 (a
+# partial channel block in every layout) and C_out 40 (a masked N tile);
+# 1x1 clips several a strip; 10x10 clips at C_in 152 and C_out 128 (two N
+# tiles); the stage-4 width at two clips
+TFF_SMALL = (((3, 1, 7, 7, 24), 40), ((6, 2, 7, 7, 200), 40),
+             ((3, 2, 1, 1, 16), 72), ((3, 5, 10, 10, 152), 128),
+             ((2, 2, 7, 7, 1152), 512))
+TFF_ABLATIONS = {"no_forming": 1, "no_products": 2, "no_copies": 4,
+                 "no_epilogue": 8, "walk_only": 15, "sums_in_order": 64,
+                 "no_copies_sums_in_order": 68}
+TFF_ENTRY = "m3f_temporal_filter_f32"
+# every layout the plan can take: (channel block, strip)
+TFF_LAYOUTS = {f"layout_{cb}x{st}": (cb, st) for cb, st in conv_bn._TFF_LAYOUTS}
+
+
+def launch_tff(fn, x, inv, shift, y, gy, gs1, gs2, layout=None, per=None):
+    """One call of a build's ``m3f_temporal_filter_f32`` with the planner's
+    layout or ``layout`` = (channel block, strip) (what
+    ``conv_unit_bwd_filter`` does for fp32 x, minus its checks), in the
+    plan's slices or in slices of ``per`` strips; ``inv`` None leaves the
+    prologue out."""
+    b, t, h, wd, ci = x.shape
+    co = gy.shape[-1]
+    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+    plan = conv_bn.f32_temporal_filter_plan(b, t, h, wd, ci, co, sms, layout)
+    if per:
+        plan = plan._replace(units_per_slice=per,
+                             slices=-(-plan.units // per))
+    dw = torch.empty(3 * ci, co, device=x.device)
+    part = torch.empty(plan.slices * 3 * ci * co, device=x.device) \
+        if plan.slices > 1 else None
+    ptr = lambda v: None if v is None else v.data_ptr()
+    err = fn(x.data_ptr(), gy.data_ptr(), y.data_ptr(), gs1.data_ptr(),
+             gs2.data_ptr(), ptr(inv), ptr(shift), dw.data_ptr(), ptr(part),
+             b, t, h, wd, ci, co, plan.ci_blk, plan.strip,
+             plan.units_per_slice, plan.slices, cuda_lib.stream_ptr(x))
+    cuda_lib.check(err, f"fp32 temporal filter sweep, {layout}")
+    return dw
+
+
+def _tff_pers(plan) -> list:
+    """Strips a slice to time beside the plan's: slice counts from 1 to 8
+    and 1/4 to 2 times the plan's that give at least a block a SM (132), as
+    distinct strips a slice."""
+    counts = set(range(1, 9)) | {max(1, round(plan.slices * f))
+                                 for f in (0.25, 0.5, 0.75, 1.5, 2)}
+    tiles = plan.ci_blocks * plan.n_tiles
+    pers = {-(-plan.units // n) for n in counts
+            if n <= plan.units and n * tiles >= 132}
+    return sorted(pers - {plan.units_per_slice}, reverse=True)
+
+
+def _abs_dw_temporal(xh, ge):
+    """sum over positions of |x^| * |ge| per filter element [3, C_in, C_out]."""
+    ci, co = xh.shape[-1], ge.shape[-1]
+    dk = torch.nn.grad.conv3d_weight(
+        xh.abs().permute(0, 4, 1, 2, 3), (co, ci, 3, 1, 1),
+        ge.abs().permute(0, 4, 1, 2, 3), padding=(1, 0, 0))
+    return dk[:, :, :, 0, 0].permute(2, 1, 0)
+
+
+def check_temporal_filter_f32(parent: Optional[str]) -> None:
+    """ptxas' resource lines of the walk, then the walk against the plain
+    version (TF32 off), with and without the prologue, at TFF_SMALL and the
+    train step's four temporal units (32 clips): the wrapper (and whether a
+    second call repeats dw bit for bit), every layout through the C entry
+    (TFF_LAYOUTS) and, with ``parent``, an older source's per-tap gather;
+    each as max |dw - ref| over max |ref| and over chip_smoke.py's dw
+    limit."""
+    dev = resolve_device("cuda")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    resources("temporal_filter_f32")
+    lib = cuda_lib.build(["conv_bn_f32"])["conv_bn_f32"]
+    for kernel, counts in ffma_bank_conflicts(
+            lib, "temporal_filter_f32_kernel").items():
+        print(json.dumps({"kernel": kernel, "sass": counts}), flush=True)
+    main = getattr(cuda_lib.library("conv_bn_f32"), TFF_ENTRY)
+    old = None
+    if parent:
+        old = build_variants({"parent_f32": ""}, GATHER_FILTER_F32_ENTRY,
+                             {"parent_f32": parent},
+                             PARENT_FILTER_F32_SIGNATURE)["parent_f32"]
+    g = torch.Generator(device=dev).manual_seed(37)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for xs, co in TFF_SMALL + SHAPES["temporal"]:
+        x, inv, shift, y, gy, gs1, gs2 = sff_inputs(xs, co, dev, g)
+        row = {"x": list(xs), "co": co,
+               "plan": conv_bn.f32_temporal_filter_plan(*xs, co, sms)._asdict()}
+        for affine in (True, False):
+            a = (inv, shift) if affine else (None, None)
+            args = (x, *a, y, gy, gs1, gs2)
+            got = conv_bn.conv_unit_bwd_filter(*args, kind="temporal")
+            again = conv_bn.conv_unit_bwd_filter(*args, kind="temporal")
+            torch.cuda.synchronize()
+            ref = conv_bn.conv_unit_bwd_filter_reference(*args, kind="temporal")
+            absw = _abs_dw_temporal(conv_bn._prologue(x, *a),
+                                    conv_bn._gy_eff(gy, y, gs1, gs2))
+            err = lambda d: {"over_max_ref": ((d.reshape(ref.shape) - ref).abs().max()
+                                              / ref.abs().max()).item(),
+                             "over_limit": _dw_over_limit(d, ref, absw)}
+            key = "affine" if affine else "plain"
+            row[key] = {"wrapper": err(got), "repeats": torch.equal(got, again)}
+            for name, layout in TFF_LAYOUTS.items():
+                out = launch_tff(main, *args, layout=layout)
+                torch.cuda.synchronize()
+                row[key][name] = err(out)
+                del out
+            if old is not None:
+                out = launch_filter_gather_f32(old, *args, kind=1)
+                torch.cuda.synchronize()
+                row[key]["parent"] = err(out)
+                del out
+            del got, again, ref, absw
+            torch.cuda.empty_cache()
+        print(json.dumps(row), flush=True)
+        del x, y, gy
+        torch.cuda.empty_cache()
+
+
+def sweep_temporal_filter_f32(reps: int, parent: Optional[str]) -> None:
+    """The walk at the train step's four temporal units (32 clips, with the
+    prologue, as the train step runs them), every time a device time: in
+    alternating rounds the wrapper, the planner's layout through the C entry
+    twice (their gap is the spread of identical launches), every layout
+    (TFF_LAYOUTS), the planner's layout in the slice counts of
+    ``_tff_pers``, with ``parent`` an older source's per-tap gather, and
+    cuDNN's fp32 ``conv3d_weight`` on x̂ and ge already formed (TF32 off);
+    then the ablation builds (-DTFF_ABLATE) and a device copy of x, gy and
+    y. The bound counts the operations the function needs
+    (``conv_bn.tap_pairs``)."""
+    dev = resolve_device("cuda")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cuda_lib.build(["conv_bn_f32"])
+    main = getattr(cuda_lib.library("conv_bn_f32"), TFF_ENTRY)
+    src = str(cuda_lib.CSRC / "conv_bn_f32.cu")
+    sig = cuda_lib.SIGNATURES["conv_bn_f32"]
+    defines = {f"tff_{name}": f"TFF_ABLATE={k}"
+               for name, k in TFF_ABLATIONS.items()}
+    built = build_variants(defines, TFF_ENTRY, {name: src for name in defines},
+                           sig[TFF_ENTRY])
+    old = None
+    if parent:
+        old = build_variants({"parent_f32": ""}, GATHER_FILTER_F32_ENTRY,
+                             {"parent_f32": parent},
+                             PARENT_FILTER_F32_SIGNATURE)["parent_f32"]
+    g = torch.Generator(device=dev).manual_seed(37)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for xs, co in SHAPES["temporal"]:
+        ci = xs[-1]
+        x, inv, shift, y, gy, gs1, gs2 = sff_inputs(xs, co, dev, g)
+        plan = conv_bn.f32_temporal_filter_plan(*xs, co, sms)
+        m = x.numel() // ci
+        flops = 2 * conv_bn.tap_pairs("temporal", *xs[:4]) * ci * co
+        args = (x, inv, shift, y, gy, gs1, gs2)
+        xn = conv_bn._prologue(x, inv, shift).permute(0, 4, 1, 2, 3)
+        gn = conv_bn._gy_eff(gy, y, gs1, gs2).permute(0, 4, 1, 2, 3)
+        entry = lambda: launch_tff(main, *args)
+        fns = {"wrapper": lambda: conv_bn.conv_unit_bwd_filter(
+                   *args, kind="temporal"),
+               "entry": entry, "entry_again": entry}
+        for name, layout in TFF_LAYOUTS.items():
+            fns[name] = lambda layout=layout: launch_tff(main, *args,
+                                                         layout=layout)
+        for per in _tff_pers(plan):
+            fns[f"slices_{-(-plan.units // per)}"] = \
+                lambda per=per: launch_tff(main, *args, per=per)
+        if old is not None:
+            fns["parent"] = lambda: launch_filter_gather_f32(old, *args, kind=1)
+        fns["cudnn_conv3d_weight"] = lambda: torch.nn.grad.conv3d_weight(
+            xn, (co, ci, 3, 1, 1), gn, padding=(1, 0, 0))
+        row = {"kind": "temporal_filter_f32", "x": list(xs), "co": co,
+               "affine": True, "plan": plan._asdict(),
+               "alternating_ms": alternating(fns, reps)}
+        row["ms"] = row["alternating_ms"]["wrapper"][0]
+        row["identical_launches_gap_ms"] = abs(
+            row["alternating_ms"]["entry"][0]
+            - row["alternating_ms"]["entry_again"][0])
+        for name, fn in built.items():
+            row[f"{name[4:]}_ms"] = timed(lambda: launch_tff(fn, *args), reps,
+                                          queued=True)
+        bx, by, bg = torch.empty_like(x), torch.empty_like(y), torch.empty_like(gy)
+        row["copy_x_gy_y_ms"] = timed(
+            lambda: (bx.copy_(x), by.copy_(y), bg.copy_(gy)), reps,
+            queued=True)
+        nbytes = 4 * (m * ci + 2 * m * co + 3 * ci * co + 2 * co + 2 * ci)
+        row["bound_ms"] = max(nbytes / HBM, flops / PEAK_FP32) * 1e3
+        row["bound_by"] = "bytes" if nbytes / HBM >= flops / PEAK_FP32 \
+            else "operations"
+        row["tflops"] = {k: flops / v[0] / 1e9
+                         for k, v in row["alternating_ms"].items()}
+        row["share_of_bound"] = row["bound_ms"] / row["ms"]
+        print(json.dumps(row), flush=True)
+        del xn, gn, bx, by, bg, x, y, gy
         torch.cuda.empty_cache()
 
 
@@ -2949,6 +3234,7 @@ def main(argv=None) -> None:
                                        "spatial_filter_f32",
                                        "spatial_data_f32",
                                        "temporal_data_f32",
+                                       "temporal_filter_f32",
                                        "temporal_fwd", "mel", "gru",
                                        "packed", "packed_ablate"),
                     default="spatial")
@@ -2970,6 +3256,9 @@ def main(argv=None) -> None:
                          "conv_bn_f32.cu whose temporal data gradient (the "
                          "per-tap gather, which took the kind) is, with "
                          "--check held against the plain version too; "
+                         "temporal_filter_f32: a conv_bn_f32.cu whose "
+                         "temporal filter gradient (the per-tap gather, "
+                         "which took the kind) is, likewise; "
                          "spatial_fwd / temporal_fwd: a conv_bn.cu whose "
                          "forward of that kind (the per-tap gather, C entry "
                          "before the walk) is timed beside the kernel; gru: "
@@ -2996,6 +3285,9 @@ def main(argv=None) -> None:
     elif opts.kind == "temporal_data_f32":
         check_temporal_data_f32(opts.parent) if opts.check \
             else sweep_temporal_data_f32(opts.reps, opts.parent)
+    elif opts.kind == "temporal_filter_f32":
+        check_temporal_filter_f32(opts.parent) if opts.check \
+            else sweep_temporal_filter_f32(opts.reps, opts.parent)
     elif opts.kind in ("spatial_fwd_f32", "temporal_fwd_f32"):
         kind = opts.kind[:-len("_fwd_f32")]
         check_fwd_f32(kind, opts.parent) if opts.check \

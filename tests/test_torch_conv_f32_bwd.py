@@ -1,6 +1,7 @@
 """The fp32 conv-unit backward (``spatial_data_f32_kernel``,
 ``temporal_data_f32_kernel``, ``bwd_data_f32_kernel``,
-``spatial_filter_f32_kernel`` and ``bwd_filter_f32_kernel`` in
+``spatial_filter_f32_kernel``, ``temporal_filter_f32_kernel`` and
+``bwd_filter_f32_kernel`` in
 m3f_torch/csrc/conv_bn_f32.cu, wrapped by
 ``ops.conv_bn.conv_unit_bwd_data`` / ``conv_unit_bwd_filter`` for fp32 x)
 where a CPU can hold it: a numpy run of each kernel's walk against the JAX
@@ -8,10 +9,11 @@ package's Pallas backward in fp32 under interpret mode (``_spatial_bwd`` /
 ``_temporal_bwd``, as tests/test_torch_conv_bn_bwd.py runs them; a clip of
 one frame against the XLA composition ``_xla_bwd``, since the Pallas
 temporal units need two frames) and against the port's plain version, at
-the forward's EMU_CASES, at FILTER_CASES, DATA_CASES and TDF_CASES with
-and without the prologue; the tilings (``f32_bwd_data_plan``,
-``f32_spatial_data_plan``, ``f32_temporal_data_plan``,
-``f32_bwd_filter_plan``, ``f32_spatial_filter_plan``) at every fused unit's
+the forward's EMU_CASES, at FILTER_CASES, DATA_CASES, TDF_CASES and
+TFF_CASES with and without the prologue; the tilings
+(``f32_bwd_data_plan``, ``f32_spatial_data_plan``,
+``f32_temporal_data_plan``, ``f32_bwd_filter_plan``,
+``f32_spatial_filter_plan``, ``f32_temporal_filter_plan``) at every fused unit's
 train shape, the walks' shared-memory formulas against the C source's; and
 the plain versions' convs run without TF32. The kernels themselves run only on the card
 (chip_smoke.py, phase kernel_conv_f32_bwd).
@@ -48,10 +50,18 @@ held in a ring of two steps' rows, each row copied and formed once (x^
 through the prologue on real pixels and channels only), steps of S output
 pixels whose ge is folded once (0 past the slice and C_out), each tap an
 offset of the step's table, one [9·16, N tile] of sums a block, the
-partials summed in slice order. Filter gather (the temporal kind, and
-images too wide for the walk): slices of chunks of 16 positions, x^ formed
-at the gather (0 in the padding), ge at the load, one partial [K, C_out] a
-slice, the partials summed in slice order.
+partials summed in slice order.
+Temporal filter frame walk: slices of strips of the flattened B·H·W axis
+(across clips where H·W is small), each walked over T as one stream of
+steps; step j's x^ frame copied and formed once into ring slot j % 4 (on
+the strip's positions and channels < C_in only), ge of step j (0 past the
+strip and C_out) multiplied with x^ frames t-1, t and t+1 into taps 0, 1
+and 2 (a tap whose frame lies outside the clip skipped), the strip's
+positions summed into one [3·CB, 64] a block, the partials summed in slice
+order.
+Filter gather (spatial images too wide for the walk): slices of chunks of
+16 positions, x^ formed at the gather (0 in the padding), ge at the load,
+one partial [K, C_out] a slice, the partials summed in slice order.
 
 Tolerances: dx per element within 2e-5 of its largest magnitude (fp32 sums
 in another order over K up to 648); dw per element within 1e-5 of
@@ -337,15 +347,18 @@ def _in_order(rows):
 
 def _emulate_filter(x, inv, shift, y, gy, gs1, gs2, kind, sms=None):
     """The filter gradient's walk in numpy (fp32), as the wrapper routes it:
-    the spatial row walk where its plan has a layout, else the per-tap
-    gather; returns dw in the reference layout."""
+    the temporal frame walk; the spatial row walk where its plan has a
+    layout, else the per-tap gather; returns dw in the reference layout."""
+    if kind == "temporal":
+        plan = conv_bn.f32_temporal_filter_plan(*x.shape, gy.shape[-1],
+                                                sms or SMS)
+        return _emulate_temporal_filter_walk(x, inv, shift, y, gy, gs1, gs2,
+                                             plan)[0]
     sms = sms or FILTER_SMS.get(x.shape, SMS)
-    if kind == "spatial":
-        plan = conv_bn.f32_spatial_filter_plan(*x.shape, gy.shape[-1], sms)
-        if plan is not None:
-            return _emulate_filter_walk(x, inv, shift, y, gy, gs1, gs2,
-                                        plan)[0]
-    return _emulate_filter_gather(x, inv, shift, y, gy, gs1, gs2, kind, sms)
+    plan = conv_bn.f32_spatial_filter_plan(*x.shape, gy.shape[-1], sms)
+    if plan is not None:
+        return _emulate_filter_walk(x, inv, shift, y, gy, gs1, gs2, plan)[0]
+    return _emulate_filter_gather(x, inv, shift, y, gy, gs1, gs2, sms)
 
 
 def _emulate_filter_walk(x, inv, shift, y, gy, gs1, gs2, plan, pad=None):
@@ -420,14 +433,81 @@ def _emulate_filter_walk(x, inv, shift, y, gy, gs1, gs2, plan, pad=None):
     return dw.reshape(3, 3, ci, co), parts
 
 
-def _emulate_filter_gather(x, inv, shift, y, gy, gs1, gs2, kind, sms=SMS):
-    """bwd_filter_f32_kernel's walk (the temporal kind, and the spatial
-    kind where no row-walk layout fits the images) in numpy (fp32): returns
-    dw in the reference layout."""
+def _emulate_temporal_filter_walk(x, inv, shift, y, gy, gs1, gs2, plan,
+                                  pad=None):
+    """temporal_filter_f32_kernel's walk: per slice its units in order, each
+    a strip of ``plan.strip`` positions of the flattened B·H·W axis (across
+    clips where H·W is small) walked over the frames, one step a frame;
+    step j's x^ frame copied into ring slot j % 4 two steps ahead (x^ formed
+    on the strip's positions and channels < C_in only; the ring is held to
+    carry frames j-1, j and j+1 at step j after those copies), step j's ge
+    (folded on the strip's positions and channels < C_out only) multiplied
+    with x^ frames t-1, t and t+1 into taps 0, 1 and 2, a tap whose frame
+    lies outside the clip skipped, the strip's positions summed into the
+    block's [3·CB, N tile]. The blocks of a slice are independent, so all
+    its channel blocks and N tiles run at once. ``pad`` (a control, per
+    input channel) puts that x^ at the frames -1 and T in place of 0.
+    Returns (dw in the reference layout, the slices' partials [3·C_in,
+    C_out] summed in slice order into it)."""
     b, t, h, wd, ci = x.shape
     co = gy.shape[-1]
-    taps = 9 if kind == "spatial" else 3
-    plan = conv_bn.f32_bwd_filter_plan(b, t, h, wd, ci, co, kind, sms)
+    hw, slots = h * wd, conv_bn._TFF_X_SLOTS
+    cip = plan.ci_blocks * plan.ci_blk
+    ncols = plan.n_tiles * plan.n_tile
+    xh = np.zeros((b, t, hw, cip), np.float32)
+    xf = x.reshape(b, t, hw, ci)
+    xh[..., :ci] = xf if inv is None else \
+        np.maximum(np.float32(xf * inv) + shift, np.float32(0))
+    ge = np.zeros((b, t, hw, ncols), np.float32)
+    ge[..., :co] = _fold(gy, y, gs1, gs2).reshape(b, t, hw, co)
+    padv = np.zeros(cip, np.float32)
+    if pad is not None:
+        padv[:ci] = pad
+    parts = []
+    for s in range(plan.slices):
+        steps = [(u, f) for u in plan.units_of(s) for f in range(t)]
+        ring = [None] * slots
+        held = [-1] * slots
+
+        def copy(j):                       # x^ of step j into slot j % 4
+            if j < len(steps):
+                u, f = steps[j]
+                pos = np.array(plan.positions_of(u))
+                ring[j % slots] = xh[pos // hw, f, pos % hw]
+                held[j % slots] = j
+        copy(0)
+        copy(1)
+        acc = np.zeros((3, cip, ncols), np.float32)
+        for j, (u, f) in enumerate(steps):
+            copy(j + 2)                    # before step j's products
+            pos = np.array(plan.positions_of(u))
+            g = ge[pos // hw, f, pos % hw]
+            for d in range(3):
+                if 0 <= f - 1 + d < t:
+                    jj = j - 1 + d
+                    assert held[jj % slots] == jj
+                    a = ring[jj % slots]
+                elif pad is not None:
+                    a = np.broadcast_to(padv, (len(pos), cip))
+                else:
+                    continue
+                acc[d] += a.T @ g
+        tot = acc
+        parts.append(tot[:, :ci, :co].reshape(3 * ci, co))
+    dw = parts[0]
+    for p in parts[1:]:                      # in slice order
+        dw = dw + p
+    return dw.reshape(3, ci, co), parts
+
+
+def _emulate_filter_gather(x, inv, shift, y, gy, gs1, gs2, sms=SMS):
+    """bwd_filter_f32_kernel's walk (the spatial kind where no row-walk
+    layout fits the images) in numpy (fp32): returns dw in the reference
+    layout."""
+    b, t, h, wd, ci = x.shape
+    co = gy.shape[-1]
+    taps, kind = 9, "spatial"
+    plan = conv_bn.f32_bwd_filter_plan(b, t, h, wd, ci, co, sms)
     m_all = b * t * h * wd
     k = taps * ci
     xh = x.reshape(m_all, ci)
@@ -454,7 +534,7 @@ def _emulate_filter_gather(x, inv, shift, y, gy, gs1, gs2, kind, sms=SMS):
     dw = parts[0]
     for p in parts[1:]:                      # in slice order
         dw = dw + p
-    return dw.reshape((3, 3, ci, co) if kind == "spatial" else (3, ci, co))
+    return dw.reshape(3, 3, ci, co)
 
 
 def _case_id(kind, xs, ws):
@@ -496,7 +576,22 @@ TDF_CASES = [("temporal", (5, 3, 7, 7, 200), (3, 200, 40)),
 # strips at N tiles of 144, one of 2 at 64; C_in 24: one range of every
 # strip)
 TDF_SMS = {(5, 3, 7, 7, 200): 6, (7, 2, 5, 5, 24): 1}
-ALL_CASES = EMU_CASES + FILTER_CASES + DATA_CASES + TDF_CASES
+# the temporal filter frame walk off EMU_CASES, each in several slices in
+# either layout (a block walks at least _TFF_MIN_ROWS position-frames), the
+# last short, and a partial last strip of 32: twenty 7x7 clips of one frame
+# across strips (31 strips, the last of 20, in slices of 18 and 13) at C_in
+# 24 (a warp of a channel block past it) and C_out 40 (a masked N tile);
+# twelve 7x7 clips of two frames at C_in 200 (a partial channel block in
+# every layout) and C_out 40 (19 strips, the last of 12, in slices of 9, 9
+# and 1); eleven 6x6 clips of three frames at C_in 48 and C_out 136 (three
+# N tiles, the last masked; 13 strips, the last of 12, in slices of 6, 6
+# and 1)
+TFF_CASES = [("temporal", (20, 1, 7, 7, 24), (3, 24, 40)),
+             ("temporal", (12, 2, 7, 7, 200), (3, 200, 40)),
+             ("temporal", (11, 3, 6, 6, 48), (3, 48, 136))]
+ALL_CASES = EMU_CASES + FILTER_CASES + DATA_CASES + TDF_CASES + TFF_CASES
+TFF_FIRST = len(ALL_CASES) - len(TFF_CASES)   # TFF_CASES' first index
+TDF_FIRST = TFF_FIRST - len(TDF_CASES)        # TDF_CASES' first index
 
 CASES = [pytest.param(i, affine, id=f"{_case_id(*c)}-{'affine' if affine else 'plain'}")
          for i, c in enumerate(EMU_CASES) for affine in (False, True)]
@@ -567,7 +662,7 @@ def _data_within(x, inv, shift, dx, dinv, dshift, ref):
 
 
 TDF_WALK_CASES = [
-    pytest.param(len(ALL_CASES) - len(TDF_CASES) + i, nb, affine,
+    pytest.param(TDF_FIRST + i, nb, affine,
                  id=f"{_case_id(*c)}-n_tile={nb}-{'affine' if affine else 'plain'}")
     for i, c in enumerate(TDF_CASES) for nb in conv_bn._TDF_N_TILES
     for affine in (False, True)]
@@ -673,6 +768,59 @@ def test_spatial_filter_walk_edges_match_pallas_backward_fp32(i, affine):
         assert (np.abs(dw - ref[1]) <= lim).all(), np.abs(dw - ref[1]).max()
 
 
+TFF_WALK_CASES = [
+    pytest.param(TFF_FIRST + i, layout, affine,
+                 id=f"{_case_id(*c)}-layout={'x'.join(map(str, layout))}-"
+                    f"{'affine' if affine else 'plain'}")
+    for i, c in enumerate(TFF_CASES) for layout in conv_bn._TFF_LAYOUTS
+    for affine in (False, True)]
+
+
+@pytest.mark.parametrize("i,layout,affine", TFF_WALK_CASES)
+def test_temporal_filter_walk_edges_match_pallas_backward_fp32(i, layout,
+                                                              affine):
+    """The frame walk at TFF_CASES in every layout the plan can take
+    (channel block, strip): one, two and three frames, clips across strips
+    with a partial last strip, several slices with a short last one, a
+    partial channel block, masked N tiles."""
+    kind, (x, w, inv, shift, y, gy, gs1, gs2), want, plain = _inputs(i, affine)
+    plan = conv_bn.f32_temporal_filter_plan(*x.shape, gy.shape[-1], SMS,
+                                            layout=layout)
+    assert (plan.ci_blk, plan.strip) == layout
+    assert plan.slices > 1
+    assert len(plan.units_of(plan.slices - 1)) < plan.units_per_slice
+    assert len(plan.positions_of(plan.units - 1)) < plan.strip
+    assert plan.n_tiles * plan.n_tile > gy.shape[-1]
+    dw, _ = _emulate_temporal_filter_walk(x, inv, shift, y, gy, gs1, gs2,
+                                          plan)
+    lim = _dw_limit(x, inv, shift, y, gy, gs1, gs2, kind)
+    for ref in (want, plain):
+        assert dw.shape == ref[1].shape
+        assert (np.abs(dw - ref[1]) <= lim).all(), np.abs(dw - ref[1]).max()
+
+
+def test_temporal_filter_walk_sees_the_padding_and_the_slices():
+    """The frame walk's emulation can fail: x^ formed through the prologue
+    at the frames -1 and T (relu(shift) there, nonzero for about half the
+    channels) misses the reference, and a dw without its last slice's
+    partial misses it (twelve 7x7 clips of two frames at C_in 200, slices
+    of nine strips, nine and one)."""
+    kind, args, want, _ = _inputs(TFF_FIRST + 1, True)
+    x, inv, shift, gy = args[0], args[2], args[3], args[5]
+    fargs = (x, inv, shift) + args[4:]
+    plan = conv_bn.f32_temporal_filter_plan(*x.shape, gy.shape[-1], SMS)
+    assert [len(plan.units_of(s)) for s in range(plan.slices)] == [9, 9, 1]
+    lim = _dw_limit(*fargs, kind)
+    right, parts = _emulate_temporal_filter_walk(*fargs, plan)
+    assert (np.abs(right - want[1]) <= lim).all()
+    wrong = _emulate_temporal_filter_walk(
+        *fargs, plan, pad=np.maximum(shift, np.float32(0)))[0]
+    assert (np.abs(wrong - want[1]) > lim).any()
+    short = (right.reshape(parts[-1].shape) - parts[-1]).reshape(right.shape)
+    assert (np.abs(short - want[1]) > lim).any()
+    assert (shift > 0).mean() > 0.25
+
+
 def test_walks_see_the_padding_and_the_slices():
     """The walks' checks can fail: ge formed through the formula in the
     padding (gs1 there) and x^ formed through the prologue in the padding
@@ -708,18 +856,23 @@ def test_walks_see_the_padding_and_the_slices():
         wrong_dw = (wrong_dw[:, :, 0].transpose(2, 3, 1, 0) if kind == "spatial"
                     else wrong_dw[:, :, :, 0, 0].transpose(2, 1, 0))
         assert np.abs(wrong_dw - want[1]).max() > DW_REL * np.abs(want[1]).max()
-    for i in (0, 3):                       # 14 and 2 chunks of 16 positions
+    for i in (0, TFF_FIRST + 1):           # the row walk's and frame walk's
         kind, (x, w, inv, shift, y, gy, gs1, gs2), want, _ = _inputs(i, True)
         b, t, h, wd, ci = x.shape
         co, m = gy.shape[-1], b * t * h * wd
-        plan = conv_bn.f32_bwd_filter_plan(b, t, h, wd, ci, co, kind, SMS)
-        walk = conv_bn.f32_spatial_filter_plan(b, t, h, wd, ci, co, SMS) \
-            if kind == "spatial" else None
-        assert plan.slices > 1 and (walk is None or walk.slices > 1)
-        last = plan.positions_of(plan.slices - 1, m) if walk is None else \
-            range(walk.images_of(walk.slices - 1)[0] * h * wd, m)
         keep = np.ones((m, 1), np.float32)
-        keep[last.start:last.stop] = 0
+        if kind == "spatial":              # last slice of images
+            plan = conv_bn.f32_bwd_filter_plan(b, t, h, wd, ci, co, SMS)
+            walk = conv_bn.f32_spatial_filter_plan(b, t, h, wd, ci, co, SMS)
+            assert plan.slices > 1 and walk.slices > 1
+            keep[walk.images_of(walk.slices - 1)[0] * h * wd:] = 0
+        else:                              # last slice of strips, every frame
+            frames = conv_bn.f32_temporal_filter_plan(b, t, h, wd, ci, co,
+                                                      SMS)
+            assert frames.slices > 1
+            start = frames.positions_of(frames.units_of(frames.slices - 1)[0])[0]
+            pos = np.arange(b * h * wd).reshape(b, 1, h * wd)
+            keep[np.broadcast_to(pos >= start, (b, t, h * wd)).reshape(m)] = 0
         ge = (_fold(gy, y, gs1, gs2).reshape(m, co) * keep).reshape(gy.shape)
         zero = torch.zeros(co)
         short = conv_bn.conv_unit_bwd_filter_reference(
@@ -935,10 +1088,84 @@ def _check_temporal_data_plan(p, b, t, h, w, ci, co, sms=SMS, affine=True):
         p.units, p.n_tiles, sms, 1)
 
 
+def _c_tff():
+    """tff_smem of conv_bn_f32.cu as a Python function of (channel block,
+    strip) read from the source, its TFF_ constants, and the C entry's
+    layouts {(channel block, strip): (CG, S, BPS)} read from its
+    ``launch_temporal_filter_f32<CG, S, BPS>`` instances (channel block
+    4·CG, strips of S, BPS blocks a SM)."""
+    src = (Path(conv_bn.__file__).parents[1] / "csrc" / "conv_bn_f32.cu"
+           ).read_text()
+    consts = {k: int(v) for k, v in
+              re.findall(r"constexpr int (TFF_\w+) = (\d+);", src)}
+    body = re.search(r"size_t tff_smem\(int CB, int S\) \{\s*"
+                     r"return sizeof\(float\) \* (.*?);\n\}", src,
+                     re.S).group(1)
+    expr = " ".join(body.replace("(size_t)", "").split())
+
+    def smem(ci_blk, strip):
+        return 4 * eval(expr, {}, {"CB": ci_blk, "S": strip, **consts})
+    layouts = {tuple(map(int, k[:2])): tuple(map(int, k[2:])) for k in
+               re.findall(r"cb == (\d+) && strip == (\d+)\) err = "
+                          r"launch_temporal_filter_f32<(\d+), (\d+), (\d+)>",
+                          src)}
+    return smem, consts, layouts
+
+
+def _check_temporal_filter_plan(p, b, t, h, w, ci, co, sms=SMS):
+    """What every fp32 temporal filter-walk plan must hold: every position
+    in exactly one strip and every strip in exactly one non-empty slice,
+    the N tile, ring and one position group of the C side's constants, the
+    layout of one of the C entry's instances (channel block 4·CG in CG / 4
+    warps of 4 x 8 threads, strips of S, BPS blocks a SM: 12 warps),
+    channel blocks and N tiles covering C_in and C_out, the slices of
+    ``_tw_units_per_block`` (the fewest strip-times to the last block's
+    end, its blocks a SM) with at least _TFF_MIN_ROWS position-frames a
+    block, within _FILTER_PART_BYTES (one slice with no positions or
+    frames), and a shared-memory size that is the C side's, within a SM's
+    for its blocks."""
+    c_smem, consts, layouts = _c_tff()
+    assert p.n_tile == consts["TFF_NB"] == conv_bn._TFF_N_TILE == 64
+    assert consts["TFF_XS"] == conv_bn._TFF_X_SLOTS == 4
+    assert consts["TFF_PG"] == 1
+    assert p.positions == b * h * w and p.units == -(-p.positions // p.strip)
+    covered = [q for u in range(p.units) for q in p.positions_of(u)]
+    assert covered == list(range(p.positions))
+    units = [u for s in range(p.slices) for u in p.units_of(s)]
+    assert units == list(range(p.units))
+    assert all(len(p.units_of(s)) for s in range(p.slices)) or p.units == 0
+    assert layouts == {(cb, st): (cb // 4, st, bps) for (cb, st), bps
+                       in conv_bn._TFF_LAYOUTS.items()}
+    assert set(conv_bn._TFF_COST) == set(layouts)
+    cg, _, bps = layouts[p.ci_blk, p.strip]
+    assert p.threads == 8 * cg and p.register_tile == (3, 4, 8)
+    assert p.blocks_per_sm == bps and p.threads * bps == 12 * 32
+    assert p.ci_blocks == -(-ci // p.ci_blk) and p.n_tiles == -(-co // 64)
+    assert p.blocks == p.slices * p.ci_blocks * p.n_tiles
+    out_bytes = 4 * 3 * ci * co
+    assert p.part_bytes == (p.slices * out_bytes if p.slices > 1 else 0) \
+        <= max(conv_bn._FILTER_PART_BYTES, out_bytes)
+    if p.units * t == 0:
+        assert (p.units_per_slice, p.slices) == (max(1, p.units), 1)
+    else:
+        assert p.units_per_slice == min(p.units, max(
+            conv_bn._tw_units_per_block(p.units, p.ci_blocks * p.n_tiles,
+                                        sms, p.blocks_per_sm),
+            -(-conv_bn._TFF_MIN_ROWS // (t * p.strip)),
+            -(-p.units // max(1, conv_bn._FILTER_PART_BYTES // out_bytes))))
+    assert p.units_per_slice * t * p.strip >= conv_bn._TFF_MIN_ROWS \
+        or p.slices == 1
+    assert p.smem_bytes == c_smem(p.ci_blk, p.strip) \
+        == conv_bn._temporal_filter_f32_smem(p.ci_blk, p.strip)
+    # a SM's shared memory, of which each block reserves 1 KB
+    assert p.blocks_per_sm * (p.smem_bytes + 1024) <= 228 * 1024
+
+
 @pytest.mark.parametrize("mode", ["flops", "lane"])
 @pytest.mark.parametrize("clips", [128, 32])
 @pytest.mark.parametrize("part", ["data", "filter", "spatial_filter_walk",
-                                  "spatial_data_walk", "temporal_data_walk"])
+                                  "spatial_data_walk", "temporal_data_walk",
+                                  "temporal_filter_walk"])
 def test_plans_cover_every_train_shape(part, clips, mode):
     """Every fused unit's shape: the data gradient's position tiles each in
     exactly one range, at most 65535 ranges (the grid's y), every input
@@ -957,7 +1184,15 @@ def test_plans_cover_every_train_shape(part, clips, mode):
     data-walk plan holds (``_check_spatial_data_plan``); the temporal data
     gradient's frame walk at every temporal unit: C_in in whole N tiles
     (no padded column) and what every frame-walk plan holds
-    (``_check_temporal_data_plan``)."""
+    (``_check_temporal_data_plan``); the temporal filter gradient's frame
+    walk at every temporal unit: C_in in whole channel blocks (no padded
+    column) and what every plan holds (``_check_temporal_filter_plan``)."""
+    if part == "temporal_filter_walk":
+        for xs, co in _unit_shapes(clips, mode)[1::2]:
+            p = conv_bn.f32_temporal_filter_plan(*xs, co, SMS)
+            assert xs[-1] % p.ci_blk == 0
+            _check_temporal_filter_plan(p, *xs, co)
+        return
     if part == "temporal_data_walk":
         for xs, co in _unit_shapes(clips, mode)[1::2]:
             p = conv_bn.f32_temporal_data_plan(*xs, co, SMS)
@@ -988,7 +1223,7 @@ def test_plans_cover_every_train_shape(part, clips, mode):
     for xs, co in _unit_shapes(clips, mode):
         b, t, h, w, ci = xs
         m = b * t * h * w
-        for kind in ("spatial", "temporal"):
+        for kind in ("spatial", "temporal") if part == "data" else ("spatial",):
             if part == "data":
                 p = conv_bn.f32_bwd_data_plan(b, t, h, w, ci, SMS)
                 assert p == conv_bn.f32_fwd_plan(b, t, h, w, ci, SMS)
@@ -998,8 +1233,8 @@ def test_plans_cover_every_train_shape(part, clips, mode):
                 assert p.ranges <= 65535 and p.n_tiles * 64 >= ci
                 assert p.blocks >= min(p.m_tiles * p.n_tiles, 4 * SMS)
                 continue
-            p = conv_bn.f32_bwd_filter_plan(b, t, h, w, ci, co, kind, SMS)
-            k = (9 if kind == "spatial" else 3) * ci
+            p = conv_bn.f32_bwd_filter_plan(b, t, h, w, ci, co, SMS)
+            k = 9 * ci
             assert p.k_tiles * 64 >= k > (p.k_tiles - 1) * 64
             assert p.n_tiles * 64 >= co > (p.n_tiles - 1) * 64
             assert p.chunks == -(-m // KC)
@@ -1146,6 +1381,52 @@ def test_temporal_data_f32_plan_edges(shape):
     assert q.resident > p.resident or shape != (4, 2, 5, 5, 64, 200)
 
 
+# (B, T, H, W, C_in, C_out) -> (channel block, strips a slice, slices) of
+# the temporal filter frame walk on 132 SMs, strips of 32: chip_smoke.py's
+# F32_TEMPORAL_FILTER_EDGE_SHAPES (one-frame clips across strips, slices of
+# 18 and 13; 7x7 clips several a strip, the last partial, at C_in 40 (one
+# block of 48, its last warp idle), slices of 6 and 2; C_in 200 in five
+# blocks of 48, the last of 8, at C_out 40, slices of 9, 9 and 1; 85 7x7
+# clips at C_in 280, 22 slices of six strips, the last of five; the stage-4
+# train shape in six slices of 9 strips, the last of 4; C_in 104 in two
+# blocks of 64, slices of 6 and 2), stage 4 at 128 clips (the partials
+# capped at _FILTER_PART_BYTES: nine slices), a single position, the lane
+# widths 128 and 640 (blocks of 64), C_out 200 in four N tiles of 64, the
+# last masked, an empty batch and clips of no frames (one slice: the C
+# entry sets dw to 0)
+TFF_PLAN_EDGES = {(20, 1, 7, 7, 24, 40): (48, 18, 2),
+                  (5, 3, 7, 7, 40, 48): (48, 6, 2),
+                  (12, 2, 7, 7, 200, 40): (48, 9, 3),
+                  (85, 3, 7, 7, 280, 40): (48, 6, 22),
+                  (32, 2, 7, 7, 1152, 512): (64, 9, 6),
+                  (128, 2, 7, 7, 1152, 512): (64, 22, 9),
+                  (1, 1, 1, 1, 8, 8): (48, 1, 1),
+                  (32, 16, 56, 56, 128, 64): (64, 16, 196),
+                  (32, 4, 14, 14, 640, 256): (64, 6, 33),
+                  (2, 3, 6, 6, 40, 200): (48, 3, 1),
+                  (5, 3, 7, 7, 104, 40): (64, 6, 2),
+                  (0, 2, 7, 7, 48, 64): (48, 1, 1),
+                  (2, 0, 7, 7, 48, 64): (48, 4, 1)}
+
+
+@pytest.mark.parametrize("shape", list(TFF_PLAN_EDGES),
+                         ids=["x".join(map(str, s)) for s in TFF_PLAN_EDGES])
+def test_temporal_filter_f32_plan_edges(shape):
+    """Off the train widths: the channel block of the least padded C_in x
+    its cost (64 where C_in is 104, 128, 640 or 1152, 48 at 8, 24, 40, 48,
+    200 and 280), slices for the fewest strip-times to the last block's end
+    with at least _TFF_MIN_ROWS position-frames a block, within
+    _FILTER_PART_BYTES, one slice with no positions or frames; each channel
+    block asked for is taken; and what every plan holds."""
+    p = conv_bn.f32_temporal_filter_plan(*shape, SMS)
+    assert (p.ci_blk, p.units_per_slice, p.slices) == TFF_PLAN_EDGES[shape]
+    _check_temporal_filter_plan(p, *shape)
+    for layout in conv_bn._TFF_LAYOUTS:
+        q = conv_bn.f32_temporal_filter_plan(*shape, SMS, layout=layout)
+        assert (q.ci_blk, q.strip) == layout
+        _check_temporal_filter_plan(q, *shape)
+
+
 def test_frame_walk_sees_the_padding_and_the_ranges():
     """The frame walk's emulation can fail: ge formed through the formula
     at the frames -1 and T (gs1 there, of the size of gy) misses the
@@ -1153,7 +1434,7 @@ def test_frame_walk_sees_the_padding_and_the_ranges():
     where the walk takes several ranges (five 7x7 clips of three frames,
     ranges of two, two and one strips; xa > 0 for about half the
     elements)."""
-    kind, args, want, _ = _inputs(len(ALL_CASES) - len(TDF_CASES), True)
+    kind, args, want, _ = _inputs(TDF_FIRST, True)
     x, inv, shift, gs1 = args[0], args[2], args[3], args[6]
     plan = conv_bn.f32_temporal_data_plan(*x.shape, args[5].shape[-1],
                                           TDF_SMS[x.shape], n_tile=144)
