@@ -216,6 +216,25 @@ H100 (``python3 chip_smoke.py``). It
    in-process prediction, SIGINT, exit 0), 2 steps each of ``audio_only``
    and ``visual_only`` (their launches) and ``train.debug_nans`` (a NaN in
    the second batch raises at step 2);
+5c. the data axis and the reference's checkpoint layout (``parallel/``):
+   ``resume_jax_layout`` (full-width ``fusion``, 2 steps saved in the
+   layout of the JAX package's optax chain, resumed by a fresh ``Trainer``
+   for 2 more, held against 4 uninterrupted steps within RESUME_LOSS_ATOL
+   and RESUME_PARAM_REL); ``ddp_train`` (``m3f_torch.main train --preset
+   distributed_train`` in this process under torchrun's variables at world
+   size 1 over NCCL: s/step, peak memory, every collective through the
+   group); ``ddp_two_ranks`` (this script twice more, ``--ddp-rank``, two
+   gloo ranks on the one card with 16 of the 32 clips each, against the
+   same steps in one process without a group, within DDP_LOSS_RTOL,
+   DDP_GNORM_RTOL and DDP_LATER_LOSS_ATOL, the ranks bit-equal, their
+   BatchNorm running means too; beside it the one
+   process on the batches with their clips reversed (the spread of another
+   summation order alone) and, as witnesses, both ranks on the same 16
+   clips against one process on those 16 (DDP_WITNESS_*) and the eval
+   forward of 16 sequences in a batch of 32 against alone; each fault of
+   DDP_FAULTS planted in the ranks must break a limit; whole-video eval
+   and the sequence forward of DDP_EVAL_SEQS sequences sharded over the
+   ranks against one process within DDP_EVAL_ATOL);
 6. prints the ``kernels`` line, the card line and, last,
    ``{"ok": true, "device": {...}}``.
 
@@ -225,6 +244,7 @@ every comparison.
 """
 
 import contextlib
+import dataclasses
 import json
 import math
 import os
@@ -3158,6 +3178,32 @@ ABAW_VAL = {"vid_v": (512, 30.0, 0.0)}
 ABAW_TEST = ("vid_t", 700, range(301, 341))   # 1-based crops missing
 ABAW_INVALID = range(100, 120)                # frames labelled -5
 CLI_STEPS = (8, 12, 10)  # train, resumed train, --resume-from (+2 steps)
+RESUME_LOSS_ATOL = 1e-3  # resume_jax_layout: the losses of steps 3-4 resumed
+#                          from the optax-layout checkpoint against 4
+#                          uninterrupted steps (equal where every kernel and
+#                          cuDNN call repeats its bits) ...
+RESUME_PARAM_REL = 0.05  # ... and the params (L2) within 0.05 of the move of
+#                          steps 3-4
+DDP_STEPS = 3            # ddp_train / ddp_two_ranks: train steps
+DDP_LOSS_RTOL = 1e-3     # ddp_two_ranks against world size 1 on the same
+#                          global batches: the first step's loss (bf16; BN
+#                          sums of two halves summed in another order) ...
+DDP_GNORM_RTOL = 1e-2    # ... its gradient norm (a world-size factor would
+#                          be 0.5 or 2) ...
+DDP_LATER_LOSS_ATOL = 1e-2   # ... and the later steps' losses
+DDP_WITNESS_LOSS_RTOL = 1e-4    # both ranks on the same 16 clips (a global
+DDP_WITNESS_GNORM_RTOL = 1e-3   # batch of those 16 twice) against one
+DDP_WITNESS_LATER_ATOL = 1e-2   # process on the 16: the collectives alone
+# faults planted in the rank processes (``planted_fault``); in one step each
+# must break a limit above against world size 1, or leave the two ranks with
+# BatchNorm running means that differ (a rank that normalised with its own
+# half's statistics keeps its own)
+DDP_FAULTS = ("bn_sums_unreduced", "bn_sums_local", "grads_averaged")
+DDP_EVAL_FRAMES = 700    # the eval video of ddp_two_ranks
+DDP_EVAL_SEQS = 3        # sequences of the sharded sequence forward (odd)
+DDP_EVAL_ATOL = 1e-2     # sharded eval against one process, and the ranks'
+#                          stitched tracks against each other (predictions
+#                          in [-1, 1]; bf16, other per-rank batch shapes)
 
 
 def data_loader(np, native_loader, repo):
@@ -3631,6 +3677,485 @@ def cli_debug_nans(torch, np, config, Trainer, data):
           "s": dt, "without_flag_loss": hist["loss"]})
 
 
+# ---------------------------------------------------------------------------
+# parallel/: the reference's checkpoint layout, world size 1 over NCCL, two
+# gloo ranks on the one card
+# ---------------------------------------------------------------------------
+
+def _param_move(torch, a, b):
+    return torch.cat([(a[n].float() - b[n].float()).flatten()
+                      for n in a]).norm().item()
+
+
+def resume_jax_layout(torch, np, cuda_lib, config, Trainer, Checkpointer,
+                      data, repo):
+    """Full-width fusion: 4 uninterrupted steps; 2 steps saved (the
+    optimizer state in the optax chain's layout, which the JAX package's
+    Checkpointer resumes), then a fresh Trainer's fit resumes the file and
+    takes steps 3-4 with the launch counters set to 0 just before."""
+    cfg = config.apply_overrides(config.fusion(), {"train.log_every": 1,
+                                                   "train.checkpoint_every": 0})
+    stream = synthetic_stream(np, cfg, *data, seed=2)
+    tr = Trainer(cfg)
+    state, whole = tr.fit(stream, num_steps=4, log=lambda s: None)
+    p4 = {n: p.detach().clone() for n, p in state.params.items()}
+    d = os.path.join(repo, "build", "resume_jax_layout")
+    shutil.rmtree(d, ignore_errors=True)
+    state, first = tr.fit(stream, num_steps=2, log=lambda s: None)
+    p2 = {n: p.detach().clone() for n, p in state.params.items()}
+    path = Checkpointer(d, cfg=cfg).save(state)
+    with np.load(path) as z:
+        keys = set(z.files)
+        meta = json.loads(bytes(z["__meta__"]).decode())
+    mu = [k for k in keys if k.startswith(".opt_state/1/0/.mu/")
+          and k.endswith("/kernel")]
+    require(meta["opt_layout"] == "optax" and ".opt_state/1/0/.count" in keys
+            and mu and not any(k.startswith(".opt_state/mu") for k in keys),
+            f"checkpoint keys not in the optax layout: {sorted(keys)[:8]}")
+    del tr, state
+    torch.cuda.empty_cache()
+    fresh = Trainer(cfg)
+    cuda_lib.reset_launches()
+    t0 = time.perf_counter()
+    state, resumed = fresh.fit(stream, num_steps=4, log=lambda s: None,
+                               checkpointer=Checkpointer(d, cfg=cfg))
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = dict(cuda_lib.launches)
+    missing = [k for k in FORWARD_KERNELS if counts[k] < 2]
+    missing += [k for k in BWD_KERNELS if counts[k] != 20]
+    require(not missing, f"resume_jax_layout launches {counts}")
+    got = {n: p.detach() for n, p in state.params.items()}
+    dloss = max(abs(a - b) for a, b in zip(resumed["loss"], whole["loss"][2:]))
+    rel = _param_move(torch, got, p4) / _param_move(torch, p4, p2)
+    bitwise = resumed["loss"] == whole["loss"][2:] and all(
+        torch.equal(got[n], p4[n]) for n in p4)
+    result = {"phase": "resume_jax_layout", "preset": "fusion",
+              "steps": [2, 2], "launches": counts, "s": dt,
+              "loss_uninterrupted": whole["loss"],
+              "loss_first_two": first["loss"],
+              "loss_resumed": resumed["loss"], "max_abs_loss_diff": dloss,
+              "param_diff_over_move": rel, "bitwise": bitwise,
+              "optax_mu_kernel_leaves": len(mu), "tol_loss": RESUME_LOSS_ATOL,
+              "tol_param": RESUME_PARAM_REL}
+    require(resumed["loss"] and dloss <= RESUME_LOSS_ATOL
+            and rel <= RESUME_PARAM_REL, f"resumed run: {result}")
+    emit(result)
+
+
+def _free_port():
+    import socket
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
+def ddp_train(torch, np, cuda_lib, config, main, repo, log_dir):
+    """``train --preset distributed_train`` (batch 32, ``mesh.num_data=-1``)
+    through the CLI in this process under torchrun's variables at world
+    size 1: the group must be NCCL's, every BN / loss / gradient reduction
+    goes through it, rows 1-8 launch, the group is gone after."""
+    import torch.distributed as dist
+    env = {"RANK": "0", "WORLD_SIZE": "1", "LOCAL_RANK": "0",
+           "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(_free_port())}
+    saved = {k: os.environ.get(k) for k in env}
+    backends, reduces = [], [0]
+    real_init, real_reduce = dist.init_process_group, dist.all_reduce
+
+    def init(backend, **kw):
+        backends.append(backend)
+        return real_init(backend, **kw)
+
+    def reduce(*a, **kw):
+        reduces[0] += 1
+        return real_reduce(*a, **kw)
+    ck = os.path.join(repo, "build", "ddp_train")
+    shutil.rmtree(ck, ignore_errors=True)
+    os.environ.update(env)
+    dist.init_process_group, dist.all_reduce = init, reduce
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        cuda_lib.reset_launches()
+        t0 = time.perf_counter()
+        out = cli(main, ["train", "--preset", "distributed_train",
+                         "--no-eval", "data.synthetic=true",
+                         f"train.num_steps={DDP_STEPS}", "train.log_every=1",
+                         "train.checkpoint_every=0",
+                         "train.checkpoint_dir=" + ck], log_dir, "ddp_train")
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        counts = dict(cuda_lib.launches)
+    finally:
+        dist.init_process_group, dist.all_reduce = real_init, real_reduce
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    cfg = config.distributed_train()
+    require(backends == ["nccl"] and "distributed: torchrun env" in out
+            and not dist.is_initialized(),
+            f"ddp_train: backends {backends}, group left {dist.is_initialized()}")
+    require(reduces[0] > 0, "ddp_train ran no collective")
+    missing = [k for k in FORWARD_KERNELS if counts[k] < DDP_STEPS]
+    missing += [k for k in BWD_KERNELS if counts[k] != 10 * DDP_STEPS]
+    require(not missing, f"ddp_train launches {counts}")
+    require(_steps_logged(out) == list(range(1, DDP_STEPS + 1)),
+            "ddp_train steps logged")
+    require(os.path.exists(os.path.join(ck, f"ckpt_{DDP_STEPS:08d}.npz")),
+            "ddp_train wrote no checkpoint")
+    rows = [json.loads(l) for l in open(os.path.join(ck, "train.jsonl"))]
+    loss = [r["loss"] for r in rows if "loss" in r]
+    require(len(loss) == DDP_STEPS and all(math.isfinite(v) for v in loss),
+            f"ddp_train losses {loss}")
+    clips = cfg.train.batch_size * cfg.window.windows_per_clip
+    step_s = _s_per_step(np, ck, clips, range(2, DDP_STEPS + 1))
+    emit({"phase": "ddp_train", "preset": "distributed_train",
+          "world_size": 1, "backend": backends[0],
+          "batch": cfg.train.batch_size, "windows": cfg.window.windows_per_clip,
+          "steps": DDP_STEPS, "launches": counts, "collectives": reduces[0],
+          "s": dt, "s_per_step": step_s, "s_per_step_note":
+          "median of steps 2-3, host clock (train.jsonl)",
+          "clips_per_s": clips / step_s,
+          "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+          "loss": loss})
+
+
+def ddp_steps(torch, np, cuda_lib, config, Trainer, data, view="whole",
+              steps=DDP_STEPS):
+    """``steps`` steps of ``distributed_train`` from the seed on the same
+    global batches of 32, this process's rows of each (all of them without
+    a group), with the launch counters set to 0 just before. ``view``:
+    "whole" as they come; "reversed" each batch's clips in reverse order
+    (the same loss and gradients, summed in another order); "half" its
+    first 16 clips alone (a batch of 16); "half_twice" those 16 twice (in a
+    group of two, each rank the same 16). The running means of the
+    BatchNorms after step 1 come back under "_bn"."""
+    import hashlib
+    from m3f_torch.parallel.mesh import local_rows
+    cfg = config.distributed_train()
+    stream = synthetic_stream(np, cfg, *data, seed=3)(0)
+    batches = [next(stream) for _ in range(steps)]
+    half = cfg.train.batch_size // 2
+    if view == "reversed":
+        batches = [{k: np.ascontiguousarray(v[::-1]) for k, v in b.items()}
+                   for b in batches]
+    elif view == "half":
+        batches = [{k: v[:half] for k, v in b.items()} for b in batches]
+        cfg = cfg.replace(train=dataclasses.replace(cfg.train,
+                                                     batch_size=half))
+    elif view == "half_twice":
+        batches = [{k: np.concatenate([v[:half], v[:half]])
+                    for k, v in b.items()} for b in batches]
+    tr = Trainer(cfg)
+    state = tr.init_state()
+    keys = [k for k in ("video", "wav", "labels", "mask", "hop")
+            if k in batches[0]]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    cuda_lib.reset_launches()
+    loss, gnorm, ends, bn = [], [], [time.perf_counter()], {}
+    for b in batches:
+        m = tr.train_step(state, local_rows({k: b[k] for k in keys}, tr.mesh))
+        loss.append(float(m["loss"]))
+        gnorm.append(float(m["grad_norm"]))
+        ends.append(time.perf_counter())
+        if not bn:
+            bn = {n: t.float().cpu().numpy().copy()
+                  for n, t in state.bn_state.items() if n.endswith(".mean")}
+    counts = dict(cuda_lib.launches)
+    h = hashlib.sha256()
+    for n in sorted(state.params):
+        h.update(state.params[n].detach().cpu().numpy().tobytes())
+    return {"rows": len(local_rows({k: batches[0][k] for k in keys},
+                                   tr.mesh)["labels"]),
+            "loss": loss, "grad_norm": gnorm, "launches": counts,
+            "s_per_step": (float(np.median(np.diff(ends)[1:]))
+                           if steps > 1 else ends[1] - ends[0]),
+            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "params_sha256": h.hexdigest(), "_bn": bn}
+
+
+@contextlib.contextmanager
+def planted_fault(name):
+    """``name`` of DDP_FAULTS planted in this process's port while the
+    block runs: "bn_sums_unreduced" BatchNorm's sums left unreduced over the
+    global count; "bn_sums_local" each rank normalising with its own rows'
+    statistics; "grads_averaged" the gradients averaged over the ranks,
+    not summed."""
+    import m3f_torch.nn as tnn
+    import m3f_torch.train.loop as tloop
+    saved = tnn.all_sum, tnn.data_size, tloop.sum_grads
+    if name in ("bn_sums_unreduced", "bn_sums_local"):
+        tnn.all_sum = lambda *xs: xs
+    if name == "bn_sums_local":
+        tnn.data_size = lambda: 1
+    if name == "grads_averaged":
+        def averaged(grads, axis):
+            saved[2](grads, axis)
+            for g in grads:
+                g.div_(axis.size)
+        tloop.sum_grads = averaged
+    try:
+        yield
+    finally:
+        tnn.all_sum, tnn.data_size, tloop.sum_grads = saved
+
+
+def ddp_eval(torch, np, config, Trainer, data):
+    """Whole-video eval (the fused path) of a synthetic DDP_EVAL_FRAMES
+    frame video and the sequence forward of DDP_EVAL_SEQS sequences (a
+    count two ranks do not divide) through ``make_sharded_eval_forward``,
+    with ``distributed_train``'s seeded init: in a group, each rank runs its
+    share of the sequences and gathers the rest."""
+    from m3f_torch.parallel.seqpar import make_sharded_eval_forward
+    cfg = config.distributed_train()
+    tr = Trainer(cfg)
+    state = tr.init_state()
+    frames, wav = synthetic_video(np, DDP_EVAL_FRAMES, 30.0, seed=21)
+    ev = tr.evaluate_video(state, _video_dict(np, frames, wav, seed=21))
+    b = next(synthetic_stream(np, cfg, *data, seed=3)(0))
+    feed = {k: b[k][:DDP_EVAL_SEQS] for k in ("video", "wav")}
+    seq = make_sharded_eval_forward(tr.mesh, tr.make_eval_forward())(feed)
+    return {"pred": ev["pred"], "ccc": [ev["ccc_v"], ev["ccc_a"]],
+            "seq": seq.float().cpu().numpy()}
+
+
+def _bn_gaps(np, got, want):
+    """Each running mean's max |got - want| over its largest |want|
+    (reported: a mean near 0 makes it large for a rounding)."""
+    require(got.keys() == want.keys(), "BatchNorm buffers differ")
+    return {n: float(np.abs(got[n] - want[n]).max()
+                     / max(float(np.abs(want[n]).max()), 1e-30)) for n in want}
+
+
+def _bn_rel(np, got, want):
+    return max(_bn_gaps(np, got, want).values(), default=0.0)
+
+
+def batch_invariance(torch, np, config, Trainer, data):
+    """The eval forward (seeded init, running statistics: nothing mixes
+    the batch) of the first 16 sequences of ``distributed_train``'s first
+    batch, run in the batch of 32 and alone → the largest difference: how
+    far a sequence's numbers on the card depend on the batch around it."""
+    cfg = config.distributed_train()
+    tr = Trainer(cfg)
+    b = next(synthetic_stream(np, cfg, *data, seed=3)(0))
+    feed = {k: b[k] for k in ("video", "wav")}
+    half = cfg.train.batch_size // 2
+    fwd = tr.make_eval_forward()
+    with torch.no_grad():
+        whole = fwd(feed)[:half].float().cpu().numpy()
+        alone = fwd({k: v[:half] for k, v in feed.items()}).float().cpu().numpy()
+    return float(np.abs(whole - alone).max())
+
+
+def ddp_two_ranks(torch, np, cuda_lib, config, Trainer, data, repo):
+    """The same steps in this process without a group (world size 1), then
+    this script twice more as two gloo ranks on the one card (16 of the 32
+    clips each): the ranks bit-equal, each against world size 1, every
+    BatchNorm reduced. Beside it, world size 1 on the same batches with
+    their clips reversed against world size 1: how far another summation
+    order alone moves the same numbers (reported, no limit); the witness,
+    both ranks on the same 16 clips against one process on those 16, and
+    ``batch_invariance`` (reported, no limit); each
+    planted fault against world size 1, which must break a limit; sharded
+    eval against one process."""
+    one = ddp_steps(torch, np, cuda_lib, config, Trainer, data)
+    bn_one = one.pop("_bn")
+    torch.cuda.empty_cache()
+    noise = ddp_steps(torch, np, cuda_lib, config, Trainer, data,
+                      view="reversed")
+    bn_noise = noise.pop("_bn")
+    torch.cuda.empty_cache()
+    half = ddp_steps(torch, np, cuda_lib, config, Trainer, data, view="half")
+    half.pop("_bn")
+    torch.cuda.empty_cache()
+    ev_one = ddp_eval(torch, np, config, Trainer, data)
+    torch.cuda.empty_cache()
+    invariance = batch_invariance(torch, np, config, Trainer, data)
+    torch.cuda.empty_cache()
+    out = os.path.join(repo, "build", "ddp_two_ranks")
+    shutil.rmtree(out, ignore_errors=True)
+    os.makedirs(out)
+    port = str(_free_port())
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--ddp-rank", str(r),
+         port, out], cwd=repo, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True) for r in range(2)]
+    logs = []
+    try:
+        for pr in procs:
+            logs.append(pr.communicate(timeout=600)[0])
+    finally:
+        for pr in procs:
+            pr.kill()
+    dt = time.perf_counter() - t0
+    for r, (pr, log) in enumerate(zip(procs, logs)):
+        require(pr.returncode == 0, f"ddp rank {r} exit {pr.returncode}: "
+                f"{log[-3000:]}")
+    runs = [json.load(open(os.path.join(out, f"rank{r}.json")))
+            for r in range(2)]
+    bns = []
+    for r in range(2):
+        flat = np.load(os.path.join(out, f"rank{r}_bn.npz"))
+        bns.append({})
+        for k in flat.files:
+            view, name = k.split("/", 1)
+            bns[r].setdefault(view, {})[name] = flat[k]
+    a, b = runs[0]["whole"], runs[1]["whole"]
+    require(a["loss"] == b["loss"] and a["grad_norm"] == b["grad_norm"]
+            and a["params_sha256"] == b["params_sha256"],
+            f"the two ranks differ: {a} {b}")
+    require(runs[0]["backend"] == "gloo" and runs[0]["world_size"] == 2
+            and a["rows"] == 16,
+            f"rank 0: {runs[0]['backend']} {runs[0]['world_size']} {a}")
+    for rk in (a, b):
+        missing = [k for k in FORWARD_KERNELS if rk["launches"][k] < DDP_STEPS]
+        missing += [k for k in BWD_KERNELS
+                    if rk["launches"][k] != 10 * DDP_STEPS]
+        require(not missing, f"ddp rank launches {rk['launches']}")
+
+    def gaps(run, ref):
+        return (abs(run["loss"][0] - ref["loss"][0]) / abs(ref["loss"][0]),
+                abs(run["grad_norm"][0] - ref["grad_norm"][0])
+                / ref["grad_norm"][0],
+                max((abs(x - y) for x, y in zip(run["loss"][1:],
+                                                ref["loss"][1:])), default=0.0))
+
+    def within(g):
+        return (g[0] <= DDP_LOSS_RTOL and g[1] <= DDP_GNORM_RTOL
+                and g[2] <= DDP_LATER_LOSS_ATOL)
+
+    def bn_ranks_equal(view):
+        a0, a1 = bns[0][view], bns[1][view]
+        return a0.keys() == a1.keys() and all(np.array_equal(a0[k], a1[k])
+                                              for k in a0)
+
+    d = gaps(a, one)
+    n = gaps(noise, one)
+    w = gaps(runs[0]["half_twice"], half)
+    faults = {}
+    for f in DDP_FAULTS:
+        g = gaps(runs[0][f], one)
+        faults[f] = {"loss": runs[0][f]["loss"],
+                     "grad_norm": runs[0][f]["grad_norm"],
+                     "first_loss_rel_diff": g[0],
+                     "first_grad_norm_rel_diff": g[1],
+                     "bn_mean_rel_diff": _bn_rel(np, bns[0][f], bn_one),
+                     "bn_ranks_equal": bn_ranks_equal(f),
+                     "refused": not (within(g) and bn_ranks_equal(f))}
+    ev = [{k: np.asarray(v) for k, v in r["eval"].items()} for r in runs]
+    require(all(e[k].shape == ev_one[k].shape for e in ev
+                for k in ("pred", "seq")), "sharded eval shapes")
+    ev_gap = max(float(np.abs(ev[0][k] - ev_one[k]).max())
+                 for k in ("pred", "seq"))
+    # the stitch adds by index_add_, whose atomics land in any order
+    ev_ranks = float(np.abs(ev[0]["pred"] - ev[1]["pred"]).max())
+    result = {"phase": "ddp_two_ranks", "preset": "distributed_train",
+              "world_size": 2, "backend": "gloo", "rows_per_rank": a["rows"],
+              "steps": DDP_STEPS, "s": dt, "ranks": [a, b],
+              "world_size_1": one,
+              "first_loss_rel_diff": d[0], "first_grad_norm_rel_diff": d[1],
+              "later_loss_max_abs_diff": d[2],
+              "bn_ranks_equal": bn_ranks_equal("whole"),
+              "bn_mean_rel_diff": _bn_rel(np, bns[0]["whole"], bn_one),
+              "bn_mean_rel_diff_largest": sorted(
+                  _bn_gaps(np, bns[0]["whole"], bn_one).items(),
+                  key=lambda kv: -kv[1])[:4],
+              "batch_invariance_max_abs_diff": invariance,
+              "reversed_world_size_1": {
+                  "loss": noise["loss"], "grad_norm": noise["grad_norm"],
+                  "first_loss_rel_diff": n[0],
+                  "first_grad_norm_rel_diff": n[1],
+                  "later_loss_max_abs_diff": n[2],
+                  "bn_mean_rel_diff": _bn_rel(np, bn_noise, bn_one)},
+              "witness_same_16_clips": {
+                  "world_size_1": {"loss": half["loss"],
+                                   "grad_norm": half["grad_norm"]},
+                  "ranks": {"loss": runs[0]["half_twice"]["loss"],
+                            "grad_norm": runs[0]["half_twice"]["grad_norm"]},
+                  "first_loss_rel_diff": w[0],
+                  "first_grad_norm_rel_diff": w[1],
+                  "later_loss_max_abs_diff": w[2]},
+              "planted_faults": faults,
+              "eval": {"frames": DDP_EVAL_FRAMES, "seqs": DDP_EVAL_SEQS,
+                       "max_abs_diff": ev_gap,
+                       "ranks_max_abs_diff": ev_ranks,
+                       "ranks_seq_equal": bool(np.array_equal(
+                           ev[0]["seq"], ev[1]["seq"])),
+                       "ccc_ranks": ev[0]["ccc"].tolist(), "ccc_world_size_1":
+                           [float(x) for x in ev_one["ccc"]],
+                       "pred_spread": float(np.ptp(ev_one["pred"]))},
+              "tol_loss": DDP_LOSS_RTOL,
+              "tol_grad_norm": DDP_GNORM_RTOL,
+              "tol_later_loss": DDP_LATER_LOSS_ATOL,
+              "tol_eval": DDP_EVAL_ATOL}
+    require(within(d) and result["bn_ranks_equal"],
+            f"two ranks against world size 1: {result}")
+    require(w[0] <= DDP_WITNESS_LOSS_RTOL and w[1] <= DDP_WITNESS_GNORM_RTOL
+            and w[2] <= DDP_WITNESS_LATER_ATOL,
+            f"the same 16 clips on two ranks against one process: {result}")
+    require(all(f["refused"] for f in faults.values()),
+            f"a planted fault within the limits: {faults}")
+    require(result["eval"]["ranks_seq_equal"] and ev_gap <= DDP_EVAL_ATOL
+            and ev_ranks <= DDP_EVAL_ATOL, f"sharded eval: {result}")
+    emit(result)
+
+
+def ddp_rank(rank, port, out):
+    """One gloo rank of ``ddp_two_ranks`` (``chip_smoke.py --ddp-rank R
+    PORT OUT``): joins the group through the port's launcher, runs
+    ``ddp_steps`` on its rows ("whole"), on the same 16 clips as the other
+    rank ("half_twice") and, one step each, with each of DDP_FAULTS
+    planted, then ``ddp_eval``; writes ``OUT/rankR.json`` and the running
+    means ``OUT/rankR_bn.npz``."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    repo = os.path.dirname(os.path.abspath(__file__))
+    sys.path.insert(0, repo)
+    from m3f_torch import config
+    from m3f_torch.data.synthetic import SyntheticAVDataset
+    from m3f_torch.data.windowing import WindowSequencer, example_stream
+    from m3f_torch.ops import cuda_lib
+    from m3f_torch.parallel.mesh import maybe_initialize_distributed
+    from m3f_torch.train.loop import Trainer
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    data = (SyntheticAVDataset, WindowSequencer, example_stream)
+    plan = maybe_initialize_distributed(
+        {"M3F_COORDINATOR": f"127.0.0.1:{port},2,{rank}"}, device="cuda",
+        backend="gloo")
+    res, bn = {}, {}
+    try:
+        for view in ("whole", "half_twice"):
+            res[view] = ddp_steps(torch, np, cuda_lib, config, Trainer, data,
+                                  view=view)
+            torch.cuda.empty_cache()
+        for f in DDP_FAULTS:
+            with planted_fault(f):
+                res[f] = ddp_steps(torch, np, cuda_lib, config, Trainer, data,
+                                   steps=1)
+            torch.cuda.empty_cache()
+        for k in res:
+            bn.update({f"{k}/{n}": v for n, v in res[k].pop("_bn").items()})
+        ev = ddp_eval(torch, np, config, Trainer, data)
+        res["eval"] = {"pred": ev["pred"].tolist(), "seq": ev["seq"].tolist(),
+                       "ccc": [float(x) for x in ev["ccc"]]}
+        res.update(backend=dist.get_backend(), world_size=dist.get_world_size(),
+                   rank=dist.get_rank(), plan=plan.reason)
+    finally:
+        dist.destroy_process_group()
+    with open(os.path.join(out, f"rank{rank}.json"), "w") as f:
+        json.dump(res, f)
+    np.savez(os.path.join(out, f"rank{rank}_bn.npz"), **bn)
+    return 0
+
+
 def main():
     import numpy as np
     import torch
@@ -3651,7 +4176,8 @@ def main():
         from m3f_torch.data.windowing import WindowSequencer, example_stream
         from m3f_torch.infer import Predictor, PredictServer, SessionGroup
         from m3f_torch.infer.submission import write_submission
-        from m3f_torch.train.checkpoint import save_pytree, to_jax_params
+        from m3f_torch.train.checkpoint import (Checkpointer, save_pytree,
+                                                to_jax_params)
         from m3f_torch.train.loop import Trainer
         from m3f_torch.utils import profiling
         from m3f_torch import main as cli_main
@@ -3837,6 +4363,17 @@ def main():
     cli_presets(torch, np, cuda_lib, config, cli_main.main, root, repo, log_dir)
     torch.cuda.empty_cache()
     cli_debug_nans(torch, np, config, Trainer, data)
+    torch.cuda.empty_cache()
+
+    # 5c. parallel/: the reference's checkpoint layout, world size 1 over
+    # NCCL through the CLI, two gloo ranks on the one card
+    resume_jax_layout(torch, np, cuda_lib, config, Trainer, Checkpointer,
+                      data, repo)
+    torch.cuda.empty_cache()
+    ddp_train(torch, np, cuda_lib, config, cli_main.main, repo, log_dir)
+    torch.cuda.empty_cache()
+    ddp_two_ranks(torch, np, cuda_lib, config, Trainer, data, repo)
+    torch.cuda.empty_cache()
 
     # 6. the kernels line, the card line, the result line
     pallas = "m3f/pytorch_tpu/ops/pallas/"
@@ -3912,4 +4449,6 @@ def main():
 
 
 if __name__ == "__main__":
+    if len(sys.argv) == 5 and sys.argv[1] == "--ddp-rank":
+        sys.exit(ddp_rank(int(sys.argv[2]), sys.argv[3], sys.argv[4]))
     sys.exit(main())

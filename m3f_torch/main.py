@@ -20,11 +20,20 @@ it raises unless ``--device cpu`` is given.
     python -m m3f_torch.main inspect ckpt/ckpt_00001000.npz
     python -m m3f_torch.main profile ckpt/trace
 
+``train`` runs data-parallel over several processes, one a card, when the
+launch says so (``parallel/mesh.py``): ``--coordinator host:port,n,id`` (or
+``M3F_COORDINATOR``) on every process, or torchrun's environment. Each
+process feeds its own ``batch_size / n`` rows (``process_sharded_stream``),
+rank 0 writes the checkpoints, and the checkpoint directory must be shared.
+
+    torchrun --nproc_per_node 4 -m m3f_torch.main train \
+        --preset distributed_train data.root=/data/abaw
+
 Not carried over, and refused with a ``NotImplementedError`` that names
-ROADMAP: the JAX package's XLA compilation cache (``M3F_JAX_CACHE``),
-``export --format stablehlo``, and a multi-process launch (``--coordinator``,
-``M3F_COORDINATOR``, the coordinator and pod variables the JAX launcher
-reads, or a ``torch.distributed`` group of more than one process).
+ROADMAP: the JAX package's XLA compilation cache (``M3F_JAX_CACHE``) and
+``export --format stablehlo``; the JAX launchers' variables
+(``JAX_COORDINATOR_ADDRESS``, ``MEGASCALE_COORDINATOR_ADDRESS``, a
+multi-host ``TPU_WORKER_HOSTNAMES``) are refused by name.
 """
 
 from __future__ import annotations
@@ -42,6 +51,7 @@ from m3f_torch.config import ExperimentConfig, PRESETS, apply_overrides
 from m3f_torch.data.synthetic import SyntheticAVDataset
 from m3f_torch.data.windowing import (WindowSequencer, needs_dynamic_hop,
                                       process_grid, process_sharded_stream)
+from m3f_torch.parallel.mesh import maybe_initialize_distributed
 from m3f_torch.train.checkpoint import Checkpointer
 from m3f_torch.train.loop import Trainer
 from m3f_torch.utils.logging import MetricWriter, console_log
@@ -60,10 +70,6 @@ _VARIANT_COMBOS = [
 _PRESET_CHOICES = sorted(PRESETS) + [p + "+" + v
                                      for p in sorted(PRESETS)
                                      for v in _VARIANT_COMBOS]
-
-# the JAX launcher's multi-process signals (its parallel/mesh.py)
-_MULTI_PROCESS_ENV = ("M3F_COORDINATOR", "MEGASCALE_COORDINATOR_ADDRESS",
-                      "JAX_COORDINATOR_ADDRESS")
 
 
 def _parse_value(s: str):
@@ -99,24 +105,6 @@ def make_dataset(cfg: ExperimentConfig, split: str):
     return SyntheticAVDataset(cfg.data, cfg.model.mel)
 
 
-def refuse_multi_process(coordinator: str = "", env=None) -> None:
-    """Raise ``NotImplementedError`` when the launch asks for more than one
-    process: the port trains on one card until ``parallel/`` is ported."""
-    env = os.environ if env is None else env
-    signals = [f"--coordinator {coordinator}"] if coordinator else []
-    signals += [k for k in _MULTI_PROCESS_ENV if env.get(k)]
-    hosts = [h for h in env.get("TPU_WORKER_HOSTNAMES", "").split(",")
-             if h.strip()]
-    if len(hosts) > 1:
-        signals.append("TPU_WORKER_HOSTNAMES")
-    if process_grid()[1] > 1:
-        signals.append("a torch.distributed group of more than one process")
-    if signals:
-        raise NotImplementedError(
-            f"multi-process training ({', '.join(signals)}) is not ported: "
-            "the port trains on one card (ROADMAP §1: parallel/)")
-
-
 def refuse_xla_cache(env=None) -> None:
     env = os.environ if env is None else env
     if env.get("M3F_JAX_CACHE"):
@@ -128,11 +116,13 @@ def refuse_xla_cache(env=None) -> None:
 
 def train_stream(cfg: ExperimentConfig, dataset, hop_aware: bool):
     """The train input of ``cmd_train``: ``factory(skip_batches)`` → this
-    process's batches of ``dataset`` through a ``Prefetcher``. ``fit`` calls
-    it after the checkpoint restore with the restored step, so a resumed
-    run's stream fast-forwards to the exact position an uninterrupted run
-    would be at."""
+    process's batches of ``dataset`` (``batch_size / world`` rows a process
+    of the ``torch.distributed`` group, each a disjoint share of the data)
+    through a ``Prefetcher``. ``fit`` calls it after the checkpoint restore
+    with the restored step, so a resumed run's stream fast-forwards to the
+    exact position an uninterrupted run would be at."""
     from m3f_torch.data.native_loader import Prefetcher
+    world = process_grid()[1]
     seq = WindowSequencer(cfg.window, cfg.model.mel, fps=cfg.data.fps,
                           mel_frames=cfg.model.audio.mel_frames_per_window,
                           per_frame=cfg.model.per_frame,
@@ -140,7 +130,7 @@ def train_stream(cfg: ExperimentConfig, dataset, hop_aware: bool):
 
     def factory(skip_batches: int = 0):
         return Prefetcher(
-            process_sharded_stream(dataset, seq, cfg.train.batch_size,
+            process_sharded_stream(dataset, seq, cfg.train.batch_size // world,
                                    seed=cfg.train.seed,
                                    shuffle_buffer=cfg.data.shuffle_buffer,
                                    skip_batches=skip_batches,
@@ -153,8 +143,29 @@ def cmd_train(cfg: ExperimentConfig, args) -> int:
     if getattr(args, "init_from", ""):
         cfg = apply_overrides(cfg, {"model.init_from": args.init_from})
     # train.debug_nans is the config's: Trainer.fit honours it
-    refuse_multi_process(getattr(args, "coordinator", ""))
-    trainer = Trainer(cfg, device=args.device)
+    import torch.distributed as dist
+    env = dict(os.environ)
+    if getattr(args, "coordinator", ""):
+        env["M3F_COORDINATOR"] = args.coordinator
+    joined = not dist.is_initialized()
+    plan = maybe_initialize_distributed(env, device=args.device)
+    try:
+        return _train(cfg, args, plan)
+    finally:
+        # leave a group this call did not make as it was
+        if plan.initialize and joined:
+            dist.destroy_process_group()
+
+
+def _train(cfg: ExperimentConfig, args, plan) -> int:
+    rank, world = process_grid()
+    device = args.device
+    if plan.initialize:
+        print(f"distributed: {plan.reason} -> process {rank}/{world}")
+        if device == "cuda":
+            import torch
+            device = f"cuda:{torch.cuda.current_device()}"
+    trainer = Trainer(cfg, device=device)
     ds = make_dataset(cfg, "train")
     # per-video mel hop: enabled when the corpus has off-rate videos, so each
     # window's 16 mel frames track its video's 16 frames at the true rate;
@@ -386,8 +397,9 @@ def main(argv=None) -> int:
         _add_device(sp)
         if name == "train":
             sp.add_argument("--coordinator", default="",
-                            help="multi-process rendezvous of the JAX CLI; "
-                                 "not ported (raises)")
+                            help="multi-process rendezvous "
+                                 "host:port[,num_processes,process_id] "
+                                 "(sets M3F_COORDINATOR)")
             sp.add_argument("--no-eval", action="store_true",
                             help="skip periodic eval (disables best-ckpt/early stop)")
             sp.add_argument("--init-from", default="",

@@ -14,8 +14,10 @@ Counterpart of ``m3f/pytorch_tpu/models/m3f.py``:
 in place, and with ``model.dropout > 0`` inverted dropout on the fused
 features (before the BiGRU) and on the GRU output (before the head), the
 two keep masks drawn in that order from the caller's ``torch.Generator``
-by ``dropout_mask``. The reference's random stream cannot be matched; its
-masks can be fed in by replacing ``dropout_mask``. Eval ignores dropout.
+by ``dropout_mask`` (within a data-parallel step, for the global batch, of
+which each rank keeps its rows). The reference's random stream cannot be
+matched; its masks can be fed in by replacing ``dropout_mask``. Eval
+ignores dropout.
 With ``model.compute_dtype="float32"`` on the card both run inside
 ``precision()`` (``nn.full_fp32``): no TF32 in cuDNN's convs or cuBLAS's
 products, as the reference computes them in fp32.
@@ -35,6 +37,7 @@ from m3f_torch.models.gru import BiGRU
 from m3f_torch.models.r2plus1d import R2Plus1D
 from m3f_torch.nn import Dense, compute_dtype, full_fp32, resolve_device
 from m3f_torch.ops.melspec import log_mel_spectrogram
+from m3f_torch.parallel.mesh import global_rows
 
 
 def upsample_nearest(x: torch.Tensor, length: int) -> torch.Tensor:
@@ -51,6 +54,15 @@ def dropout_mask(shape, rate: float, generator: Optional[torch.Generator],
     """Keep mask of inverted dropout: ``rand < 1 - rate``, drawn from
     ``generator`` (a generator on ``device``)."""
     return torch.rand(shape, generator=generator, device=device) < 1.0 - rate
+
+
+def _keep_mask(x: torch.Tensor, rate: float,
+               generator: Optional[torch.Generator]) -> torch.Tensor:
+    """``dropout_mask`` for x's rows: within a data-parallel step drawn for
+    the global batch, of which this rank keeps its rows."""
+    n, rows = global_rows(x.shape[0])
+    return dropout_mask((n,) + tuple(x.shape[1:]), rate, generator,
+                        x.device)[rows]
 
 
 def apply_dropout(x: torch.Tensor, keep: torch.Tensor,
@@ -155,12 +167,11 @@ class M3F(nn.Module):
         fused = torch.cat(feats, dim=-1)
         rate = cfg.dropout if train else 0.0
         if rate > 0.0:
-            fused = apply_dropout(fused, dropout_mask(
-                fused.shape, rate, generator, fused.device), rate)
+            fused = apply_dropout(fused, _keep_mask(fused, rate, generator),
+                                  rate)
         seq = self.gru(fused)
         if rate > 0.0:
-            seq = apply_dropout(seq, dropout_mask(
-                seq.shape, rate, generator, seq.device), rate)
+            seq = apply_dropout(seq, _keep_mask(seq, rate, generator), rate)
         out = self.head(seq.float())
         if cfg.head_activation == "tanh":
             out = torch.tanh(out)

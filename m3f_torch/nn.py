@@ -16,6 +16,9 @@ Counterpart of ``m3f/pytorch_tpu/nn.py``.
 - **BatchNorm** is the reference's one-pass ``E[x²]−E[x]²`` form clamped at
   0 (optionally two-pass), with the normalize ``x·inv + shift`` done in the
   compute dtype — not ``nn.BatchNorm3d``, whose variance order differs.
+  Under a data-parallel train step its sums and count cover the global
+  batch (``parallel/mesh.py`` ``all_sum``), as the reference's do with the
+  batch sharded over the mesh.
 """
 
 from __future__ import annotations
@@ -28,6 +31,8 @@ from typing import Sequence, Tuple, Union
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from m3f_torch.parallel.mesh import all_sum, data_size
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
           "float16": torch.float16}
@@ -161,13 +166,15 @@ class BatchNorm(nn.Module):
         if train:
             xf = x.float()
             axes = tuple(range(x.ndim - 1))
-            n = float(math.prod(x.shape[:-1]))
-            mean = xf.sum(axes) / n
+            n = float(math.prod(x.shape[:-1])) * data_size()
             if self.two_pass:
+                mean = all_sum(xf.sum(axes))[0] / n
                 d = xf - mean
-                var = (d * d).sum(axes) / n
+                var = all_sum((d * d).sum(axes))[0] / n
             else:
-                var = torch.clamp((xf * xf).sum(axes) / n - mean * mean, min=0.0)
+                s1, s2 = all_sum(xf.sum(axes), (xf * xf).sum(axes))
+                mean = s1 / n
+                var = torch.clamp(s2 / n - mean * mean, min=0.0)
             with torch.no_grad():
                 self._update(mean, var, n)
         else:
@@ -179,9 +186,11 @@ class BatchNorm(nn.Module):
                           count: float, train: bool = False
                           ) -> Tuple[torch.Tensor, torch.Tensor]:
         """Per-channel (inv, shift) from a conv epilogue's channel sums
-        ``s1 = Σy``, ``s2 = Σy²`` (train), or from the running statistics
-        (eval, where the sums are not read)."""
+        ``s1 = Σy``, ``s2 = Σy²`` over ``count`` positions (train), or from
+        the running statistics (eval, where the sums are not read)."""
         if train:
+            s1, s2 = all_sum(s1, s2)
+            count = count * data_size()
             mean = s1 / count
             var = torch.clamp(s2 / count - mean * mean, min=0.0)
             with torch.no_grad():

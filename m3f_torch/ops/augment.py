@@ -20,6 +20,8 @@ from typing import Optional, Tuple
 
 import torch
 
+from m3f_torch.parallel.mesh import global_rows
+
 
 def augment_draws(b: int, *, flip_prob: float, brightness: float,
                   contrast: float, generator: Optional[torch.Generator],
@@ -60,9 +62,14 @@ def augment_clips(video: torch.Tensor, *, flip_prob: float = 0.5,
                   generator: Optional[torch.Generator] = None
                   ) -> torch.Tensor:
     """Augment a [B, W, L, H, W', 3] batch with draws from ``generator`` (a
-    generator on the batch's device; None: the global stream)."""
+    generator on the batch's device; None: the global stream). Within a
+    data-parallel step the draws are the global batch's, and this rank
+    keeps its rows, so the ranks draw what one process draws for the whole
+    batch."""
+    n, rows = global_rows(video.shape[0])
     flip, scale, shift = augment_draws(
-        video.shape[0], flip_prob=flip_prob, brightness=brightness,
+        n, flip_prob=flip_prob, brightness=brightness,
         contrast=contrast, generator=generator, device=video.device)
-    return apply_augment(video, flip, scale, shift, brightness=brightness,
-                         contrast=contrast, compute_dtype=compute_dtype)
+    return apply_augment(video, flip[rows], scale[rows], shift[rows],
+                         brightness=brightness, contrast=contrast,
+                         compute_dtype=compute_dtype)

@@ -10,6 +10,12 @@ with population (1/N) moments accumulated in fp32; the loss is
 moments from sufficient statistics, with the reference's clamps: variances
 at 0 and the covariance clipped to the Cauchy–Schwarz bound, whose gradient
 is stopped (``detach``). The host-side pooled statistics are numpy fp64.
+
+Within a data-parallel train step (``parallel/mesh.py`` ``data_parallel``)
+a reduction over the batch axis sums over the ranks, so the loss is the
+one-device loss of the global batch on every rank: the statistics pass
+their gradient through (``replicated_sum``), and the two-pass means, used
+on each rank's own rows, sum theirs (``spread``).
 """
 
 from __future__ import annotations
@@ -18,6 +24,9 @@ from typing import Optional, Sequence, Union
 
 import numpy as np
 import torch
+
+from m3f_torch.parallel.mesh import (active_axis, data_size, replicated_sum,
+                                     spread)
 
 Axis = Union[None, int, Sequence[int]]
 
@@ -29,16 +38,36 @@ def _norm_axes(axis: Axis, ndim: int):
     return tuple(a % ndim for a in axes)
 
 
+def _global(axes) -> bool:
+    """Whether a reduction over ``axes`` spans the batch of a data-parallel
+    step (axis 0 under an active data axis), and so sums over the ranks."""
+    return 0 in axes and active_axis() is not None
+
+
+def _count(shape, axes) -> float:
+    """The element count of a reduction over ``axes`` (over every rank's
+    rows when it is global)."""
+    n = float(np.prod([shape[a] for a in axes]))
+    return n * data_size() if _global(axes) else n
+
+
 def masked_mean(x: torch.Tensor, mask: Optional[torch.Tensor], axis: Axis,
                 eps: float = 1e-12) -> torch.Tensor:
     """Mean of ``x`` over ``axis`` counting only elements where ``mask`` is
-    true (``mask`` broadcasts against ``x``); 0 with no valid element."""
+    true (``mask`` broadcasts against ``x``); 0 with no valid element.
+    Within a data-parallel step, a mean over the batch covers every rank's
+    rows (``replicated_sum``: every rank computes the loss alike)."""
     x = x.float()
     axes = _norm_axes(axis, x.dim())
     if mask is None:
-        return x.mean(dim=axes)
+        if not _global(axes):
+            return x.mean(dim=axes)
+        return replicated_sum(x.sum(dim=axes))[0] / _count(x.shape, axes)
     m = torch.broadcast_to(mask.float(), x.shape)
-    return (x * m).sum(dim=axes) / torch.clamp_min(m.sum(dim=axes), eps)
+    num, den = (x * m).sum(dim=axes), m.sum(dim=axes)
+    if _global(axes):
+        num, den = replicated_sum(num, den)
+    return num / torch.clamp_min(den, eps)
 
 
 def ccc(pred: torch.Tensor, target: torch.Tensor,
@@ -50,22 +79,28 @@ def ccc(pred: torch.Tensor, target: torch.Tensor,
     axes = _norm_axes(axis, pred.dim())
     if one_pass:
         if mask is None:
-            cnt = torch.tensor(float(np.prod([pred.shape[a] for a in axes])),
-                               device=pred.device)
+            cnt = torch.tensor(_count(pred.shape, axes), device=pred.device)
 
             def sum_(v):
                 return v.sum(dim=axes)
         else:
             m = torch.broadcast_to(mask.float(), pred.shape)
-            cnt = torch.clamp_min(m.sum(dim=axes), 1e-12)
 
             def sum_(v):
                 return (v * m).sum(dim=axes)
-        mu_p = sum_(pred) / cnt
-        mu_t = sum_(target) / cnt
-        cov = sum_(pred * target) / cnt - mu_p * mu_t
-        var_p = torch.clamp_min(sum_(pred * pred) / cnt - mu_p * mu_p, 0.0)
-        var_t = torch.clamp_min(sum_(target * target) / cnt - mu_t * mu_t, 0.0)
+        sums = (sum_(pred), sum_(target), sum_(pred * target),
+                sum_(pred * pred), sum_(target * target))
+        if mask is not None:
+            sums += (m.sum(dim=axes),)
+        if _global(axes):
+            sums = replicated_sum(*sums)
+        if mask is not None:
+            cnt = torch.clamp_min(sums[5], 1e-12)
+        mu_p = sums[0] / cnt
+        mu_t = sums[1] / cnt
+        cov = sums[2] / cnt - mu_p * mu_t
+        var_p = torch.clamp_min(sums[3] / cnt - mu_p * mu_p, 0.0)
+        var_t = torch.clamp_min(sums[4] / cnt - mu_t * mu_t, 0.0)
         # the bound's gradient is stopped: sqrt has infinite slope at zero
         # variance, exactly where the clamp is needed
         cs = torch.sqrt(var_p * var_t).detach()
@@ -76,8 +111,11 @@ def ccc(pred: torch.Tensor, target: torch.Tensor,
     shape = list(pred.shape)
     for a in axes:
         shape[a] = 1
-    dp = pred - mu_p.reshape(shape)
-    dt = target - mu_t.reshape(shape)
+    # the means are replicated: where they meet this rank's rows their
+    # gradient sums over the ranks, where they enter the CCC it does not
+    lp, lt = (spread(mu_p), spread(mu_t)) if _global(axes) else (mu_p, mu_t)
+    dp = pred - lp.reshape(shape)
+    dt = target - lt.reshape(shape)
     cov = masked_mean(dp * dt, mask, axes)
     var_p = masked_mean(dp * dp, mask, axes)
     var_t = masked_mean(dt * dt, mask, axes)

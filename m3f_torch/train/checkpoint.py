@@ -6,14 +6,23 @@ Counterpart of ``m3f/pytorch_tpu/train/checkpoint.py``. A checkpoint is one
 the model, so the JAX package's ``load_model_checkpoint`` serves a
 port-trained checkpoint: ``.params/…``, ``.bn_state/…``, ``.ema/…`` (EMA on),
 ``.step`` and ``.lr_mult`` (plateau schedule), each leaf in the reference's
-layout (``to_jax_params``). The optimizer state is the port's own
-(``train/optim.py``) under ``.opt_state/…``, tagged in the meta; a JAX-written
-optimizer state cannot be resumed and is refused, never replaced by fresh
-moments. ``Checkpointer`` writes atomically (mkstemp + ``os.replace``),
-keeps the last K, writes asynchronously (a snapshot on the device, fetched
-and written on a thread), resumes from the newest usable file (a corrupt one
-falls back to an older one; a config-hash mismatch aborts), keeps the best
-by eval CCC and saves on SIGTERM.
+layout (``to_jax_params``). The optimizer state (``train/optim.py``) is
+written under ``.opt_state/…`` in the layout of the reference's optax chain
+(``_optax_leaves``: Adam's ``1/0/.count``, ``.mu/…``, ``.nu/…``, SGD's
+``1/0/.trace/…``, the schedule count, ``MultiSteps``' ``.mini_step``,
+``.gradient_step``, ``.acc_grads/…`` and ``.inner_opt_state/…``; moments of
+conv kernels transposed as the kernels are), so the JAX package's
+``Checkpointer`` resumes a port-written run and the port resumes a
+JAX-written one. Files of the port's earlier layout (meta ``opt_layout``
+``m3f_torch/1``) still resume. ``Checkpointer`` writes atomically (mkstemp +
+``os.replace``), keeps the last K, writes asynchronously (a snapshot on the
+device, fetched and written on a thread), resumes from the newest usable
+file (a corrupt one falls back to an older one; a config-hash mismatch, an
+unknown layout and a key set that fits neither layout abort), keeps the best
+by eval CCC and saves on SIGTERM. In a ``torch.distributed`` group only
+rank 0 writes, prunes and saves on SIGTERM, and every rank reads (the
+checkpoint directory must be shared), then checks that all restored the
+same step.
 
 The load side reads a JAX checkpoint with numpy alone:
 ``read_model_checkpoint(path)`` gives the port's ``state_dict`` and step
@@ -44,15 +53,19 @@ import tempfile
 import threading
 import weakref
 from dataclasses import dataclass, field, replace
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, Iterator, Optional, Tuple
 
 import numpy as np
 import torch
 
 from m3f_torch.config import ExperimentConfig
+from m3f_torch.parallel.mesh import agree, barrier, world_axis
 
-# meta tag of the port's optimizer-state layout (train/optim.py)
-OPT_LAYOUT = "m3f_torch/1"
+# meta tag of the optimizer-state layout written here: the reference's optax
+# chain (the JAX package tags nothing, and an untagged file is read so)
+OPT_LAYOUT = "optax"
+# the port's earlier layout (train/optim.py's nested dicts), still read
+OWN_LAYOUT = "m3f_torch/1"
 
 
 def _flatten(tree: Any, prefix: str = "") -> Dict[str, np.ndarray]:
@@ -252,6 +265,27 @@ def load_pretrained_init(state_dict: Dict[str, torch.Tensor],
     return out
 
 
+def _kernel_perm(nd: int, to_jax: bool) -> tuple:
+    """The permutation of a conv kernel's axes: [O, I, *k] → [*k, I, O]
+    (``to_jax``) or back."""
+    return tuple(range(2, nd)) + (1, 0) if to_jax \
+        else (nd - 1, nd - 2) + tuple(range(nd - 2))
+
+
+def _is_conv(name: str, ndim: int) -> bool:
+    """Whether a port tensor is a conv ``weight`` (4-D or 5-D)."""
+    return name.split(".")[-1] == "weight" and ndim >= 4
+
+
+def _jax_name(name: str, ndim: int) -> str:
+    """The reference path of a port tensor name: ``/``-joined, a conv
+    ``weight`` named ``kernel``."""
+    parts = name.split(".")
+    if _is_conv(name, ndim):
+        parts[-1] = "kernel"
+    return "/".join(parts)
+
+
 def to_jax_params(tensors: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:
     """The inverse of ``_convert``: the port's names → ``/``-joined reference
     paths, conv ``weight`` [O, I, *k] → ``kernel`` [*k, I, O], every other
@@ -259,12 +293,9 @@ def to_jax_params(tensors: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:
     out: Dict[str, np.ndarray] = {}
     for name, t in tensors.items():
         v = t.detach().cpu().numpy() if isinstance(t, torch.Tensor) else np.asarray(t)
-        parts = name.split(".")
-        if parts[-1] == "weight" and v.ndim >= 4:
-            nd = v.ndim
-            v = v.transpose(tuple(range(2, nd)) + (1, 0))
-            parts[-1] = "kernel"
-        out["/".join(parts)] = np.ascontiguousarray(v, dtype=np.float32)
+        if _is_conv(name, v.ndim):
+            v = v.transpose(_kernel_perm(v.ndim, True))
+        out[_jax_name(name, v.ndim)] = np.ascontiguousarray(v, dtype=np.float32)
     return out
 
 
@@ -297,7 +328,8 @@ def load_meta(path: str) -> dict:
 
 
 def _flatten_opt(tree: Any, prefix: str = ".opt_state") -> Dict[str, Any]:
-    """The optimizer state's nested dicts → {".opt_state/a/b": leaf}."""
+    """The optimizer state's nested dicts → {".opt_state/a/b": leaf} (the
+    port's earlier layout, ``OWN_LAYOUT``)."""
     if isinstance(tree, dict):
         out: Dict[str, Any] = {}
         for k, v in tree.items():
@@ -306,17 +338,72 @@ def _flatten_opt(tree: Any, prefix: str = ".opt_state") -> Dict[str, Any]:
     return {prefix: tree}
 
 
-def _snapshot(state, clone: bool) -> Dict[str, Any]:
-    """The state's leaves by checkpoint key, still in the port's layout and
-    on their device (copies when ``clone``); converted by ``_to_arrays``."""
+def _optax_leaves(opt: dict, adamw: bool) -> Iterator[Tuple[str, tuple]]:
+    """(key under ``.opt_state/``, path into ``opt``) of every leaf that the
+    reference's optax chain keeps for the optimizer whose port state is
+    ``opt``: ``clip_by_global_norm`` (no leaves) → adam / adamw
+    (``scale_by_adam``: count, mu, nu) or sgd (``trace``) → the schedule's
+    count where the learning rate is scheduled (slot 2 under adamw, whose
+    ``add_decayed_weights`` takes slot 1) → the lr_scale and freeze masks
+    (no leaves), all under ``MultiSteps`` when accumulating. The port's SGD
+    count has no leaf (optax's trace counts nothing)."""
+    if "mini_step" in opt:
+        yield ".mini_step", ("mini_step",)
+        yield ".gradient_step", ("gradient_step",)
+        for n, t in opt["acc"].items():
+            yield f".acc_grads/{_jax_name(n, t.dim())}", ("acc", n)
+        inner, pre, base = opt["inner"], ".inner_opt_state/1/", ("inner",)
+    else:
+        inner, pre, base = opt, "1/", ()
+    if "mu" in inner:
+        yield pre + "0/.count", base + ("count",)
+        groups: Tuple[str, ...] = ("mu", "nu")
+    else:
+        groups = ("trace",)
+    for g in groups:
+        for n, t in inner[g].items():
+            yield f"{pre}0/.{g}/{_jax_name(n, t.dim())}", base + (g, n)
+    if "schedule_count" in inner:
+        yield f"{pre}{2 if adamw else 1}/.count", base + ("schedule_count",)
+
+
+def _leaf(tree: dict, path: tuple):
+    for p in path:
+        tree = tree[p]
+    return tree
+
+
+def _optax_snapshot(opt: dict, adamw: bool, cp) -> Dict[str, Any]:
+    """{".opt_state/<optax key>": leaf} of ``opt`` (tensors through ``cp``;
+    conv moments as permuted views, in the reference's axis order)."""
+    out: Dict[str, Any] = {}
+    for key, path in _optax_leaves(opt, adamw):
+        v = _leaf(opt, path)
+        if isinstance(v, torch.Tensor):
+            v = cp(v)
+            if _is_conv(path[-1], v.dim()):
+                v = v.permute(_kernel_perm(v.dim(), True))
+        out[".opt_state/" + key] = v
+    return out
+
+
+def _file_adamw(opt: dict, data: Dict[str, np.ndarray]) -> bool:
+    """Whether a file's schedule count sits at adamw's slot."""
+    pre = ".opt_state/.inner_opt_state/1/" if "mini_step" in opt \
+        else ".opt_state/1/"
+    return pre + "2/.count" in data
+
+
+def _snapshot(state, clone: bool, adamw: bool) -> Dict[str, Any]:
+    """The state's leaves by checkpoint key, still on their device (copies
+    when ``clone``); converted by ``_to_arrays``."""
     cp = (lambda t: t.detach().clone()) if clone else (lambda t: t.detach())
     snap: Dict[str, Any] = {"params": {n: cp(t) for n, t in state.params.items()},
                             "bn_state": {n: cp(t) for n, t in state.bn_state.items()},
                             "ema": None if state.ema is None else
                             {n: cp(t) for n, t in state.ema.items()},
                             "step": int(state.step), "lr_mult": state.lr_mult}
-    snap["opt"] = {k: cp(v) if isinstance(v, torch.Tensor) else v
-                   for k, v in _flatten_opt(state.opt_state).items()}
+    snap["opt"] = _optax_snapshot(state.opt_state, adamw, cp)
     return snap
 
 
@@ -327,22 +414,66 @@ def _to_arrays(snap: Dict[str, Any]) -> Dict[str, np.ndarray]:
             for k, v in to_jax_params(snap[group]).items():
                 out[f".{group}/{k}"] = v
     for k, v in snap["opt"].items():
-        out[k] = v.cpu().numpy() if isinstance(v, torch.Tensor) \
-            else np.asarray(v, np.int32)
+        out[k] = np.ascontiguousarray(v.cpu().numpy()) \
+            if isinstance(v, torch.Tensor) else np.asarray(v, np.int32)
     out[".step"] = np.asarray(snap["step"], np.int32)
     if snap["lr_mult"] is not None:
         out[".lr_mult"] = np.asarray(snap["lr_mult"], np.float32)
     return out
 
 
-def _restore(state, data: Dict[str, np.ndarray], path: str) -> None:
+def _model_keys(state) -> set:
+    keys = {".step"} | ({".lr_mult"} if state.lr_mult is not None else set())
+    for group in ("params", "bn_state", "ema"):
+        tensors = getattr(state, group)
+        if tensors is not None:
+            keys |= {f".{group}/{_jax_name(n, t.dim())}"
+                     for n, t in tensors.items()}
+    return keys
+
+
+def _fill_optax(opt: dict, data: Dict[str, np.ndarray], adamw: bool,
+                step: int, path: str) -> None:
+    """Copy a file's optax leaves into the port's state ``opt`` in place
+    (counts as ints); SGD's count, which optax does not keep, becomes the
+    number of updates applied."""
+    for key, at in _optax_leaves(opt, adamw):
+        v = data[".opt_state/" + key]
+        cur = _leaf(opt, at)
+        if not isinstance(cur, torch.Tensor):
+            _leaf(opt, at[:-1])[at[-1]] = int(np.asarray(v))
+            continue
+        t = torch.from_numpy(np.asarray(v, np.float32))
+        if key.endswith("/kernel") and t.dim() >= 4:
+            t = t.permute(_kernel_perm(t.dim(), False))
+        if tuple(t.shape) != tuple(cur.shape):
+            raise ValueError(f"checkpoint {path}: optimizer leaf {key} has "
+                             f"shape {tuple(np.shape(v))}, the state's "
+                             f"{'/'.join(map(str, at))} {tuple(cur.shape)}")
+        cur.copy_(t)
+    inner = opt.get("inner", opt)
+    if "trace" in inner:
+        inner["count"] = inner.get(
+            "schedule_count", opt["gradient_step"] if "inner" in opt else step)
+
+
+def _restore(state, data: Dict[str, np.ndarray], path: str,
+             layout: str) -> None:
     """Copy a checkpoint's leaves into ``state`` in place (same device and
-    tensors); raise on any missing or extra leaf."""
-    want = set(_to_arrays(_snapshot(state, clone=False)))
-    have = set(data)
+    tensors); raise ``ValueError`` naming the missing and extra leaves when
+    the file's keys are not the state's in ``layout``."""
+    adamw = _file_adamw(state.opt_state, data)
+    if layout == OWN_LAYOUT:
+        opt_keys = set(_flatten_opt(state.opt_state))
+    else:
+        opt_keys = {".opt_state/" + k
+                    for k, _ in _optax_leaves(state.opt_state, adamw)}
+    want, have = _model_keys(state) | opt_keys, set(data)
     if want != have:
-        raise ValueError(f"checkpoint {path} does not fit the state: missing="
-                         f"{sorted(want - have)[:5]} extra={sorted(have - want)[:5]}")
+        raise ValueError(
+            f"checkpoint {path} ({layout} optimizer layout) does not fit the "
+            f"state: missing={sorted(want - have)[:5]} "
+            f"extra={sorted(have - want)[:5]}")
     for group in ("params", "bn_state", "ema"):
         tensors = getattr(state, group)
         if tensors is None:
@@ -351,6 +482,12 @@ def _restore(state, data: Dict[str, np.ndarray], path: str) -> None:
                          if k.startswith(f".{group}/")})
         for n, t in tensors.items():
             t.data.copy_(conv[n].reshape(t.shape))
+    state.step = int(data[".step"])
+    if state.lr_mult is not None:
+        state.lr_mult = float(data[".lr_mult"])
+    if layout != OWN_LAYOUT:
+        _fill_optax(state.opt_state, data, adamw, state.step, path)
+        return
 
     def fill(tree, prefix):
         for k, v in tree.items():
@@ -362,9 +499,6 @@ def _restore(state, data: Dict[str, np.ndarray], path: str) -> None:
             else:
                 tree[k] = int(data[key])
     fill(state.opt_state, ".opt_state")
-    state.step = int(data[".step"])
-    if state.lr_mult is not None:
-        state.lr_mult = float(data[".lr_mult"])
 
 
 _LIVE_CHECKPOINTERS: "weakref.WeakSet[Checkpointer]" = weakref.WeakSet()
@@ -391,6 +525,9 @@ class Checkpointer:
     def __post_init__(self):
         global _ATEXIT_INSTALLED
         os.makedirs(self.directory, exist_ok=True)
+        # the trainer's optimizer config, when ``cfg`` is None: learned in
+        # maybe_restore(state, trainer)
+        self._optim = None
         self._writer: Optional[threading.Thread] = None
         self._writer_error: Optional[tuple] = None     # (path, exception)
         _LIVE_CHECKPOINTERS.add(self)
@@ -420,6 +557,32 @@ class Checkpointer:
 
     # -- save ---------------------------------------------------------------
 
+    @staticmethod
+    def _primary() -> bool:
+        """Only rank 0 writes: the state is replicated, so every rank's
+        write would be the same file, and keep-K prunes would interleave.
+        Every rank reads (``maybe_restore``), so the directory must be
+        shared storage."""
+        return world_axis().rank == 0
+
+    def _adamw(self, opt: dict) -> bool:
+        """Whether the optimizer is adamw, whose schedule count takes slot
+        2 of the optax chain; only an Adam state with a schedule count
+        needs the config to tell."""
+        optim = self.cfg.train.optim if self.cfg is not None else self._optim
+        if optim is not None:
+            return optim.optimizer == "adam" and bool(optim.weight_decay)
+        inner = opt.get("inner", opt)
+        if "mu" in inner and "schedule_count" in inner:
+            raise ValueError(
+                "a scheduled Adam state is written at adam's or adamw's slot "
+                "of the optax chain: give the Checkpointer the config "
+                "(cfg=...) or restore through it first")
+        return False
+
+    def _snap(self, state, clone: bool) -> Dict[str, Any]:
+        return _snapshot(state, clone, self._adamw(state.opt_state))
+
     def _meta(self, step: int) -> dict:
         meta = {"step": step, "opt_layout": OPT_LAYOUT}
         if self.cfg is not None:
@@ -431,7 +594,9 @@ class Checkpointer:
         """Write ``state`` now (after any write in flight) and prune."""
         self.wait()
         path = self._path(int(state.step))
-        save_pytree(_to_arrays(_snapshot(state, clone=False)), path,
+        if not self._primary():
+            return path
+        save_pytree(_to_arrays(self._snap(state, clone=False)), path,
                     self._meta(int(state.step)))
         self._prune()
         return path
@@ -442,18 +607,23 @@ class Checkpointer:
         write in flight at a time."""
         self.wait()
         path = self._path(int(state.step))
-        self._start_writer(_snapshot(state, clone=True), path,
+        if not self._primary():
+            return path
+        self._start_writer(self._snap(state, clone=True), path,
                            self._meta(int(state.step)), prune=True)
         return path
 
     def save_best(self, state, metric: float) -> str:
         """best.npz, written like ``save_async``."""
         self.wait()
+        if not self._primary():
+            return self.best_path()
         meta = {"step": int(state.step), "metric": float(metric),
                 "opt_layout": OPT_LAYOUT}
         if self.cfg is not None:
             meta["config_hash"] = self.cfg.config_hash()
-        self._start_writer(_snapshot(state, clone=True), self.best_path(), meta)
+        self._start_writer(self._snap(state, clone=True), self.best_path(),
+                           meta)
         return self.best_path()
 
     def _start_writer(self, snap, path: str, meta: dict,
@@ -497,7 +667,13 @@ class Checkpointer:
     def seed_from(self, path: str) -> None:
         """Copy a full-state checkpoint into this directory under its own
         step, so ``maybe_restore`` resumes from it; ignored (with a notice)
-        when the directory already holds checkpoints."""
+        when the directory already holds checkpoints. In a process group
+        rank 0 copies, and every rank waits for it."""
+        if self._primary():
+            self._seed(path)
+        barrier(world_axis())
+
+    def _seed(self, path: str) -> None:
         if self.all_steps():
             print(f"resume-from {path} ignored: {self.directory} already has "
                   "checkpoints (auto-resume from the newest takes precedence)")
@@ -517,14 +693,27 @@ class Checkpointer:
 
     def maybe_restore(self, state, trainer=None):
         """Resume ``state`` in place from the newest usable checkpoint and
-        return it (as is when there is none). A corrupt or partial file
-        falls back to an older one; a config-hash mismatch and a
-        JAX-written optimizer state raise instead."""
-        del trainer       # the state is restored onto its own devices
+        return it (as is when there is none). A corrupt file (one that does
+        not load) falls back to an older one; a config-hash mismatch, an
+        optimizer layout other than ``OPT_LAYOUT`` (or none: the JAX
+        package's files) and ``OWN_LAYOUT``, and a key set that does not fit
+        the state raise instead. ``trainer`` gives the optimizer config
+        later saves write by, when the checkpointer has none. In a process
+        group every rank reads, then all check they restored one step."""
+        if trainer is not None and self.cfg is None:
+            self._optim = trainer.cfg.train.optim
+        self._restore_newest(state)
+        agree(int(state.step), world_axis(),
+              f"the step restored from {self.directory}")
+        return state
+
+    def _restore_newest(self, state) -> None:
         for step in reversed(self.all_steps()):
             p = self._path(step)
             try:
                 meta = load_meta(p)
+                with np.load(p) as z:
+                    data = {k: z[k] for k in z.files if k != "__meta__"}
             except Exception as e:     # noqa: BLE001 — corrupt file: try older
                 print(f"checkpoint {p} unusable ({e}); trying older")
                 continue
@@ -536,22 +725,15 @@ class Checkpointer:
                     f"{self.cfg.config_hash()}). Refusing to resume silently "
                     "— point checkpoint_dir at a fresh directory or restore "
                     "the original config.")
-            if meta.get("opt_layout") != OPT_LAYOUT:
-                raise NotImplementedError(
-                    f"checkpoint {p} holds an optimizer state the port cannot "
-                    f"resume (layout {meta.get('opt_layout')!r}, not "
-                    f"{OPT_LAYOUT!r}: written by the JAX package?). Resuming "
-                    "a JAX optimizer state is not ported; load its weights "
-                    "into Trainer.model and start a fresh run directory")
-            try:
-                with np.load(p) as z:
-                    data = {k: z[k] for k in z.files if k != "__meta__"}
-                _restore(state, data, p)
-            except Exception as e:     # noqa: BLE001 — corrupt file: try older
-                print(f"checkpoint {p} unusable ({e}); trying older")
-                continue
-            return state
-        return state
+            layout = meta.get("opt_layout", OPT_LAYOUT)
+            if layout not in (OPT_LAYOUT, OWN_LAYOUT):
+                raise ValueError(
+                    f"checkpoint {p} holds an optimizer state of layout "
+                    f"{layout!r}, which is neither the optax chain's "
+                    f"({OPT_LAYOUT!r}, or no tag: the JAX package's) nor "
+                    f"{OWN_LAYOUT!r}")
+            _restore(state, data, p, layout)
+            return
 
     # -- preemption -----------------------------------------------------------
 

@@ -53,6 +53,19 @@ Counterpart of ``m3f/pytorch_tpu/train/loop.py``:
   (``ops/conv_bn.py``, ``csrc/conv_bn_f32.cu``), so
   ``model.compute_dtype="float32"`` trains on the card as bf16 does.
 
+- **Data parallelism** (``train.mesh.num_data``; ``parallel/mesh.py``):
+  in a ``torch.distributed`` group each process is one rank of the data
+  axis and trains on its rows of the global batch (``train_step`` and
+  ``fit`` take this process's rows, as the reference's multi-process step
+  takes each process's local shard). Rank 0's initial state is broadcast;
+  BatchNorm's and the loss's statistics cover the global batch; the
+  augmentation and dropout draws are the global batch's; the gradients are
+  summed over the ranks before the clip, so the optimizer, EMA and
+  ``lr_mult`` stay replicated and a step equals the one-process step on the
+  whole batch. The whole-video eval splits a video's W-window sequences
+  over the ranks and gathers the predictions back (``parallel/seqpar.py``),
+  so every rank gets the same evals and best-checkpoint choices.
+
 ``make_eval_forward`` is the streaming sessions' group forward (a host
 feed of W-window sequences → per-frame predictions). ``fit`` traces steps
 start+2 to start+12 into ``train.profile_dir`` (``utils/profiling.trace``)
@@ -63,6 +76,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import math
 import time
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
@@ -78,13 +92,12 @@ from m3f_torch.ops.ccc import (ccc, ccc_from_stats, ccc_loss,
 from m3f_torch.ops.stitch import (coverage_matrix, smooth_moving_average,
                                   stitch_framewise, stitch_framewise_sums,
                                   window_starts)
+from m3f_torch.parallel.mesh import (broadcast_, create_mesh, data_parallel,
+                                     sum_grads)
+from m3f_torch.parallel.seqpar import make_sharded_eval_forward
 from m3f_torch.train.checkpoint import load_pretrained_init
 from m3f_torch.train.optim import global_norm, make_optimizer
 from m3f_torch.utils.profiling import trace
-
-# window-count granularity of a dispatch, in W-window sequences: the
-# reference's 8·n_data/gcd(8, n_data) with one data device
-_SEQ_BUCKET = 8
 
 Tensors = Dict[str, torch.Tensor]
 
@@ -190,28 +203,6 @@ def _nan_guard(step: int):
                 f"{e}") from e
 
 
-def _check_mesh(mesh) -> None:
-    """Refuses a ``train.mesh`` this package cannot build, as the JAX
-    package's ``create_mesh`` does: ``num_data`` rows of devices beyond the
-    devices of the process group (one without a ``torch.distributed``
-    group), and any ``num_model`` above 1, since tensor parallelism is not
-    ported (ROADMAP §1, ``parallel/``). ``num_data`` -1 takes every device."""
-    from m3f_torch.data.windowing import process_grid
-    if mesh.num_model > 1:
-        raise NotImplementedError(
-            f"train.mesh.num_model={mesh.num_model}: tensor parallelism is "
-            "not ported (ROADMAP §1, parallel/); use num_model=1")
-    if mesh.num_data == -1:
-        return
-    if mesh.num_data < 1:
-        raise ValueError(f"train.mesh.num_data must be -1 or at least 1, got "
-                         f"{mesh.num_data}")
-    n = process_grid()[1]
-    if mesh.num_data > n:
-        raise ValueError(f"mesh {mesh.num_data}x{mesh.num_model} needs "
-                         f"{mesh.num_data} devices, have {n}")
-
-
 class Trainer:
     """Owns the model (seeded from ``train.seed``), trains it and evaluates
     whole videos. ``device="cuda"`` (default) raises without a GPU; the
@@ -231,7 +222,14 @@ class Trainer:
                 f"window.window_frames={cfg.window.window_frames} but "
                 f"model.frames_per_window={cfg.model.frames_per_window} — "
                 "these must match")
-        _check_mesh(cfg.train.mesh)
+        # the data axis over the processes of the torch.distributed group
+        # (one process without one); a mesh it cannot build is refused
+        self.mesh = create_mesh(cfg.train.mesh.num_data,
+                                cfg.train.mesh.num_model)
+        if cfg.train.batch_size % self.mesh.size:
+            raise ValueError(
+                f"train.batch_size={cfg.train.batch_size} must be divisible "
+                f"by the {self.mesh.size} processes of the data axis")
         self.cfg = cfg
         self.device = resolve_device(device)
         self.model = M3F(cfg.model, device=self.device,
@@ -268,6 +266,9 @@ class Trainer:
             if init_from:
                 sd = load_pretrained_init(sd, init_from)
             self.model.load_state_dict(sd)
+        # every rank starts from rank 0's weights
+        broadcast_([t.data for t in self.model.state_dict().values()],
+                   self.mesh)
         params = dict(self.model.named_parameters())
         ema = ({n: p.detach().clone() for n, p in params.items()}
                if self.cfg.train.ema_decay > 0 else None)
@@ -337,27 +338,40 @@ class Trainer:
         ``state``. Returns the metrics as 0-d device tensors (reading them
         waits for the step). With ``data.augment`` the video is augmented
         on the device, and with ``model.dropout > 0`` the forward drops
-        out, each from a generator seeded from the step (module doc)."""
+        out, each from a generator seeded from the step (module doc). In a
+        process group ``batch`` is this process's rows of the global batch
+        (``parallel.mesh.local_rows``), and the step is the one-process
+        step on the global batch (module doc)."""
         tcfg, dcfg = self.cfg.train, self.cfg.data
         batch = {k: v if isinstance(v, torch.Tensor) else self._to_device(v)
                  for k, v in batch.items()}
-        if dcfg.augment and "video" in batch:
-            batch["video"] = augment_clips(
-                batch["video"], flip_prob=dcfg.aug_flip_prob,
-                brightness=dcfg.aug_brightness, contrast=dcfg.aug_contrast,
-                compute_dtype=self.model.dtype,
-                generator=self._step_generator(tcfg.seed, state.step))
-        drop_gen = (self._step_generator(tcfg.seed ^ 0x5eed, state.step)
-                    if self.cfg.model.dropout > 0.0 else None)
         names = list(state.params)
         step = state.step + 1
-        with (_nan_guard(step) if tcfg.debug_nans else contextlib.nullcontext()), \
-                self.model.precision():
-            loss, preds = self._loss_fn(batch, drop_gen)
-            grads = torch.autograd.grad(loss, [state.params[n] for n in names],
-                                        allow_unused=True)
-        grads = {n: torch.zeros_like(state.params[n]) if g is None else g
-                 for n, g in zip(names, grads)}
+        with data_parallel(self.mesh):
+            if dcfg.augment and "video" in batch:
+                batch["video"] = augment_clips(
+                    batch["video"], flip_prob=dcfg.aug_flip_prob,
+                    brightness=dcfg.aug_brightness,
+                    contrast=dcfg.aug_contrast,
+                    compute_dtype=self.model.dtype,
+                    generator=self._step_generator(tcfg.seed, state.step))
+            drop_gen = (self._step_generator(tcfg.seed ^ 0x5eed, state.step)
+                        if self.cfg.model.dropout > 0.0 else None)
+            with (_nan_guard(step) if tcfg.debug_nans
+                  else contextlib.nullcontext()), self.model.precision():
+                loss, preds = self._loss_fn(batch, drop_gen)
+                grads = torch.autograd.grad(
+                    loss, [state.params[n] for n in names], allow_unused=True)
+            with torch.no_grad():
+                batch_ccc = 1.0 - ccc_loss(
+                    preds, batch["labels"], batch["mask"],
+                    one_pass=tcfg.ccc_stats == "one_pass")
+        grads = [torch.zeros_like(state.params[n]) if g is None else g
+                 for n, g in zip(names, grads)]
+        # summed, not averaged: each rank's gradient covers its own rows of
+        # the one global loss
+        sum_grads(grads, self.mesh)
+        grads = dict(zip(names, grads))
         with torch.no_grad():
             params = {n: p.detach() for n, p in state.params.items()}
             updates, state.opt_state = self.tx.update(grads, state.opt_state,
@@ -367,13 +381,9 @@ class Trainer:
                 updates = {n: u * mult.to(u.device) for n, u in updates.items()}
             for n, p in params.items():
                 p.add_(updates[n])
-            metrics = {
-                "loss": loss.detach(),
-                "grad_norm": global_norm(grads.values()),
-                "batch_ccc": 1.0 - ccc_loss(
-                    preds, batch["labels"], batch["mask"],
-                    one_pass=tcfg.ccc_stats == "one_pass"),
-            }
+            metrics = {"loss": loss.detach(),
+                       "grad_norm": global_norm(grads.values()),
+                       "batch_ccc": batch_ccc}
             if tcfg.debug_nans:
                 for k in ("loss", "grad_norm"):
                     if not torch.isfinite(metrics[k]).item():
@@ -418,7 +428,12 @@ class Trainer:
         return fwd
 
     def _win_bucket(self) -> int:
-        return self.cfg.window.windows_per_clip * _SEQ_BUCKET
+        """Window-count granularity of eval dispatches: whole W-window
+        sequences, in groups the data axis divides evenly (the
+        reference's)."""
+        n_data = self.mesh.size
+        return self.cfg.window.windows_per_clip \
+            * (8 * n_data // math.gcd(8, n_data))
 
     def eval_buckets(self, n_frames: int) -> Optional[Tuple[int, int]]:
         """(n_frames_pad, n_win_pad) of the fused eval for an ``n_frames``
@@ -440,7 +455,23 @@ class Trainer:
                           weights: Optional[Tensors] = None) -> torch.Tensor:
         """Gather each window's frames / samples on the device, group them
         into W-window sequences and run the model (with ``weights`` in place
-        of its own parameters when given) → [Nw/W, W, L, 2]."""
+        of its own parameters when given) → [Nw/W, W, L, 2]. In a process
+        group each rank runs its share of the sequences and gathers the
+        rest (``parallel/seqpar.py``)."""
+        W = self.cfg.window.windows_per_clip
+
+        def run(share: Dict[str, np.ndarray]) -> torch.Tensor:
+            return self._run_windows(share["starts"].reshape(-1),
+                                     share["sample_starts"].reshape(-1),
+                                     frames, wav, spw, hop, weights)
+        return make_sharded_eval_forward(self.mesh, run)(
+            {"starts": np.asarray(starts).reshape(-1, W),
+             "sample_starts": np.asarray(sample_starts).reshape(-1, W)})
+
+    def _run_windows(self, starts, sample_starts, frames, wav, spw: int,
+                     hop: Optional[int], weights: Optional[Tensors]
+                     ) -> torch.Tensor:
+        """``_windowed_forward``'s gather and forward on this process."""
         L = self.cfg.window.window_frames
         W = self.cfg.window.windows_per_clip
         n_win = len(starts)

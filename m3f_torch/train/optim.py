@@ -11,7 +11,8 @@ clip is optax's ``g / ‖g‖ · max`` when ``‖g‖ ≥ max`` (no ``+1e-6``), 
 bias correction divides the moments, the schedule counts applied updates,
 and ``MultiSteps`` keeps the running mean of the micro-step gradients and
 applies the inner chain every k-th step. The state is a plain dict of
-tensors and ints (its own layout, checkpointed under ``.opt_state/``).
+tensors and ints, checkpointed under ``.opt_state/`` in the layout of the
+reference's optax state (``train/checkpoint.py`` ``_optax_leaves``).
 
 Parameters are addressed by their ``/``-joined reference path (the port's
 ``visual.stem.conv1.weight`` is ``visual/stem/conv1/weight``), so ``freeze``

@@ -3,7 +3,8 @@ resume): the layout is the JAX package's TrainState layout for the model, so
 the reference's ``load_model_checkpoint`` serves a port-trained checkpoint;
 ``to_jax_params`` inverts ``_convert`` bitwise; save → restore is bitwise and
 a resumed run equals an uninterrupted one; the safety paths (config hash,
-corrupt file, keep-K, a JAX optimizer state, writer failures, SIGTERM)."""
+corrupt file, keep-K, an optimizer state that fits neither layout, writer
+failures, SIGTERM)."""
 
 import dataclasses
 import os
@@ -132,13 +133,34 @@ def test_config_hash_mismatch_raises(tmp_path):
 
 
 def test_a_jax_optimizer_state_is_refused(tmp_path):
-    jcfg = _cfg(jc)
+    """Only when it fits neither layout: a JAX-written TrainState resumes
+    (tests/test_torch_resume.py holds every optimizer variant); a file
+    tagged with another optimizer layout, and one whose optimizer leaves
+    miss a key, are refused by name — never skipped for an older file, nor
+    replaced by fresh moments."""
+    jcfg, cfg = _cfg(jc), _cfg(tc)
     jt = JTrainer(jcfg)
-    JCheckpointer(str(tmp_path), cfg=jcfg).save(jax.device_get(jt.init_state()))
-    cfg = _cfg(tc)
-    with pytest.raises(NotImplementedError, match="optimizer state"):
-        Checkpointer(str(tmp_path), cfg=cfg).maybe_restore(
-            Trainer(cfg, device="cpu").init_state())
+    src = JCheckpointer(str(tmp_path / "jax"), cfg=jcfg)
+    path = src.save(jax.device_get(jt.init_state()))
+    st = Checkpointer(str(tmp_path / "jax"), cfg=cfg).maybe_restore(
+        Trainer(cfg, device="cpu").init_state())
+    assert st.step == 0 and st.opt_state["count"] == 0
+    with np.load(path) as z:
+        data = {k: z[k] for k in z.files}
+    for name, edit, words in (
+            ("tag", lambda d: d.update(__meta__=np.frombuffer(
+                b'{"opt_layout": "optax/9"}', np.uint8)), "optax/9"),
+            ("key", lambda d: d.pop(".opt_state/1/0/.count"),
+             r"missing=\['.opt_state/1/0/.count'\]")):
+        d = tmp_path / name
+        d.mkdir()
+        older = Checkpointer(str(d), cfg=cfg)
+        older.save(Trainer(cfg, device="cpu").init_state())
+        bad = dict(data, **{".step": np.asarray(5, np.int32)})
+        edit(bad)
+        np.savez(d / "ckpt_00000005.npz", **bad)
+        with pytest.raises(ValueError, match=words):
+            older.maybe_restore(Trainer(cfg, device="cpu").init_state())
 
 
 def test_the_jax_package_serves_a_port_checkpoint(tmp_path):

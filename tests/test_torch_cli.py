@@ -13,9 +13,10 @@ widths on a fake ABAW tree (``tests/torch_abaw_fake.py``):
 - ``serve`` hands ``run_server`` the JAX CLI's arguments; ``export
   --format torch`` writes the JAX CLI's file; ``inspect``, ``doctor`` and
   ``profile`` print what the JAX CLI prints;
-- the refusals: ``--coordinator`` and the multi-process variables,
-  ``export --format stablehlo``, the XLA cache variable, and no GPU without
-  ``--device cpu``;
+- the refusals: the JAX launchers' variables and a launch that names no
+  rank or one outside its world (``--coordinator`` itself launches: a group
+  of one trains), ``export --format stablehlo``, the XLA cache variable,
+  and no GPU without ``--device cpu``;
 - ``train.debug_nans``: both packages raise ``FloatingPointError`` on a
   stream whose second batch holds a NaN (JAX under ``jax.debug_nans``), the
   port naming step 2; without the flag the port does not raise.
@@ -248,14 +249,36 @@ def test_profile_prints_the_trace_summary(tmp_path):
 def test_refusals(run, monkeypatch, tmp_path):
     base = ["train", "--device", "cpu", *narrow(run["root"]),
             f"train.checkpoint_dir={tmp_path}"]
-    with pytest.raises(NotImplementedError, match="ROADMAP §1: parallel/"):
-        tmain.main(base + ["--coordinator", "localhost:1234,2,0"])
-    for var, value in (("M3F_COORDINATOR", "h:1"),
-                       ("JAX_COORDINATOR_ADDRESS", "h:1"),
-                       ("TPU_WORKER_HOSTNAMES", "a,b")):
+    # a multi-process launch is ported (tests/test_torch_parallel.py): a
+    # group of one through --coordinator trains, resumes from a seed and
+    # leaves no group behind; a launch that names no rank, a rank outside
+    # its world, and the JAX launchers' variables are refused by name
+    import socket
+    import torch.distributed as dist
+    sock = socket.socket()
+    sock.bind(("127.0.0.1", 0))
+    port = sock.getsockname()[1]
+    sock.close()
+    ck = str(tmp_path / "group")
+    rc, out = _run(tmain.main, [
+        "train", "--device", "cpu", "--no-eval", *narrow(run["root"]),
+        "train.num_steps=3", "train.log_every=1", f"train.checkpoint_dir={ck}",
+        "--resume-from", run["steps"][0],
+        "--coordinator", f"127.0.0.1:{port},1,0"])
+    assert rc == 0 and "distributed: M3F_COORDINATOR" in out
+    assert "step 2/3" in out and "step 1/3" not in out
+    assert os.path.exists(os.path.join(ck, "ckpt_00000003.npz"))
+    assert not dist.is_initialized()
+    with pytest.raises(ValueError, match="M3F_COORDINATOR"):
+        tmain.main(base + ["--coordinator", "localhost:1234,2,5"])
+    for var, value, error in (("M3F_COORDINATOR", "h:1", ValueError),
+                              ("JAX_COORDINATOR_ADDRESS", "h:1",
+                               NotImplementedError),
+                              ("TPU_WORKER_HOSTNAMES", "a,b",
+                               NotImplementedError)):
         with monkeypatch.context() as mp:
             mp.setenv(var, value)
-            with pytest.raises(NotImplementedError, match=var):
+            with pytest.raises(error, match=var):
                 tmain.main(base)
     with pytest.raises(NotImplementedError, match="stablehlo"):
         tmain.main(["export", "--format", "stablehlo", "--checkpoint",

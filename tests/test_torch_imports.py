@@ -27,7 +27,8 @@ new = {"m3f_torch.main", "m3f_torch.data.affwild2", "m3f_torch.data.doctor",
        "m3f_torch.data.native_loader", "m3f_torch.data.windowing",
        "m3f_torch.train.convert", "m3f_torch.scripts.import_torch_checkpoint",
        "m3f_torch.scripts.export_torch_checkpoint",
-       "m3f_torch.scripts.average_checkpoints"}
+       "m3f_torch.scripts.average_checkpoints", "m3f_torch.parallel.mesh",
+       "m3f_torch.parallel.seqpar"}
 assert new <= set(names), sorted(new - set(names))
 print(len(names), bad)
 """
