@@ -235,6 +235,26 @@ H100 (``python3 chip_smoke.py``). It
    DDP_FAULTS planted in the ranks must break a limit; whole-video eval
    and the sequence forward of DDP_EVAL_SEQS sequences sharded over the
    ranks against one process within DDP_EVAL_ATOL);
+5d. the model axis (phase ``tp_ranks``): this script four more times
+   (``--tp-rank``), four gloo ranks on the one card as a 2 x 2 mesh of
+   ``distributed_train`` (TP_CLIPS clips a data row; the BiGRU
+   column-parallel, the fusion head row-parallel, each rank holding its
+   blocks of them, their moments and EMA), 3 steps against world size 1 on
+   the same global batches within TP_LOSS_RTOL, TP_GNORM_RTOL and
+   TP_LATER_LOSS_ATOL, the replicated leaves bit-equal on all ranks and
+   the blocks within each column, every kernel of rows 1-8 launched; the
+   ranks' checkpoint after step TP_CKPT_STEP resumed at world size 1 with
+   every array the ranks held, bit for bit, and its next step within
+   TP_LATER_LOSS_ATOL of theirs; each fault of TP_FAULTS planted in the
+   ranks must break a limit or leave them disagreeing; the
+   sequence-parallel BiGRU at TP_SEQ (bf16, the fp32 carry sent between
+   the ranks of each data column) against the unsharded layer, output
+   within TP_SEQ_ATOL and gradients within TP_SEQ_GRAD_REL, two ``gru``
+   launches a rank, its times beside the unsharded layer's. ``check_gru``
+   also holds the kernel's carried state at the serving shape
+   (``check_gru_carry``: a nonzero h0, a zero h0 bit-equal to none, a lane
+   cut into two launches chained by the fp32 carry bit-equal to one, both
+   routes, bf16 and fp32);
 6. prints the ``kernels`` line, the card line and, last,
    ``{"ok": true, "device": {...}}``.
 
@@ -544,6 +564,7 @@ def check_gru(torch, cuda_lib, gru):
     require(errs["cluster_train_bf16"] <= GRU_ATOL_BF16,
             f"gru at the train shape, output and carries: {errs}")
     train_ms = timed(torch, lambda: gru._gru_forward(xt, wb, b, carries=True))
+    carry = check_gru_carry(torch, cuda_lib, gru, xp, w, b)
     flops = 2 * D * T * B * H * 3 * H
     nbytes = xb.numel() * 2 + wb.numel() * 2 + b.numel() * 4 + B * T * D * H * 2
     b_ms, b_by = bound(nbytes, flops, PEAK_BF16)
@@ -556,12 +577,80 @@ def check_gru(torch, cuda_lib, gru):
           "layer_ms_spread": t["layer"][1],
           "library_ms_nn_gru_incl_input_proj": lib,
           "library_ms_spread": lib_spread, "train_ms_b8_t64_carries": train_ms,
-          "bound_ms": b_ms})
+          "bound_ms": b_ms, "carried_state": carry})
     entry = {"max_abs_err": errs["cluster_bf16"], "plain_ms": plain,
              "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib}
     return [dict(entry, name="gru", ms=ms),
             dict(entry, name="gru_stream", ms=t["stream"][0],
                  max_abs_err=errs["stream_bf16"])]
+
+
+def check_gru_carry(torch, cuda_lib, gru, xp, w, b, split=48):
+    """The carried state at the serving shape, bf16 and fp32 (x and W in
+    one dtype), on both routes: a nonzero fp32 h0 against the plain version
+    (output and final carry); a zero h0 bit-equal to none; each lane as a
+    one-direction launch (lane 1 read reversed) cut at step ``split`` into
+    two launches, the second from the first's fp32 carry, bit-equal to one
+    launch (output, carries, final carry), which is also held against the
+    two-direction launch's lane (reported: the sequence-parallel BiGRU
+    scans its lanes one direction at a time); each route's counter, and
+    only it, moves once a launch."""
+    B, T, D, h3 = xp.shape
+    H = h3 // 3
+    g = torch.Generator(device="cuda").manual_seed(27)
+    h0 = torch.randn(B, D, H, device="cuda", generator=g) * 0.5
+    zero = torch.zeros_like(h0)
+    out = {}
+    for dname, dt in (("bf16", torch.bfloat16), ("fp32", torch.float32)):
+        x, wd = xp.to(dt), w.to(dt)
+        tol = GRU_ATOL_BF16 if dt == torch.bfloat16 else GRU_ATOL_F32
+        for route in ("cluster", "stream"):
+            counter = "gru" if route == "cluster" else "gru_stream"
+            before = dict(cuda_lib.launches)
+            got, last = gru._gru_forward(x, wd, b, route=route, h0=h0,
+                                         last=True)
+            want, want_last = gru.gru_scan_reference(x, wd, b, h0=h0,
+                                                     last=True)
+            err = max((got.float() - want.float()).abs().max().item(),
+                      (last - want_last).abs().max().item())
+            none = gru._gru_forward(x, wd, b, route=route)
+            zeros = gru._gru_forward(x, wd, b, route=route, h0=zero)
+            both = gru._gru_forward(x, wd, b, route=route, carries=True)
+            split_equal, lane_equal = [], []
+            for lane in range(D):
+                xl = x[:, :, lane:lane + 1]
+                xl = (xl.flip(1) if lane else xl).contiguous()
+                wl, bl = wd[lane:lane + 1], b[lane:lane + 1]
+                one = gru._gru_forward(xl, wl, bl, route=route, carries=True,
+                                       last=True)
+                a = gru._gru_forward(xl[:, :split].contiguous(), wl, bl,
+                                     route=route, carries=True, last=True)
+                c = gru._gru_forward(xl[:, split:].contiguous(), wl, bl,
+                                     route=route, carries=True, h0=a[2],
+                                     last=True)
+                split_equal.append(
+                    torch.equal(torch.cat([a[0], c[0]], 1), one[0])
+                    and torch.equal(torch.cat([a[1], c[1]], 1), one[1])
+                    and torch.equal(c[2], one[2]))
+                ref = both[1][:, :, lane:lane + 1]
+                lane_equal.append(torch.equal(one[1],
+                                              ref.flip(1) if lane else ref))
+            moved = {k: cuda_lib.launches[k] - before[k]
+                     for k in ("gru", "gru_stream")}
+            launches = 4 + 3 * D
+            key = f"{route}_{dname}"
+            out[key] = {"h0_max_abs_err": err, "tol": tol,
+                        "zero_h0_bit_equal": torch.equal(none, zeros),
+                        "split_at": split,
+                        "split_bit_equal_per_lane": split_equal,
+                        "one_direction_lane_bit_equal_to_two": lane_equal,
+                        "launches": moved}
+            require(err <= tol and out[key]["zero_h0_bit_equal"]
+                    and all(split_equal)
+                    and moved == {"gru": 0, "gru_stream": 0,
+                                  counter: launches},
+                    f"gru carried state, {key}: {out[key]}")
+    return out
 
 
 # (B, T, H, D, x dtype, W dtype, tolerance): a batch tile half full with H
@@ -4156,6 +4245,379 @@ def ddp_rank(rank, port, out):
     return 0
 
 
+# ---------------------------------------------------------------------------
+# parallel/, the model axis: four gloo ranks on the one card as a 2 x 2 mesh
+# ---------------------------------------------------------------------------
+
+TP_MESH = (2, 2)         # tp_ranks: data rows x model ranks (four gloo ranks)
+TP_CLIPS = 4             # clips a data row (a global batch of 8)
+TP_STEPS = 3             # train steps of distributed_train
+TP_CKPT_STEP = 2         # the ranks write a checkpoint after this step
+TP_LOSS_RTOL = 1e-4      # against world size 1 on the same global batches:
+#                          the first step's loss ...
+TP_GNORM_RTOL = DDP_GNORM_RTOL   # ... its gradient norm ...
+TP_LATER_LOSS_ATOL = DDP_LATER_LOSS_ATOL   # ... and the later losses
+# faults planted in the rank processes (``tp_planted_fault``); in one step
+# each must break a limit above against world size 1 or leave the ranks
+# disagreeing on a replicated value (the loss or the gradient norm)
+TP_FAULTS = ("tp_gather_grad_summed", "tp_head_unreduced", "tp_norm_local")
+TP_SEQ = (16, 128, 768, 256)   # sequence-parallel BiGRU: B, T a rank, D, H
+TP_SEQ_ATOL = GRU_ATOL_BF16    # its bf16 output against the unsharded layer
+TP_SEQ_GRAD_REL = 2e-2   # its gradients, to each leaf's largest element
+
+
+def tp_cfg(config, num_data, num_model):
+    """``distributed_train`` at TP_CLIPS clips a data row of a
+    ``num_data`` x ``num_model`` mesh; world size 1 takes the whole global
+    batch of the 2 x 2 mesh."""
+    cfg = config.distributed_train()
+    return cfg.replace(train=dataclasses.replace(
+        cfg.train, batch_size=TP_CLIPS * TP_MESH[0],
+        mesh=dataclasses.replace(cfg.train.mesh, num_data=num_data,
+                                 num_model=num_model)))
+
+
+def _digests(tensors, tp=None):
+    """sha256 of each tensor's bytes (whole under ``tp``: the blocks
+    gathered, a collective)."""
+    import hashlib
+    out = {}
+    for n, t in tensors.items():
+        t = t.detach() if tp is None else tp.full(n, t.detach())
+        out[n] = hashlib.sha256(t.float().cpu().numpy().tobytes()).hexdigest()
+    return out
+
+
+def _state_digests(state, whole):
+    """Digests of every leaf of a state: params, BN buffers, EMA, Adam's
+    moments; this rank's blocks, or (``whole``) the sharded ones gathered."""
+    tp = state.tp if whole else None
+    inner = state.opt_state.get("inner", state.opt_state)
+    groups = {"params": state.params, "bn_state": state.bn_state,
+              "ema": state.ema or {}, "mu": inner.get("mu", {}),
+              "nu": inner.get("nu", {})}
+    return {f"{g}/{n}": d for g, ts in groups.items()
+            for n, d in _digests(ts, tp).items()}
+
+
+def tp_steps(torch, np, cuda_lib, config, Checkpointer, Trainer, data,
+             mesh=(1, 1), steps=TP_STEPS, ckpt=None):
+    """``steps`` steps of ``tp_cfg`` on a ``mesh`` from the seed on the same
+    global batches, this process's rows of each, the launch counters set
+    to 0 just before; with ``ckpt`` a checkpoint written there after step
+    TP_CKPT_STEP (not timed). Each step's time on the host clock (after the
+    step's metrics are read), the leaves' digests (this rank's blocks)
+    after the last step, and at the checkpoint the whole leaves'."""
+    from m3f_torch.parallel.mesh import local_rows
+    cfg = tp_cfg(config, *mesh)
+    stream = synthetic_stream(np, cfg, *data, seed=3)(0)
+    batches = [next(stream) for _ in range(steps)]
+    tr = Trainer(cfg)
+    state = tr.init_state()
+    keys = [k for k in ("video", "wav", "labels", "mask", "hop")
+            if k in batches[0]]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    cuda_lib.reset_launches()
+    loss, gnorm, step_s, at_ckpt = [], [], [], None
+    for i, b in enumerate(batches):
+        t0 = time.perf_counter()
+        m = tr.train_step(state, local_rows({k: b[k] for k in keys}, tr.mesh))
+        loss.append(float(m["loss"]))
+        gnorm.append(float(m["grad_norm"]))
+        step_s.append(time.perf_counter() - t0)
+        if ckpt is not None and i + 1 == TP_CKPT_STEP:
+            Checkpointer(ckpt, cfg=cfg).save(state)
+            at_ckpt = _state_digests(state, whole=True)
+    counts = dict(cuda_lib.launches)
+    return {"rows": len(local_rows({k: batches[0][k] for k in keys},
+                                   tr.mesh)["labels"]),
+            "mesh": [tr.mesh.size, tr.mesh.model.size],
+            "sharded": sorted(tr.tp.dims) if tr.tp is not None else [],
+            "loss": loss, "grad_norm": gnorm, "launches": counts,
+            "step_s": step_s, "peak_mem_gb":
+                torch.cuda.max_memory_allocated() / 1e9,
+            "digests": _state_digests(state, whole=False),
+            "ckpt_digests": at_ckpt}
+
+
+@contextlib.contextmanager
+def tp_planted_fault(name):
+    """``name`` of TP_FAULTS planted in this process's port while the block
+    runs: "tp_gather_grad_summed" the BiGRU's gathers sum the gradient over
+    the model axis before taking their block (what a reduce-scatter
+    does: every sharded gradient, and through the layer's input every
+    earlier one, doubled); "tp_head_unreduced" the fusion head's partial
+    products left unsummed; "tp_norm_local" the gradient norm of the clip
+    and of ``grad_norm`` without the other model rank's blocks."""
+    import m3f_torch.models.m3f as tm3f
+    import m3f_torch.parallel.mesh as tmesh
+    import m3f_torch.train.optim as toptim
+    saved = (tmesh._GatherBlocks.backward, tm3f.model_sum, toptim.axis_sum)
+
+    def summed(ctx, g):
+        g = tmesh._flat_all_reduce([g.contiguous()], ctx.axis.group)[0]
+        return tmesh.own_block(g, ctx.axis, ctx.dim), None, None
+    if name == "tp_gather_grad_summed":
+        tmesh._GatherBlocks.backward = staticmethod(summed)
+    if name == "tp_head_unreduced":
+        tm3f.model_sum = lambda x, axis: x
+    if name == "tp_norm_local":
+        toptim.axis_sum = lambda x, axis: x
+    try:
+        yield
+    finally:
+        tmesh._GatherBlocks.backward = staticmethod(saved[0])
+        tm3f.model_sum, toptim.axis_sum = saved[1], saved[2]
+
+
+def tp_seqpar(torch, cuda_lib, axis):
+    """The sequence-parallel BiGRU (``bigru_seq_parallel``) at full width,
+    bf16, over the data axis ``axis``: a sequence of TP_SEQ's T steps a
+    rank, this rank's chunk, against the unsharded layer on the whole
+    sequence in this process: the output chunk and the input's chunk of
+    the gradient (bit-equal flags and the largest differences) and every
+    weight's gradient (summed over the ranks); device-synchronised host
+    times of the forward (the second of two calls) and of the gradient
+    run, each beside the unsharded layer's; the ``gru`` launches of the
+    gradient run."""
+    from m3f_torch.models.gru import BiGRU
+    from m3f_torch.parallel.seqpar import bigru_seq_parallel
+    B, T, D, H = TP_SEQ
+    m = BiGRU(D, H, torch.Generator().manual_seed(31)).cuda()
+    g = torch.Generator(device="cuda").manual_seed(32)
+    n = T * axis.size
+    x = (torch.randn(B, n, D, device="cuda", generator=g) * 0.5).bfloat16()
+    cot = torch.randn(B, n, 2 * H, device="cuda", generator=g)
+    rows = slice(axis.rank * T, (axis.rank + 1) * T)
+    params = list(m.parameters())
+
+    def clock(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        return res, time.perf_counter() - t0
+    with torch.no_grad():
+        for _ in range(2):
+            y, fwd_s = clock(lambda: bigru_seq_parallel(
+                m, x[:, rows].contiguous(), axis))
+            yw, whole_fwd_s = clock(lambda: m(x))
+    xc = x[:, rows].contiguous().requires_grad_()
+    cuda_lib.reset_launches()
+
+    def sharded_grads():
+        out = bigru_seq_parallel(m, xc, axis)
+        return torch.autograd.grad((out.float() * cot[:, rows]).sum(),
+                                   [xc] + params)
+    gs, grad_s = clock(sharded_grads)
+    launches = {k: cuda_lib.launches[k] for k in ("gru", "gru_stream")}
+    xw = x.clone().requires_grad_()
+    gw, whole_grad_s = clock(lambda: torch.autograd.grad(
+        (m(xw).float() * cot).sum(), [xw] + params))
+    want = yw[:, rows]
+    rel = {n_: ((a.float() - b.float()).abs().max()
+                / b.float().abs().max()).item()
+           for n_, a, b in zip(["x"] + [p for p, _ in m.named_parameters()],
+                               [gs[0]] + list(gs[1:]),
+                               [gw[0][:, rows]] + list(gw[1:]))}
+    return {"shape_b_t_rank_d_h": list(TP_SEQ), "ranks": axis.size,
+            "out_bit_equal": torch.equal(y, want),
+            "out_max_abs_diff": (y.float() - want.float()).abs().max().item(),
+            "dx_bit_equal": torch.equal(gs[0], gw[0][:, rows]),
+            "grad_rel_diff": rel, "launches": launches,
+            "fwd_s": fwd_s, "unsharded_fwd_s": whole_fwd_s,
+            "grad_s": grad_s, "unsharded_grad_s": whole_grad_s}
+
+
+def tp_ranks(torch, np, cuda_lib, config, Checkpointer, Trainer, data, repo):
+    """The steps at world size 1 in this process, then this script four
+    more times as gloo ranks on the one card (``--tp-rank``): a 2 x 2 mesh
+    of distributed_train, TP_CLIPS clips a data row, against world size 1
+    on the same global batches (first loss, first gradient norm, later
+    losses); the replicated leaves bit-equal on all four ranks and the
+    blocks within each column; the ranks' checkpoint resumed at world size
+    1 holding every array the ranks held (gathered), bit for bit, and its
+    next step within the later-loss limit of the ranks'; each planted fault
+    refused; the sequence-parallel BiGRU held on every rank."""
+    from m3f_torch.parallel.mesh import local_rows
+    out = os.path.join(repo, "build", "tp_ranks")
+    shutil.rmtree(out, ignore_errors=True)
+    os.makedirs(out)
+    one = tp_steps(torch, np, cuda_lib, config, Checkpointer, Trainer, data)
+    torch.cuda.empty_cache()
+    port = str(_free_port())
+    n = TP_MESH[0] * TP_MESH[1]
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--tp-rank", str(r),
+         port, out], cwd=repo, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True) for r in range(n)]
+    logs = []
+    try:
+        for pr in procs:
+            logs.append(pr.communicate(timeout=600)[0])
+    finally:
+        for pr in procs:
+            pr.kill()
+    dt = time.perf_counter() - t0
+    for r, (pr, log) in enumerate(zip(procs, logs)):
+        require(pr.returncode == 0, f"tp rank {r} exit {pr.returncode}: "
+                f"{log[-3000:]}")
+    runs = [json.load(open(os.path.join(out, f"rank{r}.json")))
+            for r in range(n)]
+    whole = [r["whole"] for r in runs]
+    require(all(r["backend"] == "gloo" and r["world_size"] == n
+                for r in runs) and whole[0]["mesh"] == list(TP_MESH)
+            and whole[0]["rows"] == TP_CLIPS and whole[0]["sharded"],
+            f"tp ranks: {[(r['backend'], r['world_size']) for r in runs]} "
+            f"{whole[0]['mesh']} {whole[0]['rows']} {whole[0]['sharded']}")
+    sharded = set(whole[0]["sharded"])
+    col = {r: [q for q in range(n) if q % TP_MESH[1] == r % TP_MESH[1]]
+           for r in range(n)}
+    unequal = sorted({k for r in range(n) for k, d in whole[r]["digests"].items()
+                      if any(whole[q]["digests"][k] != d for q in
+                             (col[r] if k.split("/", 1)[1] in sharded
+                              else range(n)))})
+    same_metrics = all(w["loss"] == whole[0]["loss"]
+                       and w["grad_norm"] == whole[0]["grad_norm"]
+                       for w in whole)
+    for rk in whole:
+        missing = [k for k in FORWARD_KERNELS if rk["launches"][k] < TP_STEPS]
+        missing += [k for k in BWD_KERNELS
+                    if rk["launches"][k] != 10 * TP_STEPS]
+        require(not missing, f"tp rank launches {rk['launches']}")
+
+    def gaps(run, ref):
+        return (abs(run["loss"][0] - ref["loss"][0]) / abs(ref["loss"][0]),
+                abs(run["grad_norm"][0] - ref["grad_norm"][0])
+                / ref["grad_norm"][0],
+                max((abs(x - y) for x, y in zip(run["loss"][1:],
+                                                ref["loss"][1:])), default=0.0))
+
+    def within(g):
+        return (g[0] <= TP_LOSS_RTOL and g[1] <= TP_GNORM_RTOL
+                and g[2] <= TP_LATER_LOSS_ATOL)
+    d = gaps(whole[0], one)
+    faults = {}
+    for f in TP_FAULTS:
+        g = gaps(runs[0][f], one)
+        agree = all(r[f]["loss"] == runs[0][f]["loss"]
+                    and r[f]["grad_norm"] == runs[0][f]["grad_norm"]
+                    for r in runs)
+        faults[f] = {"loss": [r[f]["loss"][0] for r in runs],
+                     "grad_norm": [r[f]["grad_norm"][0] for r in runs],
+                     "first_loss_rel_diff": g[0],
+                     "first_grad_norm_rel_diff": g[1],
+                     "ranks_agree": agree,
+                     "refused": not (within(g) and agree)}
+    # the ranks' checkpoint at world size 1: every array the ranks held,
+    # then its next step
+    cfg1 = tp_cfg(config, 1, 1)
+    tr = Trainer(cfg1)
+    state = Checkpointer(os.path.join(out, "ck"), cfg=cfg1).maybe_restore(
+        tr.init_state(), tr)
+    resumed = _state_digests(state, whole=False)
+    ck_unequal = sorted(k for k, v in whole[0]["ckpt_digests"].items()
+                        if resumed.get(k) != v)
+    stream = synthetic_stream(np, cfg1, *data, seed=3)(0)
+    batch = [next(stream) for _ in range(TP_STEPS)][TP_CKPT_STEP]
+    keys = [k for k in ("video", "wav", "labels", "mask", "hop") if k in batch]
+    next_loss = float(tr.train_step(state, local_rows(
+        {k: batch[k] for k in keys}, tr.mesh))["loss"])
+    resume_gap = abs(next_loss - whole[0]["loss"][TP_CKPT_STEP])
+    del tr, state
+    torch.cuda.empty_cache()
+    seq = [r["seqpar"] for r in runs]
+    seq_err = max(s["out_max_abs_diff"] for s in seq)
+    seq_grad = max(v for s in seq for v in s["grad_rel_diff"].values())
+    result = {"phase": "tp_ranks", "preset": "distributed_train",
+              "mesh": list(TP_MESH), "world_size": n, "backend": "gloo",
+              "rows_per_data_row": TP_CLIPS, "steps": TP_STEPS, "s": dt,
+              "sharded": sorted(sharded),
+              "step_s_per_rank": [w["step_s"] for w in whole],
+              "peak_mem_gb_per_rank": [w["peak_mem_gb"] for w in whole],
+              "launches_rank0": whole[0]["launches"],
+              "loss": whole[0]["loss"], "grad_norm": whole[0]["grad_norm"],
+              "world_size_1": {k: one[k] for k in ("loss", "grad_norm",
+                                                   "step_s", "peak_mem_gb")},
+              "first_loss_rel_diff": d[0], "first_grad_norm_rel_diff": d[1],
+              "later_loss_max_abs_diff": d[2],
+              "ranks_metrics_equal": same_metrics,
+              "leaves_unequal": unequal,
+              "checkpoint": {"step": TP_CKPT_STEP,
+                             "arrays": len(whole[0]["ckpt_digests"]),
+                             "unequal_at_world_size_1": ck_unequal,
+                             "next_loss": next_loss,
+                             "ranks_next_loss":
+                                 whole[0]["loss"][TP_CKPT_STEP],
+                             "next_loss_abs_diff": resume_gap},
+              "planted_faults": faults,
+              "seqpar": {"per_rank": seq, "max_abs_diff": seq_err,
+                         "grad_rel_diff_max": seq_grad,
+                         "tol": TP_SEQ_ATOL, "tol_grad_rel": TP_SEQ_GRAD_REL},
+              "tol_loss": TP_LOSS_RTOL, "tol_grad_norm": TP_GNORM_RTOL,
+              "tol_later_loss": TP_LATER_LOSS_ATOL}
+    emit(result)
+    require(within(d) and same_metrics and not unequal,
+            "2 x 2 ranks against world size 1, or the ranks' leaves")
+    require(not ck_unequal and resume_gap <= TP_LATER_LOSS_ATOL,
+            "the 2 x 2 checkpoint at world size 1")
+    require(all(f["refused"] for f in faults.values()),
+            f"a planted fault within the limits: {faults}")
+    require(all(s["launches"]["gru"] == 2 and s["launches"]["gru_stream"] == 0
+                for s in seq) and seq_err <= TP_SEQ_ATOL
+            and seq_grad <= TP_SEQ_GRAD_REL,
+            "the sequence-parallel BiGRU against the unsharded layer")
+
+
+def tp_rank(rank, port, out):
+    """One gloo rank of ``tp_ranks`` (``chip_smoke.py --tp-rank R PORT
+    OUT``): joins the group of four through the port's launcher, runs
+    ``tp_steps`` on the 2 x 2 mesh (writing the checkpoint into
+    ``OUT/ck``), one step under each of TP_FAULTS, then ``tp_seqpar`` over
+    its data axis; writes ``OUT/rankR.json``."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    repo = os.path.dirname(os.path.abspath(__file__))
+    sys.path.insert(0, repo)
+    from m3f_torch import config
+    from m3f_torch.data.synthetic import SyntheticAVDataset
+    from m3f_torch.data.windowing import WindowSequencer, example_stream
+    from m3f_torch.ops import cuda_lib
+    from m3f_torch.parallel.mesh import create_mesh, maybe_initialize_distributed
+    from m3f_torch.train.checkpoint import Checkpointer
+    from m3f_torch.train.loop import Trainer
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    data = (SyntheticAVDataset, WindowSequencer, example_stream)
+    n = TP_MESH[0] * TP_MESH[1]
+    plan = maybe_initialize_distributed(
+        {"M3F_COORDINATOR": f"127.0.0.1:{port},{n},{rank}"}, device="cuda",
+        backend="gloo")
+    res = {}
+    try:
+        res["whole"] = tp_steps(torch, np, cuda_lib, config, Checkpointer,
+                                Trainer, data, mesh=TP_MESH,
+                                ckpt=os.path.join(out, "ck"))
+        torch.cuda.empty_cache()
+        for f in TP_FAULTS:
+            with tp_planted_fault(f):
+                res[f] = tp_steps(torch, np, cuda_lib, config, Checkpointer,
+                                  Trainer, data, mesh=TP_MESH, steps=1)
+            torch.cuda.empty_cache()
+        res["seqpar"] = tp_seqpar(torch, cuda_lib,
+                                  create_mesh(*TP_MESH).data)
+        res.update(backend=dist.get_backend(), world_size=dist.get_world_size(),
+                   rank=dist.get_rank(), plan=plan.reason)
+    finally:
+        dist.destroy_process_group()
+    with open(os.path.join(out, f"rank{rank}.json"), "w") as f:
+        json.dump(res, f)
+    return 0
+
+
 def main():
     import numpy as np
     import torch
@@ -4375,6 +4837,11 @@ def main():
     ddp_two_ranks(torch, np, cuda_lib, config, Trainer, data, repo)
     torch.cuda.empty_cache()
 
+    # 5d. the model axis: four gloo ranks as a 2 x 2 mesh, and the
+    # sequence-parallel BiGRU on the GRU kernel with a carried-in state
+    tp_ranks(torch, np, cuda_lib, config, Checkpointer, Trainer, data, repo)
+    torch.cuda.empty_cache()
+
     # 6. the kernels line, the card line, the result line
     pallas = "m3f/pytorch_tpu/ops/pallas/"
     replaces = {"melspec": pallas + "melspec_pallas.py:88",
@@ -4451,4 +4918,6 @@ def main():
 if __name__ == "__main__":
     if len(sys.argv) == 5 and sys.argv[1] == "--ddp-rank":
         sys.exit(ddp_rank(int(sys.argv[2]), sys.argv[3], sys.argv[4]))
+    if len(sys.argv) == 5 and sys.argv[1] == "--tp-rank":
+        sys.exit(tp_rank(int(sys.argv[2]), sys.argv[3], sys.argv[4]))
     sys.exit(main())

@@ -320,7 +320,7 @@ class MeshConfig:
     (SURVEY §2.4 C-P1)."""
 
     data_axis: str = "data"
-    model_axis: str = "model"   # stub axis; model is ~33M params, TP documented-not-built
+    model_axis: str = "model"   # tensor parallelism: BiGRU gates, fusion head
     num_data: int = -1          # -1 = all available devices
     num_model: int = 1
 

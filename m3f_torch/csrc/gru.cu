@@ -70,6 +70,15 @@
 // the carry the forward kept, and recomputing it from the rounded output
 // would differ.
 //
+// Carried state (both routes): h0 [B, D, H] fp32, optional, is the carry a
+// lane starts from (null: zeros; direction 1 starts at the last time index),
+// and hT [B, D, H] fp32, optional, receives the carry after a lane's last
+// step. A sequence cut into chunks that are scanned one after another, each
+// starting from the fp32 carry the previous one left, gives the bits of one
+// scan of the whole sequence (the sequence-parallel BiGRU,
+// parallel/seqpar.py): the walk keeps no time tile, so a chunk's launch
+// is cut as the whole sequence's is.
+//
 // GRU_ABLATE (timing builds of filter_sweep --kind gru; results wrong):
 // bit 1 no products, 2 no exchange (each block stores h' into its own
 // buffer only), 4 no xp, gates or outputs, 8 a block barrier in place of the
@@ -108,7 +117,8 @@ template <typename XT, typename WT>
 __global__ void __launch_bounds__(JT * KS)
 gru_kernel(const XT* __restrict__ xp, const WT* __restrict__ whh,
            const float* __restrict__ bhh, XT* __restrict__ out,
-           float* __restrict__ hs, int B, int T, int H, int D) {
+           float* __restrict__ hs, const float* __restrict__ h0,
+           float* __restrict__ hT, int B, int T, int H, int D) {
   extern __shared__ float smem[];
   float* h = smem;                 // [BT][H] fp32 state
   float* hw = h + BT * H;          // [BT][H] state rounded to W's dtype
@@ -127,7 +137,13 @@ gru_kernel(const XT* __restrict__ xp, const WT* __restrict__ whh,
   const int khalf = (H + KS - 1) / KS;
   const int kbeg = ks * khalf, kend = min(H, kbeg + khalf);
 
-  for (int i = tid; i < BT * H; i += JT * KS) h[i] = hw[i] = 0.f;
+  for (int i = tid; i < BT * H; i += JT * KS) {
+    const int b = i / H;
+    const float v = (h0 != nullptr && b < nb)
+        ? h0[((int64_t)(b0 + b) * D + d) * H + i - b * H] : 0.f;
+    h[i] = v;
+    hw[i] = round_w<WT>(v);
+  }
   __syncthreads();
 
   for (int step = 0; step < T; ++step) {
@@ -188,11 +204,17 @@ gru_kernel(const XT* __restrict__ xp, const WT* __restrict__ whh,
     }
     __syncthreads();
   }
+  if (hT != nullptr)
+    for (int i = tid; i < nb * H; i += JT * KS) {
+      const int b = i / H;
+      hT[((int64_t)(b0 + b) * D + d) * H + i - b * H] = h[i];
+    }
 }
 
 template <typename XT, typename WT>
 int launch(const void* xp, const void* whh, const void* bhh, void* out,
-           float* hs, int B, int T, int H, int D, cudaStream_t stream) {
+           float* hs, const float* h0, float* hT, int B, int T, int H, int D,
+           cudaStream_t stream) {
   const size_t smem = sizeof(float) * (3 * BT * H + 3 * BT * JT);
   cudaError_t e = cudaFuncSetAttribute(
       gru_kernel<XT, WT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -200,8 +222,8 @@ int launch(const void* xp, const void* whh, const void* bhh, void* out,
   if (e != cudaSuccess) return (int)e;
   dim3 grid(D, (B + BT - 1) / BT), block(JT, KS);
   gru_kernel<XT, WT><<<grid, block, smem, stream>>>(
-      (const XT*)xp, (const WT*)whh, (const float*)bhh, (XT*)out, hs, B, T, H,
-      D);
+      (const XT*)xp, (const WT*)whh, (const float*)bhh, (XT*)out, hs, h0, hT,
+      B, T, H, D);
   return (int)cudaGetLastError();
 }
 
@@ -409,7 +431,8 @@ template <typename XT, typename WT>
 __global__ void __launch_bounds__(512)
 gru_cluster_kernel(const XT* __restrict__ xp, const WT* __restrict__ whh,
                    const float* __restrict__ bhh, XT* __restrict__ out,
-                   float* __restrict__ hs, int B, int T, int H, int D, int U,
+                   float* __restrict__ hs, const float* __restrict__ h0,
+                   float* __restrict__ hT, int B, int T, int H, int D, int U,
                    int KW) {
   extern __shared__ __align__(16) unsigned char cl_smem[];
   const Layout L = cluster_layout<WT>(H, U, KW);
@@ -468,13 +491,27 @@ gru_cluster_kernel(const XT* __restrict__ xp, const WT* __restrict__ whh,
     if (sizeof(WT) == 2) ws[n * L.wstride + k] = v;
     else ws[k * N + n] = v;
   }
-  for (int i = tid; i < 2 * BM * L.hstride; i += blockDim.x)
-    hb[i] = from_f<WT>(0.f);
+  // h buffer 0 holds the starting carry of the tile's rows rounded to W's
+  // dtype (zeros without h0, and in the padding), buffer 1 zeros
+  for (int i = tid; i < 2 * BM * L.hstride; i += blockDim.x) {
+    const int row = i / L.hstride, k = i - row * L.hstride;
+    hb[i] = from_f<WT>((h0 != nullptr && row < nb && k < H)
+                           ? h0[((int64_t)(b0 + row) * D + d) * H + k] : 0.f);
+  }
   float bh[3][2], hc[4] = {0.f, 0.f, 0.f, 0.f};
 #pragma unroll
   for (int g = 0; g < 3; ++g)
 #pragma unroll
     for (int e = 0; e < 2; ++e) bh[g][e] = jv ? bias[g * H + j + e] : 0.f;
+  if (h0 != nullptr && jv) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+      if (r0 + 8 * i < nb) {
+        const float2 v = load_pair(h0 + ((int64_t)(b0 + r0 + 8 * i) * D + d) * H + j);
+        hc[2 * i] = v.x;
+        hc[2 * i + 1] = v.y;
+      }
+  }
   // every block of the cluster runs and has zeroed its buffers before any
   // block stores into them
   __syncthreads();
@@ -583,6 +620,13 @@ gru_cluster_kernel(const XT* __restrict__ xp, const WT* __restrict__ whh,
     }
     if (!(GRU_ABLATE & 8)) cluster_wait();
   }
+  if (hT != nullptr && jv) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+      if (r0 + 8 * i < nb)
+        store_pair(hT + ((int64_t)(b0 + r0 + 8 * i) * D + d) * H + j,
+                   hc[2 * i], hc[2 * i + 1]);
+  }
   // no block leaves while another may still store into its shared memory
   cluster_arrive();
   cluster_wait();
@@ -590,8 +634,8 @@ gru_cluster_kernel(const XT* __restrict__ xp, const WT* __restrict__ whh,
 
 template <typename XT, typename WT>
 int launch_cluster(const void* xp, const void* whh, const void* bhh, void* out,
-                   float* hs, int B, int T, int H, int D, int C, int U, int KW,
-                   cudaStream_t stream) {
+                   float* hs, const float* h0, float* hT, int B, int T, int H,
+                   int D, int C, int U, int KW, cudaStream_t stream) {
   if (H % 2 || U <= 0 || U % 8 || KW < 1 || KW > 4 || U / 8 * 32 * KW > 512 ||
       C < 1 || C > 16 || C * U < H)
     return (int)cudaErrorInvalidValue;
@@ -619,50 +663,76 @@ int launch_cluster(const void* xp, const void* whh, const void* bhh, void* out,
   cfg.attrs = attr;
   cfg.numAttrs = 1;
   e = cudaLaunchKernelEx(&cfg, kern, (const XT*)xp, (const WT*)whh,
-                         (const float*)bhh, (XT*)out, hs, B, T, H, D, U, KW);
+                         (const float*)bhh, (XT*)out, hs, h0, hT, B, T, H, D,
+                         U, KW);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
+}
+
+// No step: the final carry (when asked for) is the starting one.
+int carry_through(const void* h0, void* hT, int B, int D, int H,
+                  void* stream) {
+  if (hT == nullptr) return 0;
+  const size_t n = sizeof(float) * B * D * H;
+  cudaStream_t s = (cudaStream_t)stream;
+  return (int)(h0 != nullptr
+                   ? cudaMemcpyAsync(hT, h0, n, cudaMemcpyDeviceToDevice, s)
+                   : cudaMemsetAsync(hT, 0, n, s));
 }
 
 }  // namespace
 
 // Both entries: xp [B, T, D, 3H] (x@W_ih + b_ih), whh [D, H, 3H] in xp's
 // dtype or fp32, bhh [D, 3H] fp32, out [B, T, D, H]; hs [B, T, D, H] fp32
-// carries or null; direction 1 of D = 2 runs in reverse time.
+// carries or null; h0 [B, D, H] fp32 starting carry or null (zeros); hT
+// [B, D, H] fp32 final carry or null; direction 1 of D = 2 runs in reverse
+// time.
 
 // The cluster walk: clusters of C blocks of U hidden units each, K split
 // over KW warps a unit group (the planner's choice; H even, U a multiple of
 // 8, C * U >= H, C <= 16, KW <= 4, U / 8 * 32 * KW <= 512 threads).
 extern "C" int m3f_gru_cluster_fwd(const void* xp, const void* whh,
-                                   const void* bhh, void* out, void* hs, int B,
-                                   int T, int H, int D, int x_bf16, int w_bf16,
+                                   const void* bhh, void* out, void* hs,
+                                   const void* h0, void* hT, int B, int T,
+                                   int H, int D, int x_bf16, int w_bf16,
                                    int C, int U, int KW, void* stream) {
-  if (B <= 0 || T <= 0) return 0;
+  if (B <= 0) return 0;
+  if (T <= 0) return carry_through(h0, hT, B, D, H, stream);
   if (D < 1 || D > 2 || H <= 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   if (x_bf16 && w_bf16)
     return launch_cluster<__nv_bfloat16, __nv_bfloat16>(
-        xp, whh, bhh, out, (float*)hs, B, T, H, D, C, U, KW, s);
+        xp, whh, bhh, out, (float*)hs, (const float*)h0, (float*)hT, B, T, H,
+        D, C, U, KW, s);
   if (x_bf16)
     return launch_cluster<__nv_bfloat16, float>(
-        xp, whh, bhh, out, (float*)hs, B, T, H, D, C, U, KW, s);
+        xp, whh, bhh, out, (float*)hs, (const float*)h0, (float*)hT, B, T, H,
+        D, C, U, KW, s);
   if (w_bf16) return (int)cudaErrorInvalidValue;  // W_hh is x's dtype or fp32
-  return launch_cluster<float, float>(xp, whh, bhh, out, (float*)hs, B, T, H,
+  return launch_cluster<float, float>(xp, whh, bhh, out, (float*)hs,
+                                      (const float*)h0, (float*)hT, B, T, H,
                                       D, C, U, KW, s);
 }
 
 // The stream route (the first design): any H.
 extern "C" int m3f_gru_stream_fwd(const void* xp, const void* whh,
-                                  const void* bhh, void* out, void* hs, int B,
-                                  int T, int H, int D, int x_bf16, int w_bf16,
+                                  const void* bhh, void* out, void* hs,
+                                  const void* h0, void* hT, int B, int T,
+                                  int H, int D, int x_bf16, int w_bf16,
                                   void* stream) {
-  if (B <= 0 || T <= 0) return 0;
+  if (B <= 0) return 0;
+  if (T <= 0) return carry_through(h0, hT, B, D, H, stream);
   if (D < 1 || D > 2 || H <= 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   if (x_bf16 && w_bf16)
-    return launch<__nv_bfloat16, __nv_bfloat16>(xp, whh, bhh, out, (float*)hs, B, T, H, D, s);
+    return launch<__nv_bfloat16, __nv_bfloat16>(xp, whh, bhh, out, (float*)hs,
+                                                (const float*)h0, (float*)hT,
+                                                B, T, H, D, s);
   if (x_bf16)
-    return launch<__nv_bfloat16, float>(xp, whh, bhh, out, (float*)hs, B, T, H, D, s);
+    return launch<__nv_bfloat16, float>(xp, whh, bhh, out, (float*)hs,
+                                        (const float*)h0, (float*)hT, B, T, H,
+                                        D, s);
   if (w_bf16) return (int)cudaErrorInvalidValue;  // W_hh is x's dtype or fp32
-  return launch<float, float>(xp, whh, bhh, out, (float*)hs, B, T, H, D, s);
+  return launch<float, float>(xp, whh, bhh, out, (float*)hs, (const float*)h0,
+                              (float*)hT, B, T, H, D, s);
 }

@@ -23,11 +23,16 @@ it raises unless ``--device cpu`` is given.
 ``train`` runs data-parallel over several processes, one a card, when the
 launch says so (``parallel/mesh.py``): ``--coordinator host:port,n,id`` (or
 ``M3F_COORDINATOR``) on every process, or torchrun's environment. Each
-process feeds its own ``batch_size / n`` rows (``process_sharded_stream``),
-rank 0 writes the checkpoints, and the checkpoint directory must be shared.
+row of the data axis feeds its own ``batch_size / n`` rows
+(``process_sharded_stream``), rank 0 writes the checkpoints, and the
+checkpoint directory must be shared. ``train.mesh.num_model=k`` makes rows
+of k processes that hold the same rows and run the BiGRU and the fusion
+head tensor-parallel (each holding its blocks of their weights).
 
     torchrun --nproc_per_node 4 -m m3f_torch.main train \
         --preset distributed_train data.root=/data/abaw
+    torchrun --nproc_per_node 4 -m m3f_torch.main train \
+        --preset distributed_train train.mesh.num_model=2 data.root=/data/abaw
 
 Not carried over, and refused with a ``NotImplementedError`` that names
 ROADMAP: the JAX package's XLA compilation cache (``M3F_JAX_CACHE``) and
@@ -114,15 +119,18 @@ def refuse_xla_cache(env=None) -> None:
             "under build/kernels; ROADMAP §1, not carried over): unset it")
 
 
-def train_stream(cfg: ExperimentConfig, dataset, hop_aware: bool):
+def train_stream(cfg: ExperimentConfig, dataset, hop_aware: bool,
+                 axis=None):
     """The train input of ``cmd_train``: ``factory(skip_batches)`` → this
-    process's batches of ``dataset`` (``batch_size / world`` rows a process
-    of the ``torch.distributed`` group, each a disjoint share of the data)
-    through a ``Prefetcher``. ``fit`` calls it after the checkpoint restore
-    with the restored step, so a resumed run's stream fast-forwards to the
-    exact position an uninterrupted run would be at."""
+    process's batches of ``dataset`` (``batch_size / n`` rows a row of the
+    data axis ``axis``, the trainer's mesh: each row a disjoint share of
+    the data, the same for the ranks of a row; default: every process of
+    the ``torch.distributed`` group a row) through a ``Prefetcher``.
+    ``fit`` calls it after the checkpoint restore with the restored step,
+    so a resumed run's stream fast-forwards to the exact position an
+    uninterrupted run would be at."""
     from m3f_torch.data.native_loader import Prefetcher
-    world = process_grid()[1]
+    index, world = process_grid() if axis is None else (axis.rank, axis.size)
     seq = WindowSequencer(cfg.window, cfg.model.mel, fps=cfg.data.fps,
                           mel_frames=cfg.model.audio.mel_frames_per_window,
                           per_frame=cfg.model.per_frame,
@@ -134,7 +142,8 @@ def train_stream(cfg: ExperimentConfig, dataset, hop_aware: bool):
                                    seed=cfg.train.seed,
                                    shuffle_buffer=cfg.data.shuffle_buffer,
                                    skip_batches=skip_batches,
-                                   cache_videos=cfg.data.cache_videos),
+                                   cache_videos=cfg.data.cache_videos,
+                                   process_index=index, process_count=world),
             depth=cfg.data.prefetch)
     return factory
 
@@ -185,7 +194,7 @@ def _train(cfg: ExperimentConfig, args, plan) -> int:
               "keeping the fixed nominal mel hop (audio time base warps by "
               "up to ~1/5 window at 25 fps; use model.mel_backend=xla for "
               "the per-video hop)")
-    stream = train_stream(cfg, ds, hop_aware)
+    stream = train_stream(cfg, ds, hop_aware, trainer.mesh)
     # eval during training is the default (best-checkpoint tracking and
     # early stopping depend on it); --no-eval opts out
     val = None if args.no_eval else make_dataset(cfg, "val")

@@ -11,6 +11,16 @@ autograd its gradient is backpropagation through time (``ops.gru``).
 recurrent product with ``W_hh`` in the compute dtype, ``"pallas"`` with fp32
 ``W_hh``. The unidirectional GRU follows the reference's XLA scan whatever
 the backend.
+
+Tensor parallelism (``tp``, the model axis; ``parallel/mesh.py``): each
+rank holds the column block of every gate matrix and bias (``w_ih`` /
+``w_hh`` [D, 3H/n], ``b_ih`` / ``b_hh`` [3H/n]). The input projection runs
+column-parallel, ``h @ w_ih_block + b_ih_block``, and its blocks are
+gathered into the full ``xp``; ``W_hh`` and ``b_hh`` are gathered once a
+forward, and the recurrence runs at full width on every rank of the axis
+(the gathers' backward takes the rank's own block of the full gradient,
+which every rank computes alike). The gradient of the layer's input sums
+the blocks' shares over the axis (``spread``).
 """
 
 from __future__ import annotations
@@ -22,6 +32,7 @@ from torch import nn
 
 from m3f_torch.nn import fan_in_uniform
 from m3f_torch.ops.gru import gru_scan
+from m3f_torch.parallel.mesh import gather_blocks, spread
 
 
 class GRUCell(nn.Module):
@@ -44,6 +55,7 @@ class BiGRU(nn.Module):
         if backend not in ("xla", "pallas"):
             raise ValueError(f"unknown gru backend {backend!r} (xla | pallas)")
         self.hidden, self.backend, self.bidirectional = hidden, backend, bidirectional
+        self.tp = None             # the model axis when the gates are sharded
         out_mult = 2 if bidirectional else 1
         dims = [in_dim] + [out_mult * hidden] * (num_layers - 1)
         layers: List[nn.Module] = []
@@ -54,20 +66,45 @@ class BiGRU(nn.Module):
             layers.append(layer)
         self.layers = nn.ModuleList(layers)
 
+    def cells(self, layer: nn.ModuleDict) -> List[GRUCell]:
+        return [layer["fwd"]] + ([layer["bwd"]] if self.bidirectional else [])
+
+    def w_dtype(self, dtype: torch.dtype) -> torch.dtype:
+        """The dtype of the recurrent product for activations of ``dtype``."""
+        return torch.float32 \
+            if self.backend == "pallas" and self.bidirectional else dtype
+
+    def project(self, cells, h: torch.Tensor, weight=lambda p: p
+                ) -> torch.Tensor:
+        """The input projection of ``cells`` (one layer's directions) on h
+        [B, T, D_in] → xp [B, T, directions, 3H], one product for all
+        directions (column-parallel and gathered under ``tp``); ``weight``
+        maps each parameter first."""
+        b, t, _ = h.shape
+        dtype = h.dtype
+        if self.tp is not None:
+            # each rank's column block reaches h: its gradient is the sum
+            h = spread(h, self.tp)
+        w_ih = torch.cat([weight(c.w_ih) for c in cells], dim=1).to(dtype)
+        b_ih = torch.cat([weight(c.b_ih) for c in cells]).to(dtype)
+        xp = (h @ w_ih + b_ih).reshape(b, t, len(cells), -1)
+        return gather_blocks(xp, self.tp)
+
+    def recurrent(self, cells, weight=lambda p: p):
+        """(W_hh [directions, H, 3H], b_hh fp32 [directions, 3H]) of one
+        layer, gathered whole under ``tp``."""
+        w_hh = torch.stack([weight(c.w_hh) for c in cells])
+        b_hh = torch.stack([weight(c.b_hh) for c in cells]).float()
+        return gather_blocks(w_hh, self.tp), gather_blocks(b_hh, self.tp)
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """x [B, T, D] → [B, T, 2H] (forward ‖ backward) or [B, T, H]."""
         b, t, _ = x.shape
         h = x
         for layer in self.layers:
-            cells = [layer["fwd"]] + ([layer["bwd"]] if self.bidirectional else [])
-            d = len(cells)
-            dtype = h.dtype
-            w_ih = torch.cat([c.w_ih for c in cells], dim=1).to(dtype)
-            b_ih = torch.cat([c.b_ih for c in cells]).to(dtype)
-            xp = (h @ w_ih + b_ih).reshape(b, t, d, 3 * self.hidden)
-            w_dtype = torch.float32 \
-                if self.backend == "pallas" and self.bidirectional else dtype
-            w_hh = torch.stack([c.w_hh for c in cells])
-            b_hh = torch.stack([c.b_hh for c in cells]).float()
-            h = gru_scan(xp, w_hh, b_hh, w_dtype).reshape(b, t, d * self.hidden)
+            cells = self.cells(layer)
+            xp = self.project(cells, h)
+            w_hh, b_hh = self.recurrent(cells)
+            h = gru_scan(xp, w_hh, b_hh, self.w_dtype(h.dtype)).reshape(
+                b, t, len(cells) * self.hidden)
         return h

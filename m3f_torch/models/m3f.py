@@ -21,6 +21,15 @@ ignores dropout.
 With ``model.compute_dtype="float32"`` on the card both run inside
 ``precision()`` (``nn.full_fp32``): no TF32 in cuDNN's convs or cuBLAS's
 products, as the reference computes them in fp32.
+
+``shard(tp)`` makes the model tensor-parallel over the model axis
+(``parallel/mesh.py`` ``TensorParallel``): each sharded parameter becomes
+the rank's block, the BiGRU runs column-parallel (``models/gru.py``) and
+the fusion head row-parallel: each rank multiplies its feature block of the
+fp32 GRU output by its row block of the kernel, the partial products are
+summed over the axis and the bias is added once, after the sum (backward:
+the output's gradient passes through, and the feature blocks' gradients are
+gathered into the GRU output's, which every rank holds whole).
 """
 
 from __future__ import annotations
@@ -37,7 +46,8 @@ from m3f_torch.models.gru import BiGRU
 from m3f_torch.models.r2plus1d import R2Plus1D
 from m3f_torch.nn import Dense, compute_dtype, full_fp32, resolve_device
 from m3f_torch.ops.melspec import log_mel_spectrogram
-from m3f_torch.parallel.mesh import global_rows
+from m3f_torch.parallel.mesh import (TensorParallel, global_rows, model_sum,
+                                     take_block)
 
 
 def upsample_nearest(x: torch.Tensor, length: int) -> torch.Tensor:
@@ -92,8 +102,31 @@ class M3F(nn.Module):
                          bidirectional=cfg.gru.bidirectional)
         head_in = (2 if cfg.gru.bidirectional else 1) * cfg.gru.hidden_size
         self.head = Dense(head_in, cfg.num_outputs, gen)
+        self.head_tp = None      # the model axis when the head is sharded
         self.to(dev)
         self.eval()
+
+    def shard(self, tp: TensorParallel) -> None:
+        """Keep only this rank's block of each parameter ``tp`` shards (new
+        parameters, in place of the full ones), and run the BiGRU and the
+        fusion head tensor-parallel over ``tp.axis``."""
+        for name, p in list(self.named_parameters()):
+            if tp.sharded(name):
+                owner, _, leaf = name.rpartition(".")
+                setattr(self.get_submodule(owner), leaf,
+                        nn.Parameter(tp.block(name, p.data)))
+        if any(n.startswith("gru.") for n in tp.dims):
+            self.gru.tp = tp.axis
+        if tp.sharded("head.kernel"):
+            self.head_tp = tp.axis
+
+    def _head(self, x: torch.Tensor) -> torch.Tensor:
+        """The fusion head on the fp32 GRU output (row-parallel under
+        ``shard``)."""
+        if self.head_tp is None:
+            return self.head(x)
+        part = take_block(x, self.head_tp) @ self.head.kernel
+        return model_sum(part, self.head_tp) + self.head.bias
 
     @torch.no_grad()
     def forward(self, video: Optional[torch.Tensor] = None,
@@ -172,7 +205,7 @@ class M3F(nn.Module):
         seq = self.gru(fused)
         if rate > 0.0:
             seq = apply_dropout(seq, _keep_mask(seq, rate, generator), rate)
-        out = self.head(seq.float())
+        out = self._head(seq.float())
         if cfg.head_activation == "tanh":
             out = torch.tanh(out)
         if per_frame:

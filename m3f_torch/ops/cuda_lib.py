@@ -58,9 +58,9 @@ SIGNATURES = {
                                 I, I, I, I, I, Fl, P, I, P],
                 "m3f_log_mel_dft": [P, I, I, I, P, I, I, I, I, P, P, P, I, I,
                                     I, Fl, P, I, P]},
-    "gru": {"m3f_gru_cluster_fwd": [P, P, P, P, P, I, I, I, I, I, I, I, I, I,
-                                    P],
-            "m3f_gru_stream_fwd": [P, P, P, P, P, I, I, I, I, I, I, P]},
+    "gru": {"m3f_gru_cluster_fwd": [P, P, P, P, P, P, P, I, I, I, I, I, I, I,
+                                    I, I, P],
+            "m3f_gru_stream_fwd": [P, P, P, P, P, P, P, I, I, I, I, I, I, P]},
     "conv_bn": {"m3f_conv_unit_fwd": [P, P, P, P, P, P, P, P, I, I, I, I, I,
                                       I, I, I, I, I, I, I, P],
                 "m3f_conv_unit_bwd_data": [P, P, P, P, P, P, P, P, P, P, P, P,

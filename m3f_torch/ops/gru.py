@@ -11,6 +11,12 @@ result is [B, T, D, H] in ``xp``'s dtype — the directions' concatenation
 [B, T, D·H] as a view. With D = 2 the second direction runs backwards in
 time, read and written at reversed indices, so nothing is flipped.
 
+Carried state: ``h0`` [B, D, H] fp32 is the carry each lane starts from
+(None: zeros; lane 1 starts at the last time index) and ``last=True``
+also returns the carry after each lane's last step, [B, D, H] fp32. A
+sequence scanned in chunks, each from the carry the one before left, gives
+the bits of one scan (the sequence-parallel BiGRU, ``parallel/seqpar.py``).
+
 Numerics of both versions: h is carried in fp32; the recurrent product
 takes h rounded to the weights' compute dtype, accumulates in fp32 and
 rounds the product to that dtype (bf16 weights: the reference's XLA scan;
@@ -184,13 +190,35 @@ def _gates(x_t: torch.Tensor, hp: torch.Tensor, hdim: int):
     return r, z, n, hn
 
 
+def _result(out, hs, h_last):
+    """``out``, or the tuple of ``out`` and those of the fp32 carries of
+    every step and the final carry that were asked for."""
+    extra = tuple(v for v in (hs, h_last) if v is not None)
+    return (out,) + extra if extra else out
+
+
+def _check_h0(h0: Optional[torch.Tensor], b: int, d: int, hdim: int,
+              device) -> None:
+    if h0 is not None and (tuple(h0.shape) != (b, d, hdim)
+                           or h0.dtype != torch.float32
+                           or h0.device != device):
+        raise ValueError(f"gru_scan h0 must be fp32 [B, D, H] = "
+                         f"{(b, d, hdim)} on {device}; got {tuple(h0.shape)} "
+                         f"{h0.dtype} on {h0.device}")
+
+
 def gru_scan_reference(xp: torch.Tensor, w_hh: torch.Tensor,
-                       b_hh: torch.Tensor, carries: bool = False):
-    """The recurrence as a Python loop over time (see module doc); with
-    ``carries`` also the fp32 h of every step, [B, T, D, H]."""
+                       b_hh: torch.Tensor, carries: bool = False,
+                       h0: Optional[torch.Tensor] = None, last: bool = False):
+    """The recurrence as a Python loop over time (see module doc), each
+    lane from ``h0`` (None: zeros); with ``carries`` also the fp32 h of
+    every step, [B, T, D, H]; with ``last`` also the final carry [B, D,
+    H]."""
     b, t, d, h3 = xp.shape
     hdim = h3 // 3
-    h = torch.zeros(b, d, hdim, dtype=torch.float32, device=xp.device)
+    _check_h0(h0, b, d, hdim, xp.device)
+    h = torch.zeros(b, d, hdim, dtype=torch.float32, device=xp.device) \
+        if h0 is None else h0.clone()
     out = torch.empty(b, t, d, hdim, dtype=xp.dtype, device=xp.device)
     hs = torch.empty(b, t, d, hdim, dtype=torch.float32, device=xp.device) \
         if carries else None
@@ -205,20 +233,23 @@ def gru_scan_reference(xp: torch.Tensor, w_hh: torch.Tensor,
         out[:, idx, lanes] = h.to(xp.dtype)
         if carries:
             hs[:, idx, lanes] = h
-    return (out, hs) if carries else out
+    return _result(out, hs, h if last else None)
 
 
 def _gru_forward(xp: torch.Tensor, w_hh: torch.Tensor, b_hh: torch.Tensor,
-                 carries: bool = False, route: Optional[str] = None):
+                 carries: bool = False, route: Optional[str] = None,
+                 h0: Optional[torch.Tensor] = None, last: bool = False):
     """Plain loop on the CPU, one kernel launch for all directions on the
     card, on ``route`` (default: ``gru_route``'s choice; "stream" forces
-    the first design, for timing); ``carries`` as in
+    the first design, for timing); ``carries``, ``h0`` and ``last`` as in
     ``gru_scan_reference``."""
     if xp.device.type == "cpu":
-        return gru_scan_reference(xp, w_hh, b_hh, carries)
-    cuda_lib.require_cuda("gru_scan", xp, w_hh, b_hh)
+        return gru_scan_reference(xp, w_hh, b_hh, carries, h0, last)
+    cuda_lib.require_cuda("gru_scan", xp, w_hh, b_hh,
+                          *(() if h0 is None else (h0,)))
     b, t, d, h3 = xp.shape
     hdim = h3 // 3
+    _check_h0(h0, b, d, hdim, xp.device)
     ok = (h3 == 3 * hdim and d in (1, 2)
           and tuple(w_hh.shape) == (d, hdim, h3) and tuple(b_hh.shape) == (d, h3)
           and xp.dtype in (torch.float32, torch.bfloat16)
@@ -236,8 +267,12 @@ def _gru_forward(xp: torch.Tensor, w_hh: torch.Tensor, b_hh: torch.Tensor,
     out = torch.empty(b, t, d, hdim, dtype=xp.dtype, device=xp.device)
     hs = torch.empty(b, t, d, hdim, dtype=torch.float32, device=xp.device) \
         if carries else None
+    h0 = None if h0 is None else h0.contiguous()
+    h_last = torch.empty(b, d, hdim, dtype=torch.float32, device=xp.device) \
+        if last else None
+    ptr = lambda v: None if v is None else v.data_ptr()
     args = (xp.data_ptr(), w_hh.data_ptr(), b_hh.data_ptr(), out.data_ptr(),
-            None if hs is None else hs.data_ptr(), b, t, hdim, d,
+            ptr(hs), ptr(h0), ptr(h_last), b, t, hdim, d,
             int(xp.dtype == torch.bfloat16), int(w_bf16))
     lib = cuda_lib.library("gru")
     with torch.cuda.device(xp.device):
@@ -255,28 +290,35 @@ def _gru_forward(xp: torch.Tensor, w_hh: torch.Tensor, b_hh: torch.Tensor,
             raise ValueError(f"unknown gru route {route!r} (cluster | stream)")
     cuda_lib.check(err, f"gru_scan kernel ({route})")
     cuda_lib.launches[counter] += 1
-    return (out, hs) if carries else out
+    return _result(out, hs, h_last)
 
 
 def gru_bptt(gout: torch.Tensor, xp: torch.Tensor, w: torch.Tensor,
-             b_hh: torch.Tensor, hs: torch.Tensor
-             ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+             b_hh: torch.Tensor, hs: torch.Tensor,
+             h0: Optional[torch.Tensor] = None,
+             dh_last: Optional[torch.Tensor] = None
+             ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """Backpropagation through time → (dxp in xp's dtype, dW_hh fp32,
-    db_hh fp32). ``w`` [D, H, 3H] is in the compute dtype of the recurrent
-    product, ``hs`` the forward's fp32 carries, ``gout`` the output's
-    cotangent [B, T, D, H]."""
+    db_hh fp32, dh0 fp32 [B, D, H]: the cotangent of the starting carry).
+    ``w`` [D, H, 3H] is in the compute dtype of the recurrent product,
+    ``hs`` the forward's fp32 carries, ``h0`` the carry it started from
+    (None: zeros), ``gout`` the output's cotangent [B, T, D, H] and
+    ``dh_last`` that of the final carry (None: zeros)."""
     b, t, d, h3 = xp.shape
     hdim = h3 // 3
     lanes = torch.arange(d, device=xp.device)
     dxp = torch.empty_like(xp)
     dw = torch.zeros(d, hdim, h3, dtype=torch.float32, device=xp.device)
     db = torch.zeros(d, h3, dtype=torch.float32, device=xp.device)
-    dh = torch.zeros(b, d, hdim, dtype=torch.float32, device=xp.device)
+    dh = torch.zeros(b, d, hdim, dtype=torch.float32, device=xp.device) \
+        if dh_last is None else dh_last.float().clone()
     wt = w.transpose(1, 2)                              # [D, 3H, H]
     for step in reversed(range(t)):
         idx = _lane_index(d, t, step, xp.device)
         if step > 0:
             h_prev = hs[:, _lane_index(d, t, step - 1, xp.device), lanes]
+        elif h0 is not None:
+            h_prev = h0
         else:
             h_prev = torch.zeros_like(dh)
         hw = h_prev.to(w.dtype)
@@ -293,33 +335,43 @@ def gru_bptt(gout: torch.Tensor, xp: torch.Tensor, w: torch.Tensor,
         dot = dhp.to(w.dtype)
         dw += torch.einsum("bdh,bdg->dhg", hw, dot).float()
         dh = dh * z + torch.einsum("bdg,dgh->bdh", dot, wt).float()
-    return dxp, dw, db
+    return dxp, dw, db, dh
 
 
 class _GRUScan(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, xp, w_hh, b_hh, w_dtype):
-        w = w_hh.to(w_dtype)
-        out, hs = _gru_forward(xp, w, b_hh, carries=True)
-        ctx.save_for_backward(xp, w, b_hh, hs)
-        ctx.w_hh_dtype = w_hh.dtype
-        return out
+    """The recurrence from ``h0`` (None: zeros), returning the output and
+    the final carry; the backward takes both cotangents and returns that
+    of ``h0`` too."""
 
     @staticmethod
-    def backward(ctx, gout):
-        xp, w, b_hh, hs = ctx.saved_tensors
-        dxp, dw, db = gru_bptt(gout, xp, w, b_hh, hs)
-        return dxp, dw.to(ctx.w_hh_dtype), db, None
+    def forward(ctx, xp, w_hh, b_hh, h0, w_dtype):
+        w = w_hh.to(w_dtype)
+        out, hs, h_last = _gru_forward(xp, w, b_hh, carries=True, h0=h0,
+                                       last=True)
+        ctx.save_for_backward(xp, w, b_hh, hs, h0)
+        ctx.w_hh_dtype = w_hh.dtype
+        return out, h_last
+
+    @staticmethod
+    def backward(ctx, gout, gh_last):
+        xp, w, b_hh, hs, h0 = ctx.saved_tensors
+        dxp, dw, db, dh0 = gru_bptt(gout, xp, w, b_hh, hs, h0, gh_last)
+        return dxp, dw.to(ctx.w_hh_dtype), db, \
+            None if h0 is None else dh0, None
 
 
 def gru_scan(xp: torch.Tensor, w_hh: torch.Tensor, b_hh: torch.Tensor,
-             w_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+             w_dtype: Optional[torch.dtype] = None,
+             h0: Optional[torch.Tensor] = None, last: bool = False):
     """GRU recurrence (module doc), the recurrent product in ``w_dtype``
-    (default: ``w_hh``'s dtype). Differentiable: with autograd on, the
-    kernel also keeps the fp32 carries for ``gru_bptt``, and ``w_hh``'s
-    gradient accumulates in fp32 across steps whatever ``w_dtype`` is."""
+    (default: ``w_hh``'s dtype), each lane from ``h0`` (None: zeros); with
+    ``last`` → (output, final carry). Differentiable (in ``h0`` too): with
+    autograd on, the kernel also keeps the fp32 carries for ``gru_bptt``,
+    and ``w_hh``'s gradient accumulates in fp32 across steps whatever
+    ``w_dtype`` is."""
     w_dtype = w_dtype or w_hh.dtype
-    if torch.is_grad_enabled() and any(
-            v.requires_grad for v in (xp, w_hh, b_hh)):
-        return _GRUScan.apply(xp, w_hh, b_hh, w_dtype)
-    return _gru_forward(xp, w_hh.to(w_dtype), b_hh)
+    leaves = (xp, w_hh, b_hh) + (() if h0 is None else (h0,))
+    if torch.is_grad_enabled() and any(v.requires_grad for v in leaves):
+        out, h_last = _GRUScan.apply(xp, w_hh, b_hh, h0, w_dtype)
+        return (out, h_last) if last else out
+    return _gru_forward(xp, w_hh.to(w_dtype), b_hh, h0=h0, last=last)

@@ -1,2 +1,3 @@
-"""Data-parallel training and sharded whole-video eval across processes
-(``mesh``: the launch and the data axis; ``seqpar``: the sharded eval)."""
+"""Training and eval across processes (``mesh``: the launch, the rank
+layout, the data and model axes and their collectives; ``seqpar``: the
+sharded eval and the sequence-parallel BiGRU)."""

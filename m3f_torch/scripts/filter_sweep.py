@@ -2615,18 +2615,27 @@ def gru_inputs(shape, dtypes, dev, g):
     return xp, w, bias
 
 
-def launch_gru(fn, xp, w, bias, cut=None, carries=False, cluster=True):
+# the C signature of an older source's stream entry ``m3f_gru_fwd`` (no
+# carried state)
+PARENT_GRU_SIGNATURE = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 \
+    + [ctypes.c_void_p]
+
+
+def launch_gru(fn, xp, w, bias, cut=None, carries=False, cluster=True,
+               parent=False):
     """One call of a build's ``m3f_gru_cluster_fwd`` with the planner's cut
     or ``cut`` = (cluster, units, ksplit) in its place, or (``cluster``
-    False) of a stream entry point (``m3f_gru_stream_fwd``, an earlier
-    source's ``m3f_gru_fwd``). None when the entry point refuses the cut."""
+    False) of a stream entry point (``m3f_gru_stream_fwd``, or with
+    ``parent`` an earlier source's ``m3f_gru_fwd``, which takes no carried
+    state). None when the entry point refuses the cut."""
     b, t, d, h3 = xp.shape
     h = h3 // 3
     out = torch.empty(b, t, d, h, dtype=xp.dtype, device=xp.device)
     hs = torch.empty(b, t, d, h, dtype=torch.float32, device=xp.device) \
         if carries else None
+    state = () if parent else (None, None)      # h0, final carry
     args = (xp.data_ptr(), w.data_ptr(), bias.data_ptr(), out.data_ptr(),
-            None if hs is None else hs.data_ptr(), b, t, h, d,
+            None if hs is None else hs.data_ptr(), *state, b, t, h, d,
             int(xp.dtype == torch.bfloat16), int(w.dtype == torch.bfloat16))
     if cluster:
         plan = gru.gru_plan(b, t, h, d, w.dtype == torch.bfloat16)
@@ -2721,8 +2730,7 @@ def sweep_gru(reps: int, parent: Optional[str]) -> None:
     old = None
     if parent:
         old = build_variants({"gru_parent": ""}, "m3f_gru_fwd",
-                             {"gru_parent": parent},
-                             cuda_lib.SIGNATURES["gru"]["m3f_gru_stream_fwd"]
+                             {"gru_parent": parent}, PARENT_GRU_SIGNATURE
                              )["gru_parent"]
     g = torch.Generator(device=dev).manual_seed(17)
     for name, shape in GRU_SHAPES.items():
@@ -2742,7 +2750,7 @@ def sweep_gru(reps: int, parent: Optional[str]) -> None:
                 if run(cut=cut) is not None:
                     fns[cname] = lambda cut=cut: run(cut=cut)
             if old is not None:
-                fns["parent"] = lambda: run(old, cluster=False)
+                fns["parent"] = lambda: run(old, cluster=False, parent=True)
             if dname == "bf16":
                 ref = torch.nn.GRU(768, h, batch_first=True,
                                    bidirectional=d == 2).to(dev, dtypes[0])

@@ -22,7 +22,12 @@ unknown layout and a key set that fits neither layout abort), keeps the best
 by eval CCC and saves on SIGTERM. In a ``torch.distributed`` group only
 rank 0 writes, prunes and saves on SIGTERM, and every rank reads (the
 checkpoint directory must be shared), then checks that all restored the
-same step.
+same step. Under tensor parallelism (``TrainState.tp``) every leaf is
+written whole: the writer gathers each sharded param, moment and EMA leaf
+over its model axis first (every rank takes part), so the keys, shapes and
+``opt_layout`` are those of a one-process file and of the JAX package's;
+every rank reads the whole arrays and keeps its blocks. A checkpoint thus
+resumes under any ``(num_data, num_model)``, the JAX package's included.
 
 The load side reads a JAX checkpoint with numpy alone:
 ``read_model_checkpoint(path)`` gives the port's ``state_dict`` and step
@@ -59,7 +64,7 @@ import numpy as np
 import torch
 
 from m3f_torch.config import ExperimentConfig
-from m3f_torch.parallel.mesh import agree, barrier, world_axis
+from m3f_torch.parallel.mesh import TensorParallel, agree, barrier, world_axis
 
 # meta tag of the optimizer-state layout written here: the reference's optax
 # chain (the JAX package tags nothing, and an untagged file is read so)
@@ -99,15 +104,24 @@ def _convert(flat: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
     return out
 
 
-def from_jax_params(params: Any, bn_state: Any) -> Dict[str, torch.Tensor]:
+def _blocks(tensors: Dict[str, torch.Tensor],
+            tp: Optional[TensorParallel]) -> Dict[str, torch.Tensor]:
+    return tensors if tp is None else tp.blocks(tensors)
+
+
+def from_jax_params(params: Any, bn_state: Any,
+                    tp: Optional[TensorParallel] = None
+                    ) -> Dict[str, torch.Tensor]:
     """The port's state dict from the JAX package's nested numpy pytrees
-    (``M3F.init`` params and BN state, or their host copies)."""
+    (``M3F.init`` params and BN state, or their host copies); with a
+    tensor-parallel layout ``tp``, this rank's blocks of the sharded leaves
+    (the JAX arrays are whole: gathered on the host)."""
     flat = _flatten(params)
     for k, v in _flatten(bn_state).items():
         if k in flat:
             raise ValueError(f"leaf {k!r} is in both params and bn_state")
         flat[k] = v
-    return _convert(flat)
+    return _blocks(_convert(flat), tp)
 
 
 def _model_leaves(path: str):
@@ -162,12 +176,13 @@ def read_model_checkpoint(path: str) -> Tuple[Dict[str, torch.Tensor], int]:
 
 
 def _fit_to(template: Dict[str, torch.Tensor], flat: Dict[str, np.ndarray],
-            path: str) -> Dict[str, torch.Tensor]:
+            path: str, tp: Optional[TensorParallel] = None
+            ) -> Dict[str, torch.Tensor]:
     """``/``-keyed leaves converted onto ``template``'s names, shapes and
-    dtypes (host tensors); raises on a leaf the template lacks, on a
-    template name the leaves lack and on a leaf of another shape (an
-    r3d_18 file on an mc3_18 template has the same names), all before any
-    tensor is returned."""
+    dtypes (host tensors; this rank's blocks under ``tp``); raises on a
+    leaf the template lacks, on a template name the leaves lack and on a
+    leaf of another shape (an r3d_18 file on an mc3_18 template has the
+    same names), all before any tensor is returned."""
     conv = _convert(flat)
     extra = sorted(conv.keys() - template.keys())
     if extra:
@@ -177,6 +192,7 @@ def _fit_to(template: Dict[str, torch.Tensor], flat: Dict[str, np.ndarray],
     if missing:
         raise ValueError(f"checkpoint {path} missing model leaf "
                          f"{missing[0]} (and {len(missing) - 1} more)")
+    conv = _blocks(conv, tp)
     shape = sorted(n for n, t in template.items()
                    if tuple(conv[n].shape) != tuple(t.shape))
     if shape:
@@ -192,14 +208,15 @@ def load_model_checkpoint(state, path: str):
     shapes and dtypes, as host tensors (``Trainer.commit_state`` puts them
     on the device); the step of a TrainState file, else ``state``'s; the
     optimizer state and ``lr_mult`` of ``state``. The EMA shadow, if
-    ``state`` has one, is a copy of the loaded params. Both layouts load
+    ``state`` has one, is a copy of the loaded params. A tensor-parallel
+    state (``state.tp``) gets this rank's blocks. Both layouts load
     (``read_model_checkpoint``); a model leaf the template lacks, a missing
     one and (import layout) any other key raise ``ValueError``."""
     params, bn, step, stray = _model_leaves(path)
     if step is None and stray:
         raise ValueError(f"checkpoint mismatch: {path} has keys outside "
                          f"params/ and state/: {sorted(stray)[:5]}")
-    new_params = _fit_to(state.params, params, path)
+    new_params = _fit_to(state.params, params, path, state.tp)
     return replace(
         state, params=new_params,
         bn_state=_fit_to(state.bn_state, bn, path),
@@ -374,13 +391,14 @@ def _leaf(tree: dict, path: tuple):
 
 
 def _optax_snapshot(opt: dict, adamw: bool, cp) -> Dict[str, Any]:
-    """{".opt_state/<optax key>": leaf} of ``opt`` (tensors through ``cp``;
-    conv moments as permuted views, in the reference's axis order)."""
+    """{".opt_state/<optax key>": leaf} of ``opt`` (tensors through ``cp``,
+    which takes the parameter name and the leaf; conv moments as permuted
+    views, in the reference's axis order)."""
     out: Dict[str, Any] = {}
     for key, path in _optax_leaves(opt, adamw):
         v = _leaf(opt, path)
         if isinstance(v, torch.Tensor):
-            v = cp(v)
+            v = cp(path[-1], v)
             if _is_conv(path[-1], v.dim()):
                 v = v.permute(_kernel_perm(v.dim(), True))
         out[".opt_state/" + key] = v
@@ -395,13 +413,19 @@ def _file_adamw(opt: dict, data: Dict[str, np.ndarray]) -> bool:
 
 
 def _snapshot(state, clone: bool, adamw: bool) -> Dict[str, Any]:
-    """The state's leaves by checkpoint key, still on their device (copies
-    when ``clone``); converted by ``_to_arrays``."""
-    cp = (lambda t: t.detach().clone()) if clone else (lambda t: t.detach())
-    snap: Dict[str, Any] = {"params": {n: cp(t) for n, t in state.params.items()},
-                            "bn_state": {n: cp(t) for n, t in state.bn_state.items()},
+    """The state's leaves by checkpoint key, whole (the sharded ones
+    gathered over the model axis: a collective under ``state.tp``), still
+    on their device (copies when ``clone``); converted by ``_to_arrays``."""
+    tp = state.tp
+
+    def cp(name: str, t: torch.Tensor) -> torch.Tensor:
+        if tp is not None and tp.sharded(name):
+            return tp.full(name, t.detach())
+        return t.detach().clone() if clone else t.detach()
+    snap: Dict[str, Any] = {"params": {n: cp(n, t) for n, t in state.params.items()},
+                            "bn_state": {n: cp(n, t) for n, t in state.bn_state.items()},
                             "ema": None if state.ema is None else
-                            {n: cp(t) for n, t in state.ema.items()},
+                            {n: cp(n, t) for n, t in state.ema.items()},
                             "step": int(state.step), "lr_mult": state.lr_mult}
     snap["opt"] = _optax_snapshot(state.opt_state, adamw, cp)
     return snap
@@ -433,10 +457,11 @@ def _model_keys(state) -> set:
 
 
 def _fill_optax(opt: dict, data: Dict[str, np.ndarray], adamw: bool,
-                step: int, path: str) -> None:
+                step: int, path: str,
+                tp: Optional[TensorParallel] = None) -> None:
     """Copy a file's optax leaves into the port's state ``opt`` in place
-    (counts as ints); SGD's count, which optax does not keep, becomes the
-    number of updates applied."""
+    (counts as ints; this rank's blocks under ``tp``); SGD's count, which
+    optax does not keep, becomes the number of updates applied."""
     for key, at in _optax_leaves(opt, adamw):
         v = data[".opt_state/" + key]
         cur = _leaf(opt, at)
@@ -446,6 +471,8 @@ def _fill_optax(opt: dict, data: Dict[str, np.ndarray], adamw: bool,
         t = torch.from_numpy(np.asarray(v, np.float32))
         if key.endswith("/kernel") and t.dim() >= 4:
             t = t.permute(_kernel_perm(t.dim(), False))
+        if tp is not None:
+            t = tp.block(at[-1], t)
         if tuple(t.shape) != tuple(cur.shape):
             raise ValueError(f"checkpoint {path}: optimizer leaf {key} has "
                              f"shape {tuple(np.shape(v))}, the state's "
@@ -460,8 +487,10 @@ def _fill_optax(opt: dict, data: Dict[str, np.ndarray], adamw: bool,
 def _restore(state, data: Dict[str, np.ndarray], path: str,
              layout: str) -> None:
     """Copy a checkpoint's leaves into ``state`` in place (same device and
-    tensors); raise ``ValueError`` naming the missing and extra leaves when
-    the file's keys are not the state's in ``layout``."""
+    tensors; this rank's blocks of the whole arrays under ``state.tp``);
+    raise ``ValueError`` naming the missing and extra leaves when the
+    file's keys are not the state's in ``layout``."""
+    tp = state.tp
     adamw = _file_adamw(state.opt_state, data)
     if layout == OWN_LAYOUT:
         opt_keys = set(_flatten_opt(state.opt_state))
@@ -478,15 +507,16 @@ def _restore(state, data: Dict[str, np.ndarray], path: str,
         tensors = getattr(state, group)
         if tensors is None:
             continue
-        conv = _convert({k[len(group) + 2:]: v for k, v in data.items()
-                         if k.startswith(f".{group}/")})
+        conv = _blocks(_convert({k[len(group) + 2:]: v
+                                 for k, v in data.items()
+                                 if k.startswith(f".{group}/")}), tp)
         for n, t in tensors.items():
             t.data.copy_(conv[n].reshape(t.shape))
     state.step = int(data[".step"])
     if state.lr_mult is not None:
         state.lr_mult = float(data[".lr_mult"])
     if layout != OWN_LAYOUT:
-        _fill_optax(state.opt_state, data, adamw, state.step, path)
+        _fill_optax(state.opt_state, data, adamw, state.step, path, tp)
         return
 
     def fill(tree, prefix):
@@ -495,7 +525,10 @@ def _restore(state, data: Dict[str, np.ndarray], path: str,
             if isinstance(v, dict):
                 fill(v, key)
             elif isinstance(v, torch.Tensor):
-                v.copy_(torch.from_numpy(data[key]).reshape(v.shape))
+                whole = torch.from_numpy(data[key])
+                if tp is not None:
+                    whole = tp.block(k, whole)
+                v.copy_(whole.reshape(v.shape))
             else:
                 tree[k] = int(data[key])
     fill(state.opt_state, ".opt_state")
@@ -559,7 +592,9 @@ class Checkpointer:
 
     @staticmethod
     def _primary() -> bool:
-        """Only rank 0 writes: the state is replicated, so every rank's
+        """Only rank 0 writes: every leaf it writes is whole there (the
+        replicated ones are the same on every rank, the sharded ones are
+        gathered over the model axis first, ``_gathered``), so every rank's
         write would be the same file, and keep-K prunes would interleave.
         Every rank reads (``maybe_restore``), so the directory must be
         shared storage."""
@@ -580,8 +615,13 @@ class Checkpointer:
                 "(cfg=...) or restore through it first")
         return False
 
-    def _snap(self, state, clone: bool) -> Dict[str, Any]:
-        return _snapshot(state, clone, self._adamw(state.opt_state))
+    def _gathered(self, state, clone: bool) -> Optional[Dict[str, Any]]:
+        """The snapshot the writer writes, None on the other ranks; under
+        tensor parallelism every rank takes part in the gathers."""
+        if state.tp is None and not self._primary():
+            return None
+        snap = _snapshot(state, clone, self._adamw(state.opt_state))
+        return snap if self._primary() else None
 
     def _meta(self, step: int) -> dict:
         meta = {"step": step, "opt_layout": OPT_LAYOUT}
@@ -594,10 +634,10 @@ class Checkpointer:
         """Write ``state`` now (after any write in flight) and prune."""
         self.wait()
         path = self._path(int(state.step))
-        if not self._primary():
+        snap = self._gathered(state, clone=False)
+        if snap is None:
             return path
-        save_pytree(_to_arrays(self._snap(state, clone=False)), path,
-                    self._meta(int(state.step)))
+        save_pytree(_to_arrays(snap), path, self._meta(int(state.step)))
         self._prune()
         return path
 
@@ -607,23 +647,24 @@ class Checkpointer:
         write in flight at a time."""
         self.wait()
         path = self._path(int(state.step))
-        if not self._primary():
+        snap = self._gathered(state, clone=True)
+        if snap is None:
             return path
-        self._start_writer(self._snap(state, clone=True), path,
-                           self._meta(int(state.step)), prune=True)
+        self._start_writer(snap, path, self._meta(int(state.step)),
+                           prune=True)
         return path
 
     def save_best(self, state, metric: float) -> str:
         """best.npz, written like ``save_async``."""
         self.wait()
-        if not self._primary():
+        snap = self._gathered(state, clone=True)
+        if snap is None:
             return self.best_path()
         meta = {"step": int(state.step), "metric": float(metric),
                 "opt_layout": OPT_LAYOUT}
         if self.cfg is not None:
             meta["config_hash"] = self.cfg.config_hash()
-        self._start_writer(self._snap(state, clone=True), self.best_path(),
-                           meta)
+        self._start_writer(snap, self.best_path(), meta)
         return self.best_path()
 
     def _start_writer(self, snap, path: str, meta: dict,

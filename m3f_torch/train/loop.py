@@ -65,6 +65,18 @@ Counterpart of ``m3f/pytorch_tpu/train/loop.py``:
   whole batch. The whole-video eval splits a video's W-window sequences
   over the ranks and gathers the predictions back (``parallel/seqpar.py``),
   so every rank gets the same evals and best-checkpoint choices.
+- **Tensor parallelism** (``train.mesh.num_model > 1``): the processes form
+  ``num_data`` rows of ``num_model``; the ranks of a row hold the same rows
+  of the batch and the model is tensor-parallel over them (the BiGRU
+  column-parallel, the fusion head row-parallel: ``M3F.shard``). A rank
+  holds only its block of each sharded parameter (``TrainState.tp``), and
+  so of its Adam moments, gradient accumulator and EMA shadow; the batch
+  reductions and the gradient sum run over the data axis (the rank's
+  column), and the gradient norm of the clip and of ``grad_norm`` adds the
+  sharded blocks' squares over the row (``optim.global_norm``), so a step
+  equals the one-process step. Every rank builds the one-process init from
+  the seed and keeps its blocks; checkpoints hold whole arrays
+  (``train/checkpoint.py``).
 
 ``make_eval_forward`` is the streaming sessions' group forward (a host
 feed of W-window sequences → per-frame predictions). ``fit`` traces steps
@@ -92,8 +104,9 @@ from m3f_torch.ops.ccc import (ccc, ccc_from_stats, ccc_loss,
 from m3f_torch.ops.stitch import (coverage_matrix, smooth_moving_average,
                                   stitch_framewise, stitch_framewise_sums,
                                   window_starts)
-from m3f_torch.parallel.mesh import (broadcast_, create_mesh, data_parallel,
-                                     sum_grads)
+from m3f_torch.parallel.mesh import (TensorParallel, broadcast_, create_mesh,
+                                     data_parallel, sum_grads, tensor_parallel,
+                                     world_axis)
 from m3f_torch.parallel.seqpar import make_sharded_eval_forward
 from m3f_torch.train.checkpoint import load_pretrained_init
 from m3f_torch.train.optim import global_norm, make_optimizer
@@ -139,13 +152,16 @@ class TrainState:
     parameter / buffer names to the model's own tensors; ``ema`` is a
     separate fp32 copy of the params (``train.ema_decay > 0``) or None;
     ``lr_mult`` the plateau multiplier (``optim.schedule == "plateau"``) or
-    None."""
+    None; ``tp`` the tensor-parallel layout (the reference's shardings:
+    which params, moments and EMA leaves this rank holds as its block) or
+    None, every leaf whole."""
     params: Tensors
     bn_state: Tensors
     opt_state: dict
     step: int
     ema: Optional[Tensors] = None
     lr_mult: Optional[float] = None
+    tp: Optional[TensorParallel] = None
 
 
 class BestTracker:
@@ -222,19 +238,25 @@ class Trainer:
                 f"window.window_frames={cfg.window.window_frames} but "
                 f"model.frames_per_window={cfg.model.frames_per_window} — "
                 "these must match")
-        # the data axis over the processes of the torch.distributed group
-        # (one process without one); a mesh it cannot build is refused
+        # the mesh over the processes of the torch.distributed group (one
+        # process without one); a mesh it cannot build is refused
         self.mesh = create_mesh(cfg.train.mesh.num_data,
                                 cfg.train.mesh.num_model)
         if cfg.train.batch_size % self.mesh.size:
             raise ValueError(
                 f"train.batch_size={cfg.train.batch_size} must be divisible "
-                f"by the {self.mesh.size} processes of the data axis")
+                f"by the {self.mesh.size} rows of the data axis")
         self.cfg = cfg
         self.device = resolve_device(device)
         self.model = M3F(cfg.model, device=self.device,
                          generator=torch.Generator().manual_seed(cfg.train.seed))
-        self.tx = make_optimizer(cfg.train.optim, cfg.train.num_steps)
+        self.tp = tensor_parallel(
+            {n: p.shape for n, p in self.model.named_parameters()},
+            self.mesh.model)
+        if self.tp is not None:
+            self.model.shard(self.tp)
+        self.tx = make_optimizer(cfg.train.optim, cfg.train.num_steps,
+                                 tp=self.tp)
         self.loss_fn = make_loss(cfg.train.loss, cfg.train.mse_weight,
                                  cfg.train.ccc_stats)
         self._last_state: Optional[TrainState] = None   # SIGTERM save
@@ -252,7 +274,10 @@ class Trainer:
         that file. ``keep_weights=True`` starts from what the caller loaded
         into ``self.model`` instead; it and ``model.init_from`` are
         refused together. The state's params and BN state are the model's
-        own tensors: ``commit_state(..., eval_only=True)`` snapshots them."""
+        own tensors: ``commit_state(..., eval_only=True)`` snapshots them.
+        Under tensor parallelism the model holds this rank's blocks (the
+        caller loads blocks, e.g. ``checkpoint.from_jax_params(..., tp=)``),
+        and the seeded init is the one-process init's blocks."""
         init_from = self.cfg.model.init_from
         if keep_weights and init_from:
             raise ValueError(
@@ -265,17 +290,25 @@ class Trainer:
             sd = fresh.state_dict()
             if init_from:
                 sd = load_pretrained_init(sd, init_from)
+            if self.tp is not None:
+                sd = self.tp.blocks(sd)
             self.model.load_state_dict(sd)
-        # every rank starts from rank 0's weights
-        broadcast_([t.data for t in self.model.state_dict().values()],
-                   self.mesh)
+        # every rank starts from rank 0's weights, and its blocks from the
+        # first rank of its data axis (which holds the same blocks)
+        sd = self.model.state_dict()
+        tp = self.tp
+        broadcast_([t.data for n, t in sd.items()
+                    if tp is None or not tp.sharded(n)], world_axis())
+        if tp is not None:
+            broadcast_([t.data for n, t in sd.items() if tp.sharded(n)],
+                       self.mesh)
         params = dict(self.model.named_parameters())
         ema = ({n: p.detach().clone() for n, p in params.items()}
                if self.cfg.train.ema_decay > 0 else None)
         lr_mult = 1.0 if self.cfg.train.optim.schedule == "plateau" else None
         return TrainState(params, dict(self.model.named_buffers()),
                           self.tx.init({n: p.detach() for n, p in params.items()}),
-                          0, ema, lr_mult)
+                          0, ema, lr_mult, tp)
 
     def commit_state(self, state: TrainState,
                      eval_only: bool = False) -> TrainState:
@@ -382,7 +415,7 @@ class Trainer:
             for n, p in params.items():
                 p.add_(updates[n])
             metrics = {"loss": loss.detach(),
-                       "grad_norm": global_norm(grads.values()),
+                       "grad_norm": global_norm(grads, self.tp),
                        "batch_ccc": batch_ccc}
             if tcfg.debug_nans:
                 for k in ("loss", "grad_norm"):

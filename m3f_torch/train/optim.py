@@ -17,16 +17,22 @@ reference's optax state (``train/checkpoint.py`` ``_optax_leaves``).
 Parameters are addressed by their ``/``-joined reference path (the port's
 ``visual.stem.conv1.weight`` is ``visual/stem/conv1/weight``), so ``freeze``
 and ``lr_scale`` prefixes are the reference's.
+
+Under tensor parallelism (``tp``, ``parallel/mesh.py``) a sharded
+parameter's gradient, moments and accumulator are this rank's blocks; every
+transform is elementwise except the clip's global norm, which adds the
+blocks' squares over the model axis (``global_norm``).
 """
 
 from __future__ import annotations
 
 import math
-from typing import Callable, Dict, List, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
 
 from m3f_torch.config import OptimConfig
+from m3f_torch.parallel.mesh import TensorParallel, axis_sum
 
 Tensors = Dict[str, torch.Tensor]
 
@@ -124,16 +130,27 @@ def make_schedule(cfg: OptimConfig, num_steps: int) -> Callable[[int], torch.Ten
                      "(know: constant, cosine, step, plateau)")
 
 
-def global_norm(tensors) -> torch.Tensor:
-    """sqrt of the sum of squares of every element (optax.global_norm)."""
-    return torch.sqrt(sum(torch.sum(t.float() * t.float()) for t in tensors))
+def global_norm(tensors: Tensors,
+                tp: Optional[TensorParallel] = None) -> torch.Tensor:
+    """sqrt of the sum of squares of every element (optax.global_norm) of
+    ``tensors`` (by parameter name). Under the tensor-parallel layout
+    ``tp`` a sharded leaf's squares are summed over the model axis and a
+    replicated one's counted once, so the norm is the whole state's, the
+    same on every rank."""
+    sq = lambda t: torch.sum(t.float() * t.float())
+    if tp is None:
+        return torch.sqrt(sum(sq(t) for t in tensors.values()))
+    whole = [sq(t) for n, t in tensors.items() if not tp.sharded(n)]
+    blocks = [sq(t) for n, t in tensors.items() if tp.sharded(n)]
+    return torch.sqrt(sum(whole) + axis_sum(sum(blocks), tp.axis))
 
 
 class Optimizer:
     """``init(params) -> state``; ``update(grads, state, params) ->
     (updates, state)``; updates are applied with ``p += u``."""
 
-    def __init__(self, cfg: OptimConfig, num_steps: int = 100_000):
+    def __init__(self, cfg: OptimConfig, num_steps: int = 100_000,
+                 tp: Optional[TensorParallel] = None):
         if cfg.optimizer not in ("adam", "sgd"):
             raise ValueError(f"unknown optimizer {cfg.optimizer}")
         self.cfg = cfg
@@ -144,6 +161,7 @@ class Optimizer:
         self.lr_scales = parse_lr_scales(cfg.lr_scale)
         self.freeze = tuple(s.strip() for s in cfg.freeze.split(",") if s.strip())
         self.k = cfg.accumulate_steps
+        self.tp = tp
         self._masks: Dict[str, Dict[str, bool]] = {}
 
     # -- state --------------------------------------------------------------
@@ -171,7 +189,7 @@ class Optimizer:
 
     def _inner(self, grads: Tensors, st: dict, params: Tensors):
         cfg = self.cfg
-        gn = global_norm(grads.values())
+        gn = global_norm(grads, self.tp)
         if not bool(gn < cfg.grad_clip_norm):
             grads = {n: (g / gn) * cfg.grad_clip_norm for n, g in grads.items()}
         new = dict(st)
@@ -220,5 +238,6 @@ class Optimizer:
                  "inner": state["inner"]})
 
 
-def make_optimizer(cfg: OptimConfig, num_steps: int = 100_000) -> Optimizer:
-    return Optimizer(cfg, num_steps)
+def make_optimizer(cfg: OptimConfig, num_steps: int = 100_000,
+                   tp: Optional[TensorParallel] = None) -> Optimizer:
+    return Optimizer(cfg, num_steps, tp)

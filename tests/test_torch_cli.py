@@ -117,9 +117,9 @@ def test_pallas_mel_backend_keeps_the_fixed_hop(run, tmp_path, monkeypatch):
     seen = []
     real = tmain.train_stream
 
-    def recording(cfg, ds, hop_aware):
+    def recording(cfg, ds, hop_aware, *axis):
         seen.append(hop_aware)
-        return real(cfg, ds, hop_aware)
+        return real(cfg, ds, hop_aware, *axis)
     monkeypatch.setattr(tmain, "train_stream", recording)
     rc, out = _run(tmain.main, [
         "train", "--device", "cpu", "--no-eval", *narrow(run["root"]),

@@ -80,7 +80,7 @@ def test_bptt_equals_autograd_through_the_plain_loop():
     g = torch.from_numpy(rng.randn(B, T, D, H).astype(np.float32))
     out, hs = gru_scan_reference(xp, w, b, carries=True)
     assert torch.equal(out, hs)          # fp32 output is the carry
-    dxp, dw, db = gru_bptt(g, xp, w, b, hs)
+    dxp, dw, db, _ = gru_bptt(g, xp, w, b, hs)
     leaves = [v.clone().requires_grad_() for v in (xp, w, b)]
     with torch.enable_grad():
         ref = torch.autograd.grad((gru_scan_reference(*leaves) * g).sum(), leaves)

@@ -1,9 +1,12 @@
 """``train.mesh`` in the port's ``Trainer`` beside the JAX package's: a mesh
 that cannot be built is refused before the model is, with the reference's
 wording (``parallel/mesh.py`` ``order_devices_for_mesh``: ``mesh {data}x
-{model} needs {n} devices, have {m}``); tensor parallelism (``num_model`` >
-1) is not ported and is refused by name; ``num_data`` -1 (every device)
-and 1 build a trainer that takes a step. The JAX side runs on the suite's 8
+{model} needs {n} devices, have {m}``), a tensor-parallel mesh
+(``num_model`` > 1) whose rows the processes cannot fill too, naming
+``num_model``; ``num_data`` -1 (every device) and 1 build a trainer that
+takes a step. A tensor-parallel mesh that the processes fill builds and
+trains in tests/test_torch_parallel.py (1 x 2 on two ranks) and
+tests/test_torch_tensor_parallel.py (2 x 2 and 1 x 4 on four). The JAX side runs on the suite's 8
 fake CPU devices (tests/conftest.py), the port on one process without a
 ``torch.distributed`` group (one device)."""
 
@@ -61,10 +64,24 @@ def test_a_mesh_wider_than_the_devices_is_refused_as_by_jax(extra):
 
 
 def test_tensor_parallel_mesh_is_refused_by_name():
-    with pytest.raises(NotImplementedError, match=r"parallel/"):
+    """One process cannot fill a row of two: ``num_data`` -1 names the
+    multiple of ``num_model`` it needs, ``num_data`` 1 the device count, in
+    the JAX ``Trainer``'s words for a mesh wider than its devices (here 5
+    rows of 2 on its 8)."""
+    with pytest.raises(ValueError, match=r"mesh -1x2 needs a multiple of 2 "
+                                         r"devices, have 1"):
         Trainer(_cfg(tc, -1, num_model=2), device="cpu")
-    with pytest.raises(NotImplementedError, match=r"num_model=2"):
+    pat = r"mesh (\d+)x2 needs (\d+) devices, have (\d+)"
+    with pytest.raises(ValueError, match=pat) as port:
         Trainer(_cfg(tc, 1, num_model=2), device="cpu")
+    assert re.search(pat, str(port.value)).groups() == ("1", "2", "1")
+    with pytest.raises(ValueError, match=pat) as ref:
+        JTrainer(_cfg(jc, jax.device_count() // 2 + 1, num_model=2))
+    assert re.search(pat, str(ref.value)).groups() == (
+        str(jax.device_count() // 2 + 1), str(jax.device_count() + 2),
+        str(jax.device_count()))
+    with pytest.raises(ValueError, match=r"num_model must be at least 1"):
+        Trainer(_cfg(tc, 1, num_model=0), device="cpu")
 
 
 @pytest.mark.parametrize("num_data", [0, -2])

@@ -32,6 +32,10 @@ localhost.
   process, to 1e-6 of the largest prediction.
 - ``m3f_torch.main train --coordinator host:port,2,rank``: both ranks
   train into one checkpoint directory, whose checkpoints resume.
+- ``train.mesh.num_model=2`` builds on the two ranks (one row of a
+  tensor-parallel mesh: each holds its blocks of the BiGRU's gates and the
+  fusion head) and trains the narrow audio model as one process does, to
+  tests/test_tensor_parallel.py's tolerances.
 - A group of one process (gloo, world size 1) runs every collective and
   gives the step of no group, bit for bit.
 """
@@ -249,7 +253,8 @@ def two_ranks(tmp_path_factory):
         # the reference and the one process run while the ranks do
         jax_ref = {case: _jax_steps(*jax_init[case], worker.global_batches(
             worker.case_cfg(case))) for case in JAX_CASES}
-        one = {case: worker.run_case(case, str(tmp)) for case in worker.CASES}
+        one = {case: worker.run_case(case, str(tmp))
+               for case in worker.CASES if case != "tp"}
         outs = [p.communicate(timeout=300)[0] for p in procs]
     finally:
         for p in procs:
@@ -340,6 +345,21 @@ def test_two_ranks_equal_jax_num_data_2_through_the_conv_units(two_ranks):
                           worker.init_weights("visual",
                                               str(two_ranks["tmp"])))
     _held_like_training_on_batch_statistics(got, want, w0)
+
+
+def test_num_model_2_builds_on_two_ranks_and_trains_as_one_process(two_ranks):
+    """A 1 x 2 mesh: the two ranks share the rows and split the BiGRU and
+    the head; 3 steps against the one-process port on the same weights
+    and batches (losses rtol 2e-5 / atol 1e-6, state rtol 5e-4 / atol
+    5e-5, tests/test_tensor_parallel.py's), the leaves gathered whole."""
+    got, want = two_ranks["ranks"]["tp"][0], two_ranks["one"]["audio"]
+    for k in ("loss", "grad_norm"):
+        np.testing.assert_allclose(got[k], want[k], rtol=2e-5, atol=1e-6,
+                                   err_msg=k)
+    for k in want:
+        if k[:2] in ("p/", "b/", "e/"):
+            np.testing.assert_allclose(got[k], want[k], rtol=5e-4, atol=5e-5,
+                                       err_msg=k)
 
 
 def test_sharded_eval_equals_one_process(two_ranks):

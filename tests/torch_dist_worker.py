@@ -36,12 +36,13 @@ from m3f_torch.parallel.seqpar import make_sharded_eval_forward
 from m3f_torch.train.loop import Trainer
 
 STEPS = 3
-CASES = ("audio", "visual", "options", "eval")      # run in this order
+CASES = ("audio", "visual", "options", "eval", "tp")   # run in this order
 
 
-def audio_cfg(mod, num_data=-1):
+def audio_cfg(mod, num_data=-1, num_model=1):
     """The narrow audio-only model of tests/test_parallel.py, in fp32:
-    two-pass CCC (the default), one-pass BatchNorm, EMA."""
+    two-pass CCC (the default), one-pass BatchNorm, EMA; ``num_model`` 2
+    makes the two ranks one row of a tensor-parallel mesh."""
     return mod.ExperimentConfig(
         name="dp",
         model=mod.ModelConfig(
@@ -50,7 +51,8 @@ def audio_cfg(mod, num_data=-1):
             gru=mod.GRUConfig(hidden_size=8), compute_dtype="float32"),
         window=mod.WindowConfig(windows_per_clip=2),
         train=mod.TrainConfig(batch_size=8, ema_decay=0.9,
-                              mesh=mod.MeshConfig(num_data=num_data)))
+                              mesh=mod.MeshConfig(num_data=num_data,
+                                                  num_model=num_model)))
 
 
 def visual_cfg(mod, num_data=-1, **model):
@@ -77,6 +79,8 @@ def visual_cfg(mod, num_data=-1, **model):
 def case_cfg(case: str):
     if case == "audio":
         return audio_cfg(tc)
+    if case == "tp":
+        return audio_cfg(tc, num_model=2)
     if case == "options":
         cfg = visual_cfg(tc, dropout=0.3)
         return cfg.replace(data=dataclasses.replace(cfg.data, augment=True))
@@ -105,13 +109,15 @@ def global_batches(cfg, steps: int = STEPS, seed: int = 0):
 
 
 def run_train(cfg, batches, weights=None) -> dict:
-    """The step loop: a fresh trainer (``weights`` loaded when given), one
-    ``train_step`` a batch on this process's rows of it. → flat arrays:
-    loss / grad_norm / batch_ccc per step, then params, BN buffers and EMA
-    after the last step."""
+    """The step loop: a fresh trainer (``weights`` loaded when given: this
+    rank's blocks of them under tensor parallelism), one ``train_step`` a
+    batch on this process's rows of it. → flat arrays: loss / grad_norm /
+    batch_ccc per step, then params, BN buffers and EMA after the last step
+    (whole: the blocks gathered)."""
     tr = Trainer(cfg, device="cpu")
     if weights is not None:
-        tr.model.load_state_dict(weights)
+        tr.model.load_state_dict(weights if tr.tp is None
+                                 else tr.tp.blocks(weights))
     state = tr.init_state(keep_weights=weights is not None)
     out = {k: [] for k in ("loss", "grad_norm", "batch_ccc")}
     for b in batches:
@@ -122,7 +128,8 @@ def run_train(cfg, batches, weights=None) -> dict:
     for prefix, group in (("p/", state.params), ("b/", state.bn_state),
                           ("e/", state.ema)):
         for n, t in group.items():
-            res[prefix + n] = t.detach().numpy().copy()
+            t = t.detach() if tr.tp is None else tr.tp.full(n, t.detach())
+            res[prefix + n] = t.numpy().copy()
     return res
 
 
@@ -152,8 +159,9 @@ def run_eval(cfg) -> dict:
 
 def init_weights(case: str, out: str):
     """The weights the test left in ``out/<case>.weights.pt`` (the JAX
-    package's init), or None: the port's seeded init."""
-    path = os.path.join(out, f"{case}.weights.pt")
+    package's init; "tp" takes "audio"'s), or None: the port's seeded
+    init."""
+    path = os.path.join(out, f"{'audio' if case == 'tp' else case}.weights.pt")
     return torch.load(path) if os.path.exists(path) else None
 
 
