@@ -19,15 +19,19 @@ H100 (``python3 chip_smoke.py``). It
    and dw swapped, the temporal unit's a y whose zero frames at the clip
    edges went through the prologue, a y from the filter with taps 0 and 2
    swapped and a y whose clips read their neighbours' frames; two calls
-   must give the same bits; both mel routes, the FFT and (n_fft 400, not a
-   power of two) the DFT product, are held fp32 and bf16 out, static and
-   per-row hop, and timed; then checks each kernel at shapes off the main path's
-   tiling (FWD_EDGE_SHAPES: images smaller and larger than a step, W not
-   dividing it, partial chunks, masked channels, the filter resident and
-   streamed; clips of 1-7 frames, partial strips and strips across clips;
-   widths that are not multiples of 8, which the wrappers zero-pad; mel
-   rows with a partial last frame block for both hops; the GRU at
-   GRU_EDGE_SHAPES, each on its planner's route). The GRU is held on both
+   must give the same bits; the mel kernel, one mixed-radix FFT walk for
+   every n_fft, is held fp32 and bf16 out, static and per-row hop, and
+   timed at n_fft 1024 and 400 (not a power of two), held untimed at
+   MEL_CHECK_N_FFT and the largest n_fft its plan takes (both layouts:
+   everything in shared memory, or the FFT buffers and tables in device
+   memory), and shown to refuse the next ones before a launch; then checks each kernel at shapes
+   off the main path's tiling (FWD_EDGE_SHAPES: images smaller and larger
+   than a step, W not dividing it, partial chunks, masked channels, the
+   filter resident and streamed; clips of 1-7 frames, partial strips and
+   strips across clips; widths that are not multiples of 8, which the
+   wrappers zero-pad; mel rows with a partial last frame block or fewer
+   frames than a block at n_fft 1024, 401 and 4096 for both hops, and a
+   per-row hop above max_hop_length, which takes another layout; the GRU at GRU_EDGE_SHAPES, each on its planner's route). The GRU is held on both
    of its routes, the cluster walk (which the serving shape must take) and
    the stream route (the first design), and timed in turn with the stream
    route, the port's layer (input projection, then the kernel) and
@@ -132,8 +136,8 @@ H100 (``python3 chip_smoke.py``). It
    just before and read just after; every kernel must have launched; then
    ``predict_many`` over 3 videos with 2 in flight, each bit for bit
    ``predict_video``'s, timed beside the serial loop; then the same weights
-   with ``model.mel.n_fft`` = ``win_length`` = 400, whose request must go
-   through the mel DFT route and not the FFT;
+   with ``model.mel.n_fft`` = ``win_length`` = 400, whose request must
+   launch the same kernels as the 30 fps one;
    then the live-serving path on the same weights: ``Predictor.warmup``
    (every input shape of a video up to 1024 frames, nominal and at 25 fps)
    and ``SessionGroup.warmup``, timed; the 1024-frame video pushed a second
@@ -440,34 +444,68 @@ def bound(nbytes, flops, peak):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def check_mel(torch, cuda_lib, melspec, cfg, name):
-    """The mel route ``name`` ("melspec": the FFT, n_fft a power of two;
-    "melspec_dft": the DFT product, any other n_fft) at the main path's
-    shapes: 128 rows of 7995 samples (static hop) and 128 rows of 10005
-    samples (per-row hop 640, the 25 fps request), fp32 and bf16 out,
-    against the plain version; each call must launch that route. Timed in
-    turn with ``torch.stft`` + the mel matmul at the same config."""
+# n_fft the mel kernel is held at without timing, beside the timed 1024 and
+# 400 (and the largest its plan takes): the 20 and 30 ms speech windows,
+# radix 7, one prime stage of 499, an odd prime, the first above 2048, an
+# odd one (3 59 113) whose FFT buffers and tables are in device memory
+MEL_CHECK_N_FFT = (320, 480, 448, 998, 401, 4096, 20001)
+
+
+def mel_rows(n_fft):
+    """(rows, static samples, per-row-hop samples, per-row-hop frames): the
+    main path's 128 rows of 7995 / 10005 samples and 16 frames, or rows long
+    enough for an n_fft whose half reaches past them (the reflection needs
+    more than n_fft/2 samples, and 640 * (frames - 1) > n_fft/2 at the
+    per-row hop); 8 rows past an n_fft of 8192, whose plain version's
+    frames would take gigabytes (still more frames than the device-memory
+    layout's grid has blocks)."""
+    half = -(-n_fft // 2) + 1
+    frames = max(16, -(-half // 640) + 1)
+    return (128 if n_fft <= 8192 else 8, max(7995, n_fft),
+            10005 if frames == 16 else 640 * frames + 5, frames)
+
+
+def check_mel(torch, cuda_lib, melspec, cfg, name=None):
+    """The mel kernel at ``cfg.n_fft`` and the main path's shapes: 128 rows
+    of 7995 samples (static hop) and 128 rows of 10005 samples (per-row hop
+    640, the 25 fps request; longer rows where the n_fft needs them,
+    ``mel_rows``), fp32 and bf16 out, against the plain version; each call
+    must launch it once. With ``name``, timed in turn with ``torch.stft`` +
+    the mel matmul at the same config, and its kernels-line entry
+    returned."""
     g = torch.Generator(device="cuda").manual_seed(1)
-    wav = torch.randn(128, 7995, device="cuda", generator=g) * 0.3
-    wav_d = torch.randn(128, 10005, device="cuda", generator=g) * 0.3
-    hops = torch.full((128,), 640, dtype=torch.int32, device="cuda")
+    rows_n, s_static, s_dyn, f_dyn = mel_rows(cfg.n_fft)
+    wav = torch.randn(rows_n, s_static, device="cuda", generator=g) * 0.3
+    wav_d = torch.randn(rows_n, s_dyn, device="cuda", generator=g) * 0.3
+    hops = torch.full((rows_n,), 640, dtype=torch.int32, device="cuda")
     bf = torch.bfloat16
     errs = {}
+    plan = melspec.fft_plan(cfg)
+    fpb, shared = melspec.block_layout(cfg.n_fft, cfg.hop_length)
+    tag = f"mel n_fft {cfg.n_fft} (radices {plan.radices}, {fpb} frames " \
+          f"a block, shared {shared})"
     for rows, (w_, kw) in {"static": (wav, {}),
                            "dynamic_hop": (wav_d, {"hop": hops,
-                                                   "n_frames_out": 16})}.items():
-        before = cuda_lib.launches[name]
+                                                   "n_frames_out": f_dyn})
+                           }.items():
+        before = cuda_lib.launches["melspec"]
         got = melspec.log_mel_spectrogram(w_, cfg, **kw)
-        require(cuda_lib.launches[name] == before + 1,
-                f"mel n_fft {cfg.n_fft} {rows}: not the {name} route")
+        got_bf = melspec.log_mel_spectrogram(w_, cfg, bf, **kw).float()
+        require(cuda_lib.launches["melspec"] == before + 2,
+                f"{tag} {rows}: {cuda_lib.launches['melspec'] - before} "
+                f"melspec launches for two calls")
         errs[rows] = (got - melspec.log_mel_spectrogram_reference(w_, cfg, **kw)
                       ).abs().max().item()
-        got = melspec.log_mel_spectrogram(w_, cfg, bf, **kw).float()
         want = melspec.log_mel_spectrogram_reference(w_, cfg, bf, **kw).float()
-        ok = bool(((got - want).abs() <= MEL_ATOL + ulp_bf16(torch, want)).all())
-        errs[rows + "_bf16"] = (got - want).abs().max().item()
+        ok = bool(((got_bf - want).abs()
+                   <= MEL_ATOL + ulp_bf16(torch, want)).all())
+        errs[rows + "_bf16"] = (got_bf - want).abs().max().item()
         require(errs[rows] <= MEL_ATOL and ok,
-                f"{name} kernel vs plain: {errs} (tol {MEL_ATOL}, bf16 + one ulp)")
+                f"{tag} kernel vs plain: {errs} (tol {MEL_ATOL}, bf16 + one ulp)")
+    if name is None:
+        return {"n_fft": cfg.n_fft, "radices": list(plan.radices),
+                "rows": rows_n, "frames_per_block": fpb, "shared": shared,
+                "max_abs_err": errs}
     plain = timed(torch, lambda: melspec.log_mel_spectrogram_reference(wav, cfg, bf))
     win = torch.hann_window(cfg.win_length, periodic=True, device="cuda")
     fb = torch.from_numpy(melspec.mel_filterbank(cfg)).cuda()
@@ -482,21 +520,53 @@ def check_mel(torch, cuda_lib, melspec, cfg, name):
         "library": library})
     (ms, ms_spread), (lib, lib_spread) = t["kernel"], t["library"]
     # The function's own work, whatever the algorithm: per frame the window,
-    # a real FFT (5/2 n log2 n), the power of each bin, the mel product and
-    # the log; bytes are the wav in and the log-mel out (constants such as
-    # the filterbank are not inputs).
-    frames, n, bins = 128 * 16, cfg.n_fft, cfg.n_fft // 2 + 1
-    flops = frames * (n + 2.5 * n * math.log2(n) + 3 * bins
-                      + 2 * bins * cfg.n_mels + cfg.n_mels)
+    # a real FFT (5/2 n log2 n), the power of each bin, the mel product over
+    # the filterbank's nonzero weights (each bin lies in at most two
+    # triangles) and the log; bytes are the wav in and the log-mel out
+    # (constants such as the filterbank are not inputs).
+    frames = rows_n * melspec.num_frames(s_static, cfg)
+    n, bins = cfg.n_fft, cfg.n_fft // 2 + 1
+    nnz = int((plan.band_hi - plan.band_lo).sum())
+    flops = frames * (n + 2.5 * n * math.log2(n) + 3 * bins + 2 * nnz
+                      + cfg.n_mels)
     nbytes = wav.numel() * 4 + frames * cfg.n_mels * 2
     b_ms, b_by = bound(nbytes, flops, PEAK_FP32)
-    emit({"phase": "kernel_" + name, "n_fft": n, "max_abs_err": errs,
+    emit({"phase": "kernel_" + name, "n_fft": n, "radices": list(plan.radices),
+          "frames_per_block": fpb, "max_abs_err": errs,
           "tol": MEL_ATOL, "ms": ms, "ms_spread": ms_spread, "plain_ms": plain,
           "library_ms": lib, "library_ms_spread": lib_spread,
           "bound_ms": b_ms})
     return {"name": name, "max_abs_err": max(errs["static"], errs["dynamic_hop"]),
             "ms": ms, "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by,
             "library_ms": lib}
+
+
+def check_mel_sizes(torch, cuda_lib, melspec, MelConfig):
+    """The mel kernel untimed at MEL_CHECK_N_FFT and the largest n_fft its
+    plan takes (one frame a block, its FFT buffers and tables in device
+    memory); the next odd and even n_fft must be refused before any
+    launch."""
+    res = []
+    for n in MEL_CHECK_N_FFT + (melspec.largest_n_fft(),):
+        res.append(check_mel(torch, cuda_lib, melspec,
+                             MelConfig(n_fft=n, win_length=n)))
+    require({r["shared"] for r in res} == {True, False},
+            f"mel sizes: not both layouts held: {res}")
+    refusals = {}
+    for too_large in (melspec.largest_n_fft() + 1, melspec.largest_n_fft() + 2):
+        before = dict(cuda_lib.launches)
+        try:
+            melspec.log_mel_spectrogram(
+                torch.zeros(1, too_large, device="cuda"),
+                MelConfig(n_fft=too_large, win_length=too_large))
+            refused = None
+        except ValueError as e:
+            refused = str(e)
+        require(refused is not None and cuda_lib.launches == before,
+                f"mel n_fft {too_large}: not refused before a launch")
+        refusals[too_large] = refused
+    emit({"phase": "kernel_mel_sizes", "checks": res, "tol": MEL_ATOL,
+          "refusals": refusals})
 
 
 def check_gru(torch, cuda_lib, gru):
@@ -1560,21 +1630,43 @@ def check_edges(torch, F, cuda_lib, melspec, gru, conv_bn, cfg):
                 f"(tol {tol})")
     require(any(k.endswith("stream") for k in errs), "no gru edge shape "
             "took the stream route")
-    # 31 frames: a last block of 7; per-row hops of 533, 640 and 667 over 13
-    # frames: a last block of 5, each row reflecting about its own end
-    wav = torch.randn(3, 16000, device="cuda", generator=g) * 0.3
-    errs["melspec"] = (melspec.log_mel_spectrogram(wav, cfg)
-                       - melspec.log_mel_spectrogram_reference(wav, cfg)
-                       ).abs().max().item()
-    hops = torch.tensor([533, 640, 667], dtype=torch.int32, device="cuda")
-    wav_d = torch.randn(3, 12000, device="cuda", generator=g) * 0.3
-    errs["melspec_dynamic_hop"] = (
-        melspec.log_mel_spectrogram(wav_d, cfg, hop=hops, n_frames_out=13)
-        - melspec.log_mel_spectrogram_reference(wav_d, cfg, hop=hops,
-                                                n_frames_out=13)
-    ).abs().max().item()
-    require(max(errs["melspec"], errs["melspec_dynamic_hop"]) <= MEL_ATOL,
-            f"mel at edge shapes: {errs['melspec']}, {errs['melspec_dynamic_hop']}")
+    # mel rows off the block tiling, one launch a call: 31 static frames at
+    # n_fft 1024 and 401 (8 a block: a last block of 7; 401 odd, its rows a
+    # whole number of hops long, so its last frame reaches one sample past
+    # the padded row) and 4096 (4 a block: a last of 3); per-row hops of
+    # 533, 640 and 667 over 13 frames (last blocks of 5 and 1), each row
+    # reflecting about its own end; n_fft 401 over 3 static and 5 per-row
+    # frames, fewer than a block; at 4096 per-row hops up to 3000, above
+    # max_hop_length, which take a layout of fewer frames a block
+    small_hops = [533, 640, 667]
+    mel_edges = {}
+    for n in (1024, 401, 4096):
+        c = dataclasses.replace(cfg, n_fft=n, win_length=n)
+        mel_edges[f"melspec_{n}"] = (c, 15990, None, None)
+        mel_edges[f"melspec_{n}_dynamic_hop"] = (c, 12000, small_hops, 13)
+    c401 = dataclasses.replace(cfg, n_fft=401, win_length=401)
+    mel_edges["melspec_401_short"] = (c401, 1200, None, None)
+    mel_edges["melspec_401_dynamic_hop_short"] = (c401, 3000, small_hops, 5)
+    c4096 = dataclasses.replace(cfg, n_fft=4096, win_length=4096)
+    mel_edges["melspec_4096_hop_above_max"] = (c4096, 36005, [533, 3000, 2500],
+                                               13)
+    require(melspec.block_layout(4096, 3000)
+            != melspec.block_layout(4096, cfg.max_hop_length),
+            "mel: a hop of 3000 takes the same layout at n_fft 4096")
+    for key, (c, samples, hop_list, n_out) in mel_edges.items():
+        w_ = torch.randn(3, samples, device="cuda", generator=g) * 0.3
+        kw = {} if hop_list is None else {
+            "hop": torch.tensor(hop_list, dtype=torch.int32, device="cuda"),
+            "n_frames_out": n_out}
+        before = cuda_lib.launches["melspec"]
+        got = melspec.log_mel_spectrogram(w_, c, **kw)
+        require(cuda_lib.launches["melspec"] == before + 1,
+                f"mel at edge shape {key}: "
+                f"{cuda_lib.launches['melspec'] - before} launches")
+        errs[key] = (got - melspec.log_mel_spectrogram_reference(w_, c, **kw)
+                     ).abs().max().item()
+        require(errs[key] <= MEL_ATOL, f"mel at edge shape {key}: "
+                f"{errs[key]} (tol {MEL_ATOL})")
     emit({"phase": "kernel_edge_shapes", "max_abs_err": errs})
 
 
@@ -3724,7 +3816,7 @@ def cli_presets(torch, np, cuda_lib, config, main, root, repo, log_dir):
             ok = counts["melspec"] == 2 and counts["gru"] == 2 \
                 and not any(counts[k] for k in conv)
         else:      # bf16: each bf16 unit 10 a step, no fp32 unit
-            ok = counts["melspec"] == counts["melspec_dft"] == 0 \
+            ok = counts["melspec"] == 0 \
                 and counts["gru"] == 2 and all(
                     counts[k] == (0 if k.endswith("_f32") else 20)
                     for k in conv)
@@ -4666,8 +4758,9 @@ def main():
     mel400 = {"n_fft": 400, "win_length": 400}     # not a power of two
     kernels = [check_mel(torch, cuda_lib, melspec, MelConfig(), "melspec"),
                check_mel(torch, cuda_lib, melspec, MelConfig(**mel400),
-                         "melspec_dft"),
+                         "melspec_n_fft_400"),
                *check_gru(torch, cuda_lib, gru)]
+    check_mel_sizes(torch, cuda_lib, melspec, MelConfig)
     kernels += check_conv(torch, F, conv_bn)
     check_edges(torch, F, cuda_lib, melspec, gru, conv_bn, MelConfig())
     torch.cuda.empty_cache()
@@ -4732,16 +4825,14 @@ def main():
                 offline)
     trace_serve(torch, np, profiling, p, frames, wav,
                 os.path.join(repo, "build", "trace_serve"))
-    # the same weights with a mel n_fft of 400: the DFT route, not the FFT
+    # the same weights with a mel n_fft of 400: the same mel kernel, on
+    # mixed-radix stages
     p400 = Predictor(preset="longseq_eval", overrides={
         f"model.mel.{k}": v for k, v in mel400.items()})
     p400.model.load_state_dict(p.model.state_dict())
     p400.predict_video(frames=frames, waveform=wav)       # warm run
-    _, counts400, dt400 = serve(
-        torch, np, cuda_lib, p400, frames, wav,
-        kernels=("melspec_dft",) + FORWARD_KERNELS[1:])
-    want400 = dict(want, melspec=0, melspec_dft=1)
-    require(counts400 == want400, f"launches {counts400}, expected {want400}")
+    _, counts400, dt400 = serve(torch, np, cuda_lib, p400, frames, wav)
+    require(counts400 == want, f"launches {counts400}, expected {want}")
     emit({"phase": "serve_mel_n_fft_400", "frames": 1024,
           "launches": counts400, "s": dt400, "frames_per_s": 1024 / dt400})
     cfg_serve = p.cfg
@@ -4845,7 +4936,7 @@ def main():
     # 6. the kernels line, the card line, the result line
     pallas = "m3f/pytorch_tpu/ops/pallas/"
     replaces = {"melspec": pallas + "melspec_pallas.py:88",
-                "melspec_dft": pallas + "melspec_pallas.py:88",
+                "melspec_n_fft_400": pallas + "melspec_pallas.py:88",
                 "gru": pallas + "gru_pallas.py:61",
                 "gru_stream": pallas + "gru_pallas.py:61",
                 "conv_unit_spatial": pallas + "conv_bn.py:172",
@@ -4870,7 +4961,7 @@ def main():
     counter_f32 = {"conv_unit_spatial_f32": "conv_spatial_f32",
                    "conv_unit_temporal_f32": "conv_temporal_f32"}
     source = {"melspec": "m3f_torch/csrc/melspec.cu",
-              "melspec_dft": "m3f_torch/csrc/melspec.cu",
+              "melspec_n_fft_400": "m3f_torch/csrc/melspec.cu",
               "gru": "m3f_torch/csrc/gru.cu",
               "gru_stream": "m3f_torch/csrc/gru.cu",
               "conv_unit_spatial_f32": "m3f_torch/csrc/conv_bn_f32.cu",
@@ -4880,8 +4971,8 @@ def main():
     line = []
     for k in kernels:
         name = k["name"]
-        # forward kernels: their launches serving one video (the DFT mel
-        # route: serving it with n_fft 400; the GRU's stream route: none,
+        # forward kernels: their launches serving one video (the mel
+        # kernel at n_fft 400: serving it so; the GRU's stream route: none,
         # the serving path takes the cluster walk); backward kernels: theirs over
         # the 10 timed train steps (fp32: the F32_TRAIN_STEPS of phase
         # train_fp32); probe kernels: theirs in one probe run
@@ -4891,8 +4982,8 @@ def main():
             launches = counts30[counter[name]]
         elif name in counter_f32:        # serving one video in fp32
             launches = counts_f32[counter_f32[name]]
-        elif name == "melspec_dft":
-            launches = counts400[name]
+        elif name == "melspec_n_fft_400":
+            launches = counts400["melspec"]
         elif name in PROBE_KERNELS:
             launches = counts_probe[name]
         else:

@@ -32,7 +32,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-lineinfo")
 SOURCES = ("melspec", "gru", "conv_bn", "conv_bn_f32", "packed_conv")
 
-launches: Dict[str, int] = {"melspec": 0, "melspec_dft": 0, "gru": 0,
+launches: Dict[str, int] = {"melspec": 0, "gru": 0,
                             "gru_stream": 0,
                             "conv_spatial": 0, "conv_temporal": 0,
                             "conv_spatial_f32": 0, "conv_temporal_f32": 0,
@@ -54,10 +54,9 @@ I = ctypes.c_int
 Fl = ctypes.c_float
 # C signatures of the exported entry points (every one returns cudaError_t)
 SIGNATURES = {
-    "melspec": {"m3f_log_mel": [P, I, I, I, P, I, I, I, I, P, P, P, P, P,
-                                I, I, I, I, I, Fl, P, I, P],
-                "m3f_log_mel_dft": [P, I, I, I, P, I, I, I, I, P, P, P, I, I,
-                                    I, Fl, P, I, P]},
+    "melspec": {"m3f_log_mel": [P, I, I, I, P, I, I, I, I, I, P, P, P, I, P,
+                                P, P, I, I, I, I, I, Fl, I, I, I, P, I, P,
+                                I, P]},
     "gru": {"m3f_gru_cluster_fwd": [P, P, P, P, P, P, P, I, I, I, I, I, I, I,
                                     I, I, P],
             "m3f_gru_stream_fwd": [P, P, P, P, P, P, P, I, I, I, I, I, I, P]},

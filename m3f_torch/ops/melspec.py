@@ -8,17 +8,16 @@ rFFT path, static reflect-pad and dynamic-hop framing) and of
 
 ``log_mel_spectrogram`` is the one entry point: on a CPU tensor it runs the
 plain ``log_mel_spectrogram_reference`` (``torch.fft.rfft``); on a CUDA
-tensor it launches a kernel, which frames straight from the wav rows
-(reflection in index space, no padded copy) and supports the per-row hop,
-so the port needs no fixed-hop fallback. For an ``n_fft`` that is a power
-of two (at least 4) the kernel does the real DFT as an FFT in shared memory
-whose host constants are ``fft_plan``; for any other ``n_fft`` a second
-kernel does it as a product with window-folded DFT bases
-(``windowed_dft_mats``), as the TPU kernel does.
+tensor it launches one kernel, which frames straight from the wav rows
+(reflection in index space, no padded copy), supports the per-row hop, so
+the port needs no fixed-hop fallback, and does the real DFT of any
+``n_fft`` as a mixed-radix FFT whose host constants are ``fft_plan`` and
+whose launch layout is ``block_layout``.
 """
 
 from __future__ import annotations
 
+import ctypes
 import functools
 from typing import NamedTuple, Optional, Tuple, Union
 
@@ -29,7 +28,8 @@ import torch.nn.functional as F
 from m3f_torch.config import MelConfig
 from m3f_torch.ops import cuda_lib
 
-_BINS_PER_PASS = 256   # the DFT route's pass width (csrc/melspec.cu DFT_NB)
+SMEM_BLOCK_MAX = 227 << 10   # a block's shared memory on sm_90 (opt-in)
+_FRAMES_PER_BLOCK = (8, 4, 2, 1)
 
 # ---------------------------------------------------------------------------
 # Host-side constants (numpy, computed once per config)
@@ -110,14 +110,16 @@ def _padded_window(cfg: MelConfig) -> np.ndarray:
 class MelFftPlan(NamedTuple):
     """The FFT kernel's host constants for one config (csrc/melspec.cu).
 
-    A frame of n_fft real samples x goes through one n_fft/2-point complex
-    FFT of z[n] = w[2n]·x[2n] + i·w[2n+1]·x[2n+1] in Stockham stages of
-    ``radices`` (in order), then the real split
-    X[k] = (Z[k] + Z*[N-k])/2 − i·e[k]·(Z[k] − Z*[N-k])/2, N = n_fft/2,
-    for the bins ``[bin_lo, bin_hi)`` that some band weighs; band m sums
-    bins ``[band_lo[m], band_hi[m])`` with ``weights[m, k - band_lo[m]]``.
-    e[k] = ``twiddles[k]`` = exp(−2πik/n_fft); the FFT's twiddles are
-    e[2m]."""
+    A frame of n_fft real samples x goes through one N-point complex FFT in
+    Stockham stages of ``radices`` (in order): for an even n_fft N = n_fft/2
+    and z[j] = w[2j]·x[2j] + i·w[2j+1]·x[2j+1], then the real split
+    X[k] = (Z[k] + Z*[N-k])/2 − i·e[k]·(Z[k] − Z*[N-k])/2; for an odd n_fft
+    N = n_fft, z[j] = w[j]·x[j] and X[k] = Z[k]. Only the bins
+    ``[bin_lo, bin_hi)`` that some band weighs are formed; band m sums bins
+    ``[band_lo[m], band_hi[m])`` with ``weights[m, k - band_lo[m]]``.
+    e[m] = ``twiddles[m]`` = exp(−2πim/n_fft); the FFT's twiddles w_N^m are
+    e[2m] (even n_fft) or e[m] (odd). A call's launch layout is
+    ``block_layout`` at its largest hop."""
     window: np.ndarray       # [n_fft] fp32, centred in n_fft (librosa)
     twiddles: np.ndarray     # [n_fft, 2] fp32 (re, im), from float64
     radices: Tuple[int, ...]
@@ -128,26 +130,79 @@ class MelFftPlan(NamedTuple):
     bin_hi: int
 
 
-def fft_route(cfg: MelConfig) -> bool:
-    """Whether the card takes the FFT kernel for ``cfg`` (n_fft a power of
-    two, at least 4); else the DFT-product kernel."""
-    n = cfg.n_fft
-    return n >= 4 and not n & (n - 1)
+def fft_size(n_fft: int) -> int:
+    """N, the complex FFT's size: n_fft/2 for an even n_fft (packed real
+    FFT), n_fft for an odd one."""
+    return n_fft if n_fft % 2 else n_fft // 2
 
 
-@functools.lru_cache(maxsize=8)
+def fft_radices(n: int) -> Tuple[int, ...]:
+    """The stages of an n-point FFT, ascending: as many 4s as the power of
+    two allows, one 2 where it is odd, then 3s, 5s and any other primes (a
+    power of two: 2 first where log2 n is odd, then 4s)."""
+    e2 = (n & -n).bit_length() - 1
+    rad = [4] * (e2 // 2) + [2] * (e2 % 2)
+    n >>= e2
+    p = 3
+    while p * p <= n:
+        while n % p == 0:
+            rad.append(p)
+            n //= p
+        p += 2
+    if n > 1:
+        rad.append(n)
+    return tuple(sorted(rad))
+
+
+def mel_smem(n_fft: int, frames_per_block: int, hop: int, shared: bool,
+             n_frames: Optional[int] = None) -> int:
+    """A block's shared memory (mel_smem in csrc/melspec.cu): where
+    ``shared``, two complex buffers of ``frames_per_block`` frames of N
+    points (the power reuses one), the twiddle table and the window (else
+    all three live in device memory); always the segment its frames touch
+    at ``hop`` (``n_frames`` bounds its frames)."""
+    fpb = frames_per_block
+    seg_frames = fpb if n_frames is None else max(1, min(n_frames, fpb))
+    return 4 * ((4 * fpb * fft_size(n_fft) + 3 * n_fft if shared else 0)
+                + (seg_frames - 1) * hop + n_fft)
+
+
+@functools.lru_cache(maxsize=64)
+def block_layout(n_fft: int, hop: int) -> Tuple[int, bool]:
+    """(frames a block, buffers and tables in shared memory) at hops up to
+    ``hop``: the most frames of 8, 4, 2, 1 whose block fits 227 KB with
+    everything in shared memory, else one frame whose FFT buffers, twiddles
+    and window are in device memory beside its segment in shared memory;
+    raises where even the segment does not fit (n_fft > ``largest_n_fft``)."""
+    if n_fft < 1:
+        raise ValueError(f"the log-mel kernel needs n_fft >= 1, got {n_fft}")
+    for fpb in _FRAMES_PER_BLOCK:
+        if mel_smem(n_fft, fpb, hop, True) <= SMEM_BLOCK_MAX:
+            return fpb, True
+    if mel_smem(n_fft, 1, hop, False) > SMEM_BLOCK_MAX:
+        raise ValueError(
+            f"n_fft {n_fft} does not fit the log-mel kernel: one frame's "
+            f"samples need {mel_smem(n_fft, 1, hop, False)} bytes of shared "
+            f"memory, a block has {SMEM_BLOCK_MAX} (227 KB); the largest "
+            f"n_fft is {largest_n_fft()}")
+    return 1, False
+
+
+def largest_n_fft() -> int:
+    """The largest n_fft with a layout, even or odd: one frame a block, its
+    4-byte samples alone in shared memory."""
+    return SMEM_BLOCK_MAX // 4
+
+
+@functools.lru_cache(maxsize=16)
 def fft_plan(cfg: MelConfig) -> MelFftPlan:
-    """The kernel's plan for ``cfg``; n_fft must be a power of two (at
-    least 4): the kernel has no other FFT."""
+    """The kernel's constants for ``cfg``; raises where no launch layout
+    fits its n_fft."""
     n = cfg.n_fft
-    if not fft_route(cfg):
-        raise ValueError(f"the log-mel kernel's FFT needs n_fft a power of "
-                         f"two, at least 4; got {n}")
-    log2n = n.bit_length() - 2               # log2 of the complex FFT's size
-    radices = (2,) * (log2n & 1) + (4,) * (log2n // 2)
+    block_layout(n, cfg.hop_length)
     ang = -2.0 * np.pi * np.arange(n, dtype=np.float64) / n
     tw = np.stack([np.cos(ang), np.sin(ang)], axis=1).astype(np.float32)
-    fb = mel_filterbank(cfg)                             # [n/2 + 1, n_mels]
+    fb = mel_filterbank(cfg)                             # [n//2 + 1, n_mels]
     lo = np.zeros(cfg.n_mels, np.int32)
     hi = np.zeros(cfg.n_mels, np.int32)
     for m in range(cfg.n_mels):
@@ -161,52 +216,16 @@ def fft_plan(cfg: MelConfig) -> MelFftPlan:
     used = hi > lo
     bin_lo = int(lo[used].min()) if used.any() else 0
     bin_hi = int(hi[used].max()) if used.any() else 0
-    return MelFftPlan(_padded_window(cfg), tw, radices, lo, hi, weights,
-                      bin_lo, bin_hi)
+    return MelFftPlan(_padded_window(cfg), tw, fft_radices(fft_size(n)), lo,
+                      hi, weights, bin_lo, bin_hi)
 
 
-@functools.lru_cache(maxsize=8)
+@functools.lru_cache(maxsize=16)
 def _device_plan(cfg: MelConfig, device: torch.device):
     p = fft_plan(cfg)
     return tuple(torch.from_numpy(np.ascontiguousarray(a)).to(device)
                  for a in (p.window, p.twiddles, p.band_lo, p.band_hi,
                            p.weights))
-
-
-@functools.lru_cache(maxsize=8)
-def windowed_dft_mats(cfg: MelConfig):
-    """(C', S', fb', lo): the DFT route's window-folded bases over the bins
-    the mel filterbank weighs, and the matching filterbank rows.
-
-    Bins outside ``[lo, hi]`` (the first and last bins with a non-zero
-    filter weight) add exactly zero to every mel sum, so they are left out;
-    the kept bins are zero-padded to a multiple of the kernel's pass width.
-    C'[k, i] = win[k]·cos(-2πk(lo+i)/n), S' likewise with sin, both
-    [n_fft, nbp] float32; fb' [nbp, n_mels].
-    """
-    n = cfg.n_fft
-    fb = mel_filterbank(cfg)
-    nz = np.nonzero(fb.any(axis=1))[0]
-    lo, hi = (int(nz[0]), int(nz[-1])) if len(nz) else (0, 0)
-    nb = hi - lo + 1
-    nbp = -(-nb // _BINS_PER_PASS) * _BINS_PER_PASS
-    win = _padded_window(cfg).astype(np.float64)
-    k = np.arange(n, dtype=np.float64)[:, None]
-    b = np.arange(lo, hi + 1, dtype=np.float64)[None, :]
-    ang = -2.0 * np.pi * k * b / n
-    c = np.zeros((n, nbp), np.float32)
-    s = np.zeros((n, nbp), np.float32)
-    c[:, :nb] = win[:, None] * np.cos(ang)
-    s[:, :nb] = win[:, None] * np.sin(ang)
-    fbp = np.zeros((nbp, fb.shape[1]), np.float32)
-    fbp[:nb] = fb[lo:hi + 1]
-    return c, s, fbp, lo
-
-
-@functools.lru_cache(maxsize=8)
-def _device_mats(cfg: MelConfig, device: torch.device):
-    c, s, fbp, _ = windowed_dft_mats(cfg)
-    return tuple(torch.from_numpy(a).to(device) for a in (c, s, fbp))
 
 
 # ---------------------------------------------------------------------------
@@ -250,7 +269,13 @@ def log_mel_spectrogram_reference(waveform: torch.Tensor, cfg: MelConfig,
         x = x.reshape(-1, t)
         if cfg.center:
             x = F.pad(x, (cfg.n_fft // 2, cfg.n_fft // 2), mode="reflect")
-        frames = x.unfold(-1, cfg.n_fft, cfg.hop_length)[:, :num_frames(t, cfg)]
+        n_fr = num_frames(t, cfg)
+        # an odd n_fft's last frame can reach one sample past the padded
+        # row: it reads the last one again, as the reference's gather does
+        short = (n_fr - 1) * cfg.hop_length + cfg.n_fft - x.shape[-1]
+        if short > 0:
+            x = F.pad(x, (0, short), mode="replicate")
+        frames = x.unfold(-1, cfg.n_fft, cfg.hop_length)[:, :n_fr]
         frames = frames.reshape(lead + frames.shape[1:])
     win = torch.from_numpy(_padded_window(cfg)).to(x.device)
     spec = torch.fft.rfft(frames * win, n=cfg.n_fft, dim=-1)
@@ -263,6 +288,11 @@ def log_mel_spectrogram_reference(waveform: torch.Tensor, cfg: MelConfig,
 # ---------------------------------------------------------------------------
 # Entry point: plain version on the CPU, the CUDA kernel on the card
 # ---------------------------------------------------------------------------
+
+@functools.lru_cache(maxsize=8)
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
 
 def row_hops(hop: torch.Tensor, lead) -> torch.Tensor:
     """One hop per row of a ``[*lead, samples]`` wav, contiguous: ``hop``
@@ -290,6 +320,7 @@ def log_mel_spectrogram(waveform: torch.Tensor, cfg: MelConfig,
     if out_dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"log_mel_spectrogram kernel writes float32 or "
                          f"bfloat16, got {out_dtype}")
+    plan = fft_plan(cfg)
     lead, t = waveform.shape[:-1], waveform.shape[-1]
     x = waveform.reshape(-1, t).float().contiguous()
     n_rows = x.shape[0]
@@ -313,29 +344,33 @@ def log_mel_spectrogram(waveform: torch.Tensor, cfg: MelConfig,
     out = torch.empty((n_rows, n_fr, cfg.n_mels), dtype=out_dtype,
                       device=x.device)
     left = cfg.n_fft // 2 if cfg.center else 0
+    # the static path reads no further than the padded row's last sample
+    jmax = t - 1 + left if hop is None else 2 ** 31 - 1
     frames = (x.data_ptr(), n_rows, t, n_fr,
               None if hops is None else hops.data_ptr(), hop0, end0, left,
-              hop_max)
+              jmax, hop_max)
+    fpb, shared = block_layout(cfg.n_fft, hop_max)
+    work, n_blocks = None, 0
+    if not shared:
+        # one frame a block, its FFT buffers in device memory: a grid of two
+        # blocks an SM, each with its own two N-point complex buffers, walks
+        # the (row, frame) pairs
+        n_blocks = min(n_rows * n_fr, 2 * _sm_count(x.device))
+        work = torch.empty((n_blocks, 2, fft_size(cfg.n_fft), 2),
+                           dtype=torch.float32, device=x.device)
+    win, tw, band_lo, band_hi, weights = _device_plan(cfg, x.device)
+    radices = (ctypes.c_int * len(plan.radices))(*plan.radices)
     lib = cuda_lib.library("melspec")
     with torch.cuda.device(x.device):
-        if fft_route(cfg):
-            plan = fft_plan(cfg)
-            win, tw, band_lo, band_hi, weights = _device_plan(cfg, x.device)
-            err = lib.m3f_log_mel(
-                *frames, win.data_ptr(), tw.data_ptr(), band_lo.data_ptr(),
-                band_hi.data_ptr(), weights.data_ptr(), weights.shape[1],
-                plan.bin_lo, plan.bin_hi, cfg.n_fft, cfg.n_mels, cfg.log_eps,
-                out.data_ptr(), int(out_dtype == torch.bfloat16),
-                cuda_lib.stream_ptr(x))
-            counter = "melspec"
-        else:
-            c, s, fbp = _device_mats(cfg, x.device)
-            err = lib.m3f_log_mel_dft(
-                *frames, c.data_ptr(), s.data_ptr(), fbp.data_ptr(),
-                fbp.shape[0], cfg.n_fft, cfg.n_mels, cfg.log_eps,
-                out.data_ptr(), int(out_dtype == torch.bfloat16),
-                cuda_lib.stream_ptr(x))
-            counter = "melspec_dft"
-    cuda_lib.check(err, f"log_mel_spectrogram {counter} kernel")
-    cuda_lib.launches[counter] += 1
+        err = lib.m3f_log_mel(
+            *frames, win.data_ptr(), tw.data_ptr(), ctypes.addressof(radices),
+            len(plan.radices), band_lo.data_ptr(), band_hi.data_ptr(),
+            weights.data_ptr(), weights.shape[1], plan.bin_lo, plan.bin_hi,
+            cfg.n_fft, cfg.n_mels, cfg.log_eps, fpb, int(shared),
+            mel_smem(cfg.n_fft, fpb, hop_max, shared, n_fr),
+            None if work is None else work.data_ptr(), n_blocks,
+            out.data_ptr(), int(out_dtype == torch.bfloat16),
+            cuda_lib.stream_ptr(x))
+    cuda_lib.check(err, "log_mel_spectrogram melspec kernel")
+    cuda_lib.launches["melspec"] += 1
     return out.reshape(lead + (n_fr, cfg.n_mels))

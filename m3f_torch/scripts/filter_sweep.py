@@ -156,10 +156,11 @@ in the full-width ``fusion`` train step (32 clips, BN prologue on), beside:
   bank); a device copy of x, gy and y. ``--check`` also counts the
   walk's FFMAs whose sources meet in a register bank, from the built
   library's SASS;
-- ``--kind mel``: the mel FFT kernel at the serving path's shapes (static
-  and per-row hop), and the DFT-product kernel (n_fft 400) at the same
-  rows, against their plain versions, and beside ``torch.stft`` + the mel
-  matmul in turn (5 rounds);
+- ``--kind mel``: the mel kernel (one mixed-radix FFT walk) at the
+  serving path's shapes (static and per-row hop) with n_fft 1024 and 400,
+  and untimed at the other radices up to the largest n_fft its plan takes,
+  against the plain version, and beside ``torch.stft`` + the mel matmul in
+  turn (5 rounds);
 - ``--kind gru``: the GRU's cluster walk (``gru_cluster_kernel``) at the
   serving (16 sequences of 128 steps) and train (8 of 64, fp32 carries)
   shapes, bf16 and fp32 W, every time a device time: in alternating rounds
@@ -330,7 +331,8 @@ def resources(kind: str) -> None:
     ``temporal_fwd_f32_kernel``, ``spatial_filter_f32_kernel``,
     ``spatial_data_f32_kernel``, ``data_split_sum_f32_kernel``,
     ``temporal_data_f32_kernel`` and ``temporal_filter_f32_kernel``;
-    in melspec.cu ``log_mel_kernel`` and ``log_mel_dft_kernel``; in gru.cu
+    in melspec.cu ``log_mel_kernel`` (tables in shared or device memory);
+    in gru.cu
     ``gru_cluster_kernel`` and ``gru_kernel``)."""
     kernels = {"spatial_fwd": ("spatial_fwd_kernel",),
                "spatial_fwd_f32": ("spatial_fwd_f32_kernel",),
@@ -2513,12 +2515,16 @@ def sweep_temporal_filter_f32(reps: int, parent: Optional[str]) -> None:
 # --- the log-mel frontend ---------------------------------------------------
 
 def sweep_mel(reps: int, check_only: bool) -> None:
-    """The FFT kernel at the serving path's shapes (128 rows of 7995
-    samples at the static hop, 128 of 10005 at a per-row hop of 640), and
-    the DFT-product kernel at the same rows with n_fft = win_length = 400,
-    against the plain version; ptxas' resource lines; unless ``check_only``,
-    each kernel and ``torch.stft`` + the mel matmul (the static rows) timed
-    in turn, 5 rounds of ``reps``, and the plain version."""
+    """The mel kernel at the serving path's shapes (128 rows of 7995
+    samples at the static hop, 128 of 10005 at a per-row hop of 640) with
+    n_fft 1024 and n_fft = win_length = 400, and at the static rows with
+    the other radices (320, 480, 448 radix 7, 998 one stage of 499, 401
+    odd, 4096, and with the FFT buffers and tables in device memory 20001
+    odd and the largest n_fft its plan takes, on 8 rows of n_fft samples),
+    against the plain version; ptxas' resource lines; unless
+    ``check_only``, the serving-shape calls and ``torch.stft`` + the mel
+    matmul (the static rows) timed in turn as device time (each call
+    queued behind a spin), 5 rounds of ``reps``, and the plain version."""
     import dataclasses
     from m3f_torch.config import MelConfig
     from m3f_torch.ops import melspec
@@ -2531,22 +2537,22 @@ def sweep_mel(reps: int, check_only: bool) -> None:
     wav_d = torch.randn(128, 10005, device=dev, generator=g) * 0.3
     hops = torch.full((128,), 640, dtype=torch.int32, device=dev)
     bf = torch.bfloat16
-    calls = {
-        "static": (lambda: melspec.log_mel_spectrogram(wav, cfg, bf),
-                   lambda: melspec.log_mel_spectrogram_reference(wav, cfg, bf)),
-        "dynamic_hop": (
-            lambda: melspec.log_mel_spectrogram(wav_d, cfg, bf, hop=hops,
-                                                n_frames_out=16),
-            lambda: melspec.log_mel_spectrogram_reference(
-                wav_d, cfg, bf, hop=hops, n_frames_out=16)),
-        "dft_n_fft_400": (
-            lambda: melspec.log_mel_spectrogram(wav, cfg400, bf),
-            lambda: melspec.log_mel_spectrogram_reference(wav, cfg400, bf)),
-        "dft_n_fft_400_dynamic_hop": (
-            lambda: melspec.log_mel_spectrogram(wav_d, cfg400, bf, hop=hops,
-                                                n_frames_out=16),
-            lambda: melspec.log_mel_spectrogram_reference(
-                wav_d, cfg400, bf, hop=hops, n_frames_out=16))}
+
+    def pair(c, w, **kw):
+        return (lambda: melspec.log_mel_spectrogram(w, c, bf, **kw),
+                lambda: melspec.log_mel_spectrogram_reference(w, c, bf, **kw))
+    dyn = {"hop": hops, "n_frames_out": 16}
+    calls = {"static": pair(cfg, wav), "dynamic_hop": pair(cfg, wav_d, **dyn),
+             "n_fft_400": pair(cfg400, wav),
+             "n_fft_400_dynamic_hop": pair(cfg400, wav_d, **dyn)}
+    for n in (320, 480, 448, 998, 401, 4096, 20001, melspec.largest_n_fft()):
+        c = dataclasses.replace(cfg, n_fft=n, win_length=n)
+        # 8 rows past n_fft 8192 (FFT buffers in device memory), whose plain
+        # version's frames would take gigabytes
+        w = wav if n < 7995 else torch.randn(128 if n <= 8192 else 8, n,
+                                             device=dev, generator=g)
+        calls[f"n_fft_{n}"] = pair(c, w)
+
     def library(c):
         win = torch.hann_window(c.win_length, periodic=True, device=dev)
         fb = torch.from_numpy(melspec.mel_filterbank(c)).to(dev)
@@ -2558,23 +2564,24 @@ def sweep_mel(reps: int, check_only: bool) -> None:
             power = spec.real ** 2 + spec.imag ** 2
             return torch.log(power.transpose(1, 2) @ fb + c.log_eps).to(bf)
         return call
-    libs = {"static": library(cfg), "dft_n_fft_400": library(cfg400)}
+    libs = {"static": library(cfg), "n_fft_400": library(cfg400)}
+    timed_rows = ("static", "dynamic_hop", "n_fft_400", "n_fft_400_dynamic_hop")
     for name, (kern, plain) in calls.items():
-        before = dict(cuda_lib.launches)
+        before = cuda_lib.launches["melspec"]
         err = (kern().float() - plain().float()).abs().max().item()
-        route = [k for k in ("melspec", "melspec_dft")
-                 if cuda_lib.launches[k] > before[k]]
-        row = {"kind": "mel", "rows": name, "route": route,
+        row = {"kind": "mel", "rows": name,
+               "launches": cuda_lib.launches["melspec"] - before,
                "max_abs_err_bf16": err, "repeats": torch.equal(kern(), kern())}
-        if not check_only:
+        if not check_only and name in timed_rows:
             rounds = {"ms": [], "library_ms": []}
             for _ in range(5):
-                rounds["ms"].append(timed(kern, reps))
+                rounds["ms"].append(timed(kern, reps, queued=True))
                 if name in libs:
-                    rounds["library_ms"].append(timed(libs[name], reps))
+                    rounds["library_ms"].append(timed(libs[name], reps,
+                                                      queued=True))
             row.update({k: statistics.median(v) for k, v in rounds.items() if v})
             row["spread_ms"] = max(rounds["ms"]) - min(rounds["ms"])
-            row["plain_ms"] = timed(plain, reps)
+            row["plain_ms"] = timed(plain, reps, queued=True)
         print(json.dumps(row), flush=True)
 
 
